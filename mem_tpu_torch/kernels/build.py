@@ -1,0 +1,139 @@
+"""Build the port's CUDA kernels at first use and bind them with ctypes.
+
+Every ``mem_tpu_torch/csrc/*.cu`` is compiled by one nvcc call into one
+shared library with a plain C interface::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -Xptxas -v -o _build/libmem_kernels_<hash>.so csrc/*.cu
+
+The library lands in ``mem_tpu_torch/_build/`` (git-ignored), named by a
+hash of the sources and the flags, so an unchanged tree loads the cached
+build and an edited one rebuilds. The ptxas report (registers, shared
+memory, spills per kernel) is kept beside it as ``build_<hash>.log``.
+
+No PyTorch header is compiled: pointers (``Tensor.data_ptr()``) and the
+stream (``torch.cuda.current_stream().cuda_stream``) cross as Python ints,
+so every pointer and the stream are declared ``c_void_p``. Each C entry
+point returns ``cudaGetLastError()`` after its launch; :func:`check` turns a
+non-zero code into an exception.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry point -> (argtypes, restype)
+SIGNATURES = {
+    "mem_hist_planes_cols": ((_P, _P, _P, _I, _I, _I, _I, _P), _I),
+    "mem_attention_fwd_flat": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P), _I),
+    "mem_attention_fwd_flat_smem": ((_I, _I, _I), ctypes.c_longlong),
+    "mem_attention_fwd_flat_uses_mma": ((_P, _P, _P, _P, _I, _I, _I), _I),
+    "mem_cuda_error_string": ((_I,), ctypes.c_char_p),
+}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def find_nvcc() -> str | None:
+    """nvcc from $CUDA_HOME, then $PATH, then /usr/local/cuda."""
+    cands = []
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home:
+        cands.append(os.path.join(home, "bin", "nvcc"))
+    which = shutil.which("nvcc")
+    if which:
+        cands.append(which)
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    return None
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC_DIR.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _check_device() -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("the CUDA kernels need a CUDA device; none is available")
+    cap = torch.cuda.get_device_capability()
+    if cap != (9, 0):
+        raise RuntimeError(
+            f"the kernels are built for sm_90a (Hopper); this device "
+            f"({torch.cuda.get_device_name()}) has capability {cap}")
+
+
+def build() -> Path:
+    """Compile csrc/*.cu unless the cached library for these sources exists;
+    returns its path."""
+    tag = _digest()
+    lib_path = BUILD_DIR / f"libmem_kernels_{tag}.so"
+    if lib_path.exists():
+        return lib_path
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, $PATH "
+                           "and /usr/local/cuda/bin); the kernels cannot be built")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    (BUILD_DIR / f"build_{tag}.log").write_text(
+        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    os.replace(tmp, lib_path)   # atomic: a concurrent loader never sees half a file
+    return lib_path
+
+
+def build_log() -> str:
+    """The nvcc/ptxas output of the build of the current sources, if any."""
+    p = BUILD_DIR / f"build_{_digest()}.log"
+    return p.read_text() if p.exists() else ""
+
+
+def library() -> ctypes.CDLL:
+    """The bound kernel library; checks the device and builds on first call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            _check_device()
+            lib = ctypes.CDLL(str(build()))
+            for name, (argtypes, restype) in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = restype
+            _lib = lib
+        return _lib
+
+
+def check(name: str, rc: int) -> None:
+    """Raise when a C entry point reports a CUDA error."""
+    if rc != 0:
+        msg = library().mem_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")

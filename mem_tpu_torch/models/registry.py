@@ -1,0 +1,35 @@
+"""Model registry — ``create_model(name, **kwargs)``, port of
+mem_tpu/models/registry.py. Only ``ft_vit`` is ported; the other models of
+the reference come with their slices."""
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+_REGISTRY: Dict[str, Callable] = {}
+
+
+def register_model(fn: Callable) -> Callable:
+    _REGISTRY[fn.__name__] = fn
+    return fn
+
+
+def list_models():
+    return sorted(_REGISTRY)
+
+
+def create_model(name: str, **kwargs):
+    if name not in _REGISTRY:
+        raise ValueError(f"unknown model {name!r}; available: {list_models()}")
+    return _REGISTRY[name](**kwargs)
+
+
+@register_model
+def ft_vit(**kwargs):
+    """Classification ViT (reference ``ft_vit``). Training-only arguments
+    (dropout and drop-path rates) are accepted and ignored: they are
+    identity at eval."""
+    from mem_tpu_torch.models.classifier import VisionTransformer
+
+    for k in ("pretrained", "drop_rate", "drop_path_rate", "attn_drop_rate"):
+        kwargs.pop(k, None)
+    return VisionTransformer(**kwargs)

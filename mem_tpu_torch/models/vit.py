@@ -1,0 +1,302 @@
+"""ViT building blocks (eval forward), port of mem_tpu/models/vit.py.
+
+flax ``dtype`` semantics are kept: parameters stay f32, each layer casts
+them to the compute dtype (bf16 for serving) at use, LayerNorm statistics
+and softmax run in f32. Submodules and parameters are named after the
+reference's torch schema (mem_tpu/utils/torch_import.py:122-173), so a
+state_dict from ``export_vit_params`` / ``from_jax_params`` loads with
+``strict=True``.
+
+Attention always goes through ``fused_attention_flat`` (kernel K2 on the
+card, its plain version on the CPU). Dropout and drop-path are identity at
+eval, so the port keeps no rates. The reference's INT8, fused-MLP and XLA
+scheduling toggles are not ported.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from mem_tpu_torch.ops.attention import fused_attention_flat
+
+
+def trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator,
+                  trunc_sigmas: float = 2.0) -> torch.Tensor:
+    """In-place truncated normal N(0, std^2) cut at +-trunc_sigmas std
+    (inverse-CDF sampling from ``generator``)."""
+    lo = 0.5 * (1.0 + math.erf(-trunc_sigmas / math.sqrt(2.0)))
+    hi = 0.5 * (1.0 + math.erf(trunc_sigmas / math.sqrt(2.0)))
+    with torch.no_grad():
+        u = torch.rand(t.shape, generator=generator, device=generator.device)
+        u = (lo + (hi - lo) * u) * 2.0 - 1.0
+        x = torch.erfinv(u.clamp(-1 + 1e-7, 1 - 1e-7)) * (std * math.sqrt(2.0))
+        t.copy_(x.clamp(-trunc_sigmas * std, trunc_sigmas * std))
+    return t
+
+
+def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    """flax Dense(dtype=...): x @ W + b with W and b cast to the compute
+    dtype, the bias added after the product is rounded."""
+    y = torch.matmul(x.to(dtype), layer.weight.to(dtype).t())
+    if layer.bias is not None:
+        y = y + layer.bias.to(dtype)
+    return y
+
+
+class FusedLayerNorm(nn.Module):
+    """LayerNorm with f32 two-pass statistics (mean, then mean of squared
+    deviations), eps 1e-6, output in the input dtype (vit.py:97-117)."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, device=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device))
+
+    def forward(self, x):
+        xf = x.float()
+        m = xf.mean(dim=-1, keepdim=True)
+        d = xf - m
+        v = (d * d).mean(dim=-1, keepdim=True)
+        y = d * torch.rsqrt(v + self.eps) * self.weight + self.bias
+        return y.to(x.dtype)
+
+
+class FastVarLayerNorm(nn.Module):
+    """flax ``nn.LayerNorm(epsilon=1e-6, dtype=float32)``: flax's default
+    fast variance E[x^2] - E[x]^2 (clipped at 0), statistics and output in
+    f32, scale folded into rsqrt before the multiply, as flax orders it."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, device=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device))
+
+    def forward(self, x):
+        xf = x.float()
+        mean = xf.mean(dim=-1, keepdim=True)
+        mean2 = (xf * xf).mean(dim=-1, keepdim=True)
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (xf - mean) * mul + self.bias
+
+
+def relative_position_index(window_size) -> np.ndarray:
+    """BEiT relative-position index for a (Wh, Ww) patch grid plus the cls
+    token: (Wh*Ww+1, Wh*Ww+1) int32 into a table of (2Wh-1)(2Ww-1)+3 rows,
+    the last three being cls->token, token->cls and cls->cls
+    (vit.py:144-165)."""
+    wh, ww = window_size
+    num_rel = (2 * wh - 1) * (2 * ww - 1) + 3
+    coords = np.stack(np.meshgrid(np.arange(wh), np.arange(ww), indexing="ij"))
+    flat = coords.reshape(2, -1)
+    rel = (flat[:, :, None] - flat[:, None, :]).transpose(1, 2, 0)
+    rel[:, :, 0] += wh - 1
+    rel[:, :, 1] += ww - 1
+    rel[:, :, 0] *= 2 * ww - 1
+    idx = np.zeros((wh * ww + 1, wh * ww + 1), dtype=np.int32)
+    idx[1:, 1:] = rel.sum(-1)
+    idx[0, 0:] = num_rel - 3
+    idx[0:, 0] = num_rel - 2
+    idx[0, 0] = num_rel - 1
+    return idx
+
+
+def gather_relative_position_bias(table: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """(num_rel, H) table gathered by the (N, N) index -> (H, N, N) f32."""
+    n = index.shape[0]
+    return table[index.reshape(-1)].reshape(n, n, -1).permute(2, 0, 1).float()
+
+
+class RelativePositionBias(nn.Module):
+    """The shared relative-position bias (one table for all blocks),
+    expanded by a gather (vit.py:168-200). Returns (H, N+1, N+1)."""
+
+    def __init__(self, window_size, num_heads: int, device=None):
+        super().__init__()
+        wh, ww = window_size
+        num_rel = (2 * wh - 1) * (2 * ww - 1) + 3
+        self.relative_position_bias_table = nn.Parameter(
+            torch.zeros(num_rel, num_heads, device=device))
+        self.register_buffer(
+            "relative_position_index",
+            torch.as_tensor(relative_position_index(window_size), dtype=torch.long,
+                            device=device), persistent=False)
+
+    def forward(self):
+        return gather_relative_position_bias(self.relative_position_bias_table,
+                                             self.relative_position_index)
+
+
+class Mlp(nn.Module):
+    """fc1 -> exact gelu -> fc2 in the compute dtype."""
+
+    def __init__(self, dim: int, hidden_dim: int, dtype=torch.float32, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.fc1 = nn.Linear(dim, hidden_dim, device=device)
+        self.fc2 = nn.Linear(hidden_dim, dim, device=device)
+
+    def forward(self, x):
+        x = F.gelu(linear(x, self.fc1, self.dtype), approximate="none")
+        return linear(x, self.fc2, self.dtype)
+
+
+class Attention(nn.Module):
+    """Multi-head attention with BEiT's decomposed qkv bias (q and v learn a
+    bias, k's is fixed zero) and an optional per-block relative-position
+    bias, on the flat path (vit.py:380-459): three products against weight
+    slices of the fused qkv weight, then kernel K2 on (B, N, H*D)."""
+
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
+                 qk_scale: float | None = None, window_size=None,
+                 attn_head_dim: int | None = None, dtype=torch.float32, device=None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.dtype = dtype
+        head_dim = attn_head_dim or dim // num_heads
+        self.all_head_dim = head_dim * num_heads
+        self.scale = float(qk_scale or head_dim ** -0.5)
+        self.qkv = nn.Linear(dim, 3 * self.all_head_dim, bias=False, device=device)
+        if qkv_bias:
+            self.q_bias = nn.Parameter(torch.zeros(self.all_head_dim, device=device))
+            self.v_bias = nn.Parameter(torch.zeros(self.all_head_dim, device=device))
+        else:
+            self.q_bias = self.v_bias = None
+        if window_size is not None:
+            wh, ww = window_size
+            num_rel = (2 * wh - 1) * (2 * ww - 1) + 3
+            self.relative_position_bias_table = nn.Parameter(
+                torch.zeros(num_rel, num_heads, device=device))
+            self.register_buffer(
+                "relative_position_index",
+                torch.as_tensor(relative_position_index(window_size), dtype=torch.long,
+                                device=device), persistent=False)
+        else:
+            self.relative_position_bias_table = None
+        self.proj = nn.Linear(self.all_head_dim, dim, device=device)
+
+    def forward(self, x, rel_pos_bias=None):
+        B, N, _ = x.shape
+        a = self.all_head_dim
+        w = self.qkv.weight.to(self.dtype)
+        q = torch.matmul(x, w[:a].t())
+        k = torch.matmul(x, w[a:2 * a].t())
+        v = torch.matmul(x, w[2 * a:].t())
+        if self.q_bias is not None:
+            q = q + self.q_bias.to(self.dtype)
+            v = v + self.v_bias.to(self.dtype)
+        bias = None
+        if self.relative_position_bias_table is not None:
+            bias = gather_relative_position_bias(self.relative_position_bias_table,
+                                                 self.relative_position_index)
+        if rel_pos_bias is not None:
+            bias = rel_pos_bias if bias is None else bias + rel_pos_bias
+        if bias is None:
+            bias = torch.zeros(self.num_heads, N, N, device=x.device)
+        out = fused_attention_flat(q.contiguous(), k.contiguous(), v.contiguous(),
+                                   bias.float().contiguous(), self.scale)
+        return linear(out, self.proj, self.dtype)
+
+
+class Block(nn.Module):
+    """Pre-norm transformer block with LayerScale (vit.py:560-642)."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 qkv_bias: bool = True, qk_scale: float | None = None,
+                 init_values: float | None = None, window_size=None,
+                 attn_head_dim: int | None = None, dtype=torch.float32, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.norm1 = FusedLayerNorm(dim, device=device)
+        self.attn = Attention(dim, num_heads, qkv_bias=qkv_bias, qk_scale=qk_scale,
+                              window_size=window_size, attn_head_dim=attn_head_dim,
+                              dtype=dtype, device=device)
+        self.norm2 = FusedLayerNorm(dim, device=device)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype, device=device)
+        if init_values is not None and init_values > 0:
+            self.gamma_1 = nn.Parameter(torch.full((dim,), float(init_values), device=device))
+            self.gamma_2 = nn.Parameter(torch.full((dim,), float(init_values), device=device))
+        else:
+            self.gamma_1 = self.gamma_2 = None
+
+    def forward(self, x, rel_pos_bias=None):
+        a = self.attn(self.norm1(x).to(self.dtype), rel_pos_bias)
+        if self.gamma_1 is not None:
+            a = self.gamma_1.to(a.dtype) * a
+        x = x + a
+        m = self.mlp(self.norm2(x).to(self.dtype))
+        if self.gamma_2 is not None:
+            m = self.gamma_2.to(m.dtype) * m
+        return x + m
+
+
+class PatchEmbed(nn.Module):
+    """Stride-P patchify of NHWC images as one product: (B, H, W, C) ->
+    (B, Hp*Wp, D). The (D, C, P, P) torch-layout weight is flattened in
+    flax's (kh, kw, C) order, which is how the patches are laid out, so no
+    convolution (and no cuDNN TF32 default) is involved."""
+
+    def __init__(self, patch_size, in_chans: int, embed_dim: int,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.patch_size = tuple(patch_size)
+        self.dtype = dtype
+        self.proj = nn.Conv2d(in_chans, embed_dim, self.patch_size,
+                              stride=self.patch_size, device=device)
+
+    def forward(self, x):
+        B, H, W, C = x.shape
+        ph, pw = self.patch_size
+        hp, wp = H // ph, W // pw
+        x = x[:, : hp * ph, : wp * pw].to(self.dtype)      # VALID padding
+        patches = x.reshape(B, hp, ph, wp, pw, C).permute(0, 1, 3, 2, 4, 5)
+        patches = patches.reshape(B, hp * wp, ph * pw * C)
+        w = self.proj.weight.to(self.dtype).permute(2, 3, 1, 0).reshape(ph * pw * C, -1)
+        return torch.matmul(patches, w) + self.proj.bias.to(self.dtype)
+
+
+class VitEncoder(nn.Module):
+    """The transformer trunk (vit.py:670-721): blocks with an optional
+    shared rel-pos bias. Its parameters sit at the top of the reference
+    schema (``blocks.N.*``, ``rel_pos_bias.*``), so models that own a trunk
+    subclass this module rather than hold it."""
+
+    def __init__(self, embed_dim: int, depth: int, num_heads: int,
+                 mlp_ratio: float = 4.0, qkv_bias: bool = True,
+                 qk_scale: float | None = None, init_values: float | None = None,
+                 use_rel_pos_bias: bool = False, use_shared_rel_pos_bias: bool = False,
+                 window_size=None, dtype=torch.float32, device=None):
+        super().__init__()
+        self.rel_pos_bias = (RelativePositionBias(window_size, num_heads, device=device)
+                             if use_shared_rel_pos_bias else None)
+        self.blocks = nn.ModuleList([
+            Block(embed_dim, num_heads, mlp_ratio=mlp_ratio, qkv_bias=qkv_bias,
+                  qk_scale=qk_scale, init_values=init_values,
+                  window_size=window_size if use_rel_pos_bias else None,
+                  dtype=dtype, device=device)
+            for _ in range(depth)])
+
+    def encode(self, x):
+        rel_pos_bias = self.rel_pos_bias() if self.rel_pos_bias is not None else None
+        for blk in self.blocks:
+            x = blk(x, rel_pos_bias)
+        return x
+
+    def init_weights(self, generator: torch.Generator, init_std: float = 0.02) -> None:
+        """timm/BEiT init (vit.py trunc_normal_init): truncated normal at +-2
+        std for the products, zero biases, and the depth rescale
+        1/sqrt(2 * layer_id) on attn.proj and mlp.fc2."""
+        for i, blk in enumerate(self.blocks):
+            s = 1.0 / math.sqrt(2.0 * (i + 1))
+            trunc_normal_(blk.attn.qkv.weight, init_std, generator)
+            trunc_normal_(blk.attn.proj.weight, init_std * s, generator)
+            trunc_normal_(blk.mlp.fc1.weight, init_std, generator)
+            trunc_normal_(blk.mlp.fc2.weight, init_std * s, generator)
+            for lin in (blk.attn.proj, blk.mlp.fc1, blk.mlp.fc2):
+                nn.init.zeros_(lin.bias)

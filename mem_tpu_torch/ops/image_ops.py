@@ -1,0 +1,128 @@
+"""Post-rasterization image transforms, batched NHWC (eval subset).
+
+Port of mem_tpu/ops/image_ops.py: the antialiased bilinear resize with
+per-sample source extents, and the event-image channel ops of the
+reference's mem/transforms.py. Channel convention: 0 = positive counts,
+1 = time surface, 2 = negative counts; a C != 3 image is a voxel grid whose
+channels are all counts. Crops, ColorJitter and random erasing come with
+the training slice.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def _triangle_resize_matrix(out_size: int, src_size: int, src_extent,
+                            src_offset=0.0, device=None) -> torch.Tensor:
+    """(..., out_size, src_size) f32 triangle-filter resampling matrices
+    (image_ops.py:27-53). ``src_extent`` (and ``src_offset``) may be
+    (B,) tensors of per-sample logical source lengths inside the static
+    canvas. The filter stretches by max(scale, 1) so downscaling low-passes
+    (torch/PIL antialias=True); taps outside the logical window are zeroed
+    and rows normalized to sum 1 (1e-12 floor)."""
+    ext = torch.as_tensor(src_extent, dtype=torch.float32, device=device)[..., None, None]
+    off = torch.as_tensor(src_offset, dtype=torch.float32, device=device)[..., None, None]
+    scale = ext / out_size
+    fscale = torch.clamp(scale, min=1.0)
+    out_c = off + (torch.arange(out_size, dtype=torch.float32, device=device)[:, None]
+                   + 0.5) * scale
+    src_c = torch.arange(src_size, dtype=torch.float32, device=device)[None, :] + 0.5
+    w = torch.clamp(1.0 - torch.abs(out_c - src_c) / fscale, min=0.0)
+    inside = (src_c >= off) & (src_c < off + ext)
+    w = w * inside
+    return w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-12)
+
+
+def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int,
+                    src_h=None, src_w=None) -> torch.Tensor:
+    """Antialiased bilinear resize of (H, W, C) to (out_h, out_w, C) as two
+    f32 matmuls ``Wy @ img @ Wx^T``; src_h/src_w are optional logical
+    source extents within the canvas (default the full canvas)."""
+    return resize_bilinear_batch(
+        img[None], out_h, out_w,
+        None if src_h is None else torch.as_tensor([src_h]),
+        None if src_w is None else torch.as_tensor([src_w]))[0]
+
+
+def resize_bilinear_batch(imgs: torch.Tensor, out_h: int, out_w: int,
+                          src_hs=None, src_ws=None) -> torch.Tensor:
+    """(B, H, W, C) -> (B, out_h, out_w, C) f32 with per-sample (B,) source
+    extents. Full f32 products: on CUDA this needs
+    torch.backends.cuda.matmul.allow_tf32 False (PyTorch's default)."""
+    B, H, W, C = imgs.shape
+    dev = imgs.device
+    src_hs = torch.full((B,), H, device=dev) if src_hs is None else src_hs.to(dev)
+    src_ws = torch.full((B,), W, device=dev) if src_ws is None else src_ws.to(dev)
+    wy = _triangle_resize_matrix(out_h, H, src_hs, device=dev)     # (B, oh, H)
+    wx = _triangle_resize_matrix(out_w, W, src_ws, device=dev)     # (B, ow, W)
+    x = imgs.to(torch.float32).reshape(B, H, W * C)
+    x = torch.bmm(wy, x).reshape(B, out_h, W, C)                   # (B, oh, W, C)
+    x = x.permute(0, 1, 3, 2).reshape(B, out_h * C, W)
+    x = torch.matmul(x, wx.transpose(1, 2))                        # (B, oh*C, ow)
+    return x.reshape(B, out_h, C, out_w).permute(0, 1, 3, 2).contiguous()
+
+
+def _count_ch(img: torch.Tensor) -> torch.Tensor:
+    """Count-channel mask: [1, 0, 1] for the 3-channel histogram, all ones
+    for a voxel grid."""
+    c = img.shape[-1]
+    if c == 3:
+        return torch.tensor([1.0, 0.0, 1.0], dtype=img.dtype, device=img.device)
+    return torch.ones(c, dtype=img.dtype, device=img.device)
+
+
+def remove_timesurface(img: torch.Tensor) -> torch.Tensor:
+    """Zero channel 1 (RemoveTimesurface); no-op for voxel grids."""
+    if img.shape[-1] != 3:
+        return img
+    return img * _count_ch(img)
+
+
+def log_transform(img: torch.Tensor) -> torch.Tensor:
+    """log1p on the count channels (LogTransform)."""
+    ch = _count_ch(img)
+    return torch.log1p(img) * ch + img * (1 - ch)
+
+
+def gamma_transform(img: torch.Tensor, gamma: float) -> torch.Tensor:
+    """pow-gamma on the count channels (GammaTransform)."""
+    ch = _count_ch(img)
+    return torch.pow(torch.clamp(img, min=0.0), gamma) * ch + img * (1 - ch)
+
+
+def normalize_event(img: torch.Tensor) -> torch.Tensor:
+    """Scale the count channels by 1 / their joint per-sample max, if
+    nonzero (NormalizeEvent). Multiplies by the reciprocal, as the
+    reference does (image_ops.py:206-207), rather than dividing."""
+    ch = _count_ch(img)
+    m = (img * ch).amax(dim=(-3, -2, -1), keepdim=True)
+    factor = torch.where(m > 0, 1.0 / torch.clamp(m, min=1e-30), torch.ones_like(m))
+    return img * (ch * factor + (1 - ch))
+
+
+def remove_hot_pixels(img: torch.Tensor, num_stds: float = 10.0,
+                      num_hot_pixels: int | None = None) -> torch.Tensor:
+    """Zero the count channels at hot pixels (RemoveHotPixels,
+    image_ops.py:210-248), per sample over (H, W, C).
+
+    Default: a pixel is hot where any count plane exceeds (strictly)
+    mean + num_stds * std, mean/std joint over the count planes with
+    Bessel's correction. ``num_hot_pixels``: the k largest count values are
+    hot (threshold at the k-th order statistic)."""
+    c = img.shape[-1]
+    cnt = img[..., [0, 2]] if c == 3 else img
+    if num_hot_pixels is not None:
+        flat = cnt.reshape(*cnt.shape[:-3], -1)
+        k = min(int(num_hot_pixels), flat.shape[-1])
+        kth = torch.topk(flat, k, dim=-1).values[..., -1]
+        thr = kth[..., None, None, None] - 1e-30
+        hot = (cnt >= thr).any(dim=-1)
+    else:
+        n = cnt.shape[-3] * cnt.shape[-2] * cnt.shape[-1]
+        mean = cnt.mean(dim=(-3, -2, -1), keepdim=True)
+        var = ((cnt - mean) ** 2).sum(dim=(-3, -2, -1), keepdim=True) / (n - 1)
+        thr = mean + num_stds * torch.sqrt(var)
+        hot = (cnt > thr).any(dim=-1)
+    keep = (~hot)[..., None].to(img.dtype)
+    chm = _count_ch(img)
+    return img * (keep * chm + (1 - chm))

@@ -1,0 +1,35 @@
+"""Checkpoint loading for the port: PyTorch ``.pth`` files.
+
+Port of mem_tpu/utils/checkpoint.py ``latest_checkpoint`` /
+``load_checkpoint`` for the format ``python -m mem_tpu.cli.export_torch``
+writes, ``{"model": state_dict, "epoch": n}`` (export_torch.py:57-60), which
+is also the reference's own ``ft_vit`` checkpoint format. Orbax checkpoint
+directories are out of reach: reading them needs jax; export them to .pth
+first.
+"""
+from __future__ import annotations
+
+import os
+from typing import Any, Dict, Optional
+
+import torch
+
+
+def latest_checkpoint(output_dir: str) -> Optional[str]:
+    """The newest ``*.pth`` in ``output_dir`` (by modification time), or
+    None when it is not a directory or holds none."""
+    if not os.path.isdir(output_dir):
+        return None
+    paths = [os.path.join(output_dir, n) for n in os.listdir(output_dir)
+             if n.endswith(".pth")]
+    return max(paths, key=os.path.getmtime) if paths else None
+
+
+def load_checkpoint(path: str) -> Dict[str, Any]:
+    """Load a .pth checkpoint onto the CPU (tensors and plain values only)."""
+    if os.path.isdir(path):
+        raise ValueError(
+            f"{path} is a directory without a .pth checkpoint; orbax checkpoints "
+            f"need jax to read -- convert one with `python -m "
+            f"mem_tpu.cli.export_torch --checkpoint {path} --output model.pth`")
+    return torch.load(path, map_location="cpu", weights_only=True)

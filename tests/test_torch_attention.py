@@ -1,0 +1,66 @@
+"""The port's flat fused attention (K2 forward's plain version) held against
+mem_tpu.ops.attention.fused_attention_flat in interpret mode, and the
+wrapper's device dispatch. The CUDA kernel itself is held against the
+plain version on the card by chip_smoke.py."""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from mem_tpu.ops.attention import fused_attention_flat as jax_fused_attention_flat
+from mem_tpu_torch.ops.attention import fused_attention_flat, fused_attention_flat_reference
+
+# f32: same math, sums in another order -> 1e-5 max abs.
+# bf16: inputs rounded to bf16 on both sides, p rounded to bf16 before PV
+# and the output rounded to bf16 -> a few bf16 ulps at |o| <= 2: 2e-2 max abs.
+_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+def _inputs(rng, B, N, H, D):
+    q, k, v = (rng.standard_normal((B, N, H * D)).astype(np.float32) for _ in range(3))
+    bias = (rng.standard_normal((H, N, N)) * 0.5).astype(np.float32)
+    return q, k, v, bias
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,N,H,D", [(2, 24, 3, 8), (1, 37, 2, 16)])
+def test_reference_matches_jax_interpret(rng, dtype, B, N, H, D):
+    q, k, v, bias = _inputs(rng, B, N, H, D)
+    scale = D ** -0.5
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    want = jax_fused_attention_flat(*(jnp.asarray(a, jdt) for a in (q, k, v)),
+                                    jnp.asarray(bias), scale, True)
+    want = np.asarray(want.astype(jnp.float32))
+    got = fused_attention_flat_reference(*(torch.from_numpy(a).to(tdt) for a in (q, k, v)),
+                                         torch.from_numpy(bias), scale)
+    assert got.dtype == tdt and got.shape == (B, N, H * D)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=_TOL[dtype])
+
+
+def test_cpu_wrapper_takes_plain_version(rng):
+    q, k, v, bias = (torch.from_numpy(a) for a in _inputs(rng, 2, 11, 2, 8))
+    torch.testing.assert_close(fused_attention_flat(q, k, v, bias, 0.3),
+                               fused_attention_flat_reference(q, k, v, bias, 0.3),
+                               rtol=0, atol=0)
+
+
+def test_non_cuda_device_raises():
+    """Only CPU tensors take the plain version: any other device must reach
+    the kernel or raise, never fall back."""
+    q = torch.empty(1, 4, 8, device="meta")
+    bias = torch.empty(2, 4, 4, device="meta")
+    with pytest.raises(ValueError):
+        fused_attention_flat(q, q, q, bias, 0.5)
+
+
+def test_kernel_library_needs_a_cuda_device():
+    """The build refuses to run without a card (it never builds or loads a
+    library a CPU run could then mistake for a kernel)."""
+    from mem_tpu_torch.kernels import build
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        build.library()
