@@ -1,0 +1,382 @@
+"""MEM masked-event pretraining on PyTorch, port of
+mem_tpu/cli/run_mem_pretraining.py: the same flags and aliases (so
+configs/*.conf bind), plus ``--device``.
+
+Each step (train/steps.py) runs on the device: the training preprocessing
+(kernel K1 and the augmentations) -> the frozen VAE's codebook labels ->
+the masked ViT (``pt_vit``; attention through kernels K2f/K2b) -> the
+cross-entropy at the masked positions -> AdamW with the cosine lr / wd
+schedules. The host loads, slices and pads events, draws the masks and the
+augmentations, and copies each batch to the device one step ahead.
+
+The frozen tokenizer comes from ``--discrete_vae_weight_path``, a ``.pth``
+holding ``{"model": <reference VAE state_dict>, "hparams": {input_H,
+input_W, num_tokens, emb_dim, num_layers, num_resnet_blocks, hidden_dim,
+channels, loss}}`` (the keys the reference's stage-1 checkpoint carries).
+Checkpoints are ``output_dir/checkpoint-{epoch}.pth`` and
+``checkpoint-final.pth``, ``{"model": <state_dict in the export_vit_params
+schema>, "optimizer": ..., "epoch": n}``; ``--auto_resume`` continues from
+the newest one.
+
+Usage:
+  python -m mem_tpu_torch.cli.run_mem_pretraining --config configs/ncaltech.conf \\
+      --data_path datasets/ncaltech101 --discrete_vae_weight_path vae.pth \\
+      --output_dir pt_out [--device cuda]
+"""
+from __future__ import annotations
+
+from mem_tpu import _signals
+
+_signals.latch()  # before torch loads: a setup-time SIGTERM must latch
+
+import math
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+from mem_tpu.utils.config import ConfigArgumentParser
+from mem_tpu_torch.cli.common import (add_compat_args, add_imnet_args, add_preprocessing_args,
+                                      build_pipeline, build_preproc, validate_preproc_args,
+                                      warn_compat_args)
+from mem_tpu_torch.data.device_pipeline import draw_train_aug
+from mem_tpu_torch.data.prefetch import device_prefetch, prefetch, to_device
+from mem_tpu_torch.models.discrete_vae import DiscreteVAE
+from mem_tpu_torch.models.registry import create_model
+from mem_tpu_torch.train.optim import create_optimizer
+from mem_tpu_torch.train.schedules import at, cosine_scheduler
+from mem_tpu_torch.train.steps import make_pretrain_eval_step, make_pretrain_train_step
+from mem_tpu_torch.utils.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
+
+LOG_EVERY = 10   # steps between metric reads (the reference logs every 10)
+
+
+def get_args(argv=None):
+    p = ConfigArgumentParser("MEM pretraining (PyTorch)")
+    p.add_argument("--expweek", type=str, default="")
+    p.add_argument("--expname", type=str, default="")
+    p.add_argument("--data_path", type=str, default="")
+    p.add_argument("--data_set", type=str, default="npy")
+    add_preprocessing_args(p)
+
+    p.add_argument("--model", type=str, default="pt_vit")
+    p.add_argument("--discrete_vae_weight_path", "--vae_checkpoint", type=str, default="")
+    p.add_argument("--discrete_vae_type", type=str, default="event")
+    p.add_argument("--rel_pos_bias", type=int, default=1)
+    p.add_argument("--disable_rel_pos_bias", action="store_false", dest="rel_pos_bias")
+    p.add_argument("--abs_pos_emb", type=int, default=0)
+    p.add_argument("--layer_scale_init_value", type=float, default=0.1)
+    p.add_argument("--masking", type=str, default="block")
+    p.add_argument("--num_mask_patches", type=int, default=75)
+    p.add_argument("--max_mask_patches_per_block", type=int, default=None)
+    p.add_argument("--min_mask_patches_per_block", type=int, default=16)
+    p.add_argument("--mask_pool_size", type=int, default=4096,
+                   help=">0: pre-generate a mask pool instead of per-sample BEiT "
+                        "rejection loops; 0 = a fresh mask per sample")
+    p.add_argument("--drop_path", "--pt_dropout", type=float, default=0.1)
+    p.add_argument("--color_jitter", "--pt_color_jitter", type=float, default=0.2)
+
+    p.add_argument("--voxel", type=int, default=0)
+    p.add_argument("--num_layers", type=int, default=4)
+    p.add_argument("--transformer_emb", type=int, default=768)
+    p.add_argument("--transformer_depth", type=int, default=12)
+    p.add_argument("--transformer_heads", type=int, default=12)
+    p.add_argument("--transformer_mlp_ratio", type=float, default=4.0)
+    p.add_argument("--num_tokens", type=int, default=8192)
+    p.add_argument("--MAE", "--mae", type=int, default=0)
+    p.add_argument("--mae_decoder_emb", type=int, default=512)
+    p.add_argument("--mae_decoder_depth", type=int, default=8)
+    p.add_argument("--mae_decoder_heads", type=int, default=16)
+    p.add_argument("--mae_norm_pix_loss", type=int, default=0)
+    p.add_argument("--mae_loss_only_masked", type=int, default=0)
+    p.add_argument("--pretrained", type=int, default=0)
+    p.add_argument("--init_ckpt", type=str, default=None)
+
+    p.add_argument("--epochs", "--pt_epochs", type=int, default=3000)
+    p.add_argument("--batch_size", "--pt_batch_size", type=int, default=512)
+    p.add_argument("--lr", "--pt_lr", type=float, default=5e-4)
+    p.add_argument("--warmup_lr", type=float, default=1e-6)
+    p.add_argument("--min_lr", type=float, default=1e-5)
+    p.add_argument("--warmup_epochs", type=int, default=40)
+    p.add_argument("--warmup_steps", "--pt_warmup_steps", type=int, default=-1)
+    p.add_argument("--weight_decay", type=float, default=0.05)
+    p.add_argument("--weight_decay_end", type=float, default=None)
+    p.add_argument("--clip_grad", "--pt_grad_clip", type=float, default=None)
+    p.add_argument("--opt", type=str, default="adamw")
+    p.add_argument("--opt_eps", type=float, default=1e-8)
+    p.add_argument("--opt_betas", type=float, nargs="+", default=[0.9, 0.999],
+                   help="accepted and overridden to (0.9, 0.95), as the reference "
+                        "does (optim_factory.py:121)")
+    p.add_argument("--momentum", type=float, default=0.9)
+    p.add_argument("--bf16_moments", type=int, default=0)
+    p.add_argument("--save_ckpt_freq", "--pt_save_ckpt_freq", type=int, default=25)
+    p.add_argument("--output_dir", type=str, default="./pt_out")
+    p.add_argument("--log_dir", type=str, default=None, help="not ported (TensorBoard)")
+    p.add_argument("--wandb_group", type=str, default="pt")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--num_workers", type=int, default=4)
+    p.add_argument("--auto_resume", type=int, default=1)
+    p.add_argument("--no_auto_resume", action="store_false", dest="auto_resume")
+    p.add_argument("--resume", type=str, default="",
+                   help="a .pth checkpoint (or a directory: its newest .pth) to resume "
+                        "from; wins over --auto_resume")
+    p.add_argument("--start_epoch", type=int, default=0)
+    p.add_argument("--disable_eval_during_pretraining", action="store_true", default=False)
+    p.add_argument("--wandb", type=int, default=0, help="not ported")
+    p.add_argument("--dtype", type=str, default="bfloat16")
+    p.add_argument("--profile_dir", type=str, default=None, help="not ported")
+    p.add_argument("--steps_per_dispatch", type=int, default=8,
+                   help="accepted; the port dispatches step by step (numerics "
+                        "unchanged)")
+    p.add_argument("--dump_recon_dir", type=str, default=None)
+    p.add_argument("--recon_grad_norm_thresh", type=float, default=6.0)
+    p.add_argument("--rand_aug_batch_ops", type=int, default=1,
+                   help="batch-level RandAugment op choice (default on); 0 = per sample")
+    p.add_argument("--rss_restart_gb", type=float, default=0,
+                   help="when host RSS exceeds this many GB at an epoch boundary, save "
+                        "a resumable checkpoint and exit with code 3 (0 = off)")
+    p.add_argument("--tp", type=int, default=1)
+    p.add_argument("--zero1", type=int, default=0)
+    p.add_argument("--fsdp", type=int, default=0)
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device: cuda (the kernels) or cpu (their plain versions)")
+    add_imnet_args(p)
+    compat = add_compat_args(p, ["--world_size", "--local_rank", "--dist_on_itp",
+                                 "--dist_url", "--dist_eval", "--pin_mem", "--no_pin_mem"])
+    args = p.parse_args(argv)
+    warn_compat_args(args, compat)
+    return args
+
+
+def check_ported(args) -> None:
+    """Raise for the options whose slice of the port has not landed."""
+    todo = [
+        (args.MAE, "--MAE 1 (the MAE model) comes with the MAE slice of the port "
+                   "(ROADMAP queue 1, item 10)"),
+        (args.data_set == "IMNET", "--data_set IMNET (real-image pretraining) comes with "
+                                   "the IMNET slice of the port (ROADMAP queue 1, item 16)"),
+        (args.tp > 1 or args.zero1 or args.fsdp,
+         "--tp/--zero1/--fsdp come with the multi-GPU slice of the port "
+         "(ROADMAP queue 1, item 15)"),
+        (args.bf16_moments, "--bf16_moments 1 comes with the optimizer work of the "
+                            "finetune slice of the port (ROADMAP queue 1, item 8)"),
+        (args.dump_recon_dir, "--dump_recon_dir needs the VAE decoder, which comes with "
+                              "the VAE-training slice of the port (ROADMAP queue 1, item 9)"),
+        (args.pretrained, "--pretrained 1 (the timm warm-start) comes with the finetune "
+                          "slice of the port (ROADMAP queue 1, item 8)"),
+    ]
+    for flag, msg in todo:
+        if flag:
+            raise NotImplementedError(msg)
+    for name in ("log_dir", "profile_dir"):
+        if getattr(args, name):
+            print(f"note: --{name} is not ported and has no effect")
+    if args.wandb:
+        print("note: --wandb is not ported and has no effect")
+
+
+def resolve_device(name: str) -> torch.device:
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: no CUDA device is available "
+                           "(pass --device cpu to train on the CPU)")
+    return device
+
+
+def build_model(args, dtype, device):
+    patch = 2 ** args.num_layers
+    return create_model(
+        args.model,
+        drop_path_rate=args.drop_path,
+        use_shared_rel_pos_bias=bool(args.rel_pos_bias),
+        use_abs_pos_emb=bool(args.abs_pos_emb),
+        init_values=args.layer_scale_init_value,
+        in_chans=3 if args.voxel == 0 else args.voxel,
+        img_size=(args.input_H, args.input_W),
+        patch_size=(patch, patch),
+        embed_dim=args.transformer_emb,
+        depth=args.transformer_depth,
+        num_heads=args.transformer_heads,
+        mlp_ratio=args.transformer_mlp_ratio,
+        vocab_size=args.num_tokens,
+        dtype=dtype,
+        num_masked_tokens=args.num_mask_patches,
+        device=device,
+    )
+
+
+def load_vae(args, device) -> DiscreteVAE:
+    """The frozen tokenizer (run_mem_pretraining.py:237-272), in f32."""
+    if args.discrete_vae_type != "event":
+        raise NotImplementedError(f"--discrete_vae_type {args.discrete_vae_type}: only the "
+                                  f"event VAE exists (the reference raises too)")
+    payload = load_checkpoint(args.discrete_vae_weight_path)
+    h = payload["hparams"]
+    vae_chans = int(h.get("channels", 3))
+    in_chans = 3 if args.voxel == 0 else args.voxel
+    if vae_chans != in_chans:
+        raise SystemExit(f"config error: VAE checkpoint was trained on {vae_chans} channels "
+                         f"but --voxel {args.voxel} rasterizes {in_chans}")
+    vae = DiscreteVAE(input_hw=(int(h["input_H"]), int(h["input_W"])),
+                      num_tokens=int(h["num_tokens"]), codebook_dim=int(h["emb_dim"]),
+                      num_layers=int(h["num_layers"]),
+                      num_resnet_blocks=int(h["num_resnet_blocks"]),
+                      hidden_dim=int(h["hidden_dim"]), channels=vae_chans, device=device)
+    ignored = vae.load_reference_state_dict(payload["model"])
+    if ignored:
+        print(f"load_vae: {len(ignored)} entries not used by the frozen encoder "
+              f"({', '.join(ignored[:4])}{', ...' if len(ignored) > 4 else ''})")
+    return vae.eval().requires_grad_(False)
+
+
+def _with_draws(it, preproc):
+    """Add the host augmentation draws to each training batch."""
+    for batch in it:
+        batch.update(draw_train_aug(batch["aug_seed"], preproc,
+                                    preproc.canvas_h, preproc.canvas_w))
+        yield batch
+
+
+def _checkpoint(model, optimizer, epoch: int) -> dict:
+    return {"model": model.state_dict(), "optimizer": optimizer.state_dict(), "epoch": epoch}
+
+
+def _rss_gb() -> float:
+    from mem_tpu.utils.preemption import rss_gb
+
+    return rss_gb()
+
+
+def main(argv=None):
+    """Train; returns the per-step history [(step, loss, mlm_acc,
+    grad_norm), ...] of this process."""
+    args = get_args(argv)
+    validate_preproc_args(args)
+    check_ported(args)
+    from mem_tpu.utils.preemption import RESTART_EXIT_CODE, GracefulShutdown, validate_rss_flag
+
+    stopper = GracefulShutdown()
+    validate_rss_flag(args.rss_restart_gb)
+    device = resolve_device(args.device)
+    os.makedirs(args.output_dir, exist_ok=True)
+    patch = 2 ** args.num_layers
+    window = (args.input_H // patch, args.input_W // patch)
+    _, train_it = build_pipeline(args, "train", True, args.batch_size, masking=args.masking,
+                                 window_size=window, seed=args.seed,
+                                 num_workers=args.num_workers)
+    _, val_it = build_pipeline(args, "val", False, args.batch_size, masking=args.masking,
+                               window_size=window, seed=args.seed,
+                               num_workers=args.num_workers)
+    preproc_train = build_preproc(args, True, color_jitter=args.color_jitter)
+    preproc_val = build_preproc(args, False)
+
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    model = build_model(args, dtype, device)
+    model.init_weights(torch.Generator().manual_seed(args.seed))
+    steps_per_epoch = train_it.steps_per_epoch()
+    lr_sched = cosine_scheduler(args.lr, args.min_lr, args.epochs, steps_per_epoch,
+                                warmup_epochs=args.warmup_epochs,
+                                warmup_steps=args.warmup_steps,
+                                start_warmup_value=args.warmup_lr)
+    wd_end = args.weight_decay if args.weight_decay_end is None else args.weight_decay_end
+    wd_sched = cosine_scheduler(args.weight_decay, wd_end, args.epochs, steps_per_epoch)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"model params: {n_params / 1e6:.1f}M; steps/epoch {steps_per_epoch}; "
+          f"device {device}")
+
+    optimizer = create_optimizer(model, args.lr, args.weight_decay, opt=args.opt,
+                                 opt_eps=args.opt_eps)
+    vae = load_vae(args, device)
+    train_step = make_pretrain_train_step(model, vae, optimizer, preproc_train, lr_sched,
+                                          wd_sched, args.clip_grad, args.seed)
+    eval_step = make_pretrain_eval_step(model, vae, preproc_val)
+
+    start_epoch = args.start_epoch
+    ckpt = None
+    if args.resume:
+        ckpt = latest_checkpoint(args.resume) if os.path.isdir(args.resume) else args.resume
+    elif args.auto_resume:
+        ckpt = latest_checkpoint(args.output_dir)
+    if ckpt:
+        payload = load_checkpoint(ckpt)
+        model.load_state_dict(payload["model"], strict=True)
+        if "optimizer" in payload:
+            optimizer.load_state_dict(payload["optimizer"])
+        start_epoch = int(payload["epoch"]) + 1
+        print(f"Resumed from {ckpt} (epoch {start_epoch})")
+
+    history = []
+    for epoch in range(start_epoch, args.epochs):
+        t0 = time.time()
+        pending = []   # device metrics not yet read back
+
+        def flush():
+            ms = {k: torch.stack([m[k] for _, m in pending]).float().cpu().numpy()
+                  for k in ("loss", "mlm_acc", "grad_norm")}
+            for j, (it, _) in enumerate(pending):
+                history.append((it, float(ms["loss"][j]), float(ms["mlm_acc"][j]),
+                                float(ms["grad_norm"][j])))
+            bad = [it for it, loss, _, _ in history[-len(pending):] if not math.isfinite(loss)]
+            it, loss, acc, gnorm = history[-1]
+            pending.clear()
+            if bad:
+                raise RuntimeError(f"non-finite loss at step {bad[0]}")
+            print(f"Epoch: [{epoch}] [{it - epoch * steps_per_epoch}/{steps_per_epoch}] "
+                  f"loss: {loss:.4f} mlm_acc: {acc:.4f} grad_norm: {gnorm:.4f} "
+                  f"lr: {at(lr_sched, it):.6e}", flush=True)
+
+        batches = device_prefetch(prefetch(_with_draws(train_it.epoch(epoch), preproc_train)),
+                                  device)
+        for i, batch in enumerate(batches):
+            it = epoch * steps_per_epoch + i
+            pending.append((it, train_step(batch, it)))
+            if len(pending) == LOG_EVERY or i == steps_per_epoch - 1:
+                flush()
+            if stopper.requested:
+                break
+        if pending:
+            flush()
+        if stopper.requested:
+            # SIGTERM: a resumable checkpoint that restarts this epoch, exit 0
+            save_checkpoint(args.output_dir, epoch, _checkpoint(model, optimizer, epoch - 1))
+            print(f"preempted at epoch {epoch}: checkpoint saved; exiting")
+            return history
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        sps = steps_per_epoch * args.batch_size / (time.time() - t0)
+        print(f"epoch {epoch}: {sps:.1f} samples/sec")
+
+        if (epoch + 1) % args.save_ckpt_freq == 0 or epoch + 1 == args.epochs:
+            save_checkpoint(args.output_dir, epoch, _checkpoint(model, optimizer, epoch))
+            if not args.disable_eval_during_pretraining:
+                losses, accs = [], []
+                for batch in val_it.epoch(0):
+                    out = eval_step(to_device(batch, device))
+                    losses.append(out["loss"])
+                    accs.append(out["mlm_acc"])
+                if losses:
+                    print(f"* eval: loss {torch.stack(losses).mean().item():.4f} "
+                          f"mlm_acc {torch.stack(accs).mean().item():.4f}")
+
+        if args.rss_restart_gb > 0 and epoch + 1 < args.epochs \
+                and _rss_gb() > args.rss_restart_gb:
+            save_checkpoint(args.output_dir, epoch, _checkpoint(model, optimizer, epoch))
+            print(f"rss {_rss_gb():.1f} GB > {args.rss_restart_gb} GB: recycling process "
+                  f"(exit {RESTART_EXIT_CODE}); auto_resume continues at epoch {epoch + 1}",
+                  flush=True)
+            sys.exit(RESTART_EXIT_CODE)
+
+    save_checkpoint(args.output_dir, "final", _checkpoint(model, optimizer, args.epochs - 1))
+    return history
+
+
+def cli() -> None:
+    """The ``mem-tpu-torch-pretrain`` console script: ``main`` without its
+    return value (a console script exits with what its function returns)."""
+    main()
+
+
+if __name__ == "__main__":
+    cli()

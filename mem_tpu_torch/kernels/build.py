@@ -40,6 +40,10 @@ SIGNATURES = {
     "mem_attention_fwd_flat": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P), _I),
     "mem_attention_fwd_flat_smem": ((_I, _I, _I), ctypes.c_longlong),
     "mem_attention_fwd_flat_uses_mma": ((_P, _P, _P, _P, _I, _I, _I), _I),
+    "mem_attention_bwd_flat": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _F, _I, _P), _I),
+    "mem_attention_bwd_flat_smem": ((_I, _I, _I), ctypes.c_longlong),
+    "mem_attention_bwd_flat_uses_mma": ((_P, _P, _P, _P, _P, _P, _P, _I, _I, _I), _I),
     "mem_cuda_error_string": ((_I,), ctypes.c_char_p),
 }
 

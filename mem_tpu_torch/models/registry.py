@@ -1,6 +1,6 @@
 """Model registry — ``create_model(name, **kwargs)``, port of
-mem_tpu/models/registry.py. Only ``ft_vit`` is ported; the other models of
-the reference come with their slices."""
+mem_tpu/models/registry.py. ``pt_vit`` and ``ft_vit`` are ported; the other
+models of the reference come with their slices."""
 from __future__ import annotations
 
 from typing import Callable, Dict
@@ -21,6 +21,15 @@ def create_model(name: str, **kwargs):
     if name not in _REGISTRY:
         raise ValueError(f"unknown model {name!r}; available: {list_models()}")
     return _REGISTRY[name](**kwargs)
+
+
+@register_model
+def pt_vit(**kwargs):
+    """BEiT-style masked-event-modeling ViT (reference ``pt_vit``)."""
+    from mem_tpu_torch.models.pretrain import VisionTransformerForMaskedImageModeling
+
+    kwargs.pop("pretrained", None)
+    return VisionTransformerForMaskedImageModeling(**kwargs)
 
 
 @register_model

@@ -1,16 +1,21 @@
-"""ViT building blocks (eval forward), port of mem_tpu/models/vit.py.
+"""ViT building blocks, port of mem_tpu/models/vit.py.
 
 flax ``dtype`` semantics are kept: parameters stay f32, each layer casts
-them to the compute dtype (bf16 for serving) at use, LayerNorm statistics
-and softmax run in f32. Submodules and parameters are named after the
-reference's torch schema (mem_tpu/utils/torch_import.py:122-173), so a
-state_dict from ``export_vit_params`` / ``from_jax_params`` loads with
+them to the compute dtype (bf16 for serving and training) at use, LayerNorm
+statistics and softmax run in f32. Submodules and parameters are named
+after the reference's torch schema (mem_tpu/utils/torch_import.py:122-173),
+so a state_dict from ``export_vit_params`` / ``from_jax_params`` loads with
 ``strict=True``.
 
-Attention always goes through ``fused_attention_flat`` (kernel K2 on the
-card, its plain version on the CPU). Dropout and drop-path are identity at
-eval, so the port keeps no rates. The reference's INT8, fused-MLP and XLA
-scheduling toggles are not ported.
+Attention always goes through ``fused_attention_flat`` (kernels K2f/K2b on
+the card, their plain versions on the CPU), forward and backward. In
+training mode (``module.train()``) the proj/MLP dropout and the per-sample
+drop-path of the reference run; their random bits come from an explicit
+``torch.Generator`` on the activations' device that the caller passes to
+``forward`` (the train step seeds one per step from (seed, step)), never
+from torch's global generator. Attention dropout routes the reference off
+the fused kernel (vit.py:374); the port raises for it. The reference's
+INT8, fused-MLP and XLA scheduling toggles are not ported.
 """
 from __future__ import annotations
 
@@ -36,6 +41,36 @@ def trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator,
         x = torch.erfinv(u.clamp(-1 + 1e-7, 1 - 1e-7)) * (std * math.sqrt(2.0))
         t.copy_(x.clamp(-trunc_sigmas * std, trunc_sigmas * std))
     return t
+
+
+def dropout(x: torch.Tensor, rate: float, generator) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability 1 - rate, scale the kept
+    values by 1 / (1 - rate), in x's dtype."""
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def drop_path(x: torch.Tensor, rate: float, generator) -> torch.Tensor:
+    """Stochastic depth, timm semantics (vit.py:133-141): one Bernoulli per
+    sample, the kept samples rescaled by 1 / (1 - rate)."""
+    keep = 1.0 - rate
+    shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def drop_path_rates(rate: float, depth: int) -> list:
+    """The linear stochastic-depth schedule rate * i / max(depth - 1, 1)
+    (vit.py:701)."""
+    return [rate * i / max(depth - 1, 1) for i in range(depth)]
+
+
+def _need_generator(generator, what: str):
+    if generator is None:
+        raise ValueError(f"{what} in training mode needs an explicit torch.Generator "
+                         f"(forward(..., generator=g))")
+    return generator
 
 
 def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
@@ -134,17 +169,23 @@ class RelativePositionBias(nn.Module):
 
 
 class Mlp(nn.Module):
-    """fc1 -> exact gelu -> fc2 in the compute dtype."""
+    """fc1 -> exact gelu -> fc2 in the compute dtype, then dropout (training
+    only), as the reference orders them (vit.py:286-291)."""
 
-    def __init__(self, dim: int, hidden_dim: int, dtype=torch.float32, device=None):
+    def __init__(self, dim: int, hidden_dim: int, dropout: float = 0.0,
+                 dtype=torch.float32, device=None):
         super().__init__()
         self.dtype = dtype
+        self.dropout = dropout
         self.fc1 = nn.Linear(dim, hidden_dim, device=device)
         self.fc2 = nn.Linear(hidden_dim, dim, device=device)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         x = F.gelu(linear(x, self.fc1, self.dtype), approximate="none")
-        return linear(x, self.fc2, self.dtype)
+        x = linear(x, self.fc2, self.dtype)
+        if self.training and self.dropout > 0:
+            x = dropout(x, self.dropout, _need_generator(generator, "Mlp dropout"))
+        return x
 
 
 class Attention(nn.Module):
@@ -155,9 +196,16 @@ class Attention(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
                  qk_scale: float | None = None, window_size=None,
-                 attn_head_dim: int | None = None, dtype=torch.float32, device=None):
+                 attn_head_dim: int | None = None, proj_dropout: float = 0.0,
+                 attn_dropout: float = 0.0, dtype=torch.float32, device=None):
         super().__init__()
+        if attn_dropout > 0:
+            raise NotImplementedError(
+                "attention dropout (attn_drop_rate > 0) takes the reference off the "
+                "fused kernel onto an einsum path (vit.py:374); it comes with the "
+                "classification-finetune slice of the port")
         self.num_heads = num_heads
+        self.proj_dropout = proj_dropout
         self.dtype = dtype
         head_dim = attn_head_dim or dim // num_heads
         self.all_head_dim = head_dim * num_heads
@@ -181,7 +229,7 @@ class Attention(nn.Module):
             self.relative_position_bias_table = None
         self.proj = nn.Linear(self.all_head_dim, dim, device=device)
 
-    def forward(self, x, rel_pos_bias=None):
+    def forward(self, x, rel_pos_bias=None, generator=None):
         B, N, _ = x.shape
         a = self.all_head_dim
         w = self.qkv.weight.to(self.dtype)
@@ -201,39 +249,53 @@ class Attention(nn.Module):
             bias = torch.zeros(self.num_heads, N, N, device=x.device)
         out = fused_attention_flat(q.contiguous(), k.contiguous(), v.contiguous(),
                                    bias.float().contiguous(), self.scale)
-        return linear(out, self.proj, self.dtype)
+        out = linear(out, self.proj, self.dtype)
+        if self.training and self.proj_dropout > 0:
+            out = dropout(out, self.proj_dropout,
+                          _need_generator(generator, "Attention proj dropout"))
+        return out
 
 
 class Block(nn.Module):
-    """Pre-norm transformer block with LayerScale (vit.py:560-642)."""
+    """Pre-norm transformer block with LayerScale and drop-path
+    (vit.py:560-642)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, qk_scale: float | None = None,
                  init_values: float | None = None, window_size=None,
-                 attn_head_dim: int | None = None, dtype=torch.float32, device=None):
+                 attn_head_dim: int | None = None, dropout: float = 0.0,
+                 attn_dropout: float = 0.0, drop_path_rate: float = 0.0,
+                 dtype=torch.float32, device=None):
         super().__init__()
         self.dtype = dtype
+        self.drop_path_rate = drop_path_rate
         self.norm1 = FusedLayerNorm(dim, device=device)
         self.attn = Attention(dim, num_heads, qkv_bias=qkv_bias, qk_scale=qk_scale,
                               window_size=window_size, attn_head_dim=attn_head_dim,
+                              proj_dropout=dropout, attn_dropout=attn_dropout,
                               dtype=dtype, device=device)
         self.norm2 = FusedLayerNorm(dim, device=device)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype, device=device)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dropout=dropout, dtype=dtype, device=device)
         if init_values is not None and init_values > 0:
             self.gamma_1 = nn.Parameter(torch.full((dim,), float(init_values), device=device))
             self.gamma_2 = nn.Parameter(torch.full((dim,), float(init_values), device=device))
         else:
             self.gamma_1 = self.gamma_2 = None
 
-    def forward(self, x, rel_pos_bias=None):
-        a = self.attn(self.norm1(x).to(self.dtype), rel_pos_bias)
+    def _drop(self, y, generator):
+        if self.training and self.drop_path_rate > 0:
+            return drop_path(y, self.drop_path_rate, _need_generator(generator, "drop_path"))
+        return y
+
+    def forward(self, x, rel_pos_bias=None, generator=None):
+        a = self.attn(self.norm1(x).to(self.dtype), rel_pos_bias, generator)
         if self.gamma_1 is not None:
             a = self.gamma_1.to(a.dtype) * a
-        x = x + a
-        m = self.mlp(self.norm2(x).to(self.dtype))
+        x = x + self._drop(a, generator)
+        m = self.mlp(self.norm2(x).to(self.dtype), generator)
         if self.gamma_2 is not None:
             m = self.gamma_2.to(m.dtype) * m
-        return x + m
+        return x + self._drop(m, generator)
 
 
 class PatchEmbed(nn.Module):
@@ -271,7 +333,8 @@ class VitEncoder(nn.Module):
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  qk_scale: float | None = None, init_values: float | None = None,
                  use_rel_pos_bias: bool = False, use_shared_rel_pos_bias: bool = False,
-                 window_size=None, dtype=torch.float32, device=None):
+                 window_size=None, dropout: float = 0.0, attn_dropout: float = 0.0,
+                 drop_path_rate: float = 0.0, dtype=torch.float32, device=None):
         super().__init__()
         self.rel_pos_bias = (RelativePositionBias(window_size, num_heads, device=device)
                              if use_shared_rel_pos_bias else None)
@@ -279,24 +342,27 @@ class VitEncoder(nn.Module):
             Block(embed_dim, num_heads, mlp_ratio=mlp_ratio, qkv_bias=qkv_bias,
                   qk_scale=qk_scale, init_values=init_values,
                   window_size=window_size if use_rel_pos_bias else None,
+                  dropout=dropout, attn_dropout=attn_dropout, drop_path_rate=dpr,
                   dtype=dtype, device=device)
-            for _ in range(depth)])
+            for dpr in drop_path_rates(drop_path_rate, depth)])
 
-    def encode(self, x):
+    def encode(self, x, generator=None):
         rel_pos_bias = self.rel_pos_bias() if self.rel_pos_bias is not None else None
         for blk in self.blocks:
-            x = blk(x, rel_pos_bias)
+            x = blk(x, rel_pos_bias, generator)
         return x
 
-    def init_weights(self, generator: torch.Generator, init_std: float = 0.02) -> None:
-        """timm/BEiT init (vit.py trunc_normal_init): truncated normal at +-2
-        std for the products, zero biases, and the depth rescale
-        1/sqrt(2 * layer_id) on attn.proj and mlp.fc2."""
+    def init_weights(self, generator: torch.Generator, init_std: float = 0.02,
+                     trunc_sigmas: float = 2.0) -> None:
+        """timm/BEiT init (vit.py trunc_normal_init): truncated normal at
+        +-trunc_sigmas std for the products (2 for the classifier, 1 for
+        the pretrain model, pretrain.py:69), zero biases, and the depth
+        rescale 1/sqrt(2 * layer_id) on attn.proj and mlp.fc2."""
         for i, blk in enumerate(self.blocks):
             s = 1.0 / math.sqrt(2.0 * (i + 1))
-            trunc_normal_(blk.attn.qkv.weight, init_std, generator)
-            trunc_normal_(blk.attn.proj.weight, init_std * s, generator)
-            trunc_normal_(blk.mlp.fc1.weight, init_std, generator)
-            trunc_normal_(blk.mlp.fc2.weight, init_std * s, generator)
+            trunc_normal_(blk.attn.qkv.weight, init_std, generator, trunc_sigmas)
+            trunc_normal_(blk.attn.proj.weight, init_std * s, generator, trunc_sigmas)
+            trunc_normal_(blk.mlp.fc1.weight, init_std, generator, trunc_sigmas)
+            trunc_normal_(blk.mlp.fc2.weight, init_std * s, generator, trunc_sigmas)
             for lin in (blk.attn.proj, blk.mlp.fc1, blk.mlp.fc2):
                 nn.init.zeros_(lin.bias)

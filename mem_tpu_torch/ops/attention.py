@@ -1,14 +1,15 @@
-"""Fused attention on flat (B, N, H*D) layouts: kernel K2 (forward) and its
-plain version.
+"""Fused attention on flat (B, N, H*D) layouts: kernels K2f (forward) and K2b
+(backward) and their plain versions.
 
-Port of mem_tpu/ops/attention.py ``fused_attention_flat``: per head,
-``softmax(q k^T * scale + bias_h) v`` with q/k/v flat (B, N, H*D) and a
-(H, N, N) f32 bias shared by the batch (the BEiT relative-position bias).
-The head count comes from the bias. On the card the work is done by
-csrc/attention_fwd.cu: a tensor-core kernel for bf16 at head dim 64 and
-N <= 256 (the serving shapes), a scalar kernel for the rest (f32 included).
-The backward (K2b, with the f32 bias gradient) comes with the training
-slice, so the CUDA path refuses inputs that need grad.
+Port of mem_tpu/ops/attention.py ``fused_attention_flat`` and its VJP: per
+head, ``softmax(q k^T * scale + bias_h) v`` with q/k/v flat (B, N, H*D) and
+a (H, N, N) f32 bias shared by the batch (the BEiT relative-position bias),
+whose gradient is summed over the batch. The head count comes from the
+bias. ``fused_attention_flat`` is a ``torch.autograd.Function``: on the card
+the forward is csrc/attention_fwd.cu and the backward csrc/attention_bwd.cu
+(tensor-core kernels for bf16 at head dim 64 and N <= 256, the serving and
+training shapes; scalar kernels for the rest, f32 included); on the CPU
+both directions take the plain versions.
 """
 from __future__ import annotations
 
@@ -19,63 +20,92 @@ from mem_tpu_torch.kernels import count_launch
 MAX_SMEM_BYTES = 232_448   # the most dynamic shared memory one H100 block may use
 
 
+def _heads(t, H):
+    B, N, C = t.shape
+    return t.reshape(B, N, H, C // H).transpose(1, 2).float()
+
+
 def fused_attention_flat_reference(q, k, v, bias, scale: float):
     """Plain version, in the TPU kernel's order (attention.py:115-125):
     s = (q.k) * scale in f32 from the operands, + f32 bias, f32 softmax,
     p cast to v's dtype, PV with f32 accumulation, output in q's dtype."""
     B, N, C = q.shape
     H = bias.shape[0]
-    D = C // H
-
-    def heads(t):
-        return t.reshape(B, N, H, D).transpose(1, 2).float()
-
-    s = torch.matmul(heads(q), heads(k).transpose(-1, -2)) * scale
+    s = torch.matmul(_heads(q, H), _heads(k, H).transpose(-1, -2)) * scale
     s = s + bias.float()
     s = s - s.amax(dim=-1, keepdim=True)
     e = torch.exp(s)
     p = e / e.sum(dim=-1, keepdim=True)
-    o = torch.matmul(p.to(v.dtype).float(), heads(v))
+    o = torch.matmul(p.to(v.dtype).float(), _heads(v, H))
     return o.transpose(1, 2).reshape(B, N, C).to(q.dtype)
 
 
-def fused_attention_flat(q, k, v, bias, scale: float):
-    """(B, N, H*D) q/k/v + (H, N, N) f32 bias -> (B, N, H*D) in q's dtype.
-
-    CPU tensors take the plain version; CUDA tensors launch K2 forward or
-    raise."""
-    if q.device.type == "cpu":
-        return fused_attention_flat_reference(q, k, v, bias, scale)
-    if q.device.type != "cuda" or any(t.device != q.device for t in (k, v, bias)):
-        raise ValueError("fused_attention_flat: q, k, v and bias must share one CUDA device")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, bias)):
-        raise NotImplementedError(
-            "fused_attention_flat has no CUDA backward yet (kernel K2b comes "
-            "with the pretraining slice); call it under torch.no_grad() or "
-            "torch.inference_mode()")
-    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype \
-            or v.dtype != q.dtype:
-        raise TypeError(f"fused_attention_flat takes f32 or bf16 q/k/v of one "
-                        f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
-    if bias.dtype != torch.float32:
-        raise TypeError(f"fused_attention_flat takes an f32 bias, got {bias.dtype}")
+def fused_attention_flat_bwd_reference(q, k, v, bias, do, scale: float):
+    """Plain backward, in the TPU kernel's order (attention.py:147-167):
+    p recomputed in f32, pc = p in v's dtype, dv = pc^T do, dp = do v^T,
+    delta = rowsum(dp * p), ds = p (dp - delta) in f32, dsc = ds in q's
+    dtype, dq = (dsc k) * scale and dk = (dsc^T q) * scale accumulated in
+    f32 and then cast, db = ds summed over the batch in f32 (H, N, N)."""
     B, N, C = q.shape
     H = bias.shape[0]
-    if k.shape != q.shape or v.shape != q.shape or bias.shape != (H, N, N) \
-            or C % H:
-        raise ValueError(f"fused_attention_flat: q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"v {tuple(v.shape)}, bias {tuple(bias.shape)}")
-    D = C // H
-    if not all(t.is_contiguous() for t in (q, k, v, bias)):
-        raise ValueError("fused_attention_flat: q, k, v and bias must be contiguous")
+    qh, kh, vh, doh = (_heads(t, H) for t in (q, k, v, do))
+    s = torch.matmul(qh, kh.transpose(-1, -2)) * scale + bias.float()
+    s = s - s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s)
+    p = e / e.sum(dim=-1, keepdim=True)
+    pc = p.to(v.dtype).float()
+    dv = torch.matmul(pc.transpose(-1, -2), doh)
+    dp = torch.matmul(doh, vh.transpose(-1, -2))
+    delta = (dp * p).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta)
+    dsc = ds.to(q.dtype).float()
+    dq = torch.matmul(dsc, kh) * scale
+    dk = torch.matmul(dsc.transpose(-1, -2), qh) * scale
+
+    def flat(t, dtype):
+        return t.transpose(1, 2).reshape(B, N, C).to(dtype)
+
+    return flat(dq, q.dtype), flat(dk, k.dtype), flat(dv, v.dtype), ds.sum(dim=0)
+
+
+def _check_cuda_operands(name, tensors, q, bias):
+    """The device, dtype, shape and layout rules both CUDA wrappers share;
+    returns (B, N, H, D)."""
+    if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
+        raise ValueError(f"{name}: all operands must share one CUDA device")
+    if q.dtype not in (torch.float32, torch.bfloat16) or any(
+            t.dtype != q.dtype for t in tensors if t is not bias):
+        raise TypeError(f"{name} takes f32 or bf16 operands of one dtype, got "
+                        f"{[t.dtype for t in tensors if t is not bias]}")
+    if bias.dtype != torch.float32:
+        raise TypeError(f"{name} takes an f32 bias, got {bias.dtype}")
+    B, N, C = q.shape
+    H = bias.shape[0]
+    if any(t.shape != q.shape for t in tensors if t is not bias) \
+            or bias.shape != (H, N, N) or C % H:
+        raise ValueError(f"{name}: shapes {[tuple(t.shape) for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: all operands must be contiguous")
+    return B, N, H, C // H
+
+
+def _smem_check(name, smem, N, D):
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"{name}: N={N}, D={D} needs {smem} B of shared memory, "
+                         f"above the {MAX_SMEM_BYTES} B a block may use")
+
+
+def _forward(q, k, v, bias, scale: float):
+    """(B, N, H*D) q/k/v + (H, N, N) f32 bias -> (B, N, H*D) in q's dtype.
+    CPU tensors take the plain version; CUDA tensors launch K2f or raise."""
+    if q.device.type == "cpu":
+        return fused_attention_flat_reference(q, k, v, bias, scale)
+    B, N, H, D = _check_cuda_operands("fused_attention_flat", (q, k, v, bias), q, bias)
     from mem_tpu_torch.kernels import build
 
     lib = build.library()
     is_bf16 = int(q.dtype == torch.bfloat16)
-    smem = lib.mem_attention_fwd_flat_smem(N, D, is_bf16)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"fused_attention_flat: N={N}, D={D} needs {smem} B of "
-                         f"shared memory, above the {MAX_SMEM_BYTES} B a block may use")
+    _smem_check("fused_attention_flat", lib.mem_attention_fwd_flat_smem(N, D, is_bf16), N, D)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.mem_attention_fwd_flat(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -86,9 +116,58 @@ def fused_attention_flat(q, k, v, bias, scale: float):
     return out
 
 
+def fused_attention_flat_bwd(q, k, v, bias, do, scale: float):
+    """The VJP of :func:`fused_attention_flat`: (dq, dk, dv) shaped and typed
+    as q/k/v and db (H, N, N) f32 summed over the batch. CPU tensors take the
+    plain version; CUDA tensors launch K2b or raise."""
+    if q.device.type == "cpu":
+        return fused_attention_flat_bwd_reference(q, k, v, bias, do, scale)
+    B, N, H, D = _check_cuda_operands("fused_attention_flat_bwd", (q, k, v, bias, do),
+                                      q, bias)
+    from mem_tpu_torch.kernels import build
+
+    lib = build.library()
+    is_bf16 = int(q.dtype == torch.bfloat16)
+    _smem_check("fused_attention_flat_bwd", lib.mem_attention_bwd_flat_smem(N, D, is_bf16),
+                N, D)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    db = torch.empty(H, N, N, dtype=torch.float32, device=q.device)
+    ds_ws = torch.empty(B, H, N, N, dtype=torch.float32, device=q.device)
+    pc_ws = torch.empty(B, H, N, N, dtype=q.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.mem_attention_bwd_flat(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                                    do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                                    db.data_ptr(), ds_ws.data_ptr(), pc_ws.data_ptr(),
+                                    B, N, H, D, float(scale), is_bf16, stream)
+    build.check("fused_attention_flat_bwd", rc)
+    count_launch("fused_attention_flat_bwd")
+    return dq, dk, dv, db
+
+
+class _FusedAttentionFlat(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale):
+        ctx.save_for_backward(q, k, v, bias)
+        ctx.scale = scale
+        return _forward(q, k, v, bias, scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias = ctx.saved_tensors
+        dq, dk, dv, db = fused_attention_flat_bwd(q, k, v, bias, do.contiguous(), ctx.scale)
+        return dq, dk, dv, db, None
+
+
+def fused_attention_flat(q, k, v, bias, scale: float):
+    """(B, N, H*D) q/k/v + (H, N, N) f32 bias -> (B, N, H*D) in q's dtype,
+    differentiable in q, k, v and bias. CPU tensors take the plain versions;
+    CUDA tensors launch K2f forward and K2b backward, or raise."""
+    return _FusedAttentionFlat.apply(q, k, v, bias, float(scale))
+
+
 def cuda_kernel_path(q, k, v, bias) -> str:
-    """Which CUDA kernel a launch on these operands takes: "mma" (tensor
-    cores) or "scalar"."""
+    """Which CUDA forward kernel a launch on these operands takes: "mma"
+    (tensor cores) or "scalar"."""
     from mem_tpu_torch.kernels import build
 
     H = bias.shape[0]
@@ -96,4 +175,16 @@ def cuda_kernel_path(q, k, v, bias) -> str:
     is_bf16 = int(q.dtype == torch.bfloat16)
     mma = build.library().mem_attention_fwd_flat_uses_mma(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q.data_ptr(), q.shape[1], D, is_bf16)
+    return "mma" if mma else "scalar"
+
+
+def cuda_bwd_kernel_path(q, k, v, bias) -> str:
+    """Which CUDA backward kernel a launch on these operands takes."""
+    from mem_tpu_torch.kernels import build
+
+    H = bias.shape[0]
+    D = q.shape[-1] // H
+    is_bf16 = int(q.dtype == torch.bfloat16)
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr()] * 2 + [q.data_ptr()]
+    mma = build.library().mem_attention_bwd_flat_uses_mma(*ptrs, q.shape[1], D, is_bf16)
     return "mma" if mma else "scalar"

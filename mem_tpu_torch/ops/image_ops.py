@@ -1,11 +1,11 @@
-"""Post-rasterization image transforms, batched NHWC (eval subset).
+"""Post-rasterization image transforms, batched NHWC.
 
 Port of mem_tpu/ops/image_ops.py: the antialiased bilinear resize with
-per-sample source extents, and the event-image channel ops of the
-reference's mem/transforms.py. Channel convention: 0 = positive counts,
-1 = time surface, 2 = negative counts; a C != 3 image is a voxel grid whose
-channels are all counts. Crops, ColorJitter and random erasing come with
-the training slice.
+per-sample source extents, the random crop, the event-image channel ops of
+the reference's mem/transforms.py and the pretraining ColorJitter.
+Channel convention: 0 = positive counts, 1 = time surface, 2 = negative
+counts; a C != 3 image is a voxel grid whose channels are all counts.
+Random erasing (the IMNET image path) comes with its slice.
 """
 from __future__ import annotations
 
@@ -126,3 +126,48 @@ def remove_hot_pixels(img: torch.Tensor, num_stds: float = 10.0,
     keep = (~hot)[..., None].to(img.dtype)
     chm = _count_ch(img)
     return img * (keep * chm + (1 - chm))
+
+
+def random_crop_batch(imgs: torch.Tensor, tops, lefts, out_h: int, out_w: int) -> torch.Tensor:
+    """(B, H, W, C) -> (B, out_h, out_w, C) crops at per-sample (tops,
+    lefts) (image_ops.py:146-160). Offsets are clamped into the image, as
+    ``lax.dynamic_slice`` clamps them."""
+    B, H, W, _ = imgs.shape
+    dev = imgs.device
+    tops = torch.as_tensor(tops, device=dev).long().clamp(0, H - out_h)
+    lefts = torch.as_tensor(lefts, device=dev).long().clamp(0, W - out_w)
+    rows = tops[:, None] + torch.arange(out_h, device=dev)[None, :]
+    cols = lefts[:, None] + torch.arange(out_w, device=dev)[None, :]
+    return imgs[torch.arange(B, device=dev)[:, None, None], rows[:, :, None], cols[:, None, :]]
+
+
+_CJ_LUMA = (0.2989, 0.587, 0.114)   # ColorJitter's grayscale weights (image_ops.py:256)
+
+
+def _per_sample(f, img):
+    return torch.as_tensor(f, dtype=img.dtype, device=img.device).reshape(
+        (-1,) + (1,) * (img.ndim - 1))
+
+
+def adjust_brightness(img: torch.Tensor, factor) -> torch.Tensor:
+    """clip(img * factor, 0, 1), one factor per sample (image_ops.py:259)."""
+    return torch.clamp(img * _per_sample(factor, img), 0.0, 1.0)
+
+
+def adjust_saturation(img: torch.Tensor, factor) -> torch.Tensor:
+    """Blend with the luma grayscale, clip to [0, 1] (image_ops.py:263)."""
+    f = _per_sample(factor, img)
+    luma = torch.tensor(_CJ_LUMA, dtype=img.dtype, device=img.device)
+    gray = (img * luma).sum(dim=-1, keepdim=True)
+    return torch.clamp(f * img + (1.0 - f) * gray, 0.0, 1.0)
+
+
+def color_jitter_batch(imgs: torch.Tensor, brightness, saturation, order) -> torch.Tensor:
+    """torchvision ColorJitter(brightness=s, contrast=0, saturation=s) with
+    the per-sample factors and order drawn on the host
+    (data/device_pipeline.draw_train_aug): order True = brightness first
+    (image_ops.py:268-285)."""
+    b_then_s = adjust_saturation(adjust_brightness(imgs, brightness), saturation)
+    s_then_b = adjust_brightness(adjust_saturation(imgs, saturation), brightness)
+    first = torch.as_tensor(order, device=imgs.device).bool().reshape(-1, 1, 1, 1)
+    return torch.where(first, b_then_s, s_then_b)

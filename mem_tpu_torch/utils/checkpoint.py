@@ -1,9 +1,10 @@
-"""Checkpoint loading for the port: PyTorch ``.pth`` files.
+"""Checkpoints for the port: PyTorch ``.pth`` files.
 
 Port of mem_tpu/utils/checkpoint.py ``latest_checkpoint`` /
-``load_checkpoint`` for the format ``python -m mem_tpu.cli.export_torch``
-writes, ``{"model": state_dict, "epoch": n}`` (export_torch.py:57-60), which
-is also the reference's own ``ft_vit`` checkpoint format. Orbax checkpoint
+``load_checkpoint`` / ``save_checkpoint`` for the format ``python -m
+mem_tpu.cli.export_torch`` writes, ``{"model": state_dict, "epoch": n}``
+(export_torch.py:57-60), which is also the reference's own checkpoint
+format; the pretraining CLI adds ``"optimizer"``. Orbax checkpoint
 directories are out of reach: reading them needs jax; export them to .pth
 first.
 """
@@ -33,3 +34,14 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
             f"need jax to read -- convert one with `python -m "
             f"mem_tpu.cli.export_torch --checkpoint {path} --output model.pth`")
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def save_checkpoint(output_dir: str, tag, payload: Dict[str, Any]) -> str:
+    """Write ``payload`` to ``output_dir/checkpoint-{tag}.pth`` atomically
+    (a temporary file, then a rename); returns the path."""
+    os.makedirs(output_dir, exist_ok=True)
+    path = os.path.join(output_dir, f"checkpoint-{tag}.pth")
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+    return path

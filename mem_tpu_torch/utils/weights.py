@@ -1,11 +1,15 @@
-"""Carry ``ft_vit`` weights from a flax parameter tree into the port.
+"""Carry ``ft_vit`` / ``pt_vit`` and discrete-VAE weights from flax
+parameter trees into the port.
 
-The state_dict keys are the reference's torch schema, the one
+The ViT state_dict keys are the reference's torch schema, the one
 mem_tpu/utils/torch_import.py ``export_vit_params`` (:122-173) writes and
-``python -m mem_tpu.cli.export_torch`` saves, so the port's
-``VisionTransformer.load_state_dict(sd, strict=True)`` takes either. Flax
-Dense kernels are (in, out) and torch Linear weights (out, in); the patch
-conv kernel (kh, kw, C, D) becomes the torch (D, C, kh, kw).
+``python -m mem_tpu.cli.export_torch`` saves, so the port's models'
+``load_state_dict(sd, strict=True)`` takes either. The VAE keys are the
+reference DiscreteVAE's ``nn.Sequential`` indices, the schema
+``import_vae_state_dict`` (torch_import.py:385-419) reads. Flax Dense
+kernels are (in, out) and torch Linear weights (out, in); conv kernels
+(kh, kw, I, O) become torch (O, I, kh, kw), transposed-conv kernels
+(kh, kw, I, O) torch (I, O, kh, kw).
 """
 from __future__ import annotations
 
@@ -16,21 +20,31 @@ import numpy as np
 import torch
 
 
-def from_jax_params(tree: Dict) -> Dict[str, torch.Tensor]:
-    """flax variables ``{"params": ..., ["batch_stats": ...]}`` with numpy
-    (or array-like) leaves -> torch state_dict for the port's ft_vit. The
-    linear probe's BatchNorm running statistics come from ``batch_stats``."""
-    p = tree["params"]
-    sd: Dict[str, torch.Tensor] = {}
+_CONV = (3, 2, 0, 1)      # flax (kh, kw, I, O) -> torch Conv2d (O, I, kh, kw)
+_CONV_T = (2, 3, 0, 1)    # flax (kh, kw, I, O) -> torch ConvTranspose2d (I, O, kh, kw)
 
+
+def _putter(sd):
     def put(name, v, transpose=None):
         a = np.asarray(v)
         if transpose is not None:
             a = np.transpose(a, transpose)
         sd[name] = torch.from_numpy(np.array(a, copy=True, order="C"))
 
+    return put
+
+
+def from_jax_params(tree: Dict) -> Dict[str, torch.Tensor]:
+    """flax variables ``{"params": ..., ["batch_stats": ...]}`` with numpy
+    (or array-like) leaves -> torch state_dict for the port's ft_vit or
+    pt_vit (``mask_token``, ``lm_head``). The linear probe's BatchNorm
+    running statistics come from ``batch_stats``."""
+    p = tree["params"]
+    sd: Dict[str, torch.Tensor] = {}
+
+    put = _putter(sd)
     if "patch_embed" in p:
-        put("patch_embed.proj.weight", p["patch_embed"]["proj"]["kernel"], (3, 2, 0, 1))
+        put("patch_embed.proj.weight", p["patch_embed"]["proj"]["kernel"], _CONV)
         put("patch_embed.proj.bias", p["patch_embed"]["proj"]["bias"])
     for key in ("cls_token", "mask_token", "pos_embed"):
         if key in p:
@@ -67,11 +81,50 @@ def from_jax_params(tree: Dict) -> Dict[str, torch.Tensor]:
         if nm in p:
             put(f"{nm}.weight", p[nm]["scale"])
             put(f"{nm}.bias", p[nm]["bias"])
-    if "head" in p:
-        put("head.weight", p["head"]["kernel"], (1, 0))
-        put("head.bias", p["head"]["bias"])
+    for nm in ("lm_head", "head"):
+        if nm in p:
+            put(f"{nm}.weight", p[nm]["kernel"], (1, 0))
+            put(f"{nm}.bias", p[nm]["bias"])
     bn = tree.get("batch_stats", {}).get("batch_norm")
     if bn is not None:
         put("batch_norm.running_mean", bn["mean"])
         put("batch_norm.running_var", bn["var"])
+    return sd
+
+
+def vae_from_jax_params(tree: Dict) -> Dict[str, torch.Tensor]:
+    """flax ``DiscreteVAE`` variables ``{"params": ...}`` -> the reference
+    VAE state_dict, decoder included: ``codebook.weight``; encoder
+    ``[Seq(Conv, ReLU)] * L + [ResBlock] * R + [Conv1x1]``; decoder
+    ``[Conv1x1 if R] + [ResBlock] * R + [Seq(ConvT, ReLU)] * L + [Conv1x1]``
+    (the inverse of torch_import.py:385-419)."""
+    p = tree["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    put = _putter(sd)
+    L = sum(1 for k in p if re.fullmatch(r"enc_conv_\d+", k))
+    R = sum(1 for k in p if re.fullmatch(r"enc_res_\d+", k))
+
+    def conv(prefix, sub, transpose=_CONV):
+        put(f"{prefix}.weight", sub["kernel"], transpose)
+        put(f"{prefix}.bias", sub["bias"])
+
+    def res(prefix, sub):
+        for ti, name in ((0, "conv1"), (2, "conv2"), (4, "conv3")):
+            conv(f"{prefix}.net.{ti}", sub[name])
+
+    put("codebook.weight", p["codebook"]["embedding"])
+    for i in range(L):
+        conv(f"encoder.{i}.0", p[f"enc_conv_{i}"])
+    for j in range(R):
+        res(f"encoder.{L + j}", p[f"enc_res_{j}"])
+    conv(f"encoder.{L + R}", p["enc_head"])
+    off = 0
+    if R > 0:
+        conv("decoder.0", p["dec_in"])
+        off = 1
+    for j in range(R):
+        res(f"decoder.{off + j}", p[f"dec_res_{j}"])
+    for i in range(L):
+        conv(f"decoder.{off + R + i}.0", p[f"dec_deconv_{i}"], _CONV_T)
+    conv(f"decoder.{off + R + L}", p["dec_head"])
     return sd

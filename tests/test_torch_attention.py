@@ -1,15 +1,19 @@
-"""The port's flat fused attention (K2 forward's plain version) held against
-mem_tpu.ops.attention.fused_attention_flat in interpret mode, and the
-wrapper's device dispatch. The CUDA kernel itself is held against the
-plain version on the card by chip_smoke.py."""
+"""The port's flat fused attention (the plain versions of K2f and K2b) held
+against mem_tpu.ops.attention.fused_attention_flat and its VJP in interpret
+mode, the autograd wiring, and the wrappers' device dispatch. The CUDA
+kernels themselves are held against the plain versions on the card by
+chip_smoke.py."""
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from mem_tpu.ops.attention import fused_attention_flat as jax_fused_attention_flat
-from mem_tpu_torch.ops.attention import fused_attention_flat, fused_attention_flat_reference
+from mem_tpu_torch.ops.attention import (fused_attention_flat, fused_attention_flat_bwd,
+                                         fused_attention_flat_bwd_reference,
+                                         fused_attention_flat_reference)
 
 # f32: same math, sums in another order -> 1e-5 max abs.
 # bf16: inputs rounded to bf16 on both sides, p rounded to bf16 before PV
@@ -64,3 +68,52 @@ def test_kernel_library_needs_a_cuda_device():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA device"):
         build.library()
+
+
+# K2b. f32: the same math, sums in another order -> 1e-5 max abs. bf16: both
+# round p and ds to bf16 and the outputs to bf16 from f32 sums; measured
+# equal to the bit here, bound at 2 bf16 ulps of |grad| <= 2: 2e-2 max abs.
+# db stays f32 on both sides: 1e-5 max abs for either dtype.
+_BWD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,N,H,D", [(2, 24, 3, 8), (1, 37, 2, 16)])
+def test_bwd_reference_matches_jax_vjp(rng, dtype, B, N, H, D):
+    q, k, v, bias = _inputs(rng, B, N, H, D)
+    do = rng.standard_normal((B, N, H * D)).astype(np.float32)
+    scale = D ** -0.5
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    _, vjp = jax.vjp(lambda a, b, c, d: jax_fused_attention_flat(a, b, c, d, scale, True),
+                     *(jnp.asarray(a, jdt) for a in (q, k, v)), jnp.asarray(bias))
+    want = vjp(jnp.asarray(do, jdt))
+    got = fused_attention_flat_bwd_reference(*(torch.from_numpy(a).to(tdt) for a in (q, k, v)),
+                                             torch.from_numpy(bias),
+                                             torch.from_numpy(do).to(tdt), scale)
+    for name, w, g, tol in zip(("dq", "dk", "dv", "db"), want, got,
+                               (_BWD_TOL[dtype],) * 3 + (1e-5,)):
+        assert g.dtype == (torch.float32 if name == "db" else tdt), name
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g.float().numpy(), np.asarray(w.astype(jnp.float32)),
+                                   rtol=0, atol=tol, err_msg=name)
+
+
+def test_cpu_autograd_equals_plain_backward(rng):
+    q, k, v, bias = (torch.from_numpy(a).requires_grad_() for a in _inputs(rng, 2, 13, 2, 8))
+    do = torch.from_numpy(rng.standard_normal((2, 13, 16)).astype(np.float32))
+    fused_attention_flat(q, k, v, bias, 0.3).backward(do)
+    want = fused_attention_flat_bwd_reference(q.detach(), k.detach(), v.detach(),
+                                              bias.detach(), do, 0.3)
+    for t, w in zip((q, k, v, bias), want):
+        torch.testing.assert_close(t.grad, w, rtol=0, atol=0)
+    got = fused_attention_flat_bwd(q.detach(), k.detach(), v.detach(), bias.detach(), do, 0.3)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_bwd_non_cuda_device_raises():
+    q = torch.empty(1, 4, 8, device="meta")
+    bias = torch.empty(2, 4, 4, device="meta")
+    with pytest.raises(ValueError):
+        fused_attention_flat_bwd(q, q, q, bias, q, 0.5)
