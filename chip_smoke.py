@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from csrc/ and checks each against its
-plain PyTorch version on the card. It drives the two ported paths, each
+plain PyTorch version on the card. It drives the three ported paths, each
 with the launch counts set to 0 just before it and read just after:
 
 - the served classification path: the HTTP server of mem_tpu_torch.cli.serve,
@@ -17,12 +17,18 @@ with the launch counts set to 0 just before it and read just after:
   configs/ncaltech.conf recipe (ViT-B/16 pt_vit at full width, a seeded
   VAE tokenizer at the conf's size) on a synthetic N-Caltech-like dataset,
   two epochs, checkpoints and an auto-resumed third epoch; it checks that
-  the path launched K1, K2f and K2b.
+  the path launched K1, K2f and K2b;
+- the segmentation path: mem_tpu_torch.cli.test_seg.main (EvBEiT ViT-B/16 at
+  512^2 + UPerNet at full width, a seeded .pth) over a synthetic DSEC-like
+  data_root of 16 pairs, single-scale and with --aug_test, and the HTTP
+  server with --surface seg; it checks that the path launched K3f and K4
+  (and neither K2f nor K1), and holds the card's logits against the CPU's.
 
 Between them it holds one train step on the card (f32 and bf16) against the
-same step on the CPU, and it times kernels, forwards, requests and train
-steps. One line per phase; the line before the last is the kernel table as
-JSON; the last line is
+same step on the CPU, and it times kernels (each beside its plain version,
+its bound and, where there is one, a PyTorch library call), forwards,
+requests and train steps. One line per phase; the line before the last is
+the kernel table as JSON; the last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": N}}
 
@@ -68,6 +74,19 @@ STEP_F32_GRAD_REL = 1e-3   # per-parameter relative L2 of the gradients, the sam
 STEP_BF16_LOSS_REL = 2e-2  # bf16 card vs f32 CPU: two blocks of bf16 rounding
 LOSS_FALL = 0.3          # nats the loss must fall over 15 steps on one repeated batch
 N_TRAIN_FILES, N_VAL_FILES = 128, 64
+# the segmentation slice
+SEG_EVENTS = 180_000     # slice_max_evs of the DSEC recipe
+SEG_PAIRS = 16           # (events, label) pairs of the synthetic data_root: 2 batches of 8
+SEG_IMAGES_FRAC = 1e-5   # card vs CPU eval images: a hot-pixel threshold (f32 sums in
+                         # another order) may flip a pixel; everything else is exact
+SEG_F32_REL = 1e-3       # card f32 vs CPU f32 logits, relative L2: summation order only
+SEG_BF16_REL = 5e-2      # card bf16 vs CPU f32: 12 blocks + the heads' convs in bf16
+SEG_PRED_AGREE = 0.999   # labels served / saved vs a direct forward on the same card
+SEG_MIOU_TOL = 1e-4      # test_seg's mIoU vs the same pipeline called directly
+# the card's published peaks (H100 SXM data sheet): the bounds are reckoned from them
+PEAK_BYTES_S = 3.35e12
+PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12   # outside the tensor cores: the histograms' integer adds
 
 
 class SmokeFailure(Exception):
@@ -116,6 +135,72 @@ def time_ms(torch, fn, runs=30, warmup=5):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def in_turns(torch, plain, kernel, runs=20):
+    """(kernel ms, plain ms), each the mean of two medians taken in turns:
+    plain, kernel, kernel, plain."""
+    tp = [time_ms(torch, plain, runs=runs)]
+    tk = [time_ms(torch, kernel, runs=runs), time_ms(torch, kernel, runs=runs)]
+    tp.append(time_ms(torch, plain, runs=runs))
+    return statistics.mean(tk), statistics.mean(tp)
+
+
+def kernel_device_ms(torch, fn, fragments, n=20):
+    """Device time (ms per call) of the kernels whose names hold one of
+    ``fragments``, from torch.profiler over ``n`` calls: what the card spends
+    in them, without the host's launch overhead that CUDA events around one
+    short call include. None where the profiler shows no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
+             if "cuda" in str(getattr(e, "device_type", "")).lower()
+             and any(f in e.key for f in fragments))
+    return us / 1e3 / n if us > 0 else None
+
+
+def bound(nbytes, ops, peak_ops):
+    """The least time (ms) the card could take: the larger of the bytes the
+    function must move (each input read once, each output written once) over
+    the memory rate and its operations over the peak rate for their type."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / peak_ops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def hist_bound(B, N, H, W):
+    """K1 / K4: col and ys read (int32), the (B, H, 2W) int32 planes written;
+    one integer add per event."""
+    return bound(2 * B * N * 4 + B * H * 2 * W * 4, B * N, PEAK_F32_FLOPS)
+
+
+def attention_fwd_bound(B, N, H, D, itemsize=2):
+    """K2f / K3f: q, k, v read and o written, the f32 bias read once; two
+    products of 2 N^2 D operations per (sample, head)."""
+    return bound(4 * B * N * H * D * itemsize + H * N * N * 4, 4 * B * H * N * N * D,
+                 PEAK_BF16_FLOPS)
+
+
+def attention_bwd_bound(B, N, H, D, itemsize=2):
+    """K2b: q, k, v, do and the bias read, dq, dk, dv and db written; five
+    products per (sample, head)."""
+    return bound(7 * B * N * H * D * itemsize + 2 * H * N * N * 4, 10 * B * H * N * N * D,
+                 PEAK_BF16_FLOPS)
+
+
+def sdpa_operands(torch, q, k, v, bias):
+    """(B, H, N, D) views' contiguous copies and the bias as a mask in the
+    operands' dtype, for one scaled_dot_product_attention call."""
+    B, N, C = q.shape
+    H = bias.shape[0]
+    heads = lambda t: t.view(B, N, H, C // H).transpose(1, 2).contiguous()  # noqa: E731
+    return heads(q), heads(k), heads(v), bias.to(q.dtype)[None].contiguous()
 
 
 def run(torch):
@@ -301,10 +386,15 @@ def run(torch):
         bias = torch.randn(12, 197, 197, device=dev)
         t_k2 = time_ms(torch, lambda: fused_attention_flat(q, k, v, bias, 0.125))
         t_k2p = time_ms(torch, lambda: fused_attention_flat_reference(q, k, v, bias, 0.125))
+        qh, kh, vhd, mask = sdpa_operands(torch, q, k, v, bias)
+        t_k2l = time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vhd, attn_mask=mask, scale=0.125))
         flop = 4 * B * 12 * 197 * 197 * 64
         say("time_k2", gpu=gpu, batch=B, shape=[197, 12, 64], dtype="bfloat16",
-            kernel_ms=t_k2, plain_ms=t_k2p, kernel_tflop_s=flop / t_k2 / 1e9)
-        timing[B] = (t_k1, t_k1p, t_k2, t_k2p)
+            kernel_ms=t_k2, plain_ms=t_k2p, sdpa_ms=t_k2l,
+            bound_ms=attention_fwd_bound(B, 197, 12, 64)[0],
+            kernel_tflop_s=flop / t_k2 / 1e9)
+        timing[B] = (t_k1, t_k1p, t_k2, t_k2p, t_k2l)
 
         fb = serve.make_assemble(args, pp)([(p, False) for p in payloads[:B]], B)
         dev_batch = serve.to_device(fb, dev)
@@ -320,6 +410,10 @@ def run(torch):
         sequential_p50_ms=statistics.median(ms for _, _, ms in seq))
     tmp.cleanup()
 
+    # -- the segmentation slice's kernels against their plain versions --------
+    k4_err = check_k4(torch, dev, g)
+    k3f_err = check_k3f(torch, dev, g)
+
     # -- phases 5-8: the pretraining slice ------------------------------------
     k2b_err = check_k2b(torch, dev, g)
     train_tmp = tempfile.TemporaryDirectory()
@@ -330,28 +424,39 @@ def run(torch):
         check_train_step(torch, dev, base + ["--output_dir", os.path.join(train_tmp.name, "x")])
         train_counts = run_training_cli(torch, base + [
             "--output_dir", os.path.join(train_tmp.name, "pt_out")])
-        t_k2b, t_k2bp = time_training(torch, dev, gpu, base + [
+        t_k2b, t_k2bp, t_k2bl = time_training(torch, dev, gpu, base + [
             "--output_dir", os.path.join(train_tmp.name, "x")])
     finally:
         signal.signal(signal.SIGTERM, signal.SIG_DFL)   # the CLI latched SIGTERM
         train_tmp.cleanup()
 
+    # -- the segmentation slice -------------------------------------------------
+    seg = run_seg_slice(torch, dev, gpu, rng)
+
+    def row(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms):
+        return {"name": name, "route": "cuda", "source": f"mem_tpu_torch/csrc/{source}",
+                "replaces": f"mem_tpu/ops/{replaces}", "launches": launches,
+                "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms}
+
+    # launches: K1, K2f, K2b from the pretraining CLI's run, K3f and K4 from
+    # test_seg's single-scale run; times at the shapes the bounds name
     print(json.dumps({"kernels": [
-        {"name": "hist_planes_cols", "route": "cuda",
-         "source": "mem_tpu_torch/csrc/voxelize_hist.cu",
-         "replaces": "mem_tpu/ops/voxelize_pallas.py:64",
-         "launches": train_counts["hist_planes_cols"], "max_abs_err": float(k1_err),
-         "ms": timing[8][0], "plain_ms": timing[8][1]},
-        {"name": "fused_attention_flat", "route": "cuda",
-         "source": "mem_tpu_torch/csrc/attention_fwd.cu",
-         "replaces": "mem_tpu/ops/attention.py:105",
-         "launches": train_counts["fused_attention_flat"], "max_abs_err": k2_err,
-         "ms": timing[8][2], "plain_ms": timing[8][3]},
-        {"name": "fused_attention_flat_bwd", "route": "cuda",
-         "source": "mem_tpu_torch/csrc/attention_bwd.cu",
-         "replaces": "mem_tpu/ops/attention.py:128",
-         "launches": train_counts["fused_attention_flat_bwd"], "max_abs_err": k2b_err,
-         "ms": t_k2b, "plain_ms": t_k2bp},
+        row("hist_planes_cols", "voxelize_hist.cu", "voxelize_pallas.py:64",
+            train_counts["hist_planes_cols"], k1_err, timing[8][0], timing[8][1],
+            hist_bound(8, 30_000, 256, 256), None),
+        row("fused_attention_flat", "attention_fwd.cu", "attention.py:105",
+            train_counts["fused_attention_flat"], k2_err, timing[8][2], timing[8][3],
+            attention_fwd_bound(8, 197, 12, 64), timing[8][4]),
+        row("fused_attention_flat_bwd", "attention_bwd.cu", "attention.py:128",
+            train_counts["fused_attention_flat_bwd"], k2b_err, t_k2b, t_k2bp,
+            attention_bwd_bound(64, 197, 12, 64), t_k2bl),
+        row("fused_attention_flat_long", "attention_long_fwd.cu", "attention.py:255",
+            seg["counts"]["fused_attention_flat_long"], k3f_err, seg["k3f_ms"],
+            seg["k3f_plain_ms"], attention_fwd_bound(8, 1025, 12, 64), seg["k3f_sdpa_ms"]),
+        row("hist_planes_cols_sorted", "voxelize_hist_sorted.cu", "voxelize_pallas.py:81",
+            seg["counts"]["hist_planes_cols_sorted"], k4_err, seg["k4_ms"],
+            seg["k4_plain_ms"], hist_bound(8, SEG_EVENTS, 440, 640), None),
     ]}), flush=True)
 
 
@@ -409,6 +514,461 @@ def check_k2b(torch, dev, g):
     check(launched == 1, f"autograd through fused_attention_flat launched K2b {launched} times")
     check(max(errs) <= K2B_BF16_TOL, f"autograd grads differ from the plain backward: {errs}")
     return first
+
+
+def sorted_events(torch, g, B, N, H, W, presort, n_valid=None):
+    """Packed (col, ys) int32 on the CPU: rows clustered towards the top,
+    an invalid tail per sample (2W / H sentinels), optionally sorted by row
+    with the invalid events last."""
+    ys = (torch.randint(0, H, (B, N), generator=g).float()
+          * torch.rand(B, N, generator=g)).to(torch.int32)
+    col = torch.randint(0, 2 * W, (B, N), generator=g, dtype=torch.int32)
+    for b, nv in enumerate(n_valid or ()):
+        ys[b, nv:] = H
+        col[b, nv:] = 2 * W
+    if presort:
+        key = torch.sort(ys * 4096 + col, dim=1).values
+        ys, col = key // 4096, key % 4096
+    return col.contiguous(), ys.contiguous()
+
+
+def check_k4(torch, dev, g):
+    """K4 against its plain version and against K1, bit for bit: the DSEC
+    shape presorted (one sample with no valid event, one with a single one)
+    and unsorted, the same unsorted list passed as presorted (a broken
+    promise costs time, never counts), a --voxel 6 canvas at 256^2 (1536
+    bin-folded rows) and stray negative / past-the-sentinel values. Returns
+    the max abs error at the DSEC shape."""
+    from mem_tpu_torch.kernels import build
+    from mem_tpu_torch.ops import voxelize_hist as vh
+
+    lib = build.library()
+    first = None
+    for name, (B, N, H, W), presort, nv in (
+            ("dsec_presorted", (8, SEG_EVENTS, 440, 640), True,
+             [SEG_EVENTS, 150_000, 3, 0, SEG_EVENTS, 90_000, SEG_EVENTS, 1]),
+            ("dsec_unsorted", (8, SEG_EVENTS, 440, 640), False, None),
+            ("voxel6_256", (8, 30_000, 1536, 256), False, None),
+            ("one_sample", (1, SEG_EVENTS, 440, 640), True, None)):
+        col, ys = (t.to(dev) for t in sorted_events(torch, g, B, N, H, W, presort, nv))
+        got = vh.hist_planes_cols_sorted(col, ys, H, W, presorted=presort)
+        torch.cuda.synchronize()
+        want = vh.hist_planes_cols_sorted_reference(col, ys, H, W, presorted=presort)
+        k1 = vh.hist_planes_cols(col, ys, H, W)
+        err = int((got - want).abs().max().item())
+        fields = dict(shape=[B, N, H, W], presorted=presort, equals_plain=torch.equal(got, want),
+                      equals_k1=torch.equal(got, k1), max_abs_err=err,
+                      events=int(want.sum().item()),
+                      band_rows=lib.mem_hist_sorted_band_rows(B, H, W))
+        if nv is not None:
+            fields["empty_sample_sum"] = int(got[3].sum().item())
+            check(fields["empty_sample_sum"] == 0, "K4: a sample with no event is not zeros")
+        if name == "dsec_unsorted":
+            fields["unsorted_as_presorted_equal"] = torch.equal(
+                vh.hist_planes_cols_sorted(col, ys, H, W, presorted=True), want)
+            check(fields["unsorted_as_presorted_equal"], "K4 differs on unsorted input "
+                  "passed as presorted")
+        say("k4_check", case=name, **fields)
+        check(fields["equals_plain"] and fields["equals_k1"],
+              f"K4 differs from its plain version or from K1 at {name}")
+        if first is None:
+            first = err
+    col = torch.randint(-2, 2 * 640 + 3, (4, 50_000), generator=g, dtype=torch.int32).to(dev)
+    ys = torch.randint(-2, 443, (4, 50_000), generator=g, dtype=torch.int32).to(dev)
+    stray = torch.equal(vh.hist_planes_cols_sorted(col, ys, 440, 640),
+                        vh.hist_planes_cols_reference(col, ys, 440, 640))
+    say("k4_check", case="stray_values", equals_plain=stray)
+    check(stray, "K4 differs from the plain version on negative / sentinel values")
+    return first
+
+
+def check_k3f(torch, dev, g):
+    """K3f against its plain version: the seg backbone's shape in bf16 (the
+    tensor-core kernel) and f32 (the scalar kernel), an N that is no
+    multiple of the 64-key tile (577), a short one and another head dim.
+    Returns the max abs error at the backbone's shape."""
+    from mem_tpu_torch.ops.attention import (cuda_long_kernel_path, fused_attention_flat_long,
+                                             fused_attention_flat_long_reference)
+
+    first = None
+    for (B, N, H, D), dt in (((8, 1025, 12, 64), torch.bfloat16),
+                             ((2, 577, 12, 64), torch.bfloat16),
+                             ((1, 40, 2, 64), torch.bfloat16),
+                             ((2, 300, 2, 128), torch.bfloat16),
+                             ((2, 1025, 12, 64), torch.float32),
+                             ((2, 577, 3, 32), torch.float32)):
+        tol = K2_BF16_TOL if dt == torch.bfloat16 else K2_F32_TOL
+        q, k, v = (torch.randn(B, N, H * D, generator=g).to(dt).to(dev) for _ in range(3))
+        bias = (0.5 * torch.randn(H, N, N, generator=g)).to(dev)
+        got = fused_attention_flat_long(q, k, v, bias, D ** -0.5)
+        torch.cuda.synchronize()
+        want = fused_attention_flat_long_reference(q, k, v, bias, D ** -0.5)
+        err = (got.float() - want.float()).abs().max().item()
+        say("k3f_check", dtype=str(dt), shape=[B, N, H, D], max_abs_err=err, tol=tol,
+            kernel=cuda_long_kernel_path(q, k, v, bias))
+        check(err <= tol, f"K3f {dt} {B, N, H, D} max abs err {err} > {tol}")
+        if first is None:
+            first = err
+        del q, k, v, bias, got, want
+    torch.cuda.empty_cache()
+    return first
+
+
+def synthetic_dsec_events(rng, n):
+    """A DSEC-like window as the dsec loader reads it: (n, 4) f32 rows
+    [x, y, t, p], x < 640, y < 480 (rows at y >= 440 are cropped by the
+    loader), p in {0, 1}, sorted t; 60 % of the events on three blobs (so
+    that the raster is not uniform noise), the rest spread over the sensor."""
+    ev = np.zeros((n, 4), np.float32)
+    n_blob = int(0.2 * n)
+    xs, ys = [rng.uniform(0, 640, n - 3 * n_blob)], [rng.uniform(0, 480, n - 3 * n_blob)]
+    for _ in range(3):
+        cx, cy, sd = rng.uniform(80, 560), rng.uniform(60, 400), rng.uniform(25, 60)
+        xs.append(rng.normal(cx, sd, n_blob))
+        ys.append(rng.normal(cy, 0.7 * sd, n_blob))
+    perm = rng.permutation(n)
+    ev[:, 0] = np.floor(np.clip(np.concatenate(xs), 0, 639))[perm]
+    ev[:, 1] = np.floor(np.clip(np.concatenate(ys), 0, 479))[perm]
+    ev[:, 2] = np.sort(rng.integers(0, 50_000, n))
+    ev[:, 3] = rng.integers(0, 2, n)
+    return ev
+
+
+def write_seg_inputs(torch, root, rng):
+    """A synthetic DSEC-like data_root (imgs/val + anns/val, SEG_PAIRS pairs
+    of 190k-230k events and a 440x640 label PNG of 11 classes with an ignore
+    band) and a seeded full-width segmentor .pth."""
+    from PIL import Image
+
+    from mem_tpu_torch.models.segmentation import build_segmentor
+    from mem_tpu_torch.utils.checkpoint import save_checkpoint
+
+    data_root = os.path.join(root, "dsec")
+    for sub in ("imgs", "anns"):
+        os.makedirs(os.path.join(data_root, sub, "val", "seq0"))
+    for i in range(SEG_PAIRS):
+        ev = synthetic_dsec_events(rng, int(rng.integers(190_000, 230_001)))
+        np.save(os.path.join(data_root, "imgs", "val", "seq0", f"{i:06d}.npy"), ev)
+        lab = np.repeat(np.repeat(rng.integers(0, 11, (11, 16)), 40, 0), 40, 1).astype(np.uint8)
+        lab[:10] = 255
+        Image.fromarray(lab).save(os.path.join(data_root, "anns", "val", "seq0", f"{i:06d}.png"))
+    model = build_segmentor(11, 512, 768, 12, 12, torch.float32, torch.device("cpu"))
+    model.init_weights(torch.Generator().manual_seed(0))
+    ckpt = save_checkpoint(os.path.join(root, "seg_ckpt"), "final",
+                           {"model": model.state_dict(), "epoch": 0})
+    say("seg_inputs", pairs=SEG_PAIRS, model="EvBEiT ViT-B/16 + UPerNet", embed_dim=768,
+        depth=12, heads=12, seg_input_size=512, tokens=1025, classes=11,
+        params=sum(p.numel() for p in model.parameters()),
+        checkpoint_mb=round(os.path.getsize(ckpt) / 2**20, 1))
+    return data_root, ckpt
+
+
+def run_seg_slice(torch, dev, gpu, rng):
+    """The segmentation slice at full width: routing, card against CPU, the
+    test_seg CLI (single-scale and --aug_test), the seg server over HTTP, a
+    profile of the forward and the timings. Returns the launch counts of
+    test_seg's single-scale run and the K3f / K4 times."""
+    from mem_tpu_torch.cli import serve
+    from mem_tpu_torch.cli import test_seg as T
+    from mem_tpu_torch.data.seg_pipeline import (SegBatchIterator, SegPipelineConfig,
+                                                 scan_seg_pairs, seg_preprocess_batch)
+    from mem_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from mem_tpu_torch.models.segmentation import build_segmentor, confusion_matrix, seg_metrics
+    from mem_tpu_torch.ops import voxelize_hist as vh
+    from mem_tpu_torch.ops.attention import (fused_attention_flat_long,
+                                             fused_attention_flat_long_reference)
+    from mem_tpu_torch.utils.checkpoint import load_checkpoint
+
+    cpu = torch.device("cpu")
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        data_root, ckpt = write_seg_inputs(torch, tmp.name, rng)
+        sd = load_checkpoint(ckpt)["model"]
+
+        def segmentor(dtype, device):
+            m = build_segmentor(11, 512, 768, 12, 12, dtype, device)
+            m.load_state_dict(sd, strict=True)
+            return m.eval()
+
+        models = {"bfloat16": segmentor(torch.bfloat16, dev),
+                  "float32": segmentor(torch.float32, dev)}
+        # the first four exceed the cap after the y crop (a window is cut), the
+        # last four stay under it: what a request's sample holds then does
+        # not depend on its place in the batch
+        payloads = [synthetic_dsec_events(rng, n).astype(np.float64)
+                    for n in (230_000, 215_000, 225_000, 240_000) + (170_000,) * 4]
+        assemble = serve.make_seg_assemble(SEG_EVENTS, True)
+        tensors = lambda b, d: {n: torch.from_numpy(v).to(d) for n, v in b.items()}  # noqa: E731
+
+        # -- routing: which kernels a seg forward launches ----------------------
+        batch2 = assemble([(p, False) for p in payloads[:2]], 2)
+        with torch.inference_mode():
+            reset_launch_counts()
+            images = seg_preprocess_batch(tensors(batch2, dev), False, y_sorted=True)[0]
+            pre_counts = launch_counts()
+            reset_launch_counts()
+            feats = models["bfloat16"].backbone(images)
+            torch.cuda.synchronize()
+            bb_counts = launch_counts()
+        say("seg_routing", preprocess=pre_counts, backbone=bb_counts,
+            features=[list(f.shape) for f in feats], image_nonzero=int((images > 0).sum()))
+        check(pre_counts == {"hist_planes_cols_sorted": 1},
+              f"seg_preprocess_batch launched {pre_counts}, not K4 once")
+        check(bb_counts == {"fused_attention_flat_long": 12},
+              f"the EvBEiT forward launched {bb_counts}, not K3f 12 times")
+        check(int((images > 0).sum()) > 50_000, "the synthetic raster is (nearly) empty")
+
+        # -- card against CPU: B=2 on both sides ---------------------------------
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            cpu_images = seg_preprocess_batch(tensors(batch2, cpu), False, y_sorted=True)[0]
+            cpu_logits = segmentor(torch.float32, cpu)(cpu_images)[0]
+        cpu_s = time.perf_counter() - t0
+        frac = ((images.cpu() - cpu_images).abs() > 0).float().mean().item()
+        rel, agree = {}, {}
+        for name, model in models.items():
+            with torch.inference_mode():
+                logits = model(cpu_images.to(dev))[0].cpu()
+            check(bool(torch.isfinite(logits).all()) and logits.shape == (2, 440, 640, 11),
+                  f"card seg logits {tuple(logits.shape)} not finite")
+            rel[name] = rel_l2(torch, logits, cpu_logits)
+            agree[name] = (logits.argmax(-1) == cpu_logits.argmax(-1)).float().mean().item()
+        say("seg_logits_check", batch_card=2, batch_cpu=2, cpu_seconds=round(cpu_s, 1),
+            rel_l2_f32=rel["float32"], bound_f32=SEG_F32_REL, rel_l2_bf16=rel["bfloat16"],
+            bound_bf16=SEG_BF16_REL, argmax_agree=agree, images_frac_differing=frac,
+            images_bound=SEG_IMAGES_FRAC, logits_abs_mean=cpu_logits.abs().mean().item(),
+            classes_predicted=int(cpu_logits.argmax(-1).unique().numel()))
+        check(frac <= SEG_IMAGES_FRAC, f"card seg images differ from the CPU's at {frac}")
+        check(rel["float32"] <= SEG_F32_REL, f"seg f32 logits rel L2 {rel['float32']}")
+        check(rel["bfloat16"] <= SEG_BF16_REL, f"seg bf16 logits rel L2 {rel['bfloat16']}")
+        del cpu_logits, cpu_images, logits, feats, images
+        models.pop("float32")
+        torch.cuda.empty_cache()
+
+        # -- the test_seg CLI: single-scale, then --aug_test ---------------------
+        flags = ["--data_root", data_root, "--checkpoint", ckpt, "--device", "cuda"]
+        save_dir = os.path.join(tmp.name, "preds")
+        t0 = time.perf_counter()
+        reset_launch_counts()                 # just before the main path
+        stats = T.main(flags + ["--save_dir", save_dir])
+        counts = launch_counts()              # just after it
+        t1 = time.perf_counter()
+        reset_launch_counts()
+        stats_tta = T.main(flags + ["--aug_test", "1"])
+        counts_tta = launch_counts()
+        t2 = time.perf_counter()
+        # the same pipeline called directly
+        it = SegBatchIterator(scan_seg_pairs(data_root, "imgs/val", "anns/val"),
+                              SegPipelineConfig(batch_size=8, is_train=False,
+                                                max_evs=SEG_EVENTS))
+        cm, preds = np.zeros((11, 11)), []
+        with torch.inference_mode():
+            for b in it.eval_batches():
+                b.pop("n_real")
+                images, labels = seg_preprocess_batch(T.to_device(b, dev), False, y_sorted=True)
+                pred = models["bfloat16"](images)[0].float().argmax(-1)
+                cm += confusion_matrix(pred, labels, 11).cpu().numpy()
+                preds.append(pred.cpu().numpy())
+        direct = seg_metrics(cm)
+        from PIL import Image
+
+        saved = np.stack([np.asarray(Image.open(os.path.join(save_dir, f)))
+                          for f in sorted(os.listdir(save_dir))])
+        saved_agree = float((saved == np.concatenate(preds)).mean())
+        say("test_seg_cli", pairs=SEG_PAIRS, batch=8, forwards=[2, 12],
+            mIoU=[stats["mIoU"], stats_tta["mIoU"]], aAcc=[stats["aAcc"], stats_tta["aAcc"]],
+            direct_mIoU=direct["mIoU"], saved_pngs=len(saved), saved_agree=saved_agree,
+            launches=counts, launches_aug_test=counts_tta,
+            seconds=[round(t1 - t0, 2), round(t2 - t1, 2)])
+        check(counts == {"fused_attention_flat_long": 24, "hist_planes_cols_sorted": 2},
+              f"test_seg (2 forwards) launched {counts}")
+        check(counts_tta == {"fused_attention_flat_long": 144, "hist_planes_cols_sorted": 2},
+              f"test_seg --aug_test (12 forwards) launched {counts_tta}")
+        check(abs(stats["mIoU"] - direct["mIoU"]) <= SEG_MIOU_TOL,
+              f"test_seg mIoU {stats['mIoU']} vs direct {direct['mIoU']}")
+        check(saved.shape == (SEG_PAIRS, 440, 640) and saved.max() < 11
+              and saved_agree >= SEG_PRED_AGREE, f"saved predictions agree on {saved_agree}")
+        check(all(np.isfinite(s["mIoU"]) and 0 <= s["mIoU"] <= 1 for s in (stats, stats_tta)),
+              "mIoU out of range")
+
+        # -- serve --surface seg over HTTP ----------------------------------------
+        args = serve.get_args(["--checkpoint", ckpt, "--surface", "seg", "--nb_classes", "11",
+                               "--slice_max_evs", str(SEG_EVENTS), "--batch_size", "8",
+                               "--max_wait_ms", "5", "--port", "0", "--device", "cuda"])
+        t0 = time.perf_counter()
+        httpd, state, threads = serve.build_server(args)
+        build_s = time.perf_counter() - t0
+        http_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        http_thread.start()
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+        def post(ev):
+            buf = io.BytesIO()
+            np.save(buf, ev)
+            t = time.perf_counter()
+            req = urllib.request.Request(url + "/predict", data=buf.getvalue(), method="POST")
+            with urllib.request.urlopen(req, timeout=300) as r:
+                png, code, ctype = r.read(), r.status, r.headers["Content-Type"]
+            return code, ctype, np.asarray(Image.open(io.BytesIO(png))), \
+                (time.perf_counter() - t) * 1e3
+
+        try:
+            reset_launch_counts()
+            seq = [post(p) for p in payloads[:4]]
+            with ThreadPoolExecutor(4) as pool:
+                burst = list(pool.map(post, payloads[4:]))
+            serve_counts = launch_counts()
+            stats_http = json.loads(urllib.request.urlopen(url + "/stats", timeout=10).read())
+        finally:
+            with state.cv:
+                state.stop = True
+                state.cv.notify_all()
+            httpd.shutdown()
+            httpd.server_close()
+            for t in threads:
+                t.join(timeout=10)
+            http_thread.join(timeout=10)
+        agrees = []
+        for (code, ctype, png, _), ev in zip(seq + burst, payloads):
+            check(code == 200 and ctype == "image/png", f"HTTP {code} {ctype}")
+            check(png.shape == (440, 640) and png.dtype == np.uint8 and png.max() < 11,
+                  f"served label map {png.shape} {png.dtype} max {png.max()}")
+            with torch.inference_mode():
+                images = seg_preprocess_batch(tensors(assemble([(ev, False)], 8), dev), False,
+                                              y_sorted=True)[0]
+                want = models["bfloat16"](images)[0].float().argmax(-1)[0].cpu().numpy()
+            agrees.append(float((png == want).mean()))
+        lat = sorted(ms for *_, ms in seq + burst)
+        say("serve_seg", gpu=gpu, requests=len(lat), build_server_s=round(build_s, 2),
+            launches=serve_counts, stats=stats_http, agree_with_direct=agrees,
+            sequential_p50_ms=statistics.median(ms for *_, ms in seq),
+            burst4_p50_ms=statistics.median(ms for *_, ms in burst), p50_ms=statistics.median(lat),
+            classes_served=int(len(np.unique(np.stack([r[2] for r in seq + burst])))))
+        # a sequential request is dispatched alone: the batch is the payload
+        # wrap-padded, the direct call's own input, so the labels are equal
+        check(all(a == 1.0 for a in agrees[:4]), f"served labels != direct argmax: {agrees}")
+        check(min(agrees) >= SEG_PRED_AGREE, f"served labels agree on {agrees}")
+        check(serve_counts.get("fused_attention_flat_long", 0) == 12 * stats_http["batches"]
+              and serve_counts.get("hist_planes_cols_sorted", 0) == stats_http["batches"]
+              and set(serve_counts) == {"fused_attention_flat_long", "hist_planes_cols_sorted"},
+              f"the seg server launched {serve_counts} over {stats_http['batches']} batches")
+
+        # -- timings ---------------------------------------------------------------
+        batch8 = tensors(assemble([(p, False) for p in payloads], 8), dev)
+        model = models["bfloat16"]
+
+        def forward():
+            images = seg_preprocess_batch(batch8, False, y_sorted=True)[0]
+            return model(images)[0].float().argmax(-1)
+
+        with torch.inference_mode():
+            profile_seg_forward(torch, gpu, forward)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t_fwd = time_ms(torch, forward, runs=15, warmup=3)
+        say("time_seg_forward", gpu=gpu, batch=8, dtype="bfloat16", ms=t_fwd,
+            samples_per_s=8 / t_fwd * 1e3,
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+        # K4 against K1 and the plain version at the DSEC shape, on the batch's own events
+        ev = batch8["events"]
+        pos = (ev[..., 3] == 1).float()
+        col, ys = vh.pack_cols(ev[..., 0].int(), ev[..., 1].int(), pos, 1.0 - pos, 440, 640)
+        idx = torch.arange(SEG_EVENTS, device=dev)[None]
+        pad = idx >= batch8["n_valid"][:, None]
+        col = torch.where(pad, torch.full_like(col, 1280), col).contiguous()
+        ys = torch.where(pad, torch.full_like(ys, 440), ys).contiguous()
+        t_k4, t_k4p = in_turns(
+            torch, lambda: vh.hist_planes_cols_sorted_reference(col, ys, 440, 640, True),
+            lambda: vh.hist_planes_cols_sorted(col, ys, 440, 640, presorted=True))
+        t_k4s = time_ms(torch, lambda: vh.hist_planes_cols_sorted(col, ys, 440, 640))
+        t_k1 = time_ms(torch, lambda: vh.hist_planes_cols(col, ys, 440, 640))
+        # both kernels are short enough for the events above to time the
+        # launch as much as the kernel: the profiler's device time beside them
+        d_k4 = kernel_device_ms(
+            torch, lambda: vh.hist_planes_cols_sorted(col, ys, 440, 640, presorted=True),
+            ("band_hist_kernel", "chunk_bounds_kernel"))
+        # K1 adds into a zeroed output: its zero-fill counts with it
+        d_k1 = kernel_device_ms(torch, lambda: vh.hist_planes_cols(col, ys, 440, 640),
+                                ("hist_planes_cols_kernel", "FillFunctor", "Memset"))
+        say("time_k4", gpu=gpu, batch=8, events=SEG_EVENTS, canvas=[440, 640], kernel_ms=t_k4,
+            kernel_with_sort_ms=t_k4s, k1_same_shape_ms=t_k1, plain_ms=t_k4p,
+            kernel_device_ms=d_k4, k1_same_shape_device_ms=d_k1,
+            bound_ms=hist_bound(8, SEG_EVENTS, 440, 640)[0],
+            kernel_gev_s=8 * SEG_EVENTS / t_k4 / 1e6)
+
+        q, k, v = (torch.randn(8, 1025, 768, device=dev, dtype=torch.bfloat16)
+                   for _ in range(3))
+        bias = torch.randn(12, 1025, 1025, device=dev)
+        t_k3, t_k3p = in_turns(
+            torch, lambda: fused_attention_flat_long_reference(q, k, v, bias, 0.125),
+            lambda: fused_attention_flat_long(q, k, v, bias, 0.125), runs=10)
+        qh, kh, vhd, mask = sdpa_operands(torch, q, k, v, bias)
+        t_k3l = time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vhd, attn_mask=mask, scale=0.125))
+        say("time_k3f", gpu=gpu, batch=8, shape=[1025, 12, 64], dtype="bfloat16",
+            kernel_ms=t_k3, plain_ms=t_k3p, sdpa_ms=t_k3l,
+            bound_ms=attention_fwd_bound(8, 1025, 12, 64)[0],
+            kernel_tflop_s=4 * 8 * 12 * 1025 * 1025 * 64 / t_k3 / 1e9)
+    finally:
+        tmp.cleanup()
+    return dict(counts=counts, k3f_ms=t_k3, k3f_plain_ms=t_k3p, k3f_sdpa_ms=t_k3l,
+                k4_ms=t_k4, k4_plain_ms=t_k4p)
+
+
+# kernel-name fragments -> family, first match wins (cuDNN's convolutions are
+# implicit GEMMs: their names come before the plain GEMMs')
+_FAMILIES = (("attention_long_fwd", "K3f"), ("band_hist", "K4"), ("chunk_bounds", "K4"),
+             ("fprop", "convolutions"), ("conv", "convolutions"), ("cudnn", "convolutions"),
+             ("implicit", "convolutions"), ("nchw", "layout changes"), ("nhwc", "layout changes"),
+             ("nvjet", "GEMMs"), ("gemm", "GEMMs"), ("cutlass", "GEMMs"),
+             ("reduce", "reductions"), ("sort", "sort"), ("scatter", "gather / scatter"),
+             ("gather", "gather / scatter"), ("index", "gather / scatter"),
+             ("max_pool", "pooling"), ("elementwise", "elementwise"), ("copy", "elementwise"),
+             ("cat", "elementwise"))
+
+
+def profile_seg_forward(torch, gpu, forward, n=5):
+    """torch.profiler over ``n`` seg forwards (B=8, bf16): device time per
+    forward by kernel family, the device's busy share of the unprofiled wall
+    and the kernels per forward. Prints "not measured" where the profiler shows no
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def wall(k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(k):
+            forward()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / k
+
+    wall(2)
+    wall_ms = wall(n)                 # without the profiler's overhead
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall_profiled_ms = wall(n)
+    fam, total, launches, kernels = {}, 0.0, 0, []
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) is None or "cuda" not in str(e.device_type).lower():
+            continue
+        ms = getattr(e, "self_device_time_total", 0.0) / 1e3 / n
+        if ms <= 0:
+            continue
+        low = e.key.lower()
+        name = next((f for frag, f in _FAMILIES if frag in low), "other")
+        fam[name] = fam.get(name, 0.0) + ms
+        kernels.append((round(ms, 3), e.count // n, name, e.key[:70]))
+        total += ms
+        launches += e.count
+    if total == 0:
+        say("seg_forward_profile", gpu=gpu, device_ms="not measured")
+        return
+    say("seg_forward_profile", gpu=gpu, batch=8, dtype="bfloat16", forwards=n,
+        wall_ms=wall_ms, wall_ms_profiled=wall_profiled_ms, device_ms=total,
+        device_busy_share=min(total / wall_ms, 1.0),
+        kernels_per_forward=launches / n,
+        family_ms={k: round(v, 3) for k, v in sorted(fam.items(), key=lambda kv: -kv[1])},
+        top_kernels=sorted(kernels, reverse=True)[:12])
 
 
 def write_training_inputs(torch, root, rng):
@@ -566,7 +1126,8 @@ def time_training(torch, dev, gpu, flags):
     step (depth 12, bf16, the conf's recipe) at B=64 and B=128: 15 steps on
     one repeated batch with no lr warm-up (the loss must fall by LOSS_FALL
     at B=64), the median of the last 12 timed by CUDA events, and the peak
-    device memory. Returns K2b's and its plain version's mean ms."""
+    device memory. Returns the mean ms of K2b, of its plain version and of
+    the library yardstick (the backward of one SDPA call)."""
     from mem_tpu_torch.cli import run_mem_pretraining as R
     from mem_tpu_torch.data.prefetch import to_device
     from mem_tpu_torch.ops.attention import (fused_attention_flat_bwd,
@@ -581,10 +1142,20 @@ def time_training(torch, dev, gpu, flags):
     tp = [time_ms(torch, plain, runs=20)]
     tk = [time_ms(torch, kernel, runs=20), time_ms(torch, kernel, runs=20)]
     tp.append(time_ms(torch, plain, runs=20))
+    # the yardstick: the backward of one scaled_dot_product_attention call
+    # with the bias as its mask (dq, dk, dv and the mask's gradient)
+    qh, kh, vhd, mask = (t.requires_grad_() for t in sdpa_operands(torch, q, k, v, bias))
+    out = torch.nn.functional.scaled_dot_product_attention(qh, kh, vhd, attn_mask=mask,
+                                                           scale=0.125)
+    doh = torch.randn_like(out)
+    t_lib = time_ms(torch, lambda: torch.autograd.grad(out, (qh, kh, vhd, mask), doh,
+                                                       retain_graph=True), runs=20)
     flop = 5 * 2 * 64 * 12 * 197 * 197 * 64
     say("time_k2b", gpu=gpu, batch=64, shape=[197, 12, 64], dtype="bfloat16", kernel_ms=tk,
-        plain_ms=tp, kernel_tflop_s=flop / statistics.mean(tk) / 1e9)
-    del q, k, v, do, bias
+        plain_ms=tp, sdpa_backward_ms=t_lib,
+        bound_ms=attention_bwd_bound(64, 197, 12, 64)[0],
+        kernel_tflop_s=flop / statistics.mean(tk) / 1e9)
+    del q, k, v, do, bias, qh, kh, vhd, mask, out, doh
 
     args = R.get_args(flags + ["--device", "cuda"])
     vae = R.load_vae(args, dev)
@@ -618,7 +1189,7 @@ def time_training(torch, dev, gpu, flags):
                   f"the loss fell from {losses[0]} to {losses[-1]}, less than {LOSS_FALL}")
         del model, step, batch, metrics
         torch.cuda.empty_cache()
-    return statistics.mean(tk), statistics.mean(tp)
+    return statistics.mean(tk), statistics.mean(tp), t_lib
 
 
 def main() -> int:

@@ -9,8 +9,8 @@ from __future__ import annotations
 import os
 from typing import Optional, Tuple
 
-from mem_tpu.data.folder import NpyFolder, loader_for_path, resolve_split_root
 from mem_tpu_torch.data.device_pipeline import PreprocConfig
+from mem_tpu_torch.data.folder import NpyFolder, loader_for_path, resolve_split_root
 from mem_tpu_torch.data.pipeline import EventBatchIterator, PipelineConfig
 
 

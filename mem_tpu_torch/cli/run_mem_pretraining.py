@@ -25,7 +25,7 @@ Usage:
 """
 from __future__ import annotations
 
-from mem_tpu import _signals
+from mem_tpu_torch import _signals
 
 _signals.latch()  # before torch loads: a setup-time SIGTERM must latch
 
@@ -37,7 +37,6 @@ import time
 import numpy as np
 import torch
 
-from mem_tpu.utils.config import ConfigArgumentParser
 from mem_tpu_torch.cli.common import (add_compat_args, add_imnet_args, add_preprocessing_args,
                                       build_pipeline, build_preproc, validate_preproc_args,
                                       warn_compat_args)
@@ -49,6 +48,9 @@ from mem_tpu_torch.train.optim import create_optimizer
 from mem_tpu_torch.train.schedules import at, cosine_scheduler
 from mem_tpu_torch.train.steps import make_pretrain_eval_step, make_pretrain_train_step
 from mem_tpu_torch.utils.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
+from mem_tpu_torch.utils.config import ConfigArgumentParser
+from mem_tpu_torch.utils.preemption import (RESTART_EXIT_CODE, GracefulShutdown, rss_gb,
+                                            validate_rss_flag)
 
 LOG_EVERY = 10   # steps between metric reads (the reference logs every 10)
 
@@ -243,20 +245,12 @@ def _checkpoint(model, optimizer, epoch: int) -> dict:
     return {"model": model.state_dict(), "optimizer": optimizer.state_dict(), "epoch": epoch}
 
 
-def _rss_gb() -> float:
-    from mem_tpu.utils.preemption import rss_gb
-
-    return rss_gb()
-
-
 def main(argv=None):
     """Train; returns the per-step history [(step, loss, mlm_acc,
     grad_norm), ...] of this process."""
     args = get_args(argv)
     validate_preproc_args(args)
     check_ported(args)
-    from mem_tpu.utils.preemption import RESTART_EXIT_CODE, GracefulShutdown, validate_rss_flag
-
     stopper = GracefulShutdown()
     validate_rss_flag(args.rss_restart_gb)
     device = resolve_device(args.device)
@@ -361,9 +355,9 @@ def main(argv=None):
                           f"mlm_acc {torch.stack(accs).mean().item():.4f}")
 
         if args.rss_restart_gb > 0 and epoch + 1 < args.epochs \
-                and _rss_gb() > args.rss_restart_gb:
+                and rss_gb() > args.rss_restart_gb:
             save_checkpoint(args.output_dir, epoch, _checkpoint(model, optimizer, epoch))
-            print(f"rss {_rss_gb():.1f} GB > {args.rss_restart_gb} GB: recycling process "
+            print(f"rss {rss_gb():.1f} GB > {args.rss_restart_gb} GB: recycling process "
                   f"(exit {RESTART_EXIT_CODE}); auto_resume continues at epoch {epoch + 1}",
                   flush=True)
             sys.exit(RESTART_EXIT_CODE)

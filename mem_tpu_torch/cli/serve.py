@@ -1,4 +1,5 @@
-"""Batched event-classification server on PyTorch (``--surface cls``).
+"""Batched event server on PyTorch: classification (``--surface cls``) and
+DSEC semantic segmentation (``--surface seg``).
 
 Port of mem_tpu/cli/serve.py: the same flags (plus ``--device``), the same
 protocol and the same batching policy.
@@ -16,18 +17,24 @@ Protocol (stdlib HTTP, one round-trip per sample):
   POST /predict   body = the bytes of an ``.npy`` event file ((N, 4)
                   [x, y, t, p] rows, or an x/y/t/p structured array) ->
                   {"topk": [[class_idx, prob], ...], "queue_ms": float}
+                  (cls), or a 440x640 8-bit PNG label map (seg)
   GET  /healthz   200 {"ok": true, "warm": true} once the forward is warm
   GET  /stats     queue depth, served/batches counters, avg batch fill,
                   EMA batch latency, added-latency estimate
 
-The model is ``ft_vit`` from a ``.pth`` checkpoint in the reference torch
-schema (``python -m mem_tpu.cli.export_torch`` writes one). Preprocessing
-runs on the device inside the forward (kernel K1), attention through
-kernel K2; the host only decodes, slices and assembles batches.
+The cls model is ``ft_vit`` from a ``.pth`` checkpoint in the reference
+torch schema (``python -m mem_tpu.cli.export_torch`` writes one); the seg
+model is EvBEiT + UPerNet from a ``.pth`` in the keys of
+``utils.weights.seg_from_jax_params``. Preprocessing runs on the device
+inside the forward (kernel K1; K4 on the DSEC canvas), attention through
+kernel K2 (K3f at the seg backbone's 1025 tokens); the host only decodes,
+crops, slices, sorts and assembles batches.
 
 Usage:
   python -m mem_tpu_torch.cli.serve --checkpoint model.pth --nb_classes 101 \
       --dataset ncaltech101 --batch_size 8 --port 8787 [--device cuda]
+  python -m mem_tpu_torch.cli.serve --surface seg --checkpoint seg.pth \
+      --nb_classes 11 --slice_max_evs 180000 --batch_size 8 [--device cuda]
 """
 from __future__ import annotations
 
@@ -41,11 +48,11 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
-from mem_tpu.utils.config import ConfigArgumentParser
 from mem_tpu_torch.cli.common import add_preprocessing_args, build_preproc, detect_dataset
 from mem_tpu_torch.data.device_pipeline import preprocess_batch
 from mem_tpu_torch.models.registry import create_model
 from mem_tpu_torch.utils.checkpoint import latest_checkpoint, load_checkpoint
+from mem_tpu_torch.utils.config import ConfigArgumentParser
 
 # batch entries the eval preprocessing reads; the rest stay on the host
 _DEVICE_KEYS = ("events", "n_valid", "sample_h", "sample_w")
@@ -60,8 +67,8 @@ def get_args(argv=None):
                    help="serve the 'model_ema' weights when the checkpoint has them")
     p.add_argument("--nb_classes", "--num_classes", type=int, required=True)
     p.add_argument("--surface", type=str, default="cls", choices=("cls", "seg"),
-                   help="cls = event classification (ft_vit); seg is not "
-                        "ported yet")
+                   help="cls = event classification (ft_vit); seg = DSEC semantic "
+                        "segmentation (EvBEiT + UPerNet), PNG label-map responses")
     p.add_argument("--dataset", dest="data_path", type=str, default="ncaltech101",
                    help="cls dataset quirk profile (canvas/scale/extents): "
                         "ncaltech101 | ncars | nimagenet")
@@ -402,25 +409,96 @@ def _build_cls(args, dtype, device):
     return assemble, infer, unpack
 
 
+def make_seg_assemble(cap: int, presort: bool):
+    """The host-side batch assembly of the seg surface: dsec loader
+    semantics (dataset_folder.py:275-283 + the seg pipeline's crop on the
+    f32-rounded y): p {0, 1} -> +-1 unless the payload arrived signed, y in
+    [0, 440), a window of ``cap`` events, the stable y presort, the tail
+    wrap-padded. No "label" entry: serving reads only the images."""
+    from mem_tpu_torch.data.seg_pipeline import SEG_H
+
+    def assemble(events_list, B):
+        n = len(events_list)
+        ev = np.zeros((B, cap, 4), np.float32)
+        nv = np.zeros((B,), np.int32)
+        rng = np.random.default_rng(0)
+        for j in range(B):
+            e, p_signed = events_list[j % n]
+            y32 = e[:, 1].astype(np.float32)
+            e = e[(y32 >= 0) & (y32 < SEG_H)].astype(np.float32)
+            if not p_signed:
+                e[:, 3] = 2 * e[:, 3] - 1
+            m = e.shape[0]
+            if m > cap:
+                start = int(rng.integers(0, m - cap + 1))
+                e = e[start:start + cap]
+                m = cap
+            if presort and m:
+                e = e[np.argsort(e[:, 1], kind="stable")]
+            ev[j, :m] = e
+            nv[j] = m
+        return {"events": ev, "n_valid": nv}
+
+    return assemble
+
+
+def _build_seg(args, dtype, device):
+    """Segmentation surface: EvBEiT + UPerNet from a segmentor .pth;
+    single-scale whole-image inference (TTA is an offline-eval feature).
+    Responses are 440x640 PNG label maps. Returns (assemble, infer,
+    unpack)."""
+    from mem_tpu_torch.data.seg_pipeline import seg_preprocess_batch
+    from mem_tpu_torch.models.segmentation import build_segmentor
+
+    model = build_segmentor(args.nb_classes, args.seg_input_size, args.transformer_emb,
+                            args.transformer_depth, args.transformer_heads, dtype, device)
+    path, payload = _load_payload(args)
+    # the weights move to the device once, at load
+    model.load_state_dict(payload["model"], strict=True)
+    model.eval()
+    print(f"serving seg params from {path} on {device}")
+    presort = bool(args.presort_y)
+
+    def infer(batch):
+        with torch.inference_mode():
+            dev_batch = {n: torch.from_numpy(batch[n]).to(device, non_blocking=True)
+                         for n in ("events", "n_valid")}
+            images, _ = seg_preprocess_batch(dev_batch, False, y_sorted=presort)
+            logits, _ = model(images)
+            host = (logits.float().argmax(dim=-1).to(torch.uint8).to("cpu", non_blocking=True),)
+        done = None
+        if device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record()
+        return host, done
+
+    def unpack(j, outputs, queue_ms):
+        from PIL import Image
+
+        buf = io.BytesIO()
+        Image.fromarray(outputs[0][j]).save(buf, format="PNG")
+        return "image/png", buf.getvalue()
+
+    return make_seg_assemble(args.slice_max_evs, presort), infer, unpack
+
+
 def build_server(args):
     """Construct (httpd, state, threads); main() runs it, tests drive it
     programmatically. The kernels are built and the forward is warmed
     before this returns, so /healthz is green from the first request."""
-    if args.surface == "seg":
-        raise NotImplementedError("--surface seg (DSEC segmentation) comes with the "
-                                  "segmentation slice of the port (kernels K3, K4)")
     if args.MAE:
         raise NotImplementedError("--MAE 1 (the MAE classifier) comes with the MAE "
                                   "slice of the port")
     if args.int8:
         raise NotImplementedError("--int8 1 (W8A8 GEMMs) comes with the serving-"
-                                  "quantization slice of the port")
+                                  "quantization slice of the port (queue 1 item 14)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available "
                            "(pass --device cpu to serve on the CPU)")
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
-    assemble, infer, unpack = _build_cls(args, dtype, device)
+    build = _build_seg if args.surface == "seg" else _build_cls
+    assemble, infer, unpack = build(args, dtype, device)
 
     state = ServeState(args, infer, assemble, unpack)
     warm = np.zeros((8, 4), np.float64)

@@ -2,7 +2,7 @@
 randomness; all compute happens on the device.
 
 Port of mem_tpu/data/pipeline.py (PipelineConfig, EventBatchIterator) on the
-jax-free host modules mem_tpu.data.folder and mem_tpu.native, with the
+port's own host modules data/folder.py and native/, with the
 masking generators from the port's ops/masking.py. The batches are the
 reference's array for array: the same per-sample rng (seed, epoch, index),
 the same mask pool, ``_collate``, the native C++ fast path and the compact
@@ -22,7 +22,9 @@ from typing import Iterator, Optional
 
 import numpy as np
 
-from mem_tpu.data.folder import NpyFolder
+from mem_tpu_torch import native
+from mem_tpu_torch.data.folder import (NpyFolder, caltech_npy_loader, imgnet_columns_loader,
+                                       is_event_columns, ncars_npy_loader)
 from mem_tpu_torch.ops.masking import make_mask_generator
 
 
@@ -133,8 +135,6 @@ class EventBatchIterator:
             print(f"Loading {1/(time.perf_counter()-t0)/1e3} k-items/sec")
             t0 = time.perf_counter()
         cap = cfg.slice_max_evs
-        from mem_tpu.data.folder import is_event_columns
-
         def materialize(events):
             if not is_event_columns(events):
                 events = np.asarray(events, dtype=np.float64)
@@ -302,39 +302,27 @@ class EventBatchIterator:
             # per-item timers need the python path (the C++ loader reads
             # whole batches inside its own threads)
             return False
-        from mem_tpu.data.folder import (caltech_npy_loader,
-                                         imgnet_columns_loader,
-                                         ncars_npy_loader)
-
         if self.ds.loader is imgnet_columns_loader:
             # the C reader parses ZIP_STORED .npz; structured .npy samples
             # stay on the python columns path
             if not self.ds.samples[0][0].endswith(".npz"):
                 return False
-            from mem_tpu import native
-
             return native.available()
         if self.ds.loader not in (caltech_npy_loader, ncars_npy_loader):
             return False
         if self.cfg.scale_xy is not None:
             return False
-        from mem_tpu import native
-
         return native.available()
 
     def _load_batch_native(self, epoch: int, chunk) -> dict:
-        """Threaded C++ load+slice+pad+extent pass (mem_tpu.native), with the
+        """Threaded C++ load+slice+pad+extent pass (mem_tpu_torch.native), with the
         per-sample augmentation randomness still drawn host-side. The random
         stream differs from the python path (both deterministic)."""
-        from mem_tpu import native
-
         cfg = self.cfg
         paths = [self.ds.samples[int(i)][0] for i in chunk]
         labels = [self.ds.samples[int(i)][1] for i in chunk]
         rngs = [np.random.default_rng((cfg.seed, epoch, int(i))) for i in chunk]
         fracs = [r.random() for r in rngs]
-        from mem_tpu.data.folder import imgnet_columns_loader
-
         if self.ds.loader is imgnet_columns_loader:
             # N-ImageNet .npz: slice-first column reads + in-loop rescale;
             # deferred (on-device) scale ships the raw coords and

@@ -1,10 +1,12 @@
 """Build the port's CUDA kernels at first use and bind them with ctypes.
 
-Every ``mem_tpu_torch/csrc/*.cu`` is compiled by one nvcc call into one
-shared library with a plain C interface::
+Every ``mem_tpu_torch/csrc/*.cu`` is compiled to an object file, one nvcc
+process per source and all of them started together, and the objects are
+linked into one shared library with a plain C interface::
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o _build/libmem_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -Xptxas -v -c -o _build/<name>_<hash>.o csrc/<name>.cu
+    nvcc -shared -o _build/libmem_kernels_<hash>.so _build/*_<hash>.o
 
 The library lands in ``mem_tpu_torch/_build/`` (git-ignored), named by a
 hash of the sources and the flags, so an unchanged tree loads the cached
@@ -25,18 +27,22 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> (argtypes, restype)
 SIGNATURES = {
     "mem_hist_planes_cols": ((_P, _P, _P, _I, _I, _I, _I, _P), _I),
+    "mem_hist_planes_cols_sorted": ((_P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
+    "mem_hist_sorted_band_rows": ((_I, _I, _I), _I),
+    "mem_hist_sorted_chunks": ((_I,), _I),
     "mem_attention_fwd_flat": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P), _I),
     "mem_attention_fwd_flat_smem": ((_I, _I, _I), ctypes.c_longlong),
     "mem_attention_fwd_flat_uses_mma": ((_P, _P, _P, _P, _I, _I, _I), _I),
@@ -44,6 +50,9 @@ SIGNATURES = {
                                 _I, _I, _I, _I, _F, _I, _P), _I),
     "mem_attention_bwd_flat_smem": ((_I, _I, _I), ctypes.c_longlong),
     "mem_attention_bwd_flat_uses_mma": ((_P, _P, _P, _P, _P, _P, _P, _I, _I, _I), _I),
+    "mem_attention_long_fwd": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P), _I),
+    "mem_attention_long_fwd_max_d": ((), _I),
+    "mem_attention_long_fwd_uses_mma": ((_P, _P, _P, _P, _I, _I), _I),
     "mem_cuda_error_string": ((_I,), ctypes.c_char_p),
 }
 
@@ -92,8 +101,8 @@ def _check_device() -> None:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu unless the cached library for these sources exists;
-    returns its path."""
+    """Compile csrc/*.cu (in parallel) and link them, unless the cached
+    library for these sources exists; returns its path."""
     tag = _digest()
     lib_path = BUILD_DIR / f"libmem_kernels_{tag}.so"
     if lib_path.exists():
@@ -103,14 +112,25 @@ def build() -> Path:
         raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, $PATH "
                            "and /usr/local/cuda/bin); the kernels cannot be built")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    srcs = sources()
+    objs = [BUILD_DIR / f"{p.stem}_{tag}.{os.getpid()}.o" for p in srcs]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)] for p, o in zip(srcs, objs)]
+    with ThreadPoolExecutor(len(cmds)) as pool:   # the threads only wait on nvcc
+        procs = list(pool.map(lambda c: subprocess.run(c, capture_output=True, text=True), cmds))
     tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / f"build_{tag}.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    failed = [p for p in procs if p.returncode != 0]
+    if not failed:
+        cmds.append([nvcc, "-shared", "-o", str(tmp), *map(str, objs)])
+        procs.append(subprocess.run(cmds[-1], capture_output=True, text=True))
+        failed = [p for p in procs[-1:] if p.returncode != 0]
+    (BUILD_DIR / f"build_{tag}.log").write_text("".join(
+        " ".join(c) + "\n" + p.stdout + p.stderr for c, p in zip(cmds, procs)))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        raise RuntimeError(f"nvcc failed ({failed[0].returncode}):\n"
+                           f"{failed[0].stderr[-4000:]}")
     os.replace(tmp, lib_path)   # atomic: a concurrent loader never sees half a file
     return lib_path
 

@@ -1,4 +1,5 @@
-"""The frozen discrete-VAE event tokenizer: encoder only, port of
+"""The frozen discrete-VAE event tokenizer (encoder only) and the
+non-overlapping ``TorchConvTranspose`` the segmentation necks use; port of
 mem_tpu/models/discrete_vae.py (:147-247; the reference's
 eventvae/vae/vae_model.py:45-158).
 
@@ -46,6 +47,41 @@ def cudnn_full_f32():
         yield
     finally:
         torch.backends.cudnn.allow_tf32 = prev
+
+
+class TorchConvTranspose(nn.Module):
+    """ConvTranspose2d with torch's semantics on NHWC tensors, the role of
+    the reference's ``TorchConvTranspose`` (discrete_vae.py:99), for the
+    non-overlapping case kernel == stride, padding 0: the 2x2 stride-2
+    deconvolutions of the segmentation necks. Every input pixel then writes
+    its own k x k output patch, so the layer is one product
+    ``x @ W.reshape(I, O * k * k)`` and a reshuffle, with no convolution
+    library involved. ``weight`` is torch's (I, O, k, k). As flax's
+    ``dtype=`` does, input, weight and bias are cast to the compute dtype
+    and the bias is added after the product is rounded. The VAE decoder's
+    kernel-4 stride-2 padding-1 case comes with the VAE-training slice."""
+
+    def __init__(self, in_ch: int, features: int, kernel_size: int = 2, stride: int = 2,
+                 padding: int = 0, dtype=torch.float32, device=None):
+        super().__init__()
+        if kernel_size != stride or padding != 0:
+            raise NotImplementedError(
+                f"TorchConvTranspose(kernel {kernel_size}, stride {stride}, padding "
+                f"{padding}): only kernel == stride, padding 0 is ported; the VAE "
+                f"decoder's 4/2/1 case comes with the VAE-training slice")
+        self.k = kernel_size
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.zeros(in_ch, features, kernel_size, kernel_size,
+                                               device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+
+    def forward(self, x):
+        B, H, W, C = x.shape
+        k, O = self.k, self.weight.shape[1]
+        w = self.weight.to(self.dtype).reshape(C, O * k * k)
+        y = torch.matmul(x.to(self.dtype), w).reshape(B, H, W, O, k, k)
+        y = y.permute(0, 1, 4, 2, 5, 3).reshape(B, H * k, W * k, O)
+        return y + self.bias.to(self.dtype)
 
 
 class DiscreteVAE(nn.Module):

@@ -7,8 +7,12 @@ after the reference's torch schema (mem_tpu/utils/torch_import.py:122-173),
 so a state_dict from ``export_vit_params`` / ``from_jax_params`` loads with
 ``strict=True``.
 
-Attention always goes through ``fused_attention_flat`` (kernels K2f/K2b on
-the card, their plain versions on the CPU), forward and backward. In
+Attention always goes through a fused kernel: ``fused_attention_flat``
+(K2f/K2b on the card, forward and backward) for the short sequences of
+classification and pretraining, ``fused_attention_flat_long`` (K3f, forward
+only so far) for the 1025 tokens of the segmentation backbone;
+``ops.attention.attention_route`` holds the rule (vit.py:429-438 in the
+reference). On the CPU both take their plain versions. In
 training mode (``module.train()``) the proj/MLP dropout and the per-sample
 drop-path of the reference run; their random bits come from an explicit
 ``torch.Generator`` on the activations' device that the caller passes to
@@ -26,7 +30,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mem_tpu_torch.ops.attention import fused_attention_flat
+from mem_tpu_torch.ops.attention import (attention_route, fused_attention_flat,
+                                         fused_attention_flat_long)
 
 
 def trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator,
@@ -192,7 +197,8 @@ class Attention(nn.Module):
     """Multi-head attention with BEiT's decomposed qkv bias (q and v learn a
     bias, k's is fixed zero) and an optional per-block relative-position
     bias, on the flat path (vit.py:380-459): three products against weight
-    slices of the fused qkv weight, then kernel K2 on (B, N, H*D)."""
+    slices of the fused qkv weight, then kernel K2 (or K3f at long N) on
+    (B, N, H*D)."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
                  qk_scale: float | None = None, window_size=None,
@@ -247,8 +253,10 @@ class Attention(nn.Module):
             bias = rel_pos_bias if bias is None else bias + rel_pos_bias
         if bias is None:
             bias = torch.zeros(self.num_heads, N, N, device=x.device)
-        out = fused_attention_flat(q.contiguous(), k.contiguous(), v.contiguous(),
-                                   bias.float().contiguous(), self.scale)
+        attend = (fused_attention_flat if attention_route(N) == "flat"
+                  else fused_attention_flat_long)
+        out = attend(q.contiguous(), k.contiguous(), v.contiguous(),
+                     bias.float().contiguous(), self.scale)
         out = linear(out, self.proj, self.dtype)
         if self.training and self.proj_dropout > 0:
             out = dropout(out, self.proj_dropout,
@@ -346,11 +354,16 @@ class VitEncoder(nn.Module):
                   dtype=dtype, device=device)
             for dpr in drop_path_rates(drop_path_rate, depth)])
 
-    def encode(self, x, generator=None):
+    def encode(self, x, generator=None, return_all: bool = False):
+        """The token sequence after the last block, or with ``return_all``
+        the list of sequences after every block (the seg backbone's taps)."""
         rel_pos_bias = self.rel_pos_bias() if self.rel_pos_bias is not None else None
+        feats = []
         for blk in self.blocks:
             x = blk(x, rel_pos_bias, generator)
-        return x
+            if return_all:
+                feats.append(x)
+        return feats if return_all else x
 
     def init_weights(self, generator: torch.Generator, init_std: float = 0.02,
                      trunc_sigmas: float = 2.0) -> None:

@@ -1,5 +1,5 @@
-"""Fused attention on flat (B, N, H*D) layouts: kernels K2f (forward) and K2b
-(backward) and their plain versions.
+"""Fused attention on flat (B, N, H*D) layouts: kernels K2f (forward), K2b
+(backward) and K3f (forward at long N) and their plain versions.
 
 Port of mem_tpu/ops/attention.py ``fused_attention_flat`` and its VJP: per
 head, ``softmax(q k^T * scale + bias_h) v`` with q/k/v flat (B, N, H*D) and
@@ -10,6 +10,14 @@ the forward is csrc/attention_fwd.cu and the backward csrc/attention_bwd.cu
 (tensor-core kernels for bf16 at head dim 64 and N <= 256, the serving and
 training shapes; scalar kernels for the rest, f32 included); on the CPU
 both directions take the plain versions.
+
+``fused_attention_flat_long`` is the same function for sequences too long
+for K2f, whose blocks hold a head's whole K and V in shared memory: the
+segmentation backbone's N = 1025. Its forward on the card is
+csrc/attention_long_fwd.cu (K3f), which tiles the keys and goes over them
+twice (row max and sum, then p v), keeping the roundings of the plain
+version; its backward (K3b, attention.py:348) is not ported yet and raises.
+:func:`attention_route` is the rule that picks between the two.
 """
 from __future__ import annotations
 
@@ -18,6 +26,10 @@ import torch
 from mem_tpu_torch.kernels import count_launch
 
 MAX_SMEM_BYTES = 232_448   # the most dynamic shared memory one H100 block may use
+# K2f and K2b keep a head's whole K and V (and, backward, more) in one
+# block's shared memory and their tensor-core kernels are instantiated up to
+# 256 keys; above that the key-tiled K3f takes over.
+FLAT_MAX_N = 256
 
 
 def _heads(t, H):
@@ -163,6 +175,80 @@ def fused_attention_flat(q, k, v, bias, scale: float):
     differentiable in q, k, v and bias. CPU tensors take the plain versions;
     CUDA tensors launch K2f forward and K2b backward, or raise."""
     return _FusedAttentionFlat.apply(q, k, v, bias, float(scale))
+
+
+def fused_attention_flat_long_reference(q, k, v, bias, scale: float):
+    """Plain version of K3f: the function of
+    :func:`fused_attention_flat_reference`, in the same order of roundings
+    (attention.py:262-273 is attention.py:114-125 at long N)."""
+    return fused_attention_flat_reference(q, k, v, bias, scale)
+
+
+def _forward_long(q, k, v, bias, scale: float):
+    """(B, N, H*D) q/k/v + (H, N, N) f32 bias -> (B, N, H*D) in q's dtype.
+    CPU tensors take the plain version; CUDA tensors launch K3f or raise."""
+    if q.device.type == "cpu":
+        return fused_attention_flat_long_reference(q, k, v, bias, scale)
+    B, N, H, D = _check_cuda_operands("fused_attention_flat_long", (q, k, v, bias), q, bias)
+    from mem_tpu_torch.kernels import build
+
+    lib = build.library()
+    if D > lib.mem_attention_long_fwd_max_d():
+        raise ValueError(f"fused_attention_flat_long: head dim {D} above the "
+                         f"{lib.mem_attention_long_fwd_max_d()} the kernel takes")
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.mem_attention_long_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                    bias.data_ptr(), out.data_ptr(), B, N, H, D,
+                                    float(scale), int(q.dtype == torch.bfloat16), stream)
+    build.check("fused_attention_flat_long", rc)
+    count_launch("fused_attention_flat_long")
+    return out
+
+
+class _FusedAttentionFlatLong(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale):
+        return _forward_long(q, k, v, bias, scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        raise NotImplementedError(
+            "the backward of fused_attention_flat_long is kernel K3b (the row-blocked "
+            "backward, mem_tpu/ops/attention.py:348); it comes with slice 4 of the "
+            "port (train_seg)")
+
+
+def fused_attention_flat_long(q, k, v, bias, scale: float):
+    """:func:`fused_attention_flat` for long sequences, forward only: CPU
+    tensors take the plain version, CUDA tensors launch K3f or raise, and a
+    backward through it raises (K3b, slice 4)."""
+    return _FusedAttentionFlatLong.apply(q, k, v, bias, float(scale))
+
+
+def attention_route(N: int) -> str:
+    """"flat" (K2f/K2b) or "long" (K3f) for a sequence of N tokens.
+
+    The reference routes on whether the whole (H, N, N) f32 bias fits its
+    kernel's on-chip memory (``_hb_eligible``, attention.py:50: N <= 320 at
+    12 heads). The card's limit is a different one: K2f stages a head's
+    whole K and V in one block's shared memory and is instantiated up to
+    FLAT_MAX_N keys, which covers the 197 tokens of classification and
+    pretraining; the 1025 tokens of the segmentation backbone go to the
+    key-tiled K3f. The head count, which sizes the reference's bias, plays
+    no part here."""
+    return "flat" if N <= FLAT_MAX_N else "long"
+
+
+def cuda_long_kernel_path(q, k, v, bias) -> str:
+    """Which CUDA kernel a K3f launch on these operands takes."""
+    from mem_tpu_torch.kernels import build
+
+    D = q.shape[-1] // bias.shape[0]
+    mma = build.library().mem_attention_long_fwd_uses_mma(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), q.data_ptr(), D,
+        int(q.dtype == torch.bfloat16))
+    return "mma" if mma else "scalar"
 
 
 def cuda_kernel_path(q, k, v, bias) -> str:

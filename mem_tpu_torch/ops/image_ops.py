@@ -35,13 +35,20 @@ def _triangle_resize_matrix(out_size: int, src_size: int, src_extent,
 
 def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int,
                     src_h=None, src_w=None) -> torch.Tensor:
-    """Antialiased bilinear resize of (H, W, C) to (out_h, out_w, C) as two
-    f32 matmuls ``Wy @ img @ Wx^T``; src_h/src_w are optional logical
-    source extents within the canvas (default the full canvas)."""
-    return resize_bilinear_batch(
-        img[None], out_h, out_w,
-        None if src_h is None else torch.as_tensor([src_h]),
-        None if src_w is None else torch.as_tensor([src_w]))[0]
+    """Antialiased bilinear resize of (..., H, W, C) to (..., out_h, out_w, C)
+    in f32 as two products ``Wy @ img @ Wx^T`` with one matrix pair for all
+    leading axes (image_ops.py:56-80); plain align_corners=False bilinear
+    when upscaling. src_h/src_w are optional logical source extents within
+    the canvas (default the full canvas). The segmentation model uses it for
+    440x640 -> 512^2, the heads' upsamples and the logits back to 440x640.
+    Full f32 products: on CUDA this needs
+    torch.backends.cuda.matmul.allow_tf32 False (PyTorch's default)."""
+    H, W = img.shape[-3], img.shape[-2]
+    dev = img.device
+    wy = _triangle_resize_matrix(out_h, H, H if src_h is None else src_h, device=dev)
+    wx = _triangle_resize_matrix(out_w, W, W if src_w is None else src_w, device=dev)
+    out = torch.einsum("oh,...hwc->...owc", wy, img.to(torch.float32))
+    return torch.einsum("pw,...owc->...opc", wx, out)
 
 
 def resize_bilinear_batch(imgs: torch.Tensor, out_h: int, out_w: int,

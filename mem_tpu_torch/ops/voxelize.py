@@ -8,8 +8,9 @@ channel 2 = count of p == -1 events; or, with ``n_bins > 0``, the
 time-binned voxel grid (B, H, W, 2 * n_bins) [pos bins | neg bins].
 
 The augmentations are index arithmetic ahead of one histogram launch
-(kernel K1, ops/voxelize_hist.py); the voxel grid rides the same kernel by
-folding the time bin into the row index (y' = bin * H + y).
+(kernel K1, or K4 on wide canvases: ops/voxelize_hist.py owns the rule);
+the voxel grid rides the same kernels by folding the time bin into the row
+index (y' = bin * H + y).
 """
 from __future__ import annotations
 
@@ -58,6 +59,7 @@ def voxelize_fused(
     sample_H: torch.Tensor | None = None,
     time_surface: bool = False,
     wrap_uint8: bool = True,
+    y_sorted: bool = False,
     n_bins: int = 0,
 ) -> torch.Tensor:
     """Batched augmentation + rasterization on the events' device.
@@ -67,7 +69,11 @@ def voxelize_fused(
     as an index window. time_flip / x_flip: (B,) bool. shift_xy: (B, 2)
     int pixel shifts (out-of-bounds events dropped). sample_W / sample_H:
     (B,) per-sample logical extents (x-flip and shift bounds), default the
-    canvas. n_bins > 0: the voxel grid (no time surface).
+    canvas. y_sorted: the caller promises that each sample's valid events
+    arrive sorted by y (the seg pipeline's host presort); a wide canvas then
+    skips the sort ahead of K4. Time and x flips keep the y order; a y shift
+    would break it. Safe to leave False, and a wrong True costs time, never
+    counts. n_bins > 0: the voxel grid (no time surface).
 
     Returns (B, H, W, 3) uint8, or (B, H, W, 2 * n_bins) when n_bins > 0.
     """
@@ -129,13 +135,16 @@ def voxelize_fused(
         binf = torch.where(t_rng > 0, (ts - t_min) / t_rng * n_bins,
                            torch.zeros_like(ts))
         bins = binf.to(torch.int32).clamp(0, n_bins - 1)
-        planes = voxelize_planes(xs_c, ys_c + bins * H, wpos, wneg, n_bins * H, W)
+        # bin folding breaks any host y-presort (voxelize.py:338-342)
+        planes = voxelize_planes(xs_c, ys_c + bins * H, wpos, wneg, n_bins * H, W,
+                                 y_sorted=False)
         pos = planes[..., :W].reshape(B, n_bins, H, W)
         neg = planes[..., W:].reshape(B, n_bins, H, W)
         grid = _wrap(torch.cat([pos, neg], dim=1), wrap_uint8)
         return grid.permute(0, 2, 3, 1).to(torch.uint8)
 
-    planes = _wrap(voxelize_planes(xs_c, ys_c, wpos, wneg, H, W), wrap_uint8)
+    planes = _wrap(voxelize_planes(xs_c, ys_c, wpos, wneg, H, W, y_sorted=y_sorted),
+                   wrap_uint8)
     pos, neg = planes[..., :W], planes[..., W:]
     if time_surface:
         tss = _time_surface_planes(xs_c, ys_c, ts, valid, ok, H, W)

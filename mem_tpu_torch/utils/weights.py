@@ -1,12 +1,13 @@
-"""Carry ``ft_vit`` / ``pt_vit`` and discrete-VAE weights from flax
-parameter trees into the port.
+"""Carry ``ft_vit`` / ``pt_vit``, discrete-VAE and segmentor weights from
+flax parameter trees into the port.
 
 The ViT state_dict keys are the reference's torch schema, the one
 mem_tpu/utils/torch_import.py ``export_vit_params`` (:122-173) writes and
 ``python -m mem_tpu.cli.export_torch`` saves, so the port's models'
 ``load_state_dict(sd, strict=True)`` takes either. The VAE keys are the
 reference DiscreteVAE's ``nn.Sequential`` indices, the schema
-``import_vae_state_dict`` (torch_import.py:385-419) reads. Flax Dense
+``import_vae_state_dict`` (torch_import.py:385-419) reads. The segmentor keys are those of
+``export_seg_params`` (torch_import.py:453-498). Flax Dense
 kernels are (in, out) and torch Linear weights (out, in); conv kernels
 (kh, kw, I, O) become torch (O, I, kh, kw), transposed-conv kernels
 (kh, kw, I, O) torch (I, O, kh, kw).
@@ -127,4 +128,43 @@ def vae_from_jax_params(tree: Dict) -> Dict[str, torch.Tensor]:
     for i in range(L):
         conv(f"decoder.{off + R + i}.0", p[f"dec_deconv_{i}"], _CONV_T)
     conv(f"decoder.{off + R + L}", p["dec_head"])
+    return sd
+
+
+def seg_from_jax_params(variables: Dict) -> Dict[str, torch.Tensor]:
+    """flax ``EncoderDecoder`` variables ``{"params": ..., "batch_stats":
+    ...}`` with numpy (or array-like) leaves -> torch state_dict for the
+    port's ``models.segmentation.EncoderDecoder``, in the keys
+    ``export_seg_params`` writes: the backbone trunk under ``backbone.``,
+    the FPN necks, every ConvModule's conv and BatchNorm with its running
+    statistics, and the two ``conv_seg`` classifiers."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    sd: Dict[str, torch.Tensor] = {}
+    put = _putter(sd)
+
+    bk = params["backbone"]
+    for name, v in from_jax_params({"params": bk}).items():
+        sd[f"backbone.{name}"] = v
+
+    def put_bn(prefix, p, s):
+        put(f"{prefix}.weight", p["scale"])
+        put(f"{prefix}.bias", p["bias"])
+        put(f"{prefix}.running_mean", s["mean"])
+        put(f"{prefix}.running_var", s["var"])
+
+    for name in ("fpn1_deconv1", "fpn1_deconv2", "fpn2_deconv"):
+        put(f"backbone.{name}.weight", bk[name]["kernel"], _CONV_T)
+        put(f"backbone.{name}.bias", bk[name]["bias"])
+    put_bn("backbone.fpn1_bn", bk["fpn1_bn"], stats["backbone"]["fpn1_bn"])
+
+    for head in ("decode_head", "auxiliary_head"):
+        hp, hs = params[head], stats.get(head, {})
+        for name, sub in sorted(hp.items()):
+            if name == "conv_seg":
+                put(f"{head}.conv_seg.weight", sub["kernel"], _CONV)
+                put(f"{head}.conv_seg.bias", sub["bias"])
+            else:   # ConvModule: conv without a bias + BN
+                put(f"{head}.{name}.conv.weight", sub["conv"]["kernel"], _CONV)
+                put_bn(f"{head}.{name}.bn", sub["bn"], hs[name]["bn"])
     return sd

@@ -262,7 +262,7 @@ def test_device_cuda_without_card_raises(checkpoints):
 
 
 @pytest.mark.parametrize("flags,slice_name", [
-    (["--surface", "seg"], "segmentation"),
+    (["--surface", "seg", "--int8", "1"], "quantization"),   # the seg surface itself is ported
     (["--MAE", "1"], "MAE"),
     (["--int8", "1"], "quantization"),
 ])
