@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from csrc/ and checks each against its
-plain PyTorch version on the card. It drives the three ported paths, each
+plain PyTorch version on the card. It drives the four ported paths, each
 with the launch counts set to 0 just before it and read just after:
 
 - the served classification path: the HTTP server of mem_tpu_torch.cli.serve,
@@ -22,10 +22,16 @@ with the launch counts set to 0 just before it and read just after:
   512^2 + UPerNet at full width, a seeded .pth) over a synthetic DSEC-like
   data_root of 16 pairs, single-scale and with --aug_test, and the HTTP
   server with --surface seg; it checks that the path launched K3f and K4
-  (and neither K2f nor K1), and holds the card's logits against the CPU's.
+  (and neither K2f nor K1), and holds the card's logits against the CPU's;
+- the segmentation training path: mem_tpu_torch.cli.train_seg.main at full
+  width (B=16, bf16) on a synthetic DSEC-like train split, the backbone
+  initialised from a seeded pretraining-schema .pth through the surgery, a
+  few iterations with evaluations and checkpoints, an auto-resumed second
+  call, then test_seg on the final checkpoint; it checks that the path
+  launched K3b 12 times a train step, K3f and K4, and no K1, K2f or K2b.
 
-Between them it holds one train step on the card (f32 and bf16) against the
-same step on the CPU, and it times kernels (each beside its plain version,
+Between them it holds one pretraining and one segmentation train step on the
+card (f32 and bf16) against the same step on the CPU, and it times kernels (each beside its plain version,
 its bound and, where there is one, a PyTorch library call), forwards,
 requests and train steps. One line per phase; the line before the last is
 the kernel table as JSON; the last line is
@@ -83,6 +89,21 @@ SEG_F32_REL = 1e-3       # card f32 vs CPU f32 logits, relative L2: summation or
 SEG_BF16_REL = 5e-2      # card bf16 vs CPU f32: 12 blocks + the heads' convs in bf16
 SEG_PRED_AGREE = 0.999   # labels served / saved vs a direct forward on the same card
 SEG_MIOU_TOL = 1e-4      # test_seg's mIoU vs the same pipeline called directly
+# the segmentation training slice
+SEG_TRAIN_PAIRS = 16     # pairs of the synthetic train split: one batch of train_seg's default 16
+SEG_TRAIN_IMG_TOL = 1.0  # card vs CPU train images, 0..255: the resize jitter's f32 sums taken
+SEG_TRAIN_IMG_FRAC = 1e-3  # in another order can flip a uint8 level (or a hot pixel) here and there
+SEG_STEP_BN_REL = 1e-3   # updated BatchNorm buffers card vs CPU in f32, relative L2: a batch
+                         # mean is a cancelling sum, so 1e-6 of the activations shows larger
+SEG_DAMPED_EPS = 0.1     # the epsilon the PSP BatchNorms get in the step's second comparison
+SEG_STEP_F32_GRAD_REL = 5e-3   # ... whose gradients are held to this, not to the pretraining
+                               # step's 1e-3: every BatchNorm's fast variance E[x^2] - E[x]^2
+                               # cancels in f32, and the stride-4 and stride-8 necks (fpn1_bn,
+                               # lateral_0, lateral_1) showed 1.3e-3 to 1.9e-3 over four runs
+                               # on an H100 against the CPU
+SEG_GRAD_FLOOR = 1e-8    # a gradient below this share of the global norm is rounding noise
+                         # (a bias ahead of a conv + BatchNorm has none): held to the floor
+SEG_LOSS_FALL = 0.1      # nats the seg loss must fall over 15 steps on one repeated batch
 # the card's published peaks (H100 SXM data sheet): the bounds are reckoned from them
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
@@ -146,11 +167,14 @@ def in_turns(torch, plain, kernel, runs=20):
     return statistics.mean(tk), statistics.mean(tp)
 
 
-def kernel_device_ms(torch, fn, fragments, n=20):
+def kernel_device_ms(torch, fn, fragments, n=20, per_launch=False):
     """Device time (ms per call) of the kernels whose names hold one of
     ``fragments``, from torch.profiler over ``n`` calls: what the card spends
     in them, without the host's launch overhead that CUDA events around one
-    short call include. None where the profiler shows no device time."""
+    short call include. ``per_launch`` divides by the launches the profiler
+    recorded instead of by ``n`` (for a kernel launched once a call: the
+    mean stays right when the trace drops some). None where the profiler
+    shows no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -160,10 +184,13 @@ def kernel_device_ms(torch, fn, fragments, n=20):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
-             if "cuda" in str(getattr(e, "device_type", "")).lower()
-             and any(f in e.key for f in fragments))
-    return us / 1e3 / n if us > 0 else None
+    events = [e for e in prof.key_averages()
+              if "cuda" in str(getattr(e, "device_type", "")).lower()
+              and any(f in e.key for f in fragments)]
+    us = sum(getattr(e, "self_device_time_total", 0.0) for e in events)
+    if us <= 0:
+        return None
+    return us / 1e3 / (sum(e.count for e in events) if per_launch else n)
 
 
 def bound(nbytes, ops, peak_ops):
@@ -188,8 +215,8 @@ def attention_fwd_bound(B, N, H, D, itemsize=2):
 
 
 def attention_bwd_bound(B, N, H, D, itemsize=2):
-    """K2b: q, k, v, do and the bias read, dq, dk, dv and db written; five
-    products per (sample, head)."""
+    """K2b / K3b: q, k, v, do and the bias read, dq, dk, dv and db written;
+    five products of 2 N^2 D operations per (sample, head)."""
     return bound(7 * B * N * H * D * itemsize + 2 * H * N * N * 4, 10 * B * H * N * N * D,
                  PEAK_BF16_FLOPS)
 
@@ -379,7 +406,8 @@ def run(torch):
         t_k1 = time_ms(torch, lambda: vh.hist_planes_cols(col, ysf, 256, 256))
         t_k1p = time_ms(torch, lambda: vh.hist_planes_cols_reference(col, ysf, 256, 256))
         say("time_k1", gpu=gpu, batch=B, events=30_000, canvas=[256, 256], kernel_ms=t_k1,
-            plain_ms=t_k1p, kernel_gev_s=B * 30_000 / t_k1 / 1e6)
+            plain_ms=t_k1p, bound_ms=hist_bound(B, 30_000, 256, 256)[0],
+            kernel_gev_s=B * 30_000 / t_k1 / 1e6)
 
         q, k, v = (torch.randn(B, 197, 768, device=dev, dtype=torch.bfloat16)
                    for _ in range(3))
@@ -413,6 +441,7 @@ def run(torch):
     # -- the segmentation slice's kernels against their plain versions --------
     k4_err = check_k4(torch, dev, g)
     k3f_err = check_k3f(torch, dev, g)
+    k3b_err = check_k3b(torch, dev, g)
 
     # -- phases 5-8: the pretraining slice ------------------------------------
     k2b_err = check_k2b(torch, dev, g)
@@ -433,6 +462,9 @@ def run(torch):
     # -- the segmentation slice -------------------------------------------------
     seg = run_seg_slice(torch, dev, gpu, rng)
 
+    # -- the segmentation training slice ----------------------------------------
+    seg_train = run_seg_train_slice(torch, dev, gpu, rng)
+
     def row(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms):
         return {"name": name, "route": "cuda", "source": f"mem_tpu_torch/csrc/{source}",
                 "replaces": f"mem_tpu/ops/{replaces}", "launches": launches,
@@ -440,7 +472,8 @@ def run(torch):
                 "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms}
 
     # launches: K1, K2f, K2b from the pretraining CLI's run, K3f and K4 from
-    # test_seg's single-scale run; times at the shapes the bounds name
+    # test_seg's single-scale run, K3b from train_seg's first run; times at
+    # the shapes the bounds name
     print(json.dumps({"kernels": [
         row("hist_planes_cols", "voxelize_hist.cu", "voxelize_pallas.py:64",
             train_counts["hist_planes_cols"], k1_err, timing[8][0], timing[8][1],
@@ -457,6 +490,10 @@ def run(torch):
         row("hist_planes_cols_sorted", "voxelize_hist_sorted.cu", "voxelize_pallas.py:81",
             seg["counts"]["hist_planes_cols_sorted"], k4_err, seg["k4_ms"],
             seg["k4_plain_ms"], hist_bound(8, SEG_EVENTS, 440, 640), None),
+        row("fused_attention_flat_long_bwd", "attention_long_bwd.cu", "attention.py:276",
+            seg_train["counts"]["fused_attention_flat_long_bwd"], k3b_err,
+            seg_train["k3b_ms"], seg_train["k3b_plain_ms"],
+            attention_bwd_bound(16, 1025, 12, 64), seg_train["k3b_sdpa_ms"]),
     ]}), flush=True)
 
 
@@ -614,6 +651,73 @@ def check_k3f(torch, dev, g):
     return first
 
 
+def check_k3b(torch, dev, g):
+    """K3b against its plain version: the seg backbone's sequence in bf16
+    (the tensor-core kernels) and f32 (the scalar kernels), sequences that
+    are no multiple of the 64-wide tile (577, 300, 65), other head dims, the
+    batches train_seg and the timed steps give it (16, 8) and B = 1 and 3;
+    every output bit-identical across two launches; autograd through
+    fused_attention_flat_long on the card reaches K3b. Returns K3b's max abs
+    error at train_seg's shape, (16, 1025, 12, 64) in bf16."""
+    from mem_tpu_torch.kernels import launch_counts
+    from mem_tpu_torch.ops.attention import (cuda_long_bwd_kernel_path,
+                                             fused_attention_flat_long,
+                                             fused_attention_flat_long_bwd,
+                                             fused_attention_flat_long_bwd_reference)
+
+    first = None
+    for (B, N, H, D), dt in (((16, 1025, 12, 64), torch.bfloat16),
+                             ((8, 1025, 12, 64), torch.bfloat16),
+                             ((3, 1025, 12, 64), torch.bfloat16),
+                             ((1, 577, 12, 64), torch.bfloat16),
+                             ((3, 300, 2, 64), torch.bfloat16),
+                             ((1, 65, 3, 64), torch.bfloat16),
+                             ((3, 300, 2, 128), torch.bfloat16),
+                             ((1, 577, 3, 32), torch.bfloat16),
+                             ((1, 1025, 12, 64), torch.float32),
+                             ((3, 300, 2, 32), torch.float32),
+                             ((3, 65, 2, 128), torch.float32)):
+        tol = K2B_BF16_TOL if dt == torch.bfloat16 else K2B_F32_TOL
+        q, k, v, do = (torch.randn(B, N, H * D, generator=g).to(dt).to(dev) for _ in range(4))
+        bias = (0.5 * torch.randn(H, N, N, generator=g)).to(dev)
+        got = fused_attention_flat_long_bwd(q, k, v, bias, do, D ** -0.5)
+        again = fused_attention_flat_long_bwd(q, k, v, bias, do, D ** -0.5)
+        torch.cuda.synchronize()
+        want = fused_attention_flat_long_bwd_reference(q, k, v, bias, do, D ** -0.5)
+        errs = {n: rel_max_abs(a, b) for n, a, b in zip(("dq", "dk", "dv"), got, want)}
+        db = rel_l2(torch, got[3], want[3])
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        say("k3b_check", dtype=str(dt), shape=[B, N, H, D], rel_max_abs=errs, tol=tol,
+            db_rel_l2=db, db_tol=K2B_DB_REL, identical_across_launches=same,
+            kernel=cuda_long_bwd_kernel_path(q, k, v, bias))
+        check(max(errs.values()) <= tol and db <= K2B_DB_REL,
+              f"K3b {dt} {B, N, H, D}: {errs}, db {db}")
+        check(same, f"K3b {dt} {B, N, H, D}: two launches on the same operands differ")
+        if first is None:
+            first = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+        del q, k, v, do, bias, got, again, want
+    torch.cuda.empty_cache()
+
+    q, k, v = (torch.randn(2, 1025, 768, generator=g).to(torch.bfloat16).to(dev)
+               .requires_grad_() for _ in range(3))
+    bias = torch.randn(12, 1025, 1025, generator=g).to(dev).requires_grad_()
+    do = torch.randn(2, 1025, 768, generator=g).to(torch.bfloat16).to(dev)
+    before = launch_counts().get("fused_attention_flat_long_bwd", 0)
+    fused_attention_flat_long(q, k, v, bias, 0.125).backward(do)
+    torch.cuda.synchronize()
+    launched = launch_counts().get("fused_attention_flat_long_bwd", 0) - before
+    want = fused_attention_flat_long_bwd_reference(q.detach(), k.detach(), v.detach(),
+                                                   bias.detach(), do, 0.125)
+    errs = [rel_max_abs(t.grad, w) for t, w in zip((q, k, v), want)]
+    say("k3b_autograd", launches=launched, rel_max_abs=errs,
+        db_rel_l2=rel_l2(torch, bias.grad, want[3]))
+    check(launched == 1,
+          f"autograd through fused_attention_flat_long launched K3b {launched} times")
+    check(max(errs) <= K2B_BF16_TOL, f"autograd grads differ from the plain backward: {errs}")
+    torch.cuda.empty_cache()
+    return first
+
+
 def synthetic_dsec_events(rng, n):
     """A DSEC-like window as the dsec loader reads it: (n, 4) f32 rows
     [x, y, t, p], x < 640, y < 480 (rows at y >= 440 are cropped by the
@@ -634,24 +738,30 @@ def synthetic_dsec_events(rng, n):
     return ev
 
 
-def write_seg_inputs(torch, root, rng):
-    """A synthetic DSEC-like data_root (imgs/val + anns/val, SEG_PAIRS pairs
-    of 190k-230k events and a 440x640 label PNG of 11 classes with an ignore
-    band) and a seeded full-width segmentor .pth."""
+def write_seg_pairs(data_root, split, n, rng):
+    """``n`` synthetic DSEC-like pairs under imgs/<split> and anns/<split>:
+    190k-230k events and a 440x640 label PNG of 11 classes in 40-pixel blocks
+    with an ignore band."""
     from PIL import Image
 
+    for sub in ("imgs", "anns"):
+        os.makedirs(os.path.join(data_root, sub, split, "seq0"))
+    for i in range(n):
+        ev = synthetic_dsec_events(rng, int(rng.integers(190_000, 230_001)))
+        np.save(os.path.join(data_root, "imgs", split, "seq0", f"{i:06d}.npy"), ev)
+        lab = np.repeat(np.repeat(rng.integers(0, 11, (11, 16)), 40, 0), 40, 1).astype(np.uint8)
+        lab[:10] = 255
+        Image.fromarray(lab).save(os.path.join(data_root, "anns", split, "seq0", f"{i:06d}.png"))
+
+
+def write_seg_inputs(torch, root, rng):
+    """A synthetic DSEC-like data_root (imgs/val + anns/val, SEG_PAIRS pairs)
+    and a seeded full-width segmentor .pth."""
     from mem_tpu_torch.models.segmentation import build_segmentor
     from mem_tpu_torch.utils.checkpoint import save_checkpoint
 
     data_root = os.path.join(root, "dsec")
-    for sub in ("imgs", "anns"):
-        os.makedirs(os.path.join(data_root, sub, "val", "seq0"))
-    for i in range(SEG_PAIRS):
-        ev = synthetic_dsec_events(rng, int(rng.integers(190_000, 230_001)))
-        np.save(os.path.join(data_root, "imgs", "val", "seq0", f"{i:06d}.npy"), ev)
-        lab = np.repeat(np.repeat(rng.integers(0, 11, (11, 16)), 40, 0), 40, 1).astype(np.uint8)
-        lab[:10] = 255
-        Image.fromarray(lab).save(os.path.join(data_root, "anns", "val", "seq0", f"{i:06d}.png"))
+    write_seg_pairs(data_root, "val", SEG_PAIRS, rng)
     model = build_segmentor(11, 512, 768, 12, 12, torch.float32, torch.device("cpu"))
     model.init_weights(torch.Generator().manual_seed(0))
     ckpt = save_checkpoint(os.path.join(root, "seg_ckpt"), "final",
@@ -918,7 +1028,8 @@ def run_seg_slice(torch, dev, gpu, rng):
 
 # kernel-name fragments -> family, first match wins (cuDNN's convolutions are
 # implicit GEMMs: their names come before the plain GEMMs')
-_FAMILIES = (("attention_long_fwd", "K3f"), ("band_hist", "K4"), ("chunk_bounds", "K4"),
+_FAMILIES = (("attention_long_bwd", "K3b"), ("attention_long_fwd", "K3f"),
+             ("band_hist", "K4"), ("chunk_bounds", "K4"), ("multi_tensor", "optimizer"),
              ("fprop", "convolutions"), ("conv", "convolutions"), ("cudnn", "convolutions"),
              ("implicit", "convolutions"), ("nchw", "layout changes"), ("nhwc", "layout changes"),
              ("nvjet", "GEMMs"), ("gemm", "GEMMs"), ("cutlass", "GEMMs"),
@@ -928,11 +1039,11 @@ _FAMILIES = (("attention_long_fwd", "K3f"), ("band_hist", "K4"), ("chunk_bounds"
              ("cat", "elementwise"))
 
 
-def profile_seg_forward(torch, gpu, forward, n=5):
-    """torch.profiler over ``n`` seg forwards (B=8, bf16): device time per
-    forward by kernel family, the device's busy share of the unprofiled wall
-    and the kernels per forward. Prints "not measured" where the profiler shows no
-    device time."""
+def profile_seg_forward(torch, gpu, forward, n=5, tag="seg_forward_profile", batch=8):
+    """torch.profiler over ``n`` calls of ``forward`` (a seg forward or a seg
+    train step, bf16): device time per call by kernel family, the device's
+    busy share of the unprofiled wall and the kernels per call. Prints "not
+    measured" where the profiler shows no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     def wall(k):
@@ -952,7 +1063,9 @@ def profile_seg_forward(torch, gpu, forward, n=5):
         if getattr(e, "device_type", None) is None or "cuda" not in str(e.device_type).lower():
             continue
         ms = getattr(e, "self_device_time_total", 0.0) / 1e3 / n
-        if ms <= 0:
+        # the optimizer's annotation ("Optimizer.step#AdamW.step") spans
+        # kernels that are counted on their own
+        if ms <= 0 or e.key.startswith("Optimizer.step"):
             continue
         low = e.key.lower()
         name = next((f for frag, f in _FAMILIES if frag in low), "other")
@@ -961,14 +1074,352 @@ def profile_seg_forward(torch, gpu, forward, n=5):
         total += ms
         launches += e.count
     if total == 0:
-        say("seg_forward_profile", gpu=gpu, device_ms="not measured")
+        say(tag, gpu=gpu, device_ms="not measured")
         return
-    say("seg_forward_profile", gpu=gpu, batch=8, dtype="bfloat16", forwards=n,
+    say(tag, gpu=gpu, batch=batch, dtype="bfloat16", forwards=n,
         wall_ms=wall_ms, wall_ms_profiled=wall_profiled_ms, device_ms=total,
         device_busy_share=min(total / wall_ms, 1.0),
         kernels_per_forward=launches / n,
         family_ms={k: round(v, 3) for k, v in sorted(fam.items(), key=lambda kv: -kv[1])},
         top_kernels=sorted(kernels, reverse=True)[:12])
+
+
+def seg_host_batch(data_root, B, batch_ops=True):
+    """The first training batch of the synthetic train split at batch size
+    B, with its RandAugment draws, as numpy."""
+    from mem_tpu_torch.data.seg_pipeline import (SegBatchIterator, SegPipelineConfig,
+                                                 draw_seg_train_aug, scan_seg_pairs)
+
+    it = SegBatchIterator(scan_seg_pairs(data_root, "imgs/train", "anns/train"),
+                          SegPipelineConfig(batch_size=B, is_train=True, max_evs=SEG_EVENTS))
+    batch = next(iter(it.batches()))
+    batch.update(draw_seg_train_aug(batch["aug_seed"], batch_ops))
+    return batch
+
+
+def make_seg_step(torch, sd, device, dtype, lr_fn, drop=0.1):
+    """A full-width segmentor on ``device`` from the state_dict ``sd`` and its
+    train step (the CLI's optimizer: layer decay 0.65, betas 0.9 / 0.999)."""
+    from mem_tpu_torch.cli.train_seg import SEG_BETAS
+    from mem_tpu_torch.models.segmentation import build_segmentor
+    from mem_tpu_torch.train.optim import create_optimizer
+    from mem_tpu_torch.train.steps import make_seg_steps
+
+    model = build_segmentor(11, 512, 768, 12, 12, dtype, device, drop_path_rate=drop,
+                            dropout_ratio=drop)
+    model.load_state_dict(sd, strict=True)
+    opt = create_optimizer(model, 5e-4, 0.05, layer_decay=0.65, num_layers=12, betas=SEG_BETAS)
+    step, _ = make_seg_steps(model, opt, lr_fn, 0.05, 11, True, True, y_sorted=True)
+    return model, step
+
+
+def check_seg_train_step(torch, dev, data_root, sd):
+    """One make_seg_steps train step of the full-width segmentor (depth 12,
+    B=2, drop-path and dropout 0: the CPU's and the card's generators draw
+    other bits) on one host batch and its draws: the train images (resize
+    jitter, RandAugment, flips) card vs CPU, then the step on the card in f32
+    (TF32 off) and bf16 against the CPU in f32 from the same weights.
+
+    As the recipe has the model: loss, updated BatchNorm buffers and launch
+    counts. Its gradients are not compared: at B=2 the pool-scale-1 branch of
+    the PSP module normalises 2 values per channel, and where the two windows'
+    pooled features nearly agree (var << eps = 1e-5) the channel is a gain of
+    up to rsqrt(eps) = 316 on the f32 rounding of its fast variance, which
+    every gradient below the decode head inherits (PERF.md has the readings).
+    The gradients are compared on the same step with the four PSP BatchNorms'
+    eps at SEG_DAMPED_EPS on both devices, which bounds that gain by 3.2, and
+    held to SEG_STEP_F32_GRAD_REL. That the gate can see a wrong K3b is shown
+    in the same run: the damped card step is repeated with a fault planted in
+    K3b's operands (the last key masked out; the last query row's do zeroed:
+    what a mishandled tail tile at N = 1025 would give) and must fail it."""
+    from mem_tpu_torch.data.prefetch import to_device
+    from mem_tpu_torch.data.seg_pipeline import seg_preprocess_batch
+    from mem_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from mem_tpu_torch.ops import attention as A
+
+    cpu = torch.device("cpu")
+    host = seg_host_batch(data_root, 2)
+    images = {}
+    for d in (cpu, dev):
+        img, lab = seg_preprocess_batch(to_device(host, d), True, True, True, y_sorted=True)
+        images[d.type] = (img.cpu(), lab.cpu())
+    diff = (images["cuda"][0] - images["cpu"][0]).abs()
+    frac = (diff > 0).float().mean().item()
+    labels_equal = bool(torch.equal(images["cuda"][1], images["cpu"][1]))
+    say("seg_train_images_check", shape=list(diff.shape), max_abs=diff.max().item(),
+        frac_differing=frac, tol=SEG_TRAIN_IMG_TOL, frac_tol=SEG_TRAIN_IMG_FRAC,
+        labels_equal=labels_equal, resize_jitter=host["resize_jitter"].tolist(),
+        flips=host["flip"].tolist(), ra_batch_ops=host["ra_batch_ops"].tolist())
+    check(frac <= SEG_TRAIN_IMG_FRAC, f"card seg train images differ from the CPU's at {frac}")
+    check(labels_equal, "card seg train labels differ from the CPU's")
+
+    real_k3b = A.fused_attention_flat_long_bwd
+
+    def faulty_k3b(fault):
+        def bwd(q, k, v, bias, do, scale):
+            if fault == "last_key_dropped":
+                bias = bias.clone()
+                bias[:, :, -1] = float("-inf")
+            else:
+                do = do.clone()
+                do[:, -1] = 0
+            return real_k3b(q, k, v, bias, do, scale)
+        return bwd
+
+    lr_fn = lambda it: 5e-4  # noqa: E731
+    out, counts = {}, {}
+    for name, d, dt, eps, fault in (
+            ("cpu_f32", cpu, torch.float32, None, None),
+            ("card_f32", dev, torch.float32, None, None),
+            ("card_bf16", dev, torch.bfloat16, None, None),
+            ("cpu_f32_damped", cpu, torch.float32, SEG_DAMPED_EPS, None),
+            ("card_f32_damped", dev, torch.float32, SEG_DAMPED_EPS, None),
+            ("last_key_dropped", dev, torch.float32, SEG_DAMPED_EPS, "last_key_dropped"),
+            ("last_row_dropped", dev, torch.float32, SEG_DAMPED_EPS, "last_row_dropped")):
+        model, step = make_seg_step(torch, sd, d, dt, lr_fn, drop=0.0)
+        if eps is not None:
+            for si in range(len(model.decode_head.pool_scales)):
+                getattr(model.decode_head, f"psp_{si}").bn.eps = eps
+        t0 = time.perf_counter()
+        reset_launch_counts()
+        try:
+            if fault is not None:
+                A.fused_attention_flat_long_bwd = faulty_k3b(fault)
+            m = step(to_device(host, d), 0)
+        finally:
+            A.fused_attention_flat_long_bwd = real_k3b
+        metrics = {k: v.item() for k, v in m.items()}
+        counts[name] = launch_counts()
+        out[name] = (metrics,
+                     {n: p.grad.detach().float().cpu() for n, p in model.named_parameters()},
+                     {n: b.detach().float().cpu() for n, b in model.named_buffers()
+                      if "running_" in n}, round(time.perf_counter() - t0, 1))
+        del model, step
+        torch.cuda.empty_cache()
+
+    def gradients(card, ref="cpu_f32_damped"):
+        """Per-parameter relative L2 card vs CPU; the parameters whose CPU
+        gradient is below the floor are held to the floor instead."""
+        ref_g, got_g = out[ref][1], out[card][1]
+        floor = SEG_GRAD_FLOOR * out[ref][0]["grad_norm"]
+        noise = sorted(n for n, g in ref_g.items() if torch.linalg.norm(g).item() < floor)
+        rel = {n: rel_l2(torch, g, ref_g[n]) for n, g in got_g.items() if n not in noise}
+        noise_max = max([torch.linalg.norm(got_g[n]).item() for n in noise] + [0.0])
+        worst5 = [(n, rel[n], torch.linalg.norm(ref_g[n]).item())
+                  for n in sorted(rel, key=rel.get, reverse=True)[:5]]
+        return dict(rel_l2_max=worst5[0][1], rel_l2_median=statistics.median(rel.values()),
+                    worst5=worst5, compared=len(rel), below_floor=noise, floor=floor,
+                    below_floor_card_norm_max=noise_max)
+
+    ref_m, _, ref_b, _ = out["cpu_f32"]
+    loss_rel = {n: abs(out[n][0]["loss"] - out[r][0]["loss"]) / abs(out[r][0]["loss"])
+                for n, r in (("card_f32", "cpu_f32"), ("card_bf16", "cpu_f32"),
+                             ("card_f32_damped", "cpu_f32_damped"))}
+    grads = gradients("card_f32_damped")
+    faults = {n: gradients(n) for n in ("last_key_dropped", "last_row_dropped")}
+    bn_rel = {n: rel_l2(torch, b, ref_b[n]) for n, b in out["card_f32"][2].items()}
+    worst_bn = max(bn_rel, key=bn_rel.get)
+    say("seg_train_step_check", model="EvBEiT ViT-B/16 + UPerNet + FCN", embed_dim=768,
+        depth=12, heads=12, tokens=1025, batch=2,
+        metrics={n: v[0] for n, v in out.items()}, seconds={n: v[3] for n, v in out.items()},
+        loss_rel=loss_rel, gradients_damped=grads, damped_eps=SEG_DAMPED_EPS,
+        planted_faults={n: dict(rel_l2_max=f["rel_l2_max"], rel_l2_median=f["rel_l2_median"],
+                                worst=f["worst5"][0][0]) for n, f in faults.items()},
+        bn_buffers=len(bn_rel), bn_rel_l2_max=bn_rel[worst_bn], bn_worst=worst_bn,
+        launches=counts,
+        bounds=dict(f32_loss=STEP_F32_LOSS_REL, f32_grad_damped=SEG_STEP_F32_GRAD_REL,
+                    bf16_loss=STEP_BF16_LOSS_REL, bn=SEG_STEP_BN_REL))
+    check(all(np.isfinite(v) for v in ref_m.values()), "CPU seg step metrics not finite")
+    for name, c in counts.items():
+        want = {} if name.startswith("cpu") else {
+            "hist_planes_cols_sorted": 1, "fused_attention_flat_long": 12,
+            "fused_attention_flat_long_bwd": 12}
+        check(c == want, f"the {name} seg step launched {c}")
+    check(loss_rel["card_f32"] <= STEP_F32_LOSS_REL
+          and loss_rel["card_f32_damped"] <= STEP_F32_LOSS_REL,
+          f"f32 seg step loss rel {loss_rel}")
+    check(grads["rel_l2_max"] <= SEG_STEP_F32_GRAD_REL,
+          f"f32 grad with the PSP BatchNorms damped: {grads['worst5'][0]}")
+    check(grads["below_floor_card_norm_max"] <= 10 * grads["floor"]
+          and len(grads["below_floor"]) <= 8,
+          f"gradients below the floor on the CPU: {grads['below_floor']}, on the card up to "
+          f"{grads['below_floor_card_norm_max']}")
+    for n, f in faults.items():
+        check(f["rel_l2_max"] > SEG_STEP_F32_GRAD_REL,
+              f"the gradient gate does not see K3b with {n}: worst {f['worst5'][0]}")
+    check(bn_rel[worst_bn] <= SEG_STEP_BN_REL, f"BN buffer {worst_bn} rel L2 {bn_rel[worst_bn]}")
+    check(loss_rel["card_bf16"] <= STEP_BF16_LOSS_REL, f"bf16 seg step loss rel {loss_rel}")
+
+
+def run_train_seg_cli(torch, data_root, pretrained, out_dir):
+    """train_seg at full width on the card (B=16, bf16, every default of the
+    recipe but the iteration counts): 4 iterations with an evaluation and a
+    checkpoint every 2, then a second call that auto-resumes at iteration 4
+    and runs 2 more, then test_seg on the final checkpoint. Returns the launch
+    counts of the first run."""
+    from mem_tpu_torch.cli import test_seg as T
+    from mem_tpu_torch.cli import train_seg as S
+    from mem_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from mem_tpu_torch.utils.checkpoint import load_checkpoint
+
+    common = ["--data_root", data_root, "--pretrained", pretrained, "--output_dir", out_dir,
+              "--eval_interval", "2", "--save_interval", "2", "--device", "cuda"]
+    t0 = time.perf_counter()
+    reset_launch_counts()                 # just before the main path
+    hist = S.main(common + ["--max_iters", "4"])
+    counts = launch_counts()              # just after it
+    t1 = time.perf_counter()
+    written = sorted(os.listdir(out_dir))
+    reset_launch_counts()
+    resumed = S.main(common + ["--max_iters", "6"])
+    counts_resumed = launch_counts()
+    t2 = time.perf_counter()
+    final = os.path.join(out_dir, "checkpoint-final.pth")
+    payload = load_checkpoint(final)
+    reset_launch_counts()
+    stats = T.main(["--data_root", data_root, "--checkpoint", final, "--device", "cuda"])
+    counts_test = launch_counts()
+    say("train_seg_cli", model="EvBEiT ViT-B/16 + UPerNet + FCN", embed_dim=768, depth=12,
+        heads=12, seg_input_size=512, tokens=1025, batch=16, dtype="bfloat16",
+        train_steps=4, eval_forwards=3, history=hist, checkpoints=written, launches=counts,
+        resumed_history=resumed, launches_resumed=counts_resumed,
+        final_epoch=int(payload["epoch"]), final_has_optimizer="optimizer" in payload,
+        test_seg_mIoU=stats["mIoU"], launches_test_seg=counts_test,
+        seconds=[round(t1 - t0, 2), round(t2 - t1, 2), round(time.perf_counter() - t2, 2)])
+    # 4 train steps; evaluations after iterations 1 and 3 and the final one,
+    # one batch of 16 each
+    check(counts == {"fused_attention_flat_long_bwd": 48, "fused_attention_flat_long": 84,
+                     "hist_planes_cols_sorted": 7}, f"train_seg launched {counts}")
+    check(counts_resumed == {"fused_attention_flat_long_bwd": 24,
+                             "fused_attention_flat_long": 48, "hist_planes_cols_sorted": 4},
+          f"the resumed train_seg launched {counts_resumed}")
+    check([h[0] for h in hist] == [0] and [h[0] for h in resumed] == [4],
+          f"train_seg read back iterations {hist} and, resumed, {resumed}")
+    check(all(np.isfinite(h[1]) and np.isfinite(h[2]) for h in hist + resumed),
+          f"train_seg losses {hist} {resumed}")
+    check({"checkpoint-1.pth", "checkpoint-3.pth", "checkpoint-final.pth"} <= set(written),
+          f"checkpoints {written}")
+    check(os.path.exists(os.path.join(out_dir, "checkpoint-5.pth")), "no checkpoint-5.pth")
+    check(int(payload["epoch"]) == 6 and "optimizer" not in payload,
+          "checkpoint-final.pth is not the 6-iteration run's, without its optimizer")
+    check(np.isfinite(stats["mIoU"]) and 0 <= stats["mIoU"] <= 1
+          and counts_test == {"fused_attention_flat_long": 24, "hist_planes_cols_sorted": 2},
+          f"test_seg on the trained checkpoint: mIoU {stats['mIoU']}, launches {counts_test}")
+    return counts
+
+
+def time_seg_training(torch, dev, gpu, data_root, sd):
+    """K3b beside its plain version (in turns), its bound and the backward of
+    one SDPA call, at B=16 (train_seg's default) and B=8; the full-width seg
+    train step (depth 12, bf16, drop-path and dropout 0.1) at B=8 and B=16:
+    15 steps on one repeated batch at the recipe's peak lr (the loss must fall
+    by SEG_LOSS_FALL at B=8), the median of the last 12 timed by CUDA events,
+    the peak device memory, and at B=8 a profile by kernel family. Returns
+    K3b's, its plain version's and the SDPA backward's ms at B=16."""
+    from mem_tpu_torch.data.prefetch import to_device
+    from mem_tpu_torch.ops.attention import (fused_attention_flat_long_bwd,
+                                             fused_attention_flat_long_bwd_reference)
+
+    k3b = {}
+    for B in (8, 16):
+        q, k, v, do = (torch.randn(B, 1025, 768, device=dev, dtype=torch.bfloat16)
+                       for _ in range(4))
+        bias = torch.randn(12, 1025, 1025, device=dev)
+        t_k, t_p = in_turns(
+            torch, lambda: fused_attention_flat_long_bwd_reference(q, k, v, bias, do, 0.125),
+            lambda: fused_attention_flat_long_bwd(q, k, v, bias, do, 0.125), runs=8)
+        parts = {f: kernel_device_ms(
+            torch, lambda: fused_attention_flat_long_bwd(q, k, v, bias, do, 0.125), (f,), n=5,
+            per_launch=True)
+            for f in ("rows_mma", "cols_mma", "bias_sum")}
+        # the yardstick: the backward of one scaled_dot_product_attention call
+        # with the bias as its mask (dq, dk, dv and the mask's gradient)
+        qh, kh, vhd, mask = (t.requires_grad_() for t in sdpa_operands(torch, q, k, v, bias))
+        out = torch.nn.functional.scaled_dot_product_attention(qh, kh, vhd, attn_mask=mask,
+                                                               scale=0.125)
+        doh = torch.randn_like(out)
+        t_lib = time_ms(torch, lambda: torch.autograd.grad(out, (qh, kh, vhd, mask), doh,
+                                                           retain_graph=True), runs=10)
+        bnd = attention_bwd_bound(B, 1025, 12, 64)
+        say("time_k3b", gpu=gpu, batch=B, shape=[1025, 12, 64], dtype="bfloat16", kernel_ms=t_k,
+            plain_ms=t_p, sdpa_backward_ms=t_lib, bound_ms=bnd[0], bound_by=bnd[1],
+            kernel_device_ms_by_part=parts,
+            workspace_mb=round(B * 12 * 1025 * 1025 * 4 / 1e6, 1),
+            kernel_tflop_s=10 * B * 12 * 1025 * 1025 * 64 / t_k / 1e9)
+        k3b[B] = (t_k, t_p, t_lib)
+        del q, k, v, do, bias, qh, kh, vhd, mask, out, doh
+        torch.cuda.empty_cache()
+
+    steps, warm = 15, 3
+    lr_fn = lambda it: 5e-4  # noqa: E731
+    for B in (8, 16):
+        model, step = make_seg_step(torch, sd, dev, torch.bfloat16, lr_fn)
+        batch = to_device(seg_host_batch(data_root, B), dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        events, metrics = [], []
+        for i in range(steps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            metrics.append(step(batch, i))
+            end.record()
+            events.append((start, end))
+        torch.cuda.synchronize()
+        ms = statistics.median(a.elapsed_time(b) for a, b in events[warm:])
+        losses = [m["loss"].item() for m in metrics]
+        say("time_seg_train_step", gpu=gpu, batch=B, model="EvBEiT ViT-B/16 + UPerNet + FCN",
+            embed_dim=768, depth=12, heads=12, tokens=1025, dtype="bfloat16", ms=ms,
+            iterations_per_s=1e3 / ms, windows_per_s=B / ms * 1e3,
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, losses=losses,
+            grad_norm_last=metrics[-1]["grad_norm"].item())
+        check(all(np.isfinite(losses)), f"seg B={B}: non-finite losses {losses}")
+        if B == 8:
+            check(losses[-1] <= losses[0] - SEG_LOSS_FALL,
+                  f"the seg loss fell from {losses[0]} to {losses[-1]}, less than {SEG_LOSS_FALL}")
+            it = iter(range(steps, steps + 100))
+            profile_seg_forward(torch, gpu, lambda: step(batch, next(it)), n=3,
+                                tag="seg_train_step_profile", batch=B)
+        del model, step, batch, metrics
+        torch.cuda.empty_cache()
+    return k3b[16]
+
+
+def run_seg_train_slice(torch, dev, gpu, rng):
+    """The segmentation training slice at full width: one train step card
+    against CPU, the train_seg CLI with a resume and test_seg on its
+    checkpoint, K3b's and the train step's timings. Returns train_seg's
+    launch counts and K3b's times at B=16."""
+    from mem_tpu_torch.cli import run_mem_pretraining as R
+    from mem_tpu_torch.models.segmentation import build_segmentor
+
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        data_root = os.path.join(tmp.name, "dsec")
+        write_seg_pairs(data_root, "train", SEG_TRAIN_PAIRS, rng)
+        write_seg_pairs(data_root, "val", SEG_PAIRS, rng)
+        # a pretraining-schema checkpoint (pt_vit at 224^2: one shared 14x14
+        # rel-pos table, mask_token, lm_head), weights drawn from a seed
+        pt = R.build_model(R.get_args(["--config", "configs/ncaltech.conf"]), torch.float32,
+                           torch.device("cpu"))
+        pt.init_weights(torch.Generator().manual_seed(1))
+        pretrained = os.path.join(tmp.name, "pt_vit_b16_seed1.pth")
+        torch.save({"model": pt.state_dict(), "epoch": 0}, pretrained)
+        seg = build_segmentor(11, 512, 768, 12, 12, torch.float32, torch.device("cpu"))
+        seg.init_weights(torch.Generator().manual_seed(0))
+        sd = seg.state_dict()
+        say("seg_train_inputs", train_pairs=SEG_TRAIN_PAIRS, val_pairs=SEG_PAIRS,
+            pretrained_keys=len(pt.state_dict()),
+            pretrained_mb=round(os.path.getsize(pretrained) / 2**20, 1))
+        del pt, seg
+        check_seg_train_step(torch, dev, data_root, sd)
+        counts = run_train_seg_cli(torch, data_root, pretrained,
+                                   os.path.join(tmp.name, "seg_out"))
+        t_k3b, t_k3bp, t_k3bl = time_seg_training(torch, dev, gpu, data_root, sd)
+    finally:
+        signal.signal(signal.SIGTERM, signal.SIG_DFL)   # the CLI latched SIGTERM
+        tmp.cleanup()
+    return dict(counts=counts, k3b_ms=t_k3b, k3b_plain_ms=t_k3bp, k3b_sdpa_ms=t_k3bl)
 
 
 def write_training_inputs(torch, root, rng):

@@ -8,16 +8,22 @@ memcpy, the y presort, pad, and sample per-item randomness, through the
 numpy loader or the threaded C++ one (native/memev.cpp). The batches are
 the reference's array for array, for training as for evaluation.
 
-The device side, ``seg_preprocess_batch``, is ported for evaluation:
+The device side, ``seg_preprocess_batch``:
 
   voxelize 440x640 (uint8 counts; kernel K4 through ops/voxelize.py) ->
+  [train: Resize ratio_range + RandomCrop as one window resample] ->
   RemoveHotPixelsEvs (count scale) -> NormalizeEvs (/max * 255) ->
-  float32 0..255 (the mmseg Normalize step is mean 0 / std 1, i.e. identity:
-  the network consumes 0..255 inputs; dsec.py:1-24).
+  [train: ToUint8 -> EventRandAugmentEvs (photometric only, magnitude 10)]
+  -> float32 0..255 -> [train: RandomFlip] (the mmseg Normalize step is
+  mean 0 / std 1, i.e. identity: the network consumes 0..255 inputs;
+  dsec.py:1-24).
 
-Its training half (the Resize ratio_range + RandomCrop window resample,
-RandAugment and the flips, seg_pipeline.py:354-375) comes with slice 4 of
-the port (train_seg) and raises.
+The RandAugment draws, which the reference makes on the device from
+``jax.random`` keys built from each sample's ``aug_seed``, are made on the
+host from the same ``aug_seed`` by :func:`draw_seg_train_aug` (numpy, the
+same distributions) and ride in the batch, so the CPU and the card augment
+a batch identically; the flips and the resize jitter are host draws the
+iterator already emits.
 """
 from __future__ import annotations
 
@@ -31,11 +37,13 @@ import torch
 from mem_tpu_torch import native
 from mem_tpu_torch.data.device_pipeline import events_f32
 from mem_tpu_torch.ops import image_ops as I
+from mem_tpu_torch.ops.rand_augment import draw_rand_augment, rand_augment_batch
 from mem_tpu_torch.ops.voxelize import voxelize_fused
 
 SEG_H, SEG_W = 440, 640
 SEG_MAX_EVS = 180000  # EventDataset.py:726
 IGNORE_INDEX = 255
+SEG_RAND_AUG_NUM_OPS, SEG_RAND_AUG_MAGNITUDE = 2, 10   # seg_pipeline.py:369
 
 
 def scan_seg_pairs(data_root: str, img_dir: str, ann_dir: str,
@@ -279,23 +287,99 @@ class SegBatchIterator:
         return batch
 
 
+def _interp_matrices(n: int, r, o, nearest: bool):
+    """(B, n, n) resample matrices M with out = M @ in for one axis, from
+    per-sample ratios ``r`` and offsets ``o`` (B,): output cell i samples
+    the input coordinate (i + o + 0.5) / r - 0.5 (center-aligned "resize by
+    r, then crop at offset o"), edge-replicated. Bilinear rows hold two
+    banded weights; nearest rows are one-hot (seg_pipeline.py:298-314)."""
+    i = torch.arange(n, dtype=torch.float32, device=r.device)
+    cc = torch.clamp((i[None] + o[:, None] + 0.5) / r[:, None] - 0.5, 0.0, n - 1.0)
+
+    def one_hot(idx):
+        return torch.nn.functional.one_hot(idx, n).to(torch.float32)
+
+    if nearest:
+        return one_hot(torch.round(cc).long())
+    c0 = torch.floor(cc)
+    w = cc - c0
+    c0i = c0.long()
+    c1i = torch.clamp(c0i + 1, max=n - 1)
+    return one_hot(c0i) * (1.0 - w)[..., None] + one_hot(c1i) * w[..., None]
+
+
+def apply_resize_jitter(img, labels, rj):
+    """mmseg Resize(ratio_range) + RandomCrop as one resample of the raster
+    (bilinear) and of the labels (nearest), two batched products per axis
+    (seg_pipeline.py:317-329). ``rj``: (B, 4) f32 [r_h, r_w, oy, ox]."""
+    H, W = img.shape[1], img.shape[2]
+    ay = _interp_matrices(H, rj[:, 0], rj[:, 2], False)
+    ax = _interp_matrices(W, rj[:, 1], rj[:, 3], False)
+    img = torch.einsum("bij,bjxc->bixc", ay, img)
+    img = torch.einsum("bwx,bixc->biwc", ax, img)
+    py = _interp_matrices(H, rj[:, 0], rj[:, 2], True)
+    px = _interp_matrices(W, rj[:, 1], rj[:, 3], True)
+    lab = torch.einsum("bij,bjx->bix", py, labels.to(torch.float32))
+    lab = torch.einsum("bwx,bix->biw", px, lab)
+    return img, torch.round(lab).to(labels.dtype)
+
+
+def draw_seg_train_aug(aug_seed: np.ndarray, rand_aug_batch_ops: bool = False) -> dict:
+    """Host draws of the training RandAugment for one batch, from each
+    sample's ``aug_seed`` (a ``np.random.default_rng(seed)`` per sample):
+    ``ra_ops`` (one of the 9 photometric-pool ops), ``ra_bins`` in [0, 10]
+    and ``ra_signs`` in {0, 1}, (B, 2) int32, and with ``rand_aug_batch_ops``
+    the (2,) ``ra_batch_ops`` shared by the batch, drawn from (aug_seed[0],
+    0x5EED) (rand_augment.py:413). The distributions are the reference's;
+    the bits are numpy's. ``ra_batch_ops`` is read back by the host and stays
+    numpy (data/prefetch.py keeps it off the device)."""
+    seeds = [int(s) for s in np.asarray(aug_seed).reshape(-1)]
+    rngs = [np.random.default_rng(s) for s in seeds]
+    batch_rng = np.random.default_rng((seeds[0], 0x5EED)) if rand_aug_batch_ops else None
+    ops, bins, signs, batch_ops = draw_rand_augment(
+        rngs, SEG_RAND_AUG_NUM_OPS, SEG_RAND_AUG_MAGNITUDE, batch_rng, geometric=False)
+    out = {"ra_ops": ops, "ra_bins": bins, "ra_signs": signs}
+    if batch_ops is not None:
+        out["ra_batch_ops"] = batch_ops
+    return out
+
+
 def seg_preprocess_batch(batch: dict, is_train: bool, rand_aug: bool = True,
                          rand_aug_batch_ops: bool = False, y_sorted: bool = False):
     """On the batch's device: events -> network-ready (B, 440, 640, 3) f32 in
-    0..255, plus the labels. Returns (images, labels); a label-free batch
-    (serving) returns labels None. ``y_sorted`` promises host-presorted
-    events and spares K4 its sort."""
-    if is_train:
-        raise NotImplementedError(
-            "seg_preprocess_batch(is_train=True) (the resize jitter, RandAugment and "
-            "the flips, seg_pipeline.py:354-375) comes with slice 4 of the port "
-            "(train_seg)")
+    0..255, plus the labels (flipped with the image when training). Returns
+    (images, labels); a label-free batch (serving) returns labels None.
+    ``y_sorted`` promises host-presorted events and spares K4 its sort.
+    Training with ``rand_aug`` needs the :func:`draw_seg_train_aug` draws in
+    the batch."""
     img = voxelize_fused(
         events_f32(batch), batch["n_valid"], SEG_H, SEG_W,
         time_surface=False, wrap_uint8=True, y_sorted=y_sorted,
     ).to(torch.float32)                                   # counts 0..255
+    labels = batch.get("label")
+    if is_train and "resize_jitter" in batch:
+        # reference order: Resize rides before RemoveHotPixels (dsec.py:13-15)
+        img, labels = apply_resize_jitter(img, labels, batch["resize_jitter"])
     img = I.remove_hot_pixels(img, 10.0)                  # RemoveHotPixelsEvs
     # NormalizeEvs: joint max over all channels -> scale to 0..255
     m = img.amax(dim=(1, 2, 3), keepdim=True)
     img = img / torch.where(m > 0, m, torch.ones_like(m)) * 255.0
-    return img, batch.get("label")
+    if is_train:
+        u8 = img.to(torch.uint8)                          # ToUnit8Evs
+        if rand_aug:
+            keys = ("ra_ops", "ra_bins", "ra_signs") + \
+                (("ra_batch_ops",) if rand_aug_batch_ops else ())
+            missing = [k for k in keys if k not in batch]
+            if missing:
+                raise ValueError(
+                    f"seg_preprocess_batch(is_train=True, rand_aug=True) needs the host "
+                    f"draws {missing}: add draw_seg_train_aug(batch['aug_seed'], "
+                    f"rand_aug_batch_ops) to the batch")
+            u8 = rand_augment_batch(u8, batch["ra_ops"], batch["ra_bins"], batch["ra_signs"],
+                                    batch["ra_batch_ops"] if rand_aug_batch_ops else None,
+                                    geometric=False)
+        img = u8.to(torch.float32)
+        flip = batch["flip"][:, None, None]
+        img = torch.where(flip[..., None], img.flip(2), img)
+        labels = torch.where(flip, labels.flip(2), labels)
+    return img, labels

@@ -1,4 +1,4 @@
-"""Semantic segmentation, inference: EvBEiT backbone + UPerNet / FCN heads.
+"""Semantic segmentation: EvBEiT backbone + UPerNet / FCN heads.
 
 Port of mem_tpu/models/segmentation.py (the reference's mmsegmentation
 stack, backbone/mem.py:277-452 + UPerHead / FCNHead):
@@ -12,7 +12,8 @@ stack, backbone/mem.py:277-452 + UPerHead / FCNHead):
   FCNHead: the auxiliary 1-conv head on tap 2.
 
 At 512^2 the backbone's sequences are 1025 tokens long, so its attention
-runs through kernel K3f (models/vit.py routes on the length).
+runs through kernels K3f and, backward, K3b (models/vit.py routes on the
+length).
 
 Public tensors are NHWC, as in the reference. A contiguous NHWC tensor
 viewed as (B, C, H, W) is exactly PyTorch's channels_last layout, so the
@@ -21,10 +22,15 @@ Dtypes follow the reference: convolutions in the compute dtype (bf16 for
 serving), BatchNorm, the taps, the pooling and the resizes in f32
 (segmentation.py:73, 141), the classifiers in f32.
 
-Inference only: BatchNorm uses its running statistics and dropout and
-drop-path are off. ``train=True`` (batch statistics, K3b) comes with slice 4
-of the port (train_seg) and raises. Parameter and buffer names are those
-``export_seg_params`` writes (mem_tpu/utils/torch_import.py:453), so a
+``train=False`` (a module in ``eval()`` mode): BatchNorm uses its running
+statistics and dropout and drop-path are off. ``train=True`` (a module in
+``train()`` mode): BatchNorm normalises with the batch's statistics and
+updates the running ones, the heads drop 10 % of their last feature map and
+the backbone runs drop-path, all from the ``torch.Generator`` the caller
+passes (the train step seeds one per step). The argument and the module's
+mode must agree. One process holds the whole batch, so the batch statistics
+are the reference's global ones (its "SyncBN", segmentation.py:15-17).
+Parameter and buffer names are those ``export_seg_params`` writes (mem_tpu/utils/torch_import.py:453), so a
 state_dict from ``utils.weights.seg_from_jax_params`` loads with
 ``strict=True``.
 """
@@ -40,7 +46,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from mem_tpu_torch.models.discrete_vae import TorchConvTranspose, cudnn_full_f32
-from mem_tpu_torch.models.vit import PatchEmbed, VitEncoder, trunc_normal_
+from mem_tpu_torch.models.vit import (PatchEmbed, VitEncoder, _need_generator, dropout,
+                                      trunc_normal_)
 from mem_tpu_torch.ops.image_ops import resize_bilinear
 
 
@@ -61,12 +68,14 @@ def _upsample(x, h: int, w: int):
     return resize_bilinear(x, h, w)
 
 
-def _eval_only(module: nn.Module, train: bool) -> None:
-    if train or module.training:
-        raise NotImplementedError(
-            "segmentation training (BatchNorm over the batch, dropout, drop-path and "
-            "the K3b attention backward) comes with slice 4 of the port (train_seg); "
-            "call .eval() and pass train=False")
+def _check_mode(module: nn.Module, train: bool) -> None:
+    """``train=`` picks batch or running statistics and the dropouts, the
+    module's mode drives the trunk's drop-path: the two must agree."""
+    if bool(train) != module.training:
+        raise ValueError(
+            f"{type(module).__name__}: train={bool(train)} but the module is in "
+            f"{'train' if module.training else 'eval'}() mode; call "
+            f".{'train' if train else 'eval'}() first")
 
 
 def _conv_precision(dtype):
@@ -84,22 +93,40 @@ def conv2d_nhwc(x, weight, bias, padding: int, dtype):
     return y.permute(0, 2, 3, 1)
 
 
-class EvalBatchNorm(nn.Module):
-    """flax ``BatchNorm(use_running_average=True, epsilon=1e-5)`` over the
-    last axis in f32, in flax's order: (x - mean) * (rsqrt(var + eps) *
-    scale) + bias."""
+class BatchNorm(nn.Module):
+    """flax ``BatchNorm(momentum=0.9, epsilon=1e-5)`` over the last axis in
+    f32, in flax's order: (x - mean) * (rsqrt(var + eps) * scale) + bias.
 
-    def __init__(self, dim: int, eps: float = 1e-5, device=None):
+    Eval mode normalises with the running statistics. Training mode takes the
+    mean and flax's fast variance E[x^2] - E[x]^2 (clipped at 0) over every
+    axis but the last, normalises with them (gradients flow through both) and
+    updates the buffers in place as running = 0.9 * running + 0.1 * batch,
+    with the same *biased* variance. ``nn.BatchNorm2d`` differs in both
+    conventions (it stores the unbiased variance, and its momentum weighs
+    the batch), so it is not used."""
+
+    def __init__(self, dim: int, eps: float = 1e-5, momentum: float = 0.9, device=None):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(dim, device=device))
         self.bias = nn.Parameter(torch.zeros(dim, device=device))
         self.register_buffer("running_mean", torch.zeros(dim, device=device))
         self.register_buffer("running_var", torch.ones(dim, device=device))
 
     def forward(self, x):
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x.float() - self.running_mean) * mul + self.bias
+        x = x.float()
+        if self.training:
+            axes = tuple(range(x.ndim - 1))
+            mean = x.mean(dim=axes)
+            var = torch.clamp((x * x).mean(dim=axes) - mean * mean, min=0.0)
+            with torch.no_grad():
+                self.running_mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
+                self.running_var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean) * mul + self.bias
 
 
 class ConvModule(nn.Module):
@@ -112,7 +139,7 @@ class ConvModule(nn.Module):
         self.dtype = dtype
         self.conv = nn.Conv2d(in_ch, features, kernel, padding=kernel // 2, bias=False,
                               device=device)
-        self.bn = EvalBatchNorm(features, device=device)
+        self.bn = BatchNorm(features, device=device)
 
     def forward(self, x):
         y = conv2d_nhwc(x, self.conv.weight, None, self.conv.padding[0], self.dtype)
@@ -141,6 +168,7 @@ class EvBEiT(VitEncoder):
         self.grid = grid
         self.out_indices = tuple(out_indices)
         self.dtype = dtype
+        self.drop_rate = drop_rate
         self.patch_embed = PatchEmbed((patch_size, patch_size), in_chans, embed_dim,
                                       dtype=dtype, device=device)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim, device=device))
@@ -149,12 +177,12 @@ class EvBEiT(VitEncoder):
                           if use_abs_pos_emb else None)
         d = embed_dim
         self.fpn1_deconv1 = TorchConvTranspose(d, d, 2, stride=2, dtype=dtype, device=device)
-        self.fpn1_bn = EvalBatchNorm(d, device=device)
+        self.fpn1_bn = BatchNorm(d, device=device)
         self.fpn1_deconv2 = TorchConvTranspose(d, d, 2, stride=2, dtype=dtype, device=device)
         self.fpn2_deconv = TorchConvTranspose(d, d, 2, stride=2, dtype=dtype, device=device)
 
-    def forward(self, x, train: bool = False):
-        _eval_only(self, train)
+    def forward(self, x, train: bool = False, generator=None):
+        _check_mode(self, train)
         B = x.shape[0]
         x = _upsample(x, self.img_size, self.img_size)
         tokens = self.patch_embed(x)
@@ -162,7 +190,10 @@ class EvBEiT(VitEncoder):
         tokens = torch.cat([cls, tokens], dim=1)
         if self.pos_embed is not None:
             tokens = tokens + self.pos_embed.to(tokens.dtype)
-        feats_all = self.encode(tokens, return_all=True)
+        if train and self.drop_rate > 0:
+            tokens = dropout(tokens, self.drop_rate,
+                             _need_generator(generator, "EvBEiT token dropout"))
+        feats_all = self.encode(tokens, generator, return_all=True)
         taps = [feats_all[i][:, 1:, :].reshape(B, self.grid, self.grid, -1).float()
                 for i in self.out_indices]
 
@@ -179,8 +210,10 @@ class UPerHead(nn.Module):
     """UPerNet decode head (mmseg UPerHead semantics)."""
 
     def __init__(self, num_classes: int, in_channels: Sequence[int], channels: int = 512,
-                 pool_scales: Sequence[int] = (1, 2, 3, 6), dtype=torch.float32, device=None):
+                 pool_scales: Sequence[int] = (1, 2, 3, 6), dropout_ratio: float = 0.1,
+                 dtype=torch.float32, device=None):
         super().__init__()
+        self.dropout_ratio = dropout_ratio
         self.pool_scales = tuple(pool_scales)
         self.n_inputs = len(in_channels)
         kw = dict(dtype=dtype, device=device)
@@ -194,8 +227,8 @@ class UPerHead(nn.Module):
         self.fpn_bottleneck = ConvModule(self.n_inputs * channels, channels, 3, **kw)
         self.conv_seg = nn.Conv2d(channels, num_classes, 1, device=device)
 
-    def forward(self, inputs, train: bool = False):
-        _eval_only(self, train)
+    def forward(self, inputs, train: bool = False, generator=None):
+        _check_mode(self, train)
         # PSP on the deepest feature
         x = inputs[-1].float()
         B, H, W, C = x.shape
@@ -219,6 +252,9 @@ class UPerHead(nn.Module):
         h0, w0 = fpn_outs[0].shape[1:3]
         fpn_outs = [fpn_outs[0]] + [_upsample(f, h0, w0) for f in fpn_outs[1:]]
         out = self.fpn_bottleneck(torch.cat(fpn_outs, dim=-1))
+        if train and self.dropout_ratio > 0:
+            out = dropout(out, self.dropout_ratio,
+                          _need_generator(generator, "UPerHead dropout"))
         return conv2d_nhwc(out, self.conv_seg.weight, self.conv_seg.bias, 0, torch.float32)
 
 
@@ -226,15 +262,18 @@ class FCNHead(nn.Module):
     """Auxiliary FCN head (1 conv, concat_input=False)."""
 
     def __init__(self, num_classes: int, in_channels: int, channels: int = 256,
-                 dtype=torch.float32, device=None):
+                 dropout_ratio: float = 0.1, dtype=torch.float32, device=None):
         super().__init__()
+        self.dropout_ratio = dropout_ratio
         self.conv0 = ConvModule(in_channels, channels, 3, dtype=dtype, device=device)
         self.conv_seg = nn.Conv2d(channels, num_classes, 1, device=device)
 
-    def forward(self, x, train: bool = False):
-        _eval_only(self, train)
-        return conv2d_nhwc(self.conv0(x), self.conv_seg.weight, self.conv_seg.bias, 0,
-                           torch.float32)
+    def forward(self, x, train: bool = False, generator=None):
+        _check_mode(self, train)
+        x = self.conv0(x)
+        if train and self.dropout_ratio > 0:
+            x = dropout(x, self.dropout_ratio, _need_generator(generator, "FCNHead dropout"))
+        return conv2d_nhwc(x, self.conv_seg.weight, self.conv_seg.bias, 0, torch.float32)
 
 
 class EncoderDecoder(nn.Module):
@@ -244,7 +283,7 @@ class EncoderDecoder(nn.Module):
 
     def __init__(self, num_classes: int = 11, backbone_cfg: Optional[dict] = None,
                  aux_in_index: int = 2, head_channels: int = 512, aux_channels: int = 256,
-                 dtype=torch.float32, device=None):
+                 dropout_ratio: float = 0.1, dtype=torch.float32, device=None):
         super().__init__()
         cfg = dict(backbone_cfg or {})
         cfg.setdefault("dtype", dtype)
@@ -253,16 +292,16 @@ class EncoderDecoder(nn.Module):
         self.backbone = EvBEiT(device=device, **cfg)
         d = self.backbone.patch_embed.proj.out_channels
         self.decode_head = UPerHead(num_classes, (d,) * 4, channels=head_channels,
-                                    dtype=dtype, device=device)
-        self.auxiliary_head = FCNHead(num_classes, d, channels=aux_channels, dtype=dtype,
-                                      device=device)
+                                    dropout_ratio=dropout_ratio, dtype=dtype, device=device)
+        self.auxiliary_head = FCNHead(num_classes, d, channels=aux_channels,
+                                      dropout_ratio=dropout_ratio, dtype=dtype, device=device)
 
-    def forward(self, x, train: bool = False):
-        _eval_only(self, train)
+    def forward(self, x, train: bool = False, generator=None):
+        _check_mode(self, train)
         H, W = x.shape[1:3]
-        feats = self.backbone(x)
-        logits = self.decode_head(feats)
-        aux = self.auxiliary_head(feats[self.aux_in_index])
+        feats = self.backbone(x, train, generator)
+        logits = self.decode_head(feats, train, generator)
+        aux = self.auxiliary_head(feats[self.aux_in_index], train, generator)
         return _upsample(logits, H, W), _upsample(aux, H, W)
 
     def init_weights(self, generator: torch.Generator, init_std: float = 0.02) -> None:
@@ -291,16 +330,19 @@ class EncoderDecoder(nn.Module):
 
 
 def build_segmentor(num_classes: int, seg_input_size: int, embed_dim: int, depth: int,
-                    num_heads: int, dtype, device) -> EncoderDecoder:
-    """The segmentor both CLIs build (test_seg.py:80-88, serve.py:386-394):
-    EvBEiT at ``seg_input_size``^2 tapping the last four blocks."""
+                    num_heads: int, dtype, device, drop_path_rate: float = 0.1,
+                    dropout_ratio: float = 0.1) -> EncoderDecoder:
+    """The segmentor the CLIs build (train_seg.py:224-233, test_seg.py:80-88,
+    serve.py:386-394): EvBEiT at ``seg_input_size``^2 tapping the last four
+    blocks."""
     return EncoderDecoder(
         num_classes=num_classes,
         backbone_cfg=dict(
             img_size=seg_input_size, embed_dim=embed_dim, depth=depth, num_heads=num_heads,
+            drop_path_rate=drop_path_rate,
             out_indices=tuple(max(0, depth - 4 + k) for k in range(4)),
         ),
-        dtype=dtype, device=device)
+        dropout_ratio=dropout_ratio, dtype=dtype, device=device)
 
 
 def seg_loss(logits, aux, labels, num_classes: int, aux_weight: float = 0.4,

@@ -1,5 +1,6 @@
 """Fused attention on flat (B, N, H*D) layouts: kernels K2f (forward), K2b
-(backward) and K3f (forward at long N) and their plain versions.
+(backward), K3f (forward at long N) and K3b (backward at long N) and their
+plain versions.
 
 Port of mem_tpu/ops/attention.py ``fused_attention_flat`` and its VJP: per
 head, ``softmax(q k^T * scale + bias_h) v`` with q/k/v flat (B, N, H*D) and
@@ -16,8 +17,10 @@ for K2f, whose blocks hold a head's whole K and V in shared memory: the
 segmentation backbone's N = 1025. Its forward on the card is
 csrc/attention_long_fwd.cu (K3f), which tiles the keys and goes over them
 twice (row max and sum, then p v), keeping the roundings of the plain
-version; its backward (K3b, attention.py:348) is not ported yet and raises.
-:func:`attention_route` is the rule that picks between the two.
+version; its backward is csrc/attention_long_bwd.cu (K3b), which goes over
+the scores from the query side (dq, ds) and from the key side (dk, dv) and
+sums the bias gradient in batch order. :func:`attention_route` is the rule
+that picks between the two.
 """
 from __future__ import annotations
 
@@ -206,28 +209,89 @@ def _forward_long(q, k, v, bias, scale: float):
     return out
 
 
+def fused_attention_flat_long_bwd_reference(q, k, v, bias, do, scale: float):
+    """Plain version of K3b: the function of
+    :func:`fused_attention_flat_bwd_reference`, in the same order of
+    roundings (attention.py:300-322 is attention.py:147-167 at long N): p
+    recomputed in f32 from q k^T * scale + bias, p cast to do's dtype for dv,
+    ds = p (dp - rowsum(dp p)) in f32, ds cast to q's dtype before the dq and
+    dk products, f32 accumulation, db = sum over the batch of ds in f32.
+
+    Any N is taken as it is. What the TPU kernel does around that arithmetic
+    is not reproduced: it pads N to blocks of 256 query rows and masks the
+    keys >= N, and it rounds each block's dk/dv partial to the operand dtype
+    before the partials are summed (attention.py:394-395); here dk and dv
+    are summed in f32 over all rows and rounded once. With bf16 operands the
+    two differ by about one bf16 rounding of a partial, inside the tolerance
+    the bf16 comparison is held to."""
+    return fused_attention_flat_bwd_reference(q, k, v, bias, do, scale)
+
+
+def fused_attention_flat_long_bwd(q, k, v, bias, do, scale: float):
+    """The VJP of :func:`fused_attention_flat_long`: (dq, dk, dv) shaped and
+    typed as q/k/v and db (H, N, N) f32 summed over the batch. CPU tensors
+    take the plain version; CUDA tensors launch K3b or raise."""
+    if q.device.type == "cpu":
+        return fused_attention_flat_long_bwd_reference(q, k, v, bias, do, scale)
+    name = "fused_attention_flat_long_bwd"
+    B, N, H, D = _check_cuda_operands(name, (q, k, v, bias, do), q, bias)
+    from mem_tpu_torch.kernels import build
+
+    lib = build.library()
+    if D > lib.mem_attention_long_bwd_max_d():
+        raise ValueError(f"{name}: head dim {D} above the "
+                         f"{lib.mem_attention_long_bwd_max_d()} the kernel takes")
+    is_bf16 = int(q.dtype == torch.bfloat16)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    db = torch.empty(H, N, N, dtype=torch.float32, device=q.device)
+    ds_ws = torch.empty(B, H, N, N, dtype=torch.float32, device=q.device)
+    # the tensor-core kernels keep row statistics and recompute p; the scalar
+    # kernels store p rounded to the operand dtype beside ds
+    mma = lib.mem_attention_long_bwd_uses_mma(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), D, is_bf16)
+    stats = pc_ws = None
+    if mma:
+        stats = torch.empty(3, B, H, N, dtype=torch.float32, device=q.device)
+    else:
+        _smem_check(name, lib.mem_attention_long_bwd_scalar_smem(N, D), N, D)
+        pc_ws = torch.empty(B, H, N, N, dtype=q.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.mem_attention_long_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), do.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), db.data_ptr(), ds_ws.data_ptr(),
+        None if pc_ws is None else pc_ws.data_ptr(),
+        None if stats is None else stats.data_ptr(),
+        B, N, H, D, float(scale), is_bf16, stream)
+    build.check(name, rc)
+    count_launch(name)
+    return dq, dk, dv, db
+
+
 class _FusedAttentionFlatLong(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, bias, scale):
+        ctx.save_for_backward(q, k, v, bias)
+        ctx.scale = scale
         return _forward_long(q, k, v, bias, scale)
 
     @staticmethod
     def backward(ctx, do):
-        raise NotImplementedError(
-            "the backward of fused_attention_flat_long is kernel K3b (the row-blocked "
-            "backward, mem_tpu/ops/attention.py:348); it comes with slice 4 of the "
-            "port (train_seg)")
+        q, k, v, bias = ctx.saved_tensors
+        dq, dk, dv, db = fused_attention_flat_long_bwd(q, k, v, bias, do.contiguous(),
+                                                       ctx.scale)
+        return dq, dk, dv, db, None
 
 
 def fused_attention_flat_long(q, k, v, bias, scale: float):
-    """:func:`fused_attention_flat` for long sequences, forward only: CPU
-    tensors take the plain version, CUDA tensors launch K3f or raise, and a
-    backward through it raises (K3b, slice 4)."""
+    """:func:`fused_attention_flat` for long sequences, differentiable in q,
+    k, v and bias: CPU tensors take the plain versions, CUDA tensors launch
+    K3f forward and K3b backward, or raise."""
     return _FusedAttentionFlatLong.apply(q, k, v, bias, float(scale))
 
 
 def attention_route(N: int) -> str:
-    """"flat" (K2f/K2b) or "long" (K3f) for a sequence of N tokens.
+    """"flat" (K2f/K2b) or "long" (K3f/K3b) for a sequence of N tokens.
 
     The reference routes on whether the whole (H, N, N) f32 bias fits its
     kernel's on-chip memory (``_hb_eligible``, attention.py:50: N <= 320 at
@@ -235,7 +299,7 @@ def attention_route(N: int) -> str:
     whole K and V in one block's shared memory and is instantiated up to
     FLAT_MAX_N keys, which covers the 197 tokens of classification and
     pretraining; the 1025 tokens of the segmentation backbone go to the
-    key-tiled K3f. The head count, which sizes the reference's bias, plays
+    key-tiled K3f and K3b. The head count, which sizes the reference's bias, plays
     no part here."""
     return "flat" if N <= FLAT_MAX_N else "long"
 
@@ -273,4 +337,15 @@ def cuda_bwd_kernel_path(q, k, v, bias) -> str:
     is_bf16 = int(q.dtype == torch.bfloat16)
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr()] * 2 + [q.data_ptr()]
     mma = build.library().mem_attention_bwd_flat_uses_mma(*ptrs, q.shape[1], D, is_bf16)
+    return "mma" if mma else "scalar"
+
+
+def cuda_long_bwd_kernel_path(q, k, v, bias) -> str:
+    """Which CUDA kernels a K3b launch on these operands takes."""
+    from mem_tpu_torch.kernels import build
+
+    D = q.shape[-1] // bias.shape[0]
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr()] * 2 + [q.data_ptr()]
+    mma = build.library().mem_attention_long_bwd_uses_mma(
+        *ptrs, D, int(q.dtype == torch.bfloat16))
     return "mma" if mma else "scalar"

@@ -27,6 +27,9 @@ import torch.nn.functional as F
 NUM_BINS = 31
 NUM_OPS = 14
 PHOTO_START = 6           # ops >= 6 are photometric
+# the photometric-only pool of the segmentation pipeline: Identity and ops
+# 6..13 (EventRandAugmentEvs(no_geometric_trafos=True), rand_augment.py:293)
+PHOTOMETRIC_IDS = (0, 6, 7, 8, 9, 10, 11, 12, 13)
 _LUMA = (0.299, 0.587, 0.114)
 _PAD = 112                # static bound: max |offset| (translate <= 150/331*224 ~ 102)
 
@@ -271,14 +274,17 @@ def photometric_select(img: torch.Tensor, ops: torch.Tensor, mag: torch.Tensor) 
     return out
 
 
-def rand_augment_batch(imgs_u8: torch.Tensor, ops, bins, signs, batch_ops=None) -> torch.Tensor:
+def rand_augment_batch(imgs_u8: torch.Tensor, ops, bins, signs, batch_ops=None,
+                       geometric: bool = True) -> torch.Tensor:
     """RandAugment over a (B, H, W, C) uint8 batch with host-drawn
     (B, num_ops) op indices, magnitude bins and signs (rand_augment.py:
     344-435). ``batch_ops``: None for per-sample op choice (the shared
     geometric pipeline, then the photometric switch), or the (num_ops,) host
     ints of batch-level op choice (``--rand_aug_batch_ops 1``: each round
-    applies one op to the whole batch). Returns uint8, clipped and
-    truncated."""
+    applies one op to the whole batch). ``geometric=False`` is the
+    segmentation pipeline's photometric-only mode: the ops come from
+    PHOTOMETRIC_IDS and no geometric round runs (rand_augment.py:377-378).
+    Returns uint8, clipped and truncated."""
     B, H, W, _ = imgs_u8.shape
     table = magnitude_table(H, W, device=imgs_u8.device)
     img = imgs_u8.float()
@@ -287,28 +293,33 @@ def rand_augment_batch(imgs_u8: torch.Tensor, ops, bins, signs, batch_ops=None) 
         if batch_ops is not None:
             img = apply_op(img, int(batch_ops[r]), mag)
         else:
-            img = photometric_select(geometric_round(img, ops[:, r], mag), ops[:, r], mag)
+            if geometric:
+                img = geometric_round(img, ops[:, r], mag)
+            img = photometric_select(img, ops[:, r], mag)
     return torch.clamp(img, 0, 255).to(torch.uint8)
 
 
-def draw_rand_augment(rngs, num_ops: int, magnitude: int, batch_rng=None):
+def draw_rand_augment(rngs, num_ops: int, magnitude: int, batch_rng=None,
+                      geometric: bool = True):
     """Host draws for ``rand_augment_batch``: per sample and round an op in
-    [0, 14), a bin in [0, magnitude] and a sign in {0, 1}
-    (rand_augment.py:359-369). With ``batch_rng`` the op of each round is
-    drawn once from it and shared by the batch. Returns (ops, bins, signs)
-    int32 (B, num_ops) and the (num_ops,) batch ops or None."""
+    [0, 14) (with ``geometric=False`` one of the 9 PHOTOMETRIC_IDS), a bin
+    in [0, magnitude] and a sign in {0, 1} (rand_augment.py:359-369). With
+    ``batch_rng`` the op of each round is drawn once from it and shared by
+    the batch. Returns (ops, bins, signs) int32 (B, num_ops) and the
+    (num_ops,) batch ops or None."""
+    pool = np.arange(NUM_OPS) if geometric else np.array(PHOTOMETRIC_IDS)
     B = len(rngs)
     ops = np.zeros((B, num_ops), np.int32)
     bins = np.zeros((B, num_ops), np.int32)
     signs = np.zeros((B, num_ops), np.int32)
     for b, rng in enumerate(rngs):
         for r in range(num_ops):
-            ops[b, r] = rng.integers(0, NUM_OPS)
+            ops[b, r] = pool[rng.integers(0, len(pool))]
             bins[b, r] = rng.integers(0, magnitude + 1)
             signs[b, r] = rng.integers(0, 2)
     batch_ops = None
     if batch_rng is not None:
-        batch_ops = batch_rng.integers(0, NUM_OPS, size=num_ops).astype(np.int32)
+        batch_ops = pool[batch_rng.integers(0, len(pool), size=num_ops)].astype(np.int32)
         ops[:] = batch_ops[None, :]
     return ops, bins, signs, batch_ops
 

@@ -1,7 +1,9 @@
-"""Step-resolution schedules, port of mem_tpu/train/schedules.py
-``cosine_scheduler`` (mem/utils.py:395-412): linear warmup (``warmup_steps``
-overrides ``warmup_epochs``), then cosine from base to final over the
-remaining steps, as a numpy array with one value per step."""
+"""Step-resolution schedules. ``cosine_scheduler``, port of
+mem_tpu/train/schedules.py (mem/utils.py:395-412): linear warmup
+(``warmup_steps`` overrides ``warmup_epochs``), then cosine from base to
+final over the remaining steps, as a numpy array with one value per step.
+``poly_lr_schedule``, port of mem_tpu/cli/train_seg.py:47-59: the mmseg poly
+policy of segmentation training, as a step -> lr function."""
 from __future__ import annotations
 
 import math
@@ -31,3 +33,23 @@ def at(schedule: np.ndarray, step: int) -> float:
     """The schedule's value at ``step``, clamped at the last step (the
     reference's ``as_schedule_fn``)."""
     return float(schedule[min(int(step), len(schedule) - 1)])
+
+
+def poly_lr_schedule(base_lr: float, max_iters: int, power: float = 1.0,
+                     warmup_iters: int = 1500, warmup_ratio: float = 1e-6,
+                     min_lr: float = 0.0):
+    """mmseg poly policy (mem_224_160k.py:88-92): linear warm-up from
+    ``warmup_ratio * base_lr`` over ``warmup_iters`` steps, then (base_lr -
+    min_lr) * (1 - step / max_iters) ** power + min_lr. Evaluated in f32, in
+    the reference's order of operations, so that the two agree to an ulp."""
+    f = np.float32
+
+    def fn(step) -> float:
+        step = f(step)
+        warm = f(base_lr) * (f(warmup_ratio)
+                             + f(1 - warmup_ratio) * step / f(max(warmup_iters, 1)))
+        frac = np.clip(f(1.0) - step / f(max_iters), f(0.0), f(1.0))
+        main = f(base_lr - min_lr) * np.power(frac, f(power)) + f(min_lr)
+        return float(warm if step < warmup_iters else main)
+
+    return fn

@@ -4,13 +4,18 @@ Port of mem_tpu/utils/checkpoint.py ``latest_checkpoint`` /
 ``load_checkpoint`` / ``save_checkpoint`` for the format ``python -m
 mem_tpu.cli.export_torch`` writes, ``{"model": state_dict, "epoch": n}``
 (export_torch.py:57-60), which is also the reference's own checkpoint
-format; the pretraining CLI adds ``"optimizer"``. Orbax checkpoint
-directories are out of reach: reading them needs jax; export them to .pth
-first.
+format; the training CLIs add ``"optimizer"``. Segmentation training saves
+by iteration: ``checkpoint-{it}.pth`` holds the segmentor's state_dict in
+the ``export_seg_params`` keys (BatchNorm buffers included), the optimizer
+and ``"epoch": it + 1``, the iteration to continue at;
+``checkpoint-final.pth`` holds no optimizer, and ``test_seg --checkpoint``
+reads either as it is. Orbax checkpoint directories are out of reach:
+reading them needs jax; export them to .pth first.
 """
 from __future__ import annotations
 
 import os
+import re
 from typing import Any, Dict, Optional
 
 import torch
@@ -24,6 +29,17 @@ def latest_checkpoint(output_dir: str) -> Optional[str]:
     paths = [os.path.join(output_dir, n) for n in os.listdir(output_dir)
              if n.endswith(".pth")]
     return max(paths, key=os.path.getmtime) if paths else None
+
+
+def latest_numbered_checkpoint(output_dir: str) -> Optional[str]:
+    """``checkpoint-{N}.pth`` with the highest N in ``output_dir`` (the
+    reference's ``latest_checkpoint``, utils.py:539-557: ``final`` and other
+    tags do not count), or None."""
+    if not os.path.isdir(output_dir):
+        return None
+    tags = [int(m.group(1)) for m in (re.fullmatch(r"checkpoint-(\d+)\.pth", n)
+                                      for n in os.listdir(output_dir)) if m]
+    return os.path.join(output_dir, f"checkpoint-{max(tags)}.pth") if tags else None
 
 
 def load_checkpoint(path: str) -> Dict[str, Any]:

@@ -93,6 +93,19 @@ def from_jax_params(tree: Dict) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def normalize_backbone_state_dict(sd: Dict) -> Dict:
+    """Reduce a raw seg / pretraining state_dict to backbone naming
+    (torch_import.py:366-382, the reference's train_api.py:502-523
+    handshake): drop a ``module.`` DDP prefix, and where keys carry a
+    ``backbone.`` prefix (a segmentation checkpoint) keep those, stripped. A
+    pretraining or finetune checkpoint passes through unchanged."""
+    if next(iter(sd)).startswith("module."):
+        sd = {k[len("module."):]: v for k, v in sd.items()}
+    if any(k.startswith("backbone.") for k in sd):
+        sd = {k[len("backbone."):]: v for k, v in sd.items() if k.startswith("backbone.")}
+    return sd
+
+
 def vae_from_jax_params(tree: Dict) -> Dict[str, torch.Tensor]:
     """flax ``DiscreteVAE`` variables ``{"params": ...}`` -> the reference
     VAE state_dict, decoder included: ``codebook.weight``; encoder

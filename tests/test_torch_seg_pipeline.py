@@ -106,7 +106,8 @@ def test_native_and_python_eval_batches_agree(synth_seg_dataset):
 @pytest.mark.parametrize("compact_wire", [True, False])
 def test_train_batches_equal_jax(synth_seg_dataset, compact_wire):
     """The training iterator is the same host code (flips, aug seeds and the
-    resize jitter drawn per (seed, iter, index)); slice 4 adds nothing here."""
+    resize jitter drawn per (seed, iter, index)); the device side of training
+    is held in tests/test_torch_seg_train.py."""
     tit, jit_ = _iterators(synth_seg_dataset, "train", batch_size=4, is_train=True,
                            max_evs=5000, seed=3, use_native=False, compact_wire=compact_wire)
     tb, jb = tit.batches(), jit_.batches()
@@ -148,6 +149,11 @@ def test_seg_preprocess_batch_eval_equals_jax(rng, y_sorted):
                                     False)[1] is None
 
 
-def test_seg_preprocess_batch_train_raises():
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tsp.seg_preprocess_batch({}, True)
+def test_seg_preprocess_batch_train_raises(rng):
+    """Training with RandAugment needs the host draws in the batch."""
+    batch = {"events_xyp": torch.zeros(1, 100, 3, dtype=torch.int16),
+             "n_valid": torch.tensor([100], dtype=torch.int32),
+             "label": torch.zeros(1, 440, 640, dtype=torch.int32),
+             "flip": torch.tensor([False])}
+    with pytest.raises(ValueError, match="draw_seg_train_aug"):
+        tsp.seg_preprocess_batch(batch, True, rand_aug=True)

@@ -161,13 +161,17 @@ def test_bf16_model_keeps_reference_dtypes(pair, rng):
 
 
 def test_train_mode_raises(pair):
+    """``train=`` and the module's mode must agree, and training needs the
+    step's generator for its dropouts."""
     _, _, tmodel = pair
     x = torch.zeros(1, 44, 64, 3)
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(ValueError, match="eval\\(\\) mode"):
         tmodel(x, train=True)
     fresh = tseg.EncoderDecoder(num_classes=NUM_CLASSES, backbone_cfg=dict(_BACKBONE), **_HEADS)
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(ValueError, match="train\\(\\) mode"):
         fresh(x)                      # a new nn.Module is in training mode
+    with pytest.raises(ValueError, match="torch.Generator"):
+        fresh(x, train=True)
 
 
 def test_init_weights_is_seeded():
