@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from csrc/ and checks each against its
-plain PyTorch version on the card. It drives the four ported paths, each
+plain PyTorch version on the card. It drives the five ported paths, each
 with the launch counts set to 0 just before it and read just after:
 
 - the served classification path: the HTTP server of mem_tpu_torch.cli.serve,
@@ -28,10 +28,20 @@ with the launch counts set to 0 just before it and read just after:
   initialised from a seeded pretraining-schema .pth through the surgery, a
   few iterations with evaluations and checkpoints, an auto-resumed second
   call, then test_seg on the final checkpoint; it checks that the path
-  launched K3b 12 times a train step, K3f and K4, and no K1, K2f or K2b.
+  launched K3b 12 times a train step, K3f and K4, and no K1, K2f or K2b;
+- the classification finetune path: mem_tpu_torch.cli.run_class_finetuning.main
+  (ViT-B/16 ft_vit at full width, bf16, mixup and cutmix on, EMA, update_freq
+  2) from a seeded pretraining-schema .pth through the surgery, with the
+  model toggles FUSED_MLP = True and FLAT_ATTN = False: two epochs with
+  evaluations and checkpoints, an auto-resumed third epoch, --eval on the
+  result; then one short run at the default toggles. The launch counts are
+  checked exactly: K6f, K6b, K5a and K5c 12 times a micro-batch, K1 once,
+  and no K2f or K2b in the toggled run; K2f and K2b and no K5 or K6 in the
+  default one.
 
-Between them it holds one pretraining and one segmentation train step on the
-card (f32 and bf16) against the same step on the CPU, and it times kernels (each beside its plain version,
+Between them it holds one pretraining, one segmentation and one finetune
+train step on the card (f32 and bf16) against the same step on the CPU, and
+it times kernels (each beside its plain version,
 its bound and, where there is one, a PyTorch library call), forwards,
 requests and train steps. One line per phase; the line before the last is
 the kernel table as JSON; the last line is
@@ -104,6 +114,24 @@ SEG_STEP_F32_GRAD_REL = 5e-3   # ... whose gradients are held to this, not to th
 SEG_GRAD_FLOOR = 1e-8    # a gradient below this share of the global norm is rounding noise
                          # (a bias ahead of a conv + BatchNorm has none): held to the floor
 SEG_LOSS_FALL = 0.1      # nats the seg loss must fall over 15 steps on one repeated batch
+# the finetune slice. K6f / K6b: max abs error relative to the plain version's
+# max abs (out, h, dx) and relative L2 (the f32 weight and bias gradients).
+# bf16: h, g, dh and the outputs are each rounded to bf16 (2^-8 relative) from
+# f32 sums taken in another order, so an element can land one bf16 step away
+# (6e-2 at |out| ~ 14: 4e-3 of the max); a row-summed gradient averages such
+# flips out (first readings on an H100: <= 7e-5).
+K6_BF16_TOL = 2e-2
+K6_F32_TOL = 1e-5        # f32: the same math, sums in another order
+K6B_SUM_BF16_REL = 2e-3  # dW1, dW2, db1, db2 relative L2 in bf16
+K6B_SUM_F32_REL = 1e-5   # ... and in f32
+FT_STEP_F32_GRAD_REL = 3e-3  # per-parameter gradient relative L2 of one finetune step, card f32
+                             # vs CPU f32; not the pretraining step's 1e-3: q_bias's gradient is
+                             # a sum over all tokens of dq = ds k, whose terms cancel (a softmax
+                             # row's ds sums to zero), and read 1.2e-3 on an H100 against the CPU
+FT_TOGGLE_GRAD_REL = 1e-3   # one f32 step with the toggles on against off, on the card:
+                            # another order of sums, and erf by a polynomial (1.5e-7 abs)
+FT_EMA_REL = 1e-6        # the EMA weights against decay * start + (1 - decay) * updated, f32
+FT_MICRO = 32            # micro-batch of the finetune CLI runs (batch 64, update_freq 2)
 # the card's published peaks (H100 SXM data sheet): the bounds are reckoned from them
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
@@ -455,6 +483,8 @@ def run(torch):
             "--output_dir", os.path.join(train_tmp.name, "pt_out")])
         t_k2b, t_k2bp, t_k2bl = time_training(torch, dev, gpu, base + [
             "--output_dir", os.path.join(train_tmp.name, "x")])
+        # -- the classification finetune slice (on the same synthetic dataset) --
+        ft = run_finetune_slice(torch, dev, gpu, g, data_root, train_tmp.name)
     finally:
         signal.signal(signal.SIGTERM, signal.SIG_DFL)   # the CLI latched SIGTERM
         train_tmp.cleanup()
@@ -472,8 +502,9 @@ def run(torch):
                 "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms}
 
     # launches: K1, K2f, K2b from the pretraining CLI's run, K3f and K4 from
-    # test_seg's single-scale run, K3b from train_seg's first run; times at
-    # the shapes the bounds name
+    # test_seg's single-scale run, K3b from train_seg's first run, K6f, K6b,
+    # K5a and K5c from the toggled finetune CLI's first run; times at the
+    # shapes the bounds name
     print(json.dumps({"kernels": [
         row("hist_planes_cols", "voxelize_hist.cu", "voxelize_pallas.py:64",
             train_counts["hist_planes_cols"], k1_err, timing[8][0], timing[8][1],
@@ -494,6 +525,16 @@ def run(torch):
             seg_train["counts"]["fused_attention_flat_long_bwd"], k3b_err,
             seg_train["k3b_ms"], seg_train["k3b_plain_ms"],
             attention_bwd_bound(16, 1025, 12, 64), seg_train["k3b_sdpa_ms"]),
+        row("mlp_fused", "mlp_fwd.cu", "mlp.py:54", ft["counts"]["mlp_fused"],
+            ft["k6f_err"], *ft["k6f_ms"], mlp_fwd_bound(FT_ROWS, 768, 3072), None),
+        row("mlp_fused_bwd", "mlp_bwd.cu", "mlp.py:118", ft["counts"]["mlp_fused_bwd"],
+            ft["k6b_err"], *ft["k6b_ms"], mlp_bwd_bound(FT_ROWS, 768, 3072), None),
+        row("fused_attention", "attention_fwd_bhnd.cu", "attention.py:54",
+            ft["counts"]["fused_attention"], ft["k5a_err"], *ft["k5a_ms"][:2],
+            attention_fwd_bound(FT_B, 197, 12, 64), ft["k5a_ms"][2]),
+        row("fused_attention_bwd", "attention_bwd_bhnd.cu", "attention.py:70",
+            ft["counts"]["fused_attention_bwd"], ft["k5c_err"], *ft["k5c_ms"][:2],
+            attention_bwd_bound(FT_B, 197, 12, 64), ft["k5c_ms"][2]),
     ]}), flush=True)
 
 
@@ -1029,7 +1070,10 @@ def run_seg_slice(torch, dev, gpu, rng):
 # kernel-name fragments -> family, first match wins (cuDNN's convolutions are
 # implicit GEMMs: their names come before the plain GEMMs')
 _FAMILIES = (("attention_long_bwd", "K3b"), ("attention_long_fwd", "K3f"),
-             ("band_hist", "K4"), ("chunk_bounds", "K4"), ("multi_tensor", "optimizer"),
+             ("band_hist", "K4"), ("chunk_bounds", "K4"), ("mlp_rows", "K6 rows (K6f, K6b)"),
+             ("mlp_cols", "K6b columns"), ("attention_bwd", "K2b / K5c"),
+             ("attention_fwd", "K2f / K5a"), ("hist_planes_cols", "K1"),
+             ("multi_tensor", "optimizer"),
              ("fprop", "convolutions"), ("conv", "convolutions"), ("cudnn", "convolutions"),
              ("implicit", "convolutions"), ("nchw", "layout changes"), ("nhwc", "layout changes"),
              ("nvjet", "GEMMs"), ("gemm", "GEMMs"), ("cutlass", "GEMMs"),
@@ -1641,6 +1685,629 @@ def time_training(torch, dev, gpu, flags):
         del model, step, batch, metrics
         torch.cuda.empty_cache()
     return statistics.mean(tk), statistics.mean(tp), t_lib
+
+
+# ---------------------------------------------------------------------------
+# the classification finetune slice: K6f, K6b, K5a, K5c
+# ---------------------------------------------------------------------------
+
+FT_B = 128               # the finetune micro-batch the kernels are timed at ...
+FT_ROWS = FT_B * 197     # ... 25,216 rows of 768 through the MLP
+
+
+def mlp_fwd_bound(R, C, Hd, save_h=True, itemsize=2):
+    """K6f: x, both weights and biases read, out (and h) written; two
+    products of 2 R C Hd operations."""
+    nbytes = (2 * R * C + 2 * C * Hd + Hd + C + (R * Hd if save_h else 0)) * itemsize
+    return bound(nbytes, 4 * R * C * Hd, PEAK_BF16_FLOPS)
+
+
+def mlp_bwd_bound(R, C, Hd, itemsize=2):
+    """K6b: do, h, x and both weights read, dx and the f32 dW1, dW2, db1, db2
+    written; four products of 2 R C Hd operations."""
+    nbytes = (3 * R * C + R * Hd + 2 * C * Hd) * itemsize + (2 * C * Hd + Hd + C) * 4
+    return bound(nbytes, 8 * R * C * Hd, PEAK_BF16_FLOPS)
+
+
+def mlp_operands(torch, g, R, C, Hd, dt, dev):
+    x, do = (torch.randn(R, C, generator=g).to(dt).to(dev) for _ in range(2))
+    w1 = (0.05 * torch.randn(C, Hd, generator=g)).to(dt).to(dev)
+    w2 = (0.05 * torch.randn(Hd, C, generator=g)).to(dt).to(dev)
+    b1, b2 = ((0.1 * torch.randn(n, generator=g)).to(dt).to(dev) for n in (Hd, C))
+    return x, w1, b1, w2, b2, do
+
+
+# (rows, C, hidden): the timed micro-batch, the CLI runs' micro-batch, B = 8,
+# ragged row counts around the 32-row tile, the narrow tensor-core widths, and
+# widths only the scalar kernels take
+K6_SHAPES = ((FT_ROWS, 768, 3072), (FT_MICRO * 197, 768, 3072), (1576, 768, 3072),
+             (1, 768, 3072), (31, 768, 3072), (513, 768, 3072), (513, 128, 256),
+             (600, 384, 1536), (513, 96, 200))
+
+
+K6_F32_SHAPES = ((513, 768, 3072), (31, 128, 256), (77, 96, 200))
+
+
+def k6_cases(torch):
+    """((rows, C, hidden), dtype): bf16 at every K6_SHAPES entry (tensor cores
+    where the widths allow) and f32 at three (the scalar kernels)."""
+    return [(s, torch.bfloat16) for s in K6_SHAPES] + [(s, torch.float32)
+                                                       for s in K6_F32_SHAPES]
+
+
+def check_k6f(torch, dev, g):
+    """K6f against its plain version at every k6_cases entry: out and the h
+    residual, ``save_h`` both ways (the two must give the same out bit for
+    bit, and no h without it). Returns the max abs error of out at FT_ROWS."""
+    from mem_tpu_torch.ops import mlp as M
+
+    first = None
+    for (R, C, Hd), dt in k6_cases(torch):
+        tol = K6_BF16_TOL if dt == torch.bfloat16 else K6_F32_TOL
+        x, w1, b1, w2, b2, _ = mlp_operands(torch, g, R, C, Hd, dt, dev)
+        out, h = M.mlp_fwd_2d(x, w1, b1, w2, b2, True)
+        out_no_h, none = M.mlp_fwd_2d(x, w1, b1, w2, b2, False)
+        torch.cuda.synchronize()
+        want, want_h = M.mlp_fused_reference(x, w1, b1, w2, b2, True)
+        e_out, e_h = rel_max_abs(out, want), rel_max_abs(h, want_h)
+        same_out = bool(torch.equal(out, out_no_h)) and none is None
+        say("k6f_check", dtype=str(dt), shape=[R, C, Hd], rel_max_abs_out=e_out,
+            rel_max_abs_h=e_h, tol=tol, save_h_false_equal=same_out,
+            kernel=M.cuda_kernel_path(x, Hd))
+        check(e_out <= tol and e_h <= tol, f"K6f {dt} {R, C, Hd}: out {e_out}, h {e_h} > {tol}")
+        check(same_out, f"K6f {dt} {R, C, Hd}: save_h=False changes the output")
+        if first is None:
+            first = (out.float() - want.float()).abs().max().item()
+        del x, w1, b1, w2, b2, out, h, out_no_h, want, want_h
+    torch.cuda.empty_cache()
+    return first
+
+
+def check_k6b(torch, dev, g):
+    """K6b against its plain version at every k6_cases entry, both on the
+    plain forward's h: dx, and the f32 dW1, dW2, db1, db2; every output
+    bit-identical across two launches; autograd through mlp_fused on the card
+    launches K6f and K6b once each and leaves f32 weight gradients. Returns
+    the max abs error of dx at FT_ROWS."""
+    from mem_tpu_torch.kernels import launch_counts
+    from mem_tpu_torch.ops import mlp as M
+
+    first = None
+    for (R, C, Hd), dt in k6_cases(torch):
+        bf16 = dt == torch.bfloat16
+        tol = K6_BF16_TOL if bf16 else K6_F32_TOL
+        sum_tol = K6B_SUM_BF16_REL if bf16 else K6B_SUM_F32_REL
+        x, w1, b1, w2, b2, do = mlp_operands(torch, g, R, C, Hd, dt, dev)
+        _, h = M.mlp_fused_reference(x, w1, b1, w2, b2, True)
+        got = M.mlp_bwd_2d(do, h, x, w1, w2)
+        again = M.mlp_bwd_2d(do, h, x, w1, w2)
+        torch.cuda.synchronize()
+        ref = M.mlp_fused_bwd_reference(do, h, x, w1, w2)
+        e_dx = rel_max_abs(got[0], ref[0])
+        sums = {n: rel_l2(torch, a, b) for n, a, b in zip(("dw1", "dw2", "db1", "db2"),
+                                                          got[1:], ref[1:])}
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        say("k6b_check", dtype=str(dt), shape=[R, C, Hd], rel_max_abs_dx=e_dx, tol=tol,
+            rel_l2=sums, sum_tol=sum_tol, identical_across_launches=same)
+        check(e_dx <= tol and max(sums.values()) <= sum_tol,
+              f"K6b {dt} {R, C, Hd}: dx {e_dx}, {sums}")
+        check(same, f"K6b {dt} {R, C, Hd}: two launches on the same operands differ")
+        if first is None:
+            first = (got[0].float() - ref[0].float()).abs().max().item()
+        del x, w1, b1, w2, b2, do, h, got, again, ref
+    torch.cuda.empty_cache()
+
+    x, w1, b1, w2, b2, do = mlp_operands(torch, g, 2 * 197, 768, 3072, torch.float32, dev)
+    xb = x.bfloat16().reshape(2, 197, 768).requires_grad_()
+    params = [t.requires_grad_() for t in (w1, b1, w2, b2)]
+    before = launch_counts()
+    M.mlp_fused(xb, *params).backward(do.bfloat16().reshape(2, 197, 768))
+    torch.cuda.synchronize()
+    after = launch_counts()
+    launched = {n: after.get(n, 0) - before.get(n, 0) for n in ("mlp_fused", "mlp_fused_bwd")}
+    c = [t.detach().bfloat16() for t in (w1, b1, w2, b2)]
+    x2 = xb.detach().reshape(-1, 768)
+    _, h = M.mlp_fused_reference(x2, *c)
+    ref = M.mlp_fused_bwd_reference(do.bfloat16(), h, x2, c[0], c[2])
+    errs = {"dx": rel_max_abs(xb.grad.reshape(-1, 768), ref[0]),
+            "dw1": rel_l2(torch, w1.grad, ref[1]), "db1": rel_l2(torch, b1.grad, ref[3]),
+            "dw2": rel_l2(torch, w2.grad, ref[2]), "db2": rel_l2(torch, b2.grad, ref[4])}
+    say("k6_autograd", launches=launched, errors=errs,
+        grad_dtypes=[str(t.grad.dtype) for t in params])
+    check(launched == {"mlp_fused": 1, "mlp_fused_bwd": 1}, f"mlp_fused launched {launched}")
+    check(errs["dx"] <= K6_BF16_TOL and max(v for n, v in errs.items() if n != "dx")
+          <= K6B_SUM_BF16_REL, f"autograd through mlp_fused: {errs}")
+    check(all(t.grad.dtype == torch.float32 for t in params), "weight gradients are not f32")
+    return first
+
+
+# (B, H, N, D), bf16: the timed micro-batch, 64, the CLI runs' micro-batch, a
+# ragged batch, the largest tensor-core N, a short N at both head dims; then f32
+K5_SHAPES = ((FT_B, 12, 197, 64), (64, 12, 197, 64), (FT_MICRO, 12, 197, 64), (3, 12, 197, 64),
+             (1, 12, 256, 64), (3, 4, 65, 64), (3, 4, 65, 32))
+K5_F32_SHAPES = ((3, 12, 197, 64), (1, 3, 65, 32))
+
+
+def k5_operands(torch, g, shape, dt, dev):
+    B, H, N, D = shape
+    q, k, v, do = (torch.randn(B, H, N, D, generator=g).to(dt).to(dev) for _ in range(4))
+    bias = (0.5 * torch.randn(H, N, N, generator=g)).to(dev)
+    flat = lambda t: t.transpose(1, 2).reshape(B, N, H * D).contiguous()  # noqa: E731
+    return q, k, v, do, bias, D ** -0.5, flat
+
+
+def k5_cases(torch):
+    return [(s, torch.bfloat16) for s in K5_SHAPES] + [(s, torch.float32)
+                                                       for s in K5_F32_SHAPES]
+
+
+def check_k5a(torch, dev, g):
+    """K5a against its plain version on (B, H, N, D) and against K2f on the
+    transposed operands, with which it shares its kernel body: bit for bit.
+    N = 197, 65, 256; D = 64, 32; B = 1, 3, 32, 64, 128; bf16 (tensor cores at
+    D = 64) and f32 (scalar). Returns the max abs error at
+    (FT_B, 12, 197, 64)."""
+    from mem_tpu_torch.ops import attention as A
+
+    first = None
+    for shape, dt in k5_cases(torch):
+        tol = K2_BF16_TOL if dt == torch.bfloat16 else K2_F32_TOL
+        q, k, v, _, bias, scale, flat = k5_operands(torch, g, shape, dt, dev)
+        o = A.fused_attention(q, k, v, bias, scale)
+        torch.cuda.synchronize()
+        o_flat = A.fused_attention_flat(flat(q), flat(k), flat(v), bias, scale)
+        err = (o.float() - A.fused_attention_reference(q, k, v, bias, scale).float()
+               ).abs().max().item()
+        equal = bool(torch.equal(flat(o), o_flat))
+        say("k5a_check", dtype=str(dt), shape=list(shape), max_abs_err=err, tol=tol,
+            equals_k2f_on_transposed=equal,
+            kernel=A.cuda_kernel_path(flat(q), flat(k), flat(v), bias))
+        check(err <= tol, f"K5a {dt} {shape} max abs err {err} > {tol}")
+        check(equal, f"K5a {dt} {shape} differs from K2f on the transposed operands")
+        if first is None:
+            first = err
+        del q, k, v, bias, o, o_flat
+    torch.cuda.empty_cache()
+    return first
+
+
+def check_k5c(torch, dev, g):
+    """K5c against its plain version on (B, H, N, D) and against K2b on the
+    transposed operands (the same kernel body: bit for bit), at check_k5a's
+    shapes; every output bit-identical across two launches. Returns the max
+    abs error at (FT_B, 12, 197, 64)."""
+    from mem_tpu_torch.ops import attention as A
+
+    first = None
+    for shape, dt in k5_cases(torch):
+        tol = K2B_BF16_TOL if dt == torch.bfloat16 else K2B_F32_TOL
+        q, k, v, do, bias, scale, flat = k5_operands(torch, g, shape, dt, dev)
+        got = A.fused_attention_bwd(q, k, v, bias, do, scale)
+        again = A.fused_attention_bwd(q, k, v, bias, do, scale)
+        torch.cuda.synchronize()
+        k2b = A.fused_attention_flat_bwd(flat(q), flat(k), flat(v), bias, flat(do), scale)
+        want = A.fused_attention_bwd_reference(q, k, v, bias, do, scale)
+        errs = {n: rel_max_abs(a, b) for n, a, b in zip(("dq", "dk", "dv"), got, want)}
+        db = rel_l2(torch, got[3], want[3])
+        equal = all(torch.equal(flat(a), b) for a, b in zip(got[:3], k2b[:3])) \
+            and bool(torch.equal(got[3], k2b[3]))
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        say("k5c_check", dtype=str(dt), shape=list(shape), rel_max_abs=errs, tol=tol,
+            db_rel_l2=db, db_tol=K2B_DB_REL, equals_k2b_on_transposed=equal,
+            identical_across_launches=same)
+        check(max(errs.values()) <= tol and db <= K2B_DB_REL,
+              f"K5c {dt} {shape}: {errs}, db {db}")
+        check(equal, f"K5c {dt} {shape} differs from K2b on the transposed operands")
+        check(same, f"K5c {dt} {shape}: two launches on the same operands differ")
+        if first is None:
+            first = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+        del q, k, v, do, bias, got, again, k2b, want
+    torch.cuda.empty_cache()
+    return first
+
+
+class toggles:
+    """Set the two module toggles of mem_tpu_torch.models.vit for a block, as
+    scripts/trace_pretrain.py sets the reference's, and put them back."""
+
+    def __init__(self, flat_attn: bool, fused_mlp: bool):
+        self.values = (flat_attn, fused_mlp)
+
+    def __enter__(self):
+        from mem_tpu_torch.models import vit
+
+        self.saved = (vit.FLAT_ATTN, vit.FUSED_MLP)
+        vit.FLAT_ATTN, vit.FUSED_MLP = self.values
+
+    def __exit__(self, *exc):
+        from mem_tpu_torch.models import vit
+
+        vit.FLAT_ATTN, vit.FUSED_MLP = self.saved
+
+
+def finetune_flags(data_root, pretrained, out_dir):
+    """The conf's recipe at a batch one card takes, mixup and cutmix on; the
+    conf's class_dropout = 0.1 would keep the MLPs off the fused kernel
+    (vit.py:269), so the runs take the parser's own --drop 0."""
+    return ["--config", "configs/ncaltech.conf", "--data_path", data_root, "--finetune",
+            pretrained, "--output_dir", out_dir, "--nb_classes", "101", "--drop", "0",
+            "--batch_size", str(2 * FT_MICRO), "--update_freq", "2", "--mixup_prob", "1.0",
+            "--save_ckpt_freq", "1", "--warmup_steps", "2", "--num_workers", "4"]
+
+
+def finetune_host_batches(args, B, n):
+    """(the train preprocessing config, the mixup settings, the first ``n``
+    training micro-batches of B samples with their augmentation and mixup
+    draws, as numpy)."""
+    from mem_tpu_torch.cli import run_class_finetuning as F
+    from mem_tpu_torch.cli.common import build_pipeline, build_preproc
+    from mem_tpu_torch.train.mixup import make_mixup
+
+    pp = build_preproc(args, True, color_jitter=args.color_jitter)
+    _, it = build_pipeline(args, "train", True, B, seed=args.seed, num_workers=args.num_workers)
+    mix = make_mixup(args.nb_classes, args.mixup, args.cutmix, args.mixup_prob,
+                     args.mixup_switch_prob, args.smoothing, mode=args.mixup_mode,
+                     cutmix_minmax=args.cutmix_minmax)
+    batches = []
+    for batch in F._with_draws(it.epoch(0), pp, mix, args.seed):
+        batches.append(batch)
+        if len(batches) == n:
+            break
+    return pp, mix, batches
+
+
+def make_finetune_step(torch, args, sd, device, dtype, pp, mix, lr_sched, update_freq=1,
+                       ema=False):
+    """A full-width ft_vit on ``device`` from the state_dict ``sd`` and its
+    train step with the CLI's optimizer."""
+    from mem_tpu_torch.cli import run_class_finetuning as F
+    from mem_tpu_torch.train.optim import create_optimizer
+    from mem_tpu_torch.train.steps import make_finetune_train_step
+
+    model = F.build_model(args, args.nb_classes, dtype, device)
+    model.load_state_dict(sd, strict=True)
+    opt = create_optimizer(model, args.lr, args.weight_decay, layer_decay=args.layer_decay,
+                           num_layers=args.transformer_depth)
+    ema_w = [p.detach().clone() for p in model.parameters()] if ema else None
+    wd = np.full(len(lr_sched), args.weight_decay)
+    step = make_finetune_train_step(
+        model, opt, pp, args.nb_classes, lr_sched, wd, mixup=mix, smoothing=args.smoothing,
+        update_freq=update_freq, ema=ema_w, ema_decay=args.model_ema_decay if ema else None,
+        clip_grad=args.clip_grad, seed=args.seed)
+    return model, step, ema_w
+
+
+def check_finetune_step(torch, dev, flags):
+    """One make_finetune_train_step of ft_vit at full width and depth 2 (B=8,
+    update_freq 2, mixup and cutmix from the host's draws, EMA, drop-path 0:
+    the CPU's and the card's generators draw other bits) on the same host
+    micro-batches, draws and seeded weights: on the card in f32 (TF32 off) and
+    bf16 with both toggles on against the CPU in f32 (plain versions): loss
+    and per-parameter gradient relative L2; the EMA weights against their
+    definition from the step's own start and end weights (Adam's first update
+    is lr * sign(g) wherever |g| >> eps, so a gradient near zero moves a
+    weight by +-lr on either device and end weights are not comparable across
+    devices); then the f32 card step with the toggles on against off. The
+    head starts at --init_scale 1 instead of the recipe's 0.001, with which
+    every loss would be ln(101) whatever the trunk does. That the gradient
+    gate can see a wrong K6b is shown in the same run: the toggled f32 card
+    step is repeated with the last hidden column of K6b's dW1, dW2 and db1
+    zeroed (what a columns kernel that skips its last tile column would give)
+    and must fail it."""
+    from mem_tpu_torch.cli import run_class_finetuning as F
+    from mem_tpu_torch.data.prefetch import to_device
+    from mem_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from mem_tpu_torch.ops import mlp as M
+
+    cpu = torch.device("cpu")
+    args = F.get_args(flags + ["--transformer_depth", "2", "--drop_path", "0",
+                               "--dtype", "float32", "--init_scale", "1.0"])
+    pp, mix, host = finetune_host_batches(args, 8, 2)
+    ref_model = F.build_model(args, args.nb_classes, torch.float32, cpu)
+    ref_model.init_weights(torch.Generator().manual_seed(3))
+    sd = ref_model.state_dict()
+    del ref_model
+    lr = np.array([args.lr])
+    real_bwd = M.mlp_bwd_2d
+
+    def faulty_bwd(do, h, x, w1, w2):
+        dx, dw1, dw2, db1, db2 = real_bwd(do, h, x, w1, w2)
+        dw1, dw2, db1 = dw1.clone(), dw2.clone(), db1.clone()
+        dw1[:, -1] = 0
+        dw2[-1] = 0
+        db1[-1] = 0
+        return dx, dw1, dw2, db1, db2
+
+    out, counts = {}, {}
+    for name, d, dt, on, fault in (("cpu_f32", cpu, torch.float32, True, False),
+                                   ("card_f32", dev, torch.float32, True, False),
+                                   ("card_bf16", dev, torch.bfloat16, True, False),
+                                   ("card_f32_default", dev, torch.float32, False, False),
+                                   ("last_column_dropped", dev, torch.float32, True, True)):
+        with toggles(flat_attn=not on, fused_mlp=on):
+            model, step, ema = make_finetune_step(torch, args, sd, d, dt, pp, mix, lr,
+                                                  update_freq=2, ema=True)
+            reset_launch_counts()
+            try:
+                if fault:
+                    M.mlp_bwd_2d = faulty_bwd
+                m = step([to_device(b, d) for b in host], 0)
+            finally:
+                M.mlp_bwd_2d = real_bwd
+            counts[name] = launch_counts()
+        decay = args.model_ema_decay
+        ema_rel = max(rel_l2(torch, e.cpu(), decay * sd[n] + (1 - decay) * p.detach().cpu())
+                      for e, (n, p) in zip(ema, model.named_parameters()))
+        out[name] = ({k: v.item() for k, v in m.items()},
+                     {n: p.grad.detach().float().cpu() for n, p in model.named_parameters()},
+                     ema_rel)
+        del model, step, ema
+    torch.cuda.empty_cache()
+
+    def grad_rel(a, b):
+        rel = {n: rel_l2(torch, g, out[b][1][n]) for n, g in out[a][1].items()}
+        worst = max(rel, key=rel.get)
+        return rel[worst], worst
+
+    ref_m = out["cpu_f32"][0]
+    loss_rel = {n: abs(out[n][0]["loss"] - ref_m["loss"]) / abs(ref_m["loss"])
+                for n in ("card_f32", "card_bf16", "card_f32_default")}
+    g_cpu, g_toggle, g_fault = (grad_rel("card_f32", "cpu_f32"),
+                                grad_rel("card_f32", "card_f32_default"),
+                                grad_rel("last_column_dropped", "cpu_f32"))
+    ema_rel = {n: v[2] for n, v in out.items()}
+    say("finetune_step_check", model="ft_vit", embed_dim=768, depth=2, heads=12, batch=8,
+        update_freq=2, mixup=dict(use=host[0]["mix_use"].tolist()[:2],
+                                  cutmix=host[0]["mix_use_cutmix"].tolist()[:2],
+                                  lam=host[0]["mix_lam"].tolist()[:2]),
+        metrics={n: v[0] for n, v in out.items()}, loss_rel=loss_rel,
+        grad_rel_l2_card_vs_cpu=g_cpu, grad_rel_l2_toggles_on_vs_off=g_toggle,
+        ema_rel_l2_to_definition=ema_rel,
+        planted_fault=dict(rel_l2_max=g_fault[0], worst=g_fault[1]), launches=counts,
+        bounds=dict(f32_loss=STEP_F32_LOSS_REL, f32_grad=FT_STEP_F32_GRAD_REL,
+                    bf16_loss=STEP_BF16_LOSS_REL, toggles=FT_TOGGLE_GRAD_REL, ema=FT_EMA_REL))
+    check(all(np.isfinite(v) for v in ref_m.values()), "CPU finetune step metrics not finite")
+    on = {"hist_planes_cols": 2, "mlp_fused": 4, "mlp_fused_bwd": 4, "fused_attention": 4,
+          "fused_attention_bwd": 4}
+    off = {"hist_planes_cols": 2, "fused_attention_flat": 4, "fused_attention_flat_bwd": 4}
+    for name, c in counts.items():
+        want = {} if name.startswith("cpu") else off if name.endswith("default") else on
+        check(c == want, f"the {name} finetune step launched {c}")
+    check(loss_rel["card_f32"] <= STEP_F32_LOSS_REL
+          and loss_rel["card_f32_default"] <= STEP_F32_LOSS_REL,
+          f"f32 finetune step loss rel {loss_rel}")
+    check(g_cpu[0] <= FT_STEP_F32_GRAD_REL, f"f32 grad card vs CPU: {g_cpu}")
+    check(g_toggle[0] <= FT_TOGGLE_GRAD_REL, f"f32 grad toggles on vs off: {g_toggle}")
+    check(max(v for n, v in ema_rel.items() if "bf16" not in n) <= FT_EMA_REL,
+          f"EMA weights against their definition: {ema_rel}")
+    check(loss_rel["card_bf16"] <= STEP_BF16_LOSS_REL, f"bf16 finetune step loss rel {loss_rel}")
+    check(g_fault[0] > FT_STEP_F32_GRAD_REL,
+          f"the gradient gate does not see K6b with its last hidden column dropped: {g_fault}")
+
+
+def run_finetune_cli(torch, flags):
+    """run_class_finetuning at full width on the card. With the toggles on
+    (K6f/K6b, K5a/K5c): 2 epochs of 2 optimizer steps (update_freq 2, so 8
+    micro-batches of FT_MICRO) with the raw and the EMA evaluation and a
+    checkpoint after each, an auto-resumed third epoch, --eval on the result.
+    With the default toggles: one epoch. Launch counts are exact. Returns the
+    counts of the first toggled run."""
+    from mem_tpu_torch.cli import run_class_finetuning as F
+    from mem_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from mem_tpu_torch.utils.checkpoint import load_checkpoint
+
+    out_dir = flags[flags.index("--output_dir") + 1]
+    common = flags + ["--device", "cuda"]
+    stamps = [time.perf_counter()]
+    with toggles(flat_attn=False, fused_mlp=True):
+        reset_launch_counts()                 # just before the main path
+        first = F.main(common + ["--epochs", "2"])
+        counts = launch_counts()              # just after it
+        stamps.append(time.perf_counter())
+        written = sorted(os.listdir(out_dir))
+        reset_launch_counts()
+        resumed = F.main(common + ["--epochs", "3"])
+        counts_resumed = launch_counts()
+        stamps.append(time.perf_counter())
+        reset_launch_counts()
+        evaluated = F.main(common + ["--epochs", "3", "--eval", "--eval_dump",
+                                     os.path.join(out_dir, "pred", "val.jsonl")])
+        counts_eval = launch_counts()
+        stamps.append(time.perf_counter())
+    payload = load_checkpoint(os.path.join(out_dir, "checkpoint-2.pth"))
+    reset_launch_counts()
+    default = F.main([out_dir + "_default" if f == out_dir else f for f in common]
+                     + ["--epochs", "1", "--model_ema", "0"])
+    counts_default = launch_counts()
+    stamps.append(time.perf_counter())
+    with open(os.path.join(out_dir, "pred", "val.jsonl")) as f:
+        dumped = sum(1 for _ in f)
+    say("finetune_cli", model="ft_vit", embed_dim=768, depth=12, heads=12, img=[224, 224],
+        classes=101, batch=2 * FT_MICRO, update_freq=2, dtype="bfloat16",
+        toggles=dict(FUSED_MLP=True, FLAT_ATTN=False), history=first["history"],
+        evals=first["evals"], checkpoints=written, launches=counts,
+        resumed_history=resumed["history"], launches_resumed=counts_resumed,
+        eval_stats=evaluated["evals"], eval_dump_rows=dumped, launches_eval=counts_eval,
+        default_history=default["history"], launches_default=counts_default,
+        seconds=[round(b - a, 2) for a, b in zip(stamps, stamps[1:])])
+    # an epoch: 128 files / (2 x 32) = 2 optimizer steps = 4 micro-batches; an
+    # evaluation: 64 files / 32 = 2 batches, with the raw and the EMA weights
+    train, evals = 8, 8
+    check(counts == {"hist_planes_cols": train + evals, "mlp_fused": 12 * (train + evals),
+                     "mlp_fused_bwd": 12 * train, "fused_attention": 12 * (train + evals),
+                     "fused_attention_bwd": 12 * train},
+          f"the toggled finetune run launched {counts}")
+    check(counts_resumed == {"hist_planes_cols": 8, "mlp_fused": 96, "mlp_fused_bwd": 48,
+                             "fused_attention": 96, "fused_attention_bwd": 48},
+          f"the resumed finetune run launched {counts_resumed}")
+    check(counts_eval == {"hist_planes_cols": 2, "mlp_fused": 24, "fused_attention": 24},
+          f"--eval launched {counts_eval}")
+    check(counts_default == {"hist_planes_cols": 6, "fused_attention_flat": 72,
+                             "fused_attention_flat_bwd": 48},
+          f"the default-toggle finetune run launched {counts_default}")
+    check([h[0] for h in first["history"]] == [0, 1, 2, 3]
+          and [h[0] for h in resumed["history"]] == [4, 5],
+          f"finetune read back steps {first['history']} and, resumed, {resumed['history']}")
+    check(all(np.isfinite(h[1]) and np.isfinite(h[2]) for r in (first, resumed, default)
+              for h in r["history"]), "non-finite finetune losses")
+    check({"checkpoint-0.pth", "checkpoint-1.pth"} <= set(written), f"checkpoints {written}")
+    check(int(payload["epoch"]) == 2 and "ema" in payload and "optimizer" in payload,
+          "checkpoint-2.pth is not the resumed run's")
+    for _, stats, ema_stats in first["evals"] + resumed["evals"] + evaluated["evals"]:
+        for st in (stats, ema_stats):
+            check(st is None or (np.isfinite(st["loss"]) and 0 <= st["acc1"] <= st["acc5"] <= 100),
+                  f"finetune eval stats {st}")
+    check(len(first["evals"]) == 2 and first["evals"][0][2] is not None
+          and evaluated["evals"][0][0] == 2 and dumped == N_VAL_FILES,
+          f"finetune evaluations {first['evals']}, --eval {evaluated['evals']}, dump {dumped}")
+    return counts
+
+
+def time_finetune(torch, dev, gpu, g, flags):
+    """K6f, K6b, K5a and K5c beside their plain versions (in turns), their
+    bounds and, for K5, one SDPA call on (B, H, N, D), at the finetune
+    micro-batch FT_B; the F.linear -> F.gelu -> F.linear chain and its
+    autograd backward as information (no single library call computes K6).
+    Then the full-width finetune step (depth 12, bf16, mixup on, EMA) at
+    micro-batch 64 and 128 under the default toggles, FUSED_MLP alone and
+    FLAT_ATTN = False alone: 10 steps on one repeated batch, the median of the
+    last 7 timed by CUDA events, the peak memory, and at 64 a profile by
+    family for the default and the fused-MLP step."""
+    import torch.nn.functional as Fn
+
+    from mem_tpu_torch.cli import run_class_finetuning as F
+    from mem_tpu_torch.data.prefetch import to_device
+    from mem_tpu_torch.ops import attention as A
+    from mem_tpu_torch.ops import mlp as M
+    from mem_tpu_torch.train.schedules import cosine_scheduler
+
+    bf = torch.bfloat16
+    x, w1, b1, w2, b2, do = mlp_operands(torch, g, FT_ROWS, 768, 3072, bf, dev)
+    _, h = M.mlp_fused_reference(x, w1, b1, w2, b2)
+    k6f = in_turns(torch, lambda: M.mlp_fused_reference(x, w1, b1, w2, b2),
+                   lambda: M.mlp_fwd_2d(x, w1, b1, w2, b2, True), runs=8)
+    t_no_h = time_ms(torch, lambda: M.mlp_fwd_2d(x, w1, b1, w2, b2, False), runs=8)
+    k6b = in_turns(torch, lambda: M.mlp_fused_bwd_reference(do, h, x, w1, w2),
+                   lambda: M.mlp_bwd_2d(do, h, x, w1, w2), runs=8)
+    parts = {f: kernel_device_ms(torch, lambda: M.mlp_bwd_2d(do, h, x, w1, w2), (f,), n=5,
+                                 per_launch=True) for f in ("mlp_rows_mma", "mlp_cols_mma")}
+    w1t, w2t = w1.t().contiguous().requires_grad_(), w2.t().contiguous().requires_grad_()
+    xg = x.clone().requires_grad_()
+    t_chain = time_ms(torch, lambda: Fn.linear(Fn.gelu(Fn.linear(xg, w1t, b1)), w2t, b2), runs=8)
+    y = Fn.linear(Fn.gelu(Fn.linear(xg, w1t, b1)), w2t, b2)
+    t_chain_b = time_ms(torch, lambda: torch.autograd.grad(y, (xg, w1t, w2t), do,
+                                                           retain_graph=True), runs=8)
+    flop = 4 * FT_ROWS * 768 * 3072
+    for name, (t_k, t_p), bnd, extra in (
+            ("time_k6f", k6f, mlp_fwd_bound(FT_ROWS, 768, 3072),
+             dict(kernel_ms_save_h_false=t_no_h,
+                  bound_ms_save_h_false=mlp_fwd_bound(FT_ROWS, 768, 3072, False)[0],
+                  linear_gelu_linear_ms=t_chain, products=2)),
+            ("time_k6b", k6b, mlp_bwd_bound(FT_ROWS, 768, 3072),
+             dict(linear_gelu_linear_backward_ms=t_chain_b,
+                  kernel_device_ms_by_launch=parts,
+                  workspace_mb=round(FT_ROWS * 3072 * 2 / 1e6, 1), products=4))):
+        say(name, gpu=gpu, rows=FT_ROWS, shape=[768, 3072], dtype="bfloat16", kernel_ms=t_k,
+            plain_ms=t_p, bound_ms=bnd[0], bound_by=bnd[1], library_ms=None,
+            kernel_tflop_s=extra["products"] * flop / 2 / t_k / 1e9, **extra)
+    del x, w1, b1, w2, b2, do, h, w1t, w2t, xg, y
+    torch.cuda.empty_cache()
+
+    q, k, v, do = (torch.randn(FT_B, 12, 197, 64, device=dev, dtype=bf) for _ in range(4))
+    bias = torch.randn(12, 197, 197, device=dev)
+    k5a = in_turns(torch, lambda: A.fused_attention_reference(q, k, v, bias, 0.125),
+                   lambda: A.fused_attention(q, k, v, bias, 0.125), runs=10)
+    k5c = in_turns(torch, lambda: A.fused_attention_bwd_reference(q, k, v, bias, do, 0.125),
+                   lambda: A.fused_attention_bwd(q, k, v, bias, do, 0.125), runs=10)
+    flat = lambda t: t.transpose(1, 2).reshape(FT_B, 197, 768).contiguous()  # noqa: E731
+    fq, fk, fv, fdo = flat(q), flat(k), flat(v), flat(do)
+    t_k2f = time_ms(torch, lambda: A.fused_attention_flat(fq, fk, fv, bias, 0.125), runs=10)
+    t_k2b = time_ms(torch, lambda: A.fused_attention_flat_bwd(fq, fk, fv, bias, fdo, 0.125),
+                    runs=10)
+    mask = bias.to(bf)[None].contiguous().requires_grad_()
+    qh, kh, vh = (t.clone().requires_grad_() for t in (q, k, v))
+    sdpa = lambda: Fn.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,  # noqa: E731
+                                                   scale=0.125)
+    t_lib_f = time_ms(torch, sdpa, runs=10)
+    out = sdpa()
+    t_lib_b = time_ms(torch, lambda: torch.autograd.grad(out, (qh, kh, vh, mask), do,
+                                                         retain_graph=True), runs=10)
+    for name, (t_k, t_p), t_lib, t_k2, bnd, n_prod in (
+            ("time_k5a", k5a, t_lib_f, t_k2f, attention_fwd_bound(FT_B, 197, 12, 64), 2),
+            ("time_k5c", k5c, t_lib_b, t_k2b, attention_bwd_bound(FT_B, 197, 12, 64), 5)):
+        say(name, gpu=gpu, batch=FT_B, shape=[12, 197, 64], dtype="bfloat16", kernel_ms=t_k,
+            plain_ms=t_p, sdpa_ms=t_lib, flat_kernel_ms=t_k2, bound_ms=bnd[0], bound_by=bnd[1],
+            kernel_tflop_s=n_prod * 2 * FT_B * 12 * 197 * 197 * 64 / t_k / 1e9)
+    del q, k, v, do, bias, fq, fk, fv, fdo, mask, qh, kh, vh, out
+    torch.cuda.empty_cache()
+
+    args = F.get_args(flags + ["--device", "cuda"])
+    ref = F.build_model(args, args.nb_classes, torch.float32, torch.device("cpu"))
+    ref.init_weights(torch.Generator().manual_seed(args.seed))
+    sd = ref.state_dict()
+    del ref
+    steps, warm = 10, 3
+    lr = cosine_scheduler(args.lr / 10, args.min_lr, 1, steps, warmup_steps=0)
+    for B in (64, 128):
+        pp, mix, host = finetune_host_batches(args, B, 1)
+        batch = [to_device(host[0], dev)]
+        for name, flat_attn, fused_mlp in (("default", True, False), ("fused_mlp", True, True),
+                                           ("bhnd_attention", False, False)):
+            with toggles(flat_attn, fused_mlp):
+                model, step, _ = make_finetune_step(torch, args, sd, dev, bf, pp, mix, lr,
+                                                    ema=True)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                events, metrics = [], []
+                for i in range(steps):
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    metrics.append(step(batch, i))
+                    end.record()
+                    events.append((start, end))
+                torch.cuda.synchronize()
+                ms = statistics.median(a.elapsed_time(b) for a, b in events[warm:])
+                losses = [m["loss"].item() for m in metrics]
+                say("time_finetune_step", gpu=gpu, toggles=name, micro_batch=B, model="ft_vit",
+                    embed_dim=768, depth=12, heads=12, dtype="bfloat16", ms=ms,
+                    samples_per_s=B / ms * 1e3,
+                    peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, losses=losses,
+                    grad_norm_last=metrics[-1]["grad_norm"].item())
+                check(all(np.isfinite(losses)), f"finetune {name} B={B}: losses {losses}")
+                if B == 64 and name != "bhnd_attention":
+                    it = iter(range(steps, steps + 100))
+                    profile_seg_forward(torch, gpu, lambda: step(batch, next(it)), n=3,
+                                        tag=f"finetune_step_profile_{name}", batch=B)
+                del model, step, metrics
+                torch.cuda.empty_cache()
+    return dict(k6f_ms=k6f, k6b_ms=k6b, k5a_ms=(*k5a, t_lib_f), k5c_ms=(*k5c, t_lib_b))
+
+
+def run_finetune_slice(torch, dev, gpu, g, data_root, tmp_root):
+    """The classification finetune slice at full width: K6 and K5 against
+    their plain versions, one finetune step card against CPU, the CLI with the
+    toggles on (with a resume and --eval) and off, and the timings. Returns
+    the toggled run's launch counts, the kernels' errors and their times."""
+    from mem_tpu_torch.cli import run_mem_pretraining as R
+
+    k6f_err, k6b_err = check_k6f(torch, dev, g), check_k6b(torch, dev, g)
+    k5a_err, k5c_err = check_k5a(torch, dev, g), check_k5c(torch, dev, g)
+    # a pretraining-schema checkpoint (pt_vit at 224^2: one shared 14x14
+    # rel-pos table, mask_token, lm_head), weights drawn from a seed
+    pt = R.build_model(R.get_args(["--config", "configs/ncaltech.conf"]), torch.float32,
+                       torch.device("cpu"))
+    pt.init_weights(torch.Generator().manual_seed(1))
+    pretrained = os.path.join(tmp_root, "pt_vit_b16_seed1.pth")
+    torch.save({"model": pt.state_dict(), "epoch": 0}, pretrained)
+    del pt
+    flags = finetune_flags(data_root, pretrained, os.path.join(tmp_root, "ft_out"))
+    check_finetune_step(torch, dev, flags)
+    counts = run_finetune_cli(torch, flags)
+    times = time_finetune(torch, dev, gpu, g, flags)
+    return dict(counts=counts, k6f_err=k6f_err, k6b_err=k6b_err, k5a_err=k5a_err,
+                k5c_err=k5c_err, **times)
+
 
 
 def main() -> int:

@@ -9,9 +9,21 @@ from __future__ import annotations
 import os
 from typing import Optional, Tuple
 
+import torch
+
 from mem_tpu_torch.data.device_pipeline import PreprocConfig
 from mem_tpu_torch.data.folder import NpyFolder, loader_for_path, resolve_split_root
 from mem_tpu_torch.data.pipeline import EventBatchIterator, PipelineConfig
+
+
+def resolve_device(name: str) -> torch.device:
+    """The training CLIs' ``--device``: cuda needs a card, and no CLI goes on
+    on the CPU without being told to."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: no CUDA device is available "
+                           "(pass --device cpu to train on the CPU)")
+    return device
 
 
 def detect_dataset(data_path: str) -> str:
@@ -212,6 +224,10 @@ _COMPAT_CATALOG = {
                   "batches always go through pinned memory (data/prefetch.py)"),
     "--no_pin_mem": (dict(action="store_false", dest="pin_mem"),
                      "batches always go through pinned memory (data/prefetch.py)"),
+    "--gpu": (dict(type=int, default=0), "the port runs on one device"),
+    "--enable_deepspeed": (dict(action="store_true"), "DeepSpeed is not used"),
+    "--model_ema_force_cpu": (dict(action="store_true"),
+                              "the EMA weights live on the model's device"),
 }
 
 
@@ -236,17 +252,27 @@ def warn_compat_args(args, compat_list) -> None:
         seen.add(dest)
 
 
-def add_imnet_args(parser) -> None:
-    """The pretraining CLI's ``--data_set IMNET`` knobs (common.py:348-376),
-    declared so .conf files bind; the IMNET path itself raises."""
+def add_imnet_args(parser, stage: str = "pretrain") -> None:
+    """The ``--data_set IMNET`` knobs of the pretraining or the finetune CLI
+    (common.py:348-392), declared so .conf files bind; the IMNET path itself
+    raises."""
     a = parser.add_argument
     a("--input_size", type=int, default=224)
     a("--imagenet_default_mean_and_std", action="store_true", default=False)
     a("--resize", action="store_true", default=False)
-    a("--train_interpolation", type=str, default="bicubic")
-    a("--second_interpolation", type=str, default="lanczos")
-    a("--input_H2", type=int, default=128)
-    a("--input_W2", type=int, default=128)
+    if stage == "pretrain":
+        a("--train_interpolation", type=str, default="bicubic")
+        a("--second_interpolation", type=str, default="lanczos")
+        a("--input_H2", type=int, default=128)
+        a("--input_W2", type=int, default=128)
+    else:
+        a("--train_interpolation", "--train-interpolation", type=str, default="bicubic")
+        a("--aa", type=str, default="rand-m9-mstd0.5-inc1")
+        a("--reprob", type=float, default=0.25)
+        a("--remode", type=str, default="pixel")
+        a("--recount", type=int, default=1)
+        a("--resplit", action="store_true", default=False)
+        a("--crop_pct", type=float, default=None)
 
 
 def add_preprocessing_args(parser) -> None:

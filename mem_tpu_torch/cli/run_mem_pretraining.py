@@ -38,8 +38,8 @@ import numpy as np
 import torch
 
 from mem_tpu_torch.cli.common import (add_compat_args, add_imnet_args, add_preprocessing_args,
-                                      build_pipeline, build_preproc, validate_preproc_args,
-                                      warn_compat_args)
+                                      build_pipeline, build_preproc, resolve_device,
+                                      validate_preproc_args, warn_compat_args)
 from mem_tpu_torch.data.device_pipeline import draw_train_aug
 from mem_tpu_torch.data.prefetch import device_prefetch, prefetch, to_device
 from mem_tpu_torch.models.discrete_vae import DiscreteVAE
@@ -162,12 +162,12 @@ def check_ported(args) -> None:
         (args.tp > 1 or args.zero1 or args.fsdp,
          "--tp/--zero1/--fsdp come with the multi-GPU slice of the port "
          "(ROADMAP queue 1, item 15)"),
-        (args.bf16_moments, "--bf16_moments 1 comes with the optimizer work of the "
-                            "finetune slice of the port (ROADMAP queue 1, item 8)"),
+        (args.bf16_moments, "--bf16_moments 1 (bf16 optimizer moments) is ROADMAP "
+                            "queue 1, item 8b"),
         (args.dump_recon_dir, "--dump_recon_dir needs the VAE decoder, which comes with "
                               "the VAE-training slice of the port (ROADMAP queue 1, item 9)"),
-        (args.pretrained, "--pretrained 1 (the timm warm-start) comes with the finetune "
-                          "slice of the port (ROADMAP queue 1, item 8)"),
+        (args.pretrained, "--pretrained 1 (the timm warm start) is ROADMAP queue 1, "
+                          "item 8b"),
     ]
     for flag, msg in todo:
         if flag:
@@ -177,14 +177,6 @@ def check_ported(args) -> None:
             print(f"note: --{name} is not ported and has no effect")
     if args.wandb:
         print("note: --wandb is not ported and has no effect")
-
-
-def resolve_device(name: str) -> torch.device:
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: no CUDA device is available "
-                           "(pass --device cpu to train on the CPU)")
-    return device
 
 
 def build_model(args, dtype, device):

@@ -137,8 +137,8 @@ def load_pretrained_backbone(model, path: str, model_key: str, seg_input_size: i
 
     if path.endswith(".npz"):
         raise NotImplementedError(
-            f"--pretrained {path}: the timm jax-ViT .npz importer comes with the "
-            f"classification-finetune slice of the port (ROADMAP queue 1, item 8)")
+            f"--pretrained {path}: the timm jax-ViT .npz importer is ROADMAP queue 1, "
+            f"item 8b")
     if not path.endswith((".pth", ".pt")):
         raise ValueError(
             f"--pretrained {path}: only .pth / .pt checkpoints are read; an orbax "

@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels: launch counts shared by the wrappers.
 
-Each kernel wrapper (ops/voxelize_hist.py, ops/attention.py) calls
+Each kernel wrapper (ops/voxelize_hist.py, ops/attention.py, ops/mlp.py) calls
 :func:`count_launch` right where it launches its kernel, and nowhere else,
 so a run can show that its main path really went through the kernels.
 Building and binding live in :mod:`mem_tpu_torch.kernels.build`.

@@ -50,6 +50,14 @@ SIGNATURES = {
                                 _I, _I, _I, _I, _F, _I, _P), _I),
     "mem_attention_bwd_flat_smem": ((_I, _I, _I), ctypes.c_longlong),
     "mem_attention_bwd_flat_uses_mma": ((_P, _P, _P, _P, _P, _P, _P, _I, _I, _I), _I),
+    "mem_attention_fwd_bhnd": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P), _I),
+    "mem_attention_bwd_bhnd": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _F, _I, _P), _I),
+    "mem_mlp_fwd": ((_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
+    "mem_mlp_fwd_uses_mma": ((_P, _P, _P, _P, _P, _P, _P, _I, _I, _I), _I),
+    "mem_mlp_rows_smem": ((_I, _I, _I), ctypes.c_longlong),
+    "mem_mlp_bwd": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
+    "mem_mlp_bwd_uses_mma": ((_P, _P, _P, _P, _P, _P, _P, _I, _I, _I), _I),
     "mem_attention_long_fwd": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P), _I),
     "mem_attention_long_fwd_max_d": ((), _I),
     "mem_attention_long_fwd_uses_mma": ((_P, _P, _P, _P, _I, _I), _I),

@@ -34,11 +34,8 @@ def pt_vit(**kwargs):
 
 @register_model
 def ft_vit(**kwargs):
-    """Classification ViT (reference ``ft_vit``). Training-only arguments
-    (dropout and drop-path rates) are accepted and ignored: they are
-    identity at eval."""
+    """Classification ViT (reference ``ft_vit``)."""
     from mem_tpu_torch.models.classifier import VisionTransformer
 
-    for k in ("pretrained", "drop_rate", "drop_path_rate", "attn_drop_rate"):
-        kwargs.pop(k, None)
+    kwargs.pop("pretrained", None)
     return VisionTransformer(**kwargs)

@@ -7,19 +7,31 @@ after the reference's torch schema (mem_tpu/utils/torch_import.py:122-173),
 so a state_dict from ``export_vit_params`` / ``from_jax_params`` loads with
 ``strict=True``.
 
-Attention always goes through a fused kernel: ``fused_attention_flat``
-(K2f/K2b on the card, forward and backward) for the short sequences of
-classification and pretraining, ``fused_attention_flat_long`` (K3f, forward
-only so far) for the 1025 tokens of the segmentation backbone;
-``ops.attention.attention_route`` holds the rule (vit.py:429-438 in the
-reference). On the CPU both take their plain versions. In
-training mode (``module.train()``) the proj/MLP dropout and the per-sample
+Without attention dropout, attention goes through a fused kernel:
+``fused_attention_flat`` (K2f/K2b on the card, forward and backward) for the
+short sequences of classification and pretraining,
+``fused_attention_flat_long`` (K3f/K3b) for the 1025 tokens of the
+segmentation backbone; ``ops.attention.attention_route`` holds the rule
+(vit.py:429-438 in the reference). On the CPU both take their plain
+versions. Two of the reference's module toggles are kept, with its names and
+defaults, as module globals read at call time (the reference has no flag for
+them either; scripts/trace_pretrain.py sets them the same way):
+
+- ``FLAT_ATTN = False`` projects q, k, v straight into (B, H, N, D) and
+  calls ``ops.attention.fused_attention`` (K5a/K5c), with the output
+  projection contracting (head, head_dim) as the reference's ``_ProjOut``
+  does (vit.py:461-487);
+- ``FUSED_MLP = True`` sends every dropout-free ``Mlp`` through
+  ``ops.mlp.mlp_fused`` (K6f/K6b) (vit.py:269-270).
+
+With ``attn_dropout > 0`` the reference leaves the fused kernel for an
+einsum path (vit.py:374, :505-557), and so does the port. In training mode
+(``module.train()``) the attention / proj / MLP dropout and the per-sample
 drop-path of the reference run; their random bits come from an explicit
 ``torch.Generator`` on the activations' device that the caller passes to
 ``forward`` (the train step seeds one per step from (seed, step)), never
-from torch's global generator. Attention dropout routes the reference off
-the fused kernel (vit.py:374); the port raises for it. The reference's
-INT8, fused-MLP and XLA scheduling toggles are not ported.
+from torch's global generator. The reference's INT8 and XLA scheduling
+toggles are not ported.
 """
 from __future__ import annotations
 
@@ -30,8 +42,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mem_tpu_torch.ops.attention import (attention_route, fused_attention_flat,
-                                         fused_attention_flat_long)
+from mem_tpu_torch.ops.attention import (attention_route, fused_attention,
+                                         fused_attention_flat, fused_attention_flat_long)
+from mem_tpu_torch.ops.mlp import mlp_fused
+
+# The reference's toggles (mem_tpu/models/vit.py:57, :71), read at call time.
+FLAT_ATTN = True     # False: q/k/v as (B, H, N, D) and kernels K5a/K5c
+FUSED_MLP = False    # True: dropout-free MLPs through kernels K6f/K6b
 
 
 def trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator,
@@ -175,7 +192,8 @@ class RelativePositionBias(nn.Module):
 
 class Mlp(nn.Module):
     """fc1 -> exact gelu -> fc2 in the compute dtype, then dropout (training
-    only), as the reference orders them (vit.py:286-291)."""
+    only), as the reference orders them (vit.py:286-291); with ``FUSED_MLP``
+    and no dropout, the fused kernel (vit.py:269-270)."""
 
     def __init__(self, dim: int, hidden_dim: int, dropout: float = 0.0,
                  dtype=torch.float32, device=None):
@@ -186,6 +204,9 @@ class Mlp(nn.Module):
         self.fc2 = nn.Linear(hidden_dim, dim, device=device)
 
     def forward(self, x, generator=None):
+        if FUSED_MLP and self.dropout == 0.0:
+            return mlp_fused(x.to(self.dtype), self.fc1.weight.t(), self.fc1.bias,
+                             self.fc2.weight.t(), self.fc2.bias)
         x = F.gelu(linear(x, self.fc1, self.dtype), approximate="none")
         x = linear(x, self.fc2, self.dtype)
         if self.training and self.dropout > 0:
@@ -196,22 +217,20 @@ class Mlp(nn.Module):
 class Attention(nn.Module):
     """Multi-head attention with BEiT's decomposed qkv bias (q and v learn a
     bias, k's is fixed zero) and an optional per-block relative-position
-    bias, on the flat path (vit.py:380-459): three products against weight
-    slices of the fused qkv weight, then kernel K2 (or K3f at long N) on
-    (B, N, H*D)."""
+    bias. Three paths, as the reference (vit.py:364-557): flat (the default:
+    three products against slices of the fused qkv weight, then kernel K2, or
+    K3 at long N, on (B, N, H*D)), head-major with ``FLAT_ATTN = False``
+    (products straight into (B, H, N, D), kernel K5), and, with attention
+    dropout, plain einsums."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
                  qk_scale: float | None = None, window_size=None,
                  attn_head_dim: int | None = None, proj_dropout: float = 0.0,
                  attn_dropout: float = 0.0, dtype=torch.float32, device=None):
         super().__init__()
-        if attn_dropout > 0:
-            raise NotImplementedError(
-                "attention dropout (attn_drop_rate > 0) takes the reference off the "
-                "fused kernel onto an einsum path (vit.py:374); it comes with the "
-                "classification-finetune slice of the port")
         self.num_heads = num_heads
         self.proj_dropout = proj_dropout
+        self.attn_dropout = attn_dropout
         self.dtype = dtype
         head_dim = attn_head_dim or dim // num_heads
         self.all_head_dim = head_dim * num_heads
@@ -235,8 +254,16 @@ class Attention(nn.Module):
             self.relative_position_bias_table = None
         self.proj = nn.Linear(self.all_head_dim, dim, device=device)
 
-    def forward(self, x, rel_pos_bias=None, generator=None):
-        B, N, _ = x.shape
+    def _bias(self, rel_pos_bias):
+        bias = None
+        if self.relative_position_bias_table is not None:
+            bias = gather_relative_position_bias(self.relative_position_bias_table,
+                                                 self.relative_position_index)
+        if rel_pos_bias is not None:
+            bias = rel_pos_bias if bias is None else bias + rel_pos_bias
+        return bias
+
+    def _qkv_flat(self, x):
         a = self.all_head_dim
         w = self.qkv.weight.to(self.dtype)
         q = torch.matmul(x, w[:a].t())
@@ -245,19 +272,57 @@ class Attention(nn.Module):
         if self.q_bias is not None:
             q = q + self.q_bias.to(self.dtype)
             v = v + self.v_bias.to(self.dtype)
-        bias = None
-        if self.relative_position_bias_table is not None:
-            bias = gather_relative_position_bias(self.relative_position_bias_table,
-                                                 self.relative_position_index)
-        if rel_pos_bias is not None:
-            bias = rel_pos_bias if bias is None else bias + rel_pos_bias
-        if bias is None:
-            bias = torch.zeros(self.num_heads, N, N, device=x.device)
-        attend = (fused_attention_flat if attention_route(N) == "flat"
-                  else fused_attention_flat_long)
-        out = attend(q.contiguous(), k.contiguous(), v.contiguous(),
-                     bias.float().contiguous(), self.scale)
-        out = linear(out, self.proj, self.dtype)
+        return q, k, v
+
+    def _forward_bhnd(self, x, bias):
+        """vit.py:461-487: the head split rides the three products' outputs,
+        K5a/K5c on (B, H, N, D), and the output projection contracts (head,
+        head_dim) against the same ``proj`` parameters."""
+        H, D = self.num_heads, self.all_head_dim // self.num_heads
+        w3 = self.qkv.weight.to(self.dtype).reshape(3, H, D, -1)
+        q, k, v = (torch.einsum("bnc,hdc->bhnd", x, w3[i]) for i in range(3))
+        if self.q_bias is not None:
+            q = q + self.q_bias.to(self.dtype).reshape(1, H, 1, D)
+            v = v + self.v_bias.to(self.dtype).reshape(1, H, 1, D)
+        out = fused_attention(q.contiguous(), k.contiguous(), v.contiguous(), bias,
+                              self.scale)
+        wp = self.proj.weight.to(self.dtype).reshape(-1, H, D)
+        return torch.einsum("bhnd,ohd->bno", out, wp) + self.proj.bias.to(self.dtype)
+
+    def _forward_einsum(self, x, bias, generator):
+        """vit.py:505-557, the path attention dropout takes: f32 scores from
+        q * scale and k, + bias, f32 softmax, dropout, probabilities in the
+        compute dtype times v."""
+        B, N, _ = x.shape
+        H = self.num_heads
+        q, k, v = (t.reshape(B, N, H, -1) for t in self._qkv_flat(x))
+        attn = torch.einsum("bnhd,bmhd->bhnm", (q * self.scale).float(), k.float())
+        if bias is not None:
+            attn = attn + bias
+        attn = torch.softmax(attn, dim=-1)
+        if self.training:
+            attn = dropout(attn, self.attn_dropout,
+                           _need_generator(generator, "attention dropout"))
+        out = torch.einsum("bhnm,bmhd->bnhd", attn.to(self.dtype), v)
+        return linear(out.reshape(B, N, self.all_head_dim), self.proj, self.dtype)
+
+    def forward(self, x, rel_pos_bias=None, generator=None):
+        N = x.shape[1]
+        bias = self._bias(rel_pos_bias)
+        if self.attn_dropout > 0:
+            out = self._forward_einsum(x, None if bias is None else bias.float(), generator)
+        else:
+            if bias is None:
+                bias = torch.zeros(self.num_heads, N, N, device=x.device)
+            bias = bias.float().contiguous()
+            if FLAT_ATTN:
+                attend = (fused_attention_flat if attention_route(N) == "flat"
+                          else fused_attention_flat_long)
+                q, k, v = self._qkv_flat(x)
+                out = attend(q.contiguous(), k.contiguous(), v.contiguous(), bias, self.scale)
+                out = linear(out, self.proj, self.dtype)
+            else:
+                out = self._forward_bhnd(x, bias)
         if self.training and self.proj_dropout > 0:
             out = dropout(out, self.proj_dropout,
                           _need_generator(generator, "Attention proj dropout"))

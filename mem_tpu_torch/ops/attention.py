@@ -1,5 +1,6 @@
-"""Fused attention on flat (B, N, H*D) layouts: kernels K2f (forward), K2b
-(backward), K3f (forward at long N) and K3b (backward at long N) and their
+"""Fused attention: kernels K2f (forward), K2b (backward), K3f (forward at
+long N) and K3b (backward at long N) on flat (B, N, H*D) layouts, K5a
+(forward) and K5c (backward) on head-major (B, H, N, D) layouts, and their
 plain versions.
 
 Port of mem_tpu/ops/attention.py ``fused_attention_flat`` and its VJP: per
@@ -21,6 +22,12 @@ version; its backward is csrc/attention_long_bwd.cu (K3b), which goes over
 the scores from the query side (dq, ds) and from the key side (dk, dv) and
 sums the bias gradient in batch order. :func:`attention_route` is the rule
 that picks between the two.
+
+``fused_attention`` is the reference's ``fused_attention`` on (B, H, N, D),
+the layout its ``FLAT_ATTN = False`` branch produces: K5a forward and K5c
+backward on the card (csrc/attention_fwd_bhnd.cu, attention_bwd_bhnd.cu:
+K2f's and K2b's kernels with head-major addressing), for the shapes the
+reference's head-blocked kernels take (``_hb_eligible``); other shapes raise.
 """
 from __future__ import annotations
 
@@ -83,9 +90,10 @@ def fused_attention_flat_bwd_reference(q, k, v, bias, do, scale: float):
     return flat(dq, q.dtype), flat(dk, k.dtype), flat(dv, v.dtype), ds.sum(dim=0)
 
 
-def _check_cuda_operands(name, tensors, q, bias):
-    """The device, dtype, shape and layout rules both CUDA wrappers share;
-    returns (B, N, H, D)."""
+def _check_cuda_operands(name, tensors, q, bias, bhnd: bool = False):
+    """The device, dtype, shape and layout rules the CUDA wrappers share;
+    returns (B, N, H, D). q/k/v are flat (B, N, H*D), or with ``bhnd``
+    head-major (B, H, N, D)."""
     if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
         raise ValueError(f"{name}: all operands must share one CUDA device")
     if q.dtype not in (torch.float32, torch.bfloat16) or any(
@@ -94,14 +102,19 @@ def _check_cuda_operands(name, tensors, q, bias):
                         f"{[t.dtype for t in tensors if t is not bias]}")
     if bias.dtype != torch.float32:
         raise TypeError(f"{name} takes an f32 bias, got {bias.dtype}")
-    B, N, C = q.shape
     H = bias.shape[0]
-    if any(t.shape != q.shape for t in tensors if t is not bias) \
-            or bias.shape != (H, N, N) or C % H:
+    if bhnd:
+        B, Hq, N, D = q.shape
+        bad = Hq != H
+    else:
+        B, N, C = q.shape
+        D, bad = C // H, bool(C % H)
+    if bad or any(t.shape != q.shape for t in tensors if t is not bias) \
+            or bias.shape != (H, N, N):
         raise ValueError(f"{name}: shapes {[tuple(t.shape) for t in tensors]}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: all operands must be contiguous")
-    return B, N, H, C // H
+    return B, N, H, D
 
 
 def _smem_check(name, smem, N, D):
@@ -288,6 +301,133 @@ def fused_attention_flat_long(q, k, v, bias, scale: float):
     k, v and bias: CPU tensors take the plain versions, CUDA tensors launch
     K3f forward and K3b backward, or raise."""
     return _FusedAttentionFlatLong.apply(q, k, v, bias, float(scale))
+
+
+# ---------------------------------------------------------------------------
+# head-major (B, H, N, D) layouts: K5a forward, K5c backward
+# ---------------------------------------------------------------------------
+
+# The reference's head-blocked kernels take a shape when the whole (H, N, N)
+# f32 bias fits their on-chip budget (attention.py:47-51: N <= 320 at 12
+# heads); the port keeps the rule, so both packages take the same branch.
+_HB_MAX_BIAS_BYTES = 5 * 1024 * 1024
+
+
+def _hb_eligible(H: int, N: int) -> bool:
+    return H * N * N * 4 <= _HB_MAX_BIAS_BYTES
+
+
+def _require_hb(name, H, N):
+    if not _hb_eligible(H, N):
+        raise NotImplementedError(
+            f"{name}: H={H}, N={N} is not head-blocked-eligible (the (H, N, N) f32 bias is "
+            f"above {_HB_MAX_BIAS_BYTES} B); the reference's kernels for such shapes, K5b "
+            f"(_fwd_kernel), K5d (_bwd_kernel) and K5e (_bwd_block_merged_kernel), are not "
+            f"ported yet: they come with slice 6 of the port (ROADMAP.md queue 2)")
+
+
+def fused_attention_reference(q, k, v, bias, scale: float):
+    """Plain version of K5a, in the TPU kernel's order (attention.py:57-67):
+    :func:`fused_attention_flat_reference` on (B, H, N, D)."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    s = s + bias.float()
+    s = s - s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s)
+    p = e / e.sum(dim=-1, keepdim=True)
+    return torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
+
+
+def fused_attention_bwd_reference(q, k, v, bias, do, scale: float):
+    """Plain version of K5c, in the TPU kernel's order (attention.py:78-102):
+    :func:`fused_attention_flat_bwd_reference` on (B, H, N, D)."""
+    qh, kh, vh, doh = q.float(), k.float(), v.float(), do.float()
+    s = torch.matmul(qh, kh.transpose(-1, -2)) * scale + bias.float()
+    s = s - s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s)
+    p = e / e.sum(dim=-1, keepdim=True)
+    pc = p.to(v.dtype).float()
+    dv = torch.matmul(pc.transpose(-1, -2), doh)
+    dp = torch.matmul(doh, vh.transpose(-1, -2))
+    delta = (dp * p).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta)
+    dsc = ds.to(q.dtype).float()
+    dq = torch.matmul(dsc, kh) * scale
+    dk = torch.matmul(dsc.transpose(-1, -2), qh) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), ds.sum(dim=0)
+
+
+def _forward_bhnd(q, k, v, bias, scale: float):
+    """(B, H, N, D) q/k/v + (H, N, N) f32 bias -> (B, H, N, D) in q's dtype.
+    CPU tensors take the plain version; CUDA tensors launch K5a or raise."""
+    _require_hb("fused_attention", q.shape[1], q.shape[2])
+    if q.device.type == "cpu":
+        return fused_attention_reference(q, k, v, bias, scale)
+    B, N, H, D = _check_cuda_operands("fused_attention", (q, k, v, bias), q, bias, bhnd=True)
+    from mem_tpu_torch.kernels import build
+
+    lib = build.library()
+    is_bf16 = int(q.dtype == torch.bfloat16)
+    _smem_check("fused_attention", lib.mem_attention_fwd_flat_smem(N, D, is_bf16), N, D)
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.mem_attention_fwd_bhnd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                    bias.data_ptr(), out.data_ptr(),
+                                    B, N, H, D, float(scale), is_bf16, stream)
+    build.check("fused_attention", rc)
+    count_launch("fused_attention")
+    return out
+
+
+def fused_attention_bwd(q, k, v, bias, do, scale: float):
+    """The VJP of :func:`fused_attention`: (dq, dk, dv) shaped and typed as
+    q/k/v and db (H, N, N) f32 summed over the batch. CPU tensors take the
+    plain version; CUDA tensors launch K5c or raise."""
+    _require_hb("fused_attention_bwd", q.shape[1], q.shape[2])
+    if q.device.type == "cpu":
+        return fused_attention_bwd_reference(q, k, v, bias, do, scale)
+    name = "fused_attention_bwd"
+    B, N, H, D = _check_cuda_operands(name, (q, k, v, bias, do), q, bias, bhnd=True)
+    from mem_tpu_torch.kernels import build
+
+    lib = build.library()
+    is_bf16 = int(q.dtype == torch.bfloat16)
+    _smem_check(name, lib.mem_attention_bwd_flat_smem(N, D, is_bf16), N, D)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    db = torch.empty(H, N, N, dtype=torch.float32, device=q.device)
+    ds_ws = torch.empty(B, H, N, N, dtype=torch.float32, device=q.device)
+    pc_ws = torch.empty(B, H, N, N, dtype=q.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.mem_attention_bwd_bhnd(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                                    do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                                    db.data_ptr(), ds_ws.data_ptr(), pc_ws.data_ptr(),
+                                    B, N, H, D, float(scale), is_bf16, stream)
+    build.check(name, rc)
+    count_launch(name)
+    return dq, dk, dv, db
+
+
+class _FusedAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale):
+        ctx.save_for_backward(q, k, v, bias)
+        ctx.scale = scale
+        return _forward_bhnd(q, k, v, bias, scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias = ctx.saved_tensors
+        dq, dk, dv, db = fused_attention_bwd(q, k, v, bias, do.contiguous(), ctx.scale)
+        return dq, dk, dv, db, None
+
+
+def fused_attention(q, k, v, bias, scale: float):
+    """(B, H, N, D) q/k/v + (H, N, N) f32 bias -> (B, H, N, D) in q's dtype,
+    differentiable in q, k, v and bias (mem_tpu/ops/attention.py
+    ``fused_attention``). Head-blocked-eligible shapes only: others raise
+    ``NotImplementedError``, with no route to the flat kernels. CPU tensors
+    take the plain versions; CUDA tensors launch K5a forward and K5c
+    backward, or raise."""
+    return _FusedAttention.apply(q, k, v, bias, float(scale))
 
 
 def attention_route(N: int) -> str:

@@ -10,7 +10,10 @@ decayed. The lr scale is BEiT's layer decay (``build_lr_scale_tree``,
 :74-83): ``decay ** (L + 1 - i)`` with layer id i = 0 for the patch embedding
 and the cls / mask / pos tokens, n + 1 for block n, and L + 1 for the rest
 (final norm, heads, necks, a shared rel-pos table); without layer decay
-every scale is 1 and the groups are the two of pretraining. Betas default
+every scale is 1 and the groups are the two of pretraining. The finetune
+recipe adds a cosine weight-decay schedule (the caller passes wd[t]), the
+rel-pos tables as extra no-decay names, and the linear probe's frozen
+backbone (lr scale 0 off the head). Betas default
 to (0.9, 0.95) (the reference's pretraining override, optim_factory.py:121);
 segmentation passes (0.9, 0.999). Each step the caller writes lr[t] * scale
 and wd[t] into the groups (:167-173) and clips by global norm with factor
@@ -74,20 +77,27 @@ def lr_scale(name: str, layer_decay: Optional[float], num_layers: int) -> float:
 def create_optimizer(model: torch.nn.Module, lr: float, weight_decay: float,
                      opt: str = "adamw", opt_eps: float = 1e-8,
                      skip_names=SKIP_NAMES, layer_decay: Optional[float] = None,
-                     num_layers: int = 0, betas=BETAS) -> torch.optim.AdamW:
+                     num_layers: int = 0, betas=BETAS,
+                     freeze_backbone: bool = False) -> torch.optim.AdamW:
     """AdamW over the model's trainable parameters, one group per (lr scale,
     decays) in the order the parameters first meet them: without layer decay
     group 0 decays and group 1 does not. Each group carries its ``lr_scale``
-    and ``decays`` for :func:`set_schedule`."""
+    and ``decays`` for :func:`set_schedule`. ``freeze_backbone`` is the
+    reference's linear probe (run_class_finetuning.py:418-436): lr scale 1
+    on ``head.*``, 0 on everything else (no layer decay, the default decay
+    split), so only the head moves."""
     if opt.lower() != "adamw":
         raise NotImplementedError(
             f"--opt {opt}: only adamw is ported; the reference's other optimizers "
-            f"(optim.py:497-679) come with the classification-finetune slice of the "
-            f"port (ROADMAP queue 1, item 8)")
+            f"(optim.py:497-679: sgd, momentum, nadam, adamp, lookahead) are ROADMAP "
+            f"queue 1, item 8b")
     groups = {(1.0, True): [], (1.0, False): []}
     for name, p in model.named_parameters():
         if p.requires_grad:
-            key = (lr_scale(name, layer_decay, num_layers), decays(name, p, skip_names))
+            if freeze_backbone:
+                key = (1.0 if name.split(".")[0] == "head" else 0.0, decays(name, p))
+            else:
+                key = (lr_scale(name, layer_decay, num_layers), decays(name, p, skip_names))
             groups.setdefault(key, []).append(p)
     return torch.optim.AdamW(
         [{"params": ps, "weight_decay": weight_decay if dec else 0.0, "lr": lr * scale,

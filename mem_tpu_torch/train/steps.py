@@ -1,7 +1,9 @@
 """Train and eval steps: MEM pretraining, port of mem_tpu/train/steps.py
 ``make_pretrain_train_step`` / ``make_pretrain_eval_step`` (:135-210)
-(the reference's engine_for_pretraining.py:108-287), and DSEC segmentation,
-port of mem_tpu/cli/train_seg.py ``make_seg_steps`` (:129-162).
+(the reference's engine_for_pretraining.py:108-287), classification
+finetuning, port of ``make_finetune_train_step`` / ``make_finetune_eval_step``
+(:262-419) (engine_for_finetuning.py:41-244), and DSEC segmentation, port of
+mem_tpu/cli/train_seg.py ``make_seg_steps`` (:129-162).
 
 One train step: on-device preprocessing with the training augmentations
 -> frozen-VAE codebook labels under ``torch.no_grad()`` -> the masked ViT
@@ -19,6 +21,14 @@ One segmentation train step: the train preprocessing on the 440x640 canvas
 dropout and drop-path from the step's generator; K3f inside attention) ->
 ``seg_loss`` -> backward (kernel K3b) -> the global grad norm (no clip) ->
 AdamW with this step's lr times each group's layer-decay scale.
+
+One finetune train step: for each of ``update_freq`` micro-batches, the
+train preprocessing (kernel K1) -> mixup / cutmix from the host's draws ->
+``ft_vit`` in training mode (attention through K2f/K2b, or K5a/K5c and the
+MLPs through K6f/K6b under the model toggles) -> cross-entropy (soft
+targets, label smoothing or hard labels) divided by ``update_freq`` ->
+backward, the gradients adding up; then the global grad norm, the clip,
+AdamW with this step's lr and wd, and the EMA of the parameters.
 """
 from __future__ import annotations
 
@@ -29,6 +39,7 @@ from mem_tpu_torch.data.device_pipeline import PreprocConfig, preprocess_batch
 from mem_tpu_torch.data.seg_pipeline import IGNORE_INDEX, seg_preprocess_batch
 from mem_tpu_torch.models.segmentation import confusion_matrix, seg_loss
 from mem_tpu_torch.models.pretrain import masked_cross_entropy, masked_cross_entropy_gathered
+from mem_tpu_torch.train.mixup import MIXUP_KEYS, MixupConfig, mixup_apply, one_hot_smoothed
 from mem_tpu_torch.train.optim import clip_grad_global_norm, set_schedule
 from mem_tpu_torch.train.schedules import at
 
@@ -125,3 +136,94 @@ def make_seg_steps(model, optimizer: torch.optim.Optimizer, lr_fn, weight_decay:
             return confusion_matrix(pred, labels, num_classes, IGNORE_INDEX)
 
     return train_step, eval_step
+
+
+def finetune_cross_entropy(logits, targets, num_classes: int, smoothing: float = 0.0):
+    """The three forms of steps.py:282-295 on f32 logits: soft targets
+    (``targets`` shaped as the logits), label smoothing
+    (``(1 - eps) onehot + eps / K``), or hard labels."""
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    if targets.ndim == logits.ndim:
+        return -(targets * lp).sum(dim=-1).mean()
+    if smoothing > 0:
+        return -(one_hot_smoothed(targets, num_classes, smoothing) * lp).sum(dim=-1).mean()
+    return -lp.gather(-1, targets.long()[..., None])[..., 0].mean()
+
+
+def make_finetune_train_step(model, optimizer: torch.optim.Optimizer, preproc: PreprocConfig,
+                             num_classes: int, lr_schedule: np.ndarray,
+                             wd_schedule: np.ndarray, mixup: MixupConfig | None = None,
+                             smoothing: float = 0.0, update_freq: int = 1,
+                             ema: list | None = None, ema_decay: float | None = None,
+                             clip_grad=None, seed: int = 0):
+    """Returns ``step(micro_batches, it) -> {"loss", "grad_norm"}``.
+    ``micro_batches``: ``update_freq`` device batches (events or events_xyp,
+    n_valid, extents, flips, shift, label, the draw_train_aug draws and, with
+    ``mixup``, the draw_mixup draws); loss and gradients are their mean
+    (steps.py:315-335). ``it``: the optimizer step, which indexes the
+    schedules and seeds the micro-batches' generators. ``ema``: f32 tensors in
+    the order of ``model.parameters()``, updated in place after the step as
+    ``decay * ema + (1 - decay) * param``; None (with ``ema_decay`` None)
+    keeps no EMA at all."""
+    if (ema is None) != (ema_decay is None):
+        raise ValueError("pass both ema and ema_decay, or neither")
+    params = [p for p in model.parameters() if p.requires_grad]
+    all_params = list(model.parameters())
+
+    def step(micro_batches, it: int) -> dict:
+        if len(micro_batches) != update_freq:
+            raise ValueError(f"expected {update_freq} micro-batches, got {len(micro_batches)}")
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        total = None
+        for i, batch in enumerate(micro_batches):
+            with torch.no_grad():
+                images = preprocess_batch(batch, preproc, is_train=True)
+                targets = batch["label"]
+                if mixup is not None:
+                    images, targets = mixup_apply(images, targets,
+                                                  {k: batch[k] for k in MIXUP_KEYS}, mixup)
+            logits = model(images, generator=step_generator(seed, it * update_freq + i,
+                                                            images.device))
+            loss = finetune_cross_entropy(logits, targets, num_classes, smoothing) / update_freq
+            loss.backward()
+            total = loss.detach() if total is None else total + loss.detach()
+        gnorm = clip_grad_global_norm(params, clip_grad)
+        set_schedule(optimizer, at(lr_schedule, it), at(wd_schedule, it))
+        optimizer.step()
+        if ema is not None:
+            with torch.no_grad():
+                torch._foreach_mul_(ema, ema_decay)
+                torch._foreach_add_(ema, [p.detach() for p in all_params],
+                                    alpha=1.0 - ema_decay)
+        return {"loss": total, "grad_norm": gnorm}
+
+    return step
+
+
+def make_finetune_eval_step(model, preproc: PreprocConfig, with_predictions: bool = False):
+    """Returns ``step(batch) -> {"loss", "acc1", "acc5"}`` (eval
+    preprocessing, deterministic forward, hard-label cross-entropy, top-1 and
+    top-5 in percent); ``with_predictions`` adds the per-sample top-k class
+    ids and probabilities (steps.py:389-419)."""
+    k = 5
+
+    def step(batch: dict) -> dict:
+        model.eval()
+        with torch.no_grad():
+            images = preprocess_batch(batch, preproc, is_train=False)
+            logits = model(images).float()
+            targets = batch["label"].long()
+            lp = torch.log_softmax(logits, dim=-1).gather(-1, targets[:, None])[:, 0]
+            top1 = (logits.argmax(dim=-1) == targets).float()
+            topk_p, topk_ids = torch.softmax(logits, dim=-1).topk(min(k, logits.shape[-1]),
+                                                                  dim=-1)
+            top5 = (topk_ids == targets[:, None]).any(dim=-1).float()
+            out = {"loss": -lp.mean(), "acc1": top1.mean() * 100.0,
+                   "acc5": top5.mean() * 100.0}
+            if with_predictions:
+                out["topk_ids"] = topk_ids
+                out["topk_probs"] = topk_p
+        return out
+
+    return step

@@ -9,7 +9,15 @@ by iteration: ``checkpoint-{it}.pth`` holds the segmentor's state_dict in
 the ``export_seg_params`` keys (BatchNorm buffers included), the optimizer
 and ``"epoch": it + 1``, the iteration to continue at;
 ``checkpoint-final.pth`` holds no optimizer, and ``test_seg --checkpoint``
-reads either as it is. Orbax checkpoint directories are out of reach:
+reads either as it is. Classification finetuning saves by epoch:
+``checkpoint-{epoch}.pth`` holds the model, the optimizer, ``"ema"`` (a
+state_dict of the EMA weights under the parameters' names, present only when
+EMA is on), ``"epoch"`` and ``"best_acc"``; ``checkpoint-best.pth`` holds the
+model, its epoch and its top-1 and is not resumable, so the finetune CLI
+resumes from :func:`latest_numbered_checkpoint` and takes a checkpoint
+written under the other ``--model_ema`` setting too (a missing EMA is
+re-seeded from the weights, a surplus one dropped). Orbax checkpoint
+directories are out of reach:
 reading them needs jax; export them to .pth first.
 """
 from __future__ import annotations

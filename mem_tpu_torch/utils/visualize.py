@@ -71,17 +71,20 @@ def save_png(path: str, img: np.ndarray) -> None:
     Image.fromarray(img).save(path)
 
 
-def dump_sample_panels(out_dir: str, images: np.ndarray, labels: np.ndarray,
+def dump_sample_panels(out_dir: str, images: np.ndarray, labels: np.ndarray | None = None,
                        start: int = 0) -> int:
-    """Preprocessed-sample dumps of the seg pipeline, the role of its
-    SaveToDisk op (EventDataset.py:682-708: img + gt_semantic_seg PNGs): one
-    image | colorized annotation panel per sample. ``images`` is (B, H, W, 3)
-    float, ``labels`` (B, H, W) int. Returns the next sample index. (The
-    reference's label-free classification panels come with the finetune
-    slice.)"""
+    """Preprocessed-sample dumps. With ``labels`` (the seg pipeline, the role
+    of its SaveToDisk op, EventDataset.py:682-708: img + gt_semantic_seg
+    PNGs): one image | colorized annotation panel per sample. Without (the
+    classification finetune's epoch-0 debug dump,
+    engine_for_finetuning.py:60-74): the image alone. ``images`` is
+    (B, H, W, 3) float, ``labels`` (B, H, W) int. Returns the next sample
+    index."""
     os.makedirs(out_dir, exist_ok=True)
-    images, labels = np.asarray(images), np.asarray(labels)
+    images = np.asarray(images)
     for i in range(images.shape[0]):
-        panel = grid([event_image_to_rgb(images[i]), colorize_labels(labels[i])], cols=2)
+        panel = event_image_to_rgb(images[i])
+        if labels is not None:
+            panel = grid([panel, colorize_labels(np.asarray(labels)[i])], cols=2)
         save_png(os.path.join(out_dir, f"{start + i:05d}.png"), panel)
     return start + images.shape[0]

@@ -157,5 +157,10 @@ def test_training_randomness_needs_a_generator_and_attn_dropout_raises():
     a = model(x, mask, generator=torch.Generator().manual_seed(3))[0]
     b = model(x, mask, generator=torch.Generator().manual_seed(3))[0]
     torch.testing.assert_close(a, b, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="finetune"):
-        create_model("pt_vit", attn_drop_rate=0.1, **_KW)
+    # attention dropout takes the einsum path: it builds, and in training
+    # mode it raises without a generator like every other random op
+    drop = create_model("pt_vit", attn_drop_rate=0.1, **_KW).train()
+    with pytest.raises(ValueError, match="attention dropout.*Generator"):
+        drop(x, mask)
+    c = drop(x, mask, generator=torch.Generator().manual_seed(3))[0]
+    assert torch.isfinite(c).all()

@@ -237,7 +237,9 @@ for name in names + ["chip_smoke"]:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
 assert not bad, bad
-assert len(names) > 35, names
+assert len(names) > 38, names
+for new in ("ops.mlp", "train.mixup", "cli.run_class_finetuning"):
+    assert "mem_tpu_torch." + new in names, new
 print("imported", len(names) + 1)
 '''
 
