@@ -29,6 +29,10 @@ with the launch counts set to 0 just before it and read just after:
   few iterations with evaluations and checkpoints, an auto-resumed second
   call, then test_seg on the final checkpoint; it checks that the path
   launched K3b 12 times a train step, K3f and K4, and no K1, K2f or K2b;
+  then a short train_seg run and test_seg on its checkpoint with the
+  reference's toggle FLAT_ATTN_LONG = False, which sends the 1025 tokens to
+  the head-major kernels: K5b 12 times a forward, K5e 12 times a train step,
+  no K3f, K3b or K5d;
 - the classification finetune path: mem_tpu_torch.cli.run_class_finetuning.main
   (ViT-B/16 ft_vit at full width, bf16, mixup and cutmix on, EMA, update_freq
   2) from a seeded pretraining-schema .pth through the surgery, with the
@@ -37,7 +41,15 @@ with the launch counts set to 0 just before it and read just after:
   result; then one short run at the default toggles. The launch counts are
   checked exactly: K6f, K6b, K5a and K5c 12 times a micro-batch, K1 once,
   and no K2f or K2b in the toggled run; K2f and K2b and no K5 or K6 in the
-  default one.
+  default one. Then one epoch at --input_H / --input_W 320 (N = 401, not
+  head-blocked-eligible) from seeded weights with FLAT_ATTN = False:
+  with the reference's ENABLED = True, K5b 12 times a micro-batch and K5d 12
+  times a train micro-batch; with ENABLED = False the einsum path, no K5.
+
+The K5 kernels of the shapes that are not head-blocked-eligible (K5b, K5d,
+K5e) share K3f's and K3b's bodies: each is also held bit for bit against the
+K3 kernel on transposed operands, and a seg forward with FLAT_ATTN = False
+against the CPU's logits.
 
 Between them it holds one pretraining, one segmentation and one finetune
 train step on the card (f32 and bf16) against the same step on the CPU, and
@@ -132,6 +144,14 @@ FT_TOGGLE_GRAD_REL = 1e-3   # one f32 step with the toggles on against off, on t
                             # another order of sums, and erf by a polynomial (1.5e-7 abs)
 FT_EMA_REL = 1e-6        # the EMA weights against decay * start + (1 - decay) * updated, f32
 FT_MICRO = 32            # micro-batch of the finetune CLI runs (batch 64, update_freq 2)
+# the head-major kernels of shapes that are not head-blocked-eligible (K5b,
+# K5d, K5e): output, dq, dk, dv as max abs error relative to the plain
+# version's max abs, as K3b's (K3f's output is held to 2e-2 absolute at
+# |o| <= 2: the same bound); db as K2B_DB_REL. bf16: p, ds and the outputs
+# rounded to bf16 from f32 sums taken in another order -> a few bf16 ulps.
+K5L_BF16_TOL = 2e-2
+K5L_F32_TOL = 1e-5       # f32: the same math, sums in another order
+FT_N401_SIZE = 320       # --input_H / --input_W of the finetune run at N = 20 x 20 + 1 = 401
 # the card's published peaks (H100 SXM data sheet): the bounds are reckoned from them
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
@@ -233,6 +253,25 @@ def hist_bound(B, N, H, W):
     """K1 / K4: col and ys read (int32), the (B, H, 2W) int32 planes written;
     one integer add per event."""
     return bound(2 * B * N * 4 + B * H * 2 * W * 4, B * N, PEAK_F32_FLOPS)
+
+
+def bincount_ms(torch, col, ys, H, W, want):
+    """The one library call that computes K1's and K4's counts: a
+    torch.bincount over the linear index (sample, y, column of [pos | neg]),
+    the invalid events weighted 0 (the index and weights are built before the
+    timing). Returns (ms, or None where its counts differ from ``want``, the
+    plain version's; whether they are equal)."""
+    B = col.shape[0]
+    ok = (col >= 0) & (col < 2 * W) & (ys >= 0) & (ys < H)
+    lin = (torch.where(ok, ys.long() * (2 * W) + col.long(), 0)
+           + torch.arange(B, device=col.device)[:, None] * (H * 2 * W)).reshape(-1)
+    wts = ok.reshape(-1).float()
+
+    def call():
+        return torch.bincount(lin, weights=wts, minlength=B * H * 2 * W)
+
+    equal = bool(torch.equal(call().view(B, H, 2 * W).to(torch.int32), want))
+    return (time_ms(torch, call) if equal else None), equal
 
 
 def attention_fwd_bound(B, N, H, D, itemsize=2):
@@ -433,9 +472,11 @@ def run(torch):
         col, ysf = vh.pack_cols(xs, ys, pos, 1.0 - pos, 256, 256)
         t_k1 = time_ms(torch, lambda: vh.hist_planes_cols(col, ysf, 256, 256))
         t_k1p = time_ms(torch, lambda: vh.hist_planes_cols_reference(col, ysf, 256, 256))
+        t_k1l, k1l_equal = bincount_ms(torch, col, ysf, 256, 256,
+                                       vh.hist_planes_cols_reference(col, ysf, 256, 256))
         say("time_k1", gpu=gpu, batch=B, events=30_000, canvas=[256, 256], kernel_ms=t_k1,
-            plain_ms=t_k1p, bound_ms=hist_bound(B, 30_000, 256, 256)[0],
-            kernel_gev_s=B * 30_000 / t_k1 / 1e6)
+            plain_ms=t_k1p, bincount_ms=t_k1l, bincount_equals_plain=k1l_equal,
+            bound_ms=hist_bound(B, 30_000, 256, 256)[0], kernel_gev_s=B * 30_000 / t_k1 / 1e6)
 
         q, k, v = (torch.randn(B, 197, 768, device=dev, dtype=torch.bfloat16)
                    for _ in range(3))
@@ -450,7 +491,7 @@ def run(torch):
             kernel_ms=t_k2, plain_ms=t_k2p, sdpa_ms=t_k2l,
             bound_ms=attention_fwd_bound(B, 197, 12, 64)[0],
             kernel_tflop_s=flop / t_k2 / 1e9)
-        timing[B] = (t_k1, t_k1p, t_k2, t_k2p, t_k2l)
+        timing[B] = (t_k1, t_k1p, t_k2, t_k2p, t_k2l, t_k1l)
 
         fb = serve.make_assemble(args, pp)([(p, False) for p in payloads[:B]], B)
         dev_batch = serve.to_device(fb, dev)
@@ -470,6 +511,9 @@ def run(torch):
     k4_err = check_k4(torch, dev, g)
     k3f_err = check_k3f(torch, dev, g)
     k3b_err = check_k3b(torch, dev, g)
+    # -- the rest of fused_attention: K5b, K5d, K5e ---------------------------
+    k5b_err, k5d_err, k5e_err = (check_k5b(torch, dev, g), check_k5d(torch, dev, g),
+                                 check_k5e(torch, dev, g))
 
     # -- phases 5-8: the pretraining slice ------------------------------------
     k2b_err = check_k2b(torch, dev, g)
@@ -494,6 +538,7 @@ def run(torch):
 
     # -- the segmentation training slice ----------------------------------------
     seg_train = run_seg_train_slice(torch, dev, gpu, rng)
+    k5_ms = time_k5_long(torch, dev, gpu)
 
     def row(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms):
         return {"name": name, "route": "cuda", "source": f"mem_tpu_torch/csrc/{source}",
@@ -503,12 +548,13 @@ def run(torch):
 
     # launches: K1, K2f, K2b from the pretraining CLI's run, K3f and K4 from
     # test_seg's single-scale run, K3b from train_seg's first run, K6f, K6b,
-    # K5a and K5c from the toggled finetune CLI's first run; times at the
-    # shapes the bounds name
+    # K5a and K5c from the toggled finetune CLI's first run, K5b and K5e from
+    # train_seg's run with FLAT_ATTN_LONG = False, K5d from the N = 401
+    # finetune run; times at the shapes the bounds name
     print(json.dumps({"kernels": [
         row("hist_planes_cols", "voxelize_hist.cu", "voxelize_pallas.py:64",
             train_counts["hist_planes_cols"], k1_err, timing[8][0], timing[8][1],
-            hist_bound(8, 30_000, 256, 256), None),
+            hist_bound(8, 30_000, 256, 256), timing[8][5]),
         row("fused_attention_flat", "attention_fwd.cu", "attention.py:105",
             train_counts["fused_attention_flat"], k2_err, timing[8][2], timing[8][3],
             attention_fwd_bound(8, 197, 12, 64), timing[8][4]),
@@ -520,7 +566,7 @@ def run(torch):
             seg["k3f_plain_ms"], attention_fwd_bound(8, 1025, 12, 64), seg["k3f_sdpa_ms"]),
         row("hist_planes_cols_sorted", "voxelize_hist_sorted.cu", "voxelize_pallas.py:81",
             seg["counts"]["hist_planes_cols_sorted"], k4_err, seg["k4_ms"],
-            seg["k4_plain_ms"], hist_bound(8, SEG_EVENTS, 440, 640), None),
+            seg["k4_plain_ms"], hist_bound(8, SEG_EVENTS, 440, 640), seg["k4_bincount_ms"]),
         row("fused_attention_flat_long_bwd", "attention_long_bwd.cu", "attention.py:276",
             seg_train["counts"]["fused_attention_flat_long_bwd"], k3b_err,
             seg_train["k3b_ms"], seg_train["k3b_plain_ms"],
@@ -535,6 +581,15 @@ def run(torch):
         row("fused_attention_bwd", "attention_bwd_bhnd.cu", "attention.py:70",
             ft["counts"]["fused_attention_bwd"], ft["k5c_err"], *ft["k5c_ms"][:2],
             attention_bwd_bound(FT_B, 197, 12, 64), ft["k5c_ms"][2]),
+        row("fused_attention_long", "attention_long_fwd_bhnd.cu", "attention.py:413",
+            seg_train["counts_long_off"]["fused_attention_long"], k5b_err, *k5_ms["K5b"][:2],
+            attention_fwd_bound(8, 1025, 12, 64), k5_ms["K5b"][2]),
+        row("fused_attention_bwd_whole", "attention_long_bwd_bhnd.cu", "attention.py:425",
+            ft["counts_n401"]["fused_attention_bwd_whole"], k5d_err, *k5_ms["K5d"][:2],
+            attention_bwd_bound(FT_MICRO, 401, 12, 64), k5_ms["K5d"][2]),
+        row("fused_attention_bwd_long", "attention_long_bwd_bhnd.cu", "attention.py:515",
+            seg_train["counts_long_off"]["fused_attention_bwd_long"], k5e_err,
+            *k5_ms["K5e"][:2], attention_bwd_bound(16, 1025, 12, 64), k5_ms["K5e"][2]),
     ]}), flush=True)
 
 
@@ -892,6 +947,25 @@ def run_seg_slice(torch, dev, gpu, rng):
         check(frac <= SEG_IMAGES_FRAC, f"card seg images differ from the CPU's at {frac}")
         check(rel["float32"] <= SEG_F32_REL, f"seg f32 logits rel L2 {rel['float32']}")
         check(rel["bfloat16"] <= SEG_BF16_REL, f"seg bf16 logits rel L2 {rel['bfloat16']}")
+
+        # -- FLAT_ATTN = False: the same forwards through K5b, head-major ---------
+        rel_bhnd, bhnd_counts = {}, {}
+        with toggles(flat_attn=False), torch.inference_mode():
+            for name, model in models.items():
+                reset_launch_counts()
+                logits = model(cpu_images.to(dev))[0]
+                torch.cuda.synchronize()
+                bhnd_counts[name] = launch_counts()
+                rel_bhnd[name] = rel_l2(torch, logits.cpu(), cpu_logits)
+        say("seg_logits_check_flat_attn_off", batch_card=2, batch_cpu=2,
+            toggles=dict(FLAT_ATTN=False), rel_l2_f32=rel_bhnd["float32"], bound_f32=SEG_F32_REL,
+            rel_l2_bf16=rel_bhnd["bfloat16"], bound_bf16=SEG_BF16_REL, launches=bhnd_counts)
+        check(all(c == {"fused_attention_long": 12} for c in bhnd_counts.values()),
+              f"the EvBEiT forward with FLAT_ATTN = False launched {bhnd_counts}, not K5b x12")
+        check(rel_bhnd["float32"] <= SEG_F32_REL,
+              f"seg f32 logits with FLAT_ATTN = False: rel L2 {rel_bhnd['float32']}")
+        check(rel_bhnd["bfloat16"] <= SEG_BF16_REL,
+              f"seg bf16 logits with FLAT_ATTN = False: rel L2 {rel_bhnd['bfloat16']}")
         del cpu_logits, cpu_images, logits, feats, images
         models.pop("float32")
         torch.cuda.empty_cache()
@@ -1034,6 +1108,9 @@ def run_seg_slice(torch, dev, gpu, rng):
             lambda: vh.hist_planes_cols_sorted(col, ys, 440, 640, presorted=True))
         t_k4s = time_ms(torch, lambda: vh.hist_planes_cols_sorted(col, ys, 440, 640))
         t_k1 = time_ms(torch, lambda: vh.hist_planes_cols(col, ys, 440, 640))
+        t_k4l, k4l_equal = bincount_ms(
+            torch, col, ys, 440, 640,
+            vh.hist_planes_cols_sorted_reference(col, ys, 440, 640, True))
         # both kernels are short enough for the events above to time the
         # launch as much as the kernel: the profiler's device time beside them
         d_k4 = kernel_device_ms(
@@ -1044,6 +1121,7 @@ def run_seg_slice(torch, dev, gpu, rng):
                                 ("hist_planes_cols_kernel", "FillFunctor", "Memset"))
         say("time_k4", gpu=gpu, batch=8, events=SEG_EVENTS, canvas=[440, 640], kernel_ms=t_k4,
             kernel_with_sort_ms=t_k4s, k1_same_shape_ms=t_k1, plain_ms=t_k4p,
+            bincount_ms=t_k4l, bincount_equals_plain=k4l_equal,
             kernel_device_ms=d_k4, k1_same_shape_device_ms=d_k1,
             bound_ms=hist_bound(8, SEG_EVENTS, 440, 640)[0],
             kernel_gev_s=8 * SEG_EVENTS / t_k4 / 1e6)
@@ -1064,12 +1142,12 @@ def run_seg_slice(torch, dev, gpu, rng):
     finally:
         tmp.cleanup()
     return dict(counts=counts, k3f_ms=t_k3, k3f_plain_ms=t_k3p, k3f_sdpa_ms=t_k3l,
-                k4_ms=t_k4, k4_plain_ms=t_k4p)
+                k4_ms=t_k4, k4_plain_ms=t_k4p, k4_bincount_ms=t_k4l)
 
 
 # kernel-name fragments -> family, first match wins (cuDNN's convolutions are
 # implicit GEMMs: their names come before the plain GEMMs')
-_FAMILIES = (("attention_long_bwd", "K3b"), ("attention_long_fwd", "K3f"),
+_FAMILIES = (("attention_long_bwd", "K3b / K5d / K5e"), ("attention_long_fwd", "K3f / K5b"),
              ("band_hist", "K4"), ("chunk_bounds", "K4"), ("mlp_rows", "K6 rows (K6f, K6b)"),
              ("mlp_cols", "K6b columns"), ("attention_bwd", "K2b / K5c"),
              ("attention_fwd", "K2f / K5a"), ("hist_planes_cols", "K1"),
@@ -1175,7 +1253,10 @@ def check_seg_train_step(torch, dev, data_root, sd):
     held to SEG_STEP_F32_GRAD_REL. That the gate can see a wrong K3b is shown
     in the same run: the damped card step is repeated with a fault planted in
     K3b's operands (the last key masked out; the last query row's do zeroed:
-    what a mishandled tail tile at N = 1025 would give) and must fail it."""
+    what a mishandled tail tile at N = 1025 would give) and must fail it.
+    Every card step is repeated with FLAT_ATTN_LONG = False (K5b forward, K5e
+    backward) against the same CPU steps, faults included, under the same
+    gates and with exact launch counts."""
     from mem_tpu_torch.data.prefetch import to_device
     from mem_tpu_torch.data.seg_pipeline import seg_preprocess_batch
     from mem_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -1197,41 +1278,51 @@ def check_seg_train_step(torch, dev, data_root, sd):
     check(frac <= SEG_TRAIN_IMG_FRAC, f"card seg train images differ from the CPU's at {frac}")
     check(labels_equal, "card seg train labels differ from the CPU's")
 
-    real_k3b = A.fused_attention_flat_long_bwd
+    real = {True: A.fused_attention_flat_long_bwd, False: A.fused_attention_bwd}
 
-    def faulty_k3b(fault):
+    def faulty(fault, flat):
+        """K3b (flat) or K5e (head-major) with a planted fault."""
         def bwd(q, k, v, bias, do, scale):
             if fault == "last_key_dropped":
                 bias = bias.clone()
                 bias[:, :, -1] = float("-inf")
             else:
                 do = do.clone()
-                do[:, -1] = 0
-            return real_k3b(q, k, v, bias, do, scale)
+                do.select(1 if flat else 2, -1).zero_()   # the last query row
+            return real[flat](q, k, v, bias, do, scale)
         return bwd
+
+    def install(fault, flat):
+        A.fused_attention_flat_long_bwd = faulty(fault, True) if fault and flat else real[True]
+        A.fused_attention_bwd = faulty(fault, False) if fault and not flat else real[False]
 
     lr_fn = lambda it: 5e-4  # noqa: E731
     out, counts = {}, {}
-    for name, d, dt, eps, fault in (
-            ("cpu_f32", cpu, torch.float32, None, None),
+    rows = [("cpu_f32", cpu, torch.float32, None, None),
             ("card_f32", dev, torch.float32, None, None),
             ("card_bf16", dev, torch.bfloat16, None, None),
             ("cpu_f32_damped", cpu, torch.float32, SEG_DAMPED_EPS, None),
             ("card_f32_damped", dev, torch.float32, SEG_DAMPED_EPS, None),
             ("last_key_dropped", dev, torch.float32, SEG_DAMPED_EPS, "last_key_dropped"),
-            ("last_row_dropped", dev, torch.float32, SEG_DAMPED_EPS, "last_row_dropped")):
-        model, step = make_seg_step(torch, sd, d, dt, lr_fn, drop=0.0)
-        if eps is not None:
-            for si in range(len(model.decode_head.pool_scales)):
-                getattr(model.decode_head, f"psp_{si}").bn.eps = eps
-        t0 = time.perf_counter()
-        reset_launch_counts()
-        try:
-            if fault is not None:
-                A.fused_attention_flat_long_bwd = faulty_k3b(fault)
-            m = step(to_device(host, d), 0)
-        finally:
-            A.fused_attention_flat_long_bwd = real_k3b
+            ("last_row_dropped", dev, torch.float32, SEG_DAMPED_EPS, "last_row_dropped")]
+    # the same card steps with FLAT_ATTN_LONG = False (K5b / K5e), against the
+    # same CPU steps: the plain versions of K3 and K5 are one function
+    rows += [(n + "_long_off", d, dt, eps, fault) for n, d, dt, eps, fault in rows
+             if d.type == "cuda"]
+    for name, d, dt, eps, fault in rows:
+        flat = not name.endswith("_long_off")
+        with toggles(flat_attn_long=flat):
+            model, step = make_seg_step(torch, sd, d, dt, lr_fn, drop=0.0)
+            if eps is not None:
+                for si in range(len(model.decode_head.pool_scales)):
+                    getattr(model.decode_head, f"psp_{si}").bn.eps = eps
+            t0 = time.perf_counter()
+            reset_launch_counts()
+            try:
+                install(fault, flat)
+                m = step(to_device(host, d), 0)
+            finally:
+                install(None, flat)
         metrics = {k: v.item() for k, v in m.items()}
         counts[name] = launch_counts()
         out[name] = (metrics,
@@ -1256,12 +1347,14 @@ def check_seg_train_step(torch, dev, data_root, sd):
                     below_floor_card_norm_max=noise_max)
 
     ref_m, _, ref_b, _ = out["cpu_f32"]
-    loss_rel = {n: abs(out[n][0]["loss"] - out[r][0]["loss"]) / abs(out[r][0]["loss"])
+    loss_rel = {n + t: abs(out[n + t][0]["loss"] - out[r][0]["loss"]) / abs(out[r][0]["loss"])
                 for n, r in (("card_f32", "cpu_f32"), ("card_bf16", "cpu_f32"),
-                             ("card_f32_damped", "cpu_f32_damped"))}
-    grads = gradients("card_f32_damped")
-    faults = {n: gradients(n) for n in ("last_key_dropped", "last_row_dropped")}
-    bn_rel = {n: rel_l2(torch, b, ref_b[n]) for n, b in out["card_f32"][2].items()}
+                             ("card_f32_damped", "cpu_f32_damped")) for t in ("", "_long_off")}
+    grads = {t: gradients("card_f32_damped" + t) for t in ("", "_long_off")}
+    faults = {n + t: gradients(n + t) for n in ("last_key_dropped", "last_row_dropped")
+              for t in ("", "_long_off")}
+    bn_rel = {(n, t): rel_l2(torch, b, ref_b[n]) for t in ("", "_long_off")
+              for n, b in out["card_f32" + t][2].items()}
     worst_bn = max(bn_rel, key=bn_rel.get)
     say("seg_train_step_check", model="EvBEiT ViT-B/16 + UPerNet + FCN", embed_dim=768,
         depth=12, heads=12, tokens=1025, batch=2,
@@ -1276,23 +1369,27 @@ def check_seg_train_step(torch, dev, data_root, sd):
     check(all(np.isfinite(v) for v in ref_m.values()), "CPU seg step metrics not finite")
     for name, c in counts.items():
         want = {} if name.startswith("cpu") else {
+            "hist_planes_cols_sorted": 1, "fused_attention_long": 12,
+            "fused_attention_bwd_long": 12} if name.endswith("_long_off") else {
             "hist_planes_cols_sorted": 1, "fused_attention_flat_long": 12,
             "fused_attention_flat_long_bwd": 12}
         check(c == want, f"the {name} seg step launched {c}")
-    check(loss_rel["card_f32"] <= STEP_F32_LOSS_REL
-          and loss_rel["card_f32_damped"] <= STEP_F32_LOSS_REL,
-          f"f32 seg step loss rel {loss_rel}")
-    check(grads["rel_l2_max"] <= SEG_STEP_F32_GRAD_REL,
-          f"f32 grad with the PSP BatchNorms damped: {grads['worst5'][0]}")
-    check(grads["below_floor_card_norm_max"] <= 10 * grads["floor"]
-          and len(grads["below_floor"]) <= 8,
-          f"gradients below the floor on the CPU: {grads['below_floor']}, on the card up to "
-          f"{grads['below_floor_card_norm_max']}")
+    for t in ("", "_long_off"):
+        check(loss_rel["card_f32" + t] <= STEP_F32_LOSS_REL
+              and loss_rel["card_f32_damped" + t] <= STEP_F32_LOSS_REL,
+              f"f32 seg step loss rel {loss_rel}")
+        check(grads[t]["rel_l2_max"] <= SEG_STEP_F32_GRAD_REL,
+              f"f32 grad{t} with the PSP BatchNorms damped: {grads[t]['worst5'][0]}")
+        check(grads[t]["below_floor_card_norm_max"] <= 10 * grads[t]["floor"]
+              and len(grads[t]["below_floor"]) <= 8,
+              f"gradients below the floor on the CPU: {grads[t]['below_floor']}, on the card "
+              f"up to {grads[t]['below_floor_card_norm_max']}")
+        check(loss_rel["card_bf16" + t] <= STEP_BF16_LOSS_REL,
+              f"bf16 seg step loss rel {loss_rel}")
     for n, f in faults.items():
         check(f["rel_l2_max"] > SEG_STEP_F32_GRAD_REL,
-              f"the gradient gate does not see K3b with {n}: worst {f['worst5'][0]}")
+              f"the gradient gate does not see the backward with {n}: worst {f['worst5'][0]}")
     check(bn_rel[worst_bn] <= SEG_STEP_BN_REL, f"BN buffer {worst_bn} rel L2 {bn_rel[worst_bn]}")
-    check(loss_rel["card_bf16"] <= STEP_BF16_LOSS_REL, f"bf16 seg step loss rel {loss_rel}")
 
 
 def run_train_seg_cli(torch, data_root, pretrained, out_dir):
@@ -1355,12 +1452,14 @@ def run_train_seg_cli(torch, data_root, pretrained, out_dir):
 def time_seg_training(torch, dev, gpu, data_root, sd):
     """K3b beside its plain version (in turns), its bound and the backward of
     one SDPA call, at B=16 (train_seg's default) and B=8; the full-width seg
-    train step (depth 12, bf16, drop-path and dropout 0.1) at B=8 and B=16:
-    15 steps on one repeated batch at the recipe's peak lr (the loss must fall
-    by SEG_LOSS_FALL at B=8), the median of the last 12 timed by CUDA events,
-    the peak device memory, and at B=8 a profile by kernel family. Returns
-    K3b's, its plain version's and the SDPA backward's ms at B=16."""
-    from mem_tpu_torch.data.prefetch import to_device
+    train step (depth 12, bf16, drop-path and dropout 0.1) at B=8 and B=16,
+    under the default toggles and with FLAT_ATTN_LONG = False (the A/B the
+    reference keeps the toggle for), one after the other: 15 steps on one
+    repeated batch at the recipe's peak lr (the loss must fall by
+    SEG_LOSS_FALL at B=8), the median of the last 12 timed by CUDA events,
+    the peak device memory, and at B=8 a profile by kernel family of the
+    default. Returns K3b's, its plain version's and the SDPA backward's ms at
+    B=16."""
     from mem_tpu_torch.ops.attention import (fused_attention_flat_long_bwd,
                                              fused_attention_flat_long_bwd_reference)
 
@@ -1397,43 +1496,54 @@ def time_seg_training(torch, dev, gpu, data_root, sd):
     steps, warm = 15, 3
     lr_fn = lambda it: 5e-4  # noqa: E731
     for B in (8, 16):
-        model, step = make_seg_step(torch, sd, dev, torch.bfloat16, lr_fn)
-        batch = to_device(seg_host_batch(data_root, B), dev)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        events, metrics = [], []
-        for i in range(steps):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            metrics.append(step(batch, i))
-            end.record()
-            events.append((start, end))
-        torch.cuda.synchronize()
-        ms = statistics.median(a.elapsed_time(b) for a, b in events[warm:])
-        losses = [m["loss"].item() for m in metrics]
-        say("time_seg_train_step", gpu=gpu, batch=B, model="EvBEiT ViT-B/16 + UPerNet + FCN",
-            embed_dim=768, depth=12, heads=12, tokens=1025, dtype="bfloat16", ms=ms,
-            iterations_per_s=1e3 / ms, windows_per_s=B / ms * 1e3,
-            peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, losses=losses,
-            grad_norm_last=metrics[-1]["grad_norm"].item())
-        check(all(np.isfinite(losses)), f"seg B={B}: non-finite losses {losses}")
-        if B == 8:
-            check(losses[-1] <= losses[0] - SEG_LOSS_FALL,
-                  f"the seg loss fell from {losses[0]} to {losses[-1]}, less than {SEG_LOSS_FALL}")
-            it = iter(range(steps, steps + 100))
-            profile_seg_forward(torch, gpu, lambda: step(batch, next(it)), n=3,
-                                tag="seg_train_step_profile", batch=B)
-        del model, step, batch, metrics
-        torch.cuda.empty_cache()
+        for tag, long_on in (("default", True), ("flat_attn_long_off", False)):
+            with toggles(flat_attn_long=long_on):
+                _time_seg_train_step(torch, dev, gpu, data_root, sd, B, tag, lr_fn, steps, warm)
     return k3b[16]
+
+
+def _time_seg_train_step(torch, dev, gpu, data_root, sd, B, tag, lr_fn, steps, warm):
+    from mem_tpu_torch.data.prefetch import to_device
+
+    model, step = make_seg_step(torch, sd, dev, torch.bfloat16, lr_fn)
+    batch = to_device(seg_host_batch(data_root, B), dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events, metrics = [], []
+    for i in range(steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics.append(step(batch, i))
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    ms = statistics.median(a.elapsed_time(b) for a, b in events[warm:])
+    losses = [m["loss"].item() for m in metrics]
+    say("time_seg_train_step", gpu=gpu, batch=B, toggles=tag,
+        model="EvBEiT ViT-B/16 + UPerNet + FCN", embed_dim=768, depth=12, heads=12,
+        tokens=1025, dtype="bfloat16", ms=ms, iterations_per_s=1e3 / ms,
+        windows_per_s=B / ms * 1e3, peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        losses=losses, grad_norm_last=metrics[-1]["grad_norm"].item())
+    check(all(np.isfinite(losses)), f"seg B={B} {tag}: non-finite losses {losses}")
+    if B == 8:
+        check(losses[-1] <= losses[0] - SEG_LOSS_FALL,
+              f"the seg loss ({tag}) fell from {losses[0]} to {losses[-1]}, less than "
+              f"{SEG_LOSS_FALL}")
+    if B == 8 and tag == "default":
+        it = iter(range(steps, steps + 100))
+        profile_seg_forward(torch, gpu, lambda: step(batch, next(it)), n=3,
+                            tag="seg_train_step_profile", batch=B)
+    del model, step, batch, metrics
+    torch.cuda.empty_cache()
 
 
 def run_seg_train_slice(torch, dev, gpu, rng):
     """The segmentation training slice at full width: one train step card
-    against CPU, the train_seg CLI with a resume and test_seg on its
-    checkpoint, K3b's and the train step's timings. Returns train_seg's
-    launch counts and K3b's times at B=16."""
+    against CPU (also with FLAT_ATTN_LONG = False), the train_seg CLI with a
+    resume and test_seg on its checkpoint, the same with FLAT_ATTN_LONG =
+    False, K3b's and the train step's timings under both toggles. Returns
+    train_seg's launch counts under both toggles and K3b's times at B=16."""
     from mem_tpu_torch.cli import run_mem_pretraining as R
     from mem_tpu_torch.models.segmentation import build_segmentor
 
@@ -1459,11 +1569,14 @@ def run_seg_train_slice(torch, dev, gpu, rng):
         check_seg_train_step(torch, dev, data_root, sd)
         counts = run_train_seg_cli(torch, data_root, pretrained,
                                    os.path.join(tmp.name, "seg_out"))
+        counts_long_off = run_train_seg_cli_long_off(torch, data_root, pretrained,
+                                                     os.path.join(tmp.name, "seg_out_long_off"))
         t_k3b, t_k3bp, t_k3bl = time_seg_training(torch, dev, gpu, data_root, sd)
     finally:
         signal.signal(signal.SIGTERM, signal.SIG_DFL)   # the CLI latched SIGTERM
         tmp.cleanup()
-    return dict(counts=counts, k3b_ms=t_k3b, k3b_plain_ms=t_k3bp, k3b_sdpa_ms=t_k3bl)
+    return dict(counts=counts, counts_long_off=counts_long_off, k3b_ms=t_k3b,
+                k3b_plain_ms=t_k3bp, k3b_sdpa_ms=t_k3bl)
 
 
 def write_training_inputs(torch, root, rng):
@@ -1907,22 +2020,27 @@ def check_k5c(torch, dev, g):
 
 
 class toggles:
-    """Set the two module toggles of mem_tpu_torch.models.vit for a block, as
+    """Set the port's module toggles for a block -- FLAT_ATTN, FUSED_MLP and
+    FLAT_ATTN_LONG of mem_tpu_torch.models.vit and ENABLED of
+    mem_tpu_torch.ops.attention, the reference's names and defaults -- as
     scripts/trace_pretrain.py sets the reference's, and put them back."""
 
-    def __init__(self, flat_attn: bool, fused_mlp: bool):
-        self.values = (flat_attn, fused_mlp)
+    def __init__(self, flat_attn: bool = True, fused_mlp: bool = False,
+                 flat_attn_long: bool = True, enabled: bool = False):
+        self.values = (flat_attn, fused_mlp, flat_attn_long, enabled)
 
     def __enter__(self):
         from mem_tpu_torch.models import vit
+        from mem_tpu_torch.ops import attention
 
-        self.saved = (vit.FLAT_ATTN, vit.FUSED_MLP)
-        vit.FLAT_ATTN, vit.FUSED_MLP = self.values
+        self.saved = (vit.FLAT_ATTN, vit.FUSED_MLP, vit.FLAT_ATTN_LONG, attention.ENABLED)
+        vit.FLAT_ATTN, vit.FUSED_MLP, vit.FLAT_ATTN_LONG, attention.ENABLED = self.values
 
     def __exit__(self, *exc):
         from mem_tpu_torch.models import vit
+        from mem_tpu_torch.ops import attention
 
-        vit.FLAT_ATTN, vit.FUSED_MLP = self.saved
+        vit.FLAT_ATTN, vit.FUSED_MLP, vit.FLAT_ATTN_LONG, attention.ENABLED = self.saved
 
 
 def finetune_flags(data_root, pretrained, out_dir):
@@ -2287,8 +2405,9 @@ def time_finetune(torch, dev, gpu, g, flags):
 def run_finetune_slice(torch, dev, gpu, g, data_root, tmp_root):
     """The classification finetune slice at full width: K6 and K5 against
     their plain versions, one finetune step card against CPU, the CLI with the
-    toggles on (with a resume and --eval) and off, and the timings. Returns
-    the toggled run's launch counts, the kernels' errors and their times."""
+    toggles on (with a resume and --eval) and off, the CLI at N = 401 (K5b and
+    K5d; the einsum path), and the timings. Returns the toggled runs' launch
+    counts, the kernels' errors and their times."""
     from mem_tpu_torch.cli import run_mem_pretraining as R
 
     k6f_err, k6b_err = check_k6f(torch, dev, g), check_k6b(torch, dev, g)
@@ -2304,9 +2423,299 @@ def run_finetune_slice(torch, dev, gpu, g, data_root, tmp_root):
     flags = finetune_flags(data_root, pretrained, os.path.join(tmp_root, "ft_out"))
     check_finetune_step(torch, dev, flags)
     counts = run_finetune_cli(torch, flags)
+    counts_n401 = run_finetune_n401(torch, data_root, tmp_root)
     times = time_finetune(torch, dev, gpu, g, flags)
-    return dict(counts=counts, k6f_err=k6f_err, k6b_err=k6b_err, k5a_err=k5a_err,
-                k5c_err=k5c_err, **times)
+    return dict(counts=counts, counts_n401=counts_n401, k6f_err=k6f_err, k6b_err=k6b_err,
+                k5a_err=k5a_err, k5c_err=k5c_err, **times)
+
+
+# ---------------------------------------------------------------------------
+# the rest of fused_attention: K5b, K5d, K5e (head-major, not head-blocked)
+# ---------------------------------------------------------------------------
+
+def _bf16_at_64(torch, shape, dt):
+    return dt == torch.bfloat16 and shape[3] == 64
+
+
+def check_k5b(torch, dev, g):
+    """K5b against its plain version on (B, H, N, D) and against K3f on the
+    transposed operands (the same kernel body: bit for bit): the seg
+    backbone's shape at B = 8 and 16 and the N = 401 finetune's micro-batch in
+    bf16 (tensor cores), a ragged N, f32 and D = 32 (the scalar kernel); and
+    the F3 shape, N = 300 at 12 heads, head-blocked-eligible, which K5a's
+    wrapper sends to the same key-tiled kernel under K5a's launch counter.
+    Each launch counted once under its branch. Returns the max abs error at
+    (8, 12, 1025, 64)."""
+    from mem_tpu_torch.kernels import launch_counts
+    from mem_tpu_torch.ops import attention as A
+
+    bf, f32, first = torch.bfloat16, torch.float32, None
+    for shape, dt in (((8, 12, 1025, 64), bf), ((16, 12, 1025, 64), bf),
+                      ((FT_MICRO, 12, 401, 64), bf), ((2, 12, 577, 64), bf),
+                      ((3, 12, 300, 64), bf), ((2, 12, 1025, 64), f32), ((2, 12, 577, 32), bf),
+                      ((1, 12, 401, 32), f32)):
+        tol = K5L_BF16_TOL if dt == bf else K5L_F32_TOL
+        q, k, v, _, bias, scale, flat = k5_operands(torch, g, shape, dt, dev)
+        name = A.fused_attention_route(*shape[1:3])[0]
+        before = launch_counts().get(name, 0)
+        o = A.fused_attention(q, k, v, bias, scale)
+        torch.cuda.synchronize()
+        launched = launch_counts().get(name, 0) - before
+        o_k3f = A.fused_attention_flat_long(flat(q), flat(k), flat(v), bias, scale)
+        want = A.fused_attention_long_reference(q, k, v, bias, scale)
+        err = rel_max_abs(o, want)
+        equal = bool(torch.equal(flat(o), o_k3f))
+        path = A.cuda_bhnd_kernel_path(q, k, v, bias)
+        say("k5b_check", dtype=str(dt), shape=list(shape), branch=name, launches=launched,
+            rel_max_abs=err, tol=tol, equals_k3f_on_transposed=equal, kernel=path)
+        check(err <= tol, f"K5b {dt} {shape}: rel max abs err {err} > {tol}")
+        check(equal, f"K5b {dt} {shape} differs from K3f on the transposed operands")
+        check(launched == 1, f"K5b {dt} {shape}: {launched} launches under {name}")
+        check(path == ("tiled_mma" if _bf16_at_64(torch, shape, dt) else "tiled_scalar"),
+              f"K5b {dt} {shape} took the {path} kernel")
+        if first is None:
+            first = (o.float() - want.float()).abs().max().item()
+        del q, k, v, bias, o, o_k3f, want
+    torch.cuda.empty_cache()
+    return first
+
+
+def _check_k5_bwd(torch, dev, g, tag, cases, autograd_shape):
+    """check_k5d / check_k5e: each case against its plain version (dq, dk,
+    dv relative max abs; db relative L2) and against K3b on the transposed
+    operands (the same kernel body: bit for bit), bit-identical across two
+    launches, one launch counted under its branch; then autograd through
+    fused_attention at ``autograd_shape`` launches K5b and the backward once
+    each. Returns the max abs error of the first case."""
+    from mem_tpu_torch.kernels import launch_counts
+    from mem_tpu_torch.ops import attention as A
+
+    first = None
+    for shape, dt in cases:
+        bf16 = dt == torch.bfloat16
+        tol = K5L_BF16_TOL if bf16 else K5L_F32_TOL
+        q, k, v, do, bias, scale, flat = k5_operands(torch, g, shape, dt, dev)
+        name = A.fused_attention_route(*shape[1:3])[1]
+        before = launch_counts().get(name, 0)
+        got = A.fused_attention_bwd(q, k, v, bias, do, scale)
+        again = A.fused_attention_bwd(q, k, v, bias, do, scale)
+        torch.cuda.synchronize()
+        launched = launch_counts().get(name, 0) - before
+        k3b = A.fused_attention_flat_long_bwd(flat(q), flat(k), flat(v), bias, flat(do), scale)
+        plain = {"fused_attention_bwd": A.fused_attention_bwd_reference,
+                 "fused_attention_bwd_whole": A.fused_attention_bwd_whole_reference,
+                 "fused_attention_bwd_long": A.fused_attention_bwd_long_reference}[name]
+        want = plain(q, k, v, bias, do, scale)
+        errs = {n: rel_max_abs(a, b) for n, a, b in zip(("dq", "dk", "dv"), got, want)}
+        db = rel_l2(torch, got[3], want[3])
+        equal = all(torch.equal(flat(a), b) for a, b in zip(got[:3], k3b[:3])) \
+            and bool(torch.equal(got[3], k3b[3]))
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        path = A.cuda_bhnd_bwd_kernel_path(q, k, v, bias)
+        say(f"{tag}_check", dtype=str(dt), shape=list(shape), branch=name, launches=launched,
+            rel_max_abs=errs, tol=tol, db_rel_l2=db, db_tol=K2B_DB_REL,
+            equals_k3b_on_transposed=equal, identical_across_launches=same, kernel=path)
+        check(max(errs.values()) <= tol and db <= K2B_DB_REL,
+              f"{tag} {dt} {shape}: {errs}, db {db}")
+        check(equal, f"{tag} {dt} {shape} differs from K3b on the transposed operands")
+        check(same, f"{tag} {dt} {shape}: two launches on the same operands differ")
+        check(launched == 2, f"{tag} {dt} {shape}: {launched} launches under {name} for 2 calls")
+        check(path == ("tiled_mma" if _bf16_at_64(torch, shape, dt) else "tiled_scalar"),
+              f"{tag} {dt} {shape} took the {path} kernels")
+        if first is None:
+            first = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+        del q, k, v, do, bias, got, again, k3b, want
+    torch.cuda.empty_cache()
+
+    B, H, N, D = autograd_shape
+    q, k, v = (torch.randn(B, H, N, D, generator=g).to(torch.bfloat16).to(dev).requires_grad_()
+               for _ in range(3))
+    bias = torch.randn(H, N, N, generator=g).to(dev).requires_grad_()
+    do = torch.randn(B, H, N, D, generator=g).to(torch.bfloat16).to(dev)
+    names = A.fused_attention_route(H, N)
+    before = launch_counts()
+    A.fused_attention(q, k, v, bias, 0.125).backward(do)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    launched = {n: after.get(n, 0) - before.get(n, 0) for n in names}
+    want = A.fused_attention_bwd_reference(q.detach(), k.detach(), v.detach(), bias.detach(),
+                                           do, 0.125)
+    errs = [rel_max_abs(t.grad, w) for t, w in zip((q, k, v), want)]
+    say(f"{tag}_autograd", shape=list(autograd_shape), launches=launched, rel_max_abs=errs,
+        db_rel_l2=rel_l2(torch, bias.grad, want[3]))
+    check(launched == {n: 1 for n in names}, f"autograd through fused_attention: {launched}")
+    check(max(errs) <= K5L_BF16_TOL, f"autograd grads differ from the plain backward: {errs}")
+    del q, k, v, bias, do, want
+    torch.cuda.empty_cache()
+    return first
+
+
+def check_k5d(torch, dev, g):
+    """K5d (N <= 448, not head-blocked-eligible) at the N = 401 finetune's
+    micro-batch and at N = 448 in bf16 (tensor cores), f32 and D = 32 (the
+    scalar kernels); the F3 shape, N = 300 at 12 heads, which K5c's wrapper
+    sends to the same kernels under K5c's counter. Returns the max abs error
+    at (FT_MICRO, 12, 401, 64)."""
+    bf, f32 = torch.bfloat16, torch.float32
+    return _check_k5_bwd(torch, dev, g, "k5d", (
+        ((FT_MICRO, 12, 401, 64), bf), ((2, 12, 448, 64), bf), ((3, 12, 300, 64), bf),
+        ((2, 12, 401, 64), f32), ((2, 12, 401, 32), bf)), (2, 12, 401, 64))
+
+
+def check_k5e(torch, dev, g):
+    """K5e (N > 448) at train_seg's (16, 12, 1025, 64) and at B = 8 in bf16,
+    at the boundary N = 449 and a ragged N = 577 (no multiple of the 64-wide
+    tile or of the reference's 256-row block), f32 and D = 32 (the scalar
+    kernels). Returns the max abs error at (16, 12, 1025, 64)."""
+    bf, f32 = torch.bfloat16, torch.float32
+    return _check_k5_bwd(torch, dev, g, "k5e", (
+        ((16, 12, 1025, 64), bf), ((8, 12, 1025, 64), bf), ((2, 12, 449, 64), bf),
+        ((2, 12, 577, 64), bf), ((1, 12, 1025, 64), f32), ((1, 12, 577, 32), bf)),
+        (2, 12, 1025, 64))
+
+
+def time_k5_long(torch, dev, gpu):
+    """K5b at the seg backbone's (8, 12, 1025, 64), K5d at the N = 401
+    finetune's micro-batch (FT_MICRO, 12, 401, 64) and K5e at train_seg's
+    (16, 12, 1025, 64), bf16: each beside its plain version (in turns), one
+    scaled_dot_product_attention call on the same (B, H, N, D) operands with
+    the bias as its mask (the forward for K5b, the backward through autograd
+    for K5d and K5e, the mask's gradient included), the K3 kernel on the
+    transposed operands, and the bound. Returns {name: (ms, plain_ms,
+    sdpa_ms)}."""
+    import torch.nn.functional as Fn
+
+    from mem_tpu_torch.ops import attention as A
+
+    out = {}
+    for name, (B, N), bwd in (("K5b", (8, 1025), False), ("K5d", (FT_MICRO, 401), True),
+                              ("K5e", (16, 1025), True)):
+        q, k, v, do = (torch.randn(B, 12, N, 64, device=dev, dtype=torch.bfloat16)
+                       for _ in range(4))
+        bias = torch.randn(12, N, N, device=dev)
+        flat = lambda t: t.transpose(1, 2).reshape(B, N, 768).contiguous()  # noqa: E731
+        fq, fk, fv, fdo = flat(q), flat(k), flat(v), flat(do)
+        mask = bias.to(torch.bfloat16)[None].contiguous()
+        if bwd:
+            t_k, t_p = in_turns(
+                torch, lambda: A.fused_attention_bwd_reference(q, k, v, bias, do, 0.125),
+                lambda: A.fused_attention_bwd(q, k, v, bias, do, 0.125), runs=8)
+            t_k3 = time_ms(torch, lambda: A.fused_attention_flat_long_bwd(fq, fk, fv, bias, fdo,
+                                                                          0.125), runs=8)
+            qh, kh, vh, mh = (t.clone().requires_grad_() for t in (q, k, v, mask))
+            o = Fn.scaled_dot_product_attention(qh, kh, vh, attn_mask=mh, scale=0.125)
+            t_lib = time_ms(torch, lambda: torch.autograd.grad(o, (qh, kh, vh, mh), do,
+                                                               retain_graph=True), runs=8)
+            bnd, n_prod = attention_bwd_bound(B, N, 12, 64), 5
+            del qh, kh, vh, mh, o
+        else:
+            t_k, t_p = in_turns(torch, lambda: A.fused_attention_reference(q, k, v, bias, 0.125),
+                                lambda: A.fused_attention(q, k, v, bias, 0.125), runs=10)
+            t_k3 = time_ms(torch, lambda: A.fused_attention_flat_long(fq, fk, fv, bias, 0.125),
+                           runs=10)
+            t_lib = time_ms(torch, lambda: Fn.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, scale=0.125), runs=10)
+            bnd, n_prod = attention_fwd_bound(B, N, 12, 64), 2
+        say(f"time_{name.lower()}", gpu=gpu, batch=B, shape=[12, N, 64], dtype="bfloat16",
+            kernel_ms=t_k, plain_ms=t_p, sdpa_ms=t_lib, k3_transposed_ms=t_k3,
+            bound_ms=bnd[0], bound_by=bnd[1],
+            kernel_tflop_s=n_prod * 2 * B * 12 * N * N * 64 / t_k / 1e9)
+        out[name] = (t_k, t_p, t_lib)
+        del q, k, v, do, bias, fq, fk, fv, fdo, mask
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_train_seg_cli_long_off(torch, data_root, pretrained, out_dir):
+    """train_seg at full width on the card (B=16, bf16) with FLAT_ATTN_LONG =
+    False: 2 iterations, the final evaluation (one batch of 16) and the final
+    checkpoint, then test_seg on that checkpoint under the same toggle. The
+    seg backbone's N = 1025 is not head-blocked-eligible, so the reference's
+    rule sends it to the head-major kernels: K5b 12 times a forward, K5e 12
+    times a train step, no K3f, K3b or K5d; K4 once a batch. Returns the
+    train_seg run's launch counts."""
+    from mem_tpu_torch.cli import test_seg as T
+    from mem_tpu_torch.cli import train_seg as S
+    from mem_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    flags = ["--data_root", data_root, "--pretrained", pretrained, "--output_dir", out_dir,
+             "--max_iters", "2", "--eval_interval", "4", "--save_interval", "4",
+             "--device", "cuda"]
+    t0 = time.perf_counter()
+    with toggles(flat_attn_long=False):
+        reset_launch_counts()                 # just before the main path
+        hist = S.main(flags)
+        counts = launch_counts()              # just after it
+        t1 = time.perf_counter()
+        reset_launch_counts()
+        stats = T.main(["--data_root", data_root, "--checkpoint",
+                        os.path.join(out_dir, "checkpoint-final.pth"), "--device", "cuda"])
+        counts_test = launch_counts()
+    say("train_seg_cli_flat_attn_long_off", model="EvBEiT ViT-B/16 + UPerNet + FCN",
+        tokens=1025, batch=16, dtype="bfloat16", toggles=dict(FLAT_ATTN_LONG=False),
+        train_steps=2, eval_forwards=1, history=hist, launches=counts,
+        test_seg_mIoU=stats["mIoU"], launches_test_seg=counts_test,
+        seconds=[round(t1 - t0, 2), round(time.perf_counter() - t1, 2)])
+    check(counts == {"fused_attention_bwd_long": 24, "fused_attention_long": 36,
+                     "hist_planes_cols_sorted": 3},
+          f"train_seg with FLAT_ATTN_LONG = False launched {counts}")
+    check([h[0] for h in hist] == [0] and all(np.isfinite(h[1]) for h in hist),
+          f"train_seg with FLAT_ATTN_LONG = False: history {hist}")
+    check(np.isfinite(stats["mIoU"]) and 0 <= stats["mIoU"] <= 1
+          and counts_test == {"fused_attention_long": 24, "hist_planes_cols_sorted": 2},
+          f"test_seg with FLAT_ATTN_LONG = False: mIoU {stats['mIoU']}, launches {counts_test}")
+    return counts
+
+
+def run_finetune_n401(torch, data_root, tmp_root):
+    """run_class_finetuning at full width with --input_H / --input_W 320
+    (N = 401 tokens: 12 x 401^2 x 4 B of bias is above the head-blocked
+    budget, N is at most _WHOLE_BWD_MAX_N), seeded weights (no --finetune),
+    bf16, FLAT_ATTN = False, one epoch (4 micro-batches of FT_MICRO) and its
+    evaluation (2 batches). With ENABLED = True the reference's rule takes the
+    kernels: K5b 12 times a micro-batch forward, K5d 12 times a train
+    micro-batch. With ENABLED = False it takes the einsum path at N < 512, as
+    the reference does: no K5 at all. Launch counts exact. Returns the first
+    run's counts."""
+    from mem_tpu_torch.cli import run_class_finetuning as F
+    from mem_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    def flags(out):
+        return ["--config", "configs/ncaltech.conf", "--data_path", data_root,
+                "--output_dir", os.path.join(tmp_root, out), "--nb_classes", "101",
+                "--drop", "0", "--batch_size", str(2 * FT_MICRO), "--update_freq", "2",
+                "--input_H", str(FT_N401_SIZE), "--input_W", str(FT_N401_SIZE),
+                "--mixup_prob", "1.0", "--epochs", "1", "--model_ema", "0",
+                "--warmup_steps", "2", "--num_workers", "4", "--device", "cuda"]
+
+    runs, stamps = {}, [time.perf_counter()]
+    for name, enabled in (("enabled", True), ("einsum", False)):
+        with toggles(flat_attn=False, enabled=enabled):
+            reset_launch_counts()             # just before the main path
+            r = F.main(flags(f"ft_n401_{name}"))
+            runs[name] = (r, launch_counts())  # just after it
+        stamps.append(time.perf_counter())
+    say("finetune_cli_n401", model="ft_vit", embed_dim=768, depth=12, heads=12,
+        img=[FT_N401_SIZE] * 2, tokens=401, classes=101, batch=2 * FT_MICRO, update_freq=2,
+        dtype="bfloat16", toggles=dict(FLAT_ATTN=False, ENABLED=[True, False]),
+        history={n: r["history"] for n, (r, _) in runs.items()},
+        evals={n: r["evals"] for n, (r, _) in runs.items()},
+        launches={n: c for n, (_, c) in runs.items()},
+        seconds=[round(b - a, 2) for a, b in zip(stamps, stamps[1:])])
+    # an epoch: 128 files / (2 x 32) = 2 optimizer steps = 4 micro-batches;
+    # the evaluation: 64 files / 32 = 2 batches
+    check(runs["enabled"][1] == {"hist_planes_cols": 6, "fused_attention_long": 72,
+                                 "fused_attention_bwd_whole": 48},
+          f"the N = 401 finetune run with ENABLED = True launched {runs['enabled'][1]}")
+    check(runs["einsum"][1] == {"hist_planes_cols": 6},
+          f"the N = 401 finetune run with ENABLED = False launched {runs['einsum'][1]}")
+    for n, (r, _) in runs.items():
+        check([h[0] for h in r["history"]] == [0, 1]
+              and all(np.isfinite(h[1]) and np.isfinite(h[2]) for h in r["history"]),
+              f"the N = 401 finetune run ({n}): history {r['history']}")
+        check(len(r["evals"]) == 1 and np.isfinite(r["evals"][0][1]["loss"]),
+              f"the N = 401 finetune run ({n}): evaluations {r['evals']}")
+    return runs["enabled"][1]
 
 
 

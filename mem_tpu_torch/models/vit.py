@@ -7,27 +7,36 @@ after the reference's torch schema (mem_tpu/utils/torch_import.py:122-173),
 so a state_dict from ``export_vit_params`` / ``from_jax_params`` loads with
 ``strict=True``.
 
-Without attention dropout, attention goes through a fused kernel:
-``fused_attention_flat`` (K2f/K2b on the card, forward and backward) for the
-short sequences of classification and pretraining,
-``fused_attention_flat_long`` (K3f/K3b) for the 1025 tokens of the
-segmentation backbone; ``ops.attention.attention_route`` holds the rule
-(vit.py:429-438 in the reference). On the CPU both take their plain
-versions. Two of the reference's module toggles are kept, with its names and
-defaults, as module globals read at call time (the reference has no flag for
-them either; scripts/trace_pretrain.py sets them the same way):
+Attention takes the reference's branches by the reference's rule
+(vit.py:364-380), as its accelerator evaluates it: a fused kernel when the
+module is ``fused``, without attention dropout, at head dims that are a
+multiple of 8 and 8 <= N <= 1056, and when ``ops.attention.ENABLED`` is set,
+N >= 512 or the (H, N, N) bias is head-blocked-eligible; the einsum path
+otherwise (vit.py:505-557). On the CPU the port takes the branch the card
+takes (the reference's CPU skips its kernels below N = 512 to spare
+interpret mode), and the kernels take their plain versions. The fused
+branch is flat -- ``fused_attention_flat`` (K2f/K2b on the card) for short
+sequences, ``fused_attention_flat_long`` (K3f/K3b) for long ones, split by
+``ops.attention.attention_route`` -- when ``FLAT_ATTN`` is set and the shape
+is head-blocked-eligible or ``FLAT_ATTN_LONG`` is set, and head-major
+otherwise. Three of the reference's module toggles are kept, with its names
+and defaults, as module globals read at call time (the reference has no
+flag for them either; scripts/trace_pretrain.py sets them the same way):
 
 - ``FLAT_ATTN = False`` projects q, k, v straight into (B, H, N, D) and
-  calls ``ops.attention.fused_attention`` (K5a/K5c), with the output
-  projection contracting (head, head_dim) as the reference's ``_ProjOut``
-  does (vit.py:461-487);
+  calls ``ops.attention.fused_attention`` (K5a/K5c, or K5b and K5d/K5e
+  where the bias is not head-blocked-eligible), with the output projection
+  contracting (head, head_dim) as the reference's ``_ProjOut`` does
+  (vit.py:461-487);
+- ``FLAT_ATTN_LONG = False`` sends the shapes that are not
+  head-blocked-eligible (the segmentation backbone's 1025 tokens) to that
+  head-major path too (vit.py:47-50, 379-380);
 - ``FUSED_MLP = True`` sends every dropout-free ``Mlp`` through
   ``ops.mlp.mlp_fused`` (K6f/K6b) (vit.py:269-270).
 
-With ``attn_dropout > 0`` the reference leaves the fused kernel for an
-einsum path (vit.py:374, :505-557), and so does the port. In training mode
-(``module.train()``) the attention / proj / MLP dropout and the per-sample
-drop-path of the reference run; their random bits come from an explicit
+``ops.attention.ENABLED`` is the reference's fourth switch (attention.py:39),
+read there. In training mode (``module.train()``) the attention / proj / MLP
+dropout and the per-sample drop-path of the reference run; their random bits come from an explicit
 ``torch.Generator`` on the activations' device that the caller passes to
 ``forward`` (the train step seeds one per step from (seed, step)), never
 from torch's global generator. The reference's INT8 and XLA scheduling
@@ -42,13 +51,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mem_tpu_torch.ops import attention as _fa
 from mem_tpu_torch.ops.attention import (attention_route, fused_attention,
                                          fused_attention_flat, fused_attention_flat_long)
 from mem_tpu_torch.ops.mlp import mlp_fused
 
-# The reference's toggles (mem_tpu/models/vit.py:57, :71), read at call time.
-FLAT_ATTN = True     # False: q/k/v as (B, H, N, D) and kernels K5a/K5c
-FUSED_MLP = False    # True: dropout-free MLPs through kernels K6f/K6b
+# The reference's toggles (mem_tpu/models/vit.py:50, :57, :71), read at call time.
+FLAT_ATTN_LONG = True  # False: shapes not head-blocked-eligible as with FLAT_ATTN = False
+FLAT_ATTN = True       # False: q/k/v as (B, H, N, D) and kernels K5a-K5e
+FUSED_MLP = False      # True: dropout-free MLPs through kernels K6f/K6b
 
 
 def trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator,
@@ -217,18 +228,21 @@ class Mlp(nn.Module):
 class Attention(nn.Module):
     """Multi-head attention with BEiT's decomposed qkv bias (q and v learn a
     bias, k's is fixed zero) and an optional per-block relative-position
-    bias. Three paths, as the reference (vit.py:364-557): flat (the default:
-    three products against slices of the fused qkv weight, then kernel K2, or
-    K3 at long N, on (B, N, H*D)), head-major with ``FLAT_ATTN = False``
-    (products straight into (B, H, N, D), kernel K5), and, with attention
-    dropout, plain einsums."""
+    bias. Three paths, as the reference (vit.py:364-557): flat (three
+    products against slices of the fused qkv weight, then kernel K2, or K3 at
+    long N, on (B, N, H*D)), head-major (products straight into (B, H, N,
+    D), kernel K5) and plain einsums; the module docstring has the rule.
+    ``fused=False`` keeps the module on the einsum path, as the reference's
+    argument of that name."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
                  qk_scale: float | None = None, window_size=None,
                  attn_head_dim: int | None = None, proj_dropout: float = 0.0,
-                 attn_dropout: float = 0.0, dtype=torch.float32, device=None):
+                 attn_dropout: float = 0.0, dtype=torch.float32, device=None,
+                 fused: bool = True):
         super().__init__()
         self.num_heads = num_heads
+        self.fused = fused
         self.proj_dropout = proj_dropout
         self.attn_dropout = attn_dropout
         self.dtype = dtype
@@ -290,8 +304,10 @@ class Attention(nn.Module):
         return torch.einsum("bhnd,ohd->bno", out, wp) + self.proj.bias.to(self.dtype)
 
     def _forward_einsum(self, x, bias, generator):
-        """vit.py:505-557, the path attention dropout takes: f32 scores from
-        q * scale and k, + bias, f32 softmax, dropout, probabilities in the
+        """vit.py:505-557, the path the reference takes off its kernels
+        (attention dropout, a head dim that is no multiple of 8, N < 8 or
+        N > 1056, ``fused=False``): f32 scores from q * scale rounded in the
+        compute dtype and k, + bias, f32 softmax, dropout, probabilities in the
         compute dtype times v."""
         B, N, _ = x.shape
         H = self.num_heads
@@ -300,22 +316,30 @@ class Attention(nn.Module):
         if bias is not None:
             attn = attn + bias
         attn = torch.softmax(attn, dim=-1)
-        if self.training:
+        if self.training and self.attn_dropout > 0:
             attn = dropout(attn, self.attn_dropout,
                            _need_generator(generator, "attention dropout"))
         out = torch.einsum("bhnm,bmhd->bnhd", attn.to(self.dtype), v)
         return linear(out.reshape(B, N, self.all_head_dim), self.proj, self.dtype)
 
+    def use_fused(self, N: int) -> bool:
+        """The reference's ``use_fused`` (vit.py:364-377) with its
+        accelerator's answer for ``_hb_eligible`` shapes (``is_cpu`` false)."""
+        H = self.num_heads
+        return (self.fused and (_fa.ENABLED or N >= 512 or _fa._hb_eligible(H, N))
+                and self.attn_dropout == 0.0 and (self.all_head_dim // H) % 8 == 0
+                and 8 <= N <= 1056)
+
     def forward(self, x, rel_pos_bias=None, generator=None):
         N = x.shape[1]
         bias = self._bias(rel_pos_bias)
-        if self.attn_dropout > 0:
+        if not self.use_fused(N):
             out = self._forward_einsum(x, None if bias is None else bias.float(), generator)
         else:
             if bias is None:
                 bias = torch.zeros(self.num_heads, N, N, device=x.device)
             bias = bias.float().contiguous()
-            if FLAT_ATTN:
+            if FLAT_ATTN and (_fa._hb_eligible(self.num_heads, N) or FLAT_ATTN_LONG):
                 attend = (fused_attention_flat if attention_route(N) == "flat"
                           else fused_attention_flat_long)
                 q, k, v = self._qkv_flat(x)

@@ -1,7 +1,7 @@
 """Fused attention: kernels K2f (forward), K2b (backward), K3f (forward at
-long N) and K3b (backward at long N) on flat (B, N, H*D) layouts, K5a
-(forward) and K5c (backward) on head-major (B, H, N, D) layouts, and their
-plain versions.
+long N) and K3b (backward at long N) on flat (B, N, H*D) layouts, K5a / K5b
+(forward) and K5c / K5d / K5e (backward) on head-major (B, H, N, D) layouts,
+and their plain versions.
 
 Port of mem_tpu/ops/attention.py ``fused_attention_flat`` and its VJP: per
 head, ``softmax(q k^T * scale + bias_h) v`` with q/k/v flat (B, N, H*D) and
@@ -24,10 +24,14 @@ sums the bias gradient in batch order. :func:`attention_route` is the rule
 that picks between the two.
 
 ``fused_attention`` is the reference's ``fused_attention`` on (B, H, N, D),
-the layout its ``FLAT_ATTN = False`` branch produces: K5a forward and K5c
-backward on the card (csrc/attention_fwd_bhnd.cu, attention_bwd_bhnd.cu:
-K2f's and K2b's kernels with head-major addressing), for the shapes the
-reference's head-blocked kernels take (``_hb_eligible``); other shapes raise.
+the layout its head-major branch produces (``FLAT_ATTN = False``, or
+``FLAT_ATTN_LONG = False`` at long N), with the reference's routing rule
+(:func:`fused_attention_route`): for the shapes its head-blocked kernels take
+(``_hb_eligible``) K5a forward and K5c backward (csrc/attention_fwd_bhnd.cu,
+attention_bwd_bhnd.cu: K2f's and K2b's kernels with head-major addressing);
+for the others K5b forward and K5d (N <= ``_WHOLE_BWD_MAX_N``) or K5e
+backward (csrc/attention_long_fwd_bhnd.cu, attention_long_bwd_bhnd.cu: K3f's
+and K3b's key-tiled kernels with head-major addressing).
 """
 from __future__ import annotations
 
@@ -200,26 +204,34 @@ def fused_attention_flat_long_reference(q, k, v, bias, scale: float):
     return fused_attention_flat_reference(q, k, v, bias, scale)
 
 
+def _long_fwd(name, entry, q, k, v, bias, scale, B, N, H, D):
+    """Launch K3f's key-tiled kernels through the C entry point ``entry``
+    (the flat or the head-major one; checked operands in its layout) and
+    count the launch under ``name``."""
+    from mem_tpu_torch.kernels import build
+
+    lib = build.library()
+    if D > lib.mem_attention_long_fwd_max_d():
+        raise ValueError(f"{name}: head dim {D} above the "
+                         f"{lib.mem_attention_long_fwd_max_d()} the kernel takes")
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = getattr(lib, entry)(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                             out.data_ptr(), B, N, H, D, float(scale),
+                             int(q.dtype == torch.bfloat16), stream)
+    build.check(name, rc)
+    count_launch(name)
+    return out
+
+
 def _forward_long(q, k, v, bias, scale: float):
     """(B, N, H*D) q/k/v + (H, N, N) f32 bias -> (B, N, H*D) in q's dtype.
     CPU tensors take the plain version; CUDA tensors launch K3f or raise."""
     if q.device.type == "cpu":
         return fused_attention_flat_long_reference(q, k, v, bias, scale)
-    B, N, H, D = _check_cuda_operands("fused_attention_flat_long", (q, k, v, bias), q, bias)
-    from mem_tpu_torch.kernels import build
-
-    lib = build.library()
-    if D > lib.mem_attention_long_fwd_max_d():
-        raise ValueError(f"fused_attention_flat_long: head dim {D} above the "
-                         f"{lib.mem_attention_long_fwd_max_d()} the kernel takes")
-    out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.mem_attention_long_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                    bias.data_ptr(), out.data_ptr(), B, N, H, D,
-                                    float(scale), int(q.dtype == torch.bfloat16), stream)
-    build.check("fused_attention_flat_long", rc)
-    count_launch("fused_attention_flat_long")
-    return out
+    name = "fused_attention_flat_long"
+    B, N, H, D = _check_cuda_operands(name, (q, k, v, bias), q, bias)
+    return _long_fwd(name, "mem_attention_long_fwd", q, k, v, bias, scale, B, N, H, D)
 
 
 def fused_attention_flat_long_bwd_reference(q, k, v, bias, do, scale: float):
@@ -248,6 +260,13 @@ def fused_attention_flat_long_bwd(q, k, v, bias, do, scale: float):
         return fused_attention_flat_long_bwd_reference(q, k, v, bias, do, scale)
     name = "fused_attention_flat_long_bwd"
     B, N, H, D = _check_cuda_operands(name, (q, k, v, bias, do), q, bias)
+    return _long_bwd(name, "mem_attention_long_bwd", q, k, v, bias, do, scale, B, N, H, D)
+
+
+def _long_bwd(name, entry, q, k, v, bias, do, scale, B, N, H, D):
+    """Launch K3b's kernels through the C entry point ``entry`` (the flat or
+    a head-major one; checked operands in its layout) and count the launch
+    under ``name``: (dq, dk, dv) shaped and typed as q/k/v, db (H, N, N) f32."""
     from mem_tpu_torch.kernels import build
 
     lib = build.library()
@@ -270,7 +289,7 @@ def fused_attention_flat_long_bwd(q, k, v, bias, do, scale: float):
         _smem_check(name, lib.mem_attention_long_bwd_scalar_smem(N, D), N, D)
         pc_ws = torch.empty(B, H, N, N, dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.mem_attention_long_bwd(
+    rc = getattr(lib, entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), do.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), db.data_ptr(), ds_ws.data_ptr(),
         None if pc_ws is None else pc_ws.data_ptr(),
@@ -304,26 +323,39 @@ def fused_attention_flat_long(q, k, v, bias, scale: float):
 
 
 # ---------------------------------------------------------------------------
-# head-major (B, H, N, D) layouts: K5a forward, K5c backward
+# head-major (B, H, N, D) layouts: K5a / K5b forward, K5c / K5d / K5e backward
 # ---------------------------------------------------------------------------
 
-# The reference's head-blocked kernels take a shape when the whole (H, N, N)
-# f32 bias fits their on-chip budget (attention.py:47-51: N <= 320 at 12
-# heads); the port keeps the rule, so both packages take the same branch.
+# The reference's routing constants (attention.py:39, 47, 506, 512) with its
+# values, module globals read at call time (tests set them on both packages
+# at once). ENABLED is the reference's global switch for its fused kernels:
+# models.vit.Attention reads it. The head-blocked kernels take a shape when
+# the whole (H, N, N) f32 bias fits their on-chip budget (N <= 330 at 12
+# heads); the backward of the others works on the whole (N, N) matrix up to
+# _WHOLE_BWD_MAX_N and in blocks of QBLK query rows above it. The port's
+# kernels for those shapes tile the keys by 64 and pad nothing, so QBLK only
+# names the reference's blocks (see fused_attention_bwd_long_reference).
+ENABLED = False
 _HB_MAX_BIAS_BYTES = 5 * 1024 * 1024
+QBLK = 256
+_WHOLE_BWD_MAX_N = 448
 
 
 def _hb_eligible(H: int, N: int) -> bool:
     return H * N * N * 4 <= _HB_MAX_BIAS_BYTES
 
 
-def _require_hb(name, H, N):
-    if not _hb_eligible(H, N):
-        raise NotImplementedError(
-            f"{name}: H={H}, N={N} is not head-blocked-eligible (the (H, N, N) f32 bias is "
-            f"above {_HB_MAX_BIAS_BYTES} B); the reference's kernels for such shapes, K5b "
-            f"(_fwd_kernel), K5d (_bwd_kernel) and K5e (_bwd_block_merged_kernel), are not "
-            f"ported yet: they come with slice 6 of the port (ROADMAP.md queue 2)")
+def fused_attention_route(H: int, N: int) -> tuple:
+    """The branch the reference's ``_fa_fwd`` / ``_fa_bwd`` take at (H, N),
+    as the launch-counter names of the port's kernels (forward, backward):
+    ("fused_attention", "fused_attention_bwd") -- K5a, K5c -- for the
+    head-blocked-eligible shapes; otherwise "fused_attention_long" (K5b)
+    forward and "fused_attention_bwd_whole" (K5d) at N <=
+    ``_WHOLE_BWD_MAX_N`` or "fused_attention_bwd_long" (K5e) backward."""
+    if _hb_eligible(H, N):
+        return "fused_attention", "fused_attention_bwd"
+    return "fused_attention_long", ("fused_attention_bwd_whole" if N <= _WHOLE_BWD_MAX_N
+                                    else "fused_attention_bwd_long")
 
 
 def fused_attention_reference(q, k, v, bias, scale: float):
@@ -356,41 +388,111 @@ def fused_attention_bwd_reference(q, k, v, bias, do, scale: float):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), ds.sum(dim=0)
 
 
+def fused_attention_long_reference(q, k, v, bias, scale: float):
+    """Plain version of K5b: the function of :func:`fused_attention_reference`
+    in the same order of roundings (attention.py:413-422 is :57-67 for one
+    (b, h) at a time)."""
+    return fused_attention_reference(q, k, v, bias, scale)
+
+
+def fused_attention_bwd_whole_reference(q, k, v, bias, do, scale: float):
+    """Plain version of K5d: the function of
+    :func:`fused_attention_bwd_reference` in the same order of roundings
+    (attention.py:425-456 is :78-102 for one (h, b) at a time, db summed over
+    the batch in f32)."""
+    return fused_attention_bwd_reference(q, k, v, bias, do, scale)
+
+
+def fused_attention_bwd_long_reference(q, k, v, bias, do, scale: float):
+    """Plain version of K5e: the function and roundings of
+    :func:`fused_attention_bwd_reference` (attention.py:532-556: p recomputed
+    in f32, p cast to do's dtype for dv, ds = p (dp - rowsum(dp p)) in f32,
+    ds cast to q's dtype before the dq and dk products, db summed over the
+    batch in f32).
+
+    Any N is taken as it is. What the TPU kernel does around that arithmetic
+    is not reproduced, as for K3b (:func:`fused_attention_flat_long_bwd_reference`):
+    it pads N to blocks of ``QBLK`` = 256 query rows and masks the keys >= N,
+    and it rounds each block's dk/dv partial to the operand dtype before the
+    partials are summed in f32 (attention.py:645-646); here dk and dv are
+    summed in f32 over all rows and rounded once. With bf16 operands the two
+    differ by about one bf16 rounding of a partial, inside the tolerance the
+    bf16 comparison is held to; in f32 the roundings are no-ops."""
+    return fused_attention_bwd_reference(q, k, v, bias, do, scale)
+
+
+def _bhnd_path(lib, name, q, k, v, do, N, D, is_bf16) -> str:
+    """Which kernels a head-major launch of the branch ``name`` takes:
+    "mma" / "scalar" (K2's bodies) or "tiled_mma" / "tiled_scalar" (K3's
+    key-tiled bodies). K5b, K5d and K5e take K3's. The head-blocked branch
+    (K5a, K5c) takes K2's, except where K2's tensor-core kernel has no
+    instantiation (bf16 at D = 64 above FLAT_MAX_N keys) and K3's runs on
+    tensor cores: there it takes K3's, as the flat route does. ``do`` is None
+    for a forward; outputs are allocated like the operands, so their
+    alignment is the operands'."""
+    p = [q.data_ptr(), k.data_ptr(), v.data_ptr()]
+    if do is None:
+        ptrs = p + [q.data_ptr()]
+        tiled_mma = lib.mem_attention_long_fwd_uses_mma(*ptrs, D, is_bf16)
+        k2_mma = name == "fused_attention" and lib.mem_attention_fwd_flat_uses_mma(
+            *ptrs, N, D, is_bf16)
+    else:
+        ptrs = p + [do.data_ptr()] + p
+        tiled_mma = lib.mem_attention_long_bwd_uses_mma(*ptrs, D, is_bf16)
+        k2_mma = name == "fused_attention_bwd" and lib.mem_attention_bwd_flat_uses_mma(
+            *ptrs, N, D, is_bf16)
+    if name in ("fused_attention", "fused_attention_bwd") and (k2_mma or not tiled_mma):
+        return "mma" if k2_mma else "scalar"
+    return "tiled_mma" if tiled_mma else "tiled_scalar"
+
+
 def _forward_bhnd(q, k, v, bias, scale: float):
     """(B, H, N, D) q/k/v + (H, N, N) f32 bias -> (B, H, N, D) in q's dtype.
-    CPU tensors take the plain version; CUDA tensors launch K5a or raise."""
-    _require_hb("fused_attention", q.shape[1], q.shape[2])
+    CPU tensors take the plain version of the reference's branch; CUDA
+    tensors launch K5a or K5b (:func:`fused_attention_route`) or raise."""
+    name = fused_attention_route(q.shape[1], q.shape[2])[0]
     if q.device.type == "cpu":
-        return fused_attention_reference(q, k, v, bias, scale)
-    B, N, H, D = _check_cuda_operands("fused_attention", (q, k, v, bias), q, bias, bhnd=True)
+        plain = fused_attention_reference if name == "fused_attention" \
+            else fused_attention_long_reference
+        return plain(q, k, v, bias, scale)
+    B, N, H, D = _check_cuda_operands(name, (q, k, v, bias), q, bias, bhnd=True)
     from mem_tpu_torch.kernels import build
 
     lib = build.library()
     is_bf16 = int(q.dtype == torch.bfloat16)
-    _smem_check("fused_attention", lib.mem_attention_fwd_flat_smem(N, D, is_bf16), N, D)
+    if _bhnd_path(lib, name, q, k, v, None, N, D, is_bf16).startswith("tiled"):
+        return _long_fwd(name, "mem_attention_long_fwd_bhnd", q, k, v, bias, scale, B, N, H, D)
+    _smem_check(name, lib.mem_attention_fwd_flat_smem(N, D, is_bf16), N, D)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.mem_attention_fwd_bhnd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                     bias.data_ptr(), out.data_ptr(),
                                     B, N, H, D, float(scale), is_bf16, stream)
-    build.check("fused_attention", rc)
-    count_launch("fused_attention")
+    build.check(name, rc)
+    count_launch(name)
     return out
 
 
 def fused_attention_bwd(q, k, v, bias, do, scale: float):
     """The VJP of :func:`fused_attention`: (dq, dk, dv) shaped and typed as
     q/k/v and db (H, N, N) f32 summed over the batch. CPU tensors take the
-    plain version; CUDA tensors launch K5c or raise."""
-    _require_hb("fused_attention_bwd", q.shape[1], q.shape[2])
+    plain version of the reference's branch; CUDA tensors launch K5c, K5d or
+    K5e (:func:`fused_attention_route`) or raise."""
+    name = fused_attention_route(q.shape[1], q.shape[2])[1]
     if q.device.type == "cpu":
-        return fused_attention_bwd_reference(q, k, v, bias, do, scale)
-    name = "fused_attention_bwd"
+        plain = {"fused_attention_bwd": fused_attention_bwd_reference,
+                 "fused_attention_bwd_whole": fused_attention_bwd_whole_reference,
+                 "fused_attention_bwd_long": fused_attention_bwd_long_reference}[name]
+        return plain(q, k, v, bias, do, scale)
     B, N, H, D = _check_cuda_operands(name, (q, k, v, bias, do), q, bias, bhnd=True)
     from mem_tpu_torch.kernels import build
 
     lib = build.library()
     is_bf16 = int(q.dtype == torch.bfloat16)
+    if _bhnd_path(lib, name, q, k, v, do, N, D, is_bf16).startswith("tiled"):
+        entry = ("mem_attention_bwd_blocked_bhnd" if name == "fused_attention_bwd_long"
+                 else "mem_attention_bwd_whole_bhnd")
+        return _long_bwd(name, entry, q, k, v, bias, do, scale, B, N, H, D)
     _smem_check(name, lib.mem_attention_bwd_flat_smem(N, D, is_bf16), N, D)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     db = torch.empty(H, N, N, dtype=torch.float32, device=q.device)
@@ -423,10 +525,10 @@ class _FusedAttention(torch.autograd.Function):
 def fused_attention(q, k, v, bias, scale: float):
     """(B, H, N, D) q/k/v + (H, N, N) f32 bias -> (B, H, N, D) in q's dtype,
     differentiable in q, k, v and bias (mem_tpu/ops/attention.py
-    ``fused_attention``). Head-blocked-eligible shapes only: others raise
-    ``NotImplementedError``, with no route to the flat kernels. CPU tensors
-    take the plain versions; CUDA tensors launch K5a forward and K5c
-    backward, or raise."""
+    ``fused_attention``), at any (H, N), routed as the reference routes
+    (:func:`fused_attention_route`). CPU tensors take the plain versions;
+    CUDA tensors launch K5a or K5b forward and K5c, K5d or K5e backward, or
+    raise."""
     return _FusedAttention.apply(q, k, v, bias, float(scale))
 
 
@@ -434,13 +536,15 @@ def attention_route(N: int) -> str:
     """"flat" (K2f/K2b) or "long" (K3f/K3b) for a sequence of N tokens.
 
     The reference routes on whether the whole (H, N, N) f32 bias fits its
-    kernel's on-chip memory (``_hb_eligible``, attention.py:50: N <= 320 at
+    kernel's on-chip memory (``_hb_eligible``, attention.py:50: N <= 330 at
     12 heads). The card's limit is a different one: K2f stages a head's
     whole K and V in one block's shared memory and is instantiated up to
     FLAT_MAX_N keys, which covers the 197 tokens of classification and
     pretraining; the 1025 tokens of the segmentation backbone go to the
     key-tiled K3f and K3b. The head count, which sizes the reference's bias, plays
-    no part here."""
+    no part here. Under ``FLAT_ATTN = False`` the head-major wrappers run
+    tensor cores at those N as well: above FLAT_MAX_N keys K5a and K5c launch
+    K3's key-tiled bodies for bf16 at head dim 64 (:func:`_bhnd_path`)."""
     return "flat" if N <= FLAT_MAX_N else "long"
 
 
@@ -489,3 +593,24 @@ def cuda_long_bwd_kernel_path(q, k, v, bias) -> str:
     mma = build.library().mem_attention_long_bwd_uses_mma(
         *ptrs, D, int(q.dtype == torch.bfloat16))
     return "mma" if mma else "scalar"
+
+
+def cuda_bhnd_kernel_path(q, k, v, bias) -> str:
+    """Which CUDA kernel a :func:`fused_attention` forward launch on these
+    (B, H, N, D) operands takes: "mma" / "scalar" (K2's bodies) or
+    "tiled_mma" / "tiled_scalar" (K3's)."""
+    from mem_tpu_torch.kernels import build
+
+    B, H, N, D = q.shape
+    return _bhnd_path(build.library(), fused_attention_route(H, N)[0], q, k, v, None, N, D,
+                      int(q.dtype == torch.bfloat16))
+
+
+def cuda_bhnd_bwd_kernel_path(q, k, v, bias) -> str:
+    """Which CUDA kernels a :func:`fused_attention_bwd` launch on these
+    (B, H, N, D) operands takes, as :func:`cuda_bhnd_kernel_path`."""
+    from mem_tpu_torch.kernels import build
+
+    B, H, N, D = q.shape
+    return _bhnd_path(build.library(), fused_attention_route(H, N)[1], q, k, v, q, N, D,
+                      int(q.dtype == torch.bfloat16))

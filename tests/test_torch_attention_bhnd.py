@@ -1,9 +1,10 @@
 """The head-major attention of the port (ops/attention.py ``fused_attention``,
-kernels K5a/K5c) held against the reference's ``fused_attention`` on
-(B, H, N, D), whose head-blocked Pallas kernels run in interpret mode: the
-plain versions (the CPU path, and what the card comparisons use) against
-the kernel's forward and its VJP, the routing rule, and the refusal of
-shapes whose kernels are not ported."""
+kernels K5a-K5e) held against the reference's ``fused_attention`` on
+(B, H, N, D), whose Pallas kernels run in interpret mode: the plain versions
+(the CPU path, and what the card comparisons use) against the kernels'
+forward and their VJP on every branch -- head-blocked (K5a/K5c), per
+(b, h) (K5b), whole-matrix backward (K5d) and row-blocked backward (K5e) --
+and the head-blocked-eligibility rule."""
 import numpy as np
 import pytest
 import torch
@@ -77,19 +78,6 @@ def test_routing_rule_is_the_reference_s(H, N):
     assert A._HB_MAX_BIAS_BYTES == jax_attention._HB_MAX_BIAS_BYTES
 
 
-@pytest.mark.parametrize("H,N", [(12, 1025), (12, 400)])
-def test_shapes_that_are_not_head_blocked_raise(H, N):
-    """N = 1025 with ``FLAT_ATTN_LONG = False`` and 320 < N <= 448 reach the
-    reference's K5b/K5d/K5e; the port has not ported those and takes no silent
-    route to the flat kernels."""
-    q = torch.zeros(1, H, N, 8)
-    bias = torch.zeros(H, N, N)
-    with pytest.raises(NotImplementedError, match="K5b.*K5d.*K5e.*slice 6"):
-        A.fused_attention(q, q, q, bias, 1.0)
-    with pytest.raises(NotImplementedError, match="K5b"):
-        A.fused_attention_bwd(q, q, q, bias, q, 1.0)
-
-
 def test_wrappers_never_take_the_plain_version_off_the_cpu():
     q = torch.empty(1, 2, 10, 8, device="meta")
     bias = torch.empty(2, 10, 10, device="meta")
@@ -97,3 +85,118 @@ def test_wrappers_never_take_the_plain_version_off_the_cpu():
         A.fused_attention(q, q, q, bias, 1.0)
     with pytest.raises(ValueError, match="CUDA device"):
         A.fused_attention_bwd(q, q, q, bias, q, 1.0)
+
+
+@pytest.mark.parametrize("H,N", [(12, 401), (12, 1025)], ids=["k5b_k5d", "k5b_k5e"])
+def test_ineligible_wrappers_never_take_the_plain_version_off_the_cpu(H, N):
+    q = torch.empty(1, H, N, 8, device="meta")
+    bias = torch.empty(H, N, N, device="meta")
+    with pytest.raises(ValueError, match="CUDA device"):
+        A.fused_attention(q, q, q, bias, 1.0)
+    with pytest.raises(ValueError, match="CUDA device"):
+        A.fused_attention_bwd(q, q, q, bias, q, 1.0)
+
+
+# -- the branches of shapes that are not head-blocked-eligible ------------------
+
+F32_TOL = 1e-5
+
+
+def _jax_vjp(q, k, v, bias, do, scale):
+    _, vjp = jax.vjp(lambda *a: jax_attention.fused_attention(*a, scale, True),
+                     *(jnp.asarray(a) for a in (q, k, v, bias)))
+    return [np.asarray(g.astype(jnp.float32)) for g in vjp(jnp.asarray(do))]
+
+
+# (B, H, N, D), the head-blocked budget patched to 0 on both sides or not, and
+# the branch: 32 heads at N = 203 are ineligible as they are (6.3 MB of bias);
+# N = 449 is the first K5e N, 520 the shape tests/test_attention_kernel.py uses
+_INELIGIBLE = {"n203": ((2, 32, 203, 8), False, "fused_attention_bwd_whole"),
+               "n21": ((2, 3, 21, 8), True, "fused_attention_bwd_whole"),
+               "n449": ((1, 2, 449, 8), True, "fused_attention_bwd_long"),
+               "n520": ((1, 2, 520, 8), True, "fused_attention_bwd_long")}
+
+
+@pytest.mark.parametrize("case", sorted(_INELIGIBLE))
+def test_ineligible_branches_match_pallas_kernels(rng, monkeypatch, case):
+    """K5b's plain version against ``_fwd_kernel`` and K5d's / K5e's against
+    the VJP through ``_bwd_kernel`` / ``_bwd_block_merged_kernel`` (N padded
+    to 256-row blocks there, not here), f32: each within 1e-5 of its own max
+    abs; on CPU tensors the wrapper and autograd take exactly the plain
+    version of the branch."""
+    shape, patch, bwd = _INELIGIBLE[case]
+    if patch:
+        monkeypatch.setattr(jax_attention, "_HB_MAX_BIAS_BYTES", 0)
+        monkeypatch.setattr(A, "_HB_MAX_BIAS_BYTES", 0)
+    H, N = shape[1:3]
+    assert A.fused_attention_route(H, N) == ("fused_attention_long", bwd)
+    q, k, v, bias, do, scale = _operands(rng, shape)
+    want = np.asarray(jax_attention.fused_attention(*(jnp.asarray(a) for a in (q, k, v, bias)),
+                                                    scale, True))
+    tq, tk, tv, tb, tdo = (torch.from_numpy(a) for a in (q, k, v, bias, do))
+    got = A.fused_attention_long_reference(tq, tk, tv, tb, scale)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=F32_TOL * np.abs(want).max())
+    plain_bwd = getattr(A, bwd + "_reference")
+    gwant = _jax_vjp(q, k, v, bias, do, scale)
+    ggot = plain_bwd(tq, tk, tv, tb, tdo, scale)
+    for name, g, w in zip(("dq", "dk", "dv", "db"), ggot, gwant):
+        assert tuple(g.shape) == w.shape and g.dtype == torch.float32, name
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=F32_TOL * np.abs(w).max(),
+                                   err_msg=name)
+    ts = [t.clone().requires_grad_() for t in (tq, tk, tv, tb)]
+    out = A.fused_attention(*ts, scale)
+    assert torch.equal(out, got)
+    out.backward(tdo)
+    for t, g in zip(ts, ggot):
+        assert torch.equal(t.grad, g)
+
+
+@pytest.mark.parametrize("kernel", ["K5b", "K5d", "K5e"])
+def test_ineligible_branches_bf16_match_pallas_kernels(rng, monkeypatch, kernel):
+    """bf16 operands, the head-blocked budget at 0 on both sides (and for
+    K5e ``_WHOLE_BWD_MAX_N`` at 8, so N = 70 pads to one 256-row block in
+    the reference): K5b's output within 1e-2 of the Pallas kernel's (p and o
+    each rounded to bf16, |o| <= 2); K5d's / K5e's dq, dk, dv in bf16 within
+    2e-2 of the kernel's max abs (both round p, ds and the outputs to bf16;
+    K5e's reference also rounds each block's dk/dv partial, which the port
+    does not) and db within 1e-2 relative L2 (bf16 products under f32 sums
+    taken in another order), as test_torch_attention_long holds K3b."""
+    for mod in (jax_attention, A):
+        monkeypatch.setattr(mod, "_HB_MAX_BIAS_BYTES", 0)
+        if kernel == "K5e":
+            monkeypatch.setattr(mod, "_WHOLE_BWD_MAX_N", 8)
+    q, k, v, bias, do, _ = _operands(rng, (2, 2, 70, 16))
+    bf = lambda t: jnp.asarray(t).astype(jnp.bfloat16)  # noqa: E731
+    tb16 = lambda t: torch.from_numpy(t).to(torch.bfloat16)  # noqa: E731
+    if kernel == "K5b":
+        want = np.asarray(jax_attention.fused_attention(bf(q), bf(k), bf(v), jnp.asarray(bias),
+                                                        0.25, True).astype(jnp.float32))
+        got = A.fused_attention(tb16(q), tb16(k), tb16(v), torch.from_numpy(bias), 0.25)
+        assert got.dtype == torch.bfloat16
+        assert np.abs(got.float().numpy() - want).max() <= 1e-2
+        return
+    name = "fused_attention_bwd_long" if kernel == "K5e" else "fused_attention_bwd_whole"
+    assert A.fused_attention_route(2, 70)[1] == name
+    _, vjp = jax.vjp(lambda q, k, v, b: jax_attention.fused_attention(q, k, v, b, 0.25, True),
+                     bf(q), bf(k), bf(v), jnp.asarray(bias))
+    want = [np.asarray(g.astype(jnp.float32)) for g in vjp(bf(do))]
+    got = A.fused_attention_bwd(tb16(q), tb16(k), tb16(v), torch.from_numpy(bias), tb16(do), 0.25)
+    for n, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16, n
+        assert np.abs(g.float().numpy() - w).max() <= 2e-2 * np.abs(w).max(), n
+    assert got[3].dtype == torch.float32
+    assert np.linalg.norm(got[3].numpy() - want[3]) <= 1e-2 * np.linalg.norm(want[3])
+
+
+def test_plain_versions_of_the_branches_are_one_function(rng):
+    """K5b / K5d / K5e compute K5a / K5c's function in the same roundings
+    (bf16 here): their plain versions agree bit for bit."""
+    q, k, v, bias, do, scale = _operands(rng, (2, 3, 21, 8))
+    q, k, v, do = (torch.from_numpy(a).bfloat16() for a in (q, k, v, do))
+    bias = torch.from_numpy(bias)
+    assert torch.equal(A.fused_attention_long_reference(q, k, v, bias, scale),
+                       A.fused_attention_reference(q, k, v, bias, scale))
+    want = A.fused_attention_bwd_reference(q, k, v, bias, do, scale)
+    for fn in (A.fused_attention_bwd_whole_reference, A.fused_attention_bwd_long_reference):
+        for g, w in zip(fn(q, k, v, bias, do, scale), want):
+            assert torch.equal(g, w)
