@@ -6,8 +6,9 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from csrc/ and checks each against its
-plain PyTorch version on the card. It drives the five ported paths, each
-with the launch counts set to 0 just before it and read just after:
+plain PyTorch version on the card. It drives the five ported paths and the
+two experiment tools, each with the launch counts set to 0 just before it and
+read just after:
 
 - the served classification path: the HTTP server of mem_tpu_torch.cli.serve,
   ViT-B/16 ft_vit at full width with weights drawn from a seed; it checks
@@ -44,12 +45,19 @@ with the launch counts set to 0 just before it and read just after:
   default one. Then one epoch at --input_H / --input_W 320 (N = 401, not
   head-blocked-eligible) from seeded weights with FLAT_ATTN = False:
   with the reference's ENABLED = True, K5b 12 times a micro-batch and K5d 12
-  times a train micro-batch; with ENABLED = False the einsum path, no K5.
+  times a train micro-batch; with ENABLED = False the einsum path, no K5;
+- the experiment tools: mem_tpu_torch.tools.exp_voxelize.main(["all"]) (the
+  one-hot contraction kernels X1a, X1b, X1c at the reference's seg and cls
+  shapes and chunks, K1 beside them) and mem_tpu_torch.tools.exp_attn_bwd.main
+  (X3, the paired attention backward, beside K2b at (128, 197, 768)); both
+  must exit 0 and launch exactly what their loops call.
 
 The K5 kernels of the shapes that are not head-blocked-eligible (K5b, K5d,
 K5e) share K3f's and K3b's bodies: each is also held bit for bit against the
 K3 kernel on transposed operands, and a seg forward with FLAT_ATTN = False
-against the CPU's logits.
+against the CPU's logits. X1a, X1b and X1c are held bit for bit against their
+plain versions; X3 inside K2b's gates against its plain version and bit for
+bit against K2b.
 
 Between them it holds one pretraining, one segmentation and one finetune
 train step on the card (f32 and bf16) against the same step on the CPU, and
@@ -79,6 +87,12 @@ import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+
+try:
+    from mem_tpu_torch.tools import (PEAK_BF16_FLOPS, attention_bwd_bound, attention_fwd_bound,
+                                     bound, hist_bound, time_ms)
+except ImportError as e:   # not run from the root of a checkout
+    sys.exit(f"chip_smoke: run it from the root of a mem_tpu checkout ({e})")
 
 N_REQUESTS = 24          # served through HTTP, 8 clients at a time
 K2_BF16_TOL = 2e-2       # bf16 output: p and o each rounded to bf16 -> a few ulps at |o| <= 2
@@ -152,10 +166,8 @@ FT_MICRO = 32            # micro-batch of the finetune CLI runs (batch 64, updat
 K5L_BF16_TOL = 2e-2
 K5L_F32_TOL = 1e-5       # f32: the same math, sums in another order
 FT_N401_SIZE = 320       # --input_H / --input_W of the finetune run at N = 20 x 20 + 1 = 401
-# the card's published peaks (H100 SXM data sheet): the bounds are reckoned from them
-PEAK_BYTES_S = 3.35e12
-PEAK_BF16_FLOPS = 989e12
-PEAK_F32_FLOPS = 67e12   # outside the tensor cores: the histograms' integer adds
+X1A_RANDOM_REL = 1e-6    # X1a on random f32 weights, relative L2: the bf16-rounded weights'
+                         # f32 sums taken in another order (exact on dyadic weights)
 
 
 class SmokeFailure(Exception):
@@ -189,29 +201,12 @@ def synthetic_events(rng, n):
     return ev
 
 
-def time_ms(torch, fn, runs=30, warmup=5):
-    """Median of per-run CUDA-event times (ms) after warm-up."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def in_turns(torch, plain, kernel, runs=20):
     """(kernel ms, plain ms), each the mean of two medians taken in turns:
     plain, kernel, kernel, plain."""
-    tp = [time_ms(torch, plain, runs=runs)]
-    tk = [time_ms(torch, kernel, runs=runs), time_ms(torch, kernel, runs=runs)]
-    tp.append(time_ms(torch, plain, runs=runs))
+    tp = [time_ms(plain, runs=runs)]
+    tk = [time_ms(kernel, runs=runs), time_ms(kernel, runs=runs)]
+    tp.append(time_ms(plain, runs=runs))
     return statistics.mean(tk), statistics.mean(tp)
 
 
@@ -241,20 +236,6 @@ def kernel_device_ms(torch, fn, fragments, n=20, per_launch=False):
     return us / 1e3 / (sum(e.count for e in events) if per_launch else n)
 
 
-def bound(nbytes, ops, peak_ops):
-    """The least time (ms) the card could take: the larger of the bytes the
-    function must move (each input read once, each output written once) over
-    the memory rate and its operations over the peak rate for their type."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / peak_ops * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def hist_bound(B, N, H, W):
-    """K1 / K4: col and ys read (int32), the (B, H, 2W) int32 planes written;
-    one integer add per event."""
-    return bound(2 * B * N * 4 + B * H * 2 * W * 4, B * N, PEAK_F32_FLOPS)
-
-
 def bincount_ms(torch, col, ys, H, W, want):
     """The one library call that computes K1's and K4's counts: a
     torch.bincount over the linear index (sample, y, column of [pos | neg]),
@@ -271,21 +252,7 @@ def bincount_ms(torch, col, ys, H, W, want):
         return torch.bincount(lin, weights=wts, minlength=B * H * 2 * W)
 
     equal = bool(torch.equal(call().view(B, H, 2 * W).to(torch.int32), want))
-    return (time_ms(torch, call) if equal else None), equal
-
-
-def attention_fwd_bound(B, N, H, D, itemsize=2):
-    """K2f / K3f: q, k, v read and o written, the f32 bias read once; two
-    products of 2 N^2 D operations per (sample, head)."""
-    return bound(4 * B * N * H * D * itemsize + H * N * N * 4, 4 * B * H * N * N * D,
-                 PEAK_BF16_FLOPS)
-
-
-def attention_bwd_bound(B, N, H, D, itemsize=2):
-    """K2b / K3b: q, k, v, do and the bias read, dq, dk, dv and db written;
-    five products of 2 N^2 D operations per (sample, head)."""
-    return bound(7 * B * N * H * D * itemsize + 2 * H * N * N * 4, 10 * B * H * N * N * D,
-                 PEAK_BF16_FLOPS)
+    return (time_ms(call) if equal else None), equal
 
 
 def sdpa_operands(torch, q, k, v, bias):
@@ -470,8 +437,8 @@ def run(torch):
         ys = torch.tensor(np.stack([e[:, 1] for e in evs]), dtype=torch.int32, device=dev)
         pos = torch.tensor(np.stack([e[:, 3] > 0 for e in evs]), device=dev).float()
         col, ysf = vh.pack_cols(xs, ys, pos, 1.0 - pos, 256, 256)
-        t_k1 = time_ms(torch, lambda: vh.hist_planes_cols(col, ysf, 256, 256))
-        t_k1p = time_ms(torch, lambda: vh.hist_planes_cols_reference(col, ysf, 256, 256))
+        t_k1 = time_ms(lambda: vh.hist_planes_cols(col, ysf, 256, 256))
+        t_k1p = time_ms(lambda: vh.hist_planes_cols_reference(col, ysf, 256, 256))
         t_k1l, k1l_equal = bincount_ms(torch, col, ysf, 256, 256,
                                        vh.hist_planes_cols_reference(col, ysf, 256, 256))
         say("time_k1", gpu=gpu, batch=B, events=30_000, canvas=[256, 256], kernel_ms=t_k1,
@@ -481,10 +448,10 @@ def run(torch):
         q, k, v = (torch.randn(B, 197, 768, device=dev, dtype=torch.bfloat16)
                    for _ in range(3))
         bias = torch.randn(12, 197, 197, device=dev)
-        t_k2 = time_ms(torch, lambda: fused_attention_flat(q, k, v, bias, 0.125))
-        t_k2p = time_ms(torch, lambda: fused_attention_flat_reference(q, k, v, bias, 0.125))
+        t_k2 = time_ms(lambda: fused_attention_flat(q, k, v, bias, 0.125))
+        t_k2p = time_ms(lambda: fused_attention_flat_reference(q, k, v, bias, 0.125))
         qh, kh, vhd, mask = sdpa_operands(torch, q, k, v, bias)
-        t_k2l = time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+        t_k2l = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             qh, kh, vhd, attn_mask=mask, scale=0.125))
         flop = 4 * B * 12 * 197 * 197 * 64
         say("time_k2", gpu=gpu, batch=B, shape=[197, 12, 64], dtype="bfloat16",
@@ -496,7 +463,7 @@ def run(torch):
         fb = serve.make_assemble(args, pp)([(p, False) for p in payloads[:B]], B)
         dev_batch = serve.to_device(fb, dev)
         with torch.inference_mode():
-            t_fwd = time_ms(torch, lambda: serve.classify(models['bfloat16'], pp, dev_batch, 5),
+            t_fwd = time_ms(lambda: serve.classify(models['bfloat16'], pp, dev_batch, 5),
                             runs=20)
         say("time_forward", gpu=gpu, batch=B, dtype="bfloat16", ms=t_fwd,
             samples_per_s=B / t_fwd * 1e3)
@@ -540,9 +507,14 @@ def run(torch):
     seg_train = run_seg_train_slice(torch, dev, gpu, rng)
     k5_ms = time_k5_long(torch, dev, gpu)
 
+    # -- the experiment kernels X1a, X1b, X1c and X3 ----------------------------
+    x1_err, x3_err = check_x1(torch, dev, g), check_x3(torch, dev, g)
+    exp_counts = run_experiment_tools(torch)
+    x_ms = time_experiments(torch, dev, gpu)
+
     def row(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms):
         return {"name": name, "route": "cuda", "source": f"mem_tpu_torch/csrc/{source}",
-                "replaces": f"mem_tpu/ops/{replaces}", "launches": launches,
+                "replaces": replaces, "launches": launches,
                 "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms}
 
@@ -550,46 +522,56 @@ def run(torch):
     # test_seg's single-scale run, K3b from train_seg's first run, K6f, K6b,
     # K5a and K5c from the toggled finetune CLI's first run, K5b and K5e from
     # train_seg's run with FLAT_ATTN_LONG = False, K5d from the N = 401
-    # finetune run; times at the shapes the bounds name
+    # finetune run, X1a, X1b, X1c and X3 from the experiment tools' runs;
+    # times at the shapes the bounds name
+    ops, vox, attn = "mem_tpu/ops/", "scripts/exp_voxelize.py", "scripts/exp_attn_bwd.py"
     print(json.dumps({"kernels": [
-        row("hist_planes_cols", "voxelize_hist.cu", "voxelize_pallas.py:64",
+        row("hist_planes_cols", "voxelize_hist.cu", ops + "voxelize_pallas.py:64",
             train_counts["hist_planes_cols"], k1_err, timing[8][0], timing[8][1],
             hist_bound(8, 30_000, 256, 256), timing[8][5]),
-        row("fused_attention_flat", "attention_fwd.cu", "attention.py:105",
+        row("fused_attention_flat", "attention_fwd.cu", ops + "attention.py:105",
             train_counts["fused_attention_flat"], k2_err, timing[8][2], timing[8][3],
             attention_fwd_bound(8, 197, 12, 64), timing[8][4]),
-        row("fused_attention_flat_bwd", "attention_bwd.cu", "attention.py:128",
+        row("fused_attention_flat_bwd", "attention_bwd.cu", ops + "attention.py:128",
             train_counts["fused_attention_flat_bwd"], k2b_err, t_k2b, t_k2bp,
             attention_bwd_bound(64, 197, 12, 64), t_k2bl),
-        row("fused_attention_flat_long", "attention_long_fwd.cu", "attention.py:255",
+        row("fused_attention_flat_long", "attention_long_fwd.cu", ops + "attention.py:255",
             seg["counts"]["fused_attention_flat_long"], k3f_err, seg["k3f_ms"],
             seg["k3f_plain_ms"], attention_fwd_bound(8, 1025, 12, 64), seg["k3f_sdpa_ms"]),
-        row("hist_planes_cols_sorted", "voxelize_hist_sorted.cu", "voxelize_pallas.py:81",
-            seg["counts"]["hist_planes_cols_sorted"], k4_err, seg["k4_ms"],
-            seg["k4_plain_ms"], hist_bound(8, SEG_EVENTS, 440, 640), seg["k4_bincount_ms"]),
-        row("fused_attention_flat_long_bwd", "attention_long_bwd.cu", "attention.py:276",
+        row("hist_planes_cols_sorted", "voxelize_hist_sorted.cu",
+            ops + "voxelize_pallas.py:81", seg["counts"]["hist_planes_cols_sorted"], k4_err,
+            seg["k4_ms"], seg["k4_plain_ms"], hist_bound(8, SEG_EVENTS, 440, 640),
+            seg["k4_bincount_ms"]),
+        row("fused_attention_flat_long_bwd", "attention_long_bwd.cu", ops + "attention.py:276",
             seg_train["counts"]["fused_attention_flat_long_bwd"], k3b_err,
             seg_train["k3b_ms"], seg_train["k3b_plain_ms"],
             attention_bwd_bound(16, 1025, 12, 64), seg_train["k3b_sdpa_ms"]),
-        row("mlp_fused", "mlp_fwd.cu", "mlp.py:54", ft["counts"]["mlp_fused"],
+        row("mlp_fused", "mlp_fwd.cu", ops + "mlp.py:54", ft["counts"]["mlp_fused"],
             ft["k6f_err"], *ft["k6f_ms"], mlp_fwd_bound(FT_ROWS, 768, 3072), None),
-        row("mlp_fused_bwd", "mlp_bwd.cu", "mlp.py:118", ft["counts"]["mlp_fused_bwd"],
+        row("mlp_fused_bwd", "mlp_bwd.cu", ops + "mlp.py:118", ft["counts"]["mlp_fused_bwd"],
             ft["k6b_err"], *ft["k6b_ms"], mlp_bwd_bound(FT_ROWS, 768, 3072), None),
-        row("fused_attention", "attention_fwd_bhnd.cu", "attention.py:54",
+        row("fused_attention", "attention_fwd_bhnd.cu", ops + "attention.py:54",
             ft["counts"]["fused_attention"], ft["k5a_err"], *ft["k5a_ms"][:2],
             attention_fwd_bound(FT_B, 197, 12, 64), ft["k5a_ms"][2]),
-        row("fused_attention_bwd", "attention_bwd_bhnd.cu", "attention.py:70",
+        row("fused_attention_bwd", "attention_bwd_bhnd.cu", ops + "attention.py:70",
             ft["counts"]["fused_attention_bwd"], ft["k5c_err"], *ft["k5c_ms"][:2],
             attention_bwd_bound(FT_B, 197, 12, 64), ft["k5c_ms"][2]),
-        row("fused_attention_long", "attention_long_fwd_bhnd.cu", "attention.py:413",
+        row("fused_attention_long", "attention_long_fwd_bhnd.cu", ops + "attention.py:413",
             seg_train["counts_long_off"]["fused_attention_long"], k5b_err, *k5_ms["K5b"][:2],
             attention_fwd_bound(8, 1025, 12, 64), k5_ms["K5b"][2]),
-        row("fused_attention_bwd_whole", "attention_long_bwd_bhnd.cu", "attention.py:425",
+        row("fused_attention_bwd_whole", "attention_long_bwd_bhnd.cu", ops + "attention.py:425",
             ft["counts_n401"]["fused_attention_bwd_whole"], k5d_err, *k5_ms["K5d"][:2],
             attention_bwd_bound(FT_MICRO, 401, 12, 64), k5_ms["K5d"][2]),
-        row("fused_attention_bwd_long", "attention_long_bwd_bhnd.cu", "attention.py:515",
+        row("fused_attention_bwd_long", "attention_long_bwd_bhnd.cu", ops + "attention.py:515",
             seg_train["counts_long_off"]["fused_attention_bwd_long"], k5e_err,
             *k5_ms["K5e"][:2], attention_bwd_bound(16, 1025, 12, 64), k5_ms["K5e"][2]),
+        *(row(name, "exp_voxelize.cu", f"{vox}:{line}", exp_counts["exp_voxelize"][name],
+              x1_err[name], *x_ms[name])
+          for name, line in (("exp_voxelize_base", 25), ("exp_voxelize_fused_onehot", 47),
+                             ("exp_voxelize_fused_loop", 66))),
+        row("fused_attention_flat_bwd_pair", "attention_bwd_pair.cu", f"{attn}:38",
+            exp_counts["exp_attn_bwd"]["fused_attention_flat_bwd_pair"], x3_err,
+            *x_ms["fused_attention_flat_bwd_pair"]),
     ]}), flush=True)
 
 
@@ -1090,7 +1072,7 @@ def run_seg_slice(torch, dev, gpu, rng):
             profile_seg_forward(torch, gpu, forward)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            t_fwd = time_ms(torch, forward, runs=15, warmup=3)
+            t_fwd = time_ms(forward, runs=15, warmup=3)
         say("time_seg_forward", gpu=gpu, batch=8, dtype="bfloat16", ms=t_fwd,
             samples_per_s=8 / t_fwd * 1e3,
             peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
@@ -1106,8 +1088,8 @@ def run_seg_slice(torch, dev, gpu, rng):
         t_k4, t_k4p = in_turns(
             torch, lambda: vh.hist_planes_cols_sorted_reference(col, ys, 440, 640, True),
             lambda: vh.hist_planes_cols_sorted(col, ys, 440, 640, presorted=True))
-        t_k4s = time_ms(torch, lambda: vh.hist_planes_cols_sorted(col, ys, 440, 640))
-        t_k1 = time_ms(torch, lambda: vh.hist_planes_cols(col, ys, 440, 640))
+        t_k4s = time_ms(lambda: vh.hist_planes_cols_sorted(col, ys, 440, 640))
+        t_k1 = time_ms(lambda: vh.hist_planes_cols(col, ys, 440, 640))
         t_k4l, k4l_equal = bincount_ms(
             torch, col, ys, 440, 640,
             vh.hist_planes_cols_sorted_reference(col, ys, 440, 640, True))
@@ -1133,7 +1115,7 @@ def run_seg_slice(torch, dev, gpu, rng):
             torch, lambda: fused_attention_flat_long_reference(q, k, v, bias, 0.125),
             lambda: fused_attention_flat_long(q, k, v, bias, 0.125), runs=10)
         qh, kh, vhd, mask = sdpa_operands(torch, q, k, v, bias)
-        t_k3l = time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+        t_k3l = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             qh, kh, vhd, attn_mask=mask, scale=0.125))
         say("time_k3f", gpu=gpu, batch=8, shape=[1025, 12, 64], dtype="bfloat16",
             kernel_ms=t_k3, plain_ms=t_k3p, sdpa_ms=t_k3l,
@@ -1481,7 +1463,7 @@ def time_seg_training(torch, dev, gpu, data_root, sd):
         out = torch.nn.functional.scaled_dot_product_attention(qh, kh, vhd, attn_mask=mask,
                                                                scale=0.125)
         doh = torch.randn_like(out)
-        t_lib = time_ms(torch, lambda: torch.autograd.grad(out, (qh, kh, vhd, mask), doh,
+        t_lib = time_ms(lambda: torch.autograd.grad(out, (qh, kh, vhd, mask), doh,
                                                            retain_graph=True), runs=10)
         bnd = attention_bwd_bound(B, 1025, 12, 64)
         say("time_k3b", gpu=gpu, batch=B, shape=[1025, 12, 64], dtype="bfloat16", kernel_ms=t_k,
@@ -1747,16 +1729,16 @@ def time_training(torch, dev, gpu, flags):
     bias = torch.randn(12, 197, 197, device=dev)
     plain = lambda: fused_attention_flat_bwd_reference(q, k, v, bias, do, 0.125)  # noqa: E731
     kernel = lambda: fused_attention_flat_bwd(q, k, v, bias, do, 0.125)  # noqa: E731
-    tp = [time_ms(torch, plain, runs=20)]
-    tk = [time_ms(torch, kernel, runs=20), time_ms(torch, kernel, runs=20)]
-    tp.append(time_ms(torch, plain, runs=20))
+    tp = [time_ms(plain, runs=20)]
+    tk = [time_ms(kernel, runs=20), time_ms(kernel, runs=20)]
+    tp.append(time_ms(plain, runs=20))
     # the yardstick: the backward of one scaled_dot_product_attention call
     # with the bias as its mask (dq, dk, dv and the mask's gradient)
     qh, kh, vhd, mask = (t.requires_grad_() for t in sdpa_operands(torch, q, k, v, bias))
     out = torch.nn.functional.scaled_dot_product_attention(qh, kh, vhd, attn_mask=mask,
                                                            scale=0.125)
     doh = torch.randn_like(out)
-    t_lib = time_ms(torch, lambda: torch.autograd.grad(out, (qh, kh, vhd, mask), doh,
+    t_lib = time_ms(lambda: torch.autograd.grad(out, (qh, kh, vhd, mask), doh,
                                                        retain_graph=True), runs=20)
     flop = 5 * 2 * 64 * 12 * 197 * 197 * 64
     say("time_k2b", gpu=gpu, batch=64, shape=[197, 12, 64], dtype="bfloat16", kernel_ms=tk,
@@ -2304,16 +2286,16 @@ def time_finetune(torch, dev, gpu, g, flags):
     _, h = M.mlp_fused_reference(x, w1, b1, w2, b2)
     k6f = in_turns(torch, lambda: M.mlp_fused_reference(x, w1, b1, w2, b2),
                    lambda: M.mlp_fwd_2d(x, w1, b1, w2, b2, True), runs=8)
-    t_no_h = time_ms(torch, lambda: M.mlp_fwd_2d(x, w1, b1, w2, b2, False), runs=8)
+    t_no_h = time_ms(lambda: M.mlp_fwd_2d(x, w1, b1, w2, b2, False), runs=8)
     k6b = in_turns(torch, lambda: M.mlp_fused_bwd_reference(do, h, x, w1, w2),
                    lambda: M.mlp_bwd_2d(do, h, x, w1, w2), runs=8)
     parts = {f: kernel_device_ms(torch, lambda: M.mlp_bwd_2d(do, h, x, w1, w2), (f,), n=5,
                                  per_launch=True) for f in ("mlp_rows_mma", "mlp_cols_mma")}
     w1t, w2t = w1.t().contiguous().requires_grad_(), w2.t().contiguous().requires_grad_()
     xg = x.clone().requires_grad_()
-    t_chain = time_ms(torch, lambda: Fn.linear(Fn.gelu(Fn.linear(xg, w1t, b1)), w2t, b2), runs=8)
+    t_chain = time_ms(lambda: Fn.linear(Fn.gelu(Fn.linear(xg, w1t, b1)), w2t, b2), runs=8)
     y = Fn.linear(Fn.gelu(Fn.linear(xg, w1t, b1)), w2t, b2)
-    t_chain_b = time_ms(torch, lambda: torch.autograd.grad(y, (xg, w1t, w2t), do,
+    t_chain_b = time_ms(lambda: torch.autograd.grad(y, (xg, w1t, w2t), do,
                                                            retain_graph=True), runs=8)
     flop = 4 * FT_ROWS * 768 * 3072
     for name, (t_k, t_p), bnd, extra in (
@@ -2339,16 +2321,16 @@ def time_finetune(torch, dev, gpu, g, flags):
                    lambda: A.fused_attention_bwd(q, k, v, bias, do, 0.125), runs=10)
     flat = lambda t: t.transpose(1, 2).reshape(FT_B, 197, 768).contiguous()  # noqa: E731
     fq, fk, fv, fdo = flat(q), flat(k), flat(v), flat(do)
-    t_k2f = time_ms(torch, lambda: A.fused_attention_flat(fq, fk, fv, bias, 0.125), runs=10)
-    t_k2b = time_ms(torch, lambda: A.fused_attention_flat_bwd(fq, fk, fv, bias, fdo, 0.125),
+    t_k2f = time_ms(lambda: A.fused_attention_flat(fq, fk, fv, bias, 0.125), runs=10)
+    t_k2b = time_ms(lambda: A.fused_attention_flat_bwd(fq, fk, fv, bias, fdo, 0.125),
                     runs=10)
     mask = bias.to(bf)[None].contiguous().requires_grad_()
     qh, kh, vh = (t.clone().requires_grad_() for t in (q, k, v))
     sdpa = lambda: Fn.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,  # noqa: E731
                                                    scale=0.125)
-    t_lib_f = time_ms(torch, sdpa, runs=10)
+    t_lib_f = time_ms(sdpa, runs=10)
     out = sdpa()
-    t_lib_b = time_ms(torch, lambda: torch.autograd.grad(out, (qh, kh, vh, mask), do,
+    t_lib_b = time_ms(lambda: torch.autograd.grad(out, (qh, kh, vh, mask), do,
                                                          retain_graph=True), runs=10)
     for name, (t_k, t_p), t_lib, t_k2, bnd, n_prod in (
             ("time_k5a", k5a, t_lib_f, t_k2f, attention_fwd_bound(FT_B, 197, 12, 64), 2),
@@ -2600,20 +2582,20 @@ def time_k5_long(torch, dev, gpu):
             t_k, t_p = in_turns(
                 torch, lambda: A.fused_attention_bwd_reference(q, k, v, bias, do, 0.125),
                 lambda: A.fused_attention_bwd(q, k, v, bias, do, 0.125), runs=8)
-            t_k3 = time_ms(torch, lambda: A.fused_attention_flat_long_bwd(fq, fk, fv, bias, fdo,
+            t_k3 = time_ms(lambda: A.fused_attention_flat_long_bwd(fq, fk, fv, bias, fdo,
                                                                           0.125), runs=8)
             qh, kh, vh, mh = (t.clone().requires_grad_() for t in (q, k, v, mask))
             o = Fn.scaled_dot_product_attention(qh, kh, vh, attn_mask=mh, scale=0.125)
-            t_lib = time_ms(torch, lambda: torch.autograd.grad(o, (qh, kh, vh, mh), do,
+            t_lib = time_ms(lambda: torch.autograd.grad(o, (qh, kh, vh, mh), do,
                                                                retain_graph=True), runs=8)
             bnd, n_prod = attention_bwd_bound(B, N, 12, 64), 5
             del qh, kh, vh, mh, o
         else:
             t_k, t_p = in_turns(torch, lambda: A.fused_attention_reference(q, k, v, bias, 0.125),
                                 lambda: A.fused_attention(q, k, v, bias, 0.125), runs=10)
-            t_k3 = time_ms(torch, lambda: A.fused_attention_flat_long(fq, fk, fv, bias, 0.125),
+            t_k3 = time_ms(lambda: A.fused_attention_flat_long(fq, fk, fv, bias, 0.125),
                            runs=10)
-            t_lib = time_ms(torch, lambda: Fn.scaled_dot_product_attention(
+            t_lib = time_ms(lambda: Fn.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask, scale=0.125), runs=10)
             bnd, n_prod = attention_fwd_bound(B, N, 12, 64), 2
         say(f"time_{name.lower()}", gpu=gpu, batch=B, shape=[12, N, 64], dtype="bfloat16",
@@ -2718,6 +2700,206 @@ def run_finetune_n401(torch, data_root, tmp_root):
     return runs["enabled"][1]
 
 
+# ---------------------------------------------------------------------------
+# the experiment kernels: X1a, X1b, X1c (scripts/exp_voxelize.py) and X3
+# (scripts/exp_attn_bwd.py)
+# ---------------------------------------------------------------------------
+
+X3_SHAPE = (128, 197, 12, 64)   # exp_attn_bwd.py's default: ViT-B's training width
+
+
+def x1_cases(torch, g):
+    """(case, (B, N, H, W), (xs, ys, wpos, wneg, col, ys of col)) on the CPU:
+    the reference's seeded events at its seg and cls shapes, and an odd shape
+    with stray coordinates (negatives, the sentinels, values past them) and
+    dyadic weights."""
+    from mem_tpu_torch.tools import exp_voxelize as X
+
+    for tag, shape in X.SHAPES.items():
+        yield tag, shape, X.make_events(*shape, "cpu")
+    B, N, H, W = 3, 12_345, 37, 45
+    xs = torch.randint(-2, W + 3, (B, N), generator=g, dtype=torch.int32)
+    ys = torch.randint(-2, H + 3, (B, N), generator=g, dtype=torch.int32)
+    levels = torch.tensor([0.0, 0.25, 0.5, 1.0])
+    wpos, wneg = (levels[torch.randint(0, 4, (B, N), generator=g)] for _ in range(2))
+    col = torch.randint(-2, 2 * W + 3, (B, N), generator=g, dtype=torch.int32)
+    col[:, :500] = 2 * W
+    yield "odd", (B, N, H, W), (xs, ys, wpos, wneg, col, ys)
+
+
+def check_x1(torch, dev, g):
+    """X1a, X1b and X1c against their plain versions, bit for bit, with every
+    chunk of the reference's sweep: its events at the seg and cls shapes, and
+    the odd shape; X1a also on random f32 weights at the seg shape, to
+    X1A_RANDOM_REL. Returns {counter name: max abs error at seg}."""
+    from mem_tpu_torch.tools import exp_voxelize as X
+
+    seg = {}
+    for tag, (B, N, H, W), ev in x1_cases(torch, g):
+        xs, ys, wpos, wneg, col, ysp = (t.to(dev) for t in ev)
+        want_base = X.exp_voxelize_base_reference(xs, ys, wpos, wneg, H, W)
+        want = X.exp_voxelize_fused_reference(col, ysp, H, W)
+        got = {("exp_voxelize_base", 2048): X.exp_voxelize_base(xs, ys, wpos, wneg, H, W, 2048)}
+        for chunk in (1024, 2048, 4096):
+            got[("exp_voxelize_fused_onehot", chunk)] = X.exp_voxelize_fused_onehot(
+                col, ysp, H, W, chunk)
+        got[("exp_voxelize_fused_loop", 8192)] = X.exp_voxelize_fused_loop(
+            col, ysp, H, W, 8192, 2048)
+        torch.cuda.synchronize()
+        errs = {f"{n}_c{c}": (o - (want_base if n == "exp_voxelize_base" else want)).abs().max()
+                .item() for (n, c), o in got.items()}
+        say("x1_check", case=tag, shape=[B, N, H, W], max_abs_err=errs,
+            events=int(want.sum().item()), weight_sum=float(want_base.sum().item()))
+        check(max(errs.values()) == 0, f"X1 differs from its plain version at {tag}: {errs}")
+        if tag == "seg":
+            seg = {n: errs[f"{n}_c{c}"] for n, c in got}
+    B, N, H, W = X.SHAPES["seg"]
+    xs, ys = (t.to(dev) for t in X.make_events(B, N, H, W, "cpu")[:2])
+    wpos, wneg = (torch.rand(B, N, generator=g).to(dev) for _ in range(2))
+    rel = rel_l2(torch, X.exp_voxelize_base(xs, ys, wpos, wneg, H, W),
+                 X.exp_voxelize_base_reference(xs, ys, wpos, wneg, H, W))
+    say("x1_check", case="seg_random_weights", rel_l2=rel, tol=X1A_RANDOM_REL)
+    check(rel <= X1A_RANDOM_REL, f"X1a on random weights: rel L2 {rel}")
+    return seg
+
+
+def check_x3(torch, dev, g):
+    """X3 at every shape against the plain pair inside K2b's gates, bit for
+    bit against K2b on the same operands, and bit-identical across launches:
+    the experiment's (128, 197, 12, 64), the serving batch, and N = 37, 129,
+    256 and 16; f32, another head dim and N above 256 must raise. Returns the
+    max abs error against the plain version at the experiment's shape."""
+    from mem_tpu_torch.ops import attention as A
+
+    first = None
+    names = ("dq", "dk", "dv", "db")
+    for B, N, H in ((128, 197, 12), (8, 197, 12), (2, 37, 3), (2, 129, 2), (1, 256, 2),
+                    (3, 16, 1)):
+        q, k, v, do = (torch.randn(B, N, H * 64, generator=g).to(torch.bfloat16).to(dev)
+                       for _ in range(4))
+        bias = (0.5 * torch.randn(H, N, N, generator=g)).to(dev)
+        pair = A.fused_attention_flat_bwd_pair(q, k, v, bias, do, 0.125)
+        again = A.fused_attention_flat_bwd_pair(q, k, v, bias, do, 0.125)
+        base = A.fused_attention_flat_bwd(q, k, v, bias, do, 0.125)
+        want = A.fused_attention_flat_bwd_pair_reference(q, k, v, bias, do, 0.125)
+        torch.cuda.synchronize()
+        equal_k2b = {n: torch.equal(a, b) for n, a, b in zip(names, pair, base)}
+        identical = all(torch.equal(a, b) for a, b in zip(pair, again))
+        errs = {n: rel_max_abs(a, b) for n, a, b in zip(names[:3], pair, want)}
+        db = rel_l2(torch, pair[3], want[3])
+        say("x3_check", shape=[B, N, H, 64], equal_k2b=equal_k2b,
+            identical_across_launches=identical, rel_max_abs=errs, tol=K2B_BF16_TOL,
+            db_rel_l2=db, db_tol=K2B_DB_REL)
+        check(max(errs.values()) <= K2B_BF16_TOL and db <= K2B_DB_REL,
+              f"X3 at {B, N, H} differs from the plain pair: {errs}, db {db}")
+        check(identical, f"X3 at {B, N, H} differs between two launches")
+        check(all(equal_k2b.values()), f"X3 at {B, N, H} is not K2b's bits: {equal_k2b}")
+        if first is None:
+            first = max((a.float() - b.float()).abs().max().item() for a, b in zip(pair, want))
+        del q, k, v, do, bias, pair, again, base, want
+    for dt, D, N in ((torch.float32, 64, 197), (torch.bfloat16, 32, 197),
+                     (torch.bfloat16, 64, 257)):
+        q = torch.zeros(1, N, 2 * D, dtype=dt, device=dev)
+        bias = torch.zeros(2, N, N, device=dev)
+        try:
+            A.fused_attention_flat_bwd_pair(q, q, q, bias, q, 0.125)
+        except ValueError:
+            continue
+        raise SmokeFailure(f"X3 took {dt} operands at D={D}, N={N}")
+    return first
+
+
+def run_experiment_tools(torch):
+    """The experiments' entry points as a user runs them:
+    ``exp_voxelize.main(["all"])`` (both shapes, every variant checked against
+    its plain version and timed, K1 beside them) and ``exp_attn_bwd.main([])``
+    (the reference's defaults: B=128, steps=8), each with the launch counts
+    set to 0 just before it and read just after; both must exit 0 and launch
+    exactly what their loops call. Returns {tool: counts}."""
+    from mem_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from mem_tpu_torch.tools import exp_attn_bwd, exp_voxelize
+
+    runs, stamps = {}, [time.perf_counter()]
+    for tool, call in (("exp_voxelize", lambda: exp_voxelize.main(["all"])),
+                       ("exp_attn_bwd", lambda: exp_attn_bwd.main([]))):
+        reset_launch_counts()                 # just before the path
+        rc = call()
+        runs[tool] = launch_counts()          # just after it
+        stamps.append(time.perf_counter())
+        check(rc == 0, f"{tool}.main exited {rc}")
+    per_variant = 1 + exp_voxelize.WARMUP + exp_voxelize.RUNS   # the check, then the timing
+    per_fn = 1 + 2 * (1 + 8)    # exp_attn_bwd: the check, then two timings of 1 + steps
+    want = {"exp_voxelize": {"exp_voxelize_base": 2 * per_variant,
+                             "exp_voxelize_fused_onehot": 6 * per_variant,
+                             "exp_voxelize_fused_loop": 2 * per_variant,
+                             "hist_planes_cols": 2 * (exp_voxelize.WARMUP + exp_voxelize.RUNS)},
+            "exp_attn_bwd": {"fused_attention_flat_bwd": per_fn,
+                             "fused_attention_flat_bwd_pair": per_fn}}
+    say("experiment_tools", launches=runs,
+        seconds=[round(b - a, 2) for a, b in zip(stamps, stamps[1:])])
+    check(runs == want, f"the experiment tools launched {runs}, not {want}")
+    return runs
+
+
+def time_experiments(torch, dev, gpu):
+    """X1a, X1b and X1c at the seg shape (8 x 180,224 events, 440 x 640) on
+    the reference's events, each beside its plain version (in turns), with
+    the torch.bincount yardstick and K1 on the same packed events; X3 at
+    X3_SHAPE bf16 beside its plain version (in turns), K2b and the SDPA
+    backward. Returns {counter name: (ms, plain_ms, bound, library_ms)}."""
+    from mem_tpu_torch.ops import attention as A
+    from mem_tpu_torch.ops import voxelize_hist as vh
+    from mem_tpu_torch.tools import exp_voxelize as X
+
+    out = {}
+    B, N, H, W = X.SHAPES["seg"]
+    xs, ys, wpos, wneg, col, ysp = X.make_events(B, N, H, W, dev)
+    t_lib, lib_equal = bincount_ms(torch, col, ysp, H, W,
+                                   vh.hist_planes_cols_reference(col, ysp, H, W))
+    t_k1 = time_ms(lambda: vh.hist_planes_cols(col, ysp, H, W))
+    flop = 2 * B * N * H * 2 * W   # the one-hot contraction, as information
+    for name, kernel, plain, arrays in (
+            ("exp_voxelize_base", lambda: X.exp_voxelize_base(xs, ys, wpos, wneg, H, W, 2048),
+             lambda: X.exp_voxelize_base_reference(xs, ys, wpos, wneg, H, W), 4),
+            ("exp_voxelize_fused_onehot", lambda: X.exp_voxelize_fused_onehot(col, ysp, H, W),
+             lambda: X.exp_voxelize_fused_reference(col, ysp, H, W), 2),
+            ("exp_voxelize_fused_loop",
+             lambda: X.exp_voxelize_fused_loop(col, ysp, H, W, 8192, 2048),
+             lambda: X.exp_voxelize_fused_reference(col, ysp, H, W), 2)):
+        t_k, t_p = in_turns(torch, plain, kernel, runs=10)
+        bnd = hist_bound(B, N, H, W, arrays)
+        say(f"time_{name}", gpu=gpu, shape=[B, N, H, W], kernel_ms=t_k, plain_ms=t_p,
+            bincount_ms=t_lib, bincount_equals_plain=lib_equal, k1_ms=t_k1, bound_ms=bnd[0],
+            bound_by=bnd[1], contraction_gflop=flop / 1e9,
+            contraction_ms_at_bf16_peak=flop / PEAK_BF16_FLOPS * 1e3,
+            kernel_gev_s=B * N / t_k / 1e6, kernel_tflop_s=flop / t_k / 1e9)
+        out[name] = (t_k, t_p, bnd, t_lib)
+    del xs, ys, wpos, wneg, col, ysp
+
+    B, N, Hh, D = X3_SHAPE
+    q, k, v, do = (torch.randn(B, N, Hh * D, device=dev, dtype=torch.bfloat16)
+                   for _ in range(4))
+    bias = torch.randn(Hh, N, N, device=dev)
+    t_k, t_p = in_turns(torch, lambda: A.fused_attention_flat_bwd_pair_reference(
+        q, k, v, bias, do, 0.125), lambda: A.fused_attention_flat_bwd_pair(
+        q, k, v, bias, do, 0.125), runs=10)
+    t_k2b = time_ms(lambda: A.fused_attention_flat_bwd(q, k, v, bias, do, 0.125), runs=10)
+    qh, kh, vhd, mask = (t.requires_grad_() for t in sdpa_operands(torch, q, k, v, bias))
+    o = torch.nn.functional.scaled_dot_product_attention(qh, kh, vhd, attn_mask=mask, scale=0.125)
+    doh = torch.randn_like(o)
+    t_lib = time_ms(lambda: torch.autograd.grad(o, (qh, kh, vhd, mask), doh,
+                                                       retain_graph=True), runs=10)
+    bnd = attention_bwd_bound(*X3_SHAPE)
+    flop5 = 10 * B * Hh * N * N * D
+    say("time_x3", gpu=gpu, batch=B, shape=[N, Hh, D], dtype="bfloat16", kernel_ms=t_k,
+        plain_ms=t_p, k2b_ms=t_k2b, sdpa_backward_ms=t_lib, bound_ms=bnd[0], bound_by=bnd[1],
+        kernel_tflop_s=flop5 / t_k / 1e9, executed_tflop_s=1.4 * flop5 / t_k / 1e9,
+        k2b_tflop_s=flop5 / t_k2b / 1e9)
+    out["fused_attention_flat_bwd_pair"] = (t_k, t_p, bnd, t_lib)
+    del q, k, v, do, bias, qh, kh, vhd, mask, o, doh
+    torch.cuda.empty_cache()
+    return out
+
 
 def main() -> int:
     try:
@@ -2727,12 +2909,6 @@ def main() -> int:
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
-        return 2
-    try:
-        import mem_tpu_torch  # noqa: F401
-    except ImportError as e:
-        print(f"chip_smoke: run it from the root of a mem_tpu checkout ({e})",
-              file=sys.stderr)
         return 2
     try:
         run(torch)

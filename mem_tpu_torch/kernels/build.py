@@ -71,6 +71,10 @@ SIGNATURES = {
                                       _I, _I, _I, _I, _F, _I, _P), _I),
     "mem_attention_bwd_blocked_bhnd": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                         _I, _I, _I, _I, _F, _I, _P), _I),
+    "mem_exp_voxelize_base": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P), _I),
+    "mem_exp_voxelize_fused_onehot": ((_P, _P, _P, _I, _I, _I, _I, _I, _P), _I),
+    "mem_attention_bwd_pair": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _F, _I, _P), _I),
     "mem_cuda_error_string": ((_I,), ctypes.c_char_p),
 }
 

@@ -32,6 +32,12 @@ attention_bwd_bhnd.cu: K2f's and K2b's kernels with head-major addressing);
 for the others K5b forward and K5d (N <= ``_WHOLE_BWD_MAX_N``) or K5e
 backward (csrc/attention_long_fwd_bhnd.cu, attention_long_bwd_bhnd.cu: K3f's
 and K3b's key-tiled kernels with head-major addressing).
+
+``fused_attention_flat_bwd_pair`` (X3, csrc/attention_bwd_pair.cu) is the
+experiment of scripts/exp_attn_bwd.py: K2b's function with each head's two
+depth-D products s = q k^T and dp = do v^T taken as one depth-2D product
+against a block-diagonal operand. No model path calls it;
+``mem_tpu_torch.tools.exp_attn_bwd`` times it beside K2b.
 """
 from __future__ import annotations
 
@@ -72,16 +78,39 @@ def fused_attention_flat_bwd_reference(q, k, v, bias, do, scale: float):
     delta = rowsum(dp * p), ds = p (dp - delta) in f32, dsc = ds in q's
     dtype, dq = (dsc k) * scale and dk = (dsc^T q) * scale accumulated in
     f32 and then cast, db = ds summed over the batch in f32 (H, N, N)."""
+    H = bias.shape[0]
+    qh, kh, vh, doh = (_heads(t, H) for t in (q, k, v, do))
+    return _flat_bwd_from_products(q, k, v, bias, qh, kh, doh,
+                                   torch.matmul(qh, kh.transpose(-1, -2)),
+                                   torch.matmul(doh, vh.transpose(-1, -2)), scale)
+
+
+def fused_attention_flat_bwd_pair_reference(q, k, v, bias, do, scale: float):
+    """Plain version of X3 (scripts/exp_attn_bwd.py:_bwd_flat_pair_kernel):
+    per (b, h) the product [q | do] (N, 2D) . [[k^T, 0], [0, v^T]] (2D, 2N)
+    computed literally and split into s = q k^T and dp = do v^T, then K2b's
+    plain steps."""
     B, N, C = q.shape
     H = bias.shape[0]
     qh, kh, vh, doh = (_heads(t, H) for t in (q, k, v, do))
-    s = torch.matmul(qh, kh.transpose(-1, -2)) * scale + bias.float()
+    z = qh.new_zeros(B, H, C // H, N)
+    rhs = torch.cat([torch.cat([kh.transpose(-1, -2), z], -1),
+                     torch.cat([z, vh.transpose(-1, -2)], -1)], -2)
+    both = torch.matmul(torch.cat([qh, doh], -1), rhs)
+    return _flat_bwd_from_products(q, k, v, bias, qh, kh, doh, both[..., :N], both[..., N:],
+                                   scale)
+
+
+def _flat_bwd_from_products(q, k, v, bias, qh, kh, doh, qk, dp, scale: float):
+    """K2b's plain steps after the two products of its phase 1, qk = q k^T
+    and dp = do v^T (f32, per head)."""
+    B, N, C = q.shape
+    s = qk * scale + bias.float()
     s = s - s.amax(dim=-1, keepdim=True)
     e = torch.exp(s)
     p = e / e.sum(dim=-1, keepdim=True)
     pc = p.to(v.dtype).float()
     dv = torch.matmul(pc.transpose(-1, -2), doh)
-    dp = torch.matmul(doh, vh.transpose(-1, -2))
     delta = (dp * p).sum(dim=-1, keepdim=True)
     ds = p * (dp - delta)
     dsc = ds.to(q.dtype).float()
@@ -154,25 +183,51 @@ def fused_attention_flat_bwd(q, k, v, bias, do, scale: float):
     plain version; CUDA tensors launch K2b or raise."""
     if q.device.type == "cpu":
         return fused_attention_flat_bwd_reference(q, k, v, bias, do, scale)
-    B, N, H, D = _check_cuda_operands("fused_attention_flat_bwd", (q, k, v, bias, do),
-                                      q, bias)
+    name = "fused_attention_flat_bwd"
+    B, N, H, D = _check_cuda_operands(name, (q, k, v, bias, do), q, bias)
     from mem_tpu_torch.kernels import build
 
     lib = build.library()
-    is_bf16 = int(q.dtype == torch.bfloat16)
-    _smem_check("fused_attention_flat_bwd", lib.mem_attention_bwd_flat_smem(N, D, is_bf16),
+    _smem_check(name, lib.mem_attention_bwd_flat_smem(N, D, int(q.dtype == torch.bfloat16)),
                 N, D)
+    return _flat_bwd(name, "mem_attention_bwd_flat", q, k, v, bias, do, scale, B, N, H, D)
+
+
+def fused_attention_flat_bwd_pair(q, k, v, bias, do, scale: float):
+    """X3: K2b's function, with each head's s = q k^T and dp = do v^T taken as
+    one depth-2D product against a block-diagonal operand (the experiment of
+    scripts/exp_attn_bwd.py). (dq, dk, dv) shaped and typed as q/k/v and db
+    (H, N, N) f32 summed over the batch. CPU tensors take the plain version;
+    CUDA tensors launch csrc/attention_bwd_pair.cu (bf16, head dim 64, N <=
+    FLAT_MAX_N only: other shapes raise) or raise."""
+    if q.device.type == "cpu":
+        return fused_attention_flat_bwd_pair_reference(q, k, v, bias, do, scale)
+    name = "fused_attention_flat_bwd_pair"
+    B, N, H, D = _check_cuda_operands(name, (q, k, v, bias, do), q, bias)
+    if q.dtype != torch.bfloat16 or D != 64 or N > FLAT_MAX_N:
+        raise ValueError(f"{name} takes bf16 operands at head dim 64 and N <= {FLAT_MAX_N}, "
+                         f"got {q.dtype}, D={D}, N={N}")
+    return _flat_bwd(name, "mem_attention_bwd_pair", q, k, v, bias, do, scale, B, N, H, D)
+
+
+def _flat_bwd(name, entry, q, k, v, bias, do, scale, B, N, H, D):
+    """Launch a flat backward (K2b or X3) through the C entry point ``entry``
+    with its outputs and (B, H, N, N) workspaces, and count the launch under
+    ``name``."""
+    from mem_tpu_torch.kernels import build
+
+    lib = build.library()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     db = torch.empty(H, N, N, dtype=torch.float32, device=q.device)
     ds_ws = torch.empty(B, H, N, N, dtype=torch.float32, device=q.device)
     pc_ws = torch.empty(B, H, N, N, dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.mem_attention_bwd_flat(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-                                    do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                                    db.data_ptr(), ds_ws.data_ptr(), pc_ws.data_ptr(),
-                                    B, N, H, D, float(scale), is_bf16, stream)
-    build.check("fused_attention_flat_bwd", rc)
-    count_launch("fused_attention_flat_bwd")
+    rc = getattr(lib, entry)(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                             do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                             db.data_ptr(), ds_ws.data_ptr(), pc_ws.data_ptr(), B, N, H, D,
+                             float(scale), int(q.dtype == torch.bfloat16), stream)
+    build.check(name, rc)
+    count_launch(name)
     return dq, dk, dv, db
 
 

@@ -22,31 +22,20 @@ family's tensor-core instantiations, every long kernel), then three medians
 of 40 CUDA-event timings of K2f and K2b at (B, 197, 768) bf16 for B = 8 and
 64, and of K3f and K3b at (8, 1025, 768) bf16. Two processes on the same
 code differ by a few per cent: compare the ptxas lines first, and read a
-time difference against the spread between the two legs of one tree.
+time difference against the spread between the two legs of one tree. The
+timer comes from the tree under test (``mem_tpu_torch.tools.time_ms``), so
+both trees must have it.
 """
 import re
-import statistics
 import sys
 
 import torch
 
 from mem_tpu_torch.kernels import build
 from mem_tpu_torch.ops import attention as A
+from mem_tpu_torch.tools import time_ms
 
-
-def time_ms(fn, runs=40, warmup=8):
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+RUNS, WARMUP = 40, 8
 
 
 def flat_kernel(name: str) -> bool:
@@ -71,16 +60,16 @@ def main(tag: str) -> None:
         q, k, v, do = (torch.randn(B, 197, 768, device="cuda", dtype=torch.bfloat16)
                        for _ in range(4))
         bias = torch.randn(12, 197, 197, device="cuda")
-        fwd = [time_ms(lambda: A._forward(q, k, v, bias, 0.125)) for _ in range(3)]
-        bwd = [time_ms(lambda: A.fused_attention_flat_bwd(q, k, v, bias, do, 0.125))
-               for _ in range(3)]
+        fwd = [time_ms(lambda: A._forward(q, k, v, bias, 0.125), RUNS, WARMUP) for _ in range(3)]
+        bwd = [time_ms(lambda: A.fused_attention_flat_bwd(q, k, v, bias, do, 0.125),
+                       RUNS, WARMUP) for _ in range(3)]
         print(tag, "B", B, "K2f ms", fwd, "K2b ms", bwd, flush=True)
     q, k, v, do = (torch.randn(8, 1025, 768, device="cuda", dtype=torch.bfloat16)
                    for _ in range(4))
     bias = torch.randn(12, 1025, 1025, device="cuda")
-    fwd = [time_ms(lambda: A._forward_long(q, k, v, bias, 0.125)) for _ in range(3)]
-    bwd = [time_ms(lambda: A.fused_attention_flat_long_bwd(q, k, v, bias, do, 0.125))
-           for _ in range(3)]
+    fwd = [time_ms(lambda: A._forward_long(q, k, v, bias, 0.125), RUNS, WARMUP) for _ in range(3)]
+    bwd = [time_ms(lambda: A.fused_attention_flat_long_bwd(q, k, v, bias, do, 0.125),
+                   RUNS, WARMUP) for _ in range(3)]
     print(tag, "B", 8, "N", 1025, "K3f ms", fwd, "K3b ms", bwd, flush=True)
 
 

@@ -220,7 +220,7 @@ def test_seg_assemble_keeps_signed_payloads(rng):
 _IMPORT_ALL = r'''
 import importlib, importlib.abc, pkgutil, sys
 
-BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "mem_tpu")
+BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "mem_tpu", "scripts")
 
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -238,7 +238,8 @@ for name in names + ["chip_smoke"]:
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
 assert not bad, bad
 assert len(names) > 38, names
-for new in ("ops.mlp", "train.mixup", "cli.run_class_finetuning"):
+for new in ("ops.mlp", "train.mixup", "cli.run_class_finetuning", "tools.exp_voxelize",
+            "tools.exp_attn_bwd"):
     assert "mem_tpu_torch." + new in names, new
 print("imported", len(names) + 1)
 '''
@@ -246,7 +247,8 @@ print("imported", len(names) + 1)
 
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     """Every module of mem_tpu_torch and chip_smoke imports with a meta-path
-    finder that refuses jax, flax, optax, orbax and mem_tpu (extends
+    finder that refuses jax, flax, optax, orbax, mem_tpu and the reference's
+    scripts (extends
     test_pretraining_import_loads_no_jax of tests/test_torch_train.py)."""
     r = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                        env=dict(os.environ, PYTHONPATH=REPO), capture_output=True, text=True,
