@@ -48,16 +48,21 @@ read just after:
   times a train micro-batch; with ENABLED = False the einsum path, no K5;
 - the experiment tools: mem_tpu_torch.tools.exp_voxelize.main(["all"]) (the
   one-hot contraction kernels X1a, X1b, X1c at the reference's seg and cls
-  shapes and chunks, K1 beside them) and mem_tpu_torch.tools.exp_attn_bwd.main
-  (X3, the paired attention backward, beside K2b at (128, 197, 768)); both
-  must exit 0 and launch exactly what their loops call.
+  shapes and chunks, K1 beside them), mem_tpu_torch.tools.exp_attn_bwd.main
+  (X3, the paired attention backward, beside K2b at (128, 197, 768)) and
+  mem_tpu_torch.tools.exp_voxelize2.main(["all"]) (X2a, the int8 dense
+  contraction, and X2b / X2c, the row-band contraction with the reference's
+  (band, chunk) skip in bf16 and int8, at every (TH, chunk) of the
+  reference's main, main2 and main3, the packed-key sort, K4 and K1 beside
+  them); each must exit 0 and launch exactly what its loops call.
 
 The K5 kernels of the shapes that are not head-blocked-eligible (K5b, K5d,
 K5e) share K3f's and K3b's bodies: each is also held bit for bit against the
 K3 kernel on transposed operands, and a seg forward with FLAT_ATTN = False
-against the CPU's logits. X1a, X1b and X1c are held bit for bit against their
-plain versions; X3 inside K2b's gates against its plain version and bit for
-bit against K2b.
+against the CPU's logits. X1a, X1b, X1c, X2a, X2b and X2c are held bit for
+bit against their plain versions (X2 at every chunk and (TH, chunk) of the
+reference's sweeps, on y-sorted and unsorted events); X3 inside K2b's gates
+against its plain version and bit for bit against K2b.
 
 Between them it holds one pretraining, one segmentation and one finetune
 train step on the card (f32 and bf16) against the same step on the CPU, and
@@ -507,8 +512,9 @@ def run(torch):
     seg_train = run_seg_train_slice(torch, dev, gpu, rng)
     k5_ms = time_k5_long(torch, dev, gpu)
 
-    # -- the experiment kernels X1a, X1b, X1c and X3 ----------------------------
+    # -- the experiment kernels X1a, X1b, X1c, X3, X2a, X2b and X2c -------------
     x1_err, x3_err = check_x1(torch, dev, g), check_x3(torch, dev, g)
+    x2_err = check_x2(torch, dev, g)
     exp_counts = run_experiment_tools(torch)
     x_ms = time_experiments(torch, dev, gpu)
 
@@ -522,9 +528,11 @@ def run(torch):
     # test_seg's single-scale run, K3b from train_seg's first run, K6f, K6b,
     # K5a and K5c from the toggled finetune CLI's first run, K5b and K5e from
     # train_seg's run with FLAT_ATTN_LONG = False, K5d from the N = 401
-    # finetune run, X1a, X1b, X1c and X3 from the experiment tools' runs;
+    # finetune run, X1a, X1b, X1c, X3, X2a, X2b and X2c from the experiment
+    # tools' runs;
     # times at the shapes the bounds name
     ops, vox, attn = "mem_tpu/ops/", "scripts/exp_voxelize.py", "scripts/exp_attn_bwd.py"
+    vox2 = "scripts/exp_voxelize2.py"
     print(json.dumps({"kernels": [
         row("hist_planes_cols", "voxelize_hist.cu", ops + "voxelize_pallas.py:64",
             train_counts["hist_planes_cols"], k1_err, timing[8][0], timing[8][1],
@@ -572,6 +580,10 @@ def run(torch):
         row("fused_attention_flat_bwd_pair", "attention_bwd_pair.cu", f"{attn}:38",
             exp_counts["exp_attn_bwd"]["fused_attention_flat_bwd_pair"], x3_err,
             *x_ms["fused_attention_flat_bwd_pair"]),
+        *(row(name, "exp_voxelize2.cu", f"{vox2}:{line}", exp_counts["exp_voxelize2"][name],
+              x2_err[name], *x_ms[name])
+          for name, line in (("exp_voxelize2_fused_i8", 49), ("exp_voxelize2_tiled", 24),
+                             ("exp_voxelize2_tiled_i8", 204))),
     ]}), flush=True)
 
 
@@ -2763,6 +2775,95 @@ def check_x1(torch, dev, g):
     return seg
 
 
+X2_ODD = (3, 12_345, 37, 45)   # an odd shape for X2, with stray coordinates
+
+
+def x2_sweeps():
+    """The chunks of X2a and the (TH, chunk) of X2b and X2c in the reference
+    script's sweeps (main, main2, main3 and both e2e runs)."""
+    from mem_tpu_torch.tools import exp_voxelize2 as X2
+
+    specs = X2.MAIN_TILED + X2.MAIN2_TILED + (X2.MAIN_E2E, X2.MAIN2_E2E)
+    return (sorted({X2.MAIN_DENSE_CHUNK, *X2.CLS_DENSE_CHUNKS}),
+            {dt: sorted({(TH, c) for d, TH, c in specs if d == dt}) for dt in ("bf16", "i8")})
+
+
+def x2_cases(torch, g):
+    """(case, (B, N, H, W), col, ys, dense only) on the CPU: the reference's
+    seeded events at seg, y-sorted and not, at cls (X2a's shape there), and
+    the odd shape unsorted and y-sorted with negatives, the sentinels (col
+    2W, ys H, n_tiles * TH + 1 for TH = 32 / 64 and 128) and ys in
+    [H, n_tiles * TH)."""
+    from mem_tpu_torch.tools import exp_voxelize2 as X2
+
+    for sort in (True, False):
+        yield (f"seg_{'sorted' if sort else 'unsorted'}", X2.SEG,
+               *X2.make_inputs(*X2.SEG, sort, "cpu"), False)
+    yield "cls", X2.CLS, *X2.make_inputs(*X2.CLS, False, "cpu"), True
+    B, N, H, W = X2_ODD
+    col = torch.randint(-2, 2 * W + 3, (B, N), generator=g, dtype=torch.int32)
+    ys = torch.randint(-2, X2.n_rows(H, 128) + 3, (B, N), generator=g, dtype=torch.int32)
+    col[:, :500] = 2 * W
+    ys[:, 500:1000] = H
+    ys[:, 1000:1300] = X2.n_rows(H, 64) + 1
+    ys[:, 1300:1600] = X2.n_rows(H, 128) + 1
+    yield "odd_unsorted", X2_ODD, col, ys, False
+    ys, order = torch.sort(ys, dim=1, stable=True)
+    yield "odd_sorted", X2_ODD, torch.gather(col, 1, order), ys, False
+
+
+def check_x2(torch, dev, g):
+    """X2a, X2b and X2c against their plain versions, bit for bit, at every
+    chunk and (TH, chunk) of the reference's sweeps, on every case of
+    x2_cases (X2b and X2c on unsorted events too, where the skip must stay
+    exact), and e2e_sort_tiled (both of the script's runs) at seg against the
+    plain histogram of the unsorted events. Returns {counter name: max abs
+    error at seg}."""
+    from mem_tpu_torch.ops.voxelize_hist import hist_planes_cols_reference
+    from mem_tpu_torch.tools import exp_voxelize2 as X2
+
+    chunks, tiled = x2_sweeps()
+    seg = {"exp_voxelize2_fused_i8": 0.0, "exp_voxelize2_tiled": 0.0,
+           "exp_voxelize2_tiled_i8": 0.0}
+    for tag, (B, N, H, W), col, ys, dense_only in x2_cases(torch, g):
+        col, ys = col.to(dev), ys.to(dev)
+        errs = {}
+        want = X2.exp_voxelize2_fused_i8_reference(col, ys, H, W)
+        for chunk in chunks:
+            got = X2.exp_voxelize2_fused_i8(col, ys, H, W, chunk)
+            errs["exp_voxelize2_fused_i8", f"c{chunk}"] = (got - want).abs().max().item()
+        for dt, fn, name in (() if dense_only else (
+                (torch.float32, X2.exp_voxelize2_tiled, "exp_voxelize2_tiled"),
+                (torch.int32, X2.exp_voxelize2_tiled_i8, "exp_voxelize2_tiled_i8"))):
+            for TH, chunk in tiled["i8" if dt == torch.int32 else "bf16"]:
+                want = X2.exp_voxelize2_tiled_reference(col, ys, H, W, TH, dt)
+                got = fn(col, ys, H, W, TH, chunk)
+                check(got.shape == want.shape and got.dtype == dt,
+                      f"{name} at {tag}: {tuple(got.shape)} {got.dtype}")
+                errs[name, f"t{TH}_c{chunk}"] = (got - want).abs().max().item()
+        torch.cuda.synchronize()
+        if tag.startswith("seg"):
+            for (name, _), v in errs.items():
+                seg[name] = max(seg[name], v)
+        errs = {f"{n}_{c}": v for (n, c), v in errs.items()}
+        say("x2_check", case=tag, shape=[B, N, H, W], max_abs_err=errs,
+            events=int(want.sum().item()))
+        check(max(errs.values()) == 0, f"X2 differs from its plain version at {tag}: {errs}")
+        del col, ys, want, got
+    col, ys = (t.to(dev) for t in X2.make_inputs(*X2.SEG, False, "cpu"))
+    B, N, H, W = X2.SEG
+    planes = hist_planes_cols_reference(col, ys, H, W)
+    for dt, TH, chunk in (X2.MAIN_E2E, X2.MAIN2_E2E):
+        got = X2.e2e_sort_tiled(col, ys, H, W, TH, chunk, dt == "i8")
+        torch.cuda.synchronize()
+        err = (got[:, :H].to(torch.int32) - planes).abs().max().item()
+        say("x2_check", case=f"seg_e2e_{dt}_t{TH}_c{chunk}", max_abs_err_vs_unsorted_plain=err,
+            rows_past_h=int(got[:, H:].sum().item()))
+        check(err == 0 and got[:, H:].sum().item() == 0,
+              f"e2e_sort_tiled ({dt}, {TH}, {chunk}) differs from the unsorted histogram: {err}")
+    return seg
+
+
 def check_x3(torch, dev, g):
     """X3 at every shape against the plain pair inside K2b's gates, bit for
     bit against K2b on the same operands, and bit-identical across launches:
@@ -2812,16 +2913,19 @@ def check_x3(torch, dev, g):
 def run_experiment_tools(torch):
     """The experiments' entry points as a user runs them:
     ``exp_voxelize.main(["all"])`` (both shapes, every variant checked against
-    its plain version and timed, K1 beside them) and ``exp_attn_bwd.main([])``
-    (the reference's defaults: B=128, steps=8), each with the launch counts
-    set to 0 just before it and read just after; both must exit 0 and launch
-    exactly what their loops call. Returns {tool: counts}."""
+    its plain version and timed, K1 beside them), ``exp_attn_bwd.main([])``
+    (the reference's defaults: B=128, steps=8) and
+    ``exp_voxelize2.main(["all"])`` (main, main2 and main3: every variant
+    checked and timed, K4 and K1 beside them), each with the launch counts
+    set to 0 just before it and read just after; each must exit 0 and launch
+    exactly what its loops call. Returns {tool: counts}."""
     from mem_tpu_torch.kernels import launch_counts, reset_launch_counts
-    from mem_tpu_torch.tools import exp_attn_bwd, exp_voxelize
+    from mem_tpu_torch.tools import exp_attn_bwd, exp_voxelize, exp_voxelize2
 
     runs, stamps = {}, [time.perf_counter()]
     for tool, call in (("exp_voxelize", lambda: exp_voxelize.main(["all"])),
-                       ("exp_attn_bwd", lambda: exp_attn_bwd.main([]))):
+                       ("exp_attn_bwd", lambda: exp_attn_bwd.main([])),
+                       ("exp_voxelize2", lambda: exp_voxelize2.main(["all"]))):
         reset_launch_counts()                 # just before the path
         rc = call()
         runs[tool] = launch_counts()          # just after it
@@ -2835,18 +2939,93 @@ def run_experiment_tools(torch):
                              "hist_planes_cols": 2 * (exp_voxelize.WARMUP + exp_voxelize.RUNS)},
             "exp_attn_bwd": {"fused_attention_flat_bwd": per_fn,
                              "fused_attention_flat_bwd_pair": per_fn}}
+    X2 = exp_voxelize2
+    per_x2 = 1 + X2.WARMUP + X2.RUNS   # the check, then the timing
+    tiled = X2.MAIN_TILED + X2.MAIN2_TILED + (X2.MAIN_E2E, X2.MAIN2_E2E)
+    want["exp_voxelize2"] = {
+        "exp_voxelize2_fused_i8": (1 + len(X2.CLS_DENSE_CHUNKS)) * per_x2,
+        "exp_voxelize2_tiled": sum(dt == "bf16" for dt, _, _ in tiled) * per_x2,
+        "exp_voxelize2_tiled_i8": sum(dt == "i8" for dt, _, _ in tiled) * per_x2,
+        "hist_planes_cols_sorted": per_x2, "hist_planes_cols": per_x2}
     say("experiment_tools", launches=runs,
         seconds=[round(b - a, 2) for a, b in zip(stamps, stamps[1:])])
     check(runs == want, f"the experiment tools launched {runs}, not {want}")
     return runs
 
 
+def time_x2(torch, dev, gpu):
+    """X2a at seg (unsorted events, chunk 2048) and cls (chunks 2048 and
+    4096), X2b and X2c at their best (TH, chunk) of the reference's sweeps on
+    y-sorted seg events (each configuration timed briefly, the fastest then in
+    turns with its plain version) and at that (TH, chunk) on unsorted events
+    too (the skip's effect), each with the torch.bincount yardstick over the
+    rows the kernel writes, K1 and K4 on the same events, and the packed-key
+    sort. Returns {counter name: (ms, plain_ms, bound, library_ms)} at seg."""
+    from mem_tpu_torch.ops import voxelize_hist as vh
+    from mem_tpu_torch.tools import exp_voxelize2 as X2
+
+    out = {}
+    _, tiled = x2_sweeps()
+    B, N, H, W = X2.SEG
+    col, ys = X2.make_inputs(B, N, H, W, False, dev)
+    cols, yss = X2.make_inputs(B, N, H, W, True, dev)
+    t_sort = time_ms(lambda: X2.sort_packed(col, ys))
+    t_k1 = time_ms(lambda: vh.hist_planes_cols(cols, yss, H, W))
+    t_k4 = time_ms(lambda: vh.hist_planes_cols_sorted(cols, yss, H, W, presorted=True))
+    say("time_x2_sort", gpu=gpu, shape=[B, N], sort_ms=t_sort, k1_sorted_events_ms=t_k1,
+        k4_presorted_ms=t_k4)
+    for tag, (B, N, H, W), chunks in (("seg", X2.SEG, (X2.MAIN_DENSE_CHUNK,)),
+                                      ("cls", X2.CLS, X2.CLS_DENSE_CHUNKS)):
+        c, y = (col, ys) if tag == "seg" else X2.make_inputs(B, N, H, W, False, dev)
+        want = X2.exp_voxelize2_fused_i8_reference(c, y, H, W)
+        t_lib, lib_equal = bincount_ms(torch, c, y, H, W, want)
+        k1 = time_ms(lambda: vh.hist_planes_cols(c, y, H, W))
+        bnd = hist_bound(B, N, H, W)
+        for chunk in chunks:
+            t_k, t_p = in_turns(torch, lambda: X2.exp_voxelize2_fused_i8_reference(c, y, H, W),
+                                lambda: X2.exp_voxelize2_fused_i8(c, y, H, W, chunk), runs=10)
+            say("time_exp_voxelize2_fused_i8", gpu=gpu, case=tag, shape=[B, N, H, W],
+                chunk=chunk, kernel_ms=t_k, plain_ms=t_p, bincount_ms=t_lib,
+                bincount_equals_plain=lib_equal, k1_ms=k1, bound_ms=bnd[0], bound_by=bnd[1],
+                kernel_gev_s=B * N / t_k / 1e6)
+            if tag == "seg":
+                out["exp_voxelize2_fused_i8"] = (t_k, t_p, bnd, t_lib)
+        del c, y, want
+    B, N, H, W = X2.SEG
+    for name, fn, dt, key in (("exp_voxelize2_tiled", X2.exp_voxelize2_tiled, torch.float32,
+                               "bf16"),
+                              ("exp_voxelize2_tiled_i8", X2.exp_voxelize2_tiled_i8, torch.int32,
+                               "i8")):
+        sweep = {cfg: time_ms(lambda: fn(cols, yss, H, W, *cfg), runs=5, warmup=2)
+                 for cfg in tiled[key]}
+        TH, chunk = min(sweep, key=sweep.get)
+        rows = X2.n_rows(H, TH)
+        t_k, t_p = in_turns(torch, lambda: X2.exp_voxelize2_tiled_reference(
+            cols, yss, H, W, TH, dt), lambda: fn(cols, yss, H, W, TH, chunk), runs=10)
+        t_unsorted = time_ms(lambda: fn(col, ys, H, W, TH, chunk), runs=10)
+        t_e2e = time_ms(lambda: X2.e2e_sort_tiled(col, ys, H, W, TH, chunk, key == "i8"),
+                        runs=10)
+        t_lib, lib_equal = bincount_ms(torch, cols, yss, rows, W, vh.hist_planes_cols_reference(
+            cols, yss, rows, W))
+        bnd = hist_bound(B, N, rows, W)
+        say(f"time_{name}", gpu=gpu, shape=[B, N, H, W], best_th=TH, best_chunk=chunk,
+            sweep_ms={f"t{a}_c{b}": v for (a, b), v in sweep.items()}, kernel_ms=t_k,
+            plain_ms=t_p, unsorted_events_ms=t_unsorted, sort_and_kernel_ms=t_e2e,
+            bincount_ms=t_lib, bincount_equals_plain=lib_equal, k1_ms=t_k1, k4_ms=t_k4,
+            bound_ms=bnd[0], bound_by=bnd[1], kernel_gev_s=B * N / t_k / 1e6)
+        out[name] = (t_k, t_p, bnd, t_lib)
+    del col, ys, cols, yss
+    torch.cuda.empty_cache()
+    return out
+
+
 def time_experiments(torch, dev, gpu):
     """X1a, X1b and X1c at the seg shape (8 x 180,224 events, 440 x 640) on
     the reference's events, each beside its plain version (in turns), with
-    the torch.bincount yardstick and K1 on the same packed events; X3 at
-    X3_SHAPE bf16 beside its plain version (in turns), K2b and the SDPA
-    backward. Returns {counter name: (ms, plain_ms, bound, library_ms)}."""
+    the torch.bincount yardstick and K1 on the same packed events; X2 (see
+    time_x2); X3 at X3_SHAPE bf16 beside its plain version (in turns), K2b and
+    the SDPA backward. Returns {counter name: (ms, plain_ms, bound,
+    library_ms)}."""
     from mem_tpu_torch.ops import attention as A
     from mem_tpu_torch.ops import voxelize_hist as vh
     from mem_tpu_torch.tools import exp_voxelize as X
@@ -2875,6 +3054,7 @@ def time_experiments(torch, dev, gpu):
             kernel_gev_s=B * N / t_k / 1e6, kernel_tflop_s=flop / t_k / 1e9)
         out[name] = (t_k, t_p, bnd, t_lib)
     del xs, ys, wpos, wneg, col, ysp
+    out.update(time_x2(torch, dev, gpu))
 
     B, N, Hh, D = X3_SHAPE
     q, k, v, do = (torch.randn(B, N, Hh * D, device=dev, dtype=torch.bfloat16)

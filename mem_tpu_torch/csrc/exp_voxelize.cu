@@ -25,10 +25,12 @@
 // 8.3e11 multiply-adds, 1.7 ms at the bf16 peak, and every mma needs its B
 // fragment made from the staged event indices by integer instructions.
 //
-// Design. One block of 4 warps owns a 64-row x 128-column tile of one
-// sample's plane as f32 accumulators in registers (a warp: 32 rows x 64
-// columns, 2 x 8 m16n8 tiles) and streams all of the sample's events through
-// shared memory, `stage` events at a time. For each 16-event k-step a thread
+// Design (the block, the staging and the write-out are exp_voxelize.cuh's,
+// shared with X2; the k-step is written out in the kernel, which says why).
+// One block of 4 warps owns a 64-row x 128-column tile of one sample's plane
+// as f32 accumulators in registers (a warp: 32 rows x 64 columns, 2 x 8
+// m16n8 tiles) and streams all of the sample's events through shared memory,
+// `stage` events at a time. For each 16-event k-step a thread
 // reads the 4 events its fragments cover and turns each into a bit mask of
 // the row (or column) tiles it hits among the thread's own rows (columns),
 // two events per 32-bit word; a masked bit times 0x3F80 >> bit is bf16 1.0 in
@@ -50,41 +52,11 @@
 //
 // Allocates nothing and does not synchronise.
 
-#include <cstdint>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "exp_voxelize.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kTileRows = 64;       // 2 warps x 32 rows
-constexpr int kTileCols = 128;      // 2 warps x 64 columns
-constexpr uint32_t kOne = 0x3F80u;  // bf16 1.0 = 0x7F << 7
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Bit (v - base) / 8 when v lies in [base, base + span) on base's residue
-// mod 8, else 0: which of a thread's rows or columns (base + 8 i) v hits.
-__device__ __forceinline__ uint32_t hit(int v, int base, int span) {
-  const unsigned rel = static_cast<unsigned>(v) - static_cast<unsigned>(base);
-  return (rel < static_cast<unsigned>(span) && (rel & 7u) == 0u) ? 1u << (rel >> 3) : 0u;
-}
-
-// Two events' hit masks (low and high 16 bits) -> the fragment register of
-// bit i: bf16 1.0 in each half whose event hits
-__device__ __forceinline__ uint32_t ones(uint32_t m, int i) {
-  return (m & (0x10001u << i)) * (kOne >> i);
-}
-
-// the same as a 0xFFFF mask per half, for X1a's weights
+// two events' hit masks -> a 0xFFFF mask per half, for X1a's weights
 __device__ __forceinline__ uint32_t halves(uint32_t m, int i) {
   return ((m >> i) & 0x10001u) * 0xFFFFu;
 }
@@ -118,27 +90,22 @@ onehot_planes_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ 
   const int col_base = blockIdx.x * kTileCols + wn * 64 + g;   // + 8 nt, nt < 8
 
   float acc[2][8][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) acc[mi][nt][0] = acc[mi][nt][1] = acc[mi][nt][2] = acc[mi][nt][3] = 0.f;
+  zero_tile(acc);
 
   for (int s0 = 0; s0 < n; s0 += stage) {
     const int len = min(stage, n - s0);
-    const int padded = (len + 15) & ~15;
-    __syncthreads();   // the previous stage is consumed
-    for (int i = threadIdx.x; i < padded; i += kThreads) {
-      const bool in = i < len;
-      sa[i] = in ? __ldg(ga + s0 + i) : -1;   // -1 hits no row or column
-      sy[i] = in ? __ldg(gy + s0 + i) : -1;
+    const int padded = stage_events<16>(sa, sy, ga, gy, s0, len, [&](int i, bool in) {
       if constexpr (kRaw) {
         sw[i] = in ? bf16_bits(__ldg(wpos + b * n + s0 + i)) |
                          (bf16_bits(__ldg(wneg + b * n + s0 + i)) << 16)
                    : 0u;
       }
-    }
-    __syncthreads();
+    });
 
+    // The k-step stays written out here rather than as exp_voxelize.cuh's
+    // onehot_step_bf16 (X2b's copy of X1b's branch): every split of it into
+    // a function that was tried moved X1b from 126 to 128 registers (ptxas,
+    // sm_90a), and X1 keeps its parent's code.
     for (int k = 0; k < padded; k += 16) {
       // this thread's events: k + 2t, k + 2t + 1 (lo) and k + 2t + 8, k + 2t + 9 (hi)
       const int2 ylo = *reinterpret_cast<const int2*>(sy + k + 2 * t);
@@ -194,21 +161,7 @@ onehot_planes_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ 
     }
   }
 
-  // write the tile once: rows past h and columns past 2w are not stored
-  float* plane = out + b * h * static_cast<int64_t>(w2);
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-    const int r = row_base + mi * 16;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int c = col_base - g + nt * 8 + 2 * t;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int rr = r + (e >> 1) * 8, cc = c + (e & 1);
-        if (rr < h && cc < w2) plane[static_cast<int64_t>(rr) * w2 + cc] = acc[mi][nt][e];
-      }
-    }
-  }
+  store_tile(out + b * h * static_cast<int64_t>(w2), acc, row_base, col_base, g, t, h, w2);
 }
 
 template <bool kRaw>

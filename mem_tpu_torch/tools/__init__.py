@@ -1,6 +1,7 @@
 """Command-line tools of the port that are not part of a model path: the
-experiment kernels' entry points (``exp_voxelize``, ``exp_attn_bwd``) and
-the A/B helper of the flat attention kernels (``ab_flat_attention``).
+experiment kernels' entry points (``exp_voxelize``, ``exp_attn_bwd``,
+``exp_voxelize2``) and the A/B helper of the flat attention kernels
+(``ab_flat_attention``).
 
 This module holds what they and chip_smoke.py measure with: the CUDA-event
 timer, the H100's published peaks and the bounds reckoned from them."""
@@ -43,9 +44,9 @@ def bound(nbytes, ops, peak_ops):
 
 
 def hist_bound(B, N, H, W, arrays=2):
-    """K1 / K4 and X1: col and ys read (int32; X1a reads ``arrays`` = 4: xs,
-    ys, wpos, wneg), the (B, H, 2W) planes (int32 or f32) written; one add
-    per event."""
+    """K1 / K4, X1 and X2: col and ys read (int32; X1a reads ``arrays`` = 4:
+    xs, ys, wpos, wneg), the (B, H, 2W) planes (int32 or f32; X2b / X2c: H =
+    the n_tiles * TH rows they write) written; one add per event."""
     return bound(arrays * B * N * 4 + B * H * 2 * W * 4, B * N, PEAK_F32_FLOPS)
 
 

@@ -239,7 +239,7 @@ bad = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
 assert not bad, bad
 assert len(names) > 38, names
 for new in ("ops.mlp", "train.mixup", "cli.run_class_finetuning", "tools.exp_voxelize",
-            "tools.exp_attn_bwd"):
+            "tools.exp_attn_bwd", "tools.exp_voxelize2"):
     assert "mem_tpu_torch." + new in names, new
 print("imported", len(names) + 1)
 '''
