@@ -260,6 +260,22 @@ def bincount_ms(torch, col, ys, H, W, want):
     return (time_ms(call) if equal else None), equal
 
 
+def ptxas_report(log, fragment):
+    """ptxas's lines (spills; registers and shared memory) for each kernel
+    whose mangled name holds ``fragment``, from a build log."""
+    out, cur = [], None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            cur = {"kernel": ln.split("'")[1]} if fragment in ln else None
+            if cur:
+                out.append(cur)
+        elif cur is not None and "spill" in ln:
+            cur["spills"] = ln.strip()
+        elif cur is not None and "registers" in ln:
+            cur["registers"] = ln.strip().replace("ptxas info    : ", "")
+    return out
+
+
 def sdpa_operands(torch, q, k, v, bias):
     """(B, H, N, D) views' contiguous copies and the bias as a mask in the
     operands' dtype, for one scaled_dot_product_attention call."""
@@ -294,6 +310,12 @@ def run(torch):
     ptxas = [ln.strip() for ln in build.build_log().splitlines()
              if "registers" in ln or "spill" in ln]
     say("build", seconds=round(time.perf_counter() - t0, 3), ptxas=ptxas)
+    # the wgmma K3f / K5b kernel, flat and head-major: registers, shared
+    # memory, spills
+    wg = ptxas_report(build.build_log(), "attention_long_fwd_wgmma_kernel")
+    say("ptxas_k3f", kernels=wg)
+    check(len(wg) == 2 and all(" 0 bytes spill stores" in r["spills"] for r in wg),
+          f"the wgmma K3f kernel's ptxas report: {wg}")
 
     # -- phase 1: K1 against its plain version -------------------------------
     g = torch.Generator().manual_seed(0)
@@ -710,33 +732,48 @@ def check_k4(torch, dev, g):
 
 
 def check_k3f(torch, dev, g):
-    """K3f against its plain version: the seg backbone's shape in bf16 (the
-    tensor-core kernel) and f32 (the scalar kernel), an N that is no
-    multiple of the 64-key tile (577), a short one and another head dim.
-    Returns the max abs error at the backbone's shape."""
+    """K3f against its plain version: the seg backbone's shape in bf16 at B =
+    8 and train_seg's 16 (the wgmma kernel), one key past a tile (65), an N
+    that is no multiple of the 64-key tile (577), a short one, a bias that
+    ramps along the keys (the running max grows at every tile, so the
+    rescale runs), f32 (the scalar kernel) and another head dim. Every case
+    launched twice: the outputs must be bit-identical. Returns the max abs
+    error at the backbone's shape."""
     from mem_tpu_torch.ops.attention import (cuda_long_kernel_path, fused_attention_flat_long,
                                              fused_attention_flat_long_reference)
 
     first = None
-    for (B, N, H, D), dt in (((8, 1025, 12, 64), torch.bfloat16),
-                             ((2, 577, 12, 64), torch.bfloat16),
-                             ((1, 40, 2, 64), torch.bfloat16),
-                             ((2, 300, 2, 128), torch.bfloat16),
-                             ((2, 1025, 12, 64), torch.float32),
-                             ((2, 577, 3, 32), torch.float32)):
+    for (B, N, H, D), dt, ramp in (((8, 1025, 12, 64), torch.bfloat16, False),
+                                   ((16, 1025, 12, 64), torch.bfloat16, False),
+                                   ((2, 1025, 12, 64), torch.bfloat16, True),
+                                   ((2, 577, 12, 64), torch.bfloat16, False),
+                                   ((1, 65, 12, 64), torch.bfloat16, False),
+                                   ((1, 40, 2, 64), torch.bfloat16, False),
+                                   ((2, 300, 2, 128), torch.bfloat16, False),
+                                   ((2, 1025, 12, 64), torch.float32, False),
+                                   ((2, 577, 3, 32), torch.float32, False)):
         tol = K2_BF16_TOL if dt == torch.bfloat16 else K2_F32_TOL
         q, k, v = (torch.randn(B, N, H * D, generator=g).to(dt).to(dev) for _ in range(3))
-        bias = (0.5 * torch.randn(H, N, N, generator=g)).to(dev)
+        bias = 0.5 * torch.randn(H, N, N, generator=g)
+        if ramp:   # 2 per 64-key tile
+            bias += (2.0 / 64) * torch.arange(N, dtype=torch.float32)
+        bias = bias.to(dev)
         got = fused_attention_flat_long(q, k, v, bias, D ** -0.5)
+        again = fused_attention_flat_long(q, k, v, bias, D ** -0.5)
         torch.cuda.synchronize()
         want = fused_attention_flat_long_reference(q, k, v, bias, D ** -0.5)
         err = (got.float() - want.float()).abs().max().item()
-        say("k3f_check", dtype=str(dt), shape=[B, N, H, D], max_abs_err=err, tol=tol,
-            kernel=cuda_long_kernel_path(q, k, v, bias))
+        same = bool(torch.equal(got, again))
+        path = cuda_long_kernel_path(q, k, v, bias)
+        say("k3f_check", dtype=str(dt), shape=[B, N, H, D], ramped_bias=ramp, max_abs_err=err,
+            tol=tol, identical_across_launches=same, kernel=path)
         check(err <= tol, f"K3f {dt} {B, N, H, D} max abs err {err} > {tol}")
+        check(same, f"K3f {dt} {B, N, H, D}: two launches on the same operands differ")
+        check(path == ("wgmma" if dt == torch.bfloat16 and D == 64 else "scalar"),
+              f"K3f {dt} {B, N, H, D} took the {path} kernel")
         if first is None:
             first = err
-        del q, k, v, bias, got, want
+        del q, k, v, bias, got, again, want
     torch.cuda.empty_cache()
     return first
 
@@ -1120,19 +1157,30 @@ def run_seg_slice(torch, dev, gpu, rng):
             bound_ms=hist_bound(8, SEG_EVENTS, 440, 640)[0],
             kernel_gev_s=8 * SEG_EVENTS / t_k4 / 1e6)
 
-        q, k, v = (torch.randn(8, 1025, 768, device=dev, dtype=torch.bfloat16)
-                   for _ in range(3))
-        bias = torch.randn(12, 1025, 1025, device=dev)
-        t_k3, t_k3p = in_turns(
-            torch, lambda: fused_attention_flat_long_reference(q, k, v, bias, 0.125),
-            lambda: fused_attention_flat_long(q, k, v, bias, 0.125), runs=10)
-        qh, kh, vhd, mask = sdpa_operands(torch, q, k, v, bias)
-        t_k3l = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qh, kh, vhd, attn_mask=mask, scale=0.125))
-        say("time_k3f", gpu=gpu, batch=8, shape=[1025, 12, 64], dtype="bfloat16",
-            kernel_ms=t_k3, plain_ms=t_k3p, sdpa_ms=t_k3l,
-            bound_ms=attention_fwd_bound(8, 1025, 12, 64)[0],
-            kernel_tflop_s=4 * 8 * 12 * 1025 * 1025 * 64 / t_k3 / 1e9)
+        # K3f at the seg forward's B = 8 and train_seg's B = 16
+        k3f = {}
+        for B in (8, 16):
+            q, k, v = (torch.randn(B, 1025, 768, device=dev, dtype=torch.bfloat16)
+                       for _ in range(3))
+            bias = torch.randn(12, 1025, 1025, device=dev)
+            t_k, t_p = in_turns(
+                torch, lambda: fused_attention_flat_long_reference(q, k, v, bias, 0.125),
+                lambda: fused_attention_flat_long(q, k, v, bias, 0.125), runs=10)
+            qh, kh, vhd, mask = sdpa_operands(torch, q, k, v, bias)
+            t_l = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qh, kh, vhd, attn_mask=mask, scale=0.125))
+            # the events above include the wrapper's host time before each
+            # launch; the profiler's device time of the kernel alone beside it
+            d_k = kernel_device_ms(torch, lambda: fused_attention_flat_long(q, k, v, bias, 0.125),
+                                   ("attention_long_fwd",), per_launch=True)
+            bnd = attention_fwd_bound(B, 1025, 12, 64)
+            say("time_k3f", gpu=gpu, batch=B, shape=[1025, 12, 64], dtype="bfloat16",
+                kernel_ms=t_k, kernel_device_ms=d_k, plain_ms=t_p, sdpa_ms=t_l,
+                bound_ms=bnd[0], bound_by=bnd[1],
+                kernel_tflop_s=4 * B * 12 * 1025 * 1025 * 64 / t_k / 1e9)
+            k3f[B] = (t_k, t_p, t_l)
+            del q, k, v, bias, qh, kh, vhd, mask
+        t_k3, t_k3p, t_k3l = k3f[8]
     finally:
         tmp.cleanup()
     return dict(counts=counts, k3f_ms=t_k3, k3f_plain_ms=t_k3p, k3f_sdpa_ms=t_k3l,
@@ -2465,7 +2513,7 @@ def check_k5b(torch, dev, g):
         check(err <= tol, f"K5b {dt} {shape}: rel max abs err {err} > {tol}")
         check(equal, f"K5b {dt} {shape} differs from K3f on the transposed operands")
         check(launched == 1, f"K5b {dt} {shape}: {launched} launches under {name}")
-        check(path == ("tiled_mma" if _bf16_at_64(torch, shape, dt) else "tiled_scalar"),
+        check(path == ("tiled_wgmma" if _bf16_at_64(torch, shape, dt) else "tiled_scalar"),
               f"K5b {dt} {shape} took the {path} kernel")
         if first is None:
             first = (o.float() - want.float()).abs().max().item()

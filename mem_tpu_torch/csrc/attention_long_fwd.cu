@@ -7,7 +7,7 @@
 // The largest head dim the scalar kernel takes.
 extern "C" int mem_attention_long_fwd_max_d() { return kMaxScalarD; }
 
-// 1 when a launch at these arguments takes the tensor-core kernel (either layout)
+// 1 when a launch at these arguments takes the wgmma kernel (either layout)
 extern "C" int mem_attention_long_fwd_uses_mma(const void* q, const void* k,
                                                const void* v, const void* out,
                                                int d, int is_bf16) {

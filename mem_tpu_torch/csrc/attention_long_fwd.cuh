@@ -2,8 +2,8 @@
 // and the same kernels on head-major (B, H, N, D) layouts (K5b): the
 // translation unit that includes this file picks the addressing
 // (MEM_ATTENTION_HEAD_MAJOR -> kHeadMajor, layout_row_stride / layout_base
-// below); the entry points are in attention_long_fwd.cu and
-// attention_long_fwd_bhnd.cu. A per-file constant rather than a template
+// and the tensor maps below); the entry points are in attention_long_fwd.cu
+// and attention_long_fwd_bhnd.cu. A per-file constant rather than a template
 // argument, as in attention_fwd.cuh: the flat translation unit then compiles
 // exactly as if the head-major one did not exist.
 //
@@ -12,48 +12,66 @@
 // q, k, v (B, 1025, 12*64) bf16, bias (12, 1025, 1025) f32 shared by the
 // batch, scale = 1/8. The TPU kernel keeps one sample's flat tiles, the whole
 // bias and a full (N, N) f32 score tile per head in VMEM. No Hopper block can
-// (64 query rows x 1025 keys in f32 are 262 KB), so this kernel tiles the
-// keys, 64 at a time, and goes over them twice:
-//
-//   pass 1: s = (q.k) * scale + bias per key tile; the running row max m and
-//           the row sum l of exp(s - m), rescaled when m grows;
-//   pass 2: s again, p = exp(s - m) / l in f32, rounded to v's dtype, o += p v
-//           with f32 accumulation.
-//
-// Computing q.k twice keeps the TPU kernel's roundings (attention.py:266-273:
-// p is normalised in f32 and only then cast), so the result differs from the
-// plain version by summation order alone; an online softmax would round the
-// un-normalised exp instead.
+// (64 query rows x 1025 keys in f32 are 262 KB), so the keys go by in tiles
+// of 64.
 //
 // What bounds it on the H100: at B = 8 the function moves q, k, v, o (50 MB)
-// plus the bias (50 MB) for 25.8 GFLOP, so bytes bound it (about 0.03 ms),
-// and this first version is far from that bound: it is limited by issuing
-// mma.sync and the exp/bias arithmetic from 4 warps per block with no
-// overlap of staging and math. The grid is (sample, head, query tile) with
-// the sample fastest, so the B blocks that read one (head, query tile) bias
-// strip run together and the strip comes from device memory once and from L2
-// after that. Two kernels:
+// plus the bias (50 MB) for 25.8 GFLOP, so device memory bounds it (about
+// 0.03 ms). Behind that, L2: every block reads its (head, query rows) strip
+// of the bias and its head's K and V from L2. With one block per (sample,
+// head, 128 query rows) that is 403 MB of bias and 241 MB of K and V at
+// B = 8, ~0.1 ms at 6-7 TB/s. A block on two samples of one (head, query
+// tile) would halve the bias and double K and V: the same sum, and twice the
+// registers. So the grid is (sample, head, query tile), the sample fastest:
+// the B blocks that read one bias strip run together, and the strip comes
+// from device memory once and from L2 after. Two kernels:
 //
-// 1. attention_long_fwd_mma_kernel -- bf16, head dim 64 (the seg backbone).
-//    One block per (sample, head, 64 query rows), four warps of 16 rows. Per
-//    key tile the block stages the head's K rows (padded to 72 elements) and,
-//    in pass 2, V transposed (padded to 72) in 18 KB of shared memory; both
-//    paddings make a warp's 32-bit fragment loads hit 32 banks. Scores and o
-//    live in registers as mma.sync m16n8k16 accumulators; p goes from the
-//    score accumulators straight into the A fragments of the PV product.
+// 1. attention_long_fwd_wgmma_kernel -- bf16, head dim 64 (the seg
+//    backbone). One pass with an online softmax, per key tile:
+//      s = (q.k) * scale + bias, rounded twice as the reference (__fmul_rn,
+//          __fadd_rn); keys >= N masked to -inf;
+//      the running row max m grows; the row sum l and the output o are
+//          rescaled by exp(m_old - m_new);
+//      p~ = exp(s - m), summed into l in f32, rounded to bf16 as the A
+//          operand of o += p~ v;
+//    and at the end o * (1 / l), rounded to bf16 once. The reference rounds
+//    the normalised p to bf16 where this rounds the unnormalised p~: the
+//    result differs from the plain version by that rounding and by summation
+//    order (tests/test_torch_attention_long.py emulates this order against
+//    the Pallas kernel). exp is ex2.approx with log2(e) folded in.
+//    Block: two consumer warpgroups of 64 query rows and one producer warp.
+//    Both products are wgmma m64n64k16 with f32 accumulators: s = q k^T with
+//    the warpgroup's Q tile and the K tile from shared memory (K-major, 128 B
+//    swizzle); o += p~ v with p~ taken from the score registers as the A
+//    operand and the V tile as an MN-major B operand (the descriptor's
+//    transpose bit reads it as it lies, d contiguous: nothing is transposed
+//    by hand). The producer keeps a ring of three K / V stages in flight
+//    (TMA: 3-D tensor maps with 128 B swizzle; rows past N come back as
+//    zeros), on a full and an empty mbarrier per stage. Each consumer issues
+//    tile j's q k^T together with tile j - 1's p~ v and runs tile j's softmax
+//    while the second product is still on the tensor cores.
+//    The bias cannot go through TMA (a row of 1025 f32 is 4100 bytes; TMA
+//    wants 16-byte strides). Each thread loads its two rows' 16 keys of the
+//    tile straight into the accumulator's layout, one tile ahead of their
+//    use. (A shared-memory ring fed by one bulk copy per row's 16-byte-aligned
+//    span, issued by the producer, was tried first: it was right, but its 128
+//    small copies per tile queue in the copy engine, and the kernel ran
+//    slower than with these register loads.)
 // 2. attention_long_fwd_kernel -- f32 operands (nothing is rounded to TF32)
 //    and other head dims up to 128: scalar FMAs, one block per (sample, head,
 //    32 query rows), K/V tiles staged as f32 with rows padded by one word;
-//    each warp owns 8 rows and each lane two keys of the tile.
+//    each warp owns 8 rows and each lane two keys of the tile. It goes over
+//    the keys twice (row max and sum, then p = exp(s - m) / l rounded to the
+//    operands' dtype and p v), the reference's order of roundings.
 //
 // Both mask keys >= N (1025 is not a multiple of 64) and rows >= N, allocate
-// nothing and do not synchronise. wgmma, TMA and a pipelined K/V ring are
-// later work.
+// nothing and synchronise nothing outside the block.
 
 #pragma once
 
 #include <cmath>
 #include <cstdint>
+#include <cuda.h>   // CUtensorMap and its enums (the types only: no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -117,23 +135,115 @@ __device__ __forceinline__ int64_t layout_base(unsigned b, int h, int n, int hea
                     : static_cast<int64_t>(b) * n * c + static_cast<int64_t>(h) * d;
 }
 
+
 // ---------------------------------------------------------------------------
-// 1. tensor-core path: bf16, D = 64
+// 1. wgmma path: bf16, D = 64
 // ---------------------------------------------------------------------------
 
-constexpr int kMmaD = 64;
-constexpr int kMmaRows = 16 * kWarps;       // query rows per block
-constexpr int kNT = kTileKeys / 8;          // 8-key mma tiles per key tile
-constexpr int kKStride = kMmaD + 8;         // 36 words: 8 key rows x 4 lanes -> 32 banks
-constexpr int kVtStride = kTileKeys + 8;    // 36 words, the same
+constexpr int kWgD = 64;                          // head dim
+constexpr int kWgRows = 64;                       // query rows per consumer warpgroup
+constexpr int kConsumers = 2;                     // consumer warpgroups per block
+constexpr int kBlockRows = kWgRows * kConsumers;  // query rows per block
+constexpr int kStages = 3;                        // K / V ring depth
+constexpr int kWgThreads = 128 * kConsumers + 32; // + one producer warp
+constexpr int kTileBytes = kTileKeys * kWgD * 2;  // a Q, K or V tile: 64 rows of 128 B
+constexpr int kStageBytes = 2 * kTileBytes;       // a K and a V tile
+constexpr int kQBytes = kConsumers * kTileBytes;
+constexpr int kBarOffset = kQBytes + kStages * kStageBytes;
+// full[kStages], empty[kStages], q; the 1024 B in front align the swizzled tiles
+constexpr int kWgSmemBytes = 1024 + kBarOffset + 8 * (2 * kStages + 1);
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" :: "r"(bar) : "memory");
+}
+
+// until the phase of parity ``parity`` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// one box of a 3-D tensor map into shared memory, counted on ``bar``
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// A shared-memory matrix descriptor for a tile of 128-byte rows written by
+// TMA with 128 B swizzle: 8-row groups 1024 B apart (SBO), layout 1 (128 B
+// swizzle). The leading byte offset (1) is read by neither operand form here:
+// a K-major k16 slice and an MN-major n64 slice each lie inside one swizzle
+// atom of 128 bytes.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (uint64_t{1} << 16) |
+         (uint64_t{1024 >> 4} << 32) | (uint64_t{1} << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous product
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+#define MEM_WG_D32(d)                                                                        \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),     \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),           \
+      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),        \
+      "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),        \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),        \
+      "+f"(d[31])
+#define MEM_WG_R32                                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+// d (+)= a b, a and b K-major tiles in shared memory; ``acc`` 0 overwrites d
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MEM_WG_R32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : MEM_WG_D32(d)
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// d += a b, a in registers (the m16k16 fragment of each warp's 16 rows), b
+// an MN-major tile in shared memory
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MEM_WG_R32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : MEM_WG_D32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -141,172 +251,314 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// Stage keys [j0, j0 + 64) of one head: K rows into ks and, with kWithV, V
-// transposed into vt; 16 B per load, zeros past n.
-template <bool kWithV>
-__device__ __forceinline__ void stage_tile(const __nv_bfloat16* __restrict__ k,
-                                           const __nv_bfloat16* __restrict__ v,
-                                           __nv_bfloat16* ks, __nv_bfloat16* vt,
-                                           int64_t base, int c, int j0, int n) {
-  for (int idx = threadIdx.x; idx < kTileKeys * (kMmaD / 8); idx += kThreads) {
-    const int j = idx / (kMmaD / 8);
-    const int seg = (idx % (kMmaD / 8)) * 8;
-    uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-    if (j0 + j < n) {
-      const int64_t g = base + static_cast<int64_t>(j0 + j) * c + seg;
-      kv = *reinterpret_cast<const uint4*>(k + g);
-      if (kWithV) vv = *reinterpret_cast<const uint4*>(v + g);
-    }
-    *reinterpret_cast<uint4*>(ks + j * kKStride + seg) = kv;
-    if (kWithV) {
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" :: "n"(kPending) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+// s = q k^T over one key tile: four k16 steps along d, 32 bytes apart in the
+// swizzled rows; one commit group
+__device__ __forceinline__ void issue_qk(float (&sc)[32], uint32_t qtile, uint32_t ktile) {
 #pragma unroll
-      for (int e = 0; e < 8; ++e) vt[(seg + e) * kVtStride + j] = ve[e];
-    }
+  for (int kk = 0; kk < kWgD / 16; ++kk) {
+    wgmma_ss(sc, sw128_desc(qtile + 32 * kk), sw128_desc(ktile + 32 * kk), kk);
   }
+  wgmma_commit();
 }
 
-// One warp's 16 x 64 scores of a key tile: (q.k) * scale + bias (two
-// roundings, as the reference), keys >= n masked to -inf.
-__device__ __forceinline__ void tile_scores(float (&sc)[kNT][4],
-                                            const uint32_t (&qa)[kMmaD / 16][4],
-                                            const __nv_bfloat16* ks,
-                                            const float* __restrict__ ba,
-                                            const float* __restrict__ bb,
-                                            int j0, int n, int g, int t, float scale) {
+// o += p~ v over one key tile: the V tile's k16 steps are 16 rows of 128 B
+// apart; one commit group
+__device__ __forceinline__ void issue_pv(float (&o)[32], const uint32_t (&pf)[4][4],
+                                         uint32_t vtile) {
 #pragma unroll
-  for (int nt = 0; nt < kNT; ++nt) {
-    sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
-    const __nv_bfloat16* kr = ks + (nt * 8 + g) * kKStride + t * 2;
+  for (int kk = 0; kk < kTileKeys / 16; ++kk) wgmma_rs_mn(o, pf[kk], sw128_desc(vtile + 2048 * kk));
+  wgmma_commit();
+}
+
+// The accumulator of m64n64 gives warp w of a warpgroup rows 16w + g and
+// 16w + g + 8 (g = lane / 4) and, for j = 0..7, columns 8j + 2t, 8j + 2t + 1
+// (t = lane % 4): d[4j], d[4j + 1] on the first row, d[4j + 2], d[4j + 3] on
+// the second. Two adjacent 8-column groups are the A fragment of one k16 step.
+//
+// The bias of rows a and b (rows ga, gb of the head's bias) at this thread's
+// 16 columns of the key tile at j0, in the accumulator's order; 0 past n.
+__device__ __forceinline__ void load_bias(float (&bv)[32], const float* ga, const float* gb,
+                                          int j0, int n, int t) {
 #pragma unroll
-    for (int s = 0; s < kMmaD / 16; ++s) {
-      mma_bf16(sc[nt], qa[s], ld32(kr + s * 16), ld32(kr + s * 16 + 8));
-    }
+  for (int j = 0; j < 8; ++j) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      const int key = j0 + nt * 8 + t * 2 + e;
-      if (key < n) {
-        sc[nt][e] = __fadd_rn(__fmul_rn(sc[nt][e], scale), __ldg(ba + key));
-        sc[nt][2 + e] = __fadd_rn(__fmul_rn(sc[nt][2 + e], scale), __ldg(bb + key));
-      } else {
-        sc[nt][e] = sc[nt][2 + e] = -INFINITY;
-      }
+      const int key = j0 + 8 * j + 2 * t + e;
+      bv[4 * j + e] = key < n ? __ldg(ga + key) : 0.f;
+      bv[4 * j + 2 + e] = key < n ? __ldg(gb + key) : 0.f;
     }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-attention_long_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                              const __nv_bfloat16* __restrict__ k,
-                              const __nv_bfloat16* __restrict__ v,
-                              const float* __restrict__ bias,
-                              __nv_bfloat16* __restrict__ out,
-                              int n, int heads, float scale) {
-  __shared__ __align__(16) __nv_bfloat16 ks[kTileKeys * kKStride];
-  __shared__ __align__(16) __nv_bfloat16 vt[kMmaD * kVtStride];
-
-  const int h = blockIdx.y;
-  const int c = layout_row_stride(heads, kMmaD);
-  const int64_t base = layout_base(blockIdx.x, h, n, heads, kMmaD, c);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;   // fragment row (and key / column within an mma tile)
-  const int t = lane % 4;   // fragment column pair
-  // every warp stays for the staging barriers; rows >= n compute on zeros
-  // (and the last row's bias) and are not written
-  const int ra = blockIdx.z * kMmaRows + warp * 16 + g, rb = ra + 8;
-  const bool va = ra < n, vb = rb < n;
-
-  uint32_t qa[kMmaD / 16][4];
+// One key tile of the online softmax: scores s = (q.k) * scale + bias (keys
+// >= n at -inf) -> p~ = exp(s - m) in place, m grown to the tile's row max,
+// l = l * alpha + sum(p~) (per-thread partials: a row's four lanes share m);
+// returns alpha = exp(m_old - m_new) of rows a and b.
+__device__ __forceinline__ void online_softmax(float (&sc)[32], const float (&bv)[32], int j0,
+                                               int n, int t, float scale, float& ma, float& mb,
+                                               float& la, float& lb, float& alpha_a,
+                                               float& alpha_b) {
+  if (j0 + kTileKeys <= n) {
 #pragma unroll
-  for (int s = 0; s < kMmaD / 16; ++s) {
-    const int col = s * 16 + t * 2;
-    const __nv_bfloat16* pa = q + base + static_cast<int64_t>(ra) * c + col;
-    const __nv_bfloat16* pb = q + base + static_cast<int64_t>(rb) * c + col;
-    qa[s][0] = va ? ld32(pa) : 0u;
-    qa[s][1] = vb ? ld32(pb) : 0u;
-    qa[s][2] = va ? ld32(pa + 8) : 0u;
-    qa[s][3] = vb ? ld32(pb + 8) : 0u;
-  }
-  const float* ba = bias + (static_cast<int64_t>(h) * n + (va ? ra : n - 1)) * n;
-  const float* bb = bias + (static_cast<int64_t>(h) * n + (vb ? rb : n - 1)) * n;
-
-  const int tiles = (n + kTileKeys - 1) / kTileKeys;
-  float sc[kNT][4];
-
-  // pass 1: row max and row sum. The sums are per-thread partials under the
-  // row-wide running max; key 0 is valid, so the max is finite from tile 0 on
-  float ma = -INFINITY, mb = -INFINITY, la = 0.f, lb = 0.f;
-  for (int tile = 0; tile < tiles; ++tile) {
-    const int j0 = tile * kTileKeys;
-    __syncthreads();   // the last tile's K is done with
-    stage_tile<false>(k, v, ks, vt, base, c, j0, n);
-    __syncthreads();
-    tile_scores(sc, qa, ks, ba, bb, j0, n, g, t, scale);
-    float ta = -INFINITY, tb = -INFINITY;
+    for (int i = 0; i < 32; ++i) sc[i] = __fadd_rn(__fmul_rn(sc[i], scale), bv[i]);
+  } else {
 #pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      ta = fmaxf(ta, fmaxf(sc[nt][0], sc[nt][1]));
-      tb = fmaxf(tb, fmaxf(sc[nt][2], sc[nt][3]));
-    }
-    const float na = fmaxf(ma, quad_max(ta)), nb = fmaxf(mb, quad_max(tb));
-    la *= expf(ma - na);
-    lb *= expf(mb - nb);
-    ma = na;
-    mb = nb;
+    for (int j = 0; j < 8; ++j) {
 #pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      la += expf(sc[nt][0] - ma) + expf(sc[nt][1] - ma);
-      lb += expf(sc[nt][2] - mb) + expf(sc[nt][3] - mb);
-    }
-  }
-  la = quad_sum(la);
-  lb = quad_sum(lb);
-
-  // pass 2: o = p v, p rounded to bf16 straight into A fragments (the
-  // accumulator layout of two adjacent 8-key tiles is the A layout of one
-  // 16-key step)
-  float o[kMmaD / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < kMmaD / 8; ++dn) o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.f;
-  for (int tile = 0; tile < tiles; ++tile) {
-    const int j0 = tile * kTileKeys;
-    __syncthreads();
-    stage_tile<true>(k, v, ks, vt, base, c, j0, n);
-    __syncthreads();
-    tile_scores(sc, qa, ks, ba, bb, j0, n, g, t, scale);
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      sc[nt][0] = __fdiv_rn(expf(sc[nt][0] - ma), la);
-      sc[nt][1] = __fdiv_rn(expf(sc[nt][1] - ma), la);
-      sc[nt][2] = __fdiv_rn(expf(sc[nt][2] - mb), lb);
-      sc[nt][3] = __fdiv_rn(expf(sc[nt][3] - mb), lb);
-    }
-#pragma unroll
-    for (int kk = 0; kk < kNT / 2; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
-                              pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
-                              pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
-                              pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
-      const __nv_bfloat16* vr = vt + g * kVtStride + kk * 16 + t * 2;
-#pragma unroll
-      for (int dn = 0; dn < kMmaD / 8; ++dn) {
-        mma_bf16(o[dn], pa, ld32(vr + dn * 8 * kVtStride), ld32(vr + dn * 8 * kVtStride + 8));
+      for (int e = 0; e < 2; ++e) {
+        const bool ok = j0 + 8 * j + 2 * t + e < n;
+        sc[4 * j + e] = ok ? __fadd_rn(__fmul_rn(sc[4 * j + e], scale), bv[4 * j + e]) : -INFINITY;
+        sc[4 * j + 2 + e] =
+            ok ? __fadd_rn(__fmul_rn(sc[4 * j + 2 + e], scale), bv[4 * j + 2 + e]) : -INFINITY;
       }
     }
   }
-
-  __nv_bfloat16* oa = out + base + static_cast<int64_t>(ra) * c + t * 2;
-  __nv_bfloat16* ob = out + base + static_cast<int64_t>(rb) * c + t * 2;
+  float ta = -INFINITY, tb = -INFINITY;
 #pragma unroll
-  for (int dn = 0; dn < kMmaD / 8; ++dn) {
-    if (va) *reinterpret_cast<uint32_t*>(oa + dn * 8) = pack_bf16(o[dn][0], o[dn][1]);
-    if (vb) *reinterpret_cast<uint32_t*>(ob + dn * 8) = pack_bf16(o[dn][2], o[dn][3]);
+  for (int j = 0; j < 8; ++j) {
+    ta = fmaxf(ta, fmaxf(sc[4 * j], sc[4 * j + 1]));
+    tb = fmaxf(tb, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
   }
+  const float na = fmaxf(ma, quad_max(ta)), nb = fmaxf(mb, quad_max(tb));
+  alpha_a = ex2((ma - na) * kLog2e);   // 0 at the first tile (m = -inf)
+  alpha_b = ex2((mb - nb) * kLog2e);
+  ma = na;
+  mb = nb;
+  const float ca = na * kLog2e, cb = nb * kLog2e;
+  float sa = 0.f, sb = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      sc[4 * j + e] = ex2(fmaf(sc[4 * j + e], kLog2e, -ca));
+      sc[4 * j + 2 + e] = ex2(fmaf(sc[4 * j + 2 + e], kLog2e, -cb));
+      sa += sc[4 * j + e];
+      sb += sc[4 * j + 2 + e];
+    }
+  }
+  la = la * alpha_a + sa;
+  lb = lb * alpha_b + sb;
+}
+
+// p~ rounded to bf16 as the A fragments of the tile's four k16 steps
+__device__ __forceinline__ void pack_p(uint32_t (&pf)[4][4], const float (&sc)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    pf[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+    pf[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+    pf[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+    pf[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+  }
+}
+
+__global__ void __launch_bounds__(kWgThreads, 1)
+attention_long_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                                const __grid_constant__ CUtensorMap tk,
+                                const __grid_constant__ CUtensorMap tv,
+                                const float* __restrict__ bias,
+                                __nv_bfloat16* __restrict__ out,
+                                int n, int heads, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sbase = (smem_u32(smem_raw) + 1023) & ~uint32_t{1023};
+  const uint32_t full0 = sbase + kBarOffset, empty0 = full0 + 8 * kStages;
+  const uint32_t qbar = empty0 + 8 * kStages;
+
+  const unsigned b = blockIdx.x;
+  const int h = blockIdx.y;
+  const int q0 = blockIdx.z * kBlockRows;
+  const int rows = min(kBlockRows, n - q0);                  // valid rows of the block
+  const int active = (rows + kWgRows - 1) / kWgRows;         // warpgroups with a valid row
+  const int tiles = (n + kTileKeys - 1) / kTileKeys;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 4 * active);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {
+    // producer warp: one lane loads the Q tiles, then keeps the K / V ring full
+    if (threadIdx.x % 32 != 0) return;
+    // tensor-map coordinates: (column, row, sample) or (0, row, sample * heads + head)
+    const int tc = kHeadMajor ? 0 : h * kWgD;
+    const int tb = kHeadMajor ? static_cast<int>(b) * heads + h : static_cast<int>(b);
+    mbar_expect_tx(qbar, active * kTileBytes);
+    for (int w = 0; w < active; ++w) {
+      tma_load(sbase + w * kTileBytes, &tq, qbar, tc, q0 + w * kWgRows, tb);
+    }
+    for (int tile = 0; tile < tiles; ++tile) {
+      const int s = tile % kStages, round = tile / kStages;
+      if (round > 0) mbar_wait(empty0 + 8 * s, (round - 1) & 1);
+      const uint32_t stage = sbase + kQBytes + s * kStageBytes;
+      mbar_expect_tx(full0 + 8 * s, 2 * kTileBytes);
+      tma_load(stage, &tk, full0 + 8 * s, tc, tile * kTileKeys, tb);
+      tma_load(stage + kTileBytes, &tv, full0 + 8 * s, tc, tile * kTileKeys, tb);
+    }
+    return;
+  }
+  if (wg >= active) return;
+
+  const int lane = threadIdx.x % 32, t = lane % 4;
+  const int wrow = wg * kWgRows + (threadIdx.x / 32) % 4 * 16 + lane / 4;  // row a in the block
+  const int ra = q0 + wrow, rb = ra + 8;
+  // rows >= n read the warpgroup's first row of the bias (valid) and are not written
+  const float* bias_h = bias + static_cast<int64_t>(h) * n * n;
+  const float* ga = bias_h + static_cast<int64_t>(ra < n ? ra : q0 + wg * kWgRows) * n;
+  const float* gb = bias_h + static_cast<int64_t>(rb < n ? rb : q0 + wg * kWgRows) * n;
+  const uint32_t qtile = sbase + wg * kTileBytes;
+  auto ktile = [&](int tile) { return sbase + kQBytes + (tile % kStages) * kStageBytes; };
+
+  float o[32], sc[32], bc[32], bn[32];
+  uint32_t pf[4][4];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = sc[i] = 0.f;
+  // running row max and per-thread partial row sums of rows a and b; key 0
+  // is valid, so the max is finite from tile 0 on
+  float ma = -INFINITY, mb = -INFINITY, la = 0.f, lb = 0.f, alpha_a, alpha_b;
+  // the bias goes by registers, one tile ahead of its use: bc holds the
+  // current tile's, bn the next one's
+  load_bias(bc, ga, gb, 0, n, t);
+  if (tiles > 1) load_bias(bn, ga, gb, kTileKeys, n, t);
+  // tile 0's scores first; then per tile j, s of tile j and o += p~ v of tile
+  // j - 1 go to the tensor cores together, and the softmax of tile j runs
+  // while the second product is still in flight
+  mbar_wait(qbar, 0);
+  mbar_wait(full0, 0);
+  wgmma_fence();
+  issue_qk(sc, qtile, ktile(0));
+  wgmma_wait<0>();
+  fence_regs(sc);
+  online_softmax(sc, bc, 0, n, t, scale, ma, mb, la, lb, alpha_a, alpha_b);
+  pack_p(pf, sc);
+  for (int tile = 1; tile < tiles; ++tile) {
+    // (two buffers whose roles swap, in a loop unrolled by two, spill at
+    // the 168 registers ptxas gives this block; the copy does not)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) bc[i] = bn[i];
+    if (tile + 1 < tiles) load_bias(bn, ga, gb, (tile + 1) * kTileKeys, n, t);
+    mbar_wait(full0 + 8 * (tile % kStages), (tile / kStages) & 1);
+    wgmma_fence();
+    issue_qk(sc, qtile, ktile(tile));
+    issue_pv(o, pf, ktile(tile - 1) + kTileBytes);
+    wgmma_wait<1>();   // s of this tile is in; the product of the last may still run
+    fence_regs(sc);
+    online_softmax(sc, bc, tile * kTileKeys, n, t, scale, ma, mb, la, lb, alpha_a, alpha_b);
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(sc);
+    if (lane == 0) mbar_arrive(empty0 + 8 * ((tile - 1) % kStages));
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      o[4 * j] *= alpha_a;
+      o[4 * j + 1] *= alpha_a;
+      o[4 * j + 2] *= alpha_b;
+      o[4 * j + 3] *= alpha_b;
+    }
+    pack_p(pf, sc);
+  }
+  wgmma_fence();
+  issue_pv(o, pf, ktile(tiles - 1) + kTileBytes);
+  wgmma_wait<0>();
+  fence_regs(o);
+
+  const float ia = 1.f / quad_sum(la), ib = 1.f / quad_sum(lb);
+  const int c = layout_row_stride(heads, kWgD);
+  const int64_t base = layout_base(b, h, n, heads, kWgD, c);
+  __nv_bfloat16* oa = out + base + static_cast<int64_t>(ra) * c + 2 * t;
+  __nv_bfloat16* ob = out + base + static_cast<int64_t>(rb) * c + 2 * t;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (ra < n) *reinterpret_cast<uint32_t*>(oa + 8 * j) = pack_bf16(o[4 * j] * ia, o[4 * j + 1] * ia);
+    if (rb < n) {
+      *reinterpret_cast<uint32_t*>(ob + 8 * j) = pack_bf16(o[4 * j + 2] * ib, o[4 * j + 3] * ib);
+    }
+  }
+}
+
+#undef MEM_WG_D32
+#undef MEM_WG_R32
+
+// cuTensorMapEncodeTiled from the driver, through the runtime: no -lcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+cudaError_t encode_tiled(EncodeTiled* fn) {
+  static EncodeTiled cached = nullptr;
+  if (cached == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                                  cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess) return e;
+    if (found != cudaDriverEntryPointSuccess || p == nullptr) return cudaErrorNotSupported;
+    cached = reinterpret_cast<EncodeTiled>(p);
+  }
+  *fn = cached;
+  return cudaSuccess;
+}
+
+// A 3-D map of one bf16 operand in the translation unit's layout, boxes of
+// 64 rows of one head's 64 columns, 128 B swizzle, zeros past n:
+// flat (heads * 64, n, b), head-major (64, n, b * heads).
+cudaError_t tensor_map(EncodeTiled encode, CUtensorMap* map, const void* p, int b, int n,
+                       int heads) {
+  const cuuint64_t row = kHeadMajor ? kWgD : static_cast<cuuint64_t>(heads) * kWgD;
+  const cuuint64_t dims[3] = {row, static_cast<cuuint64_t>(n),
+                              static_cast<cuuint64_t>(b) * (kHeadMajor ? heads : 1)};
+  const cuuint64_t strides[2] = {row * 2, row * 2 * n};   // bytes, dims 1 and 2
+  const cuuint32_t box[3] = {kWgD, kTileKeys, 1}, step[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(p), dims,
+                            strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+int launch_wgmma(const void* q, const void* k, const void* v, const float* bias, void* out,
+                 int b, int n, int heads, float scale, cudaStream_t stream) {
+  if ((n + kBlockRows - 1) / kBlockRows > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  EncodeTiled encode;
+  cudaError_t e = encode_tiled(&encode);
+  CUtensorMap tq, tk, tv;
+  if (e == cudaSuccess) e = tensor_map(encode, &tq, q, b, n, heads);
+  if (e == cudaSuccess) e = tensor_map(encode, &tk, k, b, n, heads);
+  if (e == cudaSuccess) e = tensor_map(encode, &tv, v, b, n, heads);
+  if (e == cudaSuccess) {
+    e = cudaFuncSetAttribute(attention_long_fwd_wgmma_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmemBytes);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(b, heads, (n + kBlockRows - 1) / kBlockRows);
+  attention_long_fwd_wgmma_kernel<<<grid, kWgThreads, kWgSmemBytes, stream>>>(
+      tq, tk, tv, bias, static_cast<__nv_bfloat16*>(out), n, heads, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -491,11 +743,15 @@ int launch_scalar_d(const void* q, const void* k, const void* v, const float* bi
   return launch_scalar<T, 4>(q, k, v, bias, out, b, n, heads, d, scale, stream);
 }
 
+
+// The wgmma kernel's rule: bf16 at head dim 64 with all four operands 16-byte
+// aligned (TMA's rule for a global address; every row stride is a multiple of
+// 128 bytes then).
 bool use_mma(const void* q, const void* k, const void* v, const void* out,
              int d, int is_bf16) {
   const uintptr_t ptrs = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out);
-  return is_bf16 && d == kMmaD && ptrs % 16 == 0;
+  return is_bf16 && d == kWgD && ptrs % 16 == 0;
 }
 
 // q, k, v, out in the translation unit's layout, one dtype (bf16 or f32);
@@ -506,13 +762,7 @@ int dispatch_long_fwd(const void* q, const void* k, const void* v, const float* 
   if (b <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
   if (heads > 65535 || d < 1 || d > kMaxScalarD) return static_cast<int>(cudaErrorInvalidValue);
   if (use_mma(q, k, v, out, d, is_bf16)) {
-    if ((n + kMmaRows - 1) / kMmaRows > 65535) return static_cast<int>(cudaErrorInvalidValue);
-    const dim3 grid(b, heads, (n + kMmaRows - 1) / kMmaRows);
-    attention_long_fwd_mma_kernel<<<grid, kThreads, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), bias, static_cast<__nv_bfloat16*>(out),
-        n, heads, scale);
-    return static_cast<int>(cudaGetLastError());
+    return launch_wgmma(q, k, v, bias, out, b, n, heads, scale, stream);
   }
   if ((n + kRowsPerBlock - 1) / kRowsPerBlock > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);

@@ -8,14 +8,13 @@
 // (attention.py:_fwd_flat_long_kernel) with other addressing: a head's rows
 // are D elements apart instead of H*D, and head h of sample b starts at
 // ((b*H + h)*N)*D instead of column h*D. So it is K3f's kernels
-// (attention_long_fwd.cuh: the keys in tiles of 64, gone over twice, row max
-// and sum and then p v, tensor cores for bf16 at D = 64, scalar FMAs
-// otherwise) compiled for that layout: the same arithmetic in the same order,
-// and the same bits as K3f on transposed operands. No N limit: keys >= N are
-// masked in the last tile, nothing is padded. What bounds it is what bounds
-// K3f: at the seg backbone's shape it is bytes in principle (the bias), and
-// this first version is limited by issuing mma.sync and the exp/bias
-// arithmetic, staging not overlapped.
+// (attention_long_fwd.cuh: for bf16 at D = 64 one pass over the keys with an
+// online softmax on wgmma, K and V through a TMA ring, here with the
+// head-major tensor map (64, N, B*H); scalar FMAs otherwise) compiled for that
+// layout: the same arithmetic in the same order, and the same bits as K3f on
+// transposed operands. No N limit: keys >= N are masked in the last tile,
+// nothing is padded. What bounds it is what bounds K3f: device memory in
+// principle (the bias), and the bias and K / V reads from L2 behind that.
 //
 // Seg backbone shapes under FLAT_ATTN = False or FLAT_ATTN_LONG = False:
 // q, k, v (B, 12, 1025, 64) bf16, bias (12, 1025, 1025) f32. The head-blocked

@@ -16,12 +16,14 @@ both directions take the plain versions.
 ``fused_attention_flat_long`` is the same function for sequences too long
 for K2f, whose blocks hold a head's whole K and V in shared memory: the
 segmentation backbone's N = 1025. Its forward on the card is
-csrc/attention_long_fwd.cu (K3f), which tiles the keys and goes over them
-twice (row max and sum, then p v), keeping the roundings of the plain
-version; its backward is csrc/attention_long_bwd.cu (K3b), which goes over
-the scores from the query side (dq, ds) and from the key side (dk, dv) and
-sums the bias gradient in batch order. :func:`attention_route` is the rule
-that picks between the two.
+csrc/attention_long_fwd.cu (K3f), which tiles the keys and, for bf16 at
+head dim 64, goes over them once with an online softmax on ``wgmma`` (K and V
+through a TMA ring; the unnormalised p rounded to bf16 where the plain version
+rounds the normalised one), and otherwise twice (row max and sum, then p v)
+in the plain version's order of roundings; its backward is
+csrc/attention_long_bwd.cu (K3b), which goes over the scores from the query
+side (dq, ds) and from the key side (dk, dv) and sums the bias gradient in
+batch order. :func:`attention_route` is the rule that picks between the two.
 
 ``fused_attention`` is the reference's ``fused_attention`` on (B, H, N, D),
 the layout its head-major branch produces (``FLAT_ATTN = False``, or
@@ -478,13 +480,14 @@ def fused_attention_bwd_long_reference(q, k, v, bias, do, scale: float):
 
 def _bhnd_path(lib, name, q, k, v, do, N, D, is_bf16) -> str:
     """Which kernels a head-major launch of the branch ``name`` takes:
-    "mma" / "scalar" (K2's bodies) or "tiled_mma" / "tiled_scalar" (K3's
-    key-tiled bodies). K5b, K5d and K5e take K3's. The head-blocked branch
-    (K5a, K5c) takes K2's, except where K2's tensor-core kernel has no
-    instantiation (bf16 at D = 64 above FLAT_MAX_N keys) and K3's runs on
-    tensor cores: there it takes K3's, as the flat route does. ``do`` is None
-    for a forward; outputs are allocated like the operands, so their
-    alignment is the operands'."""
+    "mma" / "scalar" (K2's bodies) or "tiled_wgmma" (K3f's forward body on
+    tensor cores), "tiled_mma" (K3b's backward body on tensor cores) /
+    "tiled_scalar" (K3's key-tiled bodies). K5b, K5d and K5e take K3's. The
+    head-blocked branch (K5a, K5c) takes K2's, except where K2's tensor-core
+    kernel has no instantiation (bf16 at D = 64 above FLAT_MAX_N keys) and
+    K3's runs on tensor cores: there it takes K3's, as the flat route does.
+    ``do`` is None for a forward; outputs are allocated like the operands, so
+    their alignment is the operands'."""
     p = [q.data_ptr(), k.data_ptr(), v.data_ptr()]
     if do is None:
         ptrs = p + [q.data_ptr()]
@@ -498,7 +501,9 @@ def _bhnd_path(lib, name, q, k, v, do, N, D, is_bf16) -> str:
             *ptrs, N, D, is_bf16)
     if name in ("fused_attention", "fused_attention_bwd") and (k2_mma or not tiled_mma):
         return "mma" if k2_mma else "scalar"
-    return "tiled_mma" if tiled_mma else "tiled_scalar"
+    if not tiled_mma:
+        return "tiled_scalar"
+    return "tiled_wgmma" if do is None else "tiled_mma"
 
 
 def _forward_bhnd(q, k, v, bias, scale: float):
@@ -604,14 +609,15 @@ def attention_route(N: int) -> str:
 
 
 def cuda_long_kernel_path(q, k, v, bias) -> str:
-    """Which CUDA kernel a K3f launch on these operands takes."""
+    """Which CUDA kernel a K3f launch on these operands takes: "wgmma" (the
+    one-pass tensor-core kernel) or "scalar"."""
     from mem_tpu_torch.kernels import build
 
     D = q.shape[-1] // bias.shape[0]
     mma = build.library().mem_attention_long_fwd_uses_mma(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q.data_ptr(), D,
         int(q.dtype == torch.bfloat16))
-    return "mma" if mma else "scalar"
+    return "wgmma" if mma else "scalar"
 
 
 def cuda_kernel_path(q, k, v, bias) -> str:
@@ -653,7 +659,7 @@ def cuda_long_bwd_kernel_path(q, k, v, bias) -> str:
 def cuda_bhnd_kernel_path(q, k, v, bias) -> str:
     """Which CUDA kernel a :func:`fused_attention` forward launch on these
     (B, H, N, D) operands takes: "mma" / "scalar" (K2's bodies) or
-    "tiled_mma" / "tiled_scalar" (K3's)."""
+    "tiled_wgmma" / "tiled_scalar" (K3f's)."""
     from mem_tpu_torch.kernels import build
 
     B, H, N, D = q.shape

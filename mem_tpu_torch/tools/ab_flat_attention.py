@@ -20,11 +20,11 @@ Each leg builds the tree's kernels, prints the registers, shared memory and
 spills ptxas reports for every flat kernel of both families (the short
 family's tensor-core instantiations, every long kernel), then three medians
 of 40 CUDA-event timings of K2f and K2b at (B, 197, 768) bf16 for B = 8 and
-64, and of K3f and K3b at (8, 1025, 768) bf16. Two processes on the same
-code differ by a few per cent: compare the ptxas lines first, and read a
-time difference against the spread between the two legs of one tree. The
-timer comes from the tree under test (``mem_tpu_torch.tools.time_ms``), so
-both trees must have it.
+64, of K3f at (B, 1025, 768) bf16 for B = 8 and 16 and of K3b at B = 8. Two
+processes on the same code differ by a few per cent: compare the ptxas lines
+first, and read a time difference against the spread between the two legs of
+one tree. The timer comes from the tree under test
+(``mem_tpu_torch.tools.time_ms``), so both trees must have it.
 """
 import re
 import sys
@@ -64,13 +64,18 @@ def main(tag: str) -> None:
         bwd = [time_ms(lambda: A.fused_attention_flat_bwd(q, k, v, bias, do, 0.125),
                        RUNS, WARMUP) for _ in range(3)]
         print(tag, "B", B, "K2f ms", fwd, "K2b ms", bwd, flush=True)
-    q, k, v, do = (torch.randn(8, 1025, 768, device="cuda", dtype=torch.bfloat16)
-                   for _ in range(4))
-    bias = torch.randn(12, 1025, 1025, device="cuda")
-    fwd = [time_ms(lambda: A._forward_long(q, k, v, bias, 0.125), RUNS, WARMUP) for _ in range(3)]
-    bwd = [time_ms(lambda: A.fused_attention_flat_long_bwd(q, k, v, bias, do, 0.125),
-                   RUNS, WARMUP) for _ in range(3)]
-    print(tag, "B", 8, "N", 1025, "K3f ms", fwd, "K3b ms", bwd, flush=True)
+    for B in (8, 16):
+        q, k, v, do = (torch.randn(B, 1025, 768, device="cuda", dtype=torch.bfloat16)
+                       for _ in range(4))
+        bias = torch.randn(12, 1025, 1025, device="cuda")
+        line = [tag, "B", B, "N", 1025, "K3f ms", [
+            time_ms(lambda: A._forward_long(q, k, v, bias, 0.125), RUNS, WARMUP)
+            for _ in range(3)]]
+        if B == 8:
+            line += ["K3b ms", [time_ms(lambda: A.fused_attention_flat_long_bwd(
+                q, k, v, bias, do, 0.125), RUNS, WARMUP) for _ in range(3)]]
+        print(*line, flush=True)
+        del q, k, v, do, bias
 
 
 if __name__ == "__main__":

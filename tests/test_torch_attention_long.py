@@ -9,6 +9,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from chip_smoke import K2_BF16_TOL
 from mem_tpu.ops.attention import fused_attention_flat_long as jax_flat_long
 from mem_tpu_torch.models import vit
 from mem_tpu_torch.ops import attention as A
@@ -47,6 +48,65 @@ def test_flat_long_bf16_rounds_as_the_kernel(rng):
     assert got.dtype == torch.bfloat16
     want = A.fused_attention_flat_long_reference(tq.float(), tk.float(), tv.float(), tb, 0.25)
     assert (got.float() - want).abs().max().item() <= 1e-2
+
+
+KERNEL_TILE = 64   # keys per tile of csrc/attention_long_fwd.cuh's wgmma kernel
+
+
+def _one_pass(q, k, v, bias, scale, tile=KERNEL_TILE):
+    """The order of arithmetic of K3f's wgmma kernel (bf16, head dim 64),
+    emulated in torch: key tiles of the kernel's width; s = (q.k) * scale +
+    bias in f32 with its two roundings; the running row max m, the row sum l
+    and o rescaled by exp(m_old - m_new); p~ = exp(s - m) summed into l in
+    f32 and rounded to v's dtype for p~ v (f32 accumulation); o / l rounded
+    to q's dtype at the end. Returns (o, whether every row's max grew at every
+    tile after the first)."""
+    B, N, C = q.shape
+    H = bias.shape[0]
+    D = C // H
+    qh, kh, vh = (t.float().view(B, N, H, D).transpose(1, 2) for t in (q, k, v))
+    m = torch.full((B, H, N, 1), -torch.inf)
+    l = torch.zeros(B, H, N, 1)
+    o = torch.zeros(B, H, N, D)
+    grew = True
+    for j0 in range(0, N, tile):
+        j1 = min(j0 + tile, N)
+        s = (qh @ kh[:, :, j0:j1].transpose(-1, -2)) * scale + bias[:, :, j0:j1]
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        grew = grew and (j0 == 0 or bool((m_new > m).all()))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + p.to(v.dtype).float() @ vh[:, :, j0:j1]
+        m = m_new
+    return (o * (1 / l)).to(q.dtype).transpose(1, 2).reshape(B, N, C), grew
+
+
+@pytest.mark.parametrize("B,N,H,D,dtype,ramp", [
+    (1, 130, 2, 64, "bfloat16", False),   # N ragged against the 64-key tile
+    (2, 65, 2, 64, "bfloat16", False),    # one key past a tile
+    (1, 300, 2, 64, "bfloat16", True),    # the max grows at every tile: the rescale runs
+    (2, 300, 2, 64, "float32", True),
+])
+def test_flat_long_one_pass_order_matches_pallas_interpret(rng, B, N, H, D, dtype, ramp):
+    """The wgmma kernel rounds the unnormalised p~ to bf16 where the
+    reference rounds the normalised p: its order, emulated, held against the
+    Pallas kernel in interpret mode on the same operands, within the card's
+    gates (chip_smoke.K2_BF16_TOL, 2e-2 absolute, in bf16; 1e-5 in f32)."""
+    q, k, v, bias = _operands(rng, B, N, H, D)
+    if ramp:
+        bias = bias + np.float32(0.1) * np.arange(N, dtype=np.float32)
+    scale = D ** -0.5
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    want = np.asarray(jax.jit(lambda *a: jax_flat_long(*a, scale, True))(
+        *(jnp.asarray(t).astype(jdt) for t in (q, k, v)), jnp.asarray(bias)).astype(jnp.float32))
+    tdt = getattr(torch, dtype)
+    got, grew = _one_pass(*(torch.from_numpy(t).to(tdt) for t in (q, k, v)),
+                          torch.from_numpy(bias), scale)
+    assert got.dtype == tdt and tuple(got.shape) == (B, N, H * D)
+    assert grew or not ramp
+    tol = K2_BF16_TOL if dtype == "bfloat16" else F32_TOL
+    np.testing.assert_allclose(got.float().numpy(), want, atol=tol, rtol=0)
 
 
 def _jax_vjp(q, k, v, bias, do, scale):
