@@ -6,7 +6,9 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from csrc/ and checks each against its
-plain PyTorch version on the card. It drives the five ported paths and the
+plain PyTorch version on the card; it fails when ptxas reports a spill in the
+long attention's wgmma kernels (K3f / K5b, and the rows and columns kernels
+of K3b / K5d / K5e) or serializes the backward's wgmma pipelines. It drives the five ported paths and the
 two experiment tools, each with the launch counts set to 0 just before it and
 read just after:
 
@@ -241,6 +243,15 @@ def kernel_device_ms(torch, fn, fragments, n=20, per_launch=False):
     return us / 1e3 / (sum(e.count for e in events) if per_launch else n)
 
 
+def body_device_ms(torch, fn, fragments):
+    """Device time per call of ``fn`` whose kernels (named by ``fragments``)
+    each launch once a call: the sum of each kernel's mean time per launch
+    that torch.profiler recorded (robust to a trace that drops launches).
+    None where one of them shows no device time."""
+    parts = [kernel_device_ms(torch, fn, (f,), n=5, per_launch=True) for f in fragments]
+    return None if None in parts else sum(parts)
+
+
 def bincount_ms(torch, col, ys, H, W, want):
     """The one library call that computes K1's and K4's counts: a
     torch.bincount over the linear index (sample, y, column of [pos | neg]),
@@ -316,6 +327,17 @@ def run(torch):
     say("ptxas_k3f", kernels=wg)
     check(len(wg) == 2 and all(" 0 bytes spill stores" in r["spills"] for r in wg),
           f"the wgmma K3f kernel's ptxas report: {wg}")
+    # the wgmma K3b / K5d / K5e rows and columns kernels, flat and head-major
+    # (registers at entry; setmaxnreg gives the consumers 240), and any
+    # warning that ptxas serialized their wgmma pipelines
+    wb = [r for frag in ("attention_long_bwd_rows_wgmma_kernel",
+                         "attention_long_bwd_cols_wgmma_kernel")
+          for r in ptxas_report(build.build_log(), frag)]
+    serial = [ln.strip() for ln in build.build_log().splitlines()
+              if "serialized" in ln and "attention_long_bwd" in ln]
+    say("ptxas_k3b", kernels=wb, serialized=serial)
+    check(len(wb) == 4 and all(" 0 bytes spill stores" in r["spills"] for r in wb)
+          and not serial, f"the wgmma K3b kernels' ptxas report: {wb}, {serial}")
 
     # -- phase 1: K1 against its plain version -------------------------------
     g = torch.Generator().manual_seed(0)
@@ -780,7 +802,7 @@ def check_k3f(torch, dev, g):
 
 def check_k3b(torch, dev, g):
     """K3b against its plain version: the seg backbone's sequence in bf16
-    (the tensor-core kernels) and f32 (the scalar kernels), sequences that
+    (the wgmma kernels) and f32 (the scalar kernels), sequences that
     are no multiple of the 64-wide tile (577, 300, 65), other head dims, the
     batches train_seg and the timed steps give it (16, 8) and B = 1 and 3;
     every output bit-identical across two launches; autograd through
@@ -814,12 +836,14 @@ def check_k3b(torch, dev, g):
         errs = {n: rel_max_abs(a, b) for n, a, b in zip(("dq", "dk", "dv"), got, want)}
         db = rel_l2(torch, got[3], want[3])
         same = all(torch.equal(a, b) for a, b in zip(got, again))
+        path = cuda_long_bwd_kernel_path(q, k, v, bias)
         say("k3b_check", dtype=str(dt), shape=[B, N, H, D], rel_max_abs=errs, tol=tol,
-            db_rel_l2=db, db_tol=K2B_DB_REL, identical_across_launches=same,
-            kernel=cuda_long_bwd_kernel_path(q, k, v, bias))
+            db_rel_l2=db, db_tol=K2B_DB_REL, identical_across_launches=same, kernel=path)
         check(max(errs.values()) <= tol and db <= K2B_DB_REL,
               f"K3b {dt} {B, N, H, D}: {errs}, db {db}")
         check(same, f"K3b {dt} {B, N, H, D}: two launches on the same operands differ")
+        check(path == ("wgmma" if dt == torch.bfloat16 and D == 64 else "scalar"),
+              f"K3b {dt} {B, N, H, D} took the {path} kernels")
         if first is None:
             first = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
         del q, k, v, do, bias, got, again, want
@@ -1499,8 +1523,8 @@ def time_seg_training(torch, dev, gpu, data_root, sd):
     reference keeps the toggle for), one after the other: 15 steps on one
     repeated batch at the recipe's peak lr (the loss must fall by
     SEG_LOSS_FALL at B=8), the median of the last 12 timed by CUDA events,
-    the peak device memory, and at B=8 a profile by kernel family of the
-    default. Returns K3b's, its plain version's and the SDPA backward's ms at
+    the peak device memory, and at both batches a profile by kernel family of
+    the default. Returns K3b's, its plain version's and the SDPA backward's ms at
     B=16."""
     from mem_tpu_torch.ops.attention import (fused_attention_flat_long_bwd,
                                              fused_attention_flat_long_bwd_reference)
@@ -1516,7 +1540,7 @@ def time_seg_training(torch, dev, gpu, data_root, sd):
         parts = {f: kernel_device_ms(
             torch, lambda: fused_attention_flat_long_bwd(q, k, v, bias, do, 0.125), (f,), n=5,
             per_launch=True)
-            for f in ("rows_mma", "cols_mma", "bias_sum")}
+            for f in ("rows_wgmma", "cols_wgmma", "bias_sum")}
         # the yardstick: the backward of one scaled_dot_product_attention call
         # with the bias as its mask (dq, dk, dv and the mask's gradient)
         qh, kh, vhd, mask = (t.requires_grad_() for t in sdpa_operands(torch, q, k, v, bias))
@@ -1529,6 +1553,7 @@ def time_seg_training(torch, dev, gpu, data_root, sd):
         say("time_k3b", gpu=gpu, batch=B, shape=[1025, 12, 64], dtype="bfloat16", kernel_ms=t_k,
             plain_ms=t_p, sdpa_backward_ms=t_lib, bound_ms=bnd[0], bound_by=bnd[1],
             kernel_device_ms_by_part=parts,
+            kernel_device_ms=sum(parts.values()) if None not in parts.values() else None,
             workspace_mb=round(B * 12 * 1025 * 1025 * 4 / 1e6, 1),
             kernel_tflop_s=10 * B * 12 * 1025 * 1025 * 64 / t_k / 1e9)
         k3b[B] = (t_k, t_p, t_lib)
@@ -1572,7 +1597,7 @@ def _time_seg_train_step(torch, dev, gpu, data_root, sd, B, tag, lr_fn, steps, w
         check(losses[-1] <= losses[0] - SEG_LOSS_FALL,
               f"the seg loss ({tag}) fell from {losses[0]} to {losses[-1]}, less than "
               f"{SEG_LOSS_FALL}")
-    if B == 8 and tag == "default":
+    if tag == "default":
         it = iter(range(steps, steps + 100))
         profile_seg_forward(torch, gpu, lambda: step(batch, next(it)), n=3,
                             tag="seg_train_step_profile", batch=B)
@@ -2562,7 +2587,7 @@ def _check_k5_bwd(torch, dev, g, tag, cases, autograd_shape):
         check(equal, f"{tag} {dt} {shape} differs from K3b on the transposed operands")
         check(same, f"{tag} {dt} {shape}: two launches on the same operands differ")
         check(launched == 2, f"{tag} {dt} {shape}: {launched} launches under {name} for 2 calls")
-        check(path == ("tiled_mma" if _bf16_at_64(torch, shape, dt) else "tiled_scalar"),
+        check(path == ("tiled_wgmma" if _bf16_at_64(torch, shape, dt) else "tiled_scalar"),
               f"{tag} {dt} {shape} took the {path} kernels")
         if first is None:
             first = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
@@ -2623,8 +2648,9 @@ def time_k5_long(torch, dev, gpu):
     scaled_dot_product_attention call on the same (B, H, N, D) operands with
     the bias as its mask (the forward for K5b, the backward through autograd
     for K5d and K5e, the mask's gradient included), the K3 kernel on the
-    transposed operands, and the bound. Returns {name: (ms, plain_ms,
-    sdpa_ms)}."""
+    transposed operands, the profiler's device time per call of the body's
+    kernels (K5d / K5e: rows, columns, bias sum), and the bound. Returns
+    {name: (ms, plain_ms, sdpa_ms)}."""
     import torch.nn.functional as Fn
 
     from mem_tpu_torch.ops import attention as A
@@ -2648,6 +2674,8 @@ def time_k5_long(torch, dev, gpu):
             o = Fn.scaled_dot_product_attention(qh, kh, vh, attn_mask=mh, scale=0.125)
             t_lib = time_ms(lambda: torch.autograd.grad(o, (qh, kh, vh, mh), do,
                                                                retain_graph=True), runs=8)
+            t_dev = body_device_ms(torch, lambda: A.fused_attention_bwd(q, k, v, bias, do, 0.125),
+                                   ("rows_wgmma", "cols_wgmma", "bias_sum"))
             bnd, n_prod = attention_bwd_bound(B, N, 12, 64), 5
             del qh, kh, vh, mh, o
         else:
@@ -2657,9 +2685,12 @@ def time_k5_long(torch, dev, gpu):
                            runs=10)
             t_lib = time_ms(lambda: Fn.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask, scale=0.125), runs=10)
+            t_dev = body_device_ms(torch, lambda: A.fused_attention(q, k, v, bias, 0.125),
+                                   ("attention_long_fwd",))
             bnd, n_prod = attention_fwd_bound(B, N, 12, 64), 2
         say(f"time_{name.lower()}", gpu=gpu, batch=B, shape=[12, N, 64], dtype="bfloat16",
-            kernel_ms=t_k, plain_ms=t_p, sdpa_ms=t_lib, k3_transposed_ms=t_k3,
+            kernel_ms=t_k, kernel_device_ms=t_dev, plain_ms=t_p, sdpa_ms=t_lib,
+            k3_transposed_ms=t_k3,
             bound_ms=bnd[0], bound_by=bnd[1],
             kernel_tflop_s=n_prod * 2 * B * 12 * N * N * 64 / t_k / 1e9)
         out[name] = (t_k, t_p, t_lib)

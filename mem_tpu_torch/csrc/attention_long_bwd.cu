@@ -9,12 +9,19 @@ extern "C" int mem_attention_long_bwd_max_d() { return kMaxScalarD; }
 
 // Bytes of dynamic shared memory the scalar rows kernel needs at (n, d): it
 // grows with n, and the wrapper refuses what a block may not use. The
-// tensor-core kernels use a fixed 28 and 37 KB at any n. Either layout.
+// wgmma kernels use a fixed 81 and 84 KB at any n. Either layout.
 extern "C" long long mem_attention_long_bwd_scalar_smem(int n, int d) {
   return static_cast<long long>(scalar_smem_bytes(n, d));
 }
 
-// 1 when a launch at these arguments takes the tensor-core kernels (either layout)
+// The row stride, in floats, of the (b, heads, n, stride) f32 ds workspace a
+// launch needs: n rounded up to a multiple of 8 for the wgmma kernels
+// (uses_mma 1), n for the scalar ones. Either layout.
+extern "C" int mem_attention_long_bwd_ws_stride(int n, int uses_mma) {
+  return ws_stride(n, uses_mma != 0);
+}
+
+// 1 when a launch at these arguments takes the wgmma kernels (either layout)
 extern "C" int mem_attention_long_bwd_uses_mma(const void* q, const void* k, const void* v,
                                                const void* dout, const void* dq,
                                                const void* dk, const void* dv,
@@ -24,10 +31,11 @@ extern "C" int mem_attention_long_bwd_uses_mma(const void* q, const void* k, con
 }
 
 // q, k, v, dout, dq, dk, dv: (b, n, heads*d) in one dtype (bf16 or f32);
-// bias, db: (heads, n, n) f32; ds_ws: (b, heads, n, n) f32 scratch. The
-// tensor-core path also takes stats: (3, b, heads, n) f32 scratch (pc_ws
-// unused); the scalar path pc_ws: (b, heads, n, n) scratch in the operands'
-// dtype (stats unused).
+// bias, db: (heads, n, n) f32; ds_ws: (b, heads, n,
+// mem_attention_long_bwd_ws_stride(n, ...)) f32 scratch. The wgmma path also
+// takes stats: (b, heads, ceil(n / 64), 3, 64) f32 scratch
+// (pc_ws unused); the scalar path pc_ws: (b, heads, n, n) scratch in the
+// operands' dtype (stats unused).
 extern "C" int mem_attention_long_bwd(const void* q, const void* k, const void* v,
                                       const float* bias, const void* dout, void* dq,
                                       void* dk, void* dv, float* db, float* ds_ws,

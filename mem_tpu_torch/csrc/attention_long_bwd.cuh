@@ -33,34 +33,56 @@
 // MB) for five N x N x D products per (b, h) (129 GFLOP): about 0.13 ms of
 // tensor-core time against 0.08 ms of memory time, so operations bound it.
 // Three sums cross any tile a block can hold: dq over the keys, dk/dv over the
-// query rows, db over the batch. The tensor-core path keeps each in one
-// thread's registers, with no float atomics, by going over the scores from
-// both sides and recomputing them from row statistics instead of storing p:
+// query rows, db over the batch. The wgmma path (bf16, head dim 64) keeps
+// each in one thread's registers, with no float atomics, by going over the
+// scores from both sides and recomputing them from row statistics instead of
+// storing p. Both kernels are blocks of two consumer warpgroups of 64 rows
+// and one producer warpgroup (setmaxnreg: 24 registers a thread there, 240 in
+// the consumers) whose first thread feeds a ring of three stages by TMA (3-D
+// tensor maps with 128 B swizzle, zeros past N, the same maps in both layouts as
+// K3f's), the sample fastest in the grid so that the blocks reading one bias
+// strip run together:
 //
-// 1. attention_long_bwd_rows_mma_kernel, one block per (sample, head, 64
-//    query rows), keys in tiles of 64, two passes (as K3f):
-//      pass A: s and dp per key tile; the running row max m, the row sum l of
-//              exp(s - m) and t = sum exp(s - m) dp, both rescaled when m
-//              grows; delta = t / l;
+// 1. attention_long_bwd_rows_wgmma_kernel, one block per (sample, head, 128
+//    query rows). Q and dO tiles are loaded once; the K / V tiles go by twice:
+//      pass A: s = q k^T and dp = do v^T (wgmma m64n64k16, K and V K-major);
+//              the running row max m, the row sum l of exp(s - m) and
+//              t = sum exp(s - m) dp, both rescaled when m grows;
+//              delta = t / l;
 //      pass B: s and dp again, p = exp(s - m) / l, ds = p (dp - delta) in
-//              f32 to a (B, H, N, N) workspace, and bf16(ds) straight from
-//              the accumulators into the A fragments of dq += ds k.
-//    m, l and delta go to a (3, B, H, N) f32 statistics array.
-// 2. attention_long_bwd_cols_mma_kernel, one block per (sample, head, 64
-//    keys), query rows in tiles of 64: the transposed score tile k q^T and
-//    v do^T from the same mma (keys as rows), p and ds rebuilt from the
-//    statistics and the transposed bias, and bf16(p), bf16(ds) from the
-//    accumulators into the A fragments of dv += p^T do and dk += ds^T q.
-//    Nothing of size N x N is read here except the bias.
+//              f32 to a (B, H, N, N') workspace, its rows padded to N' = a
+//              multiple of 8 floats, each tile through a swizzled staging
+//              buffer in shared memory and a TMA store (scalar stores of
+//              the accumulators at a 4100-byte row stride write parts of
+//              32-byte sectors and were the kernel's largest cost); and
+//              bf16(ds) straight from the accumulators as the register A
+//              operand of dq += ds k, the K tile read MN-major through the
+//              descriptor's transpose bit (as K3f reads V). Each tile's s and
+//              dp are issued behind the last tile's dq product.
+//    m, 1 / l and delta go to a (B, H, ceil(N / 64), 3, 64) f32 statistics
+//    array, one 768-byte record per 64-row query tile.
+// 2. attention_long_bwd_cols_wgmma_kernel, one block per (sample, head, 128
+//    keys). Each consumer's K and V tiles stay in shared memory as K-major A
+//    operands; the ring brings each query tile's Q and dO (TMA) and its
+//    statistics record (one bulk copy). The same Q / dO tile serves K-major
+//    for s^T = k q^T and dp^T = v do^T, and MN-major for dv += bf16(p^T) do
+//    and dk += bf16(ds^T) q. p^T and ds^T are rebuilt from the statistics
+//    and the transposed bias (register loads into the accumulator layout,
+//    issued while s^T and dp^T are on the tensor cores). Four 64 x 64 f32
+//    accumulators are live (s^T, dp^T, dk, dv); the bias and the A fragments
+//    are never live at once.
 // 3. attention_long_bwd_bias_sum_kernel adds the workspace's per-sample ds in
 //    batch order (b = 0, 1, ...), the TPU kernel's own order: db is
 //    bit-reproducible from run to run.
-// The price: nine products instead of five, and the f32 ds workspace (0.81 GB
-// at B = 16, written once and read once: 1.6 GB of traffic, about 0.5 ms).
-// Storing bf16(p) as well (the design of K2b) would save two products in
-// step 2 and cost another 0.4 GB and column reads that do not coalesce.
-// Both grids run the sample fastest, so the blocks that read one bias strip
-// run together and it comes from device memory once.
+// In both kernels the bias comes by register loads into the accumulator
+// layout: its 4100-byte rows are no TMA stride. exp is ex2.approx of
+// (s - m) * log2(e); p is exp(s - m) times 1 / l. The price of this shape:
+// nine products instead of five, and the f32 ds workspace (0.81 GB at B = 16,
+// written once and read once: 1.6 GB of traffic, about 0.5 ms). Summing db
+// inside the cols kernel without the workspace would read and write each
+// block's (N x 64) f32 strip of db once per sample, (2B - 1) H N^2 4 bytes in
+// all (1.6 GB at B = 16), as much as the workspace's round trip, and L2 (50
+// MB) does not hold the ~100 MB the resident blocks would need.
 //
 // The scalar path (f32 operands, where tensor cores would round to TF32, and
 // head dims other than 64, up to 128) is K2b's scalar kernel cut in two:
@@ -71,8 +93,7 @@
 // device memory through the caches.
 //
 // No kernel allocates or synchronises: the wrapper allocates the outputs, the
-// workspaces and the statistics. wgmma, TMA, a pipelined tile ring and a
-// forward that keeps m and l are later work.
+// workspaces and the statistics.
 
 #pragma once
 
@@ -81,11 +102,12 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kTile = 64;                // keys (rows kernel) or queries (cols kernel) per tile
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -124,7 +146,7 @@ __device__ __forceinline__ float quad_sum(float v) {
 // (B, N, H*D): a head's rows are H*D elements apart and head h starts at
 // column h*D. Head-major (B, H, N, D): rows are D apart and head h of sample
 // b starts at ((b*H + h)*N)*D. The workspaces, the statistics and the bias
-// are (B, H, N, N), (3, B, H, N) and (H, N, N) in both.
+// are (B, H, N, N), (B, H, ceil(N / 64), 3, 64) and (H, N, N) in both.
 #ifdef MEM_ATTENTION_HEAD_MAJOR
 constexpr bool kHeadMajor = true;
 #else
@@ -142,177 +164,179 @@ __device__ __forceinline__ int64_t layout_base(int b, int h, int n, int heads, i
 }
 
 // ---------------------------------------------------------------------------
-// 1. tensor-core path: bf16, D = 64
+// 1. wgmma path: bf16, D = 64
 // ---------------------------------------------------------------------------
 
-constexpr int kMmaD = 64;
-constexpr int kNT = kTile / 8;           // 8-column mma tiles per 64-wide tile
-// Row stride of every staged tile, row-major ([row][d]) or transposed
-// ([d][row]): 64 + 8 elements = 36 words, so the 32-bit fragment loads of 8
-// rows x 4 lanes hit 32 banks.
-constexpr int kStride = kTile + 8;
-static_assert(kMmaD == kTile, "one stride serves both layouts");
+constexpr int kWgRows = 64;                       // rows (queries or keys) per consumer warpgroup
+constexpr int kConsumers = 2;                     // consumer warpgroups per block
+constexpr int kBlockRows = kWgRows * kConsumers;  // rows per block
+constexpr int kStages = 3;                        // ring depth, both kernels
+constexpr int kWgThreads = 128 * (kConsumers + 1);  // + one producer warpgroup
+// setmaxnreg: the block starts at 168 registers a thread (384 threads); the
+// producer warpgroup, one thread of which issues the copies, keeps 24 and the
+// consumers take 240 (2 x 128 x 240 + 128 x 24 = 64,512 = 384 x 168)
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+constexpr int kPairBytes = kConsumers * kTileBytes;       // one tile per consumer
+// (B*H, ceil(N / 64), 3, 64) f32: per 64-row query tile its m, 1 / l and delta
+constexpr int kStatFloats = 3 * kWgTile;
+constexpr int kStatBytes = kStatFloats * 4;
+// The ds workspace's rows are padded to a multiple of 8 floats (32 B), so
+// that its row stride suits TMA and every 8-float group is one sector; a ds
+// tile leaves by TMA store from a staging buffer of two 64 x 32 f32 halves
+// (128 B swizzle), one per consumer and tile parity.
+constexpr int kWsAlign = 8;
+constexpr int kDsHalfBytes = kWgTile * 32 * 4;
+constexpr int kDsTileBytes = 2 * kDsHalfBytes;
+// rows kernel: Q and dO of each consumer, the ring of K / V stages, the ds
+// staging buffers
+constexpr int kRowsStageBytes = 2 * kTileBytes;
+constexpr int kRowsDsOffset = 2 * kPairBytes + kStages * kRowsStageBytes;
+constexpr int kRowsBarOffset = kRowsDsOffset + 2 * kConsumers * kDsTileBytes;
+// cols kernel: K and V of each consumer, then the ring of Q / dO / stats
+// stages (each 1024-aligned for the swizzled tiles)
+constexpr int kColsStageBytes = 2 * kTileBytes + 1024;
+constexpr int kColsBarOffset = 2 * kPairBytes + kStages * kColsStageBytes;
+// full[kStages], empty[kStages], one more; the 1024 B in front align the tiles
+constexpr int kRowsSmemBytes = 1024 + kRowsBarOffset + 8 * (2 * kStages + 1);
+constexpr int kColsSmemBytes = 1024 + kColsBarOffset + 8 * (2 * kStages + 1);
+static_assert(kStatBytes <= 1024, "a stage's stats fit its 1024 B");
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// A fragments of rows ra, rb (= ra + 8) x 64 columns of one head of a bf16
-// operand whose rows are c elements apart; zeros for a row past n
-__device__ __forceinline__ void load_rows(uint32_t (&f)[kMmaD / 16][4],
-                                          const __nv_bfloat16* __restrict__ x, int64_t base,
-                                          int c, int ra, int rb, bool va, bool vb, int t) {
+// Scores of one tile in place: (acc * scale) + bias with the reference's two
+// roundings; entries whose key (rows kernel) or query (cols kernel) is >= n
+// at -inf when the tile is ragged. ``j0`` is the tile's first column.
+__device__ __forceinline__ void tile_scores(float (&sc)[32], const float (&bv)[32], int j0, int n,
+                                            int t, float scale) {
+  if (j0 + kWgTile <= n) {
 #pragma unroll
-  for (int s = 0; s < kMmaD / 16; ++s) {
-    const int col = s * 16 + t * 2;
-    const __nv_bfloat16* pa = x + base + static_cast<int64_t>(ra) * c + col;
-    const __nv_bfloat16* pb = x + base + static_cast<int64_t>(rb) * c + col;
-    f[s][0] = va ? ld32(pa) : 0u;
-    f[s][1] = vb ? ld32(pb) : 0u;
-    f[s][2] = va ? ld32(pa + 8) : 0u;
-    f[s][3] = vb ? ld32(pb + 8) : 0u;
-  }
-}
-
-// Stage rows [r0, r0 + 64) of one head of two operands x and y: x
-// row-major into xs, y row-major into ys, and, where the pointer is given,
-// x transposed into xt and y transposed into yt; 16 B per load, zeros past n.
-template <bool kXt, bool kYt>
-__device__ __forceinline__ void stage_pair(const __nv_bfloat16* __restrict__ x,
-                                           const __nv_bfloat16* __restrict__ y,
-                                           __nv_bfloat16* xs, __nv_bfloat16* ys,
-                                           __nv_bfloat16* xt, __nv_bfloat16* yt,
-                                           int64_t base, int c, int r0, int n) {
-  for (int idx = threadIdx.x; idx < kTile * (kMmaD / 8); idx += kThreads) {
-    const int j = idx / (kMmaD / 8);
-    const int seg = (idx % (kMmaD / 8)) * 8;
-    uint4 xv = make_uint4(0, 0, 0, 0), yv = make_uint4(0, 0, 0, 0);
-    if (r0 + j < n) {
-      const int64_t g = base + static_cast<int64_t>(r0 + j) * c + seg;
-      xv = *reinterpret_cast<const uint4*>(x + g);
-      yv = *reinterpret_cast<const uint4*>(y + g);
-    }
-    *reinterpret_cast<uint4*>(xs + j * kStride + seg) = xv;
-    *reinterpret_cast<uint4*>(ys + j * kStride + seg) = yv;
-    if (kXt) {
-      const __nv_bfloat16* xe = reinterpret_cast<const __nv_bfloat16*>(&xv);
+    for (int i = 0; i < 32; ++i) sc[i] = __fadd_rn(__fmul_rn(sc[i], scale), bv[i]);
+  } else {
 #pragma unroll
-      for (int e = 0; e < 8; ++e) xt[(seg + e) * kStride + j] = xe[e];
-    }
-    if (kYt) {
-      const __nv_bfloat16* ye = reinterpret_cast<const __nv_bfloat16*>(&yv);
+    for (int j = 0; j < 8; ++j) {
 #pragma unroll
-      for (int e = 0; e < 8; ++e) yt[(seg + e) * kStride + j] = ye[e];
-    }
-  }
-}
-
-// One warp's 16 x 8 product tile a . rows^T against the staged rows
-// [nt * 8, nt * 8 + 8) of xs (row-major [row][d])
-__device__ __forceinline__ void tile_product(float (&acc)[4],
-                                             const uint32_t (&a)[kMmaD / 16][4],
-                                             const __nv_bfloat16* xs, int nt, int g, int t) {
-  acc[0] = acc[1] = acc[2] = acc[3] = 0.f;
-  const __nv_bfloat16* xr = xs + (nt * 8 + g) * kStride + t * 2;
-#pragma unroll
-  for (int s = 0; s < kMmaD / 16; ++s) {
-    mma_bf16(acc, a[s], ld32(xr + s * 16), ld32(xr + s * 16 + 8));
-  }
-}
-
-// One warp's 16 x 64 scores of a key tile: (q.k) * scale + bias (two
-// roundings, as the reference), keys >= n masked to -inf.
-__device__ __forceinline__ void tile_scores(float (&sc)[kNT][4],
-                                            const uint32_t (&qa)[kMmaD / 16][4],
-                                            const __nv_bfloat16* ks,
-                                            const float* __restrict__ ba,
-                                            const float* __restrict__ bb,
-                                            int j0, int n, int g, int t, float scale) {
-#pragma unroll
-  for (int nt = 0; nt < kNT; ++nt) {
-    tile_product(sc[nt], qa, ks, nt, g, t);
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int key = j0 + nt * 8 + t * 2 + e;
-      if (key < n) {
-        sc[nt][e] = __fadd_rn(__fmul_rn(sc[nt][e], scale), __ldg(ba + key));
-        sc[nt][2 + e] = __fadd_rn(__fmul_rn(sc[nt][2 + e], scale), __ldg(bb + key));
-      } else {
-        sc[nt][e] = sc[nt][2 + e] = -INFINITY;
+      for (int e = 0; e < 2; ++e) {
+        const bool ok = j0 + 8 * j + 2 * t + e < n;
+        sc[4 * j + e] = ok ? __fadd_rn(__fmul_rn(sc[4 * j + e], scale), bv[4 * j + e]) : -INFINITY;
+        sc[4 * j + 2 + e] =
+            ok ? __fadd_rn(__fmul_rn(sc[4 * j + 2 + e], scale), bv[4 * j + 2 + e]) : -INFINITY;
       }
     }
   }
 }
 
-// stats: (3, B, H, N) f32 = row max m, row sum l, delta
-__global__ void __launch_bounds__(kThreads)
-attention_long_bwd_rows_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                                   const __nv_bfloat16* __restrict__ k,
-                                   const __nv_bfloat16* __restrict__ v,
-                                   const float* __restrict__ bias,
-                                   const __nv_bfloat16* __restrict__ dout,
-                                   __nv_bfloat16* __restrict__ dq,
-                                   float* __restrict__ ds_ws, float* __restrict__ stats,
-                                   int n, int heads, float scale) {
-  __shared__ __align__(16) __nv_bfloat16 ks[kTile * kStride];   // [key][d]
-  __shared__ __align__(16) __nv_bfloat16 vs[kTile * kStride];   // [key][d]
-  __shared__ __align__(16) __nv_bfloat16 kt[kMmaD * kStride];   // [d][key]
+__device__ __forceinline__ float expm(float s, float m) { return ex2(__fmul_rn(s - m, kLog2e)); }
 
-  const int bi = blockIdx.x;
+// rows kernel: the producer loads each consumer's Q and dO tiles once, then
+// the key tiles twice (pass A, then pass B) through the ring. tws: the ds
+// workspace (n, n, B*H) f32, rows ws_stride(n) floats apart, boxes of 64 rows
+// of 32 floats. stats: (B*H, ceil(n / 64), 3, 64) f32 = m, 1 / l, delta of each
+// query row (0 past n).
+__global__ void __launch_bounds__(kWgThreads, 1)
+attention_long_bwd_rows_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                                     const __grid_constant__ CUtensorMap tk,
+                                     const __grid_constant__ CUtensorMap tv,
+                                     const __grid_constant__ CUtensorMap tdo,
+                                     const __grid_constant__ CUtensorMap tws,
+                                     const float* __restrict__ bias,
+                                     __nv_bfloat16* __restrict__ dq, float* __restrict__ stats,
+                                     int n, int heads, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sbase = (smem_u32(smem_raw) + 1023) & ~uint32_t{1023};
+  const uint32_t full0 = sbase + kRowsBarOffset, empty0 = full0 + 8 * kStages;
+  const uint32_t qbar = empty0 + 8 * kStages;
+
+  const unsigned b = blockIdx.x;
   const int h = blockIdx.y;
-  const int c = layout_row_stride(heads, kMmaD);
-  const int64_t base = layout_base(bi, h, n, heads, kMmaD, c);
-  const int64_t bh = static_cast<int64_t>(bi) * heads + h;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;   // fragment row (and key / column within an mma tile)
-  const int t = lane % 4;   // fragment column pair
-  // every warp stays for the staging barriers; rows >= n compute on zeros
-  // (and the last row's bias) and write nothing
-  const int ra = blockIdx.z * kTile + warp * 16 + g, rb = ra + 8;
-  const bool va = ra < n, vb = rb < n;
+  const int q0 = blockIdx.z * kBlockRows;
+  const int rows = min(kBlockRows, n - q0);                  // valid rows of the block
+  const int active = (rows + kWgRows - 1) / kWgRows;         // warpgroups with a valid row
+  const int tiles = (n + kWgTile - 1) / kWgTile;
+  const int wg = threadIdx.x / 128;
 
-  uint32_t qa[kMmaD / 16][4], da[kMmaD / 16][4];
-  load_rows(qa, q, base, c, ra, rb, va, vb, t);
-  load_rows(da, dout, base, c, ra, rb, va, vb, t);
-  const float* ba = bias + (static_cast<int64_t>(h) * n + (va ? ra : n - 1)) * n;
-  const float* bb = bias + (static_cast<int64_t>(h) * n + (vb ? rb : n - 1)) * n;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 4 * active);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
 
-  const int tiles = (n + kTile - 1) / kTile;
-  float sc[kNT][4];
+  if (wg == kConsumers) {
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x != kConsumers * 128) return;
+    // tensor-map coordinates: (column, row, sample) or (0, row, sample * heads + head)
+    const int tc = kHeadMajor ? 0 : h * kWgD;
+    const int tb = kHeadMajor ? static_cast<int>(b) * heads + h : static_cast<int>(b);
+    mbar_expect_tx(qbar, 2 * active * kTileBytes);
+    for (int w = 0; w < active; ++w) {
+      tma_load(sbase + w * kTileBytes, &tq, qbar, tc, q0 + w * kWgRows, tb);
+      tma_load(sbase + kPairBytes + w * kTileBytes, &tdo, qbar, tc, q0 + w * kWgRows, tb);
+    }
+    for (int it = 0; it < 2 * tiles; ++it) {
+      const int s = it % kStages, round = it / kStages;
+      const int j0 = (it < tiles ? it : it - tiles) * kWgTile;
+      if (round > 0) mbar_wait(empty0 + 8 * s, (round - 1) & 1);
+      const uint32_t stage = sbase + 2 * kPairBytes + s * kRowsStageBytes;
+      mbar_expect_tx(full0 + 8 * s, 2 * kTileBytes);
+      tma_load(stage, &tk, full0 + 8 * s, tc, j0, tb);
+      tma_load(stage + kTileBytes, &tv, full0 + 8 * s, tc, j0, tb);
+    }
+    return;
+  }
+  if (wg >= active) return;
+  regs_inc<kConsumerRegs>();
 
-  // pass A: m, l and t = sum exp(s - m) dp. The sums are per-thread partials
-  // under the row-wide running max; key 0 is valid, so the max is finite from
-  // tile 0 on. Keys >= n: exp(-inf - m) = 0 and dp = 0 (V staged as zeros).
+  const int lane = threadIdx.x % 32, t = lane % 4, wtid = threadIdx.x % 128;
+  const int trow = (threadIdx.x / 32) % 4 * 16 + lane / 4;   // row a in the warpgroup's tile
+  const int ra = q0 + wg * kWgRows + trow, rb = ra + 8;
+  const int64_t bh = static_cast<int64_t>(b) * heads + h;
+  // rows >= n read the warpgroup's first row of the bias (valid) and write
+  // nothing but zero statistics
+  const float* bias_h = bias + static_cast<int64_t>(h) * n * n;
+  const float* ga = bias_h + static_cast<int64_t>(ra < n ? ra : q0 + wg * kWgRows) * n;
+  const float* gb = bias_h + static_cast<int64_t>(rb < n ? rb : q0 + wg * kWgRows) * n;
+  const uint32_t qtile = sbase + wg * kTileBytes, dotile = qtile + kPairBytes;
+  auto ktile = [&](int it) { return sbase + 2 * kPairBytes + (it % kStages) * kRowsStageBytes; };
+
+  float sc[32], dp[32], bc[32], bn[32];
+  // the bias goes by registers, one tile ahead of its use, over the 2 * tiles
+  // tiles of both passes: bc holds the current tile's, bn the next one's
+  auto next_bias = [&](int it) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) bc[i] = bn[i];
+    if (it + 1 < 2 * tiles) load_bias(bn, ga, gb, (it + 1) % tiles * kWgTile, n, t);
+  };
+  load_bias(bc, ga, gb, 0, n, t);
+  load_bias(bn, ga, gb, 1 % tiles * kWgTile, n, t);
+  mbar_wait(qbar, 0);
+
+  // pass A: s and dp per key tile; the running row max m, and the per-thread
+  // partials of l = sum exp(s - m) and t = sum exp(s - m) dp, both rescaled
+  // when m grows. Key 0 is valid, so m is finite from tile 0 on; keys >= n
+  // give exp(-inf) = 0 and dp = 0 (K and V come back as zeros past n).
   float ma = -INFINITY, mb = -INFINITY, la = 0.f, lb = 0.f, ta = 0.f, tb = 0.f;
-  for (int tile = 0; tile < tiles; ++tile) {
-    const int j0 = tile * kTile;
-    __syncthreads();   // the last tile is done with
-    stage_pair<false, false>(k, v, ks, vs, nullptr, nullptr, base, c, j0, n);
-    __syncthreads();
-    tile_scores(sc, qa, ks, ba, bb, j0, n, g, t, scale);
+  for (int it = 0; it < tiles; ++it) {
+    if (it > 0) next_bias(it);
+    mbar_wait(full0 + 8 * (it % kStages), (it / kStages) & 1);
+    wgmma_fence();
+    wgmma_abt_fresh(sc, qtile, ktile(it));
+    wgmma_abt_fresh(dp, dotile, ktile(it) + kTileBytes);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+    if (lane == 0) mbar_arrive(empty0 + 8 * (it % kStages));
+    tile_scores(sc, bc, it * kWgTile, n, t, scale);
     float xa = -INFINITY, xb = -INFINITY;
 #pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      xa = fmaxf(xa, fmaxf(sc[nt][0], sc[nt][1]));
-      xb = fmaxf(xb, fmaxf(sc[nt][2], sc[nt][3]));
+    for (int j = 0; j < 8; ++j) {
+      xa = fmaxf(xa, fmaxf(sc[4 * j], sc[4 * j + 1]));
+      xb = fmaxf(xb, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
     }
     const float na = fmaxf(ma, quad_max(xa)), nb = fmaxf(mb, quad_max(xb));
-    const float fa = expf(ma - na), fb = expf(mb - nb);
+    const float fa = expm(ma, na), fb = expm(mb, nb);   // 0 at the first tile (m = -inf)
     la *= fa;
     ta *= fa;
     lb *= fb;
@@ -320,215 +344,326 @@ attention_long_bwd_rows_mma_kernel(const __nv_bfloat16* __restrict__ q,
     ma = na;
     mb = nb;
 #pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      float dp[4];
-      tile_product(dp, da, vs, nt, g, t);
-      const float e0 = expf(sc[nt][0] - ma), e1 = expf(sc[nt][1] - ma);
-      const float e2 = expf(sc[nt][2] - mb), e3 = expf(sc[nt][3] - mb);
-      la += e0 + e1;
-      lb += e2 + e3;
-      ta += e0 * dp[0] + e1 * dp[1];
-      tb += e2 * dp[2] + e3 * dp[3];
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float ea = expm(sc[4 * j + e], ma), eb = expm(sc[4 * j + 2 + e], mb);
+        la += ea;
+        lb += eb;
+        ta = fmaf(ea, dp[4 * j + e], ta);
+        tb = fmaf(eb, dp[4 * j + 2 + e], tb);
+      }
     }
   }
   la = quad_sum(la);
   lb = quad_sum(lb);
   const float dla = __fdiv_rn(quad_sum(ta), la), dlb = __fdiv_rn(quad_sum(tb), lb);
+  const float ila = __frcp_rn(la), ilb = __frcp_rn(lb);
   if (t == 0) {
-    const int64_t plane = static_cast<int64_t>(gridDim.x) * heads * n;
-    if (va) {
-      float* st = stats + bh * n + ra;
-      st[0] = ma;
-      st[plane] = la;
-      st[2 * plane] = dla;
-    }
-    if (vb) {
-      float* st = stats + bh * n + rb;
-      st[0] = mb;
-      st[plane] = lb;
-      st[2 * plane] = dlb;
-    }
+    float* st = stats + (bh * tiles + (q0 / kWgTile + wg)) * kStatFloats + trow;
+    st[0] = ra < n ? ma : 0.f;
+    st[kWgTile] = ra < n ? ila : 0.f;
+    st[2 * kWgTile] = ra < n ? dla : 0.f;
+    st[8] = rb < n ? mb : 0.f;
+    st[kWgTile + 8] = rb < n ? ilb : 0.f;
+    st[2 * kWgTile + 8] = rb < n ? dlb : 0.f;
   }
 
-  // pass B: ds to the workspace, and bf16(ds) from the accumulators into the A
-  // fragments of dq = ds k (two adjacent 8-key tiles are one 16-key step)
-  float acc[kMmaD / 8][4];
+  // pass B: s and dp again, p = exp(s - m) / l, ds = p (dp - delta) in f32 to
+  // the workspace, and bf16(ds) from the accumulators as the A fragments of
+  // dq += ds k (the K tile read MN-major). Each tile's s and dp go to the
+  // tensor cores behind the last tile's dq product, whose K stage is released
+  // once it is done.
+  // The 16-byte chunk (of 8) that this thread's float pair of 8-column group
+  // j lands in within its row of a swizzled 128-byte half-row; rows a and b
+  // share it (row % 8 = lane / 4 for both)
+  auto ds_chunk = [&](int j) { return ((2 * (j % 4) + (t >> 1)) ^ (lane / 4)) * 16 + 8 * (t & 1); };
+  float acc[32];   // written by the first tile's product
+  uint32_t pf[4][4];
+  for (int it = tiles; it < 2 * tiles; ++it) {
+    const int j0 = (it - tiles) * kWgTile;
+    next_bias(it);
+    mbar_wait(full0 + 8 * (it % kStages), (it / kStages) & 1);
+    wgmma_fence();
+    wgmma_abt_fresh(sc, qtile, ktile(it));
+    wgmma_abt_fresh(dp, dotile, ktile(it) + kTileBytes);
+    wgmma_commit();
+    if (it > tiles) {
+      wgmma_wait<1>();   // the last tile's dq product is done
+      fence_frags(pf);
+      if (lane == 0) mbar_arrive(empty0 + 8 * ((it - 1) % kStages));
+    }
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+    tile_scores(sc, bc, j0, n, t, scale);
 #pragma unroll
-  for (int dn = 0; dn < kMmaD / 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
-  float* dsa = ds_ws + (bh * n + (va ? ra : 0)) * n;
-  float* dsb = ds_ws + (bh * n + (vb ? rb : 0)) * n;
-  for (int tile = 0; tile < tiles; ++tile) {
-    const int j0 = tile * kTile;
-    __syncthreads();
-    stage_pair<true, false>(k, v, ks, vs, kt, nullptr, base, c, j0, n);
-    __syncthreads();
-    tile_scores(sc, qa, ks, ba, bb, j0, n, g, t, scale);
+    for (int j = 0; j < 8; ++j) {
 #pragma unroll
-    for (int kk = 0; kk < kNT / 2; ++kk) {
-      float ds[2][4];
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int nt = 2 * kk + half;
-        float dp[4];
-        tile_product(dp, da, vs, nt, g, t);
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float pa = __fdiv_rn(expf(sc[nt][e] - ma), la);
-          const float pb = __fdiv_rn(expf(sc[nt][2 + e] - mb), lb);
-          ds[half][e] = __fmul_rn(pa, __fsub_rn(dp[e], dla));
-          ds[half][2 + e] = __fmul_rn(pb, __fsub_rn(dp[2 + e], dlb));
-          const int key = j0 + nt * 8 + t * 2 + e;
-          if (key < n) {
-            if (va) dsa[key] = ds[half][e];
-            if (vb) dsb[key] = ds[half][2 + e];
-          }
-        }
+      for (int e = 0; e < 2; ++e) {
+        const float pa = __fmul_rn(expm(sc[4 * j + e], ma), ila);
+        const float pb = __fmul_rn(expm(sc[4 * j + 2 + e], mb), ilb);
+        sc[4 * j + e] = __fmul_rn(pa, __fsub_rn(dp[4 * j + e], dla));
+        sc[4 * j + 2 + e] = __fmul_rn(pb, __fsub_rn(dp[4 * j + 2 + e], dlb));
       }
-      const uint32_t a[4] = {pack_bf16(ds[0][0], ds[0][1]), pack_bf16(ds[0][2], ds[0][3]),
-                             pack_bf16(ds[1][0], ds[1][1]), pack_bf16(ds[1][2], ds[1][3])};
-      const __nv_bfloat16* kr = kt + g * kStride + kk * 16 + t * 2;
+    }
+    pack_frags(pf, sc);
+    wgmma_fence();
+    wgmma_ab_mn(acc, pf, ktile(it), it > tiles);
+    wgmma_commit();
+    // ds leaves through this warpgroup's staging buffer of the tile's
+    // parity, by one thread's TMA store (rows and keys >= n are clipped);
+    // the store two tiles back must have read the buffer first
+    const uint32_t sbuf = sbase + kRowsDsOffset + (2 * wg + ((it - tiles) & 1)) * kDsTileBytes;
+    if (wtid == 0) bulk_wait_read<1>();
+    named_barrier(1 + wg, 128);
 #pragma unroll
-      for (int dn = 0; dn < kMmaD / 8; ++dn) {
-        mma_bf16(acc[dn], a, ld32(kr + dn * 8 * kStride), ld32(kr + dn * 8 * kStride + 8));
-      }
+    for (int j = 0; j < 8; ++j) {
+      const uint32_t at = sbuf + (j / 4) * kDsHalfBytes + ds_chunk(j);
+      st_shared_f2(at + trow * 128, sc[4 * j], sc[4 * j + 1]);
+      st_shared_f2(at + (trow + 8) * 128, sc[4 * j + 2], sc[4 * j + 3]);
+    }
+    fence_async_smem();
+    named_barrier(1 + wg, 128);
+    if (wtid == 0) {
+      tma_store(&tws, sbuf, j0, q0 + wg * kWgRows, static_cast<int>(bh));
+      tma_store(&tws, sbuf + kDsHalfBytes, j0 + 32, q0 + wg * kWgRows, static_cast<int>(bh));
+      bulk_commit();
     }
   }
-  __nv_bfloat16* oa = dq + base + static_cast<int64_t>(ra) * c + t * 2;
-  __nv_bfloat16* ob = dq + base + static_cast<int64_t>(rb) * c + t * 2;
+  wgmma_wait<0>();
+  fence_regs(acc);
+  fence_frags(pf);
+  if (wtid == 0) bulk_wait<0>();
+
+  const int c = layout_row_stride(heads, kWgD);
+  const int64_t base = layout_base(b, h, n, heads, kWgD, c);
+  __nv_bfloat16* oa = dq + base + static_cast<int64_t>(ra) * c + 2 * t;
+  __nv_bfloat16* ob = dq + base + static_cast<int64_t>(rb) * c + 2 * t;
 #pragma unroll
-  for (int dn = 0; dn < kMmaD / 8; ++dn) {
-    if (va) {
-      *reinterpret_cast<uint32_t*>(oa + dn * 8) =
-          pack_bf16(__fmul_rn(acc[dn][0], scale), __fmul_rn(acc[dn][1], scale));
+  for (int j = 0; j < 8; ++j) {
+    if (ra < n) {
+      *reinterpret_cast<uint32_t*>(oa + 8 * j) =
+          pack_bf16(__fmul_rn(acc[4 * j], scale), __fmul_rn(acc[4 * j + 1], scale));
     }
-    if (vb) {
-      *reinterpret_cast<uint32_t*>(ob + dn * 8) =
-          pack_bf16(__fmul_rn(acc[dn][2], scale), __fmul_rn(acc[dn][3], scale));
+    if (rb < n) {
+      *reinterpret_cast<uint32_t*>(ob + 8 * j) =
+          pack_bf16(__fmul_rn(acc[4 * j + 2], scale), __fmul_rn(acc[4 * j + 3], scale));
     }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-attention_long_bwd_cols_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                                   const __nv_bfloat16* __restrict__ k,
-                                   const __nv_bfloat16* __restrict__ v,
-                                   const float* __restrict__ bias,
-                                   const __nv_bfloat16* __restrict__ dout,
-                                   const float* __restrict__ stats,
-                                   __nv_bfloat16* __restrict__ dk,
-                                   __nv_bfloat16* __restrict__ dv,
-                                   int n, int heads, float scale) {
-  __shared__ __align__(16) __nv_bfloat16 qs[kTile * kStride];    // [query][d]
-  __shared__ __align__(16) __nv_bfloat16 dos[kTile * kStride];   // [query][d]
-  __shared__ __align__(16) __nv_bfloat16 qt[kMmaD * kStride];    // [d][query]
-  __shared__ __align__(16) __nv_bfloat16 dot[kMmaD * kStride];   // [d][query]
-  __shared__ float sm[kTile], sl[kTile], sd[kTile];              // the tile's m, l, delta
+// The transposed bias of keys a and b (columns ca, cb of the head's bias) at
+// this thread's 16 query rows of the query tile at i0, in the accumulator's
+// order; 0 past n.
+__device__ __forceinline__ void load_bias_t(float (&bv)[32], const float* ca, const float* cb,
+                                            int i0, int n, int t) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int i = i0 + 8 * j + 2 * t + e;
+      const int64_t off = static_cast<int64_t>(i) * n;
+      bv[4 * j + e] = i < n ? __ldg(ca + off) : 0.f;
+      bv[4 * j + 2 + e] = i < n ? __ldg(cb + off) : 0.f;
+    }
+  }
+}
 
-  const int bi = blockIdx.x;
+// cols kernel: the producer warp loads each consumer's K and V tiles once,
+// then per query tile its Q and dO tiles and its statistics through the
+// ring. Keys are the product's rows here: s^T = k q^T, dp^T = v do^T.
+__global__ void __launch_bounds__(kWgThreads, 1)
+attention_long_bwd_cols_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                                     const __grid_constant__ CUtensorMap tk,
+                                     const __grid_constant__ CUtensorMap tv,
+                                     const __grid_constant__ CUtensorMap tdo,
+                                     const float* __restrict__ bias,
+                                     const float* __restrict__ stats,
+                                     __nv_bfloat16* __restrict__ dk,
+                                     __nv_bfloat16* __restrict__ dv,
+                                     int n, int heads, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sbase = (smem_u32(smem_raw) + 1023) & ~uint32_t{1023};
+  const unsigned char* sgen = smem_raw + (sbase - smem_u32(smem_raw));   // sbase, generic
+  const uint32_t full0 = sbase + kColsBarOffset, empty0 = full0 + 8 * kStages;
+  const uint32_t kvbar = empty0 + 8 * kStages;
+
+  const unsigned b = blockIdx.x;
   const int h = blockIdx.y;
-  const int c = layout_row_stride(heads, kMmaD);
-  const int64_t base = layout_base(bi, h, n, heads, kMmaD, c);
-  const int64_t bh = static_cast<int64_t>(bi) * heads + h;
-  const int64_t plane = static_cast<int64_t>(gridDim.x) * heads * n;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;   // fragment row: a key
-  const int t = lane % 4;   // fragment column pair: two queries
-  const int ja = blockIdx.z * kTile + warp * 16 + g, jb = ja + 8;
-  const bool ka = ja < n, kb = jb < n;
+  const int k0 = blockIdx.z * kBlockRows;
+  const int keys = min(kBlockRows, n - k0);                  // valid keys of the block
+  const int active = (keys + kWgRows - 1) / kWgRows;         // warpgroups with a valid key
+  const int tiles = (n + kWgTile - 1) / kWgTile;
+  const int wg = threadIdx.x / 128;
+  const int64_t bh = static_cast<int64_t>(b) * heads + h;
 
-  // the warp's 16 keys as A fragments: K for s^T = k q^T, V for dp^T = v do^T
-  uint32_t kf[kMmaD / 16][4], vf[kMmaD / 16][4];
-  load_rows(kf, k, base, c, ja, jb, ka, kb, t);
-  load_rows(vf, v, base, c, ja, jb, ka, kb, t);
-  // bias[h][query][key]: the thread walks down two columns
-  const float* bcol = bias + static_cast<int64_t>(h) * n * n;
-
-  float accv[kMmaD / 8][4], acck[kMmaD / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < kMmaD / 8; ++dn) {
-    accv[dn][0] = accv[dn][1] = accv[dn][2] = accv[dn][3] = 0.f;
-    acck[dn][0] = acck[dn][1] = acck[dn][2] = acck[dn][3] = 0.f;
-  }
-
-  const int tiles = (n + kTile - 1) / kTile;
-  for (int tile = 0; tile < tiles; ++tile) {
-    const int i0 = tile * kTile;
-    __syncthreads();   // the last tile is done with
-    stage_pair<true, true>(q, dout, qs, dos, qt, dot, base, c, i0, n);
-    if (threadIdx.x < kTile) {
-      const int i = i0 + threadIdx.x;
-      const bool ok = i < n;
-      const float* st = stats + bh * n + (ok ? i : 0);
-      sm[threadIdx.x] = ok ? st[0] : 0.f;
-      sl[threadIdx.x] = ok ? st[plane] : 1.f;
-      sd[threadIdx.x] = ok ? st[2 * plane] : 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 4 * active);
     }
-    __syncthreads();
+    mbar_init(kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
 
+  if (wg == kConsumers) {
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x != kConsumers * 128) return;
+    const int tc = kHeadMajor ? 0 : h * kWgD;
+    const int tb = kHeadMajor ? static_cast<int>(b) * heads + h : static_cast<int>(b);
+    mbar_expect_tx(kvbar, 2 * active * kTileBytes);
+    for (int w = 0; w < active; ++w) {
+      tma_load(sbase + w * kTileBytes, &tk, kvbar, tc, k0 + w * kWgRows, tb);
+      tma_load(sbase + kPairBytes + w * kTileBytes, &tv, kvbar, tc, k0 + w * kWgRows, tb);
+    }
+    const float* st = stats + bh * tiles * kStatFloats;
+    for (int it = 0; it < tiles; ++it) {
+      const int s = it % kStages, round = it / kStages;
+      if (round > 0) mbar_wait(empty0 + 8 * s, (round - 1) & 1);
+      const uint32_t stage = sbase + 2 * kPairBytes + s * kColsStageBytes;
+      mbar_expect_tx(full0 + 8 * s, 2 * kTileBytes + kStatBytes);
+      tma_load(stage, &tq, full0 + 8 * s, tc, it * kWgTile, tb);
+      tma_load(stage + kTileBytes, &tdo, full0 + 8 * s, tc, it * kWgTile, tb);
+      bulk_load(stage + 2 * kTileBytes, st + it * kStatFloats, kStatBytes, full0 + 8 * s);
+    }
+    return;
+  }
+  if (wg >= active) return;
+  regs_inc<kConsumerRegs>();
+
+  const int lane = threadIdx.x % 32, t = lane % 4;
+  const int ja = k0 + wg * kWgRows + (threadIdx.x / 32) % 4 * 16 + lane / 4, jb = ja + 8;
+  // keys >= n read the warpgroup's first key of the bias (valid): their rows
+  // of dk and dv are computed on zeros and not written
+  const float* bias_h = bias + static_cast<int64_t>(h) * n * n;
+  const float* ca = bias_h + (ja < n ? ja : k0 + wg * kWgRows);
+  const float* cb = bias_h + (jb < n ? jb : k0 + wg * kWgRows);
+  const uint32_t ktile = sbase + wg * kTileBytes, vtile = ktile + kPairBytes;
+  auto qstage = [&](int it) { return 2 * kPairBytes + (it % kStages) * kColsStageBytes; };
+
+  float st[32], dpt[32], bc[32], accv[32], acck[32];   // accv, acck: written by tile 0
+  uint32_t pf[4][4], sf[4][4];
+  mbar_wait(kvbar, 0);
+  for (int it = 0; it < tiles; ++it) {
+    const int i0 = it * kWgTile;
+    const uint32_t stage = sbase + qstage(it);
+    mbar_wait(full0 + 8 * (it % kStages), (it / kStages) & 1);
+    wgmma_fence();
+    wgmma_abt_fresh(st, ktile, stage);
+    wgmma_abt_fresh(dpt, vtile, stage + kTileBytes);
+    wgmma_commit();
+    if (it > 0) {
+      wgmma_wait<1>();   // the last tile's dv and dk products are done
+      fence_frags(pf);
+      fence_frags(sf);
+      if (lane == 0) mbar_arrive(empty0 + 8 * ((it - 1) % kStages));
+    }
+    load_bias_t(bc, ca, cb, i0, n, t);   // while s^T and dp^T are on the tensor cores
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+    // this tile's m, 1 / l and delta, per query (the accumulator's column)
+    const float* sm = reinterpret_cast<const float*>(sgen + qstage(it) + 2 * kTileBytes);
+    const bool ragged = i0 + kWgTile > n;
 #pragma unroll
-    for (int kk = 0; kk < kNT / 2; ++kk) {
-      float p[2][4], ds[2][4];
+    for (int j = 0; j < 8; ++j) {
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int nt = 2 * kk + half;
-        float st[4], dp[4];
-        tile_product(st, kf, qs, nt, g, t);
-        tile_product(dp, vf, dos, nt, g, t);
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int il = nt * 8 + t * 2 + e;   // the query, within the tile
-          const int i = i0 + il;
-          const bool vi = i < n;
-          const float m = sm[il], l = sl[il], dl = sd[il];
-          // queries >= n and keys >= n: p = ds = 0, the bias is not read
-          float pa = 0.f, pb = 0.f;
-          if (vi && ka) {
-            const float s = __fadd_rn(__fmul_rn(st[e], scale),
-                                      __ldg(bcol + static_cast<int64_t>(i) * n + ja));
-            pa = __fdiv_rn(expf(s - m), l);
-          }
-          if (vi && kb) {
-            const float s = __fadd_rn(__fmul_rn(st[2 + e], scale),
-                                      __ldg(bcol + static_cast<int64_t>(i) * n + jb));
-            pb = __fdiv_rn(expf(s - m), l);
-          }
-          p[half][e] = pa;
-          p[half][2 + e] = pb;
-          ds[half][e] = __fmul_rn(pa, __fsub_rn(dp[e], dl));
-          ds[half][2 + e] = __fmul_rn(pb, __fsub_rn(dp[2 + e], dl));
-        }
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * t + e;
+        const float m = sm[col], il = sm[kWgTile + col], dl = sm[2 * kWgTile + col];
+        const float sa = __fadd_rn(__fmul_rn(st[4 * j + e], scale), bc[4 * j + e]);
+        const float sb = __fadd_rn(__fmul_rn(st[4 * j + 2 + e], scale), bc[4 * j + 2 + e]);
+        float pa = __fmul_rn(expm(sa, m), il), pb = __fmul_rn(expm(sb, m), il);
+        if (ragged && i0 + col >= n) pa = pb = 0.f;   // queries >= n: p = ds = 0
+        st[4 * j + e] = pa;
+        st[4 * j + 2 + e] = pb;
+        dpt[4 * j + e] = __fmul_rn(pa, __fsub_rn(dpt[4 * j + e], dl));
+        dpt[4 * j + 2 + e] = __fmul_rn(pb, __fsub_rn(dpt[4 * j + 2 + e], dl));
       }
-      // A[key][query] for 16 queries: dv += p^T do, dk += ds^T q
-      const uint32_t pf[4] = {pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]),
-                              pack_bf16(p[1][0], p[1][1]), pack_bf16(p[1][2], p[1][3])};
-      const uint32_t sf[4] = {pack_bf16(ds[0][0], ds[0][1]), pack_bf16(ds[0][2], ds[0][3]),
-                              pack_bf16(ds[1][0], ds[1][1]), pack_bf16(ds[1][2], ds[1][3])};
-      const __nv_bfloat16* dr = dot + g * kStride + kk * 16 + t * 2;
-      const __nv_bfloat16* qr = qt + g * kStride + kk * 16 + t * 2;
-#pragma unroll
-      for (int dn = 0; dn < kMmaD / 8; ++dn) {
-        mma_bf16(accv[dn], pf, ld32(dr + dn * 8 * kStride), ld32(dr + dn * 8 * kStride + 8));
-        mma_bf16(acck[dn], sf, ld32(qr + dn * 8 * kStride), ld32(qr + dn * 8 * kStride + 8));
-      }
     }
+    pack_frags(pf, st);
+    pack_frags(sf, dpt);
+    wgmma_fence();
+    wgmma_ab_mn(accv, pf, stage + kTileBytes, it > 0);   // dv += p^T do
+    wgmma_ab_mn(acck, sf, stage, it > 0);                // dk += ds^T q
+    wgmma_commit();
   }
+  wgmma_wait<0>();
+  fence_regs(accv);
+  fence_regs(acck);
+  fence_frags(pf);
+  fence_frags(sf);
 
-  const int64_t oa = base + static_cast<int64_t>(ja) * c + t * 2;
-  const int64_t ob = base + static_cast<int64_t>(jb) * c + t * 2;
+  const int c = layout_row_stride(heads, kWgD);
+  const int64_t base = layout_base(b, h, n, heads, kWgD, c);
+  const int64_t oa = base + static_cast<int64_t>(ja) * c + 2 * t;
+  const int64_t ob = base + static_cast<int64_t>(jb) * c + 2 * t;
 #pragma unroll
-  for (int dn = 0; dn < kMmaD / 8; ++dn) {
-    if (ka) {
-      *reinterpret_cast<uint32_t*>(dv + oa + dn * 8) = pack_bf16(accv[dn][0], accv[dn][1]);
-      *reinterpret_cast<uint32_t*>(dk + oa + dn * 8) =
-          pack_bf16(__fmul_rn(acck[dn][0], scale), __fmul_rn(acck[dn][1], scale));
+  for (int j = 0; j < 8; ++j) {
+    if (ja < n) {
+      *reinterpret_cast<uint32_t*>(dv + oa + 8 * j) = pack_bf16(accv[4 * j], accv[4 * j + 1]);
+      *reinterpret_cast<uint32_t*>(dk + oa + 8 * j) =
+          pack_bf16(__fmul_rn(acck[4 * j], scale), __fmul_rn(acck[4 * j + 1], scale));
     }
-    if (kb) {
-      *reinterpret_cast<uint32_t*>(dv + ob + dn * 8) = pack_bf16(accv[dn][2], accv[dn][3]);
-      *reinterpret_cast<uint32_t*>(dk + ob + dn * 8) =
-          pack_bf16(__fmul_rn(acck[dn][2], scale), __fmul_rn(acck[dn][3], scale));
+    if (jb < n) {
+      *reinterpret_cast<uint32_t*>(dv + ob + 8 * j) = pack_bf16(accv[4 * j + 2], accv[4 * j + 3]);
+      *reinterpret_cast<uint32_t*>(dk + ob + 8 * j) =
+          pack_bf16(__fmul_rn(acck[4 * j + 2], scale), __fmul_rn(acck[4 * j + 3], scale));
     }
   }
+}
+
+// The ds workspace's row stride in floats: padded for the wgmma kernels
+int ws_stride(int n, bool wgmma) { return wgmma ? (n + kWsAlign - 1) / kWsAlign * kWsAlign : n; }
+
+// The ds workspace as a 3-D f32 map (n, n, planes) with rows ldw floats
+// apart, boxes of 64 rows of 32 floats, 128 B swizzle
+cudaError_t ws_tensor_map(EncodeTiled encode, CUtensorMap* map, float* ws, int planes, int n,
+                          int ldw) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(n),
+                              static_cast<cuuint64_t>(planes)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(ldw) * 4,
+                                 static_cast<cuuint64_t>(ldw) * 4 * n};
+  const cuuint32_t box[3] = {32, kWgTile, 1}, step[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, ws, dims, strides, box, step,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The rows kernel, then the cols kernel on the rows kernel's statistics
+int launch_wgmma(const void* q, const void* k, const void* v, const float* bias,
+                 const void* dout, void* dq, void* dk, void* dv, float* ds_ws, float* stats,
+                 int b, int n, int heads, float scale, cudaStream_t stream) {
+  if ((n + kBlockRows - 1) / kBlockRows > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  EncodeTiled encode;
+  cudaError_t e = encode_tiled(&encode);
+  CUtensorMap tq, tk, tv, tdo, tws;
+  if (e == cudaSuccess) e = tensor_map(encode, &tq, q, b, n, heads, kHeadMajor);
+  if (e == cudaSuccess) e = tensor_map(encode, &tk, k, b, n, heads, kHeadMajor);
+  if (e == cudaSuccess) e = tensor_map(encode, &tv, v, b, n, heads, kHeadMajor);
+  if (e == cudaSuccess) e = tensor_map(encode, &tdo, dout, b, n, heads, kHeadMajor);
+  if (e == cudaSuccess) e = ws_tensor_map(encode, &tws, ds_ws, b * heads, n, ws_stride(n, true));
+  if (e == cudaSuccess) {
+    e = cudaFuncSetAttribute(attention_long_bwd_rows_wgmma_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kRowsSmemBytes);
+  }
+  if (e == cudaSuccess) {
+    e = cudaFuncSetAttribute(attention_long_bwd_cols_wgmma_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kColsSmemBytes);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(b, heads, (n + kBlockRows - 1) / kBlockRows);
+  attention_long_bwd_rows_wgmma_kernel<<<grid, kWgThreads, kRowsSmemBytes, stream>>>(
+      tq, tk, tv, tdo, tws, bias, static_cast<__nv_bfloat16*>(dq), stats, n, heads, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  attention_long_bwd_cols_wgmma_kernel<<<grid, kWgThreads, kColsSmemBytes, stream>>>(
+      tq, tk, tv, tdo, bias, stats, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), n, heads, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -681,28 +816,30 @@ int launch_scalar(const void* q, const void* k, const void* v, const float* bias
 // 3. db = sum over the batch of the per-sample ds, in batch order
 // ---------------------------------------------------------------------------
 
+// rows: heads * n rows of n floats, ldw floats apart in the workspace
 __global__ void attention_long_bwd_bias_sum_kernel(const float* __restrict__ ds_ws,
-                                                   float* __restrict__ db, int64_t hnn,
-                                                   int b) {
-  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; i < hnn;
-       i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    float s = 0.f;
-    for (int bi = 0; bi < b; ++bi) s += ds_ws[bi * hnn + i];
-    db[i] = s;
+                                                   float* __restrict__ db, int64_t rows, int n,
+                                                   int ldw, int b) {
+  for (int64_t row = blockIdx.x; row < rows; row += gridDim.x) {
+    for (int col = threadIdx.x; col < n; col += blockDim.x) {
+      float s = 0.f;
+      for (int bi = 0; bi < b; ++bi) s += ds_ws[(bi * rows + row) * ldw + col];
+      db[row * n + col] = s;
+    }
   }
 }
 
 bool use_mma(const void* const* ptrs, int count, int d, int is_bf16) {
   uintptr_t all = 0;
   for (int i = 0; i < count; ++i) all |= reinterpret_cast<uintptr_t>(ptrs[i]);
-  return is_bf16 && d == kMmaD && all % 16 == 0;
+  return is_bf16 && d == kWgD && all % 16 == 0;
 }
 
 // q, k, v, dout, dq, dk, dv in the translation unit's layout, one dtype (bf16
-// or f32); bias, db: (heads, n, n) f32; ds_ws: (b, heads, n, n) f32 scratch.
-// The tensor-core path also takes stats: (3, b, heads, n) f32 scratch (pc_ws
-// unused); the scalar path pc_ws: (b, heads, n, n) scratch in the operands'
-// dtype (stats unused).
+// or f32); bias, db: (heads, n, n) f32; ds_ws: (b, heads, n, ws_stride(n))
+// f32 scratch. The wgmma path also takes stats: (b, heads, ceil(n / 64), 3, 64) f32
+// scratch (pc_ws unused); the scalar path pc_ws: (b, heads, n, n) scratch in
+// the operands' dtype (stats unused).
 int dispatch_long_bwd(const void* q, const void* k, const void* v, const float* bias,
                       const void* dout, void* dq, void* dk, void* dv, float* db, float* ds_ws,
                       void* pc_ws, float* stats, int b, int n, int heads, int d, float scale,
@@ -716,19 +853,7 @@ int dispatch_long_bwd(const void* q, const void* k, const void* v, const float* 
   int rc;
   if (use_mma(ptrs, 7, d, is_bf16)) {
     if (stats == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    const dim3 grid(b, heads, (n + kTile - 1) / kTile);
-    attention_long_bwd_rows_mma_kernel<<<grid, kThreads, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), bias, static_cast<const __nv_bfloat16*>(dout),
-        static_cast<__nv_bfloat16*>(dq), ds_ws, stats, n, heads, scale);
-    rc = static_cast<int>(cudaGetLastError());
-    if (rc != 0) return rc;
-    attention_long_bwd_cols_mma_kernel<<<grid, kThreads, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), bias, static_cast<const __nv_bfloat16*>(dout),
-        stats, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
-        n, heads, scale);
-    rc = static_cast<int>(cudaGetLastError());
+    rc = launch_wgmma(q, k, v, bias, dout, dq, dk, dv, ds_ws, stats, b, n, heads, scale, stream);
   } else {
     if (pc_ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     rc = is_bf16 ? launch_scalar<__nv_bfloat16>(q, k, v, bias, dout, dq, dk, dv, ds_ws, pc_ws,
@@ -737,10 +862,10 @@ int dispatch_long_bwd(const void* q, const void* k, const void* v, const float* 
                                         heads, d, scale, stream);
   }
   if (rc != 0) return rc;
-  const int64_t hnn = static_cast<int64_t>(heads) * n * n;
-  const int64_t blocks = (hnn + 255) / 256;
-  attention_long_bwd_bias_sum_kernel<<<static_cast<int>(blocks < 4096 ? blocks : 4096), 256, 0,
-                                       stream>>>(ds_ws, db, hnn, b);
+  const int64_t rows = static_cast<int64_t>(heads) * n;
+  attention_long_bwd_bias_sum_kernel<<<static_cast<int>(rows < 65535 ? rows : 65535), 256, 0,
+                                       stream>>>(ds_ws, db, rows, n,
+                                                 ws_stride(n, use_mma(ptrs, 7, d, is_bf16)), b);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -10,17 +10,17 @@
 // per-block partials rounded to the operand dtype and summed outside in
 // f32), both called from _fa_bwd. The two compute one function, and it is
 // K3b's (attention.py:_bwd_flat_long_kernel) with other addressing, so both
-// entry points below are K3b's kernels (attention_long_bwd.cuh: a rows kernel
-// for ds and dq and a columns kernel for dk and dv over 64-wide tiles, no N
-// limit and no padding, then db summed over the batch in batch order from an
-// f32 ds workspace, no float atomics) compiled for the head-major layout:
+// entry points below are K3b's kernels (attention_long_bwd.cuh: for bf16 at
+// D = 64 a rows kernel for ds and dq and a columns kernel for dk and dv on
+// wgmma, tiles through TMA rings with the head-major tensor map (64, N, B*H),
+// no N limit and no padding, then db summed over the batch in batch order
+// from an f32 ds workspace, no float atomics) compiled for the head-major layout:
 // the same arithmetic in the same order, bit-identical across launches and
 // to K3b on transposed operands. K5e's one difference from the TPU kernel is
 // K3b's: dk and dv are summed in f32 over all rows and rounded once, not per
 // 256-row block. Two entry points, so that a launch count shows which of the
 // reference's branches ran. Bound as K3b: operations at the seg shape (nine
-// products on mma.sync where the function needs five) and the workspace
-// round trip.
+// products where the function needs five) and the workspace round trip.
 //
 // Shapes: the seg backbone under FLAT_ATTN = False or FLAT_ATTN_LONG = False,
 // q, k, v, do (16, 12, 1025, 64) bf16, bias and db (12, 1025, 1025) f32 (K5e);
@@ -33,9 +33,11 @@
 #include "attention_long_bwd.cuh"
 
 // q, k, v, dout, dq, dk, dv: (b, heads, n, d) in one dtype (bf16 or f32);
-// bias, db: (heads, n, n) f32; ds_ws: (b, heads, n, n) f32 scratch; stats
-// (3, b, heads, n) f32 for the tensor-core path, pc_ws (b, heads, n, n) in the
-// operands' dtype for the scalar one (mem_attention_long_bwd_uses_mma says which).
+// bias, db: (heads, n, n) f32; ds_ws: (b, heads, n,
+// mem_attention_long_bwd_ws_stride(n, ...)) f32 scratch; stats
+// (b, heads, ceil(n / 64), 3, 64) f32 for the wgmma path, pc_ws (b, heads, n,
+// n) in the operands' dtype for the scalar one (mem_attention_long_bwd_uses_mma
+// says which).
 extern "C" int mem_attention_bwd_whole_bhnd(const void* q, const void* k, const void* v,
                                             const float* bias, const void* dout, void* dq,
                                             void* dk, void* dv, float* db, float* ds_ws,

@@ -71,9 +71,10 @@
 
 #include <cmath>
 #include <cstdint>
-#include <cuda.h>   // CUtensorMap and its enums (the types only: no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -140,139 +141,21 @@ __device__ __forceinline__ int64_t layout_base(unsigned b, int h, int n, int hea
 // 1. wgmma path: bf16, D = 64
 // ---------------------------------------------------------------------------
 
-constexpr int kWgD = 64;                          // head dim
 constexpr int kWgRows = 64;                       // query rows per consumer warpgroup
 constexpr int kConsumers = 2;                     // consumer warpgroups per block
 constexpr int kBlockRows = kWgRows * kConsumers;  // query rows per block
 constexpr int kStages = 3;                        // K / V ring depth
 constexpr int kWgThreads = 128 * kConsumers + 32; // + one producer warp
-constexpr int kTileBytes = kTileKeys * kWgD * 2;  // a Q, K or V tile: 64 rows of 128 B
 constexpr int kStageBytes = 2 * kTileBytes;       // a K and a V tile
 constexpr int kQBytes = kConsumers * kTileBytes;
 constexpr int kBarOffset = kQBytes + kStages * kStageBytes;
 // full[kStages], empty[kStages], q; the 1024 B in front align the swizzled tiles
 constexpr int kWgSmemBytes = 1024 + kBarOffset + 8 * (2 * kStages + 1);
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" :: "r"(bar) : "memory");
-}
-
-// until the phase of parity ``parity`` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// one box of a 3-D tensor map into shared memory, counted on ``bar``
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// A shared-memory matrix descriptor for a tile of 128-byte rows written by
-// TMA with 128 B swizzle: 8-row groups 1024 B apart (SBO), layout 1 (128 B
-// swizzle). The leading byte offset (1) is read by neither operand form here:
-// a K-major k16 slice and an MN-major n64 slice each lie inside one swizzle
-// atom of 128 bytes.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (uint64_t{1} << 16) |
-         (uint64_t{1024 >> 4} << 32) | (uint64_t{1} << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-
-// keeps the compiler from moving accumulator reads or writes across the
-// asynchronous product
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-#define MEM_WG_D32(d)                                                                        \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),     \
-      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),           \
-      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),        \
-      "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),        \
-      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),        \
-      "+f"(d[31])
-#define MEM_WG_R32                                                                           \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
-  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-
-// d (+)= a b, a and b K-major tiles in shared memory; ``acc`` 0 overwrites d
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MEM_WG_R32
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : MEM_WG_D32(d)
-      : "l"(a), "l"(b), "r"(acc));
-}
-
-// d += a b, a in registers (the m16k16 fragment of each warp's 16 rows), b
-// an MN-major tile in shared memory
-__device__ __forceinline__ void wgmma_rs_mn(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MEM_WG_R32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : MEM_WG_D32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-template <int kPending>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" :: "n"(kPending) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
 
 // s = q k^T over one key tile: four k16 steps along d, 32 bytes apart in the
 // swizzled rows; one commit group
 __device__ __forceinline__ void issue_qk(float (&sc)[32], uint32_t qtile, uint32_t ktile) {
-#pragma unroll
-  for (int kk = 0; kk < kWgD / 16; ++kk) {
-    wgmma_ss(sc, sw128_desc(qtile + 32 * kk), sw128_desc(ktile + 32 * kk), kk);
-  }
+  wgmma_abt(sc, qtile, ktile);
   wgmma_commit();
 }
 
@@ -280,29 +163,8 @@ __device__ __forceinline__ void issue_qk(float (&sc)[32], uint32_t qtile, uint32
 // apart; one commit group
 __device__ __forceinline__ void issue_pv(float (&o)[32], const uint32_t (&pf)[4][4],
                                          uint32_t vtile) {
-#pragma unroll
-  for (int kk = 0; kk < kTileKeys / 16; ++kk) wgmma_rs_mn(o, pf[kk], sw128_desc(vtile + 2048 * kk));
+  wgmma_ab_mn(o, pf, vtile);
   wgmma_commit();
-}
-
-// The accumulator of m64n64 gives warp w of a warpgroup rows 16w + g and
-// 16w + g + 8 (g = lane / 4) and, for j = 0..7, columns 8j + 2t, 8j + 2t + 1
-// (t = lane % 4): d[4j], d[4j + 1] on the first row, d[4j + 2], d[4j + 3] on
-// the second. Two adjacent 8-column groups are the A fragment of one k16 step.
-//
-// The bias of rows a and b (rows ga, gb of the head's bias) at this thread's
-// 16 columns of the key tile at j0, in the accumulator's order; 0 past n.
-__device__ __forceinline__ void load_bias(float (&bv)[32], const float* ga, const float* gb,
-                                          int j0, int n, int t) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int key = j0 + 8 * j + 2 * t + e;
-      bv[4 * j + e] = key < n ? __ldg(ga + key) : 0.f;
-      bv[4 * j + 2 + e] = key < n ? __ldg(gb + key) : 0.f;
-    }
-  }
 }
 
 // One key tile of the online softmax: scores s = (q.k) * scale + bias (keys
@@ -353,17 +215,6 @@ __device__ __forceinline__ void online_softmax(float (&sc)[32], const float (&bv
   }
   la = la * alpha_a + sa;
   lb = lb * alpha_b + sb;
-}
-
-// p~ rounded to bf16 as the A fragments of the tile's four k16 steps
-__device__ __forceinline__ void pack_p(uint32_t (&pf)[4][4], const float (&sc)[32]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    pf[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
-    pf[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
-    pf[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
-    pf[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
-  }
 }
 
 __global__ void __launch_bounds__(kWgThreads, 1)
@@ -449,7 +300,7 @@ attention_long_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   wgmma_wait<0>();
   fence_regs(sc);
   online_softmax(sc, bc, 0, n, t, scale, ma, mb, la, lb, alpha_a, alpha_b);
-  pack_p(pf, sc);
+  pack_frags(pf, sc);
   for (int tile = 1; tile < tiles; ++tile) {
     // (two buffers whose roles swap, in a loop unrolled by two, spill at
     // the 168 registers ptxas gives this block; the copy does not)
@@ -474,7 +325,7 @@ attention_long_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       o[4 * j + 2] *= alpha_b;
       o[4 * j + 3] *= alpha_b;
     }
-    pack_p(pf, sc);
+    pack_frags(pf, sc);
   }
   wgmma_fence();
   issue_pv(o, pf, ktile(tiles - 1) + kTileBytes);
@@ -495,61 +346,15 @@ attention_long_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-#undef MEM_WG_D32
-#undef MEM_WG_R32
-
-// cuTensorMapEncodeTiled from the driver, through the runtime: no -lcuda
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-cudaError_t encode_tiled(EncodeTiled* fn) {
-  static EncodeTiled cached = nullptr;
-  if (cached == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                           cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                                  cudaEnableDefault, &found);
-#endif
-    if (e != cudaSuccess) return e;
-    if (found != cudaDriverEntryPointSuccess || p == nullptr) return cudaErrorNotSupported;
-    cached = reinterpret_cast<EncodeTiled>(p);
-  }
-  *fn = cached;
-  return cudaSuccess;
-}
-
-// A 3-D map of one bf16 operand in the translation unit's layout, boxes of
-// 64 rows of one head's 64 columns, 128 B swizzle, zeros past n:
-// flat (heads * 64, n, b), head-major (64, n, b * heads).
-cudaError_t tensor_map(EncodeTiled encode, CUtensorMap* map, const void* p, int b, int n,
-                       int heads) {
-  const cuuint64_t row = kHeadMajor ? kWgD : static_cast<cuuint64_t>(heads) * kWgD;
-  const cuuint64_t dims[3] = {row, static_cast<cuuint64_t>(n),
-                              static_cast<cuuint64_t>(b) * (kHeadMajor ? heads : 1)};
-  const cuuint64_t strides[2] = {row * 2, row * 2 * n};   // bytes, dims 1 and 2
-  const cuuint32_t box[3] = {kWgD, kTileKeys, 1}, step[3] = {1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(p), dims,
-                            strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 int launch_wgmma(const void* q, const void* k, const void* v, const float* bias, void* out,
                  int b, int n, int heads, float scale, cudaStream_t stream) {
   if ((n + kBlockRows - 1) / kBlockRows > 65535) return static_cast<int>(cudaErrorInvalidValue);
   EncodeTiled encode;
   cudaError_t e = encode_tiled(&encode);
   CUtensorMap tq, tk, tv;
-  if (e == cudaSuccess) e = tensor_map(encode, &tq, q, b, n, heads);
-  if (e == cudaSuccess) e = tensor_map(encode, &tk, k, b, n, heads);
-  if (e == cudaSuccess) e = tensor_map(encode, &tv, v, b, n, heads);
+  if (e == cudaSuccess) e = tensor_map(encode, &tq, q, b, n, heads, kHeadMajor);
+  if (e == cudaSuccess) e = tensor_map(encode, &tk, k, b, n, heads, kHeadMajor);
+  if (e == cudaSuccess) e = tensor_map(encode, &tv, v, b, n, heads, kHeadMajor);
   if (e == cudaSuccess) {
     e = cudaFuncSetAttribute(attention_long_fwd_wgmma_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmemBytes);

@@ -65,6 +65,7 @@ SIGNATURES = {
                                 _I, _I, _I, _I, _F, _I, _P), _I),
     "mem_attention_long_bwd_max_d": ((), _I),
     "mem_attention_long_bwd_scalar_smem": ((_I, _I), ctypes.c_longlong),
+    "mem_attention_long_bwd_ws_stride": ((_I, _I), _I),
     "mem_attention_long_bwd_uses_mma": ((_P, _P, _P, _P, _P, _P, _P, _I, _I), _I),
     "mem_attention_long_fwd_bhnd": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P), _I),
     "mem_attention_bwd_whole_bhnd": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -22,8 +22,9 @@ through a TMA ring; the unnormalised p rounded to bf16 where the plain version
 rounds the normalised one), and otherwise twice (row max and sum, then p v)
 in the plain version's order of roundings; its backward is
 csrc/attention_long_bwd.cu (K3b), which goes over the scores from the query
-side (dq, ds) and from the key side (dk, dv) and sums the bias gradient in
-batch order. :func:`attention_route` is the rule that picks between the two.
+side (dq, ds) and from the key side (dk, dv), for bf16 at head dim 64 on
+``wgmma`` with tiles through TMA rings, and sums the bias gradient in batch
+order. :func:`attention_route` is the rule that picks between the two.
 
 ``fused_attention`` is the reference's ``fused_attention`` on (B, H, N, D),
 the layout its head-major branch produces (``FLAT_ATTN = False``, or
@@ -333,15 +334,17 @@ def _long_bwd(name, entry, q, k, v, bias, do, scale, B, N, H, D):
     is_bf16 = int(q.dtype == torch.bfloat16)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     db = torch.empty(H, N, N, dtype=torch.float32, device=q.device)
-    ds_ws = torch.empty(B, H, N, N, dtype=torch.float32, device=q.device)
-    # the tensor-core kernels keep row statistics and recompute p; the scalar
-    # kernels store p rounded to the operand dtype beside ds
+    # the wgmma kernels keep row statistics (m, 1 / l, delta per 64-row query
+    # tile) and recompute p; the scalar kernels store p rounded to the operand
+    # dtype beside ds
     mma = lib.mem_attention_long_bwd_uses_mma(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), D, is_bf16)
+    ds_ws = torch.empty(B, H, N, lib.mem_attention_long_bwd_ws_stride(N, mma),
+                        dtype=torch.float32, device=q.device)
     stats = pc_ws = None
     if mma:
-        stats = torch.empty(3, B, H, N, dtype=torch.float32, device=q.device)
+        stats = torch.empty(B, H, -(-N // 64), 3, 64, dtype=torch.float32, device=q.device)
     else:
         _smem_check(name, lib.mem_attention_long_bwd_scalar_smem(N, D), N, D)
         pc_ws = torch.empty(B, H, N, N, dtype=q.dtype, device=q.device)
@@ -480,9 +483,9 @@ def fused_attention_bwd_long_reference(q, k, v, bias, do, scale: float):
 
 def _bhnd_path(lib, name, q, k, v, do, N, D, is_bf16) -> str:
     """Which kernels a head-major launch of the branch ``name`` takes:
-    "mma" / "scalar" (K2's bodies) or "tiled_wgmma" (K3f's forward body on
-    tensor cores), "tiled_mma" (K3b's backward body on tensor cores) /
-    "tiled_scalar" (K3's key-tiled bodies). K5b, K5d and K5e take K3's. The
+    "mma" / "scalar" (K2's bodies) or "tiled_wgmma" (K3f's forward body or
+    K3b's backward body on tensor cores) / "tiled_scalar" (K3's key-tiled
+    bodies). K5b, K5d and K5e take K3's. The
     head-blocked branch (K5a, K5c) takes K2's, except where K2's tensor-core
     kernel has no instantiation (bf16 at D = 64 above FLAT_MAX_N keys) and
     K3's runs on tensor cores: there it takes K3's, as the flat route does.
@@ -501,9 +504,7 @@ def _bhnd_path(lib, name, q, k, v, do, N, D, is_bf16) -> str:
             *ptrs, N, D, is_bf16)
     if name in ("fused_attention", "fused_attention_bwd") and (k2_mma or not tiled_mma):
         return "mma" if k2_mma else "scalar"
-    if not tiled_mma:
-        return "tiled_scalar"
-    return "tiled_wgmma" if do is None else "tiled_mma"
+    return "tiled_wgmma" if tiled_mma else "tiled_scalar"
 
 
 def _forward_bhnd(q, k, v, bias, scale: float):
@@ -646,14 +647,15 @@ def cuda_bwd_kernel_path(q, k, v, bias) -> str:
 
 
 def cuda_long_bwd_kernel_path(q, k, v, bias) -> str:
-    """Which CUDA kernels a K3b launch on these operands takes."""
+    """Which CUDA kernels a K3b launch on these operands takes: "wgmma" (the
+    rows and columns kernels on tensor cores) or "scalar"."""
     from mem_tpu_torch.kernels import build
 
     D = q.shape[-1] // bias.shape[0]
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr()] * 2 + [q.data_ptr()]
     mma = build.library().mem_attention_long_bwd_uses_mma(
         *ptrs, D, int(q.dtype == torch.bfloat16))
-    return "mma" if mma else "scalar"
+    return "wgmma" if mma else "scalar"
 
 
 def cuda_bhnd_kernel_path(q, k, v, bias) -> str:

@@ -9,7 +9,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from chip_smoke import K2_BF16_TOL
+from chip_smoke import K2_BF16_TOL, K2B_BF16_TOL, K2B_DB_REL, K2B_F32_TOL
 from mem_tpu.ops.attention import fused_attention_flat_long as jax_flat_long
 from mem_tpu_torch.models import vit
 from mem_tpu_torch.ops import attention as A
@@ -160,6 +160,109 @@ def test_flat_long_bwd_bf16_matches_pallas_interpret(rng):
         assert np.abs(g.float().numpy() - w).max() <= 2e-2 * np.abs(w).max(), name
     assert got[3].dtype == torch.float32
     assert np.linalg.norm(got[3].numpy() - want[3]) <= 1e-2 * np.linalg.norm(want[3])
+
+
+def _two_sided(q, k, v, bias, do, scale, tile=KERNEL_TILE):
+    """The order of arithmetic of K3b's wgmma kernels (bf16, head dim 64),
+    emulated in torch. Rows side, per 64-key tile: pass A's s = (q.k) * scale
+    + bias in f32 with its two roundings, dp = do.v in f32, the running row max
+    m and the partial sums l = sum exp(s - m) and t = sum exp(s - m) dp, both
+    rescaled by exp(m_old - m_new); delta = t / l. Pass B's per-tile p =
+    exp(s - m) * (1 / l), ds = p (dp - delta) in f32, dq += ds (rounded to
+    q's dtype) k. Columns side, per 64-row query tile: p and ds rebuilt from
+    m, 1 / l and delta, dv += p (rounded) ^T do, dk += ds (rounded) ^T q. db =
+    the sum of ds over the batch in batch order. dq and dk are scaled in f32
+    and rounded once, dv rounded once. Returns (dq, dk, dv, db, whether pass A
+    rescaled l and t at some tile after the first)."""
+    B, N, C = q.shape
+    H = bias.shape[0]
+    D = C // H
+    dt = q.dtype
+    qh, kh, vh, doh = (t.float().view(B, N, H, D).transpose(1, 2) for t in (q, k, v, do))
+    rnd = lambda x: x.to(dt).float()  # noqa: E731
+
+    def tile_s(j0, j1):
+        return (qh @ kh[:, :, j0:j1].transpose(-1, -2)) * scale + bias[:, :, j0:j1]
+
+    m = torch.full((B, H, N, 1), -torch.inf)
+    l = torch.zeros(B, H, N, 1)
+    t = torch.zeros(B, H, N, 1)
+    rescaled = False
+    for j0 in range(0, N, tile):
+        j1 = min(j0 + tile, N)
+        s = tile_s(j0, j1)
+        dp = doh @ vh[:, :, j0:j1].transpose(-1, -2)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        f = torch.exp(m - m_new)
+        rescaled = rescaled or (j0 > 0 and bool((f < 1).any()))
+        e = torch.exp(s - m_new)
+        l = l * f + e.sum(-1, keepdim=True)
+        t = t * f + (e * dp).sum(-1, keepdim=True)
+        m = m_new
+    delta, il = t / l, 1 / l
+    dq = torch.zeros(B, H, N, D)
+    ds_all = torch.zeros(B, H, N, N)
+    for j0 in range(0, N, tile):
+        j1 = min(j0 + tile, N)
+        p = torch.exp(tile_s(j0, j1) - m) * il
+        ds = p * (doh @ vh[:, :, j0:j1].transpose(-1, -2) - delta)
+        ds_all[..., j0:j1] = ds
+        dq = dq + rnd(ds) @ kh[:, :, j0:j1]
+    dk = torch.zeros(B, H, N, D)
+    dv = torch.zeros(B, H, N, D)
+    for i0 in range(0, N, tile):
+        i1 = min(i0 + tile, N)
+        s = (qh[:, :, i0:i1] @ kh.transpose(-1, -2)) * scale + bias[:, i0:i1]
+        p = torch.exp(s - m[:, :, i0:i1]) * il[:, :, i0:i1]
+        dp = doh[:, :, i0:i1] @ vh.transpose(-1, -2)
+        ds = p * (dp - delta[:, :, i0:i1])
+        dv = dv + rnd(p).transpose(-1, -2) @ doh[:, :, i0:i1]
+        dk = dk + rnd(ds).transpose(-1, -2) @ qh[:, :, i0:i1]
+    db = torch.zeros(H, N, N)
+    for bi in range(B):
+        db = db + ds_all[bi]
+    flat = lambda x: x.transpose(1, 2).reshape(B, N, C).to(dt)  # noqa: E731
+    return flat(dq * scale), flat(dk * scale), flat(dv), db, rescaled
+
+
+@pytest.mark.parametrize("B,N,dtype,ramp", [
+    (2, 65, "bfloat16", False),    # one key and one query past a tile
+    (2, 300, "bfloat16", True),    # ragged against the tile; the max grows at every tile
+    (2, 65, "float32", False),
+    (2, 300, "float32", True),
+])
+def test_flat_long_bwd_two_sided_order_matches_pallas_interpret(rng, B, N, dtype, ramp):
+    """K3b's wgmma kernels go over the scores twice from the query side (an
+    online pass for m, l and delta, then ds and dq) and once from the key
+    side (dk, dv from the statistics): their order, emulated, held against
+    ``jax.vjp`` of the Pallas kernel in interpret mode on the same operands
+    (H = 2, D = 64) within the card's gates (chip_smoke.K2B_BF16_TOL /
+    K2B_F32_TOL of each gradient's max abs, db chip_smoke.K2B_DB_REL relative
+    L2), db also against the plain backward's, the comparison the card
+    makes."""
+    H, D = 2, 64
+    q, k, v, bias = _operands(rng, B, N, H, D)
+    if ramp:   # 0.1 per key: pass A's running max grows at every tile
+        bias = bias + np.float32(0.1) * np.arange(N, dtype=np.float32)
+    do = rng.standard_normal((B, N, H * D)).astype(np.float32)
+    scale = D ** -0.5
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    _, vjp = jax.vjp(lambda q, k, v, b: jax_flat_long(q, k, v, b, scale, True),
+                     *(jnp.asarray(t).astype(jdt) for t in (q, k, v)), jnp.asarray(bias))
+    want = [np.asarray(g.astype(jnp.float32)) for g in vjp(jnp.asarray(do).astype(jdt))]
+    tdt = getattr(torch, dtype)
+    tq, tk, tv, tdo = (torch.from_numpy(t).to(tdt) for t in (q, k, v, do))
+    tb = torch.from_numpy(bias)
+    *got, rescaled = _two_sided(tq, tk, tv, tb, tdo, scale)
+    assert rescaled or not ramp
+    tol = K2B_BF16_TOL if dtype == "bfloat16" else K2B_F32_TOL
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == tdt and tuple(g.shape) == w.shape, name
+        assert np.abs(g.float().numpy() - w).max() <= tol * np.abs(w).max(), name
+    db = got[3].numpy()
+    plain_db = A.fused_attention_flat_long_bwd_reference(tq, tk, tv, tb, tdo, scale)[3].numpy()
+    for ref in (want[3], plain_db):
+        assert np.linalg.norm(db - ref) <= K2B_DB_REL * np.linalg.norm(ref)
 
 
 @pytest.mark.parametrize("B,N,H,D", [(2, 70, 2, 8), (1, 260, 3, 4)])
