@@ -7,10 +7,11 @@ Run from the root of a checkout, with no arguments:
 
 It builds the port's CUDA kernels from csrc/ and checks each against its
 plain PyTorch version on the card; it fails when ptxas reports a spill in the
-long attention's wgmma kernels (K3f / K5b, and the rows and columns kernels
-of K3b / K5d / K5e) or serializes the backward's wgmma pipelines. It drives the five ported paths and the
-two experiment tools, each with the launch counts set to 0 just before it and
-read just after:
+attention's wgmma kernels (K3f and the rows and columns kernels of K3b, which
+K5b / K5d / K5e launch on head-major operands and K2f / K5a and K2b / K5c for
+bf16 at head dim 64 and N <= 256) or serializes their wgmma pipelines. It drives the five
+ported paths and the two experiment tools, each with the launch counts set
+to 0 just before it and read just after:
 
 - the served classification path: the HTTP server of mem_tpu_torch.cli.serve,
   ViT-B/16 ft_vit at full width with weights drawn from a seed; it checks
@@ -121,6 +122,12 @@ VAE_MIN_DISTINCT = 16    # a tokenizer that gives every patch one token makes th
 STEP_F32_LOSS_REL = 1e-4   # f32 card vs f32 CPU: summation order only
 STEP_F32_GRAD_REL = 1e-3   # per-parameter relative L2 of the gradients, the same
 STEP_BF16_LOSS_REL = 2e-2  # bf16 card vs f32 CPU: two blocks of bf16 rounding
+# bf16 card vs f32 CPU, per-parameter relative L2 of the gradients, both
+# steps (pretraining, finetune): two blocks of bf16 rounding. Readings on an
+# H100 against the CPU, two batches each: 6.0e-3 / 6.2e-3 (pretraining),
+# 9.5e-3 / 8.8e-3 (finetune); with the last key dropped from the attention
+# backward's scores, 4.4e-2 / 4.9e-2 and 4.3e-2 / 4.8e-2
+STEP_BF16_GRAD_REL = 2e-2
 LOSS_FALL = 0.3          # nats the loss must fall over 15 steps on one repeated batch
 N_TRAIN_FILES, N_VAL_FILES = 128, 64
 # the segmentation slice
@@ -271,6 +278,26 @@ def bincount_ms(torch, col, ys, H, W, want):
     return (time_ms(call) if equal else None), equal
 
 
+def check_ptxas(log):
+    """ptxas's report, from the build log ``log``, on the attention's wgmma
+    kernels: those of K3f (which K2f, K5a and K5b launch too) and of K3b's
+    rows and columns kernels (K2b, K5c, K5d, K5e too; registers at entry,
+    setmaxnreg gives the consumers 240), flat and head-major: registers,
+    shared memory and spills; it fails on a spill or on any warning that
+    ptxas serialized a wgmma pipeline."""
+    fwd = ptxas_report(log, "attention_long_fwd_wgmma_kernel")
+    bwd = [r for frag in ("attention_long_bwd_rows_wgmma_kernel",
+                          "attention_long_bwd_cols_wgmma_kernel")
+           for r in ptxas_report(log, frag)]
+    for tag, rows, unit, want, users in (
+            ("ptxas_k3f", fwd, "attention_long_fwd", 2, "K3f K2f K5a K5b"),
+            ("ptxas_k3b", bwd, "attention_long_bwd", 4, "K3b K2b K5c K5d K5e")):
+        serial = [ln.strip() for ln in log.splitlines() if "serialized" in ln and unit in ln]
+        say(tag, launched_by=users, kernels=rows, serialized=serial)
+        check(len(rows) == want and all(" 0 bytes spill stores" in r["spills"] for r in rows)
+              and not serial, f"{tag}: the wgmma kernels' ptxas report: {rows}, {serial}")
+
+
 def ptxas_report(log, fragment):
     """ptxas's lines (spills; registers and shared memory) for each kernel
     whose mangled name holds ``fragment``, from a build log."""
@@ -321,23 +348,7 @@ def run(torch):
     ptxas = [ln.strip() for ln in build.build_log().splitlines()
              if "registers" in ln or "spill" in ln]
     say("build", seconds=round(time.perf_counter() - t0, 3), ptxas=ptxas)
-    # the wgmma K3f / K5b kernel, flat and head-major: registers, shared
-    # memory, spills
-    wg = ptxas_report(build.build_log(), "attention_long_fwd_wgmma_kernel")
-    say("ptxas_k3f", kernels=wg)
-    check(len(wg) == 2 and all(" 0 bytes spill stores" in r["spills"] for r in wg),
-          f"the wgmma K3f kernel's ptxas report: {wg}")
-    # the wgmma K3b / K5d / K5e rows and columns kernels, flat and head-major
-    # (registers at entry; setmaxnreg gives the consumers 240), and any
-    # warning that ptxas serialized their wgmma pipelines
-    wb = [r for frag in ("attention_long_bwd_rows_wgmma_kernel",
-                         "attention_long_bwd_cols_wgmma_kernel")
-          for r in ptxas_report(build.build_log(), frag)]
-    serial = [ln.strip() for ln in build.build_log().splitlines()
-              if "serialized" in ln and "attention_long_bwd" in ln]
-    say("ptxas_k3b", kernels=wb, serialized=serial)
-    check(len(wb) == 4 and all(" 0 bytes spill stores" in r["spills"] for r in wb)
-          and not serial, f"the wgmma K3b kernels' ptxas report: {wb}, {serial}")
+    check_ptxas(build.build_log())
 
     # -- phase 1: K1 against its plain version -------------------------------
     g = torch.Generator().manual_seed(0)
@@ -357,8 +368,10 @@ def run(torch):
         k1_err = max(k1_err, err)
 
     # -- phase 2: K2 forward against its plain version -----------------------
-    # the serving shape first (bf16: tensor-core kernel), then the other
-    # instantiations and the scalar kernel (f32, other head dims)
+    # the serving shape first (bf16 at head dim 64 and N <= 256: the Hopper
+    # kernel), the ragged lengths, the longest it takes, then the scalar
+    # kernel (other head dims, f32); every case launched twice: the outputs
+    # must be bit-identical
     k2_err = None
     for (B, N, H, D), dt in (((8, 197, 12, 64), torch.bfloat16),
                              ((2, 37, 3, 64), torch.bfloat16),
@@ -370,12 +383,17 @@ def run(torch):
         q, k, v = (torch.randn(B, N, H * D, generator=g).to(dt).to(dev) for _ in range(3))
         bias = (0.5 * torch.randn(H, N, N, generator=g)).to(dev)
         got = fused_attention_flat(q, k, v, bias, D ** -0.5)
+        again = fused_attention_flat(q, k, v, bias, D ** -0.5)
         want = fused_attention_flat_reference(q, k, v, bias, D ** -0.5)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
+        same, path = bool(torch.equal(got, again)), cuda_kernel_path(q, k, v, bias)
         say("k2_check", dtype=str(dt), shape=[B, N, H, D], max_abs_err=err, tol=tol,
-            kernel=cuda_kernel_path(q, k, v, bias))
+            identical_across_launches=same, kernel=path)
         check(err <= tol, f"K2 {dt} {B, N, H, D} max abs err {err} > {tol}")
+        check(same, f"K2 {dt} {B, N, H, D}: two launches on the same operands differ")
+        check(path == ("wgmma" if dt == torch.bfloat16 and D == 64 else "scalar"),
+              f"K2 {dt} {B, N, H, D} took the {path} kernel")
         if k2_err is None:
             k2_err = err
 
@@ -498,13 +516,17 @@ def run(torch):
                    for _ in range(3))
         bias = torch.randn(12, 197, 197, device=dev)
         t_k2 = time_ms(lambda: fused_attention_flat(q, k, v, bias, 0.125))
+        t_k2d = kernel_device_ms(torch, lambda: fused_attention_flat(q, k, v, bias, 0.125),
+                                 ("attention_long_fwd_wgmma",), per_launch=True)
         t_k2p = time_ms(lambda: fused_attention_flat_reference(q, k, v, bias, 0.125))
         qh, kh, vhd, mask = sdpa_operands(torch, q, k, v, bias)
-        t_k2l = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qh, kh, vhd, attn_mask=mask, scale=0.125))
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            qh, kh, vhd, attn_mask=mask, scale=0.125)
+        t_k2l, t_k2ld = time_ms(sdpa), kernel_device_ms(torch, sdpa, ("",))
         flop = 4 * B * 12 * 197 * 197 * 64
         say("time_k2", gpu=gpu, batch=B, shape=[197, 12, 64], dtype="bfloat16",
-            kernel_ms=t_k2, plain_ms=t_k2p, sdpa_ms=t_k2l,
+            kernel_ms=t_k2, kernel_device_ms=t_k2d, plain_ms=t_k2p, sdpa_ms=t_k2l,
+            sdpa_device_ms=t_k2ld,
             bound_ms=attention_fwd_bound(B, 197, 12, 64)[0],
             kernel_tflop_s=flop / t_k2 / 1e9)
         timing[B] = (t_k1, t_k1p, t_k2, t_k2p, t_k2l, t_k1l)
@@ -581,10 +603,10 @@ def run(torch):
         row("hist_planes_cols", "voxelize_hist.cu", ops + "voxelize_pallas.py:64",
             train_counts["hist_planes_cols"], k1_err, timing[8][0], timing[8][1],
             hist_bound(8, 30_000, 256, 256), timing[8][5]),
-        row("fused_attention_flat", "attention_fwd.cu", ops + "attention.py:105",
+        row("fused_attention_flat", "attention_long_fwd.cu", ops + "attention.py:105",
             train_counts["fused_attention_flat"], k2_err, timing[8][2], timing[8][3],
             attention_fwd_bound(8, 197, 12, 64), timing[8][4]),
-        row("fused_attention_flat_bwd", "attention_bwd.cu", ops + "attention.py:128",
+        row("fused_attention_flat_bwd", "attention_long_bwd.cu", ops + "attention.py:128",
             train_counts["fused_attention_flat_bwd"], k2b_err, t_k2b, t_k2bp,
             attention_bwd_bound(64, 197, 12, 64), t_k2bl),
         row("fused_attention_flat_long", "attention_long_fwd.cu", ops + "attention.py:255",
@@ -602,10 +624,10 @@ def run(torch):
             ft["k6f_err"], *ft["k6f_ms"], mlp_fwd_bound(FT_ROWS, 768, 3072), None),
         row("mlp_fused_bwd", "mlp_bwd.cu", ops + "mlp.py:118", ft["counts"]["mlp_fused_bwd"],
             ft["k6b_err"], *ft["k6b_ms"], mlp_bwd_bound(FT_ROWS, 768, 3072), None),
-        row("fused_attention", "attention_fwd_bhnd.cu", ops + "attention.py:54",
+        row("fused_attention", "attention_long_fwd_bhnd.cu", ops + "attention.py:54",
             ft["counts"]["fused_attention"], ft["k5a_err"], *ft["k5a_ms"][:2],
             attention_fwd_bound(FT_B, 197, 12, 64), ft["k5a_ms"][2]),
-        row("fused_attention_bwd", "attention_bwd_bhnd.cu", ops + "attention.py:70",
+        row("fused_attention_bwd", "attention_long_bwd_bhnd.cu", ops + "attention.py:70",
             ft["counts"]["fused_attention_bwd"], ft["k5c_err"], *ft["k5c_ms"][:2],
             attention_bwd_bound(FT_B, 197, 12, 64), ft["k5c_ms"][2]),
         row("fused_attention_long", "attention_long_fwd_bhnd.cu", ops + "attention.py:413",
@@ -631,6 +653,38 @@ def run(torch):
     ]}), flush=True)
 
 
+def last_key_dropped(bwd):
+    """``bwd``, an attention backward wrapper, with a planted fault: the last
+    key masked out of the scores it recomputes (what a kernel that mishandles
+    the ragged tail tile would give). A step gate must see it."""
+    def faulty(q, k, v, bias, do, scale):
+        bias = bias.clone()
+        bias[:, :, -1] = float("-inf")
+        return bwd(q, k, v, bias, do, scale)
+    return faulty
+
+
+def path_spy(bwd, path_of, paths, device):
+    """``bwd``, an attention backward wrapper, that first appends to
+    ``paths`` the kernel path ``path_of`` names for its operands (on the
+    card): a step's record of which kernels its backward launches took."""
+    def spied(q, k, v, bias, do, scale):
+        if device.type == "cuda":
+            paths.append(path_of(q, k, v, bias))
+        return bwd(q, k, v, bias, do, scale)
+    return spied
+
+
+def grad_rel(torch, got, ref):
+    """Per-parameter relative L2 of the gradients ``got`` against ``ref``
+    (name -> tensor): the largest, its parameter, the median and the five
+    largest."""
+    rel = {n: rel_l2(torch, g, ref[n]) for n, g in got.items()}
+    worst = sorted(rel, key=rel.get, reverse=True)
+    return dict(max=rel[worst[0]], worst=worst[0], median=statistics.median(rel.values()),
+                worst5=[(n, rel[n]) for n in worst[:5]])
+
+
 def rel_max_abs(a, b):
     return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
 
@@ -641,9 +695,12 @@ def rel_l2(torch, a, b):
 
 
 def check_k2b(torch, dev, g):
-    """Phase 5: K2b against its plain version at the training shape, two
-    ragged ones and an f32 one; autograd through fused_attention_flat on the
-    card reaches K2b. Returns K2b's max abs error at the training shape."""
+    """Phase 5: K2b against its plain version at the training shapes (the
+    pretraining batch 64 and 8; bf16 at head dim 64: the Hopper kernels), two
+    ragged ones, the longest N the Hopper kernels take and an f32 one (the
+    scalar kernel); every output bit-identical across two launches; autograd
+    through fused_attention_flat on the card reaches K2b. Returns K2b's max
+    abs error at the first training shape."""
     from mem_tpu_torch.kernels import launch_counts
     from mem_tpu_torch.ops.attention import (cuda_bwd_kernel_path, fused_attention_flat,
                                              fused_attention_flat_bwd,
@@ -651,23 +708,32 @@ def check_k2b(torch, dev, g):
 
     first = None
     for (B, N, H, D), dt in (((8, 197, 12, 64), torch.bfloat16),
+                             ((64, 197, 12, 64), torch.bfloat16),
                              ((2, 37, 3, 64), torch.bfloat16),
                              ((2, 129, 2, 64), torch.bfloat16),
+                             ((1, 256, 2, 64), torch.bfloat16),
                              ((2, 197, 4, 64), torch.float32)):
         tol = K2B_BF16_TOL if dt == torch.bfloat16 else K2B_F32_TOL
         q, k, v, do = (torch.randn(B, N, H * D, generator=g).to(dt).to(dev) for _ in range(4))
         bias = (0.5 * torch.randn(H, N, N, generator=g)).to(dev)
         got = fused_attention_flat_bwd(q, k, v, bias, do, D ** -0.5)
+        again = fused_attention_flat_bwd(q, k, v, bias, do, D ** -0.5)
         want = fused_attention_flat_bwd_reference(q, k, v, bias, do, D ** -0.5)
         torch.cuda.synchronize()
         errs = {n: rel_max_abs(a, b) for n, a, b in zip(("dq", "dk", "dv"), got, want)}
         db = rel_l2(torch, got[3], want[3])
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        path = cuda_bwd_kernel_path(q, k, v, bias)
         say("k2b_check", dtype=str(dt), shape=[B, N, H, D], rel_max_abs=errs, tol=tol,
-            db_rel_l2=db, db_tol=K2B_DB_REL, kernel=cuda_bwd_kernel_path(q, k, v, bias))
+            db_rel_l2=db, db_tol=K2B_DB_REL, identical_across_launches=same, kernel=path)
         check(max(errs.values()) <= tol and db <= K2B_DB_REL,
               f"K2b {dt} {B, N, H, D}: {errs}, db {db}")
+        check(same, f"K2b {dt} {B, N, H, D}: two launches on the same operands differ")
+        check(path == ("wgmma" if dt == torch.bfloat16 else "scalar"),
+              f"K2b {dt} {B, N, H, D} took the {path} kernels")
         if first is None:
             first = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+        del q, k, v, do, bias, got, again, want
 
     q, k, v = (torch.randn(2, 197, 768, generator=g).to(torch.bfloat16).to(dev)
                .requires_grad_() for _ in range(3))
@@ -684,6 +750,33 @@ def check_k2b(torch, dev, g):
         db_rel_l2=rel_l2(torch, bias.grad, want[3]))
     check(launched == 1, f"autograd through fused_attention_flat launched K2b {launched} times")
     check(max(errs) <= K2B_BF16_TOL, f"autograd grads differ from the plain backward: {errs}")
+
+    # K2f and K2b from a fresh thread, on which PyTorch has made no CUDA
+    # context current yet (as autograd's device thread when the attention's
+    # backward is its first work): the library binds the device itself
+    # (build.library), and the results are the main thread's bits
+    q, k, v = (t.detach() for t in (q, k, v))
+    bias = bias.detach()
+    fresh = {}
+
+    def launch():
+        try:
+            fresh["out"] = (fused_attention_flat(q, k, v, bias, 0.125),
+                            *fused_attention_flat_bwd(q, k, v, bias, do, 0.125))
+            torch.cuda.synchronize()
+        except Exception as e:   # reported below, on the main thread
+            fresh["error"] = repr(e)
+
+    t = threading.Thread(target=launch, daemon=True)
+    t.start()
+    t.join(timeout=300)
+    check(not t.is_alive(), "K2f / K2b from a fresh thread did not finish in 300 s")
+    main = (fused_attention_flat(q, k, v, bias, 0.125),
+            *fused_attention_flat_bwd(q, k, v, bias, do, 0.125))
+    torch.cuda.synchronize()
+    same = "out" in fresh and all(torch.equal(a, b) for a, b in zip(fresh["out"], main))
+    say("k2_fresh_thread", error=fresh.get("error"), equals_main_thread=same)
+    check(same, f"K2f / K2b from a fresh thread: {fresh.get('error', 'other bits')}")
     return first
 
 
@@ -1213,10 +1306,13 @@ def run_seg_slice(torch, dev, gpu, rng):
 
 # kernel-name fragments -> family, first match wins (cuDNN's convolutions are
 # implicit GEMMs: their names come before the plain GEMMs')
-_FAMILIES = (("attention_long_bwd", "K3b / K5d / K5e"), ("attention_long_fwd", "K3f / K5b"),
+# K3's Hopper bodies run K3b / K5d / K5e and K3f / K5b, and K2b / K5c and
+# K2f / K5a for bf16 at head dim 64 and N <= 256
+_FAMILIES = (("attention_long_bwd", "K3b body (K3b, K5d, K5e; K2b, K5c)"),
+             ("attention_long_fwd", "K3f body (K3f, K5b; K2f, K5a)"),
              ("band_hist", "K4"), ("chunk_bounds", "K4"), ("mlp_rows", "K6 rows (K6f, K6b)"),
-             ("mlp_cols", "K6b columns"), ("attention_bwd", "K2b / K5c"),
-             ("attention_fwd", "K2f / K5a"), ("hist_planes_cols", "K1"),
+             ("mlp_cols", "K6b columns"), ("attention_bwd", "K2b / K5c scalar"),
+             ("attention_fwd", "K2f / K5a scalar"), ("hist_planes_cols", "K1"),
              ("multi_tensor", "optimizer"),
              ("fprop", "convolutions"), ("conv", "convolutions"), ("cudnn", "convolutions"),
              ("implicit", "convolutions"), ("nchw", "layout changes"), ("nhwc", "layout changes"),
@@ -1703,10 +1799,17 @@ def check_train_step(torch, dev, flags):
     2, B=8, drop_path 0, on one host batch and its draws: the preprocessed
     images (RandAugment and ColorJitter on) and the VAE tokens card vs CPU,
     then the step on the card in f32 (TF32 off) and bf16 against the CPU in
-    f32 from the same seeded weights."""
+    f32 from the same seeded weights: the loss, and every parameter's
+    gradient by relative L2 (bf16 to a looser bound). Each card step records
+    the kernel path of every K2b launch: the scalar kernel in f32, K3b's
+    Hopper kernels in bf16. That each gradient gate can see a wrong K2b is
+    shown in the same run: the f32 and the bf16 card steps are repeated with
+    a fault planted in K2b's operands (the last key masked out of its
+    scores), and each must fail its gate."""
     from mem_tpu_torch.cli import run_mem_pretraining as R
     from mem_tpu_torch.data.device_pipeline import preprocess_batch
     from mem_tpu_torch.data.prefetch import to_device
+    from mem_tpu_torch.ops import attention as A
 
     cpu = torch.device("cpu")
     args = R.get_args(flags + ["--transformer_depth", "2", "--drop_path", "0",
@@ -1735,29 +1838,46 @@ def check_train_step(torch, dev, flags):
           f"the seeded VAE gave {tok_cpu.unique().numel()} distinct tokens")
 
     lr = np.array([args.lr])
-    out = {}
-    for name, d, dt, vae in (("cpu_f32", cpu, torch.float32, vae_cpu),
-                             ("card_f32", dev, torch.float32, vae_card),
-                             ("card_bf16", dev, torch.bfloat16, vae_card)):
+    out, paths = {}, {}
+    real = A.fused_attention_flat_bwd
+    for name, d, dt, vae, fault in (("cpu_f32", cpu, torch.float32, vae_cpu, False),
+                                    ("card_f32", dev, torch.float32, vae_card, False),
+                                    ("card_bf16", dev, torch.bfloat16, vae_card, False),
+                                    ("last_key_dropped", dev, torch.float32, vae_card, True),
+                                    ("last_key_dropped_bf16", dev, torch.bfloat16, vae_card,
+                                     True)):
         model, step = make_step(torch, R, args, d, dt, vae, pp, lr)
-        m = step(to_device(host, d), 0)
+        paths[name] = []
+        try:
+            A.fused_attention_flat_bwd = path_spy(
+                last_key_dropped(real) if fault else real, A.cuda_bwd_kernel_path,
+                paths[name], d)
+            m = step(to_device(host, d), 0)
+        finally:
+            A.fused_attention_flat_bwd = real
         out[name] = ({k: v.item() for k, v in m.items()},
                      {n: p.grad.detach().float().cpu() for n, p in model.named_parameters()})
         del model, step
-    ref_m, ref_g = out["cpu_f32"]
+    ref_m = out["cpu_f32"][0]
     loss_rel = {n: abs(out[n][0]["loss"] - ref_m["loss"]) / abs(ref_m["loss"])
                 for n in ("card_f32", "card_bf16")}
-    grad_rel = {n: rel_l2(torch, g, ref_g[n]) for n, g in out["card_f32"][1].items()}
-    worst = max(grad_rel, key=grad_rel.get)
+    grads = {n: grad_rel(torch, out[n][1], out["cpu_f32"][1]) for n in out if n != "cpu_f32"}
     say("train_step_check", model="pt_vit", embed_dim=args.transformer_emb, depth=2,
         heads=args.transformer_heads, batch=8, metrics={n: v[0] for n, v in out.items()},
-        loss_rel=loss_rel, grad_rel_l2_max=grad_rel[worst], grad_rel_l2_worst_param=worst,
+        loss_rel=loss_rel, grad_rel_l2_vs_cpu_f32=grads, k2b_paths=paths,
         bounds=dict(f32_loss=STEP_F32_LOSS_REL, f32_grad=STEP_F32_GRAD_REL,
-                    bf16_loss=STEP_BF16_LOSS_REL))
+                    bf16_loss=STEP_BF16_LOSS_REL, bf16_grad=STEP_BF16_GRAD_REL))
     check(all(np.isfinite(v) for v in ref_m.values()), "CPU step metrics not finite")
+    check(all(paths[n] == ["wgmma" if "bf16" in n else "scalar"] * 2 for n in out
+              if n != "cpu_f32"), f"the card steps' K2b launches took {paths}")
     check(loss_rel["card_f32"] <= STEP_F32_LOSS_REL, f"f32 step loss rel {loss_rel}")
-    check(grad_rel[worst] <= STEP_F32_GRAD_REL, f"f32 grad {worst} rel L2 {grad_rel[worst]}")
+    check(grads["card_f32"]["max"] <= STEP_F32_GRAD_REL, f"f32 grads: {grads['card_f32']}")
     check(loss_rel["card_bf16"] <= STEP_BF16_LOSS_REL, f"bf16 step loss rel {loss_rel}")
+    check(grads["card_bf16"]["max"] <= STEP_BF16_GRAD_REL, f"bf16 grads: {grads['card_bf16']}")
+    for n, bnd in (("last_key_dropped", STEP_F32_GRAD_REL),
+                   ("last_key_dropped_bf16", STEP_BF16_GRAD_REL)):
+        check(grads[n]["max"] > bnd, f"the gradient gate does not see K2b with its last key "
+                                     f"dropped ({n}): {grads[n]}")
     torch.cuda.empty_cache()
 
 
@@ -1796,41 +1916,49 @@ def run_training_cli(torch, flags):
 
 
 def time_training(torch, dev, gpu, flags):
-    """Phase 8: K2b against its plain version at the training shape (B=64,
-    in turns: plain, kernel, kernel, plain), and the full-width pt_vit train
-    step (depth 12, bf16, the conf's recipe) at B=64 and B=128: 15 steps on
-    one repeated batch with no lr warm-up (the loss must fall by LOSS_FALL
-    at B=64), the median of the last 12 timed by CUDA events, and the peak
-    device memory. Returns the mean ms of K2b, of its plain version and of
-    the library yardstick (the backward of one SDPA call)."""
+    """Phase 8: K2b against its plain version at the training shape (B=64)
+    and the serving batch (B=8), in turns: plain, kernel, kernel, plain; its
+    device time (its rows, columns and bias-sum kernels) and the backward of
+    one SDPA call beside it. Then the full-width pt_vit train step (depth 12,
+    bf16, the conf's recipe) at B=64 and B=128: 15 steps on one repeated
+    batch with no lr warm-up (the loss must fall by LOSS_FALL at B=64), the
+    median of the last 12 timed by CUDA events, the peak device memory, and
+    at B=64 a profile by kernel family. Returns the mean ms of K2b, of its
+    plain version and of the library yardstick at B=64."""
     from mem_tpu_torch.cli import run_mem_pretraining as R
     from mem_tpu_torch.data.prefetch import to_device
     from mem_tpu_torch.ops.attention import (fused_attention_flat_bwd,
                                              fused_attention_flat_bwd_reference)
     from mem_tpu_torch.train.schedules import cosine_scheduler
 
-    q, k, v, do = (torch.randn(64, 197, 768, device=dev, dtype=torch.bfloat16)
-                   for _ in range(4))
-    bias = torch.randn(12, 197, 197, device=dev)
-    plain = lambda: fused_attention_flat_bwd_reference(q, k, v, bias, do, 0.125)  # noqa: E731
-    kernel = lambda: fused_attention_flat_bwd(q, k, v, bias, do, 0.125)  # noqa: E731
-    tp = [time_ms(plain, runs=20)]
-    tk = [time_ms(kernel, runs=20), time_ms(kernel, runs=20)]
-    tp.append(time_ms(plain, runs=20))
-    # the yardstick: the backward of one scaled_dot_product_attention call
-    # with the bias as its mask (dq, dk, dv and the mask's gradient)
-    qh, kh, vhd, mask = (t.requires_grad_() for t in sdpa_operands(torch, q, k, v, bias))
-    out = torch.nn.functional.scaled_dot_product_attention(qh, kh, vhd, attn_mask=mask,
-                                                           scale=0.125)
-    doh = torch.randn_like(out)
-    t_lib = time_ms(lambda: torch.autograd.grad(out, (qh, kh, vhd, mask), doh,
-                                                       retain_graph=True), runs=20)
-    flop = 5 * 2 * 64 * 12 * 197 * 197 * 64
-    say("time_k2b", gpu=gpu, batch=64, shape=[197, 12, 64], dtype="bfloat16", kernel_ms=tk,
-        plain_ms=tp, sdpa_backward_ms=t_lib,
-        bound_ms=attention_bwd_bound(64, 197, 12, 64)[0],
-        kernel_tflop_s=flop / statistics.mean(tk) / 1e9)
-    del q, k, v, do, bias, qh, kh, vhd, mask, out, doh
+    for B in (8, 64):
+        q, k, v, do = (torch.randn(B, 197, 768, device=dev, dtype=torch.bfloat16)
+                       for _ in range(4))
+        bias = torch.randn(12, 197, 197, device=dev)
+        plain = lambda: fused_attention_flat_bwd_reference(q, k, v, bias, do, 0.125)  # noqa: E731
+        kernel = lambda: fused_attention_flat_bwd(q, k, v, bias, do, 0.125)  # noqa: E731
+        tp = [time_ms(plain, runs=20)]
+        tk = [time_ms(kernel, runs=20), time_ms(kernel, runs=20)]
+        tp.append(time_ms(plain, runs=20))
+        t_dev = body_device_ms(torch, kernel, ("attention_long_bwd_rows_wgmma",
+                                               "attention_long_bwd_cols_wgmma",
+                                               "attention_long_bwd_bias_sum"))
+        # the yardstick: the backward of one scaled_dot_product_attention call
+        # with the bias as its mask (dq, dk, dv and the mask's gradient)
+        qh, kh, vhd, mask = (t.requires_grad_() for t in sdpa_operands(torch, q, k, v, bias))
+        out = torch.nn.functional.scaled_dot_product_attention(qh, kh, vhd, attn_mask=mask,
+                                                               scale=0.125)
+        doh = torch.randn_like(out)
+        lib_bwd = lambda: torch.autograd.grad(out, (qh, kh, vhd, mask), doh,  # noqa: E731
+                                              retain_graph=True)
+        t_lib, t_lib_dev = time_ms(lib_bwd, runs=20), kernel_device_ms(torch, lib_bwd, ("",))
+        flop = 5 * 2 * B * 12 * 197 * 197 * 64
+        say("time_k2b", gpu=gpu, batch=B, shape=[197, 12, 64], dtype="bfloat16", kernel_ms=tk,
+            kernel_device_ms=t_dev, plain_ms=tp, sdpa_backward_ms=t_lib,
+            sdpa_backward_device_ms=t_lib_dev,
+            bound_ms=attention_bwd_bound(B, 197, 12, 64)[0],
+            kernel_tflop_s=flop / statistics.mean(tk) / 1e9)
+        del q, k, v, do, bias, qh, kh, vhd, mask, out, doh
 
     args = R.get_args(flags + ["--device", "cuda"])
     vae = R.load_vae(args, dev)
@@ -1862,6 +1990,9 @@ def time_training(torch, dev, gpu, flags):
         if B == 64:
             check(losses[-1] <= losses[0] - LOSS_FALL,
                   f"the loss fell from {losses[0]} to {losses[-1]}, less than {LOSS_FALL}")
+            it = iter(range(steps, steps + 100))
+            profile_seg_forward(torch, gpu, lambda: step(batch, next(it)), n=3,
+                                tag="pretrain_step_profile", batch=B)
         del model, step, batch, metrics
         torch.cuda.empty_cache()
     return statistics.mean(tk), statistics.mean(tp), t_lib
@@ -2024,9 +2155,9 @@ def k5_cases(torch):
 def check_k5a(torch, dev, g):
     """K5a against its plain version on (B, H, N, D) and against K2f on the
     transposed operands, with which it shares its kernel body: bit for bit.
-    N = 197, 65, 256; D = 64, 32; B = 1, 3, 32, 64, 128; bf16 (tensor cores at
-    D = 64) and f32 (scalar). Returns the max abs error at
-    (FT_B, 12, 197, 64)."""
+    N = 197, 65, 256; D = 64, 32; B = 1, 3, 32, 64, 128; bf16 (the Hopper
+    kernel at D = 64) and f32 (scalar); every output bit-identical across two
+    launches. Returns the max abs error at (FT_B, 12, 197, 64)."""
     from mem_tpu_torch.ops import attention as A
 
     first = None
@@ -2034,16 +2165,20 @@ def check_k5a(torch, dev, g):
         tol = K2_BF16_TOL if dt == torch.bfloat16 else K2_F32_TOL
         q, k, v, _, bias, scale, flat = k5_operands(torch, g, shape, dt, dev)
         o = A.fused_attention(q, k, v, bias, scale)
+        again = A.fused_attention(q, k, v, bias, scale)
         torch.cuda.synchronize()
         o_flat = A.fused_attention_flat(flat(q), flat(k), flat(v), bias, scale)
         err = (o.float() - A.fused_attention_reference(q, k, v, bias, scale).float()
                ).abs().max().item()
-        equal = bool(torch.equal(flat(o), o_flat))
+        equal, same = bool(torch.equal(flat(o), o_flat)), bool(torch.equal(o, again))
+        path = A.cuda_bhnd_kernel_path(q, k, v, bias)
         say("k5a_check", dtype=str(dt), shape=list(shape), max_abs_err=err, tol=tol,
-            equals_k2f_on_transposed=equal,
-            kernel=A.cuda_kernel_path(flat(q), flat(k), flat(v), bias))
+            equals_k2f_on_transposed=equal, identical_across_launches=same, kernel=path)
         check(err <= tol, f"K5a {dt} {shape} max abs err {err} > {tol}")
         check(equal, f"K5a {dt} {shape} differs from K2f on the transposed operands")
+        check(same, f"K5a {dt} {shape}: two launches on the same operands differ")
+        check(path == ("wgmma" if _bf16_at_64(torch, shape, dt) else "scalar"),
+              f"K5a {dt} {shape} took the {path} kernel")
         if first is None:
             first = err
         del q, k, v, bias, o, o_flat
@@ -2072,13 +2207,16 @@ def check_k5c(torch, dev, g):
         equal = all(torch.equal(flat(a), b) for a, b in zip(got[:3], k2b[:3])) \
             and bool(torch.equal(got[3], k2b[3]))
         same = all(torch.equal(a, b) for a, b in zip(got, again))
+        path = A.cuda_bhnd_bwd_kernel_path(q, k, v, bias)
         say("k5c_check", dtype=str(dt), shape=list(shape), rel_max_abs=errs, tol=tol,
             db_rel_l2=db, db_tol=K2B_DB_REL, equals_k2b_on_transposed=equal,
-            identical_across_launches=same)
+            identical_across_launches=same, kernel=path)
         check(max(errs.values()) <= tol and db <= K2B_DB_REL,
               f"K5c {dt} {shape}: {errs}, db {db}")
         check(equal, f"K5c {dt} {shape} differs from K2b on the transposed operands")
         check(same, f"K5c {dt} {shape}: two launches on the same operands differ")
+        check(path == ("wgmma" if _bf16_at_64(torch, shape, dt) else "scalar"),
+              f"K5c {dt} {shape} took the {path} kernels")
         if first is None:
             first = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
         del q, k, v, do, bias, got, again, k2b, want
@@ -2174,14 +2312,18 @@ def check_finetune_step(torch, dev, flags):
     weight by +-lr on either device and end weights are not comparable across
     devices); then the f32 card step with the toggles on against off. The
     head starts at --init_scale 1 instead of the recipe's 0.001, with which
-    every loss would be ln(101) whatever the trunk does. That the gradient
-    gate can see a wrong K6b is shown in the same run: the toggled f32 card
-    step is repeated with the last hidden column of K6b's dW1, dW2 and db1
-    zeroed (what a columns kernel that skips its last tile column would give)
-    and must fail it."""
+    every loss would be ln(101) whatever the trunk does. Each card step
+    records the kernel path of every K5c launch (scalar in f32, K3b's Hopper
+    kernels in bf16). That the gradient gates can see a wrong K6b or K5c is
+    shown in the same run: the toggled f32 card step is repeated with the
+    last hidden column of K6b's dW1, dW2 and db1 zeroed (what a columns
+    kernel that skips its last tile column would give), and the f32 and the
+    bf16 steps with the last key masked out of K5c's scores; each must fail
+    its gate."""
     from mem_tpu_torch.cli import run_class_finetuning as F
     from mem_tpu_torch.data.prefetch import to_device
     from mem_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from mem_tpu_torch.ops import attention as A
     from mem_tpu_torch.ops import mlp as M
 
     cpu = torch.device("cpu")
@@ -2203,22 +2345,30 @@ def check_finetune_step(torch, dev, flags):
         db1[-1] = 0
         return dx, dw1, dw2, db1, db2
 
-    out, counts = {}, {}
-    for name, d, dt, on, fault in (("cpu_f32", cpu, torch.float32, True, False),
-                                   ("card_f32", dev, torch.float32, True, False),
-                                   ("card_bf16", dev, torch.bfloat16, True, False),
-                                   ("card_f32_default", dev, torch.float32, False, False),
-                                   ("last_column_dropped", dev, torch.float32, True, True)):
+    real_attn_bwd = A.fused_attention_bwd
+    out, counts, paths = {}, {}, {}
+    for name, d, dt, on, fault in (("cpu_f32", cpu, torch.float32, True, None),
+                                   ("card_f32", dev, torch.float32, True, None),
+                                   ("card_bf16", dev, torch.bfloat16, True, None),
+                                   ("card_f32_default", dev, torch.float32, False, None),
+                                   ("last_column_dropped", dev, torch.float32, True, "K6b"),
+                                   ("last_key_dropped", dev, torch.float32, True, "K5c"),
+                                   ("last_key_dropped_bf16", dev, torch.bfloat16, True, "K5c")):
         with toggles(flat_attn=not on, fused_mlp=on):
             model, step, ema = make_finetune_step(torch, args, sd, d, dt, pp, mix, lr,
                                                   update_freq=2, ema=True)
+            paths[name] = []
             reset_launch_counts()
             try:
-                if fault:
+                if fault == "K6b":
                     M.mlp_bwd_2d = faulty_bwd
+                A.fused_attention_bwd = path_spy(
+                    last_key_dropped(real_attn_bwd) if fault == "K5c" else real_attn_bwd,
+                    A.cuda_bhnd_bwd_kernel_path, paths[name], d)
                 m = step([to_device(b, d) for b in host], 0)
             finally:
                 M.mlp_bwd_2d = real_bwd
+                A.fused_attention_bwd = real_attn_bwd
             counts[name] = launch_counts()
         decay = args.model_ema_decay
         ema_rel = max(rel_l2(torch, e.cpu(), decay * sd[n] + (1 - decay) * p.detach().cpu())
@@ -2229,28 +2379,23 @@ def check_finetune_step(torch, dev, flags):
         del model, step, ema
     torch.cuda.empty_cache()
 
-    def grad_rel(a, b):
-        rel = {n: rel_l2(torch, g, out[b][1][n]) for n, g in out[a][1].items()}
-        worst = max(rel, key=rel.get)
-        return rel[worst], worst
-
     ref_m = out["cpu_f32"][0]
     loss_rel = {n: abs(out[n][0]["loss"] - ref_m["loss"]) / abs(ref_m["loss"])
                 for n in ("card_f32", "card_bf16", "card_f32_default")}
-    g_cpu, g_toggle, g_fault = (grad_rel("card_f32", "cpu_f32"),
-                                grad_rel("card_f32", "card_f32_default"),
-                                grad_rel("last_column_dropped", "cpu_f32"))
+    grads = {n: grad_rel(torch, out[n][1], out["cpu_f32"][1]) for n in out if n != "cpu_f32"
+             and n != "card_f32_default"}
+    g_toggle = grad_rel(torch, out["card_f32"][1], out["card_f32_default"][1])
     ema_rel = {n: v[2] for n, v in out.items()}
     say("finetune_step_check", model="ft_vit", embed_dim=768, depth=2, heads=12, batch=8,
         update_freq=2, mixup=dict(use=host[0]["mix_use"].tolist()[:2],
                                   cutmix=host[0]["mix_use_cutmix"].tolist()[:2],
                                   lam=host[0]["mix_lam"].tolist()[:2]),
         metrics={n: v[0] for n, v in out.items()}, loss_rel=loss_rel,
-        grad_rel_l2_card_vs_cpu=g_cpu, grad_rel_l2_toggles_on_vs_off=g_toggle,
-        ema_rel_l2_to_definition=ema_rel,
-        planted_fault=dict(rel_l2_max=g_fault[0], worst=g_fault[1]), launches=counts,
+        grad_rel_l2_vs_cpu_f32=grads, grad_rel_l2_toggles_on_vs_off=g_toggle,
+        ema_rel_l2_to_definition=ema_rel, launches=counts, k5c_paths=paths,
         bounds=dict(f32_loss=STEP_F32_LOSS_REL, f32_grad=FT_STEP_F32_GRAD_REL,
-                    bf16_loss=STEP_BF16_LOSS_REL, toggles=FT_TOGGLE_GRAD_REL, ema=FT_EMA_REL))
+                    bf16_loss=STEP_BF16_LOSS_REL, bf16_grad=STEP_BF16_GRAD_REL,
+                    toggles=FT_TOGGLE_GRAD_REL, ema=FT_EMA_REL))
     check(all(np.isfinite(v) for v in ref_m.values()), "CPU finetune step metrics not finite")
     on = {"hist_planes_cols": 2, "mlp_fused": 4, "mlp_fused_bwd": 4, "fused_attention": 4,
           "fused_attention_bwd": 4}
@@ -2261,13 +2406,22 @@ def check_finetune_step(torch, dev, flags):
     check(loss_rel["card_f32"] <= STEP_F32_LOSS_REL
           and loss_rel["card_f32_default"] <= STEP_F32_LOSS_REL,
           f"f32 finetune step loss rel {loss_rel}")
-    check(g_cpu[0] <= FT_STEP_F32_GRAD_REL, f"f32 grad card vs CPU: {g_cpu}")
-    check(g_toggle[0] <= FT_TOGGLE_GRAD_REL, f"f32 grad toggles on vs off: {g_toggle}")
+    check(all(p == (["wgmma" if "bf16" in n else "scalar"] * 4 if n != "card_f32_default"
+                    else []) for n, p in paths.items() if n != "cpu_f32"),
+          f"the card steps' K5c launches took {paths}")
+    check(grads["card_f32"]["max"] <= FT_STEP_F32_GRAD_REL,
+          f"f32 grad card vs CPU: {grads['card_f32']}")
+    check(grads["card_bf16"]["max"] <= STEP_BF16_GRAD_REL,
+          f"bf16 grad card vs CPU: {grads['card_bf16']}")
+    check(g_toggle["max"] <= FT_TOGGLE_GRAD_REL, f"f32 grad toggles on vs off: {g_toggle}")
     check(max(v for n, v in ema_rel.items() if "bf16" not in n) <= FT_EMA_REL,
           f"EMA weights against their definition: {ema_rel}")
     check(loss_rel["card_bf16"] <= STEP_BF16_LOSS_REL, f"bf16 finetune step loss rel {loss_rel}")
-    check(g_fault[0] > FT_STEP_F32_GRAD_REL,
-          f"the gradient gate does not see K6b with its last hidden column dropped: {g_fault}")
+    for n, bnd, kernel in (("last_column_dropped", FT_STEP_F32_GRAD_REL, "K6b"),
+                           ("last_key_dropped", FT_STEP_F32_GRAD_REL, "K5c"),
+                           ("last_key_dropped_bf16", STEP_BF16_GRAD_REL, "K5c")):
+        check(grads[n]["max"] > bnd,
+              f"the gradient gate does not see the planted {kernel} fault ({n}): {grads[n]}")
 
 
 def run_finetune_cli(torch, flags):
@@ -2404,6 +2558,11 @@ def time_finetune(torch, dev, gpu, g, flags):
                    lambda: A.fused_attention(q, k, v, bias, 0.125), runs=10)
     k5c = in_turns(torch, lambda: A.fused_attention_bwd_reference(q, k, v, bias, do, 0.125),
                    lambda: A.fused_attention_bwd(q, k, v, bias, do, 0.125), runs=10)
+    k5_dev = (kernel_device_ms(torch, lambda: A.fused_attention(q, k, v, bias, 0.125),
+                               ("attention_long_fwd_wgmma",), per_launch=True),
+              body_device_ms(torch, lambda: A.fused_attention_bwd(q, k, v, bias, do, 0.125),
+                             ("attention_long_bwd_rows_wgmma", "attention_long_bwd_cols_wgmma",
+                              "attention_long_bwd_bias_sum")))
     flat = lambda t: t.transpose(1, 2).reshape(FT_B, 197, 768).contiguous()  # noqa: E731
     fq, fk, fv, fdo = flat(q), flat(k), flat(v), flat(do)
     t_k2f = time_ms(lambda: A.fused_attention_flat(fq, fk, fv, bias, 0.125), runs=10)
@@ -2415,13 +2574,19 @@ def time_finetune(torch, dev, gpu, g, flags):
                                                    scale=0.125)
     t_lib_f = time_ms(sdpa, runs=10)
     out = sdpa()
-    t_lib_b = time_ms(lambda: torch.autograd.grad(out, (qh, kh, vh, mask), do,
-                                                         retain_graph=True), runs=10)
-    for name, (t_k, t_p), t_lib, t_k2, bnd, n_prod in (
-            ("time_k5a", k5a, t_lib_f, t_k2f, attention_fwd_bound(FT_B, 197, 12, 64), 2),
-            ("time_k5c", k5c, t_lib_b, t_k2b, attention_bwd_bound(FT_B, 197, 12, 64), 5)):
+    lib_bwd = lambda: torch.autograd.grad(out, (qh, kh, vh, mask), do,  # noqa: E731
+                                          retain_graph=True)
+    t_lib_b = time_ms(lib_bwd, runs=10)
+    lib_dev = kernel_device_ms(torch, sdpa, ("",)), kernel_device_ms(torch, lib_bwd, ("",))
+    for name, (t_k, t_p), t_dev, t_lib, t_lib_dev, t_k2, bnd, n_prod in (
+            ("time_k5a", k5a, k5_dev[0], t_lib_f, lib_dev[0], t_k2f,
+             attention_fwd_bound(FT_B, 197, 12, 64), 2),
+            ("time_k5c", k5c, k5_dev[1], t_lib_b, lib_dev[1], t_k2b,
+             attention_bwd_bound(FT_B, 197, 12, 64), 5)):
         say(name, gpu=gpu, batch=FT_B, shape=[12, 197, 64], dtype="bfloat16", kernel_ms=t_k,
-            plain_ms=t_p, sdpa_ms=t_lib, flat_kernel_ms=t_k2, bound_ms=bnd[0], bound_by=bnd[1],
+            kernel_device_ms=t_dev, plain_ms=t_p, sdpa_ms=t_lib, sdpa_device_ms=t_lib_dev,
+            flat_kernel_ms=t_k2,
+            bound_ms=bnd[0], bound_by=bnd[1],
             kernel_tflop_s=n_prod * 2 * FT_B * 12 * 197 * 197 * 64 / t_k / 1e9)
     del q, k, v, do, bias, fq, fk, fv, fdo, mask, qh, kh, vh, out
     torch.cuda.empty_cache()
@@ -2945,10 +3110,12 @@ def check_x2(torch, dev, g):
 
 def check_x3(torch, dev, g):
     """X3 at every shape against the plain pair inside K2b's gates, bit for
-    bit against K2b on the same operands, and bit-identical across launches:
-    the experiment's (128, 197, 12, 64), the serving batch, and N = 37, 129,
-    256 and 16; f32, another head dim and N above 256 must raise. Returns the
-    max abs error against the plain version at the experiment's shape."""
+    bit against K2b's `mma.sync` tensor-core kernel (fused_attention_flat_bwd_mma,
+    the body X3 varies: K2b itself runs K3b's Hopper body now) on the same
+    operands, and bit-identical across launches: the experiment's (128, 197,
+    12, 64), the serving batch, and N = 37, 129, 256 and 16; f32, another
+    head dim and N above 256 must raise, for both. Returns the max abs error
+    against the plain version at the experiment's shape."""
     from mem_tpu_torch.ops import attention as A
 
     first = None
@@ -2960,20 +3127,21 @@ def check_x3(torch, dev, g):
         bias = (0.5 * torch.randn(H, N, N, generator=g)).to(dev)
         pair = A.fused_attention_flat_bwd_pair(q, k, v, bias, do, 0.125)
         again = A.fused_attention_flat_bwd_pair(q, k, v, bias, do, 0.125)
-        base = A.fused_attention_flat_bwd(q, k, v, bias, do, 0.125)
+        base = A.fused_attention_flat_bwd_mma(q, k, v, bias, do, 0.125)
         want = A.fused_attention_flat_bwd_pair_reference(q, k, v, bias, do, 0.125)
         torch.cuda.synchronize()
         equal_k2b = {n: torch.equal(a, b) for n, a, b in zip(names, pair, base)}
         identical = all(torch.equal(a, b) for a, b in zip(pair, again))
         errs = {n: rel_max_abs(a, b) for n, a, b in zip(names[:3], pair, want)}
         db = rel_l2(torch, pair[3], want[3])
-        say("x3_check", shape=[B, N, H, 64], equal_k2b=equal_k2b,
+        say("x3_check", shape=[B, N, H, 64], equal_k2b_pr2=equal_k2b,
             identical_across_launches=identical, rel_max_abs=errs, tol=K2B_BF16_TOL,
             db_rel_l2=db, db_tol=K2B_DB_REL)
         check(max(errs.values()) <= K2B_BF16_TOL and db <= K2B_DB_REL,
               f"X3 at {B, N, H} differs from the plain pair: {errs}, db {db}")
         check(identical, f"X3 at {B, N, H} differs between two launches")
-        check(all(equal_k2b.values()), f"X3 at {B, N, H} is not K2b's bits: {equal_k2b}")
+        check(all(equal_k2b.values()),
+              f"X3 at {B, N, H} is not the bits of K2b's mma.sync kernel: {equal_k2b}")
         if first is None:
             first = max((a.float() - b.float()).abs().max().item() for a, b in zip(pair, want))
         del q, k, v, do, bias, pair, again, base, want
@@ -2981,11 +3149,12 @@ def check_x3(torch, dev, g):
                      (torch.bfloat16, 64, 257)):
         q = torch.zeros(1, N, 2 * D, dtype=dt, device=dev)
         bias = torch.zeros(2, N, N, device=dev)
-        try:
-            A.fused_attention_flat_bwd_pair(q, q, q, bias, q, 0.125)
-        except ValueError:
-            continue
-        raise SmokeFailure(f"X3 took {dt} operands at D={D}, N={N}")
+        for name in ("fused_attention_flat_bwd_pair", "fused_attention_flat_bwd_mma"):
+            try:
+                getattr(A, name)(q, q, q, bias, q, 0.125)
+            except ValueError:
+                continue
+            raise SmokeFailure(f"{name} took {dt} operands at D={D}, N={N}")
     return first
 
 
@@ -3016,7 +3185,7 @@ def run_experiment_tools(torch):
                              "exp_voxelize_fused_onehot": 6 * per_variant,
                              "exp_voxelize_fused_loop": 2 * per_variant,
                              "hist_planes_cols": 2 * (exp_voxelize.WARMUP + exp_voxelize.RUNS)},
-            "exp_attn_bwd": {"fused_attention_flat_bwd": per_fn,
+            "exp_attn_bwd": {"fused_attention_flat_bwd_mma": per_fn,
                              "fused_attention_flat_bwd_pair": per_fn}}
     X2 = exp_voxelize2
     per_x2 = 1 + X2.WARMUP + X2.RUNS   # the check, then the timing
@@ -3143,6 +3312,7 @@ def time_experiments(torch, dev, gpu):
         q, k, v, bias, do, 0.125), lambda: A.fused_attention_flat_bwd_pair(
         q, k, v, bias, do, 0.125), runs=10)
     t_k2b = time_ms(lambda: A.fused_attention_flat_bwd(q, k, v, bias, do, 0.125), runs=10)
+    t_pr2 = time_ms(lambda: A.fused_attention_flat_bwd_mma(q, k, v, bias, do, 0.125), runs=10)
     qh, kh, vhd, mask = (t.requires_grad_() for t in sdpa_operands(torch, q, k, v, bias))
     o = torch.nn.functional.scaled_dot_product_attention(qh, kh, vhd, attn_mask=mask, scale=0.125)
     doh = torch.randn_like(o)
@@ -3151,9 +3321,9 @@ def time_experiments(torch, dev, gpu):
     bnd = attention_bwd_bound(*X3_SHAPE)
     flop5 = 10 * B * Hh * N * N * D
     say("time_x3", gpu=gpu, batch=B, shape=[N, Hh, D], dtype="bfloat16", kernel_ms=t_k,
-        plain_ms=t_p, k2b_ms=t_k2b, sdpa_backward_ms=t_lib, bound_ms=bnd[0], bound_by=bnd[1],
-        kernel_tflop_s=flop5 / t_k / 1e9, executed_tflop_s=1.4 * flop5 / t_k / 1e9,
-        k2b_tflop_s=flop5 / t_k2b / 1e9)
+        plain_ms=t_p, k2b_ms=t_k2b, k2b_pr2_ms=t_pr2, sdpa_backward_ms=t_lib, bound_ms=bnd[0],
+        bound_by=bnd[1], kernel_tflop_s=flop5 / t_k / 1e9,
+        executed_tflop_s=1.4 * flop5 / t_k / 1e9, k2b_tflop_s=flop5 / t_k2b / 1e9)
     out["fused_attention_flat_bwd_pair"] = (t_k, t_p, bnd, t_lib)
     del q, k, v, do, bias, qh, kh, vhd, mask, o, doh
     torch.cuda.empty_cache()

@@ -46,8 +46,12 @@
 //   run, unlike f32 atomicAdd into a zeroed db. The cost is the workspace
 //   (B*H*N*N f32: 238 MB at B=128) and one extra pass over it.
 // - Feeding the products: attention_bwd_flat_mma_kernel (bf16, D = 64,
-//   N <= 256, the training shape) runs all five products on the tensor
-//   cores with mma.sync m16n8k16 (bf16 in, f32 accumulate), 8 warps per
+//   N <= 256; K2b's mma.sync tensor-core kernel, which no model path launches
+//   any more: K2b and K5c at those shapes run K3b's Hopper body,
+//   attention_long_bwd.cuh; this kernel stays, behind
+//   attention_bwd.cu's mem_attention_bwd_flat_mma, as the yardstick X3,
+//   attention_bwd_pair.cu, is held to bit for bit) runs all five products on
+//   the tensor cores with mma.sync m16n8k16 (bf16 in, f32 accumulate), 8 warps per
 //   block. K and V are staged row-major and K^T, Q^T and dO^T transposed
 //   in dynamic shared memory (140 KB at N=197), padded so the 32-bit
 //   fragment loads of a warp hit 32 banks. Phase 1 keeps a warp's 16 x
@@ -59,8 +63,7 @@
 //   dtype, where tensor cores would round to TF32) is the same two phases
 //   with scalar FMAs, one row (phase 1) or one key (phase 2) per warp.
 // Neither allocates nor synchronises: the wrapper allocates the outputs
-// and the workspace. TMA/wgmma and splitting a (b, h) over several blocks
-// are later work.
+// and the workspace.
 
 #pragma once
 
@@ -633,25 +636,30 @@ __global__ void attention_bwd_bias_sum_kernel(const float* __restrict__ ds_ws,
   }
 }
 
+int launch_bias_sum(const float* ds_ws, float* db, int b, int n, int heads,
+                    cudaStream_t stream) {
+  const int64_t hnn = static_cast<int64_t>(heads) * n * n;
+  const int64_t blocks = (hnn + 255) / 256;
+  attention_bwd_bias_sum_kernel<<<static_cast<int>(blocks < 4096 ? blocks : 4096), 256, 0,
+                                  stream>>>(ds_ws, db, hnn, b);
+  return static_cast<int>(cudaGetLastError());
+}
+
 bool use_mma(const void* const* ptrs, int count, int n, int d, int is_bf16) {
   uintptr_t all = 0;
   for (int i = 0; i < count; ++i) all |= reinterpret_cast<uintptr_t>(ptrs[i]);
   return is_bf16 && d == kMmaD && mma_tiles(n) > 0 && all % 16 == 0;
 }
 
-// Bytes of dynamic shared memory a launch at (n, d) may need (the larger of
-// the two kernels' where both can take it); the wrapper refuses shapes above
-// the 227 KB a block may use.
+// Bytes of dynamic shared memory the scalar kernel needs at (n, d); the
+// wrapper refuses shapes above the 227 KB a block may use.
 long long bwd_smem_bytes(int n, int d, int is_bf16) {
-  size_t bytes = is_bf16 ? smem_bytes<__nv_bfloat16>(n, d) : smem_bytes<float>(n, d);
-  if (is_bf16 && d == kMmaD && mma_tiles(n) > 0 && mma_smem_bytes(mma_tiles(n)) > bytes) {
-    bytes = mma_smem_bytes(mma_tiles(n));
-  }
-  return static_cast<long long>(bytes);
+  return static_cast<long long>(is_bf16 ? smem_bytes<__nv_bfloat16>(n, d)
+                                        : smem_bytes<float>(n, d));
 }
 
-// q, k, v, dout, dq, dk, dv: one dtype (bf16 or f32), flat (b, n, heads*d)
-// or head-major (b, heads, n, d) where
+// The scalar kernel, then the bias sum. q, k, v, dout, dq, dk, dv: one dtype
+// (bf16 or f32), flat (b, n, heads*d) or head-major (b, heads, n, d) where
 // MEM_ATTENTION_HEAD_MAJOR is defined; bias: (heads, n, n) f32; db:
 // (heads, n, n) f32; ds_ws: (b, heads, n, n) f32 and pc_ws: (b, heads, n, n)
 // in the operands' dtype, both scratch.
@@ -661,28 +669,11 @@ int dispatch_bwd(const void* q, const void* k, const void* v, const float* bias,
                  cudaStream_t stream) {
   if (b <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
   if (b > 65535) return static_cast<int>(cudaErrorInvalidValue);   // grid.y
-  const void* ptrs[7] = {q, k, v, dout, dq, dk, dv};
-  int rc;
-  if (use_mma(ptrs, 7, n, d, is_bf16)) {
-    switch (mma_tiles(n)) {
-      case 8: rc = launch_mma<8>(q, k, v, bias, dout, dq, dk, dv, ds_ws, pc_ws, b, n, heads, scale, stream); break;
-      case 16: rc = launch_mma<16>(q, k, v, bias, dout, dq, dk, dv, ds_ws, pc_ws, b, n, heads, scale, stream); break;
-      case 26: rc = launch_mma<26>(q, k, v, bias, dout, dq, dk, dv, ds_ws, pc_ws, b, n, heads, scale, stream); break;
-      default: rc = launch_mma<32>(q, k, v, bias, dout, dq, dk, dv, ds_ws, pc_ws, b, n, heads, scale, stream); break;
-    }
-  } else if (is_bf16) {
-    rc = launch<__nv_bfloat16>(q, k, v, bias, dout, dq, dk, dv, ds_ws, pc_ws, b, n,
-                                      heads, d, scale, stream);
-  } else {
-    rc = launch<float>(q, k, v, bias, dout, dq, dk, dv, ds_ws, pc_ws, b, n, heads, d,
-                              scale, stream);
-  }
-  if (rc != 0) return rc;
-  const int64_t hnn = static_cast<int64_t>(heads) * n * n;
-  const int64_t blocks = (hnn + 255) / 256;
-  attention_bwd_bias_sum_kernel<<<static_cast<int>(blocks < 4096 ? blocks : 4096), 256, 0,
-                                  stream>>>(ds_ws, db, hnn, b);
-  return static_cast<int>(cudaGetLastError());
+  const int rc = is_bf16 ? launch<__nv_bfloat16>(q, k, v, bias, dout, dq, dk, dv, ds_ws, pc_ws,
+                                                 b, n, heads, d, scale, stream)
+                         : launch<float>(q, k, v, bias, dout, dq, dk, dv, ds_ws, pc_ws, b, n,
+                                         heads, d, scale, stream);
+  return rc != 0 ? rc : launch_bias_sum(ds_ws, db, b, n, heads, stream);
 }
 
 }  // namespace

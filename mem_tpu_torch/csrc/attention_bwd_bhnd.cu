@@ -5,13 +5,13 @@
 // fused_attention, called from _fa_bwd), which keeps all heads of a sample
 // in VMEM, recomputes p per head and adds each sample's ds into one
 // (H, N, N) block that the sequential batch grid revisits. It is K2b's
-// function (attention.py:_bwd_flat_kernel) with other addressing, so it is
-// K2b's kernels (attention_bwd.cuh: one block per (sample, head) in two
-// phases over a (B, H, N, N) workspace, then the bias sum in batch order,
-// no float atomics) compiled for the head-major layout: the same
-// arithmetic in the same order, bit-identical across launches and to K2b on
-// transposed operands. Bound as K2b: the five products on mma.sync and the
-// workspace round trip.
+// function (attention.py:_bwd_flat_kernel) with other addressing. This unit
+// is K2b's scalar kernel (attention_bwd.cuh: f32 operands and head dims other
+// than 64; one block per (sample, head) in two phases over a (B, H, N, N)
+// workspace, then the bias sum in batch order, no float atomics) compiled for
+// the head-major layout: the same arithmetic in the same order, bit-identical
+// across launches and to K2b on transposed operands. bf16 at D = 64 and N <=
+// 256 takes K3b's Hopper kernels (attention_long_bwd_bhnd.cu).
 //
 // Finetune shapes: q, k, v, do (B, 12, 197, 64) bf16, bias and db
 // (12, 197, 197) f32.

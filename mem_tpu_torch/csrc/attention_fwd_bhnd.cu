@@ -5,15 +5,11 @@
 // sample and the whole (H, N, N) f32 bias in VMEM and loops over the heads.
 // It computes K2f's function (attention.py:_fwd_flat_kernel) with other
 // addressing: a head's rows are D elements apart instead of H*D, and head h
-// of sample b starts at ((b*H + h)*N)*D instead of column h*D. So it is
-// K2f's kernels (attention_fwd.cuh: one block per 64 query rows, head and
-// sample; tensor cores for bf16 at D = 64 and N <= 256, scalar FMAs
-// otherwise) compiled for that layout: the same arithmetic in the same
-// order, and the same bits as K2f on transposed operands. What bounds it is
-// what bounds K2f (staging K/V, the bias reads and the softmax arithmetic);
-// head-major rows are contiguous per head, so the staging loads are denser.
-//
-// Finetune shapes: q, k, v (B, 12, 197, 64) bf16, bias (12, 197, 197) f32.
+// of sample b starts at ((b*H + h)*N)*D instead of column h*D. This unit is
+// K2f's scalar kernel (attention_fwd.cuh: f32 operands and head dims other
+// than 64) compiled for that layout: the same arithmetic in the same order,
+// and the same bits as K2f on transposed operands. bf16 at D = 64 and N <=
+// 256 takes K3f's Hopper kernel (attention_long_fwd_bhnd.cu).
 
 #define MEM_ATTENTION_HEAD_MAJOR 1
 #include "attention_fwd.cuh"

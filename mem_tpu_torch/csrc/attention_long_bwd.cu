@@ -1,6 +1,8 @@
 // K3b: the flat (B, N, H*D) entry points of the long attention backward. The
 // kernels are in attention_long_bwd.cuh, shared with the head-major
-// (B, H, N, D) entry points of attention_long_bwd_bhnd.cu (K5d, K5e).
+// (B, H, N, D) entry points of attention_long_bwd_bhnd.cu (K5d, K5e). K2b
+// launches mem_attention_long_bwd for bf16 at head dim 64 and N <= 256
+// (counted under K2b's name).
 
 #include "attention_long_bwd.cuh"
 

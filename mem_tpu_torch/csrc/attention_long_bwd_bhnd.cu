@@ -25,9 +25,9 @@
 // Shapes: the seg backbone under FLAT_ATTN = False or FLAT_ATTN_LONG = False,
 // q, k, v, do (16, 12, 1025, 64) bf16, bias and db (12, 1025, 1025) f32 (K5e);
 // a finetune at --input_size 320, (B, 12, 401, 64) (K5d). The head-blocked
-// wrapper (ops/attention.py) also takes the K5d entry for bf16 at D = 64 and
-// 256 < N with the bias inside the budget, where K5c's tensor-core kernel has
-// no instantiation.
+// wrapper (ops/attention.py) takes the K5d entry for every bf16 launch at
+// D = 64 (the finetune's (B, 12, 197, 64) under FLAT_ATTN = False included),
+// counted under K5c's name.
 
 #define MEM_ATTENTION_HEAD_MAJOR 1
 #include "attention_long_bwd.cuh"

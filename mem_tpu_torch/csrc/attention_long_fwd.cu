@@ -1,6 +1,9 @@
 // K3f: the flat (B, N, H*D) entry points of the long attention forward. The
 // kernels are in attention_long_fwd.cuh, shared with the head-major
-// (B, H, N, D) entry point of attention_long_fwd_bhnd.cu (K5b).
+// (B, H, N, D) entry point of attention_long_fwd_bhnd.cu (K5b). K2f launches
+// the same entry point for bf16 at head dim 64 and N <= 256 (ops/attention.py
+// counts those launches under K2f's name): at that N the ring takes a (b, h)'s
+// whole K and V in the first round.
 
 #include "attention_long_fwd.cuh"
 

@@ -18,9 +18,9 @@
 //
 // Seg backbone shapes under FLAT_ATTN = False or FLAT_ATTN_LONG = False:
 // q, k, v (B, 12, 1025, 64) bf16, bias (12, 1025, 1025) f32. The head-blocked
-// wrapper (ops/attention.py) also launches it for bf16 at D = 64 and
-// 256 < N with the bias inside the budget, where K5a's tensor-core kernel
-// has no instantiation.
+// wrapper (ops/attention.py) launches it for every bf16 launch at D = 64 (the
+// finetune's (B, 12, 197, 64) under FLAT_ATTN = False included), counted
+// under K5a's name.
 
 #define MEM_ATTENTION_HEAD_MAJOR 1
 #include "attention_long_fwd.cuh"

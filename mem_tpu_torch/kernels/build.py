@@ -45,11 +45,11 @@ SIGNATURES = {
     "mem_hist_sorted_chunks": ((_I,), _I),
     "mem_attention_fwd_flat": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P), _I),
     "mem_attention_fwd_flat_smem": ((_I, _I, _I), ctypes.c_longlong),
-    "mem_attention_fwd_flat_uses_mma": ((_P, _P, _P, _P, _I, _I, _I), _I),
     "mem_attention_bwd_flat": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _F, _I, _P), _I),
     "mem_attention_bwd_flat_smem": ((_I, _I, _I), ctypes.c_longlong),
-    "mem_attention_bwd_flat_uses_mma": ((_P, _P, _P, _P, _P, _P, _P, _I, _I, _I), _I),
+    "mem_attention_bwd_flat_mma": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                    _I, _I, _I, _I, _F, _I, _P), _I),
     "mem_attention_fwd_bhnd": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P), _I),
     "mem_attention_bwd_bhnd": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _F, _I, _P), _I),
@@ -80,10 +80,12 @@ SIGNATURES = {
     "mem_attention_bwd_pair": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _F, _I, _P), _I),
     "mem_cuda_error_string": ((_I,), ctypes.c_char_p),
+    "mem_cuda_set_device": ((_I,), _I),
 }
 
 _lock = threading.Lock()
 _lib = None
+_thread = threading.local()   # the device this thread's context was bound to
 
 
 def find_nvcc() -> str | None:
@@ -167,8 +169,15 @@ def build_log() -> str:
     return p.read_text() if p.exists() else ""
 
 
-def library() -> ctypes.CDLL:
-    """The bound kernel library; checks the device and builds on first call."""
+def library(device=None) -> ctypes.CDLL:
+    """The bound kernel library; checks the device and builds on first call.
+
+    A wrapper that launches passes its operands' ``device`` (a CUDA
+    ``torch.device`` or index): on each thread, once per device, that
+    device's context is made current for the library's own (static) CUDA
+    runtime, whose launches otherwise go to the context it last bound on
+    that thread, or to device 0's. PyTorch may not have touched the card on
+    that thread yet (a fresh thread; autograd's device thread)."""
     global _lib
     with _lock:
         if _lib is None:
@@ -179,7 +188,19 @@ def library() -> ctypes.CDLL:
                 fn.argtypes = argtypes
                 fn.restype = restype
             _lib = lib
-        return _lib
+    if device is not None:
+        index = device if isinstance(device, int) else device.index
+        if index is None:
+            import torch
+
+            index = torch.cuda.current_device()
+        if getattr(_thread, "device", None) != index:
+            rc = _lib.mem_cuda_set_device(index)
+            if rc != 0:
+                raise RuntimeError(f"cudaSetDevice({index}): CUDA error {rc} "
+                                   f"({_lib.mem_cuda_error_string(rc).decode()})")
+            _thread.device = index
+    return _lib
 
 
 def check(name: str, rc: int) -> None:

@@ -7,11 +7,13 @@ Port of mem_tpu/ops/attention.py ``fused_attention_flat`` and its VJP: per
 head, ``softmax(q k^T * scale + bias_h) v`` with q/k/v flat (B, N, H*D) and
 a (H, N, N) f32 bias shared by the batch (the BEiT relative-position bias),
 whose gradient is summed over the batch. The head count comes from the
-bias. ``fused_attention_flat`` is a ``torch.autograd.Function``: on the card
-the forward is csrc/attention_fwd.cu and the backward csrc/attention_bwd.cu
-(tensor-core kernels for bf16 at head dim 64 and N <= 256, the serving and
-training shapes; scalar kernels for the rest, f32 included); on the CPU
-both directions take the plain versions.
+bias. ``fused_attention_flat`` is a ``torch.autograd.Function``. On the card,
+for bf16 at head dim 64 and N <= 256 (the serving and training shapes), the
+forward launches K3f's Hopper kernel and the backward K3b's (below; at these
+N their rings hold a (b, h)'s whole K and V, or Q and dO, within the first
+pass); the other shapes, f32 included, take the scalar kernels of
+csrc/attention_fwd.cu and attention_bwd.cu. On the CPU both directions take
+the plain versions.
 
 ``fused_attention_flat_long`` is the same function for sequences too long
 for K2f, whose blocks hold a head's whole K and V in shared memory: the
@@ -30,8 +32,10 @@ order. :func:`attention_route` is the rule that picks between the two.
 the layout its head-major branch produces (``FLAT_ATTN = False``, or
 ``FLAT_ATTN_LONG = False`` at long N), with the reference's routing rule
 (:func:`fused_attention_route`): for the shapes its head-blocked kernels take
-(``_hb_eligible``) K5a forward and K5c backward (csrc/attention_fwd_bhnd.cu,
-attention_bwd_bhnd.cu: K2f's and K2b's kernels with head-major addressing);
+(``_hb_eligible``) K5a forward and K5c backward (K2f's and K2b's kernels
+with head-major addressing: for bf16 at head dim 64 K3's Hopper bodies in
+csrc/attention_long_fwd_bhnd.cu and attention_long_bwd_bhnd.cu, else the
+scalar csrc/attention_fwd_bhnd.cu and attention_bwd_bhnd.cu);
 for the others K5b forward and K5d (N <= ``_WHOLE_BWD_MAX_N``) or K5e
 backward (csrc/attention_long_fwd_bhnd.cu, attention_long_bwd_bhnd.cu: K3f's
 and K3b's key-tiled kernels with head-major addressing).
@@ -39,8 +43,10 @@ and K3b's key-tiled kernels with head-major addressing).
 ``fused_attention_flat_bwd_pair`` (X3, csrc/attention_bwd_pair.cu) is the
 experiment of scripts/exp_attn_bwd.py: K2b's function with each head's two
 depth-D products s = q k^T and dp = do v^T taken as one depth-2D product
-against a block-diagonal operand. No model path calls it;
-``mem_tpu_torch.tools.exp_attn_bwd`` times it beside K2b.
+against a block-diagonal operand, held bit for bit to K2b's
+``mma.sync`` kernel (``fused_attention_flat_bwd_mma``), of which it is a
+variant. No model path calls either; ``mem_tpu_torch.tools.exp_attn_bwd``
+times them side by side.
 """
 from __future__ import annotations
 
@@ -49,9 +55,10 @@ import torch
 from mem_tpu_torch.kernels import count_launch
 
 MAX_SMEM_BYTES = 232_448   # the most dynamic shared memory one H100 block may use
-# K2f and K2b keep a head's whole K and V (and, backward, more) in one
-# block's shared memory and their tensor-core kernels are instantiated up to
-# 256 keys; above that the key-tiled K3f takes over.
+# The longest N the flat route sends to K2f / K2b (and the head-blocked one,
+# for bf16 at head dim 64, to K3's Hopper bodies under K5a's / K5c's names):
+# K2's scalar kernels keep a head's whole K and V in one block's shared
+# memory; above it the key-tiled K3f and K3b take over.
 FLAT_MAX_N = 256
 
 
@@ -164,20 +171,44 @@ def _forward(q, k, v, bias, scale: float):
     CPU tensors take the plain version; CUDA tensors launch K2f or raise."""
     if q.device.type == "cpu":
         return fused_attention_flat_reference(q, k, v, bias, scale)
-    B, N, H, D = _check_cuda_operands("fused_attention_flat", (q, k, v, bias), q, bias)
+    name = "fused_attention_flat"
+    B, N, H, D = _check_cuda_operands(name, (q, k, v, bias), q, bias)
+    if _k2_wgmma(q, k, v, None, N, D):
+        return _long_fwd(name, "mem_attention_long_fwd", q, k, v, bias, scale, B, N, H, D)
+    return _scalar_fwd(name, "mem_attention_fwd_flat", q, k, v, bias, scale, B, N, H, D)
+
+
+def _scalar_fwd(name, entry, q, k, v, bias, scale, B, N, H, D):
+    """Launch K2f's (or K5a's) scalar kernel through the C entry point
+    ``entry`` and count the launch under ``name``."""
     from mem_tpu_torch.kernels import build
 
-    lib = build.library()
+    lib = build.library(q.device)
     is_bf16 = int(q.dtype == torch.bfloat16)
-    _smem_check("fused_attention_flat", lib.mem_attention_fwd_flat_smem(N, D, is_bf16), N, D)
+    _smem_check(name, lib.mem_attention_fwd_flat_smem(N, D, is_bf16), N, D)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.mem_attention_fwd_flat(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                    bias.data_ptr(), out.data_ptr(),
-                                    B, N, H, D, float(scale), is_bf16, stream)
-    build.check("fused_attention_flat", rc)
-    count_launch("fused_attention_flat")
+    rc = getattr(lib, entry)(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                             out.data_ptr(), B, N, H, D, float(scale), is_bf16, stream)
+    build.check(name, rc)
+    count_launch(name)
     return out
+
+
+def _k2_wgmma(q, k, v, do, N, D) -> bool:
+    """Whether a K2 (or K5a / K5c) launch on these operands takes K3's Hopper
+    body: N <= FLAT_MAX_N and K3f's (``do`` None) or K3b's wgmma rule (bf16,
+    head dim 64, 16-byte aligned). Outputs are allocated like the operands,
+    so their alignment is the operands'."""
+    from mem_tpu_torch.kernels import build
+
+    if N > FLAT_MAX_N:
+        return False
+    lib, is_bf16 = build.library(), int(q.dtype == torch.bfloat16)
+    p = [q.data_ptr(), k.data_ptr(), v.data_ptr()]
+    if do is None:
+        return bool(lib.mem_attention_long_fwd_uses_mma(*p, q.data_ptr(), D, is_bf16))
+    return bool(lib.mem_attention_long_bwd_uses_mma(*p, do.data_ptr(), *p, D, is_bf16))
 
 
 def fused_attention_flat_bwd(q, k, v, bias, do, scale: float):
@@ -188,12 +219,32 @@ def fused_attention_flat_bwd(q, k, v, bias, do, scale: float):
         return fused_attention_flat_bwd_reference(q, k, v, bias, do, scale)
     name = "fused_attention_flat_bwd"
     B, N, H, D = _check_cuda_operands(name, (q, k, v, bias, do), q, bias)
+    if _k2_wgmma(q, k, v, do, N, D):
+        return _long_bwd(name, "mem_attention_long_bwd", q, k, v, bias, do, scale, B, N, H, D)
     from mem_tpu_torch.kernels import build
 
-    lib = build.library()
-    _smem_check(name, lib.mem_attention_bwd_flat_smem(N, D, int(q.dtype == torch.bfloat16)),
-                N, D)
+    _smem_check(name, build.library().mem_attention_bwd_flat_smem(
+        N, D, int(q.dtype == torch.bfloat16)), N, D)
     return _flat_bwd(name, "mem_attention_bwd_flat", q, k, v, bias, do, scale, B, N, H, D)
+
+
+def fused_attention_flat_bwd_mma(q, k, v, bias, do, scale: float):
+    """K2b's `mma.sync` tensor-core kernel (one block per (head,
+    sample), ds and p through (B, H, N, N) workspaces), which no model path
+    launches since K2b moved to Hopper: the yardstick X3
+    (:func:`fused_attention_flat_bwd_pair`) is held to bit for bit. The VJP
+    of :func:`fused_attention_flat`, as :func:`fused_attention_flat_bwd`.
+    CPU tensors take the plain version; CUDA tensors launch
+    csrc/attention_bwd.cu's ``mem_attention_bwd_flat_mma`` (bf16, head dim
+    64, N <= FLAT_MAX_N only: other shapes raise) or raise."""
+    if q.device.type == "cpu":
+        return fused_attention_flat_bwd_reference(q, k, v, bias, do, scale)
+    name = "fused_attention_flat_bwd_mma"
+    B, N, H, D = _check_cuda_operands(name, (q, k, v, bias, do), q, bias)
+    if q.dtype != torch.bfloat16 or D != 64 or N > FLAT_MAX_N:
+        raise ValueError(f"{name} takes bf16 operands at head dim 64 and N <= {FLAT_MAX_N}, "
+                         f"got {q.dtype}, D={D}, N={N}")
+    return _flat_bwd(name, "mem_attention_bwd_flat_mma", q, k, v, bias, do, scale, B, N, H, D)
 
 
 def fused_attention_flat_bwd_pair(q, k, v, bias, do, scale: float):
@@ -214,12 +265,13 @@ def fused_attention_flat_bwd_pair(q, k, v, bias, do, scale: float):
 
 
 def _flat_bwd(name, entry, q, k, v, bias, do, scale, B, N, H, D):
-    """Launch a flat backward (K2b or X3) through the C entry point ``entry``
-    with its outputs and (B, H, N, N) workspaces, and count the launch under
-    ``name``."""
+    """Launch a backward that keeps ds and p in workspaces (K2b's or K5c's
+    scalar kernel, K2b's `mma.sync` tensor-core kernel or X3) through the C entry
+    point ``entry`` with its outputs and (B, H, N, N) workspaces of ds (f32)
+    and p (the operands' dtype), and count the launch under ``name``."""
     from mem_tpu_torch.kernels import build
 
-    lib = build.library()
+    lib = build.library(q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     db = torch.empty(H, N, N, dtype=torch.float32, device=q.device)
     ds_ws = torch.empty(B, H, N, N, dtype=torch.float32, device=q.device)
@@ -268,7 +320,7 @@ def _long_fwd(name, entry, q, k, v, bias, scale, B, N, H, D):
     count the launch under ``name``."""
     from mem_tpu_torch.kernels import build
 
-    lib = build.library()
+    lib = build.library(q.device)
     if D > lib.mem_attention_long_fwd_max_d():
         raise ValueError(f"{name}: head dim {D} above the "
                          f"{lib.mem_attention_long_fwd_max_d()} the kernel takes")
@@ -327,7 +379,7 @@ def _long_bwd(name, entry, q, k, v, bias, do, scale, B, N, H, D):
     under ``name``: (dq, dk, dv) shaped and typed as q/k/v, db (H, N, N) f32."""
     from mem_tpu_torch.kernels import build
 
-    lib = build.library()
+    lib = build.library(q.device)
     if D > lib.mem_attention_long_bwd_max_d():
         raise ValueError(f"{name}: head dim {D} above the "
                          f"{lib.mem_attention_long_bwd_max_d()} the kernel takes")
@@ -482,28 +534,21 @@ def fused_attention_bwd_long_reference(q, k, v, bias, do, scale: float):
 
 
 def _bhnd_path(lib, name, q, k, v, do, N, D, is_bf16) -> str:
-    """Which kernels a head-major launch of the branch ``name`` takes:
-    "mma" / "scalar" (K2's bodies) or "tiled_wgmma" (K3f's forward body or
-    K3b's backward body on tensor cores) / "tiled_scalar" (K3's key-tiled
-    bodies). K5b, K5d and K5e take K3's. The
-    head-blocked branch (K5a, K5c) takes K2's, except where K2's tensor-core
-    kernel has no instantiation (bf16 at D = 64 above FLAT_MAX_N keys) and
-    K3's runs on tensor cores: there it takes K3's, as the flat route does.
-    ``do`` is None for a forward; outputs are allocated like the operands, so
-    their alignment is the operands'."""
+    """Which kernels a head-major launch of the branch ``name`` takes. The
+    head-blocked branch (K5a, K5c) at N <= FLAT_MAX_N: "wgmma" (K3's Hopper
+    body) or "scalar" (K2's scalar kernel). K5b, K5d and K5e, and the
+    head-blocked branch above FLAT_MAX_N keys where K3 runs on tensor cores
+    (as the flat route does): "tiled_wgmma" or "tiled_scalar" (K3's bodies
+    on tensor cores or not). ``do`` is None for a forward; outputs are
+    allocated like the operands, so their alignment is the operands'."""
     p = [q.data_ptr(), k.data_ptr(), v.data_ptr()]
     if do is None:
-        ptrs = p + [q.data_ptr()]
-        tiled_mma = lib.mem_attention_long_fwd_uses_mma(*ptrs, D, is_bf16)
-        k2_mma = name == "fused_attention" and lib.mem_attention_fwd_flat_uses_mma(
-            *ptrs, N, D, is_bf16)
+        tiled_mma = lib.mem_attention_long_fwd_uses_mma(*p, q.data_ptr(), D, is_bf16)
     else:
-        ptrs = p + [do.data_ptr()] + p
-        tiled_mma = lib.mem_attention_long_bwd_uses_mma(*ptrs, D, is_bf16)
-        k2_mma = name == "fused_attention_bwd" and lib.mem_attention_bwd_flat_uses_mma(
-            *ptrs, N, D, is_bf16)
-    if name in ("fused_attention", "fused_attention_bwd") and (k2_mma or not tiled_mma):
-        return "mma" if k2_mma else "scalar"
+        tiled_mma = lib.mem_attention_long_bwd_uses_mma(*p, do.data_ptr(), *p, D, is_bf16)
+    if name in ("fused_attention", "fused_attention_bwd") and (N <= FLAT_MAX_N
+                                                               or not tiled_mma):
+        return "wgmma" if tiled_mma else "scalar"
     return "tiled_wgmma" if tiled_mma else "tiled_scalar"
 
 
@@ -519,19 +564,10 @@ def _forward_bhnd(q, k, v, bias, scale: float):
     B, N, H, D = _check_cuda_operands(name, (q, k, v, bias), q, bias, bhnd=True)
     from mem_tpu_torch.kernels import build
 
-    lib = build.library()
-    is_bf16 = int(q.dtype == torch.bfloat16)
-    if _bhnd_path(lib, name, q, k, v, None, N, D, is_bf16).startswith("tiled"):
-        return _long_fwd(name, "mem_attention_long_fwd_bhnd", q, k, v, bias, scale, B, N, H, D)
-    _smem_check(name, lib.mem_attention_fwd_flat_smem(N, D, is_bf16), N, D)
-    out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.mem_attention_fwd_bhnd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                    bias.data_ptr(), out.data_ptr(),
-                                    B, N, H, D, float(scale), is_bf16, stream)
-    build.check(name, rc)
-    count_launch(name)
-    return out
+    if _bhnd_path(build.library(), name, q, k, v, None, N, D,
+                  int(q.dtype == torch.bfloat16)) == "scalar":
+        return _scalar_fwd(name, "mem_attention_fwd_bhnd", q, k, v, bias, scale, B, N, H, D)
+    return _long_fwd(name, "mem_attention_long_fwd_bhnd", q, k, v, bias, scale, B, N, H, D)
 
 
 def fused_attention_bwd(q, k, v, bias, do, scale: float):
@@ -550,23 +586,12 @@ def fused_attention_bwd(q, k, v, bias, do, scale: float):
 
     lib = build.library()
     is_bf16 = int(q.dtype == torch.bfloat16)
-    if _bhnd_path(lib, name, q, k, v, do, N, D, is_bf16).startswith("tiled"):
-        entry = ("mem_attention_bwd_blocked_bhnd" if name == "fused_attention_bwd_long"
-                 else "mem_attention_bwd_whole_bhnd")
-        return _long_bwd(name, entry, q, k, v, bias, do, scale, B, N, H, D)
-    _smem_check(name, lib.mem_attention_bwd_flat_smem(N, D, is_bf16), N, D)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    db = torch.empty(H, N, N, dtype=torch.float32, device=q.device)
-    ds_ws = torch.empty(B, H, N, N, dtype=torch.float32, device=q.device)
-    pc_ws = torch.empty(B, H, N, N, dtype=q.dtype, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.mem_attention_bwd_bhnd(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-                                    do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                                    db.data_ptr(), ds_ws.data_ptr(), pc_ws.data_ptr(),
-                                    B, N, H, D, float(scale), is_bf16, stream)
-    build.check(name, rc)
-    count_launch(name)
-    return dq, dk, dv, db
+    if _bhnd_path(lib, name, q, k, v, do, N, D, is_bf16) == "scalar":
+        _smem_check(name, lib.mem_attention_bwd_flat_smem(N, D, is_bf16), N, D)
+        return _flat_bwd(name, "mem_attention_bwd_bhnd", q, k, v, bias, do, scale, B, N, H, D)
+    entry = ("mem_attention_bwd_blocked_bhnd" if name == "fused_attention_bwd_long"
+             else "mem_attention_bwd_whole_bhnd")
+    return _long_bwd(name, entry, q, k, v, bias, do, scale, B, N, H, D)
 
 
 class _FusedAttention(torch.autograd.Function):
@@ -598,11 +623,12 @@ def attention_route(N: int) -> str:
 
     The reference routes on whether the whole (H, N, N) f32 bias fits its
     kernel's on-chip memory (``_hb_eligible``, attention.py:50: N <= 330 at
-    12 heads). The card's limit is a different one: K2f stages a head's
-    whole K and V in one block's shared memory and is instantiated up to
-    FLAT_MAX_N keys, which covers the 197 tokens of classification and
-    pretraining; the 1025 tokens of the segmentation backbone go to the
-    key-tiled K3f and K3b. The head count, which sizes the reference's bias, plays
+    12 heads). The card's limit is a different one: K2's scalar kernels
+    stage a head's whole K and V in one block's shared memory, and the
+    route sends them at most FLAT_MAX_N keys, which covers the 197 tokens of
+    classification and pretraining (for bf16 at head dim 64 K2 launches K3's
+    Hopper bodies there); the 1025 tokens of the segmentation backbone go to
+    K3f and K3b. The head count, which sizes the reference's bias, plays
     no part here. Under ``FLAT_ATTN = False`` the head-major wrappers run
     tensor cores at those N as well: above FLAT_MAX_N keys K5a and K5c launch
     K3's key-tiled bodies for bf16 at head dim 64 (:func:`_bhnd_path`)."""
@@ -622,28 +648,17 @@ def cuda_long_kernel_path(q, k, v, bias) -> str:
 
 
 def cuda_kernel_path(q, k, v, bias) -> str:
-    """Which CUDA forward kernel a launch on these operands takes: "mma"
-    (tensor cores) or "scalar"."""
-    from mem_tpu_torch.kernels import build
-
-    H = bias.shape[0]
-    D = q.shape[-1] // H
-    is_bf16 = int(q.dtype == torch.bfloat16)
-    mma = build.library().mem_attention_fwd_flat_uses_mma(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), q.data_ptr(), q.shape[1], D, is_bf16)
-    return "mma" if mma else "scalar"
+    """Which CUDA forward kernel a K2f launch on these operands takes:
+    "wgmma" (K3f's Hopper kernel) or "scalar"."""
+    D = q.shape[-1] // bias.shape[0]
+    return "wgmma" if _k2_wgmma(q, k, v, None, q.shape[1], D) else "scalar"
 
 
 def cuda_bwd_kernel_path(q, k, v, bias) -> str:
-    """Which CUDA backward kernel a launch on these operands takes."""
-    from mem_tpu_torch.kernels import build
-
-    H = bias.shape[0]
-    D = q.shape[-1] // H
-    is_bf16 = int(q.dtype == torch.bfloat16)
-    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr()] * 2 + [q.data_ptr()]
-    mma = build.library().mem_attention_bwd_flat_uses_mma(*ptrs, q.shape[1], D, is_bf16)
-    return "mma" if mma else "scalar"
+    """Which CUDA backward kernels a K2b launch on these operands takes:
+    "wgmma" (K3b's Hopper rows and columns kernels) or "scalar"."""
+    D = q.shape[-1] // bias.shape[0]
+    return "wgmma" if _k2_wgmma(q, k, v, q, q.shape[1], D) else "scalar"
 
 
 def cuda_long_bwd_kernel_path(q, k, v, bias) -> str:
@@ -660,7 +675,7 @@ def cuda_long_bwd_kernel_path(q, k, v, bias) -> str:
 
 def cuda_bhnd_kernel_path(q, k, v, bias) -> str:
     """Which CUDA kernel a :func:`fused_attention` forward launch on these
-    (B, H, N, D) operands takes: "mma" / "scalar" (K2's bodies) or
+    (B, H, N, D) operands takes: "wgmma" / "scalar" (K2's bodies) or
     "tiled_wgmma" / "tiled_scalar" (K3f's)."""
     from mem_tpu_torch.kernels import build
 

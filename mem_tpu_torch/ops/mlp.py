@@ -114,7 +114,7 @@ def mlp_fwd_2d(x, w1, b1, w2, b2, save_h: bool = True):
                          [(R, C), (hidden, C), (hidden,), (C, hidden), (C,)])
     from mem_tpu_torch.kernels import build
 
-    lib = build.library()
+    lib = build.library(x.device)
     is_bf16 = int(x.dtype == torch.bfloat16)
     _smem_check("mlp_fused", lib, C, hidden, is_bf16)
     out = torch.empty_like(x)
@@ -149,7 +149,7 @@ def mlp_bwd_2d(do, h, x, w1, w2):
                 torch.zeros(hidden, **f32), torch.zeros(C, **f32))
     from mem_tpu_torch.kernels import build
 
-    lib = build.library()
+    lib = build.library(x.device)
     is_bf16 = int(x.dtype == torch.bfloat16)
     _smem_check("mlp_fused_bwd", lib, C, hidden, is_bf16)
     dw1t = torch.empty(hidden, C, **f32)

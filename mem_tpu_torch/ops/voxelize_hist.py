@@ -74,7 +74,7 @@ def hist_planes_cols(col: torch.Tensor, ys: torch.Tensor, H: int, W: int) -> tor
     from mem_tpu_torch.kernels import build
 
     B, N = col.shape
-    lib = build.library()
+    lib = build.library(col.device)
     out = torch.zeros(B, H, 2 * W, dtype=torch.int32, device=col.device)
     stream = torch.cuda.current_stream(col.device).cuda_stream
     rc = lib.mem_hist_planes_cols(col.data_ptr(), ys.data_ptr(), out.data_ptr(),
@@ -120,7 +120,7 @@ def hist_planes_cols_sorted(col: torch.Tensor, ys: torch.Tensor, H: int, W: int,
     from mem_tpu_torch.kernels import build
 
     B, N = col.shape
-    lib = build.library()
+    lib = build.library(col.device)
     if not presorted:
         col, ys = sort_events_by_row(col, ys, H)
         col, ys = col.contiguous(), ys.contiguous()

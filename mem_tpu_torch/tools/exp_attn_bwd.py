@@ -1,4 +1,4 @@
-"""The paired attention backward (X3) beside the flat backward K2b, on the H100.
+"""The paired attention backward (X3) beside K2b's mma.sync kernel, on the H100.
 
 Port of scripts/exp_attn_bwd.py. The reference asked whether K2b's two
 depth-64 products per head (s = q k^T, dp = do v^T) run faster on the TPU's
@@ -7,14 +7,16 @@ depth-64 products per head (s = q k^T, dp = do v^T) run faster on the TPU's
 csrc/attention_bwd_pair.cu keeps that product, zero blocks included, on
 Hopper's bf16 mma.sync (``fused_attention_flat_bwd_pair``); a k16 step costs
 the same whatever the product's depth here, so the pair executes 7 N^2 D
-multiply-adds per (b, h) where the algorithm needs 5.
+multiply-adds per (b, h) where the algorithm needs 5. Its base is the body
+it varies, K2b's mma.sync kernel (``fused_attention_flat_bwd_mma``);
+K2b itself runs K3b's Hopper body on wgmma now.
 
 On the card, from the repo root::
 
     python -m mem_tpu_torch.tools.exp_attn_bwd [B=128] [N=197] [H=12] [D=64] [steps=8]
 
 It makes the reference's seeded operands (bf16 q, k, v, do of (B, N, H*D)
-and an f32 (H, N, N) bias at 0.1 scale), checks the pair against K2b (the
+and an f32 (H, N, N) bias at 0.1 scale), checks the pair against the base (the
 reference's 3e-2 tolerance, and whether they are equal bit for bit), times
 both in one call in turns (base, pair, pair, base: the median of ``steps``
 CUDA-event timings each after one warm-up call; the reference's nudge of q
@@ -22,7 +24,7 @@ between steps only defeated XLA's deduplication and is not needed here),
 and prints the reference's lines with the TPU's matrix-unit floor replaced by
 the H100's bound: the bytes moved over 3.35 TB/s and the five products over
 989 TFLOP/s bf16, with the pair's executed operations beside it. Exits 1 if
-the pair disagrees with K2b, 2 without a card.
+the pair disagrees with the base, 2 without a card.
 """
 from __future__ import annotations
 
@@ -32,7 +34,8 @@ import sys
 import numpy as np
 import torch
 
-from mem_tpu_torch.ops.attention import fused_attention_flat_bwd, fused_attention_flat_bwd_pair
+from mem_tpu_torch.ops.attention import (fused_attention_flat_bwd_mma,
+                                         fused_attention_flat_bwd_pair)
 from mem_tpu_torch.tools import (PEAK_BF16_FLOPS, PEAK_BYTES_S, attention_bwd_bound,
                                  attention_bwd_work, time_ms)
 
@@ -63,7 +66,7 @@ def main(argv=None) -> int:
     print(nvidia_smi() or torch.cuda.get_device_name(0), flush=True)
     q, k, v, bias, do = make_operands(B, N, H, D, "cuda")
     scale = D ** -0.5
-    base = lambda: fused_attention_flat_bwd(q, k, v, bias, do, scale)  # noqa: E731
+    base = lambda: fused_attention_flat_bwd_mma(q, k, v, bias, do, scale)  # noqa: E731
     pair = lambda: fused_attention_flat_bwd_pair(q, k, v, bias, do, scale)  # noqa: E731
 
     out_base, out_pair = base(), pair()

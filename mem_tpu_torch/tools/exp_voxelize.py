@@ -136,7 +136,7 @@ def _launch(name, entry, tensors, H, W, stage_args):
     from mem_tpu_torch.kernels import build
 
     B, N = tensors[0].shape
-    lib = build.library()
+    lib = build.library(tensors[0].device)
     out = torch.empty(B, H, 2 * W, dtype=torch.float32, device=tensors[0].device)
     stream = torch.cuda.current_stream(out.device).cuda_stream
     rc = getattr(lib, entry)(*(t.data_ptr() for t in tensors), out.data_ptr(), B, N, H, W,

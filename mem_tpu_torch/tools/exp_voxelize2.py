@@ -146,7 +146,7 @@ def _launch(name, entry, col, ys, H, W, dtype, TH, chunk):
     from mem_tpu_torch.kernels import build
 
     B, N = col.shape
-    lib = build.library()
+    lib = build.library(col.device)
     rows = H if TH is None else n_rows(H, TH)
     out = torch.empty(B, rows, 2 * W, dtype=dtype, device=col.device)
     stream = torch.cuda.current_stream(out.device).cuda_stream

@@ -13,7 +13,10 @@ import jax
 import jax.numpy as jnp
 
 import mem_tpu.ops.attention as jax_attention
+from chip_smoke import K2_BF16_TOL, K2_F32_TOL, K2B_BF16_TOL, K2B_DB_REL, K2B_F32_TOL
 from mem_tpu_torch.ops import attention as A
+from test_torch_attention import _SHORT_N
+from test_torch_attention_long import _one_pass, _two_sided
 
 # (B, H, N, D): the finetune's 197 tokens at a narrow width, and a small N
 _SHAPES = {"n197": (2, 3, 197, 16), "n10": (3, 4, 10, 8)}
@@ -200,3 +203,58 @@ def test_plain_versions_of_the_branches_are_one_function(rng):
     for fn in (A.fused_attention_bwd_whole_reference, A.fused_attention_bwd_long_reference):
         for g, w in zip(fn(q, k, v, bias, do, scale), want):
             assert torch.equal(g, w)
+
+
+def _flat_and_back(B, H, N, D):
+    flat = lambda t: t.transpose(1, 2).reshape(B, N, H * D)  # noqa: E731
+    back = lambda t: t.view(B, N, H, D).transpose(1, 2)  # noqa: E731
+    return flat, back
+
+
+@pytest.mark.parametrize("N,dtype", _SHORT_N)
+def test_hopper_forward_order_matches_pallas_kernel(rng, N, dtype):
+    """K5a launches K3f's wgmma kernel on head-major addressing (the same
+    bits as K2f on transposed operands): K3f's one-pass order
+    (test_torch_attention_long._one_pass) on the transposed operands, held
+    against the reference's head-blocked Pallas kernel in interpret mode (B = 2, H = 2, D = 64) within the card's
+    gates (chip_smoke.K2_BF16_TOL / K2_F32_TOL absolute)."""
+    B, H, D = 2, 2, 64
+    q, k, v, bias, _, scale = _operands(rng, (B, H, N, D))
+    assert jax_attention._hb_eligible(H, N)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = getattr(torch, dtype)
+    want = jax_attention.fused_attention(*(jnp.asarray(a, jdt) for a in (q, k, v)),
+                                         jnp.asarray(bias), scale, True)
+    flat, back = _flat_and_back(B, H, N, D)
+    got = back(_one_pass(*(flat(torch.from_numpy(a).to(tdt)) for a in (q, k, v)),
+                         torch.from_numpy(bias), scale)[0])
+    assert got.dtype == tdt and got.shape == q.shape
+    tol = K2_BF16_TOL if dtype == "bfloat16" else K2_F32_TOL
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                               rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("N,dtype", _SHORT_N)
+def test_hopper_backward_order_matches_pallas_vjp(rng, N, dtype):
+    """K5c launches K3b's kernels on head-major addressing: K3b's
+    two-sided order (test_torch_attention_long._two_sided) on the transposed
+    operands, held against ``jax.vjp`` of the reference's head-blocked Pallas
+    kernel in interpret mode (B = 2, H = 2, D = 64) within the card's gates
+    (chip_smoke.K2B_BF16_TOL / K2B_F32_TOL of each gradient's max abs, db
+    chip_smoke.K2B_DB_REL relative L2)."""
+    B, H, D = 2, 2, 64
+    q, k, v, bias, do, scale = _operands(rng, (B, H, N, D))
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = getattr(torch, dtype)
+    _, vjp = jax.vjp(lambda *a: jax_attention.fused_attention(*a, scale, True),
+                     *(jnp.asarray(a, jdt) for a in (q, k, v)), jnp.asarray(bias))
+    want = [np.asarray(w.astype(jnp.float32)) for w in vjp(jnp.asarray(do, jdt))]
+    flat, back = _flat_and_back(B, H, N, D)
+    tq, tk, tv, tdo = (flat(torch.from_numpy(a).to(tdt)) for a in (q, k, v, do))
+    *got, _ = _two_sided(tq, tk, tv, torch.from_numpy(bias), tdo, scale)
+    tol = K2B_BF16_TOL if dtype == "bfloat16" else K2B_F32_TOL
+    for name, g, w in zip(("dq", "dk", "dv"), got[:3], want):
+        g = back(g)
+        assert g.dtype == tdt and tuple(g.shape) == w.shape, name
+        assert np.abs(g.float().numpy() - w).max() <= tol * np.abs(w).max(), name
+    assert np.linalg.norm(got[3].numpy() - want[3]) <= K2B_DB_REL * np.linalg.norm(want[3])
