@@ -7,9 +7,10 @@ Run from the root of a checkout, with no arguments:
 
 It builds the port's CUDA kernels from csrc/ and checks each against its
 plain PyTorch version on the card; it fails when ptxas reports a spill in the
-attention's wgmma kernels (K3f and the rows and columns kernels of K3b, which
-K5b / K5d / K5e launch on head-major operands and K2f / K5a and K2b / K5c for
-bf16 at head dim 64 and N <= 256) or serializes their wgmma pipelines. It drives the five
+wgmma kernels (K3f and the rows and columns kernels of K3b, which K5b / K5d /
+K5e launch on head-major operands and K2f / K5a and K2b / K5c for bf16 at
+head dim 64 and N <= 256; the GEMM body of K6f and K6b) or serializes their
+wgmma pipelines. It drives the five
 ported paths and the two experiment tools, each with the launch counts set
 to 0 just before it and read just after:
 
@@ -164,6 +165,11 @@ K6_BF16_TOL = 2e-2
 K6_F32_TOL = 1e-5        # f32: the same math, sums in another order
 K6B_SUM_BF16_REL = 2e-3  # dW1, dW2, db1, db2 relative L2 in bf16
 K6B_SUM_F32_REL = 1e-5   # ... and in f32
+# the planted K6f and K6b faults of the bf16 finetune step drop this many
+# hidden columns (one 64-wide box of the GEMM body): one column of dW1, dW2,
+# db1 moves those gradients by ~1 / sqrt(3072) = 1.8e-2 rel L2, which the
+# bf16 gate (2e-2, over a sound step's ~1e-2) cannot tell from rounding
+K6_FAULT_COLUMNS = 64
 FT_STEP_F32_GRAD_REL = 3e-3  # per-parameter gradient relative L2 of one finetune step, card f32
                              # vs CPU f32; not the pretraining step's 1e-3: q_bias's gradient is
                              # a sum over all tokens of dq = ds k, whose terms cancel (a softmax
@@ -279,19 +285,22 @@ def bincount_ms(torch, col, ys, H, W, want):
 
 
 def check_ptxas(log):
-    """ptxas's report, from the build log ``log``, on the attention's wgmma
-    kernels: those of K3f (which K2f, K5a and K5b launch too) and of K3b's
-    rows and columns kernels (K2b, K5c, K5d, K5e too; registers at entry,
-    setmaxnreg gives the consumers 240), flat and head-major: registers,
+    """ptxas's report, from the build log ``log``, on the wgmma kernels: those
+    of K3f (which K2f, K5a and K5b launch too), of K3b's rows and columns
+    kernels (K2b, K5c, K5d, K5e too), flat and head-major, and K6's GEMM body
+    (F1, F2 of K6f; B1, B2, B3+B4 of K6b; F2, B2 and B3+B4 at tile widths
+    128 and 256): registers (at entry, setmaxnreg gives the consumers 240),
     shared memory and spills; it fails on a spill or on any warning that
     ptxas serialized a wgmma pipeline."""
     fwd = ptxas_report(log, "attention_long_fwd_wgmma_kernel")
     bwd = [r for frag in ("attention_long_bwd_rows_wgmma_kernel",
                           "attention_long_bwd_cols_wgmma_kernel")
            for r in ptxas_report(log, frag)]
+    k6 = ptxas_report(log, "mlp_gemm_")
     for tag, rows, unit, want, users in (
             ("ptxas_k3f", fwd, "attention_long_fwd", 2, "K3f K2f K5a K5b"),
-            ("ptxas_k3b", bwd, "attention_long_bwd", 4, "K3b K2b K5c K5d K5e")):
+            ("ptxas_k3b", bwd, "attention_long_bwd", 4, "K3b K2b K5c K5d K5e"),
+            ("ptxas_k6", k6, "mlp_gemm_", 8, "K6f K6b")):
         serial = [ln.strip() for ln in log.splitlines() if "serialized" in ln and unit in ln]
         say(tag, launched_by=users, kernels=rows, serialized=serial)
         check(len(rows) == want and all(" 0 bytes spill stores" in r["spills"] for r in rows)
@@ -1310,8 +1319,11 @@ def run_seg_slice(torch, dev, gpu, rng):
 # K2f / K5a for bf16 at head dim 64 and N <= 256
 _FAMILIES = (("attention_long_bwd", "K3b body (K3b, K5d, K5e; K2b, K5c)"),
              ("attention_long_fwd", "K3f body (K3f, K5b; K2f, K5a)"),
-             ("band_hist", "K4"), ("chunk_bounds", "K4"), ("mlp_rows", "K6 rows (K6f, K6b)"),
-             ("mlp_cols", "K6b columns"), ("attention_bwd", "K2b / K5c scalar"),
+             ("band_hist", "K4"), ("chunk_bounds", "K4"), ("mlp_gemm_f", "K6f (F1, F2)"),
+             ("mlp_gemm_b", "K6b (B1, B2)"), ("mlp_gemm_wgrad", "K6b (B3+B4)"),
+             ("mlp_colsum", "K6b sum passes"), ("mlp_wgrad_sum", "K6b sum passes"),
+             ("mlp_rows", "K6 scalar rows"), ("mlp_cols", "K6b scalar columns"),
+             ("attention_bwd", "K2b / K5c scalar"),
              ("attention_fwd", "K2f / K5a scalar"), ("hist_planes_cols", "K1"),
              ("multi_tensor", "optimizer"),
              ("fprop", "convolutions"), ("conv", "convolutions"), ("cudnn", "convolutions"),
@@ -2040,8 +2052,8 @@ K6_F32_SHAPES = ((513, 768, 3072), (31, 128, 256), (77, 96, 200))
 
 
 def k6_cases(torch):
-    """((rows, C, hidden), dtype): bf16 at every K6_SHAPES entry (tensor cores
-    where the widths allow) and f32 at three (the scalar kernels)."""
+    """((rows, C, hidden), dtype): bf16 at every K6_SHAPES entry (the Hopper
+    GEMM where the widths allow) and f32 at three (the scalar kernels)."""
     return [(s, torch.bfloat16) for s in K6_SHAPES] + [(s, torch.float32)
                                                        for s in K6_F32_SHAPES]
 
@@ -2049,7 +2061,9 @@ def k6_cases(torch):
 def check_k6f(torch, dev, g):
     """K6f against its plain version at every k6_cases entry: out and the h
     residual, ``save_h`` both ways (the two must give the same out bit for
-    bit, and no h without it). Returns the max abs error of out at FT_ROWS."""
+    bit, and no h without it), bit-identical across two launches, on the
+    kernels ``kernel_route`` names (the Hopper GEMM for bf16 at the model's
+    widths). Returns the max abs error of out at FT_ROWS."""
     from mem_tpu_torch.ops import mlp as M
 
     first = None
@@ -2058,15 +2072,20 @@ def check_k6f(torch, dev, g):
         x, w1, b1, w2, b2, _ = mlp_operands(torch, g, R, C, Hd, dt, dev)
         out, h = M.mlp_fwd_2d(x, w1, b1, w2, b2, True)
         out_no_h, none = M.mlp_fwd_2d(x, w1, b1, w2, b2, False)
+        again, h_again = M.mlp_fwd_2d(x, w1, b1, w2, b2, True)
         torch.cuda.synchronize()
         want, want_h = M.mlp_fused_reference(x, w1, b1, w2, b2, True)
         e_out, e_h = rel_max_abs(out, want), rel_max_abs(h, want_h)
         same_out = bool(torch.equal(out, out_no_h)) and none is None
+        same = bool(torch.equal(out, again) and torch.equal(h, h_again))
+        path = M.cuda_kernel_path(x, Hd)
         say("k6f_check", dtype=str(dt), shape=[R, C, Hd], rel_max_abs_out=e_out,
             rel_max_abs_h=e_h, tol=tol, save_h_false_equal=same_out,
-            kernel=M.cuda_kernel_path(x, Hd))
+            identical_across_launches=same, kernel=path)
         check(e_out <= tol and e_h <= tol, f"K6f {dt} {R, C, Hd}: out {e_out}, h {e_h} > {tol}")
         check(same_out, f"K6f {dt} {R, C, Hd}: save_h=False changes the output")
+        check(same, f"K6f {dt} {R, C, Hd}: two launches on the same operands differ")
+        check(path == M.kernel_route(dt, C, Hd), f"K6f {dt} {R, C, Hd} took the {path} kernels")
         if first is None:
             first = (out.float() - want.float()).abs().max().item()
         del x, w1, b1, w2, b2, out, h, out_no_h, want, want_h
@@ -2098,11 +2117,14 @@ def check_k6b(torch, dev, g):
         sums = {n: rel_l2(torch, a, b) for n, a, b in zip(("dw1", "dw2", "db1", "db2"),
                                                           got[1:], ref[1:])}
         same = all(torch.equal(a, b) for a, b in zip(got, again))
+        path = M.cuda_kernel_path(x, Hd)
         say("k6b_check", dtype=str(dt), shape=[R, C, Hd], rel_max_abs_dx=e_dx, tol=tol,
-            rel_l2=sums, sum_tol=sum_tol, identical_across_launches=same)
+            rel_l2=sums, sum_tol=sum_tol, identical_across_launches=same, kernel=path,
+            wgrad_chunks=M.wgrad_chunk_plan(R))
         check(e_dx <= tol and max(sums.values()) <= sum_tol,
               f"K6b {dt} {R, C, Hd}: dx {e_dx}, {sums}")
         check(same, f"K6b {dt} {R, C, Hd}: two launches on the same operands differ")
+        check(path == M.kernel_route(dt, C, Hd), f"K6b {dt} {R, C, Hd} took the {path} kernels")
         if first is None:
             first = (got[0].float() - ref[0].float()).abs().max().item()
         del x, w1, b1, w2, b2, do, h, got, again, ref
@@ -2129,6 +2151,33 @@ def check_k6b(torch, dev, g):
     check(errs["dx"] <= K6_BF16_TOL and max(v for n, v in errs.items() if n != "dx")
           <= K6B_SUM_BF16_REL, f"autograd through mlp_fused: {errs}")
     check(all(t.grad.dtype == torch.float32 for t in params), "weight gradients are not f32")
+
+    # K6f and K6b from a fresh thread, on which PyTorch has made no CUDA
+    # context current yet (as autograd's device thread when the MLP's
+    # backward is its first work): the library binds the device itself
+    # (build.library), and the results are the main thread's bits
+    do2 = do.bfloat16()
+    fresh = {}
+
+    def launch():
+        try:
+            out, h = M.mlp_fwd_2d(x2, *c, True)
+            fresh["out"] = (out, h, *M.mlp_bwd_2d(do2, h, x2, c[0], c[2]))
+            torch.cuda.synchronize()
+        except Exception as e:   # reported below, on the main thread
+            fresh["error"] = repr(e)
+
+    t = threading.Thread(target=launch, daemon=True)
+    t.start()
+    t.join(timeout=300)
+    check(not t.is_alive(), "K6f / K6b from a fresh thread did not finish in 300 s")
+    out, h = M.mlp_fwd_2d(x2, *c, True)
+    main = (out, h, *M.mlp_bwd_2d(do2, h, x2, c[0], c[2]))
+    torch.cuda.synchronize()
+    same = "out" in fresh and all(torch.equal(a, b) for a, b in zip(fresh["out"], main))
+    say("k6_fresh_thread", error=fresh.get("error"), equals_main_thread=same,
+        kernel=M.cuda_kernel_path(x2, 3072))
+    check(same, f"K6f / K6b from a fresh thread: {fresh.get('error', 'other bits')}")
     return first
 
 
@@ -2314,12 +2363,14 @@ def check_finetune_step(torch, dev, flags):
     head starts at --init_scale 1 instead of the recipe's 0.001, with which
     every loss would be ln(101) whatever the trunk does. Each card step
     records the kernel path of every K5c launch (scalar in f32, K3b's Hopper
-    kernels in bf16). That the gradient gates can see a wrong K6b or K5c is
-    shown in the same run: the toggled f32 card step is repeated with the
-    last hidden column of K6b's dW1, dW2 and db1 zeroed (what a columns
-    kernel that skips its last tile column would give), and the f32 and the
-    bf16 steps with the last key masked out of K5c's scores; each must fail
-    its gate."""
+    kernels in bf16) and of every K6f and K6b launch (scalar in f32, the
+    Hopper GEMM in bf16). That the gradient gates can see a wrong K6f, K6b or
+    K5c is shown in the same run: the toggled f32 card step is repeated with
+    the last hidden column of K6b's dW1, dW2 and db1 zeroed, the bf16 step
+    with the last K6_FAULT_COLUMNS of them zeroed and, again, with as many
+    hidden columns of K6f's g zeroed in its second product, and the f32 and
+    the bf16 steps with the last key masked out of K5c's scores; each must
+    fail its gate."""
     from mem_tpu_torch.cli import run_class_finetuning as F
     from mem_tpu_torch.data.prefetch import to_device
     from mem_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -2335,39 +2386,59 @@ def check_finetune_step(torch, dev, flags):
     sd = ref_model.state_dict()
     del ref_model
     lr = np.array([args.lr])
-    real_bwd = M.mlp_bwd_2d
+    real_fwd, real_bwd = M.mlp_fwd_2d, M.mlp_bwd_2d
 
-    def faulty_bwd(do, h, x, w1, w2):
-        dx, dw1, dw2, db1, db2 = real_bwd(do, h, x, w1, w2)
-        dw1, dw2, db1 = dw1.clone(), dw2.clone(), db1.clone()
-        dw1[:, -1] = 0
-        dw2[-1] = 0
-        db1[-1] = 0
-        return dx, dw1, dw2, db1, db2
+    def k6_spy(fault, cols, seen):
+        """K6f and K6b wrappers that record the kernel path of each launch
+        and plant ``fault``: "K6f" zeroes the last ``cols`` hidden columns of
+        g in the second product (what an F2 that skips its last k steps would
+        give); "K6b" zeroes the last ``cols`` hidden columns of dW1, dW2 and
+        db1 (what a weight-gradient tile that is never written would give)."""
+        def fwd(x, w1, b1, w2, b2, save_h=True):
+            seen.append(("K6f", M.cuda_kernel_path(x, w1.shape[1])))
+            if fault == "K6f":
+                w2 = w2.clone()
+                w2[-cols:] = 0
+            return real_fwd(x, w1, b1, w2, b2, save_h)
+
+        def bwd(do, h, x, w1, w2):
+            seen.append(("K6b", M.cuda_kernel_path(x, w1.shape[1])))
+            dx, dw1, dw2, db1, db2 = real_bwd(do, h, x, w1, w2)
+            if fault == "K6b":
+                dw1, dw2, db1 = dw1.clone(), dw2.clone(), db1.clone()
+                dw1[:, -cols:] = 0
+                dw2[-cols:] = 0
+                db1[-cols:] = 0
+            return dx, dw1, dw2, db1, db2
+        return fwd, bwd
 
     real_attn_bwd = A.fused_attention_bwd
-    out, counts, paths = {}, {}, {}
-    for name, d, dt, on, fault in (("cpu_f32", cpu, torch.float32, True, None),
-                                   ("card_f32", dev, torch.float32, True, None),
-                                   ("card_bf16", dev, torch.bfloat16, True, None),
-                                   ("card_f32_default", dev, torch.float32, False, None),
-                                   ("last_column_dropped", dev, torch.float32, True, "K6b"),
-                                   ("last_key_dropped", dev, torch.float32, True, "K5c"),
-                                   ("last_key_dropped_bf16", dev, torch.bfloat16, True, "K5c")):
+    out, counts, paths, k6_paths = {}, {}, {}, {}
+    f32, bf16 = torch.float32, torch.bfloat16
+    for name, d, dt, on, fault, cols in (
+            ("cpu_f32", cpu, f32, True, None, 0),
+            ("card_f32", dev, f32, True, None, 0),
+            ("card_bf16", dev, bf16, True, None, 0),
+            ("card_f32_default", dev, f32, False, None, 0),
+            ("last_column_dropped", dev, f32, True, "K6b", 1),
+            ("dw_columns_dropped_bf16", dev, bf16, True, "K6b", K6_FAULT_COLUMNS),
+            ("g_columns_dropped_bf16", dev, bf16, True, "K6f", K6_FAULT_COLUMNS),
+            ("last_key_dropped", dev, f32, True, "K5c", 0),
+            ("last_key_dropped_bf16", dev, bf16, True, "K5c", 0)):
         with toggles(flat_attn=not on, fused_mlp=on):
             model, step, ema = make_finetune_step(torch, args, sd, d, dt, pp, mix, lr,
                                                   update_freq=2, ema=True)
-            paths[name] = []
+            paths[name], k6_paths[name] = [], []
             reset_launch_counts()
             try:
-                if fault == "K6b":
-                    M.mlp_bwd_2d = faulty_bwd
+                if d.type == "cuda":
+                    M.mlp_fwd_2d, M.mlp_bwd_2d = k6_spy(fault, cols, k6_paths[name])
                 A.fused_attention_bwd = path_spy(
                     last_key_dropped(real_attn_bwd) if fault == "K5c" else real_attn_bwd,
                     A.cuda_bhnd_bwd_kernel_path, paths[name], d)
                 m = step([to_device(b, d) for b in host], 0)
             finally:
-                M.mlp_bwd_2d = real_bwd
+                M.mlp_fwd_2d, M.mlp_bwd_2d = real_fwd, real_bwd
                 A.fused_attention_bwd = real_attn_bwd
             counts[name] = launch_counts()
         decay = args.model_ema_decay
@@ -2393,6 +2464,8 @@ def check_finetune_step(torch, dev, flags):
         metrics={n: v[0] for n, v in out.items()}, loss_rel=loss_rel,
         grad_rel_l2_vs_cpu_f32=grads, grad_rel_l2_toggles_on_vs_off=g_toggle,
         ema_rel_l2_to_definition=ema_rel, launches=counts, k5c_paths=paths,
+        k6_paths={n: sorted(set(p)) for n, p in k6_paths.items()},
+        k6_fault_columns=K6_FAULT_COLUMNS,
         bounds=dict(f32_loss=STEP_F32_LOSS_REL, f32_grad=FT_STEP_F32_GRAD_REL,
                     bf16_loss=STEP_BF16_LOSS_REL, bf16_grad=STEP_BF16_GRAD_REL,
                     toggles=FT_TOGGLE_GRAD_REL, ema=FT_EMA_REL))
@@ -2409,6 +2482,10 @@ def check_finetune_step(torch, dev, flags):
     check(all(p == (["wgmma" if "bf16" in n else "scalar"] * 4 if n != "card_f32_default"
                     else []) for n, p in paths.items() if n != "cpu_f32"),
           f"the card steps' K5c launches took {paths}")
+    for n, p in k6_paths.items():
+        want = [] if n in ("cpu_f32", "card_f32_default") else (
+            [(k, "wgmma" if "bf16" in n else "scalar") for k in ("K6f", "K6b") * 4])
+        check(sorted(p) == sorted(want), f"the {n} step's K6 launches took {p}")
     check(grads["card_f32"]["max"] <= FT_STEP_F32_GRAD_REL,
           f"f32 grad card vs CPU: {grads['card_f32']}")
     check(grads["card_bf16"]["max"] <= STEP_BF16_GRAD_REL,
@@ -2418,6 +2495,8 @@ def check_finetune_step(torch, dev, flags):
           f"EMA weights against their definition: {ema_rel}")
     check(loss_rel["card_bf16"] <= STEP_BF16_LOSS_REL, f"bf16 finetune step loss rel {loss_rel}")
     for n, bnd, kernel in (("last_column_dropped", FT_STEP_F32_GRAD_REL, "K6b"),
+                           ("dw_columns_dropped_bf16", STEP_BF16_GRAD_REL, "K6b"),
+                           ("g_columns_dropped_bf16", STEP_BF16_GRAD_REL, "K6f"),
                            ("last_key_dropped", FT_STEP_F32_GRAD_REL, "K5c"),
                            ("last_key_dropped_bf16", STEP_BF16_GRAD_REL, "K5c")):
         check(grads[n]["max"] > bnd,
@@ -2528,27 +2607,45 @@ def time_finetune(torch, dev, gpu, g, flags):
     t_no_h = time_ms(lambda: M.mlp_fwd_2d(x, w1, b1, w2, b2, False), runs=8)
     k6b = in_turns(torch, lambda: M.mlp_fused_bwd_reference(do, h, x, w1, w2),
                    lambda: M.mlp_bwd_2d(do, h, x, w1, w2), runs=8)
-    parts = {f: kernel_device_ms(torch, lambda: M.mlp_bwd_2d(do, h, x, w1, w2), (f,), n=5,
-                                 per_launch=True) for f in ("mlp_rows_mma", "mlp_cols_mma")}
+    # device ms per launch of each kernel of the Hopper path: K6f's two
+    # products, K6b's three and its two sum passes
+    fwd_parts = {f: kernel_device_ms(torch, lambda: M.mlp_fwd_2d(x, w1, b1, w2, b2, True), (f,),
+                                     n=5, per_launch=True)
+                 for f in ("mlp_gemm_f1", "mlp_gemm_f2")}
+    bwd_parts = {f: kernel_device_ms(torch, lambda: M.mlp_bwd_2d(do, h, x, w1, w2), (f,), n=5,
+                                     per_launch=True)
+                 for f in ("mlp_gemm_b1", "mlp_gemm_b2", "mlp_gemm_wgrad", "mlp_colsum",
+                           "mlp_wgrad_sum")}
+    dev_sum = lambda parts: None if None in parts.values() else sum(parts.values())  # noqa: E731
     w1t, w2t = w1.t().contiguous().requires_grad_(), w2.t().contiguous().requires_grad_()
     xg = x.clone().requires_grad_()
-    t_chain = time_ms(lambda: Fn.linear(Fn.gelu(Fn.linear(xg, w1t, b1)), w2t, b2), runs=8)
-    y = Fn.linear(Fn.gelu(Fn.linear(xg, w1t, b1)), w2t, b2)
-    t_chain_b = time_ms(lambda: torch.autograd.grad(y, (xg, w1t, w2t), do,
-                                                           retain_graph=True), runs=8)
+    chain = lambda: Fn.linear(Fn.gelu(Fn.linear(xg, w1t, b1)), w2t, b2)  # noqa: E731
+    t_chain = time_ms(chain, runs=8)
+    y = chain()
+    chain_b = lambda: torch.autograd.grad(y, (xg, w1t, w2t), do,  # noqa: E731
+                                          retain_graph=True)
+    t_chain_b = time_ms(chain_b, runs=8)
+    chain_dev = kernel_device_ms(torch, chain, ("",)), kernel_device_ms(torch, chain_b, ("",))
     flop = 4 * FT_ROWS * 768 * 3072
-    for name, (t_k, t_p), bnd, extra in (
-            ("time_k6f", k6f, mlp_fwd_bound(FT_ROWS, 768, 3072),
+    path = M.cuda_kernel_path(x, 3072)
+    for name, (t_k, t_p), bnd, parts, extra in (
+            ("time_k6f", k6f, mlp_fwd_bound(FT_ROWS, 768, 3072), fwd_parts,
              dict(kernel_ms_save_h_false=t_no_h,
                   bound_ms_save_h_false=mlp_fwd_bound(FT_ROWS, 768, 3072, False)[0],
-                  linear_gelu_linear_ms=t_chain, products=2)),
-            ("time_k6b", k6b, mlp_bwd_bound(FT_ROWS, 768, 3072),
+                  linear_gelu_linear_ms=t_chain, linear_gelu_linear_device_ms=chain_dev[0],
+                  products=2)),
+            ("time_k6b", k6b, mlp_bwd_bound(FT_ROWS, 768, 3072), bwd_parts,
              dict(linear_gelu_linear_backward_ms=t_chain_b,
-                  kernel_device_ms_by_launch=parts,
-                  workspace_mb=round(FT_ROWS * 3072 * 2 / 1e6, 1), products=4))):
-        say(name, gpu=gpu, rows=FT_ROWS, shape=[768, 3072], dtype="bfloat16", kernel_ms=t_k,
+                  linear_gelu_linear_backward_device_ms=chain_dev[1],
+                  wgrad_chunks=M.wgrad_chunk_plan(FT_ROWS),
+                  workspace_mb=round(2 * FT_ROWS * 3072 * 2 / 1e6, 1), products=4))):
+        t_dev = dev_sum(parts)
+        say(name, gpu=gpu, rows=FT_ROWS, shape=[768, 3072], dtype="bfloat16", kernel=path,
+            kernel_ms=t_k, kernel_device_ms=t_dev, kernel_device_ms_by_launch=parts,
             plain_ms=t_p, bound_ms=bnd[0], bound_by=bnd[1], library_ms=None,
-            kernel_tflop_s=extra["products"] * flop / 2 / t_k / 1e9, **extra)
+            kernel_tflop_s=extra["products"] * flop / 2 / t_k / 1e9,
+            kernel_device_tflop_s=None if not t_dev else extra["products"] * flop / 2 / t_dev / 1e9,
+            **extra)
     del x, w1, b1, w2, b2, do, h, w1t, w2t, xg, y
     torch.cuda.empty_cache()
 

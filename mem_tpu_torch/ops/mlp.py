@@ -3,21 +3,25 @@ plain versions.
 
 Port of mem_tpu/ops/mlp.py ``mlp_fused`` and its VJP:
 ``out = gelu(T(x W1 + b1)) W2 + b2`` over the rows of ``x`` (T is x's dtype,
-bf16 in training; every sum is f32). gelu(h) never reaches device memory; h
-is stored once, as the backward's residual, or not at all on inference
-calls. The roundings are the reference kernel's (mlp.py:54-64, :118-154): h
-is rounded to T before gelu, gelu and gelu' are taken in f32 from that
-rounded value with the Abramowitz & Stegun erf polynomial (not ``erf``), g
-and dh are rounded to T before the products that consume them, and the
-weight and bias gradients are f32 sums over all rows.
+bf16 in training; every sum is f32). h is stored once, as the backward's
+residual, or not at all on inference calls. The roundings are the reference
+kernel's (mlp.py:54-64, :118-154): h is rounded to T before gelu, gelu and
+gelu' are taken in f32 from that rounded value with the Abramowitz & Stegun
+erf polynomial (not ``erf``), g and dh are rounded to T before the products
+that consume them, and the weight and bias gradients are f32 sums over all
+rows.
 
 ``mlp_fused`` is a ``torch.autograd.Function``. On the card the forward is
-csrc/mlp_fwd.cu and the backward csrc/mlp_bwd.cu (tensor cores for bf16 at
-C in {128, 384, 768} with hidden % 128 == 0, scalar kernels for the rest, f32
-included); on the CPU both directions take the plain versions. Weights are
-passed as the reference passes them, ``w1 (C, hidden)`` and ``w2 (hidden,
-C)``; a transposed view of a torch ``nn.Linear`` weight is the cheap way to
-do that, since the forward kernel wants exactly torch's storage.
+csrc/mlp_fwd.cu and the backward csrc/mlp_bwd.cu: bf16 at C in {128, 384,
+768} with hidden % 128 == 0 takes the Hopper GEMM body of
+csrc/gemm_sm90.cuh (:func:`kernel_route` says "wgmma"; two launches forward,
+three and two short passes backward, with bf16 g and dh workspaces and the
+weight gradients summed over a fixed row plan, :func:`wgrad_chunk_plan`),
+everything else, f32 included, the scalar kernels; on the CPU both directions
+take the plain versions. Weights are passed as the reference passes them,
+``w1 (C, hidden)`` and ``w2 (hidden, C)``; a transposed view of a torch
+``nn.Linear`` weight is the cheap way to do that, since the forward kernel
+wants exactly torch's storage.
 """
 from __future__ import annotations
 
@@ -30,6 +34,33 @@ from mem_tpu_torch.ops.attention import MAX_SMEM_BYTES
 
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
+
+WGMMA_WIDTHS = (128, 384, 768)   # the C the Hopper GEMM takes (csrc/mlp_rows.cuh)
+WGRAD_ROWS_PER_CHUNK = 4096      # the weight gradients' row plan: about this many rows a
+WGRAD_MAX_CHUNKS = 4             # chunk, at most this many chunks (4 x 144 tiles fill the
+                                 # 132 SMs 4.4 times; each chunk costs 2 x hidden x C f32)
+COLSUM_ROWS = 256                # db1 / db2: rows summed in order by one colsum block
+
+
+def kernel_route(dtype, C: int, hidden: int) -> str:
+    """The kernels K6f and K6b take on the card for operands of ``dtype`` at
+    widths (C, hidden), 16-byte aligned: "wgmma" (the Hopper GEMM body) for
+    bf16 at C in WGMMA_WIDTHS and hidden a positive multiple of 128, else
+    "scalar". mlp_rows.cuh's ``mlp_wgmma_shape`` is the same rule."""
+    ok = dtype == torch.bfloat16 and C in WGMMA_WIDTHS and hidden > 0 and hidden % 128 == 0
+    return "wgmma" if ok else "scalar"
+
+
+def wgrad_chunk_plan(rows: int) -> tuple[int, int]:
+    """(chunk_rows, chunks) of K6b's weight gradients on the Hopper path: the
+    rows cut into ``chunks`` runs of ``chunk_rows`` (a multiple of 64, the
+    GEMM's depth step; the last run may be shorter), in order, each row in
+    exactly one; a function of ``rows`` alone, so the sums' order is too."""
+    if rows <= 0:
+        raise ValueError(f"wgrad_chunk_plan: rows must be positive, got {rows}")
+    want = min(WGRAD_MAX_CHUNKS, -(-rows // WGRAD_ROWS_PER_CHUNK))
+    chunk_rows = 64 * -(-(-(-rows // want)) // 64)
+    return chunk_rows, -(-rows // chunk_rows)
 
 
 def erf_poly(x: torch.Tensor) -> torch.Tensor:
@@ -79,6 +110,29 @@ def mlp_fused_bwd_reference(do, h, x, w1, w2):
     return dx, dw1, dw2, db1, db2
 
 
+def mlp_fused_bwd_chunked(do, h, x, w1, w2):
+    """K6b's order of sums on the Hopper path, in plain torch (the tests'
+    emulation of csrc/mlp_bwd.cu; the wrappers never call it): as
+    :func:`mlp_fused_bwd_reference`, but dW1 and dW2 are each
+    :func:`wgrad_chunk_plan`'s chunk products added in chunk order, and db1
+    and db2 the column sums of COLSUM_ROWS-row blocks added in block order."""
+    hf, dof, xf = h.float(), do.float(), x.float()
+    g = gelu_poly(hf).to(do.dtype).float()
+    dh = (torch.matmul(dof, w2.float().t()) * gelu_grad_poly(hf)).to(do.dtype).float()
+    chunk_rows, chunks = wgrad_chunk_plan(x.shape[0])
+    dw1 = dw2 = db1 = db2 = None
+    for s in range(chunks):
+        r = slice(s * chunk_rows, (s + 1) * chunk_rows)
+        p1, p2 = torch.matmul(xf[r].t(), dh[r]), torch.matmul(g[r].t(), dof[r])
+        dw1, dw2 = (p1, p2) if s == 0 else (dw1 + p1, dw2 + p2)
+    for q in range(-(-x.shape[0] // COLSUM_ROWS)):
+        r = slice(q * COLSUM_ROWS, (q + 1) * COLSUM_ROWS)
+        c1, c2 = dh[r].sum(dim=0), dof[r].sum(dim=0)
+        db1, db2 = (c1, c2) if q == 0 else (db1 + c1, db2 + c2)
+    dx = torch.matmul(dh, w1.float().t()).to(x.dtype)
+    return dx, dw1, dw2, db1, db2
+
+
 def _check_cuda_operands(name, x, others, shapes):
     if x.device.type != "cuda" or any(t.device != x.device for t in others):
         raise ValueError(f"{name}: all operands must share one CUDA device")
@@ -93,17 +147,18 @@ def _check_cuda_operands(name, x, others, shapes):
         raise ValueError(f"{name}: all operands must be contiguous")
 
 
-def _smem_check(name, lib, C, hidden, is_bf16):
-    smem = lib.mem_mlp_rows_smem(C, hidden, is_bf16)
+def _scalar_smem_check(name, lib, C):
+    smem = lib.mem_mlp_scalar_smem(C)
     if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"{name}: C={C} needs {smem} B of shared memory, above the "
-                         f"{MAX_SMEM_BYTES} B a block may use")
+        raise ValueError(f"{name}: C={C} needs {smem} B of shared memory on the scalar "
+                         f"kernels, above the {MAX_SMEM_BYTES} B a block may use")
 
 
 def mlp_fwd_2d(x, w1, b1, w2, b2, save_h: bool = True):
     """K6f on 2-D operands of one dtype (shapes as
     :func:`mlp_fused_reference`). CPU tensors take the plain version; CUDA
-    tensors launch the kernel or raise."""
+    tensors launch the kernels or raise (the Hopper path with a (R, hidden)
+    g workspace in x's dtype, allocated here)."""
     if x.device.type == "cpu":
         return mlp_fused_reference(x, w1, b1, w2, b2, save_h)
     R, C = x.shape
@@ -116,14 +171,17 @@ def mlp_fwd_2d(x, w1, b1, w2, b2, save_h: bool = True):
 
     lib = build.library(x.device)
     is_bf16 = int(x.dtype == torch.bfloat16)
-    _smem_check("mlp_fused", lib, C, hidden, is_bf16)
     out = torch.empty_like(x)
     h = torch.empty(R, hidden, dtype=x.dtype, device=x.device) if save_h else None
     if R == 0:
         return out, h
-    rc = lib.mem_mlp_fwd(x.data_ptr(), w1t.data_ptr(), b1.data_ptr(), w2t.data_ptr(),
-                         b2.data_ptr(), out.data_ptr(), None if h is None else h.data_ptr(),
-                         R, C, hidden, is_bf16,
+    ptrs = [t.data_ptr() if t is not None else None for t in (x, w1t, b1, w2t, b2, out, h)]
+    g_ws = None
+    if lib.mem_mlp_fwd_path(*ptrs, C, hidden, is_bf16):
+        g_ws = torch.empty(R, hidden, dtype=x.dtype, device=x.device)
+    else:
+        _scalar_smem_check("mlp_fused", lib, C)
+    rc = lib.mem_mlp_fwd(*ptrs, None if g_ws is None else g_ws.data_ptr(), R, C, hidden, is_bf16,
                          torch.cuda.current_stream(x.device).cuda_stream)
     build.check("mlp_fused", rc)
     count_launch("mlp_fused")
@@ -133,8 +191,10 @@ def mlp_fwd_2d(x, w1, b1, w2, b2, save_h: bool = True):
 def mlp_bwd_2d(do, h, x, w1, w2):
     """K6b on 2-D operands of one dtype (shapes as
     :func:`mlp_fused_bwd_reference`). CPU tensors take the plain version;
-    CUDA tensors launch the kernels or raise. The (R, hidden) dh workspace
-    is allocated here, in x's dtype."""
+    CUDA tensors launch the kernels or raise. The workspaces are allocated
+    here: dh (R, hidden) in x's dtype and, on the Hopper path, g (R, hidden)
+    in x's dtype, the f32 weight-gradient partials (2, chunks, hidden, C)
+    and the f32 column-sum partials (ceil(R / COLSUM_ROWS), hidden + C)."""
     if x.device.type == "cpu":
         return mlp_fused_bwd_reference(do, h, x, w1, w2)
     R, C = x.shape
@@ -151,16 +211,25 @@ def mlp_bwd_2d(do, h, x, w1, w2):
 
     lib = build.library(x.device)
     is_bf16 = int(x.dtype == torch.bfloat16)
-    _smem_check("mlp_fused_bwd", lib, C, hidden, is_bf16)
     dw1t = torch.empty(hidden, C, **f32)
     dw2 = torch.empty(hidden, C, **f32)
     db1 = torch.empty(hidden, **f32)
     db2 = torch.empty(C, **f32)
     dh_ws = torch.empty(R, hidden, dtype=x.dtype, device=x.device)
-    rc = lib.mem_mlp_bwd(do.data_ptr(), h.data_ptr(), x.data_ptr(), w1.data_ptr(),
-                         w2.data_ptr(), dx.data_ptr(), dw1t.data_ptr(), dw2.data_ptr(),
-                         db1.data_ptr(), db2.data_ptr(), dh_ws.data_ptr(), R, C, hidden,
-                         is_bf16, torch.cuda.current_stream(x.device).cuda_stream)
+    ptrs = [t.data_ptr() for t in (do, h, x, w1, w2, dx, dh_ws)]
+    chunk_rows, chunks = wgrad_chunk_plan(R)
+    g_ws = part_ws = cs_ws = None
+    if lib.mem_mlp_bwd_path(*ptrs, C, hidden, is_bf16):
+        g_ws = torch.empty(R, hidden, dtype=x.dtype, device=x.device)
+        part_ws = torch.empty(2, chunks, hidden, C, **f32)
+        cs_ws = torch.empty(-(-R // COLSUM_ROWS), hidden + C, **f32)
+    else:
+        _scalar_smem_check("mlp_fused_bwd", lib, C)
+    ws = [None if t is None else t.data_ptr() for t in (g_ws, part_ws, cs_ws)]
+    rc = lib.mem_mlp_bwd(*ptrs[:5], dx.data_ptr(), dw1t.data_ptr(), dw2.data_ptr(),
+                         db1.data_ptr(), db2.data_ptr(), dh_ws.data_ptr(), *ws, R, C, hidden,
+                         chunk_rows, chunks, COLSUM_ROWS, is_bf16,
+                         torch.cuda.current_stream(x.device).cuda_stream)
     build.check("mlp_fused_bwd", rc)
     count_launch("mlp_fused_bwd")
     return dx, dw1t.t(), dw2, db1, db2
@@ -197,11 +266,11 @@ def mlp_fused(x, w1, b1, w2, b2):
 
 
 def cuda_kernel_path(x, hidden: int) -> str:
-    """Which CUDA kernels a launch at x's width and dtype takes: "mma"
-    (tensor cores) or "scalar"."""
+    """Which CUDA kernels a launch at x's width and dtype takes (its operands
+    as aligned as x): "wgmma" (the Hopper GEMM body) or "scalar"."""
     from mem_tpu_torch.kernels import build
 
     p = x.data_ptr()
-    mma = build.library().mem_mlp_fwd_uses_mma(p, p, p, p, p, p, p, x.shape[-1], hidden,
-                                               int(x.dtype == torch.bfloat16))
-    return "mma" if mma else "scalar"
+    wgmma = build.library().mem_mlp_fwd_path(p, p, p, p, p, p, p, x.shape[-1], hidden,
+                                             int(x.dtype == torch.bfloat16))
+    return "wgmma" if wgmma else "scalar"

@@ -206,3 +206,90 @@ def test_fused_mlp_toggle_is_off_by_default_and_yields_to_dropout(rng, monkeypat
     assert calls == []
     tvit.Mlp(32, 64)(x)
     assert calls == [1]
+
+
+@pytest.mark.parametrize("dt,c,hidden,want", [
+    (torch.bfloat16, 768, 3072, "wgmma"), (torch.bfloat16, 384, 1536, "wgmma"),
+    (torch.bfloat16, 128, 256, "wgmma"), (torch.bfloat16, 128, 128, "wgmma"),
+    (torch.bfloat16, 768, 3000, "scalar"), (torch.bfloat16, 96, 200, "scalar"),
+    (torch.bfloat16, 512, 2048, "scalar"), (torch.bfloat16, 768, 0, "scalar"),
+    (torch.float32, 768, 3072, "scalar"), (torch.float32, 128, 256, "scalar"),
+    (torch.float16, 768, 3072, "scalar")])
+def test_kernel_route_is_the_tensor_core_rule(dt, c, hidden, want):
+    """bf16 at C in {128, 384, 768} with hidden a positive multiple of 128
+    takes the Hopper GEMM; every other dtype and width the scalar kernels
+    (csrc/mlp_rows.cuh ``mlp_wgmma_shape``, the tensor-core rule of the
+    port's first K6)."""
+    assert tmlp.kernel_route(dt, c, hidden) == want
+
+
+@pytest.mark.parametrize("rows", [1, 31, 64, 513, 4096, 4097, 6304, 12608, 25216, 100_000])
+def test_wgrad_chunk_plan_covers_every_row_once_in_order(rows):
+    """The weight gradients' row plan: chunks of a multiple of 64 rows, in
+    order, at most WGRAD_MAX_CHUNKS, every row in exactly one, the last
+    chunk not empty; the same plan for the same row count."""
+    chunk_rows, chunks = tmlp.wgrad_chunk_plan(rows)
+    assert chunk_rows % 64 == 0 and 1 <= chunks <= tmlp.WGRAD_MAX_CHUNKS
+    owner = np.full(rows, -1)
+    for s in range(chunks):
+        lo, hi = s * chunk_rows, min(rows, (s + 1) * chunk_rows)
+        assert lo < hi and (owner[lo:hi] == -1).all()
+        owner[lo:hi] = s
+    assert (owner >= 0).all() and (np.diff(owner) >= 0).all()
+    assert tmlp.wgrad_chunk_plan(rows) == (chunk_rows, chunks)
+    if rows == 25216:
+        assert (chunk_rows, chunks) == (6336, 4)
+
+
+def test_wgrad_chunk_plan_refuses_no_rows():
+    with pytest.raises(ValueError, match="positive"):
+        tmlp.wgrad_chunk_plan(0)
+
+
+def _chunked_case(rng, rows):
+    ops = _operands(rng, rows)
+    do = rng.standard_normal((rows, C)).astype(np.float32)
+    h = (rng.standard_normal((rows, HD)) * 1.5).astype(np.float32)
+    return ops, do, h
+
+
+@pytest.mark.parametrize("rows", [31, 600, 1025])
+def test_chunked_sum_order_matches_the_plain_backward_in_f32(rng, monkeypatch, rows):
+    """The Hopper path's order of sums (chunk partials of dW1 / dW2 added in
+    chunk order, db1 / db2 over 256-row blocks in block order), emulated in
+    plain torch, against ``mlp_fused_bwd_reference`` at f32: 1e-5 of each
+    output's largest value (another order of f32 sums). A small
+    WGRAD_ROWS_PER_CHUNK gives these row counts several chunks."""
+    monkeypatch.setattr(tmlp, "WGRAD_ROWS_PER_CHUNK", 128)
+    ops, do, h = _chunked_case(rng, rows)
+    t = lambda a: torch.from_numpy(a)
+    args = (t(do), t(h), t(ops["x"]), t(ops["w1"]), t(ops["w2"]))
+    assert tmlp.wgrad_chunk_plan(rows)[1] == min(4, -(-rows // 128))
+    got = tmlp.mlp_fused_bwd_chunked(*args)
+    want = tmlp.mlp_fused_bwd_reference(*args)
+    for g, w, name in zip(got, want, ("dx", "dW1", "dW2", "db1", "db2")):
+        assert tuple(g.shape) == tuple(w.shape), name
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-5 * float(w.abs().max()),
+                                   rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_chunked_sum_order_matches_pallas_kernel(rng, monkeypatch, dt):
+    """The same emulation against ``_mlp_bwd_2d`` (interpret), at
+    test_backward_matches_pallas_kernel's tolerances, with three chunks and
+    three colsum blocks."""
+    monkeypatch.setattr(tmlp, "WGRAD_ROWS_PER_CHUNK", 256)
+    rows = 600
+    ops, do, h = _chunked_case(rng, rows)
+    assert tmlp.wgrad_chunk_plan(rows) == (256, 3)
+    j = lambda a: jnp.asarray(a, _JDT[dt])
+    want = jax_mlp._mlp_bwd_2d(j(do), j(h), j(ops["x"]), j(ops["w1"]), j(ops["w2"]),
+                               interpret=True)
+    t = lambda a: _t(a, _TDT[dt])
+    got = tmlp.mlp_fused_bwd_chunked(t(do), t(h), t(ops["x"]), t(ops["w1"]), t(ops["w2"]))
+    for g, w, name in zip(got, want, ("dx", "dW1", "dW2", "db1", "db2")):
+        w = _np(w)
+        assert tuple(g.shape) == w.shape, name
+        tol = 5e-4 if dt == "f32" else 2e-2 * np.abs(w).max()
+        np.testing.assert_allclose(_np(g), w, atol=tol, rtol=5e-4 if dt == "f32" else 0,
+                                   err_msg=name)
