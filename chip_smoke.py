@@ -60,6 +60,13 @@ to 0 just before it and read just after:
   reference's main, main2 and main3, the packed-key sort, K4 and K1 beside
   them); each must exit 0 and launch exactly what its loops call.
 
+K1 and K4 share one histogram body (csrc/voxelize_hist.cuh): both are held
+bit for bit against their plain versions in planes and raster mode, at the
+model shapes, N % 4 != 0, a cell past 65,535 events, an empty sample and
+stray values, and from a fresh thread; K4's plan at the DSEC shape must be
+one wave. voxelize_fused is timed whole, and its raster tail against the
+chain of planes, wrap and stack that it replaces.
+
 The K5 kernels of the shapes that are not head-blocked-eligible (K5b, K5d,
 K5e) share K3f's and K3b's bodies: each is also held bit for bit against the
 K3 kernel on transposed operands, and a seg forward with FLAT_ATTN = False
@@ -98,8 +105,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 try:
-    from mem_tpu_torch.tools import (PEAK_BF16_FLOPS, attention_bwd_bound, attention_fwd_bound,
-                                     bound, hist_bound, time_ms)
+    from mem_tpu_torch.tools import (PEAK_BF16_FLOPS, PEAK_F32_FLOPS, attention_bwd_bound,
+                                     attention_fwd_bound, bound, hist_bound, time_ms)
 except ImportError as e:   # not run from the root of a checkout
     sys.exit(f"chip_smoke: run it from the root of a mem_tpu checkout ({e})")
 
@@ -236,32 +243,62 @@ def kernel_device_ms(torch, fn, fragments, n=20, per_launch=False):
     in them, without the host's launch overhead that CUDA events around one
     short call include. ``per_launch`` divides by the launches the profiler
     recorded instead of by ``n`` (for a kernel launched once a call: the
-    mean stays right when the trace drops some). None where the profiler
-    shows no device time."""
+    mean stays right when the trace drops some). A profile that recorded
+    none of them is taken again; None where three show no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if "cuda" in str(getattr(e, "device_type", "")).lower()
-              and any(f in e.key for f in fragments)]
-    us = sum(getattr(e, "self_device_time_total", 0.0) for e in events)
-    if us <= 0:
-        return None
-    return us / 1e3 / (sum(e.count for e in events) if per_launch else n)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if "cuda" in str(getattr(e, "device_type", "")).lower()
+                  and any(f in e.key for f in fragments)]
+        us = sum(getattr(e, "self_device_time_total", 0.0) for e in events)
+        if us > 0:
+            return us / 1e3 / (sum(e.count for e in events) if per_launch else n)
+    return None
 
 
-def body_device_ms(torch, fn, fragments):
+def call_device_profile(torch, fn, n=20, anchor="hist_band_kernel"):
+    """(device ms per call of every kernel ``fn`` launches, kernels a call,
+    their names), from torch.profiler over ``n`` calls after 3 warm-up
+    calls. The trace can lose records, so each kernel counts with its mean
+    time per launch recorded, times its launches a call: its recorded
+    launches over those of ``anchor``, a kernel launched once a call,
+    rounded (a profile that recorded no ``anchor`` is taken again, up to
+    three times)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages() if getattr(e, "self_device_time_total", 0) > 0]
+        calls = sum(e.count for e in evs if anchor in e.key)
+        if calls:
+            break
+    check(calls > 0, f"the profiler recorded no {anchor} launch in three tries")
+    per_call = {e.key: (e.self_device_time_total / e.count, max(1, round(e.count / calls)))
+                for e in evs}
+    return (sum(us * k for us, k in per_call.values()) / 1e3,
+            sum(k for _, k in per_call.values()), sorted(per_call))
+
+
+def body_device_ms(torch, fn, fragments, n=5):
     """Device time per call of ``fn`` whose kernels (named by ``fragments``)
     each launch once a call: the sum of each kernel's mean time per launch
-    that torch.profiler recorded (robust to a trace that drops launches).
-    None where one of them shows no device time."""
-    parts = [kernel_device_ms(torch, fn, (f,), n=5, per_launch=True) for f in fragments]
+    that torch.profiler recorded over ``n`` calls (robust to a trace that
+    drops launches). None where one of them shows no device time."""
+    parts = [kernel_device_ms(torch, fn, (f,), n=n, per_launch=True) for f in fragments]
     return None if None in parts else sum(parts)
 
 
@@ -282,6 +319,59 @@ def bincount_ms(torch, col, ys, H, W, want):
 
     equal = bool(torch.equal(call().view(B, H, 2 * W).to(torch.int32), want))
     return (time_ms(call) if equal else None), equal
+
+
+def raster_bound(B, N, H, W):
+    """The raster mode: col and ys read (int32), the (B, H, W, 3) uint8 image
+    written; one add per event."""
+    return bound(2 * B * N * 4 + B * H * W * 3, B * N, PEAK_F32_FLOPS)
+
+
+def time_raster(torch, gpu, tag, events, n_valid, H, W, y_sorted=False):
+    """voxelize_fused as its caller runs it (no time surface, no voxel grid:
+    the kernel writes the raster): CUDA-event ms of the call, device ms of
+    every kernel it launches and the kernels a call. Then the tail that the
+    raster mode replaced, on the packed events of the same call (K1, or K4
+    on a wide canvas): the kernel's raster against its int32 planes wrapped,
+    cast and stacked (raster_from_planes, the chain before the raster mode),
+    in turns (chain, raster, raster, chain), each bit-equal to the call."""
+    from mem_tpu_torch.ops import voxelize as V
+    from mem_tpu_torch.ops import voxelize_hist as vh
+
+    B, N = n_valid.shape[0], events.shape[1]
+    with torch.inference_mode():
+        def call():
+            return V.voxelize_fused(events, n_valid, H, W, y_sorted=y_sorted)
+
+        want = call()
+        whole = (time_ms(call, runs=20), *call_device_profile(torch, call)[:2])
+        # voxelize_fused's packing without augmentations
+        xs, ys, ps = events[..., 0].int(), events[..., 1].int(), events[..., 3]
+        ok = ((torch.arange(N, device=events.device)[None] < n_valid[:, None])
+              & (xs >= 0) & (xs < W) & (ys >= 0) & (ys < H))
+        col, ysp = vh.pack_cols(xs.clamp(0, W - 1), ys.clamp(0, H - 1),
+                                (ok & (ps == 1)).float(), (ok & (ps == -1)).float(), H, W)
+        col, ysp = col.contiguous(), ysp.contiguous()
+        if H * 2 * W >= vh.WIDE_CANVAS_CELLS:
+            hist = lambda **kw: vh.hist_planes_cols_sorted(  # noqa: E731
+                col, ysp, H, W, presorted=y_sorted, **kw)
+        else:
+            hist = lambda **kw: vh.hist_planes_cols(col, ysp, H, W, **kw)  # noqa: E731
+        legs = {"raster": lambda: hist(raster=True),
+                "chain": lambda: vh.raster_from_planes(hist())}
+        res = {"chain": [], "raster": []}
+        for leg in ("chain", "raster", "raster", "chain"):
+            check(torch.equal(legs[leg](), want),
+                  f"time_raster {tag}: the {leg} tail differs from voxelize_fused's raster")
+            res[leg].append((time_ms(legs[leg], runs=20),
+                             *call_device_profile(torch, legs[leg])[:2]))
+    mean = lambda leg, i: statistics.mean(r[i] for r in res[leg])  # noqa: E731
+    say("time_raster", gpu=gpu, case=tag, shape=[B, N, H, W], y_sorted=y_sorted,
+        fused_ms=whole[0], fused_device_ms=whole[1], fused_kernels=whole[2],
+        tail_raster_ms=mean("raster", 0), tail_raster_device_ms=mean("raster", 1),
+        tail_raster_kernels=mean("raster", 2), tail_chain_ms=mean("chain", 0),
+        tail_chain_device_ms=mean("chain", 1), tail_chain_kernels=mean("chain", 2),
+        legs=res, raster_bound_ms=raster_bound(B, N, H, W)[0])
 
 
 def check_ptxas(log):
@@ -361,20 +451,7 @@ def run(torch):
 
     # -- phase 1: K1 against its plain version -------------------------------
     g = torch.Generator().manual_seed(0)
-    k1_err = 0
-    for B, N, H, W in ((8, 30_000, 256, 256), (3, 12_345, 180, 240)):
-        col = torch.randint(-2, 2 * W + 3, (B, N), generator=g, dtype=torch.int32)
-        ys = torch.randint(-2, H + 3, (B, N), generator=g, dtype=torch.int32)
-        col[:, :500] = 2 * W
-        col, ys = col.to(dev), ys.to(dev)
-        got = vh.hist_planes_cols(col, ys, H, W)
-        want = vh.hist_planes_cols_reference(col, ys, H, W)
-        torch.cuda.synchronize()
-        err = int((got - want).abs().max().item())
-        say("k1_check", shape=[B, N, H, W], equal=bool(torch.equal(got, want)),
-            max_abs_err=err, events=int(want.sum().item()))
-        check(torch.equal(got, want), f"K1 differs from its plain version at {B, N, H, W}")
-        k1_err = max(k1_err, err)
+    k1_err = check_k1(torch, dev, g)
 
     # -- phase 2: K2 forward against its plain version -----------------------
     # the serving shape first (bf16 at head dim 64 and N <= 256: the Hopper
@@ -513,13 +590,33 @@ def run(torch):
         ys = torch.tensor(np.stack([e[:, 1] for e in evs]), dtype=torch.int32, device=dev)
         pos = torch.tensor(np.stack([e[:, 3] > 0 for e in evs]), device=dev).float()
         col, ysf = vh.pack_cols(xs, ys, pos, 1.0 - pos, 256, 256)
-        t_k1 = time_ms(lambda: vh.hist_planes_cols(col, ysf, 256, 256))
-        t_k1p = time_ms(lambda: vh.hist_planes_cols_reference(col, ysf, 256, 256))
+        col, ysf = col.contiguous(), ysf.contiguous()
+        t_k1, t_k1p = in_turns(torch, lambda: vh.hist_planes_cols_reference(col, ysf, 256, 256),
+                               lambda: vh.hist_planes_cols(col, ysf, 256, 256))
         t_k1l, k1l_equal = bincount_ms(torch, col, ysf, 256, 256,
                                        vh.hist_planes_cols_reference(col, ysf, 256, 256))
+        # the profiler's device time of every kernel the call launches (no
+        # fill ahead of the kernel: the kernel writes each cell); the raster
+        # mode (voxelize_fused's tail) at this shape
+        plan = vh.hist_plan(B, 30_000, 256, 256, vh.sm_count(0))
+        k1 = lambda: vh.hist_planes_cols(col, ysf, 256, 256)  # noqa: E731
+        _, k1_kernels, k1_names = call_device_profile(torch, k1)
+        check(all("hist_band_kernel" in k for k in k1_names),
+              f"K1 launched {k1_names}, not its kernel alone")
+        d_k1, d_k1r = (kernel_device_ms(torch, f, ("hist_band_kernel",), per_launch=True)
+                       for f in (k1, lambda: vh.hist_planes_cols(col, ysf, 256, 256,
+                                                                 raster=True)))
         say("time_k1", gpu=gpu, batch=B, events=30_000, canvas=[256, 256], kernel_ms=t_k1,
-            plain_ms=t_k1p, bincount_ms=t_k1l, bincount_equals_plain=k1l_equal,
-            bound_ms=hist_bound(B, 30_000, 256, 256)[0], kernel_gev_s=B * 30_000 / t_k1 / 1e6)
+            kernel_device_ms=d_k1, kernels_a_call=k1_kernels, plain_ms=t_k1p,
+            bincount_ms=t_k1l, bincount_equals_plain=k1l_equal,
+            plan=dict(rows=plan.rows, blocks=plan.blocks, counter_bytes=plan.counter_bytes),
+            raster_device_ms=d_k1r,
+            bound_ms=hist_bound(B, 30_000, 256, 256)[0],
+            raster_bound_ms=raster_bound(B, 30_000, 256, 256)[0],
+            kernel_gev_s=B * 30_000 / t_k1 / 1e6)
+        evb = torch.tensor(np.stack(evs), dtype=torch.float32, device=dev)
+        time_raster(torch, gpu, f"serving B={B}", evb,
+                    torch.full((B,), 30_000, dtype=torch.int32, device=dev), 256, 256)
 
         q, k, v = (torch.randn(B, 197, 768, device=dev, dtype=torch.bfloat16)
                    for _ in range(3))
@@ -789,6 +886,114 @@ def check_k2b(torch, dev, g):
     return first
 
 
+def stray_events(torch, g, B, N, H, W):
+    """Packed (col, ys) int32 on the CPU, uniform over the canvas and a
+    margin past it: negatives, the sentinels 2W / H and values past them;
+    the first 500 columns of every sample are the invalid sentinel."""
+    col = torch.randint(-2, 2 * W + 3, (B, N), generator=g, dtype=torch.int32)
+    ys = torch.randint(-2, H + 3, (B, N), generator=g, dtype=torch.int32)
+    col[:, :500] = 2 * W
+    return col, ys
+
+
+def check_hist_modes(torch, vh, tag, name, fn, col, ys, H, W, want):
+    """One K1 / K4 case: the planes bit-equal to ``want``, the plain planes,
+    and to themselves across two launches; the raster mode, mod 256 and
+    clamped, bit-equal to voxelize_raster_reference. Returns the max abs
+    error."""
+    got, again = fn(col, ys, H, W), fn(col, ys, H, W)
+    torch.cuda.synchronize()
+    err = int((got - want).abs().max().item()) if want.numel() else 0
+    fields = dict(equals_plain=bool(torch.equal(got, want)),
+                  identical_across_launches=bool(torch.equal(got, again)))
+    for wrap in (True, False):
+        r = fn(col, ys, H, W, raster=True, wrap_uint8=wrap)
+        fields[f"raster_{'wrap' if wrap else 'clamp'}_equal"] = bool(torch.equal(
+            r, vh.voxelize_raster_reference(col, ys, H, W, wrap)))
+    say(tag, case=name, shape=[*col.shape, H, W], max_abs_err=err,
+        events=int(want.sum().item()), max_count=int(want.max().item()) if want.numel() else 0,
+        **fields)
+    check(fields["equals_plain"] and fields["identical_across_launches"],
+          f"{tag} {name}: the planes differ from the plain version or across launches")
+    check(fields["raster_wrap_equal"] and fields["raster_clamp_equal"],
+          f"{tag} {name}: the raster differs from voxelize_raster_reference")
+    return err
+
+
+def fresh_thread_check(torch, tag, launch):
+    """``launch()`` from a fresh thread, on which PyTorch has made no CUDA
+    context current yet: the library binds the device itself
+    (build.library), and the results are the main thread's bits."""
+    fresh = {}
+
+    def run():
+        try:
+            fresh["out"] = launch()
+            torch.cuda.synchronize()
+        except Exception as e:   # reported below, on the main thread
+            fresh["error"] = repr(e)
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(timeout=300)
+    check(not t.is_alive(), f"{tag}: the fresh thread did not finish in 300 s")
+    main = launch()
+    torch.cuda.synchronize()
+    same = "out" in fresh and all(torch.equal(a, b) for a, b in zip(fresh["out"], main))
+    say(tag, error=fresh.get("error"), equals_main_thread=same)
+    check(same, f"{tag}: {fresh.get('error', 'other bits')}")
+
+
+def check_k1(torch, dev, g):
+    """K1 against its plain version, bit for bit, in planes and raster mode:
+    the N-Caltech101 canvas at B = 8 and 64, the (3, 12,345) case (N % 4 != 0: a sample starts off a 16-byte
+    boundary), 440x640 with one cell past 65,535 events (32-bit counters)
+    and an empty sample, extreme stray values; then from a fresh thread.
+    Returns the max abs error."""
+    from mem_tpu_torch.ops import voxelize_hist as vh
+
+    err = 0
+    for name, (B, N, H, W) in (("cls_b8", (8, 30_000, 256, 256)),
+                               ("cls_b64", (64, 30_000, 256, 256)),
+                               ("odd_n", (3, 12_345, 180, 240))):
+        col, ys = stray_events(torch, g, B, N, H, W)
+        if B == 64:
+            col[5], ys[5] = 2 * W, H          # an empty sample
+        col, ys = col.to(dev), ys.to(dev)
+        err = max(err, check_hist_modes(
+            torch, vh, "k1_check", name, vh.hist_planes_cols, col, ys, H, W,
+            vh.hist_planes_cols_reference(col, ys, H, W)))
+    # one hot cell: 70,000 events of sample 0 on (123, 456); sample 1 empty
+    B, N, H, W = 3, 100_000, 440, 640
+    col, ys = stray_events(torch, g, B, N, H, W)
+    col[0, :70_000], ys[0, :70_000] = 456, 123
+    col[1], ys[1] = 2 * W, H
+    col, ys = col.to(dev), ys.to(dev)
+    want = vh.hist_planes_cols_reference(col, ys, H, W)
+    check(int(want[0, 123, 456]) > 65_535 and int(want[1].abs().sum()) == 0,
+          "the hot-cell case lost its hot cell or its empty sample")
+    err = max(err, check_hist_modes(torch, vh, "k1_check", "hot_cell_empty_sample",
+                                    vh.hist_planes_cols, col, ys, H, W, want))
+    # extremes: INT_MIN / INT_MAX, -1, the sentinels and one past them
+    B, N, H, W = 4, 5_001, 180, 240
+    pick = torch.randint(0, 8, (2, B, N), generator=g)
+    vals = lambda hi, i: torch.tensor([-2**31, -1, hi, hi + 1, 2**31 - 1], dtype=torch.int32)[  # noqa: E731
+        pick[i].clamp(max=4)]
+    col = torch.where(pick[0] < 5, vals(2 * W, 0), torch.randint(0, 2 * W, (B, N), generator=g,
+                                                                 dtype=torch.int32))
+    ys = torch.where(pick[1] < 5, vals(H, 1), torch.randint(0, H, (B, N), generator=g,
+                                                            dtype=torch.int32))
+    col, ys = col.to(dev), ys.to(dev)
+    err = max(err, check_hist_modes(torch, vh, "k1_check", "stray_extremes",
+                                    vh.hist_planes_cols, col, ys, H, W,
+                                    vh.hist_planes_cols_reference(col, ys, H, W)))
+    col, ys = (t.to(dev) for t in stray_events(torch, g, 8, 30_000, 256, 256))
+    fresh_thread_check(torch, "k1_fresh_thread", lambda: (
+        vh.hist_planes_cols(col, ys, 256, 256),
+        vh.hist_planes_cols(col, ys, 256, 256, raster=True)))
+    return err
+
+
 def sorted_events(torch, g, B, N, H, W, presort, n_valid=None):
     """Packed (col, ys) int32 on the CPU: rows clustered towards the top,
     an invalid tail per sample (2W / H sentinels), optionally sorted by row
@@ -810,12 +1015,12 @@ def check_k4(torch, dev, g):
     shape presorted (one sample with no valid event, one with a single one)
     and unsorted, the same unsorted list passed as presorted (a broken
     promise costs time, never counts), a --voxel 6 canvas at 256^2 (1536
-    bin-folded rows) and stray negative / past-the-sentinel values. Returns
-    the max abs error at the DSEC shape."""
-    from mem_tpu_torch.kernels import build
+    bin-folded rows) and stray negative / past-the-sentinel values; the
+    raster mode (mod 256 and clamped) against voxelize_raster_reference at
+    the DSEC shape; the plan at the DSEC shape (one wave, one round); then
+    from a fresh thread. Returns the max abs error at the DSEC shape."""
     from mem_tpu_torch.ops import voxelize_hist as vh
 
-    lib = build.library()
     first = None
     for name, (B, N, H, W), presort, nv in (
             ("dsec_presorted", (8, SEG_EVENTS, 440, 640), True,
@@ -829,10 +1034,10 @@ def check_k4(torch, dev, g):
         want = vh.hist_planes_cols_sorted_reference(col, ys, H, W, presorted=presort)
         k1 = vh.hist_planes_cols(col, ys, H, W)
         err = int((got - want).abs().max().item())
+        plan = vh.hist_plan(B, N, H, W, vh.sm_count(0), skip=presort)
         fields = dict(shape=[B, N, H, W], presorted=presort, equals_plain=torch.equal(got, want),
                       equals_k1=torch.equal(got, k1), max_abs_err=err,
-                      events=int(want.sum().item()),
-                      band_rows=lib.mem_hist_sorted_band_rows(B, H, W))
+                      events=int(want.sum().item()), plan=plan._asdict())
         if nv is not None:
             fields["empty_sample_sum"] = int(got[3].sum().item())
             check(fields["empty_sample_sum"] == 0, "K4: a sample with no event is not zeros")
@@ -844,14 +1049,34 @@ def check_k4(torch, dev, g):
         say("k4_check", case=name, **fields)
         check(fields["equals_plain"] and fields["equals_k1"],
               f"K4 differs from its plain version or from K1 at {name}")
+        if name.startswith("dsec"):
+            check_hist_modes(torch, vh, "k4_check", name + "_modes",
+                             lambda c, y, h, w, **kw: vh.hist_planes_cols_sorted(
+                                 c, y, h, w, presorted=presort, **kw),
+                             col, ys, H, W, want)
         if first is None:
             first = err
+            sorted_dsec = col, ys
     col = torch.randint(-2, 2 * 640 + 3, (4, 50_000), generator=g, dtype=torch.int32).to(dev)
     ys = torch.randint(-2, 443, (4, 50_000), generator=g, dtype=torch.int32).to(dev)
-    stray = torch.equal(vh.hist_planes_cols_sorted(col, ys, 440, 640),
-                        vh.hist_planes_cols_reference(col, ys, 440, 640))
+    stray = all(torch.equal(vh.hist_planes_cols_sorted(col, ys, 440, 640, presorted=p),
+                            vh.hist_planes_cols_reference(col, ys, 440, 640))
+                for p in (False, True))
     say("k4_check", case="stray_values", equals_plain=stray)
     check(stray, "K4 differs from the plain version on negative / sentinel values")
+    # the plan at the DSEC shape: at most one block (1024 threads, launch
+    # bounds of one block an SM) on each of the card's SMs, one item each
+    plan = vh.hist_plan(8, SEG_EVENTS, 440, 640, vh.sm_count(0), skip=True)
+    say("k4_plan", shape=[8, SEG_EVENTS, 440, 640], blocks=plan.blocks, sms=plan.sms,
+        threads=vh.THREADS, waves=plan.waves, rounds=plan.rounds, rows=plan.rows,
+        smem=plan.smem)
+    check(plan.waves == 1 and plan.rounds == 1 and plan.blocks <= plan.sms,
+          f"K4's plan at the DSEC shape is not one wave: {plan}")
+    col, ys = sorted_dsec
+    fresh_thread_check(torch, "k4_fresh_thread", lambda: (
+        vh.hist_planes_cols_sorted(col, ys, 440, 640, presorted=True),
+        vh.hist_planes_cols_sorted(col, ys, 440, 640),
+        vh.hist_planes_cols_sorted(col, ys, 440, 640, presorted=True, raster=True)))
     return first
 
 
@@ -1033,6 +1258,7 @@ def run_seg_slice(torch, dev, gpu, rng):
     test_seg's single-scale run and the K3f / K4 times."""
     from mem_tpu_torch.cli import serve
     from mem_tpu_torch.cli import test_seg as T
+    from mem_tpu_torch.data.device_pipeline import events_f32
     from mem_tpu_torch.data.seg_pipeline import (SegBatchIterator, SegPipelineConfig,
                                                  scan_seg_pairs, seg_preprocess_batch)
     from mem_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -1263,25 +1489,44 @@ def run_seg_slice(torch, dev, gpu, rng):
         t_k4, t_k4p = in_turns(
             torch, lambda: vh.hist_planes_cols_sorted_reference(col, ys, 440, 640, True),
             lambda: vh.hist_planes_cols_sorted(col, ys, 440, 640, presorted=True))
-        t_k4s = time_ms(lambda: vh.hist_planes_cols_sorted(col, ys, 440, 640))
+        # unsorted events: K4 counts them as they come (no sort); the route
+        # before it sorted them first
+        t_k4u = time_ms(lambda: vh.hist_planes_cols_sorted(col, ys, 440, 640))
+        t_k4s = time_ms(lambda: vh.hist_planes_cols_sorted(
+            *vh.sort_events_by_row(col, ys, 440), 440, 640, presorted=True))
         t_k1 = time_ms(lambda: vh.hist_planes_cols(col, ys, 440, 640))
         t_k4l, k4l_equal = bincount_ms(
             torch, col, ys, 440, 640,
             vh.hist_planes_cols_sorted_reference(col, ys, 440, 640, True))
         # both kernels are short enough for the events above to time the
-        # launch as much as the kernel: the profiler's device time beside them
-        d_k4 = kernel_device_ms(
-            torch, lambda: vh.hist_planes_cols_sorted(col, ys, 440, 640, presorted=True),
-            ("band_hist_kernel", "chunk_bounds_kernel"))
-        # K1 adds into a zeroed output: its zero-fill counts with it
-        d_k1 = kernel_device_ms(torch, lambda: vh.hist_planes_cols(col, ys, 440, 640),
-                                ("hist_planes_cols_kernel", "FillFunctor", "Memset"))
+        # launch as much as the kernel: the profiler's device time beside
+        # them, of every kernel a call launches (K4: the bounds pass and the
+        # band kernel; neither fills its output)
+        k4 = lambda: vh.hist_planes_cols_sorted(col, ys, 440, 640, presorted=True)  # noqa: E731
+        k1 = lambda: vh.hist_planes_cols(col, ys, 440, 640)  # noqa: E731
+        _, k4_kernels, k4_names = call_device_profile(torch, k4)
+        _, k1_kernels, k1_names = call_device_profile(torch, k1)
+        check(all("hist_band_kernel" in k or "chunk_bounds_kernel" in k
+                  for k in k4_names + k1_names),
+              f"K4 launched {k4_names}, K1 {k1_names}, not their kernels alone")
+        k4_pair = ("hist_band_kernel", "chunk_bounds_kernel")
+        d_k4, d_k4r = (body_device_ms(torch, f, k4_pair, n=20) for f in (
+            k4, lambda: vh.hist_planes_cols_sorted(col, ys, 440, 640, presorted=True, raster=True)))
+        d_k4_band, d_k4u, d_k1 = (kernel_device_ms(torch, f, ("hist_band_kernel",),
+                                                   per_launch=True) for f in (
+            k4, lambda: vh.hist_planes_cols_sorted(col, ys, 440, 640), k1))
         say("time_k4", gpu=gpu, batch=8, events=SEG_EVENTS, canvas=[440, 640], kernel_ms=t_k4,
-            kernel_with_sort_ms=t_k4s, k1_same_shape_ms=t_k1, plain_ms=t_k4p,
+            kernel_device_ms=d_k4, band_kernel_device_ms=d_k4_band, kernels_a_call=k4_kernels,
+            k1_kernels_a_call=k1_kernels,
+            unsorted_ms=t_k4u, unsorted_device_ms=d_k4u, sort_then_presorted_ms=t_k4s,
+            k1_same_shape_ms=t_k1, k1_same_shape_device_ms=d_k1, plain_ms=t_k4p,
             bincount_ms=t_k4l, bincount_equals_plain=k4l_equal,
-            kernel_device_ms=d_k4, k1_same_shape_device_ms=d_k1,
+            raster_device_ms=d_k4r,
             bound_ms=hist_bound(8, SEG_EVENTS, 440, 640)[0],
+            raster_bound_ms=raster_bound(8, SEG_EVENTS, 440, 640)[0],
             kernel_gev_s=8 * SEG_EVENTS / t_k4 / 1e6)
+        time_raster(torch, gpu, "seg B=8", events_f32(batch8), batch8["n_valid"], 440, 640,
+                    y_sorted=True)
 
         # K3f at the seg forward's B = 8 and train_seg's B = 16
         k3f = {}
@@ -1319,12 +1564,13 @@ def run_seg_slice(torch, dev, gpu, rng):
 # K2f / K5a for bf16 at head dim 64 and N <= 256
 _FAMILIES = (("attention_long_bwd", "K3b body (K3b, K5d, K5e; K2b, K5c)"),
              ("attention_long_fwd", "K3f body (K3f, K5b; K2f, K5a)"),
-             ("band_hist", "K4"), ("chunk_bounds", "K4"), ("mlp_gemm_f", "K6f (F1, F2)"),
+             ("hist_band", "K1 / K4 body"), ("chunk_bounds", "K4 bounds pass"),
+             ("mlp_gemm_f", "K6f (F1, F2)"),
              ("mlp_gemm_b", "K6b (B1, B2)"), ("mlp_gemm_wgrad", "K6b (B3+B4)"),
              ("mlp_colsum", "K6b sum passes"), ("mlp_wgrad_sum", "K6b sum passes"),
              ("mlp_rows", "K6 scalar rows"), ("mlp_cols", "K6b scalar columns"),
              ("attention_bwd", "K2b / K5c scalar"),
-             ("attention_fwd", "K2f / K5a scalar"), ("hist_planes_cols", "K1"),
+             ("attention_fwd", "K2f / K5a scalar"),
              ("multi_tensor", "optimizer"),
              ("fprop", "convolutions"), ("conv", "convolutions"), ("cudnn", "convolutions"),
              ("implicit", "convolutions"), ("nchw", "layout changes"), ("nhwc", "layout changes"),

@@ -349,7 +349,7 @@ def seg_preprocess_batch(batch: dict, is_train: bool, rand_aug: bool = True,
     """On the batch's device: events -> network-ready (B, 440, 640, 3) f32 in
     0..255, plus the labels (flipped with the image when training). Returns
     (images, labels); a label-free batch (serving) returns labels None.
-    ``y_sorted`` promises host-presorted events and spares K4 its sort.
+    ``y_sorted`` promises host-presorted events: K4 skips by chunk.
     Training with ``rand_aug`` needs the :func:`draw_seg_train_aug` draws in
     the batch."""
     img = voxelize_fused(

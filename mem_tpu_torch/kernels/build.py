@@ -39,10 +39,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> (argtypes, restype)
 SIGNATURES = {
-    "mem_hist_planes_cols": ((_P, _P, _P, _I, _I, _I, _I, _P), _I),
-    "mem_hist_planes_cols_sorted": ((_P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
-    "mem_hist_sorted_band_rows": ((_I, _I, _I), _I),
-    "mem_hist_sorted_chunks": ((_I,), _I),
+    "mem_hist_planes_cols": ((_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P), _I),
+    "mem_hist_planes_cols_sorted": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P), _I),
     "mem_attention_fwd_flat": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P), _I),
     "mem_attention_fwd_flat_smem": ((_I, _I, _I), ctypes.c_longlong),
     "mem_attention_bwd_flat": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -10,7 +10,11 @@ time-binned voxel grid (B, H, W, 2 * n_bins) [pos bins | neg bins].
 The augmentations are index arithmetic ahead of one histogram launch
 (kernel K1, or K4 on wide canvases: ops/voxelize_hist.py owns the rule);
 the voxel grid rides the same kernels by folding the time bin into the row
-index (y' = bin * H + y).
+index (y' = bin * H + y). Without a time surface and a voxel grid (serving,
+pretraining, finetune and seg all take that case) the kernel writes the
+uint8 raster itself (its raster mode: XLA fuses the same tail after the
+Pallas call in the reference); the time surface and the voxel grid wrap and
+stack the int32 planes here.
 """
 from __future__ import annotations
 
@@ -18,12 +22,7 @@ import math
 
 import torch
 
-from mem_tpu_torch.ops.voxelize_hist import voxelize_planes
-
-
-def _wrap(planes: torch.Tensor, wrap_uint8: bool) -> torch.Tensor:
-    # int32 counts are exact: mod 256 reproduces uint8 overflow bit-exactly
-    return torch.remainder(planes, 256) if wrap_uint8 else planes.clamp(max=255)
+from mem_tpu_torch.ops.voxelize_hist import voxelize_planes, wrap_counts
 
 
 def _time_surface_planes(xs, ys, ts, valid, in_bounds, H: int, W: int):
@@ -70,10 +69,11 @@ def voxelize_fused(
     int pixel shifts (out-of-bounds events dropped). sample_W / sample_H:
     (B,) per-sample logical extents (x-flip and shift bounds), default the
     canvas. y_sorted: the caller promises that each sample's valid events
-    arrive sorted by y (the seg pipeline's host presort); a wide canvas then
-    skips the sort ahead of K4. Time and x flips keep the y order; a y shift
-    would break it. Safe to leave False, and a wrong True costs time, never
-    counts. n_bins > 0: the voxel grid (no time surface).
+    arrive sorted by y (the seg pipeline's host presort); on a wide canvas
+    K4's bands then read only the event chunks they meet. Time and x flips
+    keep the y order; a y shift would break it. Safe to leave False, and a
+    wrong True costs time, never counts. n_bins > 0: the voxel grid (no time
+    surface).
 
     Returns (B, H, W, 3) uint8, or (B, H, W, 2 * n_bins) when n_bins > 0.
     """
@@ -140,15 +140,15 @@ def voxelize_fused(
                                  y_sorted=False)
         pos = planes[..., :W].reshape(B, n_bins, H, W)
         neg = planes[..., W:].reshape(B, n_bins, H, W)
-        grid = _wrap(torch.cat([pos, neg], dim=1), wrap_uint8)
+        grid = wrap_counts(torch.cat([pos, neg], dim=1), wrap_uint8)
         return grid.permute(0, 2, 3, 1).to(torch.uint8)
 
-    planes = _wrap(voxelize_planes(xs_c, ys_c, wpos, wneg, H, W, y_sorted=y_sorted),
-                   wrap_uint8)
+    if not time_surface:
+        return voxelize_planes(xs_c, ys_c, wpos, wneg, H, W, y_sorted=y_sorted, raster=True,
+                               wrap_uint8=wrap_uint8)
+    planes = wrap_counts(voxelize_planes(xs_c, ys_c, wpos, wneg, H, W, y_sorted=y_sorted),
+                         wrap_uint8)
     pos, neg = planes[..., :W], planes[..., W:]
-    if time_surface:
-        tss = _time_surface_planes(xs_c, ys_c, ts, valid, ok, H, W)
-    else:
-        tss = torch.zeros_like(pos)
+    tss = _time_surface_planes(xs_c, ys_c, ts, valid, ok, H, W)
     return torch.stack([pos.to(torch.uint8), tss.to(torch.uint8),
                         neg.to(torch.uint8)], dim=-1)
