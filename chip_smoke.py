@@ -9,8 +9,8 @@ It builds the port's CUDA kernels from csrc/ and checks each against its
 plain PyTorch version on the card; it fails when ptxas reports a spill in the
 wgmma kernels (K3f and the rows and columns kernels of K3b, which K5b / K5d /
 K5e launch on head-major operands and K2f / K5a and K2b / K5c for bf16 at
-head dim 64 and N <= 256; the GEMM body of K6f and K6b) or serializes their
-wgmma pipelines. It drives the five
+head dim 64 and N <= 256; the GEMM body of K6f and K6b; X1's one-hot
+contraction) or serializes their wgmma pipelines. It drives the five
 ported paths and the two experiment tools, each with the launch counts set
 to 0 just before it and read just after:
 
@@ -72,8 +72,10 @@ K5e) share K3f's and K3b's bodies: each is also held bit for bit against the
 K3 kernel on transposed operands, and a seg forward with FLAT_ATTN = False
 against the CPU's logits. X1a, X1b, X1c, X2a, X2b and X2c are held bit for
 bit against their plain versions (X2 at every chunk and (TH, chunk) of the
-reference's sweeps, on y-sorted and unsorted events); X3 inside K2b's gates
-against its plain version and bit for bit against K2b.
+reference's sweeps, on y-sorted and unsorted events; X1 at every chunk of
+its sweep, also on a hot cell past 70,000 events, at shapes that straddle its
+tiles, and across two launches); X3 inside K2b's gates against its plain
+version and bit for bit against K2b.
 
 Between them it holds one pretraining, one segmentation and one finetune
 train step on the card (f32 and bf16) against the same step on the CPU, and
@@ -89,6 +91,7 @@ available or mem_tpu_torch cannot be imported, and on any failed check.
 """
 from __future__ import annotations
 
+import functools
 import io
 import json
 import os
@@ -377,20 +380,23 @@ def time_raster(torch, gpu, tag, events, n_valid, H, W, y_sorted=False):
 def check_ptxas(log):
     """ptxas's report, from the build log ``log``, on the wgmma kernels: those
     of K3f (which K2f, K5a and K5b launch too), of K3b's rows and columns
-    kernels (K2b, K5c, K5d, K5e too), flat and head-major, and K6's GEMM body
+    kernels (K2b, K5c, K5d, K5e too), flat and head-major, K6's GEMM body
     (F1, F2 of K6f; B1, B2, B3+B4 of K6b; F2, B2 and B3+B4 at tile widths
-    128 and 256): registers (at entry, setmaxnreg gives the consumers 240),
-    shared memory and spills; it fails on a spill or on any warning that
-    ptxas serialized a wgmma pipeline."""
+    128 and 256) and X1's contraction (X1a and X1b, which X1c launches, at
+    the plan's two tile widths): registers (at entry, setmaxnreg gives the
+    consumers 240), shared memory and spills; it fails on a spill or on any
+    warning that ptxas serialized a wgmma pipeline."""
     fwd = ptxas_report(log, "attention_long_fwd_wgmma_kernel")
     bwd = [r for frag in ("attention_long_bwd_rows_wgmma_kernel",
                           "attention_long_bwd_cols_wgmma_kernel")
            for r in ptxas_report(log, frag)]
     k6 = ptxas_report(log, "mlp_gemm_")
+    x1 = ptxas_report(log, "x1_wgmma_kernel")
     for tag, rows, unit, want, users in (
             ("ptxas_k3f", fwd, "attention_long_fwd", 2, "K3f K2f K5a K5b"),
             ("ptxas_k3b", bwd, "attention_long_bwd", 4, "K3b K2b K5c K5d K5e"),
-            ("ptxas_k6", k6, "mlp_gemm_", 8, "K6f K6b")):
+            ("ptxas_k6", k6, "mlp_gemm_", 8, "K6f K6b"),
+            ("ptxas_x1", x1, "x1_wgmma_kernel", 4, "X1a X1b X1c")):
         serial = [ln.strip() for ln in log.splitlines() if "serialized" in ln and unit in ln]
         say(tag, launched_by=users, kernels=rows, serialized=serial)
         check(len(rows) == want and all(" 0 bytes spill stores" in r["spills"] for r in rows)
@@ -3307,11 +3313,19 @@ def run_finetune_n401(torch, data_root, tmp_root):
 X3_SHAPE = (128, 197, 12, 64)   # exp_attn_bwd.py's default: ViT-B's training width
 
 
+X1_STRADDLE = ((2, 4_099, 129, 97), (16, 4_099, 65, 385))   # H and 2W one past a tile
+X1_HOT = 70_001           # events on one cell of the hot case's second sample
+
+
 def x1_cases(torch, g):
     """(case, (B, N, H, W), (xs, ys, wpos, wneg, col, ys of col)) on the CPU:
-    the reference's seeded events at its seg and cls shapes, and an odd shape
-    with stray coordinates (negatives, the sentinels, values past them) and
-    dyadic weights."""
+    the reference's seeded events at its seg and cls shapes; an odd shape with
+    stray coordinates (negatives, the sentinels, values past them) and
+    dyadic weights; the hot cell: at the seg shape (two samples) every event
+    of the first sample on one pixel (180,224 counts) and X1_HOT of the
+    second on another, the rest spread; and, at each tile width of the plan
+    (x1_plan: N = 96, then 128), a shape whose H and 2W lie one row and two
+    columns past a tile edge, N odd (ragged stages)."""
     from mem_tpu_torch.tools import exp_voxelize as X
 
     for tag, shape in X.SHAPES.items():
@@ -3324,13 +3338,25 @@ def x1_cases(torch, g):
     col = torch.randint(-2, 2 * W + 3, (B, N), generator=g, dtype=torch.int32)
     col[:, :500] = 2 * W
     yield "odd", (B, N, H, W), (xs, ys, wpos, wneg, col, ys)
+    B, N, H, W = 2, X.SHAPES["seg"][1], X.SHAPES["seg"][2], X.SHAPES["seg"][3]
+    xs, ys, wpos, wneg, col, ysp = X.make_events(B, N, H, W, "cpu")
+    for t, v in ((xs, 5), (ys, 7), (wpos, 1.0), (wneg, 0.0), (col, 5)):
+        t[0] = v
+    for t, v in ((xs, 300), (ys, 401), (wpos, 0.0), (wneg, 1.0), (col, W + 300)):
+        t[1, :X1_HOT] = v
+    yield "hot", (B, N, H, W), (xs, ys, wpos, wneg, col, ys)
+    for shape in X1_STRADDLE:
+        yield f"straddle_n{X.x1_plan(*shape[:1], *shape[2:]).tile_n}", shape, \
+            X.make_events(*shape, "cpu")
 
 
 def check_x1(torch, dev, g):
     """X1a, X1b and X1c against their plain versions, bit for bit, with every
-    chunk of the reference's sweep: its events at the seg and cls shapes, and
-    the odd shape; X1a also on random f32 weights at the seg shape, to
-    X1A_RANDOM_REL. Returns {counter name: max abs error at seg}."""
+    chunk of the reference's sweep, in every case of x1_cases, each launched
+    twice: the two outputs must be bit-identical; the hot cell must hold its
+    counts exactly (f32 accumulation on the tensor cores below 2^24). X1a also
+    on random f32 weights at the seg shape, to X1A_RANDOM_REL. Returns
+    {counter name: max abs error at seg}."""
     from mem_tpu_torch.tools import exp_voxelize as X
 
     seg = {}
@@ -3338,20 +3364,35 @@ def check_x1(torch, dev, g):
         xs, ys, wpos, wneg, col, ysp = (t.to(dev) for t in ev)
         want_base = X.exp_voxelize_base_reference(xs, ys, wpos, wneg, H, W)
         want = X.exp_voxelize_fused_reference(col, ysp, H, W)
-        got = {("exp_voxelize_base", 2048): X.exp_voxelize_base(xs, ys, wpos, wneg, H, W, 2048)}
+        calls = {("exp_voxelize_base", 2048): functools.partial(
+            X.exp_voxelize_base, xs, ys, wpos, wneg, H, W, 2048)}
         for chunk in (1024, 2048, 4096):
-            got[("exp_voxelize_fused_onehot", chunk)] = X.exp_voxelize_fused_onehot(
-                col, ysp, H, W, chunk)
-        got[("exp_voxelize_fused_loop", 8192)] = X.exp_voxelize_fused_loop(
-            col, ysp, H, W, 8192, 2048)
+            calls[("exp_voxelize_fused_onehot", chunk)] = functools.partial(
+                X.exp_voxelize_fused_onehot, col, ysp, H, W, chunk)
+        calls[("exp_voxelize_fused_loop", 8192)] = functools.partial(
+            X.exp_voxelize_fused_loop, col, ysp, H, W, 8192, 2048)
+        got = {key: (call(), call()) for key, call in calls.items()}
         torch.cuda.synchronize()
         errs = {f"{n}_c{c}": (o - (want_base if n == "exp_voxelize_base" else want)).abs().max()
-                .item() for (n, c), o in got.items()}
-        say("x1_check", case=tag, shape=[B, N, H, W], max_abs_err=errs,
-            events=int(want.sum().item()), weight_sum=float(want_base.sum().item()))
+                .item() for (n, c), (o, _) in got.items()}
+        same = all(torch.equal(o, again) for o, again in got.values())
+        extra = {}
+        if tag == "hot":
+            extra = {"hot_cells": [want[0, 7, 5].item(), want[1, 401, W + 300].item()],
+                     "hot_cells_x1b": [got["exp_voxelize_fused_onehot", 2048][0][0, 7, 5].item(),
+                                       got["exp_voxelize_fused_onehot", 2048][0][1, 401, W + 300]
+                                       .item()]}
+            # (the second sample's other events may add to its hot cell)
+            check(extra["hot_cells"][0] == N and extra["hot_cells"][1] >= X1_HOT,
+                  f"x1_check hot: the plain version counts {extra['hot_cells']}")
+        say("x1_check", case=tag, shape=[B, N, H, W], plan=X.x1_plan(B, H, W)._asdict(),
+            max_abs_err=errs, identical_across_launches=same,
+            events=int(want.sum().item()), weight_sum=float(want_base.sum().item()), **extra)
         check(max(errs.values()) == 0, f"X1 differs from its plain version at {tag}: {errs}")
+        check(same, f"X1 at {tag}: two launches on the same events differ")
         if tag == "seg":
             seg = {n: errs[f"{n}_c{c}"] for n, c in got}
+        del got
     B, N, H, W = X.SHAPES["seg"]
     xs, ys = (t.to(dev) for t in X.make_events(B, N, H, W, "cpu")[:2])
     wpos, wneg = (torch.rand(B, N, generator=g).to(dev) for _ in range(2))
@@ -3610,41 +3651,68 @@ def time_x2(torch, dev, gpu):
     return out
 
 
+def x1_variants(X, ev, H, W):
+    """(counter name, kernel call, plain call, int32 / f32 arrays read) of
+    X1a, X1b and X1c as the reference times them (chunk 2048; X1c 8192 with
+    inner 2048), on make_events' arrays ``ev``."""
+    xs, ys, wpos, wneg, col, ysp = ev
+    return (("exp_voxelize_base", lambda: X.exp_voxelize_base(xs, ys, wpos, wneg, H, W, 2048),
+             lambda: X.exp_voxelize_base_reference(xs, ys, wpos, wneg, H, W), 4),
+            ("exp_voxelize_fused_onehot", lambda: X.exp_voxelize_fused_onehot(col, ysp, H, W),
+             lambda: X.exp_voxelize_fused_reference(col, ysp, H, W), 2),
+            ("exp_voxelize_fused_loop",
+             lambda: X.exp_voxelize_fused_loop(col, ysp, H, W, 8192, 2048),
+             lambda: X.exp_voxelize_fused_reference(col, ysp, H, W), 2))
+
+
+X1_AIM_MS = {"seg": 3.3, "cls": 1.04}   # half the contraction's rate at the bf16 peak
+
+
 def time_experiments(torch, dev, gpu):
     """X1a, X1b and X1c at the seg shape (8 x 180,224 events, 440 x 640) on
     the reference's events, each beside its plain version (in turns), with
-    the torch.bincount yardstick and K1 on the same packed events; X2 (see
-    time_x2); X3 at X3_SHAPE bf16 beside its plain version (in turns), K2b and
-    the SDPA backward. Returns {counter name: (ms, plain_ms, bound,
+    the torch.bincount yardstick and K1 on the same packed events, and at the
+    cls shape (64 x 30,720, 256 x 256); device ms by the profiler, and one
+    ``x1_rate`` line a variant and shape: TFLOP/s of the one-hot contraction
+    and its share of the contraction's time at the bf16 peak; X2 (see
+    time_x2); X3 at X3_SHAPE bf16 beside its plain version (in turns), K2b
+    and the SDPA backward. Returns {counter name: (ms, plain_ms, bound,
     library_ms)}."""
     from mem_tpu_torch.ops import attention as A
     from mem_tpu_torch.ops import voxelize_hist as vh
     from mem_tpu_torch.tools import exp_voxelize as X
 
     out = {}
-    B, N, H, W = X.SHAPES["seg"]
-    xs, ys, wpos, wneg, col, ysp = X.make_events(B, N, H, W, dev)
-    t_lib, lib_equal = bincount_ms(torch, col, ysp, H, W,
-                                   vh.hist_planes_cols_reference(col, ysp, H, W))
-    t_k1 = time_ms(lambda: vh.hist_planes_cols(col, ysp, H, W))
-    flop = 2 * B * N * H * 2 * W   # the one-hot contraction, as information
-    for name, kernel, plain, arrays in (
-            ("exp_voxelize_base", lambda: X.exp_voxelize_base(xs, ys, wpos, wneg, H, W, 2048),
-             lambda: X.exp_voxelize_base_reference(xs, ys, wpos, wneg, H, W), 4),
-            ("exp_voxelize_fused_onehot", lambda: X.exp_voxelize_fused_onehot(col, ysp, H, W),
-             lambda: X.exp_voxelize_fused_reference(col, ysp, H, W), 2),
-            ("exp_voxelize_fused_loop",
-             lambda: X.exp_voxelize_fused_loop(col, ysp, H, W, 8192, 2048),
-             lambda: X.exp_voxelize_fused_reference(col, ysp, H, W), 2)):
-        t_k, t_p = in_turns(torch, plain, kernel, runs=10)
-        bnd = hist_bound(B, N, H, W, arrays)
-        say(f"time_{name}", gpu=gpu, shape=[B, N, H, W], kernel_ms=t_k, plain_ms=t_p,
-            bincount_ms=t_lib, bincount_equals_plain=lib_equal, k1_ms=t_k1, bound_ms=bnd[0],
-            bound_by=bnd[1], contraction_gflop=flop / 1e9,
-            contraction_ms_at_bf16_peak=flop / PEAK_BF16_FLOPS * 1e3,
-            kernel_gev_s=B * N / t_k / 1e6, kernel_tflop_s=flop / t_k / 1e9)
-        out[name] = (t_k, t_p, bnd, t_lib)
-    del xs, ys, wpos, wneg, col, ysp
+    for tag in ("seg", "cls"):
+        B, N, H, W = X.SHAPES[tag]
+        ev = X.make_events(B, N, H, W, dev)
+        col, ysp = ev[4:]
+        flop = 2 * B * N * H * 2 * W   # the one-hot contraction
+        t_flop = flop / PEAK_BF16_FLOPS * 1e3
+        if tag == "seg":
+            t_lib, lib_equal = bincount_ms(torch, col, ysp, H, W,
+                                           vh.hist_planes_cols_reference(col, ysp, H, W))
+            t_k1 = time_ms(lambda: vh.hist_planes_cols(col, ysp, H, W))
+        for name, kernel, plain, arrays in x1_variants(X, ev, H, W):
+            t_dev = kernel_device_ms(torch, kernel, ("x1_wgmma_kernel",), n=10, per_launch=True)
+            if tag == "seg":
+                t_k, t_p = in_turns(torch, plain, kernel, runs=10)
+                bnd = hist_bound(B, N, H, W, arrays)
+                say(f"time_{name}", gpu=gpu, shape=[B, N, H, W], kernel_ms=t_k,
+                    device_ms=t_dev, plain_ms=t_p, bincount_ms=t_lib,
+                    bincount_equals_plain=lib_equal, k1_ms=t_k1, bound_ms=bnd[0],
+                    bound_by=bnd[1], contraction_gflop=flop / 1e9,
+                    contraction_ms_at_bf16_peak=t_flop, kernel_gev_s=B * N / t_k / 1e6)
+                out[name] = (t_k, t_p, bnd, t_lib)
+            else:
+                t_k = time_ms(kernel, runs=10)
+            say("x1_rate", gpu=gpu, kernel=name, case=tag, shape=[B, N, H, W],
+                plan=X.x1_plan(B, H, W)._asdict(), kernel_ms=t_k, device_ms=t_dev,
+                tflop_s=flop / t_k / 1e9, contraction_ms_at_bf16_peak=t_flop,
+                share_of_contraction_bound=t_flop / t_k,
+                device_share_of_contraction_bound=t_dev and t_flop / t_dev,
+                aim_ms=X1_AIM_MS[tag])
+        del ev, col, ysp
     out.update(time_x2(torch, dev, gpu))
 
     B, N, Hh, D = X3_SHAPE

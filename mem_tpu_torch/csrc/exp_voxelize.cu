@@ -1,10 +1,11 @@
 // X1a, X1b, X1c: the voxelizer experiment's one-hot contractions
-// (scripts/exp_voxelize.py) on the H100's tensor cores.
+// (scripts/exp_voxelize.py) on the H100's tensor cores, as wgmma.
 //
-// Replaces scripts/exp_voxelize.py:_kernel_base (X1a), _kernel_fused_onehot
-// (X1b) and _kernel_fused_loop (X1c), three TPU formulations of the count
-// planes that K1 (csrc/voxelize_hist.cu) computes with integer atomics:
-// one-hot factors built in VMEM and contracted on the matrix unit,
+// Replaces scripts/exp_voxelize.py:25 _kernel_base (X1a), :47
+// _kernel_fused_onehot (X1b) and :66 _kernel_fused_loop (X1c), three TPU
+// formulations of the count planes that K1 (csrc/voxelize_hist.cu) counts in
+// shared memory: one-hot factors built in VMEM and contracted on the matrix
+// unit,
 //
 //   out[b] (H, 2W) f32 = onehot(ys)^T (H x N) . onehot(col) (N x 2W)
 //
@@ -17,186 +18,380 @@
 // - X1c: X1b's function, each chunk consumed `inner` events at a time.
 //
 // The experiment asks whether the matrix-unit formulation has a place on
-// Hopper beside K1's atomics, so the variants keep it: every event enters
-// every output tile of its sample as a one-hot column of a bf16
-// mma.sync.m16n8k16 (f32 accumulate), the zeros included. What bounds that
-// on the H100 is not the bytes (K1's bound) but building the fragments: at
-// the seg shape (8 x 180,224 events, 440 x 1280 planes) the contraction is
-// 8.3e11 multiply-adds, 1.7 ms at the bf16 peak, and every mma needs its B
-// fragment made from the staged event indices by integer instructions.
+// Hopper beside K1, so the kernels keep it: every event enters every output
+// tile of its sample as a one-hot column of a bf16 product with f32
+// accumulators, the zeros included. What bounds that is the contraction at
+// the bf16 dense peak, not the histogram's bytes: at the seg shape (8 x
+// 180,224 events, 440 x 1280 planes) 2 * 8 * 180,224 * 440 * 1280 = 1.62
+// TFLOP, 1.64 ms at 989 TFLOP/s; at cls (64 x 30,720, 256 x 512) 0.52 ms.
 //
-// Design (the block, the staging and the write-out are exp_voxelize.cuh's,
-// shared with X2; the k-step is written out in the kernel, which says why).
-// One block of 4 warps owns a 64-row x 128-column tile of one sample's plane
-// as f32 accumulators in registers (a warp: 32 rows x 64 columns, 2 x 8
-// m16n8 tiles) and streams all of the sample's events through shared memory,
-// `stage` events at a time. For each 16-event k-step a thread
-// reads the 4 events its fragments cover and turns each into a bit mask of
-// the row (or column) tiles it hits among the thread's own rows (columns),
-// two events per 32-bit word; a masked bit times 0x3F80 >> bit is bf16 1.0 in
-// its half of the fragment register, so a B fragment costs two integer
-// instructions and serves both of the warp's m16 tiles. The tile is written
-// once: the output needs no zero fill and no atomics.
+// Design. A block owns a 64-row x 2N-column tile of one sample's plane (N =
+// 96 or 128, the launch plan's choice: mem_tpu_torch/tools/exp_voxelize.py
+// x1_plan counts the waves on the card's SMs) and streams all of the
+// sample's events through it:
+// - a producer warp fills a ring of two event stages, `chunk` events each,
+//   with 1-D bulk copies on mbarriers (16-byte aligned: a stage copies from
+//   the aligned word below its first event, and the at most three events past
+//   the last aligned word of a ragged stage are read from device memory);
+// - two builder warpgroups, taking the slots of a ring of four in turn,
+//   write the operands of each 64-event slot: A (64 rows x 64 events) and B
+//   (2N columns x 64 events), both K-major bf16 in the 128-byte swizzle,
+//   zeroed once at the start. Each event writes its one value into A (1.0 at
+//   row y) and into B (1.0 at column col; X1a: bf16(wpos) at x and
+//   bf16(wneg) at W + x), one thread an event and operand: O(1)
+//   shared-memory stores a block per event. Once the products that read the
+//   slot have completed, the same threads write zeros back at the same
+//   places, before the slot's next events;
+// - two consumer warpgroups each issue wgmma m64nNk16 (both operands from
+//   shared memory) on their N columns of B, four k16 steps a slot, as each
+//   slot is built (mbarriers), keep the last slot's products in flight, and
+//   hand a slot back to its builders once its products are done: the
+//   builders run up to two slots ahead of the products;
+// - the accumulators are written once, from registers, as float2 stores:
+//   no zero fill and no atomics.
 //
 // Numerics: the one-hot products are exact and the f32 sums of integer
 // counts stay exact below 2^24 (a cell gets at most N = 180,224 events), so
 // X1b and X1c equal K1's plain version bit for bit; X1a does as long as
 // every partial sum of bf16 weights is representable (dyadic weights).
 //
-// The reference's `chunk` is the staging size of X1a and X1b; X1c stages
-// `inner` events at a time, so its wrapper launches X1b's entry point with
-// chunk = inner (after checking that inner divides chunk: the reference
-// loops chunk // inner times and drops the tail of every chunk otherwise).
-// `bgroup`, a TPU block constraint, has no counterpart. No chunk is skipped:
-// skipping by row band is K4's and X2's.
+// The reference's `chunk` is the events of one ring stage (a multiple of the
+// 64-event slot); X1c stages `inner` events at a time, so its wrapper
+// launches X1b's entry point with chunk = inner (after checking that inner
+// divides chunk: the reference loops chunk // inner times and drops the tail
+// of every chunk otherwise). `bgroup`, a TPU block constraint, has no
+// counterpart. No event is skipped: skipping by row band is K4's and X2's.
 //
 // Allocates nothing and does not synchronise.
 
-#include "exp_voxelize.cuh"
+#include <cstdint>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include "gemm_sm90.cuh"   // hopper.cuh's helpers, wgmma_n128, fence_acc
 
 namespace {
 
-// two events' hit masks -> a 0xFFFF mask per half, for X1a's weights
-__device__ __forceinline__ uint32_t halves(uint32_t m, int i) {
-  return ((m >> i) & 0x10001u) * 0xFFFFu;
+constexpr int kRows = 64;                       // a block's rows: wgmma's m
+constexpr int kDepth = 64;                      // events of a slot: one 128-byte bf16 row
+constexpr int kSlots = 4;                       // the one-hot ring
+constexpr int kConsumers = 256;                 // two warpgroups of products
+constexpr int kBuilders = 256;                  // two warpgroups writing the one-hots
+constexpr int kThreads = kConsumers + kBuilders + 32;   // and the producer warp
+constexpr int kABytes = kRows * kDepth * 2;     // an A slot, 8 KB
+constexpr int kMaxSmem = 232448;                // what one block may use
+constexpr uint16_t kOne = 0x3F80;               // bf16 1.0
+constexpr uint32_t kNone = 0xFFFFFFFFu;         // no entry written
+
+template <int N>
+constexpr int kBBytes = 2 * N * kDepth * 2;     // a B slot: both warpgroups' columns
+
+// shared memory of a launch: the 1024 B in front align the rings for the
+// swizzle; then the A and B rings, the two event stages (words arrays of
+// chunk + 4 int32 each: the copy may start up to three words early) and the
+// mbarriers (full and empty of each stage and each slot)
+template <int N>
+constexpr size_t smem_bytes(int words, int chunk) {
+  return 1024 + static_cast<size_t>(kSlots) * (kABytes + kBBytes<N>) +
+         static_cast<size_t>(2) * words * (chunk + 4) * 4 + 16 * (2 + kSlots);
 }
 
-__device__ __forceinline__ uint32_t bf16_bits(float x) {
-  const __nv_bfloat16 b = __float2bfloat16_rn(x);
-  return static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(&b));
+__device__ __forceinline__ void st_shared_u16(uint32_t addr, uint16_t v) {
+  asm volatile("st.shared.u16 [%0], %1;" :: "r"(addr), "h"(v) : "memory");
 }
 
-// kRaw: X1a's four raw arrays (a = xs, b = ys, wpos, wneg); else X1b's packed
-// (a = col, b = ys). Shared memory: stage events of a and of ys, and for X1a
-// one word of bf16(wpos) | bf16(wneg) << 16 per event.
-template <bool kRaw>
-__global__ void __launch_bounds__(kThreads)
-onehot_planes_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ ys,
-                     const float* __restrict__ wpos, const float* __restrict__ wneg,
-                     float* __restrict__ out, int n, int h, int w, int stage) {
-  extern __shared__ __align__(16) int32_t smem[];
-  int32_t* sa = smem;              // [stage] col (X1b) or x (X1a)
-  int32_t* sy = sa + stage;        // [stage] y
-  uint32_t* sw = reinterpret_cast<uint32_t*>(sy + stage);   // [stage] X1a weights
+__device__ __forceinline__ void st_shared_zero16(uint32_t addr) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};" :: "r"(addr), "r"(0) : "memory");
+}
 
-  const int w2 = 2 * w;
+// byte offset of element (row, k) of a K-major tile of 128-byte rows in the
+// 128 B swizzle: 16-byte chunk k / 8 of the row, XOR the row mod 8
+__device__ __forceinline__ uint32_t sw128(unsigned row, int k) {
+  return row * 128 + ((((k >> 3) ^ row) & 7) << 4) + ((k & 7) << 1);
+}
+
+__device__ __forceinline__ uint16_t bf16_bits(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+
+// d += a b over one k16 step: wgmma m64n96k16, both operands K-major in
+// shared memory (gemm_sm90.cuh's wgmma_n128 is the N = 128 one)
+__device__ __forceinline__ void wgmma_n96(float (&d)[48], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, "
+      "%47"
+      "}, %48, %49, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_x1(float (&d)[N / 2], uint64_t a, uint64_t b) {
+  if constexpr (N == 96) {
+    wgmma_n96(d, a, b);
+  } else {
+    wgmma_n128<0>(d, a, b, 1);
+  }
+}
+
+// kRaw: X1a's four raw arrays (a = xs, ys, wpos, wneg); else X1b's packed
+// (a = col, ys). Grid: (column tiles of 2N, row tiles of 64, samples).
+// Threads: the consumer warpgroups 0 and 1, the builder warpgroups 2 and
+// 3, the producer warp.
+template <bool kRaw, int N>
+__global__ void __launch_bounds__(kThreads, 1)
+x1_wgmma_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ ys,
+                const float* __restrict__ wpos, const float* __restrict__ wneg,
+                float* __restrict__ out, int n, int h, int w, int chunk) {
+  constexpr int kWords = kRaw ? 4 : 2;
+  constexpr int kB = kBBytes<N>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sa = (raw + 1023) & ~uint32_t{1023};       // A ring
+  const uint32_t sb = sa + kSlots * kABytes;                 // B ring
+  const int stride = chunk + 4;                              // int32 of an array in a stage
+  const uint32_t se = sb + kSlots * kB;                      // event stages
+  const uint32_t ev_full = se + 2 * kWords * stride * 4, ev_empty = ev_full + 16;
+  const uint32_t slot_full = ev_empty + 16, slot_empty = slot_full + 8 * kSlots;
+  const int32_t* events = reinterpret_cast<const int32_t*>(smem_raw + (se - raw));
+
+  const int c0 = blockIdx.x * 2 * N, r0 = blockIdx.y * kRows;
   const int64_t b = blockIdx.z;
-  const int32_t* ga = a + b * n;
-  const int32_t* gy = ys + b * n;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int wm = warp / 2, wn = warp % 2;
-  const int row_base = blockIdx.y * kTileRows + wm * 32 + g;   // + 8 i, i < 4
-  const int col_base = blockIdx.x * kTileCols + wn * 64 + g;   // + 8 nt, nt < 8
+  const int stages = (n + chunk - 1) / chunk;
+  const int per_stage = chunk / kDepth;
+  const int slots = n <= 0 ? 0 : (stages - 1) * per_stage +
+                                     (n - (stages - 1) * chunk + kDepth - 1) / kDepth;
 
-  float acc[2][8][4];
-  zero_tile(acc);
+  for (uint32_t off = threadIdx.x * 16; off < kSlots * (kABytes + kB); off += kThreads * 16) {
+    st_shared_zero16(sa + off);
+  }
+  fence_async_smem();   // the zeros, before the first product reads them
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(ev_full + 8 * s, 1);
+      mbar_init(ev_empty + 8 * s, kBuilders);
+    }
+    for (int u = 0; u < kSlots; ++u) {
+      mbar_init(slot_full + 8 * u, kBuilders / 2);
+      mbar_init(slot_empty + 8 * u, kConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
 
-  for (int s0 = 0; s0 < n; s0 += stage) {
-    const int len = min(stage, n - s0);
-    const int padded = stage_events<16>(sa, sy, ga, gy, s0, len, [&](int i, bool in) {
-      if constexpr (kRaw) {
-        sw[i] = in ? bf16_bits(__ldg(wpos + b * n + s0 + i)) |
-                         (bf16_bits(__ldg(wneg + b * n + s0 + i)) << 16)
-                   : 0u;
-      }
-    });
-
-    // The k-step stays written out here rather than as exp_voxelize.cuh's
-    // onehot_step_bf16 (X2b's copy of X1b's branch): every split of it into
-    // a function that was tried moved X1b from 126 to 128 registers (ptxas,
-    // sm_90a), and X1 keeps its parent's code.
-    for (int k = 0; k < padded; k += 16) {
-      // this thread's events: k + 2t, k + 2t + 1 (lo) and k + 2t + 8, k + 2t + 9 (hi)
-      const int2 ylo = *reinterpret_cast<const int2*>(sy + k + 2 * t);
-      const int2 yhi = *reinterpret_cast<const int2*>(sy + k + 2 * t + 8);
-      const int2 clo = *reinterpret_cast<const int2*>(sa + k + 2 * t);
-      const int2 chi = *reinterpret_cast<const int2*>(sa + k + 2 * t + 8);
-      const uint32_t ry_lo = hit(ylo.x, row_base, 32) | (hit(ylo.y, row_base, 32) << 16);
-      const uint32_t ry_hi = hit(yhi.x, row_base, 32) | (hit(yhi.y, row_base, 32) << 16);
-      // A fragments of the two m16 tiles: rows g (bit 2 mi) and g + 8 (bit 2 mi + 1)
-      uint32_t fa[2][4];
+  if (threadIdx.x >= kConsumers + kBuilders) {
+    // producer warp: one lane keeps the two event stages full
+    if (threadIdx.x != kConsumers + kBuilders) return;
+    const int32_t* src[4] = {a, ys, reinterpret_cast<const int32_t*>(wpos),
+                             reinterpret_cast<const int32_t*>(wneg)};
+    for (int k = 0; k < stages; ++k) {
+      const int s = k & 1;
+      if (k >= 2) mbar_wait(ev_empty + 8 * s, ((k >> 1) - 1) & 1);
+      const int64_t first = b * n + static_cast<int64_t>(k) * chunk;
+      const int len = min(chunk, n - k * chunk);
+      const int64_t lo = first & ~int64_t{3}, hi = (first + len) & ~int64_t{3};
+      const uint32_t bytes = static_cast<uint32_t>(hi - lo) * 4;
+      mbar_expect_tx(ev_full + 8 * s, bytes * kWords);
+      if (bytes > 0) {
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        fa[mi][0] = ones(ry_lo, 2 * mi);
-        fa[mi][1] = ones(ry_lo, 2 * mi + 1);
-        fa[mi][2] = ones(ry_hi, 2 * mi);
-        fa[mi][3] = ones(ry_hi, 2 * mi + 1);
-      }
-      if constexpr (kRaw) {
-        // column x takes bf16(wpos), column W + x bf16(wneg); x outside [0, W) none
-        const uint2 wlo = *reinterpret_cast<const uint2*>(sw + k + 2 * t);
-        const uint2 whi = *reinterpret_cast<const uint2*>(sw + k + 2 * t + 8);
-        const int xs[4] = {clo.x, clo.y, chi.x, chi.y};
-        uint32_t hp[4], hn[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const bool ok = static_cast<unsigned>(xs[e]) < static_cast<unsigned>(w);
-          hp[e] = ok ? hit(xs[e], col_base, 64) : 0u;
-          hn[e] = ok ? hit(xs[e] + w, col_base, 64) : 0u;
-        }
-        const uint32_t mp_lo = hp[0] | (hp[1] << 16), mp_hi = hp[2] | (hp[3] << 16);
-        const uint32_t mn_lo = hn[0] | (hn[1] << 16), mn_hi = hn[2] | (hn[3] << 16);
-        const uint32_t wp_lo = (wlo.x & 0xFFFFu) | (wlo.y << 16);
-        const uint32_t wn_lo = (wlo.x >> 16) | (wlo.y & 0xFFFF0000u);
-        const uint32_t wp_hi = (whi.x & 0xFFFFu) | (whi.y << 16);
-        const uint32_t wn_hi = (whi.x >> 16) | (whi.y & 0xFFFF0000u);
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          const uint32_t b0 = (wp_lo & halves(mp_lo, nt)) | (wn_lo & halves(mn_lo, nt));
-          const uint32_t b1 = (wp_hi & halves(mp_hi, nt)) | (wn_hi & halves(mn_hi, nt));
-          mma_bf16(acc[0][nt], fa[0], b0, b1);
-          mma_bf16(acc[1][nt], fa[1], b0, b1);
-        }
-      } else {
-        const uint32_t mc_lo = hit(clo.x, col_base, 64) | (hit(clo.y, col_base, 64) << 16);
-        const uint32_t mc_hi = hit(chi.x, col_base, 64) | (hit(chi.y, col_base, 64) << 16);
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          const uint32_t b0 = ones(mc_lo, nt), b1 = ones(mc_hi, nt);
-          mma_bf16(acc[0][nt], fa[0], b0, b1);
-          mma_bf16(acc[1][nt], fa[1], b0, b1);
+        for (int q = 0; q < kWords; ++q) {
+          bulk_load(se + (s * kWords + q) * stride * 4, src[q] + lo, bytes, ev_full + 8 * s);
         }
       }
     }
+    return;
   }
 
-  store_tile(out + b * h * static_cast<int64_t>(w2), acc, row_base, col_base, g, t, h, w2);
+  if (threadIdx.x >= kConsumers) {
+    // builder warpgroups: warpgroup bw builds the slots u = bw mod 2 of the
+    // ring, the other's in turn; its thread bt writes the entries of event e
+    // of each: role 0 its A entry, role 1 its B entry (X1a: two, wpos at x
+    // and wneg at W + x), and zeroes them again once the slot's products are
+    // done
+    const int bw = (threadIdx.x - kConsumers) / 128, bt = threadIdx.x % 128;
+    const int e = bt & (kDepth - 1), role = bt / kDepth;
+    const int32_t* gpos = reinterpret_cast<const int32_t*>(wpos);
+    const int32_t* gneg = reinterpret_cast<const int32_t*>(wneg);
+    uint32_t old[kSlots][2];   // this thread's entries in each slot of the ring
+#pragma unroll
+    for (int u = 0; u < kSlots; ++u) old[u][0] = old[u][1] = kNone;
+    int k = 0, i = 0;          // the stage, the slot in it
+    int len = 0, head = 0, copied = 0;
+    int64_t first = 0;
+    const int32_t* stage = events;
+    // event ev of the stage, array q: from the stage, or past its last
+    // aligned word from device memory
+    auto load = [&](int q, const int32_t* g, int ev) {
+      return head + ev < copied ? stage[q * stride + head + ev] : __ldg(g + first + ev);
+    };
+    for (int s0 = 0; s0 < slots; s0 += kSlots) {
+#pragma unroll
+      for (int u = 0; u < kSlots; ++u) {
+        if (s0 + u < slots) {
+          if (i == 0) {
+            first = b * n + static_cast<int64_t>(k) * chunk;
+            len = min(chunk, n - k * chunk);
+            head = static_cast<int>(first & 3);
+            copied = static_cast<int>(((first + len) & ~int64_t{3}) - (first & ~int64_t{3}));
+            stage = events + (k & 1) * kWords * stride;
+            mbar_wait(ev_full + 8 * (k & 1), (k >> 1) & 1);
+          }
+          if ((u & 1) == bw) {
+            // the products that read this slot kSlots slots ago are done
+            if (s0 > 0) mbar_wait(slot_empty + 8 * u, ((s0 / kSlots) - 1) & 1);
+            const uint32_t slot_a = sa + u * kABytes, slot_b = sb + u * kB;
+#pragma unroll
+            for (int x = 0; x < 2; ++x) {
+              if (old[u][x] != kNone) st_shared_u16(old[u][x], 0);
+            }
+            uint32_t at[2] = {kNone, kNone};
+            uint16_t val[2] = {kOne, kOne};
+            const int ev = i * kDepth + e;   // the event in the stage
+            if (ev < len) {
+              if (role == 0) {                                  // A: row y
+                const unsigned rel = static_cast<unsigned>(load(1, ys, ev) - r0);
+                if (rel < static_cast<unsigned>(kRows)) at[0] = slot_a + sw128(rel, e);
+              } else if constexpr (kRaw) {                      // B: columns x, W + x
+                // the three loads first: one wait for them, not two
+                const int x = load(0, a, ev);
+                val[0] = bf16_bits(__int_as_float(load(2, gpos, ev)));
+                val[1] = bf16_bits(__int_as_float(load(3, gneg, ev)));
+                if (static_cast<unsigned>(x) < static_cast<unsigned>(w)) {   // else nothing
+                  const unsigned rp = static_cast<unsigned>(x - c0);
+                  const unsigned rn = static_cast<unsigned>(x + w - c0);
+                  if (rp < static_cast<unsigned>(2 * N)) at[0] = slot_b + sw128(rp, e);
+                  if (rn < static_cast<unsigned>(2 * N)) at[1] = slot_b + sw128(rn, e);
+                }
+              } else {                                          // B: column col
+                const unsigned rel = static_cast<unsigned>(load(0, a, ev) - c0);
+                if (rel < static_cast<unsigned>(2 * N)) at[0] = slot_b + sw128(rel, e);
+              }
+            }
+#pragma unroll
+            for (int x = 0; x < 2; ++x) {
+              if (at[x] != kNone) st_shared_u16(at[x], val[x]);
+              old[u][x] = at[x];
+            }
+            fence_async_smem();
+            mbar_arrive(slot_full + 8 * u);
+          }
+          if (i == per_stage - 1 || s0 + u == slots - 1) mbar_arrive(ev_empty + 8 * (k & 1));
+          if (++i == per_stage) {
+            i = 0;
+            ++k;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroups: wgmma on each slot as it is built, one slot in
+  // flight while the next is issued; a slot goes back to the builders once
+  // its products are done
+  const int tid = threadIdx.x, wg = tid / 128, lane = tid % 32;
+  float acc[N / 2];
+#pragma unroll
+  for (int j = 0; j < N / 2; ++j) acc[j] = 0.f;
+  for (int s0 = 0; s0 < slots; s0 += kSlots) {
+#pragma unroll
+    for (int u = 0; u < kSlots; ++u) {
+      if (s0 + u < slots) {
+        mbar_wait(slot_full + 8 * u, (s0 / kSlots) & 1);
+        const uint32_t slot_a = sa + u * kABytes, slot_b = sb + u * kB + wg * N * 128;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kDepth / 16; ++kk) {
+          wgmma_x1<N>(acc, sw128_desc(slot_a + 32 * kk), sw128_desc(slot_b + 32 * kk));
+        }
+        wgmma_commit();
+        wgmma_wait<1>();   // the last slot's products are done
+        if (s0 + u > 0 && lane == 0) mbar_arrive(slot_empty + 8 * ((u + kSlots - 1) % kSlots));
+      }
+    }
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+
+  // the accumulator of m64nN: warp q of the warpgroup holds rows 16 q + g and
+  // 16 q + g + 8, columns 8 j + 2 t and + 1 (g = lane / 4, t = lane % 4)
+  const int g = lane / 4, t = lane % 4;
+  const int ra = r0 + (tid / 32) % 4 * 16 + g, w2 = 2 * w;
+  const int cb = c0 + wg * N + 2 * t;
+  float* plane = out + b * h * static_cast<int64_t>(w2);
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int c = cb + 8 * j;
+    if (c >= w2) break;
+    if (ra < h) {
+      *reinterpret_cast<float2*>(plane + static_cast<int64_t>(ra) * w2 + c) =
+          make_float2(acc[4 * j], acc[4 * j + 1]);
+    }
+    if (ra + 8 < h) {
+      *reinterpret_cast<float2*>(plane + static_cast<int64_t>(ra + 8) * w2 + c) =
+          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+  }
 }
 
-template <bool kRaw>
+template <bool kRaw, int N>
 int launch(const int32_t* a, const int32_t* ys, const float* wpos, const float* wneg,
-           float* out, int b, int n, int h, int w, int stage, cudaStream_t stream) {
+           float* out, int b, int n, int h, int w, int chunk, cudaStream_t stream) {
   if (b <= 0 || h <= 0 || w <= 0) return static_cast<int>(cudaSuccess);
-  if (b > 65535 || stage <= 0 || stage % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(stage) * (kRaw ? 3 : 2) * sizeof(int32_t);
+  const size_t smem = smem_bytes<N>(kRaw ? 4 : 2, chunk);
+  if (b > 65535 || n < 0 || chunk <= 0 || chunk % kDepth != 0 || smem > kMaxSmem) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   static size_t opted = 48 * 1024;   // the attribute is per kernel: raise it as needed
   if (smem > opted) {
     const cudaError_t e = cudaFuncSetAttribute(
-        onehot_planes_kernel<kRaw>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        x1_wgmma_kernel<kRaw, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
     opted = smem;
   }
-  const dim3 grid((2 * w + kTileCols - 1) / kTileCols, (h + kTileRows - 1) / kTileRows, b);
-  onehot_planes_kernel<kRaw><<<grid, kThreads, smem, stream>>>(a, ys, wpos, wneg, out, n, h, w,
-                                                                stage);
+  const dim3 grid((2 * w + 2 * N - 1) / (2 * N), (h + kRows - 1) / kRows, b);
+  x1_wgmma_kernel<kRaw, N><<<grid, kThreads, smem, stream>>>(a, ys, wpos, wneg, out, n, h, w,
+                                                             chunk);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kRaw>
+int launch_plan(const int32_t* a, const int32_t* ys, const float* wpos, const float* wneg,
+                float* out, int b, int n, int h, int w, int chunk, int tile_n,
+                cudaStream_t stream) {
+  switch (tile_n) {
+    case 96: return launch<kRaw, 96>(a, ys, wpos, wneg, out, b, n, h, w, chunk, stream);
+    case 128: return launch<kRaw, 128>(a, ys, wpos, wneg, out, b, n, h, w, chunk, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
-// X1a: xs, ys int32, wpos, wneg f32, all (b, n); out (b, h, 2w) f32.
+// X1a: xs, ys int32, wpos, wneg f32, all (b, n), 16-byte aligned; out (b, h,
+// 2w) f32. tile_n (96 or 128): the columns of each warpgroup, the plan's.
 extern "C" int mem_exp_voxelize_base(const int32_t* xs, const int32_t* ys, const float* wpos,
                                      const float* wneg, float* out, int b, int n, int h, int w,
-                                     int chunk, cudaStream_t stream) {
-  return launch<true>(xs, ys, wpos, wneg, out, b, n, h, w, chunk, stream);
+                                     int chunk, int tile_n, cudaStream_t stream) {
+  return launch_plan<true>(xs, ys, wpos, wneg, out, b, n, h, w, chunk, tile_n, stream);
 }
 
-// X1b: col, ys int32 (b, n); out (b, h, 2w) f32. X1c is this launch with
-// chunk = inner.
+// X1b: col, ys int32 (b, n), 16-byte aligned; out (b, h, 2w) f32. X1c is
+// this launch with chunk = inner.
 extern "C" int mem_exp_voxelize_fused_onehot(const int32_t* col, const int32_t* ys, float* out,
-                                             int b, int n, int h, int w, int chunk,
+                                             int b, int n, int h, int w, int chunk, int tile_n,
                                              cudaStream_t stream) {
-  return launch<false>(col, ys, nullptr, nullptr, out, b, n, h, w, chunk, stream);
+  return launch_plan<false>(col, ys, nullptr, nullptr, out, b, n, h, w, chunk, tile_n, stream);
 }

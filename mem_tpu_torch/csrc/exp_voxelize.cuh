@@ -1,8 +1,7 @@
-// The one-hot contraction of the voxelizer experiments, shared by X1
-// (exp_voxelize.cu) and X2 (exp_voxelize2.cu): the block's tile, the hit
-// masks that make the fragments, the staging loop and the write-out, and
-// X1b's bf16 k-step as a function for X2b (X1 keeps it written out in its
-// kernel, which says why).
+// The mma.sync one-hot contraction of the voxelizer experiment X2
+// (exp_voxelize2.cu), which alone includes this file: the block's tile, the
+// hit masks that make the fragments, the staging loop and the write-out, and
+// the bf16 k-step of X2b.
 //
 // A block of 4 warps owns a 64-row x 128-column tile of one sample's
 // (rows, 2W) plane as accumulators in registers: warp (wm, wn) holds rows

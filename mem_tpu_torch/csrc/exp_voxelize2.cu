@@ -28,15 +28,15 @@
 // Design (the block, the staging and the write-out are exp_voxelize.cuh's):
 // one block of 4 warps owns a 64-row x 128-column tile of one sample's
 // plane in registers and streams events through shared memory a chunk at a
-// time, as X1b does.
+// time.
 // - int8 (X2a, X2c): mma.sync.m16n8k32.s32.s8.s8.s32. A thread's A and B
 //   registers hold four int8 one-hots each; by the PTX fragment layout it
 //   covers events 4t..4t+3 (lo) and 4t+16..4t+19 (hi) of each 32-event
 //   k-step. Each event's hit mask (4 row bits, 8 column bits) goes into one
 //   byte of a word, and (mask >> i) & 0x01010101 is the register of bit i:
 //   int8 1 in each byte whose event hits. A 32-event k-step is 16 mma per
-//   warp, as X1b's 16-event one is, with 16 hit masks instead of 8.
-// - bf16 (X2b): X1b's k-step (onehot_step_bf16).
+//   warp, as the bf16 16-event one is, with 16 hit masks instead of 8.
+// - bf16 (X2b): exp_voxelize.cuh's k-step (onehot_step_bf16).
 // - The tiled kernels (X2b, X2c) are two kernels in one launch, as K4's
 //   (voxelize_hist_sorted.cu): (a) chunk_minmax_kernel writes min and max
 //   of ys over every chunk of every sample into a (B, n_chunks, 2) int32
@@ -51,12 +51,12 @@
 // - Every output element is written once, by one thread: no zero fill and
 //   no atomics.
 //
-// What bounds it on the H100: as X1b, the integer instructions that build
-// the fragments (X1b ran a quarter of the bf16 peak), not the bytes (29.9 MB
-// at the seg shape, 0.009 ms) nor the products (1.6e12 one-hot
+// What bounds it on the H100: the integer instructions that build the
+// fragments (X1b ran a quarter of the bf16 peak on this block), not the
+// bytes (29.9 MB at the seg shape, 0.009 ms) nor the products (1.6e12 one-hot
 // multiply-adds, 0.82 ms at the int8 peak). int8 halves the mma count and
 // builds the fragments of 32 events with about 1.5 times the instructions of
-// X1b's 16; the band skip cuts the events a warp consumes to the chunks that
+// bf16's 16; the band skip cuts the events a warp consumes to the chunks that
 // meet its band (at 440 rows and ~410 sorted events per row per sample, a
 // 64-row band meets ~14 of the 88 chunks of 2048).
 //

@@ -71,8 +71,8 @@ SIGNATURES = {
                                       _I, _I, _I, _I, _F, _I, _P), _I),
     "mem_attention_bwd_blocked_bhnd": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                         _I, _I, _I, _I, _F, _I, _P), _I),
-    "mem_exp_voxelize_base": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P), _I),
-    "mem_exp_voxelize_fused_onehot": ((_P, _P, _P, _I, _I, _I, _I, _I, _P), _I),
+    "mem_exp_voxelize_base": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P), _I),
+    "mem_exp_voxelize_fused_onehot": ((_P, _P, _P, _I, _I, _I, _I, _I, _I, _P), _I),
     "mem_exp_voxelize2_fused_i8": ((_P, _P, _P, _I, _I, _I, _I, _I, _P), _I),
     "mem_exp_voxelize2_tiled": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P), _I),
     "mem_exp_voxelize2_tiled_i8": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P), _I),

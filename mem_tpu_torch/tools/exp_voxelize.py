@@ -3,11 +3,13 @@ of the count planes, on the H100's tensor cores, beside the production K1.
 
 Port of scripts/exp_voxelize.py. Its three Pallas bodies compute K1's
 (B, H, 2W) planes [pos | neg] as onehot(ys)^T . onehot(col) on the matrix
-unit; csrc/exp_voxelize.cu keeps that formulation on Hopper (bf16
-mma.sync, f32 accumulators, one 64 x 128 output tile per block streaming all
-of its sample's events), so the experiment asks the same question there:
-what the contraction costs against K1's integer atomics, and what the
-packing pass costs against reading the four raw arrays.
+unit; csrc/exp_voxelize.cu keeps that formulation on Hopper (bf16 wgmma
+with f32 accumulators, one 64-row x 2N-column output tile per block streaming
+all of its sample's events through a ring of bulk copies, the one-hot
+operands written sparsely into shared memory; :func:`x1_plan` picks N), so
+the experiment asks the same question there: what the contraction costs
+against K1, and what the packing pass costs against reading the four raw
+arrays.
 
 - X1a ``exp_voxelize_base``: from xs, ys, wpos, wneg (no ``pack_cols``);
   column x takes bf16(wpos), column W + x bf16(wneg).
@@ -17,10 +19,17 @@ packing pass costs against reading the four raw arrays.
   at a time; ``inner`` must divide ``chunk`` (the reference drops every
   chunk's tail otherwise).
 
+``chunk`` (X1c: ``inner``) is the events of one stage of the kernel's event
+ring: a positive multiple of the 64-event slot whose two stages fit a block's
+shared memory beside the one-hot rings (:func:`x1_smem`). The reference's
+sweep (X1a 2048; X1b 1024, 2048, 4096; X1c 8192 with inner 2048) fits; X1b
+above 4160 and X1a above 2048 do not. The operands must be 16-byte aligned
+(the ring's bulk copies), as every tensor PyTorch allocates is.
+
 CPU tensors take the plain versions; CUDA tensors launch the kernels or
 raise. On the card, run from the repo root::
 
-    python -m mem_tpu_torch.tools.exp_voxelize [seg|cls|all]
+    python -m mem_tpu_torch.tools.exp_voxelize [seg|cls|all|tiles]
 
 It prints the card's name and power limit, then per shape (seg: B=8,
 N=180,224, 440x640; cls: B=64, N=30,720, 256x256) one ``== name: ms -> Gev/s``
@@ -29,19 +38,25 @@ loop at 8192 with inner 2048; the reference's ``_g8`` block group has no
 counterpart here and is kept in the names only) and one for K1, each the
 median of RUNS CUDA-event timings after WARMUP calls, on the reference's
 seeded events. Each variant is first held bit for bit against its plain
-version on the whole batch ("WRONG RESULT" and exit 1 otherwise). Without a
-card it exits 2.
+version on the whole batch ("WRONG RESULT" and exit 1 otherwise). ``tiles``
+instead times X1b (chunk 2048) and X1a at both shapes with each tile width
+of X1_TILE_NS, the plan's and the other: the device time per launch from
+torch.profiler and its share of the contraction's time at the bf16 peak, one
+``== tiles`` line each, after the same check. Without a card it exits 2.
 """
 from __future__ import annotations
 
+import functools
 import sys
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from mem_tpu_torch.kernels import count_launch
 from mem_tpu_torch.ops.attention import MAX_SMEM_BYTES
-from mem_tpu_torch.ops.voxelize_hist import hist_planes_cols, hist_planes_cols_reference
+from mem_tpu_torch.ops.voxelize_hist import (H100_SMS, hist_planes_cols,
+                                             hist_planes_cols_reference, sm_count)
 from mem_tpu_torch.tools import time_ms
 
 RUNS, WARMUP = 10, 2
@@ -51,14 +66,61 @@ VARIANTS = (("base", 2048, None), ("fused", 2048, None), ("fused", 1024, None),
             ("fused", 4096, None), ("loop", 8192, 2048))
 
 
+# the launch limits of csrc/exp_voxelize.cu
+X1_ROWS = 64               # a block's rows (kRows): wgmma's m
+X1_DEPTH = 64              # events of a one-hot slot (kDepth)
+X1_SLOTS = 4               # slots of the one-hot ring (kSlots)
+X1_TILE_NS = (128, 96)     # the columns of each of a block's two warpgroups (wgmma's n)
+
+
+class X1Plan(NamedTuple):
+    """One launch of X1's kernel: blocks of two warpgroups, one an SM, each
+    owning a ``X1_ROWS`` x ``2 * tile_n`` tile of one sample's plane; the
+    grid is (column tiles, row tiles, B) and runs in ``waves`` on ``sms``
+    SMs."""
+    tile_n: int
+    grid: tuple
+    blocks: int
+    waves: int
+    sms: int
+
+
+@functools.lru_cache(maxsize=256)
+def x1_plan(B: int, H: int, W: int, sms: int = H100_SMS) -> X1Plan:
+    """The launch at (B, H, 2W) on a card of ``sms`` SMs: of the tile widths
+    in X1_TILE_NS, the one whose waves take the least time, waves x tile_n
+    (every block streams the same events, so a block's time goes with its
+    width); the wider on a tie. At the seg shape (8, 440, 1280) N = 96: 392
+    blocks in 3 waves (N = 128: 280 in 3); at cls (64, 256, 512) N = 128: 512
+    in 4 (N = 96: 768 in 6)."""
+    if min(B, H, W, sms) < 1:
+        raise ValueError(f"x1_plan: B, H, W and sms must be positive: {(B, H, W, sms)}")
+    plans = []
+    for tile_n in X1_TILE_NS:
+        grid = (-(-2 * W // (2 * tile_n)), -(-H // X1_ROWS), B)
+        blocks = grid[0] * grid[1] * grid[2]
+        plans.append(X1Plan(tile_n, grid, blocks, -(-blocks // sms), sms))
+    return min(plans, key=lambda p: p.waves * p.tile_n)
+
+
+def x1_smem(words: int, stage: int) -> int:
+    """Shared memory (bytes) of a launch at the widest tile staging ``stage``
+    events of ``words`` int32 arrays: the alignment slack, the A and B rings,
+    two event stages (each array with 4 words of slack for the aligned copy)
+    and the mbarriers (csrc/exp_voxelize.cu smem_bytes)."""
+    rings = X1_SLOTS * (X1_ROWS * X1_DEPTH * 2 + 2 * max(X1_TILE_NS) * X1_DEPTH * 2)
+    return 1024 + rings + 2 * words * (stage + 4) * 4 + 16 * (2 + X1_SLOTS)
+
+
 def _check_stage(name: str, stage: int, words: int) -> None:
-    """The kernel stages ``stage`` events of ``words`` int32 each in shared
-    memory, 16 (one mma k-step) at a time."""
-    if stage <= 0 or stage % 16:
-        raise ValueError(f"{name}: chunk {stage} must be a positive multiple of 16")
-    if stage * words * 4 > MAX_SMEM_BYTES:
-        raise ValueError(f"{name}: chunk {stage} needs {stage * words * 4} B of shared memory, "
-                         f"above the {MAX_SMEM_BYTES} B a block may use")
+    """The kernel streams ``stage`` events of ``words`` int32 arrays a ring
+    stage, 64 (one one-hot slot) at a time, in two stages that fit a block's
+    shared memory beside the one-hot rings of the widest tile."""
+    if stage <= 0 or stage % X1_DEPTH:
+        raise ValueError(f"{name}: chunk {stage} must be a positive multiple of {X1_DEPTH}")
+    if x1_smem(words, stage) > MAX_SMEM_BYTES:
+        raise ValueError(f"{name}: chunk {stage} needs {x1_smem(words, stage)} B of shared "
+                         f"memory, above the {MAX_SMEM_BYTES} B a block may use")
 
 
 def _check_cuda(name: str, tensors, dtypes) -> None:
@@ -71,6 +133,8 @@ def _check_cuda(name: str, tensors, dtypes) -> None:
         raise ValueError(f"{name}: shapes {[tuple(t.shape) for t in tensors]}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: all operands must be contiguous")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: all operands must be 16-byte aligned (the bulk copies)")
 
 
 def exp_voxelize_base_reference(xs, ys, wpos, wneg, H: int, W: int) -> torch.Tensor:
@@ -95,12 +159,12 @@ def exp_voxelize_base(xs, ys, wpos, wneg, H: int, W: int, chunk: int = 2048) -> 
     """X1a: (B, N) int32 xs, ys and f32 wpos, wneg -> (B, H, 2W) f32 planes,
     staged ``chunk`` events at a time."""
     name = "exp_voxelize_base"
-    _check_stage(name, chunk, 3)
+    _check_stage(name, chunk, 4)
     if xs.device.type == "cpu":
         return exp_voxelize_base_reference(xs, ys, wpos, wneg, H, W)
     _check_cuda(name, (xs, ys, wpos, wneg),
                 (torch.int32, torch.int32, torch.float32, torch.float32))
-    return _launch(name, "mem_exp_voxelize_base", (xs, ys, wpos, wneg), H, W, (chunk,))
+    return _launch(name, "mem_exp_voxelize_base", (xs, ys, wpos, wneg), H, W, chunk)
 
 
 def exp_voxelize_fused_onehot(col, ys, H: int, W: int, chunk: int = 2048) -> torch.Tensor:
@@ -111,7 +175,7 @@ def exp_voxelize_fused_onehot(col, ys, H: int, W: int, chunk: int = 2048) -> tor
     if col.device.type == "cpu":
         return exp_voxelize_fused_reference(col, ys, H, W)
     _check_cuda(name, (col, ys), (torch.int32, torch.int32))
-    return _launch(name, "mem_exp_voxelize_fused_onehot", (col, ys), H, W, (chunk,))
+    return _launch(name, "mem_exp_voxelize_fused_onehot", (col, ys), H, W, chunk)
 
 
 def exp_voxelize_fused_loop(col, ys, H: int, W: int, chunk: int = 8192,
@@ -127,20 +191,23 @@ def exp_voxelize_fused_loop(col, ys, H: int, W: int, chunk: int = 8192,
         return exp_voxelize_fused_reference(col, ys, H, W)
     _check_cuda(name, (col, ys), (torch.int32, torch.int32))
     # X1b's launch, staged inner events at a time
-    return _launch(name, "mem_exp_voxelize_fused_onehot", (col, ys), H, W, (inner,))
+    return _launch(name, "mem_exp_voxelize_fused_onehot", (col, ys), H, W, inner)
 
 
-def _launch(name, entry, tensors, H, W, stage_args):
+def _launch(name, entry, tensors, H, W, stage, tile_n=None):
     """Launch the kernel at ``entry`` on ``tensors`` into new (B, H, 2W) f32
-    planes and count the launch under ``name``."""
+    planes, ``stage`` events a ring stage, tiled by :func:`x1_plan` (or at
+    ``tile_n``, for ``tiles``), and count the launch under ``name``."""
     from mem_tpu_torch.kernels import build
 
     B, N = tensors[0].shape
-    lib = build.library(tensors[0].device)
-    out = torch.empty(B, H, 2 * W, dtype=torch.float32, device=tensors[0].device)
+    dev = tensors[0].device
+    lib = build.library(dev)
+    plan = x1_plan(B, H, W, sm_count(dev.index))
+    out = torch.empty(B, H, 2 * W, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(out.device).cuda_stream
     rc = getattr(lib, entry)(*(t.data_ptr() for t in tensors), out.data_ptr(), B, N, H, W,
-                             *stage_args, stream)
+                             stage, tile_n or plan.tile_n, stream)
     build.check(name, rc)
     count_launch(name)
     return out
@@ -192,11 +259,57 @@ def run_shape(tag: str, B: int, N: int, H: int, W: int) -> bool:
     return ok
 
 
+def _device_ms(fn, n=20):
+    """Device ms per launch of X1's kernel over ``n`` calls of ``fn``, from
+    torch.profiler (the mean per recorded launch: a trace can lose records)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if "x1_wgmma_kernel" in e.key]
+    launches = sum(e.count for e in evs)
+    return sum(e.self_device_time_total for e in evs) / 1e3 / launches if launches else None
+
+
+def run_tiles() -> bool:
+    """X1b and X1a at seg and cls with each tile width: checked, then device
+    ms and the share of the contraction bound."""
+    from mem_tpu_torch.tools import PEAK_BF16_FLOPS
+
+    ok = True
+    for tag, (B, N, H, W) in SHAPES.items():
+        xs, ys, wpos, wneg, col, ysp = make_events(B, N, H, W, "cuda")
+        want = {"exp_voxelize_fused_onehot": exp_voxelize_fused_reference(col, ysp, H, W),
+                "exp_voxelize_base": exp_voxelize_base_reference(xs, ys, wpos, wneg, H, W)}
+        t_flop = 2 * B * N * H * 2 * W / PEAK_BF16_FLOPS * 1e3
+        for tile_n in X1_TILE_NS:
+            for name, entry, tensors in (
+                    ("exp_voxelize_fused_onehot", "mem_exp_voxelize_fused_onehot", (col, ysp)),
+                    ("exp_voxelize_base", "mem_exp_voxelize_base", (xs, ys, wpos, wneg))):
+                def fn():
+                    return _launch(name, entry, tensors, H, W, 2048, tile_n)
+
+                if not torch.equal(fn(), want[name]):
+                    print(f"{tag} {name} tile_n {tile_n}: WRONG RESULT", flush=True)
+                    ok = False
+                    continue
+                ms = _device_ms(fn)
+                print(f"== tiles {tag} {name} tile_n {tile_n} (plan {x1_plan(B, H, W).tile_n}): "
+                      f"{ms:.4f} ms device -> {t_flop / ms:.3f} of the bf16 peak", flush=True)
+    return ok
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     which = argv[0] if argv else "seg"
-    if which not in ("seg", "cls", "all"):
-        print(f"exp_voxelize: unknown shape set {which!r} (seg, cls or all)", file=sys.stderr)
+    if which not in ("seg", "cls", "all", "tiles"):
+        print(f"exp_voxelize: unknown shape set {which!r} (seg, cls, all or tiles)",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("exp_voxelize: no CUDA device is available; the experiment runs on the card only",
@@ -205,6 +318,8 @@ def main(argv=None) -> int:
     from mem_tpu_torch.utils.env import nvidia_smi
 
     print(nvidia_smi() or torch.cuda.get_device_name(0), flush=True)
+    if which == "tiles":
+        return 0 if run_tiles() else 1
     ok = True
     for tag in ("seg", "cls"):
         if which in (tag, "all"):

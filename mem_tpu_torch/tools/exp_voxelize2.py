@@ -4,8 +4,8 @@ algorithmic cut of the one-hot contraction), its int8 variant, and the cost
 of the packed-key sort, on the H100 beside the production K1 and K4.
 
 Port of scripts/exp_voxelize2.py. Its three Pallas bodies are kept as the
-one-hot contraction on the tensor cores (csrc/exp_voxelize2.cu, on X1's
-block, csrc/exp_voxelize.cuh):
+one-hot contraction on the tensor cores (csrc/exp_voxelize2.cu, on the
+mma.sync one-hot block of csrc/exp_voxelize.cuh):
 
 - X2a ``exp_voxelize2_fused_i8``: X1b's dense contraction with int8
   one-hots and int32 sums (mma.sync m16n8k32): K1's (B, H, 2W) function as

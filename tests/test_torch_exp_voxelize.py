@@ -131,14 +131,108 @@ def test_base_on_packed_events_equals_fused(rng):
     lambda c, y: X.exp_voxelize_fused_onehot(c, y, 4, 4, chunk=1000),
     lambda c, y: X.exp_voxelize_fused_onehot(c, y, 4, 4, chunk=32768),
     lambda c, y: X.exp_voxelize_base(c, y, c.float(), c.float(), 4, 4, chunk=20480),
-], ids=["inner_not_dividing", "inner_zero", "chunk_not_16", "chunk_smem", "base_chunk_smem"])
+    lambda c, y: X.exp_voxelize_fused_onehot(c, y, 4, 4, chunk=1040),
+    lambda c, y: X.exp_voxelize_fused_onehot(c, y, 4, 4, chunk=4224),
+    lambda c, y: X.exp_voxelize_fused_onehot(c, y, 4, 4, chunk=8192),
+    lambda c, y: X.exp_voxelize_base(c, y, c.float(), c.float(), 4, 4, chunk=2112),
+    lambda c, y: X.exp_voxelize_base(c, y, c.float(), c.float(), 4, 4, chunk=4096),
+    lambda c, y: X.exp_voxelize_fused_loop(c, y, 4, 4, chunk=8320, inner=1040),
+    lambda c, y: X.exp_voxelize_fused_loop(c, y, 4, 4, chunk=8448, inner=4224),
+], ids=["inner_not_dividing", "inner_zero", "chunk_not_16", "chunk_smem", "base_chunk_smem",
+        "chunk_not_64", "chunk_past_4160", "chunk_8192", "base_chunk_past_2048",
+        "base_chunk_4096", "inner_not_64", "inner_past_4160"])
 def test_bad_chunks_raise(call):
     """X1c refuses an ``inner`` that does not divide ``chunk`` (the
-    reference would drop each chunk's tail); a chunk that is no multiple of
-    the 16-event k-step or overflows a block's shared memory raises too."""
+    reference would drop each chunk's tail); a chunk (X1c: an inner) that is
+    no multiple of the kernel's 64-event slot, or whose two ring stages do
+    not fit a block's shared memory beside the one-hot rings (X1b above 4160
+    events, X1a with its four arrays above 2048), raises too."""
     z = torch.zeros(2, 64, dtype=torch.int32)
     with pytest.raises(ValueError):
         call(z, z)
+
+
+def test_reference_sweep_is_accepted(rng):
+    """Every chunk of the reference's sweep (X1a 2048; X1b 1024, 2048, 4096;
+    X1c 8192 with inner 2048) passes the wrappers' rules, and each is one
+    whose two stages fit a block with the widest tile (x1_smem)."""
+    xs, ys, wpos, wneg, col, ysp = X.make_events(2, 700, 9, 11, "cpu")
+    want = X.exp_voxelize_fused_reference(col, ysp, 9, 11)
+    for variant, chunk, inner in X.VARIANTS:
+        if variant == "base":
+            assert X.x1_smem(4, chunk) <= X.MAX_SMEM_BYTES
+            got = X.exp_voxelize_base(xs, ys, wpos, wneg, 9, 11, chunk)
+        elif variant == "fused":
+            assert X.x1_smem(2, chunk) <= X.MAX_SMEM_BYTES
+            got = X.exp_voxelize_fused_onehot(col, ysp, 9, 11, chunk)
+        else:
+            assert X.x1_smem(2, inner) <= X.MAX_SMEM_BYTES
+            got = X.exp_voxelize_fused_loop(col, ysp, 9, 11, chunk, inner)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("words,last_ok", [(2, 4160), (4, 2048)])
+def test_stage_limit_is_the_shared_memory(words, last_ok):
+    """The largest stage accepted is the last multiple of 64 whose two
+    stages, with the A / B rings of the widest tile (N = 128), fit the
+    232,448 bytes one H100 block may use."""
+    assert X.x1_smem(words, last_ok) <= X.MAX_SMEM_BYTES < X.x1_smem(words, last_ok + 64)
+
+
+def _cover(plan, H, W):
+    """(B, H, 2W) count of the blocks of ``plan`` that write each cell: block
+    (bx, by, bz) owns rows 64 by + [0, 64) and columns 2N bx + [0, 2N) of
+    sample bz, clipped to the plane; the number of cells each block owns."""
+    gx, gy, gz = plan.grid
+    cover = np.zeros((gz, H, 2 * W), np.int32)
+    cells = []
+    for bz in range(gz):
+        for by in range(gy):
+            for bx in range(gx):
+                r0, c0 = by * X.X1_ROWS, bx * 2 * plan.tile_n
+                rows = slice(r0, min(r0 + X.X1_ROWS, H))
+                cols = slice(c0, min(c0 + 2 * plan.tile_n, 2 * W))
+                cover[bz, rows, cols] += 1
+                cells.append((rows.stop - rows.start) * max(cols.stop - cols.start, 0))
+    return cover, cells
+
+
+@pytest.mark.parametrize("B,H,W,sms", [
+    (8, 440, 640, 132), (64, 256, 256, 132), (3, 37, 45, 132), (2, 129, 97, 132),
+    (16, 65, 385, 132), (1, 1, 1, 132), (8, 440, 640, 114), (5, 300, 200, 16)])
+def test_x1_plan_covers_every_cell_once(B, H, W, sms):
+    """Every cell of the (B, H, 2W) planes lies in exactly one block's tile
+    (each written once, from registers: no fill, no atomics), no block is
+    empty, and the waves are the blocks over the SMs; the tile is one of
+    the kernel's widths."""
+    p = X.x1_plan(B, H, W, sms)
+    cover, cells = _cover(p, H, W)
+    assert (cover == 1).all() and min(cells) > 0
+    assert p.tile_n in X.X1_TILE_NS and p.grid[2] == B
+    assert p.blocks == len(cells) and p.waves == -(-p.blocks // sms) and p.sms == sms
+
+
+@pytest.mark.parametrize("shape,want", [
+    ("seg", (96, (7, 7, 8), 392, 3)), ("cls", (128, (2, 4, 64), 512, 4))])
+def test_x1_plan_at_the_reference_shapes(shape, want):
+    """On the H100's 132 SMs: at seg (8, 440 x 1280) N = 96 fills the card in
+    3 waves of 64 x 192 tiles (N = 128 would take 3 waves of larger tiles);
+    at cls (64, 256 x 512) N = 128 takes 4 waves (N = 96 would take 6)."""
+    B, _, H, W = X.SHAPES[shape]
+    p = X.x1_plan(B, H, W)
+    assert (p.tile_n, p.grid, p.blocks, p.waves) == want
+    other = [t for t in X.X1_TILE_NS if t != p.tile_n][0]
+    blocks = -(-2 * W // (2 * other)) * -(-H // X.X1_ROWS) * B
+    assert -(-blocks // 132) * other > p.waves * p.tile_n
+
+
+def test_x1_plan_refuses_empty_shapes():
+    """No batch, canvas or SM: nothing to plan."""
+    for args in ((0, 4, 4), (1, 0, 4), (1, 4, 0)):
+        with pytest.raises(ValueError):
+            X.x1_plan(*args)
+    with pytest.raises(ValueError):
+        X.x1_plan(1, 4, 4, 0)
 
 
 @pytest.mark.parametrize("variant", ["base", "fused", "loop"])
