@@ -9,8 +9,8 @@ It builds the port's CUDA kernels from csrc/ and checks each against its
 plain PyTorch version on the card; it fails when ptxas reports a spill in the
 wgmma kernels (K3f and the rows and columns kernels of K3b, which K5b / K5d /
 K5e launch on head-major operands and K2f / K5a and K2b / K5c for bf16 at
-head dim 64 and N <= 256; the GEMM body of K6f and K6b; X1's one-hot
-contraction) or serializes their wgmma pipelines. It drives the five
+head dim 64 and N <= 256; the GEMM body of K6f and K6b; X1's and X2's one-hot
+contractions) or serializes their wgmma pipelines. It drives the five
 ported paths and the two experiment tools, each with the launch counts set
 to 0 just before it and read just after:
 
@@ -73,9 +73,9 @@ K3 kernel on transposed operands, and a seg forward with FLAT_ATTN = False
 against the CPU's logits. X1a, X1b, X1c, X2a, X2b and X2c are held bit for
 bit against their plain versions (X2 at every chunk and (TH, chunk) of the
 reference's sweeps, on y-sorted and unsorted events; X1 at every chunk of
-its sweep, also on a hot cell past 70,000 events, at shapes that straddle its
-tiles, and across two launches); X3 inside K2b's gates against its plain
-version and bit for bit against K2b.
+its sweep; both also on a hot cell past 70,000 events, at shapes that
+straddle their tiles, and across two launches); X3 inside K2b's gates
+against its plain version and bit for bit against K2b.
 
 Between them it holds one pretraining, one segmentation and one finetune
 train step on the card (f32 and bf16) against the same step on the CPU, and
@@ -108,8 +108,9 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 try:
-    from mem_tpu_torch.tools import (PEAK_BF16_FLOPS, PEAK_F32_FLOPS, attention_bwd_bound,
-                                     attention_fwd_bound, bound, hist_bound, time_ms)
+    from mem_tpu_torch.tools import (PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_INT8_OPS,
+                                     attention_bwd_bound, attention_fwd_bound, bound, hist_bound,
+                                     time_ms)
 except ImportError as e:   # not run from the root of a checkout
     sys.exit(f"chip_smoke: run it from the root of a mem_tpu checkout ({e})")
 
@@ -382,8 +383,9 @@ def check_ptxas(log):
     of K3f (which K2f, K5a and K5b launch too), of K3b's rows and columns
     kernels (K2b, K5c, K5d, K5e too), flat and head-major, K6's GEMM body
     (F1, F2 of K6f; B1, B2, B3+B4 of K6b; F2, B2 and B3+B4 at tile widths
-    128 and 256) and X1's contraction (X1a and X1b, which X1c launches, at
-    the plan's two tile widths): registers (at entry, setmaxnreg gives the
+    128 and 256), X1's contraction (X1a and X1b, which X1c launches, at
+    the plan's two tile widths) and X2's (int8 and bf16 at the plan's two
+    tile widths): registers (at entry, setmaxnreg gives the
     consumers 240), shared memory and spills; it fails on a spill or on any
     warning that ptxas serialized a wgmma pipeline."""
     fwd = ptxas_report(log, "attention_long_fwd_wgmma_kernel")
@@ -392,11 +394,16 @@ def check_ptxas(log):
            for r in ptxas_report(log, frag)]
     k6 = ptxas_report(log, "mlp_gemm_")
     x1 = ptxas_report(log, "x1_wgmma_kernel")
+    from mem_tpu_torch.tools.exp_voxelize2 import X2_TILE_NS
+
+    x2 = ptxas_report(log, "x2_wgmma_kernel")
+    n_x2 = 2 * len(X2_TILE_NS)   # int8 and bf16 at each tile width
     for tag, rows, unit, want, users in (
             ("ptxas_k3f", fwd, "attention_long_fwd", 2, "K3f K2f K5a K5b"),
             ("ptxas_k3b", bwd, "attention_long_bwd", 4, "K3b K2b K5c K5d K5e"),
             ("ptxas_k6", k6, "mlp_gemm_", 8, "K6f K6b"),
-            ("ptxas_x1", x1, "x1_wgmma_kernel", 4, "X1a X1b X1c")):
+            ("ptxas_x1", x1, "x1_wgmma_kernel", 4, "X1a X1b X1c"),
+            ("ptxas_x2", x2, "x2_wgmma_kernel", n_x2, "X2a X2b X2c")):
         serial = [ln.strip() for ln in log.splitlines() if "serialized" in ln and unit in ln]
         say(tag, launched_by=users, kernels=rows, serialized=serial)
         check(len(rows) == want and all(" 0 bytes spill stores" in r["spills"] for r in rows)
@@ -3404,6 +3411,9 @@ def check_x1(torch, dev, g):
 
 
 X2_ODD = (3, 12_345, 37, 45)   # an odd shape for X2, with stray coordinates
+# H and 2W one past a tile (64-row tiles; 2N = 192 at the plan's N = 96, 256 at
+# N = 128); N unaligned
+X2_STRADDLE = ((2, 4_099, 129, 97), (16, 4_099, 65, 385))
 
 
 def x2_sweeps():
@@ -3418,10 +3428,12 @@ def x2_sweeps():
 
 def x2_cases(torch, g):
     """(case, (B, N, H, W), col, ys, dense only) on the CPU: the reference's
-    seeded events at seg, y-sorted and not, at cls (X2a's shape there), and
-    the odd shape unsorted and y-sorted with negatives, the sentinels (col
-    2W, ys H, n_tiles * TH + 1 for TH = 32 / 64 and 128) and ys in
-    [H, n_tiles * TH)."""
+    seeded events at seg, y-sorted and not, at cls (X2a's shape there); the
+    odd shape unsorted and y-sorted with negatives, the sentinels (col 2W, ys
+    H, n_tiles * TH + 1 for TH = 32 / 64 and 128) and ys in [H, n_tiles * TH),
+    N unaligned; the hot cell at the seg shape (two samples): every event of
+    the first sample on one pixel (180,224 counts), X1_HOT of the second on
+    another, the rest spread; and the X2_STRADDLE shapes, y-sorted."""
     from mem_tpu_torch.tools import exp_voxelize2 as X2
 
     for sort in (True, False):
@@ -3438,15 +3450,26 @@ def x2_cases(torch, g):
     yield "odd_unsorted", X2_ODD, col, ys, False
     ys, order = torch.sort(ys, dim=1, stable=True)
     yield "odd_sorted", X2_ODD, torch.gather(col, 1, order), ys, False
+    B, N, H, W = 2, *X2.SEG[1:]
+    col, ys = X2.make_inputs(B, N, H, W, False, "cpu")
+    col[0], ys[0] = 5, 7
+    col[1, :X1_HOT], ys[1, :X1_HOT] = W + 300, 401
+    yield "hot", (B, N, H, W), col, ys, False
+    for shape in X2_STRADDLE:
+        yield f"straddle_{shape[2]}x{2 * shape[3]}", shape, *X2.make_inputs(*shape, True, "cpu"), \
+            False
 
 
 def check_x2(torch, dev, g):
     """X2a, X2b and X2c against their plain versions, bit for bit, at every
     chunk and (TH, chunk) of the reference's sweeps, on every case of
     x2_cases (X2b and X2c on unsorted events too, where the skip must stay
-    exact), and e2e_sort_tiled (both of the script's runs) at seg against the
-    plain histogram of the unsorted events. Returns {counter name: max abs
-    error at seg}."""
+    exact; the odd shapes also at chunks of one K-block), each launched
+    twice: the two outputs must be bit-identical; the
+    hot cell must hold its counts exactly (int32, and f32 below 2^24); and
+    e2e_sort_tiled (both of the script's runs) at seg against the plain
+    histogram of the unsorted events. Returns {counter name: max abs error at
+    seg}."""
     from mem_tpu_torch.ops.voxelize_hist import hist_planes_cols_reference
     from mem_tpu_torch.tools import exp_voxelize2 as X2
 
@@ -3455,29 +3478,52 @@ def check_x2(torch, dev, g):
            "exp_voxelize2_tiled_i8": 0.0}
     for tag, (B, N, H, W), col, ys, dense_only in x2_cases(torch, g):
         col, ys = col.to(dev), ys.to(dev)
-        errs = {}
+        errs, same, cells, plans = {}, True, {}, {}
+
+        def hot_cells(got):   # the hot case's two cells
+            return [got[0, 7, 5].item(), got[1, 401, W + 300].item()] if tag == "hot" else None
+
+        # the odd shapes also at one K-block a chunk: a slot of two K-blocks
+        # (N = 96) then ends every chunk half empty
+        small = tag.startswith("odd")
         want = X2.exp_voxelize2_fused_i8_reference(col, ys, H, W)
-        for chunk in chunks:
-            got = X2.exp_voxelize2_fused_i8(col, ys, H, W, chunk)
+        for chunk in chunks + [128] * small:
+            got, again = (X2.exp_voxelize2_fused_i8(col, ys, H, W, chunk) for _ in range(2))
             errs["exp_voxelize2_fused_i8", f"c{chunk}"] = (got - want).abs().max().item()
-        for dt, fn, name in (() if dense_only else (
-                (torch.float32, X2.exp_voxelize2_tiled, "exp_voxelize2_tiled"),
-                (torch.int32, X2.exp_voxelize2_tiled_i8, "exp_voxelize2_tiled_i8"))):
-            for TH, chunk in tiled["i8" if dt == torch.int32 else "bf16"]:
+            same &= bool(torch.equal(got, again))
+            cells[f"exp_voxelize2_fused_i8_c{chunk}"] = hot_cells(got)
+            plans[f"c{chunk}"] = X2.x2_plan(B, H, W, None, chunk)._asdict()
+        for dt, fn, name, key in (() if dense_only else (
+                (torch.float32, X2.exp_voxelize2_tiled, "exp_voxelize2_tiled", "bf16"),
+                (torch.int32, X2.exp_voxelize2_tiled_i8, "exp_voxelize2_tiled_i8", "i8"))):
+            for TH, chunk in tiled[key] + [(32, X2.X2_DEPTH[key])] * small:
                 want = X2.exp_voxelize2_tiled_reference(col, ys, H, W, TH, dt)
-                got = fn(col, ys, H, W, TH, chunk)
+                got, again = (fn(col, ys, H, W, TH, chunk) for _ in range(2))
                 check(got.shape == want.shape and got.dtype == dt,
                       f"{name} at {tag}: {tuple(got.shape)} {got.dtype}")
                 errs[name, f"t{TH}_c{chunk}"] = (got - want).abs().max().item()
+                same &= bool(torch.equal(got, again))
+                cells[f"{name}_t{TH}_c{chunk}"] = hot_cells(got)
+                plans[f"{key}_t{TH}_c{chunk}"] = X2.x2_plan(B, H, W, TH, chunk)._asdict()
         torch.cuda.synchronize()
         if tag.startswith("seg"):
             for (name, _), v in errs.items():
                 seg[name] = max(seg[name], v)
+        extra = {}
+        if tag == "hot":
+            want_cells = hot_cells(want)
+            extra = {"hot_cells": want_cells, "hot_cells_kernels": cells}
+            # (the second sample's other events may add to its hot cell)
+            check(want_cells[0] == N and want_cells[1] >= X1_HOT
+                  and all(v == want_cells for v in cells.values()),
+                  f"x2_check hot: the plain version counts {want_cells}, the kernels {cells}")
         errs = {f"{n}_{c}": v for (n, c), v in errs.items()}
         say("x2_check", case=tag, shape=[B, N, H, W], max_abs_err=errs,
-            events=int(want.sum().item()))
+            identical_across_launches=same, events=int(want.sum().item()),
+            plans=plans, **extra)
         check(max(errs.values()) == 0, f"X2 differs from its plain version at {tag}: {errs}")
-        del col, ys, want, got
+        check(same, f"X2 at {tag}: two launches on the same events differ")
+        del col, ys, want, got, again
     col, ys = (t.to(dev) for t in X2.make_inputs(*X2.SEG, False, "cpu"))
     B, N, H, W = X2.SEG
     planes = hist_planes_cols_reference(col, ys, H, W)
@@ -3585,6 +3631,31 @@ def run_experiment_tools(torch):
     return runs
 
 
+X2_AIM_MS = {("exp_voxelize2_fused_i8", "seg"): 1.64, ("exp_voxelize2_fused_i8", "cls"): 0.52,
+             ("exp_voxelize2_tiled", "sorted"): 0.35, ("exp_voxelize2_tiled_i8", "sorted"): 0.30}
+X2_FRAGMENTS = ("x2_wgmma_kernel", "chunk_minmax_kernel")
+
+
+def x2_work(X2, ys, H, W, TH, chunk, tile_rows):
+    """(pairs, all pairs, operations) of a tiled launch on ``ys``: the (tile,
+    chunk) pairs tiles of ``tile_rows`` rows consume (kept_pairs, from the
+    bounds computed on the host) and the one-hot multiply-adds they take,
+    2 tile_rows chunk 2W each: the kernel's at X2_ROWS, the reference's at
+    TH."""
+    kept = X2.kept_pairs(X2.chunk_bounds(ys.cpu(), chunk), X2.n_rows(H, TH), TH, tile_rows)
+    return int(kept.sum()), kept.numel(), 2 * int(kept.sum()) * tile_rows * chunk * 2 * W
+
+
+def x2_rate(gpu, name, case, shape, plan, ms, device_ms, ops, peak, dtype, aim, **pairs):
+    """One ``x2_rate`` line: TOP/s of the contraction and its bound at the
+    dtype's peak, the share of that bound by events and by device time."""
+    t_ops = ops / peak * 1e3
+    say("x2_rate", gpu=gpu, kernel=name, case=case, shape=shape, plan=plan._asdict(),
+        kernel_ms=ms, device_ms=device_ms, top_s=ops / ms / 1e9, contraction_gop=ops / 1e9,
+        contraction_ms_at_peak=t_ops, peak=dtype, share_of_contraction_bound=t_ops / ms,
+        device_share_of_contraction_bound=device_ms and t_ops / device_ms, aim_ms=aim, **pairs)
+
+
 def time_x2(torch, dev, gpu):
     """X2a at seg (unsorted events, chunk 2048) and cls (chunks 2048 and
     4096), X2b and X2c at their best (TH, chunk) of the reference's sweeps on
@@ -3592,7 +3663,12 @@ def time_x2(torch, dev, gpu):
     turns with its plain version) and at that (TH, chunk) on unsorted events
     too (the skip's effect), each with the torch.bincount yardstick over the
     rows the kernel writes, K1 and K4 on the same events, and the packed-key
-    sort. Returns {counter name: (ms, plain_ms, bound, library_ms)} at seg."""
+    sort; device ms by the profiler, and one ``x2_rate`` line a variant and
+    shape: TOP/s, the share of the contraction bound at the dtype's peak by
+    events and by device (dense: every event enters every tile; tiled: the
+    reference's kept (band, chunk) pairs, beside the (64-row tile, chunk)
+    pairs the kernel keeps) and the aim. Returns {counter name: (ms, plain_ms, bound,
+    library_ms)} at seg."""
     from mem_tpu_torch.ops import voxelize_hist as vh
     from mem_tpu_torch.tools import exp_voxelize2 as X2
 
@@ -3606,6 +3682,7 @@ def time_x2(torch, dev, gpu):
     t_k4 = time_ms(lambda: vh.hist_planes_cols_sorted(cols, yss, H, W, presorted=True))
     say("time_x2_sort", gpu=gpu, shape=[B, N], sort_ms=t_sort, k1_sorted_events_ms=t_k1,
         k4_presorted_ms=t_k4)
+    dense_dev = None
     for tag, (B, N, H, W), chunks in (("seg", X2.SEG, (X2.MAIN_DENSE_CHUNK,)),
                                       ("cls", X2.CLS, X2.CLS_DENSE_CHUNKS)):
         c, y = (col, ys) if tag == "seg" else X2.make_inputs(B, N, H, W, False, dev)
@@ -3614,14 +3691,20 @@ def time_x2(torch, dev, gpu):
         k1 = time_ms(lambda: vh.hist_planes_cols(c, y, H, W))
         bnd = hist_bound(B, N, H, W)
         for chunk in chunks:
+            kernel = lambda: X2.exp_voxelize2_fused_i8(c, y, H, W, chunk)  # noqa: E731
             t_k, t_p = in_turns(torch, lambda: X2.exp_voxelize2_fused_i8_reference(c, y, H, W),
-                                lambda: X2.exp_voxelize2_fused_i8(c, y, H, W, chunk), runs=10)
+                                kernel, runs=10)
+            t_dev = body_device_ms(torch, kernel, X2_FRAGMENTS[:1], n=10)
             say("time_exp_voxelize2_fused_i8", gpu=gpu, case=tag, shape=[B, N, H, W],
-                chunk=chunk, kernel_ms=t_k, plain_ms=t_p, bincount_ms=t_lib,
+                chunk=chunk, kernel_ms=t_k, device_ms=t_dev, plain_ms=t_p, bincount_ms=t_lib,
                 bincount_equals_plain=lib_equal, k1_ms=k1, bound_ms=bnd[0], bound_by=bnd[1],
                 kernel_gev_s=B * N / t_k / 1e6)
+            x2_rate(gpu, "exp_voxelize2_fused_i8", f"{tag}_c{chunk}", [B, N, H, W],
+                    X2.x2_plan(B, H, W, None, chunk), t_k, t_dev, 2 * B * N * H * 2 * W,
+                    PEAK_INT8_OPS, "int8", X2_AIM_MS["exp_voxelize2_fused_i8", tag])
             if tag == "seg":
                 out["exp_voxelize2_fused_i8"] = (t_k, t_p, bnd, t_lib)
+                dense_dev = t_dev
         del c, y, want
     B, N, H, W = X2.SEG
     for name, fn, dt, key in (("exp_voxelize2_tiled", X2.exp_voxelize2_tiled, torch.float32,
@@ -3632,9 +3715,14 @@ def time_x2(torch, dev, gpu):
                  for cfg in tiled[key]}
         TH, chunk = min(sweep, key=sweep.get)
         rows = X2.n_rows(H, TH)
+        plan = X2.x2_plan(B, H, W, TH, chunk)
+        kernel = lambda: fn(cols, yss, H, W, TH, chunk)  # noqa: E731
+        unsorted = lambda: fn(col, ys, H, W, TH, chunk)  # noqa: E731
         t_k, t_p = in_turns(torch, lambda: X2.exp_voxelize2_tiled_reference(
-            cols, yss, H, W, TH, dt), lambda: fn(cols, yss, H, W, TH, chunk), runs=10)
-        t_unsorted = time_ms(lambda: fn(col, ys, H, W, TH, chunk), runs=10)
+            cols, yss, H, W, TH, dt), kernel, runs=10)
+        t_dev = body_device_ms(torch, kernel, X2_FRAGMENTS, n=10)
+        t_unsorted = time_ms(unsorted, runs=10)
+        t_unsorted_dev = body_device_ms(torch, unsorted, X2_FRAGMENTS, n=10)
         t_e2e = time_ms(lambda: X2.e2e_sort_tiled(col, ys, H, W, TH, chunk, key == "i8"),
                         runs=10)
         t_lib, lib_equal = bincount_ms(torch, cols, yss, rows, W, vh.hist_planes_cols_reference(
@@ -3642,9 +3730,21 @@ def time_x2(torch, dev, gpu):
         bnd = hist_bound(B, N, rows, W)
         say(f"time_{name}", gpu=gpu, shape=[B, N, H, W], best_th=TH, best_chunk=chunk,
             sweep_ms={f"t{a}_c{b}": v for (a, b), v in sweep.items()}, kernel_ms=t_k,
-            plain_ms=t_p, unsorted_events_ms=t_unsorted, sort_and_kernel_ms=t_e2e,
+            device_ms=t_dev, plain_ms=t_p, unsorted_events_ms=t_unsorted,
+            unsorted_events_device_ms=t_unsorted_dev, sort_and_kernel_ms=t_e2e,
             bincount_ms=t_lib, bincount_equals_plain=lib_equal, k1_ms=t_k1, k4_ms=t_k4,
             bound_ms=bnd[0], bound_by=bnd[1], kernel_gev_s=B * N / t_k / 1e6)
+        peak, dtype = (PEAK_INT8_OPS, "int8") if key == "i8" else (PEAK_BF16_FLOPS, "bf16")
+        # the unsorted aim: X2a's dense device time in the dtype's ratio (2x in bf16)
+        for case, ev_ys, ms, dev_ms, aim in (
+                ("sorted", yss, t_k, t_dev, X2_AIM_MS[name, "sorted"]),
+                ("unsorted", ys, t_unsorted, t_unsorted_dev,
+                 dense_dev and dense_dev * (2 if key == "bf16" else 1))):
+            ref_pairs, all_pairs, ops = x2_work(X2, ev_ys, H, W, TH, chunk, TH)
+            kept, _, kernel_ops = x2_work(X2, ev_ys, H, W, TH, chunk, X2.X2_ROWS)
+            x2_rate(gpu, name, f"{case}_t{TH}_c{chunk}", [B, N, H, W], plan, ms, dev_ms, ops,
+                    peak, dtype, aim, reference_pairs=ref_pairs, all_pairs=all_pairs,
+                    tile_pairs=kept, tile_gop=kernel_ops / 1e9)
         out[name] = (t_k, t_p, bnd, t_lib)
     del col, ys, cols, yss
     torch.cuda.empty_cache()

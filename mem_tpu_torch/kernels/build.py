@@ -73,9 +73,9 @@ SIGNATURES = {
                                         _I, _I, _I, _I, _F, _I, _P), _I),
     "mem_exp_voxelize_base": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P), _I),
     "mem_exp_voxelize_fused_onehot": ((_P, _P, _P, _I, _I, _I, _I, _I, _I, _P), _I),
-    "mem_exp_voxelize2_fused_i8": ((_P, _P, _P, _I, _I, _I, _I, _I, _P), _I),
-    "mem_exp_voxelize2_tiled": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P), _I),
-    "mem_exp_voxelize2_tiled_i8": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P), _I),
+    "mem_exp_voxelize2_fused_i8": ((_P, _P, _P, _I, _I, _I, _I, _I, _I, _P), _I),
+    "mem_exp_voxelize2_tiled": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P), _I),
+    "mem_exp_voxelize2_tiled_i8": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P), _I),
     "mem_attention_bwd_pair": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _F, _I, _P), _I),
     "mem_cuda_error_string": ((_I,), ctypes.c_char_p),

@@ -12,6 +12,7 @@ import statistics
 # the card's published peaks (H100 SXM data sheet): the bounds are reckoned from them
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_F32_FLOPS = 67e12   # outside the tensor cores: the histograms' integer adds
 
 
@@ -32,6 +33,31 @@ def time_ms(fn, runs: int = 30, warmup: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, fragments, n: int = 20):
+    """Device ms per call of ``fn`` over ``n`` calls after 3 warm-up calls,
+    from torch.profiler: for each kernel whose name holds one of
+    ``fragments`` (each launched once a call) its mean time per recorded
+    launch (a trace can lose records), summed; None where none was
+    recorded."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for frag in fragments:
+        evs = [e for e in prof.key_averages() if frag in e.key]
+        launches = sum(e.count for e in evs)
+        if launches:
+            total += sum(e.self_device_time_total for e in evs) / 1e3 / launches
+    return total or None
 
 
 def bound(nbytes, ops, peak_ops):

@@ -57,7 +57,7 @@ from mem_tpu_torch.kernels import count_launch
 from mem_tpu_torch.ops.attention import MAX_SMEM_BYTES
 from mem_tpu_torch.ops.voxelize_hist import (H100_SMS, hist_planes_cols,
                                              hist_planes_cols_reference, sm_count)
-from mem_tpu_torch.tools import time_ms
+from mem_tpu_torch.tools import device_ms, time_ms
 
 RUNS, WARMUP = 10, 2
 SHAPES = {"seg": (8, 180_224, 440, 640), "cls": (64, 30_720, 256, 256)}
@@ -259,23 +259,6 @@ def run_shape(tag: str, B: int, N: int, H: int, W: int) -> bool:
     return ok
 
 
-def _device_ms(fn, n=20):
-    """Device ms per launch of X1's kernel over ``n`` calls of ``fn``, from
-    torch.profiler (the mean per recorded launch: a trace can lose records)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages() if "x1_wgmma_kernel" in e.key]
-    launches = sum(e.count for e in evs)
-    return sum(e.self_device_time_total for e in evs) / 1e3 / launches if launches else None
-
-
 def run_tiles() -> bool:
     """X1b and X1a at seg and cls with each tile width: checked, then device
     ms and the share of the contraction bound."""
@@ -298,7 +281,7 @@ def run_tiles() -> bool:
                     print(f"{tag} {name} tile_n {tile_n}: WRONG RESULT", flush=True)
                     ok = False
                     continue
-                ms = _device_ms(fn)
+                ms = device_ms(fn, ("x1_wgmma_kernel",))
                 print(f"== tiles {tag} {name} tile_n {tile_n} (plan {x1_plan(B, H, W).tile_n}): "
                       f"{ms:.4f} ms device -> {t_flop / ms:.3f} of the bf16 peak", flush=True)
     return ok

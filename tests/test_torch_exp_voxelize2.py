@@ -192,18 +192,19 @@ def test_make_inputs_are_the_script_s(monkeypatch, sort):
     lambda c, y: X.exp_voxelize2_tiled_i8(c, y, 4, 4, 32, 1040),
     lambda c, y: X.exp_voxelize2_tiled(c, y, 4, 4, 48, 1024),
     lambda c, y: X.exp_voxelize2_tiled_i8(c, y, 4, 4, 0, 1024),
-    lambda c, y: X.exp_voxelize2_tiled(c, y, 4, 4, 64, 32768),
+    lambda c, y: X.exp_voxelize2_tiled(c, y, 4, 4, 64, 96),
     lambda c, y: X.exp_voxelize2_tiled(c.long(), y.long(), 4, 4, 64, 1024),
     lambda c, y: X.exp_voxelize2_fused_i8(c, y[:, :32], 4, 4, chunk=64),
     lambda c, y: X.e2e_sort_tiled(c, y, 4, 2048, 64, 1024),
 ], ids=["i8_chunk_not_32", "i8_chunk_16_not_32", "i8_chunk_smem", "tiled_chunk_not_16",
-        "tiled_i8_chunk_not_32", "th_not_32", "th_zero", "tiled_chunk_smem", "int64",
+        "tiled_i8_chunk_not_32", "th_not_32", "th_zero", "tiled_chunk_not_64", "int64",
         "shapes", "e2e_key_too_narrow"])
 def test_bad_arguments_raise(call):
-    """A chunk that is no multiple of the k-step (16 in bf16, 32 in int8) or
-    overflows a block's shared memory, a TH that is no positive multiple of
-    32, events that are not int32 or not of one shape, and a 2W that the
-    packed key cannot hold raise ValueError, on the CPU too."""
+    """A chunk that is no multiple of a one-hot K-block (64 events in bf16,
+    128 in int8), an X2a chunk (its ring stage) whose two stages overflow a
+    block's shared memory, a TH that is no positive multiple of 32, events
+    that are not int32 or not of one shape, and a 2W that the packed key
+    cannot hold raise ValueError, on the CPU too."""
     z = torch.zeros(2, 64, dtype=torch.int32)
     with pytest.raises(ValueError):
         call(z, z)
@@ -216,12 +217,12 @@ def test_non_cuda_device_raises(variant):
     z = torch.zeros(2, 64, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
         if variant == "fused_i8":
-            X.exp_voxelize2_fused_i8(z, z, 4, 4, 64)
+            X.exp_voxelize2_fused_i8(z, z, 4, 4, 128)
         else:
-            getattr(X, f"exp_voxelize2_{variant}")(z, z, 4, 4, 32, 64)
+            getattr(X, f"exp_voxelize2_{variant}")(z, z, 4, 4, 32, 128)
 
 
-@pytest.mark.parametrize("argv", [[], ["all"], ["main3"]])
+@pytest.mark.parametrize("argv", [[], ["all"], ["main3"], ["tiles"]])
 def test_main_exits_nonzero_without_a_card(monkeypatch, capsys, argv):
     """The experiment runs on the card only: without one it says so and
     returns 2, printing no timing; an unknown part returns 2 as well."""
@@ -230,3 +231,189 @@ def test_main_exits_nonzero_without_a_card(monkeypatch, capsys, argv):
     out = capsys.readouterr()
     assert "no CUDA device" in out.err and "==" not in out.out
     assert X.main(["main4"]) == 2
+
+
+def test_reference_sweeps_are_accepted(rng):
+    """Every chunk of X2a and (TH, chunk) of X2b / X2c in the reference's
+    sweeps (main, main2, main3 and both e2e runs; X2b's chunk 8192 included)
+    passes the wrappers' rules, and its plan's stages and rings fit a block."""
+    B, N, H, W = 2, 900, 40, 11
+    col, ys = X.make_inputs(B, N, H, W, True, "cpu")
+    for chunk in (X.MAIN_DENSE_CHUNK, *X.CLS_DENSE_CHUNKS):
+        p = X.x2_plan(*X.SEG[:1], *X.SEG[2:], None, chunk)
+        assert p.stage == chunk and X.x2_smem(p.tile_n, p.stage) <= X.MAX_SMEM_BYTES
+        assert torch.equal(X.exp_voxelize2_fused_i8(col, ys, H, W, chunk),
+                           X.exp_voxelize2_fused_i8_reference(col, ys, H, W))
+    specs = X.MAIN_TILED + X.MAIN2_TILED + (X.MAIN_E2E, X.MAIN2_E2E)
+    assert ("bf16", 128, 8192) in specs
+    for dt, TH, chunk in specs:
+        for tile_n in X.X2_TILE_NS:
+            p = X.x2_plan(*X.SEG[:1], *X.SEG[2:], TH, chunk)
+            assert p.stage == min(chunk, X.X2_STAGE_CAP) and p.stage % X.X2_DEPTH[dt] == 0
+            assert X.x2_smem(tile_n, p.stage) <= X.MAX_SMEM_BYTES
+        fn = X.exp_voxelize2_tiled_i8 if dt == "i8" else X.exp_voxelize2_tiled
+        want = X.exp_voxelize2_tiled_reference(col, ys, H, W, TH,
+                                               torch.int32 if dt == "i8" else torch.float32)
+        assert torch.equal(fn(col, ys, H, W, TH, chunk), want)
+
+
+def test_dense_stage_limit_is_the_shared_memory():
+    """X2a's largest stage is the last multiple of the 128-event K-block
+    whose two stages, with the int8 rings of the widest tile (N = 128), fit
+    the 232,448 bytes one H100 block may use: 4096 (the reference's largest
+    chunk)."""
+    widest = max(X.X2_TILE_NS)
+    assert X.x2_smem(widest, 4096) <= X.MAX_SMEM_BYTES < X.x2_smem(widest, 4224)
+    z = torch.zeros(1, 8, dtype=torch.int32)
+    X.exp_voxelize2_fused_i8(z, z, 4, 4, 4096)
+    with pytest.raises(ValueError):
+        X.exp_voxelize2_fused_i8(z, z, 4, 4, 4224)
+
+
+def _cover(plan, rows, W):
+    """(B, rows, 2W) count of the blocks of ``plan`` that write each cell and
+    the number of cells each block owns: block (bx, by, bz) owns rows
+    64 by + [0, 64) and columns 2N bx + [0, 2N) of sample bz, clipped to the
+    plane."""
+    gx, gy, gz = plan.grid
+    cover = np.zeros((gz, rows, 2 * W), np.int32)
+    cells = []
+    for bz in range(gz):
+        for by in range(gy):
+            for bx in range(gx):
+                rs = slice(by * X.X2_ROWS, min((by + 1) * X.X2_ROWS, rows))
+                cs = slice(bx * 2 * plan.tile_n, min((bx + 1) * 2 * plan.tile_n, 2 * W))
+                cover[bz, rs, cs] += 1
+                cells.append(max(rs.stop - rs.start, 0) * max(cs.stop - cs.start, 0))
+    return cover, cells
+
+
+@pytest.mark.parametrize("sms", [132, 114, 78])
+@pytest.mark.parametrize("shape,TH,chunk", [
+    (X.SEG, None, 2048), (X.CLS, None, 4096), (X.SEG, 32, 2048), (X.SEG, 64, 1024),
+    (X.SEG, 128, 8192), (X.SEG, 96, 4096), ((3, 100, 37, 45), 32, 128),
+    ((2, 100, 129, 97), None, 2048), ((16, 100, 65, 385), 64, 256), ((1, 10, 1, 1), 32, 64)])
+def test_x2_plan_covers_every_cell_once(shape, TH, chunk, sms):
+    """Every cell of the (B, rows, 2W) planes lies in exactly one block's
+    tile (each written once, from registers: no fill, no atomics), no block
+    is empty, the waves are the blocks over the SMs, the tile is one of the
+    kernel's widths and the stage the chunk's (tiled: at most
+    X2_STAGE_CAP)."""
+    B, _, H, W = shape
+    p = X.x2_plan(B, H, W, TH, chunk, sms)
+    rows = H if TH is None else X.n_rows(H, TH)
+    cover, cells = _cover(p, rows, W)
+    assert (cover == 1).all() and min(cells) > 0
+    assert p.grid[2] == B and p.blocks == len(cells) and p.waves == -(-p.blocks // sms)
+    assert p.tile_n in X.X2_TILE_NS and p.sms == sms
+    assert p.stage == (chunk if TH is None else min(chunk, X.X2_STAGE_CAP))
+
+
+@pytest.mark.parametrize("shape,TH,want", [
+    (X.SEG, None, (96, (7, 7, 8), 392, 3)), (X.CLS, None, (128, (2, 4, 64), 512, 4)),
+    (X.SEG, 32, (96, (7, 7, 8), 392, 3)), (X.SEG, 128, (128, (5, 8, 8), 320, 3))])
+def test_x2_plan_at_the_reference_shapes(shape, TH, want):
+    """On the H100's 132 SMs X2 takes X1's tiles: at seg (8, 440 x 1280) N =
+    96, 392 blocks in 3 waves; at cls (64, 256 x 512) N = 128, 512 in 4; the
+    tiled kernels at TH 32 (448 rows) as seg, at TH 128 (512 rows) N = 128,
+    320 blocks in 3 waves (N = 96 would take 448 in 4)."""
+    B, _, H, W = shape
+    p = X.x2_plan(B, H, W, TH)
+    assert (p.tile_n, p.grid, p.blocks, p.waves) == want
+
+
+def test_x2_plan_refuses_empty_shapes():
+    """No batch, canvas, band or SM: nothing to plan."""
+    for args in ((0, 4, 4), (1, 0, 4), (1, 4, 0), (1, 4, 4, 0)):
+        with pytest.raises(ValueError):
+            X.x2_plan(*args)
+    with pytest.raises(ValueError):
+        X.x2_plan(1, 4, 4, None, 2048, 0)
+
+
+def _holds(ys, rows, TH, chunk, tile_rows):
+    """(B, tiles, n_chunks) bool, plain numpy: the chunk holds an event whose
+    y lies in the tile's rows [tile_rows t, tile_rows (t + 1)) within
+    [0, rows)."""
+    B, N = ys.shape
+    nt, nc = -(-rows // tile_rows), -(-N // chunk)
+    out = np.zeros((B, nt, nc), bool)
+    for c in range(nc):
+        y = ys[:, c * chunk:(c + 1) * chunk]
+        for t in range(nt):
+            lo, hi = t * tile_rows, min((t + 1) * tile_rows, rows)
+            out[:, t, c] = ((y >= lo) & (y < hi)).any(1)
+    return out
+
+
+def _reference_pairs(ys, rows, TH, chunk):
+    """(B, bands, n_chunks) bool, plain numpy: the reference's test per band
+    and chunk, max(ys) >= t TH and min(ys) < (t + 1) TH over the chunk's own
+    events."""
+    B, N = ys.shape
+    nc = -(-N // chunk)
+    out = np.zeros((B, rows // TH, nc), bool)
+    for c in range(nc):
+        y = ys[:, c * chunk:(c + 1) * chunk]
+        for t in range(rows // TH):
+            out[:, t, c] = (y.max(1) >= t * TH) & (y.min(1) < (t + 1) * TH)
+    return out
+
+
+@pytest.mark.parametrize("order", ["sorted", "unsorted", "stray"])
+@pytest.mark.parametrize("TH,chunk", [(32, 128), (64, 256), (128, 128), (96, 384)])
+def test_kept_pairs_are_exact_and_the_reference_s(rng, order, TH, chunk):
+    """The (tile, chunk) pairs the kernel consumes, from the bounds table:
+    the bounds equal each chunk's min and max; the pairs hold every (tile,
+    chunk) whose chunk has an event in the tile's rows (the skip is exact);
+    with tiles of TH rows they are the reference's kept (band, chunk) pairs,
+    and with the kernel's 64-row tiles each tile's pairs are the union of the
+    reference's over the bands it spans (the reference's own at TH = 64). On
+    y-sorted, unsorted and stray-y events (negatives, past the rows, a ragged
+    last chunk)."""
+    B, N, H, W = 3, 1000, 150, 8
+    rows = X.n_rows(H, TH)
+    col, ys = _events(rng, B, N, H, W, rows, "unsorted" if order == "stray" else order)
+    if order != "stray":
+        ys = np.clip(ys, 0, rows - 1)
+        if order == "sorted":
+            ys = np.sort(ys, axis=1)
+    bounds = X.chunk_bounds(torch.from_numpy(ys), chunk)
+    nc = -(-N // chunk)
+    assert bounds.shape == (B, nc, 2) and bounds.dtype == torch.int32
+    for c in range(nc):
+        y = ys[:, c * chunk:(c + 1) * chunk]
+        np.testing.assert_array_equal(bounds[:, c].numpy(), np.stack([y.min(1), y.max(1)], 1))
+    ref = _reference_pairs(ys, rows, TH, chunk)
+    band = X.kept_pairs(bounds, rows, TH, TH).numpy()
+    np.testing.assert_array_equal(band, ref)
+    tiles = X.kept_pairs(bounds, rows, TH, X.X2_ROWS).numpy()
+    for kept, tile_rows in ((band, TH), (tiles, X.X2_ROWS)):
+        holds = _holds(ys, rows, TH, chunk, tile_rows)
+        assert (kept | ~holds).all() and holds.any()
+    for t in range(tiles.shape[1]):
+        r0, r1 = t * X.X2_ROWS, min((t + 1) * X.X2_ROWS, rows)
+        spanned = range(r0 // TH, -(-r1 // TH))
+        np.testing.assert_array_equal(tiles[:, t], ref[:, list(spanned)].any(1))
+
+
+def test_c_entries_match_the_ctypes_signatures():
+    """Every extern "C" entry point of csrc/*.cu takes as many parameters as
+    build.SIGNATURES binds (ctypes would pass a short or long argument list
+    on without a word), X2's three among them."""
+    import re
+
+    from mem_tpu_torch.kernels import build
+
+    found = {}
+    for src in build.sources():
+        for name, params in re.findall(r'extern "C"[^(]*?\b(mem_\w+)\s*\(([^)]*)\)',
+                                       src.read_text()):
+            params = params.strip()
+            found[name] = 0 if params in ("", "void") else params.count(",") + 1
+    for name in ("mem_exp_voxelize2_fused_i8", "mem_exp_voxelize2_tiled",
+                 "mem_exp_voxelize2_tiled_i8"):
+        assert name in found
+    assert set(found) == set(build.SIGNATURES)
+    for name, count in found.items():
+        assert len(build.SIGNATURES[name][0]) == count, name
