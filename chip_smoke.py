@@ -75,7 +75,9 @@ bit against their plain versions (X2 at every chunk and (TH, chunk) of the
 reference's sweeps, on y-sorted and unsorted events; X1 at every chunk of
 its sweep; both also on a hot cell past 70,000 events, at shapes that
 straddle their tiles, and across two launches); X3 inside K2b's gates
-against its plain version and bit for bit against K2b.
+against its plain version, with a planted fault that must fail them, bit for
+bit against K2b's Hopper path (the body it varies) and across two launches,
+and from a fresh thread.
 
 Between them it holds one pretraining, one segmentation and one finetune
 train step on the card (f32 and bf16) against the same step on the CPU, and
@@ -246,11 +248,15 @@ def kernel_device_ms(torch, fn, fragments, n=20, per_launch=False):
     ``fragments``, from torch.profiler over ``n`` calls: what the card spends
     in them, without the host's launch overhead that CUDA events around one
     short call include. ``per_launch`` divides by the launches the profiler
-    recorded instead of by ``n`` (for a kernel launched once a call: the
-    mean stays right when the trace drops some). A profile that recorded
-    none of them is taken again; None where three show no device time."""
+    recorded instead of by ``n`` (for one kernel, launched once a call: the
+    mean stays right when the trace drops some; with several fragments it
+    would give a mean per kernel, not a time per call, so it takes one). A
+    profile that recorded none of them is taken again; None where three
+    show no device time."""
     from torch.profiler import ProfilerActivity, profile
 
+    if per_launch and len(fragments) != 1:
+        raise ValueError(f"per_launch times one kernel, not {fragments}")
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -381,7 +387,9 @@ def time_raster(torch, gpu, tag, events, n_valid, H, W, y_sorted=False):
 def check_ptxas(log):
     """ptxas's report, from the build log ``log``, on the wgmma kernels: those
     of K3f (which K2f, K5a and K5b launch too), of K3b's rows and columns
-    kernels (K2b, K5c, K5d, K5e too), flat and head-major, K6's GEMM body
+    kernels (K2b, K5c, K5d, K5e too), flat and head-major, and X3's (its
+    rows kernel's kPair instantiation, and the columns kernel its translation
+    unit compiles beside it), K6's GEMM body
     (F1, F2 of K6f; B1, B2, B3+B4 of K6b; F2, B2 and B3+B4 at tile widths
     128 and 256), X1's contraction (X1a and X1b, which X1c launches, at
     the plan's two tile widths) and X2's (int8 and bf16 at the plan's two
@@ -400,7 +408,7 @@ def check_ptxas(log):
     n_x2 = 2 * len(X2_TILE_NS)   # int8 and bf16 at each tile width
     for tag, rows, unit, want, users in (
             ("ptxas_k3f", fwd, "attention_long_fwd", 2, "K3f K2f K5a K5b"),
-            ("ptxas_k3b", bwd, "attention_long_bwd", 4, "K3b K2b K5c K5d K5e"),
+            ("ptxas_k3b", bwd, "attention_long_bwd", 6, "K3b K2b K5c K5d K5e X3"),
             ("ptxas_k6", k6, "mlp_gemm_", 8, "K6f K6b"),
             ("ptxas_x1", x1, "x1_wgmma_kernel", 4, "X1a X1b X1c"),
             ("ptxas_x2", x2, "x2_wgmma_kernel", n_x2, "X2a X2b X2c")):
@@ -3540,16 +3548,24 @@ def check_x2(torch, dev, g):
 
 def check_x3(torch, dev, g):
     """X3 at every shape against the plain pair inside K2b's gates, bit for
-    bit against K2b's `mma.sync` tensor-core kernel (fused_attention_flat_bwd_mma,
-    the body X3 varies: K2b itself runs K3b's Hopper body now) on the same
+    bit against K2b's Hopper path (fused_attention_flat_bwd: the body X3
+    varies, whose sums the pair only adds exact zeros to) on the same
     operands, and bit-identical across launches: the experiment's (128, 197,
-    12, 64), the serving batch, and N = 37, 129, 256 and 16; f32, another
-    head dim and N above 256 must raise, for both. Returns the max abs error
-    against the plain version at the experiment's shape."""
+    12, 64), the serving batch, and N = 37, 129, 256 and 16; X3 with the last
+    key dropped (last_key_dropped) must fail the gates; X3 from a fresh
+    thread gives the main thread's bits; f32, another head dim and N above
+    256 must raise. Returns the max abs error against the plain version at
+    the experiment's shape."""
     from mem_tpu_torch.ops import attention as A
 
     first = None
     names = ("dq", "dk", "dv", "db")
+
+    def gates(got, want):
+        errs = {n: rel_max_abs(a, b) for n, a, b in zip(names[:3], got, want)}
+        db = rel_l2(torch, got[3], want[3])
+        return errs, db, max(errs.values()) <= K2B_BF16_TOL and db <= K2B_DB_REL
+
     for B, N, H in ((128, 197, 12), (8, 197, 12), (2, 37, 3), (2, 129, 2), (1, 256, 2),
                     (3, 16, 1)):
         q, k, v, do = (torch.randn(B, N, H * 64, generator=g).to(torch.bfloat16).to(dev)
@@ -3557,34 +3573,41 @@ def check_x3(torch, dev, g):
         bias = (0.5 * torch.randn(H, N, N, generator=g)).to(dev)
         pair = A.fused_attention_flat_bwd_pair(q, k, v, bias, do, 0.125)
         again = A.fused_attention_flat_bwd_pair(q, k, v, bias, do, 0.125)
-        base = A.fused_attention_flat_bwd_mma(q, k, v, bias, do, 0.125)
+        base = A.fused_attention_flat_bwd(q, k, v, bias, do, 0.125)
         want = A.fused_attention_flat_bwd_pair_reference(q, k, v, bias, do, 0.125)
         torch.cuda.synchronize()
         equal_k2b = {n: torch.equal(a, b) for n, a, b in zip(names, pair, base)}
+        max_diff_k2b = {n: (a.float() - b.float()).abs().max().item()
+                        for n, a, b in zip(names, pair, base)}
         identical = all(torch.equal(a, b) for a, b in zip(pair, again))
-        errs = {n: rel_max_abs(a, b) for n, a, b in zip(names[:3], pair, want)}
-        db = rel_l2(torch, pair[3], want[3])
-        say("x3_check", shape=[B, N, H, 64], equal_k2b_pr2=equal_k2b,
-            identical_across_launches=identical, rel_max_abs=errs, tol=K2B_BF16_TOL,
-            db_rel_l2=db, db_tol=K2B_DB_REL)
-        check(max(errs.values()) <= K2B_BF16_TOL and db <= K2B_DB_REL,
-              f"X3 at {B, N, H} differs from the plain pair: {errs}, db {db}")
+        errs, db, ok = gates(pair, want)
+        say("x3_check", shape=[B, N, H, 64], equal_k2b=equal_k2b, max_abs_diff_k2b=max_diff_k2b,
+            k2b_path=A.cuda_bwd_kernel_path(q, k, v, bias), identical_across_launches=identical,
+            rel_max_abs=errs, tol=K2B_BF16_TOL, db_rel_l2=db, db_tol=K2B_DB_REL)
+        check(ok, f"X3 at {B, N, H} differs from the plain pair: {errs}, db {db}")
         check(identical, f"X3 at {B, N, H} differs between two launches")
         check(all(equal_k2b.values()),
-              f"X3 at {B, N, H} is not the bits of K2b's mma.sync kernel: {equal_k2b}")
+              f"X3 at {B, N, H} is not the bits of K2b's Hopper path: {max_diff_k2b}")
         if first is None:
             first = max((a.float() - b.float()).abs().max().item() for a, b in zip(pair, want))
+            fault = last_key_dropped(A.fused_attention_flat_bwd_pair)(q, k, v, bias, do, 0.125)
+            f_errs, f_db, f_ok = gates(fault, want)
+            say("x3_fault", fault="last_key_dropped", shape=[B, N, H, 64], rel_max_abs=f_errs,
+                db_rel_l2=f_db, fails_the_gates=not f_ok)
+            check(not f_ok, f"X3 with the last key dropped passed the gates: {f_errs}, {f_db}")
+            del fault
+            fresh_thread_check(torch, "x3_fresh_thread", lambda: A.fused_attention_flat_bwd_pair(
+                q, k, v, bias, do, 0.125))
         del q, k, v, do, bias, pair, again, base, want
     for dt, D, N in ((torch.float32, 64, 197), (torch.bfloat16, 32, 197),
                      (torch.bfloat16, 64, 257)):
         q = torch.zeros(1, N, 2 * D, dtype=dt, device=dev)
         bias = torch.zeros(2, N, N, device=dev)
-        for name in ("fused_attention_flat_bwd_pair", "fused_attention_flat_bwd_mma"):
-            try:
-                getattr(A, name)(q, q, q, bias, q, 0.125)
-            except ValueError:
-                continue
-            raise SmokeFailure(f"{name} took {dt} operands at D={D}, N={N}")
+        try:
+            A.fused_attention_flat_bwd_pair(q, q, q, bias, q, 0.125)
+        except ValueError:
+            continue
+        raise SmokeFailure(f"X3 took {dt} operands at D={D}, N={N}")
     return first
 
 
@@ -3610,12 +3633,14 @@ def run_experiment_tools(torch):
         stamps.append(time.perf_counter())
         check(rc == 0, f"{tool}.main exited {rc}")
     per_variant = 1 + exp_voxelize.WARMUP + exp_voxelize.RUNS   # the check, then the timing
-    per_fn = 1 + 2 * (1 + 8)    # exp_attn_bwd: the check, then two timings of 1 + steps
+    # exp_attn_bwd: the check, two timings of 1 + steps, two device-time
+    # profiles (all three kernels, the rows kernel) over 3 + steps
+    per_fn = 1 + 2 * (1 + 8) + 2 * (3 + 8)
     want = {"exp_voxelize": {"exp_voxelize_base": 2 * per_variant,
                              "exp_voxelize_fused_onehot": 6 * per_variant,
                              "exp_voxelize_fused_loop": 2 * per_variant,
                              "hist_planes_cols": 2 * (exp_voxelize.WARMUP + exp_voxelize.RUNS)},
-            "exp_attn_bwd": {"fused_attention_flat_bwd_mma": per_fn,
+            "exp_attn_bwd": {"fused_attention_flat_bwd": per_fn,
                              "fused_attention_flat_bwd_pair": per_fn}}
     X2 = exp_voxelize2
     per_x2 = 1 + X2.WARMUP + X2.RUNS   # the check, then the timing
@@ -3775,12 +3800,14 @@ def time_experiments(torch, dev, gpu):
     cls shape (64 x 30,720, 256 x 256); device ms by the profiler, and one
     ``x1_rate`` line a variant and shape: TFLOP/s of the one-hot contraction
     and its share of the contraction's time at the bf16 peak; X2 (see
-    time_x2); X3 at X3_SHAPE bf16 beside its plain version (in turns), K2b
-    and the SDPA backward. Returns {counter name: (ms, plain_ms, bound,
-    library_ms)}."""
+    time_x2); X3 at X3_SHAPE bf16 beside its plain version and beside K2b's
+    Hopper path (in turns), by events and by device time (all three
+    kernels, and the rows kernel alone, where the two differ), and the SDPA
+    backward by events. Returns {counter name: (ms, plain_ms, bound, library_ms)}."""
     from mem_tpu_torch.ops import attention as A
     from mem_tpu_torch.ops import voxelize_hist as vh
     from mem_tpu_torch.tools import exp_voxelize as X
+    from mem_tpu_torch.tools.exp_attn_bwd import KERNELS, executed_gflop
 
     out = {}
     for tag in ("seg", "cls"):
@@ -3819,22 +3846,33 @@ def time_experiments(torch, dev, gpu):
     q, k, v, do = (torch.randn(B, N, Hh * D, device=dev, dtype=torch.bfloat16)
                    for _ in range(4))
     bias = torch.randn(Hh, N, N, device=dev)
+    x3 = lambda: A.fused_attention_flat_bwd_pair(q, k, v, bias, do, 0.125)  # noqa: E731
+    k2b = lambda: A.fused_attention_flat_bwd(q, k, v, bias, do, 0.125)  # noqa: E731
     t_k, t_p = in_turns(torch, lambda: A.fused_attention_flat_bwd_pair_reference(
-        q, k, v, bias, do, 0.125), lambda: A.fused_attention_flat_bwd_pair(
-        q, k, v, bias, do, 0.125), runs=10)
-    t_k2b = time_ms(lambda: A.fused_attention_flat_bwd(q, k, v, bias, do, 0.125), runs=10)
-    t_pr2 = time_ms(lambda: A.fused_attention_flat_bwd_mma(q, k, v, bias, do, 0.125), runs=10)
+        q, k, v, bias, do, 0.125), x3, runs=10)
+    t_k2, t_k2b = in_turns(torch, k2b, x3, runs=10)   # K2b, X3, X3, K2b
+    # each kernel's mean per recorded launch (a trace can lose records), summed
+    dev_ms = {name: [kernel_device_ms(torch, fn, (f,), n=10, per_launch=True) for f in KERNELS]
+              for name, fn in (("x3", x3), ("k2b", k2b))}
+    d_k, d_k2b = (None if None in dev_ms[name] else sum(dev_ms[name]) for name in ("x3", "k2b"))
+    r_k, r_k2b = (dev_ms[name][0] for name in ("x3", "k2b"))
     qh, kh, vhd, mask = (t.requires_grad_() for t in sdpa_operands(torch, q, k, v, bias))
     o = torch.nn.functional.scaled_dot_product_attention(qh, kh, vhd, attn_mask=mask, scale=0.125)
     doh = torch.randn_like(o)
-    t_lib = time_ms(lambda: torch.autograd.grad(o, (qh, kh, vhd, mask), doh,
-                                                       retain_graph=True), runs=10)
+    sdpa_bwd = lambda: torch.autograd.grad(o, (qh, kh, vhd, mask), doh,  # noqa: E731
+                                           retain_graph=True)
+    t_lib = time_ms(sdpa_bwd, runs=10)
     bnd = attention_bwd_bound(*X3_SHAPE)
     flop5 = 10 * B * Hh * N * N * D
     say("time_x3", gpu=gpu, batch=B, shape=[N, Hh, D], dtype="bfloat16", kernel_ms=t_k,
-        plain_ms=t_p, k2b_ms=t_k2b, k2b_pr2_ms=t_pr2, sdpa_backward_ms=t_lib, bound_ms=bnd[0],
+        kernel_ms_beside_k2b=t_k2, device_ms=d_k, rows_device_ms=r_k, plain_ms=t_p,
+        k2b_ms=t_k2b, k2b_device_ms=d_k2b, k2b_rows_device_ms=r_k2b,
+        x3_over_k2b_events=t_k2 / t_k2b, x3_over_k2b_device=d_k and d_k2b and d_k / d_k2b,
+        sdpa_backward_ms=t_lib, bound_ms=bnd[0],
         bound_by=bnd[1], kernel_tflop_s=flop5 / t_k / 1e9,
-        executed_tflop_s=1.4 * flop5 / t_k / 1e9, k2b_tflop_s=flop5 / t_k2b / 1e9)
+        executed_gflop=executed_gflop(*X3_SHAPE, "pair"),
+        executed_tflop_s=executed_gflop(*X3_SHAPE, "pair") / t_k, k2b_tflop_s=flop5 / t_k2b / 1e9,
+        k2b_executed_gflop=executed_gflop(*X3_SHAPE, "base"))
     out["fused_attention_flat_bwd_pair"] = (t_k, t_p, bnd, t_lib)
     del q, k, v, do, bias, qh, kh, vhd, mask, o, doh
     torch.cuda.empty_cache()

@@ -11,7 +11,9 @@ extern "C" int mem_attention_long_bwd_max_d() { return kMaxScalarD; }
 
 // Bytes of dynamic shared memory the scalar rows kernel needs at (n, d): it
 // grows with n, and the wrapper refuses what a block may not use. The
-// wgmma kernels use a fixed 81 and 84 KB at any n. Either layout.
+// wgmma kernels use a fixed 148,536 B (rows: Q and dO, the ring, the ds
+// staging buffers; X3's rows kernel 173,112 B, attention_bwd_pair.cu) and
+// 86,072 B (columns) at any n. Either layout.
 extern "C" long long mem_attention_long_bwd_scalar_smem(int n, int d) {
   return static_cast<long long>(scalar_smem_bytes(n, d));
 }
@@ -43,6 +45,6 @@ extern "C" int mem_attention_long_bwd(const void* q, const void* k, const void* 
                                       void* dk, void* dv, float* db, float* ds_ws,
                                       void* pc_ws, float* stats, int b, int n, int heads,
                                       int d, float scale, int is_bf16, cudaStream_t stream) {
-  return dispatch_long_bwd(q, k, v, bias, dout, dq, dk, dv, db, ds_ws, pc_ws, stats, b, n,
+  return dispatch_long_bwd<false>(q, k, v, bias, dout, dq, dk, dv, db, ds_ws, pc_ws, stats, b, n,
                            heads, d, scale, is_bf16, stream);
 }

@@ -60,7 +60,9 @@
 //              descriptor's transpose bit (as K3f reads V). Each tile's s and
 //              dp are issued behind the last tile's dq product.
 //    m, 1 / l and delta go to a (B, H, ceil(N / 64), 3, 64) f32 statistics
-//    array, one 768-byte record per 64-row query tile.
+//    array, one 768-byte record per 64-row query tile. The template's kPair
+//    instantiation is X3's rows kernel (attention_bwd_pair.cu): s and dp as
+//    one m64n128k16 chain against a block-diagonal operand (score_products).
 // 2. attention_long_bwd_cols_wgmma_kernel, one block per (sample, head, 128
 //    keys). Each consumer's K and V tiles stay in shared memory as K-major A
 //    operands; the ring brings each query tile's Q and dO (TMA) and its
@@ -189,16 +191,25 @@ constexpr int kWsAlign = 8;
 constexpr int kDsHalfBytes = kWgTile * 32 * 4;
 constexpr int kDsTileBytes = 2 * kDsHalfBytes;
 // rows kernel: Q and dO of each consumer, the ring of K / V stages, the ds
-// staging buffers
-constexpr int kRowsStageBytes = 2 * kTileBytes;
-constexpr int kRowsDsOffset = 2 * kPairBytes + kStages * kRowsStageBytes;
-constexpr int kRowsBarOffset = kRowsDsOffset + 2 * kConsumers * kDsTileBytes;
+// staging buffers. A stage is K | V, or with kPair (X3) K | Z | V, Z a zero
+// tile: the block-diagonal operand [[k^T, 0], [0, v^T]] as the B operand of
+// one m64n128k16 chain (K | Z for its first four k16 steps, Z | V for the
+// last four; a descriptor strides 1024 B per 8 rows, so each pair of tiles
+// lies contiguous)
+template <bool kPair>
+constexpr int kRowsStageBytes = (kPair ? 3 : 2) * kTileBytes;
+template <bool kPair>
+constexpr int kRowsDsOffset = 2 * kPairBytes + kStages * kRowsStageBytes<kPair>;
+template <bool kPair>
+constexpr int kRowsBarOffset = kRowsDsOffset<kPair> + 2 * kConsumers * kDsTileBytes;
 // cols kernel: K and V of each consumer, then the ring of Q / dO / stats
 // stages (each 1024-aligned for the swizzled tiles)
 constexpr int kColsStageBytes = 2 * kTileBytes + 1024;
 constexpr int kColsBarOffset = 2 * kPairBytes + kStages * kColsStageBytes;
-// full[kStages], empty[kStages], one more; the 1024 B in front align the tiles
-constexpr int kRowsSmemBytes = 1024 + kRowsBarOffset + 8 * (2 * kStages + 1);
+// full[kStages], empty[kStages], one more; the 1024 B in front align the
+// tiles. Rows kernel 148,536 B (X3's 173,112), cols kernel 86,072 B.
+template <bool kPair>
+constexpr int kRowsSmemBytes = 1024 + kRowsBarOffset<kPair> + 8 * (2 * kStages + 1);
 constexpr int kColsSmemBytes = 1024 + kColsBarOffset + 8 * (2 * kStages + 1);
 static_assert(kStatBytes <= 1024, "a stage's stats fit its 1024 B");
 
@@ -226,11 +237,37 @@ __device__ __forceinline__ void tile_scores(float (&sc)[32], const float (&bv)[3
 
 __device__ __forceinline__ float expm(float s, float m) { return ex2(__fmul_rn(s - m, kLog2e)); }
 
+// The rows kernel's two score products of a key tile, issued (not
+// committed): s = q k^T and dp = do v^T from the ring stage at ``stage``.
+// K3b: two m64n64k16 chains of four steps on a stage K | V. X3 (kPair): the
+// reference's pair [s | dp] = [q | do] . [[k^T, 0], [0, v^T]] as one
+// m64n128k16 chain of eight on a stage K | Z | V, zero blocks included: steps
+// 0-3 read the Q tile against K | Z, steps 4-7 the dO tile against Z | V.
+// s's sum adds do . 0 after q k^T and dp's starts with q . 0: exact zeros
+// added to K3b's f32 sums in K3b's step order, so the results are its bits.
+template <bool kPair>
+__device__ __forceinline__ void score_products(float (&sc)[32], float (&dp)[32], uint32_t qtile,
+                                               uint32_t dotile, uint32_t stage) {
+  if constexpr (kPair) {
+    wgmma_ss_n128_fresh(sc, dp, sw128_desc(qtile), sw128_desc(stage));
+#pragma unroll
+    for (int kk = 1; kk < 2 * kWgD / 16; ++kk) {
+      const uint32_t a = (kk < 4 ? qtile : dotile) + 32 * (kk % 4);
+      const uint32_t b = stage + (kk < 4 ? 0 : kTileBytes) + 32 * (kk % 4);
+      wgmma_ss_n128(sc, dp, sw128_desc(a), sw128_desc(b));
+    }
+  } else {
+    wgmma_abt_fresh(sc, qtile, stage);
+    wgmma_abt_fresh(dp, dotile, stage + kTileBytes);
+  }
+}
+
 // rows kernel: the producer loads each consumer's Q and dO tiles once, then
 // the key tiles twice (pass A, then pass B) through the ring. tws: the ds
 // workspace (n, n, B*H) f32, rows ws_stride(n) floats apart, boxes of 64 rows
 // of 32 floats. stats: (B*H, ceil(n / 64), 3, 64) f32 = m, 1 / l, delta of each
-// query row (0 past n).
+// query row (0 past n). kPair: X3's products (score_products); K3b's otherwise.
+template <bool kPair>
 __global__ void __launch_bounds__(kWgThreads, 1)
 attention_long_bwd_rows_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                                      const __grid_constant__ CUtensorMap tk,
@@ -242,8 +279,9 @@ attention_long_bwd_rows_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                                      int n, int heads, float scale) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t sbase = (smem_u32(smem_raw) + 1023) & ~uint32_t{1023};
-  const uint32_t full0 = sbase + kRowsBarOffset, empty0 = full0 + 8 * kStages;
+  const uint32_t full0 = sbase + kRowsBarOffset<kPair>, empty0 = full0 + 8 * kStages;
   const uint32_t qbar = empty0 + 8 * kStages;
+  constexpr int kStage = kRowsStageBytes<kPair>;
 
   const unsigned b = blockIdx.x;
   const int h = blockIdx.y;
@@ -253,6 +291,15 @@ attention_long_bwd_rows_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int tiles = (n + kWgTile - 1) / kWgTile;
   const int wg = threadIdx.x / 128;
 
+  if constexpr (kPair) {
+    // every stage's zero tile, written once: TMA never writes it
+    unsigned char* ring = smem_raw + (sbase - smem_u32(smem_raw)) + 2 * kPairBytes;
+    for (int i = threadIdx.x; i < kStages * kTileBytes / 16; i += kWgThreads) {
+      const int s = i / (kTileBytes / 16), off = i % (kTileBytes / 16) * 16;
+      *reinterpret_cast<uint4*>(ring + s * kStage + kTileBytes + off) = make_uint4(0, 0, 0, 0);
+    }
+    fence_async_smem();   // before the first product reads them
+  }
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(full0 + 8 * s, 1);
@@ -278,10 +325,10 @@ attention_long_bwd_rows_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       const int s = it % kStages, round = it / kStages;
       const int j0 = (it < tiles ? it : it - tiles) * kWgTile;
       if (round > 0) mbar_wait(empty0 + 8 * s, (round - 1) & 1);
-      const uint32_t stage = sbase + 2 * kPairBytes + s * kRowsStageBytes;
+      const uint32_t stage = sbase + 2 * kPairBytes + s * kStage;
       mbar_expect_tx(full0 + 8 * s, 2 * kTileBytes);
       tma_load(stage, &tk, full0 + 8 * s, tc, j0, tb);
-      tma_load(stage + kTileBytes, &tv, full0 + 8 * s, tc, j0, tb);
+      tma_load(stage + kStage - kTileBytes, &tv, full0 + 8 * s, tc, j0, tb);
     }
     return;
   }
@@ -298,7 +345,7 @@ attention_long_bwd_rows_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const float* ga = bias_h + static_cast<int64_t>(ra < n ? ra : q0 + wg * kWgRows) * n;
   const float* gb = bias_h + static_cast<int64_t>(rb < n ? rb : q0 + wg * kWgRows) * n;
   const uint32_t qtile = sbase + wg * kTileBytes, dotile = qtile + kPairBytes;
-  auto ktile = [&](int it) { return sbase + 2 * kPairBytes + (it % kStages) * kRowsStageBytes; };
+  auto ktile = [&](int it) { return sbase + 2 * kPairBytes + (it % kStages) * kStage; };
 
   float sc[32], dp[32], bc[32], bn[32];
   // the bias goes by registers, one tile ahead of its use, over the 2 * tiles
@@ -321,8 +368,7 @@ attention_long_bwd_rows_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (it > 0) next_bias(it);
     mbar_wait(full0 + 8 * (it % kStages), (it / kStages) & 1);
     wgmma_fence();
-    wgmma_abt_fresh(sc, qtile, ktile(it));
-    wgmma_abt_fresh(dp, dotile, ktile(it) + kTileBytes);
+    score_products<kPair>(sc, dp, qtile, dotile, ktile(it));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sc);
@@ -385,8 +431,7 @@ attention_long_bwd_rows_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     next_bias(it);
     mbar_wait(full0 + 8 * (it % kStages), (it / kStages) & 1);
     wgmma_fence();
-    wgmma_abt_fresh(sc, qtile, ktile(it));
-    wgmma_abt_fresh(dp, dotile, ktile(it) + kTileBytes);
+    score_products<kPair>(sc, dp, qtile, dotile, ktile(it));
     wgmma_commit();
     if (it > tiles) {
       wgmma_wait<1>();   // the last tile's dq product is done
@@ -414,7 +459,8 @@ attention_long_bwd_rows_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     // ds leaves through this warpgroup's staging buffer of the tile's
     // parity, by one thread's TMA store (rows and keys >= n are clipped);
     // the store two tiles back must have read the buffer first
-    const uint32_t sbuf = sbase + kRowsDsOffset + (2 * wg + ((it - tiles) & 1)) * kDsTileBytes;
+    const uint32_t sbuf =
+        sbase + kRowsDsOffset<kPair> + (2 * wg + ((it - tiles) & 1)) * kDsTileBytes;
     if (wtid == 0) bulk_wait_read<1>();
     named_barrier(1 + wg, 128);
 #pragma unroll
@@ -634,10 +680,13 @@ cudaError_t ws_tensor_map(EncodeTiled encode, CUtensorMap* map, float* ws, int p
 }
 
 // The rows kernel, then the cols kernel on the rows kernel's statistics
+// (kPair: X3's rows kernel)
+template <bool kPair>
 int launch_wgmma(const void* q, const void* k, const void* v, const float* bias,
                  const void* dout, void* dq, void* dk, void* dv, float* ds_ws, float* stats,
                  int b, int n, int heads, float scale, cudaStream_t stream) {
   if ((n + kBlockRows - 1) / kBlockRows > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int rows_smem = kRowsSmemBytes<kPair>;
   EncodeTiled encode;
   cudaError_t e = encode_tiled(&encode);
   CUtensorMap tq, tk, tv, tdo, tws;
@@ -647,8 +696,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, const float* bias,
   if (e == cudaSuccess) e = tensor_map(encode, &tdo, dout, b, n, heads, kHeadMajor);
   if (e == cudaSuccess) e = ws_tensor_map(encode, &tws, ds_ws, b * heads, n, ws_stride(n, true));
   if (e == cudaSuccess) {
-    e = cudaFuncSetAttribute(attention_long_bwd_rows_wgmma_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, kRowsSmemBytes);
+    e = cudaFuncSetAttribute(attention_long_bwd_rows_wgmma_kernel<kPair>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, rows_smem);
   }
   if (e == cudaSuccess) {
     e = cudaFuncSetAttribute(attention_long_bwd_cols_wgmma_kernel,
@@ -656,7 +705,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, const float* bias,
   }
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(b, heads, (n + kBlockRows - 1) / kBlockRows);
-  attention_long_bwd_rows_wgmma_kernel<<<grid, kWgThreads, kRowsSmemBytes, stream>>>(
+  attention_long_bwd_rows_wgmma_kernel<kPair><<<grid, kWgThreads, rows_smem, stream>>>(
       tq, tk, tv, tdo, tws, bias, static_cast<__nv_bfloat16*>(dq), stats, n, heads, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -839,7 +888,9 @@ bool use_mma(const void* const* ptrs, int count, int d, int is_bf16) {
 // or f32); bias, db: (heads, n, n) f32; ds_ws: (b, heads, n, ws_stride(n))
 // f32 scratch. The wgmma path also takes stats: (b, heads, ceil(n / 64), 3, 64) f32
 // scratch (pc_ws unused); the scalar path pc_ws: (b, heads, n, n) scratch in
-// the operands' dtype (stats unused).
+// the operands' dtype (stats unused). kPair (X3): the wgmma path with X3's
+// products, and nothing else (any other launch returns cudaErrorInvalidValue).
+template <bool kPair>
 int dispatch_long_bwd(const void* q, const void* k, const void* v, const float* bias,
                       const void* dout, void* dq, void* dk, void* dv, float* db, float* ds_ws,
                       void* pc_ws, float* stats, int b, int n, int heads, int d, float scale,
@@ -853,7 +904,10 @@ int dispatch_long_bwd(const void* q, const void* k, const void* v, const float* 
   int rc;
   if (use_mma(ptrs, 7, d, is_bf16)) {
     if (stats == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    rc = launch_wgmma(q, k, v, bias, dout, dq, dk, dv, ds_ws, stats, b, n, heads, scale, stream);
+    rc = launch_wgmma<kPair>(q, k, v, bias, dout, dq, dk, dv, ds_ws, stats, b, n, heads, scale,
+                             stream);
+  } else if constexpr (kPair) {
+    return static_cast<int>(cudaErrorInvalidValue);
   } else {
     if (pc_ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     rc = is_bf16 ? launch_scalar<__nv_bfloat16>(q, k, v, bias, dout, dq, dk, dv, ds_ws, pc_ws,

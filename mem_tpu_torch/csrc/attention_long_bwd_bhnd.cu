@@ -44,7 +44,7 @@ extern "C" int mem_attention_bwd_whole_bhnd(const void* q, const void* k, const 
                                             void* pc_ws, float* stats, int b, int n, int heads,
                                             int d, float scale, int is_bf16,
                                             cudaStream_t stream) {
-  return dispatch_long_bwd(q, k, v, bias, dout, dq, dk, dv, db, ds_ws, pc_ws, stats, b, n,
+  return dispatch_long_bwd<false>(q, k, v, bias, dout, dq, dk, dv, db, ds_ws, pc_ws, stats, b, n,
                            heads, d, scale, is_bf16, stream);
 }
 
@@ -55,6 +55,6 @@ extern "C" int mem_attention_bwd_blocked_bhnd(const void* q, const void* k, cons
                                               void* pc_ws, float* stats, int b, int n,
                                               int heads, int d, float scale, int is_bf16,
                                               cudaStream_t stream) {
-  return dispatch_long_bwd(q, k, v, bias, dout, dq, dk, dv, db, ds_ws, pc_ws, stats, b, n,
+  return dispatch_long_bwd<false>(q, k, v, bias, dout, dq, dk, dv, db, ds_ws, pc_ws, stats, b, n,
                            heads, d, scale, is_bf16, stream);
 }

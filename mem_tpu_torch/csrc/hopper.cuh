@@ -159,6 +159,12 @@ __device__ __forceinline__ void fence_frags(uint32_t (&a)[4][4]) {
 #define MEM_WG_R32                                                                           \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
   "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+// a 64-register accumulator: two 32-register arrays, operands %0 - %63
+#define MEM_WG_R64                                                                           \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "   \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "   \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "   \
+  "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
 
 // d (+)= a b, a and b K-major tiles in shared memory; ``acc`` 0 overwrites d
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {
@@ -195,9 +201,38 @@ __device__ __forceinline__ void wgmma_rs_mn(float (&d)[32], const uint32_t (&a)[
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
 }
 
+// d (+)= a b over one k16 step in the m64n128k16 form: both operands in
+// shared memory, K-major (kTrans 0) or MN-major (kTrans 1), the accumulator
+// as two halves: lo holds columns 0-63 and hi columns 64-127, each in the
+// m64n64 layout above (the n128 accumulator's registers 0-31 and 32-63);
+// ``acc`` 0 overwrites d
+template <int kTrans = 0>
+__device__ __forceinline__ void wgmma_ss_n128(float (&lo)[32], float (&hi)[32], uint64_t a,
+                                              uint64_t b, int acc = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" MEM_WG_R64
+      "}, %64, %65, p, 1, 1, %67, %67;\n}\n"
+      : MEM_WG_D32(lo), MEM_WG_D32(hi)
+      : "l"(a), "l"(b), "r"(acc), "n"(kTrans));
+}
+
+// d = a b as wgmma_ss_n128 (K-major) with ``acc`` 0, both halves only
+// written (as wgmma_ss_fresh)
+__device__ __forceinline__ void wgmma_ss_n128_fresh(float (&lo)[32], float (&hi)[32], uint64_t a,
+                                                    uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" MEM_WG_R64
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : MEM_WG_W32(lo), MEM_WG_W32(hi)
+      : "l"(a), "l"(b), "r"(0));
+}
+
 #undef MEM_WG_D32
 #undef MEM_WG_W32
 #undef MEM_WG_R32
+#undef MEM_WG_R64
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);

@@ -46,8 +46,6 @@ SIGNATURES = {
     "mem_attention_bwd_flat": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _F, _I, _P), _I),
     "mem_attention_bwd_flat_smem": ((_I, _I, _I), ctypes.c_longlong),
-    "mem_attention_bwd_flat_mma": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                    _I, _I, _I, _I, _F, _I, _P), _I),
     "mem_attention_fwd_bhnd": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P), _I),
     "mem_attention_bwd_bhnd": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _F, _I, _P), _I),

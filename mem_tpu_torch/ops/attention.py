@@ -43,10 +43,10 @@ and K3b's key-tiled kernels with head-major addressing).
 ``fused_attention_flat_bwd_pair`` (X3, csrc/attention_bwd_pair.cu) is the
 experiment of scripts/exp_attn_bwd.py: K2b's function with each head's two
 depth-D products s = q k^T and dp = do v^T taken as one depth-2D product
-against a block-diagonal operand, held bit for bit to K2b's
-``mma.sync`` kernel (``fused_attention_flat_bwd_mma``), of which it is a
-variant. No model path calls either; ``mem_tpu_torch.tools.exp_attn_bwd``
-times them side by side.
+against a block-diagonal operand, on K2b's own Hopper body (K3b's rows kernel
+with the pair as one m64n128k16 chain), held bit for bit to
+``fused_attention_flat_bwd``. No model path calls it;
+``mem_tpu_torch.tools.exp_attn_bwd`` times the two side by side.
 """
 from __future__ import annotations
 
@@ -228,32 +228,15 @@ def fused_attention_flat_bwd(q, k, v, bias, do, scale: float):
     return _flat_bwd(name, "mem_attention_bwd_flat", q, k, v, bias, do, scale, B, N, H, D)
 
 
-def fused_attention_flat_bwd_mma(q, k, v, bias, do, scale: float):
-    """K2b's `mma.sync` tensor-core kernel (one block per (head,
-    sample), ds and p through (B, H, N, N) workspaces), which no model path
-    launches since K2b moved to Hopper: the yardstick X3
-    (:func:`fused_attention_flat_bwd_pair`) is held to bit for bit. The VJP
-    of :func:`fused_attention_flat`, as :func:`fused_attention_flat_bwd`.
-    CPU tensors take the plain version; CUDA tensors launch
-    csrc/attention_bwd.cu's ``mem_attention_bwd_flat_mma`` (bf16, head dim
-    64, N <= FLAT_MAX_N only: other shapes raise) or raise."""
-    if q.device.type == "cpu":
-        return fused_attention_flat_bwd_reference(q, k, v, bias, do, scale)
-    name = "fused_attention_flat_bwd_mma"
-    B, N, H, D = _check_cuda_operands(name, (q, k, v, bias, do), q, bias)
-    if q.dtype != torch.bfloat16 or D != 64 or N > FLAT_MAX_N:
-        raise ValueError(f"{name} takes bf16 operands at head dim 64 and N <= {FLAT_MAX_N}, "
-                         f"got {q.dtype}, D={D}, N={N}")
-    return _flat_bwd(name, "mem_attention_bwd_flat_mma", q, k, v, bias, do, scale, B, N, H, D)
-
-
 def fused_attention_flat_bwd_pair(q, k, v, bias, do, scale: float):
     """X3: K2b's function, with each head's s = q k^T and dp = do v^T taken as
     one depth-2D product against a block-diagonal operand (the experiment of
     scripts/exp_attn_bwd.py). (dq, dk, dv) shaped and typed as q/k/v and db
     (H, N, N) f32 summed over the batch. CPU tensors take the plain version;
-    CUDA tensors launch csrc/attention_bwd_pair.cu (bf16, head dim 64, N <=
-    FLAT_MAX_N only: other shapes raise) or raise."""
+    CUDA tensors launch csrc/attention_bwd_pair.cu (K2b's Hopper body with the
+    pair in its rows kernel: bf16, head dim 64, N <= FLAT_MAX_N and 16-byte
+    aligned operands only, K2b's Hopper domain; other operands raise before
+    any launch) or raise."""
     if q.device.type == "cpu":
         return fused_attention_flat_bwd_pair_reference(q, k, v, bias, do, scale)
     name = "fused_attention_flat_bwd_pair"
@@ -261,14 +244,38 @@ def fused_attention_flat_bwd_pair(q, k, v, bias, do, scale: float):
     if q.dtype != torch.bfloat16 or D != 64 or N > FLAT_MAX_N:
         raise ValueError(f"{name} takes bf16 operands at head dim 64 and N <= {FLAT_MAX_N}, "
                          f"got {q.dtype}, D={D}, N={N}")
-    return _flat_bwd(name, "mem_attention_bwd_pair", q, k, v, bias, do, scale, B, N, H, D)
+    if any(t.data_ptr() % 16 for t in (q, k, v, do)):   # the outputs are allocated like them
+        raise ValueError(f"{name} takes 16-byte aligned operands")
+    return _pair_bwd(q, k, v, bias, do, scale, B, N, H, D)
+
+
+def _pair_bwd(q, k, v, bias, do, scale, B, N, H, D):
+    """Launch X3 (csrc/attention_bwd_pair.cu) with its outputs, the padded ds
+    workspace and the row statistics of K3b's Hopper body (no p workspace),
+    and count the launch."""
+    from mem_tpu_torch.kernels import build
+
+    lib = build.library(q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    db = torch.empty(H, N, N, dtype=torch.float32, device=q.device)
+    ds_ws = torch.empty(B, H, N, lib.mem_attention_long_bwd_ws_stride(N, 1),
+                        dtype=torch.float32, device=q.device)
+    stats = torch.empty(B, H, -(-N // 64), 3, 64, dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.mem_attention_bwd_pair(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                                    do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                                    db.data_ptr(), ds_ws.data_ptr(), stats.data_ptr(), B, N, H,
+                                    D, float(scale), 1, stream)
+    build.check("fused_attention_flat_bwd_pair", rc)
+    count_launch("fused_attention_flat_bwd_pair")
+    return dq, dk, dv, db
 
 
 def _flat_bwd(name, entry, q, k, v, bias, do, scale, B, N, H, D):
     """Launch a backward that keeps ds and p in workspaces (K2b's or K5c's
-    scalar kernel, K2b's `mma.sync` tensor-core kernel or X3) through the C entry
-    point ``entry`` with its outputs and (B, H, N, N) workspaces of ds (f32)
-    and p (the operands' dtype), and count the launch under ``name``."""
+    scalar kernel) through the C entry point ``entry`` with its outputs and
+    (B, H, N, N) workspaces of ds (f32) and p (the operands' dtype), and
+    count the launch under ``name``."""
     from mem_tpu_torch.kernels import build
 
     lib = build.library(q.device)

@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """Times of the flat attention kernels K2f, K2b (short N) and K3f, K3b (long
-N), of the head-major K5a, K5c (K2's bodies) and K5e, K5d (K3b's body), and
-their ptxas lines, for the mem_tpu_torch tree in the current directory: one
-leg of an A/B comparison of two trees on one card.
+N), of the head-major K5a, K5c (K2's bodies) and K5e, K5d (K3b's body), of
+X3 (K2b's body with the paired products), and their ptxas lines, for the
+mem_tpu_torch tree in the current directory: one leg of an A/B comparison of
+two trees on one card.
 
 csrc/attention_long_fwd.cuh and attention_long_bwd.cuh hold K3's Hopper
 bodies, which K3f, K3b and K5b, K5d, K5e take, and K2f, K2b and K5a, K5c
 for bf16 at head dim 64 and N <= 256 too (so on such a tree the "K2f" and
-"K3f-body" legs below launch the same kernels); attention_fwd.cuh and
-attention_bwd.cuh hold K2's scalar kernels (and K2b's `mma.sync`
-tensor-core kernel, X3's yardstick). After a
+"K3f-body" legs below launch the same kernels); X3 (attention_bwd_pair.cu)
+takes the backward's with its rows kernel's kPair instantiation;
+attention_fwd.cuh and attention_bwd.cuh hold K2's scalar kernels. After a
 change to them, check that the other kernels did not move: unpack the
 parent's package into a git-ignored directory and run both trees in turns
 inside one call on the card, since two calls may land on two cards:
@@ -21,14 +22,15 @@ inside one call on the card, since two calls may land on two cards:
     done
 
 Each leg builds the tree's kernels, prints the registers, shared memory and
-spills ptxas reports for K2's flat tensor-core kernels (K2b's `mma.sync`
-kernel) and for every long kernel, flat and head-major, then three medians of 40 CUDA-event
-timings each of:
+spills ptxas reports for every attention kernel, flat and head-major, then
+three medians of 40 CUDA-event timings each of:
 - K2f and K2b at (B, 197, 768) bf16 for B = 8 and 64, and at the same
   shapes K3f's and K3b's bodies through their flat entry points
   (``_forward_long``, ``fused_attention_flat_long_bwd``) and one
   ``scaled_dot_product_attention`` call (the bias as its mask) and its
   backward;
+- K2b and X3 (``fused_attention_flat_bwd_pair``) at (128, 197, 768), the
+  experiment's shape;
 - K5a and K5c at (128, 12, 197, 64), K3f's and K3b's bodies through the
   head-major entry points (``mem_attention_long_fwd_bhnd``,
   ``mem_attention_bwd_whole_bhnd``) at that shape, and the SDPA call;
@@ -55,12 +57,6 @@ from mem_tpu_torch.ops import attention as A
 from mem_tpu_torch.tools import time_ms
 
 RUNS, WARMUP = 40, 8
-
-
-def shown(name: str) -> bool:
-    """A flat tensor-core kernel of K2's bodies or any long kernel (the
-    head-major translation units carry "bhnd" in their mangled names)."""
-    return ("bhnd" not in name and "flat_mma" in name) or "attention_long" in name
 
 
 def medians(fn):
@@ -106,7 +102,7 @@ def main(tag: str) -> None:
             kernel = m.group(1)
         if "spill" in line:
             spill = line.strip()
-        if "registers" in line and kernel and shown(kernel):
+        if "registers" in line and kernel and "attention" in kernel:
             print(tag, "bhnd" if "bhnd" in kernel else "flat", kernel[-60:], "|",
                   line.strip().replace("ptxas info    : ", "")[:64], "|", (spill or "")[-58:])
     bf = torch.bfloat16
@@ -125,6 +121,15 @@ def main(tag: str) -> None:
         print(tag, "B", B, "N", 197, "device ms",
               {name: round(device_ms(fn), 4) for name, fn in legs}, flush=True)
         del q, k, v, do, bias, s_fwd, s_bwd
+    q, k, v, do = (torch.randn(128, 197, 768, device="cuda", dtype=bf) for _ in range(4))
+    bias = torch.randn(12, 197, 197, device="cuda")
+    legs = (("K2b", lambda: A.fused_attention_flat_bwd(q, k, v, bias, do, 0.125)),
+            ("X3", lambda: A.fused_attention_flat_bwd_pair(q, k, v, bias, do, 0.125)))
+    print(tag, "B", 128, "N", 197, *(x for name, fn in legs for x in (name + " ms", medians(fn))),
+          flush=True)
+    print(tag, "B", 128, "N", 197, "device ms",
+          {name: round(device_ms(fn), 4) for name, fn in legs}, flush=True)
+    del q, k, v, do, bias
     B, H, N, D = 128, 12, 197, 64
     q, k, v, do = (torch.randn(B, H, N, D, device="cuda", dtype=bf) for _ in range(4))
     bias = torch.randn(H, N, N, device="cuda")
