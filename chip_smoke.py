@@ -10,8 +10,8 @@ plain PyTorch version on the card; it fails when ptxas reports a spill in the
 wgmma kernels (K3f and the rows and columns kernels of K3b, which K5b / K5d /
 K5e launch on head-major operands and K2f / K5a and K2b / K5c for bf16 at
 head dim 64 and N <= 256; the GEMM body of K6f and K6b; X1's and X2's one-hot
-contractions) or serializes their wgmma pipelines. It drives the five
-ported paths and the two experiment tools, each with the launch counts set
+contractions) or serializes their wgmma pipelines. It drives the six
+ported paths and the experiment tools, each with the launch counts set
 to 0 just before it and read just after:
 
 - the served classification path: the HTTP server of mem_tpu_torch.cli.serve,
@@ -23,6 +23,12 @@ to 0 just before it and read just after:
   VAE tokenizer at the conf's size) on a synthetic N-Caltech-like dataset,
   two epochs, checkpoints and an auto-resumed third epoch; it checks that
   the path launched K1, K2f and K2b;
+- the VAE-training path: mem_tpu_torch.cli.train_vae.main at the conf's
+  full width (224^2, 8192 tokens, hidden 384, bf16, B=32) on the same
+  synthetic set, two epochs with evaluations, reconstruction panels and
+  checkpoints, an auto-resumed third epoch; it checks that the path
+  launched K1; then run_mem_pretraining for one epoch on the tokenizer it
+  wrote, with --dump_recon_dir (K1, K2f, K2b);
 - the segmentation path: mem_tpu_torch.cli.test_seg.main (EvBEiT ViT-B/16 at
   512^2 + UPerNet at full width, a seeded .pth) over a synthetic DSEC-like
   data_root of 16 pairs, single-scale and with --aug_test, and the HTTP
@@ -79,8 +85,9 @@ against its plain version, with a planted fault that must fail them, bit for
 bit against K2b's Hopper path (the body it varies) and across two launches,
 and from a fresh thread.
 
-Between them it holds one pretraining, one segmentation and one finetune
-train step on the card (f32 and bf16) against the same step on the CPU, and
+Between them it holds one VAE, one pretraining, one segmentation and one
+finetune train step on the card (f32 and bf16) against the same step on the
+CPU (the VAE and pretraining steps on the CPU's images and tokens), and
 it times kernels (each beside its plain version,
 its bound and, where there is one, a PyTorch library call), forwards,
 requests and train steps. One line per phase; the line before the last is
@@ -93,10 +100,13 @@ available or mem_tpu_torch cannot be imported, and on any failed check.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import io
+import itertools
 import json
 import os
+import re
 import signal
 import statistics
 import sys
@@ -134,7 +144,12 @@ TRAIN_IMG_FRAC = 1e-3         # order can flip one level (x <= 1.2 jitter) at a 
 VAE_TOKENS_AGREE = 0.99  # f32 tokenizer, TF32 off: only near-ties of the 8192 logits may flip
 VAE_MIN_DISTINCT = 16    # a tokenizer that gives every patch one token makes the agreement vacuous
 STEP_F32_LOSS_REL = 1e-4   # f32 card vs f32 CPU: summation order only
-STEP_F32_GRAD_REL = 1e-3   # per-parameter relative L2 of the gradients, the same
+# per-parameter relative L2 of the gradients, the same, both steps on the CPU's
+# images and tokens: on an H100 3.7e-6 on each of two batches, where the
+# card's own inputs (a few pixels, RandAugment's uint8 truncation) read
+# 1.9e-3 and, on another batch, 2.7e-2 (suspect S1); with the last key
+# dropped 4.4e-2
+STEP_F32_GRAD_REL = 1e-4
 STEP_BF16_LOSS_REL = 2e-2  # bf16 card vs f32 CPU: two blocks of bf16 rounding
 # bf16 card vs f32 CPU, per-parameter relative L2 of the gradients, both
 # steps (pretraining, finetune): two blocks of bf16 rounding. Readings on an
@@ -199,6 +214,27 @@ FT_MICRO = 32            # micro-batch of the finetune CLI runs (batch 64, updat
 K5L_BF16_TOL = 2e-2
 K5L_F32_TOL = 1e-5       # f32: the same math, sums in another order
 FT_N401_SIZE = 320       # --input_H / --input_W of the finetune run at N = 20 x 20 + 1 = 401
+# the VAE-training slice: one make_vae_train_step of the conf's VAE on one
+# host batch, the card's f32 and bf16 steps against the CPU's f32 step on the
+# same images and Gumbel noise
+VAE_STEP_B = 4
+VAE_STEP_F32_LOSS_REL = 1e-4   # f32 card vs f32 CPU: summation order only
+# per-parameter relative L2 of the (clipped) gradients, card f32 vs CPU f32:
+# the encoder's biases sum ~50k upstream terms that cancel (a seeded VAE's
+# encoder gets its gradient only through 8192-way soft codes); reading on an
+# H100 2.1e-3 (decoder.1.net.0.weight), median 4.1e-4; with the last
+# deconvolution's kernel flipped 0.76
+VAE_STEP_F32_GRAD_REL = 1e-2
+VAE_STEP_BF16_LOSS_REL = 2e-2  # bf16 card vs f32 CPU
+# bf16 card vs f32 CPU, per parameter: every activation (the images included)
+# rounded to bf16 moves these gradients the way a few changed pixels do
+# (one card f32 step on its own images read 1.7e-2); reading 0.123
+# (decoder.1.net.0.weight), median 4.3e-2; flipped kernel 0.76
+VAE_STEP_BF16_GRAD_REL = 0.25
+VAE_DECODE_F32_REL = 1e-4      # decode_indices card f32 vs CPU f32, relative L2
+VAE_DECODE_BF16_REL = 2e-2     # ... card bf16 vs CPU f32
+VAE_CLI_B = 32           # train_vae's batch in the CLI run: 4 steps an epoch of 128 files
+VAE_TIME_B = (192, 64)   # the conf's vae_batch_size, and 64
 X1A_RANDOM_REL = 1e-6    # X1a on random f32 weights, relative L2: the bf16-rounded weights'
                          # f32 sums taken in another order (exact on dyadic weights)
 
@@ -692,6 +728,8 @@ def run(torch):
             "--output_dir", os.path.join(train_tmp.name, "pt_out")])
         t_k2b, t_k2bp, t_k2bl = time_training(torch, dev, gpu, base + [
             "--output_dir", os.path.join(train_tmp.name, "x")])
+        # -- the VAE-training slice: train_vae -> run_mem_pretraining --------
+        run_vae_slice(torch, dev, gpu, data_root, train_tmp.name, base)
         # -- the classification finetune slice (on the same synthetic dataset) --
         ft = run_finetune_slice(torch, dev, gpu, g, data_root, train_tmp.name)
     finally:
@@ -1602,6 +1640,17 @@ _FAMILIES = (("attention_long_bwd", "K3b body (K3b, K5d, K5e; K2b, K5c)"),
              ("cat", "elementwise"))
 
 
+_VAE_FAMILIES = (("softmax", "softmax / KL"), ("multi_tensor", "Adam and the clip"),
+                 ("hist_band", "K1"), ("fprop", "convolutions"), ("dgrad", "convolutions"),
+                 ("wgrad", "convolutions"), ("conv", "convolutions"),
+                 ("cudnn", "convolutions"), ("implicit", "convolutions"),
+                 ("xmma", "convolutions"), ("nchw", "layout changes"),
+                 ("nhwc", "layout changes"), ("nvjet", "GEMMs"), ("gemm", "GEMMs"),
+                 ("cutlass", "GEMMs"), ("reduce", "reductions"),
+                 ("elementwise", "elementwise"), ("copy", "elementwise"),
+                 ("cat", "elementwise"))
+
+
 def profile_seg_forward(torch, gpu, forward, n=5, tag="seg_forward_profile", batch=8):
     """torch.profiler over ``n`` calls of ``forward`` (a seg forward or a seg
     train step, bf16): device time per call by kernel family, the device's
@@ -2045,9 +2094,9 @@ def write_training_inputs(torch, root, rng):
     return data_root, vae_path
 
 
-def host_train_batch(args, B):
-    """The first training batch of the synthetic set at batch size B, with
-    its augmentation draws, as numpy."""
+def host_train_batch(args, B, index=0):
+    """Training batch ``index`` of epoch 0 of the synthetic set at batch
+    size B, with its augmentation draws, as numpy."""
     from mem_tpu_torch.cli.common import build_pipeline, build_preproc
     from mem_tpu_torch.data.device_pipeline import draw_train_aug
 
@@ -2056,9 +2105,19 @@ def host_train_batch(args, B):
     _, it = build_pipeline(args, "train", True, B, masking=args.masking,
                            window_size=(args.input_H // patch, args.input_W // patch),
                            seed=args.seed, num_workers=args.num_workers)
-    batch = next(iter(it.epoch(0)))
+    batch = next(itertools.islice(it.epoch(0), index, None))
     batch.update(draw_train_aug(batch["aug_seed"], pp, pp.canvas_h, pp.canvas_w))
     return pp, batch
+
+
+class _FixedTokens:
+    """A tokenizer stand-in that hands every step the same codes."""
+
+    def __init__(self, ids):
+        self.ids = ids
+
+    def get_codebook_indices(self, images):
+        return self.ids.to(images.device)
 
 
 def make_step(torch, R, args, device, dtype, vae, pp, lr_sched):
@@ -2081,10 +2140,14 @@ def check_train_step(torch, dev, flags):
     f32 from the same seeded weights: the loss, and every parameter's
     gradient by relative L2 (bf16 to a looser bound). Each card step records
     the kernel path of every K2b launch: the scalar kernel in f32, K3b's
-    Hopper kernels in bf16. That each gradient gate can see a wrong K2b is
+    Hopper kernels in bf16. The card's steps take the CPU's images and
+    tokens (one input for both sides of each gate; the images and tokens are
+    held card vs CPU first). That each gradient gate can see a wrong K2b is
     shown in the same run: the f32 and the bf16 card steps are repeated with
     a fault planted in K2b's operands (the last key masked out of its
-    scores), and each must fail its gate."""
+    scores), and each must fail its gate. On the next batch of the epoch the
+    f32 step is taken again on the card's own inputs (reported) and on the
+    CPU's (gated): suspect S1."""
     from mem_tpu_torch.cli import run_mem_pretraining as R
     from mem_tpu_torch.data.device_pipeline import preprocess_batch
     from mem_tpu_torch.data.prefetch import to_device
@@ -2116,14 +2179,18 @@ def check_train_step(torch, dev, flags):
     check(tok_cpu.unique().numel() >= VAE_MIN_DISTINCT,
           f"the seeded VAE gave {tok_cpu.unique().numel()} distinct tokens")
 
+    # the card's steps take the CPU's images and tokens: one input for both
+    # sides of the gate (suspect S1: a few changed pixels or labels move the
+    # gradients by more than the gate)
     lr = np.array([args.lr])
     out, paths = {}, {}
     real = A.fused_attention_flat_bwd
+    fixed = _FixedTokens(tok_cpu)
     for name, d, dt, vae, fault in (("cpu_f32", cpu, torch.float32, vae_cpu, False),
-                                    ("card_f32", dev, torch.float32, vae_card, False),
-                                    ("card_bf16", dev, torch.bfloat16, vae_card, False),
-                                    ("last_key_dropped", dev, torch.float32, vae_card, True),
-                                    ("last_key_dropped_bf16", dev, torch.bfloat16, vae_card,
+                                    ("card_f32", dev, torch.float32, fixed, False),
+                                    ("card_bf16", dev, torch.bfloat16, fixed, False),
+                                    ("last_key_dropped", dev, torch.float32, fixed, True),
+                                    ("last_key_dropped_bf16", dev, torch.bfloat16, fixed,
                                      True)):
         model, step = make_step(torch, R, args, d, dt, vae, pp, lr)
         paths[name] = []
@@ -2131,7 +2198,8 @@ def check_train_step(torch, dev, flags):
             A.fused_attention_flat_bwd = path_spy(
                 last_key_dropped(real) if fault else real, A.cuda_bwd_kernel_path,
                 paths[name], d)
-            m = step(to_device(host, d), 0)
+            with fed_images(images["cpu"]) if d.type == "cuda" else contextlib.nullcontext():
+                m = step(to_device(host, d), 0)
         finally:
             A.fused_attention_flat_bwd = real
         out[name] = ({k: v.item() for k, v in m.items()},
@@ -2157,6 +2225,30 @@ def check_train_step(torch, dev, flags):
                    ("last_key_dropped_bf16", STEP_BF16_GRAD_REL)):
         check(grads[n]["max"] > bnd, f"the gradient gate does not see K2b with its last key "
                                      f"dropped ({n}): {grads[n]}")
+
+    # suspect S1: on the next batch of the same epoch, the card's f32 step on
+    # its own images and tokens (reported) and on the CPU's (gated), against
+    # the CPU's step
+    pp2, host2 = host_train_batch(args, 8, index=1)
+    cpu_images = preprocess_batch(to_device(host2, cpu), pp2, is_train=True)
+    with torch.no_grad():
+        cpu_tokens = vae_cpu.get_codebook_indices(cpu_images)
+    s1 = {}
+    for name, d, vae, fed in (("cpu_f32", cpu, vae_cpu, False),
+                              ("card_f32", dev, vae_card, False),
+                              ("card_f32_cpu_inputs", dev, _FixedTokens(cpu_tokens), True)):
+        model, step = make_step(torch, R, args, d, torch.float32, vae, pp2, lr)
+        with fed_images(cpu_images) if fed else contextlib.nullcontext():
+            m = step(to_device(host2, d), 0)
+        s1[name] = ({k: v.item() for k, v in m.items()},
+                    {n: p.grad.detach().float().cpu() for n, p in model.named_parameters()})
+        del model, step
+    s1_grads = {n: grad_rel(torch, s1[n][1], s1["cpu_f32"][1])
+                for n in ("card_f32", "card_f32_cpu_inputs")}
+    say("s1_check", batch_index=1, metrics={n: v[0] for n, v in s1.items()},
+        grad_rel_l2_vs_cpu_f32=s1_grads, bound_on_one_input=STEP_F32_GRAD_REL)
+    check(s1_grads["card_f32_cpu_inputs"]["max"] <= STEP_F32_GRAD_REL,
+          f"f32 grads on the second batch: {s1_grads['card_f32_cpu_inputs']}")
     torch.cuda.empty_cache()
 
 
@@ -2275,6 +2367,386 @@ def time_training(torch, dev, gpu, flags):
         del model, step, batch, metrics
         torch.cuda.empty_cache()
     return statistics.mean(tk), statistics.mean(tp), t_lib
+
+
+# ---------------------------------------------------------------------------
+# the VAE-training slice: train_vae -> run_mem_pretraining
+# ---------------------------------------------------------------------------
+
+def vae_host_batch(args, B, n=1):
+    """A training batch of the synthetic set at batch size B for train_vae
+    (no masks, ColorJitter off as the reference's VAE pipeline), with its
+    augmentation draws, as numpy: the first batch of epoch 0 at B, or for
+    B above the train split the first ``n`` batches of 64 (epochs 0, 1, ...)
+    stacked."""
+    from mem_tpu_torch.cli.common import build_pipeline, build_preproc
+    from mem_tpu_torch.data.device_pipeline import draw_train_aug
+
+    pp = build_preproc(args, True)
+    _, it = build_pipeline(args, "train", True, B if n == 1 else 64, seed=args.seed,
+                           num_workers=args.num_workers)
+    parts = list(itertools.islice((b for e in range(n) for b in it.epoch(e)), n))
+    batch = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    batch.update(draw_train_aug(batch["aug_seed"], pp, pp.canvas_h, pp.canvas_w))
+    return pp, batch
+
+
+@contextlib.contextmanager
+def fed_images(images):
+    """Within the block, the train steps of ``mem_tpu_torch.train.steps``
+    preprocess nothing: they take ``images`` (moved to the batch's device)
+    as what the preprocessing gave, so that steps on two devices see one
+    input."""
+    from mem_tpu_torch.train import steps as S
+
+    real = S.preprocess_batch
+    S.preprocess_batch = lambda batch, pp, is_train: images.to(batch["n_valid"].device)
+    try:
+        yield
+    finally:
+        S.preprocess_batch = real
+
+
+def deconv_flipped(vae):
+    """``vae`` with a planted fault: its last ConvTranspose2d applies its
+    kernel flipped in both spatial axes (what a kernel-layout slip in a
+    hand-written deconvolution would give). The step gates must see it."""
+    import torch.nn.functional as F
+
+    conv = vae.decoder[-2][0]
+    conv.forward = lambda x: F.conv_transpose2d(
+        x, conv.weight.to(x.dtype).flip(2, 3), conv.bias.to(x.dtype), conv.stride, conv.padding)
+    return vae
+
+
+def vae_step_flops(args, B):
+    """Operations of one VAE train step (forward, input and weight
+    gradients of every convolution and of the codebook product; no input
+    gradient for the image), 2 per multiply-add."""
+    H, W, L, R = args.input_H, args.input_W, args.num_layers, args.num_resnet_blocks
+    C, E, N = args.hidden_dim, args.emb_dim, args.num_tokens
+    ch = 3 if args.voxel == 0 else args.voxel
+    px = [(H >> s) * (W >> s) for s in range(L + 1)]       # pixels at stride 2^s
+    first = px[1] * ch * C * 16                            # the first encoder conv
+    macs = first + sum(px[i + 1] * C * C * 16 for i in range(1, L))
+    res = R * (2 * px[L] * C * C * 9 + px[L] * C * C)
+    macs += 2 * res + px[L] * C * N + px[L] * N * E        # ResBlocks, head, codebook
+    macs += px[L] * E * C if R else 0                      # the decoder's 1x1 in
+    macs += sum(px[L - i] * (C if (R or i) else E) * C * 16 for i in range(L))
+    macs += px[0] * C * ch                                 # the decoder's head
+    return 2 * B * (3 * macs - first)
+
+
+def check_vae_step(torch, dev, flags):
+    """Phase V1: one make_vae_train_step of the conf's VAE (224^2, 8192
+    tokens, codebook 32, 4 layers, 3 ResBlocks, hidden 384) at B=4 on one
+    host batch and its draws, with one injected Gumbel-noise array: the
+    preprocessed images card vs CPU; then the step on the CPU in f32 and on
+    the card in f32 (TF32 off) and bf16, all three on the CPU's images, from
+    the same seeded weights: the loss, and every parameter's gradient by
+    relative L2 against the CPU's (gradients, not weights: after Adam's
+    first step a weight moves by about +-lr). The f32 and bf16 card steps
+    are repeated with the last deconvolution's kernel flipped, and each must
+    fail its gradient gate. decode_indices of the CPU's codes card vs CPU,
+    and one card f32 step on its own preprocessing (the path with K1: one
+    launch)."""
+    from mem_tpu_torch.cli import train_vae as T
+    from mem_tpu_torch.data.device_pipeline import preprocess_batch
+    from mem_tpu_torch.data.prefetch import to_device
+    from mem_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from mem_tpu_torch.models.discrete_vae import gumbel_like
+    from mem_tpu_torch.train.steps import make_vae_train_step
+
+    cpu, B = torch.device("cpu"), VAE_STEP_B
+    args = T.get_args(flags + ["--batch_size", str(B)])
+    pp, host = vae_host_batch(args, B)
+    images = {d.type: preprocess_batch(to_device(host, d), pp, is_train=True).cpu()
+              for d in (cpu, dev)}
+    diff = (images["cuda"] - images["cpu"]).abs()
+    say("vae_images_check", shape=list(images["cpu"].shape), max_abs=diff.max().item(),
+        frac_differing=(diff > 1e-6).float().mean().item(), tol=TRAIN_IMG_TOL,
+        frac_tol=TRAIN_IMG_FRAC, normalize_events=args.normalize_events)
+    check(diff.max().item() <= TRAIN_IMG_TOL and
+          (diff > 1e-6).float().mean().item() <= TRAIN_IMG_FRAC,
+          "card VAE train images differ from the CPU's")
+    side = args.input_H >> args.num_layers
+    noise = gumbel_like((B, side, side, args.num_tokens), cpu, torch.Generator().manual_seed(1))
+
+    def run(d, dt, fault=False, own_images=False):
+        vae = T.build_vae(args, dt, d)
+        vae.init_weights(torch.Generator().manual_seed(args.seed))
+        if fault:
+            deconv_flipped(vae)
+        opt = torch.optim.Adam(vae.parameters(), lr=args.learning_rate, betas=(0.9, 0.999),
+                               eps=1e-8)
+        step = make_vae_train_step(vae, opt, pp, args.clip, args.seed, inject_noise=True)
+        batch = to_device(host, d)
+        if own_images:
+            reset_launch_counts()
+            m = step(batch, noise.to(d), args.learning_rate, args.starting_temp)
+            counts = launch_counts()
+        else:
+            with fed_images(images["cpu"]):
+                m = step(batch, noise.to(d), args.learning_rate, args.starting_temp)
+            counts = None
+        out = ({k: v.item() for k, v in m.items()},
+               {n: p.grad.detach().float().cpu() for n, p in vae.named_parameters()}, counts)
+        del vae, opt, step
+        return out
+
+    out = {"cpu_f32": run(cpu, torch.float32),
+           "card_f32": run(dev, torch.float32),
+           "card_bf16": run(dev, torch.bfloat16),
+           "deconv_flipped": run(dev, torch.float32, fault=True),
+           "deconv_flipped_bf16": run(dev, torch.bfloat16, fault=True),
+           "card_f32_own_images": run(dev, torch.float32, own_images=True)}
+    ref = out["cpu_f32"][0]
+    loss_rel = {n: abs(out[n][0]["loss"] - ref["loss"]) / abs(ref["loss"]) for n in out}
+    grads = {n: grad_rel(torch, out[n][1], out["cpu_f32"][1]) for n in out if n != "cpu_f32"}
+    k1 = out["card_f32_own_images"][2]
+
+    # decode_indices of the CPU's codes, card (f32 and bf16) against the CPU
+    decoded = {}
+    for name, d, dt in (("cpu_f32", cpu, torch.float32), ("card_f32", dev, torch.float32),
+                        ("card_bf16", dev, torch.bfloat16)):
+        vae = T.build_vae(args, dt, d)
+        vae.init_weights(torch.Generator().manual_seed(args.seed))
+        with torch.no_grad():
+            if name == "cpu_f32":
+                ids = vae.get_codebook_indices(images["cpu"])
+            decoded[name] = vae.decode_indices(ids.to(d)).float().cpu()
+        del vae
+    dec_rel = {n: rel_l2(torch, decoded[n], decoded["cpu_f32"]) for n in ("card_f32", "card_bf16")}
+    say("vae_step_check", model="event_vae", input=[args.input_H, args.input_W],
+        num_tokens=args.num_tokens, codebook=args.emb_dim, layers=args.num_layers,
+        resblocks=args.num_resnet_blocks, hidden=args.hidden_dim, batch=B, clip=args.clip,
+        metrics={n: v[0] for n, v in out.items()}, loss_rel=loss_rel,
+        grad_rel_l2_vs_cpu_f32=grads, decode_rel_l2_vs_cpu_f32=dec_rel,
+        distinct_codes=int(ids.unique().numel()), k1_launches_own_images=k1,
+        bounds=dict(f32_loss=VAE_STEP_F32_LOSS_REL, f32_grad=VAE_STEP_F32_GRAD_REL,
+                    bf16_loss=VAE_STEP_BF16_LOSS_REL, bf16_grad=VAE_STEP_BF16_GRAD_REL,
+                    f32_decode=VAE_DECODE_F32_REL, bf16_decode=VAE_DECODE_BF16_REL))
+    check(all(np.isfinite(v) for r in out.values() for v in r[0].values()),
+          "VAE step metrics not finite")
+    check(loss_rel["card_f32"] <= VAE_STEP_F32_LOSS_REL, f"VAE f32 step loss rel {loss_rel}")
+    check(grads["card_f32"]["max"] <= VAE_STEP_F32_GRAD_REL, f"VAE f32 grads {grads['card_f32']}")
+    check(loss_rel["card_bf16"] <= VAE_STEP_BF16_LOSS_REL, f"VAE bf16 step loss rel {loss_rel}")
+    check(grads["card_bf16"]["max"] <= VAE_STEP_BF16_GRAD_REL,
+          f"VAE bf16 grads {grads['card_bf16']}")
+    for n, bnd in (("deconv_flipped", VAE_STEP_F32_GRAD_REL),
+                   ("deconv_flipped_bf16", VAE_STEP_BF16_GRAD_REL)):
+        check(grads[n]["max"] > bnd, f"the VAE gradient gate does not see the flipped "
+                                     f"deconvolution ({n}): {grads[n]}")
+    check(dec_rel["card_f32"] <= VAE_DECODE_F32_REL, f"decode_indices f32 rel {dec_rel}")
+    check(dec_rel["card_bf16"] <= VAE_DECODE_BF16_REL, f"decode_indices bf16 rel {dec_rel}")
+    check(k1 == {"hist_planes_cols": 1}, f"the VAE step launched {k1}, not K1 once")
+    torch.cuda.empty_cache()
+
+
+def run_train_vae_cli(torch, flags, out_dir, recon_dir):
+    """Phase V2: train_vae at full width on the card (bf16, B=32: 4 steps an
+    epoch), 2 epochs with an eval, a recon panel and a checkpoint each, then
+    an auto-resumed third epoch. Returns the path of checkpoint-final.pth."""
+    from mem_tpu_torch.cli import train_vae as T
+    from mem_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    common = flags + ["--batch_size", str(VAE_CLI_B), "--eval_freq", "1",
+                      "--save_ckpt_freq", "1", "--dump_recon_dir", recon_dir,
+                      "--output_dir", out_dir, "--device", "cuda"]
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    reset_launch_counts()                 # just before the main path
+    with contextlib.redirect_stdout(log):
+        hist = T.main(common + ["--epochs", "2"])
+    counts = launch_counts()              # just after it
+    t1 = time.perf_counter()
+    written = sorted(os.listdir(out_dir))
+    with contextlib.redirect_stdout(log):
+        resumed = T.main(common + ["--epochs", "3"])
+    t2 = time.perf_counter()
+    text = log.getvalue()
+    usage = [ln for ln in text.splitlines() if "codebook usage" in ln]
+    used = [re.search(r"codebook usage (\d+)/(\d+)", ln) for ln in usage]
+    recons = sorted(os.listdir(recon_dir)) if os.path.isdir(recon_dir) else []
+    steps = len(hist) // 2
+    say("train_vae_cli", model="event_vae", dtype="bfloat16", batch=VAE_CLI_B,
+        steps=len(hist), losses=[h[1] for h in hist], grad_norm=[h[2] for h in hist],
+        resumed_steps=[h[0] for h in resumed], resumed_losses=[h[1] for h in resumed],
+        evals=usage, codebook_usage=[m.group(0) if m else None for m in used],
+        checkpoints=written, recon_panels=recons, launches=counts,
+        samples_per_sec=[ln for ln in text.splitlines() if "samples/sec" in ln],
+        seconds=[round(t1 - t0, 2), round(t2 - t1, 2)])
+    check(steps > 0 and all(np.isfinite(h[1]) for h in hist + resumed),
+          f"train_vae losses {hist} {resumed}")
+    check({"checkpoint-0.pth", "checkpoint-1.pth", "checkpoint-final.pth"} <= set(written),
+          f"train_vae checkpoints {written}")
+    check([h[0] for h in resumed] == list(range(2 * steps, 3 * steps)),
+          f"train_vae's auto-resume ran steps {[h[0] for h in resumed]}")
+    check(os.path.exists(os.path.join(out_dir, "checkpoint-2.pth")), "no checkpoint-2.pth")
+    check(len(usage) == 3 and all(m and int(m.group(2)) == 8192 for m in used),
+          f"train_vae printed no codebook usage of the 8192 tokens: {usage}")
+    check({"recon_ep0.png", "recon_ep1.png", "recon_ep2.png"} <= set(recons),
+          f"train_vae wrote {recons}")
+    check(counts.get("hist_planes_cols", 0) > 0, "train_vae launched no hist_planes_cols")
+    return os.path.join(out_dir, "checkpoint-final.pth")
+
+
+def run_vae_chain(torch, pt_flags, vae_path, out_dir, dump_dir):
+    """Phase V3: run_mem_pretraining at full width for one epoch on the
+    tokenizer train_vae wrote, with --dump_recon_dir: it loads the .pth as
+    it is and writes the eval's reconstruction and mask panels."""
+    from mem_tpu_torch.cli import run_mem_pretraining as R
+    from mem_tpu_torch.data.device_pipeline import preprocess_batch
+    from mem_tpu_torch.data.prefetch import to_device
+    from mem_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    dev = torch.device("cuda")
+    args = R.get_args(pt_flags + ["--discrete_vae_weight_path", vae_path,
+                                  "--output_dir", out_dir, "--device", "cuda"])
+    vae = R.load_vae(args, dev)
+    pp, host = host_train_batch(args, 64)
+    with torch.no_grad():
+        ids = vae.get_codebook_indices(preprocess_batch(to_device(host, dev), pp, True))
+    del vae
+    t0 = time.perf_counter()
+    reset_launch_counts()                 # just before the main path
+    hist = R.main(pt_flags + ["--discrete_vae_weight_path", vae_path, "--output_dir", out_dir,
+                              "--batch_size", "64", "--epochs", "1", "--save_ckpt_freq", "1",
+                              "--warmup_steps", "2", "--device", "cuda",
+                              "--dump_recon_dir", dump_dir])
+    counts = launch_counts()              # just after it
+    panels = sorted(os.listdir(dump_dir)) if os.path.isdir(dump_dir) else []
+    say("vae_chain", vae=vae_path.rsplit(os.sep, 2)[-2:], steps=len(hist),
+        losses=[h[1] for h in hist], distinct_tokens_batch64=int(ids.unique().numel()),
+        tokens_batch64=ids.numel(), panels=panels, launches=counts,
+        seconds=round(time.perf_counter() - t0, 2))
+    check(len(hist) > 0 and all(np.isfinite(h[1]) for h in hist), f"chain losses {hist}")
+    check({"recon_ep0.png", "mask_ep0.png"} <= set(panels), f"the chain wrote {panels}")
+    for name in ("hist_planes_cols", "fused_attention_flat", "fused_attention_flat_bwd"):
+        check(counts.get(name, 0) > 0, f"the chained pretraining launched no {name} kernel")
+
+
+_VAE_OPS = {"aten::cudnn_convolution": "convolutions",
+            "aten::cudnn_convolution_transpose": "transposed convolutions"}
+
+
+def profile_vae_step(torch, gpu, step, n, batch):
+    """torch.profiler over ``n`` calls of ``step`` (a bf16 VAE train step):
+    device ms per step by kernel family, the convolutions split into
+    ordinary and transposed by the aten op that launched them (a backward
+    whose output gradient is wider than its input belongs to a transposed
+    convolution), the busy share of the unprofiled wall and the kernels per
+    step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def wall(k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(k):
+            step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / k
+
+    wall(1)
+    wall_ms = wall(n)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        wall(n)
+    fam, total, launches, kernels = {}, 0.0, 0, []
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) is None or "cuda" not in str(e.device_type).lower():
+            continue
+        ms = getattr(e, "self_device_time_total", 0.0) / 1e3 / n
+        if ms <= 0 or e.key.startswith("Optimizer.step"):
+            continue
+        low = e.key.lower()
+        name = next((f for frag, f in _VAE_FAMILIES if frag in low), "other")
+        fam[name] = fam.get(name, 0.0) + ms
+        kernels.append((round(ms, 3), e.count // n, name, e.key[:90]))
+        total += ms
+        launches += e.count
+    ops = {}
+    for e in prof.key_averages(group_by_input_shape=True):
+        kind = _VAE_OPS.get(e.key)
+        if e.key == "aten::convolution_backward" and len(e.input_shapes) > 1:
+            go, inp = e.input_shapes[0], e.input_shapes[1]
+            kind = ("transposed convolutions" if go and inp and go[-1] > inp[-1]
+                    else "convolutions")
+        if kind:
+            ms = getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0)) / 1e3 / n
+            ops[kind] = ops.get(kind, 0.0) + ms
+    if total == 0:
+        say("vae_step_profile", gpu=gpu, device_ms="not measured")
+        return None
+    say("vae_step_profile", gpu=gpu, batch=batch, dtype="bfloat16", steps=n, wall_ms=wall_ms,
+        device_ms=total, device_busy_share=min(total / wall_ms, 1.0),
+        kernels_per_step=launches / n,
+        family_ms={k: round(v, 3) for k, v in sorted(fam.items(), key=lambda kv: -kv[1])},
+        conv_ops_device_ms={k: round(v, 3) for k, v in ops.items()},
+        top_kernels=sorted(kernels, reverse=True)[:15])
+    return total, wall_ms
+
+
+def time_vae_step(torch, dev, gpu, flags):
+    """Phase V4: the bf16 VAE train step at the conf's batch (192, three
+    host batches of 64 stacked) and at 64, one batch resident: CUDA-event
+    medians of 12 steps after 3, samples/s, peak device memory, the bound
+    (the step's operations at the bf16 peak), and a profile by family."""
+    from mem_tpu_torch.cli import train_vae as T
+    from mem_tpu_torch.data.prefetch import to_device
+    from mem_tpu_torch.tools import PEAK_BF16_FLOPS
+    from mem_tpu_torch.train.steps import make_vae_train_step
+
+    steps, warm = 15, 3
+    for B in VAE_TIME_B:
+        args = T.get_args(flags + ["--batch_size", str(B)])
+        pp, host = vae_host_batch(args, B, n=B // 64)
+        vae = T.build_vae(args, torch.bfloat16, dev)
+        vae.init_weights(torch.Generator().manual_seed(args.seed))
+        opt = torch.optim.Adam(vae.parameters(), lr=args.learning_rate, betas=(0.9, 0.999),
+                               eps=1e-8)
+        step = make_vae_train_step(vae, opt, pp, args.clip, args.seed)
+        batch = to_device(host, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        events, metrics = [], []
+        for i in range(steps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            metrics.append(step(batch, i, args.learning_rate, args.starting_temp))
+            end.record()
+            events.append((start, end))
+        torch.cuda.synchronize()
+        ms = statistics.median(a.elapsed_time(b) for a, b in events[warm:])
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        losses = [m["loss"].item() for m in metrics]
+        flops = vae_step_flops(args, B)
+        bound_ms = flops / PEAK_BF16_FLOPS * 1e3
+        it = iter(range(steps, steps + 100))
+        prof = profile_vae_step(torch, gpu, lambda: step(batch, next(it), args.learning_rate,
+                                                         args.starting_temp), 5, B)
+        say("time_vae_step", gpu=gpu, batch=B, model="event_vae", dtype="bfloat16", ms=ms,
+            samples_per_s=B / ms * 1e3, peak_mem_gib=peak, step_tflop=flops / 1e12,
+            bound_ms=bound_ms, bound_by="operations", share_of_bound=bound_ms / ms,
+            device_ms=prof[0] if prof else "not measured",
+            device_share_of_bound=bound_ms / prof[0] if prof else "not measured",
+            losses=losses)
+        check(all(np.isfinite(losses)), f"VAE B={B}: non-finite losses {losses}")
+        del vae, opt, step, batch, metrics
+        torch.cuda.empty_cache()
+
+
+def run_vae_slice(torch, dev, gpu, data_root, tmp_root, pt_flags):
+    """The VAE-training slice on the synthetic N-Caltech set: V1-V4."""
+    flags = ["--config", "configs/ncaltech.conf", "--data_path", data_root,
+             "--num_workers", "4"]
+    check_vae_step(torch, dev, flags)
+    vae_path = run_train_vae_cli(torch, flags, os.path.join(tmp_root, "vae_out"),
+                                 os.path.join(tmp_root, "vae_recon"))
+    run_vae_chain(torch, pt_flags, vae_path, os.path.join(tmp_root, "pt_chain"),
+                  os.path.join(tmp_root, "pt_dump"))
+    time_vae_step(torch, dev, gpu, flags)
 
 
 # ---------------------------------------------------------------------------

@@ -253,9 +253,9 @@ def warn_compat_args(args, compat_list) -> None:
 
 
 def add_imnet_args(parser, stage: str = "pretrain") -> None:
-    """The ``--data_set IMNET`` knobs of the pretraining or the finetune CLI
-    (common.py:348-392), declared so .conf files bind; the IMNET path itself
-    raises."""
+    """The ``--data_set IMNET`` knobs of the pretraining, the finetune or
+    the VAE CLI (``stage`` "pretrain", "finetune" or "vae"; common.py:348-392),
+    declared so .conf files bind; the IMNET path itself raises."""
     a = parser.add_argument
     a("--input_size", type=int, default=224)
     a("--imagenet_default_mean_and_std", action="store_true", default=False)
@@ -272,6 +272,7 @@ def add_imnet_args(parser, stage: str = "pretrain") -> None:
         a("--remode", type=str, default="pixel")
         a("--recount", type=int, default=1)
         a("--resplit", action="store_true", default=False)
+    if stage == "finetune":
         a("--crop_pct", type=float, default=None)
 
 

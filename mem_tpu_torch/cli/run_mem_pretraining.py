@@ -12,11 +12,15 @@ augmentations, and copies each batch to the device one step ahead.
 The frozen tokenizer comes from ``--discrete_vae_weight_path``, a ``.pth``
 holding ``{"model": <reference VAE state_dict>, "hparams": {input_H,
 input_W, num_tokens, emb_dim, num_layers, num_resnet_blocks, hidden_dim,
-channels, loss}}`` (the keys the reference's stage-1 checkpoint carries).
-Checkpoints are ``output_dir/checkpoint-{epoch}.pth`` and
-``checkpoint-final.pth``, ``{"model": <state_dict in the export_vit_params
-schema>, "optimizer": ..., "epoch": n}``; ``--auto_resume`` continues from
-the newest one.
+channels, loss}}`` (the keys the reference's stage-1 checkpoint carries;
+``python -m mem_tpu_torch.cli.train_vae`` writes one). With
+``--dump_recon_dir`` the first eval batch of each saving epoch, and a
+training batch whenever the grad norm passes ``--recon_grad_norm_thresh``
+(at most once per 100 steps), go through the tokenizer and its decoder into
+``recon_*.png`` / ``mask_*.png`` panels. Checkpoints are
+``output_dir/checkpoint-{epoch}.pth`` and ``checkpoint-final.pth``,
+``{"model": <state_dict in the export_vit_params schema>, "optimizer": ...,
+"epoch": n}``; ``--auto_resume`` continues from the newest one.
 
 Usage:
   python -m mem_tpu_torch.cli.run_mem_pretraining --config configs/ncaltech.conf \\
@@ -40,7 +44,7 @@ import torch
 from mem_tpu_torch.cli.common import (add_compat_args, add_imnet_args, add_preprocessing_args,
                                       build_pipeline, build_preproc, resolve_device,
                                       validate_preproc_args, warn_compat_args)
-from mem_tpu_torch.data.device_pipeline import draw_train_aug
+from mem_tpu_torch.data.device_pipeline import preprocess_batch, with_train_draws
 from mem_tpu_torch.data.prefetch import device_prefetch, prefetch, to_device
 from mem_tpu_torch.models.discrete_vae import DiscreteVAE
 from mem_tpu_torch.models.registry import create_model
@@ -51,6 +55,7 @@ from mem_tpu_torch.utils.checkpoint import latest_checkpoint, load_checkpoint, s
 from mem_tpu_torch.utils.config import ConfigArgumentParser
 from mem_tpu_torch.utils.preemption import (RESTART_EXIT_CODE, GracefulShutdown, rss_gb,
                                             validate_rss_flag)
+from mem_tpu_torch.utils.visualize import grid, mask_overlay, reconstruction_panel, save_png
 
 LOG_EVERY = 10   # steps between metric reads (the reference logs every 10)
 
@@ -164,8 +169,6 @@ def check_ported(args) -> None:
          "(ROADMAP queue 1, item 15)"),
         (args.bf16_moments, "--bf16_moments 1 (bf16 optimizer moments) is ROADMAP "
                             "queue 1, item 8b"),
-        (args.dump_recon_dir, "--dump_recon_dir needs the VAE decoder, which comes with "
-                              "the VAE-training slice of the port (ROADMAP queue 1, item 9)"),
         (args.pretrained, "--pretrained 1 (the timm warm start) is ROADMAP queue 1, "
                           "item 8b"),
     ]
@@ -217,20 +220,36 @@ def load_vae(args, device) -> DiscreteVAE:
                       num_tokens=int(h["num_tokens"]), codebook_dim=int(h["emb_dim"]),
                       num_layers=int(h["num_layers"]),
                       num_resnet_blocks=int(h["num_resnet_blocks"]),
-                      hidden_dim=int(h["hidden_dim"]), channels=vae_chans, device=device)
-    ignored = vae.load_reference_state_dict(payload["model"])
-    if ignored:
-        print(f"load_vae: {len(ignored)} entries not used by the frozen encoder "
-              f"({', '.join(ignored[:4])}{', ...' if len(ignored) > 4 else ''})")
+                      hidden_dim=int(h["hidden_dim"]), channels=vae_chans,
+                      loss_type=str(h.get("loss", "mse")), device=device)
+    vae.load_state_dict(payload["model"], strict=True)
     return vae.eval().requires_grad_(False)
 
 
-def _with_draws(it, preproc):
-    """Add the host augmentation draws to each training batch."""
-    for batch in it:
-        batch.update(draw_train_aug(batch["aug_seed"], preproc,
-                                    preproc.canvas_h, preproc.canvas_w))
-        yield batch
+def should_dump_on_grad_norm(grad_norm: float, it: int, last_dump_it: int, thresh: float,
+                             min_gap: int = 100) -> bool:
+    """The grad-norm trigger of the reconstruction dump
+    (engine_for_pretraining.py:167-201 dumps when grad_norm > 6), at most
+    one dump per ``min_gap`` steps (run_mem_pretraining.py:275)."""
+    return math.isfinite(grad_norm) and grad_norm > thresh and it - last_dump_it >= min_gap
+
+
+def _dump_recon_panel(args, vae, preproc, batch: dict, tag: str) -> None:
+    """The original / reconstruction panel of up to 8 samples of a device
+    batch through the frozen VAE, and their mask overlays
+    (run_mem_pretraining.py:288-313)."""
+    os.makedirs(args.dump_recon_dir, exist_ok=True)
+    with torch.no_grad():
+        imgs = preprocess_batch(batch, preproc, is_train=False)[:8]
+        recon = vae.decode_indices(vae.get_codebook_indices(imgs))
+    imgs, recon = imgs.float().cpu().numpy(), recon.float().cpu().numpy()
+    save_png(os.path.join(args.dump_recon_dir, f"recon_{tag}.png"),
+             reconstruction_panel(imgs, recon, cols=4))
+    if "mask" in batch:
+        mask = batch["mask"].cpu().numpy()
+        overlays = [mask_overlay(imgs[i], mask[i], 2 ** args.num_layers)
+                    for i in range(imgs.shape[0])]
+        save_png(os.path.join(args.dump_recon_dir, f"mask_{tag}.png"), grid(overlays, cols=4))
 
 
 def _checkpoint(model, optimizer, epoch: int) -> dict:
@@ -294,6 +313,7 @@ def main(argv=None):
         print(f"Resumed from {ckpt} (epoch {start_epoch})")
 
     history = []
+    last_dump = -10**9   # the step of the last grad-norm-triggered recon dump
     for epoch in range(start_epoch, args.epochs):
         t0 = time.time()
         pending = []   # device metrics not yet read back
@@ -312,14 +332,19 @@ def main(argv=None):
             print(f"Epoch: [{epoch}] [{it - epoch * steps_per_epoch}/{steps_per_epoch}] "
                   f"loss: {loss:.4f} mlm_acc: {acc:.4f} grad_norm: {gnorm:.4f} "
                   f"lr: {at(lr_sched, it):.6e}", flush=True)
+            return float(ms["grad_norm"].max())
 
-        batches = device_prefetch(prefetch(_with_draws(train_it.epoch(epoch), preproc_train)),
-                                  device)
+        batches = device_prefetch(
+            prefetch(with_train_draws(train_it.epoch(epoch), preproc_train)), device)
         for i, batch in enumerate(batches):
             it = epoch * steps_per_epoch + i
             pending.append((it, train_step(batch, it)))
             if len(pending) == LOG_EVERY or i == steps_per_epoch - 1:
-                flush()
+                gnorm_max = flush()
+                if args.dump_recon_dir and should_dump_on_grad_norm(
+                        gnorm_max, it, last_dump, args.recon_grad_norm_thresh):
+                    last_dump = it
+                    _dump_recon_panel(args, vae, preproc_train, batch, f"trigger_it{it}")
             if stopper.requested:
                 break
         if pending:
@@ -338,8 +363,11 @@ def main(argv=None):
             save_checkpoint(args.output_dir, epoch, _checkpoint(model, optimizer, epoch))
             if not args.disable_eval_during_pretraining:
                 losses, accs = [], []
-                for batch in val_it.epoch(0):
-                    out = eval_step(to_device(batch, device))
+                for j, batch in enumerate(val_it.epoch(0)):
+                    batch = to_device(batch, device)
+                    out = eval_step(batch)
+                    if j == 0 and args.dump_recon_dir:
+                        _dump_recon_panel(args, vae, preproc_val, batch, f"ep{epoch}")
                     losses.append(out["loss"])
                     accs.append(out["mlm_acc"])
                 if losses:

@@ -127,6 +127,14 @@ def draw_train_aug(aug_seed: np.ndarray, cfg: PreprocConfig, H: int, W: int) -> 
     return out
 
 
+def with_train_draws(batches, cfg: PreprocConfig):
+    """Add the host augmentation draws (:func:`draw_train_aug`) to each
+    training batch of an iterator of host batches."""
+    for batch in batches:
+        batch.update(draw_train_aug(batch["aug_seed"], cfg, cfg.canvas_h, cfg.canvas_w))
+        yield batch
+
+
 def _train_draws(batch: dict, keys):
     missing = [k for k in keys if k not in batch]
     if missing:

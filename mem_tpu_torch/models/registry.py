@@ -1,6 +1,6 @@
 """Model registry — ``create_model(name, **kwargs)``, port of
-mem_tpu/models/registry.py. ``pt_vit`` and ``ft_vit`` are ported; the other
-models of the reference come with their slices."""
+mem_tpu/models/registry.py. ``pt_vit``, ``ft_vit`` and ``event_vae`` are
+ported; the MAE models of the reference come with their slice."""
 from __future__ import annotations
 
 from typing import Callable, Dict
@@ -39,3 +39,12 @@ def ft_vit(**kwargs):
 
     kwargs.pop("pretrained", None)
     return VisionTransformer(**kwargs)
+
+
+@register_model
+def event_vae(**kwargs):
+    """Discrete event VAE tokenizer (reference ``event_vae``)."""
+    from mem_tpu_torch.models.discrete_vae import DiscreteVAE
+
+    kwargs.pop("pretrained", None)
+    return DiscreteVAE(**kwargs)

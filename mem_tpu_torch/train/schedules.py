@@ -3,7 +3,9 @@ mem_tpu/train/schedules.py (mem/utils.py:395-412): linear warmup
 (``warmup_steps`` overrides ``warmup_epochs``), then cosine from base to
 final over the remaining steps, as a numpy array with one value per step.
 ``poly_lr_schedule``, port of mem_tpu/cli/train_seg.py:47-59: the mmseg poly
-policy of segmentation training, as a step -> lr function."""
+policy of segmentation training, as a step -> lr function.
+``VaeAnnealState``, port of mem_tpu/train/schedules.py:58-98: the VAE's
+coupled lr decay and Gumbel-temperature anneal."""
 from __future__ import annotations
 
 import math
@@ -53,3 +55,33 @@ def poly_lr_schedule(base_lr: float, max_iters: int, power: float = 1.0,
         return float(warm if step < warmup_iters else main)
 
     return fn
+
+
+class VaeAnnealState:
+    """The reference VAE's coupled lr decay and Gumbel-temperature anneal
+    (train_vae.py:342-353). Both change only after a step whose within-epoch
+    index ``i`` is a multiple of ``every`` (10,000), so once per epoch at
+    i = 0 for epochs shorter than that (the reference's quirk), and take
+    effect from the next step::
+
+        for i, batch in enumerate(loader):
+            train_step(batch, ..., lr=state.lr, temp=state.temp)
+            state.after_step(i)
+    """
+
+    def __init__(self, base_lr: float, lr_decay: float, starting_temp: float = 1.0,
+                 anneal_rate: float = 1e-6, temp_min: float = 0.5, every: int = 10000):
+        self.lr = base_lr
+        self.lr_decay = lr_decay
+        self.temp = starting_temp
+        self.anneal_rate = anneal_rate
+        self.temp_min = temp_min
+        self.every = every
+        self.global_step = 0
+
+    def after_step(self, i: int) -> None:
+        if i % self.every == 0:
+            self.temp = max(self.temp * math.exp(-self.anneal_rate * self.global_step),
+                            self.temp_min)
+            self.lr *= self.lr_decay
+        self.global_step += 1

@@ -1,11 +1,20 @@
-"""Train and eval steps: MEM pretraining, port of mem_tpu/train/steps.py
-``make_pretrain_train_step`` / ``make_pretrain_eval_step`` (:135-210)
+"""Train and eval steps: the discrete VAE, port of mem_tpu/train/steps.py
+``make_vae_train_step`` / ``make_vae_eval_step`` (:51-130) (the reference's
+train_vae.py:304-399), MEM pretraining, port of
+mem_tpu/train/steps.py ``make_pretrain_train_step`` / ``make_pretrain_eval_step`` (:135-210)
 (the reference's engine_for_pretraining.py:108-287), classification
 finetuning, port of ``make_finetune_train_step`` / ``make_finetune_eval_step``
 (:262-419) (engine_for_finetuning.py:41-244), and DSEC segmentation, port of
 mem_tpu/cli/train_seg.py ``make_seg_steps`` (:129-162).
 
-One train step: on-device preprocessing with the training augmentations
+One VAE train step: on-device preprocessing with the training
+augmentations (kernel K1) -> the VAE's Gumbel-softmax forward (noise from
+the step's generator, or injected) -> reconstruction loss + KL -> backward
+-> the pre-clip global grad norm and the clip -> plain Adam with the lr
+passed in (the reference's ``scale_by_adam`` and ``-lr * u``). The f32
+path runs its convolutions without TF32, backward included.
+
+One pretraining train step: on-device preprocessing with the training augmentations
 -> frozen-VAE codebook labels under ``torch.no_grad()`` -> the masked ViT
 forward (bf16 compute, f32 params; drop-path from a generator seeded by
 (seed, step)) -> cross-entropy at the masked positions -> backward (kernel
@@ -37,6 +46,7 @@ import torch
 
 from mem_tpu_torch.data.device_pipeline import PreprocConfig, preprocess_batch
 from mem_tpu_torch.data.seg_pipeline import IGNORE_INDEX, seg_preprocess_batch
+from mem_tpu_torch.models.discrete_vae import cudnn_full_f32
 from mem_tpu_torch.models.segmentation import confusion_matrix, seg_loss
 from mem_tpu_torch.models.pretrain import masked_cross_entropy, masked_cross_entropy_gathered
 from mem_tpu_torch.train.mixup import MIXUP_KEYS, MixupConfig, mixup_apply, one_hot_smoothed
@@ -50,6 +60,56 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     g = torch.Generator(device=device)
     g.manual_seed(int(np.random.SeedSequence((int(seed), int(step))).generate_state(1)[0]))
     return g
+
+
+def make_vae_train_step(vae, optimizer: torch.optim.Optimizer, preproc: PreprocConfig,
+                        clip: float, seed: int = 0, inject_noise: bool = False):
+    """Returns ``step(batch, rng, lr, temp) -> {"loss", "grad_norm"}``.
+    ``batch``: device tensors (events or events_xyp, n_valid, extents,
+    flips, shift and the draw_train_aug draws); ``rng``: the global step,
+    which seeds the step's Gumbel generator, or with ``inject_noise`` the
+    pre-drawn (B, h, w, num_tokens) noise itself (the reference's
+    ``inject_noise``); ``lr`` and ``temp``: this step's values of the
+    anneal (``VaeAnnealState``). ``optimizer``: ``torch.optim.Adam`` over
+    ``vae.parameters()`` with betas (0.9, 0.999), eps 1e-8 and no weight
+    decay; its lr is set before each update."""
+    params = [p for p in vae.parameters() if p.requires_grad]
+
+    def step(batch: dict, rng, lr: float, temp: float) -> dict:
+        images = preprocess_batch(batch, preproc, is_train=True)
+        vae.train()
+        with cudnn_full_f32():
+            if inject_noise:
+                loss = vae(images, temp, gumbel_noise=rng)
+            else:
+                loss = vae(images, temp, generator=step_generator(seed, rng, images.device))
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        gnorm = clip_grad_global_norm(params, clip)
+        for g in optimizer.param_groups:
+            g["lr"] = lr
+        optimizer.step()
+        return {"loss": loss.detach(), "grad_norm": gnorm}
+
+    return step
+
+
+def make_vae_eval_step(vae, preproc: PreprocConfig):
+    """Returns ``step(batch) -> {"loss", "ids", "images", "recon"}``: the
+    eval preprocessing, the argmax codes, their decoding, and the MSE of
+    the reconstruction against the unnormalized images (steps.py:122); the
+    images and the reconstruction ride along for the panels."""
+
+    def step(batch: dict) -> dict:
+        vae.eval()
+        with torch.no_grad():
+            images = preprocess_batch(batch, preproc, is_train=False)
+            ids = vae.get_codebook_indices(images)
+            recon = vae.decode_indices(ids)
+            mse = ((images - recon.float()) ** 2).mean()
+        return {"loss": mse, "ids": ids, "images": images, "recon": recon}
+
+    return step
 
 
 def _loss(model, images, mask, labels, generator=None):

@@ -1,10 +1,13 @@
-"""Visual diagnostics of the segmentation pipeline: preprocessed-sample
-dumps (the reference seg pipeline's SaveToDisk op, EventDataset.py:682-708)
-and colourised annotations (tools/plot_anns.py).
+"""Visual diagnostics: preprocessed-sample dumps (the reference seg
+pipeline's SaveToDisk op, EventDataset.py:682-708), colourised annotations
+(tools/plot_anns.py), and the VAE reconstruction panels and BEiT mask
+overlays that ``train_vae`` and ``run_mem_pretraining --dump_recon_dir``
+write (the reference's wandb image dumps, engine_for_pretraining.py:167-201,
+train_vae.py:344).
 
-The port's own copy of what ``train_seg --dump_samples_dir`` needs from
-mem_tpu/utils/visualize.py. All functions return or save HWC uint8 numpy
-images and take NHWC float event images and (H, W) label maps.
+The port's own copy of what those need from mem_tpu/utils/visualize.py.
+All functions return or save HWC uint8 numpy images and take NHWC float
+event images, (N,) patch masks and (H, W) label maps.
 """
 from __future__ import annotations
 
@@ -41,6 +44,25 @@ def grid(images: Sequence[np.ndarray], cols: int = 4, pad: int = 2) -> np.ndarra
         r, cc = divmod(i, cols)
         out[r * (h + pad) : r * (h + pad) + h, cc * (w + pad) : cc * (w + pad) + w] = im
     return out
+
+
+def mask_overlay(img: np.ndarray, bool_mask: np.ndarray, patch: int = 16) -> np.ndarray:
+    """Dim the masked patches of an event image. ``bool_mask`` is (N,) over
+    the (H / patch, W / patch) grid."""
+    rgb = event_image_to_rgb(img).astype(np.float32)
+    H, W, _ = rgb.shape
+    m = np.asarray(bool_mask, bool).reshape(H // patch, W // patch)
+    rgb[np.kron(m, np.ones((patch, patch), bool))] *= 0.25
+    return rgb.astype(np.uint8)
+
+
+def reconstruction_panel(originals: np.ndarray, reconstructions: np.ndarray,
+                         cols: int = 4) -> np.ndarray:
+    """Original / reconstruction pairs side by side (the VAE eval dumps)."""
+    imgs = []
+    for o, r in zip(originals, reconstructions):
+        imgs += [event_image_to_rgb(o), event_image_to_rgb(r)]
+    return grid(imgs, cols=cols)
 
 
 # distinct color palette for label maps (Cityscapes-like hues)

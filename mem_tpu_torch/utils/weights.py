@@ -6,7 +6,8 @@ mem_tpu/utils/torch_import.py ``export_vit_params`` (:122-173) writes and
 ``python -m mem_tpu.cli.export_torch`` saves, so the port's models'
 ``load_state_dict(sd, strict=True)`` takes either. The VAE keys are the
 reference DiscreteVAE's ``nn.Sequential`` indices, the schema
-``import_vae_state_dict`` (torch_import.py:385-419) reads. The segmentor keys are those of
+``import_vae_state_dict`` (torch_import.py:385-419) reads, and for the legacy
+VAE the schema ``import_legacy_vae_state_dict`` (:422-450) reads. The segmentor keys are those of
 ``export_seg_params`` (torch_import.py:453-498). Flax Dense
 kernels are (in, out) and torch Linear weights (out, in); conv kernels
 (kh, kw, I, O) become torch (O, I, kh, kw), transposed-conv kernels
@@ -141,6 +142,32 @@ def vae_from_jax_params(tree: Dict) -> Dict[str, torch.Tensor]:
     for i in range(L):
         conv(f"decoder.{off + R + i}.0", p[f"dec_deconv_{i}"], _CONV_T)
     conv(f"decoder.{off + R + L}", p["dec_head"])
+    return sd
+
+
+def legacy_vae_from_jax_params(tree: Dict) -> Dict[str, torch.Tensor]:
+    """flax ``LegacyDiscreteVAE`` variables -> the reference legacy VAE
+    state_dict: encoder ``[Seq(Conv, ReLU), ResBlock] * L + [Conv1x1]``,
+    decoder ``[Seq(ConvT, ReLU), ResBlock] * L + [Conv1x1]`` (the inverse of
+    torch_import.py:422-450)."""
+    p = tree["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    put = _putter(sd)
+    L = sum(1 for k in p if re.fullmatch(r"enc_conv_\d+", k))
+
+    def conv(prefix, sub, transpose=_CONV):
+        put(f"{prefix}.weight", sub["kernel"], transpose)
+        put(f"{prefix}.bias", sub["bias"])
+
+    put("codebook.weight", p["codebook"]["embedding"])
+    for i in range(L):
+        conv(f"encoder.{2 * i}.0", p[f"enc_conv_{i}"])
+        conv(f"decoder.{2 * i}.0", p[f"dec_deconv_{i}"], _CONV_T)
+        for stack, name in (("encoder", "enc_res"), ("decoder", "dec_res")):
+            for ti, sub in ((0, "conv1"), (2, "conv2"), (4, "conv3")):
+                conv(f"{stack}.{2 * i + 1}.net.{ti}", p[f"{name}_{i}"][sub])
+    conv(f"encoder.{2 * L}", p["enc_head"])
+    conv(f"decoder.{2 * L}", p["dec_head"])
     return sd
 
 

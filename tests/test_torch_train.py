@@ -148,7 +148,7 @@ def three_steps():
     tmodel = create_model("pt_vit", **_MODEL)
     tmodel.load_state_dict(from_jax_params(params), strict=True)
     tvae = DiscreteVAE((32, 32), **_VAE)
-    tvae.load_reference_state_dict(vae_from_jax_params(vae_params))
+    tvae.load_state_dict(vae_from_jax_params(vae_params), strict=True)
     opt = optim.create_optimizer(tmodel, 1e-3, 0.05)
     tstep = make_pretrain_train_step(tmodel, tvae, opt, PreprocConfig(**pp), LR, WD, CLIP)
     got = [{k: v.item() for k, v in tstep({k: torch.from_numpy(v) for k, v in b.items()
@@ -253,7 +253,7 @@ def test_cli_trains_checkpoints_and_resumes(tmp_path):
 @pytest.mark.parametrize("flags,match", [
     (["--MAE", "1"], "item 10"), (["--data_set", "IMNET"], "item 16"),
     (["--fsdp", "1"], "item 15"), (["--bf16_moments", "1"], "item 8"),
-    (["--dump_recon_dir", "x"], "item 9"), (["--pretrained", "1"], "item 8"),
+    (["--zero1", "1"], "item 15"), (["--pretrained", "1"], "item 8"),
 ])
 def test_cli_unported_options_raise(flags, match):
     from mem_tpu_torch.cli import run_mem_pretraining as R
