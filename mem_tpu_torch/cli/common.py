@@ -14,6 +14,7 @@ import torch
 from mem_tpu_torch.data.device_pipeline import PreprocConfig
 from mem_tpu_torch.data.folder import NpyFolder, loader_for_path, resolve_split_root
 from mem_tpu_torch.data.pipeline import EventBatchIterator, PipelineConfig
+from mem_tpu_torch.models.registry import create_model
 
 
 def resolve_device(name: str) -> torch.device:
@@ -100,6 +101,33 @@ def build_preproc(args, is_train: bool, color_jitter: float = 0.0) -> PreprocCon
         scale_xy_rational=scale_rat,
         voxel=int(getattr(args, "voxel", 0)),
     )
+
+
+def build_classifier(args, nb_classes: int, dtype, device):
+    """The classifier of a finetune run and of the server that serves its
+    checkpoint (run_class_finetuning.py:202-228 and, with ``--MAE 1``,
+    :315-331): ``create_model`` on the ft_vit or the vit_base_patch16
+    surface."""
+    patch = 2 ** args.num_layers
+    if args.MAE:
+        return create_model(
+            "vit_base_patch16", num_classes=nb_classes, drop_path_rate=args.drop_path,
+            drop_rate=args.drop, global_pool=True, img_size=(args.input_H, args.input_W),
+            in_chans=3 if args.voxel == 0 else args.voxel, patch_size=patch,
+            embed_dim=args.transformer_emb, depth=args.transformer_depth,
+            num_heads=args.transformer_heads, mlp_ratio=args.transformer_mlp_ratio,
+            dtype=dtype, device=device)
+    name = "ft_vit" if args.model in (None, "null") else args.model
+    return create_model(
+        name, num_classes=nb_classes, drop_rate=args.drop, drop_path_rate=args.drop_path,
+        attn_drop_rate=args.attn_drop_rate, use_mean_pooling=bool(args.use_mean_pooling),
+        init_scale=args.init_scale, use_rel_pos_bias=bool(args.rel_pos_bias),
+        use_abs_pos_emb=bool(args.abs_pos_emb), init_values=args.layer_scale_init_value,
+        in_chans=3 if args.voxel == 0 else args.voxel,
+        img_size=(args.input_H, args.input_W), patch_size=(patch, patch),
+        embed_dim=args.transformer_emb, depth=args.transformer_depth,
+        num_heads=args.transformer_heads, mlp_ratio=args.transformer_mlp_ratio,
+        use_batch_norm=bool(args.linear_probe_batch_norm), dtype=dtype, device=device)
 
 
 def build_pipeline(args, split: str, is_train: bool, batch_size: int,

@@ -15,6 +15,12 @@ every epoch the val split is evaluated with the raw and the EMA weights
 
 ``--finetune x.pth`` starts from a MEM pretraining checkpoint through the
 surgery importer (a shared rel-pos table becomes one table per block).
+``--MAE 1`` finetunes the reference's MAE leg instead: ``vit_base_patch16``
+(timm blocks, global pool; the ``--transformer_*`` geometry) from an MAE
+pretraining checkpoint (``run_mem_pretraining --MAE 1``, or a timm-named
+reference one) through ``surgery_for_mae_finetune``, loaded only when
+training, as the reference does; the step, EMA, mixup and layer decay are
+the same.
 Checkpoints are ``output_dir/checkpoint-{epoch}.pth`` = ``{"model":
 <state_dict in the export_vit_params schema>, "optimizer": ..., "ema":
 <state_dict of the EMA weights, when EMA is on>, "epoch": n, "best_acc":
@@ -44,11 +50,10 @@ import numpy as np
 import torch
 
 from mem_tpu_torch.cli.common import (add_compat_args, add_imnet_args, add_preprocessing_args,
-                                      build_pipeline, build_preproc, resolve_device,
-                                      validate_preproc_args, warn_compat_args)
+                                      build_classifier, build_pipeline, build_preproc,
+                                      resolve_device, validate_preproc_args, warn_compat_args)
 from mem_tpu_torch.data.device_pipeline import draw_train_aug, preprocess_batch
 from mem_tpu_torch.data.prefetch import device_prefetch, prefetch, to_device
-from mem_tpu_torch.models.registry import create_model
 from mem_tpu_torch.train.mixup import draw_mixup, make_mixup
 from mem_tpu_torch.train.optim import SKIP_NAMES, create_optimizer
 from mem_tpu_torch.train.schedules import cosine_scheduler
@@ -184,8 +189,6 @@ def get_args(argv=None):
 def check_ported(args) -> None:
     """Raise for the options whose slice of the port has not landed."""
     todo = [
-        (args.MAE, "--MAE 1 (finetuning the MAE model) comes with the MAE slice of the "
-                   "port (ROADMAP queue 1, item 10)"),
         (args.data_set == "IMNET", "--data_set IMNET (the real-image baseline) comes with "
                                    "the IMNET slice of the port (ROADMAP queue 1, item 16)"),
         (args.int8, "--int8 1 (W8A8 eval forwards) comes with the int8 slice of the port "
@@ -206,22 +209,6 @@ def check_ported(args) -> None:
         print("note: --wandb is not ported and has no effect")
 
 
-def build_model(args, nb_classes: int, dtype, device):
-    """run_class_finetuning.py:202-228: ``create_model`` on the ft_vit surface."""
-    patch = 2 ** args.num_layers
-    name = "ft_vit" if args.model in (None, "null") else args.model
-    return create_model(
-        name, num_classes=nb_classes, drop_rate=args.drop, drop_path_rate=args.drop_path,
-        attn_drop_rate=args.attn_drop_rate, use_mean_pooling=bool(args.use_mean_pooling),
-        init_scale=args.init_scale, use_rel_pos_bias=bool(args.rel_pos_bias),
-        use_abs_pos_emb=bool(args.abs_pos_emb), init_values=args.layer_scale_init_value,
-        in_chans=3 if args.voxel == 0 else args.voxel,
-        img_size=(args.input_H, args.input_W), patch_size=(patch, patch),
-        embed_dim=args.transformer_emb, depth=args.transformer_depth,
-        num_heads=args.transformer_heads, mlp_ratio=args.transformer_mlp_ratio,
-        use_batch_norm=bool(args.linear_probe_batch_norm), dtype=dtype, device=device)
-
-
 def load_finetune_checkpoint(model, path: str, model_key: str, model_prefix: str,
                              window) -> None:
     """Initialise the model from a pretraining ``.pth`` through the surgery
@@ -229,14 +216,7 @@ def load_finetune_checkpoint(model, path: str, model_key: str, model_prefix: str
     strip ``model_prefix``, adapt the tables to ``window``."""
     from mem_tpu_torch.utils.surgery import surgery_for_finetune
 
-    if not path.endswith((".pth", ".pt")):
-        raise ValueError(
-            f"--finetune {path}: only .pth / .pt checkpoints are read; an orbax "
-            f"checkpoint directory needs jax -- convert it with `python -m "
-            f"mem_tpu.cli.export_torch --checkpoint {path} --output model.pth`")
-    ck = load_checkpoint(path)
-    keys = [k for k in model_key.split("|") if k in ck]
-    sd = ck[keys[0]] if keys else ck
+    sd = _checkpoint_state_dict(path, model_key)
     if model_prefix:
         sd = {k[len(model_prefix):]: v for k, v in sd.items() if k.startswith(model_prefix)}
     template = {k: v.cpu().numpy() for k, v in model.state_dict().items()}
@@ -244,6 +224,38 @@ def load_finetune_checkpoint(model, path: str, model_key: str, model_prefix: str
                                   window)
     model.load_state_dict({k: torch.from_numpy(v) for k, v in merged.items()}, strict=True)
     print(f"loaded + adapted pretrain checkpoint {path}")
+
+
+def _checkpoint_state_dict(path: str, model_key: str) -> dict:
+    """The state_dict of a ``--finetune`` ``.pth``: under the first key of
+    ``model_key`` ("a|b") the payload has, else the payload itself."""
+    if not path.endswith((".pth", ".pt")):
+        raise ValueError(
+            f"--finetune {path}: only .pth / .pt checkpoints are read; an orbax "
+            f"checkpoint directory needs jax -- convert it with `python -m "
+            f"mem_tpu.cli.export_torch --checkpoint {path} --output model.pth`")
+    ck = load_checkpoint(path)
+    keys = [k for k in model_key.split("|") if k in ck]
+    return ck[keys[0]] if keys else ck
+
+
+def load_mae_finetune_checkpoint(model, path: str, model_key: str, window,
+                                 src_grid=None) -> None:
+    """Initialise the MAE classifier from an MAE pretraining ``.pth``
+    (run_class_finetuning.py:402-432): probe the payload for ``model_key``,
+    map timm names to the port's (``normalize_mae_state_dict``), and load
+    through ``surgery_for_mae_finetune`` at ``window`` (the pretraining's
+    square grid ``src_grid`` synthesises its sin-cos table when the source
+    holds none)."""
+    from mem_tpu_torch.utils.surgery import surgery_for_mae_finetune
+    from mem_tpu_torch.utils.weights import normalize_mae_state_dict
+
+    sd = normalize_mae_state_dict(_checkpoint_state_dict(path, model_key))
+    print(f"Load MAE PT checkpoint from: {path}")
+    template = {k: v.cpu().numpy() for k, v in model.state_dict().items()}
+    merged = surgery_for_mae_finetune({k: v.cpu().numpy() for k, v in sd.items()}, template,
+                                      grid=window, src_grid=src_grid)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in merged.items()}, strict=True)
 
 
 def _with_draws(it, preproc, mixup, seed: int):
@@ -297,9 +309,18 @@ def main(argv=None):
     patch = 2 ** args.num_layers
     window = (args.input_H // patch, args.input_W // patch)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
-    model = build_model(args, nb_classes, dtype, device)
+    if args.MAE:
+        print("MAE finetuning")
+    model = build_classifier(args, nb_classes, dtype, device)
     model.init_weights(torch.Generator().manual_seed(args.seed))
-    if args.finetune:
+    if args.MAE:
+        # the reference loads the MAE checkpoint on training runs only (:406)
+        if args.finetune and not args.eval:
+            src_grid = (args.mae_pretrain_input_size // patch
+                        if args.mae_pretrain_input_size else None)
+            load_mae_finetune_checkpoint(model, args.finetune, args.model_key, window,
+                                         src_grid)
+    elif args.finetune:
         load_finetune_checkpoint(model, args.finetune, args.model_key, args.model_prefix,
                                  window)
     n_params = sum(p.numel() for p in model.parameters())

@@ -22,6 +22,15 @@ training batch whenever the grad norm passes ``--recon_grad_norm_thresh``
 ``{"model": <state_dict in the export_vit_params schema>, "optimizer": ...,
 "epoch": n}``; ``--auto_resume`` continues from the newest one.
 
+``--MAE 1`` trains the reference's second recipe instead: pixel regression
+with ``MaskedAutoencoderViT`` (the ``--transformer_*`` encoder, a
+``--mae_decoder_*`` decoder; attention through K2f/K2b at the encoder's
+visible tokens and the decoder's full sequence), no tokenizer, no masks from
+the host (the shuffle noise comes from each step's generator), no eval pass
+and no ``mlm_acc``; ``--dump_recon_dir`` is ignored, as in the reference. Its
+checkpoints hold the state_dict in the ``export_mae_params`` schema, which
+``run_class_finetuning --MAE 1 --finetune`` loads.
+
 Usage:
   python -m mem_tpu_torch.cli.run_mem_pretraining --config configs/ncaltech.conf \\
       --data_path datasets/ncaltech101 --discrete_vae_weight_path vae.pth \\
@@ -50,7 +59,8 @@ from mem_tpu_torch.models.discrete_vae import DiscreteVAE
 from mem_tpu_torch.models.registry import create_model
 from mem_tpu_torch.train.optim import create_optimizer
 from mem_tpu_torch.train.schedules import at, cosine_scheduler
-from mem_tpu_torch.train.steps import make_pretrain_eval_step, make_pretrain_train_step
+from mem_tpu_torch.train.steps import (make_mae_train_step, make_pretrain_eval_step,
+                                       make_pretrain_train_step)
 from mem_tpu_torch.utils.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from mem_tpu_torch.utils.config import ConfigArgumentParser
 from mem_tpu_torch.utils.preemption import (RESTART_EXIT_CODE, GracefulShutdown, rss_gb,
@@ -159,9 +169,9 @@ def get_args(argv=None):
 
 def check_ported(args) -> None:
     """Raise for the options whose slice of the port has not landed."""
+    if args.MAE and args.data_set == "IMNET":
+        raise ValueError("--MAE with --data_set IMNET is not a reference path")
     todo = [
-        (args.MAE, "--MAE 1 (the MAE model) comes with the MAE slice of the port "
-                   "(ROADMAP queue 1, item 10)"),
         (args.data_set == "IMNET", "--data_set IMNET (real-image pretraining) comes with "
                                    "the IMNET slice of the port (ROADMAP queue 1, item 16)"),
         (args.tp > 1 or args.zero1 or args.fsdp,
@@ -184,6 +194,17 @@ def check_ported(args) -> None:
 
 def build_model(args, dtype, device):
     patch = 2 ** args.num_layers
+    if args.MAE:
+        from mem_tpu_torch.models.mae import MaskedAutoencoderViT
+
+        return MaskedAutoencoderViT(
+            img_size=args.input_H, patch_size=patch,
+            in_chans=3 if args.voxel == 0 else args.voxel, embed_dim=args.transformer_emb,
+            depth=args.transformer_depth, num_heads=args.transformer_heads,
+            decoder_embed_dim=args.mae_decoder_emb, decoder_depth=args.mae_decoder_depth,
+            decoder_num_heads=args.mae_decoder_heads, mlp_ratio=args.transformer_mlp_ratio,
+            norm_pix_loss=bool(args.mae_norm_pix_loss),
+            loss_only_masked=bool(args.mae_loss_only_masked), dtype=dtype, device=device)
     return create_model(
         args.model,
         drop_path_rate=args.drop_path,
@@ -258,7 +279,7 @@ def _checkpoint(model, optimizer, epoch: int) -> dict:
 
 def main(argv=None):
     """Train; returns the per-step history [(step, loss, mlm_acc,
-    grad_norm), ...] of this process."""
+    grad_norm), ...] of this process (mlm_acc None under ``--MAE 1``)."""
     args = get_args(argv)
     validate_preproc_args(args)
     check_ported(args)
@@ -268,10 +289,11 @@ def main(argv=None):
     os.makedirs(args.output_dir, exist_ok=True)
     patch = 2 ** args.num_layers
     window = (args.input_H // patch, args.input_W // patch)
-    _, train_it = build_pipeline(args, "train", True, args.batch_size, masking=args.masking,
+    masking = None if args.MAE else args.masking
+    _, train_it = build_pipeline(args, "train", True, args.batch_size, masking=masking,
                                  window_size=window, seed=args.seed,
                                  num_workers=args.num_workers)
-    _, val_it = build_pipeline(args, "val", False, args.batch_size, masking=args.masking,
+    _, val_it = build_pipeline(args, "val", False, args.batch_size, masking=masking,
                                window_size=window, seed=args.seed,
                                num_workers=args.num_workers)
     preproc_train = build_preproc(args, True, color_jitter=args.color_jitter)
@@ -293,10 +315,17 @@ def main(argv=None):
 
     optimizer = create_optimizer(model, args.lr, args.weight_decay, opt=args.opt,
                                  opt_eps=args.opt_eps)
-    vae = load_vae(args, device)
-    train_step = make_pretrain_train_step(model, vae, optimizer, preproc_train, lr_sched,
-                                          wd_sched, args.clip_grad, args.seed)
-    eval_step = make_pretrain_eval_step(model, vae, preproc_val)
+    if args.MAE:
+        vae = eval_step = None
+        train_step = make_mae_train_step(model, optimizer, preproc_train, lr_sched, wd_sched,
+                                         args.clip_grad, args.seed)
+    else:
+        vae = load_vae(args, device)
+        train_step = make_pretrain_train_step(model, vae, optimizer, preproc_train, lr_sched,
+                                              wd_sched, args.clip_grad, args.seed)
+        eval_step = make_pretrain_eval_step(model, vae, preproc_val)
+    dump = args.dump_recon_dir if not args.MAE else None
+    keys = ("loss", "grad_norm") if args.MAE else ("loss", "mlm_acc", "grad_norm")
 
     start_epoch = args.start_epoch
     ckpt = None
@@ -320,17 +349,18 @@ def main(argv=None):
 
         def flush():
             ms = {k: torch.stack([m[k] for _, m in pending]).float().cpu().numpy()
-                  for k in ("loss", "mlm_acc", "grad_norm")}
+                  for k in keys}
             for j, (it, _) in enumerate(pending):
-                history.append((it, float(ms["loss"][j]), float(ms["mlm_acc"][j]),
-                                float(ms["grad_norm"][j])))
+                acc = float(ms["mlm_acc"][j]) if "mlm_acc" in ms else None
+                history.append((it, float(ms["loss"][j]), acc, float(ms["grad_norm"][j])))
             bad = [it for it, loss, _, _ in history[-len(pending):] if not math.isfinite(loss)]
             it, loss, acc, gnorm = history[-1]
             pending.clear()
             if bad:
                 raise RuntimeError(f"non-finite loss at step {bad[0]}")
+            acc_s = "" if acc is None else f" mlm_acc: {acc:.4f}"
             print(f"Epoch: [{epoch}] [{it - epoch * steps_per_epoch}/{steps_per_epoch}] "
-                  f"loss: {loss:.4f} mlm_acc: {acc:.4f} grad_norm: {gnorm:.4f} "
+                  f"loss: {loss:.4f}{acc_s} grad_norm: {gnorm:.4f} "
                   f"lr: {at(lr_sched, it):.6e}", flush=True)
             return float(ms["grad_norm"].max())
 
@@ -341,7 +371,7 @@ def main(argv=None):
             pending.append((it, train_step(batch, it)))
             if len(pending) == LOG_EVERY or i == steps_per_epoch - 1:
                 gnorm_max = flush()
-                if args.dump_recon_dir and should_dump_on_grad_norm(
+                if dump and should_dump_on_grad_norm(
                         gnorm_max, it, last_dump, args.recon_grad_norm_thresh):
                     last_dump = it
                     _dump_recon_panel(args, vae, preproc_train, batch, f"trigger_it{it}")
@@ -361,12 +391,12 @@ def main(argv=None):
 
         if (epoch + 1) % args.save_ckpt_freq == 0 or epoch + 1 == args.epochs:
             save_checkpoint(args.output_dir, epoch, _checkpoint(model, optimizer, epoch))
-            if not args.disable_eval_during_pretraining:
+            if eval_step is not None and not args.disable_eval_during_pretraining:
                 losses, accs = [], []
                 for j, batch in enumerate(val_it.epoch(0)):
                     batch = to_device(batch, device)
                     out = eval_step(batch)
-                    if j == 0 and args.dump_recon_dir:
+                    if j == 0 and dump:
                         _dump_recon_panel(args, vae, preproc_val, batch, f"ep{epoch}")
                     losses.append(out["loss"])
                     accs.append(out["mlm_acc"])

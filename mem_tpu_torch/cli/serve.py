@@ -23,7 +23,11 @@ Protocol (stdlib HTTP, one round-trip per sample):
                   EMA batch latency, added-latency estimate
 
 The cls model is ``ft_vit`` from a ``.pth`` checkpoint in the reference
-torch schema (``python -m mem_tpu.cli.export_torch`` writes one); the seg
+torch schema (``python -m mem_tpu.cli.export_torch`` writes one), or with
+``--MAE 1`` the MAE-finetune classifier ``vit_base_patch16`` (global pool)
+from a ``run_class_finetuning --MAE 1`` checkpoint; ``--use_ema 1`` serves
+the checkpoint's EMA weights (``model_ema``, or the finetune CLI's ``ema``)
+where it has them. The seg
 model is EvBEiT + UPerNet from a ``.pth`` in the keys of
 ``utils.weights.seg_from_jax_params``. Preprocessing runs on the device
 inside the forward (kernel K1; K4 on the DSEC canvas), attention through
@@ -48,9 +52,9 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
-from mem_tpu_torch.cli.common import add_preprocessing_args, build_preproc, detect_dataset
+from mem_tpu_torch.cli.common import (add_preprocessing_args, build_classifier, build_preproc,
+                                      detect_dataset)
 from mem_tpu_torch.data.device_pipeline import preprocess_batch
-from mem_tpu_torch.models.registry import create_model
 from mem_tpu_torch.utils.checkpoint import latest_checkpoint, load_checkpoint
 from mem_tpu_torch.utils.config import ConfigArgumentParser
 
@@ -64,7 +68,8 @@ def get_args(argv=None):
                    help=".pth checkpoint ({'model': state_dict}) or a directory "
                         "(serves its newest .pth)")
     p.add_argument("--use_ema", type=int, default=0,
-                   help="serve the 'model_ema' weights when the checkpoint has them")
+                   help="serve the EMA weights ('model_ema', or the finetune CLI's "
+                        "'ema') when the checkpoint has them")
     p.add_argument("--nb_classes", "--num_classes", type=int, required=True)
     p.add_argument("--surface", type=str, default="cls", choices=("cls", "seg"),
                    help="cls = event classification (ft_vit); seg = DSEC semantic "
@@ -76,7 +81,8 @@ def get_args(argv=None):
     p.add_argument("--presort_y", type=int, default=1)
     # model geometry -- the finetune CLI's flag surface
     p.add_argument("--model", type=str, default="ft_vit")
-    p.add_argument("--MAE", type=int, default=0)
+    p.add_argument("--MAE", type=int, default=0,
+                   help="1 = the MAE-finetune classifier (vit_base_patch16, global pool)")
     p.add_argument("--rel_pos_bias", type=int, default=1)
     p.add_argument("--abs_pos_emb", type=int, default=0)
     p.add_argument("--layer_scale_init_value", type=float, default=0.1)
@@ -276,35 +282,6 @@ def _load_payload(args):
     return path, load_checkpoint(path)
 
 
-def _build_ft_vit(args, nb_classes, patch, dtype, device):
-    """The ft_vit model branch of run_class_finetuning (:202-228)."""
-    name = args.model
-    if name in (None, "null"):
-        name = "ft_vit"
-    return create_model(
-        name,
-        num_classes=nb_classes,
-        drop_rate=args.drop,
-        drop_path_rate=args.drop_path,
-        attn_drop_rate=args.attn_drop_rate,
-        use_mean_pooling=bool(args.use_mean_pooling),
-        init_scale=args.init_scale,
-        use_rel_pos_bias=bool(args.rel_pos_bias),
-        use_abs_pos_emb=bool(args.abs_pos_emb),
-        init_values=args.layer_scale_init_value,
-        in_chans=3 if args.voxel == 0 else args.voxel,
-        img_size=(args.input_H, args.input_W),
-        patch_size=(patch, patch),
-        embed_dim=args.transformer_emb,
-        depth=args.transformer_depth,
-        num_heads=args.transformer_heads,
-        mlp_ratio=args.transformer_mlp_ratio,
-        use_batch_norm=bool(args.linear_probe_batch_norm),
-        dtype=dtype,
-        device=device,
-    )
-
-
 def classify(model, pp, batch: dict, k: int):
     """The served forward on a device batch: eval preprocessing, the model,
     softmax, top-k -> (probabilities, class indices), each (B, k)."""
@@ -370,20 +347,23 @@ def to_device(batch: dict, device) -> dict:
 
 
 def _build_cls(args, dtype, device):
-    """Classification surface: ft_vit + the eval preprocessing of the
-    finetune CLI. Returns (assemble, infer, unpack)."""
+    """Classification surface: ft_vit (or, with ``--MAE 1``, the MAE
+    classifier) + the eval preprocessing of the finetune CLI. Returns
+    (assemble, infer, unpack)."""
     if detect_dataset(args.data_path) == "dsec":
         raise SystemExit("serve: --surface cls does not cover DSEC "
                          "(use --surface seg)")
     pp = build_preproc(args, is_train=False)
     assemble = make_assemble(args, pp)
-    model = _build_ft_vit(args, args.nb_classes, 2 ** args.num_layers, dtype, device)
+    model = build_classifier(args, args.nb_classes, dtype, device)
     path, payload = _load_payload(args)
-    key = "model_ema" if (args.use_ema and "model_ema" in payload) else "model"
-    if args.use_ema and "model_ema" not in payload:
+    key = next((k for k in ("model_ema", "ema") if args.use_ema and k in payload), "model")
+    if args.use_ema and key == "model":
         print("note: checkpoint has no EMA state; serving raw params")
-    # the weights move to the device once, at load
-    model.load_state_dict(payload[key], strict=True)
+    # the weights move to the device once, at load; an EMA of the parameters
+    # alone takes the buffers from the raw state_dict
+    weights = payload[key] if key == "model" else {**payload["model"], **payload[key]}
+    model.load_state_dict(weights, strict=True)
     model.eval()
     print(f"serving {key} from {path} on {device}")
     k = args.topk
@@ -486,9 +466,6 @@ def build_server(args):
     """Construct (httpd, state, threads); main() runs it, tests drive it
     programmatically. The kernels are built and the forward is warmed
     before this returns, so /healthz is green from the first request."""
-    if args.MAE:
-        raise NotImplementedError("--MAE 1 (the MAE classifier) comes with the MAE "
-                                  "slice of the port")
     if args.int8:
         raise NotImplementedError("--int8 1 (W8A8 GEMMs) comes with the serving-"
                                   "quantization slice of the port (queue 1 item 14)")

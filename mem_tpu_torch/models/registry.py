@@ -1,6 +1,5 @@
 """Model registry — ``create_model(name, **kwargs)``, port of
-mem_tpu/models/registry.py. ``pt_vit``, ``ft_vit`` and ``event_vae`` are
-ported; the MAE models of the reference come with their slice."""
+mem_tpu/models/registry.py: every model of the reference's registry."""
 from __future__ import annotations
 
 from typing import Callable, Dict
@@ -39,6 +38,33 @@ def ft_vit(**kwargs):
 
     kwargs.pop("pretrained", None)
     return VisionTransformer(**kwargs)
+
+
+@register_model
+def mae_vit_base_patch16_dec512d8b(**kwargs):
+    """MAE ViT-B/16 with a 512-wide, 8-block decoder (reference
+    modeling_mae.py:306)."""
+    from mem_tpu_torch.models.mae import MaskedAutoencoderViT
+
+    kwargs.pop("pretrained", None)
+    return MaskedAutoencoderViT(patch_size=16, embed_dim=768, depth=12, num_heads=12,
+                                decoder_embed_dim=512, decoder_depth=8, decoder_num_heads=16,
+                                **kwargs)
+
+
+@register_model
+def vit_base_patch16(**kwargs):
+    """timm-style ViT-B/16 for MAE finetuning (reference
+    run_class_finetuning.py:78-82, the global-pool VisionTransformer). The
+    base/16 geometry is the default; explicit kwargs override it, as the
+    reference's registry allows (registry.py:59-74)."""
+    from mem_tpu_torch.models.mae_classifier import MAEVisionTransformer
+
+    kwargs.pop("pretrained", None)
+    for k, v in (("patch_size", 16), ("embed_dim", 768), ("depth", 12), ("num_heads", 12),
+                 ("mlp_ratio", 4.0)):
+        kwargs.setdefault(k, v)
+    return MAEVisionTransformer(**kwargs)
 
 
 @register_model

@@ -395,11 +395,25 @@ class Block(nn.Module):
         return x + self._drop(m, generator)
 
 
-class PatchEmbed(nn.Module):
-    """Stride-P patchify of NHWC images as one product: (B, H, W, C) ->
-    (B, Hp*Wp, D). The (D, C, P, P) torch-layout weight is flattened in
+def conv_patches(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
+    """A stride-P, kernel-P ``conv`` applied to NHWC images as one product:
+    (B, H, W, C) -> (B, Hp*Wp, D), flax ``nn.Conv(padding="VALID",
+    dtype=dtype)``. The (D, C, P, P) torch-layout weight is flattened in
     flax's (kh, kw, C) order, which is how the patches are laid out, so no
     convolution (and no cuDNN TF32 default) is involved."""
+    B, H, W, C = x.shape
+    ph, pw = conv.kernel_size
+    hp, wp = H // ph, W // pw
+    x = x[:, : hp * ph, : wp * pw].to(dtype)      # VALID padding
+    patches = x.reshape(B, hp, ph, wp, pw, C).permute(0, 1, 3, 2, 4, 5)
+    patches = patches.reshape(B, hp * wp, ph * pw * C)
+    w = conv.weight.to(dtype).permute(2, 3, 1, 0).reshape(ph * pw * C, -1)
+    return torch.matmul(patches, w) + conv.bias.to(dtype)
+
+
+class PatchEmbed(nn.Module):
+    """Stride-P patchify of NHWC images as one product (:func:`conv_patches`):
+    (B, H, W, C) -> (B, Hp*Wp, D)."""
 
     def __init__(self, patch_size, in_chans: int, embed_dim: int,
                  dtype=torch.float32, device=None):
@@ -410,14 +424,7 @@ class PatchEmbed(nn.Module):
                               stride=self.patch_size, device=device)
 
     def forward(self, x):
-        B, H, W, C = x.shape
-        ph, pw = self.patch_size
-        hp, wp = H // ph, W // pw
-        x = x[:, : hp * ph, : wp * pw].to(self.dtype)      # VALID padding
-        patches = x.reshape(B, hp, ph, wp, pw, C).permute(0, 1, 3, 2, 4, 5)
-        patches = patches.reshape(B, hp * wp, ph * pw * C)
-        w = self.proj.weight.to(self.dtype).permute(2, 3, 1, 0).reshape(ph * pw * C, -1)
-        return torch.matmul(patches, w) + self.proj.bias.to(self.dtype)
+        return conv_patches(x, self.proj, self.dtype)
 
 
 class VitEncoder(nn.Module):

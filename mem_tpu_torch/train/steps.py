@@ -2,7 +2,8 @@
 ``make_vae_train_step`` / ``make_vae_eval_step`` (:51-130) (the reference's
 train_vae.py:304-399), MEM pretraining, port of
 mem_tpu/train/steps.py ``make_pretrain_train_step`` / ``make_pretrain_eval_step`` (:135-210)
-(the reference's engine_for_pretraining.py:108-287), classification
+(the reference's engine_for_pretraining.py:108-287), MAE pretraining, port
+of ``make_mae_train_step`` (:213-252), classification
 finetuning, port of ``make_finetune_train_step`` / ``make_finetune_eval_step``
 (:262-419) (engine_for_finetuning.py:41-244), and DSEC segmentation, port of
 mem_tpu/cli/train_seg.py ``make_seg_steps`` (:129-162).
@@ -24,6 +25,12 @@ range, as in the reference. The step returns its metrics as 0-d device
 tensors and never waits on the device; the caller reads them when it logs.
 The reference's chained dispatch (``--steps_per_dispatch``) has no
 counterpart here yet: the port dispatches step by step.
+
+One MAE train step: the same preprocessing -> the shuffle-mask noise from
+the step's generator (or injected) -> the MAE forward (encoder on the
+visible tokens, decoder on all; K2f inside attention) -> the pixel loss in
+f32 -> backward (K2b) -> the pre-clip global grad norm and the clip -> AdamW
+with this step's lr / wd. No tokenizer is involved.
 
 One segmentation train step: the train preprocessing on the 440x640 canvas
 (kernel K4) -> the segmentor with ``train=True`` (BatchNorm over the batch,
@@ -143,6 +150,33 @@ def make_pretrain_train_step(model, vae, optimizer: torch.optim.Optimizer,
         set_schedule(optimizer, at(lr_schedule, it), at(wd_schedule, it))
         optimizer.step()
         return {"loss": loss.detach(), "mlm_acc": acc.detach(), "grad_norm": gnorm}
+
+    return step
+
+
+def make_mae_train_step(model, optimizer: torch.optim.Optimizer, preproc: PreprocConfig,
+                        lr_schedule: np.ndarray, wd_schedule: np.ndarray, clip_grad=None,
+                        seed: int = 0):
+    """Returns ``step(batch, it, noise=None) -> {"loss", "grad_norm"}`` for a
+    ``MaskedAutoencoderViT``. ``batch``: device tensors (events or
+    events_xyp, n_valid, extents, flips, shift and the draw_train_aug draws;
+    no mask); ``it``: the global step, which indexes the schedules and seeds
+    the step's generator, from which the (B, L) shuffle noise is drawn unless
+    ``noise`` passes it in (the reference's step takes its mask key
+    explicitly, steps.py:224-233)."""
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def step(batch: dict, it: int, noise=None) -> dict:
+        images = preprocess_batch(batch, preproc, is_train=True)
+        model.train()
+        loss, _, _ = model(images, noise=noise,
+                           generator=step_generator(seed, it, images.device))
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        gnorm = clip_grad_global_norm(params, clip_grad)
+        set_schedule(optimizer, at(lr_schedule, it), at(wd_schedule, it))
+        optimizer.step()
+        return {"loss": loss.detach(), "grad_norm": gnorm}
 
     return step
 

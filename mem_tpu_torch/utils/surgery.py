@@ -10,7 +10,8 @@ state_dicts in the reference torch schema instead of flax trees:
     sizes (the BEiT trick: source coordinates laid out on a geometric grid so
     long-range offsets compress, then bicubic resampling): 14x14 -> 32x32
     from pretraining at 224^2 to segmentation at 512^2;
-  - bicubic interpolation of absolute position embeddings.
+  - bicubic interpolation of absolute position embeddings;
+  - an MAE encoder into its finetune classifier (``surgery_for_mae_finetune``).
 All of it is numpy (and scipy's spline), as in the reference.
 """
 from __future__ import annotations
@@ -174,4 +175,55 @@ def surgery_for_finetune(pretrain_sd: Dict, finetune_template_sd: Dict,
         for k in dst:
             if re.fullmatch(r"blocks\.\d+\.attn\.relative_position_bias_table", k):
                 dst[k] = shared.copy()
+    return dst
+
+
+def surgery_for_mae_finetune(pretrain_sd: Dict, finetune_template_sd: Dict, grid=None,
+                             src_grid: "int | None" = None) -> Dict[str, np.ndarray]:
+    """Load an MAE pretraining encoder into the MAE-finetune classifier
+    (mem_tpu/utils/surgery.py:192-285, the reference's
+    run_class_finetuning.py:402-432), on state_dicts in the port's MAE keys
+    (``normalize_mae_state_dict`` maps timm-named ones). Returns the
+    template with every entry of the same name replaced, as numpy arrays.
+
+    Entries the template lacks (``decoder_*``, ``mask_token``, the pre-pool
+    ``norm``) are skipped; a ``pos_embed`` of another grid is bicubic-
+    interpolated to ``grid`` ((gh, gw); the template's square grid when
+    None); an entry still shaped otherwise (a head of other classes) is
+    dropped. A source without ``pos_embed`` (the port's MAE checkpoints: its
+    sin-cos table is a buffer) gets the sin-cos table of ``src_grid``, the
+    pretraining's square token grid, when that is given; without it the
+    template's own sin-cos table counts as loaded. The missing entries must
+    be a subset of {head, fc_norm} (the reference's assert for
+    ``global_pool``, :426-427)."""
+    src = {k: np.asarray(v) for k, v in pretrain_sd.items()}
+    dst = {k: np.array(np.asarray(v), copy=True) for k, v in finetune_template_sd.items()}
+    if "pos_embed" not in src and src_grid is not None and "pos_embed" in dst:
+        from mem_tpu_torch.models.mae import get_2d_sincos_pos_embed
+
+        d = int(dst["pos_embed"].shape[-1])
+        src["pos_embed"] = get_2d_sincos_pos_embed(d, int(src_grid), cls_token=True)[None]
+
+    loaded = set()
+    for k, v in src.items():
+        if k not in dst:
+            continue
+        tgt = dst[k]
+        if k == "pos_embed" and v.shape != tgt.shape:
+            v = interpolate_abs_pos_embed(v, grid or int(round((tgt.shape[1] - 1) ** 0.5)))
+        if v.shape != tgt.shape:
+            print(f"Removing key {k} from pretrained checkpoint ({v.shape} vs {tgt.shape})")
+            continue
+        dst[k] = v.astype(tgt.dtype)
+        loaded.add(k)
+
+    missing = set(dst) - loaded
+    if "pos_embed" not in src:
+        missing.discard("pos_embed")
+    allowed = {"head.weight", "head.bias", "fc_norm.weight", "fc_norm.bias"}
+    if not missing <= allowed:
+        raise AssertionError(
+            f"MAE finetune load: unexpected missing keys {sorted(missing - allowed)} "
+            f"(the reference asserts missing == head + fc_norm, "
+            f"run_class_finetuning.py:426-427)")
     return dst

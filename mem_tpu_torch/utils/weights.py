@@ -1,5 +1,5 @@
-"""Carry ``ft_vit`` / ``pt_vit``, discrete-VAE and segmentor weights from
-flax parameter trees into the port.
+"""Carry ``ft_vit`` / ``pt_vit``, MAE, discrete-VAE and segmentor weights
+from flax parameter trees into the port.
 
 The ViT state_dict keys are the reference's torch schema, the one
 mem_tpu/utils/torch_import.py ``export_vit_params`` (:122-173) writes and
@@ -8,7 +8,9 @@ mem_tpu/utils/torch_import.py ``export_vit_params`` (:122-173) writes and
 reference DiscreteVAE's ``nn.Sequential`` indices, the schema
 ``import_vae_state_dict`` (torch_import.py:385-419) reads, and for the legacy
 VAE the schema ``import_legacy_vae_state_dict`` (:422-450) reads. The segmentor keys are those of
-``export_seg_params`` (torch_import.py:453-498). Flax Dense
+``export_seg_params`` (torch_import.py:453-498), the MAE's and the MAE
+classifier's those of ``export_mae_params`` / ``export_mae_classifier_params``
+(:176, :214). Flax Dense
 kernels are (in, out) and torch Linear weights (out, in); conv kernels
 (kh, kw, I, O) become torch (O, I, kh, kw), transposed-conv kernels
 (kh, kw, I, O) torch (I, O, kh, kw).
@@ -105,6 +107,80 @@ def normalize_backbone_state_dict(sd: Dict) -> Dict:
     if any(k.startswith("backbone.") for k in sd):
         sd = {k[len("backbone."):]: v for k, v in sd.items() if k.startswith("backbone.")}
     return sd
+
+
+def _timm_blocks(put, p, pattern):
+    """The ``TimmBlock`` subtrees of ``p`` whose names match ``pattern`` (a
+    regex with an optional ``decoder_`` group and the block index)."""
+    for name, sub in p.items():
+        m = re.fullmatch(pattern, name)
+        if not m:
+            continue
+        b = f"{m.group(1) or ''}blocks.{m.group(2)}"
+        for ln in ("norm1", "norm2"):
+            put(f"{b}.{ln}.weight", sub[ln]["scale"])
+            put(f"{b}.{ln}.bias", sub[ln]["bias"])
+        for lin in ("qkv", "proj", "fc1", "fc2"):
+            put(f"{b}.{lin}.weight", sub[lin]["kernel"], (1, 0))
+            put(f"{b}.{lin}.bias", sub[lin]["bias"])
+
+
+def mae_from_jax_params(tree: Dict) -> Dict[str, torch.Tensor]:
+    """flax ``MaskedAutoencoderViT`` variables ``{"params": ...}`` -> the
+    port's MAE state_dict, ``export_mae_params``'s keys and layouts (the
+    sin-cos tables are buffers on both sides, not parameters)."""
+    p = tree["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    put = _putter(sd)
+    put("patch_embed.weight", p["patch_embed"]["kernel"], _CONV)
+    put("patch_embed.bias", p["patch_embed"]["bias"])
+    put("cls_token", p["cls_token"])
+    put("mask_token", p["mask_token"])
+    _timm_blocks(put, p, r"(decoder_)?blocks_(\d+)")
+    for nm in ("norm", "decoder_norm"):
+        put(f"{nm}.weight", p[nm]["scale"])
+        put(f"{nm}.bias", p[nm]["bias"])
+    for nm in ("decoder_embed", "decoder_pred"):
+        put(f"{nm}.weight", p[nm]["kernel"], (1, 0))
+        put(f"{nm}.bias", p[nm]["bias"])
+    return sd
+
+
+def mae_classifier_from_jax_params(tree: Dict) -> Dict[str, torch.Tensor]:
+    """flax ``MAEVisionTransformer`` variables -> the port's MAE classifier
+    state_dict, ``export_mae_classifier_params``'s keys and layouts."""
+    p = tree["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    put = _putter(sd)
+    put("patch_embed.weight", p["patch_embed"]["kernel"], _CONV)
+    put("patch_embed.bias", p["patch_embed"]["bias"])
+    put("cls_token", p["cls_token"])
+    put("pos_embed", p["pos_embed"])
+    _timm_blocks(put, p, r"()blocks_(\d+)")
+    for nm in ("fc_norm", "norm"):
+        if nm in p:
+            put(f"{nm}.weight", p[nm]["scale"])
+            put(f"{nm}.bias", p[nm]["bias"])
+    put("head.weight", p["head"]["kernel"], (1, 0))
+    put("head.bias", p["head"]["bias"])
+    return sd
+
+
+def normalize_mae_state_dict(sd: Dict) -> Dict:
+    """An MAE state_dict in the original timm naming (``patch_embed.proj.*``,
+    ``blocks.N.attn.qkv.*``, ``blocks.N.mlp.fc1.*``) -> the port's keys, the
+    renaming ``import_mae_state_dict`` (torch_import.py:246) accepts:
+    ``patch_embed.proj.`` -> ``patch_embed.``, ``.attn.`` and ``.mlp.``
+    dropped, the ``decoder_pos_embed`` buffer dropped. ``pos_embed`` stays
+    for the surgery. Keys already in the port's naming pass unchanged."""
+    out = {}
+    for key, w in sd.items():
+        k = key.replace(".attn.", ".").replace(".mlp.", ".")
+        if k.startswith("patch_embed.proj."):
+            k = "patch_embed." + k[len("patch_embed.proj."):]
+        if k != "decoder_pos_embed":
+            out[k] = w
+    return out
 
 
 def vae_from_jax_params(tree: Dict) -> Dict[str, torch.Tensor]:

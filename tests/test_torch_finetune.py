@@ -429,7 +429,7 @@ def test_cli_finetune_checkpoint_must_be_a_pth(tmp_path):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--MAE", "1"], "item 10"), (["--data_set", "IMNET"], "item 16"),
+    (["--data_set", "IMNET"], "item 16"),
     (["--int8", "1"], "item 14"), (["--zero1", "1"], "item 15"), (["--fsdp", "1"], "item 15"),
     (["--pretrained", "1"], "item 8b"), (["--data_set", "CIFAR"], "data_set 'CIFAR'"),
 ])

@@ -263,7 +263,6 @@ def test_device_cuda_without_card_raises(checkpoints):
 
 @pytest.mark.parametrize("flags,slice_name", [
     (["--surface", "seg", "--int8", "1"], "quantization"),   # the seg surface itself is ported
-    (["--MAE", "1"], "MAE"),
     (["--int8", "1"], "quantization"),
 ])
 def test_unported_surfaces_raise(checkpoints, flags, slice_name):

@@ -251,7 +251,7 @@ def test_cli_trains_checkpoints_and_resumes(tmp_path):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--MAE", "1"], "item 10"), (["--data_set", "IMNET"], "item 16"),
+    (["--data_set", "IMNET"], "item 16"),
     (["--fsdp", "1"], "item 15"), (["--bf16_moments", "1"], "item 8"),
     (["--zero1", "1"], "item 15"), (["--pretrained", "1"], "item 8"),
 ])
