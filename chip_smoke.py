@@ -7,9 +7,9 @@ Run from the root of a checkout, with no arguments:
 
 It builds the port's CUDA kernels from csrc/ and checks each against its
 plain PyTorch version on the card; it fails when ptxas reports a spill in the
-wgmma kernels (K3f and the rows and columns kernels of K3b, which K5b / K5d /
-K5e launch on head-major operands and K2f / K5a and K2b / K5c for bf16 at
-head dim 64 and N <= 256; the GEMM body of K6f and K6b; X1's and X2's one-hot
+wgmma kernels (K3f and the rows and columns kernels of K3b at head dims 64
+and 32, which K5b / K5d / K5e launch on head-major operands and K2f / K5a
+and K2b / K5c for bf16 at N <= 256; the GEMM body of K6f and K6b; X1's and X2's one-hot
 contractions) or serializes their wgmma pipelines. It drives the seven
 ported paths and the experiment tools, each with the launch counts set
 to 0 just before it and read just after:
@@ -34,7 +34,7 @@ to 0 just before it and read just after:
   bf16, B=64) on the same synthetic set, two epochs with checkpoints and an
   auto-resumed third; it checks exactly K1 once a step and K2f and K2b 20
   times (12 encoder blocks on the 99 visible tokens, 8 decoder blocks at
-  head dim 32: the scalar kernels) and nothing else; then
+  head dim 32: K3's Hopper bodies at D = 32) and nothing else; then
   run_class_finetuning.main --MAE 1 --finetune on its checkpoint
   (vit_base_patch16, global pool) for an epoch with the raw and EMA
   evaluation (K1 once, K2f 12 times a micro-batch, K2b 12 times a train
@@ -151,6 +151,13 @@ IMAGES_TOL = 1e-4        # preprocessed images card vs CPU (f32 resize sums reor
 K2B_BF16_TOL = 2e-2
 K2B_F32_TOL = 1e-5       # f32: the same math, sums in another order
 K2B_DB_REL = 1e-5        # db relative L2: f32 ds summed over the batch in batch order
+WGMMA_HEAD_DIMS = (64, 32)   # the head dims K3's Hopper bodies take (bf16)
+
+
+def _bf16_wgmma(torch, shape, dt):
+    """Whether K3's Hopper bodies take operands of dtype ``dt`` and shape
+    (B, N, H, D) or (B, H, N, D): D is the last in both."""
+    return dt == torch.bfloat16 and shape[3] in WGMMA_HEAD_DIMS
 # one train step, card vs CPU on the same host batch, draws and weights:
 TRAIN_IMG_TOL = 2.5 / 255     # RandAugment truncates to uint8: a sum taken in another
 TRAIN_IMG_FRAC = 1e-3         # order can flip one level (x <= 1.2 jitter) at a few pixels
@@ -334,20 +341,18 @@ def in_turns(torch, plain, kernel, runs=20):
     return statistics.mean(tk), statistics.mean(tp)
 
 
-def kernel_device_ms(torch, fn, fragments, n=20, per_launch=False):
+def kernel_device_ms(torch, fn, fragments, n=20, per_launch=False, records=None):
     """Device time (ms per call) of the kernels whose names hold one of
     ``fragments``, from torch.profiler over ``n`` calls: what the card spends
     in them, without the host's launch overhead that CUDA events around one
-    short call include. ``per_launch`` divides by the launches the profiler
-    recorded instead of by ``n`` (for one kernel, launched once a call: the
-    mean stays right when the trace drops some; with several fragments it
-    would give a mean per kernel, not a time per call, so it takes one). A
-    profile that recorded none of them is taken again; None where three
-    show no device time."""
+    short call include. ``per_launch`` sums each kernel's mean per launch
+    recorded instead of dividing by ``n`` (for a call that launches each of
+    its kernels once: the mean stays right when the trace drops some).
+    ``records``, a dict, receives each kernel's launches recorded and mean
+    us per launch. A profile that recorded none of them is taken again;
+    None where three show no device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    if per_launch and len(fragments) != 1:
-        raise ValueError(f"per_launch times one kernel, not {fragments}")
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -361,7 +366,12 @@ def kernel_device_ms(torch, fn, fragments, n=20, per_launch=False):
                   and any(f in e.key for f in fragments)]
         us = sum(getattr(e, "self_device_time_total", 0.0) for e in events)
         if us > 0:
-            return us / 1e3 / (sum(e.count for e in events) if per_launch else n)
+            if records is not None:
+                records.update({e.key: (e.count, e.self_device_time_total / e.count)
+                                for e in events if e.count})
+            if per_launch:
+                return sum(e.self_device_time_total / e.count for e in events if e.count) / 1e3
+            return us / 1e3 / n
     return None
 
 
@@ -477,10 +487,11 @@ def time_raster(torch, gpu, tag, events, n_valid, H, W, y_sorted=False):
 
 def check_ptxas(log):
     """ptxas's report, from the build log ``log``, on the wgmma kernels: those
-    of K3f (which K2f, K5a and K5b launch too), of K3b's rows and columns
-    kernels (K2b, K5c, K5d, K5e too), flat and head-major, and X3's (its
-    rows kernel's kPair instantiation, and the columns kernel its translation
-    unit compiles beside it), K6's GEMM body
+    of K3f (which K2f, K5a and K5b launch too) at head dims 64 and 32, of
+    K3b's rows and columns kernels (K2b, K5c, K5d, K5e too) at both head dims,
+    flat and head-major, and X3's (its rows kernel's kPair
+    instantiation, and the columns kernel its translation unit compiles
+    beside it), K6's GEMM body
     (F1, F2 of K6f; B1, B2, B3+B4 of K6b; F2, B2 and B3+B4 at tile widths
     128 and 256), X1's contraction (X1a and X1b, which X1c launches, at
     the plan's two tile widths) and X2's (int8 and bf16 at the plan's two
@@ -498,8 +509,8 @@ def check_ptxas(log):
     x2 = ptxas_report(log, "x2_wgmma_kernel")
     n_x2 = 2 * len(X2_TILE_NS)   # int8 and bf16 at each tile width
     for tag, rows, unit, want, users in (
-            ("ptxas_k3f", fwd, "attention_long_fwd", 2, "K3f K2f K5a K5b"),
-            ("ptxas_k3b", bwd, "attention_long_bwd", 6, "K3b K2b K5c K5d K5e X3"),
+            ("ptxas_k3f", fwd, "attention_long_fwd", 4, "K3f K2f K5a K5b"),
+            ("ptxas_k3b", bwd, "attention_long_bwd", 10, "K3b K2b K5c K5d K5e X3"),
             ("ptxas_k6", k6, "mlp_gemm_", 8, "K6f K6b"),
             ("ptxas_x1", x1, "x1_wgmma_kernel", 4, "X1a X1b X1c"),
             ("ptxas_x2", x2, "x2_wgmma_kernel", n_x2, "X2a X2b X2c")):
@@ -566,23 +577,27 @@ def run(torch):
     k1_err = check_k1(torch, dev, g)
 
     # -- phase 2: K2 forward against its plain version -----------------------
-    # the serving shape first (bf16 at head dim 64 and N <= 256: the Hopper
-    # kernel), the ragged lengths, the longest it takes, then the scalar
-    # kernel (other head dims, f32); every case launched twice: the outputs
-    # must be bit-identical
+    # the serving shape first (bf16 at head dim 64 or 32 and N <= 256: the
+    # Hopper kernel), the ragged lengths, the longest it takes, then the
+    # scalar kernel (f32, other head dims); every case launched twice: the
+    # outputs must be bit-identical
     k2_err = None
     for (B, N, H, D), dt in (((8, 197, 12, 64), torch.bfloat16),
                              ((2, 37, 3, 64), torch.bfloat16),
                              ((2, 129, 2, 64), torch.bfloat16),
                              ((1, 256, 2, 64), torch.bfloat16),
                              ((2, 50, 4, 32), torch.bfloat16),
+                             ((2, 37, 3, 32), torch.bfloat16),
+                             ((1, 256, 2, 32), torch.bfloat16),
                              # the MAE's encoder (its 99 visible tokens) and
-                             # decoder (head dim 32: the scalar kernel), and the
-                             # decoder at the timed batch
+                             # decoder (head dim 32), and the decoder at the
+                             # timed batch
                              ((8, 99, 12, 64), torch.bfloat16),
                              ((8, 197, 16, 32), torch.bfloat16),
                              ((128, 197, 16, 32), torch.bfloat16),
-                             ((8, 197, 12, 64), torch.float32)):
+                             ((2, 50, 4, 16), torch.bfloat16),
+                             ((8, 197, 12, 64), torch.float32),
+                             ((8, 197, 16, 32), torch.float32)):
         tol = K2_BF16_TOL if dt == torch.bfloat16 else K2_F32_TOL
         q, k, v = (torch.randn(B, N, H * D, generator=g).to(dt).to(dev) for _ in range(3))
         bias = (0.5 * torch.randn(H, N, N, generator=g)).to(dev)
@@ -596,7 +611,7 @@ def run(torch):
             identical_across_launches=same, kernel=path)
         check(err <= tol, f"K2 {dt} {B, N, H, D} max abs err {err} > {tol}")
         check(same, f"K2 {dt} {B, N, H, D}: two launches on the same operands differ")
-        check(path == ("wgmma" if dt == torch.bfloat16 and D == 64 else "scalar"),
+        check(path == ("wgmma" if _bf16_wgmma(torch, (B, N, H, D), dt) else "scalar"),
               f"K2 {dt} {B, N, H, D} took the {path} kernel")
         if k2_err is None:
             k2_err = err
@@ -904,11 +919,15 @@ def check_k2b(torch, dev, g):
     """Phase 5: K2b against its plain version at the training shapes (the
     pretraining batch 64 and 8; bf16 at head dim 64: the Hopper kernels), two
     ragged ones, the longest N the Hopper kernels take, the MAE's encoder
-    (N = 99) and decoder (head dim 32, B = 8 and 128: the scalar kernel) and
-    an f32 one (the scalar kernel); every output bit-identical across two
-    launches; autograd
-    through fused_attention_flat on the card reaches K2b. Returns K2b's max
-    abs error at the first training shape."""
+    (N = 99) and decoder (head dim 32, B = 8 and 128: the Hopper kernels at
+    D = 32; a ragged and the longest N there too), f32 and head dim 16 (the
+    scalar kernel); every output bit-identical across two launches; autograd
+    through fused_attention_flat on the card reaches K2b. Then a planted fault
+    inside the D = 32 rows kernel (dq's last k16 step of every key tile
+    skipped; a library built with MEM_ATTN_PLANT_FAULT) must fail the gate at the
+    decoder's shape on the path it claims, and K2f / K2b run from a fresh
+    thread at both head dims. Returns K2b's max abs error at the first
+    training shape."""
     from mem_tpu_torch.kernels import launch_counts
     from mem_tpu_torch.ops.attention import (cuda_bwd_kernel_path, fused_attention_flat,
                                              fused_attention_flat_bwd,
@@ -921,13 +940,16 @@ def check_k2b(torch, dev, g):
                              ((2, 129, 2, 64), torch.bfloat16),
                              ((1, 256, 2, 64), torch.bfloat16),
                              # the MAE: the encoder's 99 visible tokens; the
-                             # decoder at head dim 32 (the scalar kernel, its
-                             # (B, H, N, N) ds and p workspaces: 318 + 159 MB
-                             # at B=128)
+                             # decoder at head dim 32 (its padded ds
+                             # workspace: 323 MB at B=128)
                              ((8, 99, 12, 64), torch.bfloat16),
                              ((8, 197, 16, 32), torch.bfloat16),
                              ((128, 197, 16, 32), torch.bfloat16),
-                             ((2, 197, 4, 64), torch.float32)):
+                             ((2, 37, 3, 32), torch.bfloat16),
+                             ((1, 256, 2, 32), torch.bfloat16),
+                             ((2, 50, 4, 16), torch.bfloat16),
+                             ((2, 197, 4, 64), torch.float32),
+                             ((2, 99, 4, 32), torch.float32)):
         tol = K2B_BF16_TOL if dt == torch.bfloat16 else K2B_F32_TOL
         q, k, v, do = (torch.randn(B, N, H * D, generator=g).to(dt).to(dev) for _ in range(4))
         bias = (0.5 * torch.randn(H, N, N, generator=g)).to(dev)
@@ -944,7 +966,7 @@ def check_k2b(torch, dev, g):
         check(max(errs.values()) <= tol and db <= K2B_DB_REL,
               f"K2b {dt} {B, N, H, D}: {errs}, db {db}")
         check(same, f"K2b {dt} {B, N, H, D}: two launches on the same operands differ")
-        check(path == ("wgmma" if dt == torch.bfloat16 and D == 64 else "scalar"),
+        check(path == ("wgmma" if _bf16_wgmma(torch, (B, N, H, D), dt) else "scalar"),
               f"K2b {dt} {B, N, H, D} took the {path} kernels")
         if first is None:
             first = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
@@ -965,6 +987,8 @@ def check_k2b(torch, dev, g):
         db_rel_l2=rel_l2(torch, bias.grad, want[3]))
     check(launched == 1, f"autograd through fused_attention_flat launched K2b {launched} times")
     check(max(errs) <= K2B_BF16_TOL, f"autograd grads differ from the plain backward: {errs}")
+
+    k2b_d32_fault(torch, dev, g)
 
     # K2f and K2b from a fresh thread, on which PyTorch has made no CUDA
     # context current yet (as autograd's device thread when the attention's
@@ -992,7 +1016,62 @@ def check_k2b(torch, dev, g):
     same = "out" in fresh and all(torch.equal(a, b) for a, b in zip(fresh["out"], main))
     say("k2_fresh_thread", error=fresh.get("error"), equals_main_thread=same)
     check(same, f"K2f / K2b from a fresh thread: {fresh.get('error', 'other bits')}")
+    # the same at the decoder's head dim 32 (the D = 32 instantiation)
+    q, k, v, do = (torch.randn(2, 197, 512, generator=g).to(torch.bfloat16).to(dev)
+                   for _ in range(4))
+    bias = torch.randn(16, 197, 197, generator=g).to(dev)
+    check(cuda_bwd_kernel_path(q, k, v, bias) == "wgmma", "K2b at D = 32 is not on wgmma")
+    fresh_thread_check(torch, "k2_fresh_thread_d32", lambda: (
+        fused_attention_flat(q, k, v, bias, 32 ** -0.5),
+        *fused_attention_flat_bwd(q, k, v, bias, do, 32 ** -0.5)))
     return first
+
+
+def k2b_d32_fault(torch, dev, g):
+    """The planted D = 32 fault: the kernels built again with
+    -DMEM_ATTN_PLANT_FAULT (a library of its own hash), whose D = 32 rows
+    kernel skips dq's last k16 step of every 64-key tile (a quarter of each
+    dq sum), stand in for the library while K2b runs once through its
+    wrapper. At the decoder's (8, 197, 16, 32) in bf16 the launch must take
+    the wgmma path, be counted under K2b's name, and fail the gate K2b is
+    held to; dk, dv and db (the columns kernel and the bias sum) are the
+    clean library's bits. With the library back the launch is back to the
+    clean bits."""
+    from mem_tpu_torch.kernels import build, launch_counts
+    from mem_tpu_torch.ops.attention import (cuda_bwd_kernel_path, fused_attention_flat_bwd,
+                                             fused_attention_flat_bwd_reference)
+
+    B, N, H, D = 8, 197, 16, 32
+    q, k, v, do = (torch.randn(B, N, H * D, generator=g).to(torch.bfloat16).to(dev)
+                   for _ in range(4))
+    bias = (0.5 * torch.randn(H, N, N, generator=g)).to(dev)
+    clean_lib = build.library(dev)
+    faulty_lib = build.bind(build.build(("-DMEM_ATTN_PLANT_FAULT",)))
+    clean = fused_attention_flat_bwd(q, k, v, bias, do, D ** -0.5)
+    torch.cuda.synchronize()
+    before = launch_counts().get("fused_attention_flat_bwd", 0)
+    with build._lock:
+        build._lib, build._thread.device = faulty_lib, None   # binds the device on first use
+    try:
+        faulty = fused_attention_flat_bwd(q, k, v, bias, do, D ** -0.5)
+        torch.cuda.synchronize()
+    finally:
+        with build._lock:
+            build._lib, build._thread.device = clean_lib, None
+    launched = launch_counts().get("fused_attention_flat_bwd", 0) - before
+    again = fused_attention_flat_bwd(q, k, v, bias, do, D ** -0.5)
+    want = fused_attention_flat_bwd_reference(q, k, v, bias, do, D ** -0.5)
+    torch.cuda.synchronize()
+    errs = {n: rel_max_abs(a, b) for n, a, b in zip(("dq", "dk", "dv"), faulty, want)}
+    path = cuda_bwd_kernel_path(q, k, v, bias)
+    rest_same = all(torch.equal(a, b) for a, b in zip(faulty[1:], clean[1:]))
+    back = all(torch.equal(a, b) for a, b in zip(again, clean))
+    say("k2b_d32_fault", fault="dq_last_k16_step_skipped", shape=[B, N, H, D], kernel=path,
+        launches=launched, rel_max_abs=errs, tol=K2B_BF16_TOL, dk_dv_db_clean=rest_same,
+        clean_after=back)
+    check(path == "wgmma" and launched == 1, f"the D = 32 fault ran on {path}, {launched} launches")
+    check(errs["dq"] > K2B_BF16_TOL, f"the K2b gate does not see the D = 32 fault: {errs}")
+    check(rest_same and back, "the D = 32 fault touched more than dq, or stayed on")
 
 
 def stray_events(torch, g, B, N, H, W):
@@ -1194,7 +1273,8 @@ def check_k3f(torch, dev, g):
     8 and train_seg's 16 (the wgmma kernel), one key past a tile (65), an N
     that is no multiple of the 64-key tile (577), a short one, a bias that
     ramps along the keys (the running max grows at every tile, so the
-    rescale runs), f32 (the scalar kernel) and another head dim. Every case
+    rescale runs), head dim 32 (the D = 32 instantiation, no model path at
+    this N), f32 (the scalar kernel) and head dim 128. Every case
     launched twice: the outputs must be bit-identical. Returns the max abs
     error at the backbone's shape."""
     from mem_tpu_torch.ops.attention import (cuda_long_kernel_path, fused_attention_flat_long,
@@ -1208,6 +1288,7 @@ def check_k3f(torch, dev, g):
                                    ((1, 65, 12, 64), torch.bfloat16, False),
                                    ((1, 40, 2, 64), torch.bfloat16, False),
                                    ((2, 300, 2, 128), torch.bfloat16, False),
+                                   ((2, 300, 4, 32), torch.bfloat16, True),
                                    ((2, 1025, 12, 64), torch.float32, False),
                                    ((2, 577, 3, 32), torch.float32, False)):
         tol = K2_BF16_TOL if dt == torch.bfloat16 else K2_F32_TOL
@@ -1227,7 +1308,7 @@ def check_k3f(torch, dev, g):
             tol=tol, identical_across_launches=same, kernel=path)
         check(err <= tol, f"K3f {dt} {B, N, H, D} max abs err {err} > {tol}")
         check(same, f"K3f {dt} {B, N, H, D}: two launches on the same operands differ")
-        check(path == ("wgmma" if dt == torch.bfloat16 and D == 64 else "scalar"),
+        check(path == ("wgmma" if _bf16_wgmma(torch, (B, N, H, D), dt) else "scalar"),
               f"K3f {dt} {B, N, H, D} took the {path} kernel")
         if first is None:
             first = err
@@ -1239,7 +1320,8 @@ def check_k3f(torch, dev, g):
 def check_k3b(torch, dev, g):
     """K3b against its plain version: the seg backbone's sequence in bf16
     (the wgmma kernels) and f32 (the scalar kernels), sequences that
-    are no multiple of the 64-wide tile (577, 300, 65), other head dims, the
+    are no multiple of the 64-wide tile (577, 300, 65), head dim 32 (the
+    D = 32 instantiation) and 128 (the scalar kernels), the
     batches train_seg and the timed steps give it (16, 8) and B = 1 and 3;
     every output bit-identical across two launches; autograd through
     fused_attention_flat_long on the card reaches K3b. Returns K3b's max abs
@@ -1259,6 +1341,7 @@ def check_k3b(torch, dev, g):
                              ((1, 65, 3, 64), torch.bfloat16),
                              ((3, 300, 2, 128), torch.bfloat16),
                              ((1, 577, 3, 32), torch.bfloat16),
+                             ((2, 300, 4, 32), torch.bfloat16),
                              ((1, 1025, 12, 64), torch.float32),
                              ((3, 300, 2, 32), torch.float32),
                              ((3, 65, 2, 128), torch.float32)):
@@ -1278,7 +1361,7 @@ def check_k3b(torch, dev, g):
         check(max(errs.values()) <= tol and db <= K2B_DB_REL,
               f"K3b {dt} {B, N, H, D}: {errs}, db {db}")
         check(same, f"K3b {dt} {B, N, H, D}: two launches on the same operands differ")
-        check(path == ("wgmma" if dt == torch.bfloat16 and D == 64 else "scalar"),
+        check(path == ("wgmma" if _bf16_wgmma(torch, (B, N, H, D), dt) else "scalar"),
               f"K3b {dt} {B, N, H, D} took the {path} kernels")
         if first is None:
             first = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
@@ -2869,8 +2952,8 @@ def check_mae_step(torch, dev, flags):
     f32 (TF32 off) and bf16, all on the CPU's images, from the same seeded
     weights: the loss and every parameter's gradient by relative L2 against
     the CPU's. Each card step records the kernel path of every K2b launch
-    (scalar in f32 and at the decoder's head dim 32 in bf16, K3b's Hopper
-    kernels for the bf16 encoder). The gradients are compared unclipped
+    (scalar in f32, K3b's Hopper kernels in bf16: the encoder's at head dim
+    64, the decoder's at 32). The gradients are compared unclipped
     (--clip_grad 0): the MAE's summed loss puts the global norm in the
     thousands, far above the recipe's clip of 30, and the clip factor, a
     ratio of two f32 norms of ~10^8 terms, would scale every gradient by
@@ -2950,8 +3033,7 @@ def check_mae_step(torch, dev, flags):
     for n in ("card_f32", "unshuffle_skipped", "last_key_dropped", "card_f32_own_images"):
         check(out[n][2] == ["scalar"] * 4, f"{n}'s K2b launches took {out[n][2]}")
     for n in ("card_bf16", "unshuffle_skipped_bf16", "tail_tile_dropped_bf16"):
-        check(out[n][2] == ["scalar", "scalar", "wgmma", "wgmma"],
-              f"{n}'s K2b launches took {out[n][2]}")
+        check(out[n][2] == ["wgmma"] * 4, f"{n}'s K2b launches took {out[n][2]}")
     check(loss_rel["card_f32"] <= STEP_F32_LOSS_REL, f"MAE f32 step loss rel {loss_rel}")
     check(grads["card_f32"]["max"] <= STEP_F32_GRAD_REL, f"MAE f32 grads {grads['card_f32']}")
     check(loss_rel["card_bf16"] <= STEP_BF16_LOSS_REL, f"MAE bf16 step loss rel {loss_rel}")
@@ -3131,10 +3213,14 @@ def run_mae_serve(torch, dev, ckpt, rng):
 def time_mae(torch, dev, gpu, flags):
     """Phase M5: K2f and K2b at the encoder's (128, 99, 768) H 12 D 64 and
     the decoder's (128, 197, 512) H 16 D 32, in turns with their plain
-    versions (plain, kernel, kernel, plain), their device time, one SDPA
-    call (its backward for K2b) and the bounds, with what one K2b launch
-    allocates and, on the scalar bodies, each kernel's shared memory per
-    block and K2b's (B, H, N, N) ds / p workspace bytes; then the full-width bf16
+    versions (plain, kernel, kernel, plain), beside one SDPA call (its
+    backward for K2b); the device time per call of each, both read alike:
+    each kernel's mean per launch over 20 calls, summed (kernel_device_ms
+    per_launch; K2b's rows, columns and bias-sum kernels apart too, and
+    every kernel's recorded launches); the bounds, with what one K2b launch allocates and
+    its workspaces: on the Hopper bodies the padded (B, H, N, ws_stride) f32
+    ds workspace and the row statistics, on the scalar bodies each kernel's
+    shared memory per block and the (B, H, N, N) ds / p workspaces; then the full-width bf16
     MAE train step at B=128 and at the conf's pt_batch_size 512 (four
     stacked epochs of the synthetic set; a shortfall of memory is reported
     with the peak it reached): CUDA-event medians of 12 steps after 3,
@@ -3173,8 +3259,11 @@ def time_mae(torch, dev, gpu, flags):
         torch.cuda.synchronize()
         mem = dict(k2b_alloc_bytes=torch.cuda.max_memory_allocated() - base,
                    k2b_output_bytes=3 * B * N * H * D * 2 + H * N * N * 4)
-        if not wg:
-            lib = build.library(dev)
+        lib = build.library(dev)
+        if wg:
+            mem.update(k2b_ds_workspace_bytes=B * H * N * lib.mem_attention_long_bwd_ws_stride(N, 1)
+                       * 4, k2b_stats_bytes=B * H * -(-N // 64) * 3 * 64 * 4)
+        else:
             mem.update(k2f_smem_bytes=lib.mem_attention_fwd_flat_smem(N, D, 1),
                        k2b_smem_bytes=lib.mem_attention_bwd_flat_smem(N, D, 1),
                        smem_limit_bytes=MAX_SMEM_BYTES,
@@ -3199,8 +3288,16 @@ def time_mae(torch, dev, gpu, flags):
             tk = [time_ms(kern, runs=20), time_ms(kern, runs=20)]
             tp.append(time_ms(plain, runs=20))
             with torch.no_grad() if name == "K2f" else contextlib.nullcontext():
-                t_lib, t_lib_dev = time_ms(lib, runs=20), kernel_device_ms(torch, lib, ("",))
-            row[name] = dict(kernel_ms=tk, kernel_device_ms=body_device_ms(torch, kern, frags),
+                lib_rec = {}
+                t_lib = time_ms(lib, runs=20)
+                t_lib_dev = kernel_device_ms(torch, lib, ("",), per_launch=True, records=lib_rec)
+            rec = {}
+            dev_ms = kernel_device_ms(torch, kern, frags, per_launch=True, records=rec)
+            parts = {f: sum(us for key, (_, us) in rec.items() if f in key) / 1e3 for f in frags}
+            row[name] = dict(kernel_ms=tk, kernel_device_ms=dev_ms, device_ms_by_kernel=parts,
+                             launches_recorded={key[:60]: c for key, (c, _) in rec.items()},
+                             sdpa_launches_recorded={key[:60]: c
+                                                     for key, (c, _) in lib_rec.items()},
                              plain_ms=tp, sdpa_ms=t_lib, sdpa_device_ms=t_lib_dev,
                              bound_ms=bnd[0], bound_by=bnd[1])
         say("time_mae_k2", gpu=gpu, part=part, shape=[B, N, H, D], dtype="bfloat16",
@@ -3461,7 +3558,7 @@ def check_k5a(torch, dev, g):
     """K5a against its plain version on (B, H, N, D) and against K2f on the
     transposed operands, with which it shares its kernel body: bit for bit.
     N = 197, 65, 256; D = 64, 32; B = 1, 3, 32, 64, 128; bf16 (the Hopper
-    kernel at D = 64) and f32 (scalar); every output bit-identical across two
+    kernel at both head dims) and f32 (scalar); every output bit-identical across two
     launches. Returns the max abs error at (FT_B, 12, 197, 64)."""
     from mem_tpu_torch.ops import attention as A
 
@@ -3482,7 +3579,7 @@ def check_k5a(torch, dev, g):
         check(err <= tol, f"K5a {dt} {shape} max abs err {err} > {tol}")
         check(equal, f"K5a {dt} {shape} differs from K2f on the transposed operands")
         check(same, f"K5a {dt} {shape}: two launches on the same operands differ")
-        check(path == ("wgmma" if _bf16_at_64(torch, shape, dt) else "scalar"),
+        check(path == ("wgmma" if _bf16_wgmma(torch, shape, dt) else "scalar"),
               f"K5a {dt} {shape} took the {path} kernel")
         if first is None:
             first = err
@@ -3520,7 +3617,7 @@ def check_k5c(torch, dev, g):
               f"K5c {dt} {shape}: {errs}, db {db}")
         check(equal, f"K5c {dt} {shape} differs from K2b on the transposed operands")
         check(same, f"K5c {dt} {shape}: two launches on the same operands differ")
-        check(path == ("wgmma" if _bf16_at_64(torch, shape, dt) else "scalar"),
+        check(path == ("wgmma" if _bf16_wgmma(torch, shape, dt) else "scalar"),
               f"K5c {dt} {shape} took the {path} kernels")
         if first is None:
             first = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
@@ -4020,15 +4117,12 @@ def run_finetune_slice(torch, dev, gpu, g, data_root, tmp_root):
 # the rest of fused_attention: K5b, K5d, K5e (head-major, not head-blocked)
 # ---------------------------------------------------------------------------
 
-def _bf16_at_64(torch, shape, dt):
-    return dt == torch.bfloat16 and shape[3] == 64
-
-
 def check_k5b(torch, dev, g):
     """K5b against its plain version on (B, H, N, D) and against K3f on the
     transposed operands (the same kernel body: bit for bit): the seg
     backbone's shape at B = 8 and 16 and the N = 401 finetune's micro-batch in
-    bf16 (tensor cores), a ragged N, f32 and D = 32 (the scalar kernel); and
+    bf16 (tensor cores), a ragged N, f32 (the scalar kernel) and D = 32 in
+    bf16 (the D = 32 instantiation); and
     the F3 shape, N = 300 at 12 heads, head-blocked-eligible, which K5a's
     wrapper sends to the same key-tiled kernel under K5a's launch counter.
     Each launch counted once under its branch. Returns the max abs error at
@@ -4058,7 +4152,7 @@ def check_k5b(torch, dev, g):
         check(err <= tol, f"K5b {dt} {shape}: rel max abs err {err} > {tol}")
         check(equal, f"K5b {dt} {shape} differs from K3f on the transposed operands")
         check(launched == 1, f"K5b {dt} {shape}: {launched} launches under {name}")
-        check(path == ("tiled_wgmma" if _bf16_at_64(torch, shape, dt) else "tiled_scalar"),
+        check(path == ("tiled_wgmma" if _bf16_wgmma(torch, shape, dt) else "tiled_scalar"),
               f"K5b {dt} {shape} took the {path} kernel")
         if first is None:
             first = (o.float() - want.float()).abs().max().item()
@@ -4107,7 +4201,7 @@ def _check_k5_bwd(torch, dev, g, tag, cases, autograd_shape):
         check(equal, f"{tag} {dt} {shape} differs from K3b on the transposed operands")
         check(same, f"{tag} {dt} {shape}: two launches on the same operands differ")
         check(launched == 2, f"{tag} {dt} {shape}: {launched} launches under {name} for 2 calls")
-        check(path == ("tiled_wgmma" if _bf16_at_64(torch, shape, dt) else "tiled_scalar"),
+        check(path == ("tiled_wgmma" if _bf16_wgmma(torch, shape, dt) else "tiled_scalar"),
               f"{tag} {dt} {shape} took the {path} kernels")
         if first is None:
             first = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
@@ -4139,8 +4233,8 @@ def _check_k5_bwd(torch, dev, g, tag, cases, autograd_shape):
 
 def check_k5d(torch, dev, g):
     """K5d (N <= 448, not head-blocked-eligible) at the N = 401 finetune's
-    micro-batch and at N = 448 in bf16 (tensor cores), f32 and D = 32 (the
-    scalar kernels); the F3 shape, N = 300 at 12 heads, which K5c's wrapper
+    micro-batch and at N = 448 in bf16 (tensor cores), f32 (the scalar
+    kernels) and D = 32 in bf16; the F3 shape, N = 300 at 12 heads, which K5c's wrapper
     sends to the same kernels under K5c's counter. Returns the max abs error
     at (FT_MICRO, 12, 401, 64)."""
     bf, f32 = torch.bfloat16, torch.float32
@@ -4152,8 +4246,8 @@ def check_k5d(torch, dev, g):
 def check_k5e(torch, dev, g):
     """K5e (N > 448) at train_seg's (16, 12, 1025, 64) and at B = 8 in bf16,
     at the boundary N = 449 and a ragged N = 577 (no multiple of the 64-wide
-    tile or of the reference's 256-row block), f32 and D = 32 (the scalar
-    kernels). Returns the max abs error at (16, 12, 1025, 64)."""
+    tile or of the reference's 256-row block), f32 (the scalar kernels) and
+    D = 32 in bf16. Returns the max abs error at (16, 12, 1025, 64)."""
     bf, f32 = torch.bfloat16, torch.float32
     return _check_k5_bwd(torch, dev, g, "k5e", (
         ((16, 12, 1025, 64), bf), ((8, 12, 1025, 64), bf), ((2, 12, 449, 64), bf),

@@ -33,9 +33,9 @@
 // q, k, v, dout, dq, dk, dv: (b, n, heads*64) bf16; bias, db: (heads, n, n)
 // f32; ds_ws: (b, heads, n, mem_attention_long_bwd_ws_stride(n, 1)) f32 and
 // stats: (b, heads, ceil(n / 64), 3, 64) f32, both scratch. bf16, d = 64,
-// n <= 256 and 16-byte aligned operands only (K2b's Hopper domain, where the
-// reference's pair lives): any other launch returns cudaErrorInvalidValue and
-// runs nothing.
+// n <= 256 and 16-byte aligned operands only (K2b's Hopper domain at the
+// reference's head dim, where its pair lives): any other launch returns
+// cudaErrorInvalidValue and runs nothing.
 extern "C" int mem_attention_bwd_pair(const void* q, const void* k, const void* v,
                                       const float* bias, const void* dout, void* dq, void* dk,
                                       void* dv, float* db, float* ds_ws, float* stats, int b,
@@ -43,7 +43,9 @@ extern "C" int mem_attention_bwd_pair(const void* q, const void* k, const void* 
                                       cudaStream_t stream) {
   if (b <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
   const void* ptrs[7] = {q, k, v, dout, dq, dk, dv};
-  if (n > 256 || !use_mma(ptrs, 7, d, is_bf16)) return static_cast<int>(cudaErrorInvalidValue);
+  if (n > 256 || d != 64 || !use_mma(ptrs, 7, d, is_bf16)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return dispatch_long_bwd<true>(q, k, v, bias, dout, dq, dk, dv, db, ds_ws, nullptr, stats, b,
                                  n, heads, d, scale, is_bf16, stream);
 }

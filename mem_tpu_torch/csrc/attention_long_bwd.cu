@@ -1,7 +1,7 @@
 // K3b: the flat (B, N, H*D) entry points of the long attention backward. The
 // kernels are in attention_long_bwd.cuh, shared with the head-major
 // (B, H, N, D) entry points of attention_long_bwd_bhnd.cu (K5d, K5e). K2b
-// launches mem_attention_long_bwd for bf16 at head dim 64 and N <= 256
+// launches mem_attention_long_bwd for bf16 at head dim 64 or 32 and N <= 256
 // (counted under K2b's name).
 
 #include "attention_long_bwd.cuh"
@@ -13,7 +13,8 @@ extern "C" int mem_attention_long_bwd_max_d() { return kMaxScalarD; }
 // grows with n, and the wrapper refuses what a block may not use. The
 // wgmma kernels use a fixed 148,536 B (rows: Q and dO, the ring, the ds
 // staging buffers; X3's rows kernel 173,112 B, attention_bwd_pair.cu) and
-// 86,072 B (columns) at any n. Either layout.
+// 86,072 B (columns) at any n at D = 64, 99,368 B and 35,880 B at D = 32.
+// Either layout.
 extern "C" long long mem_attention_long_bwd_scalar_smem(int n, int d) {
   return static_cast<long long>(scalar_smem_bytes(n, d));
 }

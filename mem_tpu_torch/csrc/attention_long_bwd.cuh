@@ -33,7 +33,7 @@
 // MB) for five N x N x D products per (b, h) (129 GFLOP): about 0.13 ms of
 // tensor-core time against 0.08 ms of memory time, so operations bound it.
 // Three sums cross any tile a block can hold: dq over the keys, dk/dv over the
-// query rows, db over the batch. The wgmma path (bf16, head dim 64) keeps
+// query rows, db over the batch. The wgmma path (bf16, head dim 64 or 32) keeps
 // each in one thread's registers, with no float atomics, by going over the
 // scores from both sides and recomputing them from row statistics instead of
 // storing p. Both kernels are blocks of two consumer warpgroups of 64 rows
@@ -86,8 +86,21 @@
 // all (1.6 GB at B = 16), as much as the workspace's round trip, and L2 (50
 // MB) does not hold the ~100 MB the resident blocks would need.
 //
+// Head dim 32 (the MAE decoder's 16 heads of 512, where K2b launches these
+// kernels for mem_tpu/ops/attention.py:_bwd_flat_kernel through _fa_flat_bwd)
+// is the template's D = 32 instantiation of the three kernels, with D = 64's
+// order of arithmetic: 64-byte rows on 64 B swizzle, 4 KB tiles; s, dp and
+// s^T, dp^T two m64n64k16 steps each, dq += ds k, dv += p^T do and dk += ds^T
+// q chains of four m64n32k16 steps (16 accumulator floats a thread). The
+// products halve; what they leave is per (b, h) the bias loads (twice in the
+// rows kernel, once in the columns kernel), the exps, and the padded ds
+// workspace: at (128, 197, 16 x 32) 322.8 MB written by the rows kernel and
+// read by the bias sum (about 0.19 ms at 3.35 TB/s where L2 does not keep
+// it), against a bound of 0.055 ms for the function. Ring depth: 2 stages
+// (measured with attention_long_fwd.cuh's forward: the note there).
+//
 // The scalar path (f32 operands, where tensor cores would round to TF32, and
-// head dims other than 64, up to 128) is K2b's scalar kernel cut in two:
+// head dims other than 64 and 32, up to 128) is K2b's scalar kernel cut in two:
 // attention_long_bwd_rows_kernel (one query row per warp at a time, the
 // row's s, p, dp in shared memory, ds and p rounded to the operand dtype to
 // (B, H, N, N) workspaces) and attention_long_bwd_cols_kernel (one key per
@@ -166,20 +179,25 @@ __device__ __forceinline__ int64_t layout_base(int b, int h, int n, int heads, i
 }
 
 // ---------------------------------------------------------------------------
-// 1. wgmma path: bf16, D = 64
+// 1. wgmma path: bf16, D = 64 and D = 32
 // ---------------------------------------------------------------------------
 
 constexpr int kWgRows = 64;                       // rows (queries or keys) per consumer warpgroup
 constexpr int kConsumers = 2;                     // consumer warpgroups per block
 constexpr int kBlockRows = kWgRows * kConsumers;  // rows per block
-constexpr int kStages = 3;                        // ring depth, both kernels
+// ring depth, both kernels: hopper.cuh's kRingStages (at the MAE decoder's
+// N = 197, 4 stages would hold a (b, h)'s four key tiles at once, and K2b
+// took 3 % longer with them)
+template <int D>
+constexpr int kStages = kRingStages<D>;
 constexpr int kWgThreads = 128 * (kConsumers + 1);  // + one producer warpgroup
 // setmaxnreg: the block starts at 168 registers a thread (384 threads); the
 // producer warpgroup, one thread of which issues the copies, keeps 24 and the
 // consumers take 240 (2 x 128 x 240 + 128 x 24 = 64,512 = 384 x 168)
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
-constexpr int kPairBytes = kConsumers * kTileBytes;       // one tile per consumer
+template <int D>
+constexpr int kPairBytes = kConsumers * kTileBytes<D>;    // one tile per consumer
 // (B*H, ceil(N / 64), 3, 64) f32: per 64-row query tile its m, 1 / l and delta
 constexpr int kStatFloats = 3 * kWgTile;
 constexpr int kStatBytes = kStatFloats * 4;
@@ -196,21 +214,25 @@ constexpr int kDsTileBytes = 2 * kDsHalfBytes;
 // one m64n128k16 chain (K | Z for its first four k16 steps, Z | V for the
 // last four; a descriptor strides 1024 B per 8 rows, so each pair of tiles
 // lies contiguous)
-template <bool kPair>
-constexpr int kRowsStageBytes = (kPair ? 3 : 2) * kTileBytes;
-template <bool kPair>
-constexpr int kRowsDsOffset = 2 * kPairBytes + kStages * kRowsStageBytes<kPair>;
-template <bool kPair>
-constexpr int kRowsBarOffset = kRowsDsOffset<kPair> + 2 * kConsumers * kDsTileBytes;
+template <int D, bool kPair>
+constexpr int kRowsStageBytes = (kPair ? 3 : 2) * kTileBytes<D>;
+template <int D, bool kPair>
+constexpr int kRowsDsOffset = 2 * kPairBytes<D> + kStages<D> * kRowsStageBytes<D, kPair>;
+template <int D, bool kPair>
+constexpr int kRowsBarOffset = kRowsDsOffset<D, kPair> + 2 * kConsumers * kDsTileBytes;
 // cols kernel: K and V of each consumer, then the ring of Q / dO / stats
 // stages (each 1024-aligned for the swizzled tiles)
-constexpr int kColsStageBytes = 2 * kTileBytes + 1024;
-constexpr int kColsBarOffset = 2 * kPairBytes + kStages * kColsStageBytes;
+template <int D>
+constexpr int kColsStageBytes = 2 * kTileBytes<D> + 1024;
+template <int D>
+constexpr int kColsBarOffset = 2 * kPairBytes<D> + kStages<D> * kColsStageBytes<D>;
 // full[kStages], empty[kStages], one more; the 1024 B in front align the
-// tiles. Rows kernel 148,536 B (X3's 173,112), cols kernel 86,072 B.
-template <bool kPair>
-constexpr int kRowsSmemBytes = 1024 + kRowsBarOffset<kPair> + 8 * (2 * kStages + 1);
-constexpr int kColsSmemBytes = 1024 + kColsBarOffset + 8 * (2 * kStages + 1);
+// tiles. D = 64: rows kernel 148,536 B (X3's 173,112), cols kernel 86,072 B;
+// D = 32 at 2 stages: 99,368 B and 35,880 B.
+template <int D, bool kPair>
+constexpr int kRowsSmemBytes = 1024 + kRowsBarOffset<D, kPair> + 8 * (2 * kStages<D> + 1);
+template <int D>
+constexpr int kColsSmemBytes = 1024 + kColsBarOffset<D> + 8 * (2 * kStages<D> + 1);
 static_assert(kStatBytes <= 1024, "a stage's stats fit its 1024 B");
 
 // Scores of one tile in place: (acc * scale) + bias with the reference's two
@@ -245,20 +267,21 @@ __device__ __forceinline__ float expm(float s, float m) { return ex2(__fmul_rn(s
 // 0-3 read the Q tile against K | Z, steps 4-7 the dO tile against Z | V.
 // s's sum adds do . 0 after q k^T and dp's starts with q . 0: exact zeros
 // added to K3b's f32 sums in K3b's step order, so the results are its bits.
-template <bool kPair>
+template <int D, bool kPair>
 __device__ __forceinline__ void score_products(float (&sc)[32], float (&dp)[32], uint32_t qtile,
                                                uint32_t dotile, uint32_t stage) {
   if constexpr (kPair) {
+    static_assert(D == 64, "X3's pair is K2b's D = 64 body");
     wgmma_ss_n128_fresh(sc, dp, sw128_desc(qtile), sw128_desc(stage));
 #pragma unroll
-    for (int kk = 1; kk < 2 * kWgD / 16; ++kk) {
+    for (int kk = 1; kk < 2 * D / 16; ++kk) {
       const uint32_t a = (kk < 4 ? qtile : dotile) + 32 * (kk % 4);
-      const uint32_t b = stage + (kk < 4 ? 0 : kTileBytes) + 32 * (kk % 4);
+      const uint32_t b = stage + (kk < 4 ? 0 : kTileBytes<D>) + 32 * (kk % 4);
       wgmma_ss_n128(sc, dp, sw128_desc(a), sw128_desc(b));
     }
   } else {
-    wgmma_abt_fresh(sc, qtile, stage);
-    wgmma_abt_fresh(dp, dotile, stage + kTileBytes);
+    wgmma_abt_fresh<D>(sc, qtile, stage);
+    wgmma_abt_fresh<D>(dp, dotile, stage + kTileBytes<D>);
   }
 }
 
@@ -267,7 +290,10 @@ __device__ __forceinline__ void score_products(float (&sc)[32], float (&dp)[32],
 // workspace (n, n, B*H) f32, rows ws_stride(n) floats apart, boxes of 64 rows
 // of 32 floats. stats: (B*H, ceil(n / 64), 3, 64) f32 = m, 1 / l, delta of each
 // query row (0 past n). kPair: X3's products (score_products); K3b's otherwise.
-template <bool kPair>
+// Built with -DMEM_ATTN_PLANT_FAULT (chip_smoke.py's fault check, a library
+// of its own), the D = 32 instantiation skips dq's last k16 step of every key
+// tile.
+template <int D, bool kPair>
 __global__ void __launch_bounds__(kWgThreads, 1)
 attention_long_bwd_rows_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                                      const __grid_constant__ CUtensorMap tk,
@@ -277,11 +303,12 @@ attention_long_bwd_rows_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                                      const float* __restrict__ bias,
                                      __nv_bfloat16* __restrict__ dq, float* __restrict__ stats,
                                      int n, int heads, float scale) {
+  constexpr int kS = kStages<D>, kTile = kTileBytes<D>, kPairB = kPairBytes<D>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t sbase = (smem_u32(smem_raw) + 1023) & ~uint32_t{1023};
-  const uint32_t full0 = sbase + kRowsBarOffset<kPair>, empty0 = full0 + 8 * kStages;
-  const uint32_t qbar = empty0 + 8 * kStages;
-  constexpr int kStage = kRowsStageBytes<kPair>;
+  const uint32_t full0 = sbase + kRowsBarOffset<D, kPair>, empty0 = full0 + 8 * kS;
+  const uint32_t qbar = empty0 + 8 * kS;
+  constexpr int kStage = kRowsStageBytes<D, kPair>;
 
   const unsigned b = blockIdx.x;
   const int h = blockIdx.y;
@@ -293,15 +320,15 @@ attention_long_bwd_rows_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
   if constexpr (kPair) {
     // every stage's zero tile, written once: TMA never writes it
-    unsigned char* ring = smem_raw + (sbase - smem_u32(smem_raw)) + 2 * kPairBytes;
-    for (int i = threadIdx.x; i < kStages * kTileBytes / 16; i += kWgThreads) {
-      const int s = i / (kTileBytes / 16), off = i % (kTileBytes / 16) * 16;
-      *reinterpret_cast<uint4*>(ring + s * kStage + kTileBytes + off) = make_uint4(0, 0, 0, 0);
+    unsigned char* ring = smem_raw + (sbase - smem_u32(smem_raw)) + 2 * kPairB;
+    for (int i = threadIdx.x; i < kS * kTile / 16; i += kWgThreads) {
+      const int s = i / (kTile / 16), off = i % (kTile / 16) * 16;
+      *reinterpret_cast<uint4*>(ring + s * kStage + kTile + off) = make_uint4(0, 0, 0, 0);
     }
     fence_async_smem();   // before the first product reads them
   }
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < kS; ++s) {
       mbar_init(full0 + 8 * s, 1);
       mbar_init(empty0 + 8 * s, 4 * active);
     }
@@ -314,21 +341,21 @@ attention_long_bwd_rows_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     regs_dec<kProducerRegs>();
     if (threadIdx.x != kConsumers * 128) return;
     // tensor-map coordinates: (column, row, sample) or (0, row, sample * heads + head)
-    const int tc = kHeadMajor ? 0 : h * kWgD;
+    const int tc = kHeadMajor ? 0 : h * D;
     const int tb = kHeadMajor ? static_cast<int>(b) * heads + h : static_cast<int>(b);
-    mbar_expect_tx(qbar, 2 * active * kTileBytes);
+    mbar_expect_tx(qbar, 2 * active * kTile);
     for (int w = 0; w < active; ++w) {
-      tma_load(sbase + w * kTileBytes, &tq, qbar, tc, q0 + w * kWgRows, tb);
-      tma_load(sbase + kPairBytes + w * kTileBytes, &tdo, qbar, tc, q0 + w * kWgRows, tb);
+      tma_load(sbase + w * kTile, &tq, qbar, tc, q0 + w * kWgRows, tb);
+      tma_load(sbase + kPairB + w * kTile, &tdo, qbar, tc, q0 + w * kWgRows, tb);
     }
     for (int it = 0; it < 2 * tiles; ++it) {
-      const int s = it % kStages, round = it / kStages;
+      const int s = it % kS, round = it / kS;
       const int j0 = (it < tiles ? it : it - tiles) * kWgTile;
       if (round > 0) mbar_wait(empty0 + 8 * s, (round - 1) & 1);
-      const uint32_t stage = sbase + 2 * kPairBytes + s * kStage;
-      mbar_expect_tx(full0 + 8 * s, 2 * kTileBytes);
+      const uint32_t stage = sbase + 2 * kPairB + s * kStage;
+      mbar_expect_tx(full0 + 8 * s, 2 * kTile);
       tma_load(stage, &tk, full0 + 8 * s, tc, j0, tb);
-      tma_load(stage + kStage - kTileBytes, &tv, full0 + 8 * s, tc, j0, tb);
+      tma_load(stage + kStage - kTile, &tv, full0 + 8 * s, tc, j0, tb);
     }
     return;
   }
@@ -344,8 +371,8 @@ attention_long_bwd_rows_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const float* bias_h = bias + static_cast<int64_t>(h) * n * n;
   const float* ga = bias_h + static_cast<int64_t>(ra < n ? ra : q0 + wg * kWgRows) * n;
   const float* gb = bias_h + static_cast<int64_t>(rb < n ? rb : q0 + wg * kWgRows) * n;
-  const uint32_t qtile = sbase + wg * kTileBytes, dotile = qtile + kPairBytes;
-  auto ktile = [&](int it) { return sbase + 2 * kPairBytes + (it % kStages) * kStage; };
+  const uint32_t qtile = sbase + wg * kTile, dotile = qtile + kPairB;
+  auto ktile = [&](int it) { return sbase + 2 * kPairB + (it % kS) * kStage; };
 
   float sc[32], dp[32], bc[32], bn[32];
   // the bias goes by registers, one tile ahead of its use, over the 2 * tiles
@@ -366,14 +393,14 @@ attention_long_bwd_rows_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   float ma = -INFINITY, mb = -INFINITY, la = 0.f, lb = 0.f, ta = 0.f, tb = 0.f;
   for (int it = 0; it < tiles; ++it) {
     if (it > 0) next_bias(it);
-    mbar_wait(full0 + 8 * (it % kStages), (it / kStages) & 1);
+    mbar_wait(full0 + 8 * (it % kS), (it / kS) & 1);
     wgmma_fence();
-    score_products<kPair>(sc, dp, qtile, dotile, ktile(it));
+    score_products<D, kPair>(sc, dp, qtile, dotile, ktile(it));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sc);
     fence_regs(dp);
-    if (lane == 0) mbar_arrive(empty0 + 8 * (it % kStages));
+    if (lane == 0) mbar_arrive(empty0 + 8 * (it % kS));
     tile_scores(sc, bc, it * kWgTile, n, t, scale);
     float xa = -INFINITY, xb = -INFINITY;
 #pragma unroll
@@ -424,19 +451,19 @@ attention_long_bwd_rows_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   // j lands in within its row of a swizzled 128-byte half-row; rows a and b
   // share it (row % 8 = lane / 4 for both)
   auto ds_chunk = [&](int j) { return ((2 * (j % 4) + (t >> 1)) ^ (lane / 4)) * 16 + 8 * (t & 1); };
-  float acc[32];   // written by the first tile's product
+  float acc[D / 2];   // dq's n64 or n32 accumulator, written by the first tile's product
   uint32_t pf[4][4];
   for (int it = tiles; it < 2 * tiles; ++it) {
     const int j0 = (it - tiles) * kWgTile;
     next_bias(it);
-    mbar_wait(full0 + 8 * (it % kStages), (it / kStages) & 1);
+    mbar_wait(full0 + 8 * (it % kS), (it / kS) & 1);
     wgmma_fence();
-    score_products<kPair>(sc, dp, qtile, dotile, ktile(it));
+    score_products<D, kPair>(sc, dp, qtile, dotile, ktile(it));
     wgmma_commit();
     if (it > tiles) {
       wgmma_wait<1>();   // the last tile's dq product is done
       fence_frags(pf);
-      if (lane == 0) mbar_arrive(empty0 + 8 * ((it - 1) % kStages));
+      if (lane == 0) mbar_arrive(empty0 + 8 * ((it - 1) % kS));
     }
     wgmma_wait<0>();
     fence_regs(sc);
@@ -453,14 +480,17 @@ attention_long_bwd_rows_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       }
     }
     pack_frags(pf, sc);
+#ifdef MEM_ATTN_PLANT_FAULT
+    if constexpr (D == 32 && !kPair) pf[3][0] = pf[3][1] = pf[3][2] = pf[3][3] = 0u;
+#endif
     wgmma_fence();
-    wgmma_ab_mn(acc, pf, ktile(it), it > tiles);
+    wgmma_ab_mn<D>(acc, pf, ktile(it), it > tiles);
     wgmma_commit();
     // ds leaves through this warpgroup's staging buffer of the tile's
     // parity, by one thread's TMA store (rows and keys >= n are clipped);
     // the store two tiles back must have read the buffer first
     const uint32_t sbuf =
-        sbase + kRowsDsOffset<kPair> + (2 * wg + ((it - tiles) & 1)) * kDsTileBytes;
+        sbase + kRowsDsOffset<D, kPair> + (2 * wg + ((it - tiles) & 1)) * kDsTileBytes;
     if (wtid == 0) bulk_wait_read<1>();
     named_barrier(1 + wg, 128);
 #pragma unroll
@@ -482,12 +512,12 @@ attention_long_bwd_rows_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   fence_frags(pf);
   if (wtid == 0) bulk_wait<0>();
 
-  const int c = layout_row_stride(heads, kWgD);
-  const int64_t base = layout_base(b, h, n, heads, kWgD, c);
+  const int c = layout_row_stride(heads, D);
+  const int64_t base = layout_base(b, h, n, heads, D, c);
   __nv_bfloat16* oa = dq + base + static_cast<int64_t>(ra) * c + 2 * t;
   __nv_bfloat16* ob = dq + base + static_cast<int64_t>(rb) * c + 2 * t;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < D / 8; ++j) {
     if (ra < n) {
       *reinterpret_cast<uint32_t*>(oa + 8 * j) =
           pack_bf16(__fmul_rn(acc[4 * j], scale), __fmul_rn(acc[4 * j + 1], scale));
@@ -519,6 +549,7 @@ __device__ __forceinline__ void load_bias_t(float (&bv)[32], const float* ca, co
 // cols kernel: the producer warp loads each consumer's K and V tiles once,
 // then per query tile its Q and dO tiles and its statistics through the
 // ring. Keys are the product's rows here: s^T = k q^T, dp^T = v do^T.
+template <int D>
 __global__ void __launch_bounds__(kWgThreads, 1)
 attention_long_bwd_cols_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                                      const __grid_constant__ CUtensorMap tk,
@@ -529,11 +560,12 @@ attention_long_bwd_cols_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                                      __nv_bfloat16* __restrict__ dk,
                                      __nv_bfloat16* __restrict__ dv,
                                      int n, int heads, float scale) {
+  constexpr int kS = kStages<D>, kTile = kTileBytes<D>, kPairB = kPairBytes<D>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t sbase = (smem_u32(smem_raw) + 1023) & ~uint32_t{1023};
   const unsigned char* sgen = smem_raw + (sbase - smem_u32(smem_raw));   // sbase, generic
-  const uint32_t full0 = sbase + kColsBarOffset, empty0 = full0 + 8 * kStages;
-  const uint32_t kvbar = empty0 + 8 * kStages;
+  const uint32_t full0 = sbase + kColsBarOffset<D>, empty0 = full0 + 8 * kS;
+  const uint32_t kvbar = empty0 + 8 * kS;
 
   const unsigned b = blockIdx.x;
   const int h = blockIdx.y;
@@ -545,7 +577,7 @@ attention_long_bwd_cols_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int64_t bh = static_cast<int64_t>(b) * heads + h;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < kS; ++s) {
       mbar_init(full0 + 8 * s, 1);
       mbar_init(empty0 + 8 * s, 4 * active);
     }
@@ -557,22 +589,22 @@ attention_long_bwd_cols_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   if (wg == kConsumers) {
     regs_dec<kProducerRegs>();
     if (threadIdx.x != kConsumers * 128) return;
-    const int tc = kHeadMajor ? 0 : h * kWgD;
+    const int tc = kHeadMajor ? 0 : h * D;
     const int tb = kHeadMajor ? static_cast<int>(b) * heads + h : static_cast<int>(b);
-    mbar_expect_tx(kvbar, 2 * active * kTileBytes);
+    mbar_expect_tx(kvbar, 2 * active * kTile);
     for (int w = 0; w < active; ++w) {
-      tma_load(sbase + w * kTileBytes, &tk, kvbar, tc, k0 + w * kWgRows, tb);
-      tma_load(sbase + kPairBytes + w * kTileBytes, &tv, kvbar, tc, k0 + w * kWgRows, tb);
+      tma_load(sbase + w * kTile, &tk, kvbar, tc, k0 + w * kWgRows, tb);
+      tma_load(sbase + kPairB + w * kTile, &tv, kvbar, tc, k0 + w * kWgRows, tb);
     }
     const float* st = stats + bh * tiles * kStatFloats;
     for (int it = 0; it < tiles; ++it) {
-      const int s = it % kStages, round = it / kStages;
+      const int s = it % kS, round = it / kS;
       if (round > 0) mbar_wait(empty0 + 8 * s, (round - 1) & 1);
-      const uint32_t stage = sbase + 2 * kPairBytes + s * kColsStageBytes;
-      mbar_expect_tx(full0 + 8 * s, 2 * kTileBytes + kStatBytes);
+      const uint32_t stage = sbase + 2 * kPairB + s * kColsStageBytes<D>;
+      mbar_expect_tx(full0 + 8 * s, 2 * kTile + kStatBytes);
       tma_load(stage, &tq, full0 + 8 * s, tc, it * kWgTile, tb);
-      tma_load(stage + kTileBytes, &tdo, full0 + 8 * s, tc, it * kWgTile, tb);
-      bulk_load(stage + 2 * kTileBytes, st + it * kStatFloats, kStatBytes, full0 + 8 * s);
+      tma_load(stage + kTile, &tdo, full0 + 8 * s, tc, it * kWgTile, tb);
+      bulk_load(stage + 2 * kTile, st + it * kStatFloats, kStatBytes, full0 + 8 * s);
     }
     return;
   }
@@ -586,32 +618,33 @@ attention_long_bwd_cols_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const float* bias_h = bias + static_cast<int64_t>(h) * n * n;
   const float* ca = bias_h + (ja < n ? ja : k0 + wg * kWgRows);
   const float* cb = bias_h + (jb < n ? jb : k0 + wg * kWgRows);
-  const uint32_t ktile = sbase + wg * kTileBytes, vtile = ktile + kPairBytes;
-  auto qstage = [&](int it) { return 2 * kPairBytes + (it % kStages) * kColsStageBytes; };
+  const uint32_t ktile = sbase + wg * kTile, vtile = ktile + kPairB;
+  auto qstage = [&](int it) { return 2 * kPairB + (it % kS) * kColsStageBytes<D>; };
 
-  float st[32], dpt[32], bc[32], accv[32], acck[32];   // accv, acck: written by tile 0
+  // dv's and dk's n64 or n32 accumulators (written by tile 0)
+  float st[32], dpt[32], bc[32], accv[D / 2], acck[D / 2];
   uint32_t pf[4][4], sf[4][4];
   mbar_wait(kvbar, 0);
   for (int it = 0; it < tiles; ++it) {
     const int i0 = it * kWgTile;
     const uint32_t stage = sbase + qstage(it);
-    mbar_wait(full0 + 8 * (it % kStages), (it / kStages) & 1);
+    mbar_wait(full0 + 8 * (it % kS), (it / kS) & 1);
     wgmma_fence();
-    wgmma_abt_fresh(st, ktile, stage);
-    wgmma_abt_fresh(dpt, vtile, stage + kTileBytes);
+    wgmma_abt_fresh<D>(st, ktile, stage);
+    wgmma_abt_fresh<D>(dpt, vtile, stage + kTile);
     wgmma_commit();
     if (it > 0) {
       wgmma_wait<1>();   // the last tile's dv and dk products are done
       fence_frags(pf);
       fence_frags(sf);
-      if (lane == 0) mbar_arrive(empty0 + 8 * ((it - 1) % kStages));
+      if (lane == 0) mbar_arrive(empty0 + 8 * ((it - 1) % kS));
     }
     load_bias_t(bc, ca, cb, i0, n, t);   // while s^T and dp^T are on the tensor cores
     wgmma_wait<0>();
     fence_regs(st);
     fence_regs(dpt);
     // this tile's m, 1 / l and delta, per query (the accumulator's column)
-    const float* sm = reinterpret_cast<const float*>(sgen + qstage(it) + 2 * kTileBytes);
+    const float* sm = reinterpret_cast<const float*>(sgen + qstage(it) + 2 * kTile);
     const bool ragged = i0 + kWgTile > n;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -632,8 +665,8 @@ attention_long_bwd_cols_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     pack_frags(pf, st);
     pack_frags(sf, dpt);
     wgmma_fence();
-    wgmma_ab_mn(accv, pf, stage + kTileBytes, it > 0);   // dv += p^T do
-    wgmma_ab_mn(acck, sf, stage, it > 0);                // dk += ds^T q
+    wgmma_ab_mn<D>(accv, pf, stage + kTile, it > 0);   // dv += p^T do
+    wgmma_ab_mn<D>(acck, sf, stage, it > 0);           // dk += ds^T q
     wgmma_commit();
   }
   wgmma_wait<0>();
@@ -642,12 +675,12 @@ attention_long_bwd_cols_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   fence_frags(pf);
   fence_frags(sf);
 
-  const int c = layout_row_stride(heads, kWgD);
-  const int64_t base = layout_base(b, h, n, heads, kWgD, c);
+  const int c = layout_row_stride(heads, D);
+  const int64_t base = layout_base(b, h, n, heads, D, c);
   const int64_t oa = base + static_cast<int64_t>(ja) * c + 2 * t;
   const int64_t ob = base + static_cast<int64_t>(jb) * c + 2 * t;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < D / 8; ++j) {
     if (ja < n) {
       *reinterpret_cast<uint32_t*>(dv + oa + 8 * j) = pack_bf16(accv[4 * j], accv[4 * j + 1]);
       *reinterpret_cast<uint32_t*>(dk + oa + 8 * j) =
@@ -681,35 +714,37 @@ cudaError_t ws_tensor_map(EncodeTiled encode, CUtensorMap* map, float* ws, int p
 
 // The rows kernel, then the cols kernel on the rows kernel's statistics
 // (kPair: X3's rows kernel)
-template <bool kPair>
+template <int D, bool kPair>
 int launch_wgmma(const void* q, const void* k, const void* v, const float* bias,
                  const void* dout, void* dq, void* dk, void* dv, float* ds_ws, float* stats,
                  int b, int n, int heads, float scale, cudaStream_t stream) {
   if ((n + kBlockRows - 1) / kBlockRows > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int rows_smem = kRowsSmemBytes<kPair>;
+  constexpr int rows_smem = kRowsSmemBytes<D, kPair>, cols_smem = kColsSmemBytes<D>;
   EncodeTiled encode;
   cudaError_t e = encode_tiled(&encode);
   CUtensorMap tq, tk, tv, tdo, tws;
-  if (e == cudaSuccess) e = tensor_map(encode, &tq, q, b, n, heads, kHeadMajor);
-  if (e == cudaSuccess) e = tensor_map(encode, &tk, k, b, n, heads, kHeadMajor);
-  if (e == cudaSuccess) e = tensor_map(encode, &tv, v, b, n, heads, kHeadMajor);
-  if (e == cudaSuccess) e = tensor_map(encode, &tdo, dout, b, n, heads, kHeadMajor);
+  if (e == cudaSuccess) e = tensor_map<D>(encode, &tq, q, b, n, heads, kHeadMajor);
+  if (e == cudaSuccess) e = tensor_map<D>(encode, &tk, k, b, n, heads, kHeadMajor);
+  if (e == cudaSuccess) e = tensor_map<D>(encode, &tv, v, b, n, heads, kHeadMajor);
+  if (e == cudaSuccess) e = tensor_map<D>(encode, &tdo, dout, b, n, heads, kHeadMajor);
   if (e == cudaSuccess) e = ws_tensor_map(encode, &tws, ds_ws, b * heads, n, ws_stride(n, true));
   if (e == cudaSuccess) {
-    e = cudaFuncSetAttribute(attention_long_bwd_rows_wgmma_kernel<kPair>,
+    e = cudaFuncSetAttribute(attention_long_bwd_rows_wgmma_kernel<D, kPair>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, rows_smem);
   }
   if (e == cudaSuccess) {
-    e = cudaFuncSetAttribute(attention_long_bwd_cols_wgmma_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, kColsSmemBytes);
+    e = cudaFuncSetAttribute(attention_long_bwd_cols_wgmma_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, cols_smem);
   }
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(b, heads, (n + kBlockRows - 1) / kBlockRows);
-  attention_long_bwd_rows_wgmma_kernel<kPair><<<grid, kWgThreads, rows_smem, stream>>>(
-      tq, tk, tv, tdo, tws, bias, static_cast<__nv_bfloat16*>(dq), stats, n, heads, scale);
+  attention_long_bwd_rows_wgmma_kernel<D, kPair>
+      <<<grid, kWgThreads, rows_smem, stream>>>(tq, tk, tv, tdo, tws, bias,
+                                                 static_cast<__nv_bfloat16*>(dq), stats, n, heads,
+                                                 scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  attention_long_bwd_cols_wgmma_kernel<<<grid, kWgThreads, kColsSmemBytes, stream>>>(
+  attention_long_bwd_cols_wgmma_kernel<D><<<grid, kWgThreads, cols_smem, stream>>>(
       tq, tk, tv, tdo, bias, stats, static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), n, heads, scale);
   return static_cast<int>(cudaGetLastError());
@@ -881,7 +916,7 @@ __global__ void attention_long_bwd_bias_sum_kernel(const float* __restrict__ ds_
 bool use_mma(const void* const* ptrs, int count, int d, int is_bf16) {
   uintptr_t all = 0;
   for (int i = 0; i < count; ++i) all |= reinterpret_cast<uintptr_t>(ptrs[i]);
-  return is_bf16 && d == kWgD && all % 16 == 0;
+  return is_bf16 && wgmma_head_dim(d) && all % 16 == 0;
 }
 
 // q, k, v, dout, dq, dk, dv in the translation unit's layout, one dtype (bf16
@@ -904,8 +939,15 @@ int dispatch_long_bwd(const void* q, const void* k, const void* v, const float* 
   int rc;
   if (use_mma(ptrs, 7, d, is_bf16)) {
     if (stats == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    rc = launch_wgmma<kPair>(q, k, v, bias, dout, dq, dk, dv, ds_ws, stats, b, n, heads, scale,
-                             stream);
+    if (d == 64) {
+      rc = launch_wgmma<64, kPair>(q, k, v, bias, dout, dq, dk, dv, ds_ws, stats, b, n, heads,
+                                   scale, stream);
+    } else if constexpr (kPair) {
+      return static_cast<int>(cudaErrorInvalidValue);   // X3's pair is D = 64 only
+    } else {
+      rc = launch_wgmma<32, false>(q, k, v, bias, dout, dq, dk, dv, ds_ws, stats, b, n, heads,
+                                   scale, stream);
+    }
   } else if constexpr (kPair) {
     return static_cast<int>(cudaErrorInvalidValue);
   } else {

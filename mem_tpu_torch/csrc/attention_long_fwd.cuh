@@ -27,7 +27,7 @@
 // from device memory once and from L2 after. Two kernels:
 //
 // 1. attention_long_fwd_wgmma_kernel -- bf16, head dim 64 (the seg
-//    backbone). One pass with an online softmax, per key tile:
+//    backbone) or 32. One pass with an online softmax, per key tile:
 //      s = (q.k) * scale + bias, rounded twice as the reference (__fmul_rn,
 //          __fadd_rn); keys >= N masked to -inf;
 //      the running row max m grows; the row sum l and the output o are
@@ -57,8 +57,25 @@
 //    span, issued by the producer, was tried first: it was right, but its 128
 //    small copies per tile queue in the copy engine, and the kernel ran
 //    slower than with these register loads.)
+//    Head dim 32 (the MAE decoder's 16 heads of 512, where K2f launches it
+//    for mem_tpu/ops/attention.py:_fwd_flat_kernel through _fa_flat_fwd) is
+//    the template's D = 32 instantiation of the same body, with the same
+//    arithmetic in the same order: 64-byte rows, TMA and the descriptors on
+//    64 B swizzle (8-row groups 512 B apart), 4 KB tiles; s = q k^T two
+//    m64n64k16 steps, o += p~ v a chain of four m64n32k16 steps (16
+//    accumulator floats a thread where D = 64 keeps 32). At (128, 197,
+//    16 x 32) the function moves 105.8 MB for 10.2 GFLOP (0.032 ms); what
+//    holds the kernel is each block's dependent chain over its four key
+//    tiles (scores, softmax, p~ v) and the bias loads. The ring depth
+//    (hopper.cuh's kRingStages, the backward's too) and the block's query
+//    rows were measured once, with the library built at each choice (device
+//    ms at that shape on one H100 80GB HBM3 at 700 W): 2 / 3 / 4 stages
+//    0.229 / 0.224 / 0.226 with two consumer warpgroups, 4 stages with one
+//    (64 query rows a block) 0.224; the backward 0.850 / 0.880 / 0.876. So
+//    2 stages (the lowest sum of both directions) and two consumers (a
+//    (b, h)'s K and V read by two blocks, not four).
 // 2. attention_long_fwd_kernel -- f32 operands (nothing is rounded to TF32)
-//    and other head dims up to 128: scalar FMAs, one block per (sample, head,
+//    and the other head dims up to 128: scalar FMAs, one block per (sample, head,
 //    32 query rows), K/V tiles staged as f32 with rows padded by one word;
 //    each warp owns 8 rows and each lane two keys of the tile. It goes over
 //    the keys twice (row max and sum, then p = exp(s - m) / l rounded to the
@@ -138,32 +155,42 @@ __device__ __forceinline__ int64_t layout_base(unsigned b, int h, int n, int hea
 
 
 // ---------------------------------------------------------------------------
-// 1. wgmma path: bf16, D = 64
+// 1. wgmma path: bf16, D = 64 and D = 32
 // ---------------------------------------------------------------------------
 
 constexpr int kWgRows = 64;                       // query rows per consumer warpgroup
-constexpr int kConsumers = 2;                     // consumer warpgroups per block
-constexpr int kBlockRows = kWgRows * kConsumers;  // query rows per block
-constexpr int kStages = 3;                        // K / V ring depth
-constexpr int kWgThreads = 128 * kConsumers + 32; // + one producer warp
-constexpr int kStageBytes = 2 * kTileBytes;       // a K and a V tile
-constexpr int kQBytes = kConsumers * kTileBytes;
-constexpr int kBarOffset = kQBytes + kStages * kStageBytes;
-// full[kStages], empty[kStages], q; the 1024 B in front align the swizzled tiles
-constexpr int kWgSmemBytes = 1024 + kBarOffset + 8 * (2 * kStages + 1);
 
-// s = q k^T over one key tile: four k16 steps along d, 32 bytes apart in the
-// swizzled rows; one commit group
+// The block at head dim D: kConsumers warpgroups of 64 query rows and one
+// producer warp, a ring of kStages K / V stages (a K and a V tile each).
+// D = 64: 3 stages of 16 KB, 2 consumers. D = 32: 2 stages of 8 KB, 2
+// consumers (measured; see the note on D = 32 above).
+template <int D>
+struct FwdCfg {
+  static constexpr int kConsumers = 2;
+  static constexpr int kStages = kRingStages<D>;
+  static constexpr int kBlockRows = kWgRows * kConsumers;   // query rows per block
+  static constexpr int kThreads = 128 * kConsumers + 32;    // + one producer warp
+  static constexpr int kStageBytes = 2 * kTileBytes<D>;
+  static constexpr int kQBytes = kConsumers * kTileBytes<D>;
+  static constexpr int kBarOffset = kQBytes + kStages * kStageBytes;
+  // full[kStages], empty[kStages], q; the 1024 B in front align the swizzled tiles
+  static constexpr int kSmemBytes = 1024 + kBarOffset + 8 * (2 * kStages + 1);
+};
+
+// s = q k^T over one key tile: D / 16 k16 steps along d, 32 bytes apart in
+// the swizzled rows; one commit group
+template <int D>
 __device__ __forceinline__ void issue_qk(float (&sc)[32], uint32_t qtile, uint32_t ktile) {
-  wgmma_abt(sc, qtile, ktile);
+  wgmma_abt<D>(sc, qtile, ktile);
   wgmma_commit();
 }
 
-// o += p~ v over one key tile: the V tile's k16 steps are 16 rows of 128 B
+// o += p~ v over one key tile: the V tile's k16 steps are 16 rows of 2D bytes
 // apart; one commit group
-__device__ __forceinline__ void issue_pv(float (&o)[32], const uint32_t (&pf)[4][4],
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&pf)[4][4],
                                          uint32_t vtile) {
-  wgmma_ab_mn(o, pf, vtile);
+  wgmma_ab_mn<D>(o, pf, vtile);
   wgmma_commit();
 }
 
@@ -217,22 +244,25 @@ __device__ __forceinline__ void online_softmax(float (&sc)[32], const float (&bv
   lb = lb * alpha_b + sb;
 }
 
-__global__ void __launch_bounds__(kWgThreads, 1)
+template <int D>
+__global__ void __launch_bounds__(FwdCfg<D>::kThreads, 1)
 attention_long_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                                 const __grid_constant__ CUtensorMap tk,
                                 const __grid_constant__ CUtensorMap tv,
                                 const float* __restrict__ bias,
                                 __nv_bfloat16* __restrict__ out,
                                 int n, int heads, float scale) {
+  using C = FwdCfg<D>;
+  constexpr int kConsumers = C::kConsumers, kStages = C::kStages, kTile = kTileBytes<D>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t sbase = (smem_u32(smem_raw) + 1023) & ~uint32_t{1023};
-  const uint32_t full0 = sbase + kBarOffset, empty0 = full0 + 8 * kStages;
+  const uint32_t full0 = sbase + C::kBarOffset, empty0 = full0 + 8 * kStages;
   const uint32_t qbar = empty0 + 8 * kStages;
 
   const unsigned b = blockIdx.x;
   const int h = blockIdx.y;
-  const int q0 = blockIdx.z * kBlockRows;
-  const int rows = min(kBlockRows, n - q0);                  // valid rows of the block
+  const int q0 = blockIdx.z * C::kBlockRows;
+  const int rows = min(C::kBlockRows, n - q0);               // valid rows of the block
   const int active = (rows + kWgRows - 1) / kWgRows;         // warpgroups with a valid row
   const int tiles = (n + kTileKeys - 1) / kTileKeys;
   const int wg = threadIdx.x / 128;
@@ -251,19 +281,19 @@ attention_long_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     // producer warp: one lane loads the Q tiles, then keeps the K / V ring full
     if (threadIdx.x % 32 != 0) return;
     // tensor-map coordinates: (column, row, sample) or (0, row, sample * heads + head)
-    const int tc = kHeadMajor ? 0 : h * kWgD;
+    const int tc = kHeadMajor ? 0 : h * D;
     const int tb = kHeadMajor ? static_cast<int>(b) * heads + h : static_cast<int>(b);
-    mbar_expect_tx(qbar, active * kTileBytes);
+    mbar_expect_tx(qbar, active * kTile);
     for (int w = 0; w < active; ++w) {
-      tma_load(sbase + w * kTileBytes, &tq, qbar, tc, q0 + w * kWgRows, tb);
+      tma_load(sbase + w * kTile, &tq, qbar, tc, q0 + w * kWgRows, tb);
     }
     for (int tile = 0; tile < tiles; ++tile) {
       const int s = tile % kStages, round = tile / kStages;
       if (round > 0) mbar_wait(empty0 + 8 * s, (round - 1) & 1);
-      const uint32_t stage = sbase + kQBytes + s * kStageBytes;
-      mbar_expect_tx(full0 + 8 * s, 2 * kTileBytes);
+      const uint32_t stage = sbase + C::kQBytes + s * C::kStageBytes;
+      mbar_expect_tx(full0 + 8 * s, 2 * kTile);
       tma_load(stage, &tk, full0 + 8 * s, tc, tile * kTileKeys, tb);
-      tma_load(stage + kTileBytes, &tv, full0 + 8 * s, tc, tile * kTileKeys, tb);
+      tma_load(stage + kTile, &tv, full0 + 8 * s, tc, tile * kTileKeys, tb);
     }
     return;
   }
@@ -276,13 +306,16 @@ attention_long_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const float* bias_h = bias + static_cast<int64_t>(h) * n * n;
   const float* ga = bias_h + static_cast<int64_t>(ra < n ? ra : q0 + wg * kWgRows) * n;
   const float* gb = bias_h + static_cast<int64_t>(rb < n ? rb : q0 + wg * kWgRows) * n;
-  const uint32_t qtile = sbase + wg * kTileBytes;
-  auto ktile = [&](int tile) { return sbase + kQBytes + (tile % kStages) * kStageBytes; };
+  const uint32_t qtile = sbase + wg * kTile;
+  auto ktile = [&](int tile) { return sbase + C::kQBytes + (tile % kStages) * C::kStageBytes; };
 
-  float o[32], sc[32], bc[32], bn[32];
+  // o: the n64 (D = 64) or n32 (D = 32) accumulator of o += p~ v
+  float o[D / 2], sc[32], bc[32], bn[32];
   uint32_t pf[4][4];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = sc[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sc[i] = 0.f;
   // running row max and per-thread partial row sums of rows a and b; key 0
   // is valid, so the max is finite from tile 0 on
   float ma = -INFINITY, mb = -INFINITY, la = 0.f, lb = 0.f, alpha_a, alpha_b;
@@ -296,7 +329,7 @@ attention_long_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   mbar_wait(qbar, 0);
   mbar_wait(full0, 0);
   wgmma_fence();
-  issue_qk(sc, qtile, ktile(0));
+  issue_qk<D>(sc, qtile, ktile(0));
   wgmma_wait<0>();
   fence_regs(sc);
   online_softmax(sc, bc, 0, n, t, scale, ma, mb, la, lb, alpha_a, alpha_b);
@@ -309,8 +342,8 @@ attention_long_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (tile + 1 < tiles) load_bias(bn, ga, gb, (tile + 1) * kTileKeys, n, t);
     mbar_wait(full0 + 8 * (tile % kStages), (tile / kStages) & 1);
     wgmma_fence();
-    issue_qk(sc, qtile, ktile(tile));
-    issue_pv(o, pf, ktile(tile - 1) + kTileBytes);
+    issue_qk<D>(sc, qtile, ktile(tile));
+    issue_pv<D>(o, pf, ktile(tile - 1) + kTile);
     wgmma_wait<1>();   // s of this tile is in; the product of the last may still run
     fence_regs(sc);
     online_softmax(sc, bc, tile * kTileKeys, n, t, scale, ma, mb, la, lb, alpha_a, alpha_b);
@@ -319,7 +352,7 @@ attention_long_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     fence_regs(sc);
     if (lane == 0) mbar_arrive(empty0 + 8 * ((tile - 1) % kStages));
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < D / 8; ++j) {
       o[4 * j] *= alpha_a;
       o[4 * j + 1] *= alpha_a;
       o[4 * j + 2] *= alpha_b;
@@ -328,17 +361,17 @@ attention_long_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     pack_frags(pf, sc);
   }
   wgmma_fence();
-  issue_pv(o, pf, ktile(tiles - 1) + kTileBytes);
+  issue_pv<D>(o, pf, ktile(tiles - 1) + kTile);
   wgmma_wait<0>();
   fence_regs(o);
 
   const float ia = 1.f / quad_sum(la), ib = 1.f / quad_sum(lb);
-  const int c = layout_row_stride(heads, kWgD);
-  const int64_t base = layout_base(b, h, n, heads, kWgD, c);
+  const int c = layout_row_stride(heads, D);
+  const int64_t base = layout_base(b, h, n, heads, D, c);
   __nv_bfloat16* oa = out + base + static_cast<int64_t>(ra) * c + 2 * t;
   __nv_bfloat16* ob = out + base + static_cast<int64_t>(rb) * c + 2 * t;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < D / 8; ++j) {
     if (ra < n) *reinterpret_cast<uint32_t*>(oa + 8 * j) = pack_bf16(o[4 * j] * ia, o[4 * j + 1] * ia);
     if (rb < n) {
       *reinterpret_cast<uint32_t*>(ob + 8 * j) = pack_bf16(o[4 * j + 2] * ib, o[4 * j + 3] * ib);
@@ -346,22 +379,25 @@ attention_long_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, const float* bias, void* out,
                  int b, int n, int heads, float scale, cudaStream_t stream) {
-  if ((n + kBlockRows - 1) / kBlockRows > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  using C = FwdCfg<D>;
+  const int zs = (n + C::kBlockRows - 1) / C::kBlockRows;
+  if (zs > 65535) return static_cast<int>(cudaErrorInvalidValue);
   EncodeTiled encode;
   cudaError_t e = encode_tiled(&encode);
   CUtensorMap tq, tk, tv;
-  if (e == cudaSuccess) e = tensor_map(encode, &tq, q, b, n, heads, kHeadMajor);
-  if (e == cudaSuccess) e = tensor_map(encode, &tk, k, b, n, heads, kHeadMajor);
-  if (e == cudaSuccess) e = tensor_map(encode, &tv, v, b, n, heads, kHeadMajor);
+  if (e == cudaSuccess) e = tensor_map<D>(encode, &tq, q, b, n, heads, kHeadMajor);
+  if (e == cudaSuccess) e = tensor_map<D>(encode, &tk, k, b, n, heads, kHeadMajor);
+  if (e == cudaSuccess) e = tensor_map<D>(encode, &tv, v, b, n, heads, kHeadMajor);
   if (e == cudaSuccess) {
-    e = cudaFuncSetAttribute(attention_long_fwd_wgmma_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmemBytes);
+    e = cudaFuncSetAttribute(attention_long_fwd_wgmma_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemBytes);
   }
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(b, heads, (n + kBlockRows - 1) / kBlockRows);
-  attention_long_fwd_wgmma_kernel<<<grid, kWgThreads, kWgSmemBytes, stream>>>(
+  const dim3 grid(b, heads, zs);
+  attention_long_fwd_wgmma_kernel<D><<<grid, C::kThreads, C::kSmemBytes, stream>>>(
       tq, tk, tv, bias, static_cast<__nv_bfloat16*>(out), n, heads, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -549,14 +585,14 @@ int launch_scalar_d(const void* q, const void* k, const void* v, const float* bi
 }
 
 
-// The wgmma kernel's rule: bf16 at head dim 64 with all four operands 16-byte
-// aligned (TMA's rule for a global address; every row stride is a multiple of
-// 128 bytes then).
+// The wgmma kernel's rule: bf16 at head dim 64 or 32 with all four operands
+// 16-byte aligned (TMA's rule for a global address; every row stride is a
+// multiple of 64 bytes then).
 bool use_mma(const void* q, const void* k, const void* v, const void* out,
              int d, int is_bf16) {
   const uintptr_t ptrs = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out);
-  return is_bf16 && d == kWgD && ptrs % 16 == 0;
+  return is_bf16 && wgmma_head_dim(d) && ptrs % 16 == 0;
 }
 
 // q, k, v, out in the translation unit's layout, one dtype (bf16 or f32);
@@ -567,7 +603,8 @@ int dispatch_long_fwd(const void* q, const void* k, const void* v, const float* 
   if (b <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
   if (heads > 65535 || d < 1 || d > kMaxScalarD) return static_cast<int>(cudaErrorInvalidValue);
   if (use_mma(q, k, v, out, d, is_bf16)) {
-    return launch_wgmma(q, k, v, bias, out, b, n, heads, scale, stream);
+    return d == 64 ? launch_wgmma<64>(q, k, v, bias, out, b, n, heads, scale, stream)
+                   : launch_wgmma<32>(q, k, v, bias, out, b, n, heads, scale, stream);
   }
   if ((n + kRowsPerBlock - 1) / kRowsPerBlock > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);

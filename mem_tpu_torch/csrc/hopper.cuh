@@ -1,13 +1,16 @@
 // Hopper building blocks of the long attention kernels: the forward
 // (attention_long_fwd.cuh, K3f / K5b) and the backward
 // (attention_long_bwd.cuh, K3b / K5d / K5e) include this file. mbarriers,
-// TMA loads into shared memory, wgmma on 64 x 64 bf16 tiles of 128-byte rows
-// written by TMA with 128 B swizzle, the accumulator layout's helpers, and the
-// host side's tensor-map encoding.
+// TMA loads into shared memory, wgmma on tiles of 64 rows of one head's D
+// bf16 columns, written by TMA with the swizzle of their row width, the
+// accumulator layout's helpers, and the host side's tensor-map encoding.
 //
-// Every tile here is 64 rows of one head's 64 bf16 columns (8 KB): a box of
-// a 3-D tensor map over (columns, rows, planes), planes being samples (flat
-// (B, N, H*D) layouts) or (sample, head) pairs (head-major (B, H, N, D)).
+// The head dim D is a template argument of everything that depends on it.
+// D = 64 (the ViT-B trunk, the seg backbone): 128-byte rows, 128 B swizzle,
+// 8 KB tiles. D = 32 (the MAE decoder's 16 heads of 512): 64-byte rows, 64 B
+// swizzle, 4 KB tiles. A tile is a box of a 3-D tensor map over (columns,
+// rows, planes), planes being samples (flat (B, N, H*D) layouts) or (sample,
+// head) pairs (head-major (B, H, N, D)).
 
 #pragma once
 
@@ -18,9 +21,17 @@
 
 namespace {
 
-constexpr int kWgD = 64;                          // head dim of the wgmma paths
 constexpr int kWgTile = 64;                       // rows of a tile: wgmma's m
-constexpr int kTileBytes = kWgTile * kWgD * 2;    // a Q, K, V or dO tile: 64 rows of 128 B
+// the head dims the wgmma paths take
+constexpr bool wgmma_head_dim(int d) { return d == 64 || d == 32; }
+// a Q, K, V or dO tile: 64 rows of 2D bytes
+template <int D>
+constexpr int kTileBytes = kWgTile * D * 2;
+// K / V ring stages of the forward and backward blocks: 3 at D = 64, 2 at
+// D = 32 (measured at the MAE decoder's shape: the note on D = 32 in
+// attention_long_fwd.cuh)
+template <int D>
+constexpr int kRingStages = D == 64 ? 3 : 2;
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -121,15 +132,32 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
          (uint64_t{1024 >> 4} << 32) | (uint64_t{1} << 62);
 }
 
+// The descriptor of a tile of 2D-byte rows: D = 64 sw128_desc; D = 32 a tile
+// written by TMA with 64 B swizzle, 8-row groups 512 B apart (SBO), layout 2
+// (64 B swizzle). Again no operand form here reads the leading byte offset: a
+// K-major k16 slice (32 B) and the MN-major n32 slice (64 B) each lie inside
+// one 64-byte swizzle row.
+template <int D>
+__device__ __forceinline__ uint64_t sw_desc(uint32_t addr) {
+  static_assert(D == 64 || D == 32, "the wgmma head dims");
+  if constexpr (D == 64) {
+    return sw128_desc(addr);
+  } else {
+    return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (uint64_t{1} << 16) |
+           (uint64_t{512 >> 4} << 32) | (uint64_t{2} << 62);
+  }
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 }
 
 // keeps the compiler from moving accumulator reads or writes across the
 // asynchronous product
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
 // keeps A fragments in their registers until the product that reads them
@@ -156,6 +184,11 @@ __device__ __forceinline__ void fence_frags(uint32_t (&a)[4][4]) {
       "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]),        \
       "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]),        \
       "=f"(d[31])
+#define MEM_WG_D16(d)                                                                        \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),     \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),           \
+      "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+#define MEM_WG_R16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define MEM_WG_R32                                                                           \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
   "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
@@ -201,6 +234,18 @@ __device__ __forceinline__ void wgmma_rs_mn(float (&d)[32], const uint32_t (&a)[
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
 }
 
+// wgmma_rs_mn in the m64n32k16 form: d holds the 32 columns of an n32
+// accumulator, 16 registers in the m64n64 layout's first four 8-column groups
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
+                                            int acc = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " MEM_WG_R16
+      ", {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : MEM_WG_D16(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
 // d (+)= a b over one k16 step in the m64n128k16 form: both operands in
 // shared memory, K-major (kTrans 0) or MN-major (kTrans 1), the accumulator
 // as two halves: lo holds columns 0-63 and hi columns 64-127, each in the
@@ -229,6 +274,8 @@ __device__ __forceinline__ void wgmma_ss_n128_fresh(float (&lo)[32], float (&hi)
       : "l"(a), "l"(b), "r"(0));
 }
 
+#undef MEM_WG_D16
+#undef MEM_WG_R16
 #undef MEM_WG_D32
 #undef MEM_WG_W32
 #undef MEM_WG_R32
@@ -254,35 +301,39 @@ __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
 }
 
-// d = a b^T over the depth of 64 of two K-major tiles (a: 64 rows of the
-// product, b: its 64 columns): four k16 steps along the 128-byte rows, 32
+// d = a b^T over the depth D of two K-major tiles (a: 64 rows of the
+// product, b: its 64 columns): D / 16 k16 steps along the 2D-byte rows, 32
 // bytes apart in the swizzle. Not committed.
+template <int D>
 __device__ __forceinline__ void wgmma_abt(float (&d)[32], uint32_t a, uint32_t b) {
 #pragma unroll
-  for (int kk = 0; kk < kWgD / 16; ++kk) {
-    wgmma_ss(d, sw128_desc(a + 32 * kk), sw128_desc(b + 32 * kk), kk);
+  for (int kk = 0; kk < D / 16; ++kk) {
+    wgmma_ss(d, sw_desc<D>(a + 32 * kk), sw_desc<D>(b + 32 * kk), kk);
   }
 }
 
 // wgmma_abt with d only written (wgmma_ss_fresh): for a product issued while
 // an earlier one is still in flight
+template <int D>
 __device__ __forceinline__ void wgmma_abt_fresh(float (&d)[32], uint32_t a, uint32_t b) {
-  wgmma_ss_fresh(d, sw128_desc(a), sw128_desc(b));
+  wgmma_ss_fresh(d, sw_desc<D>(a), sw_desc<D>(b));
 #pragma unroll
-  for (int kk = 1; kk < kWgD / 16; ++kk) {
-    wgmma_ss(d, sw128_desc(a + 32 * kk), sw128_desc(b + 32 * kk), 1);
+  for (int kk = 1; kk < D / 16; ++kk) {
+    wgmma_ss(d, sw_desc<D>(a + 32 * kk), sw_desc<D>(b + 32 * kk), 1);
   }
 }
 
 // d (+)= a b over a depth of 64 rows of b: a as the registers' A fragments of
-// four k16 steps, b a tile read MN-major (its 64 columns contiguous; the
-// descriptor's transpose bit reads it as it lies), k16 steps 16 rows of 128 B
-// apart; ``acc`` 0 overwrites d. Not committed.
-__device__ __forceinline__ void wgmma_ab_mn(float (&d)[32], const uint32_t (&a)[4][4],
+// four k16 steps, b a tile read MN-major (its D columns contiguous; the
+// descriptor's transpose bit reads it as it lies), k16 steps 16 rows of 2D
+// bytes apart; the n64 form at D = 64, n32 at D = 32 (d: D / 2 registers);
+// ``acc`` 0 overwrites d. Not committed.
+template <int D>
+__device__ __forceinline__ void wgmma_ab_mn(float (&d)[D / 2], const uint32_t (&a)[4][4],
                                             uint32_t b, int acc = 1) {
-  wgmma_rs_mn(d, a[0], sw128_desc(b), acc);
+  wgmma_rs_mn(d, a[0], sw_desc<D>(b), acc);
 #pragma unroll
-  for (int kk = 1; kk < kWgTile / 16; ++kk) wgmma_rs_mn(d, a[kk], sw128_desc(b + 2048 * kk));
+  for (int kk = 1; kk < kWgTile / 16; ++kk) wgmma_rs_mn(d, a[kk], sw_desc<D>(b + 32 * D * kk));
 }
 
 // setmaxnreg: a warpgroup gives registers back to the block's pool (a
@@ -300,7 +351,8 @@ __device__ __forceinline__ void regs_inc() {
 // The accumulator of m64n64 gives warp w of a warpgroup rows 16w + g and
 // 16w + g + 8 (g = lane / 4) and, for j = 0..7, columns 8j + 2t, 8j + 2t + 1
 // (t = lane % 4): d[4j], d[4j + 1] on the first row, d[4j + 2], d[4j + 3] on
-// the second. Two adjacent 8-column groups are the A fragment of one k16 step.
+// the second; m64n32 the same for j = 0..3. Two adjacent 8-column groups are
+// the A fragment of one k16 step.
 //
 // The accumulator rounded to bf16 as the A fragments of four k16 steps
 __device__ __forceinline__ void pack_frags(uint32_t (&f)[4][4], const float (&d)[32]) {
@@ -354,20 +406,21 @@ cudaError_t encode_tiled(EncodeTiled* fn) {
   return cudaSuccess;
 }
 
-// A 3-D map of one bf16 operand, boxes of 64 rows of one head's 64 columns,
-// 128 B swizzle, zeros past n: flat (heads * 64, n, b), head-major
-// (64, n, b * heads).
+// A 3-D map of one bf16 operand, boxes of 64 rows of one head's D columns,
+// the swizzle of their row width (128 B at D = 64, 64 B at D = 32), zeros
+// past n: flat (heads * D, n, b), head-major (D, n, b * heads).
+template <int D>
 cudaError_t tensor_map(EncodeTiled encode, CUtensorMap* map, const void* p, int b, int n,
                        int heads, bool head_major) {
-  const cuuint64_t row = head_major ? kWgD : static_cast<cuuint64_t>(heads) * kWgD;
+  const cuuint64_t row = head_major ? D : static_cast<cuuint64_t>(heads) * D;
   const cuuint64_t dims[3] = {row, static_cast<cuuint64_t>(n),
                               static_cast<cuuint64_t>(b) * (head_major ? heads : 1)};
   const cuuint64_t strides[2] = {row * 2, row * 2 * n};   // bytes, dims 1 and 2
-  const cuuint32_t box[3] = {kWgD, kWgTile, 1}, step[3] = {1, 1, 1};
+  const cuuint32_t box[3] = {D, kWgTile, 1}, step[3] = {1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(p), dims,
                             strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+                            D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 

@@ -105,8 +105,8 @@ def sources() -> list[Path]:
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _digest(defines: tuple = ()) -> str:
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *defines)).encode())
     for p in sorted(CSRC_DIR.glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -125,10 +125,12 @@ def _check_device() -> None:
             f"({torch.cuda.get_device_name()}) has capability {cap}")
 
 
-def build() -> Path:
+def build(defines: tuple = ()) -> Path:
     """Compile csrc/*.cu (in parallel) and link them, unless the cached
-    library for these sources exists; returns its path."""
-    tag = _digest()
+    library for these sources exists; returns its path. ``defines`` are
+    extra nvcc flags (``-D`` macros) of a library of their own, which
+    :func:`library` does not load."""
+    tag = _digest(defines)
     lib_path = BUILD_DIR / f"libmem_kernels_{tag}.so"
     if lib_path.exists():
         return lib_path
@@ -139,7 +141,7 @@ def build() -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     srcs = sources()
     objs = [BUILD_DIR / f"{p.stem}_{tag}.{os.getpid()}.o" for p in srcs]
-    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)] for p, o in zip(srcs, objs)]
+    cmds = [[nvcc, *NVCC_FLAGS, *defines, "-c", "-o", str(o), str(p)] for p, o in zip(srcs, objs)]
     with ThreadPoolExecutor(len(cmds)) as pool:   # the threads only wait on nvcc
         procs = list(pool.map(lambda c: subprocess.run(c, capture_output=True, text=True), cmds))
     tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
@@ -166,6 +168,16 @@ def build_log() -> str:
     return p.read_text() if p.exists() else ""
 
 
+def bind(path: Path) -> ctypes.CDLL:
+    """The library at ``path`` with every entry point of SIGNATURES typed."""
+    lib = ctypes.CDLL(str(path))
+    for name, (argtypes, restype) in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return lib
+
+
 def library(device=None) -> ctypes.CDLL:
     """The bound kernel library; checks the device and builds on first call.
 
@@ -179,12 +191,7 @@ def library(device=None) -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             _check_device()
-            lib = ctypes.CDLL(str(build()))
-            for name, (argtypes, restype) in SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = restype
-            _lib = lib
+            _lib = bind(build())
     if device is not None:
         index = device if isinstance(device, int) else device.index
         if index is None:

@@ -8,24 +8,24 @@ head, ``softmax(q k^T * scale + bias_h) v`` with q/k/v flat (B, N, H*D) and
 a (H, N, N) f32 bias shared by the batch (the BEiT relative-position bias),
 whose gradient is summed over the batch. The head count comes from the
 bias. ``fused_attention_flat`` is a ``torch.autograd.Function``. On the card,
-for bf16 at head dim 64 and N <= 256 (the serving and training shapes), the
-forward launches K3f's Hopper kernel and the backward K3b's (below; at these
-N their rings hold a (b, h)'s whole K and V, or Q and dO, within the first
-pass); the other shapes, f32 included, take the scalar kernels of
-csrc/attention_fwd.cu and attention_bwd.cu. On the CPU both directions take
-the plain versions.
+for bf16 at head dim 64 or 32 and N <= 256 (the serving and training shapes,
+the MAE decoder's 16 heads of 32), the forward launches K3f's Hopper kernel
+and the backward K3b's (below; at these N their rings hold a (b, h)'s whole K
+and V, or Q and dO, within the first pass); the other shapes, f32 included,
+take the scalar kernels of csrc/attention_fwd.cu and attention_bwd.cu. On the
+CPU both directions take the plain versions.
 
 ``fused_attention_flat_long`` is the same function for sequences too long
 for K2f, whose blocks hold a head's whole K and V in shared memory: the
 segmentation backbone's N = 1025. Its forward on the card is
 csrc/attention_long_fwd.cu (K3f), which tiles the keys and, for bf16 at
-head dim 64, goes over them once with an online softmax on ``wgmma`` (K and V
+head dim 64 or 32, goes over them once with an online softmax on ``wgmma`` (K and V
 through a TMA ring; the unnormalised p rounded to bf16 where the plain version
 rounds the normalised one), and otherwise twice (row max and sum, then p v)
 in the plain version's order of roundings; its backward is
 csrc/attention_long_bwd.cu (K3b), which goes over the scores from the query
-side (dq, ds) and from the key side (dk, dv), for bf16 at head dim 64 on
-``wgmma`` with tiles through TMA rings, and sums the bias gradient in batch
+side (dq, ds) and from the key side (dk, dv), for bf16 at head dim 64 or 32
+on ``wgmma`` with tiles through TMA rings, and sums the bias gradient in batch
 order. :func:`attention_route` is the rule that picks between the two.
 
 ``fused_attention`` is the reference's ``fused_attention`` on (B, H, N, D),
@@ -33,7 +33,7 @@ the layout its head-major branch produces (``FLAT_ATTN = False``, or
 ``FLAT_ATTN_LONG = False`` at long N), with the reference's routing rule
 (:func:`fused_attention_route`): for the shapes its head-blocked kernels take
 (``_hb_eligible``) K5a forward and K5c backward (K2f's and K2b's kernels
-with head-major addressing: for bf16 at head dim 64 K3's Hopper bodies in
+with head-major addressing: for bf16 at head dim 64 or 32 K3's Hopper bodies in
 csrc/attention_long_fwd_bhnd.cu and attention_long_bwd_bhnd.cu, else the
 scalar csrc/attention_fwd_bhnd.cu and attention_bwd_bhnd.cu);
 for the others K5b forward and K5d (N <= ``_WHOLE_BWD_MAX_N``) or K5e
@@ -56,7 +56,7 @@ from mem_tpu_torch.kernels import count_launch
 
 MAX_SMEM_BYTES = 232_448   # the most dynamic shared memory one H100 block may use
 # The longest N the flat route sends to K2f / K2b (and the head-blocked one,
-# for bf16 at head dim 64, to K3's Hopper bodies under K5a's / K5c's names):
+# for bf16 at head dim 64 or 32, to K3's Hopper bodies under K5a's / K5c's names):
 # K2's scalar kernels keep a head's whole K and V in one block's shared
 # memory; above it the key-tiled K3f and K3b take over.
 FLAT_MAX_N = 256
@@ -198,8 +198,8 @@ def _scalar_fwd(name, entry, q, k, v, bias, scale, B, N, H, D):
 def _k2_wgmma(q, k, v, do, N, D) -> bool:
     """Whether a K2 (or K5a / K5c) launch on these operands takes K3's Hopper
     body: N <= FLAT_MAX_N and K3f's (``do`` None) or K3b's wgmma rule (bf16,
-    head dim 64, 16-byte aligned). Outputs are allocated like the operands,
-    so their alignment is the operands'."""
+    head dim 64 or 32, 16-byte aligned). Outputs are allocated like the
+    operands, so their alignment is the operands'."""
     from mem_tpu_torch.kernels import build
 
     if N > FLAT_MAX_N:
@@ -633,12 +633,12 @@ def attention_route(N: int) -> str:
     12 heads). The card's limit is a different one: K2's scalar kernels
     stage a head's whole K and V in one block's shared memory, and the
     route sends them at most FLAT_MAX_N keys, which covers the 197 tokens of
-    classification and pretraining (for bf16 at head dim 64 K2 launches K3's
-    Hopper bodies there); the 1025 tokens of the segmentation backbone go to
+    classification and pretraining (for bf16 at head dim 64 or 32 K2 launches
+    K3's Hopper bodies there); the 1025 tokens of the segmentation backbone go to
     K3f and K3b. The head count, which sizes the reference's bias, plays
     no part here. Under ``FLAT_ATTN = False`` the head-major wrappers run
     tensor cores at those N as well: above FLAT_MAX_N keys K5a and K5c launch
-    K3's key-tiled bodies for bf16 at head dim 64 (:func:`_bhnd_path`)."""
+    K3's key-tiled bodies for bf16 at head dim 64 or 32 (:func:`_bhnd_path`)."""
     return "flat" if N <= FLAT_MAX_N else "long"
 
 

@@ -7,8 +7,9 @@ two trees on one card.
 
 csrc/attention_long_fwd.cuh and attention_long_bwd.cuh hold K3's Hopper
 bodies, which K3f, K3b and K5b, K5d, K5e take, and K2f, K2b and K5a, K5c
-for bf16 at head dim 64 and N <= 256 too (so on such a tree the "K2f" and
-"K3f-body" legs below launch the same kernels); X3 (attention_bwd_pair.cu)
+for bf16 at head dim 64 (and, since the D = 32 instantiation, 32) and N <=
+256 too (so on such a tree the "K2f" and "K3f-body" legs below launch the
+same kernels); X3 (attention_bwd_pair.cu)
 takes the backward's with its rows kernel's kPair instantiation;
 attention_fwd.cuh and attention_bwd.cuh hold K2's scalar kernels. After a
 change to them, check that the other kernels did not move: unpack the
@@ -16,14 +17,19 @@ parent's package into a git-ignored directory and run both trees in turns
 inside one call on the card, since two calls may land on two cards:
 
     git archive <parent> mem_tpu_torch | tar -x -C _chipcheck/parent
-    for t in parent change change parent; do
-      if [ $t = parent ]; then d=_chipcheck/parent; else d=.; fi
+    for t in parent change change2 parent2; do
+      case $t in parent*) d=_chipcheck/parent;; *) d=.;; esac
       (cd $d && PYTHONPATH=. python3 <repo>/mem_tpu_torch/tools/ab_flat_attention.py $t)
-    done
+    done | tee ab.log
+    PYTHONPATH=. python3 mem_tpu_torch/tools/ab_flat_attention.py compare ab.log
 
 Each leg builds the tree's kernels, prints the registers, shared memory and
 spills ptxas reports for every attention kernel, flat and head-major, then
 three medians of 40 CUDA-event timings each of:
+- K2f and K2b at the MAE decoder's (128, 197, 16 x 32) bf16 (device ms
+  of each kernel of the call: K2b's rows, columns and bias sum, or the
+  scalar bodies on a parent without the D = 32 instantiation) beside one
+  SDPA call and its backward;
 - K2f and K2b at (B, 197, 768) bf16 for B = 8 and 64, and at the same
   shapes K3f's and K3b's bodies through their flat entry points
   (``_forward_long``, ``fused_attention_flat_long_bwd``) and one
@@ -45,7 +51,14 @@ processes on the same code differ by a few per cent: compare the ptxas
 lines first, and read a time difference against the spread between the two
 legs of one tree. The timer comes from the tree under test
 (``mem_tpu_torch.tools.time_ms``), so both trees must have it.
+
+Each leg also prints a line "D64 <tag> {...}": the SHA-256 of K2f's output
+and of K2b's four gradients at (64, 197, 12 x 64) bf16 on seeded operands;
+``ab_flat_attention.py compare <log>`` reads those lines from the legs' saved
+output and says whether every leg's D = 64 outputs are the same bits.
 """
+import hashlib
+import json
 import re
 import sys
 
@@ -57,15 +70,16 @@ from mem_tpu_torch.ops import attention as A
 from mem_tpu_torch.tools import time_ms
 
 RUNS, WARMUP = 40, 8
+DECODER = (128, 197, 16, 32)   # the MAE decoder's (B, N, H, D)
 
 
 def medians(fn):
     return [time_ms(fn, RUNS, WARMUP) for _ in range(3)]
 
 
-def device_ms(fn, n=20):
-    """Device time per call of ``fn``'s attention kernels: for each kernel
-    whose name holds "attention", the profiler's mean per launch, summed."""
+def device_split(fn, n=20, every=False):
+    """{kernel: device ms per call} of ``fn``'s attention kernels (``every``:
+    of each kernel), the profiler's mean per launch of each."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -75,17 +89,76 @@ def device_ms(fn, n=20):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total / e.count for e in prof.key_averages()
-               if "attention" in e.key and e.count) / 1e3
+    return {e.key: e.self_device_time_total / e.count / 1e3 for e in prof.key_averages()
+            if (every or "attention" in e.key) and e.count}
 
 
-def sdpa(q, k, v, bias):
+def device_ms(fn, every=False):
+    """Device time per call of ``fn``'s attention kernels (``every``: of each
+    kernel): device_split's times, summed."""
+    return sum(device_split(fn, every=every).values())
+
+
+def decoder_legs(tag):
+    """K2f and K2b at the MAE decoder's shape (events and device ms, the
+    device split of each call) beside SDPA's forward and backward."""
+    B, N, H, D = DECODER
+    q, k, v, do = (torch.randn(B, N, H * D, device="cuda", dtype=torch.bfloat16)
+                   for _ in range(4))
+    bias = torch.zeros(H, N, N, device="cuda")
+    s = D ** -0.5
+    heads = lambda t: t.view(B, N, H, D).transpose(1, 2)  # noqa: E731
+    s_fwd, s_bwd = sdpa(heads(q), heads(k), heads(v), bias, s)
+    legs = (("K2f", lambda: A._forward(q, k, v, bias, s)),
+            ("K2b", lambda: A.fused_attention_flat_bwd(q, k, v, bias, do, s)),
+            ("SDPA", s_fwd), ("SDPA-bwd", s_bwd))
+    print(tag, "decoder", list(DECODER), "device ms",
+          {name: round(device_ms(fn, every=name.startswith("SDPA")), 4)
+           for name, fn in legs}, flush=True)
+    short = lambda key: re.search(r"attention\w*(<[^>]*>)?", key).group(0)  # noqa: E731
+    print(tag, "decoder", list(DECODER), *(x for name, fn in legs[:2]
+                                           for x in (name + " ms", medians(fn))),
+          "split", {name: {short(key): round(ms, 4) for key, ms in device_split(fn).items()}
+                    for name, fn in legs[:2]}, flush=True)
+
+
+D64_OUTPUTS = ("o", "dq", "dk", "dv", "db")
+
+
+def print_d64(tag):
+    """The SHA-256 of K2f's output and K2b's gradients at (64, 197, 12 x 64)
+    bf16 from seeded operands, printed for ``compare``."""
+    g = torch.Generator().manual_seed(64)
+    q, k, v, do = (torch.randn(64, 197, 768, generator=g).to(torch.bfloat16).cuda()
+                   for _ in range(4))
+    bias = torch.randn(12, 197, 197, generator=g).cuda()
+    out = [A._forward(q, k, v, bias, 0.125), *A.fused_attention_flat_bwd(q, k, v, bias, do, 0.125)]
+    digests = {name: hashlib.sha256(t.contiguous().cpu().view(torch.uint8).numpy()).hexdigest()
+               for name, t in zip(D64_OUTPUTS, out)}
+    print("D64", tag, json.dumps(digests), flush=True)
+
+
+def compare(log):
+    """Whether every leg's "D64" line in the saved output ``log`` holds the
+    same digests: the D = 64 outputs bit for bit across the trees."""
+    legs = {}
+    for line in open(log):
+        if line.startswith("D64 "):
+            _, tag, digests = line.split(" ", 2)
+            legs[tag] = json.loads(digests)
+    first = next(iter(legs.values()), None)
+    same = {name: len({d[name] for d in legs.values()}) == 1 for name in D64_OUTPUTS}
+    print("compare", sorted(legs), "D=64 bit-equal:", same, flush=True)
+    return first is not None and len(legs) > 1 and all(same.values())
+
+
+def sdpa(q, k, v, bias, scale=0.125):
     """(forward, backward) callables of one scaled_dot_product_attention call
     on (B, H, N, D) views of the operands with the bias as its mask."""
     mask = bias.to(q.dtype)[None].contiguous().requires_grad_()
     qh, kh, vh = (t.detach().clone().requires_grad_() for t in (q, k, v))
     fwd = lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,  # noqa: E731
-                                                 scale=0.125)
+                                                 scale=scale)
     out = fwd()
     do = torch.randn_like(out)
     bwd = lambda: torch.autograd.grad(out, (qh, kh, vh, mask), do,  # noqa: E731
@@ -105,6 +178,8 @@ def main(tag: str) -> None:
         if "registers" in line and kernel and "attention" in kernel:
             print(tag, "bhnd" if "bhnd" in kernel else "flat", kernel[-60:], "|",
                   line.strip().replace("ptxas info    : ", "")[:64], "|", (spill or "")[-58:])
+    print_d64(tag)
+    decoder_legs(tag)
     bf = torch.bfloat16
     for B in (8, 64):
         q, k, v, do = (torch.randn(B, 197, 768, device="cuda", dtype=bf) for _ in range(4))
@@ -166,4 +241,8 @@ def main(tag: str) -> None:
 
 
 if __name__ == "__main__":
-    main(sys.argv[1] if len(sys.argv) > 1 else "tree")
+    argv = sys.argv[1:]
+    if argv[:1] == ["compare"]:
+        sys.exit(0 if compare(argv[1]) else 1)
+    else:
+        main(argv[0] if argv else "tree")

@@ -17,9 +17,13 @@ from mem_tpu_torch.ops import attention as A
 F32_TOL = 1e-5
 
 
-def _operands(rng, B, N, H, D):
+def _operands(rng, B, N, H, D, ramp=False):
+    """q, k, v (B, N, H*D) and bias (H, N, N), f32 numpy; ``ramp`` adds 0.1
+    per key to the bias, so that a row's running max grows at every tile."""
     q, k, v = (rng.standard_normal((B, N, H * D)).astype(np.float32) for _ in range(3))
     bias = (0.1 * rng.standard_normal((H, N, N))).astype(np.float32)
+    if ramp:
+        bias = bias + np.float32(0.1) * np.arange(N, dtype=np.float32)
     return q, k, v, bias
 
 
@@ -93,17 +97,24 @@ def test_flat_long_one_pass_order_matches_pallas_interpret(rng, B, N, H, D, dtyp
     reference rounds the normalised p: its order, emulated, held against the
     Pallas kernel in interpret mode on the same operands, within the card's
     gates (chip_smoke.K2_BF16_TOL, 2e-2 absolute, in bf16; 1e-5 in f32)."""
-    q, k, v, bias = _operands(rng, B, N, H, D)
-    if ramp:
-        bias = bias + np.float32(0.1) * np.arange(N, dtype=np.float32)
-    scale = D ** -0.5
+    check_one_pass_order(jax_flat_long, *_operands(rng, B, N, H, D, ramp), dtype, ramp)
+
+
+def check_one_pass_order(jax_attn, q, k, v, bias, dtype, ramp):
+    """``_one_pass`` on the operands in ``dtype`` against the Pallas kernel
+    ``jax_attn`` (fused_attention_flat_long, or K2's fused_attention_flat) in
+    interpret mode on the same operands, within K2_BF16_TOL in bf16 and
+    F32_TOL in f32; with ``ramp`` every row's max must have grown at every
+    tile."""
+    B, N, C = q.shape
+    scale = (C // bias.shape[0]) ** -0.5
     jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
-    want = np.asarray(jax.jit(lambda *a: jax_flat_long(*a, scale, True))(
+    want = np.asarray(jax.jit(lambda *a: jax_attn(*a, scale, True))(
         *(jnp.asarray(t).astype(jdt) for t in (q, k, v)), jnp.asarray(bias)).astype(jnp.float32))
     tdt = getattr(torch, dtype)
     got, grew = _one_pass(*(torch.from_numpy(t).to(tdt) for t in (q, k, v)),
                           torch.from_numpy(bias), scale)
-    assert got.dtype == tdt and tuple(got.shape) == (B, N, H * D)
+    assert got.dtype == tdt and tuple(got.shape) == (B, N, C)
     assert grew or not ramp
     tol = K2_BF16_TOL if dtype == "bfloat16" else F32_TOL
     np.testing.assert_allclose(got.float().numpy(), want, atol=tol, rtol=0)
@@ -241,13 +252,21 @@ def test_flat_long_bwd_two_sided_order_matches_pallas_interpret(rng, B, N, dtype
     L2), db also against the plain backward's, the comparison the card
     makes."""
     H, D = 2, 64
-    q, k, v, bias = _operands(rng, B, N, H, D)
-    if ramp:   # 0.1 per key: pass A's running max grows at every tile
-        bias = bias + np.float32(0.1) * np.arange(N, dtype=np.float32)
+    operands = _operands(rng, B, N, H, D, ramp)
     do = rng.standard_normal((B, N, H * D)).astype(np.float32)
-    scale = D ** -0.5
+    check_two_sided_order(jax_flat_long, A.fused_attention_flat_long_bwd_reference, *operands, do,
+                          dtype, ramp)
+
+
+def check_two_sided_order(jax_attn, plain_bwd, q, k, v, bias, do, dtype, ramp):
+    """``_two_sided`` on the operands in ``dtype`` against ``jax.vjp`` of the
+    Pallas kernel ``jax_attn`` in interpret mode on the same operands, each
+    gradient within K2B_BF16_TOL / K2B_F32_TOL of its max abs, db within
+    K2B_DB_REL relative L2 of the vjp's and of the plain backward
+    ``plain_bwd``'s; with ``ramp`` the rescale must have run."""
+    scale = (q.shape[2] // bias.shape[0]) ** -0.5
     jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
-    _, vjp = jax.vjp(lambda q, k, v, b: jax_flat_long(q, k, v, b, scale, True),
+    _, vjp = jax.vjp(lambda q, k, v, b: jax_attn(q, k, v, b, scale, True),
                      *(jnp.asarray(t).astype(jdt) for t in (q, k, v)), jnp.asarray(bias))
     want = [np.asarray(g.astype(jnp.float32)) for g in vjp(jnp.asarray(do).astype(jdt))]
     tdt = getattr(torch, dtype)
@@ -260,7 +279,7 @@ def test_flat_long_bwd_two_sided_order_matches_pallas_interpret(rng, B, N, dtype
         assert g.dtype == tdt and tuple(g.shape) == w.shape, name
         assert np.abs(g.float().numpy() - w).max() <= tol * np.abs(w).max(), name
     db = got[3].numpy()
-    plain_db = A.fused_attention_flat_long_bwd_reference(tq, tk, tv, tb, tdo, scale)[3].numpy()
+    plain_db = plain_bwd(tq, tk, tv, tb, tdo, scale)[3].numpy()
     for ref in (want[3], plain_db):
         assert np.linalg.norm(db - ref) <= K2B_DB_REL * np.linalg.norm(ref)
 
