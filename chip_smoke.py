@@ -96,6 +96,22 @@ against its plain version, with a planted fault that must fail them, bit for
 bit against K2b's Hopper path (the body it varies) and across two launches,
 and from a fresh thread.
 
+The dataset tools and the optimizer switch (run_tools_slice, on a generator
+of its own): seeded ATIS .bin recordings in N-Caltech101's layout with a
+split file and N-Cars .dat files go through the port's process_dataset at
+--cores 2 (every .npy bit-equal to the numpy decoder of its raw file; the
+native and the numpy decoders' host rates on the same buffers), then
+run_class_finetuning --opt lookahead_adamp trains on the processed tree
+(6 steps, exact K1 / K2f / K2b launches, Lookahead's state in the
+checkpoint); every --opt name, lookahead_adamp and bf16 moments run 7 steps
+on full-width ft_vit weights on the card and on the CPU from one gradient
+sequence (each tensor's displacement within 1e-5, bf16 moments 1e-3, AdamP
+decisions equal, a planted skipped update that the gate must catch), and
+each optimizer's update is timed at full depth against its bound;
+run_mem_pretraining --bf16_moments 1 --pretrained 1 --init_ckpt <seeded
+timm .pth> takes two steps with exact launches; the B=128 pretraining step
+is timed with f32 and bf16 moments in turns (ms, peak memory, state bytes).
+
 Between them it holds one VAE, one pretraining, one MAE, one segmentation
 and one finetune train step on the card (f32 and bf16) against the same step
 on the CPU (the VAE, pretraining and MAE steps on the CPU's images, tokens
@@ -128,6 +144,7 @@ import threading
 import time
 import traceback
 import urllib.request
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -197,6 +214,9 @@ SEG_TRAIN_IMG_FRAC = 1e-3  # in another order can flip a uint8 level (or a hot p
 SEG_STEP_BN_REL = 1e-3   # updated BatchNorm buffers card vs CPU in f32, relative L2: a batch
                          # mean is a cancelling sum, so 1e-6 of the activations shows larger
 SEG_DAMPED_EPS = 0.1     # the epsilon the PSP BatchNorms get in the step's second comparison
+SEG_STEP_BN_DAMPED_REL = 1e-5  # the same buffers with the PSP BatchNorms damped: 8.1e-7 to
+                               # 1.2e-6 on six seeds on an H100 (tools/seg_bn_seeds.py), where
+                               # the undamped ones read 5.0e-6 to 8.0e-4
 SEG_STEP_F32_GRAD_REL = 5e-3   # ... whose gradients are held to this, not to the pretraining
                                # step's 1e-3: every BatchNorm's fast variance E[x^2] - E[x]^2
                                # cancels in f32, and the stride-4 and stride-8 necks (fpn1_bn,
@@ -804,6 +824,15 @@ def run(torch):
     x2_err = check_x2(torch, dev, g)
     exp_counts = run_experiment_tools(torch)
     x_ms = time_experiments(torch, dev, gpu)
+
+    # -- the dataset tools and the optimizer switch (their own generator: they
+    #    change no other phase's inputs) ------------------------------------
+    tools_tmp = tempfile.TemporaryDirectory()
+    try:
+        run_tools_slice(torch, dev, gpu, tools_tmp.name)
+    finally:
+        signal.signal(signal.SIGTERM, signal.SIG_DFL)   # the CLIs latched SIGTERM
+        tools_tmp.cleanup()
 
     def row(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms):
         return {"name": name, "route": "cuda", "source": f"mem_tpu_torch/csrc/{source}",
@@ -1853,7 +1882,9 @@ def check_seg_train_step(torch, dev, data_root, sd):
     every gradient below the decode head inherits (PERF.md has the readings).
     The gradients are compared on the same step with the four PSP BatchNorms'
     eps at SEG_DAMPED_EPS on both devices, which bounds that gain by 3.2, and
-    held to SEG_STEP_F32_GRAD_REL. That the gate can see a wrong K3b is shown
+    held to SEG_STEP_F32_GRAD_REL, and that step's BatchNorm buffers to
+    SEG_STEP_BN_DAMPED_REL (the undamped buffers' psp_bottleneck mean carries
+    the same gain). That the gate can see a wrong K3b is shown
     in the same run: the damped card step is repeated with a fault planted in
     K3b's operands (the last key masked out; the last query row's do zeroed:
     what a mishandled tail tile at N = 1025 would give) and must fail it.
@@ -1959,6 +1990,11 @@ def check_seg_train_step(torch, dev, data_root, sd):
     bn_rel = {(n, t): rel_l2(torch, b, ref_b[n]) for t in ("", "_long_off")
               for n, b in out["card_f32" + t][2].items()}
     worst_bn = max(bn_rel, key=bn_rel.get)
+    # the same buffers with the PSP BatchNorms damped, where the pool-scale-1
+    # branch's gain on f32 rounding is at most 3.2
+    bn_damped = {(n, t): rel_l2(torch, b, out["cpu_f32_damped"][2][n]) for t in ("", "_long_off")
+                 for n, b in out["card_f32_damped" + t][2].items()}
+    worst_damped = max(bn_damped, key=bn_damped.get)
     say("seg_train_step_check", model="EvBEiT ViT-B/16 + UPerNet + FCN", embed_dim=768,
         depth=12, heads=12, tokens=1025, batch=2,
         metrics={n: v[0] for n, v in out.items()}, seconds={n: v[3] for n, v in out.items()},
@@ -1966,9 +2002,11 @@ def check_seg_train_step(torch, dev, data_root, sd):
         planted_faults={n: dict(rel_l2_max=f["rel_l2_max"], rel_l2_median=f["rel_l2_median"],
                                 worst=f["worst5"][0][0]) for n, f in faults.items()},
         bn_buffers=len(bn_rel), bn_rel_l2_max=bn_rel[worst_bn], bn_worst=worst_bn,
+        bn_damped_rel_l2_max=bn_damped[worst_damped], bn_damped_worst=worst_damped,
         launches=counts,
         bounds=dict(f32_loss=STEP_F32_LOSS_REL, f32_grad_damped=SEG_STEP_F32_GRAD_REL,
-                    bf16_loss=STEP_BF16_LOSS_REL, bn=SEG_STEP_BN_REL))
+                    bf16_loss=STEP_BF16_LOSS_REL, bn=SEG_STEP_BN_REL,
+                    bn_damped=SEG_STEP_BN_DAMPED_REL))
     check(all(np.isfinite(v) for v in ref_m.values()), "CPU seg step metrics not finite")
     for name, c in counts.items():
         want = {} if name.startswith("cpu") else {
@@ -1993,6 +2031,8 @@ def check_seg_train_step(torch, dev, data_root, sd):
         check(f["rel_l2_max"] > SEG_STEP_F32_GRAD_REL,
               f"the gradient gate does not see the backward with {n}: worst {f['worst5'][0]}")
     check(bn_rel[worst_bn] <= SEG_STEP_BN_REL, f"BN buffer {worst_bn} rel L2 {bn_rel[worst_bn]}")
+    check(bn_damped[worst_damped] <= SEG_STEP_BN_DAMPED_REL,
+          f"damped BN buffer {worst_damped} rel L2 {bn_damped[worst_damped]}")
 
 
 def run_train_seg_cli(torch, data_root, pretrained, out_dir):
@@ -2234,16 +2274,17 @@ class _FixedTokens:
         return self.ids.to(images.device)
 
 
-def make_step(torch, R, args, device, dtype, vae, pp, lr_sched):
+def make_step(torch, R, args, device, dtype, vae, pp, lr_sched, moment_dtype=None):
     from mem_tpu_torch.train.optim import create_optimizer
     from mem_tpu_torch.train.steps import make_pretrain_train_step
 
     model = R.build_model(args, dtype, device)
     model.init_weights(torch.Generator().manual_seed(args.seed))
-    opt = create_optimizer(model, args.lr, args.weight_decay)
+    opt = create_optimizer(model, args.lr, args.weight_decay, moment_dtype=moment_dtype)
     wd = np.full(len(lr_sched), args.weight_decay)
-    return model, make_pretrain_train_step(model, vae, opt, pp, lr_sched, wd,
-                                           args.clip_grad, args.seed)
+    step = make_pretrain_train_step(model, vae, opt, pp, lr_sched, wd, args.clip_grad,
+                                    args.seed)
+    return model, step, opt
 
 
 def check_train_step(torch, dev, flags):
@@ -2306,7 +2347,7 @@ def check_train_step(torch, dev, flags):
                                     ("last_key_dropped", dev, torch.float32, fixed, True),
                                     ("last_key_dropped_bf16", dev, torch.bfloat16, fixed,
                                      True)):
-        model, step = make_step(torch, R, args, d, dt, vae, pp, lr)
+        model, step, _ = make_step(torch, R, args, d, dt, vae, pp, lr)
         paths[name] = []
         try:
             A.fused_attention_flat_bwd = path_spy(
@@ -2351,7 +2392,7 @@ def check_train_step(torch, dev, flags):
     for name, d, vae, fed in (("cpu_f32", cpu, vae_cpu, False),
                               ("card_f32", dev, vae_card, False),
                               ("card_f32_cpu_inputs", dev, _FixedTokens(cpu_tokens), True)):
-        model, step = make_step(torch, R, args, d, torch.float32, vae, pp2, lr)
+        model, step, _ = make_step(torch, R, args, d, torch.float32, vae, pp2, lr)
         with fed_images(cpu_images) if fed else contextlib.nullcontext():
             m = step(to_device(host2, d), 0)
         s1[name] = ({k: v.item() for k, v in m.items()},
@@ -2451,7 +2492,7 @@ def time_training(torch, dev, gpu, flags):
     lr = cosine_scheduler(args.lr, args.min_lr, 1, steps, warmup_steps=0)
     for B in (64, 128):
         pp, host = host_train_batch(args, B)
-        model, step = make_step(torch, R, args, dev, torch.bfloat16, vae, pp, lr)
+        model, step, _ = make_step(torch, R, args, dev, torch.bfloat16, vae, pp, lr)
         batch = to_device(host, dev)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -4962,6 +5003,503 @@ def time_experiments(torch, dev, gpu):
     del q, k, v, do, bias, qh, kh, vhd, mask, o, doh
     torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# the dataset tools and the optimizer switch: raw recordings -> the card,
+# every --opt card against CPU, the warm-started pretraining with bf16 moments
+# ---------------------------------------------------------------------------
+
+RAW_CLASSES = 8          # N-Caltech101-like classes of the raw ATIS tree: 4 train, 2 val and
+                         # 1 unlisted recording each -> 32 train and 16 val files
+RAW_FT_BATCH = 16        # the finetune run on the processed tree: 2 steps an epoch, 3 epochs
+OPT_STEPS = 7            # steps of each optimizer check: Lookahead (k = 6) syncs once
+OPT_DEPTH = 1            # ft_vit at full width (768, 12 heads), 1 block, for the CPU's sake
+OPT_F32_REL = 1e-5       # per-tensor displacement, card f32 vs CPU f32, relative L2
+OPT_BF16_REL = 1e-3      # ... with bf16 moments (a flipped bf16 rounding moves one element)
+OPT_CLIP = 50.0          # the global-norm clip of the checks: active (the norm reads ~400)
+# the base lr of each check: every step moves a weight by a few % of its size
+# or more, so that the f32 rounding of the weights stays ~1e-6 of the
+# displacement (the f32 run against an f64 one of the same optimizer reads
+# <= 3e-6 on the CPU at these rates; lamb and novograd read 1.5-1.8e-5 at
+# 1e-2, where their steps are ~1 % of the weights)
+OPT_BASE_LR = {"adadelta": 1.0, "sgd": 0.05, "nesterov": 0.05, "momentum": 0.05, "sgdp": 0.05,
+               "radam": 0.1, "lamb": 0.1, "novograd": 1.0, "nvnovograd": 1.0}
+OPT_FAULT_TENSOR = "blocks.0.mlp.fc2.weight"
+
+
+def tree_bytes(root):
+    """{path relative to root: file bytes} of every file under ``root``."""
+    out = {}
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            with open(os.path.join(dirpath, f), "rb") as fh:
+                out[os.path.relpath(os.path.join(dirpath, f), root)] = fh.read()
+    return out
+
+
+def write_raw_recordings(root, rng):
+    """Seeded raw recordings: ATIS .bin files in N-Caltech101's layout
+    (<root>/Caltech101/<class>/image_NNNN.bin, 20k-60k events each) with its
+    split file, and N-Cars .dat files (<root>/ncars_raw/n-cars_{train,test}/
+    {cars,background}/, 2k-8k events each). Returns (caltech input, split
+    file, ncars input, events written)."""
+    from mem_tpu_torch.events.decoders import encode_atis_bytes, encode_ncars_bytes
+
+    cal, lines, n_events = os.path.join(root, "Caltech101"), [], 0
+    for c in range(RAW_CLASSES):
+        os.makedirs(os.path.join(cal, f"class_{c}"))
+        for i in range(7):
+            ev = synthetic_events(rng, int(rng.integers(20_000, 60_001)))
+            n_events += len(ev)
+            with open(os.path.join(cal, f"class_{c}", f"image_{i:04d}.bin"), "wb") as f:
+                f.write(encode_atis_bytes(ev))
+            if i < 6:
+                lines.append(f"{'train' if i < 4 else 'val'}/class_{c}/image_{i:04d}.npy")
+    split = os.path.join(root, "ncaltech101_split.txt")
+    with open(split, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    ncars = os.path.join(root, "ncars_raw")
+    for name in ("n-cars_train", "n-cars_test"):
+        for c in ("cars", "background"):
+            os.makedirs(os.path.join(ncars, name, c))
+            for i in range(8):
+                ev = synthetic_events(rng, int(rng.integers(2_000, 8_001)))
+                ev[:, 3] = (ev[:, 3] > 0).astype(np.float64)       # N-Cars: p in {0, 1}
+                n_events += len(ev)
+                with open(os.path.join(ncars, name, c, f"obj_{i:06d}_td.dat"), "wb") as f:
+                    f.write(encode_ncars_bytes(ev))
+    return cal, split, ncars, n_events
+
+
+def run_raw_to_card(torch, gpu, tmp_root, rng):
+    """Phase (a): raw recordings -> .npy with the port's process_dataset at
+    --cores 2 (the native decoders): every .npy bit-equal to the numpy decoder
+    of its raw file; the host rates of the native and the numpy decoders on
+    the same buffers; then run_class_finetuning --opt lookahead_adamp on the
+    processed tree on the card (6 steps: Lookahead syncs once) with exact K1 /
+    K2f / K2b launch counts."""
+    from mem_tpu_torch import native
+    from mem_tpu_torch.cli import process_dataset as P
+    from mem_tpu_torch.cli import run_class_finetuning as F
+    from mem_tpu_torch.events import decoders
+    from mem_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from mem_tpu_torch.utils.checkpoint import load_checkpoint
+
+    cal, split, ncars, n_events = write_raw_recordings(tmp_root, rng)
+    check(native.available(), "libmemev did not build: no native decoders")
+    trees = {}
+    t0 = time.perf_counter()
+    for ds, inp, extra in (("ncaltech101", cal, ["--split", split]), ("ncars", ncars, [])):
+        out = os.path.join(tmp_root, "processed", ds)
+        P.main(["--dataset", ds, "--input", inp, "--output", out, "--cores", "2", *extra])
+        trees[ds] = tree_bytes(out)
+    wall = time.perf_counter() - t0
+    # each .npy against the numpy decoder of its raw file
+    raw = {}
+    for c in os.listdir(cal):
+        for f in os.listdir(os.path.join(cal, c)):
+            raw[os.path.join(c, f)] = os.path.join(cal, c, f)
+    cal_tree = trees["ncaltech101"]
+    for rel, data in cal_tree.items():
+        split_name, c, f = rel.split(os.sep)
+        with open(raw[os.path.join(c, f[:-4] + ".bin")], "rb") as fh:
+            want = decoders.decode_atis_bytes(fh.read())
+        got = np.load(io.BytesIO(data))
+        check(got.dtype == want.dtype and got.tobytes() == want.tobytes(),
+              f"{rel}: not the numpy decoder's events")
+    for rel, data in trees["ncars"].items():
+        split_name, c, f = rel.split(os.sep)
+        src = os.path.join(ncars, {"train": "n-cars_train", "val": "n-cars_test"}[split_name], c,
+                           f[:-4] + ".dat")
+        with open(src, "rb") as fh:
+            want = decoders.decode_ncars_bytes(fh.read())
+        check(np.load(io.BytesIO(data)).tobytes() == want.tobytes(),
+              f"ncars {rel}: not the numpy decoder's events")
+    n_train = sum(k.startswith("train") for k in cal_tree)
+    n_val = sum(k.startswith("val") for k in cal_tree)
+    check((n_train, n_val) == (4 * RAW_CLASSES, 2 * RAW_CLASSES),
+          f"the split routed {n_train} train and {n_val} val files")
+    # the decoders alone, one process, on the buffers of every raw file (host numbers)
+    bufs = []
+    for p in raw.values():
+        with open(p, "rb") as fh:
+            bufs.append(("atis", fh.read()))
+    for d, _, fs in os.walk(ncars):
+        for f in fs:
+            with open(os.path.join(d, f), "rb") as fh:
+                bufs.append(("ncars", fh.read()))
+    fns = {"native": {"atis": native.decode_atis, "ncars": native.decode_ncars},
+           "numpy": {"atis": decoders.decode_atis_bytes, "ncars": decoders.decode_ncars_bytes}}
+    rates = {}
+    for decoder in ("native", "numpy", "native", "numpy"):
+        t0 = time.perf_counter()
+        n = sum(len(fns[decoder][fmt](buf)) for fmt, buf in bufs)
+        s = time.perf_counter() - t0
+        rates.setdefault(decoder, []).append((len(bufs) / s, n / s))
+    n_files = len(bufs)
+    say("process_dataset", host="the chip host's CPU (not a device number)", gpu=gpu,
+        files=n_files, events=n_events, cores=2, decoder="native",
+        cli_seconds=wall, cli_files_per_s=n_files / wall, cli_events_per_s=n_events / wall,
+        decode_files_per_s={k: [r[0] for r in v] for k, v in rates.items()},
+        decode_events_per_s={k: [r[1] for r in v] for k, v in rates.items()},
+        caltech_train=n_train, caltech_val=n_val)
+
+    out_dir = os.path.join(tmp_root, "ft_raw")
+    flags = ["--config", "configs/ncaltech.conf", "--data_path",
+             os.path.join(tmp_root, "processed", "ncaltech101"), "--output_dir", out_dir,
+             "--nb_classes", "101", "--batch_size", str(RAW_FT_BATCH), "--update_freq", "1",
+             "--epochs", "3", "--save_ckpt_freq", "3", "--warmup_steps", "2",
+             "--model_ema", "0", "--num_workers", "4", "--opt", "lookahead_adamp",
+             "--device", "cuda"]
+    t0 = time.perf_counter()
+    with toggles():
+        reset_launch_counts()                 # just before the main path
+        r = F.main(flags)
+        counts = launch_counts()              # just after it
+    seconds = time.perf_counter() - t0
+    payload = load_checkpoint(os.path.join(out_dir, "checkpoint-2.pth"))
+    opt_state = payload["optimizer"]
+    say("raw_finetune_cli", model="ft_vit", embed_dim=768, depth=12, heads=12, img=[224, 224],
+        batch=RAW_FT_BATCH, opt="lookahead_adamp", history=r["history"],
+        evals=[(e, s) for e, s, _ in r["evals"]], launches=counts,
+        lookahead_count=opt_state["lookahead_count"], seconds=round(seconds, 2))
+    # 32 train files / 16 = 2 steps an epoch, 3 epochs = 6 steps; an evaluation:
+    # 16 val files / 16 = 1 batch a epoch
+    steps, evals = 6, 3
+    check(counts == {"hist_planes_cols": steps + evals, "fused_attention_flat": 12 * (steps + evals),
+                     "fused_attention_flat_bwd": 12 * steps},
+          f"the finetune run on the processed tree launched {counts}")
+    check(opt_state["lookahead_count"] == steps and len(opt_state["lookahead_slow"]) > 0,
+          "the checkpoint does not hold Lookahead's state")
+    check(all(np.isfinite(h[1]) for h in r["history"]) and len(r["evals"]) == evals,
+          f"finetune history {r['history']}, evals {r['evals']}")
+    return counts
+
+
+def opt_model(torch, depth, device, seed=0):
+    """ft_vit at full width with every parameter drawn 0.02 N(0, 1) from a
+    seed (the norms' scales too: a displacement then stays far above its
+    tensor's rounding)."""
+    from mem_tpu_torch.models.registry import create_model
+
+    model = create_model("ft_vit", num_classes=101, img_size=(224, 224), patch_size=(16, 16),
+                         embed_dim=768, depth=depth, num_heads=12, init_values=0.1,
+                         use_rel_pos_bias=True, use_abs_pos_emb=True, device=device)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(0.02 * torch.randn(p.shape, generator=g))
+    return model
+
+
+def opt_grads(torch, params, axes, t, g):
+    """Step t's gradients, made on the CPU from the current CPU weights:
+    tensor i gets, by (i + t) mod 3, a gradient orthogonal to the weight
+    within each output channel (AdamP's channel view fires), one orthogonal
+    to the whole tensor only, or one leaning on the weight (no projection):
+    every AdamP decision far from its threshold."""
+    out = []
+    for i, p in enumerate(params):
+        p = p.detach().double()
+        d = 0.1 * torch.randn(p.shape, generator=g, dtype=torch.float64)
+        kind = (i + t) % 3
+        if p.ndim >= 2 and kind == 0:
+            red = tuple(k for k in range(p.ndim) if k != axes[i])
+            d -= p * (p * d).sum(red, keepdim=True) / (p * p).sum(red, keepdim=True)
+        elif p.ndim >= 2 and kind == 1:
+            d -= p * (p * d).sum() / (p * p).sum()
+        elif kind == 2:
+            d += 3.0 * torch.sign(p) * d.abs().mean()
+        out.append(d.float())
+    return out
+
+
+def opt_run(torch, name, device, grads=None, fault=None):
+    """OPT_STEPS steps of ``name`` (``bf16_`` prefix: bf16 moments) with
+    layer decay 0.75 on opt_model, wd cosine 0.05 -> 0.2, the clip active.
+    Without ``grads`` the gradients are made on the way (on the CPU) and
+    returned. ``fault``: a parameter name whose update is skipped every
+    step. Returns (start, end weights on the CPU, grads, AdamP decisions
+    per step)."""
+    from mem_tpu_torch.train import optim
+    from mem_tpu_torch.train.schedules import cosine_scheduler
+
+    opt_name = name.removeprefix("bf16_")
+    model = opt_model(torch, OPT_DEPTH, device)
+    named = list(model.named_parameters())
+    params = [p for _, p in named]
+    start = {k: p.detach().cpu().clone() for k, p in named}
+    with warnings.catch_warnings():   # novograd's note on the wd schedule
+        warnings.simplefilter("ignore")
+        opt = optim.create_optimizer(model, 1e-3, 0.05, opt=opt_name, layer_decay=0.75,
+                                     num_layers=OPT_DEPTH, momentum=0.9,
+                                     moment_dtype=torch.bfloat16 if name != opt_name else None)
+    axes = optim.channel_axes(model)
+    axes = [axes[p] for p in params]
+    base = OPT_BASE_LR.get(optim.resolve_name(opt_name)[0], 1e-2)
+    lr = cosine_scheduler(base, base / 10, 1, OPT_STEPS, warmup_steps=2,
+                          start_warmup_value=base / 4)
+    wd = cosine_scheduler(0.05, 0.2, 1, OPT_STEPS)
+    made, fired, gen = [], [], torch.Generator().manual_seed(1)
+    for t in range(OPT_STEPS):
+        step_grads = grads[t] if grads is not None else opt_grads(torch, params, axes, t, gen)
+        made.append(step_grads)
+        for p, gr in zip(params, step_grads):
+            p.grad = gr.to(device, copy=True)   # the clip scales it in place
+        optim.clip_grad_global_norm(params, OPT_CLIP)
+        optim.set_schedule(opt, float(lr[t]), float(wd[t]))
+        keep = dict(named)[fault].detach().clone() if fault else None
+        opt.step()
+        if fault:
+            with torch.no_grad():
+                dict(named)[fault].copy_(keep)
+        fired.append({k: float(opt.state[p]["fired"]) for k, p in named
+                      if p.ndim >= 2 and "fired" in opt.state.get(p, {})})
+    end = {k: p.detach().cpu().clone() for k, p in named}
+    return start, end, made, fired
+
+
+def opt_gate(torch, start, want, got, bound):
+    """{tensor: relative L2 of its displacement, card against CPU} and the
+    tensors past ``bound``."""
+    rel = {}
+    for k in want:
+        dw, dg = want[k] - start[k], got[k] - start[k]
+        den = torch.linalg.vector_norm(dw).item()
+        num = torch.linalg.vector_norm(dg - dw).item()
+        rel[k] = num / den if den > 0 else num
+    return rel, sorted(k for k, v in rel.items() if v > bound)
+
+
+def check_optimizers(torch, dev, gpu):
+    """Phase (b): every --opt name (lookahead_adamp and bf16 moments too) for
+    OPT_STEPS steps on full-width ft_vit f32 weights (OPT_DEPTH blocks), on
+    the card and on the CPU from one gradient sequence made on the CPU:
+    each tensor's displacement within OPT_F32_REL (bf16 moments
+    OPT_BF16_REL), AdamP / SGDP decisions counted where they differ (must be
+    0), and a planted fault (one tensor's update skipped on the card) that
+    the gate must catch. Then each optimizer's update at full depth timed
+    against its bound."""
+    from mem_tpu_torch.train import optim
+
+    names = [n for n in optim.OPTIMIZERS if n not in ("nesterov", "nvnovograd")]
+    rows = {}
+    for name in names + ["lookahead_adamp", "bf16_adamw"]:
+        t0 = time.perf_counter()
+        start, want, grads, fired_cpu = opt_run(torch, name, torch.device("cpu"))
+        t1 = time.perf_counter()
+        _, got, _, fired_card = opt_run(torch, name, dev, grads)
+        bound_rel = OPT_BF16_REL if name.startswith("bf16_") else OPT_F32_REL
+        rel, bad = opt_gate(torch, start, want, got, bound_rel)
+        differ = sum(int(a[k] != b[k]) for a, b in zip(fired_cpu, fired_card) for k in a)
+        compared = sum(len(a) for a in fired_cpu)
+        top = sorted(rel, key=rel.get, reverse=True)[:3]
+        rows[name] = dict(worst={k: rel[k] for k in top}, median_rel=statistics.median(
+                              rel.values()), bound=bound_rel, past=bad,
+                          decisions_compared=compared, decisions_differing=differ,
+                          fired=sum(v for a in fired_cpu for v in a.values()),
+                          cpu_s=round(t1 - t0, 2), card_s=round(time.perf_counter() - t1, 2))
+        print(f"opt_row {name} {json.dumps(rows[name])}", flush=True)
+    for name, row in rows.items():
+        check(not row["past"], f"--opt {name}: card vs CPU past {row['bound']} on {row['past']}")
+        check(row["decisions_differing"] == 0, f"--opt {name}: {row['decisions_differing']} "
+              f"of {row['decisions_compared']} AdamP decisions differ")
+        if "adamp" in name or name == "sgdp":
+            check(0 < row["fired"] < row["decisions_compared"],
+                  f"--opt {name}: the projection fired {row['fired']} of "
+                  f"{row['decisions_compared']}")
+    # the planted fault: one tensor's update skipped on the card side
+    start, want, grads, _ = opt_run(torch, "adamw", torch.device("cpu"))
+    _, got, _, _ = opt_run(torch, "adamw", dev, grads, fault=OPT_FAULT_TENSOR)
+    rel, bad = opt_gate(torch, start, want, got, OPT_F32_REL)
+    say("optimizer_check", gpu=gpu, model="ft_vit", embed_dim=768, depth=OPT_DEPTH,
+        steps=OPT_STEPS, layer_decay=0.75, clip=OPT_CLIP, rows=rows,
+        planted_fault=dict(tensor=OPT_FAULT_TENSOR, rel=rel[OPT_FAULT_TENSOR], caught=bad))
+    check(bad == [OPT_FAULT_TENSOR], f"the planted optimizer fault gave {bad}")
+    return time_optimizers(torch, dev, gpu, names)
+
+
+def kernels_ms(torch, fn, n=3):
+    """Device ms per call of every kernel ``fn`` launches (torch.profiler
+    over ``n`` calls after 2 warm-up calls), without the GPU-side spans of
+    the profiler's user annotations (``Optimizer.step#...``), which cover
+    the kernels a second time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if not getattr(e, "is_user_annotation", False) and "#" not in e.key
+             and not e.key.startswith("Optimizer."))
+    return us / 1e3 / n or None
+
+
+def time_optimizers(torch, dev, gpu, names):
+    """Each optimizer's update (opt.step() on the clipped gradients) on the
+    full ft_vit (12 blocks, f32) on the card: CUDA-event ms of a step, the
+    device time of its kernels, and the bound: p read and written, g read,
+    each state tensor read and written, over the memory rate."""
+    from mem_tpu_torch.train import optim
+
+    model = opt_model(torch, 12, dev)
+    params = list(model.parameters())
+    n = sum(p.numel() for p in params)
+    g = torch.Generator(device=dev).manual_seed(2)
+    for p in params:
+        p.grad = 1e-3 * torch.randn(p.shape, device=dev, generator=g)
+    out = {}
+    for name in names + ["bf16_adamw", "lookahead_adamw"]:
+        opt_name = name.removeprefix("bf16_")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            opt = optim.create_optimizer(
+                model, 1e-5, 0.05, opt=opt_name, layer_decay=0.75, num_layers=12,
+                moment_dtype=torch.bfloat16 if name != opt_name else None)
+        optim.set_schedule(opt, 1e-5, 0.05)
+        opt.step()
+        state = optim.state_bytes(opt) - sum(s.numel() * s.element_size()
+                                             for s in getattr(opt, "slow", []))
+        nbytes = 12 * n + 2 * state
+        if name.startswith("lookahead_"):
+            nbytes += 16 * n / 6        # the sync: p and slow read, both written, 1 step in 6
+        ms = time_ms(opt.step, runs=10, warmup=2)
+        busy = kernels_ms(torch, opt.step)
+        out[name] = dict(ms=ms, device_ms=busy, bound_ms=bound(nbytes, 0, PEAK_F32_FLOPS)[0],
+                         bytes_per_param=nbytes / n, state_bytes=state)
+        del opt
+        torch.cuda.empty_cache()
+    say("time_optimizers", gpu=gpu, model="ft_vit", params=n, rows=out)
+    return out
+
+
+def timm_state_dict(torch, args):
+    """A seeded timm ``vit_base_patch16_224``-named state_dict at pt_vit's
+    shapes (seed 3, so the copied tensors differ from the CLI's seed-0
+    initialisation), with the qkv biases and a head the warm start leaves."""
+    from mem_tpu_torch.cli import run_mem_pretraining as R
+
+    pt = R.build_model(args, torch.float32, torch.device("cpu"))
+    pt.init_weights(torch.Generator().manual_seed(3))
+    sd = {k: v for k, v in pt.state_dict().items()
+          if k.startswith(("patch_embed.", "norm.")) or re.match(
+              r"blocks\.\d+\.(norm[12]|attn\.qkv\.weight|attn\.proj|mlp\.fc[12])", k)}
+    for i in range(args.transformer_depth):
+        sd[f"blocks.{i}.attn.qkv.bias"] = torch.zeros(3 * args.transformer_emb)
+    sd["head.weight"] = torch.zeros(1000, args.transformer_emb)
+    return sd
+
+
+def run_warm_start_cli(torch, gpu, flags, tmp_root):
+    """Phase (c): run_mem_pretraining --bf16_moments 1 --pretrained 1
+    --init_ckpt <seeded timm .pth> at full width for 2 steps (one epoch at
+    B=64, no eval) with exact launch counts; the checkpoint holds bf16
+    moments and weights that moved from the timm ones by the 2 steps only."""
+    from mem_tpu_torch.cli import run_mem_pretraining as R
+    from mem_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from mem_tpu_torch.utils.checkpoint import load_checkpoint
+
+    out_dir = os.path.join(tmp_root, "pt_warm")
+    # lr 1e-5: two steps move the weights ~1e-3 of their size, the seed-0
+    # initialisation lies ~1.4 away
+    common = flags + ["--output_dir", out_dir, "--batch_size", "64", "--epochs", "1",
+                      "--warmup_steps", "2", "--lr", "1e-5", "--warmup_lr", "1e-6",
+                      "--min_lr", "1e-6", "--device", "cuda",
+                      "--disable_eval_during_pretraining"]
+    timm = timm_state_dict(torch, R.get_args(common))
+    path = os.path.join(tmp_root, "timm_vit_b16_seed3.pth")
+    torch.save(timm, path)
+    t0 = time.perf_counter()
+    reset_launch_counts()                 # just before the main path
+    hist = R.main(common + ["--bf16_moments", "1", "--pretrained", "1", "--init_ckpt", path])
+    counts = launch_counts()              # just after it
+    payload = load_checkpoint(os.path.join(out_dir, "checkpoint-final.pth"))
+    moments = {st["exp_avg"].dtype for st in payload["optimizer"]["state"].values()}
+    rel = {k: (torch.linalg.vector_norm(payload["model"][k].float() - timm[k])
+               / torch.linalg.vector_norm(timm[k])).item()
+           for k in ("blocks.0.attn.qkv.weight", "blocks.11.mlp.fc2.weight", "norm.weight")}
+    say("warm_start_cli", model="pt_vit", embed_dim=768, depth=12, batch=64, steps=len(hist),
+        losses=[h[1] for h in hist], launches=counts, moments=sorted(map(str, moments)),
+        rel_from_timm=rel, seconds=round(time.perf_counter() - t0, 2))
+    check(len(hist) == 2 and all(np.isfinite(h[1]) for h in hist), f"history {hist}")
+    check(counts == {"hist_planes_cols": 2, "fused_attention_flat": 24,
+                     "fused_attention_flat_bwd": 24},
+          f"the warm-started pretraining run launched {counts}")
+    check(moments == {torch.bfloat16}, f"moments stored as {moments}")
+    check(all(v < 1e-2 for v in rel.values()), f"weights far from the timm ones: {rel}")
+    return counts
+
+
+def time_bf16_moments(torch, dev, gpu, flags):
+    """The full-width pt_vit train step at B=128 (bf16, the conf's recipe)
+    with AdamW's moments in f32 and in bf16, in turns (f32, bf16, bf16,
+    f32): CUDA-event median ms of 10 steps after 3 warm-up, peak device
+    memory, optimizer-state bytes."""
+    from mem_tpu_torch.cli import run_mem_pretraining as R
+    from mem_tpu_torch.data.prefetch import to_device
+    from mem_tpu_torch.train import optim
+    from mem_tpu_torch.train.schedules import cosine_scheduler
+
+    args = R.get_args(flags + ["--device", "cuda"])
+    vae = R.load_vae(args, dev)
+    steps, warm = 13, 3
+    lr = cosine_scheduler(args.lr, args.min_lr, 1, steps, warmup_steps=0)
+    pp, host = host_train_batch(args, 128)
+    batch = to_device(host, dev)
+    rows = {"f32": [], "bf16": []}
+    for tag in ("f32", "bf16", "bf16", "f32"):
+        model, step, opt = make_step(torch, R, args, dev, torch.bfloat16, vae, pp, lr,
+                                     moment_dtype=torch.bfloat16 if tag == "bf16" else None)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        events = []
+        for i in range(steps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            m = step(batch, i)
+            end.record()
+            events.append((start, end))
+        torch.cuda.synchronize()
+        rows[tag].append(dict(
+            ms=statistics.median(a.elapsed_time(b) for a, b in events[warm:]),
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+            state_bytes=optim.state_bytes(opt), loss_last=m["loss"].item()))
+        del model, step, opt, m
+        torch.cuda.empty_cache()
+    say("time_bf16_moments", gpu=gpu, model="pt_vit", batch=128, dtype="bfloat16", rows=rows,
+        peak_saved_gib=statistics.mean(r["peak_mem_gib"] for r in rows["f32"])
+        - statistics.mean(r["peak_mem_gib"] for r in rows["bf16"]))
+    check(all(np.isfinite(r["loss_last"]) for v in rows.values() for r in v), f"losses {rows}")
+    check(rows["bf16"][0]["state_bytes"] < 0.6 * rows["f32"][0]["state_bytes"],
+          f"bf16 moments did not halve the optimizer state: {rows}")
+    return rows
+
+
+def run_tools_slice(torch, dev, gpu, tmp_root):
+    """The dataset tools and the optimizer switch: phases (a), (b), (c) and
+    the B=128 step with bf16 moments, their inputs drawn from a generator of
+    their own."""
+    rng = np.random.default_rng(20)
+    data_root, vae_path = write_training_inputs(torch, tmp_root, rng)
+    flags = ["--config", "configs/ncaltech.conf", "--data_path", data_root,
+             "--discrete_vae_weight_path", vae_path, "--num_workers", "4"]
+    t0 = time.perf_counter()
+    run_raw_to_card(torch, gpu, tmp_root, rng)
+    t1 = time.perf_counter()
+    check_optimizers(torch, dev, gpu)
+    t2 = time.perf_counter()
+    run_warm_start_cli(torch, gpu, flags, tmp_root)
+    t3 = time.perf_counter()
+    time_bf16_moments(torch, dev, gpu, flags)
+    t4 = time.perf_counter()
+    say("tools_slice", seconds=dict(raw_to_card=round(t1 - t0, 2), optimizers=round(t2 - t1, 2),
+                                    warm_start_cli=round(t3 - t2, 2),
+                                    bf16_moments=round(t4 - t3, 2)))
 
 
 def main() -> int:

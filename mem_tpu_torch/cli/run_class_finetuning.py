@@ -6,8 +6,10 @@ Each optimizer step (train/steps.py) runs on the device: for each of
 ``--update_freq`` micro-batches the training preprocessing (kernel K1 and the
 augmentations) -> mixup / cutmix -> ``ft_vit`` (attention through kernels
 K2f/K2b; with the toggles of models/vit.py, K5a/K5c and the MLPs through
-K6f/K6b) -> cross-entropy (soft targets / label smoothing); then AdamW with
-BEiT layer decay and cosine lr / wd schedules, and the EMA of the weights.
+K6f/K6b) -> cross-entropy (soft targets / label smoothing); then the
+``--opt`` optimizer (train/optim.py: AdamW by default, or any name the JAX
+package accepts; AdamW under ``--freeze_backbone``) with BEiT layer decay
+and cosine lr / wd schedules, and the EMA of the weights.
 The host loads, slices and pads events, draws the augmentations and the
 mixup parameters, and copies each batch to the device one step ahead. After
 every epoch the val split is evaluated with the raw and the EMA weights
@@ -195,8 +197,6 @@ def check_ported(args) -> None:
                     "(ROADMAP queue 1, item 14)"),
         (args.zero1 or args.fsdp, "--zero1/--fsdp come with the multi-GPU slice of the "
                                   "port (ROADMAP queue 1, item 15)"),
-        (args.pretrained, "--pretrained 1 (the timm .npz warm start) is ROADMAP queue 1, "
-                          "item 8b"),
     ]
     for flag, msg in todo:
         if flag:
@@ -324,8 +324,8 @@ def main(argv=None):
         load_finetune_checkpoint(model, args.finetune, args.model_key, args.model_prefix,
                                  window)
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"model = {args.model}. params: {n_params / 1e6:.1f}M  classes: {nb_classes}  "
-          f"device {device}")
+    print(f"model = {args.model}. pretrained = {bool(args.pretrained)}")
+    print(f"model params: {n_params / 1e6:.1f}M  classes: {nb_classes}  device {device}")
 
     steps_per_epoch = train_it.steps_per_epoch() // args.update_freq
     lr_sched = cosine_scheduler(args.lr, args.min_lr, args.epochs, steps_per_epoch,
@@ -339,7 +339,8 @@ def main(argv=None):
     if args.disable_weight_decay_on_rel_pos_bias:
         skip_names = skip_names + ("relative_position_bias_table",)
     optimizer = create_optimizer(model, args.lr, args.weight_decay, opt=args.opt,
-                                 opt_eps=args.opt_eps, skip_names=skip_names,
+                                 opt_eps=args.opt_eps, momentum=args.momentum,
+                                 skip_names=skip_names,
                                  layer_decay=args.layer_decay,
                                  num_layers=args.transformer_depth,
                                  freeze_backbone=bool(args.freeze_backbone))

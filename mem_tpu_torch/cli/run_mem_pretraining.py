@@ -5,8 +5,11 @@ configs/*.conf bind), plus ``--device``.
 Each step (train/steps.py) runs on the device: the training preprocessing
 (kernel K1 and the augmentations) -> the frozen VAE's codebook labels ->
 the masked ViT (``pt_vit``; attention through kernels K2f/K2b) -> the
-cross-entropy at the masked positions -> AdamW with the cosine lr / wd
-schedules. The host loads, slices and pads events, draws the masks and the
+cross-entropy at the masked positions -> the ``--opt`` optimizer
+(train/optim.py; AdamW by default, its moments in bf16 under
+``--bf16_moments 1``; betas (0.9, 0.95) whatever ``--opt_betas`` says) with
+the cosine lr / wd schedules. ``--pretrained 1 --init_ckpt <timm .pth /
+.npz>`` warm-starts the encoder first (utils/timm_init.py). The host loads, slices and pads events, draws the masks and the
 augmentations, and copies each batch to the device one step ahead.
 
 The frozen tokenizer comes from ``--discrete_vae_weight_path``, a ``.pth``
@@ -127,7 +130,8 @@ def get_args(argv=None):
                    help="accepted and overridden to (0.9, 0.95), as the reference "
                         "does (optim_factory.py:121)")
     p.add_argument("--momentum", type=float, default=0.9)
-    p.add_argument("--bf16_moments", type=int, default=0)
+    p.add_argument("--bf16_moments", type=int, default=0,
+                   help="store AdamW's moments in bf16 (every blend in f32)")
     p.add_argument("--save_ckpt_freq", "--pt_save_ckpt_freq", type=int, default=25)
     p.add_argument("--output_dir", type=str, default="./pt_out")
     p.add_argument("--log_dir", type=str, default=None, help="not ported (TensorBoard)")
@@ -171,16 +175,15 @@ def check_ported(args) -> None:
     """Raise for the options whose slice of the port has not landed."""
     if args.MAE and args.data_set == "IMNET":
         raise ValueError("--MAE with --data_set IMNET is not a reference path")
+    if args.MAE and args.pretrained and args.init_ckpt:
+        raise ValueError("--pretrained 1 --init_ckpt warm-starts the BEiT encoder of pt_vit "
+                         "(run_mem_pretraining.py:194-222); the MAE has no such path")
     todo = [
         (args.data_set == "IMNET", "--data_set IMNET (real-image pretraining) comes with "
                                    "the IMNET slice of the port (ROADMAP queue 1, item 16)"),
         (args.tp > 1 or args.zero1 or args.fsdp,
          "--tp/--zero1/--fsdp come with the multi-GPU slice of the port "
          "(ROADMAP queue 1, item 15)"),
-        (args.bf16_moments, "--bf16_moments 1 (bf16 optimizer moments) is ROADMAP "
-                            "queue 1, item 8b"),
-        (args.pretrained, "--pretrained 1 (the timm warm start) is ROADMAP queue 1, "
-                          "item 8b"),
     ]
     for flag, msg in todo:
         if flag:
@@ -302,6 +305,13 @@ def main(argv=None):
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     model = build_model(args, dtype, device)
     model.init_weights(torch.Generator().manual_seed(args.seed))
+    if args.pretrained and args.init_ckpt:
+        # the timm ViT warm start (run_mem_pretraining.py:194-222), from a
+        # local file
+        from mem_tpu_torch.utils.timm_init import load_timm_state_dict, warm_start_from_timm
+
+        warm_start_from_timm(model, load_timm_state_dict(args.init_ckpt))
+        print(f"warm-started encoder from {args.init_ckpt}")
     steps_per_epoch = train_it.steps_per_epoch()
     lr_sched = cosine_scheduler(args.lr, args.min_lr, args.epochs, steps_per_epoch,
                                 warmup_epochs=args.warmup_epochs,
@@ -313,8 +323,11 @@ def main(argv=None):
     print(f"model params: {n_params / 1e6:.1f}M; steps/epoch {steps_per_epoch}; "
           f"device {device}")
 
+    # --opt_betas is accepted and ignored: betas stay (0.9, 0.95), the
+    # reference's override (optim_factory.py:121)
     optimizer = create_optimizer(model, args.lr, args.weight_decay, opt=args.opt,
-                                 opt_eps=args.opt_eps)
+                                 opt_eps=args.opt_eps, momentum=args.momentum,
+                                 moment_dtype=torch.bfloat16 if args.bf16_moments else None)
     if args.MAE:
         vae = eval_step = None
         train_step = make_mae_train_step(model, optimizer, preproc_train, lr_sched, wd_sched,

@@ -129,28 +129,30 @@ def get_args(argv=None):
 
 
 def load_pretrained_backbone(model, path: str, model_key: str, seg_input_size: int) -> None:
-    """Initialise ``model.backbone`` from a ``.pth`` (train_seg.py:242-286):
-    probe the payload for ``model_key``, strip ``module.`` / ``backbone.``
-    prefixes, and run the surgery onto the backbone's own state_dict."""
+    """Initialise ``model.backbone`` from a ``.pth`` or a timm jax-ViT
+    ``.npz`` (train_seg.py:242-286): probe a ``.pth`` payload for
+    ``model_key`` and strip ``module.`` / ``backbone.`` prefixes, read an
+    ``.npz`` with ``load_timm_npz``, and run the surgery onto the backbone's
+    own state_dict (names it lacks are dropped)."""
     from mem_tpu_torch.utils.surgery import surgery_for_finetune
-    from mem_tpu_torch.utils.weights import normalize_backbone_state_dict
+    from mem_tpu_torch.utils.weights import load_timm_npz, normalize_backbone_state_dict
 
     if path.endswith(".npz"):
-        raise NotImplementedError(
-            f"--pretrained {path}: the timm jax-ViT .npz importer is ROADMAP queue 1, "
-            f"item 8b")
-    if not path.endswith((".pth", ".pt")):
+        # a timm jax-ViT checkpoint: only the names the backbone has transfer
+        print(f"loading timm npz checkpoint from {path}")
+        sd = load_timm_npz(path)
+    elif path.endswith((".pth", ".pt")):
+        ck = load_checkpoint(path)
+        keys = [k for k in model_key.split("|") if k in ck]
+        sd = normalize_backbone_state_dict(ck[keys[0]] if keys else ck)
+    else:
         raise ValueError(
-            f"--pretrained {path}: only .pth / .pt checkpoints are read; an orbax "
-            f"checkpoint directory needs jax -- convert it with `python -m "
+            f"--pretrained {path}: only .pth / .pt checkpoints and timm .npz files are "
+            f"read; an orbax checkpoint directory needs jax -- convert it with `python -m "
             f"mem_tpu.cli.export_torch --checkpoint {path} --output model.pth`")
-    ck = load_checkpoint(path)
-    keys = [k for k in model_key.split("|") if k in ck]
-    sd = normalize_backbone_state_dict(ck[keys[0]] if keys else ck)
     grid = seg_input_size // 16
     template = {k: v.cpu().numpy() for k, v in model.backbone.state_dict().items()}
-    merged = surgery_for_finetune({k: v.cpu().numpy() for k, v in sd.items()}, template,
-                                  (grid, grid))
+    merged = surgery_for_finetune(sd, template, (grid, grid))
     model.backbone.load_state_dict({k: torch.from_numpy(v) for k, v in merged.items()},
                                    strict=True)
     print(f"backbone initialized from {path}")
@@ -180,7 +182,7 @@ def main(argv=None):
         raise SystemExit(
             "--pretrained PT21k downloads from the timm hub "
             "(train_api.py:377-402); no network egress here -- pass a "
-            "local checkpoint of the 21k weights instead")
+            "local .npz of the 21k weights instead")
     stopper = GracefulShutdown()
     validate_rss_flag(args.rss_restart_gb)
     device = torch.device(args.device)

@@ -3,16 +3,18 @@
 The port's own copy of mem_tpu/native (memev.cpp is the same source). The
 shared library is built on first use (g++ -O3) into
 ``mem_tpu_torch/_build/`` (git-ignored), not beside the source, and exposes
-the threaded batch loaders:
+the raw-recording decoders and the threaded batch loaders:
+  - decode_atis / decode_ncars: raw buffer -> (N, 4) float64 events, as
+    events/decoders.py decodes them
   - load_batch / load_batch_xyp: .npy batch assembly -> (B, cap, 4) float32
     or the int16 [x, y, p] wire, + n_valid and per-sample extents
   - load_batch_imgnet: N-ImageNet .npz column reads
   - load_batch_dsec: the DSEC seg crop + slice + counting sort by y
 
-This is host file IO, not device code. Every loader returns None when the
-toolchain is unavailable, and the pipelines then take their numpy paths
-(data/pipeline.py, data/seg_pipeline.py); the tests hold the two paths
-equal.
+This is host file IO, not device code. Every entry point returns None when
+the toolchain is unavailable, and the callers then take their numpy paths
+(events/decoders.py, data/pipeline.py, data/seg_pipeline.py); the tests
+hold the two paths bit-equal.
 """
 from __future__ import annotations
 
@@ -57,6 +59,10 @@ def get_lib() -> Optional[ctypes.CDLL]:
         if not _build():
             return None
     lib = ctypes.CDLL(_SO)
+    for name in ("memev_decode_atis", "memev_decode_ncars"):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int64
+        fn.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.POINTER(ctypes.c_double)]
     lib.memev_load_batch.restype = ctypes.c_int64
     lib.memev_load_batch.argtypes = [
         ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_double),
@@ -87,6 +93,30 @@ def get_lib() -> Optional[ctypes.CDLL]:
 
 def available() -> bool:
     return get_lib() is not None
+
+
+def decode_atis(buf: bytes) -> Optional[np.ndarray]:
+    """ATIS bytes -> (N, 4) float64 [y, x, t, 2p - 1], or None when the
+    library is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    out = np.empty((len(buf) // 5, 4), dtype=np.float64)
+    got = lib.memev_decode_atis(buf, len(buf),
+                                out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)))
+    return out[:got]
+
+
+def decode_ncars(buf: bytes) -> Optional[np.ndarray]:
+    """N-Cars .dat bytes -> (N, 4) float64 [y, x, t, p], or None when the
+    library is unavailable or the header runs past the buffer."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    out = np.empty((max(len(buf) // 8, 1), 4), dtype=np.float64)
+    got = lib.memev_decode_ncars(buf, len(buf),
+                                 out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)))
+    return None if got < 0 else out[:got]
 
 
 def load_batch(paths: Sequence[str], slice_fracs: Sequence[float], cap: int,

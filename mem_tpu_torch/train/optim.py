@@ -1,33 +1,71 @@
-"""AdamW with layer decay, port of mem_tpu/train/optim.py
-``create_optimizer(opt="adamw")`` / ``scheduled_adamw`` (:113-178) and its
+"""The optimizer switch with layer decay, port of mem_tpu/train/optim.py
+``create_optimizer`` (:497-679), its scheduled transforms (:113-494) and its
 layer-id rules (:36-100).
 
-``torch.optim.AdamW`` over parameter groups keyed by (lr scale, decays).
-Weight decay is split as ``build_wd_mask_tree`` (:86-100) splits the flax
-tree: no decay for 1-D parameters, ``*bias`` and ``cls_token`` /
-``pos_embed``; ``mask_token`` (3-D) and the 2-D relative-position tables are
-decayed. The lr scale is BEiT's layer decay (``build_lr_scale_tree``,
-:74-83): ``decay ** (L + 1 - i)`` with layer id i = 0 for the patch embedding
-and the cls / mask / pos tokens, n + 1 for block n, and L + 1 for the rest
-(final norm, heads, necks, a shared rel-pos table); without layer decay
-every scale is 1 and the groups are the two of pretraining. The finetune
-recipe adds a cosine weight-decay schedule (the caller passes wd[t]), the
-rel-pos tables as extra no-decay names, and the linear probe's frozen
-backbone (lr scale 0 off the head). Betas default
-to (0.9, 0.95) (the reference's pretraining override, optim_factory.py:121);
-segmentation passes (0.9, 0.999). Each step the caller writes lr[t] * scale
-and wd[t] into the groups (:167-173) and clips by global norm with factor
-clip / (norm + 1e-6) before the moments (:152-155); the reported grad norm
-is the pre-clip one (:682-685).
+Every optimizer is a ``torch.optim.Optimizer`` over parameter groups keyed
+by (lr scale, decays). Weight decay is split as ``build_wd_mask_tree``
+(:86-100) splits the flax tree: no decay for 1-D parameters, ``*bias`` and
+``cls_token`` / ``pos_embed``; ``mask_token`` (3-D) and the 2-D
+relative-position tables are decayed. The lr scale is BEiT's layer decay
+(``build_lr_scale_tree``, :74-83): ``decay ** (L + 1 - i)`` with layer id
+i = 0 for the patch embedding and the cls / mask / pos tokens, n + 1 for
+block n, and L + 1 for the rest (final norm, heads, necks, a shared rel-pos
+table); without layer decay every scale is 1 and the groups are the two of
+pretraining. The finetune recipe adds a cosine weight-decay schedule (the
+caller passes wd[t]), the rel-pos tables as extra no-decay names, and the
+linear probe's frozen backbone (lr scale 0 off the head, always AdamW).
+Betas default to (0.9, 0.95) (the reference's override,
+optim_factory.py:121); segmentation passes (0.9, 0.999). Each step the
+caller writes lr[t] * scale and wd[t] into the groups (:set_schedule) and
+clips by global norm with factor clip / (norm + 1e-6) before the update
+(:152-155, :clip_grad_global_norm); the reported grad norm is the pre-clip
+one (:682-685).
+
+The names (``--opt``), each matching the JAX transform it names:
+  adamw            torch.optim.AdamW: decoupled wd (:113-178); with
+                   ``moment_dtype=torch.bfloat16`` :class:`AdamWLowPrecision`
+                   (moments stored in bf16, every blend in f32)
+  adam             torch.optim.Adam: L2 wd folded into the gradient
+  sgd, nesterov    torch.optim.SGD, Nesterov momentum, L2 wd (:186-222)
+  momentum         torch.optim.SGD, heavy ball
+  nadam            torch.optim.NAdam (``scale_by_nadam_torch``, :289-332)
+  adadelta         torch.optim.Adadelta(rho 0.9, eps 1e-6)
+  rmsprop          torch.optim.RMSprop(alpha 0.9): eps outside the sqrt,
+                   momentum over the unscaled step
+  radam            :class:`RAdam`, ``optax.scale_by_radam`` (eps outside
+                   the bias-corrected sqrt, rectified from rho >= 5)
+  rmsproptf        :class:`RMSpropTF`: eps inside the sqrt, accumulator
+                   from 1.0, momentum over lr-scaled steps (:624-633)
+  adafactor        :class:`Adafactor`, ``optax.scale_by_factored_rms()``
+  novograd,        :class:`NovoGrad`, ``optax.scale_by_novograd`` with the
+  nvnovograd       constant ``weight_decay`` inside, on every tensor
+  lamb             :class:`Lamb`: Adam, the masked scheduled decay, the
+                   trust ratio (1 where a norm is 0) (:652-667)
+  adamp, sgdp      :class:`AdamP`: the projection of :335-374, decoupled
+                   multiplicative decay, wd_ratio 0.01 where it fires
+and a ``lookahead_`` prefix (:class:`Lookahead`, k = 6, alpha = 0.5), the
+apex ``fused*`` aliases (:541-552) and an explicit ``adahessian`` error.
+The JAX optimizers run the wd mask through the gradient (coupled) or the
+update (decoupled) exactly where these do; the torch classes' own
+arithmetic matches optax's where the JAX package's tests hold them equal.
 """
 from __future__ import annotations
 
+import math
+import warnings
 from typing import Iterable, Optional
 
 import torch
 
 BETAS = (0.9, 0.95)
 SKIP_NAMES = ("pos_embed", "cls_token")
+OPTIMIZERS = ("adamw", "adam", "sgd", "nesterov", "momentum", "nadam", "radam", "adamp",
+              "sgdp", "adadelta", "adafactor", "rmsprop", "rmsproptf", "novograd",
+              "nvnovograd", "lamb")
+ADAMP_DELTA = 0.1        # AdamP's cosine threshold factor (clovaai's delta)
+ADAMP_WD_RATIO = 0.01    # its decay factor where the projection fired (optim_factory.py:139-142)
+FUSED_ALIASES = {"fusedsgd": "sgd", "fusedmomentum": "momentum", "fusedadam": "adam",
+                 "fusedadamw": "adamw", "fusedlamb": "lamb", "fusednovograd": "nvnovograd"}
 
 
 def decays(name: str, param: torch.Tensor, skip_names=SKIP_NAMES) -> bool:
@@ -74,23 +112,431 @@ def lr_scale(name: str, layer_decay: Optional[float], num_layers: int) -> float:
     return values[get_num_layer_for_vit(name, len(values))]
 
 
-def create_optimizer(model: torch.nn.Module, lr: float, weight_decay: float,
-                     opt: str = "adamw", opt_eps: float = 1e-8,
-                     skip_names=SKIP_NAMES, layer_decay: Optional[float] = None,
-                     num_layers: int = 0, betas=BETAS,
-                     freeze_backbone: bool = False) -> torch.optim.AdamW:
-    """AdamW over the model's trainable parameters, one group per (lr scale,
-    decays) in the order the parameters first meet them: without layer decay
-    group 0 decays and group 1 does not. Each group carries its ``lr_scale``
-    and ``decays`` for :func:`set_schedule`. ``freeze_backbone`` is the
-    reference's linear probe (run_class_finetuning.py:418-436): lr scale 1
-    on ``head.*``, 0 on everything else (no layer decay, the default decay
-    split), so only the head moves."""
-    if opt.lower() != "adamw":
-        raise NotImplementedError(
-            f"--opt {opt}: only adamw is ported; the reference's other optimizers "
-            f"(optim.py:497-679: sgd, momentum, nadam, adamp, lookahead) are ROADMAP "
-            f"queue 1, item 8b")
+def channel_axes(model: torch.nn.Module) -> dict:
+    """{parameter: its output-channel dim}, the axis that AdamP's channel
+    view keeps. The JAX package keeps flax's last axis (optim.py:355-359).
+    ``from_jax_params`` transposes Linear and Conv kernels, whose flax last
+    axis is torch's dim 0 (dim 1 for a transposed conv); every other tensor
+    keeps its flax layout, and with it the last axis."""
+    out = {}
+    for module in model.modules():
+        for pname, p in module.named_parameters(recurse=False):
+            if pname == "weight" and isinstance(module, torch.nn.Linear):
+                out[p] = 0
+            elif pname == "weight" and isinstance(module, torch.nn.modules.conv._ConvNd):
+                out[p] = 1 if module.transposed else 0
+            else:
+                out[p] = p.ndim - 1
+    return out
+
+
+def norm(x: torch.Tensor) -> torch.Tensor:
+    """||x|| as a 0-d f32 tensor, accurate on either device. On the CPU
+    torch's ``vector_norm`` of an f32 tensor is off by ~4e-5 at 2.4 M
+    elements and ~3e-4 at 10 M (it accumulates long runs in f32), where its
+    ``sum`` (cascade summation) stays at ~1e-7; on CUDA ``vector_norm``'s
+    tree reduction is that accurate and reads the tensor once."""
+    x = x.float()
+    return torch.linalg.vector_norm(x) if x.is_cuda else x.square().sum().sqrt()
+
+
+# ---------------------------------------------------------------------------
+# the optimizers the torch package does not have in the JAX package's form
+# ---------------------------------------------------------------------------
+
+class AdamWLowPrecision(torch.optim.Optimizer):
+    """AdamW whose moments are stored in ``moment_dtype`` (``--bf16_moments
+    1``), ``scheduled_adamw(moment_dtype=...)`` (optim.py:113-178): each step
+    casts the stored moments up to f32, blends them with the f32 gradient,
+    takes the update from the unrounded f32 moments, and rounds once on
+    store. The parameters stay f32."""
+
+    def __init__(self, params, lr=1e-3, betas=BETAS, eps=1e-8, weight_decay=0.0,
+                 moment_dtype=torch.bfloat16):
+        super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps,
+                                      weight_decay=weight_decay, moment_dtype=moment_dtype))
+
+    def load_state_dict(self, state_dict):
+        super().load_state_dict(state_dict)
+        for group in self.param_groups:   # torch casts the state to the params' dtype
+            for p in group["params"]:
+                st = self.state.get(p)
+                if st:
+                    for k in ("exp_avg", "exp_avg_sq"):
+                        st[k] = st[k].to(group["moment_dtype"])
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            ps = [p for p in group["params"] if p.grad is not None]
+            if not ps:
+                continue
+            b1, b2 = group["betas"]
+            for p in ps:
+                if not self.state[p]:
+                    self.state[p] = {
+                        "step": torch.zeros((), dtype=torch.float32),
+                        "exp_avg": torch.zeros_like(p, dtype=group["moment_dtype"]),
+                        "exp_avg_sq": torch.zeros_like(p, dtype=group["moment_dtype"])}
+            sts = [self.state[p] for p in ps]
+            for st in sts:
+                st["step"] += 1
+            t = int(sts[0]["step"].item())
+            g = [p.grad.float() for p in ps]
+            ms = [st["exp_avg"] for st in sts]
+            vs = [st["exp_avg_sq"] for st in sts]
+            # f32 blends of the stored moments, cast up exactly inside the adds
+            mu = torch._foreach_mul(g, 1 - b1)
+            torch._foreach_add_(mu, ms, alpha=b1)
+            nu = torch._foreach_mul(g, 1 - b2)
+            torch._foreach_mul_(nu, g)
+            torch._foreach_add_(nu, vs, alpha=b2)
+            torch._foreach_copy_(ms, mu)     # one rounding, on store
+            torch._foreach_copy_(vs, nu)
+            # the step from the unrounded blends: mu / c1 / (sqrt(nu / c2) + eps)
+            torch._foreach_div_(nu, 1 - b2 ** t)
+            torch._foreach_sqrt_(nu)
+            torch._foreach_add_(nu, group["eps"])
+            torch._foreach_div_(mu, 1 - b1 ** t)
+            torch._foreach_div_(mu, nu)
+            if group["weight_decay"]:
+                torch._foreach_add_(mu, ps, alpha=group["weight_decay"])
+            torch._foreach_add_(ps, mu, alpha=-group["lr"])
+
+
+class _PerTensor(torch.optim.Optimizer):
+    """An optimizer whose update is written per parameter: ``_init(p,
+    group)`` returns its fresh state and ``_update(p, g, st, group, t)``
+    updates ``p`` in place, where ``g`` is the gradient with the group's L2
+    weight decay folded in when ``coupled_wd`` is set and ``t`` is the step
+    count after the increment (the optax count + 1)."""
+
+    coupled_wd = True
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                st = self.state[p]
+                if not st:
+                    st.update(step=torch.zeros((), dtype=torch.float32), **self._init(p, group))
+                st["step"] += 1
+                g = p.grad
+                if self.coupled_wd and group["weight_decay"]:
+                    g = g + group["weight_decay"] * p
+                self._update(p, g, st, group, int(st["step"].item()))
+
+
+class RAdam(_PerTensor):
+    """``optax.scale_by_radam(threshold=5)`` under L2 weight decay: the
+    rectified Adam step where rho_t >= 5, the bias-corrected first moment
+    otherwise; eps is added outside sqrt(v / (1 - b2^t)), as optax does
+    (torch's RAdam adds it before the bias correction)."""
+
+    def __init__(self, params, lr=1e-3, betas=BETAS, eps=1e-8, weight_decay=0.0):
+        super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps,
+                                      weight_decay=weight_decay))
+
+    def _init(self, p, group):
+        return {"exp_avg": torch.zeros_like(p), "exp_avg_sq": torch.zeros_like(p)}
+
+    def _update(self, p, g, st, group, t):
+        b1, b2 = group["betas"]
+        m, v = st["exp_avg"], st["exp_avg_sq"]
+        m.mul_(b1).add_(g, alpha=1 - b1)
+        v.mul_(b2).addcmul_(g, g, value=1 - b2)
+        ro_inf = 2.0 / (1.0 - b2) - 1.0
+        ro = ro_inf - 2 * t * b2 ** t / (1 - b2 ** t)
+        mhat = m / (1 - b1 ** t)
+        if ro >= 5.0:
+            r = math.sqrt((ro - 4) * (ro - 2) * ro_inf / ((ro_inf - 4) * (ro_inf - 2) * ro))
+            mhat = r * mhat / ((v / (1 - b2 ** t)).sqrt() + group["eps"])
+        p.add_(mhat, alpha=-group["lr"])
+
+
+class RMSpropTF(_PerTensor):
+    """timm's RMSpropTF as the JAX package builds it (optim.py:624-633):
+    ``scale_by_rms(decay 0.9, initial_scale 1.0, eps_in_sqrt)``, then lr,
+    then a momentum buffer over the lr-scaled steps (TF1 semantics)."""
+
+    def __init__(self, params, lr=1e-2, eps=1e-8, momentum=0.9, weight_decay=0.0):
+        super().__init__(params, dict(lr=lr, eps=eps, momentum=momentum,
+                                      weight_decay=weight_decay))
+
+    def _init(self, p, group):
+        st = {"square_avg": torch.ones_like(p)}
+        if group["momentum"]:
+            st["momentum_buffer"] = torch.zeros_like(p)
+        return st
+
+    def _update(self, p, g, st, group, t):
+        nu = st["square_avg"]
+        nu.mul_(0.9).addcmul_(g, g, value=1 - 0.9)
+        step = g * torch.rsqrt(nu + group["eps"]) * group["lr"]
+        if group["momentum"]:
+            step = st["momentum_buffer"].mul_(group["momentum"]).add_(step)
+        p.sub_(step)
+
+
+def _factored_dims(shape):
+    """optax's ``_factored_dims`` at its defaults: the (second largest,
+    largest) dims when the second largest is >= 128, else None. For equal
+    sizes the factored estimate is symmetric in the two dims, so the tie
+    order does not change the update."""
+    if len(shape) < 2:
+        return None
+    order = sorted(range(len(shape)), key=lambda i: shape[i])
+    if shape[order[-2]] < 128:
+        return None
+    return order[-2], order[-1]
+
+
+class Adafactor(_PerTensor):
+    """``optax.scale_by_factored_rms()`` at its defaults (decay_rate 0.8
+    with t^-0.8 decay, epsilon 1e-30 on g^2, factored second moments for
+    tensors with two dims >= 128, no first moment, no update clipping)
+    under L2 weight decay, then lr. Not ``torch.optim.Adafactor``, whose
+    rule differs."""
+
+    def __init__(self, params, lr=1e-3, weight_decay=0.0):
+        super().__init__(params, dict(lr=lr, weight_decay=weight_decay))
+
+    def _init(self, p, group):
+        dims = _factored_dims(p.shape)
+        if dims is None:
+            return {"v": torch.zeros_like(p)}
+        d1, d0 = dims
+        return {"v_row": torch.zeros_like(p.select(d0, 0)),
+                "v_col": torch.zeros_like(p.select(d1, 0))}
+
+    def _update(self, p, g, st, group, t):
+        dr = 1.0 - t ** -0.8
+        g2 = g * g + 1e-30
+        dims = _factored_dims(p.shape)
+        if dims is None:
+            v = st["v"].mul_(dr).add_(g2, alpha=1 - dr)
+            upd = g * v.rsqrt()
+        else:
+            d1, d0 = dims
+            vr = st["v_row"].mul_(dr).add_(g2.mean(d0), alpha=1 - dr)
+            vc = st["v_col"].mul_(dr).add_(g2.mean(d1), alpha=1 - dr)
+            rd1 = d1 - 1 if d1 > d0 else d1
+            row = (vr / vr.mean(rd1, keepdim=True)).rsqrt()
+            upd = g * row.unsqueeze(d0) * vc.rsqrt().unsqueeze(d1)
+        p.add_(upd, alpha=-group["lr"])
+
+
+class NovoGrad(_PerTensor):
+    """``optax.scale_by_novograd`` as the JAX package builds it
+    (optim.py:634-651): a per-tensor second moment of ||g||^2 (the first
+    step sets it), the first moment over g / (sqrt(nu) + eps) plus the
+    CONSTANT ``novograd_wd`` * p on every tensor (no mask, no schedule:
+    the groups' weight_decay is not read), then lr."""
+
+    coupled_wd = False
+
+    def __init__(self, params, lr=1e-3, betas=BETAS, eps=1e-8, novograd_wd=0.0):
+        super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps,
+                                      novograd_wd=novograd_wd, weight_decay=0.0))
+
+    def _init(self, p, group):
+        return {"exp_avg": torch.zeros_like(p), "nu": torch.zeros((), dtype=p.dtype,
+                                                                   device=p.device)}
+
+    def _update(self, p, g, st, group, t):
+        b1, b2 = group["betas"]
+        n2 = norm(g) ** 2
+        nu = st["nu"]
+        nu.copy_(n2 if t == 1 else b2 * nu + (1 - b2) * n2)
+        add = g / (nu.sqrt() + group["eps"]) + group["novograd_wd"] * p
+        m = st["exp_avg"]
+        if t == 1:
+            m.copy_(add)
+        else:
+            m.mul_(b1).add_(add)
+        p.add_(m, alpha=-group["lr"])
+
+
+class Lamb(_PerTensor):
+    """LAMB as the JAX package chains it (optim.py:652-667):
+    ``scale_by_adam``, then + wd[t] * p under the mask (the group's
+    weight_decay), then ``scale_by_trust_ratio()`` (||p|| / ||u||, 1 where
+    either norm is 0), then lr."""
+
+    coupled_wd = False
+
+    def __init__(self, params, lr=1e-3, betas=BETAS, eps=1e-8, weight_decay=0.0):
+        super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps,
+                                      weight_decay=weight_decay))
+
+    def _init(self, p, group):
+        return {"exp_avg": torch.zeros_like(p), "exp_avg_sq": torch.zeros_like(p)}
+
+    def _update(self, p, g, st, group, t):
+        b1, b2 = group["betas"]
+        m, v = st["exp_avg"], st["exp_avg_sq"]
+        m.mul_(b1).add_(g, alpha=1 - b1)
+        v.mul_(b2).addcmul_(g, g, value=1 - b2)
+        u = (m / (1 - b1 ** t)) / ((v / (1 - b2 ** t)).sqrt() + group["eps"])
+        if group["weight_decay"]:
+            u = u + group["weight_decay"] * p
+        pn, un = norm(p), norm(u)
+        zero = (pn == 0) | (un == 0)
+        ratio = torch.where(zero, torch.ones_like(pn), pn / torch.where(zero, 1.0, un))
+        p.sub_(u * (ratio * group["lr"]))
+
+
+def adamp_fired(p: torch.Tensor, g: torch.Tensor, axis: int) -> tuple:
+    """AdamP's decision (optim.py:335-374): (bool tensor "the channel view
+    fires", bool tensor "the whole-tensor view fires"), each 0-d. The
+    channel view reduces over every dim but ``axis``; it fires where the
+    largest |cos(p, g)| over the channels is below 0.1 / sqrt(its size),
+    the whole view (only where the channel view did not) below 0.1 /
+    sqrt(numel)."""
+    red = tuple(d for d in range(p.ndim) if d != axis)
+    dim_ch = math.prod(p.shape[d] for d in red)
+
+    def cos(axes):
+        num = (p * g).sum(axes)
+        den = (p * p).sum(axes).sqrt() * (g * g).sum(axes).sqrt() + 1e-8
+        return (num / den).abs()
+
+    use_ch = cos(red).max() < ADAMP_DELTA / math.sqrt(dim_ch)
+    use_all = ~use_ch & (cos(tuple(range(p.ndim))) < ADAMP_DELTA / math.sqrt(p.numel()))
+    return use_ch, use_all
+
+
+class AdamP(_PerTensor):
+    """AdamP / SGDP (clovaai, arXiv:2006.08217) as ``scheduled_adamp``
+    builds them (optim.py:377-441): Nesterov Adam (or, with
+    ``sgd_momentum``, Nesterov SGD) directions; for tensors of 2+ dims the
+    radial component is projected out where :func:`adamp_fired` fires,
+    over the channel view or the whole tensor; decay is decoupled and
+    multiplicative, p *= 1 - lr * wd * ratio with ratio = 0.01 where the
+    projection fired and 1 elsewhere. ``axes`` maps each parameter to its
+    channel dim (:func:`channel_axes`). The last decision is kept in the
+    state as ``fired`` (0-d float: 1 = fired)."""
+
+    coupled_wd = False
+
+    def __init__(self, params, axes: dict, lr=1e-3, betas=BETAS, eps=1e-8,
+                 weight_decay=0.0, sgd_momentum=None):
+        super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps,
+                                      weight_decay=weight_decay, sgd_momentum=sgd_momentum))
+        self.axes = axes
+
+    def _init(self, p, group):
+        st = {"exp_avg": torch.zeros_like(p), "fired": torch.zeros((), device=p.device)}
+        if group["sgd_momentum"] is None:
+            st["exp_avg_sq"] = torch.zeros_like(p)
+        return st
+
+    def _update(self, p, g, st, group, t):
+        m = st["exp_avg"]
+        if group["sgd_momentum"] is not None:
+            mom = group["sgd_momentum"]
+            m.mul_(mom).add_(g)
+            d = g + mom * m
+        else:
+            b1, b2 = group["betas"]
+            v = st["exp_avg_sq"]
+            m.mul_(b1).add_(g, alpha=1 - b1)
+            v.mul_(b2).addcmul_(g, g, value=1 - b2)
+            c1 = 1 - b1 ** t
+            denom = (v / (1 - b2 ** t)).sqrt() + group["eps"]
+            d = (b1 * m / c1 + (1 - b1) * g / c1) / denom
+        ratio = 1.0
+        if p.ndim >= 2:
+            axis = self.axes[p]
+            use_ch, use_all = adamp_fired(p, g, axis)
+
+            def projected(axes):
+                pn = p / ((p * p).sum(axes, keepdim=True).sqrt() + 1e-8)
+                return d - pn * (pn * d).sum(axes, keepdim=True)
+
+            red = tuple(i for i in range(p.ndim) if i != axis)
+            d = torch.where(use_ch, projected(red),
+                            torch.where(use_all, projected(tuple(range(p.ndim))), d))
+            fired = use_ch | use_all
+            st["fired"].copy_(fired)
+            ratio = torch.where(fired, ADAMP_WD_RATIO, 1.0)
+        lr = group["lr"]
+        if group["weight_decay"]:
+            p.mul_(1 - lr * group["weight_decay"] * ratio)
+        p.add_(d, alpha=-lr)
+
+
+class Lookahead:
+    """timm's Lookahead (the ``lookahead_`` prefix, optim.py:462-494) over
+    any inner optimizer: every ``k``-th fast step, slow += alpha * (fast -
+    slow) and fast = slow. The slow weights start as the parameters at
+    construction. The groups are the inner optimizer's (``set_schedule``
+    writes into them), and the slow weights and the step count live in
+    :meth:`state_dict`, so a resume continues the same trajectory."""
+
+    def __init__(self, inner, k: int = 6, alpha: float = 0.5):
+        self.inner, self.k, self.alpha = inner, k, alpha
+        self.count = 0
+        self.slow = [p.detach().clone() for g in self.param_groups for p in g["params"]]
+
+    # the inner optimizer's, looked up each time: its load_state_dict
+    # replaces the group dicts
+    @property
+    def param_groups(self):
+        return self.inner.param_groups
+
+    @property
+    def state(self):
+        return self.inner.state
+
+    def zero_grad(self, set_to_none: bool = True):
+        self.inner.zero_grad(set_to_none=set_to_none)
+
+    @torch.no_grad()
+    def step(self):
+        self.inner.step()
+        self.count += 1
+        if self.count % self.k == 0:
+            fast = [p for g in self.param_groups for p in g["params"]]
+            for s, f in zip(self.slow, fast):
+                s.add_(f - s, alpha=self.alpha)
+                f.copy_(s)
+
+    def state_dict(self):
+        return {"inner": self.inner.state_dict(), "lookahead_count": self.count,
+                "lookahead_slow": self.slow}
+
+    def load_state_dict(self, state_dict):
+        self.inner.load_state_dict(state_dict["inner"])
+        self.count = int(state_dict["lookahead_count"])
+        for s, v in zip(self.slow, state_dict["lookahead_slow"]):
+            s.copy_(v)
+
+
+# ---------------------------------------------------------------------------
+# the factory
+# ---------------------------------------------------------------------------
+
+def resolve_name(opt: str) -> tuple:
+    """``--opt`` -> (base optimizer name, lookahead?): the last ``_`` part,
+    with the apex ``fused*`` names aliased (optim.py:525-552); raises for
+    adahessian and for a name the JAX package does not accept."""
+    parts = opt.lower().split("_")
+    name = FUSED_ALIASES.get(parts[-1], parts[-1])
+    if name == "adahessian":
+        raise ValueError(
+            "adahessian needs Hessian-diagonal estimates (a grad-of-grad pass over the "
+            "loss) and cannot be a pure gradient transformation; pick another --opt")
+    if name not in OPTIMIZERS:
+        raise ValueError(f"unsupported optimizer {opt!r}")
+    return name, len(parts) > 1 and parts[0] == "lookahead"
+
+
+def _groups(model, lr, weight_decay, skip_names, layer_decay, num_layers, freeze_backbone):
+    """One group per (lr scale, decays) in the order the parameters first
+    meet them, each with its ``lr_scale`` and ``decays``."""
     groups = {(1.0, True): [], (1.0, False): []}
     for name, p in model.named_parameters():
         if p.requires_grad:
@@ -99,13 +545,72 @@ def create_optimizer(model: torch.nn.Module, lr: float, weight_decay: float,
             else:
                 key = (lr_scale(name, layer_decay, num_layers), decays(name, p, skip_names))
             groups.setdefault(key, []).append(p)
-    return torch.optim.AdamW(
-        [{"params": ps, "weight_decay": weight_decay if dec else 0.0, "lr": lr * scale,
-          "lr_scale": scale, "decays": dec} for (scale, dec), ps in groups.items()],
-        lr=lr, betas=tuple(betas), eps=opt_eps)
+    return [{"params": ps, "weight_decay": weight_decay if dec else 0.0, "lr": lr * scale,
+             "lr_scale": scale, "decays": dec} for (scale, dec), ps in groups.items()]
 
 
-def set_schedule(optimizer: torch.optim.Optimizer, lr: float, wd: float) -> None:
+def create_optimizer(model: torch.nn.Module, lr: float, weight_decay: float,
+                     opt: str = "adamw", opt_eps: float = 1e-8,
+                     skip_names=SKIP_NAMES, layer_decay: Optional[float] = None,
+                     num_layers: int = 0, betas=BETAS, freeze_backbone: bool = False,
+                     momentum: float = 0.9, moment_dtype: Optional[torch.dtype] = None):
+    """The ``--opt`` optimizer over the model's trainable parameters (see
+    the module docstring for the names), one group per (lr scale, decays):
+    without layer decay group 0 decays and group 1 does not. Each group
+    carries its ``lr_scale`` and ``decays`` for :func:`set_schedule`.
+    ``freeze_backbone`` is the reference's linear probe
+    (run_class_finetuning.py:418-436): AdamW whatever ``opt`` says, lr scale
+    1 on ``head.*``, 0 on everything else (no layer decay, the default
+    decay split), so only the head moves. ``moment_dtype`` stores AdamW's
+    moments in that dtype (``--bf16_moments``; AdamW only). Novograd warns
+    that it cannot follow the weight-decay schedule the callers write
+    through :func:`set_schedule`, as the JAX package warns."""
+    name, with_lookahead = resolve_name(opt)
+    groups = _groups(model, lr, weight_decay, skip_names, layer_decay, num_layers,
+                     freeze_backbone)
+    betas = tuple(betas)
+    if freeze_backbone:
+        return torch.optim.AdamW(groups, lr=lr, betas=betas, eps=opt_eps)
+    if name == "adamw" and moment_dtype not in (None, torch.float32):
+        inner = AdamWLowPrecision(groups, lr=lr, betas=betas, eps=opt_eps,
+                                  moment_dtype=moment_dtype)
+    elif name == "adamw":
+        inner = torch.optim.AdamW(groups, lr=lr, betas=betas, eps=opt_eps)
+    elif name in ("sgd", "nesterov", "momentum"):
+        inner = torch.optim.SGD(groups, lr=lr, momentum=momentum,
+                                nesterov=name != "momentum" and momentum > 0)
+    elif name == "adam":
+        inner = torch.optim.Adam(groups, lr=lr, betas=betas, eps=opt_eps)
+    elif name == "nadam":
+        inner = torch.optim.NAdam(groups, lr=lr, betas=betas, eps=opt_eps,
+                                  momentum_decay=4e-3)
+    elif name == "radam":
+        inner = RAdam(groups, lr=lr, betas=betas, eps=opt_eps)
+    elif name == "adamp":
+        inner = AdamP(groups, channel_axes(model), lr=lr, betas=betas, eps=opt_eps)
+    elif name == "sgdp":
+        inner = AdamP(groups, channel_axes(model), lr=lr, sgd_momentum=momentum)
+    elif name == "adadelta":
+        inner = torch.optim.Adadelta(groups, lr=lr, rho=0.9, eps=1e-6)
+    elif name == "adafactor":
+        inner = Adafactor(groups, lr=lr)
+    elif name == "rmsprop":
+        inner = torch.optim.RMSprop(groups, lr=lr, alpha=0.9, eps=opt_eps, momentum=momentum)
+    elif name == "rmsproptf":
+        inner = RMSpropTF(groups, lr=lr, eps=opt_eps, momentum=momentum)
+    elif name in ("novograd", "nvnovograd"):
+        warnings.warn(
+            "novograd applies weight decay inside the normalized update "
+            "(optax.scale_by_novograd); the cosine --weight_decay_end schedule "
+            "cannot be threaded there and the CONSTANT --weight_decay is used "
+            "instead", stacklevel=2)
+        inner = NovoGrad(groups, lr=lr, betas=betas, eps=opt_eps, novograd_wd=weight_decay)
+    else:   # lamb
+        inner = Lamb(groups, lr=lr, betas=betas, eps=opt_eps)
+    return Lookahead(inner, k=6, alpha=0.5) if with_lookahead else inner
+
+
+def set_schedule(optimizer, lr: float, wd: float) -> None:
     """Write this step's lr * scale into every group and wd into the
     decaying ones."""
     for g in optimizer.param_groups:
@@ -114,15 +619,22 @@ def set_schedule(optimizer: torch.optim.Optimizer, lr: float, wd: float) -> None
             g["weight_decay"] = wd
 
 
+def state_bytes(optimizer) -> int:
+    """Bytes of every tensor in the optimizer's state (moments, buffers,
+    Lookahead's slow weights)."""
+    n = sum(v.numel() * v.element_size() for st in optimizer.state.values()
+            for v in st.values() if torch.is_tensor(v))
+    return n + sum(s.numel() * s.element_size() for s in getattr(optimizer, "slow", []))
+
+
 def clip_grad_global_norm(params: Iterable[torch.Tensor],
                           clip: Optional[float]) -> torch.Tensor:
     """The pre-clip global gradient norm (0-d f32 tensor on the grads'
     device); with ``clip > 0`` the grads are scaled in place by
     min(1, clip / (norm + 1e-6)). No host synchronisation."""
     grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    total = norm(torch.stack([norm(g) for g in grads]))
     if clip is not None and clip > 0:
-        factor = torch.clamp(clip / (norm + 1e-6), max=1.0)
+        factor = torch.clamp(clip / (total + 1e-6), max=1.0)
         torch._foreach_mul_(grads, factor)
-    return norm
+    return total

@@ -20,7 +20,7 @@ One pretraining train step: on-device preprocessing with the training augmentati
 forward (bf16 compute, f32 params; drop-path from a generator seeded by
 (seed, step)) -> cross-entropy at the masked positions -> backward (kernel
 K2b inside attention) -> the pre-clip global grad norm and the clip ->
-AdamW with this step's lr / wd. No loss scaling: bf16 has f32's exponent
+the ``--opt`` optimizer (AdamW by default) with this step's lr / wd. No loss scaling: bf16 has f32's exponent
 range, as in the reference. The step returns its metrics as 0-d device
 tensors and never waits on the device; the caller reads them when it logs.
 The reference's chained dispatch (``--steps_per_dispatch``) has no
@@ -44,7 +44,8 @@ train preprocessing (kernel K1) -> mixup / cutmix from the host's draws ->
 MLPs through K6f/K6b under the model toggles) -> cross-entropy (soft
 targets, label smoothing or hard labels) divided by ``update_freq`` ->
 backward, the gradients adding up; then the global grad norm, the clip,
-AdamW with this step's lr and wd, and the EMA of the parameters.
+the ``--opt`` optimizer (AdamW by default) with this step's lr and wd, and
+the EMA of the parameters.
 """
 from __future__ import annotations
 

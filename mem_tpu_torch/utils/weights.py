@@ -109,6 +109,57 @@ def normalize_backbone_state_dict(sd: Dict) -> Dict:
     return sd
 
 
+def load_timm_npz(path: str) -> Dict[str, np.ndarray]:
+    """An original jax-ViT ``.npz`` checkpoint (the format timm's
+    ``load_checkpoint`` reads for ``B_16-i1k``-style files) as a timm-named
+    dict in torch layouts, mem_tpu/utils/torch_import.py ``load_timm_npz``
+    (:295-364): ``embedding`` -> patch_embed.proj, ``cls`` -> cls_token,
+    ``Transformer/posembed_input/pos_embedding`` -> pos_embed,
+    ``encoderblock_N/LayerNorm_0|2`` -> norm1|norm2,
+    ``MultiHeadDotProductAttention_1/{query,key,value,out}`` -> the fused
+    qkv and proj, ``MlpBlock_3/Dense_0|1`` -> mlp.fc1|fc2,
+    ``Transformer/encoder_norm`` -> norm, and ``head`` / ``pre_logits``
+    under their timm names. A consumer takes the names it has, as the
+    reference's ``copy_tmpModelTimm_to_semsegBackbone`` does."""
+    z = np.load(path)
+    sd: Dict[str, np.ndarray] = {
+        "patch_embed.proj.weight": np.transpose(z["embedding/kernel"], (3, 2, 0, 1)),
+        "patch_embed.proj.bias": np.asarray(z["embedding/bias"]),
+        "cls_token": np.asarray(z["cls"]),
+        "pos_embed": np.asarray(z["Transformer/posembed_input/pos_embedding"]),
+        "norm.weight": np.asarray(z["Transformer/encoder_norm/scale"]),
+        "norm.bias": np.asarray(z["Transformer/encoder_norm/bias"]),
+    }
+    i = 0
+    while f"Transformer/encoderblock_{i}/LayerNorm_0/scale" in z:
+        b, t = f"Transformer/encoderblock_{i}", f"blocks.{i}"
+        for ln, src in (("norm1", "LayerNorm_0"), ("norm2", "LayerNorm_2")):
+            sd[f"{t}.{ln}.weight"] = np.asarray(z[f"{b}/{src}/scale"])
+            sd[f"{t}.{ln}.bias"] = np.asarray(z[f"{b}/{src}/bias"])
+        a = f"{b}/MultiHeadDotProductAttention_1"
+        D = z[f"{a}/query/kernel"].shape[0]
+        # (D, H, hd) kernels -> torch (D_out, D_in) rows, q; k; v fused
+        sd[f"{t}.attn.qkv.weight"] = np.concatenate(
+            [np.asarray(z[f"{a}/{n}/kernel"]).reshape(D, -1).T
+             for n in ("query", "key", "value")], axis=0)
+        sd[f"{t}.attn.qkv.bias"] = np.concatenate(
+            [np.asarray(z[f"{a}/{n}/bias"]).reshape(-1) for n in ("query", "key", "value")])
+        sd[f"{t}.attn.proj.weight"] = np.asarray(z[f"{a}/out/kernel"]).reshape(-1, D).T
+        sd[f"{t}.attn.proj.bias"] = np.asarray(z[f"{a}/out/bias"]).reshape(-1)
+        for fc, dense in (("fc1", "Dense_0"), ("fc2", "Dense_1")):
+            sd[f"{t}.mlp.{fc}.weight"] = np.asarray(z[f"{b}/MlpBlock_3/{dense}/kernel"]).T
+            sd[f"{t}.mlp.{fc}.bias"] = np.asarray(z[f"{b}/MlpBlock_3/{dense}/bias"])
+        i += 1
+    if i == 0:
+        raise ValueError(f"{path}: no Transformer/encoderblock_* entries -- not a jax-ViT "
+                         f"npz checkpoint")
+    for name, key in (("head", "head"), ("pre_logits.fc", "pre_logits")):
+        if f"{key}/kernel" in z:
+            sd[f"{name}.weight"] = np.asarray(z[f"{key}/kernel"]).T
+            sd[f"{name}.bias"] = np.asarray(z[f"{key}/bias"])
+    return sd
+
+
 def _timm_blocks(put, p, pattern):
     """The ``TimmBlock`` subtrees of ``p`` whose names match ``pattern`` (a
     regex with an optional ``decoder_`` group and the block index)."""

@@ -654,7 +654,7 @@ def test_cli_pretrained_runs_the_surgery(synth_seg_dataset, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("pretrained,exc,match", [
-    ("weights.npz", NotImplementedError, "item 8"),
+    ("weights.npz", FileNotFoundError, "weights.npz"),
     ("orbax_dir", ValueError, "export_torch"),
     ("PT21k", SystemExit, "timm hub"),
 ])
