@@ -112,6 +112,25 @@ run_mem_pretraining --bf16_moments 1 --pretrained 1 --init_ckpt <seeded
 timm .pth> takes two steps with exact launches; the B=128 pretraining step
 is timed with f32 and bf16 moments in turns (ms, peak memory, state bytes).
 
+The IMNET real-image path (run_imnet_slice, on a generator of its own, run
+last): ImageNet-like synthetic JPEGs (2 synsets, sides 256-500 px, 64 train
+and 16 val); preprocess_image_cls (the finetune's --aa
+rand-m9-mstd0.5-inc1 and RandomErasing) card vs CPU on one batch, one set of
+host draws and one erasing noise tensor, per sample and batch_ops, with a
+planted fault (the erasing box one row off on the card) that must fail the
+gate, then the card's own fill from the step's CUDA generator (N(0, 1)
+moments inside the boxes, the pixels outside unchanged; a planted const
+fill must fail the moments); one two-view pretraining step of pt_vit at full width (depth 2, B=2,
+the conf's tokenizer) card vs CPU in f32 and bf16 with a planted fault (the
+views swapped on the card), a depth-12 bf16 step with exact launches (K2f
+and K2b 12 times, no K1) on this thread and a fresh one; then
+run_mem_pretraining, run_class_finetuning (default --aa, --reprob 0.25,
+mixup on, EMA) and train_vae with --data_set IMNET at the conf's widths,
+each one epoch with exact launches, a finite loss and a checkpoint; the
+host feed's samples/s (the two-view and the classification iterators, the
+median and spread of several epochs after a warm-up one) and
+the bf16 IMNET pretraining step at B=128 (events, device ms, busy share).
+
 Between them it holds one VAE, one pretraining, one MAE, one segmentation
 and one finetune train step on the card (f32 and bf16) against the same step
 on the CPU (the VAE, pretraining and MAE steps on the CPU's images, tokens
@@ -833,6 +852,14 @@ def run(torch):
     finally:
         signal.signal(signal.SIGTERM, signal.SIG_DFL)   # the CLIs latched SIGTERM
         tools_tmp.cleanup()
+
+    # -- the IMNET real-image slice (its own generator) ------------------------
+    imnet_tmp = tempfile.TemporaryDirectory()
+    try:
+        run_imnet_slice(torch, dev, gpu, imnet_tmp.name)
+    finally:
+        signal.signal(signal.SIGTERM, signal.SIG_DFL)   # the CLIs latched SIGTERM
+        imnet_tmp.cleanup()
 
     def row(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms):
         return {"name": name, "route": "cuda", "source": f"mem_tpu_torch/csrc/{source}",
@@ -5500,6 +5527,431 @@ def run_tools_slice(torch, dev, gpu, tmp_root):
     say("tools_slice", seconds=dict(raw_to_card=round(t1 - t0, 2), optimizers=round(t2 - t1, 2),
                                     warm_start_cli=round(t3 - t2, 2),
                                     bf16_moments=round(t4 - t3, 2)))
+
+
+# ---------------------------------------------------------------------------
+# the IMNET real-image slice: JPEG two-view pretraining, the timm finetune and
+# the VAE on images
+# ---------------------------------------------------------------------------
+
+IMNET_CLASSES = ("n01440764", "n01443537")
+IMNET_PER_CLASS = {"train": 32, "val": 8}   # 64 train and 16 val JPEGs
+IMNET_CLI_B = 16         # the CLI runs' batch: 4 steps an epoch, one val batch
+IMNET_STEP_B = 2         # the card-vs-CPU pretraining step
+IMNET_TIME_B = 128       # the timed bf16 pretraining step
+IMNET_PRE_B = 8          # preprocess_image_cls card vs CPU
+IMNET_FEED_PASSES = 5    # timed epochs of each host iterator, after a warm-up one
+IMNET_FEED_SAMPLES = 320  # and at least this many samples
+# preprocess_image_cls card vs CPU on one batch, one set of draws and one
+# erasing noise tensor: RandAugment's rounds run in f32 and truncate to
+# uint8 once, so a sum taken in another order can flip one level at a few
+# pixels; everything after the uint8 stage is exact
+IMNET_IMG_TOL = 1.0 / 255 + 1e-6
+IMNET_IMG_FRAC = 1e-3
+# the card's own erasing fill from a CUDA generator: |mean| and |std - 1|
+# over the boxes' values (at least 24k at B=8, so 0.05 is over 7 sigma)
+IMNET_FILL_TOL = 0.05
+
+
+def write_imnet_jpegs(root, rng):
+    """ImageNet-like synthetic JPEGs: two synset folders, sides 256-500 px,
+    a per-class pattern under noise, in data_root/{train,val}."""
+    from PIL import Image
+
+    for split, n in IMNET_PER_CLASS.items():
+        for ci, cls in enumerate(IMNET_CLASSES):
+            d = os.path.join(root, split, cls)
+            os.makedirs(d, exist_ok=True)
+            for i in range(n):
+                h, w = (int(v) for v in rng.integers(256, 501, 2))
+                yy, xx = np.mgrid[:h, :w]
+                base = np.stack([(xx * (1 + ci) + yy) % 256, (2 * yy) % 256,
+                                 np.full((h, w), 60 + 120 * ci)], -1)
+                img = np.clip(base + rng.normal(0, 20, (h, w, 3)), 0, 255).astype(np.uint8)
+                Image.fromarray(img).save(os.path.join(d, f"{cls}_{i:04d}.JPEG"), quality=90)
+    say("imnet_inputs", classes=len(IMNET_CLASSES),
+        files={s: n * len(IMNET_CLASSES) for s, n in IMNET_PER_CLASS.items()},
+        sides=[256, 500], mb=round(sum(len(b) for b in tree_bytes(root).values()) / 2**20, 2))
+
+
+def write_seeded_vae(torch, path):
+    """A seeded VAE tokenizer .pth at the conf's size (224^2, 8192 tokens,
+    codebook 32, 4 layers, 3 ResBlocks, hidden 384)."""
+    from mem_tpu_torch.models.discrete_vae import DiscreteVAE
+
+    hp = dict(input_H=224, input_W=224, num_tokens=8192, emb_dim=32, num_layers=4,
+              num_resnet_blocks=3, hidden_dim=384, channels=3, loss="mse")
+    vae = DiscreteVAE((224, 224), num_tokens=8192, codebook_dim=32, num_layers=4,
+                      num_resnet_blocks=3, hidden_dim=384)
+    vae.init_weights(torch.Generator().manual_seed(21))
+    torch.save({"model": vae.state_dict(), "hparams": hp}, path)
+    return path
+
+
+@contextlib.contextmanager
+def fixed_fill(noise):
+    """Within the block, RandomErasing fills from ``noise`` (moved to the
+    batch's device) instead of drawing: one noise tensor for both sides."""
+    from mem_tpu_torch.ops import image_ops as I
+
+    real = I.fill_noise
+    I.fill_noise = lambda shape, generator, device, dtype: noise.to(device, dtype).expand(shape)
+    try:
+        yield
+    finally:
+        I.fill_noise = real
+
+
+def imnet_args(module, root, extra):
+    return module.get_args(["--config", "configs/ncaltech.conf", "--data_set", "IMNET",
+                            "--data_path", root] + extra)
+
+
+def erasing_mask(torch, draws, shape):
+    """(B, H, W) bool: the pixels inside a sample's erasing boxes, gate on."""
+    B, H, W = shape[:3]
+    use = torch.from_numpy(draws["er_use"]).reshape(B, 1, 1)
+    ys = torch.arange(H).reshape(1, H, 1)
+    xs = torch.arange(W).reshape(1, 1, W)
+    mask = torch.zeros(B, H, W, dtype=torch.bool)
+    for box in torch.from_numpy(draws["er_box"]).long().unbind(1):
+        t, l, hh, ww = (v.reshape(B, 1, 1) for v in box.unbind(1))
+        mask |= (ys >= t) & (ys < t + hh) & (xs >= l) & (xs < l + ww)
+    return mask & use
+
+
+def check_imnet_preprocess(torch, dev, root):
+    """preprocess_image_cls at B=8, 224^2 (the finetune's --aa
+    rand-m9-mstd0.5-inc1; RandomErasing at prob 1 so that every sample has a
+    box), card vs CPU on one host batch, one set of draws and one erasing
+    noise tensor, per-sample and batch_ops: exact after the uint8 stage up to
+    IMNET_IMG_TOL at IMNET_IMG_FRAC of the values. A planted fault, the
+    erasing box shifted by one row on the card, must fail the gate. Then the
+    card's own fill, drawn from the step's CUDA generator: inside the boxes
+    N(0, 1) moments within IMNET_FILL_TOL, outside them the fixed-fill
+    result exactly; a const fill (planted) must fail the moments."""
+    from mem_tpu_torch.cli import run_class_finetuning as F
+    from mem_tpu_torch.cli.common import imnet_aug, imnet_pipelines
+    from mem_tpu_torch.data.device_pipeline import draw_image_aug
+    from mem_tpu_torch.data.prefetch import to_device
+    from mem_tpu_torch.train.steps import step_generator
+
+    cpu = torch.device("cpu")
+    args = imnet_args(F, root, ["--reprob", "1.0"])
+    _, it, _, _ = imnet_pipelines(args, IMNET_PRE_B)
+    host = next(iter(it.epoch(0)))
+    noise = torch.randn(host["image"].shape, generator=torch.Generator().manual_seed(21))
+    out = {}
+    for batch_ops in (False, True):
+        image_preproc, settings = imnet_aug(args, batch_ops)
+        draws = draw_image_aug(host["aug_seed"], host["image"].shape[1:3], **settings)
+        shifted = draws["er_box"].copy()
+        top, h = shifted[..., 0], shifted[..., 2]
+        shifted[..., 0] = np.where(top + h < 224, top + 1, top - 1)
+        res = {}
+        for name, d, box in (("cpu", cpu, draws["er_box"]), ("card", dev, draws["er_box"]),
+                             ("box_shifted", dev, shifted)):
+            batch = to_device({**host, **draws, "er_box": box}, d)
+            with fixed_fill(noise):
+                res[name] = image_preproc(batch).cpu()
+        stats = {}
+        for name in ("card", "box_shifted"):
+            diff = (res[name] - res["cpu"]).abs()
+            stats[name] = dict(max_abs=diff.max().item(),
+                               frac_differing=(diff > 1e-6).float().mean().item())
+        key = "batch_ops" if batch_ops else "per_sample"
+        out[key] = stats
+        erased = (res["cpu"] < 0) | (res["cpu"] > 1)
+        say("imnet_preprocess_check", form=key, batch=IMNET_PRE_B, shape=list(host["image"].shape),
+            aa=args.aa, reprob=1.0, rand_aug_gate_share=float(draws["ra_gate"].mean()),
+            erased_share=erased.float().mean().item(), tol=IMNET_IMG_TOL,
+            frac_tol=IMNET_IMG_FRAC, **stats)
+        check(stats["card"]["max_abs"] <= IMNET_IMG_TOL
+              and stats["card"]["frac_differing"] <= IMNET_IMG_FRAC,
+              f"IMNET card images differ from the CPU's ({key}): {stats['card']}")
+        check(stats["box_shifted"]["max_abs"] > IMNET_IMG_TOL,
+              f"the image gate does not see the erasing box shifted by a row ({key})")
+        check(erased.any(dim=(1, 2, 3)).all().item(), f"an erasing box is missing ({key})")
+
+        inside = erasing_mask(torch, draws, host["image"].shape)
+        batch = to_device({**host, **draws}, dev)
+        fills = {}
+        for mode in (args.remode, "const"):
+            own = image_preproc(batch, remode=mode,
+                                generator=step_generator(args.seed, 0, dev)).cpu()
+            vals = own[inside]
+            fills[mode] = dict(mean=vals.mean().item(), std=vals.std().item(),
+                               values=vals.numel(),
+                               outside_equal=bool(torch.equal(own[~inside], res["card"][~inside])))
+        say("imnet_erasing_fill_check", form=key, generator="step_generator(seed, 0, cuda)",
+            tol=IMNET_FILL_TOL, **fills)
+        own = fills[args.remode]
+        check(abs(own["mean"]) <= IMNET_FILL_TOL and abs(own["std"] - 1) <= IMNET_FILL_TOL,
+              f"the card's erasing fill is not N(0, 1) ({key}): {own}")
+        check(own["outside_equal"], f"the card's own fill changed pixels outside its boxes ({key})")
+        planted = fills["const"]
+        check(abs(planted["std"] - 1) > IMNET_FILL_TOL,
+              f"the fill's moment gate does not see a const fill ({key})")
+        out[key]["fill"] = fills
+    return out
+
+
+def check_imnet_pretrain_step(torch, dev, gpu, root, vae_path):
+    """One make_pretrain_train_step of pt_vit at full width (ViT-B/16, 224^2,
+    vocab 8192), depth 2, B=2, drop-path 0, on a two-view IMNET host batch
+    with the conf's tokenizer: the tokens of vae_view card vs CPU; the step on
+    the CPU in f32 and on the card in f32 and bf16 on the CPU's tokens (the
+    loss and every gradient at the pretraining step's gates), and a planted
+    fault, the two views swapped on the card, that must fail the f32 gate.
+    Then one bf16 step at depth 12 with its launch counts (K2f and K2b 12
+    times, nothing else), and the same from a fresh thread."""
+    from mem_tpu_torch.cli import run_mem_pretraining as R
+    from mem_tpu_torch.cli.common import build_preproc, imnet_pipelines
+    from mem_tpu_torch.data.prefetch import to_device
+    from mem_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    cpu = torch.device("cpu")
+    flags = ["--discrete_vae_weight_path", vae_path, "--drop_path", "0",
+             "--batch_size", str(IMNET_STEP_B), "--dtype", "float32"]
+    args = imnet_args(R, root, flags + ["--transformer_depth", "2"])
+    _, it, _, _ = imnet_pipelines(args, IMNET_STEP_B, (14, 14))
+    host = next(iter(it.epoch(0)))
+    pp = build_preproc(args, True, color_jitter=args.color_jitter)
+    vae_cpu, vae_card = R.load_vae(args, cpu), R.load_vae(args, dev)
+    view = torch.from_numpy(host["vae_view"])
+    with torch.no_grad():
+        tok_cpu = vae_cpu.get_codebook_indices(view)
+        tok_card = vae_card.get_codebook_indices(view.to(dev)).cpu()
+    agree = (tok_cpu == tok_card).float().mean().item()
+    say("imnet_vae_tokens_check", tokens=tok_cpu.numel(), agree=agree, bound=VAE_TOKENS_AGREE,
+        distinct=int(tok_cpu.unique().numel()), min_distinct=VAE_MIN_DISTINCT)
+    check(agree >= VAE_TOKENS_AGREE, f"IMNET VAE tokens agree on {agree}")
+    check(tok_cpu.unique().numel() >= VAE_MIN_DISTINCT,
+          f"the seeded VAE gave {tok_cpu.unique().numel()} distinct tokens")
+
+    lr = np.array([args.lr])
+    fixed = _FixedTokens(tok_cpu)
+    out = {}
+    for name, d, dt, vae, swap in (("cpu_f32", cpu, torch.float32, vae_cpu, False),
+                                   ("card_f32", dev, torch.float32, fixed, False),
+                                   ("card_bf16", dev, torch.bfloat16, fixed, False),
+                                   ("views_swapped", dev, torch.float32, fixed, True)):
+        model, step, _ = make_step(torch, R, args, d, dt, vae, pp, lr)
+        batch = to_device(host, d)
+        if swap:
+            batch["patches"], batch["vae_view"] = batch["vae_view"], batch["patches"]
+        m = step(batch, 0)
+        out[name] = ({k: v.item() for k, v in m.items()},
+                     {n: p.grad.detach().float().cpu() for n, p in model.named_parameters()})
+        del model, step
+    ref = out["cpu_f32"][0]
+    loss_rel = {n: abs(out[n][0]["loss"] - ref["loss"]) / abs(ref["loss"])
+                for n in ("card_f32", "card_bf16")}
+    grads = {n: grad_rel(torch, out[n][1], out["cpu_f32"][1]) for n in out if n != "cpu_f32"}
+    say("imnet_train_step_check", model="pt_vit", embed_dim=args.transformer_emb, depth=2,
+        heads=args.transformer_heads, img=[224, 224], vocab=args.num_tokens,
+        batch=IMNET_STEP_B, metrics={n: v[0] for n, v in out.items()}, loss_rel=loss_rel,
+        grad_rel_l2_vs_cpu_f32=grads,
+        bounds=dict(f32_loss=STEP_F32_LOSS_REL, f32_grad=STEP_F32_GRAD_REL,
+                    bf16_loss=STEP_BF16_LOSS_REL, bf16_grad=STEP_BF16_GRAD_REL))
+    check(all(np.isfinite(v) for v in ref.values()), "IMNET CPU step metrics not finite")
+    check(loss_rel["card_f32"] <= STEP_F32_LOSS_REL, f"IMNET f32 step loss rel {loss_rel}")
+    check(grads["card_f32"]["max"] <= STEP_F32_GRAD_REL, f"IMNET f32 grads {grads['card_f32']}")
+    check(loss_rel["card_bf16"] <= STEP_BF16_LOSS_REL, f"IMNET bf16 step loss rel {loss_rel}")
+    check(grads["card_bf16"]["max"] <= STEP_BF16_GRAD_REL,
+          f"IMNET bf16 grads {grads['card_bf16']}")
+    check(grads["views_swapped"]["max"] > STEP_F32_GRAD_REL,
+          f"the gradient gate does not see the two views swapped: {grads['views_swapped']}")
+
+    # full depth, bf16: the launches of one step, on this thread and a fresh one
+    args12 = imnet_args(R, root, flags)
+    model, step, _ = make_step(torch, R, args12, dev, torch.bfloat16, vae_card, pp, lr)
+    batch = to_device(host, dev)
+    counts = {}
+
+    def one(tag):
+        reset_launch_counts()             # just before the step
+        m = step(batch, 0)
+        torch.cuda.synchronize()
+        counts[tag] = launch_counts()     # just after it
+        return m["loss"].item()
+
+    losses = {"main": one("main")}
+    fresh = {}
+    t = threading.Thread(target=lambda: fresh.update(loss=one("fresh_thread")), daemon=True)
+    t.start()
+    t.join(timeout=300)
+    check(not t.is_alive(), "the IMNET step on a fresh thread did not finish in 300 s")
+    losses["fresh_thread"] = fresh.get("loss")
+    want = {"fused_attention_flat": 12, "fused_attention_flat_bwd": 12}
+    say("imnet_step_launches", depth=12, dtype="bfloat16", batch=IMNET_STEP_B, launches=counts,
+        want=want, losses=losses)
+    check(counts.get("main") == want, f"the IMNET bf16 step launched {counts.get('main')}")
+    check(counts.get("fresh_thread") == want and losses["fresh_thread"] is not None
+          and np.isfinite(losses["fresh_thread"]),
+          f"the IMNET step from a fresh thread: {counts.get('fresh_thread')}, {losses}")
+    del model, step
+    torch.cuda.empty_cache()
+    return grads
+
+
+def run_imnet_clis(torch, root, vae_path, tmp_root):
+    """The three CLIs with --data_set IMNET on the card at the conf's full
+    width, one epoch of 4 steps (IMNET_CLI_B) each: run_mem_pretraining
+    (ViT-B/16, bf16, the seeded tokenizer, --dump_recon_dir), then
+    run_class_finetuning (ft_vit, the default --aa rand-m9-mstd0.5-inc1,
+    --reprob 0.25, mixup and cutmix on, EMA), then train_vae (hidden 384,
+    8192 tokens, an evaluation). Each must launch exactly: K2f once a block
+    per forward and K2b once a block per train step; the VAE nothing of the
+    port's. Returns each run's launch counts."""
+    from mem_tpu_torch.cli import run_class_finetuning as F
+    from mem_tpu_torch.cli import run_mem_pretraining as R
+    from mem_tpu_torch.cli import train_vae as T
+    from mem_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from mem_tpu_torch.utils.checkpoint import load_checkpoint
+
+    def drive(tag, module, flags):
+        out_dir = os.path.join(tmp_root, tag)
+        t0 = time.perf_counter()
+        reset_launch_counts()             # just before the main path
+        res = module.main(["--config", "configs/ncaltech.conf", "--data_set", "IMNET",
+                           "--data_path", root, "--output_dir", out_dir, "--epochs", "1",
+                           "--batch_size", str(IMNET_CLI_B), "--device", "cuda"] + flags)
+        counts = launch_counts()          # just after it
+        return res, counts, out_dir, round(time.perf_counter() - t0, 2)
+
+    dump = os.path.join(tmp_root, "imnet_dump")
+    hist, pt_counts, pt_dir, pt_s = drive("imnet_pt", R, [
+        "--discrete_vae_weight_path", vae_path, "--warmup_steps", "2",
+        "--dump_recon_dir", dump])
+    say("imnet_pretrain_cli", model="pt_vit", embed_dim=768, depth=12, heads=12, img=[224, 224],
+        batch=IMNET_CLI_B, steps=len(hist), losses=[h[1] for h in hist],
+        mlm_acc=[h[2] for h in hist], launches=pt_counts, checkpoints=sorted(os.listdir(pt_dir)),
+        panels=sorted(os.listdir(dump)), seconds=pt_s)
+    # 4 train steps and one val batch
+    check(pt_counts == {"fused_attention_flat": 12 * 5, "fused_attention_flat_bwd": 12 * 4},
+          f"the IMNET pretraining run launched {pt_counts}")
+    check(len(hist) == 4 and all(np.isfinite(h[1]) for h in hist), f"IMNET losses {hist}")
+    check("checkpoint-final.pth" in os.listdir(pt_dir) and "recon_ep0.png" in os.listdir(dump),
+          "the IMNET pretraining run wrote no checkpoint or panel")
+
+    ft, ft_counts, ft_dir, ft_s = drive("imnet_ft", F, [
+        "--update_freq", "1", "--mixup_prob", "1.0", "--warmup_steps", "2"])
+    say("imnet_finetune_cli", model="ft_vit", embed_dim=768, depth=12, heads=12, img=[224, 224],
+        classes=len(IMNET_CLASSES), batch=IMNET_CLI_B, aa="rand-m9-mstd0.5-inc1",
+        reprob=0.25, mixup_prob=1.0, history=ft["history"], evals=ft["evals"],
+        launches=ft_counts, checkpoints=sorted(os.listdir(ft_dir)), seconds=ft_s)
+    # 4 train steps; one val batch with the raw and with the EMA weights
+    check(ft_counts == {"fused_attention_flat": 12 * 6, "fused_attention_flat_bwd": 12 * 4},
+          f"the IMNET finetune run launched {ft_counts}")
+    check(ft["history"] and all(np.isfinite(h[1]) for h in ft["history"])
+          and np.isfinite(ft["evals"][0][1]["loss"]), f"IMNET finetune {ft}")
+    check("checkpoint-0.pth" in os.listdir(ft_dir), "the IMNET finetune wrote no checkpoint")
+
+    vh, vae_counts, vae_dir, vae_s = drive("imnet_vae", T, ["--eval_freq", "1"])
+    hp = load_checkpoint(os.path.join(vae_dir, "checkpoint-final.pth"))["hparams"]
+    say("imnet_vae_cli", hidden=384, tokens=8192, img=[224, 224], batch=IMNET_CLI_B,
+        dtype="bfloat16", losses=[h[1] for h in vh], launches=vae_counts, hparams=hp,
+        checkpoints=sorted(os.listdir(vae_dir)), seconds=vae_s)
+    check(vae_counts == {}, f"the IMNET VAE run launched {vae_counts}")
+    check(len(vh) == 4 and all(np.isfinite(h[1]) for h in vh), f"IMNET VAE losses {vh}")
+    check(hp["input_H"] == hp["input_W"] == 224, f"IMNET VAE hparams {hp}")
+    return {"pretrain": pt_counts, "finetune": ft_counts, "vae": vae_counts}
+
+
+def time_imnet(torch, dev, gpu, root, vae_path):
+    """The host feed: the two-view iterator (bicubic + lanczos views and the
+    block mask) and the classification iterator (train: RRC, flip; eval:
+    resize, center crop) in samples/s on this host's CPU, one thread: after
+    one warm-up epoch of the train split (the val split for eval), whole
+    epochs, at least IMNET_FEED_PASSES of them and IMNET_FEED_SAMPLES
+    samples; the median, the extremes and the spread (max - min) / median
+    over the passes. Then the bf16 IMNET
+    pretraining step at B=128 (ViT-B/16, depth 12, the seeded tokenizer):
+    ms by CUDA events (median of the last 7 of 10 steps on one batch), peak
+    memory, and a profile: device ms and busy share."""
+    from mem_tpu_torch.cli import run_class_finetuning as F
+    from mem_tpu_torch.cli import run_mem_pretraining as R
+    from mem_tpu_torch.cli.common import build_preproc, imnet_pipelines
+    from mem_tpu_torch.data.prefetch import to_device
+    from mem_tpu_torch.train.schedules import cosine_scheduler
+
+    def rate(it):
+        n_epoch = sum(len(b["label"]) for b in it.epoch(0))    # warm-up
+        passes = max(IMNET_FEED_PASSES, -(-IMNET_FEED_SAMPLES // n_epoch))
+        rates = []
+        for e in range(1, passes + 1):
+            t0 = time.perf_counter()
+            n = sum(len(b["label"]) for b in it.epoch(e))
+            rates.append(n / (time.perf_counter() - t0))
+        med = statistics.median(rates)
+        return dict(median=med, min=min(rates), max=max(rates),
+                    spread=(max(rates) - min(rates)) / med, passes=passes,
+                    samples=passes * n_epoch, rates=rates)
+
+    pt_args = imnet_args(R, root, ["--discrete_vae_weight_path", vae_path])
+    ft_args = imnet_args(F, root, [])
+    _, two_view, _, _ = imnet_pipelines(pt_args, IMNET_CLI_B, (14, 14))
+    _, cls_train, _, cls_val = imnet_pipelines(ft_args, IMNET_CLI_B)
+    feed = {name: rate(it) for name, it in (("two_view", two_view),
+                                                  ("cls_train", cls_train),
+                                                  ("cls_eval", cls_val))}
+    say("time_imnet_host_feed", gpu=gpu, cpus=os.cpu_count(), threads=1, img=[224, 224],
+        jpeg_sides=[256, 500], samples_per_s=feed)
+
+    _, big, _, _ = imnet_pipelines(pt_args, 64, (14, 14))
+    parts = [next(iter(big.epoch(e))) for e in range(2)]
+    host = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    vae = R.load_vae(pt_args, dev)
+    steps_n, warm = 10, 3
+    lr = cosine_scheduler(pt_args.lr, pt_args.min_lr, 1, steps_n + 100, warmup_steps=0)
+    model, step, _ = make_step(torch, R, pt_args, dev, torch.bfloat16, vae,
+                               build_preproc(pt_args, True), lr)
+    batch = to_device(host, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events, metrics = [], []
+    for i in range(steps_n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics.append(step(batch, i))
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    ms = statistics.median(a.elapsed_time(b) for a, b in events[warm:])
+    losses = [m["loss"].item() for m in metrics]
+    say("time_imnet_train_step", gpu=gpu, batch=IMNET_TIME_B, model="pt_vit", embed_dim=768,
+        depth=12, heads=12, dtype="bfloat16", ms=ms, samples_per_s=IMNET_TIME_B / ms * 1e3,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, losses=losses,
+        host_feed_two_view_samples_per_s=feed["two_view"]["median"])
+    check(all(np.isfinite(losses)), f"IMNET B=128 losses {losses}")
+    it = iter(range(steps_n, steps_n + 100))
+    prof = profile_seg_forward(torch, gpu, lambda: step(batch, next(it)), n=3,
+                               tag="imnet_pretrain_step_profile", batch=IMNET_TIME_B)
+    del model, step, batch
+    torch.cuda.empty_cache()
+    return feed, ms, prof
+
+
+def run_imnet_slice(torch, dev, gpu, tmp_root):
+    """The IMNET slice, its inputs drawn from a generator of its own."""
+    rng = np.random.default_rng(21)
+    root = os.path.join(tmp_root, "imagenet_jpeg")
+    t = [time.perf_counter()]
+    write_imnet_jpegs(root, rng)
+    vae_path = write_seeded_vae(torch, os.path.join(tmp_root, "imnet_vae_seed21.pth"))
+    t.append(time.perf_counter())
+    check_imnet_preprocess(torch, dev, root)
+    t.append(time.perf_counter())
+    check_imnet_pretrain_step(torch, dev, gpu, root, vae_path)
+    t.append(time.perf_counter())
+    counts = run_imnet_clis(torch, root, vae_path, tmp_root)
+    t.append(time.perf_counter())
+    time_imnet(torch, dev, gpu, root, vae_path)
+    t.append(time.perf_counter())
+    names = ("inputs", "preprocess", "pretrain_step", "clis", "timings")
+    say("imnet_slice", seconds={n: round(b - a, 2) for n, a, b in zip(names, t, t[1:])})
+    return counts
 
 
 def main() -> int:

@@ -6,12 +6,13 @@ Port of mem_tpu/cli/common.py with the same flag names and defaults, so
 """
 from __future__ import annotations
 
+import functools
 import os
 from typing import Optional, Tuple
 
 import torch
 
-from mem_tpu_torch.data.device_pipeline import PreprocConfig
+from mem_tpu_torch.data.device_pipeline import PreprocConfig, preprocess_image_cls
 from mem_tpu_torch.data.folder import NpyFolder, loader_for_path, resolve_split_root
 from mem_tpu_torch.data.pipeline import EventBatchIterator, PipelineConfig
 from mem_tpu_torch.models.registry import create_model
@@ -280,28 +281,134 @@ def warn_compat_args(args, compat_list) -> None:
         seen.add(dest)
 
 
+def parse_rand_aa(spec: Optional[str]):
+    """timm auto-augment spec -> (magnitude, num_ops, mstd) for
+    ops/rand_augment's ``timm_levels`` mode (common.py:255-281).
+
+    Only ``rand-*`` (RandAugment) specs are supported: the reference ships
+    only ``rand-m9-mstd0.5-inc1`` (run_class_finetuning.py:203) and its event
+    pipelines never read --aa. The semantics downstream are timm's: a fixed
+    level m of 10 with gaussian ``mstd`` jitter, per-op apply prob 0.5 (not
+    the event path's U[0, m] draw). ``inc`` is accepted and dropped: the
+    torchvision magnitude table's severity directions already match the
+    increasing variants. Returns None when the spec is empty or none
+    (ColorJitter applies instead, timm create_transform semantics)."""
+    if not spec or str(spec).lower() in ("none", "0", "false"):
+        return None
+    if not spec.startswith("rand"):
+        raise SystemExit(f"--aa: only rand-* (RandAugment) specs are supported, got {spec!r}")
+    mag, num_ops, mstd = 9, 2, 0.0  # timm _RAND_ defaults (mstd off)
+    for part in spec.split("-")[1:]:
+        if part.startswith("inc"):
+            continue
+        if part.startswith("mstd"):
+            mstd = float(part[4:])
+        elif part.startswith("m") and part[1:].isdigit():
+            mag = int(part[1:])
+        elif part.startswith("n") and part[1:].isdigit():
+            num_ops = int(part[1:])
+    return mag, num_ops, mstd
+
+
+def imnet_aug(args, batch_ops: bool = False):
+    """``(image_preproc, draw_settings)`` of a run's IMNET train batches, from
+    --aa, --reprob, --remode and --recount (run_class_finetuning.py:288-293):
+    the step's ``preprocess_image_cls`` with its flags bound, and the
+    keywords of ``draw_image_aug`` (``with_image_draws``) for the host."""
+    aa = parse_rand_aa(args.aa)
+    image_preproc = functools.partial(preprocess_image_cls, is_train=True,
+                                      rand_aug=aa is not None, reprob=args.reprob,
+                                      remode=args.remode)
+    draw_settings = dict(magnitude=aa[0] if aa else 0, num_ops=aa[1] if aa else 2,
+                         mstd=aa[2] if aa else 0.0, reprob=args.reprob, recount=args.recount,
+                         batch_ops=bool(batch_ops))
+    return image_preproc, draw_settings
+
+
+def imnet_pipelines(args, batch_size: int, window: Optional[Tuple[int, int]] = None):
+    """(train folder, train iterator, val folder, val iterator) of
+    ``--data_set IMNET`` over data_path/{train,val} (with the extracted_*
+    fallback; --eval_data_path is ignored, datasets.py:415-420). With
+    ``window`` the two-view pretraining iterator (run_mem_pretraining.py:
+    334-361): both views at --input_H (the reference hard-codes the
+    tokenizer view's 224, and --input_H2 never reaches the event VAE), the
+    block mask on ``window``. Without, the classification iterator of the
+    finetune and the VAE (run_class_finetuning.py:251-294, train_vae.py:
+    151-195): --input_size, ColorJitter only when --aa is off."""
+    from mem_tpu_torch.data.image_pipeline import (ImageBatchIterator, ImageFolder,
+                                                   ImagePipelineConfig)
+
+    if window is None and getattr(args, "eval_data_path", None):
+        print("note: --eval_data_path is ignored on --data_set IMNET "
+              "(reference datasets.py:415-420 uses data_path/{train,val})")
+    out = []
+    for split, is_train in (("train", True), ("val", False)):
+        folder = ImageFolder(resolve_split_root(args.data_path, split))
+        common = dict(batch_size=batch_size, is_train=is_train,
+                      interpolation=args.train_interpolation, seed=args.seed,
+                      shuffle=is_train, drop_last=is_train)
+        if window is not None:
+            cfg = ImagePipelineConfig(
+                input_size=args.input_H, second_size=args.input_H,
+                second_interpolation=args.second_interpolation, masking=args.masking,
+                window_size=window, num_mask_patches=args.num_mask_patches,
+                min_mask_patches_per_block=args.min_mask_patches_per_block,
+                max_mask_patches_per_block=args.max_mask_patches_per_block, **common)
+        else:
+            cfg = ImagePipelineConfig(
+                input_size=args.input_size, classification=True, masking=None,
+                color_jitter_cls=args.color_jitter,
+                use_color_jitter_cls=parse_rand_aa(args.aa) is None,  # timm: aa replaces CJ
+                **common)
+        out += [folder, ImageBatchIterator(folder, cfg)]
+    return tuple(out)
+
+
 def add_imnet_args(parser, stage: str = "pretrain") -> None:
-    """The ``--data_set IMNET`` knobs of the pretraining, the finetune or
-    the VAE CLI (``stage`` "pretrain", "finetune" or "vae"; common.py:348-392),
-    declared so .conf files bind; the IMNET path itself raises."""
+    """The timm-path knobs for ``--data_set IMNET`` (real-image baseline runs;
+    reference run_class_finetuning.py:201-223, run_mem_pretraining.py:79-123,
+    train_vae.py:74-100) of the pretraining, the finetune or the VAE CLI
+    (``stage`` "pretrain", "finetune" or "vae"; common.py:348-392). On the
+    event (.npy) datasets the reference ignores every one of them
+    (build_transformNPY never reads them), and so does the port; they bind
+    only on the IMNET image path."""
     a = parser.add_argument
-    a("--input_size", type=int, default=224)
-    a("--imagenet_default_mean_and_std", action="store_true", default=False)
-    a("--resize", action="store_true", default=False)
+    a("--input_size", type=int, default=224,
+      help="IMNET image side (event paths use --input_H/--input_W)")
+    a("--imagenet_default_mean_and_std", action="store_true", default=False,
+      help="reference e2v path hardcodes mean=0/std=1 regardless "
+           "(datasets.py:356-357); accepted for compatibility")
+    a("--resize", action="store_true", default=False,
+      help="reference: prepends FixedResizeTransform(2) in the dead "
+           "build_transform_e2v2 path (datasets.py:334-340); accepted and inert, "
+           "see mem_tpu_torch.data.extra_transforms.fixed_resize")
     if stage == "pretrain":
-        a("--train_interpolation", type=str, default="bicubic")
-        a("--second_interpolation", type=str, default="lanczos")
-        a("--input_H2", type=int, default=128)
+        a("--train_interpolation", type=str, default="bicubic",
+          help="first-view resample filter (bilinear|bicubic|lanczos|random)")
+        a("--second_interpolation", type=str, default="lanczos",
+          help="tokenizer-view resample filter")
+        a("--input_H2", type=int, default=128,
+          help="inert, reference-faithfully: run_mem_pretraining.py:269 "
+               "feeds it to create_d_vae, which DROPS image_size for the "
+               "event VAE (utils.py:571-578), and the IMNET two-view "
+               "transform hardcodes second_size=224 (datasets.py:92-95); "
+               "the IMNET tokenizer view likewise uses --input_H")
         a("--input_W2", type=int, default=128)
     else:
         a("--train_interpolation", "--train-interpolation", type=str, default="bicubic")
-        a("--aa", type=str, default="rand-m9-mstd0.5-inc1")
-        a("--reprob", type=float, default=0.25)
+        a("--aa", type=str, default="rand-m9-mstd0.5-inc1",
+          help="timm AutoAugment spec for the IMNET train path; rand-* specs "
+               "map onto ops/rand_augment's timm level mode")
+        a("--reprob", type=float, default=0.25,
+          help="random-erasing probability (IMNET train path)")
         a("--remode", type=str, default="pixel")
         a("--recount", type=int, default=1)
         a("--resplit", action="store_true", default=False)
     if stage == "finetune":
-        a("--crop_pct", type=float, default=None)
+        a("--crop_pct", type=float, default=None,
+          help="reference quirk preserved: build_transform_e2v overwrites "
+               "crop_pct to None then derives 224/256 (datasets.py:379-382), "
+               "so the flag value never matters")
 
 
 def add_preprocessing_args(parser) -> None:

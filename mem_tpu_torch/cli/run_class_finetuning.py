@@ -31,6 +31,13 @@ x}``; ``--auto_resume`` continues from the highest numbered one, and
 setting resumes too: a missing EMA is re-seeded from the restored weights, a
 surplus one is dropped.
 
+``--data_set IMNET`` finetunes on a JPEG class tree (data_path/{train,val})
+instead, the reference's real-image baseline (build_transform_e2v): the host
+decodes, crops, flips and resizes to ``--input_size`` (ColorJitter only when
+``--aa`` is off) and draws the augmentations; the device runs the ``--aa``
+RandAugment in timm's level mode and ``--reprob`` RandomErasing
+(data/device_pipeline.preprocess_image_cls), then the same step.
+
 Usage:
   python -m mem_tpu_torch.cli.run_class_finetuning --config configs/ncaltech.conf \\
       --data_path datasets/ncaltech101 --finetune pt_out/checkpoint-final.pth \\
@@ -53,8 +60,10 @@ import torch
 
 from mem_tpu_torch.cli.common import (add_compat_args, add_imnet_args, add_preprocessing_args,
                                       build_classifier, build_pipeline, build_preproc,
-                                      resolve_device, validate_preproc_args, warn_compat_args)
-from mem_tpu_torch.data.device_pipeline import draw_train_aug, preprocess_batch
+                                      imnet_aug, imnet_pipelines, resolve_device,
+                                      validate_preproc_args, warn_compat_args)
+from mem_tpu_torch.data.device_pipeline import (draw_train_aug, preprocess_batch,
+                                                with_image_draws)
 from mem_tpu_torch.data.prefetch import device_prefetch, prefetch, to_device
 from mem_tpu_torch.train.mixup import draw_mixup, make_mixup
 from mem_tpu_torch.train.optim import SKIP_NAMES, create_optimizer
@@ -191,8 +200,6 @@ def get_args(argv=None):
 def check_ported(args) -> None:
     """Raise for the options whose slice of the port has not landed."""
     todo = [
-        (args.data_set == "IMNET", "--data_set IMNET (the real-image baseline) comes with "
-                                   "the IMNET slice of the port (ROADMAP queue 1, item 16)"),
         (args.int8, "--int8 1 (W8A8 eval forwards) comes with the int8 slice of the port "
                     "(ROADMAP queue 1, item 14)"),
         (args.zero1 or args.fsdp, "--zero1/--fsdp come with the multi-GPU slice of the "
@@ -201,7 +208,7 @@ def check_ported(args) -> None:
     for flag, msg in todo:
         if flag:
             raise NotImplementedError(msg)
-    if args.data_set not in ("npy", "image_folder", "dsec_semseg"):
+    if args.data_set not in ("npy", "image_folder", "dsec_semseg", "IMNET"):
         raise NotImplementedError(f"data_set {args.data_set!r}")
     if args.log_dir:
         print("note: --log_dir is not ported and has no effect")
@@ -258,16 +265,22 @@ def load_mae_finetune_checkpoint(model, path: str, model_key: str, window,
     model.load_state_dict({k: torch.from_numpy(v) for k, v in merged.items()}, strict=True)
 
 
-def _with_draws(it, preproc, mixup, seed: int):
-    """Add the host augmentation draws, and with ``mixup`` its draws, to each
-    training micro-batch."""
+def _with_draws(it, preproc, mixup, seed: int, image_draw=None):
+    """Add the host augmentation draws (an IMNET batch's through
+    ``with_image_draws`` with ``image_draw``, ``draw_image_aug``'s
+    settings), and with ``mixup`` its draws, to each training micro-batch."""
+    if image_draw is not None:
+        it = with_image_draws(it, **image_draw)
     for batch in it:
-        batch.update(draw_train_aug(batch["aug_seed"], preproc,
-                                    preproc.canvas_h, preproc.canvas_w))
+        if image_draw is not None:
+            hw = batch["image"].shape[1:3]
+        else:
+            batch.update(draw_train_aug(batch["aug_seed"], preproc,
+                                        preproc.canvas_h, preproc.canvas_w))
+            hw = (preproc.input_h, preproc.input_w)
         if mixup is not None:
             seeds = np.asarray(batch["aug_seed"]).reshape(-1)
-            batch.update(draw_mixup(mixup, (int(seed), int(seeds[0])), len(seeds),
-                                    preproc.input_h, preproc.input_w))
+            batch.update(draw_mixup(mixup, (int(seed), int(seeds[0])), len(seeds), *hw))
         yield batch
 
 
@@ -298,10 +311,17 @@ def main(argv=None):
     os.makedirs(args.output_dir, exist_ok=True)
     micro_bs = args.batch_size // args.update_freq
 
-    ds_train, train_it = build_pipeline(args, "train", True, micro_bs, seed=args.seed,
+    image_draw = image_preproc = None
+    if args.data_set == "IMNET":
+        # the host decodes, crops and resizes; the device runs --aa and
+        # --reprob (run_class_finetuning.py:251-294)
+        ds_train, train_it, ds_val, val_it = imnet_pipelines(args, micro_bs)
+        image_preproc, image_draw = imnet_aug(args, args.rand_aug_batch_ops)
+    else:
+        ds_train, train_it = build_pipeline(args, "train", True, micro_bs, seed=args.seed,
+                                            num_workers=args.num_workers)
+        ds_val, val_it = build_pipeline(args, "val", False, micro_bs, seed=args.seed,
                                         num_workers=args.num_workers)
-    ds_val, val_it = build_pipeline(args, "val", False, micro_bs, seed=args.seed,
-                                    num_workers=args.num_workers)
     preproc_train = build_preproc(args, True, color_jitter=args.color_jitter)
     preproc_val = build_preproc(args, False)
     nb_classes = args.nb_classes or ds_train.nb_classes
@@ -355,7 +375,7 @@ def main(argv=None):
         model, optimizer, preproc_train, nb_classes, lr_sched, wd_sched, mixup=mixup,
         smoothing=args.smoothing, update_freq=args.update_freq, ema=ema,
         ema_decay=args.model_ema_decay if use_ema else None, clip_grad=args.clip_grad,
-        seed=args.seed + 2)
+        seed=args.seed + 2, image_preproc=image_preproc)
     eval_step = make_finetune_eval_step(model, preproc_val)
 
     start_epoch = args.start_epoch
@@ -444,9 +464,12 @@ def main(argv=None):
         from mem_tpu_torch.utils.visualize import dump_sample_panels
 
         idx = 0
-        for batch in _with_draws(train_it.epoch(0), preproc_train, None, args.seed):
+        for batch in _with_draws(train_it.epoch(0), preproc_train, None, args.seed,
+                                 image_draw):
+            batch = to_device(batch, device)
             with torch.no_grad():
-                imgs = preprocess_batch(to_device(batch, device), preproc_train, True)
+                imgs = (image_preproc(batch) if image_preproc is not None
+                        else preprocess_batch(batch, preproc_train, True))
             take = min(args.dump_samples_n - idx, int(imgs.shape[0]))
             idx = dump_sample_panels(args.dump_samples_dir, imgs.float().cpu().numpy()[:take],
                                      start=idx)
@@ -465,7 +488,8 @@ def main(argv=None):
         logger = MetricLogger()
         t0 = time.time()
         micro = device_prefetch(
-            prefetch(_with_draws(train_it.epoch(epoch), preproc_train, mixup, args.seed)),
+            prefetch(_with_draws(train_it.epoch(epoch), preproc_train, mixup, args.seed,
+                                 image_draw)),
             device)
         for i, micros in enumerate(_grouped(micro, args.update_freq)):
             it = epoch * steps_per_epoch + i

@@ -34,6 +34,15 @@ and no ``mlm_acc``; ``--dump_recon_dir`` is ignored, as in the reference. Its
 checkpoints hold the state_dict in the ``export_mae_params`` schema, which
 ``run_class_finetuning --MAE 1 --finetune`` loads.
 
+``--data_set IMNET`` pretrains on a JPEG class tree (data_path/{train,val})
+instead: the host makes two views of one random-resized-crop window
+(DataAugmentationForPTE2V: ColorJitter 0.4 and a flip first), the
+``--train_interpolation`` one for the model and the
+``--second_interpolation`` one for the tokenizer, both at ``--input_H``, and
+the block mask; the step takes them as they are (no event preprocessing, no
+K1). The ``--dump_recon_dir`` panels show the tokenizer's view. ``--MAE 1``
+with IMNET is refused, as the reference asserts.
+
 Usage:
   python -m mem_tpu_torch.cli.run_mem_pretraining --config configs/ncaltech.conf \\
       --data_path datasets/ncaltech101 --discrete_vae_weight_path vae.pth \\
@@ -54,8 +63,8 @@ import numpy as np
 import torch
 
 from mem_tpu_torch.cli.common import (add_compat_args, add_imnet_args, add_preprocessing_args,
-                                      build_pipeline, build_preproc, resolve_device,
-                                      validate_preproc_args, warn_compat_args)
+                                      build_pipeline, build_preproc, imnet_pipelines,
+                                      resolve_device, validate_preproc_args, warn_compat_args)
 from mem_tpu_torch.data.device_pipeline import preprocess_batch, with_train_draws
 from mem_tpu_torch.data.prefetch import device_prefetch, prefetch, to_device
 from mem_tpu_torch.models.discrete_vae import DiscreteVAE
@@ -179,8 +188,6 @@ def check_ported(args) -> None:
         raise ValueError("--pretrained 1 --init_ckpt warm-starts the BEiT encoder of pt_vit "
                          "(run_mem_pretraining.py:194-222); the MAE has no such path")
     todo = [
-        (args.data_set == "IMNET", "--data_set IMNET (real-image pretraining) comes with "
-                                   "the IMNET slice of the port (ROADMAP queue 1, item 16)"),
         (args.tp > 1 or args.zero1 or args.fsdp,
          "--tp/--zero1/--fsdp come with the multi-GPU slice of the port "
          "(ROADMAP queue 1, item 15)"),
@@ -264,7 +271,10 @@ def _dump_recon_panel(args, vae, preproc, batch: dict, tag: str) -> None:
     (run_mem_pretraining.py:288-313)."""
     os.makedirs(args.dump_recon_dir, exist_ok=True)
     with torch.no_grad():
-        imgs = preprocess_batch(batch, preproc, is_train=False)[:8]
+        if "vae_view" in batch:     # IMNET: the tokenizer's view
+            imgs = batch["vae_view"][:8]
+        else:
+            imgs = preprocess_batch(batch, preproc, is_train=False)[:8]
         recon = vae.decode_indices(vae.get_codebook_indices(imgs))
     imgs, recon = imgs.float().cpu().numpy(), recon.float().cpu().numpy()
     save_png(os.path.join(args.dump_recon_dir, f"recon_{tag}.png"),
@@ -293,12 +303,16 @@ def main(argv=None):
     patch = 2 ** args.num_layers
     window = (args.input_H // patch, args.input_W // patch)
     masking = None if args.MAE else args.masking
-    _, train_it = build_pipeline(args, "train", True, args.batch_size, masking=masking,
-                                 window_size=window, seed=args.seed,
-                                 num_workers=args.num_workers)
-    _, val_it = build_pipeline(args, "val", False, args.batch_size, masking=masking,
-                               window_size=window, seed=args.seed,
-                               num_workers=args.num_workers)
+    imnet = args.data_set == "IMNET"
+    if imnet:
+        _, train_it, _, val_it = imnet_pipelines(args, args.batch_size, window)
+    else:
+        _, train_it = build_pipeline(args, "train", True, args.batch_size, masking=masking,
+                                     window_size=window, seed=args.seed,
+                                     num_workers=args.num_workers)
+        _, val_it = build_pipeline(args, "val", False, args.batch_size, masking=masking,
+                                   window_size=window, seed=args.seed,
+                                   num_workers=args.num_workers)
     preproc_train = build_preproc(args, True, color_jitter=args.color_jitter)
     preproc_val = build_preproc(args, False)
 
@@ -377,8 +391,9 @@ def main(argv=None):
                   f"lr: {at(lr_sched, it):.6e}", flush=True)
             return float(ms["grad_norm"].max())
 
+        host = train_it.epoch(epoch)   # IMNET: the views need no draws
         batches = device_prefetch(
-            prefetch(with_train_draws(train_it.epoch(epoch), preproc_train)), device)
+            prefetch(host if imnet else with_train_draws(host, preproc_train)), device)
         for i, batch in enumerate(batches):
             it = epoch * steps_per_epoch + i
             pending.append((it, train_step(batch, it)))

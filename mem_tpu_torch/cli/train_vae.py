@@ -21,6 +21,13 @@ reconstruction MSE and the codebook usage are printed, and with
 ``checkpoint-final.pth`` (``{"model", "epoch", "hparams"}``), which
 ``run_mem_pretraining --discrete_vae_weight_path`` loads as it is.
 
+``--data_set IMNET`` trains the VAE on a JPEG class tree (data_path/{train,
+val}) through the finetune stage's transform (build_transform_e2v): the host
+crops, flips and resizes to ``--input_size`` and draws the augmentations,
+the device runs the ``--aa`` RandAugment and ``--reprob`` RandomErasing
+(data/device_pipeline.preprocess_image_cls). ``--input_H`` / ``--input_W``
+become ``--input_size``, so the checkpoint's hparams match the images.
+
 Usage:
   python -m mem_tpu_torch.cli.train_vae --config configs/ncaltech.conf \\
       --data_path datasets/ncaltech101 --output_dir vae_out [--device cuda]
@@ -39,9 +46,9 @@ import time
 import torch
 
 from mem_tpu_torch.cli.common import (add_compat_args, add_imnet_args, add_preprocessing_args,
-                                      build_pipeline, build_preproc, resolve_device,
-                                      validate_preproc_args, warn_compat_args)
-from mem_tpu_torch.data.device_pipeline import with_train_draws
+                                      build_pipeline, build_preproc, imnet_aug, imnet_pipelines,
+                                      resolve_device, validate_preproc_args, warn_compat_args)
+from mem_tpu_torch.data.device_pipeline import with_image_draws, with_train_draws
 from mem_tpu_torch.data.prefetch import device_prefetch, prefetch, to_device
 from mem_tpu_torch.models.discrete_vae import DiscreteVAE
 from mem_tpu_torch.train.schedules import VaeAnnealState
@@ -127,10 +134,7 @@ def get_args(argv=None):
 
 def check_ported(args) -> None:
     """Raise for the data sets the port does not train on."""
-    if args.data_set == "IMNET":
-        raise NotImplementedError("--data_set IMNET (the VAE on real images) comes with the "
-                                  "IMNET slice of the port (ROADMAP queue 1, item 16)")
-    if args.data_set not in ("npy", "image_folder", "dsec_semseg"):
+    if args.data_set not in ("npy", "image_folder", "dsec_semseg", "IMNET"):
         raise NotImplementedError(f"data_set {args.data_set!r}")
     if args.wandb:
         print("note: --wandb is not ported and has no effect (ROADMAP queue 1, item 18)")
@@ -188,10 +192,21 @@ def main(argv=None):
     validate_rss_flag(args.rss_restart_gb)
     device = resolve_device(args.device)
     os.makedirs(args.output_dir, exist_ok=True)
-    _, train_it = build_pipeline(args, "train", True, args.batch_size, seed=args.seed,
-                                 num_workers=args.num_workers)
-    _, val_it = build_pipeline(args, "val", False, args.batch_size, seed=args.seed,
-                               num_workers=args.num_workers)
+    image_draw = image_preproc = None
+    if args.data_set == "IMNET":
+        # the finetune stage's transform (train_vae.py:151-195); no
+        # --rand_aug_batch_ops here, as in the reference
+        _, train_it, _, val_it = imnet_pipelines(args, args.batch_size)
+        image_preproc, image_draw = imnet_aug(args)
+        # the VAE sees input_size^2 images: keep the checkpoint's hparams
+        # coherent, and validate the extents again on the new values
+        args.input_H = args.input_W = args.input_size
+        validate_preproc_args(args, train=True)
+    else:
+        _, train_it = build_pipeline(args, "train", True, args.batch_size, seed=args.seed,
+                                     num_workers=args.num_workers)
+        _, val_it = build_pipeline(args, "val", False, args.batch_size, seed=args.seed,
+                                   num_workers=args.num_workers)
     preproc_train, preproc_val = build_preproc(args, True), build_preproc(args, False)
 
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
@@ -203,7 +218,8 @@ def main(argv=None):
 
     optimizer = torch.optim.Adam(vae.parameters(), lr=args.learning_rate, betas=(0.9, 0.999),
                                  eps=1e-8)
-    train_step = make_vae_train_step(vae, optimizer, preproc_train, args.clip, args.seed)
+    train_step = make_vae_train_step(vae, optimizer, preproc_train, args.clip, args.seed,
+                                     image_preproc=image_preproc)
     eval_step = make_vae_eval_step(vae, preproc_val)
     sched = VaeAnnealState(args.learning_rate, args.lr_decay_rate, args.starting_temp,
                            args.anneal_rate, args.temp_min)
@@ -242,8 +258,10 @@ def main(argv=None):
             print(f"Epoch: [{epoch}] [{i}/{steps_per_epoch}] loss: {loss:.4f} "
                   f"grad_norm: {gnorm:.4f} lr: {lr:.6e}", flush=True)
 
+        host = train_it.epoch(epoch)
         batches = device_prefetch(
-            prefetch(with_train_draws(train_it.epoch(epoch), preproc_train)), device)
+            prefetch(with_image_draws(host, **image_draw) if image_draw is not None
+                     else with_train_draws(host, preproc_train)), device)
         for i, batch in enumerate(batches):
             it = sched.global_step
             pending.append((it, sched.lr, train_step(batch, it, sched.lr, sched.temp)))

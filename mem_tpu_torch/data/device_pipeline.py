@@ -19,6 +19,12 @@ drawn on the host from the same ``aug_seed`` by :func:`draw_train_aug`
 (numpy, the same distributions) and ride in the batch, so the CPU and the
 card augment a batch identically. ``preprocess_batch(is_train=True)``
 raises when they are missing.
+
+The IMNET image path has no events: the host decodes, crops and resizes
+(data/image_pipeline.py) and :func:`preprocess_image_cls` runs the train
+stack of build_transform_e2v on the device: ToUint8, timm-level
+RandAugment at prob 0.5, ToFloat32, RandomErasing, at the host draws of
+:func:`draw_image_aug`.
 """
 from __future__ import annotations
 
@@ -113,7 +119,7 @@ def draw_train_aug(aug_seed: np.ndarray, cfg: PreprocConfig, H: int, W: int) -> 
                    rng.integers(0, max(W - cfg.input_w, 0) + 1))
     batch_rng = (np.random.default_rng((seeds[0], 0x5EED))
                  if cfg.rand_aug_batch_ops else None)
-    ops, bins, signs, batch_ops = draw_rand_augment(rngs, RAND_AUG_NUM_OPS,
+    ops, bins, signs, _, batch_ops = draw_rand_augment(rngs, RAND_AUG_NUM_OPS,
                                                     cfg.rand_aug_magnitude, batch_rng)
     s = float(cfg.color_jitter)
     lo = max(0.0, 1.0 - s)
@@ -135,12 +141,12 @@ def with_train_draws(batches, cfg: PreprocConfig):
         yield batch
 
 
-def _train_draws(batch: dict, keys):
+def _train_draws(batch: dict, keys, drawer: str = "draw_train_aug(batch['aug_seed'], cfg, H, W)"):
     missing = [k for k in keys if k not in batch]
     if missing:
         raise ValueError(
-            f"preprocess_batch(is_train=True) needs the host augmentation draws "
-            f"{missing}: add draw_train_aug(batch['aug_seed'], cfg, H, W) to the batch")
+            f"training preprocessing needs the host augmentation draws {missing}: "
+            f"add {drawer} to the batch")
     return [batch[k] for k in keys]
 
 
@@ -196,4 +202,93 @@ def preprocess_batch(batch: dict, cfg: PreprocConfig, is_train: bool) -> torch.T
     if is_train and cfg.color_jitter > 0:
         bf, sf, order = _train_draws(batch, ("cj_brightness", "cj_saturation", "cj_order"))
         x = I.color_jitter_batch(x, bf, sf, order)
+    return x
+
+
+def draw_image_aug(aug_seed: np.ndarray, hw, magnitude: int = 9, num_ops: int = 2,
+                   mstd: float = 0.5, reprob: float = 0.25, recount: int = 1,
+                   batch_ops: bool = False) -> dict:
+    """Host draws of :func:`preprocess_image_cls` for one batch of (H, W) =
+    ``hw`` images, from each sample's ``aug_seed`` (device_pipeline.py:
+    208-239 draws them from jax.random keys folded with 1 and 2):
+
+      ra_ops / ra_bins / ra_signs (B, num_ops) int32, ra_gate (B, num_ops) bool
+                             timm-level RandAugment at prob 0.5 from
+                             (aug_seed, 1) (ops/rand_augment.draw_rand_augment)
+      ra_batch_ops (num_ops,) int32  with ``batch_ops``: each round's op, shared
+                             by the batch, from (aug_seed[0], 0x5EED)
+      er_use (B,) bool, er_box (B, recount, 4) int32
+                             RandomErasing's gate and boxes from (aug_seed, 2)
+                             (ops/image_ops.draw_random_erasing)
+
+    The distributions are the reference's; the bits are numpy's."""
+    seeds = [int(s) for s in np.asarray(aug_seed).reshape(-1)]
+    H, W = int(hw[0]), int(hw[1])
+    batch_rng = np.random.default_rng((seeds[0], 0x5EED)) if batch_ops else None
+    ops, bins, signs, gate, b_ops = draw_rand_augment(
+        [np.random.default_rng((s, 1)) for s in seeds], num_ops, magnitude, batch_rng,
+        timm_levels=True, mstd=mstd, prob=0.5)
+    out = {"ra_ops": ops, "ra_bins": bins, "ra_signs": signs, "ra_gate": gate}
+    if b_ops is not None:
+        out["ra_batch_ops"] = b_ops
+    out.update(I.draw_random_erasing([np.random.default_rng((s, 2)) for s in seeds], H, W,
+                                   reprob, recount))
+    return out
+
+
+def with_image_draws(batches, **settings):
+    """Add :func:`draw_image_aug`'s draws, made with ``settings`` (its
+    keywords after ``hw``), to each batch of an iterator of host IMNET
+    classification training batches."""
+    for batch in batches:
+        batch.update(draw_image_aug(batch["aug_seed"], batch["image"].shape[1:3], **settings))
+        yield batch
+
+
+def preprocess_image_cls(batch: dict, is_train: bool, rand_aug: bool = True,
+                         reprob: float = 0.25, remode: str = "pixel",
+                         generator: torch.Generator | None = None) -> torch.Tensor:
+    """The device half of the IMNET classification transform
+    (build_transform_e2v's train stack, datasets.py:359-373;
+    device_pipeline.py:208-239). Eval returns ``batch["image"]`` as f32,
+    untouched (the host already resized and center-cropped). Train: the
+    ToUint8 truncation, timm-level RandAugment at prob 0.5 and ToFloat32,
+    gated on ``rand_aug`` alone (timm applies ops even at level 0:
+    AutoContrast and Equalize ignore the magnitude), then RandomErasing with
+    ``remode`` fill from ``generator`` on the batch's device, gated on
+    ``reprob`` alone. The random choices are the batch's
+    :func:`draw_image_aug` draws: their shapes give the rounds and the boxes,
+    and ``ra_batch_ops``, where present, the batch's shared ops. A batch
+    without them raises."""
+    x = batch["image"].to(torch.float32)
+    if not is_train:
+        return x
+    drawer = "draw_image_aug(batch['aug_seed'], (H, W), ...)"
+    if rand_aug:
+        ops, bins, signs, gate = _train_draws(batch, ("ra_ops", "ra_bins", "ra_signs",
+                                                      "ra_gate"), drawer)
+        u8 = (255.0 * x).to(torch.uint8)                    # ToUint8 truncation
+        u8 = rand_augment_batch(u8, ops, bins, signs, batch.get("ra_batch_ops"), gate=gate)
+        x = u8.to(torch.float32) / 255.0                    # ToFloat32
+    if reprob > 0:
+        use, box = _train_draws(batch, ("er_use", "er_box"), drawer)
+        x = I.random_erasing_batch(x, {"er_use": use, "er_box": box}, remode, generator)
+    return x
+    drawer = "draw_image_aug(batch['aug_seed'], (H, W), ...)"
+    if rand_aug:
+        ops, bins, signs, gate = _train_draws(batch, ("ra_ops", "ra_bins", "ra_signs",
+                                                      "ra_gate"), drawer)
+        if ops.shape[1] != num_ops:
+            raise ValueError(f"the batch's RandAugment draws have {ops.shape[1]} rounds, "
+                             f"not num_ops {num_ops}")
+        b_ops = _train_draws(batch, ("ra_batch_ops",), drawer)[0] if batch_ops else None
+        u8 = (255.0 * x).to(torch.uint8)                    # ToUint8 truncation
+        u8 = rand_augment_batch(u8, ops, bins, signs, b_ops, gate=gate)
+        x = u8.to(torch.float32) / 255.0                    # ToFloat32
+    if reprob > 0:
+        use, box = _train_draws(batch, ("er_use", "er_box"), drawer)
+        if box.shape[1] != recount:
+            raise ValueError(f"the batch's erasing draws have {box.shape[1]} boxes, "
+                             f"not recount {recount}")
+        x = I.random_erasing_batch(x, {"er_use": use, "er_box": box}, remode, generator)
     return x

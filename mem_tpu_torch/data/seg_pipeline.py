@@ -336,7 +336,7 @@ def draw_seg_train_aug(aug_seed: np.ndarray, rand_aug_batch_ops: bool = False) -
     seeds = [int(s) for s in np.asarray(aug_seed).reshape(-1)]
     rngs = [np.random.default_rng(s) for s in seeds]
     batch_rng = np.random.default_rng((seeds[0], 0x5EED)) if rand_aug_batch_ops else None
-    ops, bins, signs, batch_ops = draw_rand_augment(
+    ops, bins, signs, _, batch_ops = draw_rand_augment(
         rngs, SEG_RAND_AUG_NUM_OPS, SEG_RAND_AUG_MAGNITUDE, batch_rng, geometric=False)
     out = {"ra_ops": ops, "ra_bins": bins, "ra_signs": signs}
     if batch_ops is not None:

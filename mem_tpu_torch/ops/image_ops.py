@@ -1,14 +1,22 @@
 """Post-rasterization image transforms, batched NHWC.
 
 Port of mem_tpu/ops/image_ops.py: the antialiased bilinear resize with
-per-sample source extents, the random crop, the event-image channel ops of
-the reference's mem/transforms.py and the pretraining ColorJitter.
+per-sample source extents, the random crop, the random resized crop, the
+event-image channel ops of the reference's mem/transforms.py, the
+pretraining ColorJitter and timm's RandomErasing (the IMNET image path).
 Channel convention: 0 = positive counts, 1 = time surface, 2 = negative
 counts; a C != 3 image is a voxel grid whose channels are all counts.
-Random erasing (the IMNET image path) comes with its slice.
+
+The random windows and boxes are host draws (numpy, the reference's
+distributions; the reference draws them from ``jax.random`` keys on the
+device): ``draw_rrc_window`` / ``rrc_window`` and ``draw_random_erasing`` /
+``erasing_boxes``. The window and box arithmetic is the reference's, in f32.
 """
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 
@@ -67,6 +75,58 @@ def resize_bilinear_batch(imgs: torch.Tensor, out_h: int, out_w: int,
     x = x.permute(0, 1, 3, 2).reshape(B, out_h * C, W)
     x = torch.matmul(x, wx.transpose(1, 2))                        # (B, oh*C, ow)
     return x.reshape(B, out_h, C, out_w).permute(0, 1, 3, 2).contiguous()
+
+
+def rrc_window(H: int, W: int, area_frac, log_ratio, u: float, v: float,
+               ratio=(3.0 / 4.0, 4.0 / 3.0)):
+    """The random-resized-crop window (top, left, crop_h, crop_w), f32 source
+    pixels, of ``random_resized_crop`` (image_ops.py:95-143) from its draws:
+    10 attempts of area fraction ``area_frac`` (10,) and log aspect
+    ``log_ratio`` (10,); the first whose window fits wins and sits at
+    (u * (H - crop_h), v * (W - crop_w)); with none, torchvision's centred
+    fallback at the clamped aspect."""
+    area = np.float32(H * W) * np.asarray(area_frac, np.float32)
+    ar = np.exp(np.asarray(log_ratio, np.float32))
+    ws, hs = np.sqrt(area * ar), np.sqrt(area / ar)
+    ok = (ws <= W) & (hs <= H)
+    in_ratio = W / H
+    if ok.any():
+        first = int(np.argmax(ok))
+        crop_w, crop_h = ws[first], hs[first]
+        top = np.float32(u) * (np.float32(H) - crop_h)
+        left = np.float32(v) * (np.float32(W) - crop_w)
+    else:
+        crop_w = W if in_ratio <= ratio[1] else H * ratio[1]
+        crop_h = W / ratio[0] if in_ratio < ratio[0] else H
+        crop_w, crop_h = np.float32(crop_w), np.float32(crop_h)
+        top, left = (np.float32(H) - crop_h) / 2, (np.float32(W) - crop_w) / 2
+    return tuple(float(np.float32(x)) for x in (top, left, crop_h, crop_w))
+
+
+def draw_rrc_window(rng: np.random.Generator, H: int, W: int, scale=(0.08, 1.0),
+                    ratio=(3.0 / 4.0, 4.0 / 3.0)):
+    """Host draws of one random-resized-crop window (:func:`rrc_window`):
+    area fractions U[scale) and log aspects U[log ratio) for 10 attempts,
+    then the two position uniforms."""
+    area_frac = rng.uniform(scale[0], scale[1], 10)
+    log_ratio = rng.uniform(math.log(ratio[0]), math.log(ratio[1]), 10)
+    u, v = rng.random(2)
+    return rrc_window(H, W, area_frac, log_ratio, u, v, ratio)
+
+
+def random_resized_crop(img: torch.Tensor, window, out_h: int, out_w: int) -> torch.Tensor:
+    """torchvision RandomResizedCrop of one (H, W, C) image at a host-drawn
+    ``window`` (top, left, crop_h, crop_w) (:func:`draw_rrc_window`): the
+    crop and the antialiased resample are the two f32 products of the
+    window's triangle matrices (image_ops.py:95-143). Full f32 products: on
+    CUDA this needs torch.backends.cuda.matmul.allow_tf32 False (PyTorch's
+    default)."""
+    H, W, _ = img.shape
+    top, left, crop_h, crop_w = window
+    wy = _triangle_resize_matrix(out_h, H, crop_h, top, device=img.device)
+    wx = _triangle_resize_matrix(out_w, W, crop_w, left, device=img.device)
+    out = torch.einsum("oh,hwc->owc", wy, img.to(torch.float32))
+    return torch.einsum("pw,owc->opc", wx, out)
 
 
 def _count_ch(img: torch.Tensor) -> torch.Tensor:
@@ -178,3 +238,80 @@ def color_jitter_batch(imgs: torch.Tensor, brightness, saturation, order) -> tor
     s_then_b = adjust_brightness(adjust_saturation(imgs, saturation), brightness)
     first = torch.as_tensor(order, device=imgs.device).bool().reshape(-1, 1, 1, 1)
     return torch.where(first, b_then_s, s_then_b)
+
+
+# ---------------------------------------------------------------------------
+# RandomErasing (timm random_erasing.py semantics; the IMNET train path,
+# --reprob / --remode / --recount)
+# ---------------------------------------------------------------------------
+
+_LOG_RATIO = (math.log(0.3), math.log(3.3))
+
+
+def erasing_boxes(H: int, W: int, area_frac, log_ratio, u_top, u_left, count: int = 1):
+    """(..., 4) int32 boxes (top, left, h, w) of timm's RandomErasing from
+    their uniforms, in f32 as the reference's clamped box (``_erase_one``,
+    image_ops.py:294-331): area = area_frac * H * W / count, ratio =
+    exp(log_ratio), h = clip(round(sqrt(area * ratio)), 1, H - 1), w the same
+    with area / ratio, top = floor(u_top * (H - h + 1)), left likewise."""
+    f32 = np.float32
+    area = np.asarray(area_frac, f32) * f32(H * W) / f32(count)
+    ratio = np.exp(np.asarray(log_ratio, f32))
+    h = np.clip(np.round(np.sqrt(area * ratio)), 1, H - 1).astype(np.int32)
+    w = np.clip(np.round(np.sqrt(area / ratio)), 1, W - 1).astype(np.int32)
+    top = np.floor(np.asarray(u_top, f32) * (H - h + 1).astype(f32))
+    left = np.floor(np.asarray(u_left, f32) * (W - w + 1).astype(f32))
+    return np.stack([top.astype(np.int32), left.astype(np.int32), h, w], axis=-1)
+
+
+def draw_random_erasing(rngs, H: int, W: int, prob: float, count: int = 1) -> dict:
+    """Host draws of ``random_erasing_batch`` for a batch, one generator a
+    sample: the gate u < prob (``er_use``, (B,) bool), then per box an area
+    fraction U[0.02, 1/3), a log aspect U[log 0.3, log 3.3) and the top and
+    left uniforms, made into ``er_box`` (B, count, 4) int32 by
+    :func:`erasing_boxes`."""
+    B = len(rngs)
+    use = np.zeros((B,), bool)
+    u = np.zeros((B, count, 4), np.float64)
+    for b, rng in enumerate(rngs):
+        use[b] = rng.random() < prob
+        for k in range(count):
+            u[b, k] = (rng.uniform(0.02, 1.0 / 3), rng.uniform(*_LOG_RATIO),
+                       rng.random(), rng.random())
+    boxes = erasing_boxes(H, W, u[..., 0], u[..., 1], u[..., 2], u[..., 3], count)
+    return {"er_use": use, "er_box": boxes}
+
+
+def fill_noise(shape, generator, device, dtype) -> torch.Tensor:
+    """The erasing fill: N(0, 1) of ``shape`` from ``generator`` on ``device``."""
+    return torch.randn(shape, generator=generator, device=device, dtype=dtype)
+
+
+def random_erasing_batch(imgs: torch.Tensor, draws, mode: str = "pixel",
+                         fill_generator: torch.Generator | None = None) -> torch.Tensor:
+    """timm RandomErasing over (B, H, W, C) at the host draws ``draws``
+    (``er_use`` (B,) and ``er_box`` (B, count, 4) tensors on the batch's
+    device, :func:`draw_random_erasing`): each box of each sample whose gate
+    is on is filled with per-pixel N(0, 1) (``pixel``), per-channel N(0, 1)
+    (``rand``) or zeros (``const``). The noise is drawn on the batch's device
+    from ``fill_generator``, one full-image draw a box as the reference
+    (image_ops.py:318-326), never on the host."""
+    if mode not in ("pixel", "rand", "const"):
+        raise ValueError(f"remode must be pixel|rand|const, got {mode!r}")
+    B, H, W, C = imgs.shape
+    dev = imgs.device
+    use = draws["er_use"].to(dev).bool().reshape(B, 1, 1, 1)
+    boxes = draws["er_box"].to(dev).long()
+    ys = torch.arange(H, device=dev).reshape(1, H, 1, 1)
+    xs = torch.arange(W, device=dev).reshape(1, 1, W, 1)
+    for k in range(boxes.shape[1]):
+        top, left, h, w = (boxes[:, k, i].reshape(B, 1, 1, 1) for i in range(4))
+        in_box = (ys >= top) & (ys < top + h) & (xs >= left) & (xs < left + w)
+        if mode == "pixel":
+            fill = fill_noise(imgs.shape, fill_generator, dev, imgs.dtype)
+        elif mode == "rand":
+            fill = fill_noise((B, 1, 1, C), fill_generator, dev, imgs.dtype).expand_as(imgs)
+        else:
+            fill = torch.zeros_like(imgs)
+        imgs = torch.where(in_box & use, fill, imgs)
+    return imgs

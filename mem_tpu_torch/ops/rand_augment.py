@@ -17,6 +17,12 @@ draws them from ``jax.random`` keys on the device, whose bits torch cannot
 reproduce. The port draws them on the host per sample
 (data/device_pipeline.draw_train_aug) and the batch carries them, so the
 CPU and the card augment identically.
+
+The IMNET image path (data/device_pipeline.draw_image_aug) draws in timm's
+``rand_augment_transform`` level mode (``timm_levels``, rand_augment.py:
+332-341): each round's level is m + mstd * N(0, 1) clipped to [0, 10] and
+mapped onto the 31-bin table as round(level / 10 * 30), half to even, and
+the round applies only where its gate u < prob is on (one uniform a round).
 """
 from __future__ import annotations
 
@@ -275,7 +281,7 @@ def photometric_select(img: torch.Tensor, ops: torch.Tensor, mag: torch.Tensor) 
 
 
 def rand_augment_batch(imgs_u8: torch.Tensor, ops, bins, signs, batch_ops=None,
-                       geometric: bool = True) -> torch.Tensor:
+                       geometric: bool = True, gate=None) -> torch.Tensor:
     """RandAugment over a (B, H, W, C) uint8 batch with host-drawn
     (B, num_ops) op indices, magnitude bins and signs (rand_augment.py:
     344-435). ``batch_ops``: None for per-sample op choice (the shared
@@ -284,42 +290,63 @@ def rand_augment_batch(imgs_u8: torch.Tensor, ops, bins, signs, batch_ops=None,
     applies one op to the whole batch). ``geometric=False`` is the
     segmentation pipeline's photometric-only mode: the ops come from
     PHOTOMETRIC_IDS and no geometric round runs (rand_augment.py:377-378).
-    Returns uint8, clipped and truncated."""
+    ``gate``: None, or the (B, num_ops) bool apply gates of timm's mode: where
+    a sample's gate is off, its round leaves the image as it was
+    (rand_augment.py:379-382, 430-431). Returns uint8, clipped and
+    truncated."""
     B, H, W, _ = imgs_u8.shape
     table = magnitude_table(H, W, device=imgs_u8.device)
     img = imgs_u8.float()
     for r in range(ops.shape[1]):
         mag = signed_magnitudes(table, ops[:, r], bins[:, r], signs[:, r])
         if batch_ops is not None:
-            img = apply_op(img, int(batch_ops[r]), mag)
+            new = apply_op(img, int(batch_ops[r]), mag)
         else:
-            if geometric:
-                img = geometric_round(img, ops[:, r], mag)
-            img = photometric_select(img, ops[:, r], mag)
+            new = geometric_round(img, ops[:, r], mag) if geometric else img
+            new = photometric_select(new, ops[:, r], mag)
+        img = new if gate is None else torch.where(gate[:, r, None, None, None], new, img)
     return torch.clamp(img, 0, 255).to(torch.uint8)
 
 
+def timm_bin(magnitude: int, mstd: float, rng) -> int:
+    """timm's level of one round mapped onto the 31-bin table
+    (rand_augment.py:332-341), in f32 as the reference computes it: m +
+    mstd * N(0, 1) (no normal draw at mstd 0), clipped to [0, 10], then
+    round(level / 10 * 30) half to even."""
+    lvl = np.float32(magnitude)
+    if mstd > 0:
+        lvl = np.float32(lvl + np.float32(mstd) * np.float32(rng.standard_normal()))
+    lvl = np.clip(lvl, np.float32(0.0), np.float32(10.0))
+    return int(np.round(lvl / np.float32(10.0) * np.float32(NUM_BINS - 1)))
+
+
 def draw_rand_augment(rngs, num_ops: int, magnitude: int, batch_rng=None,
-                      geometric: bool = True):
+                      geometric: bool = True, timm_levels: bool = False, mstd: float = 0.0,
+                      prob: float = 1.0):
     """Host draws for ``rand_augment_batch``: per sample and round an op in
     [0, 14) (with ``geometric=False`` one of the 9 PHOTOMETRIC_IDS), a bin
-    in [0, magnitude] and a sign in {0, 1} (rand_augment.py:359-369). With
-    ``batch_rng`` the op of each round is drawn once from it and shared by
-    the batch. Returns (ops, bins, signs) int32 (B, num_ops) and the
-    (num_ops,) batch ops or None."""
+    in [0, magnitude] (with ``timm_levels`` :func:`timm_bin` instead), a sign
+    in {0, 1} and, with ``prob`` < 1, the apply gate u < prob
+    (rand_augment.py:354-382). With ``batch_rng`` the op of each round is
+    drawn once from it and shared by the batch. Returns (ops, bins, signs)
+    int32 (B, num_ops), the (B, num_ops) bool gate (all on at prob 1, with
+    no draw) and the (num_ops,) batch ops or None."""
     pool = np.arange(NUM_OPS) if geometric else np.array(PHOTOMETRIC_IDS)
     B = len(rngs)
     ops = np.zeros((B, num_ops), np.int32)
     bins = np.zeros((B, num_ops), np.int32)
     signs = np.zeros((B, num_ops), np.int32)
+    gate = np.ones((B, num_ops), bool)
     for b, rng in enumerate(rngs):
         for r in range(num_ops):
             ops[b, r] = pool[rng.integers(0, len(pool))]
-            bins[b, r] = rng.integers(0, magnitude + 1)
+            bins[b, r] = (timm_bin(magnitude, mstd, rng) if timm_levels
+                          else rng.integers(0, magnitude + 1))
             signs[b, r] = rng.integers(0, 2)
+            if prob < 1.0:
+                gate[b, r] = rng.random() < prob
     batch_ops = None
     if batch_rng is not None:
         batch_ops = pool[batch_rng.integers(0, len(pool), size=num_ops)].astype(np.int32)
         ops[:] = batch_ops[None, :]
-    return ops, bins, signs, batch_ops
-
+    return ops, bins, signs, gate, batch_ops

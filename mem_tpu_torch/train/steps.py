@@ -26,6 +26,15 @@ tensors and never waits on the device; the caller reads them when it logs.
 The reference's chained dispatch (``--steps_per_dispatch``) has no
 counterpart here yet: the port dispatches step by step.
 
+On the IMNET image path (``--data_set IMNET``) a batch carries images made
+on the host instead of events: the pretraining step takes the two views
+``patches`` (the model's) and ``vae_view`` (the tokenizer's) as they are;
+the VAE and finetune train steps pass an ``image`` batch to the injected
+``image_preproc`` (data/device_pipeline.preprocess_image_cls with the run's
+settings) with the step's generator, which feeds the erasing noise; the eval
+steps take ``image`` as it is (steps.py:69-70, 114-116, 144-147, 196-197,
+298-299, 398-400). The MAE step has no image branch, as in the reference.
+
 One MAE train step: the same preprocessing -> the shuffle-mask noise from
 the step's generator (or injected) -> the MAE forward (encoder on the
 visible tokens, decoder on all; K2f inside attention) -> the pixel loss in
@@ -62,6 +71,10 @@ from mem_tpu_torch.train.optim import clip_grad_global_norm, set_schedule
 from mem_tpu_torch.train.schedules import at
 
 
+def _batch_device(batch: dict) -> torch.device:
+    return next(v.device for v in batch.values() if isinstance(v, torch.Tensor))
+
+
 def step_generator(seed: int, step: int, device) -> torch.Generator:
     """The dropout / drop-path generator of one step, seeded from
     (seed, step) on ``device``."""
@@ -71,7 +84,8 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
 
 
 def make_vae_train_step(vae, optimizer: torch.optim.Optimizer, preproc: PreprocConfig,
-                        clip: float, seed: int = 0, inject_noise: bool = False):
+                        clip: float, seed: int = 0, inject_noise: bool = False,
+                        image_preproc=None):
     """Returns ``step(batch, rng, lr, temp) -> {"loss", "grad_norm"}``.
     ``batch``: device tensors (events or events_xyp, n_valid, extents,
     flips, shift and the draw_train_aug draws); ``rng``: the global step,
@@ -80,17 +94,23 @@ def make_vae_train_step(vae, optimizer: torch.optim.Optimizer, preproc: PreprocC
     ``inject_noise``); ``lr`` and ``temp``: this step's values of the
     anneal (``VaeAnnealState``). ``optimizer``: ``torch.optim.Adam`` over
     ``vae.parameters()`` with betas (0.9, 0.999), eps 1e-8 and no weight
-    decay; its lr is set before each update."""
+    decay; its lr is set before each update. An IMNET batch (``image``)
+    goes through ``image_preproc(batch, generator=...)`` with the step's
+    generator (the global one under ``inject_noise``)."""
     params = [p for p in vae.parameters() if p.requires_grad]
 
     def step(batch: dict, rng, lr: float, temp: float) -> dict:
-        images = preprocess_batch(batch, preproc, is_train=True)
+        gen = None if inject_noise else step_generator(seed, rng, _batch_device(batch))
+        if "image" in batch:
+            images = image_preproc(batch, generator=gen)
+        else:
+            images = preprocess_batch(batch, preproc, is_train=True)
         vae.train()
         with cudnn_full_f32():
             if inject_noise:
                 loss = vae(images, temp, gumbel_noise=rng)
             else:
-                loss = vae(images, temp, generator=step_generator(seed, rng, images.device))
+                loss = vae(images, temp, generator=gen)
             optimizer.zero_grad(set_to_none=True)
             loss.backward()
         gnorm = clip_grad_global_norm(params, clip)
@@ -106,18 +126,34 @@ def make_vae_eval_step(vae, preproc: PreprocConfig):
     """Returns ``step(batch) -> {"loss", "ids", "images", "recon"}``: the
     eval preprocessing, the argmax codes, their decoding, and the MSE of
     the reconstruction against the unnormalized images (steps.py:122); the
-    images and the reconstruction ride along for the panels."""
+    images and the reconstruction ride along for the panels. An IMNET
+    batch's ``image`` is used as it is."""
 
     def step(batch: dict) -> dict:
         vae.eval()
         with torch.no_grad():
-            images = preprocess_batch(batch, preproc, is_train=False)
+            images = _eval_images(batch, preproc)
             ids = vae.get_codebook_indices(images)
             recon = vae.decode_indices(ids)
             mse = ((images - recon.float()) ** 2).mean()
         return {"loss": mse, "ids": ids, "images": images, "recon": recon}
 
     return step
+
+
+def _eval_images(batch: dict, preproc: PreprocConfig) -> torch.Tensor:
+    if "image" in batch:      # IMNET: the host resized and center-cropped
+        return batch["image"].to(torch.float32)
+    return preprocess_batch(batch, preproc, is_train=False)
+
+
+def _pretrain_views(batch: dict, preproc: PreprocConfig, is_train: bool):
+    """(the model's images, the tokenizer's images): an IMNET batch's two
+    host views, or one preprocessed event image for both."""
+    if "patches" in batch:
+        return batch["patches"], batch["vae_view"]
+    images = preprocess_batch(batch, preproc, is_train=is_train)
+    return images, images
 
 
 def _loss(model, images, mask, labels, generator=None):
@@ -133,15 +169,16 @@ def make_pretrain_train_step(model, vae, optimizer: torch.optim.Optimizer,
                              wd_schedule: np.ndarray, clip_grad=None, seed: int = 0):
     """Returns ``step(batch, it) -> {"loss", "mlm_acc", "grad_norm"}``.
     ``batch``: device tensors (events or events_xyp, n_valid, extents,
-    flips, shift, mask, and the draw_train_aug draws); ``it``: the global
-    step, which indexes the schedules and seeds the step's generator."""
+    flips, shift, mask, and the draw_train_aug draws; on IMNET patches,
+    vae_view and mask); ``it``: the global step, which indexes the schedules
+    and seeds the step's generator."""
     params = [p for p in model.parameters() if p.requires_grad]
 
     def step(batch: dict, it: int) -> dict:
-        images = preprocess_batch(batch, preproc, is_train=True)
+        images, vae_images = _pretrain_views(batch, preproc, True)
         mask = batch["mask"]
         with torch.no_grad():
-            labels = vae.get_codebook_indices(images)
+            labels = vae.get_codebook_indices(vae_images)
         model.train()
         loss, acc = _loss(model, images, mask, labels,
                           step_generator(seed, it, images.device))
@@ -188,8 +225,8 @@ def make_pretrain_eval_step(model, vae, preproc: PreprocConfig):
 
     def step(batch: dict) -> dict:
         with torch.no_grad():
-            images = preprocess_batch(batch, preproc, is_train=False)
-            labels = vae.get_codebook_indices(images)
+            images, vae_images = _pretrain_views(batch, preproc, False)
+            labels = vae.get_codebook_indices(vae_images)
             model.eval()
             loss, acc = _loss(model, images, batch["mask"], labels)
         return {"loss": loss, "mlm_acc": acc}
@@ -250,7 +287,7 @@ def make_finetune_train_step(model, optimizer: torch.optim.Optimizer, preproc: P
                              wd_schedule: np.ndarray, mixup: MixupConfig | None = None,
                              smoothing: float = 0.0, update_freq: int = 1,
                              ema: list | None = None, ema_decay: float | None = None,
-                             clip_grad=None, seed: int = 0):
+                             clip_grad=None, seed: int = 0, image_preproc=None):
     """Returns ``step(micro_batches, it) -> {"loss", "grad_norm"}``.
     ``micro_batches``: ``update_freq`` device batches (events or events_xyp,
     n_valid, extents, flips, shift, label, the draw_train_aug draws and, with
@@ -259,7 +296,9 @@ def make_finetune_train_step(model, optimizer: torch.optim.Optimizer, preproc: P
     schedules and seeds the micro-batches' generators. ``ema``: f32 tensors in
     the order of ``model.parameters()``, updated in place after the step as
     ``decay * ema + (1 - decay) * param``; None (with ``ema_decay`` None)
-    keeps no EMA at all."""
+    keeps no EMA at all. An IMNET micro-batch (``image``, label and the
+    draw_image_aug draws) goes through ``image_preproc(batch, generator=...)``
+    with the micro-batch's generator before the mixup."""
     if (ema is None) != (ema_decay is None):
         raise ValueError("pass both ema and ema_decay, or neither")
     params = [p for p in model.parameters() if p.requires_grad]
@@ -272,14 +311,17 @@ def make_finetune_train_step(model, optimizer: torch.optim.Optimizer, preproc: P
         optimizer.zero_grad(set_to_none=True)
         total = None
         for i, batch in enumerate(micro_batches):
+            gen = step_generator(seed, it * update_freq + i, _batch_device(batch))
             with torch.no_grad():
-                images = preprocess_batch(batch, preproc, is_train=True)
+                if "image" in batch:
+                    images = image_preproc(batch, generator=gen)
+                else:
+                    images = preprocess_batch(batch, preproc, is_train=True)
                 targets = batch["label"]
                 if mixup is not None:
                     images, targets = mixup_apply(images, targets,
                                                   {k: batch[k] for k in MIXUP_KEYS}, mixup)
-            logits = model(images, generator=step_generator(seed, it * update_freq + i,
-                                                            images.device))
+            logits = model(images, generator=gen)
             loss = finetune_cross_entropy(logits, targets, num_classes, smoothing) / update_freq
             loss.backward()
             total = loss.detach() if total is None else total + loss.detach()
@@ -306,7 +348,7 @@ def make_finetune_eval_step(model, preproc: PreprocConfig, with_predictions: boo
     def step(batch: dict) -> dict:
         model.eval()
         with torch.no_grad():
-            images = preprocess_batch(batch, preproc, is_train=False)
+            images = _eval_images(batch, preproc)
             logits = model(images).float()
             targets = batch["label"].long()
             lp = torch.log_softmax(logits, dim=-1).gather(-1, targets[:, None])[:, 0]

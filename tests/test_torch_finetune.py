@@ -429,7 +429,6 @@ def test_cli_finetune_checkpoint_must_be_a_pth(tmp_path):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--data_set", "IMNET"], "item 16"),
     (["--int8", "1"], "item 14"), (["--zero1", "1"], "item 15"), (["--fsdp", "1"], "item 15"),
     (["--data_set", "CIFAR"], "data_set 'CIFAR'"),
 ])
@@ -438,6 +437,13 @@ def test_cli_unported_options_raise(flags, match):
 
     with pytest.raises(NotImplementedError, match=match):
         R.check_ported(R.get_args(["--data_path", "x"] + flags))
+
+
+def test_cli_check_ported_accepts_imnet():
+    """--data_set IMNET is ported (the real-image baseline)."""
+    from mem_tpu_torch.cli import run_class_finetuning as R
+
+    R.check_ported(R.get_args(["--data_path", "x", "--data_set", "IMNET"]))
 
 
 def test_cli_other_optimizers_raise(tmp_path):

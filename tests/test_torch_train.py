@@ -251,7 +251,6 @@ def test_cli_trains_checkpoints_and_resumes(tmp_path):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--data_set", "IMNET"], "item 16"),
     (["--fsdp", "1"], "item 15"), (["--zero1", "1"], "item 15"),
 ])
 def test_cli_unported_options_raise(flags, match):
@@ -259,6 +258,13 @@ def test_cli_unported_options_raise(flags, match):
 
     with pytest.raises(NotImplementedError, match=match):
         R.check_ported(R.get_args(["--data_path", "x"] + flags))
+
+
+def test_cli_check_ported_accepts_imnet():
+    """--data_set IMNET is ported (the two-view JPEG pretraining)."""
+    from mem_tpu_torch.cli import run_mem_pretraining as R
+
+    R.check_ported(R.get_args(["--data_path", "x", "--data_set", "IMNET"]))
 
 
 def test_cli_device_cuda_without_card_raises(tmp_path):

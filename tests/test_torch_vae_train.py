@@ -488,8 +488,8 @@ def test_train_vae_cli_resumes_and_feeds_pretraining(tmp_path, capsys):
     assert glob.glob(str(dump / "recon_trigger_it*.png")), names
 
 
-def test_train_vae_imnet_raises(tmp_path):
+def test_train_vae_check_ported_accepts_imnet():
+    """--data_set IMNET is ported (the VAE on real images)."""
     from mem_tpu_torch.cli import train_vae as T
 
-    with pytest.raises(NotImplementedError, match="item 16"):
-        T.check_ported(T.get_args(["--data_path", "x", "--data_set", "IMNET"]))
+    T.check_ported(T.get_args(["--data_path", "x", "--data_set", "IMNET"]))
