@@ -131,6 +131,23 @@ host feed's samples/s (the two-view and the classification iterators, the
 median and spread of several epochs after a warm-up one) and
 the bf16 IMNET pretraining step at B=128 (events, device ms, busy share).
 
+W8A8 int8 serving, the sinks and the pipeline script (run_int8_slice, on a
+generator of its own, run last): the quantized values and scales of
+ops/quant.py and the torch._int_mm accumulators (int8_mm) card against CPU
+bit for bit at ViT-B's shapes (rows 1,576 and 12,608), dense_w8a8 in f32
+within one ulp, per-input-channel weight scales as a planted fault that must
+fail that gate and the f32 logits gate, a 16-row product refused; the
+full-width ft_vit (B=8) and segmentor (B=2) int8 forwards card against CPU
+(36 int8 products and 12 K2f / K3f launches a forward), against bf16 on the
+card, and from a fresh thread; serve --int8 1 on both surfaces, test_seg
+--int8 1 and run_class_finetuning --int8 1 --eval with exact launches; bf16
+against int8 forward times (cls B=8 / 64, seg B=8) by kernel family beside
+the 36 products' bound; and, in processes of its own beside those checks,
+run-pipeline-torch.sh on a tiny depth-12 conf on the card (VAE ->
+pretraining -> finetune, pruned to final / best / latest), whose conf's
+profile_dir and log_dir make the pretraining stage trace its third step (K1
+once, K2f and K2b 12 times by kernel name) and write TensorBoard files.
+
 Between them it holds one VAE, one pretraining, one MAE, one segmentation
 and one finetune train step on the card (f32 and bf16) against the same step
 on the CPU (the VAE, pretraining and MAE steps on the CPU's images, tokens
@@ -148,6 +165,7 @@ available or mem_tpu_torch cannot be imported, and on any failed check.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
 import io
@@ -860,6 +878,15 @@ def run(torch):
     finally:
         signal.signal(signal.SIGTERM, signal.SIG_DFL)   # the CLIs latched SIGTERM
         imnet_tmp.cleanup()
+
+    # -- W8A8 int8 serving, the sinks and the pipeline script (its own
+    #    generator) ----------------------------------------------------------
+    int8_tmp = tempfile.TemporaryDirectory()
+    try:
+        run_int8_slice(torch, dev, gpu, int8_tmp.name)
+    finally:
+        signal.signal(signal.SIGTERM, signal.SIG_DFL)   # the CLIs latched SIGTERM
+        int8_tmp.cleanup()
 
     def row(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms):
         return {"name": name, "route": "cuda", "source": f"mem_tpu_torch/csrc/{source}",
@@ -5952,6 +5979,563 @@ def run_imnet_slice(torch, dev, gpu, tmp_root):
     names = ("inputs", "preprocess", "pretrain_step", "clis", "timings")
     say("imnet_slice", seconds={n: round(b - a, 2) for n, a, b in zip(names, t, t[1:])})
     return counts
+
+
+# ---------------------------------------------------------------------------
+# W8A8 int8 serving (ops/quant.py, models.vit.INT8_GEMM), the logging and
+# profiling sinks, the pipeline script
+# ---------------------------------------------------------------------------
+
+INT8_ROWS = (1576, 12608)     # ViT-B's token rows at serving B=8 and B=64
+INT8_WIDTHS = {"qkv": (768, 2304), "proj": (768, 768), "fc1": (768, 3072)}  # (C_in, C_out)
+INT8_PRODUCTS = 36            # int8 products a ViT-B forward: 12 blocks x (qkv, proj, fc1)
+INT8_DATA_FILES = (8, 16)     # train / val .npy files of the finetune --eval run
+INT8_EVAL_B = 16              # its eval batch: the val split in one batch
+INT8_SEG_PAIRS = 8            # test_seg --int8 1: one batch of 8
+PIPE_FILES = (12, 4)          # run-pipeline-torch.sh's tiny set: per class, train / val
+                              # (3 steps an epoch at B=8: the pretraining stage traces its third)
+
+
+def int8_family(name):
+    """The family of a kernel in the int8 forward's profile."""
+    n = name.lower()
+    gemm = any(f in n for f in ("gemm", "nvjet", "xmma", "cutlass", "imma"))
+    if gemm and any(f in n for f in ("s8", "i8", "int8", "imma", "igemm")):
+        return "int8 GEMMs"
+    if gemm:
+        return "GEMMs"
+    if "attention_long" in n or "attention_fwd" in n:
+        return "attention"
+    if "hist_band" in n or "chunk_bounds" in n:
+        return "histogram"
+    return "other"
+
+
+def forward_families(torch, fn, n=5):
+    """(device ms per call by :func:`int8_family`, kernels per call, the int8
+    GEMMs' kernel names) from torch.profiler over ``n`` calls of ``fn`` after
+    3 warm-up calls; the trace can lose records, so the sums are a floor."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    fam, launches, names = {}, 0, set()
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0.0)
+        if us <= 0:
+            continue
+        f = int8_family(e.key)
+        fam[f] = fam.get(f, 0.0) + us / 1e3 / n
+        launches += e.count
+        if f == "int8 GEMMs":
+            names.add(e.key[:90])
+    return fam, launches / n, sorted(names)
+
+
+def int8_products_bound(rows):
+    """(int8 bound, bf16 bound) in ms of a ViT-B forward's 36 products at
+    ``rows`` token rows: each operand read once and the output written once
+    (int8 in, int32 out; bf16 in and out), 2 R K N operations at the int8 /
+    bf16 peak."""
+    i8 = b16 = 0.0
+    for K, N in INT8_WIDTHS.values():
+        ops = 2 * rows * K * N
+        i8 += bound(rows * K + K * N + 4 * rows * N, ops, PEAK_INT8_OPS)[0]
+        b16 += bound(2 * (rows * K + K * N + rows * N), ops, PEAK_BF16_FLOPS)[0]
+    return 12 * i8, 12 * b16
+
+
+def per_input_channel_scales(torch):
+    """A planted fault for ``ops.quant.quantize_weight``: the weight scales
+    taken per input channel (the absmax over the other axis), the output
+    columns dequantized with their mean."""
+    from mem_tpu_torch.ops import quant
+
+    def faulty(w):
+        wf = w.float()
+        s_in = quant._scale(wf.abs().amax(dim=1))
+        wq = torch.round(wf / s_in[:, None]).to(torch.int8)
+        return wq, s_in.mean().expand(wf.shape[1]).contiguous()
+
+    return faulty
+
+
+def check_int8_ops(torch, dev, g):
+    """The int8 pieces card vs CPU on the same inputs: quantize_activation /
+    quantize_weight bit-equal, the torch._int_mm accumulators bit-equal to
+    the exact CPU product of the same int8 operands at ViT-B's shapes (the
+    weight as the models pass it, a transposed nn.Linear weight, and
+    contiguous), dense_w8a8 in f32
+    bit-equal or within one ulp (the count of each is printed); the planted
+    per-input-channel scales must fail that gate; a refused shape raises."""
+    from mem_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from mem_tpu_torch.ops import quant
+
+    for R in INT8_ROWS:
+        x = torch.randn(R, 768, generator=g).to(torch.bfloat16)
+        x[1] = 0
+        xq_c, rs_c = quant.quantize_activation(x)
+        xq_d, rs_d = quant.quantize_activation(x.to(dev))
+        q_same = torch.equal(xq_d.cpu(), xq_c) and torch.equal(rs_d.cpu(), rs_c)
+        for name, (K, N) in INT8_WIDTHS.items():
+            lin = (0.02 * torch.randn(N, K, generator=g))          # nn.Linear's (out, in)
+            lin[:, 3] = 0
+            w = lin.t()
+            wq_c, cs_c = quant.quantize_weight(w)
+            wq_d, cs_d = quant.quantize_weight(w.to(dev))
+            w_same = torch.equal(wq_d.cpu(), wq_c) and torch.equal(cs_d.cpu(), cs_c)
+            reset_launch_counts()
+            acc_d = quant.int8_matmul(xq_d, wq_d)
+            acc_dc = quant.int8_matmul(xq_d, wq_d.contiguous())
+            counts = launch_counts()
+            acc_c = quant.int8_matmul(xq_d.cpu(), wq_d.cpu())
+            acc_same = torch.equal(acc_d.cpu(), acc_c) and torch.equal(acc_dc.cpu(), acc_c)
+            b = torch.randn(N, generator=g)
+            out_c = quant.dense_w8a8(x.float(), w, b)
+            out_d = quant.dense_w8a8(x.float().to(dev), w.to(dev), b.to(dev)).cpu()
+            ulp = torch.from_numpy(np.spacing(np.abs(out_c.numpy())))
+            diff = (out_d - out_c).abs()
+            within = bool((diff <= ulp).all())
+            exact = int((diff == 0).sum())
+            say("int8_ops_check", rows=R, product=name, shape=[R, K, N],
+                quantize_bit_equal=q_same, weight_bit_equal=w_same,
+                int32_bit_equal=acc_same, launches=counts,
+                dense_f32_exact=exact, dense_f32_within_1ulp=within,
+                dense_f32_elements=out_c.numel(), dense_max_abs=diff.max().item())
+            check(q_same and w_same, f"int8 quantize card vs CPU differ at {R} rows, {name}")
+            check(acc_same, f"torch._int_mm accumulators differ from the exact product, "
+                            f"{R} x {K} x {N}")
+            check(counts == {"int8_mm": 2}, f"int8_matmul launched {counts}")
+            check(within, f"dense_w8a8 card vs CPU beyond one ulp: {diff.max().item()}")
+    # the planted fault: per-input-channel weight scales on the card
+    K, N = INT8_WIDTHS["fc1"]
+    w = (0.02 * torch.randn(N, K, generator=g)).t()
+    x = torch.randn(INT8_ROWS[0], K, generator=g)
+    want = quant.dense_w8a8(x, w)
+    real = quant.quantize_weight
+    quant.quantize_weight = per_input_channel_scales(torch)
+    try:
+        got = quant.dense_w8a8(x.to(dev), w.to(dev)).cpu()
+    finally:
+        quant.quantize_weight = real
+    caught = not bool(((got - want).abs() <= torch.from_numpy(
+        np.spacing(np.abs(want.numpy())))).all())
+    say("int8_fault_per_input_scales", rel_l2=rel_l2(torch, got, want), caught=caught)
+    check(caught, "per-input-channel weight scales passed the dense_w8a8 gate")
+    # a shape torch._int_mm refuses raises, never falls back
+    try:
+        quant.int8_matmul(torch.zeros(16, 768, dtype=torch.int8, device=dev),
+                          torch.zeros(768, 768, dtype=torch.int8, device=dev))
+        refused = False
+    except ValueError:
+        refused = True
+    say("int8_refused_shape", rows=16, raised=refused)
+    check(refused, "int8_matmul took 16 rows on the card")
+
+
+def write_int8_inputs(torch, dev, root, rng):
+    """The slice's inputs: an N-Caltech-like .npy set (INT8_DATA_FILES, 8
+    classes), DSEC-like val pairs, and seeded full-width checkpoints of the
+    serving ft_vit and the segmentor (drawn on the card from a CUDA
+    generator: the CPU's draws of ~190 M values take seconds)."""
+    from mem_tpu_torch.cli import serve
+    from mem_tpu_torch.cli.common import build_classifier
+    from mem_tpu_torch.models.segmentation import build_segmentor
+
+    data_root = os.path.join(root, "ncaltech101")
+    for split, n in zip(("train", "val"), INT8_DATA_FILES):
+        for i in range(n):
+            d = os.path.join(data_root, split, f"class_{i % 8}")
+            os.makedirs(d, exist_ok=True)
+            np.save(os.path.join(d, f"image_{i:04d}.npy"),
+                    synthetic_events(rng, int(rng.integers(20_000, 40_001))))
+    seg_root = os.path.join(root, "dsec")
+    write_seg_pairs(seg_root, "val", INT8_SEG_PAIRS, rng)
+    paths = {n: os.path.join(root, f"{n}_seed22.pth") for n in ("ft_vit", "seg")}
+    ft_args = serve.get_args(["--checkpoint", paths["ft_vit"], "--nb_classes", "101"])
+    for name, model in (("ft_vit", build_classifier(ft_args, 101, torch.float32, dev)),
+                        ("seg", build_segmentor(11, 512, 768, 12, 12, torch.float32, dev))):
+        model.init_weights(torch.Generator(device=dev).manual_seed(22))
+        torch.save({"model": {k: v.cpu() for k, v in model.state_dict().items()}, "epoch": 0},
+                   paths[name])
+        del model
+    return data_root, seg_root, paths
+
+
+def check_int8_forwards(torch, dev, gpu, paths, rng):
+    """The full-width int8 forwards: ft_vit at B=8 and the segmentor at B=2,
+    card (bf16 + int8) against the CPU (f32 + int8, the plain products)
+    within the bf16 gates, ft_vit also card f32 + int8 on the CPU's images
+    within the f32 gate (1e-3), which the planted per-input-channel weight
+    scales must fail; int8 against bf16 on the card (relative L2, top-1 /
+    pixel agreement), the int8 products counted; the ft_vit int8 forward
+    from a fresh thread. Returns the card models and their inputs for the
+    timings."""
+    from mem_tpu_torch.cli import serve
+    from mem_tpu_torch.cli.common import build_classifier, build_preproc
+    from mem_tpu_torch.data.device_pipeline import preprocess_batch
+    from mem_tpu_torch.data.seg_pipeline import seg_preprocess_batch
+    from mem_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from mem_tpu_torch.models import vit
+    from mem_tpu_torch.models.segmentation import build_segmentor
+    from mem_tpu_torch.ops import quant
+    from mem_tpu_torch.utils.checkpoint import load_checkpoint
+
+    cpu = torch.device("cpu")
+    args = serve.get_args(["--checkpoint", paths["ft_vit"], "--nb_classes", "101"])
+    pp = build_preproc(args, is_train=False)
+    payloads = [synthetic_events(rng, 30_000) for _ in range(64)]
+    batch8 = serve.make_assemble(args, pp)([(p, False) for p in payloads[:8]], 8)
+    sd = load_checkpoint(paths["ft_vit"])["model"]
+    models = {}
+    for name, dt, d in (("cpu", torch.float32, cpu), ("card", torch.bfloat16, dev),
+                        ("card_f32", torch.float32, dev)):
+        models[name] = build_classifier(args, 101, dt, d)
+        models[name].load_state_dict(sd, strict=True)
+        models[name].eval()
+    with torch.inference_mode():
+        images_cpu = preprocess_batch(serve.to_device(batch8, cpu), pp, is_train=False)
+        images = preprocess_batch(serve.to_device(batch8, dev), pp, is_train=False)
+        with vit.int8_gemm():
+            want = models["cpu"](images_cpu)
+            reset_launch_counts()
+            got = models["card"](images)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            got32 = models["card_f32"](images_cpu.to(dev)).cpu()
+            real = quant.quantize_weight
+            quant.quantize_weight = per_input_channel_scales(torch)
+            try:
+                faulted = models["card_f32"](images_cpu.to(dev)).cpu()
+            finally:
+                quant.quantize_weight = real
+        bf16 = models["card"](images)
+    del models["card_f32"]
+    rel, rel32 = rel_l2(torch, got.cpu(), want), rel_l2(torch, got32, want)
+    rel_fault = rel_l2(torch, faulted, want)
+    rel_bf16 = rel_l2(torch, got, bf16)
+    top1 = (got.argmax(-1) == bf16.argmax(-1)).float().mean().item()
+    say("int8_logits_check", model="ft_vit", batch=8, rel_l2_card_vs_cpu_bf16=rel,
+        bound_bf16=LOGITS_BF16_REL, rel_l2_card_vs_cpu_f32=rel32, bound_f32=LOGITS_F32_REL,
+        rel_l2_int8_vs_bf16=rel_bf16, top1_agree_int8_vs_bf16=top1,
+        rel_l2_f32_fault_per_input_scales=rel_fault, launches=counts,
+        logits_abs_mean=want.abs().mean().item())
+    check(bool(torch.isfinite(got).all()) and got.shape == (8, 101), "int8 logits not finite")
+    check(rel <= LOGITS_BF16_REL, f"int8 ft_vit bf16 logits card vs CPU rel L2 {rel}")
+    check(rel32 <= LOGITS_F32_REL, f"int8 ft_vit f32 logits card vs CPU rel L2 {rel32}")
+    check(rel_fault > LOGITS_F32_REL,
+          f"per-input-channel weight scales passed the f32 int8 gate ({rel_fault})")
+    check(counts == {"int8_mm": INT8_PRODUCTS, "fused_attention_flat": 12},
+          f"the int8 ft_vit forward launched {counts}")
+
+    def forward():               # inference mode is per thread: entered on each
+        with torch.inference_mode(), vit.int8_gemm():
+            return (models["card"](images),)
+
+    fresh_thread_check(torch, "int8_fresh_thread", forward)
+
+    # the segmentor at B=2, card against CPU on the CPU's images
+    seg_sd = load_checkpoint(paths["seg"])["model"]
+    segs = {}
+    for name, dt, d in (("cpu", torch.float32, cpu), ("card", torch.bfloat16, dev)):
+        segs[name] = build_segmentor(11, 512, 768, 12, 12, dt, d)
+        segs[name].load_state_dict(seg_sd, strict=True)
+        segs[name].eval()
+    seg_payloads = [synthetic_dsec_events(rng, 170_000).astype(np.float64) for _ in range(8)]
+    assemble = serve.make_seg_assemble(SEG_EVENTS, True)
+    tensors = lambda b, d: {n: torch.from_numpy(v).to(d) for n, v in b.items()}  # noqa: E731
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        seg_images = seg_preprocess_batch(tensors(assemble(
+            [(p, False) for p in seg_payloads[:2]], 2), cpu), False, y_sorted=True)[0]
+        with vit.int8_gemm():
+            seg_want = segs["cpu"](seg_images)[0]
+            cpu_s = time.perf_counter() - t0
+            reset_launch_counts()
+            seg_got = segs["card"](seg_images.to(dev))[0]
+            torch.cuda.synchronize()
+            seg_counts = launch_counts()
+        seg_bf16 = segs["card"](seg_images.to(dev))[0]
+    del segs["cpu"]
+    seg_rel = rel_l2(torch, seg_got.cpu(), seg_want)
+    seg_rel_bf16 = rel_l2(torch, seg_got, seg_bf16)
+    pix = (seg_got.argmax(-1) == seg_bf16.argmax(-1)).float().mean().item()
+    say("int8_seg_logits_check", batch=2, cpu_seconds=round(cpu_s, 1),
+        rel_l2_card_vs_cpu=seg_rel, bound=SEG_BF16_REL, rel_l2_int8_vs_bf16=seg_rel_bf16,
+        pixel_agree_int8_vs_bf16=pix, launches=seg_counts)
+    check(bool(torch.isfinite(seg_got).all()) and seg_got.shape == (2, 440, 640, 11),
+          "int8 seg logits not finite")
+    check(seg_rel <= SEG_BF16_REL, f"int8 seg logits card vs CPU rel L2 {seg_rel}")
+    check(seg_counts == {"int8_mm": INT8_PRODUCTS, "fused_attention_flat_long": 12},
+          f"the int8 seg forward launched {seg_counts}")
+    del models["cpu"]
+    return dict(args=args, pp=pp, model=models["card"], payloads=payloads,
+                seg=segs["card"], seg_payloads=seg_payloads, seg_assemble=assemble)
+
+
+def run_int8_clis(torch, data_root, seg_root, paths, fw):
+    """serve --int8 1 on both surfaces over HTTP, test_seg --int8 1 (its
+    table printed) and run_class_finetuning --int8 1 --eval, each with its
+    launches counted exactly: per forward K1 or K4 once, K2f or K3f 12
+    times and 36 int8 products."""
+    from mem_tpu_torch.cli import run_class_finetuning as F
+    from mem_tpu_torch.cli import serve
+    from mem_tpu_torch.cli import test_seg as T
+    from mem_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from mem_tpu_torch.models import vit
+
+    out = {}
+    for surface, flags, reqs in (
+            ("cls", ["--checkpoint", paths["ft_vit"], "--nb_classes", "101"], fw["payloads"][:10]),
+            ("seg", ["--checkpoint", paths["seg"], "--surface", "seg", "--nb_classes", "11",
+                     "--slice_max_evs", str(SEG_EVENTS)], fw["seg_payloads"][:3])):
+        args = serve.get_args(flags + ["--batch_size", "8", "--max_wait_ms", "5", "--port", "0",
+                                       "--int8", "1", "--device", "cuda"])
+        with http_server(serve, args, quiet=True) as (post, read_stats, build_s):
+            reset_launch_counts()
+            if surface == "cls":
+                with ThreadPoolExecutor(8) as pool:
+                    answers = list(pool.map(post, reqs[:8]))
+                answers += [post(p) for p in reqs[8:]]
+            else:
+                answers = [post(p) for p in reqs]
+            counts = launch_counts()
+            stats = read_stats()
+        b = stats["batches"]
+        want = ({"int8_mm": INT8_PRODUCTS * b, "fused_attention_flat": 12 * b,
+                 "hist_planes_cols": b} if surface == "cls" else
+                {"int8_mm": INT8_PRODUCTS * b, "fused_attention_flat_long": 12 * b,
+                 "hist_planes_cols_sorted": b})
+        say("int8_serve", surface=surface, requests=len(answers), batches=b,
+            codes=sorted({a[0] for a in answers}), launches=counts,
+            p50_ms=statistics.median(a[3] for a in answers), flag_after=vit.INT8_GEMM)
+        check(all(a[0] == 200 for a in answers), f"serve --int8 1 ({surface}) answered "
+                                                 f"{[a[0] for a in answers]}")
+        check(counts == want, f"serve --int8 1 ({surface}) launched {counts}, not {want}")
+        check(vit.INT8_GEMM is False, "serve --int8 1 left the flag set")
+        out[surface] = counts
+
+    reset_launch_counts()
+    stats = T.main(["--data_root", seg_root, "--checkpoint", paths["seg"], "--int8", "1",
+                    "--device", "cuda"])
+    counts = launch_counts()
+    say("int8_test_seg", pairs=INT8_SEG_PAIRS, mIoU=stats["mIoU"], aAcc=stats["aAcc"],
+        launches=counts)
+    check(np.isfinite(stats["mIoU"]), "test_seg --int8 1: mIoU not finite")
+    check(counts == {"int8_mm": INT8_PRODUCTS, "fused_attention_flat_long": 12,
+                     "hist_planes_cols_sorted": 1}, f"test_seg --int8 1 launched {counts}")
+    out["test_seg"] = counts
+
+    ft_out = os.path.join(os.path.dirname(paths["ft_vit"]), "ft_int8")
+    reset_launch_counts()
+    res = F.main(["--config", "configs/ncaltech.conf", "--data_path", data_root,
+                  "--output_dir", ft_out,
+                  "--batch_size", str(2 * INT8_EVAL_B), "--update_freq", "2", "--eval",
+                  "--int8", "1", "--num_workers", "2", "--device", "cuda"])
+    counts = launch_counts()
+    stats = res["evals"][0][1]
+    say("int8_finetune_eval", val_files=INT8_DATA_FILES[1], acc1=stats["acc1"],
+        acc5=stats["acc5"], loss=stats["loss"], launches=counts)
+    check(np.isfinite(stats["loss"]), "finetune --int8 1 --eval: loss not finite")
+    check(counts == {"int8_mm": INT8_PRODUCTS, "fused_attention_flat": 12,
+                     "hist_planes_cols": 1}, f"finetune --int8 1 --eval launched {counts}")
+    out["finetune_eval"] = counts
+    return out
+
+
+def time_int8(torch, dev, gpu, fw):
+    """bf16 against int8 forwards on the card: cls at B=8 and 64 (the served
+    forward: preprocessing, ft_vit, softmax, top-k) and seg at B=8: events
+    ms in turns (bf16, int8, int8, bf16) and device ms by family; the
+    quantize / dequantize passes read as the int8 forward's other kernels
+    less the bf16 one's; beside the bounds of the 36 products."""
+    from mem_tpu_torch.cli import serve
+    from mem_tpu_torch.data.seg_pipeline import seg_preprocess_batch
+    from mem_tpu_torch.models import vit
+
+    out = {}
+    cases = []
+    for B in (8, 64):
+        b = serve.to_device(serve.make_assemble(fw["args"], fw["pp"])(
+            [(p, False) for p in fw["payloads"][:B]], B), dev)
+        cases.append(("cls", B, 197 * B, functools.partial(
+            serve.classify, fw["model"], fw["pp"], b, 5)))
+    seg_b = {n: torch.from_numpy(v).to(dev) for n, v in fw["seg_assemble"](
+        [(p, False) for p in fw["seg_payloads"]], 8).items()}
+    cases.append(("seg", 8, 1025 * 8, lambda: fw["seg"](seg_preprocess_batch(
+        seg_b, False, y_sorted=True)[0])[0].float().argmax(-1)))
+
+    def int8(fn):
+        def run():
+            with vit.int8_gemm():
+                return fn()
+        return run
+
+    with torch.inference_mode():
+        for surface, B, rows, fn in cases:
+            fn8 = int8(fn)
+            legs = [time_ms(f, runs=6, warmup=2) for f in (fn, fn8, fn8, fn)]
+            fam16, k16, _ = forward_families(torch, fn, n=2)
+            fam8, k8, names = forward_families(torch, fn8, n=2)
+            b8, b16 = int8_products_bound(rows)
+            say("time_int8_forward", gpu=gpu, surface=surface, batch=B, rows=rows,
+                bf16_ms=statistics.mean((legs[0], legs[3])),
+                int8_ms=statistics.mean((legs[1], legs[2])), legs_ms=legs,
+                device_ms_bf16=sum(fam16.values()), device_ms_int8=sum(fam8.values()),
+                families_bf16={k: round(v, 4) for k, v in fam16.items()},
+                families_int8={k: round(v, 4) for k, v in fam8.items()},
+                quantize_dequantize_ms=fam8.get("other", 0.0) - fam16.get("other", 0.0),
+                kernels_bf16=k16, kernels_int8=k8, int8_gemm_kernels=names,
+                int8_products_bound_ms=b8, bf16_products_bound_ms=b16)
+            check(fam16.get("int8 GEMMs", 0.0) == 0.0 and fam8.get("int8 GEMMs", 0.0) > 0,
+                  f"the {surface} forwards' int8 GEMMs: bf16 {fam16}, int8 {fam8}")
+            out[(surface, B)] = (legs, fam16, fam8)
+    return out
+
+
+def run_int8_slice(torch, dev, gpu, tmp_root):
+    """W8A8 serving on the card, its inputs drawn from a generator of its
+    own: the int8 pieces, the forwards, the CLIs, the timings; the pipeline
+    script runs in processes of its own beside the checks (not beside the
+    timings). Returns the CLIs' launch counts."""
+    rng = np.random.default_rng(22)
+    g = torch.Generator().manual_seed(22)
+    t = [time.perf_counter()]
+    pipeline = start_pipeline_script(tmp_root, rng)
+    data_root, seg_root, paths = write_int8_inputs(torch, dev, tmp_root, rng)
+    t.append(time.perf_counter())
+    check_int8_ops(torch, dev, g)
+    t.append(time.perf_counter())
+    fw = check_int8_forwards(torch, dev, gpu, paths, rng)
+    t.append(time.perf_counter())
+    counts = run_int8_clis(torch, data_root, seg_root, paths, fw)
+    t.append(time.perf_counter())
+    finish_pipeline_script(torch, *pipeline)
+    t.append(time.perf_counter())
+    time_int8(torch, dev, gpu, fw)
+    t.append(time.perf_counter())
+    names = ("inputs", "ops", "forwards", "clis", "pipeline_wait", "timings")
+    say("int8_slice", seconds={n: round(b - a, 2) for n, a, b in zip(names, t, t[1:])})
+    return counts
+
+
+def check_pretrain_sinks(torch, prof, logs, mem):
+    """The sinks of a pretraining CLI run of depth 12 with --profile_dir
+    ``prof`` and --log_dir ``logs/``: the trace of its third step
+    names K1 once, K2f 12 times and K2b's rows, columns and bias-sum kernels
+    12 times each; the TensorBoard event file exists where
+    torch.utils.tensorboard imports; ``mem``, device_memory_stats() of this
+    process, reports the card's peak."""
+    traces = sorted(os.listdir(prof))
+    check(len(traces) == 1 and traces[0].endswith(".pt.trace.json"), f"traces {traces}")
+    with open(os.path.join(prof, traces[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = collections.Counter(e.get("name", "") for e in events
+                                  if e.get("cat") == "kernel")
+    by = {tag: sum(c for n, c in kernels.items() if frag in n)
+          for tag, frag in (("K1", "hist_band_kernel"),
+                            ("K2f", "attention_long_fwd_wgmma_kernel"),
+                            ("K2b_rows", "attention_long_bwd_rows_wgmma_kernel"),
+                            ("K2b_cols", "attention_long_bwd_cols_wgmma_kernel"),
+                            ("K2b_bias_sum", "attention_long_bwd_bias_sum_kernel"))}
+    try:
+        import torch.utils.tensorboard  # noqa: F401
+        tb_imports = True
+    except Exception:
+        tb_imports = False
+    tb_dir = os.path.join(logs, "pt")
+    tb_files = sorted(os.listdir(tb_dir)) if os.path.isdir(tb_dir) else []
+    peak = mem.get("cuda:0", {})
+    say("pretrain_sinks", trace_files=traces, trace_kernels=sum(kernels.values()),
+        trace_by_name=by, tensorboard_imports=tb_imports, tensorboard_files=tb_files,
+        memory_stats=peak,
+        peak_gib=(peak.get("peak_bytes_in_use") or 0) / 2**30)
+    check(by == {"K1": 1, "K2f": 12, "K2b_rows": 12, "K2b_cols": 12, "K2b_bias_sum": 12},
+          f"the traced step holds {by}, not K1 x1, K2f x12, K2b x12")
+    check(bool(tb_files) == tb_imports, f"TensorBoard files {tb_files}, imports {tb_imports}")
+    check(0 < (peak.get("peak_bytes_in_use") or 0) <= (peak.get("bytes_limit") or 0),
+          f"device_memory_stats {mem}")
+
+
+def start_pipeline_script(tmp_root, rng):
+    """Start run-pipeline-torch.sh on a tiny conf on the card (bf16, width
+    64, depth 12, two heads: K2 at head dim 32): VAE -> pretraining ->
+    finetune, two epochs each, every stage a process of its own; the conf
+    also sets profile_dir and log_dir, so the pretraining stage traces its
+    third step and the pretraining and finetune stages log to TensorBoard
+    (no wandb: where it is installed its init would reach for the network).
+    Returns (the process, its start time, the experiment directory)."""
+    import subprocess
+
+    root = os.path.join(tmp_root, "pipe_data")
+    for split, n_per in zip(("train", "val"), PIPE_FILES):
+        for ci, cls in enumerate(("left", "right")):
+            d = os.path.join(root, split, cls)
+            os.makedirs(d)
+            for i in range(n_per):
+                n = int(rng.integers(800, 1500))
+                x_lo, x_hi = (5, 30) if ci == 0 else (34, 59)
+                ev = np.zeros((n, 4))
+                ev[:, 0] = rng.integers(x_lo, x_hi, n)
+                ev[:, 1] = rng.integers(5, 59, n)
+                ev[:, 2] = np.sort(rng.integers(0, 10**6, n))
+                ev[:, 3] = rng.choice([-1.0, 1.0], n)
+                np.save(os.path.join(d, f"s{i}.npy"), ev)
+    expdir = os.path.join(tmp_root, "pipe_exp")
+    conf = os.path.join(tmp_root, "pipe.conf")
+    with open(conf, "w") as f:
+        f.write(f"expweek = chip\nexpname = pipe\ndata_path = {root}\n"
+                f"profile_dir = {expdir}/profile\nlog_dir = {expdir}/tb/\n"
+                "input_H = 32\ninput_W = 32\nslice_max_evs = 5000\nhotpixfilter = 0\n"
+                "normalize_events = 1\nrand_aug = 0\nmax_random_shift_evs = 2\n"
+                "num_workers = 0\nauto_resume = 0\nnum_layers = 2\nnum_tokens = 32\n"
+                "emb_dim = 8\nhidden_dim = 16\nnum_resnet_blocks = 1\nvae_epochs = 2\n"
+                "vae_batch_size = 8\nlearning_rate = 3e-4\nclip = 0.01\neval_freq = 10\n"
+                "vae_save_ckpt_freq = 1\ntransformer_emb = 64\ntransformer_depth = 12\n"
+                "transformer_heads = 2\nnum_mask_patches = 32\nmin_mask_patches_per_block = 4\n"
+                "mask_pool_size = 16\npt_epochs = 2\npt_batch_size = 8\npt_lr = 1e-3\n"
+                "warmup_epochs = 0\nsave_ckpt_freq = 1\nclass_epochs = 2\n"
+                "class_batch_size = 8\nclass_lr = 2e-3\nclass_warmup_epochs = 0\n"
+                "class_update_freq = 1\nmixup_prob = 0\nclass_save_ckpt_freq = 1\n")
+    proc = subprocess.Popen(["bash", "run-pipeline-torch.sh", conf, expdir],
+                            env=dict(os.environ, PYTHONPATH=os.getcwd(), PYTHON=sys.executable),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, time.perf_counter(), expdir
+
+
+def finish_pipeline_script(torch, proc, t0, expdir):
+    """Wait for the script (600 s at most; killed past that) and check that
+    every stage ran on the card, the tree ends pruned to final / best / the
+    newest numbered checkpoint, and the pretraining stage's sinks
+    (check_pretrain_sinks)."""
+    import subprocess
+
+    from mem_tpu_torch.utils.profiling import device_memory_stats
+
+    try:
+        out, err = proc.communicate(timeout=max(1.0, 600 - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    seconds = time.perf_counter() - t0
+    trees = {st: sorted(os.listdir(os.path.join(expdir, st))) if os.path.isdir(
+        os.path.join(expdir, st)) else [] for st in ("vae", "pretrain", "finetune")}
+    say("pipeline_torch", rc=proc.returncode, seconds=round(seconds, 2), trees=trees,
+        on_card="device cuda" in out, acc1=re.findall(r"\* acc1 ([0-9.]+)", out),
+        tail=None if proc.returncode == 0 else out[-1500:] + err[-1500:])
+    check(proc.returncode == 0, "run-pipeline-torch.sh failed")
+    check(trees == {"vae": ["checkpoint-1.pth", "checkpoint-final.pth"],
+                    "pretrain": ["checkpoint-1.pth", "checkpoint-final.pth"],
+                    "finetune": ["checkpoint-1.pth", "checkpoint-best.pth"]},
+          f"the pipeline's pruned tree {trees}")
+    check("device cuda" in out, "the pipeline's stages did not run on the card")
+    check_pretrain_sinks(torch, os.path.join(expdir, "profile"), os.path.join(expdir, "tb"),
+                         device_memory_stats())
 
 
 def main() -> int:

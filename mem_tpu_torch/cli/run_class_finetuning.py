@@ -31,6 +31,13 @@ x}``; ``--auto_resume`` continues from the highest numbered one, and
 setting resumes too: a missing EMA is re-seeded from the restored weights, a
 surplus one is dropped.
 
+``--int8 1`` runs the eval forwards (``--eval`` included) with fc1, qkv and
+proj as W8A8 products (``models.vit.INT8_GEMM`` for the run; training
+forwards ignore it). ``--log_dir`` writes TensorBoard scalars (val acc1 /
+acc5 and the epoch's train loss) under ``log_dir + wandb_group``, ``--wandb
+1`` logs the train loss every 100 steps and val acc1 / acc5 each epoch;
+each falls back to nothing when its package is missing.
+
 ``--data_set IMNET`` finetunes on a JPEG class tree (data_path/{train,val})
 instead, the reference's real-image baseline (build_transform_e2v): the host
 decodes, crops, flips and resizes to ``--input_size`` (ColorJitter only when
@@ -65,6 +72,7 @@ from mem_tpu_torch.cli.common import (add_compat_args, add_imnet_args, add_prepr
 from mem_tpu_torch.data.device_pipeline import (draw_train_aug, preprocess_batch,
                                                 with_image_draws)
 from mem_tpu_torch.data.prefetch import device_prefetch, prefetch, to_device
+from mem_tpu_torch.models import vit
 from mem_tpu_torch.train.mixup import draw_mixup, make_mixup
 from mem_tpu_torch.train.optim import SKIP_NAMES, create_optimizer
 from mem_tpu_torch.train.schedules import cosine_scheduler
@@ -72,11 +80,12 @@ from mem_tpu_torch.train.steps import make_finetune_eval_step, make_finetune_tra
 from mem_tpu_torch.utils.checkpoint import (latest_numbered_checkpoint, load_checkpoint,
                                             save_checkpoint)
 from mem_tpu_torch.utils.config import ConfigArgumentParser
-from mem_tpu_torch.utils.metrics import MetricLogger
+from mem_tpu_torch.utils.metrics import MetricLogger, TensorboardLogger, maybe_wandb
 from mem_tpu_torch.utils.preemption import (RESTART_EXIT_CODE, GracefulShutdown, rss_gb,
                                             validate_rss_flag)
 
 LOG_EVERY = 10   # optimizer steps between metric reads (run_class_finetuning.py:632)
+SINK_EVERY = 100  # optimizer steps between wandb points (run_class_finetuning.py:638)
 
 
 def get_args(argv=None):
@@ -162,7 +171,9 @@ def get_args(argv=None):
     p.add_argument("--save_ckpt", action="store_true", default=True)
     p.add_argument("--no_save_ckpt", action="store_false", dest="save_ckpt")
     p.add_argument("--output_dir", type=str, default="./ft_out")
-    p.add_argument("--log_dir", type=str, default=None, help="not ported (TensorBoard)")
+    p.add_argument("--log_dir", type=str, default=None,
+                   help="TensorBoard event files under log_dir + wandb_group (needs "
+                        "the tensorboard package)")
     p.add_argument("--wandb_group", type=str, default="pt")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--num_workers", type=int, default=4)
@@ -183,8 +194,11 @@ def get_args(argv=None):
                    help="dump the first --dump_samples_n epoch-0 preprocessed samples "
                         "as PNG panels")
     p.add_argument("--dump_samples_n", type=int, default=64)
-    p.add_argument("--int8", type=int, default=0)
-    p.add_argument("--wandb", type=int, default=0, help="not ported")
+    p.add_argument("--int8", type=int, default=0,
+                   help="W8A8 int8 products (fc1, qkv, proj) in the eval forwards "
+                        "(ops/quant.py); training forwards ignore it")
+    p.add_argument("--wandb", type=int, default=0,
+                   help="log train loss and val acc1 / acc5 to wandb (needs the package)")
     p.add_argument("--dtype", type=str, default="bfloat16")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device: cuda (the kernels) or cpu (their plain versions)")
@@ -200,8 +214,6 @@ def get_args(argv=None):
 def check_ported(args) -> None:
     """Raise for the options whose slice of the port has not landed."""
     todo = [
-        (args.int8, "--int8 1 (W8A8 eval forwards) comes with the int8 slice of the port "
-                    "(ROADMAP queue 1, item 14)"),
         (args.zero1 or args.fsdp, "--zero1/--fsdp come with the multi-GPU slice of the "
                                   "port (ROADMAP queue 1, item 15)"),
     ]
@@ -210,10 +222,6 @@ def check_ported(args) -> None:
             raise NotImplementedError(msg)
     if args.data_set not in ("npy", "image_folder", "dsec_semseg", "IMNET"):
         raise NotImplementedError(f"data_set {args.data_set!r}")
-    if args.log_dir:
-        print("note: --log_dir is not ported and has no effect")
-    if args.wandb:
-        print("note: --wandb is not ported and has no effect")
 
 
 def load_finetune_checkpoint(model, path: str, model_key: str, model_prefix: str,
@@ -305,6 +313,12 @@ def main(argv=None):
     args = get_args(argv)
     validate_preproc_args(args, train=not args.eval)
     check_ported(args)
+    with vit.int8_gemm(bool(args.int8)):
+        return _run(args)
+
+
+def _run(args):
+    """``main`` after the argument checks."""
     stopper = GracefulShutdown()
     validate_rss_flag(args.rss_restart_gb)
     device = resolve_device(args.device)
@@ -477,6 +491,11 @@ def main(argv=None):
                 break
         print(f"dumped {idx} sample panels to {args.dump_samples_dir}")
 
+    run = maybe_wandb(bool(args.wandb), project="mem_finetuning_classification",
+                      group=f"{args.expweek}_{args.expname}")
+    # the reference appends wandb_group to the TensorBoard directory
+    tb = TensorboardLogger(args.log_dir + args.wandb_group) if args.log_dir else None
+
     def resumable(epoch: int) -> dict:
         pay = {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
                "epoch": epoch, "best_acc": best_acc}
@@ -501,6 +520,8 @@ def main(argv=None):
                     raise RuntimeError(f"non-finite loss at epoch {epoch} step {it}")
                 logger.update(loss=loss)
                 result["history"].append((it, loss, gnorm))
+                if run and i % SINK_EVERY == 0:
+                    run.log({"train/loss": loss, "epoch": epoch, "step": it})
             if stopper.requested:
                 break
         if stopper.requested:
@@ -525,6 +546,12 @@ def main(argv=None):
                 ema_stats = evaluate(ema)
                 print(f"* EMA acc1 {ema_stats['acc1']:.2f}")
             result["evals"].append((epoch, stats, ema_stats))
+            if run:
+                run.log({"val/acc1": stats["acc1"], "val/acc5": stats["acc5"], "epoch": epoch})
+            if tb:
+                tb.update(step=epoch, acc1=stats["acc1"], acc5=stats["acc5"],
+                          loss=logger.meters["loss"].global_avg)
+                tb.flush()
             if stats["acc1"] > best_acc:
                 best_acc = stats["acc1"]
                 if args.save_ckpt:

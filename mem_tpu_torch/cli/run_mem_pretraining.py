@@ -34,6 +34,14 @@ and no ``mlm_acc``; ``--dump_recon_dir`` is ignored, as in the reference. Its
 checkpoints hold the state_dict in the ``export_mae_params`` schema, which
 ``run_class_finetuning --MAE 1 --finetune`` loads.
 
+Sinks, as the reference wires them: ``--log_dir`` writes TensorBoard scalars
+(``train/loss``) under ``log_dir + wandb_group``, ``--wandb 1`` logs
+``train/loss`` and ``train/grad_norm`` to wandb (both every 100 steps, read
+where the metrics are read back anyway; each falls back to nothing when its
+package is missing), ``--profile_dir`` writes a torch.profiler trace of the
+run's third step there, and the log line carries the steps' samples/s
+(``utils.profiling.StepTimer``, two warm-up steps left out).
+
 ``--data_set IMNET`` pretrains on a JPEG class tree (data_path/{train,val})
 instead: the host makes two views of one random-resized-crop window
 (DataAugmentationForPTE2V: ColorJitter 0.4 and a flip first), the
@@ -75,11 +83,15 @@ from mem_tpu_torch.train.steps import (make_mae_train_step, make_pretrain_eval_s
                                        make_pretrain_train_step)
 from mem_tpu_torch.utils.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from mem_tpu_torch.utils.config import ConfigArgumentParser
+from mem_tpu_torch.utils.metrics import TensorboardLogger, maybe_wandb
 from mem_tpu_torch.utils.preemption import (RESTART_EXIT_CODE, GracefulShutdown, rss_gb,
                                             validate_rss_flag)
+from mem_tpu_torch.utils.profiling import StepTimer, trace
 from mem_tpu_torch.utils.visualize import grid, mask_overlay, reconstruction_panel, save_png
 
 LOG_EVERY = 10   # steps between metric reads (the reference logs every 10)
+SINK_EVERY = 100  # steps between wandb / TensorBoard points (run_mem_pretraining.py:540-545)
+PROFILE_STEP = 2  # the step --profile_dir traces, once a run (run_mem_pretraining.py:513)
 
 
 def get_args(argv=None):
@@ -143,7 +155,9 @@ def get_args(argv=None):
                    help="store AdamW's moments in bf16 (every blend in f32)")
     p.add_argument("--save_ckpt_freq", "--pt_save_ckpt_freq", type=int, default=25)
     p.add_argument("--output_dir", type=str, default="./pt_out")
-    p.add_argument("--log_dir", type=str, default=None, help="not ported (TensorBoard)")
+    p.add_argument("--log_dir", type=str, default=None,
+                   help="TensorBoard event files under log_dir + wandb_group (needs "
+                        "the tensorboard package)")
     p.add_argument("--wandb_group", type=str, default="pt")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--num_workers", type=int, default=4)
@@ -154,9 +168,11 @@ def get_args(argv=None):
                         "from; wins over --auto_resume")
     p.add_argument("--start_epoch", type=int, default=0)
     p.add_argument("--disable_eval_during_pretraining", action="store_true", default=False)
-    p.add_argument("--wandb", type=int, default=0, help="not ported")
+    p.add_argument("--wandb", type=int, default=0,
+                   help="log train/loss and train/grad_norm to wandb (needs the package)")
     p.add_argument("--dtype", type=str, default="bfloat16")
-    p.add_argument("--profile_dir", type=str, default=None, help="not ported")
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="write a torch.profiler trace of the run's third step here")
     p.add_argument("--steps_per_dispatch", type=int, default=8,
                    help="accepted; the port dispatches step by step (numerics "
                         "unchanged)")
@@ -195,11 +211,6 @@ def check_ported(args) -> None:
     for flag, msg in todo:
         if flag:
             raise NotImplementedError(msg)
-    for name in ("log_dir", "profile_dir"):
-        if getattr(args, name):
-            print(f"note: --{name} is not ported and has no effect")
-    if args.wandb:
-        print("note: --wandb is not ported and has no effect")
 
 
 def build_model(args, dtype, device):
@@ -368,10 +379,17 @@ def main(argv=None):
         start_epoch = int(payload["epoch"]) + 1
         print(f"Resumed from {ckpt} (epoch {start_epoch})")
 
+    run = maybe_wandb(bool(args.wandb), project="mem_pretraining",
+                      group=f"{args.expweek}_{args.expname}")
+    # the reference appends wandb_group to the TensorBoard directory
+    tb = TensorboardLogger(args.log_dir + args.wandb_group) if args.log_dir else None
+    profiled = False
     history = []
     last_dump = -10**9   # the step of the last grad-norm-triggered recon dump
     for epoch in range(start_epoch, args.epochs):
         t0 = time.time()
+        timer = StepTimer(args.batch_size)
+        rate = None
         pending = []   # device metrics not yet read back
 
         def flush():
@@ -381,14 +399,22 @@ def main(argv=None):
                 acc = float(ms["mlm_acc"][j]) if "mlm_acc" in ms else None
                 history.append((it, float(ms["loss"][j]), acc, float(ms["grad_norm"][j])))
             bad = [it for it, loss, _, _ in history[-len(pending):] if not math.isfinite(loss)]
+            for it, loss, _, gnorm in history[-len(pending):]:
+                if (it - epoch * steps_per_epoch) % SINK_EVERY:
+                    continue
+                if run:
+                    run.log({"train/loss": loss, "train/grad_norm": gnorm, "step": it})
+                if tb:
+                    tb.update(head="train", step=it, loss=loss)
             it, loss, acc, gnorm = history[-1]
             pending.clear()
             if bad:
                 raise RuntimeError(f"non-finite loss at step {bad[0]}")
             acc_s = "" if acc is None else f" mlm_acc: {acc:.4f}"
+            rate_s = "" if rate is None else f" samples/s: {rate:.1f}"
             print(f"Epoch: [{epoch}] [{it - epoch * steps_per_epoch}/{steps_per_epoch}] "
                   f"loss: {loss:.4f}{acc_s} grad_norm: {gnorm:.4f} "
-                  f"lr: {at(lr_sched, it):.6e}", flush=True)
+                  f"lr: {at(lr_sched, it):.6e}{rate_s}", flush=True)
             return float(ms["grad_norm"].max())
 
         host = train_it.epoch(epoch)   # IMNET: the views need no draws
@@ -396,7 +422,16 @@ def main(argv=None):
             prefetch(host if imnet else with_train_draws(host, preproc_train)), device)
         for i, batch in enumerate(batches):
             it = epoch * steps_per_epoch + i
-            pending.append((it, train_step(batch, it)))
+            do_trace = bool(args.profile_dir) and not profiled and i == PROFILE_STEP
+            if do_trace and device.type == "cuda":
+                torch.cuda.synchronize(device)   # the trace holds this step alone
+            with trace(args.profile_dir if do_trace else None):
+                pending.append((it, train_step(batch, it)))
+                if do_trace:
+                    if device.type == "cuda":
+                        torch.cuda.synchronize(device)
+                    profiled = True
+            rate = timer.step() or rate
             if len(pending) == LOG_EVERY or i == steps_per_epoch - 1:
                 gnorm_max = flush()
                 if dump and should_dump_on_grad_norm(
@@ -441,6 +476,8 @@ def main(argv=None):
             sys.exit(RESTART_EXIT_CODE)
 
     save_checkpoint(args.output_dir, "final", _checkpoint(model, optimizer, args.epochs - 1))
+    if tb:
+        tb.flush()
     return history
 
 

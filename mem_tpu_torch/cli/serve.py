@@ -99,7 +99,9 @@ def get_args(argv=None):
     p.add_argument("--drop_path", type=float, default=0.0)
     p.add_argument("--attn_drop_rate", type=float, default=0.0)
     p.add_argument("--dtype", type=str, default="bfloat16")
-    p.add_argument("--int8", type=int, default=0)
+    p.add_argument("--int8", type=int, default=0,
+                   help="W8A8 int8 products (fc1, qkv, proj) in the trunk's forward, "
+                        "both surfaces (ops/quant.py)")
     add_preprocessing_args(p)
     p.set_defaults(normalize_events=1)
     # serving knobs
@@ -462,13 +464,23 @@ def _build_seg(args, dtype, device):
     return make_seg_assemble(args.slice_max_evs, presort), infer, unpack
 
 
+def _int8_forwards(infer):
+    """``infer`` with ``models.vit.INT8_GEMM`` set around each forward (the
+    reference sets it for the process, serve.py:457-460): W8A8 fc1 / qkv /
+    proj in the eval-mode trunk, both surfaces."""
+    from mem_tpu_torch.models import vit
+
+    def run(batch):
+        with vit.int8_gemm():
+            return infer(batch)
+
+    return run
+
+
 def build_server(args):
     """Construct (httpd, state, threads); main() runs it, tests drive it
     programmatically. The kernels are built and the forward is warmed
     before this returns, so /healthz is green from the first request."""
-    if args.int8:
-        raise NotImplementedError("--int8 1 (W8A8 GEMMs) comes with the serving-"
-                                  "quantization slice of the port (queue 1 item 14)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available "
@@ -476,6 +488,8 @@ def build_server(args):
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     build = _build_seg if args.surface == "seg" else _build_cls
     assemble, infer, unpack = build(args, dtype, device)
+    if args.int8:
+        infer = _int8_forwards(infer)
 
     state = ServeState(args, infer, assemble, unpack)
     warm = np.zeros((8, 4), np.float64)

@@ -5,7 +5,9 @@ segmentor ``.pth`` checkpoint (``{"model": state_dict}`` in the keys of
 ``utils.weights.seg_from_jax_params``), runs whole-image inference over the
 validation split, and reports mIoU / mDice / mFscore / aAcc with a
 per-class table. Optional multi-scale / flip test-time augmentation
-(``--aug_test``) and prediction dumps as PNGs (``--save_dir``).
+(``--aug_test``), prediction dumps as PNGs (``--save_dir``) and, with
+``--int8 1``, the backbone's fc1 / qkv / proj as W8A8 products
+(``models.vit.INT8_GEMM`` for the run, as the reference sets it).
 
 The events are rasterised on the device (kernel K4 on the 440x640 canvas)
 and the backbone's 1025-token attention runs through kernel K3f; on
@@ -29,6 +31,7 @@ from mem_tpu_torch.data.seg_pipeline import (
     scan_seg_pairs,
     seg_preprocess_batch,
 )
+from mem_tpu_torch.models import vit
 from mem_tpu_torch.models.segmentation import (build_segmentor, confusion_matrix,
                                                seg_metrics, tta_probs)
 from mem_tpu_torch.utils.checkpoint import latest_checkpoint, load_checkpoint
@@ -67,7 +70,8 @@ def get_args(argv=None):
     p.add_argument("--aug_flip", type=int, default=1,
                    help="include horizontally flipped passes in --aug_test")
     p.add_argument("--int8", type=int, default=0,
-                   help="W8A8 int8 GEMMs in the backbone forward; not ported")
+                   help="W8A8 int8 products (fc1, qkv, proj) in the backbone forward "
+                        "(ops/quant.py)")
     p.add_argument("--presort_y", type=int, default=1,
                    help="host-presort events by y for the row-band "
                         "wide-canvas histogram")
@@ -96,9 +100,11 @@ def main(argv=None):
     """Evaluate; prints the per-class table and the summary line and
     returns the ``seg_metrics`` dictionary."""
     args = get_args(argv)
-    if args.int8:
-        raise NotImplementedError("--int8 1 (W8A8 GEMMs) comes with the serving-"
-                                  "quantization slice of the port (queue 1 item 14)")
+    with vit.int8_gemm(bool(args.int8)):
+        return _evaluate(args)
+
+
+def _evaluate(args):
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available "

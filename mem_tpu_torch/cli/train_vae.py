@@ -15,7 +15,10 @@ at a time, as the other CLIs do.
 Every ``--eval_freq`` epochs the val split is tokenized and decoded: the
 reconstruction MSE and the codebook usage are printed, and with
 ``--dump_recon_dir`` the first ``--num_images_save`` pairs go to
-``recon_ep{epoch}.png``. Checkpoints are ``output_dir/checkpoint-{epoch}.pth``
+``recon_ep{epoch}.png``. ``--wandb 1`` logs the loss and lr every 1,000
+steps, and at each evaluation the test loss, the codebook usage and the
+reconstruction panel as a ``wandb.Image`` (nothing when wandb is missing).
+Checkpoints are ``output_dir/checkpoint-{epoch}.pth``
 (``{"model": <reference VAE state_dict>, "optimizer", "epoch", "lr",
 "temp", "global_step", "hparams"}``, the newest of them auto-resumed) and
 ``checkpoint-final.pth`` (``{"model", "epoch", "hparams"}``), which
@@ -56,11 +59,13 @@ from mem_tpu_torch.train.steps import make_vae_eval_step, make_vae_train_step
 from mem_tpu_torch.utils.checkpoint import (latest_numbered_checkpoint, load_checkpoint,
                                             save_checkpoint)
 from mem_tpu_torch.utils.config import ConfigArgumentParser
+from mem_tpu_torch.utils.metrics import maybe_wandb
 from mem_tpu_torch.utils.preemption import (RESTART_EXIT_CODE, GracefulShutdown, rss_gb,
                                             validate_rss_flag)
 from mem_tpu_torch.utils.visualize import reconstruction_panel, save_png
 
 LOG_EVERY = 10   # steps between metric reads (the reference logs every 10)
+SINK_EVERY = 1000  # steps between wandb points (train_vae.py:322)
 
 
 def get_args(argv=None):
@@ -109,7 +114,9 @@ def get_args(argv=None):
                         "a resumable checkpoint and exit with code 3 (0 = off)")
     p.add_argument("--eval_freq", type=int, default=25)
     p.add_argument("--disable_eval", action="store_true", default=False)
-    p.add_argument("--wandb", type=int, default=0, help="not ported")
+    p.add_argument("--wandb", type=int, default=0,
+                   help="log loss, test loss, codebook usage and reconstruction panels "
+                        "to wandb (needs the package)")
     p.add_argument("--disable_wandb", action="store_true", default=False,
                    help="the reference's off-switch; forces --wandb 0")
     p.add_argument("--num_images_save", type=int, default=4,
@@ -136,8 +143,6 @@ def check_ported(args) -> None:
     """Raise for the data sets the port does not train on."""
     if args.data_set not in ("npy", "image_folder", "dsec_semseg", "IMNET"):
         raise NotImplementedError(f"data_set {args.data_set!r}")
-    if args.wandb:
-        print("note: --wandb is not ported and has no effect (ROADMAP queue 1, item 18)")
 
 
 def vae_hparams(args) -> dict:
@@ -159,9 +164,10 @@ def build_vae(args, dtype, device) -> DiscreteVAE:
                        kl_div_loss_weight=args.kl_loss_weight, dtype=dtype, device=device)
 
 
-def evaluate(args, eval_step, val_it, device, epoch: int) -> None:
+def evaluate(args, eval_step, val_it, device, epoch: int, run=None) -> None:
     """The reconstruction MSE and codebook usage over the val split, and
-    with ``--dump_recon_dir`` the first batch's panel."""
+    with ``--dump_recon_dir`` the first batch's panel; with ``run`` (wandb)
+    both logged, the panel as an image (train_vae.py:340-350)."""
     used = torch.zeros(args.num_tokens, dtype=torch.bool, device=device)
     losses, first = [], None
     for batch in val_it.epoch(0):
@@ -172,14 +178,20 @@ def evaluate(args, eval_step, val_it, device, epoch: int) -> None:
             first = out
     if first is None:
         return
-    print(f"* eval loss {torch.stack(losses).mean().item():.4f} "
-          f"codebook usage {int(used.sum())}/{args.num_tokens}", flush=True)
-    if args.dump_recon_dir and args.num_images_save > 0:
+    loss, n_used = torch.stack(losses).mean().item(), int(used.sum())
+    print(f"* eval loss {loss:.4f} codebook usage {n_used}/{args.num_tokens}", flush=True)
+    if (run or args.dump_recon_dir) and args.num_images_save > 0:
         k = args.num_images_save
-        os.makedirs(args.dump_recon_dir, exist_ok=True)
-        save_png(os.path.join(args.dump_recon_dir, f"recon_ep{epoch}.png"),
-                 reconstruction_panel(first["images"][:k].float().cpu().numpy(),
-                                      first["recon"][:k].float().cpu().numpy()))
+        panel = reconstruction_panel(first["images"][:k].float().cpu().numpy(),
+                                     first["recon"][:k].float().cpu().numpy())
+        if args.dump_recon_dir:
+            os.makedirs(args.dump_recon_dir, exist_ok=True)
+            save_png(os.path.join(args.dump_recon_dir, f"recon_ep{epoch}.png"), panel)
+        if run and hasattr(run, "Image"):
+            run.log({"reconstructions": run.Image(panel), "epoch": epoch})
+    if run:
+        run.log({"test_loss": loss, "codebook_usage": n_used / args.num_tokens,
+                 "epoch": epoch})
 
 
 def main(argv=None):
@@ -240,16 +252,22 @@ def main(argv=None):
         start_epoch = int(payload["epoch"]) + 1
         print(f"Auto-resumed from {ckpt} (epoch {start_epoch})")
 
+    run = maybe_wandb(bool(args.wandb), project="dalle_train_vae",
+                      group=f"{args.expweek}_{args.expname}")
     history = []
     for epoch in range(start_epoch, args.epochs):
         t0 = time.time()
+        step0 = sched.global_step
         pending = []   # device metrics not yet read back
 
         def flush():
             ms = {k: torch.stack([m[k] for _, _, m in pending]).float().cpu().numpy()
                   for k in ("loss", "grad_norm")}
-            for j, (it, _, _) in enumerate(pending):
+            for j, (it, lr, _) in enumerate(pending):
                 history.append((it, float(ms["loss"][j]), float(ms["grad_norm"][j])))
+                if run and (it - step0) % SINK_EVERY == 0:
+                    run.log({"epoch": epoch, "iter": it - step0,
+                             "loss": float(ms["loss"][j]), "lr": lr})
             it, lr, _ = pending[-1]
             pending.clear()
             _, loss, gnorm = history[-1]
@@ -283,7 +301,7 @@ def main(argv=None):
         print(f"epoch {epoch}: {sps:.1f} samples/sec")
 
         if (epoch + 1) % args.eval_freq == 0 and not args.disable_eval:
-            evaluate(args, eval_step, val_it, device, epoch)
+            evaluate(args, eval_step, val_it, device, epoch, run)
         if (epoch + 1) % args.save_ckpt_freq == 0 or epoch + 1 == args.epochs:
             save_checkpoint(args.output_dir, epoch, resumable(epoch))
         if args.rss_restart_gb > 0 and epoch + 1 < args.epochs \

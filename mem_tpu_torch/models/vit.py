@@ -39,11 +39,20 @@ read there. In training mode (``module.train()``) the attention / proj / MLP
 dropout and the per-sample drop-path of the reference run; their random bits come from an explicit
 ``torch.Generator`` on the activations' device that the caller passes to
 ``forward`` (the train step seeds one per step from (seed, step)), never
-from torch's global generator. The reference's INT8 and XLA scheduling
-toggles are not ported.
+from torch's global generator.
+
+``INT8_GEMM = True`` is the reference's W8A8 serving switch (vit.py:86),
+honoured only in eval mode (``not module.training``, where the reference
+checks ``deterministic``): fc1, the q / k / v projections and proj run
+through ``ops.quant`` (per-output-column int8 weights, per-row dynamic int8
+activations, int32 accumulation) on the flat and the einsum routes; fc2
+stays in the compute dtype, ``FUSED_MLP`` keeps precedence, and the
+head-major route (K5) has no int8 branch, as in the reference. The
+reference's XLA scheduling toggles are not ported.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
@@ -55,11 +64,29 @@ from mem_tpu_torch.ops import attention as _fa
 from mem_tpu_torch.ops.attention import (attention_route, fused_attention,
                                          fused_attention_flat, fused_attention_flat_long)
 from mem_tpu_torch.ops.mlp import mlp_fused
+from mem_tpu_torch.ops.quant import dense_w8a8, dense_w8a8_prequant, quantize_activation
 
 # The reference's toggles (mem_tpu/models/vit.py:50, :57, :71), read at call time.
 FLAT_ATTN_LONG = True  # False: shapes not head-blocked-eligible as with FLAT_ATTN = False
 FLAT_ATTN = True       # False: q/k/v as (B, H, N, D) and kernels K5a-K5e
 FUSED_MLP = False      # True: dropout-free MLPs through kernels K6f/K6b
+INT8_GEMM = False      # True: W8A8 fc1 / qkv / proj in eval-mode forwards (vit.py:86)
+
+
+@contextlib.contextmanager
+def int8_gemm(enabled: bool = True):
+    """``INT8_GEMM`` set inside the block when ``enabled`` (a CLI's ``--int8
+    1``, where the reference sets the module flag for the process) and
+    restored after it; with ``enabled`` false the flag is left alone."""
+    global INT8_GEMM
+    if not enabled:
+        yield
+        return
+    old, INT8_GEMM = INT8_GEMM, True
+    try:
+        yield
+    finally:
+        INT8_GEMM = old
 
 
 def trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator,
@@ -204,7 +231,9 @@ class RelativePositionBias(nn.Module):
 class Mlp(nn.Module):
     """fc1 -> exact gelu -> fc2 in the compute dtype, then dropout (training
     only), as the reference orders them (vit.py:286-291); with ``FUSED_MLP``
-    and no dropout, the fused kernel (vit.py:269-270)."""
+    and no dropout, the fused kernel (vit.py:269-270); else with
+    ``INT8_GEMM`` in eval mode, fc1 as a W8A8 product with its bias inside
+    and fc2 in the compute dtype (vit.py:272-284)."""
 
     def __init__(self, dim: int, hidden_dim: int, dropout: float = 0.0,
                  dtype=torch.float32, device=None):
@@ -218,6 +247,11 @@ class Mlp(nn.Module):
         if FUSED_MLP and self.dropout == 0.0:
             return mlp_fused(x.to(self.dtype), self.fc1.weight.t(), self.fc1.bias,
                              self.fc2.weight.t(), self.fc2.bias)
+        if INT8_GEMM and not self.training:
+            # fc2 stays in the compute dtype: its input is the 4C-wide gelu
+            # output, whose quantize pass costs what the int8 product saves
+            h = dense_w8a8(x, self.fc1.weight.t(), self.fc1.bias, out_dtype=self.dtype)
+            return linear(F.gelu(h, approximate="none"), self.fc2, self.dtype)
         x = F.gelu(linear(x, self.fc1, self.dtype), approximate="none")
         x = linear(x, self.fc2, self.dtype)
         if self.training and self.dropout > 0:
@@ -279,19 +313,37 @@ class Attention(nn.Module):
 
     def _qkv_flat(self, x):
         a = self.all_head_dim
-        w = self.qkv.weight.to(self.dtype)
-        q = torch.matmul(x, w[:a].t())
-        k = torch.matmul(x, w[a:2 * a].t())
-        v = torch.matmul(x, w[2 * a:].t())
+        if INT8_GEMM and not self.training:
+            # the activation quantized once for q, k and v (vit.py:383-395,
+            # 492-503). One int8 product over the whole (C, 3C) weight: the
+            # weight scales are per output column, so its int32
+            # accumulators and outputs are the three slices' exactly
+            xq, rs = quantize_activation(x)
+            q, k, v = dense_w8a8_prequant(xq, rs, self.qkv.weight.t(), None,
+                                          self.dtype).split(a, dim=-1)
+        else:
+            w = self.qkv.weight.to(self.dtype)
+            q = torch.matmul(x, w[:a].t())
+            k = torch.matmul(x, w[a:2 * a].t())
+            v = torch.matmul(x, w[2 * a:].t())
         if self.q_bias is not None:
             q = q + self.q_bias.to(self.dtype)
             v = v + self.v_bias.to(self.dtype)
         return q, k, v
 
+    def _proj(self, out):
+        """The output projection of the flat and einsum routes: W8A8 with the
+        bias inside under ``INT8_GEMM`` in eval mode (vit.py:441-447,
+        537-545), else in the compute dtype."""
+        if INT8_GEMM and not self.training:
+            return dense_w8a8(out, self.proj.weight.t(), self.proj.bias, out_dtype=self.dtype)
+        return linear(out, self.proj, self.dtype)
+
     def _forward_bhnd(self, x, bias):
         """vit.py:461-487: the head split rides the three products' outputs,
         K5a/K5c on (B, H, N, D), and the output projection contracts (head,
-        head_dim) against the same ``proj`` parameters."""
+        head_dim) against the same ``proj`` parameters. No int8 branch: the
+        reference has none on this route."""
         H, D = self.num_heads, self.all_head_dim // self.num_heads
         w3 = self.qkv.weight.to(self.dtype).reshape(3, H, D, -1)
         q, k, v = (torch.einsum("bnc,hdc->bhnd", x, w3[i]) for i in range(3))
@@ -320,7 +372,7 @@ class Attention(nn.Module):
             attn = dropout(attn, self.attn_dropout,
                            _need_generator(generator, "attention dropout"))
         out = torch.einsum("bhnm,bmhd->bnhd", attn.to(self.dtype), v)
-        return linear(out.reshape(B, N, self.all_head_dim), self.proj, self.dtype)
+        return self._proj(out.reshape(B, N, self.all_head_dim))
 
     def use_fused(self, N: int) -> bool:
         """The reference's ``use_fused`` (vit.py:364-377) with its
@@ -344,7 +396,7 @@ class Attention(nn.Module):
                           else fused_attention_flat_long)
                 q, k, v = self._qkv_flat(x)
                 out = attend(q.contiguous(), k.contiguous(), v.contiguous(), bias, self.scale)
-                out = linear(out, self.proj, self.dtype)
+                out = self._proj(out)
             else:
                 out = self._forward_bhnd(x, bias)
         if self.training and self.proj_dropout > 0:

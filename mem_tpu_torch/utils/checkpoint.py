@@ -19,6 +19,13 @@ written under the other ``--model_ema`` setting too (a missing EMA is
 re-seeded from the weights, a surplus one dropped). Orbax checkpoint
 directories are out of reach:
 reading them needs jax; export them to .pth first.
+
+``prune_checkpoints`` is the pipeline scripts' stage-boundary pruning
+(train-pipeline.sbatch:87-101): it keeps ``final``, ``best`` and the newest
+numbered checkpoint. The reference's orbax cases map so: the temporary
+directory of an interrupted async save is, here, the ``.tmp`` file of an
+interrupted :func:`save_checkpoint` (removed the same way); a ``.pth``
+carries its metadata inside, so there is no ``.meta.json`` sidecar.
 """
 from __future__ import annotations
 
@@ -26,7 +33,8 @@ import os
 import re
 from typing import Any, Dict, Optional
 
-import torch
+# torch is imported where a checkpoint is read or written: the pipeline
+# scripts run prune_checkpoints in a process of its own between stages
 
 
 def latest_checkpoint(output_dir: str) -> Optional[str]:
@@ -57,6 +65,8 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
             f"{path} is a directory without a .pth checkpoint; orbax checkpoints "
             f"need jax to read -- convert one with `python -m "
             f"mem_tpu.cli.export_torch --checkpoint {path} --output model.pth`")
+    import torch
+
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
@@ -66,6 +76,28 @@ def save_checkpoint(output_dir: str, tag, payload: Dict[str, Any]) -> str:
     os.makedirs(output_dir, exist_ok=True)
     path = os.path.join(output_dir, f"checkpoint-{tag}.pth")
     tmp = f"{path}.{os.getpid()}.tmp"
+    import torch
+
     torch.save(payload, tmp)
     os.replace(tmp, path)
     return path
+
+
+def prune_checkpoints(output_dir: str, keep_tags=("final", "best")) -> None:
+    """Remove every ``checkpoint-*.pth`` in ``output_dir`` but those tagged
+    ``keep_tags`` and the highest numbered one, and the ``.tmp`` files that
+    an interrupted save left (mem_tpu/utils/checkpoint.py:190-222). A
+    relative ``output_dir`` is taken from the current directory."""
+    output_dir = os.path.abspath(output_dir)
+    if not os.path.isdir(output_dir):
+        return
+    latest = latest_numbered_checkpoint(output_dir)
+    for name in os.listdir(output_dir):
+        full = os.path.join(output_dir, name)
+        if re.fullmatch(r"checkpoint-.+\.pth\.\d+\.tmp", name):
+            os.remove(full)
+            continue
+        m = re.fullmatch(r"checkpoint-(.+)\.pth", name)
+        if not m or m.group(1) in keep_tags or full == latest:
+            continue
+        os.remove(full)

@@ -126,13 +126,35 @@ def test_test_seg_matches_jax_cli(synth_seg_dataset, checkpoints, capsys, tmp_pa
     assert np.bincount(pred.ravel()).max() < 0.98 * pred.size    # not one class
 
 
+def test_test_seg_int8_matches_jax_cli(synth_seg_dataset, checkpoints, capsys, monkeypatch):
+    """``test_seg --int8 1`` against ``mem_tpu.cli.test_seg --int8 1`` (which
+    sets its module flag for the process: restored here after the test):
+    the summary line within MIOU_TOL; the port's flag is restored after the
+    run and the run differs from the f32 one only by int8 noise."""
+    from mem_tpu.models import vit as jax_vit
+    from mem_tpu_torch.models import vit
+
+    monkeypatch.setattr(jax_vit, "INT8_GEMM", False)
+    jax_ckpt, pth = checkpoints
+    flags = ["--data_root", synth_seg_dataset, "--num_classes", str(NUM_CLASSES), *_SIZE,
+             "--batch_size", "8", "--slice_max_evs", "25000", "--dtype", "float32",
+             "--int8", "1"]
+    jax_test_seg(flags + ["--checkpoint", jax_ckpt])
+    assert jax_vit.INT8_GEMM is True
+    want = _summary(capsys.readouterr().out)
+    stats = cli.main(flags + ["--checkpoint", pth, "--device", "cpu"])
+    got = _summary(capsys.readouterr().out)
+    assert vit.INT8_GEMM is False
+    for k in want:
+        assert abs(got[k] - want[k]) <= MIOU_TOL, (k, got, want)
+    assert abs(stats["mIoU"] - got["mIoU"]) < 1e-4
+
+
 def test_test_seg_refusals(synth_seg_dataset, checkpoints, monkeypatch):
     _, pth = checkpoints
     flags = ["--data_root", synth_seg_dataset, "--checkpoint", pth,
              "--num_classes", str(NUM_CLASSES), *_SIZE]
     assert cli.get_args(flags).device == "cuda"          # the card is the default
-    with pytest.raises(NotImplementedError, match="item 14"):
-        cli.main(flags + ["--int8", "1", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(flags)

@@ -262,16 +262,35 @@ def test_device_cuda_without_card_raises(checkpoints):
 
 
 @pytest.mark.parametrize("flags,slice_name", [
-    (["--surface", "seg", "--int8", "1"], "quantization"),   # the seg surface itself is ported
+    (["--surface", "seg", "--int8", "1"], "quantization"),
     (["--int8", "1"], "quantization"),
 ])
-def test_unported_surfaces_raise(checkpoints, flags, slice_name):
-    from mem_tpu_torch.cli.serve import build_server, get_args
+def test_unported_surfaces_raise(checkpoints, monkeypatch, flags, slice_name):
+    """--int8 1 is ported on both surfaces (the quantization slice): the
+    server builds, and each forward it runs, the warm-up included, sees
+    ``models.vit.INT8_GEMM`` set; the flag is restored around it."""
+    from mem_tpu_torch.cli import serve
+    from mem_tpu_torch.models import vit
 
+    seen = []
+
+    def build(args, dtype, device):
+        def infer(batch):
+            seen.append(vit.INT8_GEMM)
+            return (torch.zeros(4, 3), torch.zeros(4, 3, dtype=torch.long)), None
+        return (lambda reqs, B: {}), infer, (lambda j, out, q: ("application/json", b"{}"))
+
+    monkeypatch.setattr(serve, "_build_seg" if "seg" in flags else "_build_cls", build)
     _, pth_dir = checkpoints
-    args = get_args(["--checkpoint", pth_dir, "--device", "cpu"] + _MODEL_FLAGS + flags)
-    with pytest.raises(NotImplementedError, match=slice_name):
-        build_server(args)
+    args = serve.get_args(["--checkpoint", pth_dir, "--device", "cpu"] + _MODEL_FLAGS + flags)
+    httpd, state, threads = serve.build_server(args)
+    with state.cv:
+        state.stop = True
+        state.cv.notify_all()
+    httpd.server_close()
+    for t in threads:
+        t.join(timeout=10)
+    assert seen == [True] and vit.INT8_GEMM is False and slice_name == "quantization"
 
 
 def test_checkpoint_dir_takes_newest_pth_and_refuses_orbax(checkpoints, tmp_path):
