@@ -148,6 +148,22 @@ pretraining -> finetune, pruned to final / best / latest), whose conf's
 profile_dir and log_dir make the pretraining stage trace its third step (K1
 once, K2f and K2b 12 times by kernel name) and write TensorBoard files.
 
+Multi-GPU training (run_parallel_slice, last, in processes of its own:
+mem_tpu_torch/tools/mp_worker.py's chip modes, tools/mp_chip.py): a
+world-size-1 NCCL group runs three full-width pretraining steps (pt_vit
+ViT-B/16, vocab 8192, bf16, the conf's f32 tokenizer, B=64) under DP,
+ZeRO-1, FSDP and TP (a one-rank "model" group) against the same steps
+without a group (DP and ZeRO-1 bit-equal, FSDP and TP within 1e-6 relative
+L2), with per-step ms, peak memory and launches; then two processes on the
+one card over Gloo (NCCL refuses two ranks on one device) run the DP step
+(f32, 2 x 32 against 64), the TP step at tp = 2 (bf16, B=16, K2f / K2b at
+6 heads, FUSED_MLP's K6f / K6b at hidden 1,536) and the full-width seg step
+under DP (f32, six blocks, 2 x 2 against 4, SyncBN; K3f, K3b, K4), each against one
+process within its gate, each with a planted fault (a per-rank loss mean, fc2's
+bias added on every rank, an unsynced BatchNorm) that must miss it. The
+kernel table's rows on these paths carry their launches as
+``parallel_launches``.
+
 Between them it holds one VAE, one pretraining, one MAE, one segmentation
 and one finetune train step on the card (f32 and bf16) against the same step
 on the CPU (the VAE, pretraining and MAE steps on the CPU's images, tokens
@@ -251,6 +267,8 @@ SEG_TRAIN_IMG_FRAC = 1e-3  # in another order can flip a uint8 level (or a hot p
 SEG_STEP_BN_REL = 1e-3   # updated BatchNorm buffers card vs CPU in f32, relative L2: a batch
                          # mean is a cancelling sum, so 1e-6 of the activations shows larger
 SEG_DAMPED_EPS = 0.1     # the epsilon the PSP BatchNorms get in the step's second comparison
+SEG_STEP_DEPTH = 6       # blocks of the card-vs-CPU seg step: every kernel and gate of the
+                         # path at half the CPU reference's time of the full depth
 SEG_STEP_BN_DAMPED_REL = 1e-5  # the same buffers with the PSP BatchNorms damped: 8.1e-7 to
                                # 1.2e-6 on six seeds on an H100 (tools/seg_bn_seeds.py), where
                                # the undamped ones read 5.0e-6 to 8.0e-4
@@ -888,11 +906,21 @@ def run(torch):
         signal.signal(signal.SIGTERM, signal.SIG_DFL)   # the CLIs latched SIGTERM
         int8_tmp.cleanup()
 
+    # -- multi-GPU training (processes of its own) ---------------------------
+    par_tmp = tempfile.TemporaryDirectory()
+    try:
+        par = run_parallel_slice(torch, gpu, par_tmp.name)
+    finally:
+        par_tmp.cleanup()
+
     def row(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms):
-        return {"name": name, "route": "cuda", "source": f"mem_tpu_torch/csrc/{source}",
-                "replaces": replaces, "launches": launches,
-                "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms}
+        out = {"name": name, "route": "cuda", "source": f"mem_tpu_torch/csrc/{source}",
+               "replaces": replaces, "launches": launches,
+               "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms}
+        if name in par:   # the parallel paths' launches (their ranks' main paths)
+            out["parallel_launches"] = par[name]
+        return out
 
     # launches: K1, K2f, K2b from the pretraining CLI's run, K3f and K4 from
     # test_seg's single-scale run, K3b from train_seg's first run, K6f, K6b,
@@ -1905,25 +1933,29 @@ def seg_host_batch(data_root, B, batch_ops=True):
     return batch
 
 
-def make_seg_step(torch, sd, device, dtype, lr_fn, drop=0.1):
-    """A full-width segmentor on ``device`` from the state_dict ``sd`` and its
-    train step (the CLI's optimizer: layer decay 0.65, betas 0.9 / 0.999)."""
+def make_seg_step(torch, sd, device, dtype, lr_fn, drop=0.1, depth=12):
+    """A full-width segmentor on ``device`` from the state_dict ``sd`` (its
+    first ``depth`` blocks, the last four tapped) and its train step (the
+    CLI's optimizer: layer decay 0.65, betas 0.9 / 0.999)."""
     from mem_tpu_torch.cli.train_seg import SEG_BETAS
     from mem_tpu_torch.models.segmentation import build_segmentor
     from mem_tpu_torch.train.optim import create_optimizer
     from mem_tpu_torch.train.steps import make_seg_steps
 
-    model = build_segmentor(11, 512, 768, 12, 12, dtype, device, drop_path_rate=drop,
+    model = build_segmentor(11, 512, 768, depth, 12, dtype, device, drop_path_rate=drop,
                             dropout_ratio=drop)
-    model.load_state_dict(sd, strict=True)
-    opt = create_optimizer(model, 5e-4, 0.05, layer_decay=0.65, num_layers=12, betas=SEG_BETAS)
+    model.load_state_dict({k: v for k, v in sd.items()
+                           if not (k.startswith("backbone.blocks.")
+                                   and int(k.split(".")[2]) >= depth)}, strict=True)
+    opt = create_optimizer(model, 5e-4, 0.05, layer_decay=0.65, num_layers=depth,
+                           betas=SEG_BETAS)
     step, _ = make_seg_steps(model, opt, lr_fn, 0.05, 11, True, True, y_sorted=True)
     return model, step
 
 
 def check_seg_train_step(torch, dev, data_root, sd):
-    """One make_seg_steps train step of the full-width segmentor (depth 12,
-    B=2, drop-path and dropout 0: the CPU's and the card's generators draw
+    """One make_seg_steps train step of the full-width segmentor (its first
+    SEG_STEP_DEPTH blocks, B=2, drop-path and dropout 0: the CPU's and the card's generators draw
     other bits) on one host batch and its draws: the train images (resize
     jitter, RandAugment, flips) card vs CPU, then the step on the card in f32
     (TF32 off) and bf16 against the CPU in f32 from the same weights.
@@ -2000,7 +2032,8 @@ def check_seg_train_step(torch, dev, data_root, sd):
     for name, d, dt, eps, fault in rows:
         flat = not name.endswith("_long_off")
         with toggles(flat_attn_long=flat):
-            model, step = make_seg_step(torch, sd, d, dt, lr_fn, drop=0.0)
+            model, step = make_seg_step(torch, sd, d, dt, lr_fn, drop=0.0,
+                                        depth=SEG_STEP_DEPTH)
             if eps is not None:
                 for si in range(len(model.decode_head.pool_scales)):
                     getattr(model.decode_head, f"psp_{si}").bn.eps = eps
@@ -2050,7 +2083,7 @@ def check_seg_train_step(torch, dev, data_root, sd):
                  for n, b in out["card_f32_damped" + t][2].items()}
     worst_damped = max(bn_damped, key=bn_damped.get)
     say("seg_train_step_check", model="EvBEiT ViT-B/16 + UPerNet + FCN", embed_dim=768,
-        depth=12, heads=12, tokens=1025, batch=2,
+        depth=SEG_STEP_DEPTH, heads=12, tokens=1025, batch=2,
         metrics={n: v[0] for n, v in out.items()}, seconds={n: v[3] for n, v in out.items()},
         loss_rel=loss_rel, gradients_damped=grads, damped_eps=SEG_DAMPED_EPS,
         planted_faults={n: dict(rel_l2_max=f["rel_l2_max"], rel_l2_median=f["rel_l2_median"],
@@ -2064,10 +2097,10 @@ def check_seg_train_step(torch, dev, data_root, sd):
     check(all(np.isfinite(v) for v in ref_m.values()), "CPU seg step metrics not finite")
     for name, c in counts.items():
         want = {} if name.startswith("cpu") else {
-            "hist_planes_cols_sorted": 1, "fused_attention_long": 12,
-            "fused_attention_bwd_long": 12} if name.endswith("_long_off") else {
-            "hist_planes_cols_sorted": 1, "fused_attention_flat_long": 12,
-            "fused_attention_flat_long_bwd": 12}
+            "hist_planes_cols_sorted": 1, "fused_attention_long": SEG_STEP_DEPTH,
+            "fused_attention_bwd_long": SEG_STEP_DEPTH} if name.endswith("_long_off") else {
+            "hist_planes_cols_sorted": 1, "fused_attention_flat_long": SEG_STEP_DEPTH,
+            "fused_attention_flat_long_bwd": SEG_STEP_DEPTH}
         check(c == want, f"the {name} seg step launched {c}")
     for t in ("", "_long_off"):
         check(loss_rel["card_f32" + t] <= STEP_F32_LOSS_REL
@@ -6536,6 +6569,93 @@ def finish_pipeline_script(torch, proc, t0, expdir):
     check("device cuda" in out, "the pipeline's stages did not run on the card")
     check_pretrain_sinks(torch, os.path.join(expdir, "profile"), os.path.join(expdir, "tb"),
                          device_memory_stats())
+
+
+PAR_KERNELS = {   # kernel -> the parallel runs whose launches it counts
+    "hist_planes_cols": (("chip1", "dp"), ("chip1", "zero1"), ("chip1", "fsdp"),
+                         ("chip1", "tp1"), ("chip2", "dp")),
+    "fused_attention_flat": (("chip1", "dp"), ("chip1", "zero1"), ("chip1", "fsdp"),
+                             ("chip1", "tp1"), ("chip2", "dp"), ("chip2", "tp")),
+    "fused_attention_flat_bwd": (("chip1", "dp"), ("chip1", "zero1"), ("chip1", "fsdp"),
+                                 ("chip1", "tp1"), ("chip2", "dp"), ("chip2", "tp")),
+    "mlp_fused": (("chip2", "tp"),),
+    "mlp_fused_bwd": (("chip2", "tp"),),
+    "fused_attention_flat_long": (("chip2", "seg"),),
+    "fused_attention_flat_long_bwd": (("chip2", "seg"),),
+    "hist_planes_cols_sorted": (("chip2", "seg"),),
+}
+
+
+def run_parallel_slice(torch, gpu, tmp_root):
+    """Multi-GPU training (parallel/, tools/mp_worker.py, tools/mp_chip.py),
+    in two processes of its own: ``chip1`` (rank 0 alone, a world-size-1
+    NCCL group: three
+    full-width pretraining steps under DP, ZeRO-1, FSDP and TP against the
+    same steps without a group; DP and ZeRO-1 bit-equal, FSDP and TP within
+    mp_chip.FSDP_TP_REL), then ``chip2`` (two processes on the one card over
+    Gloo, named so: the DP step, the TP step at tp = 2 with FUSED_MLP, the seg
+    step under DP, each against one process within its gate and each with a
+    planted fault that must miss it). Returns {kernel: {run: launches}} of
+    the ranks' main paths (rank 0's; each process counts its own)."""
+    from mem_tpu_torch.tools import mp_chip, mp_worker
+
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.getcwd())
+    work = os.path.join(tmp_root, "par")
+    res = {}
+    outs = mp_worker.launch("chip", work, 2, env=env, timeout=600, cwd=os.getcwd())
+    for rank, (code, log) in enumerate(outs):
+        if code != 0:
+            print(log[-6000:], file=sys.stderr)
+        check(code == 0, f"mp_worker chip rank {rank} exited {code}")
+    for mode, nproc in (("chip1", 1), ("chip2", 2)):
+        res[mode] = [json.load(open(os.path.join(work, f"{mode}_r{r}.json")))
+                     for r in range(nproc)]
+    c1 = res["chip1"][0]
+    for mode, r in c1["modes"].items():
+        say("parallel_world1", gpu=gpu, backend=c1["backend"], mode=mode,
+            placement=r["placement"], batch=c1["batch"], steps=c1["steps"],
+            bit_equal=r["bit_equal"], weights_rel_l2=r["weights_rel_l2"],
+            loss_equal=r["loss_equal"], step_ms=r["step_ms"], peak_gb=r["peak_gb"],
+            single_step_ms=c1["single"]["step_ms"], single_peak_gb=c1["single"]["peak_gb"],
+            launches=r["launches"])
+        if mode in ("dp", "zero1"):
+            check(r["bit_equal"], f"{mode} at world size 1 is not bit-equal to no group")
+        else:
+            check(r["weights_rel_l2"] <= mp_chip.FSDP_TP_REL,
+                  f"{mode} at world size 1: weights rel L2 {r['weights_rel_l2']}")
+        for name in ("hist_planes_cols", "fused_attention_flat", "fused_attention_flat_bwd"):
+            check(r["launches"].get(name, 0) > 0, f"{mode} launched no {name}")
+    r0, r1 = res["chip2"]
+    gates = {"dp": mp_chip.DP_GRAD_REL, "tp": mp_chip.TP_GRAD_REL, "seg": mp_chip.SEG_GRAD_REL}
+    for tag, gate in gates.items():
+        ok, bad = r0[tag], r0[f"{tag}_fault"]
+        say("parallel_two_process", gpu=gpu, backend=r0["backend"], run=tag,
+            grad_rel_l2=ok["grad_rel_l2"], gate=gate, loss_rel=ok["loss_rel"],
+            fault_grad_rel_l2=bad["grad_rel_l2"], fault_loss_rel=bad["loss_rel"],
+            ms=[ok["ms"], r1[tag]["ms"]], peak_gb=[ok["peak_gb"], r1[tag]["peak_gb"]],
+            single_ms=r0["single"][tag]["ms"], single_peak_gb=r0["single"][tag]["peak_gb"],
+            launches=ok["launches"])
+        check(ok["grad_rel_l2"] <= gate, f"two-process {tag}: gradients rel L2 "
+              f"{ok['grad_rel_l2']} > {gate}")
+        check(bad["grad_rel_l2"] > gate, f"two-process {tag}: the planted fault passed the "
+              f"gate ({bad['grad_rel_l2']} <= {gate})")
+    say("parallel_routes", gpu=gpu, **r0["routes"])
+    say("parallel_phases", world1=c1["seconds"], two_process=[r0["seconds"], r1["seconds"]])
+    check(r0["routes"]["tp_k6_route"] == "wgmma", f"K6 at hidden 1536: {r0['routes']}")
+    for tag, names in (("tp", ("fused_attention_flat", "fused_attention_flat_bwd", "mlp_fused",
+                               "mlp_fused_bwd")),
+                       ("seg", ("fused_attention_flat_long", "fused_attention_flat_long_bwd",
+                                "hist_planes_cols_sorted")),
+                       ("dp", ("hist_planes_cols",))):
+        for name in names:
+            check(r0[tag]["launches"].get(name, 0) > 0 and r1[tag]["launches"].get(name, 0) > 0,
+                  f"two-process {tag} launched no {name}")
+    out = {name: {f"{c}.{run}": (c1["modes"][run] if c == "chip1" else r0[run])["launches"]
+                  .get(name, 0) for c, run in runs}
+           for name, runs in PAR_KERNELS.items()}
+    say("parallel_slice", seconds=round(time.perf_counter() - t0, 1))
+    return out
 
 
 def main() -> int:

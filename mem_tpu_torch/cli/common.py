@@ -20,12 +20,26 @@ from mem_tpu_torch.models.registry import create_model
 
 def resolve_device(name: str) -> torch.device:
     """The training CLIs' ``--device``: cuda needs a card, and no CLI goes on
-    on the CPU without being told to."""
+    on the CPU without being told to. Under a multi-process launch (torchrun)
+    this joins the process group (parallel/mesh.py ``init_distributed``:
+    NCCL on cuda:LOCAL_RANK, Gloo on ``--device cpu``) and returns this
+    process's device."""
+    from mem_tpu_torch.parallel.mesh import init_distributed
+
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available "
                            "(pass --device cpu to train on the CPU)")
-    return device
+    return init_distributed(device)
+
+
+def data_shard(mesh) -> dict:
+    """``shard_id`` / ``num_shards`` of this process's share of the samples:
+    its "data" rank and the "data" size (tensor-parallel ranks of one data
+    rank read the same samples)."""
+    from mem_tpu_torch.parallel.mesh import axis_rank, axis_size
+
+    return {"shard_id": axis_rank(mesh, "data"), "num_shards": axis_size(mesh, "data")}
 
 
 def detect_dataset(data_path: str) -> str:
@@ -133,11 +147,13 @@ def build_classifier(args, nb_classes: int, dtype, device):
 
 def build_pipeline(args, split: str, is_train: bool, batch_size: int,
                    masking: Optional[str] = None, window_size: Tuple[int, int] = (14, 14),
-                   seed: int = 0,
-                   num_workers: int = 4) -> Tuple[NpyFolder, EventBatchIterator]:
+                   seed: int = 0, num_workers: int = 4, shard_id: int = 0,
+                   num_shards: int = 1) -> Tuple[NpyFolder, EventBatchIterator]:
     """The split's folder and host batch iterator with the dataset's quirks
     (common.py:110-205): canvas, fixed extents and coordinate scale, and the
-    compact int16 wire whenever the timestamp column is dead."""
+    compact int16 wire whenever the timestamp column is dead. ``batch_size``
+    is this process's; ``shard_id`` / ``num_shards`` its share of the samples
+    (a data-parallel run passes its data rank and size)."""
     src = args.data_path
     if split != "train" and getattr(args, "eval_data_path", None):
         src = args.eval_data_path
@@ -195,6 +211,8 @@ def build_pipeline(args, split: str, is_train: bool, batch_size: int,
         shuffle=is_train,
         drop_last=is_train,
         num_workers=num_workers,
+        shard_id=shard_id,
+        num_shards=num_shards,
         compact_wire=(
             bool(getattr(args, "compact_wire", 1))
             and not bool(getattr(args, "timesurface", 0))
@@ -242,18 +260,24 @@ def validate_preproc_args(args, train: bool = True) -> None:
 
 
 # reference flags the port accepts and ignores (common.py:293-317): name ->
-# (add_argument kwargs, why it has no effect)
+# (add_argument kwargs, why it has no effect). The process topology is the
+# launcher's: torchrun sets WORLD_SIZE / RANK / LOCAL_RANK (SLURM its own),
+# which parallel/mesh.py init_distributed reads
+_TORCHRUN = ("the process count and rank come from torchrun's environment "
+             "(WORLD_SIZE / RANK / LOCAL_RANK): launch with torchrun --nproc_per_node N")
 _COMPAT_CATALOG = {
-    "--world_size": (dict(type=int, default=1), "the port runs on one device"),
-    "--local_rank": (dict(type=int, default=-1), "the port runs on one device"),
-    "--dist_on_itp": (dict(action="store_true"), "the port runs on one device"),
-    "--dist_url": (dict(type=str, default="env://"), "the port runs on one device"),
-    "--dist_eval": (dict(action="store_true"), "the port runs on one device"),
+    "--world_size": (dict(type=int, default=1), _TORCHRUN),
+    "--local_rank": (dict(type=int, default=-1), _TORCHRUN),
+    "--dist_on_itp": (dict(action="store_true"), _TORCHRUN),
+    "--dist_url": (dict(type=str, default="env://"),
+                   "the rendezvous is torchrun's MASTER_ADDR / MASTER_PORT"),
+    "--dist_eval": (dict(action="store_true"),
+                    "evaluation already shards the val split over the processes"),
     "--pin_mem": (dict(action="store_true", default=True),
                   "batches always go through pinned memory (data/prefetch.py)"),
     "--no_pin_mem": (dict(action="store_false", dest="pin_mem"),
                      "batches always go through pinned memory (data/prefetch.py)"),
-    "--gpu": (dict(type=int, default=0), "the port runs on one device"),
+    "--gpu": (dict(type=int, default=0), "each process drives cuda:LOCAL_RANK (torchrun)"),
     "--enable_deepspeed": (dict(action="store_true"), "DeepSpeed is not used"),
     "--model_ema_force_cpu": (dict(action="store_true"),
                               "the EMA weights live on the model's device"),
@@ -325,7 +349,8 @@ def imnet_aug(args, batch_ops: bool = False):
     return image_preproc, draw_settings
 
 
-def imnet_pipelines(args, batch_size: int, window: Optional[Tuple[int, int]] = None):
+def imnet_pipelines(args, batch_size: int, window: Optional[Tuple[int, int]] = None,
+                    shard_id: int = 0, num_shards: int = 1):
     """(train folder, train iterator, val folder, val iterator) of
     ``--data_set IMNET`` over data_path/{train,val} (with the extracted_*
     fallback; --eval_data_path is ignored, datasets.py:415-420). With
@@ -334,7 +359,9 @@ def imnet_pipelines(args, batch_size: int, window: Optional[Tuple[int, int]] = N
     tokenizer view's 224, and --input_H2 never reaches the event VAE), the
     block mask on ``window``. Without, the classification iterator of the
     finetune and the VAE (run_class_finetuning.py:251-294, train_vae.py:
-    151-195): --input_size, ColorJitter only when --aa is off."""
+    151-195): --input_size, ColorJitter only when --aa is off.
+    ``batch_size`` is this process's, ``shard_id`` / ``num_shards`` its
+    share of the samples."""
     from mem_tpu_torch.data.image_pipeline import (ImageBatchIterator, ImageFolder,
                                                    ImagePipelineConfig)
 
@@ -346,7 +373,8 @@ def imnet_pipelines(args, batch_size: int, window: Optional[Tuple[int, int]] = N
         folder = ImageFolder(resolve_split_root(args.data_path, split))
         common = dict(batch_size=batch_size, is_train=is_train,
                       interpolation=args.train_interpolation, seed=args.seed,
-                      shuffle=is_train, drop_last=is_train)
+                      shuffle=is_train, drop_last=is_train, shard_id=shard_id,
+                      num_shards=num_shards)
         if window is not None:
             cfg = ImagePipelineConfig(
                 input_size=args.input_H, second_size=args.input_H,

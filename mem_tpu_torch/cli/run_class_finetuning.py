@@ -38,6 +38,15 @@ acc5 and the epoch's train loss) under ``log_dir + wandb_group``, ``--wandb
 1`` logs the train loss every 100 steps and val acc1 / acc5 each epoch;
 each falls back to nothing when its package is missing.
 
+Multi-process training (``torchrun --nproc_per_node N -m
+mem_tpu_torch.cli.run_class_finetuning ...``; NCCL, or Gloo with ``--device
+cpu``): ``--batch_size`` is the global batch, each process reads its share
+of the samples, and the placement is data parallel, ``--zero1 1`` or
+``--fsdp 1`` (parallel/mesh.py); the losses, the evaluations and the EMA
+are the global batch's and rank 0 writes checkpoints (the single-process
+schema), sinks and panels. ``--eval_dump`` needs one process, as in the
+reference.
+
 ``--data_set IMNET`` finetunes on a JPEG class tree (data_path/{train,val})
 instead, the reference's real-image baseline (build_transform_e2v): the host
 decodes, crops, flips and resizes to ``--input_size`` (ColorJitter only when
@@ -56,6 +65,7 @@ from mem_tpu_torch import _signals
 
 _signals.latch()  # before torch loads: a setup-time SIGTERM must latch
 
+import itertools
 import json
 import math
 import os
@@ -67,12 +77,14 @@ import torch
 
 from mem_tpu_torch.cli.common import (add_compat_args, add_imnet_args, add_preprocessing_args,
                                       build_classifier, build_pipeline, build_preproc,
-                                      imnet_aug, imnet_pipelines, resolve_device,
+                                      data_shard, imnet_aug, imnet_pipelines, resolve_device,
                                       validate_preproc_args, warn_compat_args)
 from mem_tpu_torch.data.device_pipeline import (draw_train_aug, preprocess_batch,
                                                 with_image_draws)
 from mem_tpu_torch.data.prefetch import device_prefetch, prefetch, to_device
 from mem_tpu_torch.models import vit
+from mem_tpu_torch.parallel.mesh import (any_process, check_modes, common_count, get_mesh, is_main,
+                                         local_batch_size, place_train_state, world_size)
 from mem_tpu_torch.train.mixup import draw_mixup, make_mixup
 from mem_tpu_torch.train.optim import SKIP_NAMES, create_optimizer
 from mem_tpu_torch.train.schedules import cosine_scheduler
@@ -82,7 +94,7 @@ from mem_tpu_torch.utils.checkpoint import (latest_numbered_checkpoint, load_che
 from mem_tpu_torch.utils.config import ConfigArgumentParser
 from mem_tpu_torch.utils.metrics import MetricLogger, TensorboardLogger, maybe_wandb
 from mem_tpu_torch.utils.preemption import (RESTART_EXIT_CODE, GracefulShutdown, rss_gb,
-                                            validate_rss_flag)
+                                            rss_recycle_due, validate_rss_flag)
 
 LOG_EVERY = 10   # optimizer steps between metric reads (run_class_finetuning.py:632)
 SINK_EVERY = 100  # optimizer steps between wandb points (run_class_finetuning.py:638)
@@ -165,8 +177,11 @@ def get_args(argv=None):
     p.add_argument("--color_jitter", "--class_color_jitter", type=float, default=0.0)
     p.add_argument("--rand_aug_batch_ops", type=int, default=1,
                    help="batch-level RandAugment op choice (default on); 0 = per sample")
-    p.add_argument("--zero1", type=int, default=0)
-    p.add_argument("--fsdp", type=int, default=0)
+    p.add_argument("--zero1", type=int, default=0,
+                   help="partition the optimizer state over the data processes")
+    p.add_argument("--fsdp", type=int, default=0,
+                   help="FSDP2: parameters, gradients and optimizer state sharded over the "
+                        "data processes")
     p.add_argument("--save_ckpt_freq", "--class_save_ckpt_freq", type=int, default=25)
     p.add_argument("--save_ckpt", action="store_true", default=True)
     p.add_argument("--no_save_ckpt", action="store_false", dest="save_ckpt")
@@ -212,14 +227,9 @@ def get_args(argv=None):
 
 
 def check_ported(args) -> None:
-    """Raise for the options whose slice of the port has not landed."""
-    todo = [
-        (args.zero1 or args.fsdp, "--zero1/--fsdp come with the multi-GPU slice of the "
-                                  "port (ROADMAP queue 1, item 15)"),
-    ]
-    for flag, msg in todo:
-        if flag:
-            raise NotImplementedError(msg)
+    """Raise for the data sets the port does not train on and for two
+    placement modes at once."""
+    check_modes(1, args.zero1, args.fsdp)
     if args.data_set not in ("npy", "image_folder", "dsec_semseg", "IMNET"):
         raise NotImplementedError(f"data_set {args.data_set!r}")
 
@@ -302,10 +312,6 @@ def _grouped(it, n: int):
             buf = []
 
 
-def _ema_state_dict(model, ema) -> dict:
-    return {name: e for (name, _), e in zip(model.named_parameters(), ema)}
-
-
 def main(argv=None):
     """Train (or, with ``--eval``, evaluate); returns ``{"history": [(step,
     loss, grad_norm), ...] of the steps this process read back, "evals":
@@ -322,20 +328,26 @@ def _run(args):
     stopper = GracefulShutdown()
     validate_rss_flag(args.rss_restart_gb)
     device = resolve_device(args.device)
+    mesh = get_mesh()
+    if args.eval and args.eval_dump and world_size() > 1:
+        # run_class_finetuning.py:534-538
+        raise SystemExit("--eval_dump needs a single-process run: per-sample predictions "
+                         "are written by one process over the whole val split")
     os.makedirs(args.output_dir, exist_ok=True)
-    micro_bs = args.batch_size // args.update_freq
+    micro_bs = local_batch_size(args.batch_size, mesh) // args.update_freq
+    shard = data_shard(mesh)
 
     image_draw = image_preproc = None
     if args.data_set == "IMNET":
         # the host decodes, crops and resizes; the device runs --aa and
         # --reprob (run_class_finetuning.py:251-294)
-        ds_train, train_it, ds_val, val_it = imnet_pipelines(args, micro_bs)
+        ds_train, train_it, ds_val, val_it = imnet_pipelines(args, micro_bs, **shard)
         image_preproc, image_draw = imnet_aug(args, args.rand_aug_batch_ops)
     else:
         ds_train, train_it = build_pipeline(args, "train", True, micro_bs, seed=args.seed,
-                                            num_workers=args.num_workers)
+                                            num_workers=args.num_workers, **shard)
         ds_val, val_it = build_pipeline(args, "val", False, micro_bs, seed=args.seed,
-                                        num_workers=args.num_workers)
+                                        num_workers=args.num_workers, **shard)
     preproc_train = build_preproc(args, True, color_jitter=args.color_jitter)
     preproc_val = build_preproc(args, False)
     nb_classes = args.nb_classes or ds_train.nb_classes
@@ -382,16 +394,6 @@ def _run(args):
     # with EMA off no copy of the weights is made at all
     ema = [p.detach().clone() for p in model.parameters()] if use_ema else None
 
-    mixup = make_mixup(nb_classes, args.mixup, args.cutmix, args.mixup_prob,
-                       args.mixup_switch_prob, args.smoothing, mode=args.mixup_mode,
-                       cutmix_minmax=args.cutmix_minmax)
-    train_step = make_finetune_train_step(
-        model, optimizer, preproc_train, nb_classes, lr_sched, wd_sched, mixup=mixup,
-        smoothing=args.smoothing, update_freq=args.update_freq, ema=ema,
-        ema_decay=args.model_ema_decay if use_ema else None, clip_grad=args.clip_grad,
-        seed=args.seed + 2, image_preproc=image_preproc)
-    eval_step = make_finetune_eval_step(model, preproc_val)
-
     start_epoch = args.start_epoch
     best_acc = 0.0
     ckpt = None
@@ -426,6 +428,23 @@ def _run(args):
         best_acc = float(payload.get("best_acc", 0.0))
         print(f"Resumed from {ckpt} (epoch {start_epoch})")
 
+    # every process restored the single-process payload; now place it
+    placement = place_train_state(model, optimizer, mesh, zero1=bool(args.zero1),
+                                  fsdp=bool(args.fsdp))
+    if ema is not None:
+        named = list(model.named_parameters())
+        ema = [placement.place_like(p, e) for (_, p), e in zip(named, ema)]
+    mixup = make_mixup(nb_classes, args.mixup, args.cutmix, args.mixup_prob,
+                       args.mixup_switch_prob, args.smoothing, mode=args.mixup_mode,
+                       cutmix_minmax=args.cutmix_minmax)
+    train_step = make_finetune_train_step(
+        model, optimizer, preproc_train, nb_classes, lr_sched, wd_sched, mixup=mixup,
+        smoothing=args.smoothing, update_freq=args.update_freq, ema=ema,
+        ema_decay=args.model_ema_decay if use_ema else None, clip_grad=args.clip_grad,
+        seed=args.seed + 2, image_preproc=image_preproc, placement=placement)
+    eval_step = make_finetune_eval_step(model, preproc_val, placement=placement)
+    main_proc = is_main()
+
     def evaluate(weights=None, dump=None):
         """Top-1 / top-5 / loss over the val split with the model's weights
         or, given ``weights`` (the EMA), with those swapped in for the pass."""
@@ -440,7 +459,8 @@ def _run(args):
         vlog = MetricLogger()
         idx = 0
         try:
-            for batch in val_it.epoch(0):
+            for batch in itertools.islice(val_it.epoch(0),
+                                          common_count(val_it.steps_per_epoch())):
                 out = step(to_device(batch, device))
                 vlog.update(n=batch["label"].shape[0], loss=float(out["loss"]),
                             acc1=float(out["acc1"]), acc5=float(out["acc5"]))
@@ -474,7 +494,7 @@ def _run(args):
         result["evals"].append((start_epoch - 1, stats, None))
         return result
 
-    if args.dump_samples_dir and start_epoch == 0:
+    if args.dump_samples_dir and start_epoch == 0 and main_proc:
         from mem_tpu_torch.utils.visualize import dump_sample_panels
 
         idx = 0
@@ -491,20 +511,26 @@ def _run(args):
                 break
         print(f"dumped {idx} sample panels to {args.dump_samples_dir}")
 
-    run = maybe_wandb(bool(args.wandb), project="mem_finetuning_classification",
+    run = maybe_wandb(bool(args.wandb) and main_proc, project="mem_finetuning_classification",
                       group=f"{args.expweek}_{args.expname}")
-    # the reference appends wandb_group to the TensorBoard directory
-    tb = TensorboardLogger(args.log_dir + args.wandb_group) if args.log_dir else None
+    # the reference appends wandb_group to the TensorBoard directory (rank 0)
+    tb = (TensorboardLogger(args.log_dir + args.wandb_group)
+          if args.log_dir and main_proc else None)
 
     def resumable(epoch: int) -> dict:
-        pay = {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
+        """The single-process payload (every process calls: the placement
+        gathers)."""
+        pay = {"model": placement.model_state_dict(model),
+               "optimizer": placement.optimizer_state_dict(optimizer),
                "epoch": epoch, "best_acc": best_acc}
         if use_ema:
-            pay["ema"] = _ema_state_dict(model, ema)
+            pay["ema"] = {name: placement.gather_like(p, e).detach().cpu()
+                          for (name, p), e in zip(model.named_parameters(), ema)}
         return pay
 
     for epoch in range(start_epoch, args.epochs):
         logger = MetricLogger()
+        stop = False
         t0 = time.time()
         micro = device_prefetch(
             prefetch(_with_draws(train_it.epoch(epoch), preproc_train, mixup, args.seed,
@@ -522,9 +548,10 @@ def _run(args):
                 result["history"].append((it, loss, gnorm))
                 if run and i % SINK_EVERY == 0:
                     run.log({"train/loss": loss, "epoch": epoch, "step": it})
-            if stopper.requested:
+            stop = any_process(stopper.requested)
+            if stop:
                 break
-        if stopper.requested:
+        if stop:
             # SIGTERM: a resumable checkpoint that restarts this epoch, exit 0
             if args.save_ckpt:
                 save_checkpoint(args.output_dir, epoch, resumable(epoch - 1))
@@ -536,7 +563,7 @@ def _run(args):
             torch.cuda.synchronize(device)
         sps = steps_per_epoch * args.batch_size / (time.time() - t0)
         print(f"epoch {epoch}: loss {logger.meters['loss'].global_avg:.4f} "
-              f"{sps:.1f} samples/sec", flush=True)
+              f"{sps:.1f} samples/sec ({sps / world_size():.1f}/gpu)", flush=True)
 
         if not args.disable_eval_during_finetuning:
             stats = evaluate()
@@ -556,13 +583,14 @@ def _run(args):
                 best_acc = stats["acc1"]
                 if args.save_ckpt:
                     save_checkpoint(args.output_dir, "best", {
-                        "model": model.state_dict(), "epoch": epoch, "acc1": stats["acc1"]})
+                        "model": placement.model_state_dict(model), "epoch": epoch,
+                        "acc1": stats["acc1"]})
         if args.save_ckpt and ((epoch + 1) % args.save_ckpt_freq == 0
                                or epoch + 1 == args.epochs):
             save_checkpoint(args.output_dir, epoch, resumable(epoch))
 
-        if args.save_ckpt and args.rss_restart_gb > 0 and epoch + 1 < args.epochs \
-                and rss_gb() > args.rss_restart_gb:
+        if args.save_ckpt and epoch + 1 < args.epochs \
+                and rss_recycle_due(args.rss_restart_gb):
             save_checkpoint(args.output_dir, epoch, resumable(epoch))
             print(f"rss {rss_gb():.1f} GB > {args.rss_restart_gb} GB: recycling process "
                   f"(exit {RESTART_EXIT_CODE}); auto_resume continues at epoch {epoch + 1}",

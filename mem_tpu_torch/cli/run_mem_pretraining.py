@@ -42,6 +42,16 @@ package is missing), ``--profile_dir`` writes a torch.profiler trace of the
 run's third step there, and the log line carries the steps' samples/s
 (``utils.profiling.StepTimer``, two warm-up steps left out).
 
+Multi-process training (``torchrun --nproc_per_node N -m
+mem_tpu_torch.cli.run_mem_pretraining ...``; NCCL, or Gloo with ``--device
+cpu``): ``--batch_size`` is the global batch, each process reads its share
+of the samples, and the placement is data parallel, ``--zero1 1``
+(optimizer state partitioned), ``--fsdp 1`` (FSDP2) or ``--tp N`` (tensor
+parallel over N processes; parallel/mesh.py). Losses and metrics are the
+global batch's; rank 0 writes the checkpoints (the single-process schema,
+which resumes at any process count), the sinks and the panels; the epoch line
+gives the samples/s of the run and of each GPU.
+
 ``--data_set IMNET`` pretrains on a JPEG class tree (data_path/{train,val})
 instead: the host makes two views of one random-resized-crop window
 (DataAugmentationForPTE2V: ColorJitter 0.4 and a flip first), the
@@ -62,6 +72,7 @@ from mem_tpu_torch import _signals
 
 _signals.latch()  # before torch loads: a setup-time SIGTERM must latch
 
+import itertools
 import math
 import os
 import sys
@@ -71,12 +82,15 @@ import numpy as np
 import torch
 
 from mem_tpu_torch.cli.common import (add_compat_args, add_imnet_args, add_preprocessing_args,
-                                      build_pipeline, build_preproc, imnet_pipelines,
-                                      resolve_device, validate_preproc_args, warn_compat_args)
+                                      build_pipeline, build_preproc, data_shard,
+                                      imnet_pipelines, resolve_device, validate_preproc_args,
+                                      warn_compat_args)
 from mem_tpu_torch.data.device_pipeline import preprocess_batch, with_train_draws
 from mem_tpu_torch.data.prefetch import device_prefetch, prefetch, to_device
 from mem_tpu_torch.models.discrete_vae import DiscreteVAE
 from mem_tpu_torch.models.registry import create_model
+from mem_tpu_torch.parallel.mesh import (any_process, check_modes, common_count, get_mesh, is_main, local_batch_size,
+                                         place_train_state, world_size)
 from mem_tpu_torch.train.optim import create_optimizer
 from mem_tpu_torch.train.schedules import at, cosine_scheduler
 from mem_tpu_torch.train.steps import (make_mae_train_step, make_pretrain_eval_step,
@@ -85,7 +99,7 @@ from mem_tpu_torch.utils.checkpoint import latest_checkpoint, load_checkpoint, s
 from mem_tpu_torch.utils.config import ConfigArgumentParser
 from mem_tpu_torch.utils.metrics import TensorboardLogger, maybe_wandb
 from mem_tpu_torch.utils.preemption import (RESTART_EXIT_CODE, GracefulShutdown, rss_gb,
-                                            validate_rss_flag)
+                                            rss_recycle_due, validate_rss_flag)
 from mem_tpu_torch.utils.profiling import StepTimer, trace
 from mem_tpu_torch.utils.visualize import grid, mask_overlay, reconstruction_panel, save_png
 
@@ -183,9 +197,14 @@ def get_args(argv=None):
     p.add_argument("--rss_restart_gb", type=float, default=0,
                    help="when host RSS exceeds this many GB at an epoch boundary, save "
                         "a resumable checkpoint and exit with code 3 (0 = off)")
-    p.add_argument("--tp", type=int, default=1)
-    p.add_argument("--zero1", type=int, default=0)
-    p.add_argument("--fsdp", type=int, default=0)
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor parallelism over this many processes (heads and hidden "
+                        "columns cut Megatron-style)")
+    p.add_argument("--zero1", type=int, default=0,
+                   help="partition the optimizer state over the data processes")
+    p.add_argument("--fsdp", type=int, default=0,
+                   help="FSDP2: parameters, gradients and optimizer state sharded over the "
+                        "data processes")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device: cuda (the kernels) or cpu (their plain versions)")
     add_imnet_args(p)
@@ -197,20 +216,16 @@ def get_args(argv=None):
 
 
 def check_ported(args) -> None:
-    """Raise for the options whose slice of the port has not landed."""
+    """Raise for the option combinations the port (and the reference) refuse."""
     if args.MAE and args.data_set == "IMNET":
         raise ValueError("--MAE with --data_set IMNET is not a reference path")
     if args.MAE and args.pretrained and args.init_ckpt:
         raise ValueError("--pretrained 1 --init_ckpt warm-starts the BEiT encoder of pt_vit "
                          "(run_mem_pretraining.py:194-222); the MAE has no such path")
-    todo = [
-        (args.tp > 1 or args.zero1 or args.fsdp,
-         "--tp/--zero1/--fsdp come with the multi-GPU slice of the port "
-         "(ROADMAP queue 1, item 15)"),
-    ]
-    for flag, msg in todo:
-        if flag:
-            raise NotImplementedError(msg)
+    check_modes(args.tp, args.zero1, args.fsdp)
+    if args.MAE and args.tp > 1:
+        raise ValueError("--tp with --MAE 1: the MAE's timm blocks have no tensor-parallel "
+                         "cut in the port; use DP, --zero1 1 or --fsdp 1")
 
 
 def build_model(args, dtype, device):
@@ -297,8 +312,11 @@ def _dump_recon_panel(args, vae, preproc, batch: dict, tag: str) -> None:
         save_png(os.path.join(args.dump_recon_dir, f"mask_{tag}.png"), grid(overlays, cols=4))
 
 
-def _checkpoint(model, optimizer, epoch: int) -> dict:
-    return {"model": model.state_dict(), "optimizer": optimizer.state_dict(), "epoch": epoch}
+def _checkpoint(model, optimizer, epoch: int, placement) -> dict:
+    """The single-process payload (every process calls: the placement
+    gathers)."""
+    return {"model": placement.model_state_dict(model),
+            "optimizer": placement.optimizer_state_dict(optimizer), "epoch": epoch}
 
 
 def main(argv=None):
@@ -310,20 +328,22 @@ def main(argv=None):
     stopper = GracefulShutdown()
     validate_rss_flag(args.rss_restart_gb)
     device = resolve_device(args.device)
+    mesh = get_mesh(tp=args.tp)
+    local_bs = local_batch_size(args.batch_size, mesh)
     os.makedirs(args.output_dir, exist_ok=True)
     patch = 2 ** args.num_layers
     window = (args.input_H // patch, args.input_W // patch)
     masking = None if args.MAE else args.masking
     imnet = args.data_set == "IMNET"
     if imnet:
-        _, train_it, _, val_it = imnet_pipelines(args, args.batch_size, window)
+        _, train_it, _, val_it = imnet_pipelines(args, local_bs, window, **data_shard(mesh))
     else:
-        _, train_it = build_pipeline(args, "train", True, args.batch_size, masking=masking,
+        _, train_it = build_pipeline(args, "train", True, local_bs, masking=masking,
                                      window_size=window, seed=args.seed,
-                                     num_workers=args.num_workers)
-        _, val_it = build_pipeline(args, "val", False, args.batch_size, masking=masking,
+                                     num_workers=args.num_workers, **data_shard(mesh))
+        _, val_it = build_pipeline(args, "val", False, local_bs, masking=masking,
                                    window_size=window, seed=args.seed,
-                                   num_workers=args.num_workers)
+                                   num_workers=args.num_workers, **data_shard(mesh))
     preproc_train = build_preproc(args, True, color_jitter=args.color_jitter)
     preproc_val = build_preproc(args, False)
 
@@ -353,17 +373,6 @@ def main(argv=None):
     optimizer = create_optimizer(model, args.lr, args.weight_decay, opt=args.opt,
                                  opt_eps=args.opt_eps, momentum=args.momentum,
                                  moment_dtype=torch.bfloat16 if args.bf16_moments else None)
-    if args.MAE:
-        vae = eval_step = None
-        train_step = make_mae_train_step(model, optimizer, preproc_train, lr_sched, wd_sched,
-                                         args.clip_grad, args.seed)
-    else:
-        vae = load_vae(args, device)
-        train_step = make_pretrain_train_step(model, vae, optimizer, preproc_train, lr_sched,
-                                              wd_sched, args.clip_grad, args.seed)
-        eval_step = make_pretrain_eval_step(model, vae, preproc_val)
-    dump = args.dump_recon_dir if not args.MAE else None
-    keys = ("loss", "grad_norm") if args.MAE else ("loss", "mlm_acc", "grad_norm")
 
     start_epoch = args.start_epoch
     ckpt = None
@@ -372,17 +381,39 @@ def main(argv=None):
     elif args.auto_resume:
         ckpt = latest_checkpoint(args.output_dir)
     if ckpt:
+        # every process restores the single-process payload, then places it
+        # (run_mem_pretraining.py:470-472)
         payload = load_checkpoint(ckpt)
         model.load_state_dict(payload["model"], strict=True)
         if "optimizer" in payload:
             optimizer.load_state_dict(payload["optimizer"])
         start_epoch = int(payload["epoch"]) + 1
         print(f"Resumed from {ckpt} (epoch {start_epoch})")
+    placement = place_train_state(model, optimizer, mesh, tp=args.tp, zero1=bool(args.zero1),
+                                  fsdp=bool(args.fsdp))
+    if mesh is not None:
+        print(f"placement {placement.mode}: {world_size()} processes, "
+              f"data {placement.data_size}, per-process batch {local_bs}")
 
-    run = maybe_wandb(bool(args.wandb), project="mem_pretraining",
+    if args.MAE:
+        vae = eval_step = None
+        train_step = make_mae_train_step(model, optimizer, preproc_train, lr_sched, wd_sched,
+                                         args.clip_grad, args.seed, placement=placement)
+    else:
+        vae = load_vae(args, device)
+        train_step = make_pretrain_train_step(model, vae, optimizer, preproc_train, lr_sched,
+                                              wd_sched, args.clip_grad, args.seed,
+                                              placement=placement)
+        eval_step = make_pretrain_eval_step(model, vae, preproc_val, placement=placement)
+    dump = args.dump_recon_dir if not args.MAE and is_main() else None
+    keys = ("loss", "grad_norm") if args.MAE else ("loss", "mlm_acc", "grad_norm")
+
+    main_proc = is_main()
+    run = maybe_wandb(bool(args.wandb) and main_proc, project="mem_pretraining",
                       group=f"{args.expweek}_{args.expname}")
     # the reference appends wandb_group to the TensorBoard directory
-    tb = TensorboardLogger(args.log_dir + args.wandb_group) if args.log_dir else None
+    tb = (TensorboardLogger(args.log_dir + args.wandb_group)
+          if args.log_dir and main_proc else None)
     profiled = False
     history = []
     last_dump = -10**9   # the step of the last grad-norm-triggered recon dump
@@ -391,6 +422,7 @@ def main(argv=None):
         timer = StepTimer(args.batch_size)
         rate = None
         pending = []   # device metrics not yet read back
+        stop = False
 
         def flush():
             ms = {k: torch.stack([m[k] for _, m in pending]).float().cpu().numpy()
@@ -438,25 +470,29 @@ def main(argv=None):
                         gnorm_max, it, last_dump, args.recon_grad_norm_thresh):
                     last_dump = it
                     _dump_recon_panel(args, vae, preproc_train, batch, f"trigger_it{it}")
-            if stopper.requested:
+            stop = any_process(stopper.requested)
+            if stop:
                 break
         if pending:
             flush()
-        if stopper.requested:
+        if stop:
             # SIGTERM: a resumable checkpoint that restarts this epoch, exit 0
-            save_checkpoint(args.output_dir, epoch, _checkpoint(model, optimizer, epoch - 1))
+            save_checkpoint(args.output_dir, epoch,
+                            _checkpoint(model, optimizer, epoch - 1, placement))
             print(f"preempted at epoch {epoch}: checkpoint saved; exiting")
             return history
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         sps = steps_per_epoch * args.batch_size / (time.time() - t0)
-        print(f"epoch {epoch}: {sps:.1f} samples/sec")
+        print(f"epoch {epoch}: {sps:.1f} samples/sec ({sps / world_size():.1f}/gpu)")
 
         if (epoch + 1) % args.save_ckpt_freq == 0 or epoch + 1 == args.epochs:
-            save_checkpoint(args.output_dir, epoch, _checkpoint(model, optimizer, epoch))
+            save_checkpoint(args.output_dir, epoch,
+                            _checkpoint(model, optimizer, epoch, placement))
             if eval_step is not None and not args.disable_eval_during_pretraining:
                 losses, accs = [], []
-                for j, batch in enumerate(val_it.epoch(0)):
+                n_val = common_count(val_it.steps_per_epoch())
+                for j, batch in enumerate(itertools.islice(val_it.epoch(0), n_val)):
                     batch = to_device(batch, device)
                     out = eval_step(batch)
                     if j == 0 and dump:
@@ -467,15 +503,16 @@ def main(argv=None):
                     print(f"* eval: loss {torch.stack(losses).mean().item():.4f} "
                           f"mlm_acc {torch.stack(accs).mean().item():.4f}")
 
-        if args.rss_restart_gb > 0 and epoch + 1 < args.epochs \
-                and rss_gb() > args.rss_restart_gb:
-            save_checkpoint(args.output_dir, epoch, _checkpoint(model, optimizer, epoch))
+        if epoch + 1 < args.epochs and rss_recycle_due(args.rss_restart_gb):
+            save_checkpoint(args.output_dir, epoch,
+                            _checkpoint(model, optimizer, epoch, placement))
             print(f"rss {rss_gb():.1f} GB > {args.rss_restart_gb} GB: recycling process "
                   f"(exit {RESTART_EXIT_CODE}); auto_resume continues at epoch {epoch + 1}",
                   flush=True)
             sys.exit(RESTART_EXIT_CODE)
 
-    save_checkpoint(args.output_dir, "final", _checkpoint(model, optimizer, args.epochs - 1))
+    save_checkpoint(args.output_dir, "final",
+                    _checkpoint(model, optimizer, args.epochs - 1, placement))
     if tb:
         tb.flush()
     return history

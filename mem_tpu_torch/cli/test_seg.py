@@ -11,7 +11,10 @@ per-class table. Optional multi-scale / flip test-time augmentation
 
 The events are rasterised on the device (kernel K4 on the 440x640 canvas)
 and the backbone's 1025-token attention runs through kernel K3f; on
-``--device cpu`` both take their plain versions.
+``--device cpu`` both take their plain versions. Under ``torchrun
+--nproc_per_node N`` each process evaluates its share of the split and the
+confusion matrices are summed over the processes; rank 0 prints the table
+(``--save_dir`` takes each process's predictions, numbered by process).
 
 Usage:
   python -m mem_tpu_torch.cli.test_seg --data_root datasets/dsec \
@@ -34,6 +37,8 @@ from mem_tpu_torch.data.seg_pipeline import (
 from mem_tpu_torch.models import vit
 from mem_tpu_torch.models.segmentation import (build_segmentor, confusion_matrix,
                                                seg_metrics, tta_probs)
+from mem_tpu_torch.parallel.mesh import init_distributed, is_main, rank, world_size
+from mem_tpu_torch.train.steps import sum_confusion
 from mem_tpu_torch.utils.checkpoint import latest_checkpoint, load_checkpoint
 from mem_tpu_torch.utils.config import ConfigArgumentParser
 
@@ -109,11 +114,12 @@ def _evaluate(args):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available "
                            "(pass --device cpu to evaluate on the CPU)")
+    device = init_distributed(device)
 
     pairs = scan_seg_pairs(args.data_root, args.img_dir, args.ann_dir)
     it = SegBatchIterator(pairs, SegPipelineConfig(
         batch_size=args.batch_size, is_train=False, max_evs=args.slice_max_evs,
-        presort_y=bool(args.presort_y),
+        presort_y=bool(args.presort_y), shard_id=rank(), num_shards=world_size(),
     ))
 
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
@@ -139,12 +145,15 @@ def _evaluate(args):
             from PIL import Image
 
             os.makedirs(args.save_dir, exist_ok=True)
+            tag = f"r{rank()}_" if world_size() > 1 else ""
             for p in pred.cpu().numpy()[:n_real]:
                 Image.fromarray(p.astype(np.uint8)).save(
-                    os.path.join(args.save_dir, f"{sample_i:06d}.png"))
+                    os.path.join(args.save_dir, f"{tag}{sample_i:06d}.png"))
                 sample_i += 1
 
-    stats = seg_metrics(cm)
+    stats = seg_metrics(sum_confusion(cm))
+    if not is_main():
+        return stats
     names = None
     if args.classes and os.path.exists(args.classes):
         with open(args.classes) as f:

@@ -4,8 +4,12 @@ mem_tpu/cli/train_seg.py: the same flags and defaults, plus ``--device``.
 Iteration-based training (default 160k iterations) of EvBEiT ViT-B/16 at
 512^2 + UPerNet + the FCN auxiliary head: AdamW with layer decay 0.65 over
 the backbone, the poly lr schedule (power 1.0) with a 1500-iteration linear
-warm-up, BatchNorm over the whole batch (one process holds it), periodic
-mIoU evaluation and checkpoints. The backbone starts from a MEM pretraining
+warm-up, BatchNorm over the whole batch, periodic mIoU evaluation and
+checkpoints. Under ``torchrun --nproc_per_node N`` (NCCL, or Gloo with
+``--device cpu``) the run is data parallel: ``--batch_size`` is the global
+batch, each process reads its share, the BatchNorm statistics and the loss's
+valid-pixel count are the global batch's (SyncBN), the confusion matrices
+are summed over the processes and rank 0 writes the checkpoints. The backbone starts from a MEM pretraining
 checkpoint through the surgery importer (``--pretrained x.pth``: a shared
 14x14 rel-pos table becomes one 32x32 table per block).
 
@@ -41,20 +45,23 @@ import time
 import numpy as np
 import torch
 
+from mem_tpu_torch.cli.common import data_shard
 from mem_tpu_torch.data.prefetch import device_prefetch, prefetch, to_device
 from mem_tpu_torch.data.seg_pipeline import (SegBatchIterator, SegPipelineConfig,
                                              draw_seg_train_aug, scan_seg_pairs,
                                              seg_preprocess_batch)
 from mem_tpu_torch.models.segmentation import build_segmentor, seg_metrics
+from mem_tpu_torch.parallel.mesh import (any_process, get_mesh, init_distributed, is_main,
+                                         local_batch_size, place_train_state, world_size)
 from mem_tpu_torch.train.optim import create_optimizer
 from mem_tpu_torch.train.schedules import poly_lr_schedule
-from mem_tpu_torch.train.steps import make_seg_steps
+from mem_tpu_torch.train.steps import make_seg_steps, sum_confusion
 from mem_tpu_torch.utils.checkpoint import (latest_numbered_checkpoint, load_checkpoint,
                                             save_checkpoint)
 from mem_tpu_torch.utils.config import ConfigArgumentParser
 from mem_tpu_torch.utils.metrics import MetricLogger
 from mem_tpu_torch.utils.preemption import (RESTART_EXIT_CODE, GracefulShutdown, rss_gb,
-                                            validate_rss_flag)
+                                            rss_recycle_due, validate_rss_flag)
 
 LOG_EVERY = 10      # iterations between metric reads (train_seg.py:405)
 PRINT_EVERY = 50    # iterations between progress lines (train_seg.py:408)
@@ -166,10 +173,11 @@ def _with_draws(it, rand_aug: bool, rand_aug_batch_ops: bool):
         yield batch
 
 
-def _checkpoint(model, optimizer, next_iter: int) -> dict:
-    payload = {"model": model.state_dict(), "epoch": next_iter}
+def _checkpoint(model, optimizer, next_iter: int, placement) -> dict:
+    """The single-process payload (every process calls)."""
+    payload = {"model": placement.model_state_dict(model), "epoch": next_iter}
     if optimizer is not None:
-        payload["optimizer"] = optimizer.state_dict()
+        payload["optimizer"] = placement.optimizer_state_dict(optimizer)
     return payload
 
 
@@ -189,6 +197,9 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available "
                            "(pass --device cpu to train on the CPU)")
+    device = init_distributed(device)
+    mesh = get_mesh()
+    local_bs = local_batch_size(args.batch_size, mesh)
     os.makedirs(args.output_dir, exist_ok=True)
     rand_aug, batch_ops = bool(args.rand_aug), bool(args.rand_aug_batch_ops)
     y_sorted = bool(args.presort_y)
@@ -197,8 +208,9 @@ def main(argv=None):
         return SegBatchIterator(
             scan_seg_pairs(args.data_root, img_dir, ann_dir),
             SegPipelineConfig(
-                batch_size=args.batch_size, is_train=is_train, max_evs=args.slice_max_evs,
+                batch_size=local_bs, is_train=is_train, max_evs=args.slice_max_evs,
                 seed=args.seed, num_workers=args.num_workers,
+                **data_shard(mesh),
                 compact_wire=bool(args.compact_wire), presort_y=y_sorted,
                 ratio_range=(1.0, 1.01) if (is_train and args.ratio_jitter) else None))
 
@@ -218,9 +230,6 @@ def main(argv=None):
     optimizer = create_optimizer(model, args.lr, args.weight_decay,
                                  layer_decay=args.layer_decay, num_layers=args.depth,
                                  betas=SEG_BETAS, opt_eps=1e-8)
-    train_step, eval_step = make_seg_steps(
-        model, optimizer, lr_fn, args.weight_decay, args.num_classes, rand_aug, batch_ops,
-        y_sorted=y_sorted, seed=args.seed + 7)
 
     start_iter = 0
     if args.auto_resume:
@@ -231,6 +240,12 @@ def main(argv=None):
             optimizer.load_state_dict(payload["optimizer"])
             start_iter = int(payload["epoch"])
             print(f"Auto-resumed from {ckpt} (iter {start_iter})")
+    # every process restored the single-process payload; now place it (DP,
+    # with the BatchNorms over the global batch)
+    placement = place_train_state(model, optimizer, mesh)
+    train_step, eval_step = make_seg_steps(
+        model, optimizer, lr_fn, args.weight_decay, args.num_classes, rand_aug, batch_ops,
+        y_sorted=y_sorted, seed=args.seed + 7, placement=placement)
 
     def evaluate():
         cm = np.zeros((args.num_classes, args.num_classes))
@@ -239,9 +254,9 @@ def main(argv=None):
             out = eval_step(to_device(b, device))
             # drop padded duplicates' contribution approximately by scaling
             cm += out.cpu().numpy() * (n_real / b["label"].shape[0])
-        return seg_metrics(cm)
+        return seg_metrics(sum_confusion(cm))
 
-    if args.dump_samples_dir and start_iter == 0:
+    if args.dump_samples_dir and start_iter == 0 and is_main():
         from mem_tpu_torch.utils.visualize import dump_sample_panels
 
         idx = 0
@@ -263,9 +278,9 @@ def main(argv=None):
     batches = device_prefetch(
         prefetch(_with_draws(train_it.batches(start_iter), rand_aug, batch_ops)), device)
     for it in range(start_iter, args.max_iters):
-        if stopper.requested:
+        if any_process(stopper.requested):
             # SIGTERM: a resumable checkpoint that continues at this iteration
-            save_checkpoint(args.output_dir, it, _checkpoint(model, optimizer, it))
+            save_checkpoint(args.output_dir, it, _checkpoint(model, optimizer, it, placement))
             print(f"preempted at iter {it}: checkpoint saved; exiting")
             return history
         m = train_step(next(batches), it)
@@ -279,7 +294,7 @@ def main(argv=None):
         if it + 1 - last_print >= PRINT_EVERY:
             ips = args.batch_size * (it + 1 - last_print) / max(time.time() - t0, 1e-9)
             print(f"iter {it}/{args.max_iters} loss {logger.meters['loss'].avg:.4f} "
-                  f"{ips:.1f} img/s", flush=True)
+                  f"{ips:.1f} img/s ({ips / world_size():.1f}/gpu)", flush=True)
             t0 = time.time()
             last_print = it + 1
         if (it + 1) % args.eval_interval == 0:
@@ -287,9 +302,8 @@ def main(argv=None):
             print(f"* iter {it}: mIoU {stats['mIoU']:.4f} aAcc {stats['aAcc']:.4f} "
                   f"mDice {stats['mDice']:.4f}")
         if (it + 1) % args.save_interval == 0:
-            save_checkpoint(args.output_dir, it, _checkpoint(model, optimizer, it + 1))
-            if args.rss_restart_gb > 0 and it + 1 < args.max_iters \
-                    and rss_gb() > args.rss_restart_gb:
+            save_checkpoint(args.output_dir, it, _checkpoint(model, optimizer, it + 1, placement))
+            if it + 1 < args.max_iters and rss_recycle_due(args.rss_restart_gb):
                 print(f"rss {rss_gb():.1f} GB > {args.rss_restart_gb} GB: "
                       f"recycling process (exit {RESTART_EXIT_CODE}); "
                       f"auto_resume continues at iter {it + 1}", flush=True)
@@ -297,7 +311,7 @@ def main(argv=None):
 
     stats = evaluate()
     print(f"final mIoU {stats['mIoU']:.4f}")
-    save_checkpoint(args.output_dir, "final", _checkpoint(model, None, args.max_iters))
+    save_checkpoint(args.output_dir, "final", _checkpoint(model, None, args.max_iters, placement))
     return history
 
 

@@ -18,6 +18,11 @@ reconstruction MSE and the codebook usage are printed, and with
 ``recon_ep{epoch}.png``. ``--wandb 1`` logs the loss and lr every 1,000
 steps, and at each evaluation the test loss, the codebook usage and the
 reconstruction panel as a ``wandb.Image`` (nothing when wandb is missing).
+Under ``torchrun --nproc_per_node N`` (NCCL, or Gloo with ``--device cpu``)
+the run is data parallel: ``--batch_size`` is the global batch, each process
+reads its share and draws its own Gumbel noise (seed + rank, as the
+reference keys it), the gradients are averaged and rank 0 writes the
+checkpoints, the panels and wandb.
 Checkpoints are ``output_dir/checkpoint-{epoch}.pth``
 (``{"model": <reference VAE state_dict>, "optimizer", "epoch", "lr",
 "temp", "global_step", "hparams"}``, the newest of them auto-resumed) and
@@ -41,6 +46,7 @@ from mem_tpu_torch import _signals
 
 _signals.latch()  # before torch loads: a setup-time SIGTERM must latch
 
+import itertools
 import math
 import os
 import sys
@@ -49,11 +55,14 @@ import time
 import torch
 
 from mem_tpu_torch.cli.common import (add_compat_args, add_imnet_args, add_preprocessing_args,
-                                      build_pipeline, build_preproc, imnet_aug, imnet_pipelines,
-                                      resolve_device, validate_preproc_args, warn_compat_args)
+                                      build_pipeline, build_preproc, data_shard, imnet_aug,
+                                      imnet_pipelines, resolve_device, validate_preproc_args,
+                                      warn_compat_args)
 from mem_tpu_torch.data.device_pipeline import with_image_draws, with_train_draws
 from mem_tpu_torch.data.prefetch import device_prefetch, prefetch, to_device
 from mem_tpu_torch.models.discrete_vae import DiscreteVAE
+from mem_tpu_torch.parallel.mesh import (any_process, common_count, get_mesh, is_main,
+                                         local_batch_size, place_train_state, world_size)
 from mem_tpu_torch.train.schedules import VaeAnnealState
 from mem_tpu_torch.train.steps import make_vae_eval_step, make_vae_train_step
 from mem_tpu_torch.utils.checkpoint import (latest_numbered_checkpoint, load_checkpoint,
@@ -61,7 +70,7 @@ from mem_tpu_torch.utils.checkpoint import (latest_numbered_checkpoint, load_che
 from mem_tpu_torch.utils.config import ConfigArgumentParser
 from mem_tpu_torch.utils.metrics import maybe_wandb
 from mem_tpu_torch.utils.preemption import (RESTART_EXIT_CODE, GracefulShutdown, rss_gb,
-                                            validate_rss_flag)
+                                            rss_recycle_due, validate_rss_flag)
 from mem_tpu_torch.utils.visualize import reconstruction_panel, save_png
 
 LOG_EVERY = 10   # steps between metric reads (the reference logs every 10)
@@ -170,7 +179,7 @@ def evaluate(args, eval_step, val_it, device, epoch: int, run=None) -> None:
     both logged, the panel as an image (train_vae.py:340-350)."""
     used = torch.zeros(args.num_tokens, dtype=torch.bool, device=device)
     losses, first = [], None
-    for batch in val_it.epoch(0):
+    for batch in itertools.islice(val_it.epoch(0), common_count(val_it.steps_per_epoch())):
         out = eval_step(to_device(batch, device))
         used[out["ids"].reshape(-1)] = True
         losses.append(out["loss"])
@@ -178,7 +187,14 @@ def evaluate(args, eval_step, val_it, device, epoch: int, run=None) -> None:
             first = out
     if first is None:
         return
+    if world_size() > 1:   # the codes any process used
+        import torch.distributed as dist
+
+        used = used.to(torch.int32)
+        dist.all_reduce(used, op=dist.ReduceOp.MAX)
     loss, n_used = torch.stack(losses).mean().item(), int(used.sum())
+    if not is_main():
+        return
     print(f"* eval loss {loss:.4f} codebook usage {n_used}/{args.num_tokens}", flush=True)
     if (run or args.dump_recon_dir) and args.num_images_save > 0:
         k = args.num_images_save
@@ -203,22 +219,24 @@ def main(argv=None):
     stopper = GracefulShutdown()
     validate_rss_flag(args.rss_restart_gb)
     device = resolve_device(args.device)
+    mesh = get_mesh()
+    local_bs = local_batch_size(args.batch_size, mesh)
     os.makedirs(args.output_dir, exist_ok=True)
     image_draw = image_preproc = None
     if args.data_set == "IMNET":
         # the finetune stage's transform (train_vae.py:151-195); no
         # --rand_aug_batch_ops here, as in the reference
-        _, train_it, _, val_it = imnet_pipelines(args, args.batch_size)
+        _, train_it, _, val_it = imnet_pipelines(args, local_bs, **data_shard(mesh))
         image_preproc, image_draw = imnet_aug(args)
         # the VAE sees input_size^2 images: keep the checkpoint's hparams
         # coherent, and validate the extents again on the new values
         args.input_H = args.input_W = args.input_size
         validate_preproc_args(args, train=True)
     else:
-        _, train_it = build_pipeline(args, "train", True, args.batch_size, seed=args.seed,
-                                     num_workers=args.num_workers)
-        _, val_it = build_pipeline(args, "val", False, args.batch_size, seed=args.seed,
-                                   num_workers=args.num_workers)
+        _, train_it = build_pipeline(args, "train", True, local_bs, seed=args.seed,
+                                     num_workers=args.num_workers, **data_shard(mesh))
+        _, val_it = build_pipeline(args, "val", False, local_bs, seed=args.seed,
+                                   num_workers=args.num_workers, **data_shard(mesh))
     preproc_train, preproc_val = build_preproc(args, True), build_preproc(args, False)
 
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
@@ -230,14 +248,13 @@ def main(argv=None):
 
     optimizer = torch.optim.Adam(vae.parameters(), lr=args.learning_rate, betas=(0.9, 0.999),
                                  eps=1e-8)
-    train_step = make_vae_train_step(vae, optimizer, preproc_train, args.clip, args.seed,
-                                     image_preproc=image_preproc)
-    eval_step = make_vae_eval_step(vae, preproc_val)
     sched = VaeAnnealState(args.learning_rate, args.lr_decay_rate, args.starting_temp,
                            args.anneal_rate, args.temp_min)
 
     def resumable(epoch: int) -> dict:
-        return {"model": vae.state_dict(), "optimizer": optimizer.state_dict(),
+        """The single-process payload (every process calls)."""
+        return {"model": placement.model_state_dict(vae),
+                "optimizer": placement.optimizer_state_dict(optimizer),
                 "epoch": epoch, "lr": sched.lr, "temp": sched.temp,
                 "global_step": sched.global_step, "hparams": vae_hparams(args)}
 
@@ -251,8 +268,13 @@ def main(argv=None):
         sched.global_step = int(payload["global_step"])
         start_epoch = int(payload["epoch"]) + 1
         print(f"Auto-resumed from {ckpt} (epoch {start_epoch})")
+    # every process restored the single-process payload; now place it (DP)
+    placement = place_train_state(vae, optimizer, mesh)
+    train_step = make_vae_train_step(vae, optimizer, preproc_train, args.clip, args.seed,
+                                     image_preproc=image_preproc, placement=placement)
+    eval_step = make_vae_eval_step(vae, preproc_val, placement=placement)
 
-    run = maybe_wandb(bool(args.wandb), project="dalle_train_vae",
+    run = maybe_wandb(bool(args.wandb) and is_main(), project="dalle_train_vae",
                       group=f"{args.expweek}_{args.expname}")
     history = []
     for epoch in range(start_epoch, args.epochs):
@@ -280,17 +302,19 @@ def main(argv=None):
         batches = device_prefetch(
             prefetch(with_image_draws(host, **image_draw) if image_draw is not None
                      else with_train_draws(host, preproc_train)), device)
+        stop = False
         for i, batch in enumerate(batches):
             it = sched.global_step
             pending.append((it, sched.lr, train_step(batch, it, sched.lr, sched.temp)))
             sched.after_step(i)
             if len(pending) == LOG_EVERY or i == steps_per_epoch - 1:
                 flush()
-            if stopper.requested:
+            stop = any_process(stopper.requested)
+            if stop:
                 break
         if pending:
             flush()
-        if stopper.requested:
+        if stop:
             # SIGTERM: a resumable checkpoint that restarts this epoch, exit 0
             save_checkpoint(args.output_dir, epoch, resumable(epoch - 1))
             print(f"preempted at epoch {epoch}: checkpoint saved; exiting")
@@ -298,21 +322,20 @@ def main(argv=None):
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         sps = steps_per_epoch * args.batch_size / (time.time() - t0)
-        print(f"epoch {epoch}: {sps:.1f} samples/sec")
+        print(f"epoch {epoch}: {sps:.1f} samples/sec ({sps / world_size():.1f}/gpu)")
 
         if (epoch + 1) % args.eval_freq == 0 and not args.disable_eval:
             evaluate(args, eval_step, val_it, device, epoch, run)
         if (epoch + 1) % args.save_ckpt_freq == 0 or epoch + 1 == args.epochs:
             save_checkpoint(args.output_dir, epoch, resumable(epoch))
-        if args.rss_restart_gb > 0 and epoch + 1 < args.epochs \
-                and rss_gb() > args.rss_restart_gb:
+        if epoch + 1 < args.epochs and rss_recycle_due(args.rss_restart_gb):
             save_checkpoint(args.output_dir, epoch, resumable(epoch))
             print(f"rss {rss_gb():.1f} GB > {args.rss_restart_gb} GB: recycling process "
                   f"(exit {RESTART_EXIT_CODE}); auto_resume continues at epoch {epoch + 1}",
                   flush=True)
             sys.exit(RESTART_EXIT_CODE)
 
-    save_checkpoint(args.output_dir, "final", {"model": vae.state_dict(),
+    save_checkpoint(args.output_dir, "final", {"model": placement.model_state_dict(vae),
                                                "epoch": args.epochs - 1,
                                                "hparams": vae_hparams(args)})
     return history

@@ -118,8 +118,11 @@ def rrc_params(w: int, h: int, rng: np.random.Generator,
 
 @dataclass
 class ImagePipelineConfig:
-    """The reference's ImagePipelineConfig (:121) without its sharding and
-    worker fields: the port reads every sample on one process, inline."""
+    """The reference's ImagePipelineConfig (:121) without its worker field
+    (the port decodes inline). ``shard_id`` / ``num_shards``: this process's
+    share of each epoch's shuffled indices (every ``num_shards``-th from
+    ``shard_id``), so the processes of a data-parallel run read disjoint
+    samples."""
     batch_size: int = 64
     input_size: int = 224
     second_size: int = 224
@@ -139,6 +142,8 @@ class ImagePipelineConfig:
     seed: int = 0
     shuffle: bool = True
     drop_last: bool = True
+    shard_id: int = 0
+    num_shards: int = 1
     # classification mode (build_transform_e2v): one view, the label and a
     # per-sample aug_seed; no mask, no second view
     classification: bool = False
@@ -170,7 +175,7 @@ class ImageBatchIterator:
         idx = np.arange(len(self.ds))
         if self.cfg.shuffle:
             np.random.default_rng(self.cfg.seed + epoch).shuffle(idx)
-        return idx
+        return idx[self.cfg.shard_id:: self.cfg.num_shards]
 
     def _load_one_cls(self, epoch: int, index: int):
         """build_transform_e2v (datasets.py:353-392): train = timm-style RRC +

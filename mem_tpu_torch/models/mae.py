@@ -227,12 +227,15 @@ class MaskedAutoencoderViT(nn.Module):
         mask[:, :len_keep] = 0
         return x, torch.gather(mask, 1, ids_restore), ids_restore
 
-    def loss(self, imgs, pred, mask):
+    def loss(self, imgs, pred, mask, group=None):
         """mae.py:208-219 in f32: the per-patch mean squared error, summed
         over batch and patches (no division by B), or with
         ``loss_only_masked`` averaged over the masked patches; with
         ``norm_pix_loss`` each target patch normalised by its mean and its
-        population variance."""
+        population variance. With ``group`` (the "data" processes) the sum
+        and the masked count are the global batch's (parallel/mesh.py)."""
+        from mem_tpu_torch.parallel.mesh import global_quotient, global_scale
+
         target = self.patchify(imgs.float())
         if self.norm_pix_loss:
             mean = target.mean(dim=-1, keepdim=True)
@@ -240,12 +243,13 @@ class MaskedAutoencoderViT(nn.Module):
             target = (target - mean) / (var + 1e-6) ** 0.5
         loss = ((pred - target) ** 2).mean(dim=-1)
         if self.loss_only_masked:
-            return (loss * mask).sum() / mask.sum()
-        return loss.sum()
+            return global_quotient((loss * mask).sum(), mask.sum(), group)
+        return loss.sum() * global_scale(group)
 
-    def forward(self, imgs, noise=None, generator=None):
+    def forward(self, imgs, noise=None, generator=None, group=None):
         """``imgs`` (B, H, W, C); ``noise`` (B, L) f32 uniform, or drawn from
-        ``generator`` (on the images' device) when None."""
+        ``generator`` (on the images' device) when None; ``group`` as in
+        :meth:`loss`."""
         B = imgs.shape[0]
         L = self.grid * self.grid
         if noise is None:
@@ -274,4 +278,4 @@ class MaskedAutoencoderViT(nn.Module):
         x = self.decoder_norm(x)
         pred = (torch.matmul(x.float(), self.decoder_pred.weight.t())
                 + self.decoder_pred.bias)[:, 1:]
-        return self.loss(imgs, pred, mask), self.unpatchify(pred), mask
+        return self.loss(imgs, pred, mask, group), self.unpatchify(pred), mask

@@ -101,26 +101,31 @@ class VisionTransformerForMaskedImageModeling(VitEncoder):
         return (logits, idx) if idx is not None else logits
 
 
-def masked_cross_entropy(logits, labels, mask):
+def masked_cross_entropy(logits, labels, mask, group=None):
     """CE over the vocabulary at masked positions only, and the mlm
     accuracy (pretrain.py:141-160): ``logit[label] - logsumexp`` in f32.
     logits (B, N, V); labels (B, N) int; mask (B, N) bool. Returns
-    (loss, acc) as 0-d f32 tensors."""
+    (loss, acc) as 0-d f32 tensors. With ``group`` (the "data" processes) the
+    masked positions are counted over the global batch (the block mask gives
+    at least ``num_masking_patches`` a sample, so the ranks' counts differ;
+    parallel/mesh.py ``global_quotient``)."""
+    from mem_tpu_torch.parallel.mesh import global_quotient
+
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     tgt = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     logp = tgt - lse
     m = mask.float()
     denom = torch.clamp(m.sum(), min=1.0)
-    loss = -(logp * m).sum() / denom
+    loss = global_quotient(-(logp * m).sum(), denom, group)
     correct = (torch.argmax(logits, dim=-1) == labels).float()
-    acc = (correct * m).sum() / denom
+    acc = global_quotient((correct * m).sum(), denom, group)
     return loss, acc
 
 
-def masked_cross_entropy_gathered(logits, idx, labels, mask):
+def masked_cross_entropy_gathered(logits, idx, labels, mask, group=None):
     """The same objective for the gathered head (pretrain.py:163-170):
     logits (B, M, V) at positions ``idx`` (B, M); labels / mask (B, N)."""
     labels_g = torch.gather(labels, 1, idx)
     mask_g = torch.gather(mask, 1, idx)
-    return masked_cross_entropy(logits, labels_g, mask_g)
+    return masked_cross_entropy(logits, labels_g, mask_g, group)

@@ -103,23 +103,43 @@ class BatchNorm(nn.Module):
     updates the buffers in place as running = 0.9 * running + 0.1 * batch,
     with the same *biased* variance. ``nn.BatchNorm2d`` differs in both
     conventions (it stores the unbiased variance, and its momentum weighs
-    the batch), so it is not used."""
+    the batch), so it is not used.
+
+    With ``group`` set (parallel/mesh.py ``place_train_state`` sets it to the
+    "data" processes) the statistics are those of the global batch, as the
+    reference's SyncBN and its global arrays give them: the per-channel sum,
+    sum of squares and count are summed over the group, with the gradients
+    through the sum, and the running buffers take the global statistics."""
 
     def __init__(self, dim: int, eps: float = 1e-5, momentum: float = 0.9, device=None):
         super().__init__()
         self.eps = eps
         self.momentum = momentum
+        self.group = None
         self.weight = nn.Parameter(torch.ones(dim, device=device))
         self.bias = nn.Parameter(torch.zeros(dim, device=device))
         self.register_buffer("running_mean", torch.zeros(dim, device=device))
         self.register_buffer("running_var", torch.ones(dim, device=device))
 
+    def _global_moments(self, x, axes):
+        """(mean, E[x^2]) over the group's global batch."""
+        from mem_tpu_torch.parallel.mesh import all_reduce_sum
+
+        count = torch.full((1,), x.numel() // x.shape[-1], dtype=x.dtype, device=x.device)
+        sums = all_reduce_sum(torch.cat([x.sum(dim=axes), (x * x).sum(dim=axes), count]),
+                              self.group)
+        c = x.shape[-1]
+        return sums[:c] / sums[-1], sums[c: 2 * c] / sums[-1]
+
     def forward(self, x):
         x = x.float()
         if self.training:
             axes = tuple(range(x.ndim - 1))
-            mean = x.mean(dim=axes)
-            var = torch.clamp((x * x).mean(dim=axes) - mean * mean, min=0.0)
+            if self.group is not None:
+                mean, mean2 = self._global_moments(x, axes)
+            else:
+                mean, mean2 = x.mean(dim=axes), (x * x).mean(dim=axes)
+            var = torch.clamp(mean2 - mean * mean, min=0.0)
             with torch.no_grad():
                 self.running_mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
                 self.running_var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
@@ -346,9 +366,13 @@ def build_segmentor(num_classes: int, seg_input_size: int, embed_dim: int, depth
 
 
 def seg_loss(logits, aux, labels, num_classes: int, aux_weight: float = 0.4,
-             ignore_index: int = 255):
+             ignore_index: int = 255, group=None):
     """CE (+0.4 aux) with ignore_index semantics (mmseg CrossEntropyLoss):
-    mean over the valid pixels of logsumexp - logit[label]."""
+    mean over the valid pixels of logsumexp - logit[label]. With ``group``
+    (the "data" processes) the valid pixels are counted over the global batch
+    (parallel/mesh.py ``global_quotient``)."""
+    from mem_tpu_torch.parallel.mesh import global_quotient
+
     valid = labels != ignore_index
     lab = torch.where(valid, labels, torch.zeros_like(labels)).long()
     denom = valid.sum().clamp(min=1)
@@ -357,7 +381,7 @@ def seg_loss(logits, aux, labels, num_classes: int, aux_weight: float = 0.4,
         lg = lg.float()
         tgt = torch.gather(lg, -1, lab[..., None])[..., 0]
         lp = tgt - torch.logsumexp(lg, dim=-1)
-        return -(lp * valid).sum() / denom
+        return global_quotient(-(lp * valid).sum(), denom, group)
 
     return ce(logits) + aux_weight * ce(aux)
 

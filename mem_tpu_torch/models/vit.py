@@ -49,6 +49,18 @@ activations, int32 accumulation) on the flat and the einsum routes; fc2
 stays in the compute dtype, ``FUSED_MLP`` keeps precedence, and the
 head-major route (K5) has no int8 branch, as in the reference. The
 reference's XLA scheduling toggles are not ported.
+
+Tensor parallelism (``--tp``; parallel/mesh.py ``place_train_state``): each
+rank keeps its heads (its rows of q, k and v, of ``q_bias`` / ``v_bias``,
+its columns of the block's rel-pos table and its input columns of ``proj``)
+and its share of the hidden columns (fc1's rows, fc2's input columns);
+``Attention.tp_setup`` / ``Mlp.tp_setup`` set the modules to run on them. The region starts with
+:func:`tp_enter` (identity forward, gradient summed over the group) and ends
+with :func:`tp_reduce` after ``proj`` and ``fc2`` (sum forward, identity
+backward); their biases are added once, after the sum. The kernels run on
+the local shards: K2f / K2b at H / tp heads, K6f / K6b at hidden / tp (with a
+zero b2 inside K6f's epilogue). A shared rel-pos bias stays whole and each
+rank takes its heads' rows of it; the W8A8 branch is not taken under TP.
 """
 from __future__ import annotations
 
@@ -57,6 +69,7 @@ import math
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -131,6 +144,48 @@ def _need_generator(generator, what: str):
         raise ValueError(f"{what} in training mode needs an explicit torch.Generator "
                          f"(forward(..., generator=g))")
     return generator
+
+
+class _TPEnter(torch.autograd.Function):
+    """Identity forward; the gradient of the replicated input is the sum of
+    the ranks' partial gradients."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_over(g, ctx.group), None
+
+
+class _TPReduce(torch.autograd.Function):
+    """The partial products summed over the group forward; identity backward."""
+
+    @staticmethod
+    def forward(ctx, y, group):
+        return _sum_over(y, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _sum_over(t: torch.Tensor, group) -> torch.Tensor:
+    """All-reduce sum in f32 (bf16 partials are added without a rounding
+    per rank), back in t's dtype."""
+    buf = t.detach().to(torch.float32).contiguous().clone()
+    dist.all_reduce(buf, group=group)
+    return buf.to(t.dtype)
+
+
+def tp_enter(x: torch.Tensor, group) -> torch.Tensor:
+    return _TPEnter.apply(x, group)
+
+
+def tp_reduce(y: torch.Tensor, group) -> torch.Tensor:
+    return _TPReduce.apply(y, group)
 
 
 def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
@@ -242,8 +297,35 @@ class Mlp(nn.Module):
         self.dropout = dropout
         self.fc1 = nn.Linear(dim, hidden_dim, device=device)
         self.fc2 = nn.Linear(hidden_dim, dim, device=device)
+        self.tp_group = None
+
+    def tp_setup(self, group) -> None:
+        """Run on this rank's hidden columns over ``group`` (the weights are
+        cut by parallel/mesh.py ``shard_tensor_parallel``)."""
+        n = dist.get_world_size(group)
+        if self.fc1.weight.shape[0] % n:
+            raise ValueError(f"hidden width {self.fc1.weight.shape[0]} does not divide "
+                             f"over --tp {n}")
+        self.tp_group = group
+
+    def _forward_tp(self, x, generator):
+        """The rank's hidden columns, the sum over the group, then fc2's bias
+        once; under ``FUSED_MLP`` K6f with a zero b2."""
+        x = tp_enter(x.to(self.dtype), self.tp_group)
+        if FUSED_MLP and self.dropout == 0.0:
+            b2 = torch.zeros_like(self.fc2.bias)
+            y = mlp_fused(x, self.fc1.weight.t(), self.fc1.bias, self.fc2.weight.t(), b2)
+        else:
+            h = F.gelu(linear(x, self.fc1, self.dtype), approximate="none")
+            y = torch.matmul(h, self.fc2.weight.to(self.dtype).t())
+        x = tp_reduce(y, self.tp_group) + self.fc2.bias.to(self.dtype)
+        if self.training and self.dropout > 0:
+            x = dropout(x, self.dropout, _need_generator(generator, "Mlp dropout"))
+        return x
 
     def forward(self, x, generator=None):
+        if self.tp_group is not None:
+            return self._forward_tp(x, generator)
         if FUSED_MLP and self.dropout == 0.0:
             return mlp_fused(x.to(self.dtype), self.fc1.weight.t(), self.fc1.bias,
                              self.fc2.weight.t(), self.fc2.bias)
@@ -301,6 +383,19 @@ class Attention(nn.Module):
         else:
             self.relative_position_bias_table = None
         self.proj = nn.Linear(self.all_head_dim, dim, device=device)
+        self.tp_group = None
+        self.tp_heads = None
+
+    def tp_setup(self, group) -> None:
+        """Run on this rank's heads over ``group``: H / n of them, the rows
+        [r H / n, (r + 1) H / n) of a shared rel-pos bias (the weights are cut
+        by parallel/mesh.py ``shard_tensor_parallel``)."""
+        n, r = dist.get_world_size(group), dist.get_rank(group)
+        H = self.num_heads
+        if H % n:
+            raise ValueError(f"{H} heads do not divide over --tp {n}")
+        self.tp_group, self.tp_heads = group, (r * H // n, (r + 1) * H // n)
+        self.num_heads, self.all_head_dim = H // n, self.all_head_dim // n
 
     def _bias(self, rel_pos_bias):
         bias = None
@@ -308,12 +403,14 @@ class Attention(nn.Module):
             bias = gather_relative_position_bias(self.relative_position_bias_table,
                                                  self.relative_position_index)
         if rel_pos_bias is not None:
+            if self.tp_heads is not None:     # the shared table's rows of this rank's heads
+                rel_pos_bias = rel_pos_bias[self.tp_heads[0]: self.tp_heads[1]]
             bias = rel_pos_bias if bias is None else bias + rel_pos_bias
         return bias
 
     def _qkv_flat(self, x):
         a = self.all_head_dim
-        if INT8_GEMM and not self.training:
+        if INT8_GEMM and not self.training and self.tp_group is None:
             # the activation quantized once for q, k and v (vit.py:383-395,
             # 492-503). One int8 product over the whole (C, 3C) weight: the
             # weight scales are per output column, so its int32
@@ -335,6 +432,9 @@ class Attention(nn.Module):
         """The output projection of the flat and einsum routes: W8A8 with the
         bias inside under ``INT8_GEMM`` in eval mode (vit.py:441-447,
         537-545), else in the compute dtype."""
+        if self.tp_group is not None:
+            y = torch.matmul(out.to(self.dtype), self.proj.weight.to(self.dtype).t())
+            return tp_reduce(y, self.tp_group) + self.proj.bias.to(self.dtype)
         if INT8_GEMM and not self.training:
             return dense_w8a8(out, self.proj.weight.t(), self.proj.bias, out_dtype=self.dtype)
         return linear(out, self.proj, self.dtype)
@@ -353,7 +453,10 @@ class Attention(nn.Module):
         out = fused_attention(q.contiguous(), k.contiguous(), v.contiguous(), bias,
                               self.scale)
         wp = self.proj.weight.to(self.dtype).reshape(-1, H, D)
-        return torch.einsum("bhnd,ohd->bno", out, wp) + self.proj.bias.to(self.dtype)
+        y = torch.einsum("bhnd,ohd->bno", out, wp)
+        if self.tp_group is not None:
+            y = tp_reduce(y, self.tp_group)
+        return y + self.proj.bias.to(self.dtype)
 
     def _forward_einsum(self, x, bias, generator):
         """vit.py:505-557, the path the reference takes off its kernels
@@ -384,6 +487,8 @@ class Attention(nn.Module):
 
     def forward(self, x, rel_pos_bias=None, generator=None):
         N = x.shape[1]
+        if self.tp_group is not None:
+            x = tp_enter(x, self.tp_group)
         bias = self._bias(rel_pos_bias)
         if not self.use_fused(N):
             out = self._forward_einsum(x, None if bias is None else bias.float(), generator)

@@ -495,8 +495,10 @@ class Lookahead:
         self.inner.zero_grad(set_to_none=set_to_none)
 
     @torch.no_grad()
-    def step(self):
-        self.inner.step()
+    def step(self, inner_step=None):
+        """One fast step (``inner_step``, the inner optimizer's by default:
+        ZeRO-1 passes its owned update and broadcast), then the sync."""
+        (inner_step or self.inner.step)()
         self.count += 1
         if self.count % self.k == 0:
             fast = [p for g in self.param_groups for p in g["params"]]
@@ -627,13 +629,39 @@ def state_bytes(optimizer) -> int:
     return n + sum(s.numel() * s.element_size() for s in getattr(optimizer, "slow", []))
 
 
-def clip_grad_global_norm(params: Iterable[torch.Tensor],
-                          clip: Optional[float]) -> torch.Tensor:
+def clip_grad_global_norm(params: Iterable[torch.Tensor], clip: Optional[float],
+                          sharded: Optional[dict] = None) -> torch.Tensor:
     """The pre-clip global gradient norm (0-d f32 tensor on the grads'
     device); with ``clip > 0`` the grads are scaled in place by
-    min(1, clip / (norm + 1e-6)). No host synchronisation."""
-    grads = [p.grad for p in params if p.grad is not None]
-    total = norm(torch.stack([norm(g) for g in grads]))
+    min(1, clip / (norm + 1e-6)). No host synchronisation.
+
+    The norm is that of the whole gradient on every placement: a gradient
+    that is a shard (an FSDP2 DTensor, or a parameter that ``sharded`` maps
+    to its tensor-parallel group) contributes the sum of its shards' squares
+    over the group, and a replicated one counts once."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    grads, norms, shard_sq = [], [], {}
+    for p in params:
+        g = p.grad
+        if g is None:
+            continue
+        group = (sharded or {}).get(p)
+        if isinstance(g, DTensor):
+            group, g = g.device_mesh.get_group(), g.to_local()
+        grads.append(g)
+        if group is None:
+            norms.append(norm(g))
+        else:
+            shard_sq.setdefault(group, []).append((len(norms), norm(g) ** 2))
+            norms.append(None)
+    for group, items in shard_sq.items():
+        sq = torch.stack([v for _, v in items])
+        dist.all_reduce(sq, group=group)
+        for (i, _), v in zip(items, sq.sqrt()):
+            norms[i] = v
+    total = norm(torch.stack(norms))
     if clip is not None and clip > 0:
         factor = torch.clamp(clip / (total + 1e-6), max=1.0)
         torch._foreach_mul_(grads, factor)

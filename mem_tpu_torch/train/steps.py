@@ -55,6 +55,16 @@ targets, label smoothing or hard labels) divided by ``update_freq`` ->
 backward, the gradients adding up; then the global grad norm, the clip,
 the ``--opt`` optimizer (AdamW by default) with this step's lr and wd, and
 the EMA of the parameters.
+
+Every factory takes ``placement`` (parallel/mesh.py ``place_train_state``;
+None: one process), and must be called after the model and optimizer are
+placed. Under a placement the losses and the metrics are those of the global
+batch (the counts summed over the "data" processes), the gradients are
+reduced before the global norm (which is that of the whole gradient), the
+update is the placement's (ZeRO-1: the owned parameters, then a broadcast),
+the step generator is seeded with ``seed + data rank`` (the reference's
+``seed + process_index``: tensor-parallel ranks of one data rank draw
+alike), and the eval steps' sums are taken over the "data" processes.
 """
 from __future__ import annotations
 
@@ -66,6 +76,7 @@ from mem_tpu_torch.data.seg_pipeline import IGNORE_INDEX, seg_preprocess_batch
 from mem_tpu_torch.models.discrete_vae import cudnn_full_f32
 from mem_tpu_torch.models.segmentation import confusion_matrix, seg_loss
 from mem_tpu_torch.models.pretrain import masked_cross_entropy, masked_cross_entropy_gathered
+from mem_tpu_torch.parallel.mesh import global_quotient, psum_metrics
 from mem_tpu_torch.train.mixup import MIXUP_KEYS, MixupConfig, mixup_apply, one_hot_smoothed
 from mem_tpu_torch.train.optim import clip_grad_global_norm, set_schedule
 from mem_tpu_torch.train.schedules import at
@@ -73,6 +84,37 @@ from mem_tpu_torch.train.schedules import at
 
 def _batch_device(batch: dict) -> torch.device:
     return next(v.device for v in batch.values() if isinstance(v, torch.Tensor))
+
+
+def _group(placement):
+    return None if placement is None else placement.data_group
+
+
+def _seed(seed: int, placement) -> int:
+    return seed + (0 if placement is None else placement.data_rank)
+
+
+def _reduce_and_norm(params, clip, placement) -> torch.Tensor:
+    """The placement's gradient reduction, then the pre-clip global norm and
+    the clip."""
+    if placement is not None:
+        placement.reduce_gradients(params)
+    return clip_grad_global_norm(params, clip, placement and placement.sharded())
+
+
+def _update(optimizer, placement) -> None:
+    if placement is None:
+        optimizer.step()
+    else:
+        placement.step(optimizer)
+
+
+def _mean(metrics: dict, placement) -> dict:
+    """The metrics averaged over the "data" processes (each rank's is its
+    share of the global quotient, or a value every rank holds)."""
+    if _group(placement) is None:
+        return metrics
+    return psum_metrics(metrics, placement.data_group, average=True)
 
 
 def step_generator(seed: int, step: int, device) -> torch.Generator:
@@ -85,7 +127,7 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
 
 def make_vae_train_step(vae, optimizer: torch.optim.Optimizer, preproc: PreprocConfig,
                         clip: float, seed: int = 0, inject_noise: bool = False,
-                        image_preproc=None):
+                        image_preproc=None, placement=None):
     """Returns ``step(batch, rng, lr, temp) -> {"loss", "grad_norm"}``.
     ``batch``: device tensors (events or events_xyp, n_valid, extents,
     flips, shift and the draw_train_aug draws); ``rng``: the global step,
@@ -98,6 +140,7 @@ def make_vae_train_step(vae, optimizer: torch.optim.Optimizer, preproc: PreprocC
     goes through ``image_preproc(batch, generator=...)`` with the step's
     generator (the global one under ``inject_noise``)."""
     params = [p for p in vae.parameters() if p.requires_grad]
+    seed = _seed(seed, placement)
 
     def step(batch: dict, rng, lr: float, temp: float) -> dict:
         gen = None if inject_noise else step_generator(seed, rng, _batch_device(batch))
@@ -113,16 +156,16 @@ def make_vae_train_step(vae, optimizer: torch.optim.Optimizer, preproc: PreprocC
                 loss = vae(images, temp, generator=gen)
             optimizer.zero_grad(set_to_none=True)
             loss.backward()
-        gnorm = clip_grad_global_norm(params, clip)
+        gnorm = _reduce_and_norm(params, clip, placement)
         for g in optimizer.param_groups:
             g["lr"] = lr
-        optimizer.step()
-        return {"loss": loss.detach(), "grad_norm": gnorm}
+        _update(optimizer, placement)
+        return {**_mean({"loss": loss.detach()}, placement), "grad_norm": gnorm}
 
     return step
 
 
-def make_vae_eval_step(vae, preproc: PreprocConfig):
+def make_vae_eval_step(vae, preproc: PreprocConfig, placement=None):
     """Returns ``step(batch) -> {"loss", "ids", "images", "recon"}``: the
     eval preprocessing, the argmax codes, their decoding, and the MSE of
     the reconstruction against the unnormalized images (steps.py:122); the
@@ -136,7 +179,8 @@ def make_vae_eval_step(vae, preproc: PreprocConfig):
             ids = vae.get_codebook_indices(images)
             recon = vae.decode_indices(ids)
             mse = ((images - recon.float()) ** 2).mean()
-        return {"loss": mse, "ids": ids, "images": images, "recon": recon}
+        return {**_mean({"loss": mse}, placement), "ids": ids, "images": images,
+                "recon": recon}
 
     return step
 
@@ -156,23 +200,25 @@ def _pretrain_views(batch: dict, preproc: PreprocConfig, is_train: bool):
     return images, images
 
 
-def _loss(model, images, mask, labels, generator=None):
+def _loss(model, images, mask, labels, generator=None, group=None):
     out = model(images, mask, generator=generator)
     if getattr(model, "num_masked_tokens", None) is not None:
         logits, idx = out
-        return masked_cross_entropy_gathered(logits, idx, labels, mask)
-    return masked_cross_entropy(out, labels, mask)
+        return masked_cross_entropy_gathered(logits, idx, labels, mask, group)
+    return masked_cross_entropy(out, labels, mask, group)
 
 
 def make_pretrain_train_step(model, vae, optimizer: torch.optim.Optimizer,
                              preproc: PreprocConfig, lr_schedule: np.ndarray,
-                             wd_schedule: np.ndarray, clip_grad=None, seed: int = 0):
+                             wd_schedule: np.ndarray, clip_grad=None, seed: int = 0,
+                             placement=None):
     """Returns ``step(batch, it) -> {"loss", "mlm_acc", "grad_norm"}``.
     ``batch``: device tensors (events or events_xyp, n_valid, extents,
     flips, shift, mask, and the draw_train_aug draws; on IMNET patches,
     vae_view and mask); ``it``: the global step, which indexes the schedules
     and seeds the step's generator."""
     params = [p for p in model.parameters() if p.requires_grad]
+    seed, group = _seed(seed, placement), _group(placement)
 
     def step(batch: dict, it: int) -> dict:
         images, vae_images = _pretrain_views(batch, preproc, True)
@@ -181,20 +227,21 @@ def make_pretrain_train_step(model, vae, optimizer: torch.optim.Optimizer,
             labels = vae.get_codebook_indices(vae_images)
         model.train()
         loss, acc = _loss(model, images, mask, labels,
-                          step_generator(seed, it, images.device))
+                          step_generator(seed, it, images.device), group)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        gnorm = clip_grad_global_norm(params, clip_grad)
+        gnorm = _reduce_and_norm(params, clip_grad, placement)
         set_schedule(optimizer, at(lr_schedule, it), at(wd_schedule, it))
-        optimizer.step()
-        return {"loss": loss.detach(), "mlm_acc": acc.detach(), "grad_norm": gnorm}
+        _update(optimizer, placement)
+        return {**_mean({"loss": loss.detach(), "mlm_acc": acc.detach()}, placement),
+                "grad_norm": gnorm}
 
     return step
 
 
 def make_mae_train_step(model, optimizer: torch.optim.Optimizer, preproc: PreprocConfig,
                         lr_schedule: np.ndarray, wd_schedule: np.ndarray, clip_grad=None,
-                        seed: int = 0):
+                        seed: int = 0, placement=None):
     """Returns ``step(batch, it, noise=None) -> {"loss", "grad_norm"}`` for a
     ``MaskedAutoencoderViT``. ``batch``: device tensors (events or
     events_xyp, n_valid, extents, flips, shift and the draw_train_aug draws;
@@ -203,23 +250,24 @@ def make_mae_train_step(model, optimizer: torch.optim.Optimizer, preproc: Prepro
     ``noise`` passes it in (the reference's step takes its mask key
     explicitly, steps.py:224-233)."""
     params = [p for p in model.parameters() if p.requires_grad]
+    seed, group = _seed(seed, placement), _group(placement)
 
     def step(batch: dict, it: int, noise=None) -> dict:
         images = preprocess_batch(batch, preproc, is_train=True)
         model.train()
         loss, _, _ = model(images, noise=noise,
-                           generator=step_generator(seed, it, images.device))
+                           generator=step_generator(seed, it, images.device), group=group)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        gnorm = clip_grad_global_norm(params, clip_grad)
+        gnorm = _reduce_and_norm(params, clip_grad, placement)
         set_schedule(optimizer, at(lr_schedule, it), at(wd_schedule, it))
-        optimizer.step()
-        return {"loss": loss.detach(), "grad_norm": gnorm}
+        _update(optimizer, placement)
+        return {**_mean({"loss": loss.detach()}, placement), "grad_norm": gnorm}
 
     return step
 
 
-def make_pretrain_eval_step(model, vae, preproc: PreprocConfig):
+def make_pretrain_eval_step(model, vae, preproc: PreprocConfig, placement=None):
     """Returns ``step(batch) -> {"loss", "mlm_acc"}`` (eval preprocessing,
     deterministic forward, no gradients)."""
 
@@ -228,22 +276,24 @@ def make_pretrain_eval_step(model, vae, preproc: PreprocConfig):
             images, vae_images = _pretrain_views(batch, preproc, False)
             labels = vae.get_codebook_indices(vae_images)
             model.eval()
-            loss, acc = _loss(model, images, batch["mask"], labels)
-        return {"loss": loss, "mlm_acc": acc}
+            loss, acc = _loss(model, images, batch["mask"], labels, None, _group(placement))
+        return _mean({"loss": loss, "mlm_acc": acc}, placement)
 
     return step
 
 
 def make_seg_steps(model, optimizer: torch.optim.Optimizer, lr_fn, weight_decay: float,
                    num_classes: int, rand_aug: bool, rand_aug_batch_ops: bool = False,
-                   y_sorted: bool = False, seed: int = 0):
+                   y_sorted: bool = False, seed: int = 0, placement=None):
     """Returns ``(train_step, eval_step)``. ``train_step(batch, it) ->
     {"loss", "grad_norm"}`` on a device batch (events_xyp or events, n_valid,
     label, flip, resize_jitter and, with ``rand_aug``, the draw_seg_train_aug
     draws); ``it`` is the global iteration, which ``lr_fn`` maps to the lr and
     which seeds the step's generator. ``eval_step(batch)`` -> the
-    (num_classes, num_classes) f32 confusion matrix of the batch."""
+    (num_classes, num_classes) f32 confusion matrix of this process's batch
+    (the CLI sums the processes' totals with :func:`sum_confusion`)."""
     params = [p for p in model.parameters() if p.requires_grad]
+    seed, group = _seed(seed, placement), _group(placement)
 
     def train_step(batch: dict, it: int) -> dict:
         with torch.no_grad():
@@ -252,13 +302,13 @@ def make_seg_steps(model, optimizer: torch.optim.Optimizer, lr_fn, weight_decay:
         model.train()
         logits, aux = model(images, train=True,
                             generator=step_generator(seed, it, images.device))
-        loss = seg_loss(logits, aux, labels, num_classes)
+        loss = seg_loss(logits, aux, labels, num_classes, group=group)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        gnorm = clip_grad_global_norm(params, None)
+        gnorm = _reduce_and_norm(params, None, placement)
         set_schedule(optimizer, lr_fn(it), weight_decay)
-        optimizer.step()
-        return {"loss": loss.detach(), "grad_norm": gnorm}
+        _update(optimizer, placement)
+        return {**_mean({"loss": loss.detach()}, placement), "grad_norm": gnorm}
 
     def eval_step(batch: dict) -> torch.Tensor:
         model.eval()
@@ -270,16 +320,41 @@ def make_seg_steps(model, optimizer: torch.optim.Optimizer, lr_fn, weight_decay:
     return train_step, eval_step
 
 
-def finetune_cross_entropy(logits, targets, num_classes: int, smoothing: float = 0.0):
+def sum_confusion(cm: np.ndarray) -> np.ndarray:
+    """A host confusion matrix summed over every process (one all-reduce in
+    f64; the CPU tensor goes over Gloo, or through the card under NCCL)."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() == 1:
+        return cm
+    t = torch.from_numpy(np.ascontiguousarray(cm, dtype=np.float64))
+    if dist.get_backend() == "nccl":
+        t = t.cuda()
+    dist.all_reduce(t)
+    return t.cpu().numpy()
+
+
+def _batch_mean(per_sample: torch.Tensor, group=None) -> torch.Tensor:
+    """The mean over the batch, over the global batch with ``group``."""
+    if group is None:
+        return per_sample.mean()
+    return global_quotient(per_sample.sum(), torch.tensor(float(per_sample.shape[0]),
+                                                          device=per_sample.device), group)
+
+
+def finetune_cross_entropy(logits, targets, num_classes: int, smoothing: float = 0.0,
+                           group=None):
     """The three forms of steps.py:282-295 on f32 logits: soft targets
     (``targets`` shaped as the logits), label smoothing
-    (``(1 - eps) onehot + eps / K``), or hard labels."""
+    (``(1 - eps) onehot + eps / K``), or hard labels; the mean over the
+    global batch with ``group`` (the "data" processes)."""
     lp = torch.log_softmax(logits.float(), dim=-1)
     if targets.ndim == logits.ndim:
-        return -(targets * lp).sum(dim=-1).mean()
+        return _batch_mean(-(targets * lp).sum(dim=-1), group)
     if smoothing > 0:
-        return -(one_hot_smoothed(targets, num_classes, smoothing) * lp).sum(dim=-1).mean()
-    return -lp.gather(-1, targets.long()[..., None])[..., 0].mean()
+        return _batch_mean(-(one_hot_smoothed(targets, num_classes, smoothing) * lp)
+                           .sum(dim=-1), group)
+    return _batch_mean(-lp.gather(-1, targets.long()[..., None])[..., 0], group)
 
 
 def make_finetune_train_step(model, optimizer: torch.optim.Optimizer, preproc: PreprocConfig,
@@ -287,7 +362,8 @@ def make_finetune_train_step(model, optimizer: torch.optim.Optimizer, preproc: P
                              wd_schedule: np.ndarray, mixup: MixupConfig | None = None,
                              smoothing: float = 0.0, update_freq: int = 1,
                              ema: list | None = None, ema_decay: float | None = None,
-                             clip_grad=None, seed: int = 0, image_preproc=None):
+                             clip_grad=None, seed: int = 0, image_preproc=None,
+                             placement=None):
     """Returns ``step(micro_batches, it) -> {"loss", "grad_norm"}``.
     ``micro_batches``: ``update_freq`` device batches (events or events_xyp,
     n_valid, extents, flips, shift, label, the draw_train_aug draws and, with
@@ -303,6 +379,7 @@ def make_finetune_train_step(model, optimizer: torch.optim.Optimizer, preproc: P
         raise ValueError("pass both ema and ema_decay, or neither")
     params = [p for p in model.parameters() if p.requires_grad]
     all_params = list(model.parameters())
+    seed, group = _seed(seed, placement), _group(placement)
 
     def step(micro_batches, it: int) -> dict:
         if len(micro_batches) != update_freq:
@@ -322,23 +399,25 @@ def make_finetune_train_step(model, optimizer: torch.optim.Optimizer, preproc: P
                     images, targets = mixup_apply(images, targets,
                                                   {k: batch[k] for k in MIXUP_KEYS}, mixup)
             logits = model(images, generator=gen)
-            loss = finetune_cross_entropy(logits, targets, num_classes, smoothing) / update_freq
+            loss = finetune_cross_entropy(logits, targets, num_classes, smoothing,
+                                          group) / update_freq
             loss.backward()
             total = loss.detach() if total is None else total + loss.detach()
-        gnorm = clip_grad_global_norm(params, clip_grad)
+        gnorm = _reduce_and_norm(params, clip_grad, placement)
         set_schedule(optimizer, at(lr_schedule, it), at(wd_schedule, it))
-        optimizer.step()
+        _update(optimizer, placement)
         if ema is not None:
             with torch.no_grad():
                 torch._foreach_mul_(ema, ema_decay)
                 torch._foreach_add_(ema, [p.detach() for p in all_params],
                                     alpha=1.0 - ema_decay)
-        return {"loss": total, "grad_norm": gnorm}
+        return {**_mean({"loss": total}, placement), "grad_norm": gnorm}
 
     return step
 
 
-def make_finetune_eval_step(model, preproc: PreprocConfig, with_predictions: bool = False):
+def make_finetune_eval_step(model, preproc: PreprocConfig, with_predictions: bool = False,
+                            placement=None):
     """Returns ``step(batch) -> {"loss", "acc1", "acc5"}`` (eval
     preprocessing, deterministic forward, hard-label cross-entropy, top-1 and
     top-5 in percent); ``with_predictions`` adds the per-sample top-k class
@@ -356,8 +435,10 @@ def make_finetune_eval_step(model, preproc: PreprocConfig, with_predictions: boo
             topk_p, topk_ids = torch.softmax(logits, dim=-1).topk(min(k, logits.shape[-1]),
                                                                   dim=-1)
             top5 = (topk_ids == targets[:, None]).any(dim=-1).float()
-            out = {"loss": -lp.mean(), "acc1": top1.mean() * 100.0,
-                   "acc5": top5.mean() * 100.0}
+            group = _group(placement)
+            out = _mean({"loss": _batch_mean(-lp, group),
+                         "acc1": _batch_mean(top1, group) * 100.0,
+                         "acc5": _batch_mean(top5, group) * 100.0}, placement)
             if with_predictions:
                 out["topk_ids"] = topk_ids
                 out["topk_probs"] = topk_p

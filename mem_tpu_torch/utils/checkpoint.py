@@ -72,14 +72,23 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
 
 def save_checkpoint(output_dir: str, tag, payload: Dict[str, Any]) -> str:
     """Write ``payload`` to ``output_dir/checkpoint-{tag}.pth`` atomically
-    (a temporary file, then a rename); returns the path."""
-    os.makedirs(output_dir, exist_ok=True)
-    path = os.path.join(output_dir, f"checkpoint-{tag}.pth")
-    tmp = f"{path}.{os.getpid()}.tmp"
+    (a temporary file, then a rename); returns the path. In a multi-process
+    run every process calls it with the single-process payload
+    (parallel/mesh.py ``Placement.model_state_dict`` /
+    ``optimizer_state_dict`` gather it), rank 0 writes, and a barrier follows
+    the write, so no process reads or prunes a half-written file."""
     import torch
+    import torch.distributed as dist
 
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
+    path = os.path.join(output_dir, f"checkpoint-{tag}.pth")
+    multi = dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1
+    if not multi or dist.get_rank() == 0:
+        os.makedirs(output_dir, exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+    if multi:
+        dist.barrier()
     return path
 
 

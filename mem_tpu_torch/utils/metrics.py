@@ -2,9 +2,10 @@
 
 The port's own copy of mem_tpu/utils/metrics.py ``SmoothedValue`` /
 ``MetricLogger`` (the reference's windowed median / average and global
-average), ``TensorboardLogger`` and ``maybe_wandb``. The port runs one
-process, so nothing is gathered across processes; per-step device metrics
-arrive as floats the caller has read back. Both sinks fall back as the
+average), ``TensorboardLogger`` and ``maybe_wandb``. Per-step device
+metrics arrive as floats the caller has read back; in a multi-process run
+``synchronize_between_processes`` sums the global counts and totals over the
+processes (metrics.py:36-45), and only rank 0 writes the sinks. Both sinks fall back as the
 reference's do when their package is missing: the TensorBoard logger
 writes nothing, ``maybe_wandb`` returns None.
 """
@@ -30,6 +31,21 @@ class SmoothedValue:
         self.deque.append(value)
         self.count += n
         self.total += value * n
+
+    def synchronize_between_processes(self, group=None):
+        """Sum the count and total over the processes (f64, one all-reduce);
+        the window stays this process's."""
+        import torch
+        import torch.distributed as dist
+
+        if not (dist.is_available() and dist.is_initialized()) \
+                or dist.get_world_size(group) == 1:
+            return
+        t = torch.tensor([self.count, self.total], dtype=torch.float64)
+        if dist.get_backend(group) == "nccl":
+            t = t.cuda()
+        dist.all_reduce(t, group=group)
+        self.count, self.total = int(t[0].item()), float(t[1].item())
 
     @property
     def median(self):
@@ -69,6 +85,10 @@ class MetricLogger:
 
     def add_meter(self, name: str, meter: SmoothedValue):
         self.meters[name] = meter
+
+    def synchronize_between_processes(self, group=None):
+        for name in sorted(self.meters):     # the same order on every process
+            self.meters[name].synchronize_between_processes(group)
 
     def __str__(self):
         return self.delimiter.join(f"{k}: {m}" for k, m in self.meters.items())

@@ -1,6 +1,6 @@
 """Graceful-preemption handling for the training loops.
 
-The port's own copy of mem_tpu/utils/preemption.py, on one process. A
+The port's own copy of mem_tpu/utils/preemption.py. A
 SIGTERM/SIGINT (what SLURM/GKE/Borg send before killing a pod) sets a flag;
 the loop finishes the step in flight, saves a resumable checkpoint, and
 exits 0, so the requeued job continues from the interrupted epoch instead
@@ -50,6 +50,28 @@ def validate_rss_flag(limit_gb: float) -> None:
             raise SystemExit(
                 f"--rss_restart_gb {limit_gb} needs psutil, which failed to "
                 f"import: {e}") from e
+
+
+def rss_recycle_due(limit_gb: float) -> bool:
+    """True when the memory-recycle watchdog should fire: the host RSS above
+    ``limit_gb`` (0 = off). Every process of a multi-process run agrees (the
+    max over the processes, preemption.py:55-86): a process that tripped
+    alone would enter the checkpoint save while its peers wait in the next
+    epoch's collectives."""
+    if not (limit_gb and limit_gb > 0):
+        return False
+    mine = rss_gb()
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+        import torch
+
+        t = torch.tensor([mine], dtype=torch.float64)
+        if dist.get_backend() == "nccl":
+            t = t.cuda()
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        mine = float(t.item())
+    return mine > limit_gb
 
 
 class GracefulShutdown:

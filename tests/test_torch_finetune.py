@@ -456,14 +456,17 @@ def test_cli_int8_runs_the_eval_forwards(tmp_path, monkeypatch):
     assert 0 < np.abs(p8 - p32).max() < 0.05
 
 
-@pytest.mark.parametrize("flags,match", [
-    (["--zero1", "1"], "item 15"), (["--fsdp", "1"], "item 15"),
-    (["--data_set", "CIFAR"], "data_set 'CIFAR'"),
+@pytest.mark.parametrize("flags,exc,match", [
+    (["--zero1", "1", "--fsdp", "1"], ValueError, "placement mode"),
+    (["--fsdp", "1", "--zero1", "1", "--data_set", "IMNET"], ValueError, "placement mode"),
+    (["--data_set", "CIFAR"], NotImplementedError, "data_set 'CIFAR'"),
 ])
-def test_cli_unported_options_raise(flags, match):
+def test_cli_unported_options_raise(flags, exc, match):
+    """--zero1 / --fsdp are ported; both at once raise the reference's
+    ValueError (mesh.py:175-179); an unknown data set is not ported."""
     from mem_tpu_torch.cli import run_class_finetuning as R
 
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(exc, match=match):
         R.check_ported(R.get_args(["--data_path", "x"] + flags))
 
 

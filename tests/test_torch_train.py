@@ -251,12 +251,15 @@ def test_cli_trains_checkpoints_and_resumes(tmp_path):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--fsdp", "1"], "item 15"), (["--zero1", "1"], "item 15"),
+    (["--fsdp", "1", "--zero1", "1"], "placement mode"),
+    (["--tp", "2", "--fsdp", "1"], "placement mode"),
 ])
 def test_cli_unported_options_raise(flags, match):
+    """--tp / --zero1 / --fsdp are ported; two placement modes at once raise
+    the reference's ValueError (mesh.py:175-179)."""
     from mem_tpu_torch.cli import run_mem_pretraining as R
 
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         R.check_ported(R.get_args(["--data_path", "x"] + flags))
 
 
