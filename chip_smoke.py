@@ -154,15 +154,21 @@ world-size-1 NCCL group runs three full-width pretraining steps (pt_vit
 ViT-B/16, vocab 8192, bf16, the conf's f32 tokenizer, B=64) under DP,
 ZeRO-1, FSDP and TP (a one-rank "model" group) against the same steps
 without a group (DP and ZeRO-1 bit-equal, FSDP and TP within 1e-6 relative
-L2), with per-step ms, peak memory and launches; then two processes on the
-one card over Gloo (NCCL refuses two ranks on one device) run the DP step
-(f32, 2 x 32 against 64), the TP step at tp = 2 (bf16, B=16, K2f / K2b at
-6 heads, FUSED_MLP's K6f / K6b at hidden 1,536) and the full-width seg step
-under DP (f32, six blocks, 2 x 2 against 4, SyncBN; K3f, K3b, K4), each against one
-process within its gate, each with a planted fault (a per-rank loss mean, fc2's
-bias added on every rank, an unsynced BatchNorm) that must miss it. The
-kernel table's rows on these paths carry their launches as
-``parallel_launches``.
+L2), with per-step ms, peak memory and launches, and then, bit-equal to the
+same steps without a group, the optimizers whose update reads a statistic of
+the whole tensor under FSDP and TP (the first four blocks) and the MAE
+(B=128) at TP; then two processes on the one card over Gloo (NCCL refuses
+two ranks on one device) run the DP step (f32, 2 x 32 against 64), the TP
+step at tp = 2 (bf16, B=16, K2f / K2b at 6 heads, FUSED_MLP's K6f / K6b at
+hidden 1,536), the full-width seg step under DP (f32, six blocks, 2 x 2
+against 4, SyncBN; K3f, K3b, K4) and the MAE at tp = 2 (bf16, B=16), each
+against one process within its gate, each with a planted fault (a per-rank
+loss mean, fc2's bias added on every rank, an unsynced BatchNorm) that must
+miss it, and Adafactor and AdamP at tp = 2 and Adafactor under FSDP (f32,
+B=16, two steps), each tensor's displacement against one
+process's, with the statistic taken over the rank's shard alone as the
+fault that must miss the gate. The kernel table's rows on these paths carry
+their launches as ``parallel_launches``.
 
 Between them it holds one VAE, one pretraining, one MAE, one segmentation
 and one finetune train step on the card (f32 and bf16) against the same step
@@ -6573,11 +6579,19 @@ def finish_pipeline_script(torch, proc, t0, expdir):
 
 PAR_KERNELS = {   # kernel -> the parallel runs whose launches it counts
     "hist_planes_cols": (("chip1", "dp"), ("chip1", "zero1"), ("chip1", "fsdp"),
-                         ("chip1", "tp1"), ("chip2", "dp")),
+                         ("chip1", "tp1"), ("chip1", "fsdp_adafactor"), ("chip1", "tp1_lamb"),
+                         ("chip1", "mae_tp1"), ("chip2", "dp"), ("chip2", "tp_adafactor"),
+                         ("chip2", "fsdp_adafactor")),
     "fused_attention_flat": (("chip1", "dp"), ("chip1", "zero1"), ("chip1", "fsdp"),
-                             ("chip1", "tp1"), ("chip2", "dp"), ("chip2", "tp")),
+                             ("chip1", "tp1"), ("chip1", "fsdp_adafactor"),
+                             ("chip1", "tp1_lamb"), ("chip1", "mae_tp1"), ("chip2", "dp"),
+                             ("chip2", "tp"), ("chip2", "tp_adafactor"),
+                             ("chip2", "fsdp_adafactor"), ("chip2", "mae_tp")),
     "fused_attention_flat_bwd": (("chip1", "dp"), ("chip1", "zero1"), ("chip1", "fsdp"),
-                                 ("chip1", "tp1"), ("chip2", "dp"), ("chip2", "tp")),
+                                 ("chip1", "tp1"), ("chip1", "fsdp_adafactor"),
+                                 ("chip1", "tp1_lamb"), ("chip1", "mae_tp1"), ("chip2", "dp"),
+                                 ("chip2", "tp"), ("chip2", "tp_adafactor"),
+                                 ("chip2", "fsdp_adafactor"), ("chip2", "mae_tp")),
     "mlp_fused": (("chip2", "tp"),),
     "mlp_fused_bwd": (("chip2", "tp"),),
     "fused_attention_flat_long": (("chip2", "seg"),),
@@ -6592,11 +6606,16 @@ def run_parallel_slice(torch, gpu, tmp_root):
     NCCL group: three
     full-width pretraining steps under DP, ZeRO-1, FSDP and TP against the
     same steps without a group; DP and ZeRO-1 bit-equal, FSDP and TP within
-    mp_chip.FSDP_TP_REL), then ``chip2`` (two processes on the one card over
-    Gloo, named so: the DP step, the TP step at tp = 2 with FUSED_MLP, the seg
-    step under DP, each against one process within its gate and each with a
-    planted fault that must miss it). Returns {kernel: {run: launches}} of
-    the ranks' main paths (rank 0's; each process counts its own)."""
+    mp_chip.FSDP_TP_REL; then the whole-tensor optimizers under FSDP and TP
+    and the MAE at TP, bit-equal), then ``chip2`` (two processes on the one
+    card over Gloo, named so: the DP step, the TP step at tp = 2 with
+    FUSED_MLP, the seg step under DP, the MAE at tp = 2, each against one
+    process within its gate and each with a planted fault that must miss
+    it; Adafactor and AdamP at tp = 2 and Adafactor under FSDP, f32, each
+    tensor's displacement within mp_chip.OPT_REL, each with its statistic
+    taken over the local shard alone, which must miss it). Returns {kernel:
+    {run: launches}} of the ranks' main paths (rank 0's; each process
+    counts its own)."""
     from mem_tpu_torch.tools import mp_chip, mp_worker
 
     t0 = time.perf_counter()
@@ -6626,8 +6645,32 @@ def run_parallel_slice(torch, gpu, tmp_root):
                   f"{mode} at world size 1: weights rel L2 {r['weights_rel_l2']}")
         for name in ("hist_planes_cols", "fused_attention_flat", "fused_attention_flat_bwd"):
             check(r["launches"].get(name, 0) > 0, f"{mode} launched no {name}")
+    for pair, r in list(c1["opt_pairs"].items()) + [("mae_tp1", c1["mae_tp1"])]:
+        say("parallel_world1_opt", gpu=gpu, backend=c1["backend"], run=pair,
+            placement=r["placement"], batch=r.get("batch", c1["batch"]), steps=c1["steps"],
+            bit_equal=r["bit_equal"], weights_rel_l2=r["weights_rel_l2"],
+            loss_equal=r["loss_equal"], step_ms=r["step_ms"], peak_gb=r["peak_gb"],
+            launches=r["launches"])
+        check(r["bit_equal"], f"{pair} at world size 1 is not bit-equal to no group "
+              f"(weights rel L2 {r['weights_rel_l2']})")
+        for name in ("fused_attention_flat", "fused_attention_flat_bwd"):
+            check(r["launches"].get(name, 0) > 0, f"{pair} launched no {name}")
     r0, r1 = res["chip2"]
-    gates = {"dp": mp_chip.DP_GRAD_REL, "tp": mp_chip.TP_GRAD_REL, "seg": mp_chip.SEG_GRAD_REL}
+    for tag in ("tp_adafactor", "tp_adamp", "fsdp_adafactor"):
+        ok, bad = r0[tag], r0[f"{tag}_fault"]
+        say("parallel_two_process_opt", gpu=gpu, backend=r0["backend"], run=tag,
+            worst_displacement=ok["worst_displacement"], gate=mp_chip.OPT_REL,
+            fault_worst_displacement=bad["worst_displacement"], loss=ok["loss"],
+            ms=[ok["ms"], r1[tag]["ms"]], peak_gb=[ok["peak_gb"], r1[tag]["peak_gb"]],
+            single_ms=r0["single"][f"opt_{tag.split('_')[1]}"]["ms"], launches=ok["launches"])
+        check(ok["worst_displacement"][1] <= mp_chip.OPT_REL,
+              f"two-process {tag}: displacement rel L2 {ok['worst_displacement']} > "
+              f"{mp_chip.OPT_REL}")
+        check(bad["worst_displacement"][1] > mp_chip.OPT_REL,
+              f"two-process {tag}: the local-shard statistic passed the gate "
+              f"({bad['worst_displacement']})")
+    gates = {"dp": mp_chip.DP_GRAD_REL, "tp": mp_chip.TP_GRAD_REL, "seg": mp_chip.SEG_GRAD_REL,
+             "mae_tp": mp_chip.TP_GRAD_REL}
     for tag, gate in gates.items():
         ok, bad = r0[tag], r0[f"{tag}_fault"]
         say("parallel_two_process", gpu=gpu, backend=r0["backend"], run=tag,
@@ -6647,11 +6690,17 @@ def run_parallel_slice(torch, gpu, tmp_root):
                                "mlp_fused_bwd")),
                        ("seg", ("fused_attention_flat_long", "fused_attention_flat_long_bwd",
                                 "hist_planes_cols_sorted")),
-                       ("dp", ("hist_planes_cols",))):
+                       ("dp", ("hist_planes_cols",)),
+                       ("mae_tp", ("fused_attention_flat", "fused_attention_flat_bwd")),
+                       ("tp_adafactor", ("hist_planes_cols", "fused_attention_flat",
+                                         "fused_attention_flat_bwd")),
+                       ("fsdp_adafactor", ("hist_planes_cols", "fused_attention_flat",
+                                           "fused_attention_flat_bwd"))):
         for name in names:
             check(r0[tag]["launches"].get(name, 0) > 0 and r1[tag]["launches"].get(name, 0) > 0,
                   f"two-process {tag} launched no {name}")
-    out = {name: {f"{c}.{run}": (c1["modes"][run] if c == "chip1" else r0[run])["launches"]
+    world1 = dict(c1["modes"], **c1["opt_pairs"], mae_tp1=c1["mae_tp1"])
+    out = {name: {f"{c}.{run}": (world1[run] if c == "chip1" else r0[run])["launches"]
                   .get(name, 0) for c, run in runs}
            for name, runs in PAR_KERNELS.items()}
     say("parallel_slice", seconds=round(time.perf_counter() - t0, 1))

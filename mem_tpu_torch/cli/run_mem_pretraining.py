@@ -223,9 +223,6 @@ def check_ported(args) -> None:
         raise ValueError("--pretrained 1 --init_ckpt warm-starts the BEiT encoder of pt_vit "
                          "(run_mem_pretraining.py:194-222); the MAE has no such path")
     check_modes(args.tp, args.zero1, args.fsdp)
-    if args.MAE and args.tp > 1:
-        raise ValueError("--tp with --MAE 1: the MAE's timm blocks have no tensor-parallel "
-                         "cut in the port; use DP, --zero1 1 or --fsdp 1")
 
 
 def build_model(args, dtype, device):

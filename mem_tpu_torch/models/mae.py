@@ -37,7 +37,7 @@ import torch
 from torch import nn
 
 from mem_tpu_torch.models.vit import (FastVarLayerNorm, _need_generator, conv_patches,
-                                      drop_path, linear)
+                                      drop_path, linear, tp_enter, tp_reduce)
 from mem_tpu_torch.ops.attention import (attention_route, fused_attention_flat,
                                          fused_attention_flat_long)
 
@@ -74,7 +74,14 @@ class TimmBlock(nn.Module):
     """timm's ViT block (mae.py:53-109): pre-norm LayerNorms (eps 1e-6, f32,
     then the compute dtype), a fused ``qkv`` Linear with a bias, exact erf
     gelu, and timm's drop-path on both residual branches in training mode,
-    drawn from the generator the caller passes."""
+    drawn from the generator the caller passes.
+
+    Under tensor parallelism (:meth:`tp_setup`) the MLP runs on this rank's
+    hidden columns (fc1's rows, fc2's input columns, cut by parallel/mesh.py
+    ``shard_tensor_parallel``) between ``tp_enter`` and ``tp_reduce``, and
+    fc2's bias is added once, after the sum; ``qkv`` and ``proj`` stay whole,
+    as the reference's ``tp_param_specs`` leaves them (its ``_TimmBlock`` has
+    no ``attn`` scope)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  dtype=torch.float32, drop_path_rate: float = 0.0, device=None):
@@ -88,6 +95,17 @@ class TimmBlock(nn.Module):
         self.norm2 = FastVarLayerNorm(dim, device=device)
         self.fc1 = nn.Linear(dim, int(dim * mlp_ratio), device=device)
         self.fc2 = nn.Linear(int(dim * mlp_ratio), dim, device=device)
+        self.tp_group = None
+
+    def tp_setup(self, group) -> None:
+        """Run the MLP on this rank's hidden columns over ``group``."""
+        import torch.distributed as dist
+
+        n = dist.get_world_size(group)
+        if self.fc1.weight.shape[0] % n:
+            raise ValueError(f"hidden width {self.fc1.weight.shape[0]} does not divide "
+                             f"over --tp {n}")
+        self.tp_group = group
 
     def attention(self, h: torch.Tensor) -> torch.Tensor:
         B, N, C = h.shape
@@ -116,11 +134,18 @@ class TimmBlock(nn.Module):
             return drop_path(y, self.drop_path_rate, _need_generator(generator, "drop_path"))
         return y
 
+    def mlp(self, h: torch.Tensor) -> torch.Tensor:
+        if self.tp_group is not None:
+            h = tp_enter(h, self.tp_group)
+        h = torch.nn.functional.gelu(linear(h, self.fc1, self.dtype), approximate="none")
+        if self.tp_group is None:
+            return linear(h, self.fc2, self.dtype)
+        y = torch.matmul(h, self.fc2.weight.to(self.dtype).t())
+        return tp_reduce(y, self.tp_group) + self.fc2.bias.to(self.dtype)
+
     def forward(self, x, generator=None):
         x = x + self._drop(self.attention(self.norm1(x).to(self.dtype)), generator)
-        h = linear(self.norm2(x).to(self.dtype), self.fc1, self.dtype)
-        h = torch.nn.functional.gelu(h, approximate="none")
-        return x + self._drop(linear(h, self.fc2, self.dtype), generator)
+        return x + self._drop(self.mlp(self.norm2(x).to(self.dtype)), generator)
 
 
 def xavier_uniform_(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:

@@ -48,12 +48,7 @@ from typing import Dict, Optional
 import torch
 import torch.distributed as dist
 
-# optimizers whose update reads a statistic of the whole tensor (a norm, a
-# factored moment, a channel cosine): a shard computes another update, so
-# the sharded placements refuse them; Lamb's norms are taken over the whole
-# tensor under FSDP (FSDP2 parameters are DTensors: the norms reduce across
-# shards)
-PER_TENSOR_OPTIMIZERS = ("lamb", "adafactor", "novograd", "nvnovograd", "adamp", "sgdp")
+from mem_tpu_torch.train.optim import dropped_placement, factored_dim
 
 
 # ---------------------------------------------------------------------------
@@ -224,10 +219,23 @@ def replicate(model: torch.nn.Module, src: int = 0) -> torch.nn.Module:
 
 
 def _full(t):
-    """The whole value of a tensor: a DTensor gathered, anything else as it is."""
+    """The whole value of a tensor: a DTensor gathered, anything else as it
+    is. A CUDA DTensor on a Gloo group (two processes sharing one card) is
+    gathered through host copies: Gloo's CUDA collectives do not cover the
+    gather DTensor takes."""
     from torch.distributed.tensor import DTensor
 
-    return t.full_tensor() if isinstance(t, DTensor) else t
+    if not isinstance(t, DTensor):
+        return t
+    mesh = t.device_mesh
+    if t.device.type == "cuda" and dist.get_backend(mesh.get_group()) == "gloo":
+        from torch.distributed.device_mesh import DeviceMesh
+
+        host = DeviceMesh.from_group(mesh.get_group(), "cpu")
+        t = DTensor.from_local(t.to_local().cpu(), host, t.placements, run_check=False,
+                               shape=t.shape, stride=t.stride())
+        return t.full_tensor().to(mesh.device_type)
+    return t.full_tensor()
 
 
 def unreplicate(tree) -> dict:
@@ -308,8 +316,11 @@ def tp_dim(name: str) -> Optional[int]:
     ``attn.qkv.weight``, ``mlp.fc1``) on their output dim, ``q_bias`` /
     ``v_bias``, the fan-in weights (``attn.proj.weight``, ``mlp.fc2.weight``)
     on their input dim, and each block's own rel-pos table on its head column.
-    None: replicated (embeddings, norms, heads, the fan-in biases, a shared
-    rel-pos table)."""
+    The MAE's and its classifier's timm blocks name their layers without the
+    ``attn`` / ``mlp`` scopes (``blocks.N.fc1``, ``decoder_blocks.N.fc2``),
+    as the JAX ``_TimmBlock`` does: the reference's rule cuts their fc1 and
+    fc2 and leaves ``qkv`` and ``proj`` whole. None: replicated (embeddings,
+    norms, heads, the fan-in biases, a shared rel-pos table)."""
     if re.search(r"(^|\.)attn\.qkv\.weight$", name):
         return 0
     if re.search(r"(^|\.)attn\.(q_bias|v_bias)$", name):
@@ -321,6 +332,10 @@ def tp_dim(name: str) -> Optional[int]:
     if re.search(r"(^|\.)mlp\.fc1\.(weight|bias)$", name):
         return 0
     if re.search(r"(^|\.)mlp\.fc2\.weight$", name):
+        return 1
+    if re.search(r"(^|\.)(decoder_)?blocks\.\d+\.fc1\.(weight|bias)$", name):
+        return 0
+    if re.search(r"(^|\.)(decoder_)?blocks\.\d+\.fc2\.weight$", name):
         return 1
     return None
 
@@ -377,17 +392,6 @@ def fsdp_specs(tree, mesh_or_size, axis: str = "data"):
 # placements
 # ---------------------------------------------------------------------------
 
-def optimizer_name(optimizer) -> str:
-    """The optimizer's family, as ``--opt`` names it (for the refusals)."""
-    inner = getattr(optimizer, "inner", None)
-    if inner is not None:
-        return "lookahead_" + optimizer_name(inner)
-    name = type(optimizer).__name__.lower()
-    if name == "adamp" and any(g.get("sgd_momentum") is not None for g in optimizer.param_groups):
-        return "sgdp"
-    return {"adamwlowprecision": "adamw"}.get(name, name)
-
-
 @dataclass
 class Placement:
     """How a model and its optimizer live across the processes; the train
@@ -422,11 +426,12 @@ class Placement:
                              self.data_group, average=True)
 
     def sharded(self) -> Optional[dict]:
-        """{param: group} of the parameters whose gradients are shards (the
-        global norm sums their squares over the group); FSDP's DTensors say
-        it themselves."""
+        """{param: (group, dim)} of the tensor-parallel cuts (the global
+        norm and the optimizers' whole-tensor statistics reduce over the
+        group; train/optim.py ``split``); FSDP's DTensors say it
+        themselves."""
         if self.mode == "tp":
-            return {p: self.model_group for p in self.tp_layout}
+            return {p: (self.model_group, lay[0]) for p, lay in self.tp_layout.items()}
         return None
 
     def step(self, optimizer) -> None:
@@ -468,31 +473,67 @@ class Placement:
             return out
         return {k: v.detach().cpu() for k, v in model.state_dict().items()}
 
-    def gather_like(self, p: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-        """A tensor laid out as parameter ``p`` (a moment, an EMA copy) in the
-        full single-process shape."""
+    def _whole_shape(self, p) -> tuple:
+        """The single-process shape of the placed parameter ``p``."""
+        shape = list(p.shape)      # a DTensor's shape is the global one
+        if self.mode == "tp" and p in self.tp_layout:
+            shape[self.tp_layout[p][0]] *= dist.get_world_size(self.model_group)
+        return tuple(shape)
+
+    def _tp_state_layout(self, p, key, shape: tuple, whole: tuple):
+        """The TP layout of ``p``'s state ``key`` of ``shape`` (``whole``:
+        ``p``'s shape, whole or cut as the state is): ``p``'s layout for a
+        tensor shaped as it, and for Adafactor's factored moments the cut
+        along the dim that survives (None where the dropped dim is the cut
+        one: whole on every rank)."""
+        lay = self.tp_layout.get(p)
+        if lay is None or shape == whole:
+            return lay
+        d = factored_dim(key, self._whole_shape(p))
+        if d is None or d == lay[0] or shape != whole[:d] + whole[d + 1:]:
+            return None
+        return (lay[0] - (lay[0] > d), lay[1])
+
+    def gather_like(self, p: torch.Tensor, t: torch.Tensor, key: str = "") -> torch.Tensor:
+        """A tensor laid out as parameter ``p`` (a moment, an EMA copy, a
+        Lookahead slow weight, or, by its state ``key``, one of Adafactor's
+        factored moments) in the full single-process shape."""
         if self.mode == "fsdp":
             return _full(t)
-        if self.mode == "tp" and p in self.tp_layout and t.shape == p.shape:
-            return _tp_gather(t, self.tp_layout[p], self.model_group)
+        if self.mode == "tp":
+            lay = self._tp_state_layout(p, key, tuple(t.shape), tuple(p.shape))
+            if lay is not None:
+                return _tp_gather(t, lay, self.model_group)
         return t
 
-    def place_like(self, p: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    def place_like(self, p: torch.Tensor, t: torch.Tensor, key: str = "") -> torch.Tensor:
         """A full single-process tensor laid out as the placed parameter
-        ``p`` (an EMA copy, a restored moment): FSDP's shard, TP's cut."""
+        ``p`` (an EMA copy, a restored moment or slow weight): FSDP's shard,
+        TP's cut; Adafactor's factored moments (by their state ``key``) cut
+        along the dim of ``p``'s cut that survives in them."""
+        whole = self._whole_shape(p)
         if self.mode == "fsdp":
             from torch.distributed.tensor import DTensor, distribute_tensor
 
             if isinstance(p, DTensor) and not isinstance(t, DTensor):
-                return distribute_tensor(t.to(p.device), p.device_mesh, p.placements)
-        if self.mode == "tp" and p in self.tp_layout and t.shape != p.shape:
-            return tp_slice(t, self.tp_layout[p], dist.get_rank(self.model_group),
-                             dist.get_world_size(self.model_group))
+                placements = p.placements
+                if tuple(t.shape) != whole:
+                    d = factored_dim(key, whole)
+                    if d is None or tuple(t.shape) != whole[:d] + whole[d + 1:]:
+                        return t
+                    placements = [dropped_placement(pl, d) for pl in p.placements]
+                return distribute_tensor(t.to(p.device), p.device_mesh, placements)
+        if self.mode == "tp" and tuple(p.shape) != whole:
+            lay = self._tp_state_layout(p, key, tuple(t.shape), whole)
+            if lay is not None:
+                return tp_slice(t, lay, dist.get_rank(self.model_group),
+                                dist.get_world_size(self.model_group))
         return t
 
     def optimizer_state_dict(self, optimizer) -> dict:
         """The optimizer's state_dict in the single-process schema: ZeRO-1's
-        owned states merged, FSDP's and TP's gathered (every rank calls)."""
+        owned states merged, FSDP's and TP's gathered, Lookahead's slow
+        weights with them (every rank calls)."""
         sd = optimizer.state_dict()
         inner = sd["inner"] if "inner" in sd else sd
         params = [p for g in _inner(optimizer).param_groups for p in g["params"]]
@@ -507,10 +548,13 @@ class Placement:
             inner["state"] = {i: state[i] for i in sorted(state)}
         elif self.mode in ("fsdp", "tp"):
             inner["state"] = {
-                i: {k: (self.gather_like(params[i], v).detach().cpu()
+                i: {k: (self.gather_like(params[i], v, k).detach().cpu()
                         if torch.is_tensor(v) and v.ndim > 0 else v)
                     for k, v in st.items()}
                 for i, st in sorted(inner["state"].items())}
+            if "lookahead_slow" in sd:
+                sd["lookahead_slow"] = [self.gather_like(p, s).detach().cpu()
+                                        for p, s in zip(params, sd["lookahead_slow"])]
         return sd
 
 
@@ -563,13 +607,15 @@ def shard_tensor_parallel(model: torch.nn.Module, group) -> Dict:
     """Cut every parameter :func:`tp_dim` names to this rank's share over
     ``group`` (q | k | v as three blocks: by head, not a contiguous cut of the
     packed columns) and set every ``Attention`` and ``Mlp`` to run on it
-    (models/vit.py ``tp_setup``); returns {new parameter: (dim, parts)}, the
-    layout that :func:`_tp_gather` undoes."""
+    (models/vit.py ``tp_setup``), and every MAE ``TimmBlock`` on its cut MLP
+    (models/mae.py); returns {new parameter: (dim, parts)}, the layout that
+    :func:`_tp_gather` undoes."""
+    from mem_tpu_torch.models.mae import TimmBlock
     from mem_tpu_torch.models.vit import Attention, Mlp
 
     r, n = dist.get_rank(group), dist.get_world_size(group)
     for m in model.modules():
-        if isinstance(m, (Attention, Mlp)):
+        if isinstance(m, (Attention, Mlp, TimmBlock)):
             m.tp_setup(group)
     layout = {}
     for name, p in list(model.named_parameters()):
@@ -584,38 +630,28 @@ def shard_tensor_parallel(model: torch.nn.Module, group) -> Dict:
     return layout
 
 
-def _rebind_optimizer(optimizer, new_of: Dict, convert) -> None:
-    """Point the optimizer's groups and state at the new parameters,
-    converting each state tensor shaped as its parameter with ``convert(old
-    param, new param, tensor)``."""
+def _rebind_optimizer(optimizer, new_of: Dict, placement: Placement) -> None:
+    """Point the optimizer's groups and state at the new parameters, each
+    state tensor (the single-process one: fresh, or restored) and each
+    Lookahead slow weight laid out as its parameter by
+    ``placement.place_like``; the tensor-parallel cuts go to the optimizer
+    as ``cuts`` (its whole-tensor statistics reduce over them)."""
     opt = _inner(optimizer)
     state = {}
     for g in opt.param_groups:
         g["params"] = [new_of.get(p, p) for p in g["params"]]
     for p, st in list(opt.state.items()):
         q = new_of.get(p, p)
-        state[q] = {k: (convert(p, q, v) if torch.is_tensor(v) and v.shape == p.shape
-                        and v.ndim > 0 else v) for k, v in st.items()}
+        state[q] = {k: (placement.place_like(q, v, k) if torch.is_tensor(v) and v.ndim > 0
+                        else v) for k, v in st.items()}
     opt.state.clear()
     opt.state.update(state)
     if hasattr(opt, "axes"):
         opt.axes = {new_of.get(p, p): a for p, a in opt.axes.items()}
-
-
-def check_optimizer(optimizer, tp: int, fsdp: bool) -> None:
-    """Refuse the optimizers whose update would differ on a shard (see
-    PER_TENSOR_OPTIMIZERS) and Lookahead's slow weights under FSDP and TP."""
-    name = optimizer_name(optimizer)
-    mode = "--fsdp 1" if fsdp else f"--tp {tp}"
-    if "lookahead" in name:
-        raise ValueError(f"--opt {name} with {mode}: Lookahead's slow weights are kept "
-                         f"whole and do not follow a sharded placement; use --zero1 1 or DP")
-    base = name.split("_")[-1]
-    if base in PER_TENSOR_OPTIMIZERS and not (fsdp and base == "lamb"):
-        raise ValueError(
-            f"--opt {base} with {mode}: its update reads a statistic of the whole "
-            f"tensor, which a shard does not hold; use --zero1 1 (whole tensors per rank) "
-            f"or DP")
+    if hasattr(optimizer, "slow"):
+        params = [p for g in opt.param_groups for p in g["params"]]
+        optimizer.slow = [placement.place_like(q, s) for q, s in zip(params, optimizer.slow)]
+    opt.cuts = placement.sharded()
 
 
 def _owners(params, n: int) -> Dict:
@@ -649,8 +685,6 @@ def place_train_state(model: torch.nn.Module, optimizer, mesh, tp: int = 1,
     groups and state pointing at the placed parameters. Every BatchNorm of
     the model takes its statistics over the "data" processes."""
     check_modes(tp, zero1, fsdp)
-    if tp > 1 or fsdp:
-        check_optimizer(optimizer, tp, fsdp)
     if mesh is None:
         if tp > 1:
             raise ValueError(f"--tp {tp} needs a process group (get_mesh(tp={tp}))")
@@ -658,6 +692,9 @@ def place_train_state(model: torch.nn.Module, optimizer, mesh, tp: int = 1,
         return Placement()
     data_group = axis_group(mesh, "data")
     _set_bn_group(model, data_group if dist.get_world_size(data_group) > 1 else None)
+    with torch.no_grad():   # Lookahead's slow weights start as rank 0's parameters
+        for s in getattr(optimizer, "slow", ()):
+            dist.broadcast(s, 0)
     if fsdp:
         return _place_fsdp(model, optimizer, mesh, data_group)
     if tp > 1:
@@ -687,12 +724,12 @@ def place_tensor_parallel(model: torch.nn.Module, optimizer, mesh) -> Placement:
     layout = shard_tensor_parallel(model, model_group)
     new = dict(model.named_parameters())
     new_of = {old[k]: new[k] for k in new if new[k] is not old[k]}
-    r, size = dist.get_rank(model_group), dist.get_world_size(model_group)
-    _rebind_optimizer(optimizer, new_of,
-                      lambda p, q, v: tp_slice(v, layout[q], r, size) if q in layout else v)
     partial = [p for n, p in model.named_parameters()
                if n.endswith("rel_pos_bias.relative_position_bias_table")]
-    return Placement("tp", mesh, data_group, model_group, tp_layout=layout, tp_partial=partial)
+    placement = Placement("tp", mesh, data_group, model_group, tp_layout=layout,
+                          tp_partial=partial)
+    _rebind_optimizer(optimizer, new_of, placement)
+    return placement
 
 
 def _set_bn_group(model, group) -> None:
@@ -713,10 +750,9 @@ def _fully_shard():
 
 def _place_fsdp(model, optimizer, mesh, data_group) -> Placement:
     """FSDP2 on every Block (and the MAE's TimmBlock) and at the root; the
-    optimizer's groups and state
-    move onto the DTensor parameters (state tensors cut as their parameter)."""
-    from torch.distributed.tensor import distribute_tensor
-
+    optimizer's groups, state and slow weights move onto the DTensor
+    parameters (each cut as its parameter, Adafactor's factored moments
+    along the dim that survives)."""
     from mem_tpu_torch.models.mae import TimmBlock
     from mem_tpu_torch.models.vit import Block
 
@@ -730,7 +766,6 @@ def _place_fsdp(model, optimizer, mesh, data_group) -> Placement:
     fully_shard(model, mesh=dmesh)
     new = dict(model.named_parameters())
     new_of = {old[k]: new[k] for k in new if new[k] is not old[k]}
-    _rebind_optimizer(optimizer, new_of,
-                      lambda p, q, v: distribute_tensor(v.to(q.device), q.device_mesh,
-                                                        q.placements))
-    return Placement("fsdp", mesh, data_group)
+    placement = Placement("fsdp", mesh, data_group)
+    _rebind_optimizer(optimizer, new_of, placement)
+    return placement

@@ -12,7 +12,13 @@ recipe, on the card.
   must be bit-equal to the steps without a group; FSDP and TP's f32 weights
   within a relative L2 of 1e-6 (their norm is the square root of an
   all-reduced sum of squares, a rounding off the plain norm, which moves the
-  clip factor). Each mode's per-step ms and peak memory are reported.
+  clip factor). Each mode's per-step ms and peak memory are reported. Then
+  the optimizers whose update reads a whole-tensor statistic under FSDP and
+  TP (``OPT_PAIRS``, the first ``OPT_DEPTH`` blocks, the tokenizer's codes
+  fixed) and the MAE
+  (mae_vit_base_patch16_dec512d8b, B = 128) at TP, each against the same
+  steps without a group: bit-equal (a group of one reduces nothing, and
+  the statistics of a tensor cut into one piece are the plain ones).
 - ``chip2``: the two processes on ``cuda:0`` over Gloo (NCCL refuses two ranks
   on one device; the Gloo backend carries the CUDA tensors through host
   memory, so its times are no multi-GPU throughput). Rank 0 first runs the
@@ -26,8 +32,15 @@ recipe, on the card.
   (EvBEiT ViT-B/16 at 512^2, its first six blocks, UPerNet) in f32 at
   B = 2 x 2 against 4, the PSP BatchNorms damped (eps 0.1), gradients within
   ``SEG_GRAD_REL`` (the seg train step's card-vs-CPU gradient gate); an
-  unsynced BatchNorm must miss it. Every process reports its launch counts,
-  step ms and peak memory.
+  unsynced BatchNorm must miss it. The whole-tensor optimizers: Adafactor
+  and AdamP at tp = 2 and Adafactor under FSDP (2 x 8), f32 (TF32 off) at
+  B = 16, two steps against one process: every tensor's displacement
+  within ``OPT_REL`` relative L2, and each with its statistic taken over
+  the rank's shard alone (the ``local_stat`` fault), which must miss it.
+  The MAE at tp = 2 (bf16, B = 16, its blocks' fc1 / fc2 cut): step-0
+  gradients within ``TP_GRAD_REL``; fc2's bias added on both ranks must
+  miss it. Every process reports its launch counts, step ms and peak
+  memory.
 
 Each rank writes ``chip1_r0.json`` / ``chip2_r<rank>.json`` into the workdir.
 """
@@ -42,6 +55,7 @@ import torch
 import torch.distributed as dist
 
 from mem_tpu_torch.parallel import mesh as M
+from mem_tpu_torch.tools.mp_worker import FSDP_OPTS, LOOKAHEAD_K, TP_OPTS
 
 CHIP1_B, CHIP2_DP_B, CHIP2_TP_B, CHIP2_SEG_B = 64, 64, 16, 4
 SEG_DEPTH = 6           # blocks of the seg step (full width; the last four tapped)
@@ -54,6 +68,21 @@ SEG_GRAD_REL = 5e-3     # chip2: f32 seg step-0 gradients, 2 x 2 against 4: chip
                         # variance cancels in f32, and summed in two halves it rounds
                         # otherwise (1.15e-4 in a first run; an unsynced BatchNorm 0.116)
 BIAS_STD = 0.1          # the seeded biases (a bias added twice must show)
+CHIP1_MAE_B, CHIP2_OPT_B = 128, 16
+OPT_DEPTH = 4           # blocks of chip1's (placement, optimizer) runs (full width; bit-equal
+                        # at any depth: every statistic is per tensor), cut from 12 to keep the
+                        # card check within a minute of its earlier length
+OPT_REL = 1e-4          # chip2: f32 displacement of every tensor after two steps, relative L2
+# chip1: (mode, --opt) pairs against no group, the CPU launch's sets
+OPT_PAIRS = (tuple(("fsdp", o) for o in FSDP_OPTS) + tuple(("tp1", o) for o in TP_OPTS))
+CHIP2_OPT_RUNS = {      # tag -> (mode, --opt, fault)
+    "tp_adafactor": ("tp", "adafactor", None),
+    "tp_adafactor_fault": ("tp", "adafactor", "local_stat"),
+    "tp_adamp": ("tp", "adamp", None),
+    "tp_adamp_fault": ("tp", "adamp", "local_stat"),
+    "fsdp_adafactor": ("fsdp", "adafactor", None),
+    "fsdp_adafactor_fault": ("fsdp", "adafactor", "local_stat"),
+}
 
 
 def _args(extra=()):
@@ -142,23 +171,34 @@ def _seed_biases(model, device):
                 p.add_(BIAS_STD * torch.randn(p.shape, generator=g, device=device))
 
 
-def pretrain_run(args, dtype, pp, batches, vae, mesh=None, mode="single", device="cuda",
-                 fault=None, grads_only=False):
-    """A pretraining step on each of ``batches`` from the seeded weights;
-    returns the metrics, the step-0 gradients (``grads_only``: and no
-    weights) or the f32 weights after, the launch counts of the steps, the ms
-    of every step after the first and the peak memory."""
+def seeded_model(args, dtype, device):
+    """The CLI's model (pt_vit, or the MAE with ``--MAE 1``) from the seeded
+    init, its 1-D parameters moved off 0 / 1."""
     from mem_tpu_torch.cli import run_mem_pretraining as R
-    from mem_tpu_torch.kernels import launch_counts, reset_launch_counts
-    from mem_tpu_torch.tools.mp_worker import _faulty, _full_grads
-    from mem_tpu_torch.train.optim import create_optimizer
-    from mem_tpu_torch.train.steps import make_pretrain_train_step
 
-    torch.cuda.reset_peak_memory_stats(device)
     model = R.build_model(args, dtype, device)
     model.init_weights(torch.Generator(device=device).manual_seed(args.seed))
     _seed_biases(model, device)
-    opt = create_optimizer(model, args.lr, args.weight_decay)
+    return model
+
+
+def pretrain_run(args, dtype, pp, batches, vae, mesh=None, mode="single", device="cuda",
+                 fault=None, grads_only=False, opt_name="adamw"):
+    """A pretraining step (the MAE's with ``--MAE 1``; ``vae`` unused) with
+    ``opt_name`` on each of ``batches`` from the seeded weights; returns the
+    metrics, the step-0 gradients (``grads_only``: and no weights) or the
+    f32 weights after, the launch counts of the steps, the ms of every step
+    after the first and the peak memory."""
+    from mem_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from mem_tpu_torch.tools.mp_worker import _faulty, _full_grads
+    from mem_tpu_torch.train.optim import create_optimizer
+    from mem_tpu_torch.train.steps import make_mae_train_step, make_pretrain_train_step
+
+    torch.cuda.reset_peak_memory_stats(device)
+    model = seeded_model(args, dtype, device)
+    opt = create_optimizer(model, args.lr, args.weight_decay, opt=opt_name)
+    if hasattr(opt, "k"):       # Lookahead syncs within the three steps
+        opt.k = LOOKAHEAD_K
     placement = None
     if mode == "tp1":           # the TP code path on a one-rank "model" group
         placement = M.place_tensor_parallel(model, opt, mesh)
@@ -168,13 +208,19 @@ def pretrain_run(args, dtype, pp, batches, vae, mesh=None, mode="single", device
     steps = len(batches)
     lr = np.full(steps, args.lr)
     wd = np.full(steps, args.weight_decay)
-    step = make_pretrain_train_step(model, vae, opt, pp, lr, wd, args.clip_grad, args.seed,
-                                    placement=placement)
+    if args.MAE:
+        step = make_mae_train_step(model, opt, pp, lr, wd, args.clip_grad, args.seed,
+                                   placement=placement)
+    else:
+        step = make_pretrain_train_step(model, vae, opt, pp, lr, wd, args.clip_grad, args.seed,
+                                        placement=placement)
     metrics, grads, ms = [], None, []
     reset_launch_counts()
     with _faulty(fault):
         for t, b in enumerate(batches):
-            batch = M.shard_batch(b, mesh if mode in ("dp", "dp_fault") else None,
+            if args.MAE:
+                b = {k: v for k, v in b.items() if k != "mask"}
+            batch = M.shard_batch(b, mesh if mode in ("dp", "fsdp") else None,
                                   device=device, global_batch=True)
             torch.cuda.synchronize(device)
             t0 = time.perf_counter()
@@ -193,6 +239,20 @@ def pretrain_run(args, dtype, pp, batches, vae, mesh=None, mode="single", device
             "step_ms": ms[1:],
             "peak_gb": torch.cuda.max_memory_allocated(device) / 2**30,
             "mode": placement.mode if placement is not None else "single"}
+
+
+def worst_displacement(got: dict, want: dict, start: dict) -> tuple:
+    """(name, relative L2) of the tensor whose displacement from ``start``
+    in ``got`` misses ``want``'s most."""
+    worst = ("", 0.0)
+    for k, w in want.items():
+        d_want = w.double() - start[k].double()
+        num = float((got[k].double() - start[k].double() - d_want).norm())
+        den = float(d_want.norm())
+        rel = num / den if den > 0 else num
+        if rel > worst[1]:
+            worst = (k, rel)
+    return worst
 
 
 def rel_l2(a: dict, b: dict) -> float:
@@ -233,26 +293,64 @@ def chip1(workdir: str) -> dict:
     seconds = {"single": round(time.perf_counter() - t_start, 2)}
     for mode in ("dp", "zero1", "fsdp", "tp1"):
         t0 = time.perf_counter()
-        mesh = M.get_mesh(device_type="cuda")
-        if mode == "tp1":
-            from torch.distributed.device_mesh import init_device_mesh
-
-            mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
-        r = pretrain_run(args, torch.bfloat16, pp, batches, vae, mesh=mesh, mode=mode,
-                         device=device)
-        out["modes"][mode] = {
-            "placement": r["mode"], "metrics": r["metrics"], "step_ms": r["step_ms"],
-            "peak_gb": r["peak_gb"], "launches": r["launches"],
-            "bit_equal": bit_equal(r["weights"], ref["weights"]),
-            "weights_rel_l2": rel_l2(r["weights"], ref["weights"]),
-            "loss_equal": [a["loss"] == b["loss"] for a, b in zip(r["metrics"],
-                                                                 ref["metrics"])]}
+        r = pretrain_run(args, torch.bfloat16, pp, batches, vae, mesh=_world1_mesh(mode),
+                         mode=mode, device=device)
+        out["modes"][mode] = _against(r, ref)
         del r
         torch.cuda.empty_cache()
         seconds[mode] = round(time.perf_counter() - t0, 2)
+        _progress(f"world1 {mode}", t_start)
+    del ref
+    t0 = time.perf_counter()
+    tokens = codes(vae, pp, batches, device)
+    opt_args = _args(["--transformer_depth", str(OPT_DEPTH)])
+    out["opt_pairs"] = {}
+    for opt_name in dict.fromkeys(o for _, o in OPT_PAIRS):
+        base = pretrain_run(opt_args, torch.bfloat16, pp, batches, FixedTokens(tokens),
+                            device=device, opt_name=opt_name)
+        for mode in (m for m, o in OPT_PAIRS if o == opt_name):
+            r = pretrain_run(opt_args, torch.bfloat16, pp, batches, FixedTokens(tokens),
+                             mesh=_world1_mesh(mode), mode=mode, device=device, opt_name=opt_name)
+            out["opt_pairs"][f"{mode}_{opt_name}"] = _against(r, base)
+            _progress(f"world1 {mode}_{opt_name}", t_start)
+        del base
+    seconds["opt_pairs"], t0 = round(time.perf_counter() - t0, 2), time.perf_counter()
+    mae_args = _args(["--MAE", "1"])
+    mae_pp, mae_batches = host_batches(mae_args, CHIP1_MAE_B, STEPS, seed=3)
+    base = pretrain_run(mae_args, torch.bfloat16, mae_pp, mae_batches, None, device=device)
+    r = pretrain_run(mae_args, torch.bfloat16, mae_pp, mae_batches, None,
+                     mesh=_world1_mesh("tp1"), mode="tp1", device=device)
+    out["mae_tp1"] = dict(_against(r, base), batch=CHIP1_MAE_B,
+                          single_step_ms=base["step_ms"], single_peak_gb=base["peak_gb"])
+    seconds["mae_tp1"] = round(time.perf_counter() - t0, 2)
+    _progress("world1 mae_tp1", t_start)
     out["seconds"] = seconds
     dist.destroy_process_group()
     return out
+
+
+def _world1_mesh(mode):
+    """The world-size-1 group's mesh of ``mode``: ("data",), or a one-rank
+    "model" axis for the TP code path."""
+    if mode == "tp1":
+        from torch.distributed.device_mesh import init_device_mesh
+
+        return init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    return M.get_mesh(device_type="cuda")
+
+
+def _against(r: dict, base: dict) -> dict:
+    """A placed run's reading against the same steps without a group."""
+    return {"placement": r["mode"], "metrics": r["metrics"], "step_ms": r["step_ms"],
+            "peak_gb": r["peak_gb"], "launches": r["launches"],
+            "bit_equal": bit_equal(r["weights"], base["weights"]),
+            "weights_rel_l2": rel_l2(r["weights"], base["weights"]),
+            "loss_equal": [a["loss"] == b["loss"] for a, b in zip(r["metrics"],
+                                                                 base["metrics"])]}
+
+
+def _progress(what: str, t0: float) -> None:
+    print(f"mp_chip r{M.launch_env()[1]}: {what} {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def M_port() -> int:
@@ -323,9 +421,12 @@ def chip2(workdir: str) -> dict:
     vae = _vae(device)
     tp_args = _args()
     tp_pp, tp_batches = host_batches(tp_args, CHIP2_TP_B, 2, seed=1)
-    ids, tp_ids = (codes(vae, p_, bs, device) for p_, bs in ((pp, dp_batches),
-                                                             (tp_pp, tp_batches)))
+    opt_pp, opt_batches = host_batches(args, CHIP2_OPT_B, 2, seed=2)
+    ids, tp_ids, opt_ids = (codes(vae, p_, bs, device) for p_, bs in (
+        (pp, dp_batches), (tp_pp, tp_batches), (opt_pp, opt_batches)))
     del vae
+    mae_args = _args(["--MAE", "1"])
+    mae_pp, mae_batches = host_batches(mae_args, CHIP2_TP_B, 2, seed=4)
     seg_b = seg_batches(CHIP2_SEG_B, 2, 180_000)
     seconds["inputs"] = round(time.perf_counter() - t0, 2)
     out = {"gpu": _gpu_line(), "rank": rank, "backend": "gloo", "device": str(device)}
@@ -338,15 +439,27 @@ def chip2(workdir: str) -> dict:
                                   FixedTokens(tp_ids), device=device, grads_only=True)
         vit.FUSED_MLP = False
         refs["seg"] = _seg_run(device, seg_b)
+        for opt_name in ("adafactor", "adamp"):
+            refs[f"opt_{opt_name}"] = pretrain_run(args, torch.float32, opt_pp, opt_batches,
+                                                   FixedTokens(opt_ids), device=device,
+                                                   opt_name=opt_name)
+        refs["mae_tp"] = pretrain_run(mae_args, torch.bfloat16, mae_pp, mae_batches, None,
+                                      device=device, grads_only=True)
+        start = {k: v.detach().float().cpu() for k, v in
+                 seeded_model(args, torch.float32, device).state_dict().items()}
         torch.cuda.empty_cache()
         seconds["references"] = round(time.perf_counter() - t0 - seconds["inputs"], 2)
         M.init_distributed("cuda", backend="gloo")
     dist.barrier()
     mesh = M.get_mesh(device_type="cuda")
     n, r = dist.get_world_size(), dist.get_rank()
-    half = slice(r * CHIP2_DP_B // n, (r + 1) * CHIP2_DP_B // n)
+
+    def half_of(B):
+        return slice(r * B // n, (r + 1) * B // n)
+
+    half = half_of(CHIP2_DP_B)
     res = {}
-    t0 = time.perf_counter()
+    t_group = t0 = time.perf_counter()
     for tag, fault in (("dp", None), ("dp_fault", "rank_mean")):
         res[tag] = pretrain_run(args, torch.float32, pp, dp_batches, FixedTokens(ids, half),
                                 mesh=mesh, mode="dp", device=device, fault=fault,
@@ -364,7 +477,22 @@ def chip2(workdir: str) -> dict:
     seconds["tp"], t0 = round(time.perf_counter() - t0, 2), time.perf_counter()
     for tag, fault in (("seg", None), ("seg_fault", "unsynced_bn")):
         res[tag] = _seg_run(device, seg_b, mesh=mesh, fault=fault)
-    seconds["seg"] = round(time.perf_counter() - t0, 2)
+    seconds["seg"], t0 = round(time.perf_counter() - t0, 2), time.perf_counter()
+    _progress("two-process dp, tp, seg", t_group)
+    for tag, fault in (("mae_tp", None), ("mae_tp_fault", "fc2_bias_per_rank")):
+        res[tag] = pretrain_run(mae_args, torch.bfloat16, mae_pp, mae_batches, None,
+                                mesh=tp_mesh, mode="tp", device=device, fault=fault,
+                                grads_only=True)
+    seconds["mae_tp"], t0 = round(time.perf_counter() - t0, 2), time.perf_counter()
+    _progress("two-process mae_tp", t_group)
+    for tag, (mode, opt_name, fault) in CHIP2_OPT_RUNS.items():
+        res[tag] = pretrain_run(args, torch.float32, opt_pp, opt_batches,
+                                FixedTokens(opt_ids, half_of(CHIP2_OPT_B) if mode == "fsdp"
+                                            else slice(None)),
+                                mesh=tp_mesh if mode == "tp" else mesh, mode=mode,
+                                device=device, fault=fault, opt_name=opt_name)
+        _progress(f"two-process {tag}", t_group)
+    seconds["optimizers"] = round(time.perf_counter() - t0, 2)
     out["seconds"] = seconds
     out["routes"] = {"tp_heads": tp_args.transformer_heads // 2,
                      "tp_k6_route": kernel_route(torch.bfloat16, 768, 3072 // 2),
@@ -376,9 +504,13 @@ def chip2(workdir: str) -> dict:
         out[tag]["ms"] = r_.get("ms", (r_.get("step_ms") or [None])[0])
         out[tag]["loss"] = r_.get("loss", (r_.get("metrics") or [{}])[0].get("loss"))
     if rank == 0:
+        for tag, (_, opt_name, _) in CHIP2_OPT_RUNS.items():
+            out[tag]["worst_displacement"] = worst_displacement(
+                res[tag]["weights"], refs[f"opt_{opt_name}"]["weights"], start)
         for tag, ref in (("dp", refs["dp"]), ("dp_fault", refs["dp"]), ("tp", refs["tp"]),
                          ("tp_fault", refs["tp"]), ("seg", refs["seg"]),
-                         ("seg_fault", refs["seg"])):
+                         ("seg_fault", refs["seg"]), ("mae_tp", refs["mae_tp"]),
+                         ("mae_tp_fault", refs["mae_tp"])):
             out[tag]["grad_rel_l2"] = rel_l2(res[tag]["grads"], ref["grads"])
             ref_loss = ref.get("loss", (ref.get("metrics") or [{}])[0].get("loss"))
             out[tag]["loss_rel"] = abs(out[tag]["loss"] - ref_loss) / abs(ref_loss)

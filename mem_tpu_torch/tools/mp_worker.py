@@ -14,8 +14,15 @@ Modes (Gloo on the CPU unless said otherwise):
   images) under DP, ZeRO-1 and FSDP with ``adamw`` and ``lamb``, a planted
   per-rank loss mean, and tensor parallelism (tp = world size) on the
   weights and batch of ``tp_inputs.npz`` with ``FUSED_MLP`` off and on and a
-  planted fc2 bias added per rank; writes ``<case>_r<rank>.npz``; then the
-  metric, RSS-watchdog and stop-flag agreements (``sync_r<rank>.json``).
+  planted fc2 bias added per rank; then, at width 128 (``OPT_MODEL``), the
+  optimizers whose update reads a whole-tensor statistic under FSDP
+  (``FSDP_OPTS``) and TP (``TP_OPTS``), each statistic also taken over the
+  local shard alone (the planted ``local_stat`` fault), checkpoints after
+  step ``SAVE_AT`` and resumes from the single-process ones
+  (``ckpt_single_<opt>.pt``); the tiny MAE (``MAE_MODEL``) at tp = world
+  size, its steps and its loss and gradients on ``mae_inputs.npz``; writes
+  ``<case>_r<rank>.npz``; then the metric, RSS-watchdog and stop-flag
+  agreements (``sync_r<rank>.json``).
 - ``seg``: tiny segmentor train steps under DP (the PSP BatchNorms damped to
   eps 0.1) and with a planted unsynced BatchNorm.
 - ``pipeline``: :func:`pipeline_apply` over the world on the dense stages and
@@ -37,6 +44,8 @@ launcher computes the single-process reference with the same code.
 from __future__ import annotations
 
 import contextlib
+import copy
+import faulthandler
 import json
 import os
 import sys
@@ -55,6 +64,30 @@ PT_VAE = dict(num_tokens=32, codebook_dim=8, num_layers=2, num_resnet_blocks=1, 
 PT_PREPROC = dict(input_h=32, input_w=32, canvas_h=48, canvas_w=48, rand_aug=False,
                   color_jitter=0.0)
 GLOBAL_B, STEPS = 8, 3
+# the optimizers under the sharded placements: at width 128 (MLP 512)
+# Adafactor factors every 2-D weight (two dims >= 128) and AdamP's
+# projection fires on cut ones within the three steps
+OPT_MODEL = dict(PT_MODEL, embed_dim=128)
+FSDP_OPTS = ("adafactor", "novograd", "adamp", "sgdp", "lookahead_adamw", "lookahead_lamb")
+TP_OPTS = ("lamb", "adafactor", "novograd", "adamp", "lookahead_lamb")
+LOCAL_STAT_FAULTS = {"fsdp": ("adafactor", "novograd", "adamp"),
+                     "tp": ("lamb", "adafactor", "novograd", "adamp")}
+RESUME_OPTS = ("adafactor", "lookahead_lamb")
+SAVE_AT = 1         # the checkpoint after steps 0 and 1; a resume runs step 2
+LOOKAHEAD_K = 3     # Lookahead's sync at step 2: after a resume, from restored slow weights
+MAE_MODEL = dict(img_size=32, patch_size=8, in_chans=3, embed_dim=32, depth=2, num_heads=2,
+                 decoder_embed_dim=16, decoder_depth=1, decoder_num_heads=2)
+
+
+def opt_lr(opt: str) -> float:
+    """The peak lr of an optimizer case: Lamb's step is lr times each
+    tensor's norm, so at 1e-3 the norms' weights (near 1.0) move by ~1e-3 a
+    step and one f32 rounding of such a weight (6e-8) is ~1e-5 of three
+    steps' displacement (half of it after Lookahead's sync): Lamb takes
+    1e-2; the elementwise-normalised ones keep the recipe's 1e-3 (at 1e-2
+    AdamP's LayerScale moves by a tenth a step and three steps amplify
+    rounding to ~4e-5)."""
+    return 1e-2 if opt.split("_")[-1] == "lamb" else 1e-3
 
 
 def pretrain_batches(global_b: int = GLOBAL_B, steps: int = STEPS, n: int = 1200):
@@ -83,10 +116,16 @@ def pretrain_batches(global_b: int = GLOBAL_B, steps: int = STEPS, n: int = 1200
 
 
 def run_pretrain(opt: str, mesh=None, zero1=False, fsdp=False, tp=1, device="cpu",
-                 fault=None) -> dict:
+                 fault=None, model_kw=PT_MODEL, save=None, resume=None, lr=1e-3) -> dict:
     """STEPS pretraining steps from seeded weights; returns the per-step
-    metrics, the step-0 gradients and the final weights in the
-    single-process schema (numpy)."""
+    metrics, the step-0 gradients, the final weights in the single-process
+    schema (numpy) and ``probe``: each parameter's cut and Adafactor
+    factoring, and after each step AdamP's decision on every tensor of 2+
+    dims. ``save``: a path where rank 0 writes the model and optimizer
+    state (the single-process schema, gathered) after step SAVE_AT;
+    ``resume``: such a file, restored before the placement (as the CLIs
+    do), then the steps after SAVE_AT, and ``probe["regathered_equal"]``
+    says whether the placed state gathers back to the file bit for bit."""
     from mem_tpu_torch.data.device_pipeline import PreprocConfig
     from mem_tpu_torch.models.discrete_vae import DiscreteVAE
     from mem_tpu_torch.models.registry import create_model
@@ -95,28 +134,90 @@ def run_pretrain(opt: str, mesh=None, zero1=False, fsdp=False, tp=1, device="cpu
     from mem_tpu_torch.train.steps import make_pretrain_train_step
 
     torch.manual_seed(0)
-    model = create_model("pt_vit", **PT_MODEL, device=device)
+    model = create_model("pt_vit", **model_kw, device=device)
     model.init_weights(torch.Generator(device=device).manual_seed(0))
     vae = DiscreteVAE((32, 32), **PT_VAE, device=device)
     vae.init_weights(torch.Generator(device=device).manual_seed(1))
     vae.eval().requires_grad_(False)
-    lr, wd = cosine_scheduler(1e-3, 1e-4, 1, STEPS), cosine_scheduler(0.05, 0.2, 1, STEPS)
-    optimizer = create_optimizer(model, 1e-3, 0.05, opt=opt)
+    lr_sched = cosine_scheduler(lr, lr / 10, 1, STEPS)
+    wd = cosine_scheduler(0.05, 0.2, 1, STEPS)
+    optimizer = create_optimizer(model, lr, 0.05, opt=opt)
+    if hasattr(optimizer, "k"):     # Lookahead syncs within the three steps
+        optimizer.k = LOOKAHEAD_K
+    first, probe = 0, {}
+    if resume is not None:
+        payload = torch.load(resume, weights_only=True)
+        model.load_state_dict(payload["model"], strict=True)
+        optimizer.load_state_dict(payload["optimizer"])
+        first = SAVE_AT + 1
     placement = (M.place_train_state(model, optimizer, mesh, tp=tp, zero1=zero1, fsdp=fsdp)
                  if mesh is not None else None)
-    step = make_pretrain_train_step(model, vae, optimizer, PreprocConfig(**PT_PREPROC), lr, wd,
-                                    clip_grad=1.0, seed=0, placement=placement)
+    if resume is not None:
+        probe["regathered_equal"] = float(state_equal(gathered_state(model, optimizer,
+                                                                     placement), payload))
+    step = make_pretrain_train_step(model, vae, optimizer, PreprocConfig(**PT_PREPROC), lr_sched,
+                                    wd, clip_grad=1.0, seed=0, placement=placement)
     metrics, grads0 = [], None
     with _faulty(fault):
         for t, b in enumerate(pretrain_batches()):
+            if t < first:
+                continue
             batch = M.shard_batch(b, mesh, device=device, global_batch=True)
             metrics.append({k: float(v) for k, v in step(batch, t).items()})
+            probe.update(_probe(model, optimizer, t, first))
             if t == 0:
                 grads0 = _full_grads(model, placement)
+            if save is not None and t == SAVE_AT:
+                state = gathered_state(model, optimizer, placement)
+                if M.rank() == 0:
+                    torch.save(state, save)
     weights = (placement.model_state_dict(model) if placement is not None
                else model.state_dict())
     return {"metrics": metrics, "grads0": grads0, "state_local": _state_numel(optimizer),
-            "weights": {k: v.float().cpu().numpy() for k, v in weights.items()}}
+            "weights": {k: v.float().cpu().numpy() for k, v in weights.items()},
+            "probe": probe}
+
+
+def gathered_state(model, optimizer, placement) -> dict:
+    """The model's and the optimizer's state in the single-process schema,
+    copied off the live tensors (every rank calls)."""
+    if placement is None:
+        return copy.deepcopy({"model": model.state_dict(), "optimizer": optimizer.state_dict()})
+    return copy.deepcopy({"model": placement.model_state_dict(model),
+                          "optimizer": placement.optimizer_state_dict(optimizer)})
+
+
+def state_equal(a, b) -> bool:
+    """Two state trees hold the same keys and bit-identical tensors."""
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and set(a) == set(b)
+                and all(state_equal(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(state_equal(x, y) for x, y in zip(a, b)))
+    if torch.is_tensor(a):
+        return (torch.is_tensor(b) and a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a.detach().cpu(), b.detach().cpu()))
+    return a == b
+
+
+def _probe(model, optimizer, t: int, first: int) -> dict:
+    """AdamP's decision on every tensor of 2+ dims after step ``t``; after
+    the first step also each parameter's cut (1: its statistics cross
+    processes) and whether Adafactor factored its second moment."""
+    from mem_tpu_torch.train.optim import split
+
+    inner = M._inner(optimizer)
+    out = {}
+    for name, p in model.named_parameters():
+        st = inner.state.get(p, {})
+        if "fired" in st and p.ndim >= 2:
+            out[f"fired.{t}.{name}"] = float(st["fired"])
+        if t == first:
+            out[f"cut.{name}"] = float(split(p, getattr(inner, "cuts", None))[1].group
+                                       is not None)
+            out[f"factored.{name}"] = float("v_row" in st)
+    return out
 
 
 def _state_numel(optimizer) -> int:
@@ -145,11 +246,18 @@ def _full_grads(model, placement) -> dict:
 def _faulty(fault):
     """The planted faults: ``rank_mean`` (each rank's loss normalised by its
     own count, then averaged), ``unsynced_bn`` (set elsewhere),
-    ``fc2_bias_per_rank`` (the tensor-parallel MLP adds fc2's bias before
-    the sum, once per rank)."""
+    ``fc2_bias_per_rank`` (the tensor-parallel MLP, and the MAE's timm
+    block's, adds fc2's bias before the sum, once per rank), ``local_stat``
+    (the optimizers' whole-tensor statistics taken over this process's shard
+    alone: no reduction across the cut)."""
     from mem_tpu_torch.models import vit
+    from mem_tpu_torch.models.mae import TimmBlock
+    from mem_tpu_torch.train import optim
 
     saved = []
+    if fault == "local_stat":
+        saved.append((optim.Cut, "_all_reduce", optim.Cut._all_reduce))
+        optim.Cut._all_reduce = lambda self, x, op=None: x
     if fault == "rank_mean":
         saved.append((M, "global_quotient", M.global_quotient))
         M.global_quotient = lambda num, den, group=None: num / den.clamp(min=1.0)
@@ -165,8 +273,18 @@ def _faulty(fault):
                 y = vit.linear(h, self.fc2, self.dtype)
             return vit.tp_reduce(y, self.tp_group)
 
+        def timm_mlp(self, h):
+            if self.tp_group is None:
+                return mlp(self, h)
+            h = vit.tp_enter(h, self.tp_group)
+            h = torch.nn.functional.gelu(vit.linear(h, self.fc1, self.dtype), approximate="none")
+            return vit.tp_reduce(vit.linear(h, self.fc2, self.dtype), self.tp_group)
+
         saved.append((vit.Mlp, "_forward_tp", vit.Mlp._forward_tp))
         vit.Mlp._forward_tp = forward_tp
+        mlp = TimmBlock.mlp
+        saved.append((TimmBlock, "mlp", mlp))
+        TimmBlock.mlp = timm_mlp
     try:
         yield
     finally:
@@ -206,6 +324,88 @@ def run_tp(inputs: dict, mesh, fused_mlp: bool, fault=None) -> dict:
     placement.reduce_gradients(list(model.parameters()))
     return {"loss": float(loss), "grads": _full_grads(model, placement),
             "local_heads": model.blocks[0].attn.num_heads}
+
+
+def run_tp_update(inputs: dict, mesh, opt: str = "adamp", lr: float = 1e-2,
+                  wd: float = 0.05) -> dict:
+    """One ``opt`` update (constant lr and decay, no clip) of the weights
+    ``w.*`` by the gradients ``g.*`` (both full, in the port's names) with
+    the model cut over the mesh's "model" axis: the weights after, gathered,
+    and AdamP's decision on each tensor."""
+    from mem_tpu_torch.models.registry import create_model
+    from mem_tpu_torch.train.optim import create_optimizer, set_schedule
+
+    model = create_model("pt_vit", **TP_MODEL)
+    model.load_state_dict({k[2:]: torch.from_numpy(v) for k, v in inputs.items()
+                           if k.startswith("w.")}, strict=True)
+    optimizer = create_optimizer(model, lr, wd, opt=opt)
+    placement = M.place_train_state(model, optimizer, mesh, tp=M.axis_size(mesh, "model"))
+    for name, p in model.named_parameters():
+        p.grad = placement.place_like(p, torch.from_numpy(inputs[f"g.{name}"]))
+    set_schedule(optimizer, lr, wd)
+    placement.step(optimizer)
+    return {"weights": {k: v.float().numpy() for k, v in placement.model_state_dict(model).items()},
+            "probe": _probe(model, optimizer, 0, 0)}
+
+
+# -- the MAE under tensor parallelism -------------------------------------------
+
+def build_mae(device="cpu"):
+    from mem_tpu_torch.models.mae import MaskedAutoencoderViT
+
+    model = MaskedAutoencoderViT(**MAE_MODEL, device=device)
+    model.init_weights(torch.Generator(device=device).manual_seed(0))
+    return model
+
+
+def run_mae(mesh=None, tp=1, device="cpu") -> dict:
+    """STEPS MAE pretraining steps (AdamW, the recipe's step) from seeded
+    weights on the pretraining batches, the model cut over the mesh's
+    "model" axis with ``tp`` > 1: the metrics, the step-0 gradients and the
+    final weights in the single-process schema."""
+    from mem_tpu_torch.data.device_pipeline import PreprocConfig
+    from mem_tpu_torch.train.optim import create_optimizer
+    from mem_tpu_torch.train.schedules import cosine_scheduler
+    from mem_tpu_torch.train.steps import make_mae_train_step
+
+    model = build_mae(device)
+    optimizer = create_optimizer(model, 1e-3, 0.05)
+    placement = M.place_train_state(model, optimizer, mesh, tp=tp) if mesh is not None else None
+    lr, wd = cosine_scheduler(1e-3, 1e-4, 1, STEPS), cosine_scheduler(0.05, 0.2, 1, STEPS)
+    step = make_mae_train_step(model, optimizer, PreprocConfig(**PT_PREPROC), lr, wd,
+                               clip_grad=1.0, seed=0, placement=placement)
+    metrics, grads0 = [], None
+    for t, b in enumerate(pretrain_batches()):
+        b = {k: v for k, v in b.items() if k != "mask"}
+        metrics.append({k: float(v) for k, v in step(M.shard_batch(b, mesh, device=device,
+                                                                   global_batch=True), t).items()})
+        if t == 0:
+            grads0 = _full_grads(model, placement)
+    weights = (placement.model_state_dict(model) if placement is not None
+               else model.state_dict())
+    return {"metrics": metrics, "grads0": grads0,
+            "weights": {k: v.float().cpu().numpy() for k, v in weights.items()}}
+
+
+def run_mae_tp(inputs: dict, mesh, fault=None) -> dict:
+    """The MAE's loss and gradients on ``inputs`` (weights ``w.*`` in the
+    port's names, images ``x``, shuffle ``noise``) with the model cut over
+    the mesh's "model" axis; the gradients gathered to the full schema."""
+    from mem_tpu_torch.models.mae import MaskedAutoencoderViT
+
+    model = MaskedAutoencoderViT(**MAE_MODEL)
+    model.load_state_dict({k[2:]: torch.from_numpy(v) for k, v in inputs.items()
+                           if k.startswith("w.")}, strict=True)
+    optimizer = torch.optim.SGD(model.parameters(), lr=0.0)
+    placement = M.place_train_state(model, optimizer, mesh, tp=M.axis_size(mesh, "model"))
+    model.train()
+    with _faulty(fault):
+        loss, _, _ = model(torch.from_numpy(inputs["x"]),
+                           noise=torch.from_numpy(inputs["noise"]))
+        loss.backward()
+    placement.reduce_gradients(list(model.parameters()))
+    return {"loss": float(loss), "grads": _full_grads(model, placement),
+            "local_hidden": model.blocks[0].fc1.weight.shape[0]}
 
 
 # -- the tiny segmentation case ------------------------------------------------
@@ -408,7 +608,9 @@ def _save_npz(workdir, tag, rank, result):
     for i, m in enumerate(result.get("metrics", [])):
         for k, v in m.items():
             flat[f"metrics.{i}.{k}"] = np.float64(v)
-    for k in ("loss", "local_heads", "state_local"):
+    for k, v in (result.get("probe") or {}).items():
+        flat[f"probe.{k}"] = np.float64(v)
+    for k in ("loss", "local_heads", "local_hidden", "state_local"):
         if k in result:
             flat[k] = np.float64(result[k])
     np.savez(os.path.join(workdir, f"{tag}_r{rank}.npz"), **flat)
@@ -430,7 +632,46 @@ def _train_mode(workdir: str) -> None:
         for tag, kw in (("tp", dict(fused_mlp=False)), ("tp_fused", dict(fused_mlp=True)),
                         ("fault_fc2_bias", dict(fused_mlp=False, fault="fc2_bias_per_rank"))):
             _save_npz(workdir, tag, rank, run_tp(inputs, tp_mesh, **kw))
+    adamp_path = os.path.join(workdir, "adamp_inputs.npz")
+    if os.path.exists(adamp_path):
+        _save_npz(workdir, "tp_adamp_update", rank,
+                  run_tp_update(dict(np.load(adamp_path)), M.get_mesh(tp=M.world_size())))
+    _optimizer_cases(workdir)
+    mae_path = os.path.join(workdir, "mae_inputs.npz")
+    tp_mesh = M.get_mesh(tp=M.world_size())
+    _save_npz(workdir, "mae_tp_steps", rank, run_mae(tp_mesh, tp=M.world_size()))
+    if os.path.exists(mae_path):
+        for tag, fault in (("mae_tp", None), ("fault_mae_fc2_bias", "fc2_bias_per_rank")):
+            _save_npz(workdir, tag, rank, run_mae_tp(dict(np.load(mae_path)), tp_mesh, fault))
     _sync_checks(workdir)
+
+
+def _optimizer_cases(workdir: str) -> None:
+    """Under FSDP and under TP (tp = world size), one mesh each: every
+    optimizer of FSDP_OPTS / TP_OPTS at OPT_MODEL (RESUME_OPTS also write
+    ``ckpt_<placement>_<opt>.pt`` after step SAVE_AT), each of
+    LOCAL_STAT_FAULTS with the ``local_stat`` fault, and each of RESUME_OPTS
+    resumed from ``ckpt_single_<opt>.pt`` where the launcher wrote it."""
+    rank = M.rank()
+    for placement, opts in (("fsdp", FSDP_OPTS), ("tp", TP_OPTS)):
+        kw = dict(fsdp=True) if placement == "fsdp" else dict(tp=M.world_size())
+        mesh = M.get_mesh(tp=kw.get("tp", 1))
+        for opt in opts:
+            save = (os.path.join(workdir, f"ckpt_{placement}_{opt}.pt")
+                    if opt in RESUME_OPTS else None)
+            _save_npz(workdir, f"{placement}_{opt}", rank,
+                      run_pretrain(opt, mesh, model_kw=OPT_MODEL, lr=opt_lr(opt), save=save,
+                                   **kw))
+        for opt in LOCAL_STAT_FAULTS[placement]:
+            _save_npz(workdir, f"fault_local_{placement}_{opt}", rank,
+                      run_pretrain(opt, mesh, model_kw=OPT_MODEL, lr=opt_lr(opt),
+                                   fault="local_stat", **kw))
+        for opt in RESUME_OPTS:
+            single = os.path.join(workdir, f"ckpt_single_{opt}.pt")
+            if os.path.exists(single):
+                _save_npz(workdir, f"resume_{placement}_{opt}", rank,
+                          run_pretrain(opt, mesh, model_kw=OPT_MODEL, lr=opt_lr(opt),
+                                       resume=single, **kw))
 
 
 def _sync_checks(workdir: str) -> None:
@@ -464,6 +705,7 @@ def main(argv=None) -> int:
     mode, workdir = argv[0], argv[1]
     opts = dict(a.split("=", 1) for a in argv[2:])
     os.makedirs(workdir, exist_ok=True)
+    faulthandler.enable()       # a crash in a collective prints every thread's stack
     if mode.startswith("chip"):
         from mem_tpu_torch.tools import mp_chip
 

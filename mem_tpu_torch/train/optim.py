@@ -56,6 +56,7 @@ import warnings
 from typing import Iterable, Optional
 
 import torch
+import torch.distributed as dist
 
 BETAS = (0.9, 0.95)
 SKIP_NAMES = ("pos_embed", "cls_token")
@@ -141,6 +142,98 @@ def norm(x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# the whole tensor's statistics from a process's piece of it
+# ---------------------------------------------------------------------------
+
+class Cut:
+    """How a tensor of the whole ``shape`` is cut across processes: along
+    ``dim`` over ``group``, or not at all (``group`` None: one process, a
+    replicated tensor, or a group of one). The statistics below are those of
+    the whole tensor taken from this process's piece (the JAX package takes
+    them over the global array, GSPMD adding the collectives): a reduction
+    over the cut dim is summed (or maxed) over the group, any other stays
+    local. Uncut, each is the plain reduction."""
+
+    def __init__(self, shape, group=None, dim=None):
+        self.shape = tuple(shape)
+        self.group = group if group is not None and dist.get_world_size(group) > 1 else None
+        self.dim = dim if self.group is not None else None
+        self.param = None       # the parameter, where an optimizer's step names it
+
+    def _all_reduce(self, x, op=None):
+        x = x.contiguous()
+        dist.all_reduce(x, op=op or dist.ReduceOp.SUM, group=self.group)
+        return x
+
+    def sum(self, x, dims, keepdim=False):
+        """``x`` (laid out as the tensor) summed over ``dims``."""
+        s = x.sum(dims, keepdim=keepdim)
+        return self._all_reduce(s) if self.dim in dims else s
+
+    def mean(self, x, dims, keepdim=False):
+        if self.dim not in dims:
+            return x.mean(dims, keepdim=keepdim)
+        return self.sum(x, dims, keepdim) / math.prod(self.shape[d] for d in dims)
+
+    def amax(self, x, kept):
+        """The largest element of ``x``, a reduction of the tensor that keeps
+        its dims ``kept`` (an empty piece counts as -inf)."""
+        m = x.amax() if x.numel() else x.new_full((), float("-inf"))
+        return self._all_reduce(m, dist.ReduceOp.MAX) if self.dim in kept else m
+
+    def norm(self, x):
+        """||x|| over the whole tensor, a 0-d f32 tensor (:func:`norm`)."""
+        if self.group is None:
+            return norm(x)
+        return self._all_reduce(x.float().square().sum()).sqrt()
+
+    def drop(self, d):
+        """The cut of a tensor indexed as this one without its dim ``d``
+        (Adafactor's factored moments): whole when ``d`` is the cut dim."""
+        shape = self.shape[:d] + self.shape[d + 1:]
+        if self.dim is None or self.dim == d:
+            return Cut(shape)
+        return Cut(shape, self.group, self.dim - (self.dim > d))
+
+
+def split(t, cuts=None):
+    """(this process's piece of ``t``, its :class:`Cut`): an FSDP2 DTensor is
+    cut along its ``Shard`` placement over its mesh's group, a tensor that
+    ``cuts`` maps to (group, dim) (tensor parallelism,
+    ``Placement.sharded()``) along that dim, anything else is whole. Under
+    ``no_grad`` a DTensor's piece is its local tensor: in-place updates of
+    the piece update the DTensor."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(t, DTensor):
+        group = dim = None
+        for i, pl in enumerate(t.placements):
+            if pl.is_shard():
+                group, dim = t.device_mesh.get_group(i), pl.dim
+        return t.to_local(), Cut(t.shape, group, dim)
+    cut = (cuts or {}).get(t)
+    if cut is None:
+        return t, Cut(t.shape)
+    group, dim = cut
+    shape = list(t.shape)
+    shape[dim] *= dist.get_world_size(group)
+    return t, Cut(shape, group, dim)
+
+
+def dropped_placement(placement, d: int):
+    """The DTensor placement of a tensor indexed as one placed by
+    ``placement`` without its dim ``d``: Replicate where ``d`` was the
+    sharded dim, the shard dim renumbered otherwise."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    if not placement.is_shard():
+        return placement
+    if placement.dim == d:
+        return Replicate()
+    return Shard(placement.dim - (placement.dim > d))
+
+
+# ---------------------------------------------------------------------------
 # the optimizers the torch package does not have in the JAX package's form
 # ---------------------------------------------------------------------------
 
@@ -206,12 +299,18 @@ class AdamWLowPrecision(torch.optim.Optimizer):
 
 class _PerTensor(torch.optim.Optimizer):
     """An optimizer whose update is written per parameter: ``_init(p,
-    group)`` returns its fresh state and ``_update(p, g, st, group, t)``
-    updates ``p`` in place, where ``g`` is the gradient with the group's L2
-    weight decay folded in when ``coupled_wd`` is set and ``t`` is the step
-    count after the increment (the optax count + 1)."""
+    group)`` returns its fresh state (laid out as ``p``) and ``_update(p, g,
+    st, group, t, cut)`` updates ``p`` in place, where ``p``, ``g`` and the
+    state are this process's pieces (:func:`split`), ``cut`` says how the
+    parameter is cut (:class:`Cut`, with the parameter itself as
+    ``cut.param``), ``g`` is the gradient with the group's L2 weight decay
+    folded in when ``coupled_wd`` is set and ``t`` is the step count after
+    the increment (the optax count + 1). ``cuts`` maps the tensor-parallel
+    cuts to (group, dim) (parallel/mesh.py sets it); FSDP2's DTensors carry
+    theirs."""
 
     coupled_wd = True
+    cuts: Optional[dict] = None
 
     @torch.no_grad()
     def step(self):
@@ -223,10 +322,13 @@ class _PerTensor(torch.optim.Optimizer):
                 if not st:
                     st.update(step=torch.zeros((), dtype=torch.float32), **self._init(p, group))
                 st["step"] += 1
-                g = p.grad
+                lp, cut = split(p, self.cuts)
+                cut.param = p
+                g = split(p.grad)[0]
                 if self.coupled_wd and group["weight_decay"]:
-                    g = g + group["weight_decay"] * p
-                self._update(p, g, st, group, int(st["step"].item()))
+                    g = g + group["weight_decay"] * lp
+                local = {k: split(v)[0] if torch.is_tensor(v) else v for k, v in st.items()}
+                self._update(lp, g, local, group, int(st["step"].item()), cut)
 
 
 class RAdam(_PerTensor):
@@ -242,7 +344,7 @@ class RAdam(_PerTensor):
     def _init(self, p, group):
         return {"exp_avg": torch.zeros_like(p), "exp_avg_sq": torch.zeros_like(p)}
 
-    def _update(self, p, g, st, group, t):
+    def _update(self, p, g, st, group, t, cut):
         b1, b2 = group["betas"]
         m, v = st["exp_avg"], st["exp_avg_sq"]
         m.mul_(b1).add_(g, alpha=1 - b1)
@@ -271,7 +373,7 @@ class RMSpropTF(_PerTensor):
             st["momentum_buffer"] = torch.zeros_like(p)
         return st
 
-    def _update(self, p, g, st, group, t):
+    def _update(self, p, g, st, group, t, cut):
         nu = st["square_avg"]
         nu.mul_(0.9).addcmul_(g, g, value=1 - 0.9)
         step = g * torch.rsqrt(nu + group["eps"]) * group["lr"]
@@ -304,28 +406,63 @@ class Adafactor(_PerTensor):
         super().__init__(params, dict(lr=lr, weight_decay=weight_decay))
 
     def _init(self, p, group):
-        dims = _factored_dims(p.shape)
+        lp, cut = split(p, self.cuts)
+        dims = _factored_dims(cut.shape)
         if dims is None:
             return {"v": torch.zeros_like(p)}
         d1, d0 = dims
-        return {"v_row": torch.zeros_like(p.select(d0, 0)),
-                "v_col": torch.zeros_like(p.select(d1, 0))}
+        return {"v_row": factored_zeros(p, lp, d0), "v_col": factored_zeros(p, lp, d1)}
 
-    def _update(self, p, g, st, group, t):
+    def _update(self, p, g, st, group, t, cut):
         dr = 1.0 - t ** -0.8
         g2 = g * g + 1e-30
-        dims = _factored_dims(p.shape)
+        dims = _factored_dims(cut.shape)
         if dims is None:
             v = st["v"].mul_(dr).add_(g2, alpha=1 - dr)
             upd = g * v.rsqrt()
         else:
+            # the means over d0 / d1 cross the cut when it is the dim they
+            # reduce; v_row / v_col are cut along the dim that survives
             d1, d0 = dims
-            vr = st["v_row"].mul_(dr).add_(g2.mean(d0), alpha=1 - dr)
-            vc = st["v_col"].mul_(dr).add_(g2.mean(d1), alpha=1 - dr)
+            vr = st["v_row"].mul_(dr).add_(cut.mean(g2, (d0,)), alpha=1 - dr)
+            vc = st["v_col"].mul_(dr).add_(cut.mean(g2, (d1,)), alpha=1 - dr)
             rd1 = d1 - 1 if d1 > d0 else d1
-            row = (vr / vr.mean(rd1, keepdim=True)).rsqrt()
+            row = (vr / cut.drop(d0).mean(vr, (rd1,), keepdim=True)).rsqrt()
             upd = g * row.unsqueeze(d0) * vc.rsqrt().unsqueeze(d1)
         p.add_(upd, alpha=-group["lr"])
+
+
+FACTORED_KEYS = {"v_row": 1, "v_col": 0}   # Adafactor's state key -> its index in _factored_dims
+
+
+def factored_dim(key: str, shape) -> Optional[int]:
+    """The dim of a parameter of the whole ``shape`` that Adafactor's state
+    ``key`` drops (``v_row`` the largest, ``v_col`` the second largest);
+    None for every other key or an unfactored shape."""
+    dims = _factored_dims(tuple(shape)) if key in FACTORED_KEYS else None
+    return None if dims is None else dims[FACTORED_KEYS[key]]
+
+
+def factored_zeros(p, lp, d: int):
+    """Zeros laid out as the parameter ``p`` (this process's piece ``lp``)
+    without its dim ``d``: a DTensor placed by :func:`dropped_placement`
+    under FSDP2, the local piece otherwise."""
+    from torch.distributed.tensor import DTensor
+
+    z = lp.new_zeros(lp.shape[:d] + lp.shape[d + 1:])
+    if not isinstance(p, DTensor):
+        return z
+    shape = torch.Size(p.shape[:d] + p.shape[d + 1:])
+    return DTensor.from_local(z, p.device_mesh, [dropped_placement(pl, d) for pl in p.placements],
+                              run_check=False, shape=shape, stride=_contiguous_strides(shape))
+
+
+def _contiguous_strides(shape) -> tuple:
+    out, acc = [], 1
+    for n in reversed(shape):
+        out.append(acc)
+        acc *= n
+    return tuple(reversed(out))
 
 
 class NovoGrad(_PerTensor):
@@ -345,9 +482,9 @@ class NovoGrad(_PerTensor):
         return {"exp_avg": torch.zeros_like(p), "nu": torch.zeros((), dtype=p.dtype,
                                                                    device=p.device)}
 
-    def _update(self, p, g, st, group, t):
+    def _update(self, p, g, st, group, t, cut):
         b1, b2 = group["betas"]
-        n2 = norm(g) ** 2
+        n2 = cut.norm(g) ** 2
         nu = st["nu"]
         nu.copy_(n2 if t == 1 else b2 * nu + (1 - b2) * n2)
         add = g / (nu.sqrt() + group["eps"]) + group["novograd_wd"] * p
@@ -374,7 +511,7 @@ class Lamb(_PerTensor):
     def _init(self, p, group):
         return {"exp_avg": torch.zeros_like(p), "exp_avg_sq": torch.zeros_like(p)}
 
-    def _update(self, p, g, st, group, t):
+    def _update(self, p, g, st, group, t, cut):
         b1, b2 = group["betas"]
         m, v = st["exp_avg"], st["exp_avg_sq"]
         m.mul_(b1).add_(g, alpha=1 - b1)
@@ -382,29 +519,31 @@ class Lamb(_PerTensor):
         u = (m / (1 - b1 ** t)) / ((v / (1 - b2 ** t)).sqrt() + group["eps"])
         if group["weight_decay"]:
             u = u + group["weight_decay"] * p
-        pn, un = norm(p), norm(u)
+        pn, un = cut.norm(p), cut.norm(u)
         zero = (pn == 0) | (un == 0)
         ratio = torch.where(zero, torch.ones_like(pn), pn / torch.where(zero, 1.0, un))
         p.sub_(u * (ratio * group["lr"]))
 
 
-def adamp_fired(p: torch.Tensor, g: torch.Tensor, axis: int) -> tuple:
+def adamp_fired(p: torch.Tensor, g: torch.Tensor, axis: int, cut: Optional[Cut] = None) -> tuple:
     """AdamP's decision (optim.py:335-374): (bool tensor "the channel view
     fires", bool tensor "the whole-tensor view fires"), each 0-d. The
     channel view reduces over every dim but ``axis``; it fires where the
     largest |cos(p, g)| over the channels is below 0.1 / sqrt(its size),
     the whole view (only where the channel view did not) below 0.1 /
-    sqrt(numel)."""
+    sqrt(numel). ``p`` and ``g`` may be a process's pieces of a tensor cut
+    as ``cut`` says: the sums and the max are the whole tensor's."""
+    cut = cut or Cut(p.shape)
     red = tuple(d for d in range(p.ndim) if d != axis)
-    dim_ch = math.prod(p.shape[d] for d in red)
+    dim_ch = math.prod(cut.shape[d] for d in red)
 
     def cos(axes):
-        num = (p * g).sum(axes)
-        den = (p * p).sum(axes).sqrt() * (g * g).sum(axes).sqrt() + 1e-8
+        num = cut.sum(p * g, axes)
+        den = cut.sum(p * p, axes).sqrt() * cut.sum(g * g, axes).sqrt() + 1e-8
         return (num / den).abs()
 
-    use_ch = cos(red).max() < ADAMP_DELTA / math.sqrt(dim_ch)
-    use_all = ~use_ch & (cos(tuple(range(p.ndim))) < ADAMP_DELTA / math.sqrt(p.numel()))
+    use_ch = cut.amax(cos(red), (axis,)) < ADAMP_DELTA / math.sqrt(dim_ch)
+    use_all = ~use_ch & (cos(tuple(range(p.ndim))) < ADAMP_DELTA / math.sqrt(math.prod(cut.shape)))
     return use_ch, use_all
 
 
@@ -433,7 +572,7 @@ class AdamP(_PerTensor):
             st["exp_avg_sq"] = torch.zeros_like(p)
         return st
 
-    def _update(self, p, g, st, group, t):
+    def _update(self, p, g, st, group, t, cut):
         m = st["exp_avg"]
         if group["sgd_momentum"] is not None:
             mom = group["sgd_momentum"]
@@ -449,12 +588,12 @@ class AdamP(_PerTensor):
             d = (b1 * m / c1 + (1 - b1) * g / c1) / denom
         ratio = 1.0
         if p.ndim >= 2:
-            axis = self.axes[p]
-            use_ch, use_all = adamp_fired(p, g, axis)
+            axis = self.axes[cut.param]
+            use_ch, use_all = adamp_fired(p, g, axis, cut)
 
             def projected(axes):
-                pn = p / ((p * p).sum(axes, keepdim=True).sqrt() + 1e-8)
-                return d - pn * (pn * d).sum(axes, keepdim=True)
+                pn = p / (cut.sum(p * p, axes, keepdim=True).sqrt() + 1e-8)
+                return d - pn * cut.sum(pn * d, axes, keepdim=True)
 
             red = tuple(i for i in range(p.ndim) if i != axis)
             d = torch.where(use_ch, projected(red),
@@ -637,19 +776,15 @@ def clip_grad_global_norm(params: Iterable[torch.Tensor], clip: Optional[float],
 
     The norm is that of the whole gradient on every placement: a gradient
     that is a shard (an FSDP2 DTensor, or a parameter that ``sharded`` maps
-    to its tensor-parallel group) contributes the sum of its shards' squares
-    over the group, and a replicated one counts once."""
-    import torch.distributed as dist
-    from torch.distributed.tensor import DTensor
-
+    to its tensor-parallel (group, dim); :func:`split`) contributes the sum
+    of its shards' squares over the group, and a replicated one counts
+    once."""
     grads, norms, shard_sq = [], [], {}
     for p in params:
-        g = p.grad
-        if g is None:
+        if p.grad is None:
             continue
-        group = (sharded or {}).get(p)
-        if isinstance(g, DTensor):
-            group, g = g.device_mesh.get_group(), g.to_local()
+        group = split(p, sharded)[1].group
+        g = split(p.grad)[0]
         grads.append(g)
         if group is None:
             norms.append(norm(g))

@@ -5,9 +5,9 @@ global-norm clip active, over 7 f32 steps (Lookahead syncs once) of one
 gradient sequence on a small ``ft_vit`` (width 128, so Adafactor factors
 its matrices) carried across by ``from_jax_params``; each tensor's
 displacement is gated at relative L2 <= 1e-5, and AdamP / SGDP's projection
-decisions must agree on every tensor. Also ``--bf16_moments`` (<= 1e-3),
-the names that raise, and a checkpoint round trip mid-run that continues
-bit-identically."""
+decisions must agree on every tensor. Also ``--bf16_moments`` (<= 1e-3)
+and the names that raise. The checkpoint round trips, on the same model and
+gradients, are test_torch_optim_resume.py's."""
 import functools
 import os
 import subprocess
@@ -246,39 +246,6 @@ def test_freeze_backbone_stays_adamw():
     for name in ("sgd", "lookahead_lamb", "adamp"):
         opt = optim.create_optimizer(tmodel, 1e-3, 0.05, opt=name, freeze_backbone=True)
         assert type(opt) is torch.optim.AdamW
-
-
-@pytest.mark.parametrize("name", NAMES + ["lookahead_adamp", "lookahead_sgd", "bf16_adamw"])
-def test_checkpoint_round_trip_continues_bit_identically(rng, name, tmp_path):
-    """3 steps, a checkpoint (the CLIs' .pth through utils.checkpoint), a new
-    model and optimizer from it, 4 more steps: bit-identical to 7 steps in
-    one run."""
-    from mem_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
-
-    dt = torch.bfloat16 if name.startswith("bf16_") else None
-    opt_name = name.removeprefix("bf16_")
-    variables = _variables(rng)
-    lr = _lr(opt_name)
-    grads = [_grads(rng, variables, t) for t in range(STEPS)]
-    whole, opt = _port(variables, opt_name, 0.75, dt)
-    for t in range(STEPS):
-        _port_step(whole, opt, grads[t], t, lr)
-    first, opt = _port(variables, opt_name, 0.75, dt)
-    for t in range(3):
-        _port_step(first, opt, grads[t], t, lr)
-    path = save_checkpoint(str(tmp_path), 2, {"model": first.state_dict(),
-                                              "optimizer": opt.state_dict(), "epoch": 2})
-    payload = load_checkpoint(path)
-    resumed, opt = _port(variables, opt_name, 0.75, dt)
-    resumed.load_state_dict(payload["model"], strict=True)
-    opt.load_state_dict(payload["optimizer"])
-    for t in range(3, STEPS):
-        _port_step(resumed, opt, grads[t], t, lr)
-    want = dict(whole.named_parameters())
-    for k, p in resumed.named_parameters():
-        assert torch.equal(p, want[k]), k
-    if dt is not None:
-        assert all(st["exp_avg"].dtype == dt for st in opt.state.values())
 
 
 def test_state_bytes_counts_bf16_moments_at_half():

@@ -1,6 +1,8 @@
 """The port's parallel/ package against the JAX package's: the spec rules
-(tp_param_specs, zero1_opt_specs, fsdp_specs pick the same dimensions on the
-same shapes), the refused placement combinations, the per-process batch and
+(tp_param_specs on pt_vit and on the MAE's and its classifier's ViT-B,
+zero1_opt_specs, fsdp_specs pick the same dimensions on the same shapes),
+the refused placement combinations (and every optimizer placed under FSDP
+and TP, as the JAX package places any), the per-process batch and
 the IMNET pipeline's shard of each epoch; and the five training and eval
 CLIs under two Gloo processes (one launch of the worker's ``cli`` mode:
 run_mem_pretraining with --fsdp 1, --zero1 1 (resuming a single-process
@@ -9,6 +11,7 @@ train_seg and test_seg), whose checkpoints are the single-process schema and
 resume in one process."""
 import json
 import os
+import warnings
 
 import numpy as np
 import pytest
@@ -72,6 +75,57 @@ def test_tp_param_specs_pick_the_reference_dims():
     assert n_sharded == 2 * 7    # qkv, q_bias, v_bias, proj, fc1 (w, b), fc2 a block
 
 
+def _tagged_tiny(shapes, specs):
+    """A (2,)*ndim leaf per flax leaf, varying only along the dim its spec
+    puts on "model": the names and layouts of the full model without its
+    memory."""
+    from jax.sharding import PartitionSpec as P
+
+    def tag(leaf, spec):
+        dims = [i for i, a in enumerate(tuple(spec)) if a == "model"]
+        shape = (2,) * len(leaf.shape)
+        if not dims:
+            return np.zeros(shape, np.float32)
+        return np.broadcast_to(np.arange(2, dtype=np.float32).reshape(
+            [-1 if i == dims[0] else 1 for i in range(len(shape))]), shape).copy()
+
+    return jax.tree.map(tag, shapes, specs, is_leaf=lambda x: isinstance(x, P))
+
+
+@pytest.mark.parametrize("which", ["mae_vit_base_patch16_dec512d8b", "vit_base_patch16"])
+def test_tp_param_specs_pick_the_reference_dims_on_the_mae(which):
+    """The reference's rule on the MAE's names (its _TimmBlock has no
+    ``attn`` scope: every block's fc1 cut on its output dim and fc2 on its
+    input dim, qkv and proj whole), on the full ViT-B MAE (a 512-wide,
+    8-block decoder) and its finetune classifier: carried into the port's
+    names and layouts by the MAE converters, the dim the JAX spec shards is
+    the one the port's spec shards, for every parameter of the port's
+    model."""
+    from mem_tpu.models.registry import create_model as jax_create
+    from mem_tpu.parallel.mesh import tp_param_specs as jax_specs
+    from mem_tpu_torch.models.registry import create_model
+    from mem_tpu_torch.parallel.mesh import tp_param_specs
+    from mem_tpu_torch.utils.weights import mae_classifier_from_jax_params, mae_from_jax_params
+
+    fmodel = jax_create(which, dtype=jnp.float32)
+    rngs = {"params": jax.random.key(0), "mask": jax.random.key(1)}
+    shapes = jax.eval_shape(fmodel.init, rngs if which.startswith("mae") else rngs["params"],
+                            jnp.zeros((1, 224, 224, 3)))
+    convert = mae_from_jax_params if which.startswith("mae") else mae_classifier_from_jax_params
+    port = convert(_tagged_tiny(shapes, jax_specs(shapes)))
+    tmodel = create_model(which, device="meta")
+    assert set(port) == {k for k, _ in tmodel.named_parameters()}
+    got = tp_param_specs(port)
+    n_sharded = 0
+    for name, t in port.items():
+        want = _varying_dims(t.numpy())
+        mine = [i for i, a in enumerate(got[name]) if a == "model"]
+        assert mine == want, (name, mine, want)
+        n_sharded += bool(mine)
+        assert not mine or name.rsplit(".", 2)[-2] in ("fc1", "fc2"), name
+    assert n_sharded == 3 * (20 if which.startswith("mae") else 12)   # fc1 (w, b), fc2 a block
+
+
 def _shape_tree():
     """The pt_vit params, an Adam-like state over them, odd shapes and a
     scalar: the leaves the rules see in the reference."""
@@ -103,13 +157,22 @@ def test_data_spec_rules_match_the_reference(rule, n):
 
 def test_place_train_state_rejects_the_reference_combinations():
     """The modes are exclusive (ValueError "placement mode", as
-    place_train_state in the JAX package); the per-tensor optimizers are
-    refused under FSDP and TP with an error that names them."""
+    place_train_state in the JAX package) and --tp needs a process group;
+    nothing else is refused: every --opt, with and without ``lookahead_``,
+    places under FSDP and under TP (on a world-size-1 Gloo group here; the
+    two-rank updates are test_torch_multiprocess.py's), and --MAE 1 takes
+    --tp, as the JAX package places any optimizer state on any mesh."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
     from mem_tpu.parallel import get_mesh
     from mem_tpu.parallel.mesh import place_train_state as jax_place
+    from mem_tpu_torch.cli import run_mem_pretraining as R
     from mem_tpu_torch.models.registry import create_model
-    from mem_tpu_torch.parallel.mesh import check_optimizer, place_train_state
-    from mem_tpu_torch.train.optim import create_optimizer
+    from mem_tpu_torch.parallel import mesh as port_mesh
+    from mem_tpu_torch.parallel.mesh import place_tensor_parallel, place_train_state
+    from mem_tpu_torch.tools.mp_worker import free_port
+    from mem_tpu_torch.train.optim import OPTIMIZERS, create_optimizer
 
     w = {"w": jnp.zeros((8, 8), jnp.float32)}
     model = create_model("pt_vit", img_size=(32, 32), patch_size=(8, 8), embed_dim=32, depth=1,
@@ -122,13 +185,28 @@ def test_place_train_state_rejects_the_reference_combinations():
             place_train_state(model, opt, None, **kw)
     with pytest.raises(ValueError, match="process group"):
         place_train_state(model, opt, None, tp=2)
-    for name in ("adafactor", "adamp", "novograd", "lookahead_adamw"):
-        with pytest.raises(ValueError, match=name.split("_")[0]):
-            check_optimizer(create_optimizer(model, 1e-3, 0.05, opt=name), 1, True)
-    with pytest.raises(ValueError, match="lamb"):
-        check_optimizer(create_optimizer(model, 1e-3, 0.05, opt="lamb"), 2, False)
-    check_optimizer(create_optimizer(model, 1e-3, 0.05, opt="lamb"), 1, True)
     assert place_train_state(model, opt, None).mode == "single"
+    assert not hasattr(port_mesh, "check_optimizer")
+    R.check_ported(R.get_args(["--MAE", "1", "--tp", "2"]))
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        names = list(OPTIMIZERS) + [f"lookahead_{n}" for n in OPTIMIZERS]
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            for name in names:
+                for kind in ("fsdp", "tp"):
+                    model = create_model("pt_vit", img_size=(32, 32), patch_size=(8, 8),
+                                         embed_dim=32, depth=1, num_heads=2, vocab_size=32)
+                    opt = create_optimizer(model, 1e-3, 0.05, opt=name)
+                    if kind == "fsdp":
+                        placed = place_train_state(model, opt, port_mesh.get_mesh(), fsdp=True)
+                    else:
+                        placed = place_tensor_parallel(model, opt, init_device_mesh(
+                            "cpu", (1, 1), mesh_dim_names=("data", "model")))
+                    assert placed.mode == kind, (name, kind)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_one_process_batch_and_mesh():
@@ -206,6 +284,8 @@ def _write_seg_data(root):
             Image.fromarray(lab).save(root / "anns" / split / "seq0" / f"{i:06d}.png")
 
 
+_MAE_FLAGS = ["--MAE", "1", "--mae_decoder_emb", "16", "--mae_decoder_depth", "1",
+              "--mae_decoder_heads", "2"]
 _EV = ["--device", "cpu", "--input_H", "32", "--input_W", "32", "--num_layers", "2",
        "--batch_size", "4", "--num_workers", "0", "--max_random_shift_evs", "2",
        "--slice_max_evs", "1500", "--save_ckpt_freq", "1"]
@@ -247,6 +327,8 @@ def cli_run(tmp_path_factory):
                                                                           "--epochs", "2"]],
         "pt_tp": ["run_mem_pretraining", _pt_flags(tmp, "pt_tp") + ["--tp", "2",
                                                                     "--epochs", "1"]],
+        "pt_mae_tp": ["run_mem_pretraining", _pt_flags(tmp, "pt_mae_tp") + _MAE_FLAGS + [
+            "--tp", "2", "--opt", "lookahead_adafactor", "--epochs", "1"]],
         "ft_zero1": ["run_class_finetuning", [
             "--config", os.path.join(REPO, "configs", "ncaltech.conf"), "--data_path",
             str(tmp / "ncaltech101"), "--finetune", str(tmp / "pt_zero1" / "checkpoint-0.pth"),
@@ -277,10 +359,10 @@ def cli_run(tmp_path_factory):
     return tmp, plan, done, [log for _, log in outs]
 
 
-def _single_model_keys(tmp):
+def _single_model_keys(tmp, extra=()):
     from mem_tpu_torch.cli import run_mem_pretraining as R
 
-    args = R.get_args(_pt_flags(tmp, "x"))
+    args = R.get_args(_pt_flags(tmp, "x") + list(extra))
     m = R.build_model(args, torch.float32, torch.device("cpu"))
     return {k: tuple(v.shape) for k, v in m.state_dict().items()}
 
@@ -301,6 +383,27 @@ def test_two_process_pretraining_writes_the_single_process_schema(cli_run, run):
     shapes = sorted(tuple(s["exp_avg"].shape) for s in state.values())
     assert shapes == sorted(want[k] for k in want if "running_" not in k)
     assert any("samples/sec" in log and "/gpu)" in log for log in logs)
+
+
+def test_two_process_mae_tp_writes_the_single_process_schema(cli_run):
+    """run_mem_pretraining --MAE 1 --tp 2 (each rank half of every timm
+    block's MLP hidden columns) with Lookahead over Adafactor: rank 0's
+    checkpoint holds the single-process MAE state_dict, the whole moments
+    and the whole slow weights, and resumes in one process."""
+    from mem_tpu_torch.cli import run_mem_pretraining as R
+
+    tmp, _, done, _ = cli_run
+    assert "pt_mae_tp" in done
+    payload = torch.load(tmp / "pt_mae_tp" / "checkpoint-final.pth", weights_only=True)
+    want = _single_model_keys(tmp, _MAE_FLAGS)
+    assert {k: tuple(v.shape) for k, v in payload["model"].items()} == want
+    opt = payload["optimizer"]
+    assert sorted(tuple(s.shape) for s in opt["lookahead_slow"]) == sorted(want.values())
+    assert sorted(tuple(s["v"].shape) for s in opt["inner"]["state"].values()) == sorted(
+        want.values())
+    hist = R.main(_pt_flags(tmp, "pt_mae_tp") + _MAE_FLAGS + ["--opt", "lookahead_adafactor",
+                                                              "--epochs", "2"])
+    assert [h[0] for h in hist] == [3, 4, 5] and all(np.isfinite(h[1]) for h in hist)
 
 
 def test_fsdp_checkpoint_resumes_in_one_process(cli_run):
