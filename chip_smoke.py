@@ -148,6 +148,18 @@ pretraining -> finetune, pruned to final / best / latest), whose conf's
 profile_dir and log_dir make the pretraining stage trace its third step (K1
 once, K2f and K2b 12 times by kernel name) and write TensorBoard files.
 
+The trajectory check (run_trajectory_card, on a generator of its own, while
+the pipeline script's processes run): parity_bf16_drift.py's method with the
+port alone (mem_tpu_torch/tools/trajectory.py drift_arms), 192 steps of
+full-width pt_vit cut to depth 4 (B=32, the conf's f32 tokenizer, 64
+class-structured samples) as an f32 oracle on the plain attention path, an
+f32 arm and a bf16 arm through K1, K2f and K2b, and an f32 arm from a
+redrawn init: the bf16 arm's largest windowed loss gap from the oracle must
+be within the redrawn arm's and its final window within 5 %, the f32 arm's
+gap below the redrawn arm's, the launches exact, and a planted fault on the
+bf16 path (K2b's bias held from its first launch, whose first step is
+exact) must fail the check.
+
 Multi-GPU training (run_parallel_slice, last, in processes of its own:
 mem_tpu_torch/tools/mp_worker.py's chip modes, tools/mp_chip.py): a
 world-size-1 NCCL group runs three full-width pretraining steps (pt_vit
@@ -904,13 +916,16 @@ def run(torch):
         imnet_tmp.cleanup()
 
     # -- W8A8 int8 serving, the sinks and the pipeline script (its own
-    #    generator) ----------------------------------------------------------
-    int8_tmp = tempfile.TemporaryDirectory()
+    #    generator); the trajectory check (its own generator) runs while the
+    #    pipeline script's processes do ----------------------------------------
+    int8_tmp, traj_tmp, traj = tempfile.TemporaryDirectory(), tempfile.TemporaryDirectory(), {}
     try:
-        run_int8_slice(torch, dev, gpu, int8_tmp.name)
+        run_int8_slice(torch, dev, gpu, int8_tmp.name, lambda: traj.update(
+            run_trajectory_card(torch, dev, gpu, traj_tmp.name)))
     finally:
         signal.signal(signal.SIGTERM, signal.SIG_DFL)   # the CLIs latched SIGTERM
         int8_tmp.cleanup()
+        traj_tmp.cleanup()
 
     # -- multi-GPU training (processes of its own) ---------------------------
     par_tmp = tempfile.TemporaryDirectory()
@@ -926,6 +941,8 @@ def run(torch):
                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms}
         if name in par:   # the parallel paths' launches (their ranks' main paths)
             out["parallel_launches"] = par[name]
+        if name in traj:  # the trajectory phase's arms
+            out["trajectory_launches"] = traj[name]
         return out
 
     # launches: K1, K2f, K2b from the pretraining CLI's run, K3f and K4 from
@@ -6437,11 +6454,12 @@ def time_int8(torch, dev, gpu, fw):
     return out
 
 
-def run_int8_slice(torch, dev, gpu, tmp_root):
+def run_int8_slice(torch, dev, gpu, tmp_root, beside_pipeline=None):
     """W8A8 serving on the card, its inputs drawn from a generator of its
     own: the int8 pieces, the forwards, the CLIs, the timings; the pipeline
-    script runs in processes of its own beside the checks (not beside the
-    timings). Returns the CLIs' launch counts."""
+    script runs in processes of its own beside the checks and
+    ``beside_pipeline()`` (not beside the timings). Returns the CLIs' launch
+    counts."""
     rng = np.random.default_rng(22)
     g = torch.Generator().manual_seed(22)
     t = [time.perf_counter()]
@@ -6454,11 +6472,14 @@ def run_int8_slice(torch, dev, gpu, tmp_root):
     t.append(time.perf_counter())
     counts = run_int8_clis(torch, data_root, seg_root, paths, fw)
     t.append(time.perf_counter())
+    if beside_pipeline is not None:
+        beside_pipeline()
+    t.append(time.perf_counter())
     finish_pipeline_script(torch, *pipeline)
     t.append(time.perf_counter())
     time_int8(torch, dev, gpu, fw)
     t.append(time.perf_counter())
-    names = ("inputs", "ops", "forwards", "clis", "pipeline_wait", "timings")
+    names = ("inputs", "ops", "forwards", "clis", "beside_pipeline", "pipeline_wait", "timings")
     say("int8_slice", seconds={n: round(b - a, 2) for n, a, b in zip(names, t, t[1:])})
     return counts
 
@@ -6575,6 +6596,97 @@ def finish_pipeline_script(torch, proc, t0, expdir):
     check("device cuda" in out, "the pipeline's stages did not run on the card")
     check_pretrain_sinks(torch, os.path.join(expdir, "profile"), os.path.join(expdir, "tb"),
                          device_memory_stats())
+
+
+# the trajectory check on the card (run_trajectory_card; the model, data and
+# tokenizer: mem_tpu_torch/tools/trajectory.py CARD_GEO, CARD_VAE, drift_inputs)
+TRAJ_STEPS = 192         # the loss plateaus by step ~64; 192 fit the phase in ~75 s
+TRAJ_WINDOW = 32         # 6 windows of the run (parity_bf16_drift.py: 10 of 50 over 512)
+TRAJ_WARMUP = 10         # the drift harness's warmup steps
+TRAJ_FINAL_REL = 0.05    # B's final-window loss against the oracle's
+TRAJ_LOSS_FALL = 1.0     # nats the oracle's masked loss must fall, first step to last window
+
+
+def run_trajectory_card(torch, dev, gpu, tmp_root):
+    """parity_bf16_drift.py's method with the port alone
+    (mem_tpu_torch/tools/trajectory.py ``drift_arms``: run_pretrain over
+    make_pretrain_train_step, create_optimizer, cosine_scheduler, the port's
+    iterator, preprocess_batch and the CLIs' prefetch): pt_vit at full width
+    cut to depth 4, B=32, the conf's f32 tokenizer, on a seeded set of 64
+    class-structured samples from this phase's own generator; every arm
+    takes the same host batches, draws and masks. The oracle: f32 with TF32
+    off, every block's attention on the plain einsum path; A: f32 through
+    the kernels (K2's scalar kernels); B: bf16 through K1, K2f and K2b on
+    K3's Hopper bodies; C: the oracle's stack from a redrawn init (the
+    run-to-run yardstick). B's largest windowed loss gap from the oracle
+    must be within C's and its final-window loss within 5 % of the
+    oracle's, A's gap below C's; the launches of K1 (once a step), K2f and
+    K2b (once a block a step on the kernel arms, never on the plain ones)
+    exact. The planted fault (trajectory_faults.bias_held_from_first_launch)
+    on B's path must fail the check; its first step against the oracle's
+    (the plain f32 step) is printed beside B's and the gates of
+    check_train_step. It runs while run-pipeline-torch.sh's processes share
+    the card (run_int8_slice), so its ms per step read that. Returns
+    {kernel: {arm: launches}}."""
+    from mem_tpu_torch.tools import trajectory as T
+    from mem_tpu_torch.tools.trajectory_faults import bias_held_from_first_launch
+
+    t0 = time.perf_counter()
+    geo = T.CARD_GEO
+    data, tokenizer, inits = T.drift_inputs(tmp_root, np.random.default_rng(25), geo,
+                                            T.CARD_VAE)
+    res = T.drift_arms(data, tokenizer, inits, dev, TRAJ_STEPS, TRAJ_WARMUP,
+                       {"fault": bias_held_from_first_launch}, geo)
+    runs, one_step = res["runs"], res["one_step"]
+    env = {k: T.drift_envelope(runs["oracle"]["loss"], runs["A"]["loss"], runs[k]["loss"],
+                               runs["C"]["loss"], TRAJ_WINDOW, TRAJ_FINAL_REL)
+           for k in ("B", "fault")}
+    w = TRAJ_WINDOW
+    oracle = np.asarray(runs["oracle"]["loss"])
+    fall = float(oracle[0] - oracle[-w:].mean())
+    say("trajectory_card", gpu=gpu, model="pt_vit", embed_dim=geo.dim, heads=geo.heads,
+        patch=geo.patch, img=geo.img, vocab=geo.vocab, depth=geo.depth,
+        cut=f"depth 12 -> {geo.depth}", tokenizer="the conf's f32 VAE", batch=geo.batch,
+        steps=TRAJ_STEPS, window=w, warmup=TRAJ_WARMUP, samples=64,
+        loss_fall=fall, min_fall=TRAJ_LOSS_FALL,
+        windowed_gap={"A": env["B"]["same_windowed_rel_dev"],
+                      "B": env["B"]["low_windowed_rel_dev"],
+                      "C": env["B"]["redrawn_windowed_rel_dev"],
+                      "fault": env["fault"]["low_windowed_rel_dev"]},
+        max_windowed_gap={"A": env["B"]["max_windowed_rel_dev_same"],
+                          "B": env["B"]["max_windowed_rel_dev_low"],
+                          "C": env["B"]["seed_run_to_run_dev"],
+                          "fault": env["fault"]["max_windowed_rel_dev_low"]},
+        final_window_loss={"oracle": env["B"]["oracle_final_window_loss"],
+                           "A": env["B"]["same_final_window_loss"],
+                           "B": env["B"]["low_final_window_loss"],
+                           "C": env["B"]["redrawn_final_window_loss"],
+                           "fault": env["fault"]["low_final_window_loss"]},
+        final_rel={"B": env["B"]["final_rel_dev_low"],
+                   "fault": env["fault"]["final_rel_dev_low"]}, final_bound=TRAJ_FINAL_REL,
+        A_onset=env["B"]["same_onset"],
+        ms_per_step={k: r["ms_per_step"] for k, r in runs.items()},
+        launches={k: r["launches"] for k, r in runs.items()},
+        fault="K2b's bias held from its first launch", one_step=one_step,
+        one_step_bounds=dict(loss=STEP_BF16_LOSS_REL, grad=STEP_BF16_GRAD_REL),
+        fault_passes=bool(env["fault"]["pass_envelope"] and env["fault"]["pass_final"]),
+        seconds=round(time.perf_counter() - t0, 1))
+    check(fall >= TRAJ_LOSS_FALL, f"the oracle's masked loss fell {fall} < {TRAJ_LOSS_FALL}")
+    for k, r in runs.items():
+        kernels = TRAJ_STEPS * geo.depth if k in ("A", "B", "fault") else 0
+        want = {"hist_planes_cols": TRAJ_STEPS, "fused_attention_flat": kernels,
+                "fused_attention_flat_bwd": kernels}
+        check(r["launches"] == want, f"trajectory arm {k} launched {r['launches']}, not {want}")
+    check(env["B"]["pass_envelope"], "bf16 arm B's windowed gap "
+          f"{env['B']['max_windowed_rel_dev_low']} > arm C's {env['B']['seed_run_to_run_dev']}")
+    check(env["B"]["pass_final"], f"bf16 arm B's final-window loss is "
+          f"{env['B']['final_rel_dev_low']} off the oracle's")
+    check(env["B"]["max_windowed_rel_dev_same"] < env["B"]["seed_run_to_run_dev"],
+          f"f32 arm A's windowed gap {env['B']['max_windowed_rel_dev_same']} >= arm C's")
+    check(not (env["fault"]["pass_envelope"] and env["fault"]["pass_final"]),
+          f"the trajectory check passed the planted fault: {env['fault']}")
+    torch.cuda.empty_cache()
+    return {k: {arm: r["launches"][k] for arm, r in runs.items()} for k in T.DRIFT_KERNELS}
 
 
 PAR_KERNELS = {   # kernel -> the parallel runs whose launches it counts

@@ -57,15 +57,26 @@ ADAMP_LR, ADAMP_WD = 1e-2, 0.05
 
 
 def _env():
-    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     env.pop("JAX_PLATFORMS", None)
     return env
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread here and in each rank: the tensors are small, and
+    idle threads only spin against the other test workers."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def _launch(mode, workdir):
     from mem_tpu_torch.tools import mp_worker
 
-    outs = mp_worker.launch(mode, str(workdir), 2, env=_env(), timeout=300, cwd=REPO)
+    outs = mp_worker.launch(mode, str(workdir), 2, args=("threads=1",), env=_env(),
+                            timeout=300, cwd=REPO)
     for rank, (code, out) in enumerate(outs):
         assert code == 0, f"{mode} rank {rank} exit {code}\n{out[-4000:]}"
 

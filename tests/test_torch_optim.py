@@ -49,6 +49,17 @@ CASES = ([(n, ld) for n in NAMES for ld in (None, 0.75)]
          + [("Lookahead_AdamP", 0.75), ("fusedLAMB", 0.75)])
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side on one thread: the tensors are small, and the idle
+    threads of a multi-threaded update only spin against the other test
+    workers."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _lr(name):
     base = BASE_LR.get(optim.resolve_name(name)[0], 1e-2)
     return cosine_scheduler(base, base / 10, 1, STEPS, warmup_steps=2,
@@ -110,15 +121,21 @@ def _port_step(tmodel, opt, grads, t, lr):
     opt.step()
 
 
+@jax.jit
+def _fired_tree(params, grads):
+    factor = jnp.minimum(1.0, CLIP / (jax_optim.grad_global_norm(grads) + 1e-6))
+    return jax.tree.map(lambda p, g: jax_optim._adamp_project(p, g * factor,
+                                                              jnp.zeros_like(p))[1],
+                        params, grads)
+
+
 def _fired_jax(params, grads):
     """The JAX package's projection decision for every tensor (it depends on
-    the weight and the clipped gradient only), in the port's names."""
-    gn = float(jax_optim.grad_global_norm(grads))
-    factor = min(1.0, CLIP / (gn + 1e-6))
-    fired = jax.tree.map(lambda p, g: np.full(p.shape, float(jax_optim._adamp_project(
-        jnp.asarray(p), jnp.asarray(g) * factor, jnp.zeros_like(p))[1]), np.float32),
-        params, grads)
-    return {k: float(v.flatten()[0]) for k, v in from_jax_params(fired).items()}
+    the weight and the clipped gradient only), in the port's names; one
+    jitted call for the whole tree."""
+    fired = jax.device_get(_fired_tree(params, grads))
+    return {k: float(v.flatten()[0]) for k, v in from_jax_params(jax.tree.map(
+        lambda p, f: np.full(np.shape(p), float(f), np.float32), params, fired)).items()}
 
 
 def _run_both(rng, name, layer_decay, moment_dtype=None):
