@@ -160,6 +160,19 @@ gap below the redrawn arm's, the launches exact, and a planted fault on the
 bf16 path (K2b's bias held from its first launch, whose first step is
 exact) must fail the check.
 
+The resilience slice (run_resilience_slice, on a generator of its own,
+before the multi-GPU slice): resume_card runs full-width pt_vit (bf16, the
+conf's f32 tokenizer, B=64, 3 epochs of 2 steps) as CLI processes under
+scripts/run_resilient.sh through mem_tpu_torch/tools/resume.py, straight and
+recycled at every epoch boundary (--rss_restart_gb): every step's loss and
+the final weights and AdamW state must be bit-equal, a planted resume that
+drops the optimizer state must fail that, and a SIGTERM one second into a
+fresh CLI process (during its setup) must end in exit 0 and a checkpoint;
+beside it, soak_card runs mem_tpu_torch/tools/soak.py cut to 1.5 minutes and
+64 files a class (SIGTERMs, RSS recycles, auto-resumes) held to the soak's
+own gates. The K1 / K2f / K2b rows carry both phases' launches as
+``resilience_launches``.
+
 Multi-GPU training (run_parallel_slice, last, in processes of its own:
 mem_tpu_torch/tools/mp_worker.py's chip modes, tools/mp_chip.py): a
 world-size-1 NCCL group runs three full-width pretraining steps (pt_vit
@@ -927,6 +940,14 @@ def run(torch):
         int8_tmp.cleanup()
         traj_tmp.cleanup()
 
+    # -- the resilience slice: the pretraining CLI recycled, preempted and
+    #    resumed (its own generator; soak_card in processes of its own) ------
+    res_tmp = tempfile.TemporaryDirectory()
+    try:
+        resilience = run_resilience_slice(torch, gpu, res_tmp.name)
+    finally:
+        res_tmp.cleanup()
+
     # -- multi-GPU training (processes of its own) ---------------------------
     par_tmp = tempfile.TemporaryDirectory()
     try:
@@ -943,6 +964,8 @@ def run(torch):
             out["parallel_launches"] = par[name]
         if name in traj:  # the trajectory phase's arms
             out["trajectory_launches"] = traj[name]
+        if name in resilience:  # resume_card's gated arms, soak_card's trainers
+            out["resilience_launches"] = resilience[name]
         return out
 
     # launches: K1, K2f, K2b from the pretraining CLI's run, K3f and K4 from
@@ -6687,6 +6710,214 @@ def run_trajectory_card(torch, dev, gpu, tmp_root):
           f"the trajectory check passed the planted fault: {env['fault']}")
     torch.cuda.empty_cache()
     return {k: {arm: r["launches"][k] for arm, r in runs.items()} for k in T.DRIFT_KERNELS}
+
+
+# the resilience slice (run_resilience_slice): resume_card, and soak_card beside it
+RESUME_KERNELS = ("hist_planes_cols", "fused_attention_flat", "fused_attention_flat_bwd")
+RESUME_BATCH = 64        # 2 steps an epoch over the N_TRAIN_FILES synthetic recordings
+RESUME_EPOCHS = 3        # recycled at both inner boundaries: three processes
+RESUME_SETUP_SIGTERM_S = 1.0   # the setup-time SIGTERM, seconds after the launch
+SOAK_CARD_MINUTES = 1.5  # tools/soak.py cut to fit the phase: --minutes 1.5 (its default 90),
+SOAK_CARD_FILES = 64     # 64 training files a class (384): one B=128 step an epoch
+
+
+def _resume_arm(tmp_root, flags, tag, recycle=False, plant=None, processes=None):
+    """One resume_card arm: the pretraining CLI through tools/resume.py under
+    scripts/run_resilient.sh, or, given ``processes``, that many recycling
+    processes one after the other without it; returns (its record lines,
+    the last run, its output directory)."""
+    import subprocess
+
+    from mem_tpu_torch.tools.resume import read_records
+
+    record = os.path.join(tmp_root, f"{tag}.jsonl")
+    out = os.path.join(tmp_root, tag)
+    trainer = [sys.executable, "-m", "mem_tpu_torch.tools.resume", record, "run_mem_pretraining",
+               *(["--plant", plant] if plant else []), *flags, "--output_dir", out,
+               *(["--rss_restart_gb", "0.001"] if recycle else [])]
+    env = dict(os.environ, PYTHONPATH=os.getcwd())
+    for _ in range(processes or 1):
+        cmd = trainer if processes else ["bash", "scripts/run_resilient.sh", *trainer]
+        r = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=900)
+    return read_records(record), r, out
+
+
+def run_resume_card(torch, gpu, tmp_root):
+    """resume_card: full-width pt_vit (768 / 12 heads / 224^2, vocab 8192) in
+    bf16 on its own write_training_inputs (generator default_rng(26); the
+    conf's f32 tokenizer), B=64, 3 epochs of 2 steps, each arm a CLI process
+    (or three) under scripts/run_resilient.sh: straight, and recycled at
+    every epoch boundary (--rss_restart_gb 0.001). Every step's loss and the
+    final checkpoint (weights, AdamW state) must be bit-equal. The planted
+    no-optimizer-state resume (tools/resume.py FAULTS), run to its second
+    process, must fail that gate on its losses and its epoch-1 weights.
+    The recycled and the fault arm run side by side. Beside the arms, a
+    SIGTERM RESUME_SETUP_SIGTERM_S into a fresh CLI process (torch's import,
+    the card's initialisation, the kernel library's load) must end in exit 0
+    and a checkpoint. Returns the launches of the two gated arms."""
+    import subprocess
+
+    from mem_tpu_torch.tools.resume import state_diffs
+    from mem_tpu_torch.utils.checkpoint import load_checkpoint
+
+    t = [time.perf_counter()]
+    data_root, vae_path = write_training_inputs(torch, tmp_root, np.random.default_rng(26))
+    flags = ["--config", "configs/ncaltech.conf", "--data_path", data_root,
+             "--discrete_vae_weight_path", vae_path, "--num_workers", "4",
+             "--batch_size", str(RESUME_BATCH), "--epochs", str(RESUME_EPOCHS),
+             "--save_ckpt_freq", "1", "--warmup_steps", "2", "--device", "cuda",
+             "--disable_eval_during_pretraining"]
+    t.append(time.perf_counter())
+
+    # the setup-time SIGTERM, beside the arms: the plain CLI, as a user runs it
+    setup_out = os.path.join(tmp_root, "setup_sigterm")
+    p = subprocess.Popen([sys.executable, "-m", "mem_tpu_torch.cli.run_mem_pretraining",
+                          *flags, "--output_dir", setup_out],
+                         env=dict(os.environ, PYTHONPATH=os.getcwd(), PYTHONUNBUFFERED="1"),
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    pool = ThreadPoolExecutor(1)
+    setup_run = pool.submit(lambda: (p.communicate(timeout=600)[0], time.perf_counter()))
+    time.sleep(RESUME_SETUP_SIGTERM_S)
+    t_sig = time.perf_counter()
+    p.send_signal(signal.SIGTERM)
+
+    def arm(tag, recycle=False, plant=None, processes=None):
+        recs, r, out = _resume_arm(tmp_root, flags, tag, recycle, plant, processes)
+        check(r.returncode == (3 if processes else 0),
+              f"resume_card {tag}: exit {r.returncode}\n{(r.stdout + r.stderr)[-2000:]}")
+        last = "1" if processes else "final"
+        return dict(
+            exits=[x["exit"] for x in recs], steps=[s for x in recs for s in x["steps"]],
+            launches={k: sum(x["launches"].get(k, 0) for x in recs) for k in RESUME_KERNELS},
+            epoch1=load_checkpoint(os.path.join(out, "checkpoint-1.pth"))["model"],
+            final=load_checkpoint(os.path.join(out, f"checkpoint-{last}.pth")),
+            resumes=re.findall(r"Auto-resumed from \S+ \(epoch (\d+)\)", r.stdout))
+
+    # the arms: straight, then recycled and the fault side by side (the
+    # fault's only to its second process, where it shows)
+    arms = {"straight": arm("straight")}
+    t.append(time.perf_counter())
+    with ThreadPoolExecutor(2) as side:
+        recycled = side.submit(arm, "recycled", True)
+        fault = side.submit(arm, "fault", True, "no_optimizer_state", 2)
+        arms.update(recycled=recycled.result(), fault=fault.result())
+    t.append(time.perf_counter())
+    text, t_exit = setup_run.result()
+    pool.shutdown()
+    setup_ckpts = sorted(os.listdir(setup_out)) if os.path.isdir(setup_out) else []
+    t.append(time.perf_counter())
+    straight, recycled, fault = arms["straight"], arms["recycled"], arms["fault"]
+    diffs = state_diffs(straight["final"], recycled["final"])
+    fault_diffs = state_diffs(straight["epoch1"], fault["epoch1"])
+    equal_steps = recycled["steps"] == straight["steps"]
+    fault_steps = [i for i, (a, b) in enumerate(zip(straight["steps"], fault["steps"]))
+                   if a != b]
+    steps_per = RESUME_EPOCHS * (N_TRAIN_FILES // RESUME_BATCH)
+    say("resume_card", gpu=gpu, model="pt_vit", embed_dim=768, depth=12, heads=12,
+        img=224, vocab=8192, dtype="bfloat16", batch=RESUME_BATCH, epochs=RESUME_EPOCHS,
+        steps=steps_per, exits={k: a["exits"] for k, a in arms.items()},
+        resumes={k: a["resumes"] for k, a in arms.items()},
+        losses_straight=[v for _, v in straight["steps"]],
+        losses_bit_equal=equal_steps, final_state_diffs=diffs[:10],
+        fault="no_optimizer_state", fault_steps_differing=fault_steps,
+        fault_state_diffs=len(fault_diffs),
+        launches={k: a["launches"] for k, a in arms.items()},
+        setup_sigterm=dict(after_s=RESUME_SETUP_SIGTERM_S, rc=p.returncode,
+                           sigterm_to_exit_s=round(t_exit - t_sig, 2),
+                           preempted=re.findall(r"preempted at epoch \d+", text),
+                           checkpoints=setup_ckpts, tail=None if p.returncode == 0
+                           else text[-1500:]),
+        seconds={n: round(b - a, 2) for n, a, b in zip(
+            ("inputs", "straight", "recycled_and_fault", "setup_sigterm_wait"), t, t[1:])})
+    check(straight["exits"] == [0] and recycled["exits"] == [3, 3, 0],
+          f"resume_card exits {straight['exits']} / {recycled['exits']}")
+    check(recycled["resumes"] == ["1", "2"], f"resume_card resumes {recycled['resumes']}")
+    check([s for s, _ in straight["steps"]] == list(range(steps_per))
+          and all(np.isfinite(v) for _, v in straight["steps"]),
+          f"resume_card straight steps {straight['steps']}")
+    check(equal_steps, f"recycled losses {recycled['steps']} != straight {straight['steps']}")
+    check(not diffs, f"recycled final state differs from straight: {diffs[:10]}")
+    check(fault["exits"] == [3, 3] and fault["resumes"] == ["1"],
+          f"resume_card fault arm exits {fault['exits']}, resumes {fault['resumes']}")
+    check(bool(fault_steps) and bool(fault_diffs),
+          "the planted no-optimizer-state resume passed the exact-resume gate")
+    want = {"hist_planes_cols": steps_per, "fused_attention_flat": 12 * steps_per,
+            "fused_attention_flat_bwd": 12 * steps_per}
+    for tag in ("straight", "recycled"):
+        check(arms[tag]["launches"] == want,
+              f"resume_card {tag} launched {arms[tag]['launches']}, not {want}")
+    check(p.returncode == 0 and "preempted at epoch 0: checkpoint saved" in text
+          and setup_ckpts == ["checkpoint-0.pth"],
+          f"the setup-time SIGTERM: exit {p.returncode}, {setup_ckpts}\n{text[-1500:]}")
+    return {k: {tag: arms[tag]["launches"][k] for tag in ("straight", "recycled")}
+            for k in RESUME_KERNELS}
+
+
+def start_soak_card(tmp_root):
+    """soak_card: tools/soak.py cut to fit (SOAK_CARD_MINUTES,
+    SOAK_CARD_FILES), its trainers through tools/resume.py for their launch
+    counts, in processes of its own."""
+    import subprocess
+
+    work = os.path.join(tmp_root, "soak")
+    os.makedirs(work, exist_ok=True)
+    log = open(os.path.join(work, "soak_output.log"), "w")
+    proc = subprocess.Popen([sys.executable, "-m", "mem_tpu_torch.tools.soak", "--minutes",
+                             str(SOAK_CARD_MINUTES), "--files_per_class", str(SOAK_CARD_FILES),
+                             "--workdir", work, "--record", os.path.join(work, "record.jsonl")],
+                            env=dict(os.environ, PYTHONPATH=os.getcwd()), stdout=log,
+                            stderr=subprocess.STDOUT)
+    return proc, log, work, time.perf_counter()
+
+
+def finish_soak_card(gpu, proc, log, work, t0):
+    """Wait for the soak (600 s at most) and hold it to its own gates."""
+    from mem_tpu_torch.tools.resume import read_records
+
+    try:
+        rc = proc.wait(timeout=max(1.0, 600 - (time.perf_counter() - t0)))
+    finally:
+        if proc.poll() is None:
+            proc.terminate()
+            proc.wait()
+        log.close()
+    seconds = time.perf_counter() - t0
+    path = os.path.join(work, "soak.json")
+    r = json.load(open(path)) if os.path.exists(path) else {}
+    recs = read_records(os.path.join(work, "record.jsonl"))
+    launches = {k: sum(x["launches"].get(k, 0) for x in recs) for k in RESUME_KERNELS}
+    with open(os.path.join(work, "soak_output.log")) as f:
+        tail = f.read()[-1500:]
+    say("soak_card", gpu=gpu, rc=rc, seconds=round(seconds, 2),
+        cuts=dict(minutes=SOAK_CARD_MINUTES, files_per_class=SOAK_CARD_FILES,
+                  steps_per_epoch=2 * SOAK_CARD_FILES // 128, record=True),
+        **{k: r.get(k) for k in ("gates", "epochs_completed", "sigterm_preemptions",
+                                 "rss_recycles", "auto_resumes", "max_resume_loss_jump",
+                                 "max_within_segment_loss_step", "samples_per_s", "rss_gb",
+                                 "sigterm_to_exit_s", "launch_to_resume_s",
+                                 "launch_to_first_logged_step_s", "setup_s", "events")},
+        trainer_exits=[x["exit"] for x in recs], launches=launches,
+        tail=None if rc == 0 else tail)
+    check(rc == 0 and r.get("ok"), f"the soak failed its gates: {r.get('gates')}\n{tail}")
+    for k in RESUME_KERNELS:
+        check(launches[k] > 0, f"the soak's trainers launched no {k}")
+    return launches
+
+
+def run_resilience_slice(torch, gpu, tmp_root):
+    """soak_card started first, in processes of its own; resume_card beside
+    it; then the soak waited for. Each phase's seconds are printed."""
+    torch.cuda.empty_cache()   # the children need the card's memory, not this cache
+    t0 = time.perf_counter()
+    soak = start_soak_card(tmp_root)
+    resume = run_resume_card(torch, gpu, tmp_root)
+    t1 = time.perf_counter()
+    soak_launches = finish_soak_card(gpu, *soak)
+    t2 = time.perf_counter()
+    say("resilience_slice", seconds=dict(resume_card=round(t1 - t0, 2),
+                                         soak_card=round(t2 - soak[3], 2),
+                                         slice=round(t2 - t0, 2)))
+    return {k: {"resume_card": resume[k], "soak_card": soak_launches[k]} for k in RESUME_KERNELS}
 
 
 PAR_KERNELS = {   # kernel -> the parallel runs whose launches it counts

@@ -426,7 +426,9 @@ def _run(args):
             print("note: dropping the checkpoint's EMA state (--model_ema 0 on this run)")
         start_epoch = int(payload["epoch"]) + 1
         best_acc = float(payload.get("best_acc", 0.0))
-        print(f"Resumed from {ckpt} (epoch {start_epoch})")
+        # the reference's two lines (run_class_finetuning.py:491, checkpoint.py:186)
+        print(f"{'Resumed' if args.resume else 'Auto-resumed'} from {ckpt} "
+              f"(epoch {start_epoch})")
 
     # every process restored the single-process payload; now place it
     placement = place_train_state(model, optimizer, mesh, zero1=bool(args.zero1),

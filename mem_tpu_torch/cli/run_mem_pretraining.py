@@ -385,7 +385,9 @@ def main(argv=None):
         if "optimizer" in payload:
             optimizer.load_state_dict(payload["optimizer"])
         start_epoch = int(payload["epoch"]) + 1
-        print(f"Resumed from {ckpt} (epoch {start_epoch})")
+        # the reference's two lines (run_mem_pretraining.py:462, checkpoint.py:186)
+        print(f"{'Resumed' if args.resume else 'Auto-resumed'} from {ckpt} "
+              f"(epoch {start_epoch})")
     placement = place_train_state(model, optimizer, mesh, tp=args.tp, zero1=bool(args.zero1),
                                   fsdp=bool(args.fsdp))
     if mesh is not None:

@@ -136,10 +136,13 @@ def make_dataset(root: str, n_per_class: int = 8, seed: int = 3, n_classes: int 
     return root
 
 
-def make_seg_dataset(root: str, n_train: int = 8, n_val: int = 4, seed: int = 5) -> str:
+def make_seg_dataset(root: str, n_train: int = 8, n_val: int = 4, seed: int = 5,
+                     events=(2000, 4000)) -> str:
     """Synthetic DSEC-like pairs (parity_trajectory.py:576): event .npy
     (x < 640, y < 480 with the y >= 440 crop band, p in {0, 1}) and a label
-    .png with an ignore stripe."""
+    .png with an ignore stripe. The harness's ``events`` a sample (2,000 to
+    4,000) leave every eval image blank after the hot-pixel filter; 20,000
+    or more, sliced at that many (``run_seg(max_evs=...)``), do not."""
     from PIL import Image
 
     rng = np.random.default_rng(seed)
@@ -147,7 +150,7 @@ def make_seg_dataset(root: str, n_train: int = 8, n_val: int = 4, seed: int = 5)
         os.makedirs(os.path.join(root, "imgs", split, "s"), exist_ok=True)
         os.makedirs(os.path.join(root, "anns", split, "s"), exist_ok=True)
         for i in range(n):
-            ne = int(rng.integers(2000, 4000))
+            ne = int(rng.integers(*events))
             ev = np.zeros((ne, 4), np.float32)
             ev[:, 0] = rng.integers(0, 640, ne)
             ev[:, 1] = rng.integers(0, 480, ne)
@@ -444,22 +447,26 @@ def run_mae(data_dir: str, epochs: int, init_state: dict, noise, geo: Geometry =
 
 # -- stage C: DSEC segmentation ----------------------------------------------------
 
-def run_seg(data_root: str, iters: int, init_state: dict, device="cuda", eval_at=None):
+def run_seg(data_root: str, iters: int, init_state: dict, device="cuda", eval_at=None,
+            max_evs: int = 4096, stop: int | None = None):
     """Stage C. ``init_state``: the segmentor's state_dict (BatchNorm
     buffers included); ``eval_at``: the iterations after which the val split
-    goes through the eval step (default: after the last). Returns (model,
-    {"loss": per iteration, "miou": per eval, "aacc": per eval})."""
+    goes through the eval step (default: after the last); ``max_evs``: the
+    events a sample is sliced to (the harness's 4096); ``stop``: the
+    iterations run of the ``iters``-iteration schedule (default all).
+    Returns (model, {"loss": per iteration, "miou": per eval, "aacc": per
+    eval})."""
     from mem_tpu_torch.data.seg_pipeline import (SegBatchIterator, SegPipelineConfig,
                                                  scan_seg_pairs)
     from mem_tpu_torch.models.segmentation import EncoderDecoder, seg_metrics
 
     device = torch.device(device)
     train_it = SegBatchIterator(scan_seg_pairs(data_root, "imgs/train", "anns/train"),
-                                SegPipelineConfig(batch_size=SEG_B, is_train=True, max_evs=4096,
-                                                  seed=13))
+                                SegPipelineConfig(batch_size=SEG_B, is_train=True,
+                                                  max_evs=max_evs, seed=13))
     val_it = SegBatchIterator(scan_seg_pairs(data_root, "imgs/val", "anns/val"),
-                              SegPipelineConfig(batch_size=SEG_B, is_train=False, max_evs=4096,
-                                                seed=13))
+                              SegPipelineConfig(batch_size=SEG_B, is_train=False,
+                                                max_evs=max_evs, seed=13))
     model = _load(EncoderDecoder(num_classes=SEG_NCLS, backbone_cfg=seg_backbone(),
                                  dtype=torch.float32, device=device, **SEG_HEADS), init_state)
     lr0, wd = 1e-3, 0.05
@@ -471,7 +478,7 @@ def run_seg(data_root: str, iters: int, init_state: dict, device="cuda", eval_at
     eval_at = {iters} if eval_at is None else set(eval_at)
     losses, miou, aacc = [], [], []
     batches = train_it.batches()
-    for t in range(iters):
+    for t in range(iters if stop is None else stop):
         losses.append(train_step(to_device(next(batches), device), t)["loss"])
         if t + 1 in eval_at:
             cm = np.zeros((SEG_NCLS, SEG_NCLS))

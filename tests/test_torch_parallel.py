@@ -420,7 +420,7 @@ def test_zero1_run_resumed_a_single_process_checkpoint(cli_run):
     epoch-1 checkpoint exists, the epoch-0 one is this process's."""
     tmp, _, _, logs = cli_run
     assert (tmp / "pt_zero1" / "checkpoint-1.pth").exists()
-    assert sum("Resumed from" in log and "pt_zero1" in log for log in logs) == 2
+    assert sum("Auto-resumed from" in log and "pt_zero1" in log for log in logs) == 2
     assert torch.load(tmp / "pt_zero1" / "checkpoint-1.pth", weights_only=True)["epoch"] == 1
 
 

@@ -263,7 +263,7 @@ assert len(names) > 38, names
 for new in ("ops.mlp", "train.mixup", "cli.run_class_finetuning", "tools.exp_voxelize",
             "tools.exp_attn_bwd", "tools.exp_voxelize2", "parallel.mesh", "parallel.pipeline",
             "cli.export_torch", "tools.mp_worker", "tools.mp_chip", "tools.trajectory",
-            "tools.trajectory_faults"):
+            "tools.trajectory_faults", "tools.soak", "tools.resume"):
     assert "mem_tpu_torch." + new in names, new
 print("imported", len(names) + 1)
 '''

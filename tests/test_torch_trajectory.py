@@ -447,11 +447,12 @@ def jax_mae_finetune(epochs, data_dir, val_dir, mae_params):
     return init, _jax_finetune_loop(model, params, epochs, data_dir, val_dir, 4000)
 
 
-def jax_seg(iters, data_root, eval_at, perturb=None):
+def jax_seg(iters, data_root, eval_at, perturb=None, max_evs=4096, stop=None):
     """Stage C's JAX arm (parity_trajectory.py:600-725), the val split
     through the eval step after each iteration of ``eval_at``; ``perturb``
     (a numpy generator) scales every initial leaf by 1 + 1e-7 N(0, 1), f32
-    rounding, to read the JAX package's own spread."""
+    rounding, to read the JAX package's own spread; ``max_evs`` and
+    ``stop`` as ``T.run_seg``'s."""
     from mem_tpu.cli.train_seg import make_seg_steps, poly_lr_schedule
     from mem_tpu.data.seg_pipeline import SegBatchIterator, SegPipelineConfig, scan_seg_pairs
     from mem_tpu.models.segmentation import EncoderDecoder, seg_metrics
@@ -459,10 +460,10 @@ def jax_seg(iters, data_root, eval_at, perturb=None):
 
     train_it = SegBatchIterator(scan_seg_pairs(data_root, "imgs/train", "anns/train"),
                                 SegPipelineConfig(batch_size=T.SEG_B, is_train=True,
-                                                  max_evs=4096, seed=13))
+                                                  max_evs=max_evs, seed=13))
     val_it = SegBatchIterator(scan_seg_pairs(data_root, "imgs/val", "anns/val"),
                               SegPipelineConfig(batch_size=T.SEG_B, is_train=False,
-                                                max_evs=4096, seed=13))
+                                                max_evs=max_evs, seed=13))
     model = EncoderDecoder(num_classes=T.SEG_NCLS, backbone_cfg=T.seg_backbone(),
                            dtype=jnp.float32, **T.SEG_HEADS)
     from mem_tpu.data.seg_pipeline import seg_preprocess_batch
@@ -484,7 +485,7 @@ def jax_seg(iters, data_root, eval_at, perturb=None):
     state = tx.init(params)
     train_step, eval_step = make_seg_steps(model, tx, T.SEG_NCLS, rand_aug=False, y_sorted=True)
     loss, miou, batch = [], [], first
-    for t in range(iters):
+    for t in range(iters if stop is None else stop):
         params, stats, state, m = train_step(params, stats, state,
                                              jax.tree.map(jnp.asarray, batch),
                                              jax.random.key(3000 + t))
@@ -497,6 +498,73 @@ def jax_seg(iters, data_root, eval_at, perturb=None):
             miou.append(float(seg_metrics(cm)["mIoU"]))
         batch = next(batches)
     return variables, {"loss": [float(v) for v in loss], "miou": miou}
+
+
+# -- slow: the seg mIoU gate against the JAX package's own spread (ROADMAP S3) ----
+
+SEG_ITERS, SEG_FIRST = 40, 6          # slow case (a)'s schedule and its reading point
+SEG_SEEDS = 4                          # init perturbations of the JAX package's own spread
+SEG_DATA = {"harness": ((2000, 4000), 4096),        # parity_trajectory.py's: blank eval images
+            "dense": ((20_000, 30_000), 30_000)}    # 20k-30k events, none sliced away
+
+
+def _late_poly(real):
+    """The poly schedule read one iteration late (iteration t takes t - 1's lr)."""
+    def late(*a, **k):
+        fn = real(*a, **k)
+        return lambda step: fn(max(int(step) - 1, 0))
+    return late
+
+
+@pytest.mark.slow
+def test_seg_miou_against_the_jax_package_s_own_spread(tmp_path):
+    """Stage C's first SEG_FIRST iterations (of the SEG_ITERS schedule) on
+    the harness's synthetic DSEC set and on one with 20k-30k events a sample
+    (eval images that are not blank): the port against the JAX package from
+    one init, and the JAX package against itself from SEG_SEEDS inits
+    perturbed at f32 rounding (1 + 1e-7 N(0, 1)). Writes
+    seg_miou_spread.json in the test's tmp_path. Held: the dense set's eval
+    images carry events, the seg loss gate (1e-3) on both sets, the port's
+    harness-set mIoU gap inside the JAX package's own spread there, and the
+    planted fault (the poly lr read one iteration late) outside ten times the
+    JAX spread on the dense set. Slow: eleven JAX seg runs, about 4 minutes."""
+    from mem_tpu_torch.data.seg_pipeline import (SegBatchIterator, SegPipelineConfig,
+                                                 scan_seg_pairs, seg_preprocess_batch)
+
+    report = {}
+    for name, (events, max_evs) in SEG_DATA.items():
+        root = T.make_seg_dataset(str(tmp_path / name), events=events)
+        it = SegBatchIterator(scan_seg_pairs(root, "imgs/val", "anns/val"),
+                              SegPipelineConfig(batch_size=T.SEG_B, is_train=False,
+                                                max_evs=max_evs, seed=13))
+        vb = next(iter(it.eval_batches()))
+        vb.pop("n_real")
+        imgs, _ = seg_preprocess_batch({k: torch.as_tensor(v) for k, v in vb.items()}, False,
+                                       False, False, y_sorted=True)
+        kw = dict(eval_at=(SEG_FIRST,), max_evs=max_evs, stop=SEG_FIRST)
+        init, want = jax_seg(SEG_ITERS, root, **kw)
+        _, got = T.run_seg(root, SEG_ITERS, seg_from_jax_params(init), device="cpu", **kw)
+        own = [jax_seg(SEG_ITERS, root, perturb=np.random.default_rng(s), **kw)[1]["miou"][0]
+               for s in range(SEG_SEEDS)]
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(T, "poly_lr_schedule", _late_poly(T.poly_lr_schedule))
+            _, fault = T.run_seg(root, SEG_ITERS, seg_from_jax_params(init), device="cpu", **kw)
+        m = want["miou"][0]
+        report[name] = dict(
+            eval_image_nonzero=[float((im > 0).float().mean()) for im in imgs],
+            loss=T.loss_gaps(want["loss"], got["loss"]), miou_jax=m, miou_port=got["miou"][0],
+            miou_gap=abs(m - got["miou"][0]), jax_self_miou_gaps=[abs(m - o) for o in own],
+            fault_loss=T.loss_gaps(want["loss"], fault["loss"]),
+            fault_miou_gap=abs(m - fault["miou"][0]))
+    _write(tmp_path / "seg_miou_spread.json", report)
+    print(json.dumps(report, indent=1))
+
+    h, d = report["harness"], report["dense"]
+    assert max(h["eval_image_nonzero"]) == 0 and min(d["eval_image_nonzero"]) > 0.01
+    for r in (h, d):
+        assert r["loss"]["max_rel"] < GATES["seg"], r
+    assert h["miou_gap"] <= max(h["jax_self_miou_gaps"]), h
+    assert d["fault_miou_gap"] >= 10 * max(d["jax_self_miou_gaps"]), d
 
 
 def _write(path, result):
