@@ -107,14 +107,34 @@ checkpoint); every --opt name, lookahead_adamp and bf16 moments run 7 steps
 on full-width ft_vit weights on the card and on the CPU from one gradient
 sequence (each tensor's displacement within 1e-5, bf16 moments 1e-3, AdamP
 decisions equal, a planted skipped update that the gate must catch), and
-each optimizer's update is timed at full depth against its bound;
 run_mem_pretraining --bf16_moments 1 --pretrained 1 --init_ckpt <seeded
-timm .pth> takes two steps with exact launches; the B=128 pretraining step
-is timed with f32 and bf16 moments in turns (ms, peak memory, state bytes).
+timm .pth> takes two steps with exact launches.
 
-The IMNET real-image path (run_imnet_slice, on a generator of its own, run
-last): ImageNet-like synthetic JPEGs (2 synsets, sides 256-500 px, 64 train
-and 16 val); preprocess_image_cls (the finetune's --aa
+The measuring tools (run_tools_slice): tools/bench_serve.py for 3 s against
+the served slice's server (no error, at least one request); every trace tool
+(trace_pretrain, also with bf16_moments=1; trace_finetune with fused_mlp=1
+and with flat=0; trace_mae, trace_vae, trace_seg; trace_infer mode=cls, also
+with int8=1) through its main at steps=2 and the smallest batch of the
+chip_smoke timings it took over, each breakdown with device ms > 0, finite
+losses and the launch counters' counts exact (trace_pretrain K1 once, K2f and
+K2b 12 times a step; trace_seg K4 once, K3f and K3b 12 times; trace_infer K1
+once and K2f 12 times a batch; trace_mae K1 once, K2f and K2b 20 times;
+trace_finetune K1 once, K2f and K2b 12 times, with K6f and K6b 12 times under
+fused_mlp=1, or K5a and K5c 12 times under flat=0);
+bf16 moments under 0.6 of the f32 state, the int8 forward's int8 GEMMs in
+its families and none in the bf16 one's; bench_pretrain_step,
+bench_host_loader and bench_host_feed at a few batches. After the multi-GPU
+slice (run_tools_big_slice, the card to themselves) the trace tools at the
+larger batches and other toggles of those timings take one step each under
+the same gates: trace_pretrain B=128, trace_finetune B=64 under the default
+toggles and B=128 under the default toggles, fused_mlp=1 and flat=0,
+trace_mae B=512, trace_vae B=192, trace_seg
+B=16 with and without FLAT_ATTN_LONG. Each slice prints its seconds on a
+``<name>_slice`` line, and the line ``slices`` sums them.
+
+The IMNET real-image path (run_imnet_slice, on a generator of its own):
+ImageNet-like synthetic JPEGs (2 synsets, sides 256-500 px, 64 train and
+16 val); preprocess_image_cls (the finetune's --aa
 rand-m9-mstd0.5-inc1 and RandomErasing) card vs CPU on one batch, one set of
 host draws and one erasing noise tensor, per sample and batch_ops, with a
 planted fault (the erasing box one row off on the card) that must fail the
@@ -126,13 +146,11 @@ views swapped on the card), a depth-12 bf16 step with exact launches (K2f
 and K2b 12 times, no K1) on this thread and a fresh one; then
 run_mem_pretraining, run_class_finetuning (default --aa, --reprob 0.25,
 mixup on, EMA) and train_vae with --data_set IMNET at the conf's widths,
-each one epoch with exact launches, a finite loss and a checkpoint; the
-host feed's samples/s (the two-view and the classification iterators, the
-median and spread of several epochs after a warm-up one) and
-the bf16 IMNET pretraining step at B=128 (events, device ms, busy share).
+each one epoch with exact launches, a finite loss and a checkpoint; three
+bf16 IMNET pretraining steps at B=128 with finite losses.
 
 W8A8 int8 serving, the sinks and the pipeline script (run_int8_slice, on a
-generator of its own, run last): the quantized values and scales of
+generator of its own): the quantized values and scales of
 ops/quant.py and the torch._int_mm accumulators (int8_mm) card against CPU
 bit for bit at ViT-B's shapes (rows 1,576 and 12,608), dense_w8a8 in f32
 within one ulp, per-input-channel weight scales as a planted fault that must
@@ -140,9 +158,10 @@ fail that gate and the f32 logits gate, a 16-row product refused; the
 full-width ft_vit (B=8) and segmentor (B=2) int8 forwards card against CPU
 (36 int8 products and 12 K2f / K3f launches a forward), against bf16 on the
 card, and from a fresh thread; serve --int8 1 on both surfaces, test_seg
---int8 1 and run_class_finetuning --int8 1 --eval with exact launches; bf16
-against int8 forward times (cls B=8 / 64, seg B=8) by kernel family beside
-the 36 products' bound; and, in processes of its own beside those checks,
+--int8 1 and run_class_finetuning --int8 1 --eval with exact launches;
+the int8 forwards' device records (cls at B=8 and 64, seg at B=8) hold int8
+GEMMs and the bf16 forwards' none;
+and, in processes of its own beside those checks,
 run-pipeline-torch.sh on a tiny depth-12 conf on the card (VAE ->
 pretraining -> finetune, pruned to final / best / latest), whose conf's
 profile_dir and log_dir make the pretraining stage trace its third step (K1
@@ -161,7 +180,7 @@ bf16 path (K2b's bias held from its first launch, whose first step is
 exact) must fail the check.
 
 The resilience slice (run_resilience_slice, on a generator of its own,
-before the multi-GPU slice): resume_card runs full-width pt_vit (bf16, the
+last): resume_card runs full-width pt_vit (bf16, the
 conf's f32 tokenizer, B=64, 3 epochs of 2 steps) as CLI processes under
 scripts/run_resilient.sh through mem_tpu_torch/tools/resume.py, straight and
 recycled at every epoch boundary (--rss_restart_gb): every step's loss and
@@ -173,13 +192,16 @@ beside it, soak_card runs mem_tpu_torch/tools/soak.py cut to 1.5 minutes and
 own gates. The K1 / K2f / K2b rows carry both phases' launches as
 ``resilience_launches``.
 
-Multi-GPU training (run_parallel_slice, last, in processes of its own:
+Multi-GPU training (run_parallel_slice, in processes of its own, started
+on a thread before the measuring tools and waited for after the int8 slice,
+its lines printed after the wait; it reads no time, since it shares the card
+with the tools, IMNET and int8 slices;
 mem_tpu_torch/tools/mp_worker.py's chip modes, tools/mp_chip.py): a
 world-size-1 NCCL group runs three full-width pretraining steps (pt_vit
 ViT-B/16, vocab 8192, bf16, the conf's f32 tokenizer, B=64) under DP,
 ZeRO-1, FSDP and TP (a one-rank "model" group) against the same steps
 without a group (DP and ZeRO-1 bit-equal, FSDP and TP within 1e-6 relative
-L2), with per-step ms, peak memory and launches, and then, bit-equal to the
+L2), with peak memory and launches, and then, bit-equal to the
 same steps without a group, the optimizers whose update reads a statistic of
 the whole tensor under FSDP and TP (the first four blocks) and the MAE
 (B=128) at TP; then two processes on the one card over Gloo (NCCL refuses
@@ -201,8 +223,9 @@ on the CPU (the VAE, pretraining and MAE steps on the CPU's images, tokens
 and shuffle noise; the MAE's gates must see a decoder that skips its
 unshuffle and a K2b with its last key dropped), and
 it times kernels (each beside its plain version,
-its bound and, where there is one, a PyTorch library call), forwards,
-requests and train steps. One line per phase; the line before the last is
+its bound and, where there is one, a PyTorch library call) and requests;
+the forwards' and train steps' timings and profiles are the measuring
+tools' (mem_tpu_torch/tools/trace_*.py, bench_*.py). One line per phase; the line before the last is
 the kernel table as JSON; the last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": N}}
@@ -237,6 +260,8 @@ try:
     from mem_tpu_torch.tools import (PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_INT8_OPS,
                                      attention_bwd_bound, attention_fwd_bound, bound, hist_bound,
                                      time_ms)
+    from mem_tpu_torch.tools.step_timers import (body_device_ms, call_device_profile,
+                                                 kernel_device_ms)
 except ImportError as e:   # not run from the root of a checkout
     sys.exit(f"chip_smoke: run it from the root of a mem_tpu checkout ({e})")
 
@@ -362,7 +387,6 @@ VAE_STEP_BF16_GRAD_REL = 0.25
 VAE_DECODE_F32_REL = 1e-4      # decode_indices card f32 vs CPU f32, relative L2
 VAE_DECODE_BF16_REL = 2e-2     # ... card bf16 vs CPU f32
 VAE_CLI_B = 32           # train_vae's batch in the CLI run: 4 steps an epoch of 128 files
-VAE_TIME_B = (192, 64)   # the conf's vae_batch_size, and 64
 X1A_RANDOM_REL = 1e-6    # X1a on random f32 weights, relative L2: the bf16-rounded weights'
                          # f32 sums taken in another order (exact on dyadic weights)
 
@@ -425,6 +449,8 @@ def http_server(serve, args, quiet=False):
     def read_stats():
         return json.loads(urllib.request.urlopen(url + "/stats", timeout=10).read())
 
+    post.url = url
+
     try:
         yield post, read_stats, build_s
     finally:
@@ -445,78 +471,6 @@ def in_turns(torch, plain, kernel, runs=20):
     tk = [time_ms(kernel, runs=runs), time_ms(kernel, runs=runs)]
     tp.append(time_ms(plain, runs=runs))
     return statistics.mean(tk), statistics.mean(tp)
-
-
-def kernel_device_ms(torch, fn, fragments, n=20, per_launch=False, records=None):
-    """Device time (ms per call) of the kernels whose names hold one of
-    ``fragments``, from torch.profiler over ``n`` calls: what the card spends
-    in them, without the host's launch overhead that CUDA events around one
-    short call include. ``per_launch`` sums each kernel's mean per launch
-    recorded instead of dividing by ``n`` (for a call that launches each of
-    its kernels once: the mean stays right when the trace drops some).
-    ``records``, a dict, receives each kernel's launches recorded and mean
-    us per launch. A profile that recorded none of them is taken again;
-    None where three show no device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if "cuda" in str(getattr(e, "device_type", "")).lower()
-                  and any(f in e.key for f in fragments)]
-        us = sum(getattr(e, "self_device_time_total", 0.0) for e in events)
-        if us > 0:
-            if records is not None:
-                records.update({e.key: (e.count, e.self_device_time_total / e.count)
-                                for e in events if e.count})
-            if per_launch:
-                return sum(e.self_device_time_total / e.count for e in events if e.count) / 1e3
-            return us / 1e3 / n
-    return None
-
-
-def call_device_profile(torch, fn, n=20, anchor="hist_band_kernel"):
-    """(device ms per call of every kernel ``fn`` launches, kernels a call,
-    their names), from torch.profiler over ``n`` calls after 3 warm-up
-    calls. The trace can lose records, so each kernel counts with its mean
-    time per launch recorded, times its launches a call: its recorded
-    launches over those of ``anchor``, a kernel launched once a call,
-    rounded (a profile that recorded no ``anchor`` is taken again, up to
-    three times)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        evs = [e for e in prof.key_averages() if getattr(e, "self_device_time_total", 0) > 0]
-        calls = sum(e.count for e in evs if anchor in e.key)
-        if calls:
-            break
-    check(calls > 0, f"the profiler recorded no {anchor} launch in three tries")
-    per_call = {e.key: (e.self_device_time_total / e.count, max(1, round(e.count / calls)))
-                for e in evs}
-    return (sum(us * k for us, k in per_call.values()) / 1e3,
-            sum(k for _, k in per_call.values()), sorted(per_call))
-
-
-def body_device_ms(torch, fn, fragments, n=5):
-    """Device time per call of ``fn`` whose kernels (named by ``fragments``)
-    each launch once a call: the sum of each kernel's mean time per launch
-    that torch.profiler recorded over ``n`` calls (robust to a trace that
-    drops launches). None where one of them shows no device time."""
-    parts = [kernel_device_ms(torch, fn, (f,), n=n, per_launch=True) for f in fragments]
-    return None if None in parts else sum(parts)
 
 
 def bincount_ms(torch, col, ys, H, W, want):
@@ -561,7 +515,7 @@ def time_raster(torch, gpu, tag, events, n_valid, H, W, y_sorted=False):
             return V.voxelize_fused(events, n_valid, H, W, y_sorted=y_sorted)
 
         want = call()
-        whole = (time_ms(call, runs=20), *call_device_profile(torch, call)[:2])
+        whole = (time_ms(call, runs=20), *call_device_profile(call)[:2])
         # voxelize_fused's packing without augmentations
         xs, ys, ps = events[..., 0].int(), events[..., 1].int(), events[..., 3]
         ok = ((torch.arange(N, device=events.device)[None] < n_valid[:, None])
@@ -581,7 +535,7 @@ def time_raster(torch, gpu, tag, events, n_valid, H, W, y_sorted=False):
             check(torch.equal(legs[leg](), want),
                   f"time_raster {tag}: the {leg} tail differs from voxelize_fused's raster")
             res[leg].append((time_ms(legs[leg], runs=20),
-                             *call_device_profile(torch, legs[leg])[:2]))
+                             *call_device_profile(legs[leg])[:2]))
     mean = lambda leg, i: statistics.mean(r[i] for r in res[leg])  # noqa: E731
     say("time_raster", gpu=gpu, case=tag, shape=[B, N, H, W], y_sorted=y_sorted,
         fused_ms=whole[0], fused_device_ms=whole[1], fused_kernels=whole[2],
@@ -659,12 +613,23 @@ def run(torch):
     from mem_tpu_torch.ops import voxelize_hist as vh
     from mem_tpu_torch.ops.attention import (cuda_kernel_path, fused_attention_flat,
                                              fused_attention_flat_reference)
+    from mem_tpu_torch.tools import bench_serve
     from mem_tpu_torch.utils import env
 
     # full-precision f32 products on both sides of every comparison
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    slices, clock = {}, [time.perf_counter()]
+
+    def lap(name, own_line=False):
+        """The seconds since the last lap, kept under ``name`` and printed on
+        a ``<name>_slice`` line unless the slice prints its own."""
+        now = time.perf_counter()
+        slices[name] = round(now - clock[0], 2)
+        clock[0] = now
+        if not own_line:
+            say(f"{name}_slice", seconds=slices[name])
 
     # -- phase 0: probe + build ----------------------------------------------
     info = env.probe()
@@ -722,6 +687,8 @@ def run(torch):
         if k2_err is None:
             k2_err = err
 
+    lap("kernels_k1_k2")
+
     # -- phase 3: the served slice at full width ------------------------------
     rng = np.random.default_rng(0)
     payloads = [synthetic_events(rng, int(rng.integers(20_000, 60_001)))
@@ -752,6 +719,15 @@ def run(torch):
         repeat = ask(payloads[0])
         counts = launch_counts()              # just after it
         stats = read_stats()
+        # tools/bench_serve.py against this server (tools_slice reads it)
+        t_bs, buf = time.perf_counter(), io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            bench_serve.main([f"url={post.url}", "conc=8", "secs=3", "n_events=30000"])
+        serve_bench = (json.loads(buf.getvalue().strip().splitlines()[-1]),
+                       round(time.perf_counter() - t_bs, 2))
+    say("bench_serve", **serve_bench[0])
+    check(serve_bench[0]["errors"] == 0 and serve_bench[0]["requests"] >= 1,
+          f"bench_serve: {serve_bench[0]}")
 
     for code, body, _ in burst + seq + [repeat]:
         check(code == 200, f"HTTP {code}")
@@ -779,11 +755,11 @@ def run(torch):
     with torch.inference_mode():
         cpu_images = preprocess_batch(serve.to_device(batch, "cpu"), pp, is_train=False)
         cpu_logits = cpu_model.eval()(cpu_images)
-    rel, models, img_err = {}, {}, 0.0
+    rel, img_err = {}, 0.0
     for name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
         model = build_classifier(args, 101, dt, dev)
         model.load_state_dict(sd, strict=True)
-        models[name] = model.eval()
+        model.eval()
         with torch.inference_mode():
             images = preprocess_batch(serve.to_device(batch, dev), pp, is_train=False)
             logits = model(images).cpu()
@@ -817,10 +793,10 @@ def run(torch):
         # mode (voxelize_fused's tail) at this shape
         plan = vh.hist_plan(B, 30_000, 256, 256, vh.sm_count(0))
         k1 = lambda: vh.hist_planes_cols(col, ysf, 256, 256)  # noqa: E731
-        _, k1_kernels, k1_names = call_device_profile(torch, k1)
+        _, k1_kernels, k1_names = call_device_profile(k1)
         check(all("hist_band_kernel" in k for k in k1_names),
               f"K1 launched {k1_names}, not its kernel alone")
-        d_k1, d_k1r = (kernel_device_ms(torch, f, ("hist_band_kernel",), per_launch=True)
+        d_k1, d_k1r = (kernel_device_ms(f, ("hist_band_kernel",), per_launch=True)
                        for f in (k1, lambda: vh.hist_planes_cols(col, ysf, 256, 256,
                                                                  raster=True)))
         say("time_k1", gpu=gpu, batch=B, events=30_000, canvas=[256, 256], kernel_ms=t_k1,
@@ -839,13 +815,13 @@ def run(torch):
                    for _ in range(3))
         bias = torch.randn(12, 197, 197, device=dev)
         t_k2 = time_ms(lambda: fused_attention_flat(q, k, v, bias, 0.125))
-        t_k2d = kernel_device_ms(torch, lambda: fused_attention_flat(q, k, v, bias, 0.125),
+        t_k2d = kernel_device_ms(lambda: fused_attention_flat(q, k, v, bias, 0.125),
                                  ("attention_long_fwd_wgmma",), per_launch=True)
         t_k2p = time_ms(lambda: fused_attention_flat_reference(q, k, v, bias, 0.125))
         qh, kh, vhd, mask = sdpa_operands(torch, q, k, v, bias)
         sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
             qh, kh, vhd, attn_mask=mask, scale=0.125)
-        t_k2l, t_k2ld = time_ms(sdpa), kernel_device_ms(torch, sdpa, ("",))
+        t_k2l, t_k2ld = time_ms(sdpa), kernel_device_ms(sdpa, ("",))
         flop = 4 * B * 12 * 197 * 197 * 64
         say("time_k2", gpu=gpu, batch=B, shape=[197, 12, 64], dtype="bfloat16",
             kernel_ms=t_k2, kernel_device_ms=t_k2d, plain_ms=t_k2p, sdpa_ms=t_k2l,
@@ -854,19 +830,12 @@ def run(torch):
             kernel_tflop_s=flop / t_k2 / 1e9)
         timing[B] = (t_k1, t_k1p, t_k2, t_k2p, t_k2l, t_k1l)
 
-        fb = serve.make_assemble(args, pp)([(p, False) for p in payloads[:B]], B)
-        dev_batch = serve.to_device(fb, dev)
-        with torch.inference_mode():
-            t_fwd = time_ms(lambda: serve.classify(models['bfloat16'], pp, dev_batch, 5),
-                            runs=20)
-        say("time_forward", gpu=gpu, batch=B, dtype="bfloat16", ms=t_fwd,
-            samples_per_s=B / t_fwd * 1e3)
-
     lat = sorted(ms for _, _, ms in burst)
     say("time_http", gpu=gpu, batch_size=8, clients=8, requests=len(burst),
         p50_ms=statistics.median(lat), p90_ms=lat[int(0.9 * (len(lat) - 1))],
         sequential_p50_ms=statistics.median(ms for _, _, ms in seq))
     tmp.cleanup()
+    lap("served")
 
     # -- the segmentation slice's kernels against their plain versions --------
     k4_err = check_k4(torch, dev, g)
@@ -875,6 +844,7 @@ def run(torch):
     # -- the rest of fused_attention: K5b, K5d, K5e ---------------------------
     k5b_err, k5d_err, k5e_err = (check_k5b(torch, dev, g), check_k5d(torch, dev, g),
                                  check_k5e(torch, dev, g))
+    lap("kernels_k3_k4_k5")
 
     # -- phases 5-8: the pretraining slice ------------------------------------
     k2b_err = check_k2b(torch, dev, g)
@@ -886,59 +856,106 @@ def run(torch):
         check_train_step(torch, dev, base + ["--output_dir", os.path.join(train_tmp.name, "x")])
         train_counts = run_training_cli(torch, base + [
             "--output_dir", os.path.join(train_tmp.name, "pt_out")])
-        t_k2b, t_k2bp, t_k2bl = time_training(torch, dev, gpu, base + [
-            "--output_dir", os.path.join(train_tmp.name, "x")])
+        check_loss_fall(torch, dev, base + ["--output_dir", os.path.join(train_tmp.name, "x")])
+        t_k2b, t_k2bp, t_k2bl = time_training(torch, dev, gpu)
+        lap("pretraining")
         # -- the VAE-training slice: train_vae -> run_mem_pretraining --------
         run_vae_slice(torch, dev, gpu, data_root, train_tmp.name, base)
+        lap("vae")
         # -- the MAE slice: pretraining -> finetune -> serve, --MAE 1 ---------
         run_mae_slice(torch, dev, gpu, data_root, train_tmp.name)
+        lap("mae")
         # -- the classification finetune slice (on the same synthetic dataset) --
         ft = run_finetune_slice(torch, dev, gpu, g, data_root, train_tmp.name)
+        lap("finetune")
     finally:
         signal.signal(signal.SIGTERM, signal.SIG_DFL)   # the CLI latched SIGTERM
         train_tmp.cleanup()
 
     # -- the segmentation slice -------------------------------------------------
     seg = run_seg_slice(torch, dev, gpu, rng)
+    lap("seg")
 
     # -- the segmentation training slice ----------------------------------------
     seg_train = run_seg_train_slice(torch, dev, gpu, rng)
     k5_ms = time_k5_long(torch, dev, gpu)
+    lap("seg_train")
 
     # -- the experiment kernels X1a, X1b, X1c, X3, X2a, X2b and X2c -------------
     x1_err, x3_err = check_x1(torch, dev, g), check_x3(torch, dev, g)
     x2_err = check_x2(torch, dev, g)
     exp_counts = run_experiment_tools(torch)
     x_ms = time_experiments(torch, dev, gpu)
+    lap("experiments")
 
     # -- the dataset tools and the optimizer switch (their own generator: they
     #    change no other phase's inputs) ------------------------------------
     tools_tmp = tempfile.TemporaryDirectory()
     try:
-        run_tools_slice(torch, dev, gpu, tools_tmp.name)
+        run_dataset_tools_slice(torch, dev, gpu, tools_tmp.name)
     finally:
         signal.signal(signal.SIGTERM, signal.SIG_DFL)   # the CLIs latched SIGTERM
         tools_tmp.cleanup()
+    lap("dataset_tools", own_line=True)
 
-    # -- the IMNET real-image slice (its own generator) ------------------------
-    imnet_tmp = tempfile.TemporaryDirectory()
-    try:
-        run_imnet_slice(torch, dev, gpu, imnet_tmp.name)
-    finally:
-        signal.signal(signal.SIGTERM, signal.SIG_DFL)   # the CLIs latched SIGTERM
-        imnet_tmp.cleanup()
+    # -- multi-GPU training, in processes of its own, beside the tools, IMNET
+    #    and int8 slices (its gates only: it reads no time; its lines are
+    #    kept and printed after the join) --------------------------------------
+    torch.cuda.empty_cache()   # the children need the card's memory, not this cache
+    par_tmp, par_box, par_lines = tempfile.TemporaryDirectory(), {}, []
 
-    # -- W8A8 int8 serving, the sinks and the pipeline script (its own
-    #    generator); the trajectory check (its own generator) runs while the
-    #    pipeline script's processes do ----------------------------------------
-    int8_tmp, traj_tmp, traj = tempfile.TemporaryDirectory(), tempfile.TemporaryDirectory(), {}
+    def parallel():
+        try:
+            par_box["par"] = run_parallel_slice(torch, gpu, par_tmp.name, par_lines)
+        except BaseException as e:   # raised again on the main thread
+            par_box["error"] = e
+
+    par_thread = threading.Thread(target=parallel, name="parallel_slice")
+    par_thread.start()
     try:
-        run_int8_slice(torch, dev, gpu, int8_tmp.name, lambda: traj.update(
-            run_trajectory_card(torch, dev, gpu, traj_tmp.name)))
+        # -- the measuring tools at a cut size (their own seeds and data) -------
+        tools_tmp = tempfile.TemporaryDirectory()
+        try:
+            run_tools_slice(torch, gpu, tools_tmp.name, serve_bench)
+        finally:
+            tools_tmp.cleanup()
+        lap("tools", own_line=True)
+
+        # -- the IMNET real-image slice (its own generator) --------------------
+        imnet_tmp = tempfile.TemporaryDirectory()
+        try:
+            run_imnet_slice(torch, dev, gpu, imnet_tmp.name)
+        finally:
+            signal.signal(signal.SIGTERM, signal.SIG_DFL)   # the CLIs latched SIGTERM
+            imnet_tmp.cleanup()
+        lap("imnet", own_line=True)
+
+        # -- W8A8 int8 serving, the sinks and the pipeline script (its own
+        #    generator); the trajectory check (its own generator) runs while
+        #    the pipeline script's processes do ---------------------------------
+        int8_tmp, traj_tmp, traj = (tempfile.TemporaryDirectory(),
+                                    tempfile.TemporaryDirectory(), {})
+        try:
+            run_int8_slice(torch, dev, gpu, int8_tmp.name, lambda: traj.update(
+                run_trajectory_card(torch, dev, gpu, traj_tmp.name)))
+        finally:
+            signal.signal(signal.SIGTERM, signal.SIG_DFL)   # the CLIs latched SIGTERM
+            int8_tmp.cleanup()
+            traj_tmp.cleanup()
+        lap("int8_trajectory", own_line=True)
     finally:
-        signal.signal(signal.SIGTERM, signal.SIG_DFL)   # the CLIs latched SIGTERM
-        int8_tmp.cleanup()
-        traj_tmp.cleanup()
+        par_thread.join()
+        par_tmp.cleanup()
+        for line in par_lines:
+            print(line, flush=True)
+    if "error" in par_box:
+        raise par_box["error"]
+    par = par_box["par"]
+    lap("parallel_wait")
+
+    # -- the trace tools at the larger batches, the card to themselves --------
+    run_tools_big_slice(gpu)
+    lap("tools_big", own_line=True)
 
     # -- the resilience slice: the pretraining CLI recycled, preempted and
     #    resumed (its own generator; soak_card in processes of its own) ------
@@ -947,13 +964,9 @@ def run(torch):
         resilience = run_resilience_slice(torch, gpu, res_tmp.name)
     finally:
         res_tmp.cleanup()
+    lap("resilience", own_line=True)
 
-    # -- multi-GPU training (processes of its own) ---------------------------
-    par_tmp = tempfile.TemporaryDirectory()
-    try:
-        par = run_parallel_slice(torch, gpu, par_tmp.name)
-    finally:
-        par_tmp.cleanup()
+    say("slices", seconds=slices, total=round(sum(slices.values()), 2))
 
     def row(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms):
         out = {"name": name, "route": "cuda", "source": f"mem_tpu_torch/csrc/{source}",
@@ -1602,8 +1615,8 @@ def write_seg_inputs(torch, root, rng):
 
 def run_seg_slice(torch, dev, gpu, rng):
     """The segmentation slice at full width: routing, card against CPU, the
-    test_seg CLI (single-scale and --aug_test), the seg server over HTTP, a
-    profile of the forward and the timings. Returns the launch counts of
+    test_seg CLI (single-scale and --aug_test), the seg server over HTTP and
+    the kernel timings. Returns the launch counts of
     test_seg's single-scale run and the K3f / K4 times."""
     from mem_tpu_torch.cli import serve
     from mem_tpu_torch.cli import test_seg as T
@@ -1788,22 +1801,8 @@ def run_seg_slice(torch, dev, gpu, rng):
               and set(serve_counts) == {"fused_attention_flat_long", "hist_planes_cols_sorted"},
               f"the seg server launched {serve_counts} over {stats_http['batches']} batches")
 
-        # -- timings ---------------------------------------------------------------
+        # -- kernel timings (the forward's: tools/trace_infer.py mode=seg) ---------
         batch8 = tensors(assemble([(p, False) for p in payloads], 8), dev)
-        model = models["bfloat16"]
-
-        def forward():
-            images = seg_preprocess_batch(batch8, False, y_sorted=True)[0]
-            return model(images)[0].float().argmax(-1)
-
-        with torch.inference_mode():
-            profile_seg_forward(torch, gpu, forward)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t_fwd = time_ms(forward, runs=15, warmup=3)
-        say("time_seg_forward", gpu=gpu, batch=8, dtype="bfloat16", ms=t_fwd,
-            samples_per_s=8 / t_fwd * 1e3,
-            peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
 
         # K4 against K1 and the plain version at the DSEC shape, on the batch's own events
         ev = batch8["events"]
@@ -1831,16 +1830,16 @@ def run_seg_slice(torch, dev, gpu, rng):
         # band kernel; neither fills its output)
         k4 = lambda: vh.hist_planes_cols_sorted(col, ys, 440, 640, presorted=True)  # noqa: E731
         k1 = lambda: vh.hist_planes_cols(col, ys, 440, 640)  # noqa: E731
-        _, k4_kernels, k4_names = call_device_profile(torch, k4)
-        _, k1_kernels, k1_names = call_device_profile(torch, k1)
+        _, k4_kernels, k4_names = call_device_profile(k4)
+        _, k1_kernels, k1_names = call_device_profile(k1)
         check(all("hist_band_kernel" in k or "chunk_bounds_kernel" in k
                   for k in k4_names + k1_names),
               f"K4 launched {k4_names}, K1 {k1_names}, not their kernels alone")
         k4_pair = ("hist_band_kernel", "chunk_bounds_kernel")
-        d_k4, d_k4r = (body_device_ms(torch, f, k4_pair, n=20) for f in (
+        d_k4, d_k4r = (body_device_ms(f, k4_pair, n=20) for f in (
             k4, lambda: vh.hist_planes_cols_sorted(col, ys, 440, 640, presorted=True, raster=True)))
-        d_k4_band, d_k4u, d_k1 = (kernel_device_ms(torch, f, ("hist_band_kernel",),
-                                                   per_launch=True) for f in (
+        d_k4_band, d_k4u, d_k1 = (kernel_device_ms(f, ("hist_band_kernel",), per_launch=True)
+                                  for f in (
             k4, lambda: vh.hist_planes_cols_sorted(col, ys, 440, 640), k1))
         say("time_k4", gpu=gpu, batch=8, events=SEG_EVENTS, canvas=[440, 640], kernel_ms=t_k4,
             kernel_device_ms=d_k4, band_kernel_device_ms=d_k4_band, kernels_a_call=k4_kernels,
@@ -1869,7 +1868,7 @@ def run_seg_slice(torch, dev, gpu, rng):
                 qh, kh, vhd, attn_mask=mask, scale=0.125))
             # the events above include the wrapper's host time before each
             # launch; the profiler's device time of the kernel alone beside it
-            d_k = kernel_device_ms(torch, lambda: fused_attention_flat_long(q, k, v, bias, 0.125),
+            d_k = kernel_device_ms(lambda: fused_attention_flat_long(q, k, v, bias, 0.125),
                                    ("attention_long_fwd",), per_launch=True)
             bnd = attention_fwd_bound(B, 1025, 12, 64)
             say("time_k3f", gpu=gpu, batch=B, shape=[1025, 12, 64], dtype="bfloat16",
@@ -1883,87 +1882,6 @@ def run_seg_slice(torch, dev, gpu, rng):
         tmp.cleanup()
     return dict(counts=counts, k3f_ms=t_k3, k3f_plain_ms=t_k3p, k3f_sdpa_ms=t_k3l,
                 k4_ms=t_k4, k4_plain_ms=t_k4p, k4_bincount_ms=t_k4l)
-
-
-# kernel-name fragments -> family, first match wins (cuDNN's convolutions are
-# implicit GEMMs: their names come before the plain GEMMs')
-# K3's Hopper bodies run K3b / K5d / K5e and K3f / K5b, and K2b / K5c and
-# K2f / K5a for bf16 at head dim 64 and N <= 256
-_FAMILIES = (("attention_long_bwd", "K3b body (K3b, K5d, K5e; K2b, K5c)"),
-             ("attention_long_fwd", "K3f body (K3f, K5b; K2f, K5a)"),
-             ("hist_band", "K1 / K4 body"), ("chunk_bounds", "K4 bounds pass"),
-             ("mlp_gemm_f", "K6f (F1, F2)"),
-             ("mlp_gemm_b", "K6b (B1, B2)"), ("mlp_gemm_wgrad", "K6b (B3+B4)"),
-             ("mlp_colsum", "K6b sum passes"), ("mlp_wgrad_sum", "K6b sum passes"),
-             ("mlp_rows", "K6 scalar rows"), ("mlp_cols", "K6b scalar columns"),
-             ("attention_bwd", "K2b / K5c scalar"),
-             ("attention_fwd", "K2f / K5a scalar"),
-             ("multi_tensor", "optimizer"),
-             ("fprop", "convolutions"), ("conv", "convolutions"), ("cudnn", "convolutions"),
-             ("implicit", "convolutions"), ("nchw", "layout changes"), ("nhwc", "layout changes"),
-             ("nvjet", "GEMMs"), ("gemm", "GEMMs"), ("cutlass", "GEMMs"),
-             ("reduce", "reductions"), ("sort", "sort"), ("scatter", "gather / scatter"),
-             ("gather", "gather / scatter"), ("index", "gather / scatter"),
-             ("max_pool", "pooling"), ("elementwise", "elementwise"), ("copy", "elementwise"),
-             ("cat", "elementwise"))
-
-
-_VAE_FAMILIES = (("softmax", "softmax / KL"), ("multi_tensor", "Adam and the clip"),
-                 ("hist_band", "K1"), ("fprop", "convolutions"), ("dgrad", "convolutions"),
-                 ("wgrad", "convolutions"), ("conv", "convolutions"),
-                 ("cudnn", "convolutions"), ("implicit", "convolutions"),
-                 ("xmma", "convolutions"), ("nchw", "layout changes"),
-                 ("nhwc", "layout changes"), ("nvjet", "GEMMs"), ("gemm", "GEMMs"),
-                 ("cutlass", "GEMMs"), ("reduce", "reductions"),
-                 ("elementwise", "elementwise"), ("copy", "elementwise"),
-                 ("cat", "elementwise"))
-
-
-def profile_seg_forward(torch, gpu, forward, n=5, tag="seg_forward_profile", batch=8):
-    """torch.profiler over ``n`` calls of ``forward`` (a seg forward or a seg
-    train step, bf16): device time per call by kernel family, the device's
-    busy share of the unprofiled wall and the kernels per call. Prints "not
-    measured" where the profiler shows no device time (and returns None);
-    returns (device ms, wall ms) per call."""
-    from torch.profiler import ProfilerActivity, profile
-
-    def wall(k):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(k):
-            forward()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3 / k
-
-    wall(2)
-    wall_ms = wall(n)                 # without the profiler's overhead
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall_profiled_ms = wall(n)
-    fam, total, launches, kernels = {}, 0.0, 0, []
-    for e in prof.key_averages():
-        if getattr(e, "device_type", None) is None or "cuda" not in str(e.device_type).lower():
-            continue
-        ms = getattr(e, "self_device_time_total", 0.0) / 1e3 / n
-        # the optimizer's annotation ("Optimizer.step#AdamW.step") spans
-        # kernels that are counted on their own
-        if ms <= 0 or e.key.startswith("Optimizer.step"):
-            continue
-        low = e.key.lower()
-        name = next((f for frag, f in _FAMILIES if frag in low), "other")
-        fam[name] = fam.get(name, 0.0) + ms
-        kernels.append((round(ms, 3), e.count // n, name, e.key[:70]))
-        total += ms
-        launches += e.count
-    if total == 0:
-        say(tag, gpu=gpu, device_ms="not measured")
-        return None
-    say(tag, gpu=gpu, batch=batch, dtype="bfloat16", forwards=n,
-        wall_ms=wall_ms, wall_ms_profiled=wall_profiled_ms, device_ms=total,
-        device_busy_share=min(total / wall_ms, 1.0),
-        kernels_per_forward=launches / n,
-        family_ms={k: round(v, 3) for k, v in sorted(fam.items(), key=lambda kv: -kv[1])},
-        top_kernels=sorted(kernels, reverse=True)[:12])
-    return total, wall_ms
 
 
 def seg_host_batch(data_root, B, batch_ops=True):
@@ -2225,17 +2143,10 @@ def run_train_seg_cli(torch, data_root, pretrained, out_dir):
     return counts
 
 
-def time_seg_training(torch, dev, gpu, data_root, sd):
+def time_seg_training(torch, dev, gpu):
     """K3b beside its plain version (in turns), its bound and the backward of
-    one SDPA call, at B=16 (train_seg's default) and B=8; the full-width seg
-    train step (depth 12, bf16, drop-path and dropout 0.1) at B=8 and B=16,
-    under the default toggles and with FLAT_ATTN_LONG = False (the A/B the
-    reference keeps the toggle for), one after the other: 15 steps on one
-    repeated batch at the recipe's peak lr (the loss must fall by
-    SEG_LOSS_FALL at B=8), the median of the last 12 timed by CUDA events,
-    the peak device memory, and at both batches a profile by kernel family of
-    the default. Returns K3b's, its plain version's and the SDPA backward's ms at
-    B=16."""
+    one SDPA call, at B=16 (train_seg's default) and B=8. Returns K3b's, its
+    plain version's and the SDPA backward's ms at B=16."""
     from mem_tpu_torch.ops.attention import (fused_attention_flat_long_bwd,
                                              fused_attention_flat_long_bwd_reference)
 
@@ -2248,7 +2159,7 @@ def time_seg_training(torch, dev, gpu, data_root, sd):
             torch, lambda: fused_attention_flat_long_bwd_reference(q, k, v, bias, do, 0.125),
             lambda: fused_attention_flat_long_bwd(q, k, v, bias, do, 0.125), runs=8)
         parts = {f: kernel_device_ms(
-            torch, lambda: fused_attention_flat_long_bwd(q, k, v, bias, do, 0.125), (f,), n=5,
+            lambda: fused_attention_flat_long_bwd(q, k, v, bias, do, 0.125), (f,), n=5,
             per_launch=True)
             for f in ("rows_wgmma", "cols_wgmma", "bias_sum")}
         # the yardstick: the backward of one scaled_dot_product_attention call
@@ -2258,7 +2169,7 @@ def time_seg_training(torch, dev, gpu, data_root, sd):
                                                                scale=0.125)
         doh = torch.randn_like(out)
         t_lib = time_ms(lambda: torch.autograd.grad(out, (qh, kh, vhd, mask), doh,
-                                                           retain_graph=True), runs=10)
+                                                    retain_graph=True), runs=10)
         bnd = attention_bwd_bound(B, 1025, 12, 64)
         say("time_k3b", gpu=gpu, batch=B, shape=[1025, 12, 64], dtype="bfloat16", kernel_ms=t_k,
             plain_ms=t_p, sdpa_backward_ms=t_lib, bound_ms=bnd[0], bound_by=bnd[1],
@@ -2269,57 +2180,43 @@ def time_seg_training(torch, dev, gpu, data_root, sd):
         k3b[B] = (t_k, t_p, t_lib)
         del q, k, v, do, bias, qh, kh, vhd, mask, out, doh
         torch.cuda.empty_cache()
-
-    steps, warm = 15, 3
-    lr_fn = lambda it: 5e-4  # noqa: E731
-    for B in (8, 16):
-        for tag, long_on in (("default", True), ("flat_attn_long_off", False)):
-            with toggles(flat_attn_long=long_on):
-                _time_seg_train_step(torch, dev, gpu, data_root, sd, B, tag, lr_fn, steps, warm)
     return k3b[16]
 
 
-def _time_seg_train_step(torch, dev, gpu, data_root, sd, B, tag, lr_fn, steps, warm):
+def repeated_batch_losses(step, batch, steps):
+    """The losses of ``steps`` calls of ``step`` on one repeated batch."""
+    metrics = [step(batch, i) for i in range(steps)]
+    return [m["loss"].item() for m in metrics]
+
+
+def check_seg_loss_fall(torch, dev, data_root, sd):
+    """The full-width seg train step (depth 12, bf16, drop-path and dropout
+    0.1) at B=8, under the default toggles and with FLAT_ATTN_LONG = False:
+    15 steps on one repeated batch at the recipe's peak lr; the loss must
+    fall by SEG_LOSS_FALL (the train step's timing and profile are
+    tools/trace_seg.py's)."""
     from mem_tpu_torch.data.prefetch import to_device
 
-    model, step = make_seg_step(torch, sd, dev, torch.bfloat16, lr_fn)
-    batch = to_device(seg_host_batch(data_root, B), dev)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    events, metrics = [], []
-    for i in range(steps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        metrics.append(step(batch, i))
-        end.record()
-        events.append((start, end))
-    torch.cuda.synchronize()
-    ms = statistics.median(a.elapsed_time(b) for a, b in events[warm:])
-    losses = [m["loss"].item() for m in metrics]
-    say("time_seg_train_step", gpu=gpu, batch=B, toggles=tag,
-        model="EvBEiT ViT-B/16 + UPerNet + FCN", embed_dim=768, depth=12, heads=12,
-        tokens=1025, dtype="bfloat16", ms=ms, iterations_per_s=1e3 / ms,
-        windows_per_s=B / ms * 1e3, peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
-        losses=losses, grad_norm_last=metrics[-1]["grad_norm"].item())
-    check(all(np.isfinite(losses)), f"seg B={B} {tag}: non-finite losses {losses}")
-    if B == 8:
+    batch = to_device(seg_host_batch(data_root, 8), dev)
+    for tag, long_on in (("default", True), ("flat_attn_long_off", False)):
+        with toggles(flat_attn_long=long_on):
+            model, step = make_seg_step(torch, sd, dev, torch.bfloat16, lambda it: 5e-4)
+            losses = repeated_batch_losses(step, batch, 15)
+        say("seg_loss_fall", batch=8, toggles=tag, steps=15, losses=losses,
+            min_fall=SEG_LOSS_FALL)
+        check(all(np.isfinite(losses)), f"seg B=8 {tag}: non-finite losses {losses}")
         check(losses[-1] <= losses[0] - SEG_LOSS_FALL,
               f"the seg loss ({tag}) fell from {losses[0]} to {losses[-1]}, less than "
               f"{SEG_LOSS_FALL}")
-    if tag == "default":
-        it = iter(range(steps, steps + 100))
-        profile_seg_forward(torch, gpu, lambda: step(batch, next(it)), n=3,
-                            tag="seg_train_step_profile", batch=B)
-    del model, step, batch, metrics
-    torch.cuda.empty_cache()
+        del model, step
+        torch.cuda.empty_cache()
 
 
 def run_seg_train_slice(torch, dev, gpu, rng):
     """The segmentation training slice at full width: one train step card
     against CPU (also with FLAT_ATTN_LONG = False), the train_seg CLI with a
     resume and test_seg on its checkpoint, the same with FLAT_ATTN_LONG =
-    False, K3b's and the train step's timings under both toggles. Returns
+    False, the loss-fall gate and K3b's timings. Returns
     train_seg's launch counts under both toggles and K3b's times at B=16."""
     from mem_tpu_torch.cli import run_mem_pretraining as R
     from mem_tpu_torch.models.segmentation import build_segmentor
@@ -2348,7 +2245,8 @@ def run_seg_train_slice(torch, dev, gpu, rng):
                                    os.path.join(tmp.name, "seg_out"))
         counts_long_off = run_train_seg_cli_long_off(torch, data_root, pretrained,
                                                      os.path.join(tmp.name, "seg_out_long_off"))
-        t_k3b, t_k3bp, t_k3bl = time_seg_training(torch, dev, gpu, data_root, sd)
+        check_seg_loss_fall(torch, dev, data_root, sd)
+        t_k3b, t_k3bp, t_k3bl = time_seg_training(torch, dev, gpu)
     finally:
         signal.signal(signal.SIGTERM, signal.SIG_DFL)   # the CLI latched SIGTERM
         tmp.cleanup()
@@ -2574,21 +2472,14 @@ def run_training_cli(torch, flags):
     return counts
 
 
-def time_training(torch, dev, gpu, flags):
+def time_training(torch, dev, gpu):
     """Phase 8: K2b against its plain version at the training shape (B=64)
     and the serving batch (B=8), in turns: plain, kernel, kernel, plain; its
     device time (its rows, columns and bias-sum kernels) and the backward of
-    one SDPA call beside it. Then the full-width pt_vit train step (depth 12,
-    bf16, the conf's recipe) at B=64 and B=128: 15 steps on one repeated
-    batch with no lr warm-up (the loss must fall by LOSS_FALL at B=64), the
-    median of the last 12 timed by CUDA events, the peak device memory, and
-    at B=64 a profile by kernel family. Returns the mean ms of K2b, of its
-    plain version and of the library yardstick at B=64."""
-    from mem_tpu_torch.cli import run_mem_pretraining as R
-    from mem_tpu_torch.data.prefetch import to_device
+    one SDPA call beside it. Returns the mean ms of K2b, of its plain version
+    and of the library yardstick at B=64."""
     from mem_tpu_torch.ops.attention import (fused_attention_flat_bwd,
                                              fused_attention_flat_bwd_reference)
-    from mem_tpu_torch.train.schedules import cosine_scheduler
 
     for B in (8, 64):
         q, k, v, do = (torch.randn(B, 197, 768, device=dev, dtype=torch.bfloat16)
@@ -2599,9 +2490,9 @@ def time_training(torch, dev, gpu, flags):
         tp = [time_ms(plain, runs=20)]
         tk = [time_ms(kernel, runs=20), time_ms(kernel, runs=20)]
         tp.append(time_ms(plain, runs=20))
-        t_dev = body_device_ms(torch, kernel, ("attention_long_bwd_rows_wgmma",
-                                               "attention_long_bwd_cols_wgmma",
-                                               "attention_long_bwd_bias_sum"))
+        t_dev = body_device_ms(kernel, ("attention_long_bwd_rows_wgmma",
+                                        "attention_long_bwd_cols_wgmma",
+                                        "attention_long_bwd_bias_sum"))
         # the yardstick: the backward of one scaled_dot_product_attention call
         # with the bias as its mask (dq, dk, dv and the mask's gradient)
         qh, kh, vhd, mask = (t.requires_grad_() for t in sdpa_operands(torch, q, k, v, bias))
@@ -2610,7 +2501,7 @@ def time_training(torch, dev, gpu, flags):
         doh = torch.randn_like(out)
         lib_bwd = lambda: torch.autograd.grad(out, (qh, kh, vhd, mask), doh,  # noqa: E731
                                               retain_graph=True)
-        t_lib, t_lib_dev = time_ms(lib_bwd, runs=20), kernel_device_ms(torch, lib_bwd, ("",))
+        t_lib, t_lib_dev = time_ms(lib_bwd, runs=20), kernel_device_ms(lib_bwd, ("",))
         flop = 5 * 2 * B * 12 * 197 * 197 * 64
         say("time_k2b", gpu=gpu, batch=B, shape=[197, 12, 64], dtype="bfloat16", kernel_ms=tk,
             kernel_device_ms=t_dev, plain_ms=tp, sdpa_backward_ms=t_lib,
@@ -2619,42 +2510,29 @@ def time_training(torch, dev, gpu, flags):
             kernel_tflop_s=flop / statistics.mean(tk) / 1e9)
         del q, k, v, do, bias, qh, kh, vhd, mask, out, doh
 
-    args = R.get_args(flags + ["--device", "cuda"])
-    vae = R.load_vae(args, dev)
-    steps, warm = 15, 3
-    lr = cosine_scheduler(args.lr, args.min_lr, 1, steps, warmup_steps=0)
-    for B in (64, 128):
-        pp, host = host_train_batch(args, B)
-        model, step, _ = make_step(torch, R, args, dev, torch.bfloat16, vae, pp, lr)
-        batch = to_device(host, dev)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        events, metrics = [], []
-        for i in range(steps):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            metrics.append(step(batch, i))
-            end.record()
-            events.append((start, end))
-        torch.cuda.synchronize()
-        ms = statistics.median(a.elapsed_time(b) for a, b in events[warm:])
-        losses = [m["loss"].item() for m in metrics]
-        say("time_train_step", gpu=gpu, batch=B, model="pt_vit", embed_dim=768, depth=12,
-            heads=12, dtype="bfloat16", ms=ms, samples_per_s=B / ms * 1e3,
-            peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
-            losses=losses, mlm_acc_last=metrics[-1]["mlm_acc"].item(),
-            grad_norm_last=metrics[-1]["grad_norm"].item())
-        check(all(np.isfinite(losses)), f"B={B}: non-finite losses {losses}")
-        if B == 64:
-            check(losses[-1] <= losses[0] - LOSS_FALL,
-                  f"the loss fell from {losses[0]} to {losses[-1]}, less than {LOSS_FALL}")
-            it = iter(range(steps, steps + 100))
-            profile_seg_forward(torch, gpu, lambda: step(batch, next(it)), n=3,
-                                tag="pretrain_step_profile", batch=B)
-        del model, step, batch, metrics
-        torch.cuda.empty_cache()
     return statistics.mean(tk), statistics.mean(tp), t_lib
+
+
+def check_loss_fall(torch, dev, flags):
+    """The full-width pt_vit train step (depth 12, bf16, the conf's recipe)
+    at B=64: 15 steps on one repeated batch with no lr warm-up; the loss must
+    fall by LOSS_FALL (the step's timing and profile are
+    tools/trace_pretrain.py's)."""
+    from mem_tpu_torch.cli import run_mem_pretraining as R
+    from mem_tpu_torch.data.prefetch import to_device
+    from mem_tpu_torch.train.schedules import cosine_scheduler
+
+    args = R.get_args(flags + ["--device", "cuda"])
+    lr = cosine_scheduler(args.lr, args.min_lr, 1, 15, warmup_steps=0)
+    pp, host = host_train_batch(args, 64)
+    model, step, _ = make_step(torch, R, args, dev, torch.bfloat16, R.load_vae(args, dev), pp, lr)
+    losses = repeated_batch_losses(step, to_device(host, dev), 15)
+    say("loss_fall", batch=64, steps=15, losses=losses, min_fall=LOSS_FALL)
+    check(all(np.isfinite(losses)), f"B=64: non-finite losses {losses}")
+    check(losses[-1] <= losses[0] - LOSS_FALL,
+          f"the loss fell from {losses[0]} to {losses[-1]}, less than {LOSS_FALL}")
+    del model, step
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -2705,24 +2583,6 @@ def deconv_flipped(vae):
     conv.forward = lambda x: F.conv_transpose2d(
         x, conv.weight.to(x.dtype).flip(2, 3), conv.bias.to(x.dtype), conv.stride, conv.padding)
     return vae
-
-
-def vae_step_flops(args, B):
-    """Operations of one VAE train step (forward, input and weight
-    gradients of every convolution and of the codebook product; no input
-    gradient for the image), 2 per multiply-add."""
-    H, W, L, R = args.input_H, args.input_W, args.num_layers, args.num_resnet_blocks
-    C, E, N = args.hidden_dim, args.emb_dim, args.num_tokens
-    ch = 3 if args.voxel == 0 else args.voxel
-    px = [(H >> s) * (W >> s) for s in range(L + 1)]       # pixels at stride 2^s
-    first = px[1] * ch * C * 16                            # the first encoder conv
-    macs = first + sum(px[i + 1] * C * C * 16 for i in range(1, L))
-    res = R * (2 * px[L] * C * C * 9 + px[L] * C * C)
-    macs += 2 * res + px[L] * C * N + px[L] * N * E        # ResBlocks, head, codebook
-    macs += px[L] * E * C if R else 0                      # the decoder's 1x1 in
-    macs += sum(px[L - i] * (C if (R or i) else E) * C * 16 for i in range(L))
-    macs += px[0] * C * ch                                 # the decoder's head
-    return 2 * B * (3 * macs - first)
 
 
 def check_vae_step(torch, dev, flags):
@@ -2914,119 +2774,9 @@ def run_vae_chain(torch, pt_flags, vae_path, out_dir, dump_dir):
         check(counts.get(name, 0) > 0, f"the chained pretraining launched no {name} kernel")
 
 
-_VAE_OPS = {"aten::cudnn_convolution": "convolutions",
-            "aten::cudnn_convolution_transpose": "transposed convolutions"}
-
-
-def profile_vae_step(torch, gpu, step, n, batch):
-    """torch.profiler over ``n`` calls of ``step`` (a bf16 VAE train step):
-    device ms per step by kernel family, the convolutions split into
-    ordinary and transposed by the aten op that launched them (a backward
-    whose output gradient is wider than its input belongs to a transposed
-    convolution), the busy share of the unprofiled wall and the kernels per
-    step."""
-    from torch.profiler import ProfilerActivity, profile
-
-    def wall(k):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(k):
-            step()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3 / k
-
-    wall(1)
-    wall_ms = wall(n)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
-        wall(n)
-    fam, total, launches, kernels = {}, 0.0, 0, []
-    for e in prof.key_averages():
-        if getattr(e, "device_type", None) is None or "cuda" not in str(e.device_type).lower():
-            continue
-        ms = getattr(e, "self_device_time_total", 0.0) / 1e3 / n
-        if ms <= 0 or e.key.startswith("Optimizer.step"):
-            continue
-        low = e.key.lower()
-        name = next((f for frag, f in _VAE_FAMILIES if frag in low), "other")
-        fam[name] = fam.get(name, 0.0) + ms
-        kernels.append((round(ms, 3), e.count // n, name, e.key[:90]))
-        total += ms
-        launches += e.count
-    ops = {}
-    for e in prof.key_averages(group_by_input_shape=True):
-        kind = _VAE_OPS.get(e.key)
-        if e.key == "aten::convolution_backward" and len(e.input_shapes) > 1:
-            go, inp = e.input_shapes[0], e.input_shapes[1]
-            kind = ("transposed convolutions" if go and inp and go[-1] > inp[-1]
-                    else "convolutions")
-        if kind:
-            ms = getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0)) / 1e3 / n
-            ops[kind] = ops.get(kind, 0.0) + ms
-    if total == 0:
-        say("vae_step_profile", gpu=gpu, device_ms="not measured")
-        return None
-    say("vae_step_profile", gpu=gpu, batch=batch, dtype="bfloat16", steps=n, wall_ms=wall_ms,
-        device_ms=total, device_busy_share=min(total / wall_ms, 1.0),
-        kernels_per_step=launches / n,
-        family_ms={k: round(v, 3) for k, v in sorted(fam.items(), key=lambda kv: -kv[1])},
-        conv_ops_device_ms={k: round(v, 3) for k, v in ops.items()},
-        top_kernels=sorted(kernels, reverse=True)[:15])
-    return total, wall_ms
-
-
-def time_vae_step(torch, dev, gpu, flags):
-    """Phase V4: the bf16 VAE train step at the conf's batch (192, three
-    host batches of 64 stacked) and at 64, one batch resident: CUDA-event
-    medians of 12 steps after 3, samples/s, peak device memory, the bound
-    (the step's operations at the bf16 peak), and a profile by family."""
-    from mem_tpu_torch.cli import train_vae as T
-    from mem_tpu_torch.data.prefetch import to_device
-    from mem_tpu_torch.tools import PEAK_BF16_FLOPS
-    from mem_tpu_torch.train.steps import make_vae_train_step
-
-    steps, warm = 15, 3
-    for B in VAE_TIME_B:
-        args = T.get_args(flags + ["--batch_size", str(B)])
-        pp, host = vae_host_batch(args, B, n=B // 64)
-        vae = T.build_vae(args, torch.bfloat16, dev)
-        vae.init_weights(torch.Generator().manual_seed(args.seed))
-        opt = torch.optim.Adam(vae.parameters(), lr=args.learning_rate, betas=(0.9, 0.999),
-                               eps=1e-8)
-        step = make_vae_train_step(vae, opt, pp, args.clip, args.seed)
-        batch = to_device(host, dev)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        events, metrics = [], []
-        for i in range(steps):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            metrics.append(step(batch, i, args.learning_rate, args.starting_temp))
-            end.record()
-            events.append((start, end))
-        torch.cuda.synchronize()
-        ms = statistics.median(a.elapsed_time(b) for a, b in events[warm:])
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        losses = [m["loss"].item() for m in metrics]
-        flops = vae_step_flops(args, B)
-        bound_ms = flops / PEAK_BF16_FLOPS * 1e3
-        it = iter(range(steps, steps + 100))
-        prof = profile_vae_step(torch, gpu, lambda: step(batch, next(it), args.learning_rate,
-                                                         args.starting_temp), 5, B)
-        say("time_vae_step", gpu=gpu, batch=B, model="event_vae", dtype="bfloat16", ms=ms,
-            samples_per_s=B / ms * 1e3, peak_mem_gib=peak, step_tflop=flops / 1e12,
-            bound_ms=bound_ms, bound_by="operations", share_of_bound=bound_ms / ms,
-            device_ms=prof[0] if prof else "not measured",
-            device_share_of_bound=bound_ms / prof[0] if prof else "not measured",
-            losses=losses)
-        check(all(np.isfinite(losses)), f"VAE B={B}: non-finite losses {losses}")
-        del vae, opt, step, batch, metrics
-        torch.cuda.empty_cache()
-
-
 def run_vae_slice(torch, dev, gpu, data_root, tmp_root, pt_flags):
-    """The VAE-training slice on the synthetic N-Caltech set: V1-V4."""
+    """The VAE-training slice on the synthetic N-Caltech set: V1-V3 (the
+    step's timing and profile are tools/trace_vae.py's)."""
     flags = ["--config", "configs/ncaltech.conf", "--data_path", data_root,
              "--num_workers", "4"]
     check_vae_step(torch, dev, flags)
@@ -3034,7 +2784,6 @@ def run_vae_slice(torch, dev, gpu, data_root, tmp_root, pt_flags):
                                  os.path.join(tmp_root, "vae_recon"))
     run_vae_chain(torch, pt_flags, vae_path, os.path.join(tmp_root, "pt_chain"),
                   os.path.join(tmp_root, "pt_dump"))
-    time_vae_step(torch, dev, gpu, flags)
 
 
 # ---------------------------------------------------------------------------
@@ -3044,7 +2793,6 @@ def run_vae_slice(torch, dev, gpu, data_root, tmp_root, pt_flags):
 
 MAE_STEP_B = 8           # the card-vs-CPU MAE step
 MAE_CLI_B = 64           # run_mem_pretraining --MAE 1: 2 steps an epoch of 128 files
-MAE_TIME_B = (128, 512)  # the timed MAE step: 128, and the conf's pt_batch_size
 MAE_K2_SHAPES = (("encoder", 99, 12, 64), ("decoder", 197, 16, 32))   # (N, H, D) at B=128
 
 
@@ -3082,25 +2830,6 @@ def unshuffle_skipped(torch, model):
 
     model.random_masking = faulty
     return model
-
-
-def mae_step_flops(args, B):
-    """Operations of one MAE train step (forward, and input and weight
-    gradients of every product; no input gradient for the images), 2 per
-    multiply-add: the encoder on L / 2 + 1 tokens, the decoder on L + 1."""
-    p = 2 ** args.num_layers
-    L = (args.input_H // p) ** 2
-    C, dc, r = args.transformer_emb, args.mae_decoder_emb, args.transformer_mlp_ratio
-    n_enc, n_dec = L - int(L * 0.5) + 1, L + 1
-    ch = 3 if args.voxel == 0 else args.voxel
-
-    def blocks(n, c, depth):          # qkv, proj, fc1, fc2 and the two attention products
-        return depth * n * ((4 + 2 * r) * c * c + 2 * n * c)
-
-    first = L * p * p * ch * C        # the patch embedding
-    macs = (first + blocks(n_enc, C, args.transformer_depth) + n_enc * C * dc
-            + blocks(n_dec, dc, args.mae_decoder_depth) + n_dec * dc * p * p * ch)
-    return 2 * B * (3 * macs - first)
 
 
 def make_mae_step(torch, args, device, dtype, pp, lr_sched, fault=False):
@@ -3384,7 +3113,7 @@ def run_mae_serve(torch, dev, ckpt, rng):
     check(rel["card_bf16"] <= LOGITS_BF16_REL, f"MAE serve bf16 logits rel L2 {rel}")
 
 
-def time_mae(torch, dev, gpu, flags):
+def time_mae(torch, dev, gpu):
     """Phase M5: K2f and K2b at the encoder's (128, 99, 768) H 12 D 64 and
     the decoder's (128, 197, 512) H 16 D 32, in turns with their plain
     versions (plain, kernel, kernel, plain), beside one SDPA call (its
@@ -3394,21 +3123,15 @@ def time_mae(torch, dev, gpu, flags):
     every kernel's recorded launches); the bounds, with what one K2b launch allocates and
     its workspaces: on the Hopper bodies the padded (B, H, N, ws_stride) f32
     ds workspace and the row statistics, on the scalar bodies each kernel's
-    shared memory per block and the (B, H, N, N) ds / p workspaces; then the full-width bf16
-    MAE train step at B=128 and at the conf's pt_batch_size 512 (four
-    stacked epochs of the synthetic set; a shortfall of memory is reported
-    with the peak it reached): CUDA-event medians of 12 steps after 3,
-    samples/s, peak memory, the bound (the step's operations at the bf16
-    peak) and a profile by kernel family. Returns the K2 times by shape."""
-    from mem_tpu_torch.cli import run_mem_pretraining as R
-    from mem_tpu_torch.data.prefetch import to_device
+    shared memory per block and the (B, H, N, N) ds / p workspaces (the MAE
+    train step's timing and profile are tools/trace_mae.py's). Returns the K2
+    times by shape."""
     from mem_tpu_torch.kernels import build
     from mem_tpu_torch.ops.attention import (MAX_SMEM_BYTES, cuda_bwd_kernel_path,
                                              cuda_kernel_path, fused_attention_flat,
                                              fused_attention_flat_bwd,
                                              fused_attention_flat_bwd_reference,
                                              fused_attention_flat_reference)
-    from mem_tpu_torch.train.schedules import cosine_scheduler
 
     B = 128
     k2 = {}
@@ -3464,9 +3187,9 @@ def time_mae(torch, dev, gpu, flags):
             with torch.no_grad() if name == "K2f" else contextlib.nullcontext():
                 lib_rec = {}
                 t_lib = time_ms(lib, runs=20)
-                t_lib_dev = kernel_device_ms(torch, lib, ("",), per_launch=True, records=lib_rec)
+                t_lib_dev = kernel_device_ms(lib, ("",), per_launch=True, records=lib_rec)
             rec = {}
-            dev_ms = kernel_device_ms(torch, kern, frags, per_launch=True, records=rec)
+            dev_ms = kernel_device_ms(kern, frags, per_launch=True, records=rec)
             parts = {f: sum(us for key, (_, us) in rec.items() if f in key) / 1e3 for f in frags}
             row[name] = dict(kernel_ms=tk, kernel_device_ms=dev_ms, device_ms_by_kernel=parts,
                              launches_recorded={key[:60]: c for key, (c, _) in rec.items()},
@@ -3480,49 +3203,6 @@ def time_mae(torch, dev, gpu, flags):
         del q, k, v, do, bias, qh, kh, vhd, mask, sdpa_out, doh
         torch.cuda.empty_cache()
 
-    args = R.get_args(flags + ["--device", "cuda"])
-    steps, warm = 15, 3
-    lr = cosine_scheduler(args.lr, args.min_lr, 1, steps, warmup_steps=0)
-    for B in MAE_TIME_B:
-        pp, host = vae_host_batch(args, B, n=B // 64, color_jitter=args.color_jitter)
-        model, step = make_mae_step(torch, args, dev, torch.bfloat16, pp, lr)
-        batch = to_device(host, dev)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        events, metrics = [], []
-        try:
-            for i in range(steps):
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                metrics.append(step(batch, i))
-                end.record()
-                events.append((start, end))
-            torch.cuda.synchronize()
-        except torch.cuda.OutOfMemoryError:
-            peak = torch.cuda.max_memory_allocated() / 2**30
-            del model, step, batch, metrics, events
-            torch.cuda.empty_cache()
-            say("time_mae_step", gpu=gpu, batch=B, fits=False, peak_mem_gib_at_stop=peak)
-            continue
-        ms = statistics.median(a.elapsed_time(b) for a, b in events[warm:])
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        losses = [m["loss"].item() for m in metrics]
-        flops = mae_step_flops(args, B)
-        bnd = bound(0, flops, PEAK_BF16_FLOPS)
-        it = iter(range(steps, steps + 100))
-        prof = profile_seg_forward(torch, gpu, lambda: step(batch, next(it)), n=3,
-                                   tag="mae_step_profile", batch=B)
-        say("time_mae_step", gpu=gpu, batch=B, fits=True, model="mae_vit_base_patch16_dec512d8b",
-            dtype="bfloat16", ms=ms, samples_per_s=B / ms * 1e3, peak_mem_gib=peak,
-            step_tflop=flops / 1e12, gflop_per_sample=flops / B / 1e9, bound_ms=bnd[0],
-            bound_by=bnd[1], share_of_bound=bnd[0] / ms,
-            device_ms=prof[0] if prof else "not measured",
-            device_busy_share=min(prof[0] / prof[1], 1.0) if prof else "not measured",
-            losses=losses)
-        check(all(np.isfinite(losses)), f"MAE B={B}: non-finite losses {losses}")
-        del model, step, batch, metrics
-        torch.cuda.empty_cache()
     return k2
 
 
@@ -3534,7 +3214,7 @@ def run_mae_slice(torch, dev, gpu, data_root, tmp_root):
     ckpt = run_mae_pretraining_cli(torch, pt_flags)
     ft_ckpt = run_mae_finetune_cli(torch, data_root, ckpt, os.path.join(tmp_root, "mae_ft"))
     run_mae_serve(torch, dev, ft_ckpt, rng)
-    return time_mae(torch, dev, gpu, pt_flags)
+    return time_mae(torch, dev, gpu)
 
 
 # ---------------------------------------------------------------------------
@@ -3800,28 +3480,16 @@ def check_k5c(torch, dev, g):
     return first
 
 
-class toggles:
-    """Set the port's module toggles for a block -- FLAT_ATTN, FUSED_MLP and
-    FLAT_ATTN_LONG of mem_tpu_torch.models.vit and ENABLED of
-    mem_tpu_torch.ops.attention, the reference's names and defaults -- as
-    scripts/trace_pretrain.py sets the reference's, and put them back."""
+def toggles(flat_attn: bool = True, fused_mlp: bool = False, flat_attn_long: bool = True,
+            enabled: bool = False):
+    """The port's module toggles -- FLAT_ATTN, FUSED_MLP and FLAT_ATTN_LONG
+    of mem_tpu_torch.models.vit and ENABLED of mem_tpu_torch.ops.attention,
+    the reference's names and defaults -- set for a block and put back
+    after, through the trace tools' ``step_timers.toggles``."""
+    from mem_tpu_torch.tools.step_timers import toggles as tool_toggles
 
-    def __init__(self, flat_attn: bool = True, fused_mlp: bool = False,
-                 flat_attn_long: bool = True, enabled: bool = False):
-        self.values = (flat_attn, fused_mlp, flat_attn_long, enabled)
-
-    def __enter__(self):
-        from mem_tpu_torch.models import vit
-        from mem_tpu_torch.ops import attention
-
-        self.saved = (vit.FLAT_ATTN, vit.FUSED_MLP, vit.FLAT_ATTN_LONG, attention.ENABLED)
-        vit.FLAT_ATTN, vit.FUSED_MLP, vit.FLAT_ATTN_LONG, attention.ENABLED = self.values
-
-    def __exit__(self, *exc):
-        from mem_tpu_torch.models import vit
-        from mem_tpu_torch.ops import attention
-
-        vit.FLAT_ATTN, vit.FUSED_MLP, vit.FLAT_ATTN_LONG, attention.ENABLED = self.saved
+    return tool_toggles({"flat": flat_attn, "fused_mlp": fused_mlp, "flat_long": flat_attn_long,
+                         "fa": enabled})
 
 
 def finetune_flags(data_root, pretrained, out_dir):
@@ -4109,24 +3777,16 @@ def run_finetune_cli(torch, flags):
     return counts
 
 
-def time_finetune(torch, dev, gpu, g, flags):
+def time_finetune(torch, dev, gpu, g):
     """K6f, K6b, K5a and K5c beside their plain versions (in turns), their
     bounds and, for K5, one SDPA call on (B, H, N, D), at the finetune
     micro-batch FT_B; the F.linear -> F.gelu -> F.linear chain and its
     autograd backward as information (no single library call computes K6).
-    Then the full-width finetune step (depth 12, bf16, mixup on, EMA) at
-    micro-batch 64 and 128 under the default toggles, FUSED_MLP alone and
-    FLAT_ATTN = False alone: 10 steps on one repeated batch, the median of the
-    last 7 timed by CUDA events, the peak memory, and at 64 a profile by
-    family for the default and the fused-MLP step."""
+    The finetune step's timing and profile are tools/trace_finetune.py's."""
     import torch.nn.functional as Fn
 
-    from mem_tpu_torch.cli import run_class_finetuning as F
-    from mem_tpu_torch.cli.common import build_classifier
-    from mem_tpu_torch.data.prefetch import to_device
     from mem_tpu_torch.ops import attention as A
     from mem_tpu_torch.ops import mlp as M
-    from mem_tpu_torch.train.schedules import cosine_scheduler
 
     bf = torch.bfloat16
     x, w1, b1, w2, b2, do = mlp_operands(torch, g, FT_ROWS, 768, 3072, bf, dev)
@@ -4138,10 +3798,10 @@ def time_finetune(torch, dev, gpu, g, flags):
                    lambda: M.mlp_bwd_2d(do, h, x, w1, w2), runs=8)
     # device ms per launch of each kernel of the Hopper path: K6f's two
     # products, K6b's three and its two sum passes
-    fwd_parts = {f: kernel_device_ms(torch, lambda: M.mlp_fwd_2d(x, w1, b1, w2, b2, True), (f,),
+    fwd_parts = {f: kernel_device_ms(lambda: M.mlp_fwd_2d(x, w1, b1, w2, b2, True), (f,),
                                      n=5, per_launch=True)
                  for f in ("mlp_gemm_f1", "mlp_gemm_f2")}
-    bwd_parts = {f: kernel_device_ms(torch, lambda: M.mlp_bwd_2d(do, h, x, w1, w2), (f,), n=5,
+    bwd_parts = {f: kernel_device_ms(lambda: M.mlp_bwd_2d(do, h, x, w1, w2), (f,), n=5,
                                      per_launch=True)
                  for f in ("mlp_gemm_b1", "mlp_gemm_b2", "mlp_gemm_wgrad", "mlp_colsum",
                            "mlp_wgrad_sum")}
@@ -4154,7 +3814,7 @@ def time_finetune(torch, dev, gpu, g, flags):
     chain_b = lambda: torch.autograd.grad(y, (xg, w1t, w2t), do,  # noqa: E731
                                           retain_graph=True)
     t_chain_b = time_ms(chain_b, runs=8)
-    chain_dev = kernel_device_ms(torch, chain, ("",)), kernel_device_ms(torch, chain_b, ("",))
+    chain_dev = kernel_device_ms(chain, ("",)), kernel_device_ms(chain_b, ("",))
     flop = 4 * FT_ROWS * 768 * 3072
     path = M.cuda_kernel_path(x, 3072)
     for name, (t_k, t_p), bnd, parts, extra in (
@@ -4184,9 +3844,9 @@ def time_finetune(torch, dev, gpu, g, flags):
                    lambda: A.fused_attention(q, k, v, bias, 0.125), runs=10)
     k5c = in_turns(torch, lambda: A.fused_attention_bwd_reference(q, k, v, bias, do, 0.125),
                    lambda: A.fused_attention_bwd(q, k, v, bias, do, 0.125), runs=10)
-    k5_dev = (kernel_device_ms(torch, lambda: A.fused_attention(q, k, v, bias, 0.125),
+    k5_dev = (kernel_device_ms(lambda: A.fused_attention(q, k, v, bias, 0.125),
                                ("attention_long_fwd_wgmma",), per_launch=True),
-              body_device_ms(torch, lambda: A.fused_attention_bwd(q, k, v, bias, do, 0.125),
+              body_device_ms(lambda: A.fused_attention_bwd(q, k, v, bias, do, 0.125),
                              ("attention_long_bwd_rows_wgmma", "attention_long_bwd_cols_wgmma",
                               "attention_long_bwd_bias_sum")))
     flat = lambda t: t.transpose(1, 2).reshape(FT_B, 197, 768).contiguous()  # noqa: E731
@@ -4203,7 +3863,7 @@ def time_finetune(torch, dev, gpu, g, flags):
     lib_bwd = lambda: torch.autograd.grad(out, (qh, kh, vh, mask), do,  # noqa: E731
                                           retain_graph=True)
     t_lib_b = time_ms(lib_bwd, runs=10)
-    lib_dev = kernel_device_ms(torch, sdpa, ("",)), kernel_device_ms(torch, lib_bwd, ("",))
+    lib_dev = kernel_device_ms(sdpa, ("",)), kernel_device_ms(lib_bwd, ("",))
     for name, (t_k, t_p), t_dev, t_lib, t_lib_dev, t_k2, bnd, n_prod in (
             ("time_k5a", k5a, k5_dev[0], t_lib_f, lib_dev[0], t_k2f,
              attention_fwd_bound(FT_B, 197, 12, 64), 2),
@@ -4217,46 +3877,6 @@ def time_finetune(torch, dev, gpu, g, flags):
     del q, k, v, do, bias, fq, fk, fv, fdo, mask, qh, kh, vh, out
     torch.cuda.empty_cache()
 
-    args = F.get_args(flags + ["--device", "cuda"])
-    ref = build_classifier(args, args.nb_classes, torch.float32, torch.device("cpu"))
-    ref.init_weights(torch.Generator().manual_seed(args.seed))
-    sd = ref.state_dict()
-    del ref
-    steps, warm = 10, 3
-    lr = cosine_scheduler(args.lr / 10, args.min_lr, 1, steps, warmup_steps=0)
-    for B in (64, 128):
-        pp, mix, host = finetune_host_batches(args, B, 1)
-        batch = [to_device(host[0], dev)]
-        for name, flat_attn, fused_mlp in (("default", True, False), ("fused_mlp", True, True),
-                                           ("bhnd_attention", False, False)):
-            with toggles(flat_attn, fused_mlp):
-                model, step, _ = make_finetune_step(torch, args, sd, dev, bf, pp, mix, lr,
-                                                    ema=True)
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-                events, metrics = [], []
-                for i in range(steps):
-                    start = torch.cuda.Event(enable_timing=True)
-                    end = torch.cuda.Event(enable_timing=True)
-                    start.record()
-                    metrics.append(step(batch, i))
-                    end.record()
-                    events.append((start, end))
-                torch.cuda.synchronize()
-                ms = statistics.median(a.elapsed_time(b) for a, b in events[warm:])
-                losses = [m["loss"].item() for m in metrics]
-                say("time_finetune_step", gpu=gpu, toggles=name, micro_batch=B, model="ft_vit",
-                    embed_dim=768, depth=12, heads=12, dtype="bfloat16", ms=ms,
-                    samples_per_s=B / ms * 1e3,
-                    peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, losses=losses,
-                    grad_norm_last=metrics[-1]["grad_norm"].item())
-                check(all(np.isfinite(losses)), f"finetune {name} B={B}: losses {losses}")
-                if B == 64 and name != "bhnd_attention":
-                    it = iter(range(steps, steps + 100))
-                    profile_seg_forward(torch, gpu, lambda: step(batch, next(it)), n=3,
-                                        tag=f"finetune_step_profile_{name}", batch=B)
-                del model, step, metrics
-                torch.cuda.empty_cache()
     return dict(k6f_ms=k6f, k6b_ms=k6b, k5a_ms=(*k5a, t_lib_f), k5c_ms=(*k5c, t_lib_b))
 
 
@@ -4264,7 +3884,7 @@ def run_finetune_slice(torch, dev, gpu, g, data_root, tmp_root):
     """The classification finetune slice at full width: K6 and K5 against
     their plain versions, one finetune step card against CPU, the CLI with the
     toggles on (with a resume and --eval) and off, the CLI at N = 401 (K5b and
-    K5d; the einsum path), and the timings. Returns the toggled runs' launch
+    K5d; the einsum path), and the kernel timings. Returns the toggled runs' launch
     counts, the kernels' errors and their times."""
     from mem_tpu_torch.cli import run_mem_pretraining as R
 
@@ -4282,7 +3902,7 @@ def run_finetune_slice(torch, dev, gpu, g, data_root, tmp_root):
     check_finetune_step(torch, dev, flags)
     counts = run_finetune_cli(torch, flags)
     counts_n401 = run_finetune_n401(torch, data_root, tmp_root)
-    times = time_finetune(torch, dev, gpu, g, flags)
+    times = time_finetune(torch, dev, gpu, g)
     return dict(counts=counts, counts_n401=counts_n401, k6f_err=k6f_err, k6b_err=k6b_err,
                 k5a_err=k5a_err, k5c_err=k5c_err, **times)
 
@@ -4462,7 +4082,7 @@ def time_k5_long(torch, dev, gpu):
             o = Fn.scaled_dot_product_attention(qh, kh, vh, attn_mask=mh, scale=0.125)
             t_lib = time_ms(lambda: torch.autograd.grad(o, (qh, kh, vh, mh), do,
                                                                retain_graph=True), runs=8)
-            t_dev = body_device_ms(torch, lambda: A.fused_attention_bwd(q, k, v, bias, do, 0.125),
+            t_dev = body_device_ms(lambda: A.fused_attention_bwd(q, k, v, bias, do, 0.125),
                                    ("rows_wgmma", "cols_wgmma", "bias_sum"))
             bnd, n_prod = attention_bwd_bound(B, N, 12, 64), 5
             del qh, kh, vh, mh, o
@@ -4473,7 +4093,7 @@ def time_k5_long(torch, dev, gpu):
                            runs=10)
             t_lib = time_ms(lambda: Fn.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask, scale=0.125), runs=10)
-            t_dev = body_device_ms(torch, lambda: A.fused_attention(q, k, v, bias, 0.125),
+            t_dev = body_device_ms(lambda: A.fused_attention(q, k, v, bias, 0.125),
                                    ("attention_long_fwd",))
             bnd, n_prod = attention_fwd_bound(B, N, 12, 64), 2
         say(f"time_{name.lower()}", gpu=gpu, batch=B, shape=[12, N, 64], dtype="bfloat16",
@@ -4978,7 +4598,7 @@ def time_x2(torch, dev, gpu):
             kernel = lambda: X2.exp_voxelize2_fused_i8(c, y, H, W, chunk)  # noqa: E731
             t_k, t_p = in_turns(torch, lambda: X2.exp_voxelize2_fused_i8_reference(c, y, H, W),
                                 kernel, runs=10)
-            t_dev = body_device_ms(torch, kernel, X2_FRAGMENTS[:1], n=10)
+            t_dev = body_device_ms(kernel, X2_FRAGMENTS[:1], n=10)
             say("time_exp_voxelize2_fused_i8", gpu=gpu, case=tag, shape=[B, N, H, W],
                 chunk=chunk, kernel_ms=t_k, device_ms=t_dev, plain_ms=t_p, bincount_ms=t_lib,
                 bincount_equals_plain=lib_equal, k1_ms=k1, bound_ms=bnd[0], bound_by=bnd[1],
@@ -5004,9 +4624,9 @@ def time_x2(torch, dev, gpu):
         unsorted = lambda: fn(col, ys, H, W, TH, chunk)  # noqa: E731
         t_k, t_p = in_turns(torch, lambda: X2.exp_voxelize2_tiled_reference(
             cols, yss, H, W, TH, dt), kernel, runs=10)
-        t_dev = body_device_ms(torch, kernel, X2_FRAGMENTS, n=10)
+        t_dev = body_device_ms(kernel, X2_FRAGMENTS, n=10)
         t_unsorted = time_ms(unsorted, runs=10)
-        t_unsorted_dev = body_device_ms(torch, unsorted, X2_FRAGMENTS, n=10)
+        t_unsorted_dev = body_device_ms(unsorted, X2_FRAGMENTS, n=10)
         t_e2e = time_ms(lambda: X2.e2e_sort_tiled(col, ys, H, W, TH, chunk, key == "i8"),
                         runs=10)
         t_lib, lib_equal = bincount_ms(torch, cols, yss, rows, W, vh.hist_planes_cols_reference(
@@ -5080,7 +4700,7 @@ def time_experiments(torch, dev, gpu):
                                            vh.hist_planes_cols_reference(col, ysp, H, W))
             t_k1 = time_ms(lambda: vh.hist_planes_cols(col, ysp, H, W))
         for name, kernel, plain, arrays in x1_variants(X, ev, H, W):
-            t_dev = kernel_device_ms(torch, kernel, ("x1_wgmma_kernel",), n=10, per_launch=True)
+            t_dev = kernel_device_ms(kernel, ("x1_wgmma_kernel",), n=10, per_launch=True)
             if tag == "seg":
                 t_k, t_p = in_turns(torch, plain, kernel, runs=10)
                 bnd = hist_bound(B, N, H, W, arrays)
@@ -5111,7 +4731,7 @@ def time_experiments(torch, dev, gpu):
         q, k, v, bias, do, 0.125), x3, runs=10)
     t_k2, t_k2b = in_turns(torch, k2b, x3, runs=10)   # K2b, X3, X3, K2b
     # each kernel's mean per recorded launch (a trace can lose records), summed
-    dev_ms = {name: [kernel_device_ms(torch, fn, (f,), n=10, per_launch=True) for f in KERNELS]
+    dev_ms = {name: [kernel_device_ms(fn, (f,), n=10, per_launch=True) for f in KERNELS]
               for name, fn in (("x3", x3), ("k2b", k2b))}
     d_k, d_k2b = (None if None in dev_ms[name] else sum(dev_ms[name]) for name in ("x3", "k2b"))
     r_k, r_k2b = (dev_ms[name][0] for name in ("x3", "k2b"))
@@ -5412,8 +5032,8 @@ def check_optimizers(torch, dev, gpu):
     each tensor's displacement within OPT_F32_REL (bf16 moments
     OPT_BF16_REL), AdamP / SGDP decisions counted where they differ (must be
     0), and a planted fault (one tensor's update skipped on the card) that
-    the gate must catch. Then each optimizer's update at full depth timed
-    against its bound."""
+    the gate must catch (each optimizer's update at full depth is timed by
+    tools/step_timers.py optimizers)."""
     from mem_tpu_torch.train import optim
 
     names = [n for n in optim.OPTIMIZERS if n not in ("nesterov", "nvnovograd")]
@@ -5450,65 +5070,6 @@ def check_optimizers(torch, dev, gpu):
         steps=OPT_STEPS, layer_decay=0.75, clip=OPT_CLIP, rows=rows,
         planted_fault=dict(tensor=OPT_FAULT_TENSOR, rel=rel[OPT_FAULT_TENSOR], caught=bad))
     check(bad == [OPT_FAULT_TENSOR], f"the planted optimizer fault gave {bad}")
-    return time_optimizers(torch, dev, gpu, names)
-
-
-def kernels_ms(torch, fn, n=3):
-    """Device ms per call of every kernel ``fn`` launches (torch.profiler
-    over ``n`` calls after 2 warm-up calls), without the GPU-side spans of
-    the profiler's user annotations (``Optimizer.step#...``), which cover
-    the kernels a second time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if not getattr(e, "is_user_annotation", False) and "#" not in e.key
-             and not e.key.startswith("Optimizer."))
-    return us / 1e3 / n or None
-
-
-def time_optimizers(torch, dev, gpu, names):
-    """Each optimizer's update (opt.step() on the clipped gradients) on the
-    full ft_vit (12 blocks, f32) on the card: CUDA-event ms of a step, the
-    device time of its kernels, and the bound: p read and written, g read,
-    each state tensor read and written, over the memory rate."""
-    from mem_tpu_torch.train import optim
-
-    model = opt_model(torch, 12, dev)
-    params = list(model.parameters())
-    n = sum(p.numel() for p in params)
-    g = torch.Generator(device=dev).manual_seed(2)
-    for p in params:
-        p.grad = 1e-3 * torch.randn(p.shape, device=dev, generator=g)
-    out = {}
-    for name in names + ["bf16_adamw", "lookahead_adamw"]:
-        opt_name = name.removeprefix("bf16_")
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore")
-            opt = optim.create_optimizer(
-                model, 1e-5, 0.05, opt=opt_name, layer_decay=0.75, num_layers=12,
-                moment_dtype=torch.bfloat16 if name != opt_name else None)
-        optim.set_schedule(opt, 1e-5, 0.05)
-        opt.step()
-        state = optim.state_bytes(opt) - sum(s.numel() * s.element_size()
-                                             for s in getattr(opt, "slow", []))
-        nbytes = 12 * n + 2 * state
-        if name.startswith("lookahead_"):
-            nbytes += 16 * n / 6        # the sync: p and slow read, both written, 1 step in 6
-        ms = time_ms(opt.step, runs=10, warmup=2)
-        busy = kernels_ms(torch, opt.step)
-        out[name] = dict(ms=ms, device_ms=busy, bound_ms=bound(nbytes, 0, PEAK_F32_FLOPS)[0],
-                         bytes_per_param=nbytes / n, state_bytes=state)
-        del opt
-        torch.cuda.empty_cache()
-    say("time_optimizers", gpu=gpu, model="ft_vit", params=n, rows=out)
-    return out
 
 
 def timm_state_dict(torch, args):
@@ -5568,55 +5129,10 @@ def run_warm_start_cli(torch, gpu, flags, tmp_root):
     return counts
 
 
-def time_bf16_moments(torch, dev, gpu, flags):
-    """The full-width pt_vit train step at B=128 (bf16, the conf's recipe)
-    with AdamW's moments in f32 and in bf16, in turns (f32, bf16, bf16,
-    f32): CUDA-event median ms of 10 steps after 3 warm-up, peak device
-    memory, optimizer-state bytes."""
-    from mem_tpu_torch.cli import run_mem_pretraining as R
-    from mem_tpu_torch.data.prefetch import to_device
-    from mem_tpu_torch.train import optim
-    from mem_tpu_torch.train.schedules import cosine_scheduler
-
-    args = R.get_args(flags + ["--device", "cuda"])
-    vae = R.load_vae(args, dev)
-    steps, warm = 13, 3
-    lr = cosine_scheduler(args.lr, args.min_lr, 1, steps, warmup_steps=0)
-    pp, host = host_train_batch(args, 128)
-    batch = to_device(host, dev)
-    rows = {"f32": [], "bf16": []}
-    for tag in ("f32", "bf16", "bf16", "f32"):
-        model, step, opt = make_step(torch, R, args, dev, torch.bfloat16, vae, pp, lr,
-                                     moment_dtype=torch.bfloat16 if tag == "bf16" else None)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        events = []
-        for i in range(steps):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            m = step(batch, i)
-            end.record()
-            events.append((start, end))
-        torch.cuda.synchronize()
-        rows[tag].append(dict(
-            ms=statistics.median(a.elapsed_time(b) for a, b in events[warm:]),
-            peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
-            state_bytes=optim.state_bytes(opt), loss_last=m["loss"].item()))
-        del model, step, opt, m
-        torch.cuda.empty_cache()
-    say("time_bf16_moments", gpu=gpu, model="pt_vit", batch=128, dtype="bfloat16", rows=rows,
-        peak_saved_gib=statistics.mean(r["peak_mem_gib"] for r in rows["f32"])
-        - statistics.mean(r["peak_mem_gib"] for r in rows["bf16"]))
-    check(all(np.isfinite(r["loss_last"]) for v in rows.values() for r in v), f"losses {rows}")
-    check(rows["bf16"][0]["state_bytes"] < 0.6 * rows["f32"][0]["state_bytes"],
-          f"bf16 moments did not halve the optimizer state: {rows}")
-    return rows
-
-
-def run_tools_slice(torch, dev, gpu, tmp_root):
-    """The dataset tools and the optimizer switch: phases (a), (b), (c) and
-    the B=128 step with bf16 moments, their inputs drawn from a generator of
-    their own."""
+def run_dataset_tools_slice(torch, dev, gpu, tmp_root):
+    """The dataset tools and the optimizer switch: phases (a), (b) and (c),
+    their inputs drawn from a generator of their own (the B=128 step with
+    bf16 moments is tools_slice's trace_pretrain bf16_moments=1)."""
     rng = np.random.default_rng(20)
     data_root, vae_path = write_training_inputs(torch, tmp_root, rng)
     flags = ["--config", "configs/ncaltech.conf", "--data_path", data_root,
@@ -5628,11 +5144,153 @@ def run_tools_slice(torch, dev, gpu, tmp_root):
     t2 = time.perf_counter()
     run_warm_start_cli(torch, gpu, flags, tmp_root)
     t3 = time.perf_counter()
-    time_bf16_moments(torch, dev, gpu, flags)
-    t4 = time.perf_counter()
-    say("tools_slice", seconds=dict(raw_to_card=round(t1 - t0, 2), optimizers=round(t2 - t1, 2),
-                                    warm_start_cli=round(t3 - t2, 2),
-                                    bf16_moments=round(t4 - t3, 2)))
+    say("dataset_tools_slice", seconds=dict(raw_to_card=round(t1 - t0, 2),
+                                            optimizers=round(t2 - t1, 2),
+                                            warm_start_cli=round(t3 - t2, 2)))
+
+
+# ---------------------------------------------------------------------------
+# the measuring tools (tools/trace_*.py, tools/bench_*.py) at a cut size
+# ---------------------------------------------------------------------------
+
+# tool arguments -> the launch counters' exact counts a traced step (a batch)
+PT_STEP = {"hist_planes_cols": 1, "fused_attention_flat": 12, "fused_attention_flat_bwd": 12}
+FT_FUSED = {**PT_STEP, "mlp_fused": 12, "mlp_fused_bwd": 12}
+FT_BHND = {"hist_planes_cols": 1, "fused_attention": 12, "fused_attention_bwd": 12}
+MAE_STEP = {"hist_planes_cols": 1, "fused_attention_flat": 20, "fused_attention_flat_bwd": 20}
+SEG_STEP = {"hist_planes_cols_sorted": 1, "fused_attention_flat_long": 12,
+            "fused_attention_flat_long_bwd": 12}
+SEG_LONG_OFF = {"hist_planes_cols_sorted": 1, "fused_attention_long": 12,
+                "fused_attention_bwd_long": 12}
+# the smallest batch of each step timing the tools took over, at steps=2
+TOOL_RUNS = (
+    ("trace_pretrain", ["B=64", "steps=2"], PT_STEP),
+    ("trace_pretrain", ["B=64", "steps=2", "bf16_moments=1"], PT_STEP),
+    ("trace_finetune", ["B=64", "steps=2", "fused_mlp=1"], FT_FUSED),
+    ("trace_finetune", ["B=64", "steps=2", "flat=0"], FT_BHND),
+    ("trace_mae", ["B=128", "steps=2"], MAE_STEP),
+    ("trace_vae", ["B=64", "steps=2"], {"hist_planes_cols": 1}),
+    ("trace_seg", ["B=8", "steps=2"], SEG_STEP),
+    ("trace_infer", ["mode=cls", "B=8", "steps=2"],
+     {"hist_planes_cols": 1, "fused_attention_flat": 12}),
+    ("trace_infer", ["mode=cls", "B=8", "steps=2", "int8=1"],
+     {"hist_planes_cols": 1, "fused_attention_flat": 12, "int8_mm": 36}),   # INT8_PRODUCTS
+)
+# the larger batches and the other toggles of those timings, at steps=1 (run
+# with the card to themselves: the MAE at B=512 takes most of its memory)
+TOOL_RUNS_BIG = (
+    ("trace_pretrain", ["B=128", "steps=1"], PT_STEP),
+    ("trace_finetune", ["B=64", "steps=1"], PT_STEP),
+    ("trace_finetune", ["B=128", "steps=1"], PT_STEP),
+    ("trace_finetune", ["B=128", "steps=1", "fused_mlp=1"], FT_FUSED),
+    ("trace_finetune", ["B=128", "steps=1", "flat=0"], FT_BHND),
+    ("trace_mae", ["B=512", "steps=1"], MAE_STEP),
+    ("trace_vae", ["B=192", "steps=1"], {"hist_planes_cols": 1}),
+    ("trace_seg", ["B=16", "steps=1"], SEG_STEP),
+    ("trace_seg", ["B=16", "steps=1", "flat_long=0"], SEG_LONG_OFF),
+)
+
+
+def run_tool(name, argv):
+    """``mem_tpu_torch.tools.<name>.main(argv)`` with its output captured,
+    printed (indented) and returned with its JSON lines and seconds."""
+    import importlib
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = importlib.import_module(f"mem_tpu_torch.tools.{name}").main(argv)
+    seconds = time.perf_counter() - t0
+    text = buf.getvalue()
+    print("\n".join(f"  | {ln}" for ln in text.splitlines()[-60:]), flush=True)
+    check(rc == 0, f"{name} {argv} exited {rc}")
+    return [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")], seconds
+
+
+def run_tool_checks(runs, seconds):
+    """Each (tool, arguments, counts a step) of ``runs`` through its main:
+    device ms > 0, finite losses and the launch counters' counts exact.
+    Returns {"tool arguments": its JSON line}; the seconds go to
+    ``seconds``."""
+    out = {}
+    for name, argv, per_step in runs:
+        lines, sec = run_tool(name, argv)
+        tag = " ".join([name] + argv)
+        seconds[tag] = round(sec, 2)
+        res = lines[-1]
+        out[tag] = res
+        want = {k: v * res["steps"] for k, v in per_step.items()}
+        counted = res["counted"]
+        check(res["device_ms_per_step"] > 0, f"{tag}: no device time recorded")
+        check(counted == want, f"{tag} launched {counted}, not {want}")
+        losses = res.get("losses", [])
+        check(all(np.isfinite(losses)), f"{tag}: losses {losses}")
+    return out
+
+
+def run_tools_slice(torch, gpu, tmp_root, serve_bench):
+    """The ten measuring tools through their main on the card at a cut size
+    (``serve_bench``: bench_serve's line and seconds from the served slice,
+    where its server ran): every trace tool at steps=2 and the smallest batch
+    of the chip_smoke timings it took over (TOOL_RUNS), each breakdown with
+    device ms > 0, finite losses and the launch counters' counts exact; bf16
+    moments under 0.6 of the f32 state; the int8 forward's int8 GEMMs in its
+    families and none in the bf16 one's; bench_pretrain_step at B=64 (3
+    iterations a mode), bench_host_loader at B=32 on 40 files (one batch a
+    setting, a mask pool of 512)
+    and bench_host_feed at B=64 / seg B=8 (two batches) against the steps
+    traced here. It runs beside the multi-GPU slice's processes, so its
+    times are not the tools' own readings (PERF.md section 5 has those)."""
+    seconds = {"bench_serve": serve_bench[1]}
+    out = run_tool_checks(TOOL_RUNS, seconds)
+    pt, pt16 = out["trace_pretrain B=64 steps=2"], out["trace_pretrain B=64 steps=2 bf16_moments=1"]
+    check(pt16["optimizer_state_bytes"] < 0.6 * pt["optimizer_state_bytes"],
+          f"bf16 moments: state {pt16['optimizer_state_bytes']} of "
+          f"{pt['optimizer_state_bytes']}")
+    fam16 = out["trace_infer mode=cls B=8 steps=2"]["families"]
+    fam8 = out["trace_infer mode=cls B=8 steps=2 int8=1"]["families"]
+    check(fam16.get("int8 GEMMs", 0.0) == 0.0 and fam8.get("int8 GEMMs", 0.0) > 0,
+          f"the int8 forward's families {fam8}, the bf16 one's {fam16}")
+    lines, sec = run_tool("bench_pretrain_step", ["B=64", "iters=3"])
+    seconds["bench_pretrain_step"] = round(sec, 2)
+    check(len(lines) == 2 and all(r["ms_per_step"] > 0 and np.isfinite(r["losses"]).all()
+                                  for r in lines), f"bench_pretrain_step gave {lines}")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        from mem_tpu_torch.tools import bench_host_loader
+        bench_host_loader.main(["files=40", "nbatches=1", "B=32", "pool=512"])
+    seconds["bench_host_loader"] = round(time.perf_counter() - t0, 2)
+    rates = [float(m) for m in re.findall(r": (\d+) samples/s", buf.getvalue())]
+    print("\n".join(f"  | {ln}" for ln in buf.getvalue().splitlines()), flush=True)
+    check(len(rates) == 16 and min(rates) > 0, f"bench_host_loader rates {rates}")
+    lines, sec = run_tool("bench_host_feed", [
+        "B=64", "seg_B=8", "nbatches=2", "files=130", f"dir={tmp_root}",
+        f"step_ms={pt['wall_ms_per_step']}",
+        f"seg_step_ms={out['trace_seg B=8 steps=2']['wall_ms_per_step']}"])
+    seconds["bench_host_feed"] = round(sec, 2)
+    feed = lines[-1]
+    check(feed["staging"]["pinned_gb_s"] > 0 and all(r["loader_samples_per_s"] > 0
+                                                     for r in feed["rows"]),
+          f"bench_host_feed gave {feed}")
+    say("tools_slice", gpu=gpu, seconds=seconds, beside="the multi-GPU slice's processes",
+        device_ms_per_step={k: v["device_ms_per_step"] for k, v in out.items()},
+        bench_serve=serve_bench[0])
+
+
+def run_tools_big_slice(gpu):
+    """The trace tools at the larger batches and the other toggles of the
+    step timings they took over (TOOL_RUNS_BIG: pretraining B=128, the
+    finetune micro-batch 64 under the default toggles and 128 under the
+    default toggles, FUSED_MLP alone and FLAT_ATTN = False alone, the MAE at
+    B=512, the VAE at B=192, seg B=16 under both FLAT_ATTN_LONG settings),
+    one traced step each, with the card
+    to themselves: device ms > 0, finite losses, exact launch counts."""
+    seconds = {}
+    out = run_tool_checks(TOOL_RUNS_BIG, seconds)
+    say("tools_big_slice", gpu=gpu, seconds=seconds,
+        device_ms_per_step={k: v["device_ms_per_step"] for k, v in out.items()},
+        peak_mem_gib={k: v["peak_mem_gib"] for k, v in out.items()})
 
 
 # ---------------------------------------------------------------------------
@@ -5644,10 +5302,8 @@ IMNET_CLASSES = ("n01440764", "n01443537")
 IMNET_PER_CLASS = {"train": 32, "val": 8}   # 64 train and 16 val JPEGs
 IMNET_CLI_B = 16         # the CLI runs' batch: 4 steps an epoch, one val batch
 IMNET_STEP_B = 2         # the card-vs-CPU pretraining step
-IMNET_TIME_B = 128       # the timed bf16 pretraining step
+IMNET_BIG_B = 128        # the bf16 pretraining step of two stacked host batches of 64
 IMNET_PRE_B = 8          # preprocess_image_cls card vs CPU
-IMNET_FEED_PASSES = 5    # timed epochs of each host iterator, after a warm-up one
-IMNET_FEED_SAMPLES = 320  # and at least this many samples
 # preprocess_image_cls card vs CPU on one batch, one set of draws and one
 # erasing noise tensor: RandAugment's rounds run in f32 and truncate to
 # uint8 once, so a sum taken in another order can flip one level at a few
@@ -5965,78 +5621,28 @@ def run_imnet_clis(torch, root, vae_path, tmp_root):
     return {"pretrain": pt_counts, "finetune": ft_counts, "vae": vae_counts}
 
 
-def time_imnet(torch, dev, gpu, root, vae_path):
-    """The host feed: the two-view iterator (bicubic + lanczos views and the
-    block mask) and the classification iterator (train: RRC, flip; eval:
-    resize, center crop) in samples/s on this host's CPU, one thread: after
-    one warm-up epoch of the train split (the val split for eval), whole
-    epochs, at least IMNET_FEED_PASSES of them and IMNET_FEED_SAMPLES
-    samples; the median, the extremes and the spread (max - min) / median
-    over the passes. Then the bf16 IMNET
-    pretraining step at B=128 (ViT-B/16, depth 12, the seeded tokenizer):
-    ms by CUDA events (median of the last 7 of 10 steps on one batch), peak
-    memory, and a profile: device ms and busy share."""
-    from mem_tpu_torch.cli import run_class_finetuning as F
+def check_imnet_big_step(torch, dev, root, vae_path):
+    """The bf16 IMNET pretraining step at B=128 (ViT-B/16, depth 12, the
+    seeded tokenizer; two host batches of 64 stacked): three steps on one
+    batch, finite losses."""
     from mem_tpu_torch.cli import run_mem_pretraining as R
     from mem_tpu_torch.cli.common import build_preproc, imnet_pipelines
     from mem_tpu_torch.data.prefetch import to_device
     from mem_tpu_torch.train.schedules import cosine_scheduler
 
-    def rate(it):
-        n_epoch = sum(len(b["label"]) for b in it.epoch(0))    # warm-up
-        passes = max(IMNET_FEED_PASSES, -(-IMNET_FEED_SAMPLES // n_epoch))
-        rates = []
-        for e in range(1, passes + 1):
-            t0 = time.perf_counter()
-            n = sum(len(b["label"]) for b in it.epoch(e))
-            rates.append(n / (time.perf_counter() - t0))
-        med = statistics.median(rates)
-        return dict(median=med, min=min(rates), max=max(rates),
-                    spread=(max(rates) - min(rates)) / med, passes=passes,
-                    samples=passes * n_epoch, rates=rates)
-
     pt_args = imnet_args(R, root, ["--discrete_vae_weight_path", vae_path])
-    ft_args = imnet_args(F, root, [])
-    _, two_view, _, _ = imnet_pipelines(pt_args, IMNET_CLI_B, (14, 14))
-    _, cls_train, _, cls_val = imnet_pipelines(ft_args, IMNET_CLI_B)
-    feed = {name: rate(it) for name, it in (("two_view", two_view),
-                                                  ("cls_train", cls_train),
-                                                  ("cls_eval", cls_val))}
-    say("time_imnet_host_feed", gpu=gpu, cpus=os.cpu_count(), threads=1, img=[224, 224],
-        jpeg_sides=[256, 500], samples_per_s=feed)
-
     _, big, _, _ = imnet_pipelines(pt_args, 64, (14, 14))
     parts = [next(iter(big.epoch(e))) for e in range(2)]
     host = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
-    vae = R.load_vae(pt_args, dev)
-    steps_n, warm = 10, 3
-    lr = cosine_scheduler(pt_args.lr, pt_args.min_lr, 1, steps_n + 100, warmup_steps=0)
-    model, step, _ = make_step(torch, R, pt_args, dev, torch.bfloat16, vae,
-                               build_preproc(pt_args, True), lr)
-    batch = to_device(host, dev)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    events, metrics = [], []
-    for i in range(steps_n):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        metrics.append(step(batch, i))
-        end.record()
-        events.append((start, end))
-    torch.cuda.synchronize()
-    ms = statistics.median(a.elapsed_time(b) for a, b in events[warm:])
-    losses = [m["loss"].item() for m in metrics]
-    say("time_imnet_train_step", gpu=gpu, batch=IMNET_TIME_B, model="pt_vit", embed_dim=768,
-        depth=12, heads=12, dtype="bfloat16", ms=ms, samples_per_s=IMNET_TIME_B / ms * 1e3,
-        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, losses=losses,
-        host_feed_two_view_samples_per_s=feed["two_view"]["median"])
-    check(all(np.isfinite(losses)), f"IMNET B=128 losses {losses}")
-    it = iter(range(steps_n, steps_n + 100))
-    prof = profile_seg_forward(torch, gpu, lambda: step(batch, next(it)), n=3,
-                               tag="imnet_pretrain_step_profile", batch=IMNET_TIME_B)
-    del model, step, batch
+    lr = cosine_scheduler(pt_args.lr, pt_args.min_lr, 1, 100, warmup_steps=0)
+    model, step, _ = make_step(torch, R, pt_args, dev, torch.bfloat16,
+                               R.load_vae(pt_args, dev), build_preproc(pt_args, True), lr)
+    losses = repeated_batch_losses(step, to_device(host, dev), 3)
+    say("imnet_big_step", batch=IMNET_BIG_B, losses=losses)
+    check(len(host["mask"]) == IMNET_BIG_B and all(np.isfinite(losses)),
+          f"IMNET B={IMNET_BIG_B} losses {losses}")
+    del model, step
     torch.cuda.empty_cache()
-    return feed, ms, prof
 
 
 def run_imnet_slice(torch, dev, gpu, tmp_root):
@@ -6053,9 +5659,9 @@ def run_imnet_slice(torch, dev, gpu, tmp_root):
     t.append(time.perf_counter())
     counts = run_imnet_clis(torch, root, vae_path, tmp_root)
     t.append(time.perf_counter())
-    time_imnet(torch, dev, gpu, root, vae_path)
+    check_imnet_big_step(torch, dev, root, vae_path)
     t.append(time.perf_counter())
-    names = ("inputs", "preprocess", "pretrain_step", "clis", "timings")
+    names = ("inputs", "preprocess", "pretrain_step", "clis", "big_step")
     say("imnet_slice", seconds={n: round(b - a, 2) for n, a, b in zip(names, t, t[1:])})
     return counts
 
@@ -6073,60 +5679,6 @@ INT8_EVAL_B = 16              # its eval batch: the val split in one batch
 INT8_SEG_PAIRS = 8            # test_seg --int8 1: one batch of 8
 PIPE_FILES = (12, 4)          # run-pipeline-torch.sh's tiny set: per class, train / val
                               # (3 steps an epoch at B=8: the pretraining stage traces its third)
-
-
-def int8_family(name):
-    """The family of a kernel in the int8 forward's profile."""
-    n = name.lower()
-    gemm = any(f in n for f in ("gemm", "nvjet", "xmma", "cutlass", "imma"))
-    if gemm and any(f in n for f in ("s8", "i8", "int8", "imma", "igemm")):
-        return "int8 GEMMs"
-    if gemm:
-        return "GEMMs"
-    if "attention_long" in n or "attention_fwd" in n:
-        return "attention"
-    if "hist_band" in n or "chunk_bounds" in n:
-        return "histogram"
-    return "other"
-
-
-def forward_families(torch, fn, n=5):
-    """(device ms per call by :func:`int8_family`, kernels per call, the int8
-    GEMMs' kernel names) from torch.profiler over ``n`` calls of ``fn`` after
-    3 warm-up calls; the trace can lose records, so the sums are a floor."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    fam, launches, names = {}, 0, set()
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", 0.0)
-        if us <= 0:
-            continue
-        f = int8_family(e.key)
-        fam[f] = fam.get(f, 0.0) + us / 1e3 / n
-        launches += e.count
-        if f == "int8 GEMMs":
-            names.add(e.key[:90])
-    return fam, launches / n, sorted(names)
-
-
-def int8_products_bound(rows):
-    """(int8 bound, bf16 bound) in ms of a ViT-B forward's 36 products at
-    ``rows`` token rows: each operand read once and the output written once
-    (int8 in, int32 out; bf16 in and out), 2 R K N operations at the int8 /
-    bf16 peak."""
-    i8 = b16 = 0.0
-    for K, N in INT8_WIDTHS.values():
-        ops = 2 * rows * K * N
-        i8 += bound(rows * K + K * N + 4 * rows * N, ops, PEAK_INT8_OPS)[0]
-        b16 += bound(2 * (rows * K + K * N + rows * N), ops, PEAK_BF16_FLOPS)[0]
-    return 12 * i8, 12 * b16
 
 
 def per_input_channel_scales(torch):
@@ -6253,8 +5805,8 @@ def check_int8_forwards(torch, dev, gpu, paths, rng):
     within the f32 gate (1e-3), which the planted per-input-channel weight
     scales must fail; int8 against bf16 on the card (relative L2, top-1 /
     pixel agreement), the int8 products counted; the ft_vit int8 forward
-    from a fresh thread. Returns the card models and their inputs for the
-    timings."""
+    from a fresh thread. Returns the payloads the CLIs serve (the int8
+    forward's timing and families are tools/trace_infer.py int8=1's)."""
     from mem_tpu_torch.cli import serve
     from mem_tpu_torch.cli.common import build_classifier, build_preproc
     from mem_tpu_torch.data.device_pipeline import preprocess_batch
@@ -6357,6 +5909,67 @@ def check_int8_forwards(torch, dev, gpu, paths, rng):
                 seg=segs["card"], seg_payloads=seg_payloads, seg_assemble=assemble)
 
 
+def forward_families(torch, fn, n=2):
+    """(device ms per call by ``step_timers.family``, the int8 GEMMs' kernel
+    names) from torch.profiler over ``n`` calls of ``fn`` after 3 warm-up
+    calls; the trace can lose records, so the sums are a floor."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mem_tpu_torch.tools.step_timers import device_records, family
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    fam, names = {}, set()
+    for name, _, us in device_records(prof):
+        f = family(name)
+        fam[f] = fam.get(f, 0.0) + us / 1e3 / n
+        if f == "int8 GEMMs":
+            names.add(name[:90])
+    return fam, sorted(names)
+
+
+def check_int8_families(torch, dev, gpu, fw):
+    """bf16 against int8 forwards on the card, cls at B=8 and 64 (the served
+    forward: preprocessing, ft_vit, softmax, top-k) and seg at B=8: the int8
+    forward's device records hold int8 GEMMs and the bf16 one's none (their
+    times: tools/trace_infer.py int8=1)."""
+    from mem_tpu_torch.cli import serve
+    from mem_tpu_torch.data.seg_pipeline import seg_preprocess_batch
+    from mem_tpu_torch.models import vit
+
+    cases = []
+    for B in (8, 64):
+        b = serve.to_device(serve.make_assemble(fw["args"], fw["pp"])(
+            [(p, False) for p in fw["payloads"][:B]], B), dev)
+        cases.append(("cls", B, functools.partial(serve.classify, fw["model"], fw["pp"], b, 5)))
+    seg_b = {n: torch.from_numpy(v).to(dev) for n, v in fw["seg_assemble"](
+        [(p, False) for p in fw["seg_payloads"]], 8).items()}
+    cases.append(("seg", 8, lambda: fw["seg"](seg_preprocess_batch(
+        seg_b, False, y_sorted=True)[0])[0].float().argmax(-1)))
+
+    def int8(fn):
+        def run():
+            with vit.int8_gemm():
+                return fn()
+        return run
+
+    with torch.inference_mode():
+        for surface, B, fn in cases:
+            fam16, _ = forward_families(torch, fn)
+            fam8, names = forward_families(torch, int8(fn))
+            say("int8_families_check", gpu=gpu, surface=surface, batch=B,
+                families_bf16={k: round(v, 4) for k, v in fam16.items()},
+                families_int8={k: round(v, 4) for k, v in fam8.items()},
+                int8_gemm_kernels=names)
+            check(fam16.get("int8 GEMMs", 0.0) == 0.0 and fam8.get("int8 GEMMs", 0.0) > 0,
+                  f"the {surface} B={B} forwards' int8 GEMMs: bf16 {fam16}, int8 {fam8}")
+
+
 def run_int8_clis(torch, data_root, seg_root, paths, fw):
     """serve --int8 1 on both surfaces over HTTP, test_seg --int8 1 (its
     table printed) and run_class_finetuning --int8 1 --eval, each with its
@@ -6427,61 +6040,11 @@ def run_int8_clis(torch, data_root, seg_root, paths, fw):
     return out
 
 
-def time_int8(torch, dev, gpu, fw):
-    """bf16 against int8 forwards on the card: cls at B=8 and 64 (the served
-    forward: preprocessing, ft_vit, softmax, top-k) and seg at B=8: events
-    ms in turns (bf16, int8, int8, bf16) and device ms by family; the
-    quantize / dequantize passes read as the int8 forward's other kernels
-    less the bf16 one's; beside the bounds of the 36 products."""
-    from mem_tpu_torch.cli import serve
-    from mem_tpu_torch.data.seg_pipeline import seg_preprocess_batch
-    from mem_tpu_torch.models import vit
-
-    out = {}
-    cases = []
-    for B in (8, 64):
-        b = serve.to_device(serve.make_assemble(fw["args"], fw["pp"])(
-            [(p, False) for p in fw["payloads"][:B]], B), dev)
-        cases.append(("cls", B, 197 * B, functools.partial(
-            serve.classify, fw["model"], fw["pp"], b, 5)))
-    seg_b = {n: torch.from_numpy(v).to(dev) for n, v in fw["seg_assemble"](
-        [(p, False) for p in fw["seg_payloads"]], 8).items()}
-    cases.append(("seg", 8, 1025 * 8, lambda: fw["seg"](seg_preprocess_batch(
-        seg_b, False, y_sorted=True)[0])[0].float().argmax(-1)))
-
-    def int8(fn):
-        def run():
-            with vit.int8_gemm():
-                return fn()
-        return run
-
-    with torch.inference_mode():
-        for surface, B, rows, fn in cases:
-            fn8 = int8(fn)
-            legs = [time_ms(f, runs=6, warmup=2) for f in (fn, fn8, fn8, fn)]
-            fam16, k16, _ = forward_families(torch, fn, n=2)
-            fam8, k8, names = forward_families(torch, fn8, n=2)
-            b8, b16 = int8_products_bound(rows)
-            say("time_int8_forward", gpu=gpu, surface=surface, batch=B, rows=rows,
-                bf16_ms=statistics.mean((legs[0], legs[3])),
-                int8_ms=statistics.mean((legs[1], legs[2])), legs_ms=legs,
-                device_ms_bf16=sum(fam16.values()), device_ms_int8=sum(fam8.values()),
-                families_bf16={k: round(v, 4) for k, v in fam16.items()},
-                families_int8={k: round(v, 4) for k, v in fam8.items()},
-                quantize_dequantize_ms=fam8.get("other", 0.0) - fam16.get("other", 0.0),
-                kernels_bf16=k16, kernels_int8=k8, int8_gemm_kernels=names,
-                int8_products_bound_ms=b8, bf16_products_bound_ms=b16)
-            check(fam16.get("int8 GEMMs", 0.0) == 0.0 and fam8.get("int8 GEMMs", 0.0) > 0,
-                  f"the {surface} forwards' int8 GEMMs: bf16 {fam16}, int8 {fam8}")
-            out[(surface, B)] = (legs, fam16, fam8)
-    return out
-
-
 def run_int8_slice(torch, dev, gpu, tmp_root, beside_pipeline=None):
     """W8A8 serving on the card, its inputs drawn from a generator of its
-    own: the int8 pieces, the forwards, the CLIs, the timings; the pipeline
-    script runs in processes of its own beside the checks and
-    ``beside_pipeline()`` (not beside the timings). Returns the CLIs' launch
+    own: the int8 pieces, the forwards, the CLIs; the pipeline script runs in
+    processes of its own beside the checks and ``beside_pipeline()``; then
+    the int8 families of the cls and seg forwards. Returns the CLIs' launch
     counts."""
     rng = np.random.default_rng(22)
     g = torch.Generator().manual_seed(22)
@@ -6500,9 +6063,10 @@ def run_int8_slice(torch, dev, gpu, tmp_root, beside_pipeline=None):
     t.append(time.perf_counter())
     finish_pipeline_script(torch, *pipeline)
     t.append(time.perf_counter())
-    time_int8(torch, dev, gpu, fw)
+    check_int8_families(torch, dev, gpu, fw)
     t.append(time.perf_counter())
-    names = ("inputs", "ops", "forwards", "clis", "beside_pipeline", "pipeline_wait", "timings")
+    names = ("inputs", "ops", "forwards", "clis", "beside_pipeline", "pipeline_wait",
+             "families")
     say("int8_slice", seconds={n: round(b - a, 2) for n, a, b in zip(names, t, t[1:])})
     return counts
 
@@ -6943,7 +6507,7 @@ PAR_KERNELS = {   # kernel -> the parallel runs whose launches it counts
 }
 
 
-def run_parallel_slice(torch, gpu, tmp_root):
+def run_parallel_slice(torch, gpu, tmp_root, lines):
     """Multi-GPU training (parallel/, tools/mp_worker.py, tools/mp_chip.py),
     in two processes of its own: ``chip1`` (rank 0 alone, a world-size-1
     NCCL group: three
@@ -6958,8 +6522,14 @@ def run_parallel_slice(torch, gpu, tmp_root):
     tensor's displacement within mp_chip.OPT_REL, each with its statistic
     taken over the local shard alone, which must miss it). Returns {kernel:
     {run: launches}} of the ranks' main paths (rank 0's; each process
-    counts its own)."""
+    counts its own). It runs beside other slices' work on the same card, so
+    it reads no time (tools/mp_worker.py chip on a card of its own does) and
+    appends its lines to ``lines`` for the caller to print: a thread's
+    print could land in a tool's captured output."""
     from mem_tpu_torch.tools import mp_chip, mp_worker
+
+    def say(tag, **fields):
+        lines.append(f"{tag} {json.dumps(fields)}")
 
     t0 = time.perf_counter()
     env = dict(os.environ, PYTHONPATH=os.getcwd())
@@ -6978,9 +6548,8 @@ def run_parallel_slice(torch, gpu, tmp_root):
         say("parallel_world1", gpu=gpu, backend=c1["backend"], mode=mode,
             placement=r["placement"], batch=c1["batch"], steps=c1["steps"],
             bit_equal=r["bit_equal"], weights_rel_l2=r["weights_rel_l2"],
-            loss_equal=r["loss_equal"], step_ms=r["step_ms"], peak_gb=r["peak_gb"],
-            single_step_ms=c1["single"]["step_ms"], single_peak_gb=c1["single"]["peak_gb"],
-            launches=r["launches"])
+            loss_equal=r["loss_equal"], peak_gb=r["peak_gb"],
+            single_peak_gb=c1["single"]["peak_gb"], launches=r["launches"])
         if mode in ("dp", "zero1"):
             check(r["bit_equal"], f"{mode} at world size 1 is not bit-equal to no group")
         else:
@@ -6992,8 +6561,7 @@ def run_parallel_slice(torch, gpu, tmp_root):
         say("parallel_world1_opt", gpu=gpu, backend=c1["backend"], run=pair,
             placement=r["placement"], batch=r.get("batch", c1["batch"]), steps=c1["steps"],
             bit_equal=r["bit_equal"], weights_rel_l2=r["weights_rel_l2"],
-            loss_equal=r["loss_equal"], step_ms=r["step_ms"], peak_gb=r["peak_gb"],
-            launches=r["launches"])
+            loss_equal=r["loss_equal"], peak_gb=r["peak_gb"], launches=r["launches"])
         check(r["bit_equal"], f"{pair} at world size 1 is not bit-equal to no group "
               f"(weights rel L2 {r['weights_rel_l2']})")
         for name in ("fused_attention_flat", "fused_attention_flat_bwd"):
@@ -7004,8 +6572,7 @@ def run_parallel_slice(torch, gpu, tmp_root):
         say("parallel_two_process_opt", gpu=gpu, backend=r0["backend"], run=tag,
             worst_displacement=ok["worst_displacement"], gate=mp_chip.OPT_REL,
             fault_worst_displacement=bad["worst_displacement"], loss=ok["loss"],
-            ms=[ok["ms"], r1[tag]["ms"]], peak_gb=[ok["peak_gb"], r1[tag]["peak_gb"]],
-            single_ms=r0["single"][f"opt_{tag.split('_')[1]}"]["ms"], launches=ok["launches"])
+            peak_gb=[ok["peak_gb"], r1[tag]["peak_gb"]], launches=ok["launches"])
         check(ok["worst_displacement"][1] <= mp_chip.OPT_REL,
               f"two-process {tag}: displacement rel L2 {ok['worst_displacement']} > "
               f"{mp_chip.OPT_REL}")
@@ -7019,9 +6586,8 @@ def run_parallel_slice(torch, gpu, tmp_root):
         say("parallel_two_process", gpu=gpu, backend=r0["backend"], run=tag,
             grad_rel_l2=ok["grad_rel_l2"], gate=gate, loss_rel=ok["loss_rel"],
             fault_grad_rel_l2=bad["grad_rel_l2"], fault_loss_rel=bad["loss_rel"],
-            ms=[ok["ms"], r1[tag]["ms"]], peak_gb=[ok["peak_gb"], r1[tag]["peak_gb"]],
-            single_ms=r0["single"][tag]["ms"], single_peak_gb=r0["single"][tag]["peak_gb"],
-            launches=ok["launches"])
+            peak_gb=[ok["peak_gb"], r1[tag]["peak_gb"]],
+            single_peak_gb=r0["single"][tag]["peak_gb"], launches=ok["launches"])
         check(ok["grad_rel_l2"] <= gate, f"two-process {tag}: gradients rel L2 "
               f"{ok['grad_rel_l2']} > {gate}")
         check(bad["grad_rel_l2"] > gate, f"two-process {tag}: the planted fault passed the "

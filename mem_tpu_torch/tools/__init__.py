@@ -1,7 +1,8 @@
 """Command-line tools of the port that are not part of a model path: the
 experiment kernels' entry points (``exp_voxelize``, ``exp_attn_bwd``,
-``exp_voxelize2``) and the A/B helper of the flat attention kernels
-(``ab_flat_attention``).
+``exp_voxelize2``), the A/B helper of the flat attention kernels
+(``ab_flat_attention``), and the measuring tools (``trace_*``, ``bench_*``)
+on the step timers and profilers of ``step_timers``.
 
 This module holds what they and chip_smoke.py measure with: the CUDA-event
 timer, the H100's published peaks and the bounds reckoned from them."""

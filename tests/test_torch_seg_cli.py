@@ -263,16 +263,20 @@ assert len(names) > 38, names
 for new in ("ops.mlp", "train.mixup", "cli.run_class_finetuning", "tools.exp_voxelize",
             "tools.exp_attn_bwd", "tools.exp_voxelize2", "parallel.mesh", "parallel.pipeline",
             "cli.export_torch", "tools.mp_worker", "tools.mp_chip", "tools.trajectory",
-            "tools.trajectory_faults", "tools.soak", "tools.resume"):
+            "tools.trajectory_faults", "tools.soak", "tools.resume", "tools.step_timers",
+            "tools.trace_pretrain", "tools.trace_finetune", "tools.trace_mae", "tools.trace_vae",
+            "tools.trace_seg", "tools.trace_infer", "tools.bench_pretrain_step",
+            "tools.bench_serve", "tools.bench_host_loader", "tools.bench_host_feed"):
     assert "mem_tpu_torch." + new in names, new
 print("imported", len(names) + 1)
 '''
 
 
 def test_port_imports_nothing_of_jax_or_the_jax_package():
-    """Every module of mem_tpu_torch and chip_smoke imports with a meta-path
-    finder that refuses jax, flax, optax, orbax, mem_tpu and the reference's
-    scripts (extends
+    """Every module of mem_tpu_torch (the measuring tools and their step
+    timers among them) and chip_smoke imports with a meta-path finder that
+    refuses jax, flax, optax, orbax, mem_tpu and the reference's scripts
+    (extends
     test_pretraining_import_loads_no_jax of tests/test_torch_train.py)."""
     r = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                        env=dict(os.environ, PYTHONPATH=REPO), capture_output=True, text=True,
