@@ -235,6 +235,7 @@ available or mem_tpu_torch cannot be imported, and on any failed check.
 """
 from __future__ import annotations
 
+import atexit
 import collections
 import contextlib
 import functools
@@ -245,6 +246,7 @@ import os
 import re
 import signal
 import statistics
+import subprocess
 import sys
 import tempfile
 import threading
@@ -868,6 +870,9 @@ def run(torch):
         # -- the classification finetune slice (on the same synthetic dataset) --
         ft = run_finetune_slice(torch, dev, gpu, g, data_root, train_tmp.name)
         lap("finetune")
+        # -- chained dispatch: the graph chains against the eager loop --------
+        run_chain_slice(torch, dev, gpu, data_root, vae_path, train_tmp.name)
+        lap("chain")
     finally:
         signal.signal(signal.SIGTERM, signal.SIG_DFL)   # the CLI latched SIGTERM
         train_tmp.cleanup()
@@ -1897,10 +1902,10 @@ def seg_host_batch(data_root, B, batch_ops=True):
     return batch
 
 
-def make_seg_step(torch, sd, device, dtype, lr_fn, drop=0.1, depth=12):
+def make_seg_step(torch, sd, device, dtype, lr_fn, drop=0.1, depth=12, chain=False):
     """A full-width segmentor on ``device`` from the state_dict ``sd`` (its
     first ``depth`` blocks, the last four tapped) and its train step (the
-    CLI's optimizer: layer decay 0.65, betas 0.9 / 0.999)."""
+    CLI's optimizer: layer decay 0.65, betas 0.9 / 0.999), or its chain."""
     from mem_tpu_torch.cli.train_seg import SEG_BETAS
     from mem_tpu_torch.models.segmentation import build_segmentor
     from mem_tpu_torch.train.optim import create_optimizer
@@ -1913,7 +1918,8 @@ def make_seg_step(torch, sd, device, dtype, lr_fn, drop=0.1, depth=12):
                                    and int(k.split(".")[2]) >= depth)}, strict=True)
     opt = create_optimizer(model, 5e-4, 0.05, layer_decay=0.65, num_layers=depth,
                            betas=SEG_BETAS)
-    step, _ = make_seg_steps(model, opt, lr_fn, 0.05, 11, True, True, y_sorted=True)
+    step, _ = make_seg_steps(model, opt, lr_fn, 0.05, 11, True, True, y_sorted=True,
+                             chain=chain)
     return model, step
 
 
@@ -2305,7 +2311,8 @@ class _FixedTokens:
         return self.ids.to(images.device)
 
 
-def make_step(torch, R, args, device, dtype, vae, pp, lr_sched, moment_dtype=None):
+def make_step(torch, R, args, device, dtype, vae, pp, lr_sched, moment_dtype=None,
+              chain=False):
     from mem_tpu_torch.train.optim import create_optimizer
     from mem_tpu_torch.train.steps import make_pretrain_train_step
 
@@ -2314,7 +2321,7 @@ def make_step(torch, R, args, device, dtype, vae, pp, lr_sched, moment_dtype=Non
     opt = create_optimizer(model, args.lr, args.weight_decay, moment_dtype=moment_dtype)
     wd = np.full(len(lr_sched), args.weight_decay)
     step = make_pretrain_train_step(model, vae, opt, pp, lr_sched, wd, args.clip_grad,
-                                    args.seed)
+                                    args.seed, chain=chain)
     return model, step, opt
 
 
@@ -3524,9 +3531,9 @@ def finetune_host_batches(args, B, n):
 
 
 def make_finetune_step(torch, args, sd, device, dtype, pp, mix, lr_sched, update_freq=1,
-                       ema=False):
+                       ema=False, chain=False):
     """A full-width ft_vit on ``device`` from the state_dict ``sd`` and its
-    train step with the CLI's optimizer."""
+    train step (or its chain) with the CLI's optimizer."""
     from mem_tpu_torch.cli.common import build_classifier
     from mem_tpu_torch.train.optim import create_optimizer
     from mem_tpu_torch.train.steps import make_finetune_train_step
@@ -3540,7 +3547,7 @@ def make_finetune_step(torch, args, sd, device, dtype, pp, mix, lr_sched, update
     step = make_finetune_train_step(
         model, opt, pp, args.nb_classes, lr_sched, wd, mixup=mix, smoothing=args.smoothing,
         update_freq=update_freq, ema=ema_w, ema_decay=args.model_ema_decay if ema else None,
-        clip_grad=args.clip_grad, seed=args.seed)
+        clip_grad=args.clip_grad, seed=args.seed, chain=chain)
     return model, step, ema_w
 
 
@@ -3905,6 +3912,693 @@ def run_finetune_slice(torch, dev, gpu, g, data_root, tmp_root):
     times = time_finetune(torch, dev, gpu, g)
     return dict(counts=counts, counts_n401=counts_n401, k6f_err=k6f_err, k6b_err=k6b_err,
                 k5a_err=k5a_err, k5c_err=k5c_err, **times)
+
+
+# ---------------------------------------------------------------------------
+# the chained dispatch slice: --steps_per_dispatch K as one CUDA graph
+# ---------------------------------------------------------------------------
+
+CHAIN_K = 8              # the CLIs' default --steps_per_dispatch
+CHAIN_B = 64             # the full-width pretraining chain's batch
+CHAIN_SMALL_K = 3        # the depth-4 chains: chunks of 3 and 3, then a tail of 2
+CHAIN_DEPTH = 4
+CHAIN_SMALL_B = 4        # their batch (the seg chain's: 2)
+CHAIN_READ_STEPS = 8     # optimizer steps in each K=1 / K=8 reading
+# the bf16 chains, graph form against the stock form (chain_gaps: the
+# largest metric gap relative to the metric's largest value in the run; the
+# L2 gap of all tensors relative to their whole movement). The two forms
+# differ by the rounding of the schedule and the bias corrections (f32
+# against f64, ~1e-7 of an update); bf16 products carry it into the
+# gradients and Adam into every later update. Measured on an H100 80GB HBM3
+# at 700 W (PERF.md): metric gaps up to 1.9e-2 (pretraining), total tensor
+# gaps up to 9.3e-3 (the MAE); the frozen lr moved the MAE's tensors by
+# 9.9e-2 of their movement, the frozen batch op by 0.22. One tensor's gap is
+# not gated: a bias with a ~0 gradient (the MAE's qkv key bias) moves by
+# noise alone (0.60 of its movement). The metric bound is a sanity bound.
+CHAIN_TOL = {"metric": 1e-1, "state_total": 3e-2}
+
+
+@contextlib.contextmanager
+def patched(obj, name, value):
+    """``obj.name`` set to ``value`` within the block."""
+    real = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, real)
+
+
+def chain_blocks(batches, ks):
+    """Host batches stacked into one (k, ...) block per chunk length of
+    ``ks``, taken in turn (and around again when they run out)."""
+    out, i = [], 0
+    for k in ks:
+        bl = [batches[(i + j) % len(batches)] for j in range(k)]
+        out.append({key: np.stack([b[key] for b in bl]) for key in bl[0]})
+        i += k
+    return out
+
+
+def split_batch(batch, n):
+    """A host batch cut into ``n`` batches along its first axis."""
+    b = len(batch["aug_seed"]) // n
+    return [{k: v[i * b:(i + 1) * b] for k, v in batch.items()} for i in range(n)]
+
+
+class ChainRun:
+    """One chain driven over host (k, ...) blocks as a CLI drives it: each
+    block copied to the card by data/prefetch.py's ``device_prefetch`` with
+    the chain's own keywords (a graph chain's blocks land in its input
+    slots; the eager form keeps the batch ops on the host), chunk
+    ``thread_at`` called from a fresh thread: each chunk's metrics and
+    launch counts and the peak memory."""
+
+    def __init__(self, torch, chain, blocks, it0s, scheds=None, thread_at=None):
+        from mem_tpu_torch.data.prefetch import device_prefetch
+        from mem_tpu_torch.kernels import launch_counts, reset_launch_counts
+        from mem_tpu_torch.train.chain import prefetch_args
+
+        self.metrics, self.counts = [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fed = device_prefetch(iter(blocks), "cuda", **prefetch_args(chain))
+        for c, (blk, it0) in enumerate(zip(fed, it0s)):
+            kw = {} if scheds is None else {"sched": scheds[c]}
+            reset_launch_counts()
+            if c == thread_at:
+                box = {}
+
+                def call():
+                    try:
+                        box["m"] = chain(blk, it0, **kw)
+                        torch.cuda.synchronize()
+                    except BaseException as e:   # raised again on this thread
+                        box["error"] = e
+
+                th = threading.Thread(target=call, name="chain_replay")
+                th.start()
+                th.join()
+                if "error" in box:
+                    raise box["error"]
+                m = box["m"]
+            else:
+                m = chain(blk, it0, **kw)
+            torch.cuda.synchronize()
+            self.counts.append(launch_counts())
+            self.metrics.append({k: v.detach().float().cpu() for k, v in m.items()})
+        self.peak_gb = torch.cuda.max_memory_allocated() / 2**30
+
+
+def chain_state(model, extra=None):
+    """Copies of the model's parameters and buffers and of the ``extra``
+    tensors (the EMA)."""
+    out = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    for i, t in enumerate(extra or []):
+        out[f"extra.{i}"] = t.detach().clone()
+    return out
+
+
+def stock_form():
+    """Chains made inside the block take the eager form whatever their
+    optimizer: the step-at-a-time update with host floats, the batch ops
+    read on the host (the reference the graph chains are held against)."""
+    from mem_tpu_torch.train import chain as C
+
+    return patched(C, "eager_reason", lambda *a, **k: "the stock form of the check")
+
+
+def chain_gaps(torch, graph, stock, state_g, state_s, state_0):
+    """How far a graph run lies from the stock run. ``metric``: the largest
+    |graph - stock| of a metric over every chunk and step, relative to the
+    largest |stock| of that metric in the run (an accuracy near 0 early on
+    does not blow it up), and its name. Over the float parameters, buffers and extra
+    tensors, against how far the stock run moved each from ``state_0``:
+    ``state``, the largest L2 gap of one tensor relative to its own movement
+    (a tensor neither run moved: 0), and its name; ``state_total``, the L2
+    gap of all of them relative to their whole movement (a tensor that
+    barely moves, a bias whose gradient is ~0, cannot dominate it);
+    ``state_abs``, the largest absolute difference."""
+    metric, metric_worst = 0.0, None
+    for k in stock.metrics[0]:
+        g = torch.cat([m[k].reshape(-1) for m in graph.metrics]).double()
+        st = torch.cat([m[k].reshape(-1) for m in stock.metrics]).double()
+        gap = ((g - st).abs().max() / (st.abs().max() + 1e-6)).item()
+        if gap > metric:
+            metric, metric_worst = gap, k
+    state, worst, state_abs, gap2, moved2 = 0.0, None, 0.0, 0.0, 0.0
+    for name, vs in state_s.items():
+        if not vs.is_floating_point():
+            continue
+        diff = state_g[name].double() - vs.double()
+        d = diff.norm().item()
+        moved = (vs.double() - state_0[name].double()).norm().item()
+        gap2, moved2 = gap2 + d * d, moved2 + moved * moved
+        if not d:
+            continue
+        rel = d / moved if moved else float("inf")
+        if rel > state:
+            state, worst = rel, name
+        state_abs = max(state_abs, diff.abs().max().item())
+    total = (gap2 ** 0.5 / moved2 ** 0.5) if moved2 else (float("inf") if gap2 else 0.0)
+    return dict(metric=metric, metric_worst=metric_worst, state=state, state_worst=worst,
+                state_total=total, state_abs=state_abs)
+
+
+def check_chain_pair(torch, tag, make, blocks, it0s, kernels, tol, scheds=None, thread_at=None,
+                     fault=None):
+    """``make()`` -> (model, chain, extra tensors), twice from one seed: one
+    chain in the stock form (:func:`stock_form`) and one in the graph form,
+    driven over the same host blocks. Without ``fault``, checks that the
+    graph run lies within ``tol`` (bounds on some of the gaps of
+    :func:`chain_gaps`) of the stock one and that each chunk launched each
+    of ``kernels`` k times its per-step count in both forms (the replays
+    counted through their capture); returns the facts. With ``fault`` (a
+    context manager around the graph chain's making and run) returns
+    whether the gate held, which it must not."""
+    with stock_form():
+        model_s, chain_s, extra_s = make()
+    check(chain_s.form == "eager", f"{tag}: the stock run is {chain_s.describe(0)}")
+    state_0 = chain_state(model_s, extra_s)
+    stock = ChainRun(torch, chain_s, blocks, it0s, scheds)
+    state_s = chain_state(model_s, extra_s)
+    del model_s, chain_s, extra_s
+    torch.cuda.empty_cache()
+    with (fault() if fault else contextlib.nullcontext()):
+        model_g, chain_g, extra_g = make()
+        check(chain_g.form == "graph", f"{tag}: {chain_g.describe(0)}")
+        graph = ChainRun(torch, chain_g, blocks, it0s, scheds, thread_at)
+    state_g = chain_state(model_g, extra_g)
+    gaps = chain_gaps(torch, graph, stock, state_g, state_s, state_0)
+    ks = [int(next(iter(b.values())).shape[0]) for b in blocks]
+    out = dict(chunks=ks, gaps=gaps, tol=tol, tensors=len(state_s),
+               graphs=len(chain_g.graphs), peak_gb_graph=round(graph.peak_gb, 2),
+               peak_gb_stock=round(stock.peak_gb, 2))
+    del model_g, chain_g, extra_g, state_g, state_s, state_0
+    torch.cuda.empty_cache()
+    held = all(gaps[key] <= bound for key, bound in tol.items())
+    if fault:
+        say("chain_fault", run=tag, gate_held=held, **out)
+        return held
+    per_step = {n: stock.counts[0].get(n, 0) / ks[0] for n in kernels}
+    for c, k in enumerate(ks):
+        for n in kernels:
+            want = per_step[n] * k
+            check(per_step[n] >= 1 and stock.counts[c].get(n, 0) == want
+                  and graph.counts[c].get(n, 0) == want,
+                  f"{tag} chunk {c} (k={k}): {n} launched {graph.counts[c].get(n, 0)} times "
+                  f"in the graph, {stock.counts[c].get(n, 0)} in the stock form, not {want}")
+    say("chain_check", run=tag, per_step_launches=per_step,
+        losses=[m["loss"].tolist() for m in graph.metrics], **out)
+    check(held, f"{tag}: the graph chain lies {gaps} from the stock form, beyond {tol}")
+    return out
+
+
+def pretrain_chain_maker(torch, dev, args, vae, pp):
+    """make() for check_chain_pair: the CLI's model at ``args``'s widths
+    (pt_vit, or the MAE under --MAE 1) in bf16, its optimizer, schedules
+    that change every step, and its chain."""
+    from mem_tpu_torch.cli import run_mem_pretraining as R
+    from mem_tpu_torch.train.optim import create_optimizer
+    from mem_tpu_torch.train.schedules import cosine_scheduler
+    from mem_tpu_torch.train.steps import make_mae_train_step, make_pretrain_train_step
+
+    lr = cosine_scheduler(args.lr, args.min_lr, 1, 64, warmup_steps=8,
+                          start_warmup_value=args.warmup_lr)
+    wd = cosine_scheduler(args.weight_decay, 0.2, 1, 64)
+
+    def make():
+        model = R.build_model(args, torch.bfloat16, dev)
+        model.init_weights(torch.Generator().manual_seed(args.seed))
+        opt = create_optimizer(model, args.lr, args.weight_decay)
+        if args.MAE:
+            chain = make_mae_train_step(model, opt, pp, lr, wd, args.clip_grad, args.seed,
+                                        chain=True)
+        else:
+            chain = make_pretrain_train_step(model, vae, opt, pp, lr, wd, args.clip_grad,
+                                             args.seed, chain=True)
+        return model, chain, None
+    return make
+
+
+def read_chain_speed(torch, gpu, tag, step, chain, batch, block, batch_size):
+    """Wall ms a step and the card's busy share at K=1 (``step`` on
+    ``batch``) and at K = the block's length (``chain`` on ``block``), over
+    CHAIN_READ_STEPS optimizer steps after a warm-up (two steps; the chain's
+    first chunk and its capture) by tools/step_timers.trace_steps: the timed
+    window's median call, and the profiled window's kernel time, kernels a
+    step, the gap a step between them (wall - device) and the device ms a
+    step of each kernel family."""
+    from mem_tpu_torch.tools.step_timers import family, trace_steps
+
+    k = int(next(iter(block.values())).shape[0])
+    out = {}
+    for K in (1, k):
+        if K == 1:
+            for i in range(2):
+                step(batch, i)
+            calls = [lambda i=i: step(batch, 2 + i) for i in range(CHAIN_READ_STEPS)]
+        else:
+            for c in range(2):
+                chain(block, c * k)
+            calls = [lambda c=c: chain(block, (2 + c) * k) for c in range(CHAIN_READ_STEPS // k)]
+        res = trace_steps(calls, "cuda")
+        wall = res["wall_ms"] / K
+        device = sum(us for _, _, us in res["records"]) / 1e3 / CHAIN_READ_STEPS
+        kernels = sum(n for _, n, _ in res["records"]) / CHAIN_READ_STEPS
+        fams = collections.Counter()
+        for name, _, us in res["records"]:
+            fams[family(name)] += us / 1e3 / CHAIN_READ_STEPS
+        out[f"K{K}"] = dict(wall_ms_step=wall, device_ms_step=device, busy=device / wall,
+                            kernels_step=kernels, gap_ms_step=wall - device,
+                            gap_us_per_kernel=1e3 * (wall - device) / max(kernels, 1),
+                            families_ms_step=dict(fams.most_common(8)),
+                            peak_gb=res["peak_bytes"] / 2**30)
+    say("chain_reading", gpu=gpu, run=tag, batch=batch_size, steps=CHAIN_READ_STEPS, **out)
+    check(all(v["device_ms_step"] > 0 for v in out.values()),
+          f"{tag}: a reading recorded no device time: {out}")
+    return out
+
+
+def read_batch_ops(torch, dev, gpu, pp, host):
+    """RandAugment with batch ops (``--rand_aug_batch_ops 1``, two rounds)
+    on the pretraining recipe's uint8 canvases (``host``'s batch): the
+    device ms of the host branch, the mean over the 14 ops (the
+    step-at-a-time run and the eager chain), of the device choice of the
+    graph form (rand_augment.select_op, any op), and of the plain device
+    choice (every op on the batch, one kept), by torch.profiler over three
+    calls each."""
+    from mem_tpu_torch.data import device_pipeline as DP
+    from mem_tpu_torch.data.prefetch import to_device
+    from mem_tpu_torch.ops import rand_augment as ra
+
+    got = {}
+
+    def grab(u8, ops, bins, signs, batch_ops=None, **kw):
+        got.update(u8=u8, ops=ops, bins=bins, signs=signs, kw=kw)
+        return ra.rand_augment_batch(u8, ops, bins, signs, batch_ops, **kw)
+
+    with patched(DP, "rand_augment_batch", grab):
+        DP.preprocess_batch(to_device(host, dev), pp, is_train=True)
+    u8, ops, bins, signs = got["u8"], got["ops"], got["bins"], got["signs"]
+    rounds = ops.shape[1]
+
+    def every_op(op):   # the plain device choice: each op on the batch, one kept
+        img = u8.float()
+        table = ra.magnitude_table(u8.shape[1], u8.shape[2], device=dev)
+        for r in range(rounds):
+            mag = ra.signed_magnitudes(table, ops[:, r], bins[:, r], signs[:, r])
+            out = img
+            for j in range(ra.NUM_OPS):
+                out = torch.where(op[r] == j, ra.apply_op(img, j, mag), out)
+            img = out
+        return torch.clamp(img, 0, 255).to(torch.uint8)
+
+    fixed = [torch.full_like(ops, j) for j in range(ra.NUM_OPS)]
+    host_ms = kernel_device_ms(lambda: [
+        ra.rand_augment_batch(u8, fixed[j], bins, signs, np.full(rounds, j))
+        for j in range(ra.NUM_OPS)], ("",), n=3) / ra.NUM_OPS
+    op_t = torch.full((rounds,), ra.NUM_OPS - 1, dtype=torch.int32, device=dev)
+    select_ms = kernel_device_ms(lambda: ra.rand_augment_batch(u8, ops, bins, signs, op_t),
+                                 ("",), n=3)
+    every_ms = kernel_device_ms(lambda: every_op(op_t), ("",), n=3)
+    out = dict(batch=int(u8.shape[0]), canvas=list(u8.shape[1:3]), rounds=rounds,
+               host_branch_mean_ms=host_ms, select_op_device_ms=select_ms,
+               every_op_device_ms=every_ms)
+    say("chain_batch_ops_reading", gpu=gpu, **out)
+    check(select_ms > 0 and every_ms > 0, f"batch-op reading recorded nothing: {out}")
+    return out
+
+
+# the small optimizer chains (a f32 model with layer-decay and no-decay
+# groups): the device path rounds lr * scale, 1 - lr * wd and the bias
+# corrections in f32 where the stock update works in f64, ~1e-7 of an
+# update a step (on the CPU 1.2e-7 absolute after six steps,
+# tests/test_torch_chain.py); a decay on a no-decay group moves a LayerNorm
+# weight by wd = 5 % of its movement a step, a dropped scale by 25 % or more
+CHAIN_OPT_TOL = {"metric": 1e-4, "state": 1e-3}
+
+
+def check_chain_optimizers(torch, dev, sgd_capture):
+    """Each --opt the graph form takes, on a chain of a small f32 model with
+    layer-decay scales and no-decay groups (K=3, chunks 3, 3 and 2, lr and
+    wd changing every step): the graph chain against its stock form within
+    CHAIN_OPT_TOL; two planted faults in the graph form's schedule (the
+    decay on the no-decay groups, the layer-decay scale dropped) must fail
+    that gate; SGD, which the chain runs eagerly, must fail to capture when
+    forced into a graph (the reason the chain gives for it: ``sgd_capture``
+    waits for :func:`forced_capture`'s process)."""
+    from mem_tpu_torch.train import chain as C
+    from mem_tpu_torch.train import optim as O
+
+    g = torch.Generator().manual_seed(3)
+    xs = torch.randn(8, 16, 4, 256, generator=g).numpy()
+    blocks = [{"x": xs[i:i + k]} for i, k in ((0, 3), (3, 3), (6, 2))]
+
+    class Layered(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.pos_embed = torch.nn.Parameter(0.02 * torch.randn(1, 4, 256))
+            self.blocks = torch.nn.ModuleList(
+                torch.nn.Sequential(torch.nn.LayerNorm(256), torch.nn.Linear(256, 256))
+                for _ in range(2))
+            self.head = torch.nn.Linear(256, 256)
+
+        def forward(self, x):
+            x = x + self.pos_embed
+            for b in self.blocks:
+                x = x + torch.relu(b(x))
+            return self.head(x)
+
+    def make(name, moment_dtype=None):
+        def build():
+            torch.manual_seed(0)
+            model = Layered().to(dev)
+            opt = O.create_optimizer(model, 1e-3, 0.05, opt=name, moment_dtype=moment_dtype,
+                                     layer_decay=0.75, num_layers=2)
+
+            def body(batch, gen, sched):
+                x = batch["x"]
+                loss = (model(x) - x).square().mean()
+                opt.zero_grad(set_to_none=True)
+                loss.backward()
+                O.set_schedule(opt, sched["lr"], sched["wd"])
+                opt.step()
+                return {"loss": loss.detach()}
+
+            chain = C.Chain(body, device=dev, seed=0, optimizer=opt,
+                            sched_fn=lambda it: {"lr": 1e-3 * (1 + 0.1 * it),
+                                                 "wd": 0.05 * (1 - 0.02 * it)})
+            return model, chain, None
+        return build
+
+    def decay_on_no_decay_groups():
+        real = O.DeviceSchedule.__init__
+
+        def init(self, optimizer, device):
+            real(self, optimizer, device)
+            for i, grp in enumerate(optimizer.param_groups):
+                if not grp["decays"]:
+                    self.wd[i] = torch.zeros((), device=device)
+        return patched(O.DeviceSchedule, "__init__", init)
+
+    def lr_scale_dropped():
+        real = O.DeviceSchedule.__init__
+
+        def init(self, optimizer, device):
+            real(self, optimizer, device)
+            for grp in optimizer.param_groups:
+                grp["lr_scale"] = 1.0
+        return patched(O.DeviceSchedule, "__init__", init)
+
+    out = {}
+    for name, md in (("adamw", None), ("adamw", torch.bfloat16), ("adam", None),
+                     ("nadam", None), ("rmsprop", None), ("adadelta", None)):
+        tag = f"{name}{'_bf16_moments' if md else ''}"
+        out[tag] = check_chain_pair(torch, f"opt_{tag}", make(name, md), blocks, [0, 3, 6], (),
+                                    CHAIN_OPT_TOL)
+    held = {f"{name}_{f.__name__}": check_chain_pair(
+        torch, f"opt_{name}_{f.__name__}", make(name), blocks, [0, 3, 6], (), CHAIN_OPT_TOL,
+        fault=f) for name in ("adamw", "adam") for f in (decay_on_no_decay_groups,
+                                                           lr_scale_dropped)}
+    check(not any(held.values()), f"a planted schedule fault passed the gate: {held}")
+    out["faults"] = held
+    # a failed capture leaves the default CUDA generator mid-capture for the
+    # rest of its process: the forced captures run in a process of their own
+    for name, (reason, error) in sgd_capture().items():
+        out[name] = {"reason": reason, "forced_capture_error": error}
+        say("chain_optimizer_refused", opt=name, reason=reason, forced_capture_error=error)
+        check(reason is not None and "SGD" in reason, f"{name}: the chain would capture it")
+        check(error is not None, f"{name}: a forced capture went through")
+    return out
+
+
+def forced_capture(case):
+    """Start ``forced_case(case)`` in a process of its own (a failed capture
+    leaves the default CUDA generator mid-capture for the rest of its
+    process); the returned function waits for it and gives {name: (the
+    chain's eager reason, the capture's error or None)}."""
+    code = ("import sys, torch; sys.path.insert(0, '.'); import chip_smoke as S; "
+            f"print(S.forced_case(torch, torch.device('cuda'), {case!r}))")
+    proc = subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+    atexit.register(stop)   # a failed check before the wait leaves no process behind
+
+    def result():
+        try:
+            out, err = proc.communicate(timeout=300)
+        finally:
+            stop()
+        check(proc.returncode == 0, f"the forced capture {case}: {err[-2000:]}")
+        return json.loads(out.strip().splitlines()[-1])
+    return result
+
+
+def forced_case(torch, dev, case):
+    """A small MLP chain forced to capture what a graph cannot hold: ``sgd``
+    (torch.optim.SGD, made in the graph form by setting aside the chain's
+    reason for the eager one), or ``unregistered_generator`` (AdamW, its
+    body drawing dropout from the chain's generator, which the fault keeps
+    from being registered with the graph). Returns {case: (the chain's eager
+    reason, the capture's error or None)} as JSON."""
+    from mem_tpu_torch.train import chain as C
+    from mem_tpu_torch.train.optim import create_optimizer, set_schedule
+
+    xs = torch.randn(8, 16, 256, generator=torch.Generator().manual_seed(3)).to(dev)
+    torch.manual_seed(0)
+    model = torch.nn.Sequential(torch.nn.Linear(256, 512), torch.nn.ReLU(),
+                                torch.nn.Linear(512, 256)).to(dev)
+    opt = create_optimizer(model, 1e-3, 0.05, opt="sgd" if case == "sgd" else "adamw")
+
+    def body(batch, gen, sched):
+        x = batch["x"] * (torch.rand(batch["x"].shape, generator=gen, device=dev) < 0.9)
+        loss = (model(x) - batch["x"]).square().mean()
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        set_schedule(opt, sched["lr"], sched["wd"])
+        opt.step()
+        return {"loss": loss.detach()}
+
+    reason, error = C.eager_reason(dev, opt), None
+    forced = (patched(C, "eager_reason", lambda *a, **k: None) if case == "sgd" else
+              patched(torch.cuda.CUDAGraph, "register_generator_state", lambda self, g: None))
+    with forced:
+        chain = C.Chain(body, device=dev, seed=0, optimizer=opt,
+                        sched_fn=lambda it: {"lr": 1e-3, "wd": 0.05})
+        try:
+            for i in range(3):
+                chain({"x": xs[3 * i:3 * i + 2]}, 2 * i)
+            torch.cuda.synchronize()
+        except Exception as e:   # the capture's own error
+            error = repr(e)[:200]
+    return json.dumps({case: (reason, error)})
+
+
+def run_chain_slice(torch, dev, gpu, data_root, vae_path, tmp_root):
+    """Chained dispatch on the card (train/chain.py): the graph form of each
+    training chain against its stock form (the step-at-a-time update and
+    batch ops) within CHAIN_TOL, with exact launches and peak memory;
+    pretraining at full width (B=64, K=8, a tail chunk, one replay from a
+    fresh thread), the MAE, the finetune with EMA, seg training and the VAE
+    at depth 4 (K=3, a tail chunk); three planted faults on the MAE chain
+    that must fail the gate; then the K=1 and K=8 readings of the
+    pretraining recipe at B=128 and train_seg's at B=8, and the batch ops'
+    device ms."""
+    from mem_tpu_torch.cli import run_class_finetuning as F
+    from mem_tpu_torch.cli import run_mem_pretraining as R
+    from mem_tpu_torch.cli import train_vae as V
+    from mem_tpu_torch.cli.common import build_classifier
+    from mem_tpu_torch.data import device_pipeline as DP
+    from mem_tpu_torch.data.prefetch import to_device
+    from mem_tpu_torch.data.seg_pipeline import (SegBatchIterator, SegPipelineConfig,
+                                                 draw_seg_train_aug, scan_seg_pairs)
+    from mem_tpu_torch.models.segmentation import build_segmentor
+    from mem_tpu_torch.train import chain as C
+    from mem_tpu_torch.train.schedules import VaeAnnealState, poly_lr_schedule
+    from mem_tpu_torch.train.steps import make_vae_train_step
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    base = ["--config", "configs/ncaltech.conf", "--data_path", data_root,
+            "--discrete_vae_weight_path", vae_path, "--num_workers", "4", "--device", "cuda"]
+
+    def on_card(blocks):
+        return [to_device(b, dev, host_keys=()) for b in blocks]
+
+    parts, clock = {}, [t0]
+
+    def part(name):   # the seconds of each part of the slice
+        now = time.perf_counter()
+        parts[name], clock[0] = round(now - clock[0], 1), now
+
+    # the forced captures run beside the first checks, each in a process of its own
+    sgd_capture, unregistered = forced_capture("sgd"), forced_capture("unregistered_generator")
+    facts = {"optimizers": check_chain_optimizers(torch, dev, sgd_capture)}
+    part("optimizers")
+    # -- full width: pretraining ViT-B/16 at B=64, chunks of 8, 8, 8, 8 and 3
+    # (the warm-up, a capture on each set of input slots, a replay from a
+    # fresh thread, the tail)
+    args = R.get_args(base + ["--batch_size", str(CHAIN_B)])
+    host = [host_train_batch(args, CHAIN_B, i) for i in range(2)]
+    pp, host = host[0][0], [h for _, h in host]
+    vae = R.load_vae(args, dev)
+    ks = [CHAIN_K] * 4 + [3]
+    it0s = [int(x) for x in np.cumsum([0] + ks[:-1])]
+    facts["pretrain"] = check_chain_pair(
+        torch, "pretrain_b64_k8", pretrain_chain_maker(torch, dev, args, vae, pp),
+        chain_blocks(host, ks), it0s,
+        ("hist_planes_cols", "fused_attention_flat", "fused_attention_flat_bwd"), CHAIN_TOL,
+        thread_at=3)
+    part("pretrain")
+
+    # -- depth 4 at full width, K=3 (chunks 3, 3 and 2)
+    ks, it0s = [CHAIN_SMALL_K, CHAIN_SMALL_K, 2], [0, 3, 6]
+    depth = ["--transformer_depth", str(CHAIN_DEPTH)]
+    margs = R.get_args(mae_flags(data_root, os.path.join(tmp_root, "x")) + depth + [
+        "--mae_decoder_depth", str(CHAIN_DEPTH), "--device", "cuda"])
+    mpp, mhost = vae_host_batch(margs, 4 * CHAIN_SMALL_B, color_jitter=margs.color_jitter)
+    mhost = split_batch(mhost, 4)
+    for b in mhost:   # each batch its own draws, batch ops included
+        b.update(DP.draw_train_aug(b["aug_seed"], mpp, mpp.canvas_h, mpp.canvas_w))
+    make_mae = pretrain_chain_maker(torch, dev, margs, None, mpp)
+    mae_kernels = ("hist_planes_cols", "fused_attention_flat", "fused_attention_flat_bwd")
+    facts["mae"] = check_chain_pair(torch, "mae_d4_k3", make_mae, chain_blocks(mhost, ks), it0s,
+                                    mae_kernels, CHAIN_TOL)
+
+    # the planted faults, on the MAE chain: each must fail the gate
+    def frozen_lr_wd():
+        real, first = C.Chain._feed, {}
+
+        def feed(self, g, block, sched):   # later replays keep the first one's values
+            real(self, g, block, first.setdefault(id(g), sched))
+        return patched(C.Chain, "_feed", feed)
+
+    def frozen_batch_op():
+        real, first = DP.rand_augment_batch, mhost[0]["ra_batch_ops"]
+
+        def frozen(u8, ops, bins, signs, batch_ops=None, **kw):   # a host read, once
+            return real(u8, ops, bins, signs, None if batch_ops is None else first, **kw)
+        return patched(DP, "rand_augment_batch", frozen)
+
+    # six chunks: after the warm-up each of the two k = 3 graphs (one per set
+    # of input slots) replays twice
+    fks, fit0s = [CHAIN_SMALL_K] * 5 + [2], [0, 3, 6, 9, 12, 15]
+    fblocks = chain_blocks(mhost, fks)
+    held = {f.__name__: check_chain_pair(torch, f"mae_d4_k3_{f.__name__}", make_mae, fblocks,
+                                         fit0s, mae_kernels, CHAIN_TOL, fault=f)
+            for f in (frozen_lr_wd, frozen_batch_op)}
+    # an unregistered generator: this torch refuses the capture (a process of
+    # its own); the gate is then never reached with one mask for every step
+    (reason, error), = unregistered().values()
+    say("chain_fault", run="unregistered_generator", capture_error=error)
+    held["unregistered_generator"] = error is None
+    check(not any(held.values()), f"a planted chain fault passed the gate: {held}")
+    del fblocks
+    part("mae")
+
+    fargs = F.get_args(finetune_flags(data_root, "unused.pth", os.path.join(tmp_root, "x"))
+                       + depth + ["--device", "cuda"])
+    fpp, mix, micro = finetune_host_batches(fargs, CHAIN_SMALL_B, 4)
+    steps = [{k: np.stack([micro[2 * i][k], micro[2 * i + 1][k]]) for k in micro[0]}
+             for i in range(2)]
+    ref = build_classifier(fargs, fargs.nb_classes, torch.float32, torch.device("cpu"))
+    ref.init_weights(torch.Generator().manual_seed(0))
+    fsd, flr = ref.state_dict(), np.linspace(1e-4, 4e-4, 64)
+    del ref
+    facts["finetune"] = check_chain_pair(
+        torch, "finetune_ema_d4_k3", lambda: make_finetune_step(
+            torch, fargs, fsd, dev, torch.bfloat16, fpp, mix, flr, update_freq=2, ema=True,
+            chain=True),
+        chain_blocks(steps, ks), it0s,
+        ("hist_planes_cols", "fused_attention_flat", "fused_attention_flat_bwd"), CHAIN_TOL)
+
+    seg_root = os.path.join(tmp_root, "chain_dsec")
+    write_seg_pairs(seg_root, "train", 8, np.random.default_rng(28))
+
+    def seg_batches(B, n):
+        it = SegBatchIterator(scan_seg_pairs(seg_root, "imgs/train", "anns/train"),
+                              SegPipelineConfig(batch_size=B, is_train=True, max_evs=SEG_EVENTS,
+                                                presort_y=True))
+        out = list(itertools.islice(it.batches(), n))
+        for b in out:
+            b.update(draw_seg_train_aug(b["aug_seed"], True))
+        return out
+
+    seg = build_segmentor(11, 512, 768, 12, 12, torch.float32, torch.device("cpu"))
+    seg.init_weights(torch.Generator().manual_seed(0))
+    ssd, lr_fn = seg.state_dict(), poly_lr_schedule(5e-4, 64, warmup_iters=4)
+    del seg
+    # cuDNN's backward of the seg heads' bf16 convolutions picks
+    # nondeterministic algorithms (two eager loops differ from the first
+    # chunk's grad norm on): both forms run with deterministic ones here
+    with patched(torch.backends.cudnn, "deterministic", True):
+        facts["seg"] = check_chain_pair(
+            torch, "seg_d4_k3",
+            lambda: (*make_seg_step(torch, ssd, dev, torch.bfloat16, lr_fn, depth=CHAIN_DEPTH,
+                                    chain=True), None),
+            chain_blocks(seg_batches(2, 4), ks), it0s,
+            ("hist_planes_cols_sorted", "fused_attention_flat_long",
+             "fused_attention_flat_long_bwd"), CHAIN_TOL)
+
+    vargs = V.get_args(["--config", "configs/ncaltech.conf", "--data_path", data_root,
+                        "--device", "cuda"])
+    vpp, vhost = vae_host_batch(vargs, 4 * CHAIN_SMALL_B)
+    vhost = split_batch(vhost, 4)
+    for b in vhost:
+        b.update(DP.draw_train_aug(b["aug_seed"], vpp, vpp.canvas_h, vpp.canvas_w))
+    anneal, scheds = VaeAnnealState(vargs.learning_rate, 0.5, 1.0, 0.2, 0.5, every=1), []
+    for k in ks:   # the host walks the anneal over each chunk's steps (every step)
+        lrs, temps = [], []
+        for _ in range(k):
+            lrs.append(anneal.lr)
+            temps.append(anneal.temp)
+            anneal.after_step(anneal.global_step)
+        scheds.append({"lr": lrs, "temp": temps})
+
+    def make_vae():
+        model = V.build_vae(vargs, torch.bfloat16, dev)
+        model.init_weights(torch.Generator().manual_seed(0))
+        opt = torch.optim.Adam(model.parameters(), lr=vargs.learning_rate, betas=(0.9, 0.999),
+                               eps=1e-8)
+        return model, make_vae_train_step(model, opt, vpp, vargs.clip, 0, chain=True), None
+
+    facts["vae"] = check_chain_pair(torch, "vae_k3", make_vae, chain_blocks(vhost, ks), it0s,
+                                    ("hist_planes_cols",), CHAIN_TOL, scheds=scheds)
+    part("finetune_seg_vae")
+
+    # -- readings, no claim: K=1 against K=8
+    torch.cuda.empty_cache()
+    args = R.get_args(base + ["--batch_size", "128"])
+    pp, host = host_train_batch(args, 128)
+    lr = np.full(64, args.lr)
+    _, step, _ = make_step(torch, R, args, dev, torch.bfloat16, vae, pp, lr)
+    _, chain, _ = make_step(torch, R, args, dev, torch.bfloat16, vae, pp, lr, chain=True)
+    facts["read_pretrain"] = read_chain_speed(
+        torch, gpu, "run_mem_pretraining_b128", step, chain, to_device(host, dev),
+        on_card(chain_blocks([host], [CHAIN_K]))[0], 128)
+    del step, chain
+    part("read_pretrain")
+    facts["read_batch_ops"] = read_batch_ops(torch, dev, gpu, pp, host)
+    part("read_batch_ops")
+    torch.cuda.empty_cache()
+    (sb,) = seg_batches(8, 1)
+    _, step = make_seg_step(torch, ssd, dev, torch.bfloat16, lr_fn)
+    _, chain = make_seg_step(torch, ssd, dev, torch.bfloat16, lr_fn, chain=True)
+    facts["read_seg"] = read_chain_speed(
+        torch, gpu, "train_seg_b8", step, chain, to_device(sb, dev),
+        on_card(chain_blocks([sb], [CHAIN_K]))[0], 8)
+    del step, chain, vae
+    torch.cuda.empty_cache()
+    part("read_seg")
+    say("chain_facts", seconds=round(time.perf_counter() - t0, 1), parts=parts)
+    return facts
 
 
 # ---------------------------------------------------------------------------
@@ -6138,6 +6832,7 @@ def start_pipeline_script(tmp_root, rng):
     with open(conf, "w") as f:
         f.write(f"expweek = chip\nexpname = pipe\ndata_path = {root}\n"
                 f"profile_dir = {expdir}/profile\nlog_dir = {expdir}/tb/\n"
+                "steps_per_dispatch = 1\n"   # the stage traces its third step
                 "input_H = 32\ninput_W = 32\nslice_max_evs = 5000\nhotpixfilter = 0\n"
                 "normalize_events = 1\nrand_aug = 0\nmax_random_shift_evs = 2\n"
                 "num_workers = 0\nauto_resume = 0\nnum_layers = 2\nnum_tokens = 32\n"

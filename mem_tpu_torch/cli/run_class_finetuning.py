@@ -11,7 +11,9 @@ K6f/K6b) -> cross-entropy (soft targets / label smoothing); then the
 package accepts; AdamW under ``--freeze_backbone``) with BEiT layer decay
 and cosine lr / wd schedules, and the EMA of the weights.
 The host loads, slices and pads events, draws the augmentations and the
-mixup parameters, and copies each batch to the device one step ahead. After
+mixup parameters, and copies each batch to the device one step ahead
+(under ``--steps_per_dispatch K``, 8 by default: one (K, update_freq, B, ...)
+block a chunk, K optimizer steps per host dispatch, train/chain.py). After
 every epoch the val split is evaluated with the raw and the EMA weights
 (top-1 / top-5), and the best top-1 is tagged ``checkpoint-best.pth``.
 
@@ -81,10 +83,11 @@ from mem_tpu_torch.cli.common import (add_compat_args, add_imnet_args, add_prepr
                                       validate_preproc_args, warn_compat_args)
 from mem_tpu_torch.data.device_pipeline import (draw_train_aug, preprocess_batch,
                                                 with_image_draws)
-from mem_tpu_torch.data.prefetch import device_prefetch, prefetch, to_device
+from mem_tpu_torch.data.prefetch import chunk_batches, device_prefetch, prefetch, to_device
 from mem_tpu_torch.models import vit
 from mem_tpu_torch.parallel.mesh import (any_process, check_modes, common_count, get_mesh, is_main,
                                          local_batch_size, place_train_state, world_size)
+from mem_tpu_torch.train.chain import prefetch_args
 from mem_tpu_torch.train.mixup import draw_mixup, make_mixup
 from mem_tpu_torch.train.optim import SKIP_NAMES, create_optimizer
 from mem_tpu_torch.train.schedules import cosine_scheduler
@@ -145,8 +148,9 @@ def get_args(argv=None):
     p.add_argument("--batch_size", "--class_batch_size", type=int, default=1024)
     p.add_argument("--update_freq", "--class_update_freq", type=int, default=1)
     p.add_argument("--steps_per_dispatch", type=int, default=8,
-                   help="accepted; the port dispatches step by step (numerics "
-                        "unchanged)")
+                   help="optimizer steps per host dispatch (train/chain.py: one CUDA "
+                        "graph on the card where the configuration allows); 1 = step "
+                        "by step")
     p.add_argument("--lr", "--class_lr", type=float, default=4e-3)
     p.add_argument("--layer_decay", "--class_layer_decay", type=float, default=0.9)
     p.add_argument("--warmup_lr", type=float, default=1e-6)
@@ -312,9 +316,17 @@ def _grouped(it, n: int):
             buf = []
 
 
+def _stacked(it, n: int):
+    """Host dicts of n consecutive micro-batches stacked as (n, B, ...); an
+    incomplete tail is dropped."""
+    for micros in _grouped(it, n):
+        yield {k: np.stack([m[k] for m in micros]) for k in micros[0]}
+
+
 def main(argv=None):
     """Train (or, with ``--eval``, evaluate); returns ``{"history": [(step,
-    loss, grad_norm), ...] of the steps this process read back, "evals":
+    loss, grad_norm), ...] of the steps this process logged (every
+    LOG_EVERY-th of an epoch and its last, of those read back), "evals":
     [(epoch, stats, ema_stats or None), ...], "best_acc": x}``."""
     args = get_args(argv)
     validate_preproc_args(args, train=not args.eval)
@@ -439,11 +451,12 @@ def _run(args):
     mixup = make_mixup(nb_classes, args.mixup, args.cutmix, args.mixup_prob,
                        args.mixup_switch_prob, args.smoothing, mode=args.mixup_mode,
                        cutmix_minmax=args.cutmix_minmax)
+    K = max(1, args.steps_per_dispatch)
     train_step = make_finetune_train_step(
         model, optimizer, preproc_train, nb_classes, lr_sched, wd_sched, mixup=mixup,
         smoothing=args.smoothing, update_freq=args.update_freq, ema=ema,
         ema_decay=args.model_ema_decay if use_ema else None, clip_grad=args.clip_grad,
-        seed=args.seed + 2, image_preproc=image_preproc, placement=placement)
+        seed=args.seed + 2, image_preproc=image_preproc, placement=placement, chain=K > 1)
     eval_step = make_finetune_eval_step(model, preproc_val, placement=placement)
     main_proc = is_main()
 
@@ -513,6 +526,8 @@ def _run(args):
                 break
         print(f"dumped {idx} sample panels to {args.dump_samples_dir}")
 
+    if K > 1:
+        print(train_step.describe(K), flush=True)
     run = maybe_wandb(bool(args.wandb) and main_proc, project="mem_finetuning_classification",
                       group=f"{args.expweek}_{args.expname}")
     # the reference appends wandb_group to the TensorBoard directory (rank 0)
@@ -530,26 +545,37 @@ def _run(args):
                           for (name, p), e in zip(model.named_parameters(), ema)}
         return pay
 
+    n_chunks = -(-steps_per_epoch // K)
+    fetch_every = max(1, LOG_EVERY // K)   # chunks between metric reads
     for epoch in range(start_epoch, args.epochs):
         logger = MetricLogger()
         stop = False
         t0 = time.time()
-        micro = device_prefetch(
-            prefetch(_with_draws(train_it.epoch(epoch), preproc_train, mixup, args.seed,
-                                 image_draw)),
-            device)
-        for i, micros in enumerate(_grouped(micro, args.update_freq)):
-            it = epoch * steps_per_epoch + i
-            m = train_step(micros, it)
+        micro = _with_draws(train_it.epoch(epoch), preproc_train, mixup, args.seed, image_draw)
+        if K > 1:
+            # --steps_per_dispatch K: (k, update_freq, B, ...) blocks, one call
+            # of the chain each (train/chain.py)
+            blocks = chunk_batches(_stacked(micro, args.update_freq), K)
+            steps = device_prefetch(prefetch(blocks), device, **prefetch_args(train_step))
+        else:
+            steps = _grouped(device_prefetch(prefetch(micro), device), args.update_freq)
+        for i, batch in enumerate(steps):
+            it0 = epoch * steps_per_epoch + i * K
+            m = train_step(batch, it0)
             # read metrics back only periodically: a read waits for the device
-            if i % LOG_EVERY == 0 or i == steps_per_epoch - 1:
-                loss, gnorm = float(m["loss"]), float(m["grad_norm"])
-                if not math.isfinite(loss):
-                    raise RuntimeError(f"non-finite loss at epoch {epoch} step {it}")
-                logger.update(loss=loss)
-                result["history"].append((it, loss, gnorm))
-                if run and i % SINK_EVERY == 0:
-                    run.log({"train/loss": loss, "epoch": epoch, "step": it})
+            if i % fetch_every == 0 or i == n_chunks - 1:
+                losses = m["loss"].reshape(-1).float().cpu().numpy()
+                gnorms = m["grad_norm"].reshape(-1).float().cpu().numpy()
+                bad = [it0 + j for j in range(len(losses)) if not math.isfinite(losses[j])]
+                if bad:
+                    raise RuntimeError(f"non-finite loss at epoch {epoch} step {bad[0]}")
+                for j, (loss, gnorm) in enumerate(zip(losses, gnorms)):
+                    step = i * K + j   # the step-at-a-time run's records and points
+                    if step % LOG_EVERY == 0 or step == steps_per_epoch - 1:
+                        logger.update(loss=float(loss))
+                        result["history"].append((it0 + j, float(loss), float(gnorm)))
+                    if run and step % SINK_EVERY == 0:
+                        run.log({"train/loss": float(loss), "epoch": epoch, "step": it0 + j})
             stop = any_process(stopper.requested)
             if stop:
                 break

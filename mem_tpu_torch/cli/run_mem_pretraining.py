@@ -11,6 +11,13 @@ cross-entropy at the masked positions -> the ``--opt`` optimizer
 the cosine lr / wd schedules. ``--pretrained 1 --init_ckpt <timm .pth /
 .npz>`` warm-starts the encoder first (utils/timm_init.py). The host loads, slices and pads events, draws the masks and the
 augmentations, and copies each batch to the device one step ahead.
+``--steps_per_dispatch K`` (8 by default, as in the reference) runs K steps
+per host dispatch (train/chain.py): K host batches stacked into one block,
+copied one chunk ahead, the epoch's tail a shorter chunk; on the card one
+CUDA graph replay for the whole chunk where the configuration allows (the
+run's first line says ``chain: graph K=8`` or ``chain: eager K=8
+(<reason>)``). The metrics come back stacked and are read every
+max(1, 10 // K) chunks; every step goes into the history.
 
 The frozen tokenizer comes from ``--discrete_vae_weight_path``, a ``.pth``
 holding ``{"model": <reference VAE state_dict>, "hparams": {input_H,
@@ -39,7 +46,7 @@ Sinks, as the reference wires them: ``--log_dir`` writes TensorBoard scalars
 ``train/loss`` and ``train/grad_norm`` to wandb (both every 100 steps, read
 where the metrics are read back anyway; each falls back to nothing when its
 package is missing), ``--profile_dir`` writes a torch.profiler trace of the
-run's third step there, and the log line carries the steps' samples/s
+run's third step (chunk) there, and the log line carries the steps' samples/s
 (``utils.profiling.StepTimer``, two warm-up steps left out).
 
 Multi-process training (``torchrun --nproc_per_node N -m
@@ -86,11 +93,12 @@ from mem_tpu_torch.cli.common import (add_compat_args, add_imnet_args, add_prepr
                                       imnet_pipelines, resolve_device, validate_preproc_args,
                                       warn_compat_args)
 from mem_tpu_torch.data.device_pipeline import preprocess_batch, with_train_draws
-from mem_tpu_torch.data.prefetch import device_prefetch, prefetch, to_device
+from mem_tpu_torch.data.prefetch import chunk_batches, device_prefetch, prefetch, to_device
 from mem_tpu_torch.models.discrete_vae import DiscreteVAE
 from mem_tpu_torch.models.registry import create_model
 from mem_tpu_torch.parallel.mesh import (any_process, check_modes, common_count, get_mesh, is_main, local_batch_size,
                                          place_train_state, world_size)
+from mem_tpu_torch.train.chain import block_length, prefetch_args, step_of
 from mem_tpu_torch.train.optim import create_optimizer
 from mem_tpu_torch.train.schedules import at, cosine_scheduler
 from mem_tpu_torch.train.steps import (make_mae_train_step, make_pretrain_eval_step,
@@ -105,7 +113,7 @@ from mem_tpu_torch.utils.visualize import grid, mask_overlay, reconstruction_pan
 
 LOG_EVERY = 10   # steps between metric reads (the reference logs every 10)
 SINK_EVERY = 100  # steps between wandb / TensorBoard points (run_mem_pretraining.py:540-545)
-PROFILE_STEP = 2  # the step --profile_dir traces, once a run (run_mem_pretraining.py:513)
+PROFILE_STEP = 2  # the step (chunk) --profile_dir traces, once a run (run_mem_pretraining.py:508)
 
 
 def get_args(argv=None):
@@ -186,10 +194,11 @@ def get_args(argv=None):
                    help="log train/loss and train/grad_norm to wandb (needs the package)")
     p.add_argument("--dtype", type=str, default="bfloat16")
     p.add_argument("--profile_dir", type=str, default=None,
-                   help="write a torch.profiler trace of the run's third step here")
+                   help="write a torch.profiler trace of the run's third step (chunk) here")
     p.add_argument("--steps_per_dispatch", type=int, default=8,
-                   help="accepted; the port dispatches step by step (numerics "
-                        "unchanged)")
+                   help="optimizer steps per host dispatch (train/chain.py: one CUDA "
+                        "graph on the card where the configuration allows); 1 = step "
+                        "by step")
     p.add_argument("--dump_recon_dir", type=str, default=None)
     p.add_argument("--recon_grad_norm_thresh", type=float, default=6.0)
     p.add_argument("--rand_aug_batch_ops", type=int, default=1,
@@ -394,16 +403,20 @@ def main(argv=None):
         print(f"placement {placement.mode}: {world_size()} processes, "
               f"data {placement.data_size}, per-process batch {local_bs}")
 
+    K = max(1, args.steps_per_dispatch)
     if args.MAE:
         vae = eval_step = None
         train_step = make_mae_train_step(model, optimizer, preproc_train, lr_sched, wd_sched,
-                                         args.clip_grad, args.seed, placement=placement)
+                                         args.clip_grad, args.seed, placement=placement,
+                                         chain=K > 1)
     else:
         vae = load_vae(args, device)
         train_step = make_pretrain_train_step(model, vae, optimizer, preproc_train, lr_sched,
                                               wd_sched, args.clip_grad, args.seed,
-                                              placement=placement)
+                                              placement=placement, chain=K > 1)
         eval_step = make_pretrain_eval_step(model, vae, preproc_val, placement=placement)
+    if K > 1:
+        print(train_step.describe(K), flush=True)
     dump = args.dump_recon_dir if not args.MAE and is_main() else None
     keys = ("loss", "grad_norm") if args.MAE else ("loss", "mlm_acc", "grad_norm")
 
@@ -416,21 +429,24 @@ def main(argv=None):
     profiled = False
     history = []
     last_dump = -10**9   # the step of the last grad-norm-triggered recon dump
+    n_chunks = -(-steps_per_epoch // K)
+    fetch_every = max(1, LOG_EVERY // K)   # chunks between metric reads
     for epoch in range(start_epoch, args.epochs):
         t0 = time.time()
         timer = StepTimer(args.batch_size)
         rate = None
-        pending = []   # device metrics not yet read back
+        pending = []   # (first step, device metrics) not yet read back
         stop = False
 
         def flush():
-            ms = {k: torch.stack([m[k] for _, m in pending]).float().cpu().numpy()
+            ms = {k: torch.cat([m[k].reshape(-1) for _, m in pending]).float().cpu().numpy()
                   for k in keys}
-            for j, (it, _) in enumerate(pending):
+            steps = [it0 + j for it0, m in pending for j in range(m["loss"].numel())]
+            for j, it in enumerate(steps):
                 acc = float(ms["mlm_acc"][j]) if "mlm_acc" in ms else None
                 history.append((it, float(ms["loss"][j]), acc, float(ms["grad_norm"][j])))
-            bad = [it for it, loss, _, _ in history[-len(pending):] if not math.isfinite(loss)]
-            for it, loss, _, gnorm in history[-len(pending):]:
+            bad = [it for it, loss, _, _ in history[-len(steps):] if not math.isfinite(loss)]
+            for it, loss, _, gnorm in history[-len(steps):]:
                 if (it - epoch * steps_per_epoch) % SINK_EVERY:
                     continue
                 if run:
@@ -449,26 +465,33 @@ def main(argv=None):
             return float(ms["grad_norm"].max())
 
         host = train_it.epoch(epoch)   # IMNET: the views need no draws
-        batches = device_prefetch(
-            prefetch(host if imnet else with_train_draws(host, preproc_train)), device)
+        host = host if imnet else with_train_draws(host, preproc_train)
+        # --steps_per_dispatch K: (k, ...) blocks of K batches (the epoch's
+        # tail shorter), one call of the chain each (train/chain.py)
+        batches = device_prefetch(prefetch(chunk_batches(host, K) if K > 1 else host), device,
+                                  **prefetch_args(train_step))
         for i, batch in enumerate(batches):
-            it = epoch * steps_per_epoch + i
+            k = block_length(batch) if K > 1 else 1
+            it0 = epoch * steps_per_epoch + i * K
+            it = it0 + k - 1   # the chunk's last step
             do_trace = bool(args.profile_dir) and not profiled and i == PROFILE_STEP
             if do_trace and device.type == "cuda":
-                torch.cuda.synchronize(device)   # the trace holds this step alone
+                torch.cuda.synchronize(device)   # the trace holds this chunk alone
             with trace(args.profile_dir if do_trace else None):
-                pending.append((it, train_step(batch, it)))
+                pending.append((it0, train_step(batch, it0)))
                 if do_trace:
                     if device.type == "cuda":
                         torch.cuda.synchronize(device)
                     profiled = True
-            rate = timer.step() or rate
-            if len(pending) == LOG_EVERY or i == steps_per_epoch - 1:
+            for _ in range(k):
+                rate = timer.step() or rate
+            if len(pending) == fetch_every or i == n_chunks - 1:
                 gnorm_max = flush()
                 if dump and should_dump_on_grad_norm(
                         gnorm_max, it, last_dump, args.recon_grad_norm_thresh):
                     last_dump = it
-                    _dump_recon_panel(args, vae, preproc_train, batch, f"trigger_it{it}")
+                    _dump_recon_panel(args, vae, preproc_train,
+                                      step_of(batch, 0) if K > 1 else batch, f"trigger_it{it}")
             stop = any_process(stopper.requested)
             if stop:
                 break

@@ -18,7 +18,11 @@ the 440x640 canvas (kernel K4, the resize jitter, photometric RandAugment,
 the flips) -> the segmentor (attention through kernels K3f / K3b at 1025
 tokens) -> ``seg_loss`` -> AdamW. The host loads, crops, slices and presorts
 the events, draws the augmentations, and copies each batch to the device one
-step ahead. On ``--device cpu`` the kernels' plain versions run.
+step ahead. ``--steps_per_dispatch K`` (8 by default) runs up to K
+iterations per host dispatch (train/chain.py); a chunk never crosses an eval
+interval, a save interval or ``--max_iters`` (:func:`chunk_stream`), so the
+hooks fire at the reference's iterations. On ``--device cpu`` the kernels'
+plain versions run.
 
 Checkpoints are ``output_dir/checkpoint-{it}.pth`` = ``{"model": <state_dict
 in the export_seg_params keys>, "optimizer": ..., "epoch": it + 1}`` and
@@ -53,6 +57,7 @@ from mem_tpu_torch.data.seg_pipeline import (SegBatchIterator, SegPipelineConfig
 from mem_tpu_torch.models.segmentation import build_segmentor, seg_metrics
 from mem_tpu_torch.parallel.mesh import (any_process, get_mesh, init_distributed, is_main,
                                          local_batch_size, place_train_state, world_size)
+from mem_tpu_torch.train.chain import block_length, prefetch_args
 from mem_tpu_torch.train.optim import create_optimizer
 from mem_tpu_torch.train.schedules import poly_lr_schedule
 from mem_tpu_torch.train.steps import make_seg_steps, sum_confusion
@@ -95,8 +100,8 @@ def get_args(argv=None):
     p.add_argument("--warmup_iters", type=int, default=1500)
     p.add_argument("--eval_interval", type=int, default=4000)
     p.add_argument("--steps_per_dispatch", type=int, default=8,
-                   help="accepted for the reference's configs; the port "
-                        "dispatches iteration by iteration")
+                   help="iterations per host dispatch (train/chain.py: one CUDA graph on "
+                        "the card where the configuration allows); 1 = one at a time")
     p.add_argument("--save_interval", type=int, default=4000)
     p.add_argument("--rand_aug", type=int, default=1)
     p.add_argument("--rand_aug_batch_ops", type=int, default=1,
@@ -173,6 +178,22 @@ def _with_draws(it, rand_aug: bool, rand_aug_batch_ops: bool):
         yield batch
 
 
+def chunk_stream(batches, start_iter: int, max_iters: int, K: int, eval_interval: int,
+                 save_interval: int):
+    """The host batches as (k, ...) blocks of up to K iterations (single
+    batches at K = 1) that never cross an eval interval, a save interval or
+    ``max_iters``, so every hook fires at the reference's iterations
+    (train_seg.py:355-375)."""
+    it = start_iter
+    while it < max_iters:
+        nb = min((it // eval_interval + 1) * eval_interval,
+                 (it // save_interval + 1) * save_interval, max_iters)
+        k = min(K, nb - it)
+        bl = [next(batches) for _ in range(k)]
+        yield bl[0] if K == 1 else {key: np.stack([b[key] for b in bl]) for key in bl[0]}
+        it += k
+
+
 def _checkpoint(model, optimizer, next_iter: int, placement) -> dict:
     """The single-process payload (every process calls)."""
     payload = {"model": placement.model_state_dict(model), "epoch": next_iter}
@@ -243,9 +264,12 @@ def main(argv=None):
     # every process restored the single-process payload; now place it (DP,
     # with the BatchNorms over the global batch)
     placement = place_train_state(model, optimizer, mesh)
+    K = max(1, args.steps_per_dispatch)
     train_step, eval_step = make_seg_steps(
         model, optimizer, lr_fn, args.weight_decay, args.num_classes, rand_aug, batch_ops,
-        y_sorted=y_sorted, seed=args.seed + 7, placement=placement)
+        y_sorted=y_sorted, seed=args.seed + 7, placement=placement, chain=K > 1)
+    if K > 1:
+        print(train_step.describe(K), flush=True)
 
     def evaluate():
         cm = np.zeros((args.num_classes, args.num_classes))
@@ -275,22 +299,34 @@ def main(argv=None):
     history = []
     t0 = time.time()
     last_print = start_iter
-    batches = device_prefetch(
-        prefetch(_with_draws(train_it.batches(start_iter), rand_aug, batch_ops)), device)
-    for it in range(start_iter, args.max_iters):
+    # --steps_per_dispatch K: (k, ...) blocks of iterations, one call of the
+    # chain each (train/chain.py)
+    host = prefetch(chunk_stream(
+        prefetch(_with_draws(train_it.batches(start_iter), rand_aug, batch_ops)), start_iter,
+        args.max_iters, K, args.eval_interval, args.save_interval))
+    it0 = start_iter
+    for i, batch in enumerate(device_prefetch(host, device, **prefetch_args(train_step))):
         if any_process(stopper.requested):
             # SIGTERM: a resumable checkpoint that continues at this iteration
-            save_checkpoint(args.output_dir, it, _checkpoint(model, optimizer, it, placement))
-            print(f"preempted at iter {it}: checkpoint saved; exiting")
+            save_checkpoint(args.output_dir, it0, _checkpoint(model, optimizer, it0, placement))
+            print(f"preempted at iter {it0}: checkpoint saved; exiting")
             return history
-        m = train_step(next(batches), it)
-        # read metrics back only periodically: a read waits for the device
-        if (it - start_iter) % LOG_EVERY == 0:
-            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
-            if not math.isfinite(loss):
-                raise RuntimeError(f"non-finite loss at iter {it}")
-            logger.update(loss=loss)
-            history.append((it, loss, gnorm))
+        k = block_length(batch) if K > 1 else 1
+        m = train_step(batch, it0)
+        it = it0 + k - 1   # the chunk's last iteration
+        it0 += k
+        # read metrics back only periodically (every max(1, LOG_EVERY // K)
+        # chunks): a read waits for the device
+        if i % max(1, LOG_EVERY // K) == 0:
+            losses = m["loss"].reshape(-1).float().cpu().numpy()
+            gnorms = m["grad_norm"].reshape(-1).float().cpu().numpy()
+            bad = [it - k + 1 + j for j in range(k) if not math.isfinite(losses[j])]
+            if bad:
+                raise RuntimeError(f"non-finite loss at iter {bad[0]}")
+            for j in range(k):   # the one-at-a-time run's records
+                if (it - k + 1 + j - start_iter) % LOG_EVERY == 0:
+                    logger.update(loss=float(losses[j]))
+                    history.append((it - k + 1 + j, float(losses[j]), float(gnorms[j])))
         if it + 1 - last_print >= PRINT_EVERY:
             ips = args.batch_size * (it + 1 - last_print) / max(time.time() - t0, 1e-9)
             print(f"iter {it}/{args.max_iters} loss {logger.meters['loss'].avg:.4f} "

@@ -9,8 +9,9 @@ reconstruction loss + KL -> backward -> the clip -> plain Adam with the
 lr of the anneal. The lr and the temperature change once per 10,000 steps
 of an epoch, after the step (``VaeAnnealState``). The host loads, slices and
 pads events, draws the augmentations, and copies each batch to the device
-one step ahead. ``--steps_per_dispatch`` is accepted and the port steps one
-at a time, as the other CLIs do.
+one step ahead. ``--steps_per_dispatch K`` (8 by default) runs K steps per
+host dispatch (train/chain.py), the host walking the anneal over each
+chunk's steps (train_vae.py:284-303).
 
 Every ``--eval_freq`` epochs the val split is tokenized and decoded: the
 reconstruction MSE and the codebook usage are printed, and with
@@ -59,10 +60,11 @@ from mem_tpu_torch.cli.common import (add_compat_args, add_imnet_args, add_prepr
                                       imnet_pipelines, resolve_device, validate_preproc_args,
                                       warn_compat_args)
 from mem_tpu_torch.data.device_pipeline import with_image_draws, with_train_draws
-from mem_tpu_torch.data.prefetch import device_prefetch, prefetch, to_device
+from mem_tpu_torch.data.prefetch import chunk_batches, device_prefetch, prefetch, to_device
 from mem_tpu_torch.models.discrete_vae import DiscreteVAE
 from mem_tpu_torch.parallel.mesh import (any_process, common_count, get_mesh, is_main,
                                          local_batch_size, place_train_state, world_size)
+from mem_tpu_torch.train.chain import block_length, prefetch_args
 from mem_tpu_torch.train.schedules import VaeAnnealState
 from mem_tpu_torch.train.steps import make_vae_eval_step, make_vae_train_step
 from mem_tpu_torch.utils.checkpoint import (latest_numbered_checkpoint, load_checkpoint,
@@ -113,7 +115,8 @@ def get_args(argv=None):
                    help="declared and never read by the reference; accepted")
     p.add_argument("--save_ckpt_freq", "--vae_save_ckpt_freq", type=int, default=25)
     p.add_argument("--steps_per_dispatch", type=int, default=8,
-                   help="accepted; the port dispatches step by step (numerics unchanged)")
+                   help="optimizer steps per host dispatch (train/chain.py: one CUDA graph "
+                        "on the card where the configuration allows); 1 = step by step")
     p.add_argument("--output_dir", type=str, default="./vae_out")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--num_workers", type=int, default=4)
@@ -270,8 +273,12 @@ def main(argv=None):
         print(f"Auto-resumed from {ckpt} (epoch {start_epoch})")
     # every process restored the single-process payload; now place it (DP)
     placement = place_train_state(vae, optimizer, mesh)
+    K = max(1, args.steps_per_dispatch)
     train_step = make_vae_train_step(vae, optimizer, preproc_train, args.clip, args.seed,
-                                     image_preproc=image_preproc, placement=placement)
+                                     image_preproc=image_preproc, placement=placement,
+                                     chain=K > 1)
+    if K > 1:
+        print(train_step.describe(K), flush=True)
     eval_step = make_vae_eval_step(vae, preproc_val, placement=placement)
 
     run = maybe_wandb(bool(args.wandb) and is_main(), project="dalle_train_vae",
@@ -280,34 +287,49 @@ def main(argv=None):
     for epoch in range(start_epoch, args.epochs):
         t0 = time.time()
         step0 = sched.global_step
-        pending = []   # device metrics not yet read back
+        pending = []   # (first step, each step's lr, device metrics) not yet read back
 
         def flush():
-            ms = {k: torch.stack([m[k] for _, _, m in pending]).float().cpu().numpy()
+            ms = {k: torch.cat([m[k].reshape(-1) for _, _, m in pending]).float().cpu().numpy()
                   for k in ("loss", "grad_norm")}
-            for j, (it, lr, _) in enumerate(pending):
+            steps = [(it0 + j, lr) for it0, lrs, _ in pending for j, lr in enumerate(lrs)]
+            for j, (it, lr) in enumerate(steps):
                 history.append((it, float(ms["loss"][j]), float(ms["grad_norm"][j])))
                 if run and (it - step0) % SINK_EVERY == 0:
                     run.log({"epoch": epoch, "iter": it - step0,
                              "loss": float(ms["loss"][j]), "lr": lr})
-            it, lr, _ = pending[-1]
+            it, lr = steps[-1]
             pending.clear()
             _, loss, gnorm = history[-1]
             if not math.isfinite(loss):
                 raise RuntimeError(f"non-finite loss at step {it}")
-            print(f"Epoch: [{epoch}] [{i}/{steps_per_epoch}] loss: {loss:.4f} "
+            print(f"Epoch: [{epoch}] [{it - step0}/{steps_per_epoch}] loss: {loss:.4f} "
                   f"grad_norm: {gnorm:.4f} lr: {lr:.6e}", flush=True)
 
         host = train_it.epoch(epoch)
-        batches = device_prefetch(
-            prefetch(with_image_draws(host, **image_draw) if image_draw is not None
-                     else with_train_draws(host, preproc_train)), device)
+        host = (with_image_draws(host, **image_draw) if image_draw is not None
+                else with_train_draws(host, preproc_train))
+        # --steps_per_dispatch K: (k, ...) blocks, one call of the chain each
+        # (train/chain.py); the host walks the anneal over the chunk's steps
+        # and the chain takes each step's lr and temperature
+        batches = device_prefetch(prefetch(chunk_batches(host, K) if K > 1 else host), device,
+                                  **prefetch_args(train_step))
+        n_chunks = -(-steps_per_epoch // K)
         stop = False
         for i, batch in enumerate(batches):
             it = sched.global_step
-            pending.append((it, sched.lr, train_step(batch, it, sched.lr, sched.temp)))
-            sched.after_step(i)
-            if len(pending) == LOG_EVERY or i == steps_per_epoch - 1:
+            if K == 1:
+                pending.append((it, [sched.lr], train_step(batch, it, sched.lr, sched.temp)))
+                sched.after_step(i)
+            else:
+                lrs, temps = [], []
+                for j in range(block_length(batch)):
+                    lrs.append(sched.lr)
+                    temps.append(sched.temp)
+                    sched.after_step(i * K + j)
+                pending.append((it, lrs, train_step(batch, it, sched={"lr": lrs,
+                                                                      "temp": temps})))
+            if len(pending) == max(1, LOG_EVERY // K) or i == n_chunks - 1:
                 flush()
             stop = any_process(stopper.requested)
             if stop:

@@ -8,6 +8,13 @@ host memory and sent to the device with ``non_blocking=True`` on a side
 stream; the consumer's stream waits on an event recorded after the copies,
 and every device tensor is ``record_stream``-ed on the consumer's stream so
 its memory is not handed out again before the step that reads it is done.
+
+Under chained dispatch (``--steps_per_dispatch K``, train/chain.py) the items
+are ``chunk_batches``' (k, ...) blocks: one pinned copy a chunk, issued one
+chunk ahead. A graph chain's blocks carry the batch ops too
+(``host_keys=()``: the chain chooses them on the device) and land straight
+in the chain's static input slots (``into=chain.input_slots``), two sets a
+chunk shape used in turn, so the next block's copy runs beside the replay.
 """
 from __future__ import annotations
 
@@ -79,12 +86,12 @@ def chunk_batches(it: Iterable, k: int) -> Iterator:
                else {key: np.stack([x[key] for x in buf]) for key in buf[0]})
 
 
-def host_tensors(batch: dict) -> dict:
+def host_tensors(batch: dict, host_keys=HOST_KEYS) -> dict:
     """numpy batch -> CPU tensors (uint32 seeds widened to int64); the
-    ``HOST_KEYS`` draws stay numpy."""
+    ``host_keys`` draws stay numpy."""
     out = {}
     for k, v in batch.items():
-        if k in HOST_KEYS:
+        if k in host_keys:
             out[k] = v
             continue
         a = np.asarray(v)
@@ -94,20 +101,29 @@ def host_tensors(batch: dict) -> dict:
     return out
 
 
-def to_device(batch: dict, device) -> dict:
+def to_device(batch: dict, device, host_keys=HOST_KEYS) -> dict:
     """numpy batch -> tensors on ``device`` (a synchronous copy)."""
-    return {k: v if k in HOST_KEYS else v.to(device)
-            for k, v in host_tensors(batch).items()}
+    return {k: v if k in host_keys else v.to(device)
+            for k, v in host_tensors(batch, host_keys).items()}
 
 
-def device_prefetch(it: Iterable, device, depth: int = 1) -> Iterator:
+def device_prefetch(it: Iterable, device, depth: int = 1, host_keys=HOST_KEYS,
+                    into=None) -> Iterator:
     """Yield device batches, the copy of batch i + depth issued before batch
     i is handed out. On a CUDA device the copies run from pinned memory on a
-    side stream; elsewhere this is :func:`to_device`."""
+    side stream; elsewhere this is :func:`to_device`. ``host_keys``: the
+    draws that stay numpy (a graph chain's blocks pass ``()``). ``into``:
+    None, or ``into(pinned item) -> dict`` of device tensors (or None) that
+    the copy lands in instead of new memory, a graph chain's
+    ``input_slots``: two sets handed out in turn, so ``depth`` is 1 there,
+    and the copy waits for the work queued on the consumer's stream (the
+    replay that last read the set)."""
+    if into is not None and depth != 1:
+        raise ValueError("copies into a chain's two sets of input slots need depth 1")
     device = torch.device(device)
     if device.type != "cuda":
         for item in it:
-            yield to_device(item, device)
+            yield to_device(item, device, host_keys)
         return
     side = torch.cuda.Stream(device)
     pending: deque = deque()
@@ -122,11 +138,17 @@ def device_prefetch(it: Iterable, device, depth: int = 1) -> Iterator:
         return dev
 
     for item in it:
-        pinned = {k: v if k in HOST_KEYS else v.pin_memory()
-                  for k, v in host_tensors(item).items()}
+        pinned = {k: v if k in host_keys else v.pin_memory()
+                  for k, v in host_tensors(item, host_keys).items()}
+        slots = into({k: v for k, v in pinned.items() if k not in host_keys}) if into else None
         with torch.cuda.stream(side):
-            dev = {k: v if k in HOST_KEYS else v.to(device, non_blocking=True)
-                   for k, v in pinned.items()}
+            if slots is None:
+                dev = {k: v if k in host_keys else v.to(device, non_blocking=True)
+                       for k, v in pinned.items()}
+            else:
+                side.wait_stream(torch.cuda.current_stream(device))
+                dev = {k: v if k in host_keys else slots[k].copy_(v, non_blocking=True)
+                       for k, v in pinned.items()}
             event = torch.cuda.Event()
             event.record(side)
         pending.append((pinned, dev, event))

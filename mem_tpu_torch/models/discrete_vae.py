@@ -42,6 +42,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mem_tpu_torch.ops.consts import constant
+
 
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` in its input's dtype: the f32 weight and bias are cast
@@ -256,8 +258,8 @@ class DiscreteVAE(_GumbelVAE):
     def _norm(self, images):
         if self.normalization is None:
             return images
-        means = torch.as_tensor(self.normalization[0], dtype=images.dtype, device=images.device)
-        stds = torch.as_tensor(self.normalization[1], dtype=images.dtype, device=images.device)
+        means = constant(tuple(self.normalization[0]), images.dtype, images.device)
+        stds = constant(tuple(self.normalization[1]), images.dtype, images.device)
         return (images - means) / stds
 
     def encode_logits(self, img):

@@ -48,6 +48,7 @@ from torch import nn
 from mem_tpu_torch.models.discrete_vae import TorchConvTranspose, cudnn_full_f32
 from mem_tpu_torch.models.vit import (PatchEmbed, VitEncoder, _need_generator, dropout,
                                       trunc_normal_)
+from mem_tpu_torch.ops.consts import cached
 from mem_tpu_torch.ops.image_ops import resize_bilinear
 
 
@@ -254,8 +255,10 @@ class UPerHead(nn.Module):
         B, H, W, C = x.shape
         psp_outs = [x]
         for si, s in enumerate(self.pool_scales):
-            py = torch.as_tensor(adaptive_pool_matrix(s, H), device=x.device)
-            px = torch.as_tensor(adaptive_pool_matrix(s, W), device=x.device)
+            py = cached(("adaptive_pool", s, H), torch.float32, x.device,
+                        lambda: adaptive_pool_matrix(s, H))
+            px = cached(("adaptive_pool", s, W), torch.float32, x.device,
+                        lambda: adaptive_pool_matrix(s, W))
             pooled = torch.einsum("oh,bhwc->bowc", py, x)
             pooled = torch.einsum("pw,bowc->bopc", px, pooled)
             psp_outs.append(_upsample(getattr(self, f"psp_{si}")(pooled), H, W))

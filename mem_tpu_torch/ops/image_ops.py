@@ -19,6 +19,8 @@ import math
 import numpy as np
 import torch
 
+from mem_tpu_torch.ops.consts import as_f32, constant
+
 
 def _triangle_resize_matrix(out_size: int, src_size: int, src_extent,
                             src_offset=0.0, device=None) -> torch.Tensor:
@@ -28,8 +30,8 @@ def _triangle_resize_matrix(out_size: int, src_size: int, src_extent,
     canvas. The filter stretches by max(scale, 1) so downscaling low-passes
     (torch/PIL antialias=True); taps outside the logical window are zeroed
     and rows normalized to sum 1 (1e-12 floor)."""
-    ext = torch.as_tensor(src_extent, dtype=torch.float32, device=device)[..., None, None]
-    off = torch.as_tensor(src_offset, dtype=torch.float32, device=device)[..., None, None]
+    ext = as_f32(src_extent, device)[..., None, None]
+    off = as_f32(src_offset, device)[..., None, None]
     scale = ext / out_size
     fscale = torch.clamp(scale, min=1.0)
     out_c = off + (torch.arange(out_size, dtype=torch.float32, device=device)[:, None]
@@ -134,7 +136,7 @@ def _count_ch(img: torch.Tensor) -> torch.Tensor:
     for a voxel grid."""
     c = img.shape[-1]
     if c == 3:
-        return torch.tensor([1.0, 0.0, 1.0], dtype=img.dtype, device=img.device)
+        return constant((1.0, 0.0, 1.0), img.dtype, img.device)
     return torch.ones(c, dtype=img.dtype, device=img.device)
 
 
@@ -177,7 +179,8 @@ def remove_hot_pixels(img: torch.Tensor, num_stds: float = 10.0,
     Bessel's correction. ``num_hot_pixels``: the k largest count values are
     hot (threshold at the k-th order statistic)."""
     c = img.shape[-1]
-    cnt = img[..., [0, 2]] if c == 3 else img
+    # the count planes 0 and 2, by a kept index tensor (ops/consts.py)
+    cnt = img.index_select(-1, constant((0, 2), torch.long, img.device)) if c == 3 else img
     if num_hot_pixels is not None:
         flat = cnt.reshape(*cnt.shape[:-3], -1)
         k = min(int(num_hot_pixels), flat.shape[-1])
@@ -224,7 +227,7 @@ def adjust_brightness(img: torch.Tensor, factor) -> torch.Tensor:
 def adjust_saturation(img: torch.Tensor, factor) -> torch.Tensor:
     """Blend with the luma grayscale, clip to [0, 1] (image_ops.py:263)."""
     f = _per_sample(factor, img)
-    luma = torch.tensor(_CJ_LUMA, dtype=img.dtype, device=img.device)
+    luma = constant(_CJ_LUMA, img.dtype, img.device)
     gray = (img * luma).sum(dim=-1, keepdim=True)
     return torch.clamp(f * img + (1.0 - f) * gray, 0.0, 1.0)
 

@@ -30,6 +30,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from mem_tpu_torch.ops.consts import cached, constant
+
 NUM_BINS = 31
 NUM_OPS = 14
 PHOTO_START = 6           # ops >= 6 are photometric
@@ -60,7 +62,13 @@ def _linspace_f32(start: float, stop: float, num: int) -> torch.Tensor:
 
 def magnitude_table(h: int, w: int, device=None) -> torch.Tensor:
     """(14, 31) f32 magnitude bins, rows in OP_NAMES order; unsigned and
-    magnitude-free ops hold their own rows (rand_augment.py:45-65)."""
+    magnitude-free ops hold their own rows (rand_augment.py:45-65); made
+    once per (h, w, device) (ops/consts.py)."""
+    return cached(("magnitude_table", h, w), torch.float32, device or "cpu",
+                  lambda: _magnitude_rows(h, w))
+
+
+def _magnitude_rows(h: int, w: int) -> torch.Tensor:
     lin = _linspace_f32
     zeros = torch.zeros(NUM_BINS)
     posterize = 8 - torch.round(torch.arange(NUM_BINS, dtype=torch.float32)
@@ -69,14 +77,14 @@ def magnitude_table(h: int, w: int, device=None) -> torch.Tensor:
             lin(0.0, 150.0 / 331.0 * w, NUM_BINS), lin(0.0, 150.0 / 331.0 * h, NUM_BINS),
             lin(0.0, 30.0, NUM_BINS)] + [lin(0.0, 0.9, NUM_BINS)] * 4 + [
         posterize, lin(255.0, 0.0, NUM_BINS), zeros, zeros]
-    return torch.stack(rows).to(device)
+    return torch.stack(rows)
 
 
 def signed_magnitudes(table, ops, bins, signs) -> torch.Tensor:
     """table[op, bin], negated for signed ops when sign == 1. ops, bins,
     signs: (B,) int tensors on the table's device."""
     mag = table[ops.long(), bins.long()]
-    signed = torch.tensor(SIGNED, device=table.device)[ops.long()]
+    signed = constant(SIGNED, torch.bool, table.device)[ops.long()]
     return torch.where(signed & (signs == 1), -mag, mag)
 
 
@@ -94,9 +102,10 @@ def _shift_rows(img: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
     n = torch.floor(offsets)
     f = (offsets - n)[..., None, None]
     m = torch.clamp(n.long() + _PAD, 0, 2 * _PAD)
-    idx = (m[..., None] + torch.arange(W, device=img.device))[..., None].expand(B, H, W, C)
-    a = torch.gather(padded, 2, idx).float()
-    b2 = torch.gather(padded, 2, idx + 1).float()
+    col = m[..., None] + torch.arange(W, device=img.device)
+    # (B, H, W) indices broadcast over the channels, never materialized
+    a = torch.gather(padded, 2, col[..., None].expand(B, H, W, C)).float()
+    b2 = torch.gather(padded, 2, (col + 1)[..., None].expand(B, H, W, C)).float()
     return a * (1 - f) + b2 * f
 
 
@@ -179,7 +188,7 @@ def _blend(a, b, ratio):
 
 
 def _gray(img):
-    luma = torch.tensor(_LUMA, dtype=torch.float32, device=img.device)
+    luma = constant(_LUMA, torch.float32, img.device)
     return torch.round((img * luma).sum(dim=-1, keepdim=True))
 
 
@@ -201,7 +210,13 @@ _SHARP = ((1.0, 1.0, 1.0), (1.0, 5.0, 1.0), (1.0, 1.0, 1.0))
 
 def _sharpness(img, mag):
     """Blend with the [[1,1,1],[1,5,1],[1,1,1]]/13 blur (rounded, border
-    pixels kept), as nine shifted f32 sums: no convolution, so no TF32."""
+    pixels kept)."""
+    return _blend(img, _blurred(img), 1.0 + _bcast(mag))
+
+
+def _blurred(img):
+    """Sharpness's degenerate image, as nine shifted f32 sums: no
+    convolution, so no TF32."""
     B, H, W, C = img.shape
     padded = F.pad(img, (0, 0, 1, 1, 1, 1))
     blurred = torch.zeros_like(img)
@@ -211,8 +226,7 @@ def _sharpness(img, mag):
     blurred = torch.clamp(torch.round(blurred), 0, 255)
     interior = torch.zeros(H, W, 1, dtype=torch.bool, device=img.device)
     interior[1:H - 1, 1:W - 1] = True
-    blurred = torch.where(interior, blurred, img)
-    return _blend(img, blurred, 1.0 + _bcast(mag))
+    return torch.where(interior, blurred, img)
 
 
 def _posterize(img, mag):
@@ -269,6 +283,56 @@ def apply_op(img: torch.Tensor, op: int, mag: torch.Tensor) -> torch.Tensor:
     return _OPS[op](img, mag)
 
 
+def select_op(img: torch.Tensor, op: torch.Tensor, mag: torch.Tensor, ops=range(NUM_OPS)):
+    """:func:`apply_op` with the op a 0-d int tensor on the device (the
+    reference's ``lax.switch`` on a traced index), bit for bit, so nothing
+    is read back to the host and a CUDA graph replays the choice of each
+    batch. ``ops``: the pool the op comes from. The ops share their work
+    instead of each running on the batch: the five geometric ops are the
+    x-pass -> y-pass -> x-pass of :func:`geometric_round` with op-selected
+    offsets, each pass kept only where the op takes it (3 passes, not 7);
+    Brightness, Color, Contrast and Sharpness are one blend with an
+    op-selected degenerate image; Posterize, Solarize, AutoContrast and
+    Equalize run and the one ``op`` names is kept."""
+    pool = set(ops)
+    out = img
+    if pool & {_SHX, _SHY, _TRX, _TRY, _ROT}:
+        out = _select_geometric(img, op, mag)
+    blends = [j for j in (6, 7, 8, 9) if j in pool]
+    if blends:
+        gray = _gray(img)
+        deg = {6: lambda: 0.0, 7: lambda: gray,
+               8: lambda: gray.mean(dim=(1, 2, 3), keepdim=True),
+               9: lambda: _blurred(img)}
+        other = deg[blends[-1]]()
+        for j in reversed(blends[:-1]):
+            other = torch.where(op == j, deg[j](), other)
+        is_blend = (op >= blends[0]) & (op <= blends[-1])
+        out = torch.where(is_blend, _blend(img, other, 1.0 + _bcast(mag)), out)
+    for j in (10, 11, 12, 13):
+        if j in pool:
+            out = torch.where(op == j, _OPS[j](img, mag), out)
+    return out
+
+
+def _select_geometric(img, op, mag):
+    """The geometric op ``op`` names (the image itself for the others): the
+    offsets of each pass are those the op's own function computes."""
+    H, W = img.shape[1], img.shape[2]
+    t, s = _rot_shears(mag)
+    ic, jc = _centered(H, img.device), _centered(W, img.device)
+    x_trans = (-torch.trunc(mag))[:, None]
+    x1 = torch.where(op == _SHX, mag[:, None] * ic,
+                     torch.where(op == _TRX, x_trans.expand(-1, H), t[:, None] * ic))
+    y1 = torch.where(op == _SHY, mag[:, None] * jc,
+                     torch.where(op == _TRY, x_trans.expand(-1, W), s[:, None] * jc))
+    rows = (op == _SHX) | (op == _TRX) | (op == _ROT)
+    cols = (op == _SHY) | (op == _TRY) | (op == _ROT)
+    out = torch.where(rows, _shift_rows(img, x1), img)
+    out = torch.where(cols, _shift_cols(out, y1), out)
+    return torch.where(op == _ROT, _shift_rows(out, t[:, None] * ic), out)
+
+
 def photometric_select(img: torch.Tensor, ops: torch.Tensor, mag: torch.Tensor) -> torch.Tensor:
     """Each sample's photometric op (identity for geometric indices), the
     reference's per-sample ``lax.switch`` (rand_augment.py:373-376): every
@@ -287,7 +351,9 @@ def rand_augment_batch(imgs_u8: torch.Tensor, ops, bins, signs, batch_ops=None,
     344-435). ``batch_ops``: None for per-sample op choice (the shared
     geometric pipeline, then the photometric switch), or the (num_ops,) host
     ints of batch-level op choice (``--rand_aug_batch_ops 1``: each round
-    applies one op to the whole batch). ``geometric=False`` is the
+    applies one op to the whole batch; held in a device tensor, as a
+    chain's block holds them (train/chain.py), each round's op is chosen on
+    the device by :func:`select_op`, with the host branch's result). ``geometric=False`` is the
     segmentation pipeline's photometric-only mode: the ops come from
     PHOTOMETRIC_IDS and no geometric round runs (rand_augment.py:377-378).
     ``gate``: None, or the (B, num_ops) bool apply gates of timm's mode: where
@@ -299,7 +365,10 @@ def rand_augment_batch(imgs_u8: torch.Tensor, ops, bins, signs, batch_ops=None,
     img = imgs_u8.float()
     for r in range(ops.shape[1]):
         mag = signed_magnitudes(table, ops[:, r], bins[:, r], signs[:, r])
-        if batch_ops is not None:
+        if torch.is_tensor(batch_ops):
+            new = select_op(img, batch_ops[r], mag,
+                            range(NUM_OPS) if geometric else PHOTOMETRIC_IDS)
+        elif batch_ops is not None:
             new = apply_op(img, int(batch_ops[r]), mag)
         else:
             new = geometric_round(img, ops[:, r], mag) if geometric else img

@@ -31,7 +31,7 @@ def _time_surface_planes(xs, ys, ts, valid, in_bounds, H: int, W: int):
     is the max timestamp -> a scatter-amax over flat pixel indices. The
     normalisation runs over the sample's valid rows; only in-bounds rows
     scatter. Returns (B, H, W) f32 holding integers in [0, 255]."""
-    inf = torch.tensor(math.inf, dtype=ts.dtype, device=ts.device)
+    inf = torch.full((), math.inf, dtype=ts.dtype, device=ts.device)
     t_min = torch.where(valid, ts, inf).amin(dim=1, keepdim=True)
     t_max = torch.where(valid, ts, -inf).amax(dim=1, keepdim=True)
     denom = torch.clamp(t_max - t_min, min=1e-30)

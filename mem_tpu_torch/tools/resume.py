@@ -76,11 +76,20 @@ def _wrapped_factories(module, wrap):
             setattr(module, n, f)
 
 
+def _standing_in(step, fn):
+    """``fn`` in place of the train step ``step``: a chain's (train/chain.py)
+    ``describe``, host keys and input slots stay readable."""
+    for name in ("describe", "host_keys", "input_slots"):
+        if hasattr(step, name):
+            setattr(fn, name, getattr(step, name))
+    return fn
+
+
 @contextlib.contextmanager
 def record_steps(module):
     """Yields a list that fills with (global step, loss tensor) for every
     training step that ``module.main`` takes inside the block (read the
-    losses with :func:`losses`)."""
+    losses with :func:`losses`); a chain's call records each of its steps."""
     record = []
 
     def wrap(factory):
@@ -89,9 +98,10 @@ def record_steps(module):
 
             def recorded(batch, it, *rest, **kw):
                 m = step(batch, it, *rest, **kw)
-                record.append((int(it), m["loss"].detach()))
+                loss = m["loss"].detach()
+                record.extend((int(it) + j, v) for j, v in enumerate(loss.reshape(-1)))
                 return m
-            return recorded
+            return _standing_in(step, recorded)
         return make
 
     with _wrapped_factories(module, wrap):
@@ -124,7 +134,7 @@ def plant(module, fault: str):
                     if not first:
                         first.append(it)
                     return step(batch, it - first[0], *rest, **kw)
-                return restarted
+                return _standing_in(step, restarted)
             return make
 
         with _wrapped_factories(module, wrap):

@@ -279,7 +279,8 @@ def trace_steps(steps, device, trace_path=None) -> dict:
     to 0 just before and read just after. Returns ``wall_ms`` (the median
     ms per step), ``records`` (:func:`device_records` of the
     profiled window), ``counted`` (the launch counts of the profiled
-    window), ``peak_bytes`` (the card's peak memory over both windows, None
+    window; a chain's graph replays count the launches of their capture,
+    train/chain.py), ``peak_bytes`` (the card's peak memory over both windows, None
     on the CPU) and the last step's output. With ``trace_path`` the profile
     is also written there as a Chrome trace."""
     from torch.profiler import ProfilerActivity, profile

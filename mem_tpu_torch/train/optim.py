@@ -268,13 +268,13 @@ class AdamWLowPrecision(torch.optim.Optimizer):
             for p in ps:
                 if not self.state[p]:
                     self.state[p] = {
-                        "step": torch.zeros((), dtype=torch.float32),
+                        "step": torch.zeros((), dtype=torch.float32, device=(
+                            p.device if group.get("capturable") else None)),
                         "exp_avg": torch.zeros_like(p, dtype=group["moment_dtype"]),
                         "exp_avg_sq": torch.zeros_like(p, dtype=group["moment_dtype"])}
             sts = [self.state[p] for p in ps]
             for st in sts:
                 st["step"] += 1
-            t = int(sts[0]["step"].item())
             g = [p.grad.float() for p in ps]
             ms = [st["exp_avg"] for st in sts]
             vs = [st["exp_avg_sq"] for st in sts]
@@ -286,7 +286,12 @@ class AdamWLowPrecision(torch.optim.Optimizer):
             torch._foreach_add_(nu, vs, alpha=b2)
             torch._foreach_copy_(ms, mu)     # one rounding, on store
             torch._foreach_copy_(vs, nu)
-            # the step from the unrounded blends: mu / c1 / (sqrt(nu / c2) + eps)
+            # the step from the unrounded blends: mu / c1 / (sqrt(nu / c2) + eps);
+            # a step count on the host gives host corrections, one on the device
+            # (capturable, optim.DeviceSchedule) device ones
+            t = sts[0]["step"]
+            if t.is_cpu:
+                t = int(t)
             torch._foreach_div_(nu, 1 - b2 ** t)
             torch._foreach_sqrt_(nu)
             torch._foreach_add_(nu, group["eps"])
@@ -294,7 +299,11 @@ class AdamWLowPrecision(torch.optim.Optimizer):
             torch._foreach_div_(mu, nu)
             if group["weight_decay"]:
                 torch._foreach_add_(mu, ps, alpha=group["weight_decay"])
-            torch._foreach_add_(ps, mu, alpha=-group["lr"])
+            if torch.is_tensor(group["lr"]):
+                torch._foreach_mul_(mu, group["lr"])
+                torch._foreach_sub_(ps, mu)
+            else:
+                torch._foreach_add_(ps, mu, alpha=-group["lr"])
 
 
 class _PerTensor(torch.optim.Optimizer):
@@ -751,13 +760,104 @@ def create_optimizer(model: torch.nn.Module, lr: float, weight_decay: float,
     return Lookahead(inner, k=6, alpha=0.5) if with_lookahead else inner
 
 
-def set_schedule(optimizer, lr: float, wd: float) -> None:
+def set_schedule(optimizer, lr, wd) -> None:
     """Write this step's lr * scale into every group and wd into the
-    decaying ones."""
+    decaying ones (floats); an optimizer under a :class:`DeviceSchedule`
+    takes them through it (0-d device tensors, or floats). Called once the
+    step's gradients are final (after the clip)."""
+    if getattr(optimizer, "device_schedule", None) is not None:
+        optimizer.device_schedule.write(lr, wd)
+        return
     for g in optimizer.param_groups:
         g["lr"] = lr * g["lr_scale"]
         if g["decays"]:
             g["weight_decay"] = wd
+
+
+# where the weight decay of a DeviceSchedule goes: into the parameters before
+# the update (decoupled) or into the gradients (coupled); all but SGD are the
+# optimizers whose update a CUDA graph holds with the lr in a device tensor
+# (``capturable=True``)
+GRAPH_DECAY = {torch.optim.AdamW: "decoupled", AdamWLowPrecision: "decoupled",
+               torch.optim.Adam: "coupled", torch.optim.NAdam: "coupled",
+               torch.optim.RMSprop: "coupled", torch.optim.Adadelta: "coupled",
+               torch.optim.SGD: "coupled"}
+
+
+def graph_refusal(optimizer) -> Optional[str]:
+    """Why a CUDA graph cannot hold ``optimizer``'s update (the reason the
+    chain runs eagerly), or None."""
+    if isinstance(optimizer, Lookahead):
+        return "Lookahead: its every-k sync is a host branch"
+    if isinstance(optimizer, torch.optim.SGD):
+        return "SGD: torch.optim.SGD applies a tensor lr as a host number"
+    if isinstance(optimizer, _PerTensor):
+        return f"{type(optimizer).__name__}: its update reads the step count on the host"
+    if type(optimizer) not in GRAPH_DECAY:
+        return f"{type(optimizer).__name__}: not an optimizer the chain captures"
+    return None
+
+
+class DeviceSchedule:
+    """The lr and weight decay of ``optimizer``'s groups held in 0-d f32
+    device tensors, which a CUDA graph reads at every replay (a Python
+    float in a group would be frozen at capture). Each group's ``lr`` becomes
+    its slot and ``capturable`` is set on the card; the step counts (and NAdam's
+    ``mu_product``) move to the device. The groups' ``weight_decay`` becomes
+    0 and :meth:`write` applies the decay itself, as the optimizer would:
+    ``p *= 1 - lr * wd`` before a decoupled update (AdamW), ``g += wd * p``
+    before a coupled one (``GRAPH_DECAY``). A group without ``lr_scale`` /
+    ``decays`` (the VAE's Adam) has scale 1 and no decay. The optimizer's
+    ``state_dict`` keeps the step-at-a-time schema (floats, ``capturable``
+    off, the current wd), so a checkpoint resumes in either form. Load no
+    state into the optimizer after this: the graphs hold its tensors."""
+
+    def __init__(self, optimizer, device):
+        self.optimizer, self.kind = optimizer, GRAPH_DECAY[type(optimizer)]
+        device = torch.device(device)
+        self.wd = {}
+        for i, g in enumerate(optimizer.param_groups):
+            g["lr"] = torch.tensor(float(g["lr"]), dtype=torch.float32, device=device)
+            if g.get("decays", False):
+                self.wd[i] = torch.tensor(float(g["weight_decay"]), dtype=torch.float32,
+                                          device=device)
+            g["weight_decay"] = 0.0
+            # torch.optim captures only on a device; on the CPU (the tests'
+            # check of this arithmetic against the stock update) it reads
+            # the lr tensor as a number
+            g["capturable"] = device.type == "cuda"
+        for st in optimizer.state.values():
+            for key, v in list(st.items()):
+                if torch.is_tensor(v) and v.ndim == 0 and v.device != device:
+                    st[key] = v.to(device=device, dtype=torch.float32)
+        optimizer.device_schedule = self
+        optimizer.register_state_dict_post_hook(self._plain_state_dict)
+
+    @torch.no_grad()
+    def write(self, lr, wd) -> None:
+        """This step's lr (times each group's scale) and wd, then the decay."""
+        for i, g in enumerate(self.optimizer.param_groups):
+            g["lr"].copy_(lr * g.get("lr_scale", 1.0)) if torch.is_tensor(lr) else \
+                g["lr"].fill_(lr * g.get("lr_scale", 1.0))
+            if i not in self.wd:
+                continue
+            self.wd[i].copy_(wd) if torch.is_tensor(wd) else self.wd[i].fill_(wd)
+            ps = [p for p in g["params"] if p.grad is not None]
+            if not ps:
+                continue
+            if self.kind == "decoupled":
+                torch._foreach_mul_(ps, 1 - g["lr"] * self.wd[i])
+            else:
+                torch._foreach_add_([p.grad for p in ps], torch._foreach_mul(ps, self.wd[i]))
+
+    def _plain_state_dict(self, optimizer, state_dict):
+        for i, g in enumerate(state_dict["param_groups"]):
+            g["lr"] = float(g["lr"])
+            if "capturable" in g:
+                g["capturable"] = False
+            if i in self.wd:
+                g["weight_decay"] = float(self.wd[i])
+        return state_dict
 
 
 def state_bytes(optimizer) -> int:

@@ -23,8 +23,14 @@ K2b inside attention) -> the pre-clip global grad norm and the clip ->
 the ``--opt`` optimizer (AdamW by default) with this step's lr / wd. No loss scaling: bf16 has f32's exponent
 range, as in the reference. The step returns its metrics as 0-d device
 tensors and never waits on the device; the caller reads them when it logs.
-The reference's chained dispatch (``--steps_per_dispatch``) has no
-counterpart here yet: the port dispatches step by step.
+
+Every train-step factory takes ``chain=True`` as the JAX factories do
+(steps.py:16-28): it then returns a :class:`~mem_tpu_torch.train.chain.Chain`
+of the same step, ``chain(block, it0) -> {metric: (k,) tensor}`` over a
+(k, ...) block of device batches (finetune: (k, update_freq, B, ...)), one
+generator per chunk (train/chain.py), an eager loop or one replayed CUDA
+graph. The VAE's chain takes ``sched={"lr": [...], "temp": [...]}``, the
+anneal walked over the chunk's steps.
 
 On the IMNET image path (``--data_set IMNET``) a batch carries images made
 on the host instead of events: the pretraining step takes the two views
@@ -77,6 +83,7 @@ from mem_tpu_torch.models.discrete_vae import cudnn_full_f32
 from mem_tpu_torch.models.segmentation import confusion_matrix, seg_loss
 from mem_tpu_torch.models.pretrain import masked_cross_entropy, masked_cross_entropy_gathered
 from mem_tpu_torch.parallel.mesh import global_quotient, psum_metrics
+from mem_tpu_torch.train.chain import Chain, chunk_seed, step_of
 from mem_tpu_torch.train.mixup import MIXUP_KEYS, MixupConfig, mixup_apply, one_hot_smoothed
 from mem_tpu_torch.train.optim import clip_grad_global_norm, set_schedule
 from mem_tpu_torch.train.schedules import at
@@ -121,13 +128,26 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     """The dropout / drop-path generator of one step, seeded from
     (seed, step) on ``device``."""
     g = torch.Generator(device=device)
-    g.manual_seed(int(np.random.SeedSequence((int(seed), int(step))).generate_state(1)[0]))
+    g.manual_seed(chunk_seed(seed, step))
     return g
+
+
+def _param_device(module) -> torch.device:
+    return next(module.parameters()).device
+
+
+def _set_lr(optimizer, lr) -> None:
+    """The VAE's lr (its Adam has one scale-free group, no decay)."""
+    if getattr(optimizer, "device_schedule", None) is not None:
+        optimizer.device_schedule.write(lr, 0.0)
+        return
+    for g in optimizer.param_groups:
+        g["lr"] = lr
 
 
 def make_vae_train_step(vae, optimizer: torch.optim.Optimizer, preproc: PreprocConfig,
                         clip: float, seed: int = 0, inject_noise: bool = False,
-                        image_preproc=None, placement=None):
+                        image_preproc=None, placement=None, chain: bool = False):
     """Returns ``step(batch, rng, lr, temp) -> {"loss", "grad_norm"}``.
     ``batch``: device tensors (events or events_xyp, n_valid, extents,
     flips, shift and the draw_train_aug draws); ``rng``: the global step,
@@ -138,29 +158,41 @@ def make_vae_train_step(vae, optimizer: torch.optim.Optimizer, preproc: PreprocC
     ``vae.parameters()`` with betas (0.9, 0.999), eps 1e-8 and no weight
     decay; its lr is set before each update. An IMNET batch (``image``)
     goes through ``image_preproc(batch, generator=...)`` with the step's
-    generator (the global one under ``inject_noise``)."""
+    generator (the global one under ``inject_noise``). ``chain=True``: the
+    :class:`Chain` of this step, called ``chain(block, it0, sched={"lr":
+    [...], "temp": [...]})``; a block may carry each step's pre-drawn noise
+    under ``gumbel_noise`` (the ``inject_noise`` of a chain)."""
     params = [p for p in vae.parameters() if p.requires_grad]
     seed = _seed(seed, placement)
 
-    def step(batch: dict, rng, lr: float, temp: float) -> dict:
-        gen = None if inject_noise else step_generator(seed, rng, _batch_device(batch))
+    def body(batch: dict, gen, sched: dict, noise=None) -> dict:
         if "image" in batch:
             images = image_preproc(batch, generator=gen)
         else:
             images = preprocess_batch(batch, preproc, is_train=True)
         vae.train()
         with cudnn_full_f32():
-            if inject_noise:
-                loss = vae(images, temp, gumbel_noise=rng)
+            if noise is not None:
+                loss = vae(images, sched["temp"], gumbel_noise=noise)
             else:
-                loss = vae(images, temp, generator=gen)
+                loss = vae(images, sched["temp"], generator=gen)
             optimizer.zero_grad(set_to_none=True)
             loss.backward()
         gnorm = _reduce_and_norm(params, clip, placement)
-        for g in optimizer.param_groups:
-            g["lr"] = lr
+        _set_lr(optimizer, sched["lr"])
         _update(optimizer, placement)
         return {**_mean({"loss": loss.detach()}, placement), "grad_norm": gnorm}
+
+    if chain:
+        return Chain(lambda b, gen, sched: body(b, gen, sched, b.get("gumbel_noise")),
+                     device=_param_device(vae), seed=seed, optimizer=optimizer,
+                     placement=placement)
+
+    def step(batch: dict, rng, lr: float, temp: float) -> dict:
+        if inject_noise:
+            return body(batch, None, {"lr": lr, "temp": temp}, noise=rng)
+        return body(batch, step_generator(seed, rng, _batch_device(batch)),
+                    {"lr": lr, "temp": temp})
 
     return step
 
@@ -211,8 +243,9 @@ def _loss(model, images, mask, labels, generator=None, group=None):
 def make_pretrain_train_step(model, vae, optimizer: torch.optim.Optimizer,
                              preproc: PreprocConfig, lr_schedule: np.ndarray,
                              wd_schedule: np.ndarray, clip_grad=None, seed: int = 0,
-                             placement=None):
-    """Returns ``step(batch, it) -> {"loss", "mlm_acc", "grad_norm"}``.
+                             placement=None, chain: bool = False):
+    """Returns ``step(batch, it) -> {"loss", "mlm_acc", "grad_norm"}``, or
+    with ``chain`` its :class:`Chain`.
     ``batch``: device tensors (events or events_xyp, n_valid, extents,
     flips, shift, mask, and the draw_train_aug draws; on IMNET patches,
     vae_view and mask); ``it``: the global step, which indexes the schedules
@@ -220,49 +253,77 @@ def make_pretrain_train_step(model, vae, optimizer: torch.optim.Optimizer,
     params = [p for p in model.parameters() if p.requires_grad]
     seed, group = _seed(seed, placement), _group(placement)
 
-    def step(batch: dict, it: int) -> dict:
+    def body(batch: dict, gen, sched: dict) -> dict:
         images, vae_images = _pretrain_views(batch, preproc, True)
         mask = batch["mask"]
         with torch.no_grad():
             labels = vae.get_codebook_indices(vae_images)
         model.train()
-        loss, acc = _loss(model, images, mask, labels,
-                          step_generator(seed, it, images.device), group)
+        loss, acc = _loss(model, images, mask, labels, gen, group)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         gnorm = _reduce_and_norm(params, clip_grad, placement)
-        set_schedule(optimizer, at(lr_schedule, it), at(wd_schedule, it))
+        set_schedule(optimizer, sched["lr"], sched["wd"])
         _update(optimizer, placement)
         return {**_mean({"loss": loss.detach(), "mlm_acc": acc.detach()}, placement),
                 "grad_norm": gnorm}
 
-    return step
+    return _stepper(body, model, optimizer, placement, seed,
+                    _schedules(lr_schedule, wd_schedule), chain)
 
 
 def make_mae_train_step(model, optimizer: torch.optim.Optimizer, preproc: PreprocConfig,
                         lr_schedule: np.ndarray, wd_schedule: np.ndarray, clip_grad=None,
-                        seed: int = 0, placement=None):
+                        seed: int = 0, placement=None, chain: bool = False):
     """Returns ``step(batch, it, noise=None) -> {"loss", "grad_norm"}`` for a
     ``MaskedAutoencoderViT``. ``batch``: device tensors (events or
     events_xyp, n_valid, extents, flips, shift and the draw_train_aug draws;
     no mask); ``it``: the global step, which indexes the schedules and seeds
     the step's generator, from which the (B, L) shuffle noise is drawn unless
     ``noise`` passes it in (the reference's step takes its mask key
-    explicitly, steps.py:224-233)."""
+    explicitly, steps.py:224-233). ``chain=True``: its :class:`Chain` (the
+    noise from the chunk's generator, or each step's from the block's
+    ``noise``)."""
     params = [p for p in model.parameters() if p.requires_grad]
     seed, group = _seed(seed, placement), _group(placement)
 
-    def step(batch: dict, it: int, noise=None) -> dict:
+    def body(batch: dict, gen, sched: dict, noise=None) -> dict:
         images = preprocess_batch(batch, preproc, is_train=True)
         model.train()
-        loss, _, _ = model(images, noise=noise,
-                           generator=step_generator(seed, it, images.device), group=group)
+        loss, _, _ = model(images, noise=noise, generator=gen, group=group)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         gnorm = _reduce_and_norm(params, clip_grad, placement)
-        set_schedule(optimizer, at(lr_schedule, it), at(wd_schedule, it))
+        set_schedule(optimizer, sched["lr"], sched["wd"])
         _update(optimizer, placement)
         return {**_mean({"loss": loss.detach()}, placement), "grad_norm": gnorm}
+
+    sched_fn = _schedules(lr_schedule, wd_schedule)
+    if chain:
+        return _stepper(lambda b, gen, sched: body(b, gen, sched, b.get("noise")), model,
+                        optimizer, placement, seed, sched_fn, True)
+
+    def step(batch: dict, it: int, noise=None) -> dict:
+        return body(batch, step_generator(seed, it, _batch_device(batch)), sched_fn(it),
+                    noise=noise)
+
+    return step
+
+
+def _schedules(lr_schedule, wd_schedule):
+    """it -> the step's lr and wd from the per-step schedule arrays."""
+    return lambda it: {"lr": at(lr_schedule, it), "wd": at(wd_schedule, it)}
+
+
+def _stepper(body, model, optimizer, placement, seed: int, sched_fn, chain: bool):
+    """``body(batch, generator, sched)`` as ``step(batch, it)`` (the step's
+    own generator and schedule values) or, with ``chain``, as a Chain."""
+    if chain:
+        return Chain(body, device=_param_device(model), seed=seed, optimizer=optimizer,
+                     placement=placement, sched_fn=sched_fn)
+
+    def step(batch: dict, it: int) -> dict:
+        return body(batch, step_generator(seed, it, _batch_device(batch)), sched_fn(it))
 
     return step
 
@@ -284,31 +345,35 @@ def make_pretrain_eval_step(model, vae, preproc: PreprocConfig, placement=None):
 
 def make_seg_steps(model, optimizer: torch.optim.Optimizer, lr_fn, weight_decay: float,
                    num_classes: int, rand_aug: bool, rand_aug_batch_ops: bool = False,
-                   y_sorted: bool = False, seed: int = 0, placement=None):
+                   y_sorted: bool = False, seed: int = 0, placement=None, chain: bool = False):
     """Returns ``(train_step, eval_step)``. ``train_step(batch, it) ->
     {"loss", "grad_norm"}`` on a device batch (events_xyp or events, n_valid,
     label, flip, resize_jitter and, with ``rand_aug``, the draw_seg_train_aug
     draws); ``it`` is the global iteration, which ``lr_fn`` maps to the lr and
     which seeds the step's generator. ``eval_step(batch)`` -> the
     (num_classes, num_classes) f32 confusion matrix of this process's batch
-    (the CLI sums the processes' totals with :func:`sum_confusion`)."""
+    (the CLI sums the processes' totals with :func:`sum_confusion`). With
+    ``chain`` the train step is its :class:`Chain` (BatchNorm buffers
+    updated in place by every step)."""
     params = [p for p in model.parameters() if p.requires_grad]
     seed, group = _seed(seed, placement), _group(placement)
 
-    def train_step(batch: dict, it: int) -> dict:
+    def body(batch: dict, gen, sched: dict) -> dict:
         with torch.no_grad():
             images, labels = seg_preprocess_batch(batch, True, rand_aug, rand_aug_batch_ops,
                                                   y_sorted)
         model.train()
-        logits, aux = model(images, train=True,
-                            generator=step_generator(seed, it, images.device))
+        logits, aux = model(images, train=True, generator=gen)
         loss = seg_loss(logits, aux, labels, num_classes, group=group)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         gnorm = _reduce_and_norm(params, None, placement)
-        set_schedule(optimizer, lr_fn(it), weight_decay)
+        set_schedule(optimizer, sched["lr"], sched["wd"])
         _update(optimizer, placement)
         return {**_mean({"loss": loss.detach()}, placement), "grad_norm": gnorm}
+
+    train_step = _stepper(body, model, optimizer, placement, seed,
+                          lambda it: {"lr": lr_fn(it), "wd": weight_decay}, chain)
 
     def eval_step(batch: dict) -> torch.Tensor:
         model.eval()
@@ -363,7 +428,7 @@ def make_finetune_train_step(model, optimizer: torch.optim.Optimizer, preproc: P
                              smoothing: float = 0.0, update_freq: int = 1,
                              ema: list | None = None, ema_decay: float | None = None,
                              clip_grad=None, seed: int = 0, image_preproc=None,
-                             placement=None):
+                             placement=None, chain: bool = False):
     """Returns ``step(micro_batches, it) -> {"loss", "grad_norm"}``.
     ``micro_batches``: ``update_freq`` device batches (events or events_xyp,
     n_valid, extents, flips, shift, label, the draw_train_aug draws and, with
@@ -374,21 +439,24 @@ def make_finetune_train_step(model, optimizer: torch.optim.Optimizer, preproc: P
     ``decay * ema + (1 - decay) * param``; None (with ``ema_decay`` None)
     keeps no EMA at all. An IMNET micro-batch (``image``, label and the
     draw_image_aug draws) goes through ``image_preproc(batch, generator=...)``
-    with the micro-batch's generator before the mixup."""
+    with the micro-batch's generator before the mixup. ``chain=True``: its
+    :class:`Chain` over (k, update_freq, B, ...) blocks, every micro-batch
+    drawing from the chunk's generator."""
     if (ema is None) != (ema_decay is None):
         raise ValueError("pass both ema and ema_decay, or neither")
     params = [p for p in model.parameters() if p.requires_grad]
     all_params = list(model.parameters())
     seed, group = _seed(seed, placement), _group(placement)
+    sched_fn = _schedules(lr_schedule, wd_schedule)
 
-    def step(micro_batches, it: int) -> dict:
+    def body(micro_batches, gens, sched: dict) -> dict:
         if len(micro_batches) != update_freq:
             raise ValueError(f"expected {update_freq} micro-batches, got {len(micro_batches)}")
         model.train()
         optimizer.zero_grad(set_to_none=True)
         total = None
         for i, batch in enumerate(micro_batches):
-            gen = step_generator(seed, it * update_freq + i, _batch_device(batch))
+            gen = gens(i, batch)
             with torch.no_grad():
                 if "image" in batch:
                     images = image_preproc(batch, generator=gen)
@@ -404,7 +472,7 @@ def make_finetune_train_step(model, optimizer: torch.optim.Optimizer, preproc: P
             loss.backward()
             total = loss.detach() if total is None else total + loss.detach()
         gnorm = _reduce_and_norm(params, clip_grad, placement)
-        set_schedule(optimizer, at(lr_schedule, it), at(wd_schedule, it))
+        set_schedule(optimizer, sched["lr"], sched["wd"])
         _update(optimizer, placement)
         if ema is not None:
             with torch.no_grad():
@@ -412,6 +480,19 @@ def make_finetune_train_step(model, optimizer: torch.optim.Optimizer, preproc: P
                 torch._foreach_add_(ema, [p.detach() for p in all_params],
                                     alpha=1.0 - ema_decay)
         return {**_mean({"loss": total}, placement), "grad_norm": gnorm}
+
+    if chain:
+        def chained(batch: dict, gen, sched: dict) -> dict:
+            return body([step_of(batch, j) for j in range(update_freq)],
+                        lambda i, b: gen, sched)
+
+        return Chain(chained, device=_param_device(model), seed=seed, optimizer=optimizer,
+                     placement=placement, sched_fn=sched_fn)
+
+    def step(micro_batches, it: int) -> dict:
+        return body(micro_batches,
+                    lambda i, b: step_generator(seed, it * update_freq + i, _batch_device(b)),
+                    sched_fn(it))
 
     return step
 

@@ -140,7 +140,8 @@ def test_pretraining_cli_sinks(tmp_path, monkeypatch, capsys):
     """--profile_dir traces the third step, --log_dir writes a TensorBoard
     event file under log_dir + wandb_group, --wandb 1 logs train/loss and
     train/grad_norm at step 0 (every 100 steps), and the log line carries
-    samples/s."""
+    samples/s; step by step (--steps_per_dispatch 1: a chained run traces
+    its third chunk, test_pretraining_cli_sinks_chained)."""
     from mem_tpu_torch.cli import run_mem_pretraining as R
 
     fake = _FakeWandb()
@@ -149,7 +150,7 @@ def test_pretraining_cli_sinks(tmp_path, monkeypatch, capsys):
     flags = _flags(tmp_path, root, vae) + [
         "--epochs", "1", "--profile_dir", str(tmp_path / "prof"),
         "--log_dir", str(tmp_path / "tb") + "/", "--wandb_group", "grp", "--wandb", "1",
-        "--expweek", "w", "--expname", "n"]
+        "--expweek", "w", "--expname", "n", "--steps_per_dispatch", "1"]
     monkeypatch.setattr(R, "LOG_EVERY", 1)                # a log line per step
     hist = R.main(flags)
     assert len(hist) == 3
@@ -162,6 +163,27 @@ def test_pretraining_cli_sinks(tmp_path, monkeypatch, capsys):
     assert fake.logs == [{"train/loss": hist[0][1], "train/grad_norm": hist[0][3], "step": 0}]
     out = capsys.readouterr().out
     assert "samples/s:" in out and "not ported" not in out
+
+
+def test_pretraining_cli_sinks_chained(tmp_path, monkeypatch, capsys):
+    """At --steps_per_dispatch 3 (12 steps of batch 1: four chunks)
+    --profile_dir traces the third chunk (run_mem_pretraining.py:508),
+    --wandb 1 logs step 0, every step is in the history and the start line
+    names the chain's form."""
+    from mem_tpu_torch.cli import run_mem_pretraining as R
+
+    fake = _FakeWandb()
+    monkeypatch.setitem(sys.modules, "wandb", fake)
+    root, vae = _write_inputs(tmp_path)
+    flags = _flags(tmp_path, root, vae) + [
+        "--epochs", "1", "--profile_dir", str(tmp_path / "prof"), "--wandb", "1",
+        "--batch_size", "1", "--steps_per_dispatch", "3"]
+    hist = R.main(flags)
+    assert [h[0] for h in hist] == list(range(12))
+    traces = os.listdir(tmp_path / "prof")
+    assert len(traces) == 1 and traces[0].endswith(".pt.trace.json")
+    assert fake.logs == [{"train/loss": hist[0][1], "train/grad_norm": hist[0][3], "step": 0}]
+    assert "chain: eager K=3 (device cpu)" in capsys.readouterr().out
 
 
 def test_finetune_and_vae_cli_wandb(tmp_path, monkeypatch):

@@ -49,10 +49,25 @@ def test_run_pipeline_torch(synth_dataset, tmp_path):
     """One .conf -> VAE -> pretraining -> finetune on the port, the stage
     checkpoints handed on as .pth files and pruned; the optional keys
     (vae_skip, vae_checkpoint, ...) absent, as in the reference's test; a
-    profile_dir key traces the pretraining stage's third step."""
+    profile_dir key traces the pretraining stage's third step (the conf
+    steps one at a time: test_run_pipeline_torch_chained chains)."""
+    _pipeline(synth_dataset, tmp_path, "steps_per_dispatch = 1\n")
+
+
+def test_run_pipeline_torch_chained(synth_dataset, tmp_path):
+    """The same pipeline with ``steps_per_dispatch = 3`` in the conf and a
+    pretraining batch of 2 (12 steps an epoch, four chunks): every stage
+    chains, and profile_dir traces the pretraining stage's third chunk."""
+    log = _pipeline(synth_dataset, tmp_path, "steps_per_dispatch = 3\n",
+                    pt_batch_size=2)
+    assert log.count("chain: eager K=3 (device cpu)") == 3
+
+
+def _pipeline(synth_dataset, tmp_path, extra: str, pt_batch_size: int = 8) -> str:
     conf = tmp_path / "pipe.conf"
     expdir = tmp_path / "exp"
     conf.write_text(
+        extra +
         "expweek = t\nexpname = pipe\ndevice = cpu\n"
         f"profile_dir = {expdir}/profile\n"
         f"data_path = {synth_dataset}\n"
@@ -66,7 +81,7 @@ def test_run_pipeline_torch(synth_dataset, tmp_path):
         "clip = 0.01\neval_freq = 10\nvae_save_ckpt_freq = 1\n"
         "transformer_emb = 32\ntransformer_depth = 2\ntransformer_heads = 2\n"
         "num_mask_patches = 32\nmin_mask_patches_per_block = 4\nmask_pool_size = 16\n"
-        "pt_epochs = 2\npt_batch_size = 8\npt_lr = 1e-3\nwarmup_epochs = 0\n"
+        f"pt_epochs = 2\npt_batch_size = {pt_batch_size}\npt_lr = 1e-3\nwarmup_epochs = 0\n"
         "save_ckpt_freq = 1\n"
         "class_epochs = 2\nclass_batch_size = 8\nclass_lr = 2e-3\n"
         "class_warmup_epochs = 0\nclass_update_freq = 1\nmixup_prob = 0\n"
@@ -82,9 +97,11 @@ def test_run_pipeline_torch(synth_dataset, tmp_path):
     assert (expdir / "config.conf").read_text() == conf.read_text()
     log = (expdir / "logs" / "log.txt").read_text()
     assert "== pipeline done" in out and "device cpu" in log and "Traceback" not in log
-    # the conf's profile_dir reached the pretraining stage: its third step's trace
+    # the conf's profile_dir reached the pretraining stage: its third step's
+    # (chunk's) trace
     traces = os.listdir(expdir / "profile")
     assert len(traces) == 1 and traces[0].endswith(".pt.trace.json")
+    return log
 
 
 def test_run_ss_torch(tmp_path):
